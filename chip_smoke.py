@@ -5,18 +5,34 @@
 
 Phases, each of which raises (exit code != 0) when it fails:
   1. environment: torch, CUDA, Triton, nvcc, the card's name and power limit;
-  2. build: nvcc compiles every kernel from visper_lm_tpu_torch/csrc;
-  3. kernels: each kernel vs its plain PyTorch version on the card, on the rows
-     that have at least one valid key (bf16 max abs error <= 2e-2 against the
-     plain version computed in f32; f32 <= 1e-4), with the kernel's, the plain
-     version's and one library call's time (the library call is a yardstick
-     only; the port never calls it) beside the least time the card could take;
-  4. main path: Phi3-mini-4k + CLIP-ViT-L/14-336 (distill task tokens) at full
-     width with seeded random weights serves 8 left-padded multimodal prompts
-     (768 tokens) through `Generator.generate`, greedy, 32 new tokens. The
-     flash kernel must launch exactly once per decoder layer (32) in that run,
-     and the prefill logits must match a prefill with plain attention within
-     0.05 x max|logits| (bf16 through 32 layers).
+  2. build: nvcc compiles every kernel from visper_lm_tpu_torch/csrc, one
+     process per source, all started together;
+  3. kernels: each kernel vs its plain PyTorch version on the card, with the
+     kernel's, the plain version's and one library call's time (the library
+     call is a yardstick only; the port never calls it) beside the least time
+     the card could take. Tolerances against the plain version computed in f32:
+       B1 flash forward: bf16 max abs error <= 2e-2 (f32 1e-4) on rows with a
+          valid key, lse <= 1e-3;
+       B2/B3 flash backward (dq, dk/dv): bf16 max abs error <= 2e-2 x the
+          reference's largest magnitude (gradients sum over up to 1024 rows);
+       B4 Swin window attention: bf16 max abs error <= 2e-2;
+  4. serving path: Phi3-mini-4k + CLIP-ViT-L/14-336 (distill task tokens) at
+     full width with seeded random weights serves 8 left-padded multimodal
+     prompts (768 tokens) through `Generator.generate`, greedy, 32 new tokens.
+     The flash kernel must launch exactly once per decoder layer (32), and the
+     prefill logits must match a prefill with plain attention within
+     0.05 x max|logits| (bf16 through 32 layers);
+  5. serving profile: device time by kernel for one prefill and one decode chunk;
+  6. training path: config #1's PT distillation step (the same VLM plus the
+     frozen DINOv2-L, CLIP-H and Swin-L teachers computing their targets in
+     the step, bf16, B4 x T1024) through `make_train_step`: one warm-up step,
+     then 3 timed steps. Each step must launch B1, B2 and B3 once per decoder
+     layer (32 each) and B4 once per Swin block and teacher micro-batch (48);
+     the loss must be finite and change from step 2 on (update 1 has lr 0); a
+     frozen decoder weight must not change; at B1 the step's loss and
+     trainable gradients with the kernels must match the same step with plain
+     attention (decoder and window): loss within 2 %, cosine >= 0.99 for every
+     trainable with a nonzero gradient. Then one step is profiled.
 
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Needs no network; builds into
@@ -25,8 +41,10 @@ visper_lm_tpu_torch/_build/.
 
 from __future__ import annotations
 
+import gc
 import importlib.util
 import json
+import math
 import subprocess
 import sys
 import time
@@ -40,6 +58,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor
 
 BATCH, PROMPT_LEN, NEW_TOKENS = 8, 768, 32
 TEXT_LENS = (155, 140, 121, 96, 77, 50, 31, 12)   # 13 sys + 600 image/task + text <= 768
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 3    # bench.py's config #1 cell
+SWIN_STAGES = ((512, 6), (128, 12), (32, 24), (8, 48))  # Swin-L at 768 px, micro-batch 2: (W, heads)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -102,16 +122,27 @@ def main_path_batch(cfg):
     return batch
 
 
-def attention_flops(b, t, nq, h, causal, starts, lens) -> float:
-    """FLOPs this data needs: 4*H per unmasked (query row, key) pair and head
-    (q.k and p.v), counting only keys in [start, length) and, when causal,
-    at or before the row."""
+def attention_pairs(b, t, causal, starts, lens) -> int:
+    """Unmasked (query row, key) pairs per head this data needs: keys in
+    [start, length) and, when causal, at or before the row."""
     rows = torch.arange(t)
     pairs = 0
     for i in range(b):
         hi = torch.clamp(rows + 1, max=lens[i]) if causal else torch.full((t,), lens[i])
         pairs += int(torch.clamp(hi - starts[i], min=0).sum())
-    return 4.0 * h * nq * pairs
+    return pairs
+
+
+def attention_flops(b, t, nq, h, causal, starts, lens) -> float:
+    """Forward FLOPs this data needs: 4*H per unmasked pair and head (q.k, p.v)."""
+    return 4.0 * h * nq * attention_pairs(b, t, causal, starts, lens)
+
+
+def bound(nbytes: float, flops: float, dtype) -> dict:
+    """The least time: bytes over the memory rate vs FLOPs over the peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def kernel_case(name, b, t, nq, nkv, h, dtype, causal, starts, lens, gen, fa):
@@ -157,21 +188,146 @@ def kernel_case(name, b, t, nq, nkv, h, dtype, causal, starts, lens, gen, fa):
     # least time: q, k, v read once, out and lse written once, vs this data's FLOPs
     flops = attention_flops(b, t, nq, h, causal, starts, lens)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + lse.numel() * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     rec = dict(
         case=name, shape=f"B{b} T{t} {nq}/{nkv} H{h} {str(dtype)[6:]} "
         f"{'causal' if causal else 'noncausal'}",
         max_abs_err=err, lse_max_abs_err=lse_err, tol=tol, ms=ms, plain_ms=plain_ms,
-        library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=library_ms, **bound(nbytes, flops, dtype),
         tflops=flops / ms * 1e-9, gbytes_s=nbytes / ms * 1e-6,
     )
     print("kernel_case " + json.dumps(rec))
     return rec
 
 
-def profile_window(name: str, fn, top: int = 10) -> None:
+def bwd_case(name, b, t, nq, nkv, h, causal, starts, lens, gen, fa):
+    """B2 (dq) and B3 (dk/dv) vs the plain backward in f32 on one bf16 case;
+    returns the two measured records."""
+    dev, dtype = "cuda", torch.bfloat16
+    q, k, v = (torch.randn(b, t, n, h, device=dev, generator=gen).to(dtype) for n in (nq, nkv, nkv))
+    dout = torch.randn(b, t, nq, h, device=dev, generator=gen).to(dtype)
+    kw = dict(causal=causal, kv_starts=torch.tensor(starts, device=dev),
+              kv_lengths=torch.tensor(lens, device=dev))
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+    ref = fa.flash_attention_bwd_reference(
+        q.float(), k.float(), v.float(), out.float(), lse, dout.float(), **kw)
+    torch.cuda.synchronize()
+    err, mag = {}, {}
+    for gname, got, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        err[gname] = (got.float() - r).abs().max().item()
+        mag[gname] = r.abs().max().item()
+        check(err[gname] <= 2e-2 * mag[gname],
+              f"{name}: {gname} max abs err {err[gname]} > 2e-2 x {mag[gname]}")
+    del ref
+    ms_dq = cuda_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw), 10)
+    ms_dkv = cuda_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw), 10)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, dout, **kw), 2)
+    # yardstick: SDPA's backward with a boolean mask (dq, dk and dv in one call)
+    cols = torch.arange(t, device=dev)
+    mask = (cols[None, :] >= kw["kv_starts"][:, None]) & (cols[None, :] < kw["kv_lengths"][:, None])
+    mask = mask[:, None, None, :]
+    if causal:
+        mask = mask & (cols[:, None] >= cols[None, :])[None, None]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    o = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=nq != nkv)
+    go = dout.transpose(1, 2)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), go, retain_graph=True), 10)
+    del o
+    # least time: inputs read once (q, k, v, dout, lse, delta), outputs written once,
+    # vs 2*H FLOPs per product and unmasked pair: dq 3 products, dk/dv 4
+    pairs = attention_pairs(b, t, causal, starts, lens) * nq
+    e = q.element_size()
+    in_bytes = (q.numel() + k.numel() + v.numel() + dout.numel()) * e + 2 * lse.numel() * 4
+    shape = f"B{b} T{t} {nq}/{nkv} H{h} bf16 {'causal' if causal else 'noncausal'}"
+    recs = []
+    for kname, ms, nbytes, flops, errs in (
+        ("dq", ms_dq, in_bytes + q.numel() * e, 6.0 * h * pairs, ("dq",)),
+        ("dkv", ms_dkv, in_bytes + (k.numel() + v.numel()) * e, 8.0 * h * pairs, ("dk", "dv")),
+    ):
+        rec = dict(
+            case=f"{name}_{kname}", shape=shape, max_abs_err=max(err[x] for x in errs),
+            max_abs_ref=max(mag[x] for x in errs), tol="2e-2 x max_abs_ref", ms=ms,
+            plain_ms=plain_ms, library_ms=library_ms, **bound(nbytes, flops, dtype),
+            tflops=flops / ms * 1e-9,
+        )
+        print("kernel_case " + json.dumps(rec))
+        recs.append(rec)
+    return recs
+
+
+def window_case(stage, w, heads, shifted, gen, wa, swin):
+    """B4 vs its plain version at one Swin-L stage shape (N 144, D 32, bf16),
+    q/k/v as the strided views of a packed projection the Swin block passes."""
+    dev, n, d, ws = "cuda", 144, 32, 12
+    nw = w // 2                                  # windows per image (micro-batch 2)
+    qkv = torch.randn(w, n, 3, heads, d, device=dev, generator=gen).to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    bias = torch.randn(heads, n, n, device=dev, generator=gen)
+    mask = None
+    if shifted:
+        side = int(round(nw ** 0.5)) * ws
+        mask = torch.as_tensor(swin._shift_attn_mask(side, side, ws, ws // 2), device=dev)
+    scale = d ** -0.5
+    out = wa.window_attention_kernel(q, k, v, bias, mask, scale)
+    ref = wa.window_attention_plain(q.float(), k.float(), v.float(), bias, mask, scale)
+    torch.cuda.synchronize()
+    err = (out.float() - ref).abs().max().item()
+    name = f"window_stage{stage + 1}{'_shifted' if shifted else ''}"
+    check(err <= 2e-2, f"{name}: max abs err {err} > 2e-2")
+    ms = cuda_ms(lambda: wa.window_attention_kernel(q, k, v, bias, mask, scale), 20)
+    plain_ms = cuda_ms(lambda: wa.window_attention_plain(q, k, v, bias, mask, scale), 3)
+    # yardstick: SDPA with the float bias (+ shift mask tiled over the windows)
+    attn = bias[None].expand(w, heads, n, n)
+    if mask is not None:
+        attn = attn + mask.repeat(w // nw, 1, 1)[:, None]
+    attn = attn.to(torch.bfloat16).contiguous()
+    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=attn, scale=scale), 20)
+    nbytes = 4 * q.numel() * 2 + bias.numel() * 4 + (0 if mask is None else mask.numel() * 4)
+    flops = 4.0 * n * n * d * w * heads
+    rec = dict(
+        case=name, shape=f"W{w} heads{heads} N{n} D{d} bf16", max_abs_err=err, tol=2e-2,
+        ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound(nbytes, flops, torch.bfloat16),
+        gbytes_s=nbytes / ms * 1e-6,
+    )
+    print("kernel_case " + json.dumps(rec))
+    return rec
+
+
+def train_batch(cfg, batch_size: int, seq_len: int):
+    """bench.py's PT batch (`build_batch` + `add_teacher_inputs`), in numpy
+    from the same seeds: right-padded splice plans, images, per-task masks,
+    and the three teachers' pixel tensors."""
+    from visper_lm_tpu_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+    from visper_lm_tpu_torch.data.collate import build_splice_plan, collate_plans
+
+    rng = np.random.default_rng(0)
+    vocab, ns = cfg.decoder.vocab_size, cfg.num_sys_tokens
+    plans = []
+    for _ in range(batch_size):
+        text_len = int(rng.integers(24, 48))
+        ids = (list(rng.integers(3, vocab - 10, size=ns)) + [IMAGE_TOKEN_INDEX]
+               + list(rng.integers(3, vocab - 10, size=text_len)))
+        labels = [IGNORE_INDEX] * (ns + 1) + ids[ns + 1:]
+        plans.append(build_splice_plan(
+            ids, labels, seq_len, num_image_tokens=cfg.num_image_tokens,
+            num_task_tokens=cfg.distill.num_task_tokens,
+            num_tasks=len(cfg.distill.task_order()),
+        ))
+    side = cfg.vision.image_size
+    img = rng.normal(size=(batch_size, side, side, 3))
+    batch = collate_plans(plans, images=img.astype(np.float32))
+    for tcfg in cfg.distill.tasks:
+        batch[f"{tcfg.task}_mask"] = np.ones((batch_size,), np.float32)
+    rng = np.random.default_rng(1)
+    for key, size in (("depth_images", 336), ("gen_images", 224), ("seg_images", 768)):
+        batch[key] = rng.normal(size=(batch_size, size, size, 3)).astype(np.float32)
+    return batch
+
+
+def profile_window(name: str, fn, top: int = 10) -> dict:
     """Device time of one call of fn by kernel (torch.profiler), and the
     device's idle share of the same call's wall time timed without the
     profiler (the profiler slows the host)."""
@@ -193,6 +349,7 @@ def profile_window(name: str, fn, top: int = 10) -> None:
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
         print(f"profile {name}:   {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<5d} {e.key[:100]}")
+    return dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3, idle_share=1 - busy_us / wall_us)
 
 
 def main() -> int:
@@ -201,10 +358,15 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from visper_lm_tpu_torch.config import phi3_clip_vlm
+    from visper_lm_tpu_torch.models.teachers import init_teachers, make_teacher_fn
+    from visper_lm_tpu_torch.models.teachers import swin
     from visper_lm_tpu_torch.models.vlm import init_vlm
     from visper_lm_tpu_torch.ops import _build
     from visper_lm_tpu_torch.ops import flash_attention as fa
+    from visper_lm_tpu_torch.ops import window_attention as wa
     from visper_lm_tpu_torch.serve.generate import GenerationConfig, Generator
+    from visper_lm_tpu_torch.train.optimizer import OptimizerConfig
+    from visper_lm_tpu_torch.train.train_step import make_loss_fn, make_train_step
 
     # reference settings: f32 matmuls in full f32, no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -238,6 +400,19 @@ def main() -> int:
     kernel_case("gqa", 2, 1024, 32, 8, 128, torch.bfloat16, True, [0, 100], [1024, 1024], gen, fa)
     kernel_case("noncausal_kvlen", 2, 512, 16, 16, 64, torch.bfloat16, False, [0, 0], [512, 300], gen, fa)
     kernel_case("f32", 2, 256, 8, 8, 96, torch.float32, True, [0, 50], [256, 256], gen, fa)
+    tbatch = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    train_lens = tbatch["seq_lengths"].tolist()
+    print(f"training batch seq_lengths {train_lens}")
+    dq_rec, dkv_rec = bwd_case(
+        "train", TRAIN_BATCH, TRAIN_SEQ, d.num_heads, d.num_kv_heads, d.head_dim, True,
+        [0] * TRAIN_BATCH, train_lens, gen, fa,
+    )
+    bwd_case("gqa", 2, 1024, 32, 8, 128, True, [0, 100], [1024, 900], gen, fa)
+    win_recs = [
+        window_case(i, w, heads, shifted, gen, wa, swin)
+        for i, (w, heads) in enumerate(SWIN_STAGES) for shifted in (False, True)
+    ]
+    win_rec = win_recs[1]                       # stage 1, shifted: the largest launch
 
     # 4. main path
     t0 = time.perf_counter()
@@ -304,13 +479,119 @@ def main() -> int:
     profile_window("decode_chunk", lambda: generator._decode_chunk(
         cache, token, 0, offs, torch.Generator(device="cuda")))
 
-    kernels = [dict(
-        name="flash_fwd", route="cuda", source="visper_lm_tpu_torch/csrc/flash_fwd.cu",
-        replaces="visper_lm_tpu/ops/flash_attention.py:234", launches=launches,
-        max_abs_err=slice_rec["max_abs_err"], ms=slice_rec["ms"],
-        plain_ms=slice_rec["plain_ms"], bound_ms=slice_rec["bound_ms"],
-        bound_by=slice_rec["bound_by"], library_ms=slice_rec["library_ms"],
-    )]
+    # 6. training path: config #1's PT step with the three teachers
+    del generator, model, logits, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = init_vlm(cfg, device="cuda", seed=0)
+    teachers = init_teachers(cfg, device="cuda", seed=7)
+    opt_cfg = OptimizerConfig(learning_rate=1e-3, total_steps=1000, stage="pretrain")
+    step = make_train_step(cfg, opt_cfg, model, teacher_fn=make_teacher_fn(cfg),
+                           teacher_params=teachers)
+    torch.cuda.synchronize()
+    print(f"training init {time.perf_counter() - t0:.1f} s: "
+          f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B student params "
+          f"({sum(p.numel() for p in step.trainable.values()) / 1e6:.1f} M trainable), "
+          f"{sum(p.numel() for p in teachers.parameters()) / 1e9:.3f} B teacher params")
+    frozen = model.decoder.blocks[0].q_proj.weight
+    frozen_before = frozen.detach().clone()
+    n_swin = sum(teachers["swin"].cfg.depths)
+    expected = dict(flash_fwd=d.num_layers, flash_bwd_dq=d.num_layers,
+                    flash_bwd_dkv=d.num_layers, window_attn=n_swin * TRAIN_BATCH // 2)
+
+    def reset_counts():
+        fa.launches = fa.dq_launches = fa.dkv_launches = wa.launches = 0
+
+    def counts():
+        return dict(flash_fwd=fa.launches, flash_bwd_dq=fa.dq_launches,
+                    flash_bwd_dkv=fa.dkv_launches, window_attn=wa.launches)
+
+    t0 = time.perf_counter()
+    metrics = step(tbatch)                      # warm-up: update 1, lr 0
+    print(f"train step 1 (warm-up) {(time.perf_counter() - t0) * 1e3:.1f} ms "
+          + json.dumps(metrics))
+    losses = [metrics["loss"]]
+    torch.cuda.reset_peak_memory_stats()
+    train_launches = {k: 0 for k in expected}
+    step_ms = []
+    for i in range(TRAIN_STEPS):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(tbatch)                  # ends in a host read of the metrics
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        c = counts()
+        check(c == expected, f"train step {i + 2}: launches {c}, expected {expected}")
+        for kname in c:
+            train_launches[kname] += c[kname]
+        losses.append(metrics["loss"])
+        print(f"train step {i + 2}: {step_ms[-1]:.1f} ms, launches {c} " + json.dumps(metrics))
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(all(losses[i + 1] != losses[i] for i in range(1, len(losses) - 1)),
+          f"loss did not change from step 2 on: {losses}")
+    check(torch.equal(frozen, frozen_before), "a frozen decoder weight changed")
+    mean_ms = sum(step_ms) / len(step_ms)
+    train = dict(step_ms=step_ms, mean_step_ms=mean_ms,
+                 examples_per_s=TRAIN_BATCH / (mean_ms / 1e3), peak_gib=peak / 2**30,
+                 losses=losses, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    print("train_path " + json.dumps(train))
+
+    # the kernel step vs the same step with plain attention, at B1
+    b1 = step.to_device({k: v[:1] for k, v in tbatch.items()})
+    names = list(step.trainable)
+
+    def loss_and_grads(use_kernel):
+        loss_fn = make_loss_fn(cfg, teacher_fn=make_teacher_fn(cfg, use_kernel=use_kernel),
+                               use_kernel=use_kernel)
+        total, _ = loss_fn(model, b1, teachers)
+        grads = torch.autograd.grad(total, [step.trainable[n] for n in names], allow_unused=True)
+        return float(total.detach()), grads
+
+    loss_k, grads_k = loss_and_grads(None)
+    loss_p, grads_p = loss_and_grads(False)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    min_cos, min_name, n_cmp = 1.0, None, 0
+    for n, gk, gp in zip(names, grads_k, grads_p):
+        if gk is None or gp is None:
+            continue
+        gk, gp = gk.float().flatten(), gp.float().flatten()
+        if gp.norm() == 0 and gk.norm() == 0:
+            continue
+        cos = float(gk @ gp / (gk.norm() * gp.norm()).clamp(min=1e-30))
+        n_cmp += 1
+        if cos < min_cos:
+            min_cos, min_name = cos, n
+    del grads_k, grads_p
+    print(f"train B1 kernel vs plain: loss {loss_k:.6f} vs {loss_p:.6f} (rel {rel:.3g}), "
+          f"min grad cosine {min_cos:.6f} ({min_name}) over {n_cmp} tensors")
+    check(rel <= 0.02, f"B1 loss kernel vs plain differs by {rel:.3g} > 2 %")
+    check(min_cos >= 0.99, f"B1 grad cosine {min_cos} < 0.99 for {min_name}")
+
+    # where the training step's time goes
+    train_prof = profile_window("train_step", lambda: step(tbatch), top=15)
+    print("train_profile " + json.dumps(train_prof))
+
+    def entry(kname, source, replaces, rec, launches):
+        return dict(
+            name=kname, route="cuda", source=source, replaces=replaces, launches=launches,
+            max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
+            bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+        )
+
+    csrc = "visper_lm_tpu_torch/csrc/"
+    kernels = [
+        dict(entry("flash_fwd", csrc + "flash_fwd.cu", "visper_lm_tpu/ops/flash_attention.py:234",
+                   slice_rec, train_launches["flash_fwd"]),
+             launches_serving=launches),
+        entry("flash_bwd_dq", csrc + "flash_bwd.cu", "visper_lm_tpu/ops/flash_attention.py:497",
+              dq_rec, train_launches["flash_bwd_dq"]),
+        entry("flash_bwd_dkv", csrc + "flash_bwd.cu", "visper_lm_tpu/ops/flash_attention.py:562",
+              dkv_rec, train_launches["flash_bwd_dkv"]),
+        entry("window_attn", csrc + "window_attn.cu", "visper_lm_tpu/ops/window_attention.py:112",
+              win_rec, train_launches["window_attn"]),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

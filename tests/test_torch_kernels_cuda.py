@@ -6,13 +6,16 @@ without one. This file imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py -q
 
 Tolerances (max abs error on rows with at least one valid key, against the
-plain version computed in f32): bf16 2e-2, f32 1e-4; lse 1e-3.
+plain version computed in f32): bf16 2e-2, f32 1e-4; lse 1e-3. Backward
+(dq, dk, dv against `flash_attention_bwd_reference` in f32): bf16 2e-2 of the
+reference's largest magnitude, f32 1e-4. Window attention: bf16 2e-2.
 """
 
 import pytest
 import torch
 
 from visper_lm_tpu_torch.ops import flash_attention as fa
+from visper_lm_tpu_torch.ops import window_attention as wa
 
 pytestmark = pytest.mark.cuda
 
@@ -71,8 +74,11 @@ def test_flash_kernel_counts_launches_and_rejects_what_it_cannot_run(cuda_gen):
     before = fa.launches
     fa.flash_attention(q, k, v)
     assert fa.launches == before + 1
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention(q.clone().requires_grad_(True), k, v)
+    # inputs that need a gradient take the forward kernel too (the autograd
+    # Function), and only backward() launches the two backward kernels
+    fa.flash_attention(q.clone().requires_grad_(True), k, v)
+    assert fa.launches == before + 2
+    before += 1
     with pytest.raises(ValueError):
         fa.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError):
@@ -81,3 +87,85 @@ def test_flash_kernel_counts_launches_and_rejects_what_it_cannot_run(cuda_gen):
     with pytest.raises(ValueError):
         fa.flash_attention(q, k.cpu(), v)
     assert fa.launches == before + 1
+
+
+def _rel_err(got, ref):
+    return (got.float() - ref.float()).abs().max().item() / max(ref.abs().max().item(), 1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "h,nq,nkv,causal", [(96, 4, 4, True), (128, 4, 2, True), (64, 2, 2, False)]
+)
+def test_flash_backward_kernels_match_plain(cuda_gen, dtype, h, nq, nkv, causal):
+    b, t = 2, 320
+    q, k, v = _qkv(cuda_gen, b, t, nq, nkv, h, dtype)
+    starts = torch.tensor([70, 0], device="cuda")
+    lens = torch.tensor([t, 250], device="cuda")
+    kw = dict(causal=causal, kv_starts=starts, kv_lengths=lens)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    dout = torch.randn(out.shape, device="cuda", generator=cuda_gen).to(dtype)
+    d0, k0 = fa.dq_launches, fa.dkv_launches
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    assert (fa.dq_launches, fa.dkv_launches) == (d0 + 1, k0 + 1)
+    ref = fa.flash_attention_bwd_reference(
+        q.float(), k.float(), v.float(), out.float(), lse, dout.float(), **kw
+    )
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == dtype and g.shape == r.shape
+        assert _rel_err(g, r) <= tol, name
+    if causal:
+        assert torch.all(got[0][0, :70] == 0)  # rows with no valid key
+
+
+def test_flash_autograd_runs_the_backward_kernels(cuda_gen):
+    q, k, v = _qkv(cuda_gen, 2, 256, 4, 2, 96, torch.bfloat16)
+    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+    lens = torch.tensor([256, 190], device="cuda")
+    out = fa.flash_attention(q, k, v, kv_lengths=lens)
+    d0, k0 = fa.dq_launches, fa.dkv_launches
+    out.float().square().sum().backward()
+    assert (fa.dq_launches, fa.dkv_launches) == (d0 + 1, k0 + 1)
+    qr, kr, vr = (x.detach().float().requires_grad_(True) for x in (q, k, v))
+    ref, _ = fa.flash_attention_reference(qr, kr, vr, kv_lengths=lens)
+    ref.square().sum().backward()
+    for g, r in ((q.grad, qr.grad), (k.grad, kr.grad), (v.grad, vr.grad)):
+        assert _rel_err(g, r) <= 3e-2
+
+
+@pytest.mark.parametrize("n,d,heads,nw,windows", [(144, 32, 6, 16, 32), (144, 32, 48, 1, 8), (64, 16, 3, 4, 8)])
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_window_kernel_matches_plain(cuda_gen, n, d, heads, nw, windows, with_mask):
+    """Swin-L's N144/D32 (stage-1-like and stage-4 head counts) and the test
+    shape, with W a multiple of nW greater than nW, through strided views of
+    one packed qkv tensor as the Swin block passes them."""
+    qkv = torch.randn(windows, n, 3, heads, d, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    bias = torch.randn(heads, n, n, device="cuda", generator=cuda_gen)
+    mask = None
+    if with_mask:
+        mask = torch.where(torch.rand(nw, n, n, device="cuda", generator=cuda_gen) < 0.3, -100.0, 0.0)
+    before = wa.launches
+    got = wa.window_attention(q, k, v, bias, mask)
+    assert wa.launches == before + 1
+    ref = wa.window_attention_plain(q.float(), k.float(), v.float(), bias, mask, d ** -0.5)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == torch.bfloat16
+    assert (got.float() - ref).abs().max().item() <= 2e-2
+
+
+def test_window_kernel_rejects_what_it_cannot_run(cuda_gen):
+    q = torch.randn(4, 2, 144, 32, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    bias = torch.zeros(2, 144, 144, device="cuda")
+    before = wa.launches
+    with pytest.raises(ValueError):
+        wa.window_attention(q.clone().requires_grad_(True), q, q, bias)
+    with pytest.raises(ValueError):
+        wa.window_attention(q.float(), q.float(), q.float(), bias)
+    with pytest.raises(ValueError):
+        wa.window_attention(q[..., :16], q[..., :16], q[..., :16], bias)
+    with pytest.raises(ValueError):
+        wa.window_attention(q, q, q, bias, torch.zeros(3, 144, 144, device="cuda"))
+    assert wa.launches == before

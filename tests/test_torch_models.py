@@ -163,9 +163,15 @@ def test_decoder_forward_with_cache_matches_jax(tiny):
 
 
 def test_from_jax_params_ignores_heads_and_rejects_unported_subtrees(tiny):
+    """The distillation heads and logit scales are carried now (every JAX
+    leaf has a port parameter); unported subtrees still raise."""
     cfg_j, cfg_t, params, model, images = tiny
     assert "heads" in params and "logit_scales" in params
-    assert not any(n.startswith("heads") for n, _ in model.named_parameters())
+    n_jax = sum(np.asarray(x).size for x in jax.tree_util.tree_leaves(params))
+    assert sum(p.numel() for p in model.parameters()) == n_jax
+    head = model.heads["seg"][0].resampler.proj_in.weight
+    ref = params["heads"]["seg"][0]["resampler"]["proj_in"]["kernel"]
+    np.testing.assert_array_equal(head.detach().numpy(), np.asarray(ref).T)
     with pytest.raises(NotImplementedError):
         from_jax_params({**params, "lora": {}}, cfg_t, device="cpu")
 
@@ -182,16 +188,28 @@ def test_init_vlm_is_seeded_and_needs_a_device(monkeypatch):
         tvlm.init_vlm(cfg)
 
 
+TRAINING_SLICE_MODULES = (
+    "train.losses", "train.optimizer", "train.train_step",
+    "models.teachers", "models.teachers.dinov2", "models.teachers.unclip",
+    "models.teachers.swin", "models.resampler", "models.heads", "ops.window_attention",
+)
+
+
 def test_port_imports_no_jax():
-    """Importing every port module pulls in neither jax nor the JAX package."""
+    """Importing every port module, the training slice's included, pulls in
+    neither jax nor the JAX package."""
+    wanted = ["visper_lm_tpu_torch." + m for m in TRAINING_SLICE_MODULES]
     code = (
         "import pkgutil, importlib, sys\n"
         "import visper_lm_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
-        "for m in mods: importlib.import_module(m)\n"
+        f"wanted = {wanted!r}\n"
+        "for m in mods + wanted: importlib.import_module(m)\n"
+        "missing = [m for m in wanted if m not in mods]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'visper_lm_tpu' or m.startswith('visper_lm_tpu.')]\n"
-        "assert len(mods) >= 14, mods\n"
+        "assert len(mods) >= 24, mods\n"
+        "assert not missing, missing\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
@@ -199,3 +217,38 @@ def test_port_imports_no_jax():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert res.returncode == 0, res.stderr
+
+
+def test_vlm_forward_taps_and_task_predictions_match_jax(tiny):
+    """vlm_forward's layer taps (right padding through kv_lengths) and every
+    head's prediction; the model carries the heads and logit scales."""
+    cfg_j, cfg_t, params, model, _ = tiny
+    assert tvlm.tap_layer_union(cfg_t) == jvlm.tap_layer_union(cfg_j) == (1, 2, 3)
+    assert model.logit_scales["gen"].item() == 2.0 and model.logit_scales["gen"].dtype == torch.float32
+    rng = np.random.default_rng(8)
+    b, t = 2, 24
+    token_type = np.full((b, t), 1, np.int32)
+    token_type[:, 3:7] = 2
+    token_type[:, 7:13] = 3
+    token_type[1, 20:] = 0
+    src_index = np.zeros((b, t), np.int32)
+    src_index[:, 3:7] = np.arange(4)
+    src_index[:, 7:13] = np.arange(6)
+    batch = {
+        "images": rng.standard_normal((b, 28, 28, 3)).astype(np.float32),
+        "text_ids": rng.integers(0, 512, size=(b, t)).astype(np.int32),
+        "token_type": token_type, "src_index": src_index,
+        "seq_lengths": np.array([t, 20], np.int32),
+    }
+    ref = jvlm.vlm_forward(params, cfg_j, {k: jnp.asarray(v) for k, v in batch.items()}, use_pallas=False)
+    out = tvlm.vlm_forward(model, cfg_t, {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert out["tap_layers"] == ref["tap_layers"]
+    for g, r in zip(out["taps"], ref["taps"]):
+        _close(g, r, 1e-4, 1e-3)
+    _close(out["logits"], ref["logits"], 1e-4, 1e-3)
+    preds_j = jvlm.predict_task_embeddings(params, cfg_j, ref["taps"], ref["tap_layers"])
+    preds_t = tvlm.predict_task_embeddings(model, cfg_t, out["taps"], out["tap_layers"])
+    for task in ("gen", "depth", "seg"):
+        assert len(preds_t[task]) == len(preds_j[task])
+        for g, r in zip(preds_t[task], preds_j[task]):
+            _close(g, r, 1e-4, 1e-3)

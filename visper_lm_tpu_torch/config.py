@@ -1,4 +1,5 @@
-"""Typed configuration (a copy of the serving subset of visper_lm_tpu/config.py).
+"""Typed configuration (a copy of the serving and PT-training subset of
+visper_lm_tpu/config.py).
 
 Field names and defaults are the JAX package's, so `dataclasses.asdict` of a
 port config equals the JAX one; tests/test_torch_models.py holds them equal.
@@ -148,7 +149,7 @@ class DistillTaskConfig:
 
 @dataclass(frozen=True)
 class DistillConfig:
-    """Distillation config; serving uses its task-token layout only."""
+    """Distillation config: task tokens, heads, tapped layers and loss weights."""
 
     mode: str = "gen-depth-seg"
     num_task_tokens: int = 8
@@ -262,6 +263,32 @@ CLIP_VIT_L_336 = VisionConfig(
     mlp_dim=4096,
     select_layer=-2,
     select_feature="patch",
+)
+
+# unCLIP generation teacher: CLIP-ViT-H/14 image encoder @224.
+CLIP_VIT_H_224 = VisionConfig(
+    image_size=224,
+    patch_size=14,
+    hidden_size=1280,
+    num_layers=32,
+    num_heads=16,
+    mlp_dim=5120,
+    select_layer=-1,
+    select_feature="cls",
+    hidden_act="gelu",
+)
+
+# DINOv2 ViT-L/14 backbone of Depth-Anything-V2.
+DINOV2_VIT_L = VisionConfig(
+    image_size=336,
+    patch_size=14,
+    hidden_size=1024,
+    num_layers=24,
+    num_heads=16,
+    mlp_dim=4096,
+    norm_eps=1e-6,
+    hidden_act="gelu",
+    use_pre_norm=False,
 )
 
 

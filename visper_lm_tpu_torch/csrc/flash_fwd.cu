@@ -27,16 +27,19 @@
 //   * f32 (for checking): a SIMT kernel, one thread per query row, per-key
 //     online softmax in full f32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
-constexpr float kNegInf = -2.3819763e38f;  // NEG_INF of the JAX kernel
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+using visper::kLn2;
+using visper::kLog2e;
+using visper::kNegInf;
+using visper::ld32;
+using visper::mma_bf16;
+using visper::pack_bf16;
+using visper::pack_f32;
 
 struct Params {
   const void* q;
@@ -72,46 +75,12 @@ constexpr int kBM = 64;  // query rows per CTA (16 per warp)
 constexpr int kBN = 64;  // keys per kv tile
 constexpr int kWarps = 4;
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats -> packed bf16x2, `lo` in the low half (the lower column).
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Rows [row0, row0 + 64) of one head of a BTNH tensor -> shared memory with
-// row stride LD, 16 bytes per thread per step; rows >= nrows are zero.
 template <int H, int LD>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* smem,
                                           const __nv_bfloat16* base,
                                           long long row_stride, int row0,
                                           int nrows) {
-  constexpr int kChunks = H / 8;
-  for (int i = threadIdx.x; i < kBM * kChunks; i += kWarps * 32) {
-    const int r = i / kChunks, c = i % kChunks;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < nrows) {
-      val = *reinterpret_cast<const uint4*>(base + (row0 + r) * row_stride + c * 8);
-    }
-    *reinterpret_cast<uint4*>(smem + r * LD + c * 8) = val;
-  }
+  visper::load_tile<kBM, H, LD, kWarps * 32>(smem, base, row_stride, row0, nrows);
 }
 
 template <int H>

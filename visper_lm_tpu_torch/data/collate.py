@@ -1,4 +1,5 @@
-"""Static-shape splice plans (a copy of `build_splice_plan` from visper_lm_tpu/data/collate.py).
+"""Static-shape splice plans (a copy of `build_splice_plan` and `collate_plans`
+from visper_lm_tpu/data/collate.py).
 
 For every example the token stream (text ids with IMAGE_TOKEN_INDEX sentinels)
 is lowered into fixed-length arrays
@@ -16,7 +17,7 @@ and the model builds inputs_embeds with one gather-select
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -119,3 +120,23 @@ def build_splice_plan(
         labels=out_labels,
         seq_length=pos,
     )
+
+
+def collate_plans(
+    plans: Sequence[SplicePlan],
+    images: Optional[np.ndarray] = None,
+    extra: Optional[Dict[str, np.ndarray]] = None,
+) -> Dict[str, np.ndarray]:
+    """Stack per-example (right-padded) plans into a batch dict."""
+    batch = {
+        "text_ids": np.stack([p.text_ids for p in plans]),
+        "token_type": np.stack([p.token_type for p in plans]),
+        "src_index": np.stack([p.src_index for p in plans]),
+        "labels": np.stack([p.labels for p in plans]),
+        "seq_lengths": np.asarray([p.seq_length for p in plans], dtype=np.int32),
+    }
+    if images is not None:
+        batch["images"] = images
+    if extra:
+        batch.update(extra)
+    return batch

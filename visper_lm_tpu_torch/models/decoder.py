@@ -1,10 +1,11 @@
 """Decoder-only transformer (counterpart of visper_lm_tpu/models/decoder.py).
 
-Covers Phi3-mini-4k and Llama-style decoders for serving: pre-norm blocks
-with GQA attention, rope and a SiLU-gated MLP, and a slot-major KV cache.
-The JAX layer `lax.scan` over stacked blocks becomes a Python loop over an
-`nn.ModuleList`; remat, layer taps, LoRA, MoE, the quantized cache and the
-pipelined stack are training or later-slice machinery and are not here.
+Covers Phi3-mini-4k and Llama-style decoders: pre-norm blocks with GQA
+attention, rope and a SiLU-gated MLP, a slot-major KV cache for serving, and
+layer taps for the distillation heads in training. The JAX layer `lax.scan`
+over stacked blocks becomes a Python loop over an `nn.ModuleList`; remat,
+LoRA, MoE, the quantized cache and the pipelined stack are later-slice
+machinery and are not here.
 """
 
 from __future__ import annotations
@@ -143,18 +144,26 @@ class Decoder(nn.Module):
         q_offset: int = 0,
         use_kernel: Optional[bool] = None,
         compute_logits: bool = True,
+        tap_layers: Tuple[int, ...] = (),            # 0-indexed block outputs to keep
     ) -> Dict[str, object]:
-        """JAX `decoder_forward` with tap_layers=(): {'hidden' (final-normed),
-        'logits' (f32, when compute_logits), 'cache' (the same cache object,
-        updated in place, when one was passed)}."""
+        """JAX `decoder_forward`: {'hidden' (final-normed), 'logits' (f32, when
+        compute_logits), 'taps' (tuple of the raw block outputs at tap_layers,
+        before the final norm), 'cache' (the same cache object, updated in
+        place, when one was passed)}."""
         cfg = self.cfg
         t = inputs_embeds.shape[1]
+        if tap_layers:
+            if max(tap_layers) >= cfg.num_layers:
+                raise ValueError(f"tap layers {tap_layers} out of range for {cfg.num_layers} layers")
+            if cache is not None:
+                raise ValueError("layer taps are a training/prefill feature (no cache)")
         if positions is None:
             positions = torch.arange(t, device=inputs_embeds.device) + q_offset
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
         if cos.ndim == 2:
             cos, sin = cos[None], sin[None]
         h = inputs_embeds
+        taps = {}
         for i, block in enumerate(self.blocks):
             h = block(
                 h, cos, sin, kv_lengths=kv_lengths, kv_starts=kv_starts,
@@ -162,8 +171,12 @@ class Decoder(nn.Module):
                 cache_kv=None if cache is None else (cache.k[i], cache.v[i]),
                 use_kernel=use_kernel,
             )
+            if i in tap_layers:
+                taps[i] = h
         hidden = self.final_norm(h)
-        out: Dict[str, object] = {"hidden": hidden, "cache": cache}
+        out: Dict[str, object] = {
+            "hidden": hidden, "cache": cache, "taps": tuple(taps[i] for i in tap_layers),
+        }
         if compute_logits:
             out["logits"] = self.logits(hidden)
         return out

@@ -1,9 +1,14 @@
-"""CLIP ViT image encoder (counterpart of visper_lm_tpu/models/vit.py).
+"""Generic ViT image encoder (counterpart of visper_lm_tpu/models/vit.py).
 
-Covers the CLIP-ViT-L/14-336 tower of the serving path: patchify as one
-matmul, class token, pre-norm, pre-LN blocks with quick_gelu, and
-`clip_tower_features` (select hidden layer -2, drop CLS). Attention is plain
-PyTorch, as the JAX tower leaves it to XLA.
+One module covers the three towers of the PT step, by config and flags:
+  * CLIP-ViT-L/14-336, the student's tower: class token, pre-norm, quick_gelu,
+    `clip_tower_features` (select hidden layer -2, drop CLS);
+  * DINOv2 ViT-L/14, the depth teacher: no pre-norm, layerscale (`ls1`/`ls2`),
+    exact gelu, eps 1e-6;
+  * CLIP-ViT-H/14-224, the generation teacher: adds the visual projection of
+    the final-normed CLS token (`cls` output).
+Patchify is one matmul. Attention is plain PyTorch, as the JAX tower leaves it
+to XLA.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ import torch.nn as nn
 
 from visper_lm_tpu_torch.config import VisionConfig
 from visper_lm_tpu_torch.ops.attention import mha_plain
-from visper_lm_tpu_torch.utils.param import ACTIVATIONS, LayerNorm
+from visper_lm_tpu_torch.utils.param import ACTIVATIONS, LayerNorm, init_weights_
 
 
 def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
@@ -28,8 +33,19 @@ def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
     return x.reshape(b, gh * gw, c * patch_size * patch_size)
 
 
+class LayerScale(nn.Module):
+    """DINOv2 layerscale {gamma} (JAX `ls1`/`ls2`), init 1e-5."""
+
+    def __init__(self, dim: int, device=None, dtype=None):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((dim,), 1e-5, device=device, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.gamma
+
+
 class ViTBlock(nn.Module):
-    def __init__(self, cfg: VisionConfig, device=None, dtype=None):
+    def __init__(self, cfg: VisionConfig, use_layerscale: bool = False, device=None, dtype=None):
         super().__init__()
         h, m = cfg.hidden_size, cfg.mlp_dim
         kw = dict(device=device, dtype=dtype)
@@ -41,32 +57,52 @@ class ViTBlock(nn.Module):
         self.norm2 = LayerNorm(h, cfg.norm_eps, **kw)
         self.fc1 = nn.Linear(h, m, **kw)
         self.fc2 = nn.Linear(m, h, **kw)
+        self.ls1 = LayerScale(h, **kw) if use_layerscale else None
+        self.ls2 = LayerScale(h, **kw) if use_layerscale else None
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         b, n, d = h.shape
         nh = self.num_heads
         qkv = self.qkv(self.norm1(h)).reshape(b, n, 3, nh, d // nh)
         attn = mha_plain(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], causal=False)
-        h = h + self.proj(attn.reshape(b, n, d))
-        return h + self.fc2(self.act(self.fc1(self.norm2(h))))
+        attn = self.proj(attn.reshape(b, n, d))
+        if self.ls1 is not None:
+            attn = self.ls1(attn)
+        h = h + attn
+        y = self.fc2(self.act(self.fc1(self.norm2(h))))
+        if self.ls2 is not None:
+            y = self.ls2(y)
+        return h + y
 
 
 class VisionTower(nn.Module):
-    """CLIP-style ViT (JAX `init_vit` params + `vit_forward`)."""
+    """ViT with a class token (JAX `init_vit` params + `vit_forward`).
 
-    def __init__(self, cfg: VisionConfig, device=None, dtype=None):
+    use_layerscale adds DINOv2's ls1/ls2; projection_dim adds CLIP's
+    visual_projection (no bias) of the final-normed CLS token."""
+
+    def __init__(
+        self, cfg: VisionConfig, *, use_layerscale: bool = False,
+        projection_dim: Optional[int] = None, device=None, dtype=None,
+    ):
         super().__init__()
-        if not cfg.use_class_token or not cfg.use_pre_norm:
-            raise NotImplementedError("the port's tower is CLIP's: class token and pre-norm")
+        if not cfg.use_class_token:
+            raise NotImplementedError("towers without a class token are not ported yet")
         kw = dict(device=device, dtype=dtype)
         h = cfg.hidden_size
         self.cfg = cfg
         self.patch_embed = nn.Linear(3 * cfg.patch_size ** 2, h, **kw)
         self.pos_embed = nn.Parameter(torch.zeros(cfg.num_patches + 1, h, **kw))
         self.cls_token = nn.Parameter(torch.zeros(h, **kw))
-        self.pre_norm = LayerNorm(h, cfg.norm_eps, **kw)
-        self.blocks = nn.ModuleList(ViTBlock(cfg, **kw) for _ in range(cfg.num_layers))
+        self.pre_norm = LayerNorm(h, cfg.norm_eps, **kw) if cfg.use_pre_norm else None
+        self.blocks = nn.ModuleList(
+            ViTBlock(cfg, use_layerscale, **kw) for _ in range(cfg.num_layers)
+        )
         self.final_norm = LayerNorm(h, cfg.norm_eps, **kw)
+        self.visual_projection = (
+            None if projection_dim is None
+            else nn.Linear(h, projection_dim, bias=False, **kw)
+        )
 
     def forward(
         self,
@@ -75,15 +111,17 @@ class VisionTower(nn.Module):
         output_layers: Optional[Sequence[int]] = None,
         final_norm: bool = True,
     ) -> Dict[str, object]:
-        """JAX `vit_forward`: {'taps': {layer: block output}, and 'last'
-        (post final norm) when final_norm}. With final_norm=False the blocks
-        after the last tapped layer are skipped."""
+        """JAX `vit_forward`: {'taps': {layer: block output}, and with
+        final_norm 'last' (post final norm) and 'cls' (its CLS token, through
+        the visual projection when there is one)}. With final_norm=False the
+        blocks after the last tapped layer are skipped."""
         cfg = self.cfg
         x = patchify(images.to(self.patch_embed.weight.dtype), cfg.patch_size)
         h = self.patch_embed(x)
         cls = self.cls_token.expand(h.shape[0], 1, h.shape[-1])
         h = torch.cat([cls, h], dim=1) + self.pos_embed[None]
-        h = self.pre_norm(h)
+        if self.pre_norm is not None:
+            h = self.pre_norm(h)
 
         want = sorted(set(output_layers or ()))
         if want and max(want) >= cfg.num_layers:
@@ -98,8 +136,25 @@ class VisionTower(nn.Module):
                 taps[i] = h
         out: Dict[str, object] = {"taps": taps}
         if final_norm:
-            out["last"] = self.final_norm(h)
+            h = self.final_norm(h)
+            out["last"] = h
+            cls_tok = h[:, 0]
+            if self.visual_projection is not None:
+                cls_tok = self.visual_projection(cls_tok)
+            out["cls"] = cls_tok
         return out
+
+
+@torch.no_grad()
+def init_tower_(tower: VisionTower, generator: torch.Generator) -> None:
+    """Seeded random init in place with JAX `init_vit`'s values: linears
+    uniform, norms 1/0, position embedding and class token 0, layerscale 1e-5."""
+    init_weights_(tower, generator)
+    tower.pos_embed.zero_()
+    tower.cls_token.zero_()
+    for m in tower.modules():
+        if isinstance(m, LayerScale):
+            m.gamma.fill_(1e-5)
 
 
 def clip_tower_features(tower: VisionTower, images: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""LLaVA / OLA-VLM assembly for serving (counterpart of visper_lm_tpu/models/vlm.py).
+"""LLaVA / OLA-VLM assembly (counterpart of visper_lm_tpu/models/vlm.py).
 
 The host collator lowers every example to a fixed-length splice plan
 (data/collate.py) and the model builds inputs_embeds with one gather-select.
@@ -6,13 +6,14 @@ Prompt layout:
 
     [ sys | image (576) | task tokens (num_task_tokens per task, mode order) | text | pad ]
 
-The distillation heads do not run when serving and are not part of this
-model; `weights.from_jax_params` skips their parameters.
+Serving runs the decoder only; training (`vlm_forward` with taps) also runs
+the distillation heads on static slices of the tapped layer states
+(`predict_task_embeddings`).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -21,13 +22,27 @@ from visper_lm_tpu_torch import constants
 from visper_lm_tpu_torch.config import VLMConfig
 from visper_lm_tpu_torch.device import resolve_device
 from visper_lm_tpu_torch.models.decoder import Decoder
+from visper_lm_tpu_torch.models.heads import TaskHead, task_head_forward
 from visper_lm_tpu_torch.models.projector import Projector
-from visper_lm_tpu_torch.models.vit import VisionTower, clip_tower_features
+from visper_lm_tpu_torch.models.resampler import Resampler
+from visper_lm_tpu_torch.models.vit import VisionTower, clip_tower_features, init_tower_
 from visper_lm_tpu_torch.utils.param import embed, init_weights_, torch_dtype
 
 
+def tap_layer_union(cfg: VLMConfig) -> Tuple[int, ...]:
+    """Sorted union of all tasks' tapped layers."""
+    if cfg.distill is None:
+        return ()
+    layers = set()
+    for t in cfg.distill.tasks:
+        layers.update(t.layer_indices)
+    return tuple(sorted(layers))
+
+
 class VLM(nn.Module):
-    """Decoder + CLIP tower + projector + task-token parameters."""
+    """Decoder + CLIP tower + projector + task-token parameters, and with a
+    distill config the heads (per task, one per tapped layer) and the
+    contrastive logit scales (f32)."""
 
     def __init__(self, cfg: VLMConfig, device=None):
         super().__init__()
@@ -55,24 +70,43 @@ class VLM(nn.Module):
                 self.special_tokens[task] = nn.Parameter(
                     torch.zeros(rows, cfg.decoder.hidden_size, device=device, dtype=dtype)
                 )
+        self.heads = nn.ModuleDict()
+        self.logit_scales = nn.ParameterDict()
+        if d is not None:
+            for tcfg in d.tasks:
+                self.heads[tcfg.task] = nn.ModuleList(
+                    TaskHead(
+                        tcfg, cfg.decoder.hidden_size, num_task_tokens=d.num_task_tokens,
+                        use_intermediate_depth=True, device=device, dtype=dtype,
+                    )
+                    for _ in tcfg.layer_indices
+                )
+                if d.use_contrastive:
+                    self.logit_scales[tcfg.task] = nn.Parameter(
+                        torch.zeros((), device=device, dtype=torch.float32)
+                    )
 
 
 def init_vlm(
     cfg: VLMConfig, *, device: Optional[Union[str, torch.device]] = None, seed: int = 0
 ) -> VLM:
-    """The serving subset of JAX `init_vlm`, with seeded random weights made
-    on `device` (CUDA when None) by a torch.Generator."""
+    """JAX `init_vlm`, with seeded random weights made on `device` (CUDA when
+    None) by a torch.Generator: the JAX distributions, not its numbers."""
     device = resolve_device(device)
     with torch.device("meta"):
         model = VLM(cfg)
     model = model.to_empty(device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
     init_weights_(model, gen)
+    init_tower_(model.vision_tower, gen)
     with torch.no_grad():
-        model.vision_tower.pos_embed.zero_()
-        model.vision_tower.cls_token.zero_()
         for p in model.special_tokens.values():
             p.normal_(0.0, 1.0, generator=gen)
+        for p in model.logit_scales.values():
+            p.fill_(2.0)
+        for m in model.modules():
+            if isinstance(m, Resampler) and m.latents is not None:
+                m.latents.normal_(0.0, 1.0, generator=gen).div_(m.latents.shape[-1] ** 0.5)
     return model.eval()
 
 
@@ -126,3 +160,86 @@ def splice_embeddings(
     return torch.where(
         (token_type == constants.SEG_PAD)[..., None], torch.zeros_like(emb), emb
     )
+
+
+# ---------------------------------------------------------------------------
+# Training forward and the distillation heads
+# ---------------------------------------------------------------------------
+
+
+def vlm_forward(
+    model: VLM,
+    cfg: VLMConfig,
+    batch: Dict[str, torch.Tensor],
+    *,
+    use_kernel: Optional[bool] = None,
+    tap: bool = True,
+    compute_logits: bool = True,
+) -> Dict[str, Any]:
+    """JAX `vlm_forward` (training / prefill). batch: images (B,H,W,3) or
+    image_features, text_ids, token_type, src_index, seq_lengths (right
+    padding: the attention masks keys >= seq_lengths)."""
+    if "image_features" in batch:
+        image_features = batch["image_features"]
+    else:
+        image_features = encode_images(model, batch["images"])
+    embeds = splice_embeddings(
+        model, batch["text_ids"].long(), batch["token_type"], batch["src_index"].long(),
+        image_features,
+    )
+    taps = tap_layer_union(cfg) if tap else ()
+    out = model.decoder(
+        embeds, kv_lengths=batch.get("seq_lengths"), tap_layers=taps,
+        use_kernel=use_kernel, compute_logits=compute_logits,
+    )
+    out["tap_layers"] = taps
+    out["image_features"] = image_features
+    return out
+
+
+def head_input_tokens(
+    cfg: VLMConfig, layer_state: torch.Tensor, task: str
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(inp_tokens, task_latents) for one head: inp = [sys+image | this
+    task's token span | text tail when pass_text_to_aux]; latents are the gen
+    span's states for gen, None for depth/seg (the caller supplies the raw
+    special-token parameters)."""
+    d = cfg.distill
+    ns, ni, nt = cfg.num_sys_tokens, cfg.num_image_tokens, d.num_task_tokens
+    order = d.task_order()
+    task_start = ns + ni + nt * order.index(task)
+    all_end = ns + ni + nt * len(order)
+    if nt == 0:
+        return (layer_state if d.pass_text_to_aux else layer_state[:, : ns + ni]), None
+    parts = [layer_state[:, : ns + ni], layer_state[:, task_start : task_start + nt]]
+    if d.pass_text_to_aux:
+        parts.append(layer_state[:, all_end:])
+    inp = torch.cat(parts, dim=1)
+    latents = layer_state[:, task_start : task_start + nt] if task == "gen" else None
+    return inp, latents
+
+
+def predict_task_embeddings(
+    model: VLM,
+    cfg: VLMConfig,
+    taps: Tuple[torch.Tensor, ...],
+    tap_layers: Tuple[int, ...],
+) -> Dict[str, List[torch.Tensor]]:
+    """Every head on its tapped layer state: {task: [pred per layer]}, preds
+    (B, num_tokens, output_dim)."""
+    d = cfg.distill
+    slot = {layer: i for i, layer in enumerate(tap_layers)}
+    preds: Dict[str, List[torch.Tensor]] = {}
+    for tcfg in d.tasks:
+        task_preds = []
+        for j, layer in enumerate(tcfg.layer_indices):
+            inp, latents = head_input_tokens(cfg, taps[slot[layer]], tcfg.task)
+            if d.num_task_tokens > 0 and latents is None:
+                # depth/seg latents: the raw special-token parameters, on the batch
+                tok = model.special_tokens[tcfg.task]
+                latents = tok.to(inp.dtype).expand(inp.shape[0], *tok.shape)
+            task_preds.append(task_head_forward(
+                model.heads[tcfg.task][j], inp, latents if d.num_task_tokens > 0 else None,
+            ))
+        preds[tcfg.task] = task_preds
+    return preds

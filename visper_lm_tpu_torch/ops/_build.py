@@ -31,10 +31,21 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
+_BWD = (
+    [_P] * 11 + [ctypes.POINTER(_LL)] + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
+    ctypes.c_int,
+)
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "flash_fwd": {
         "visper_flash_fwd": (
             [_P] * 7 + [_LL] * 12 + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
+            ctypes.c_int,
+        ),
+    },
+    "flash_bwd": {"visper_flash_bwd_dq": _BWD, "visper_flash_bwd_dkv": _BWD},
+    "window_attn": {
+        "visper_window_attn": (
+            [_P] * 6 + [_LL] * 12 + [_I] * 5 + [ctypes.c_float, _P],
             ctypes.c_int,
         ),
     },

@@ -1,33 +1,50 @@
-"""Flash-attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention: the CUDA kernels' wrappers, their plain versions, and the
+autograd Function that joins them.
 
-Counterpart of visper_lm_tpu/ops/flash_attention.py `flash_attention` (:630),
-whose Pallas forward `_fwd_kernel` (:97, pallas_call :234) becomes the
-hand-written Hopper kernel csrc/flash_fwd.cu. The wrapper launches the kernel
-for CUDA tensors (or raises) and uses `flash_attention_reference` only for
-tensors on the CPU. Forward only: the backward kernels belong to the
-training slice.
+Counterpart of visper_lm_tpu/ops/flash_attention.py `flash_attention` (:630)
+and its custom VJP `_flash_bhtd` (:604-627):
+
+  * forward: the Pallas `_fwd_kernel` (:97, pallas_call :234) becomes
+    csrc/flash_fwd.cu (B1); plain version `flash_attention_reference`;
+  * backward: `_bwd_dq_kernel` (:321, pallas_call :497) and `_bwd_dkv_kernel`
+    (:373, pallas_call :562) become csrc/flash_bwd.cu (B2, B3); plain version
+    `flash_attention_bwd_reference`. delta = rowsum(dO o O) is a plain torch
+    op, as the JAX package leaves it to XLA (:457).
+
+Each wrapper launches its kernel for CUDA tensors (or raises) and uses the
+plain version only for tensors on the CPU. Each kernel has its own launch
+counter (`launches`, `dq_launches`, `dkv_launches`).
 
 Fully masked rows (left padding before kv_starts): the kernel gives 0 and
-lse = NEG_INF, the plain version a uniform average of v. Compare the two on
+lse = NEG_INF, the plain forward a uniform average of v. Compare the two on
 rows >= kv_starts only; decode masks slots < kv_starts, so pad rows never
-reach a valid output.
+reach a valid output. Both backward versions give such rows dq = 0 and no
+share of dk/dv, as `_recompute_p` (:273-284) does.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
 
-from visper_lm_tpu_torch.ops.attention import masked_logits, mha_plain
+from visper_lm_tpu_torch.ops.attention import (
+    _attention_mask,
+    _broadcast_kv,
+    masked_logits,
+    mha_plain,
+)
 
 NEG_INF = -2.3819763e38
 SUPPORTED_HEAD_DIMS = (64, 96, 128)
 SUPPORTED_DTYPES = (torch.bfloat16, torch.float32)
 
-# Kernel launches since the last reset; a caller sets it to 0 and reads it
-# to show that a run went through the kernel.
-launches = 0
+# Kernel launches since the last reset, one counter per kernel; a caller sets
+# them to 0 and reads them to show that a run went through the kernels.
+launches = 0        # B1, forward
+dq_launches = 0     # B2, dq
+dkv_launches = 0    # B3, dk/dv
 
 
 def flash_attention_reference(
@@ -40,7 +57,7 @@ def flash_attention_reference(
     kv_starts: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the kernel: (out (B,T,Nq,H), lse (B,Nq,T) f32) from `mha_plain`."""
+    """Plain forward: (out (B,T,Nq,H), lse (B,Nq,T) f32) from `mha_plain`."""
     kw = dict(causal=causal, kv_lengths=kv_lengths, kv_starts=kv_starts, scale=scale)
     out = mha_plain(q, k, v, **kw)
     logits, mask = masked_logits(q, k, **kw)
@@ -49,6 +66,50 @@ def flash_attention_reference(
         any_valid = mask.any(dim=-1).expand(lse.shape)
         lse = lse.masked_fill(~any_valid, NEG_INF)
     return out, lse
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    causal: bool = True,
+    kv_lengths: Optional[torch.Tensor] = None,
+    kv_starts: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of both backward kernels, in f32: (dq, dk, dv) in the
+    input dtypes. P is recomputed from the saved lse as `_recompute_p` does:
+    exp(s * scale - lse) on unmasked pairs, 0 elsewhere and on rows whose lse
+    is NEG_INF. dk and dv are summed over the G query heads of each kv head."""
+    b, t, nq, h = q.shape
+    s, nkv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = h ** -0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
+    kb, vb = _broadcast_kv(kf, nq), _broadcast_kv(vf, nq)
+    logits = torch.einsum("btnh,bsnh->bnts", qf, kb) * scale
+    lse_col = lse.float()[..., None]                       # (B, Nq, T, 1)
+    dead = lse_col == NEG_INF
+    p = torch.exp(logits - torch.where(dead, torch.zeros_like(lse_col), lse_col))
+    mask = _attention_mask(
+        b, t, s, q.device, causal=causal, q_offset=0, kv_lengths=kv_lengths,
+        kv_starts=kv_starts,
+    )
+    if mask is not None:
+        p = p.masked_fill(~mask, 0.0)
+    p = p.masked_fill(dead, 0.0)
+    delta = (dof * out.float()).sum(-1).transpose(1, 2)    # (B, Nq, T)
+    dp = torch.einsum("btnh,bsnh->bnts", dof, vb)
+    ds = p * (dp - delta[..., None])
+    dq = scale * torch.einsum("bnts,bsnh->btnh", ds, kb)
+    g = nq // nkv
+    dk = scale * torch.einsum("bnts,btnh->bsnh", ds, qf).reshape(b, s, nkv, g, h).sum(3)
+    dv = torch.einsum("bnts,btnh->bsnh", p, dof).reshape(b, s, nkv, g, h).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check(q, k, v, kv_lengths, kv_starts) -> None:
@@ -61,10 +122,6 @@ def _check(q, k, v, kv_lengths, kv_starts) -> None:
             raise ValueError(f"flash_attention: dtypes differ ({q.dtype}, {x.dtype})")
         if x.ndim != 4 or x.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name} must be 4-D BTNH with unit head stride")
-        if x.requires_grad:
-            raise NotImplementedError(
-                "flash_attention: forward only; the backward kernels are not ported yet"
-            )
         if x.dtype == torch.bfloat16 and (
             x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3])
         ):
@@ -87,6 +144,10 @@ def _int32_on(x: Optional[torch.Tensor], device: torch.device) -> Optional[torch
     if x is None:
         return None
     return x.to(device=device, dtype=torch.int32).contiguous()
+
+
+def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
+    return None if x is None else x.data_ptr()
 
 
 def flash_attention_fwd(
@@ -123,8 +184,7 @@ def flash_attention_fwd(
     starts = _int32_on(kv_starts, q.device)
     rc = lib.visper_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        None if lens is None else lens.data_ptr(),
-        None if starts is None else starts.data_ptr(),
+        _ptr(lens), _ptr(starts),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         b, t, s, nq, nkv, h, float(scale), int(causal),
         int(q.dtype == torch.float32),
@@ -134,6 +194,124 @@ def flash_attention_fwd(
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {rc}")
     launches += 1
     return out, lse
+
+
+def _bwd_launch(
+    fn: str, q, k, v, dout, lse, delta, kv_lengths, kv_starts, causal, scale,
+) -> Tuple[torch.Tensor, ...]:
+    """Launch the dq (B2) or dk/dv (B3) kernel on the current stream."""
+    _check(q, k, v, kv_lengths, kv_starts)
+    b, t, nq, h = q.shape
+    if dout.shape != q.shape or lse.shape != (b, nq, t) or delta.shape != (b, nq, t):
+        raise ValueError("flash_attention_bwd: dout/lse/delta shapes do not match q")
+    from visper_lm_tpu_torch.ops import _build
+
+    lib = _build.load("flash_bwd")
+    s, nkv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = h ** -0.5
+    dout = dout.to(q.dtype).contiguous()
+    lse = lse.float().contiguous()
+    delta = delta.float().contiguous()
+    if fn == "dq":
+        outs = (torch.empty(q.shape, dtype=q.dtype, device=q.device),)
+        dq, dk, dv = outs[0], k, v        # dk/dv unused by the dq kernel
+    else:
+        outs = (torch.empty(k.shape, dtype=k.dtype, device=q.device),
+                torch.empty(v.shape, dtype=v.dtype, device=q.device))
+        dq, (dk, dv) = q, outs            # dq unused by the dk/dv kernel
+    lens = _int32_on(kv_lengths, q.device)
+    starts = _int32_on(kv_starts, q.device)
+    strides = (ctypes.c_longlong * 21)(*(
+        st for x in (q, k, v, dout, dq, dk, dv) for st in x.stride()[:3]
+    ))
+    rc = getattr(lib, f"visper_flash_bwd_{fn}")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _ptr(lens), _ptr(starts), strides,
+        b, t, s, nq, nkv, h, float(scale), int(causal), int(q.dtype == torch.float32),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention: {fn} kernel launch failed with CUDA error {rc}")
+    return outs
+
+
+def flash_attention_bwd_dq(
+    q, k, v, dout, lse, delta, *, causal=True, kv_lengths=None, kv_starts=None, scale=None,
+) -> torch.Tensor:
+    """B2: dq (B, T, Nq, H) in q's dtype, from dout, the forward's lse and
+    delta = rowsum(dout o out) (B, Nq, T) f32. CUDA tensors only."""
+    global dq_launches
+    (dq,) = _bwd_launch("dq", q, k, v, dout, lse, delta, kv_lengths, kv_starts, causal, scale)
+    dq_launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(
+    q, k, v, dout, lse, delta, *, causal=True, kv_lengths=None, kv_starts=None, scale=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B3: (dk, dv) (B, S, Nkv, H) in the input dtypes, summed over each kv
+    head's query group. CUDA tensors only."""
+    global dkv_launches
+    dk, dv = _bwd_launch("dkv", q, k, v, dout, lse, delta, kv_lengths, kv_starts, causal, scale)
+    dkv_launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,                # (B, T, Nq, H) the forward's output
+    lse: torch.Tensor,                # (B, Nq, T) f32 the forward's lse
+    dout: torch.Tensor,               # (B, T, Nq, H)
+    *,
+    causal: bool = True,
+    kv_lengths: Optional[torch.Tensor] = None,
+    kv_starts: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in the inputs' dtypes and shapes.
+
+    CPU tensors take the plain version; CUDA tensors get delta from a plain
+    torch reduction and launch the dq kernel (B2) and the dk/dv kernel (B3)
+    on the current stream, or raise."""
+    kw = dict(causal=causal, kv_lengths=kv_lengths, kv_starts=kv_starts, scale=scale)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, out, lse, dout, **kw)
+    if out.shape != q.shape:
+        raise ValueError("flash_attention_bwd: out shape does not match q")
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """JAX `_flash_bhtd`'s custom VJP: the forward saves q, k, v, out, lse and
+    the masks; the backward runs the two backward kernels. It returns dq, dk
+    and dv whenever q, k or v need a gradient (a frozen decoder's inputs
+    still do)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lengths, kv_starts, causal, scale):
+        out, lse = flash_attention_fwd(
+            q, k, v, causal=causal, kv_lengths=kv_lengths, kv_starts=kv_starts,
+            scale=scale,
+        )
+        ctx.save_for_backward(q, k, v, out, lse, kv_lengths, kv_starts)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, kv_lengths, kv_starts = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, dout, causal=ctx.causal, kv_lengths=kv_lengths,
+            kv_starts=kv_starts, scale=ctx.scale,
+        )
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -146,11 +324,9 @@ def flash_attention(
     kv_starts: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Flash attention in the BTNH convention; returns out (B, T, Nq, H).
+    """Flash attention in the BTNH convention, differentiable; returns out
+    (B, T, Nq, H).
 
     kv_starts masks columns before a per-batch start (left padding, generation
     prefill); kv_lengths masks columns at/after a per-batch length."""
-    return flash_attention_fwd(
-        q, k, v, causal=causal, kv_lengths=kv_lengths, kv_starts=kv_starts,
-        scale=scale,
-    )[0]
+    return FlashAttention.apply(q, k, v, kv_lengths, kv_starts, causal, scale)

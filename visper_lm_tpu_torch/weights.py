@@ -1,13 +1,15 @@
-"""Carry a JAX-package parameter tree onto the port's modules.
+"""Carry JAX-package parameter trees onto the port's modules.
 
-The only place that knows the JAX tree's layout (visper_lm_tpu/models/vlm.py
-`init_vlm`): decoder block leaves are stacked (L, ...) and get unstacked, and
-linear kernels are input-major (in, out) where `nn.Linear` holds (out, in).
-The tree is nested dicts/lists of numpy arrays (np.asarray of the JAX leaves);
+The only place that knows the JAX trees' layouts (visper_lm_tpu/models/vlm.py
+`init_vlm`, models/teachers `init_teachers`): stacked block leaves (L, ...)
+are unstacked, linear kernels are input-major (in, out) where `nn.Linear`
+holds (out, in), and conv kernels are HWIO where `nn.Conv2d` holds OIHW.
+A tree is nested dicts/lists of numpy arrays (np.asarray of the JAX leaves);
 bfloat16 leaves (ml_dtypes) are carried bit for bit.
 
-The `heads` and `logit_scales` subtrees (distillation heads and their
-contrastive scales) are not on the serving path and are ignored.
+`from_jax_params` maps the whole VLM tree, the distillation heads and their
+logit scales included; `teachers_from_jax_params` maps the teachers' tree
+(dinov2, clip_h, swin; the DPT decoder is not ported yet and is skipped).
 """
 
 from __future__ import annotations
@@ -16,18 +18,16 @@ from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from visper_lm_tpu_torch.config import VLMConfig
 from visper_lm_tpu_torch.device import resolve_device
+from visper_lm_tpu_torch.models.teachers import TeacherConfigs, build_teachers
 from visper_lm_tpu_torch.models.vlm import VLM
 
-IGNORED_SUBTREES = ("heads", "logit_scales")
-_SERVED_SUBTREES = ("decoder", "vision_tower", "mm_projector", "special_tokens")
-
-_DECODER_LINEARS = (
-    "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj"
+_VLM_SUBTREES = (
+    "decoder", "vision_tower", "mm_projector", "special_tokens", "heads", "logit_scales",
 )
-_VIT_LINEARS = ("qkv", "proj", "fc1", "fc2")
 
 
 def _tensor(x: Any) -> torch.Tensor:
@@ -38,61 +38,85 @@ def _tensor(x: Any) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def _linear(sd: Dict[str, Any], prefix: str, p: Dict[str, Any], index=None) -> None:
-    kernel = np.asarray(p["kernel"])
-    if index is not None:
-        kernel = kernel[index]
-    sd[f"{prefix}.weight"] = kernel.T
-    if "bias" in p:
-        bias = np.asarray(p["bias"])
-        sd[f"{prefix}.bias"] = bias if index is None else bias[index]
+def _leaf(name: str, x: Any):
+    """(port leaf name, value) for one JAX leaf name."""
+    a = np.asarray(x)
+    if name == "kernel":
+        if a.ndim == 4:                     # conv HWIO -> OIHW
+            return "weight", a.transpose(3, 2, 0, 1)
+        return "weight", a.T
+    if name == "embedding":
+        return "weight", a
+    return name, a
 
 
-def _norm(sd: Dict[str, Any], prefix: str, p: Dict[str, Any], index=None) -> None:
-    for name in ("scale", "bias"):
-        if name in p:
-            leaf = np.asarray(p[name])
-            sd[f"{prefix}.{name}"] = leaf if index is None else leaf[index]
+def _flatten(sd: Dict[str, Any], prefix: str, tree: Any) -> None:
+    """Every leaf of a (non-stacked) subtree under `prefix`."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if isinstance(v, (dict, list, tuple)):
+                _flatten(sd, f"{prefix}.{k}", v)
+            else:
+                name, val = _leaf(k, v)
+                sd[f"{prefix}.{name}"] = val
+    else:
+        for i, v in enumerate(tree):
+            _flatten(sd, f"{prefix}.{i}", v)
+
+
+def _unstack(tree: Any, i: int) -> Any:
+    if isinstance(tree, dict):
+        return {k: _unstack(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _stacked(sd: Dict[str, Any], prefix: str, blocks: Dict[str, Any], n: int) -> None:
+    for i in range(n):
+        _flatten(sd, f"{prefix}.{i}", _unstack(blocks, i))
+
+
+def _vit(sd: Dict[str, Any], prefix: str, tree: Dict[str, Any], num_layers: int) -> None:
+    rest = {k: v for k, v in tree.items() if k != "blocks"}
+    _flatten(sd, prefix, rest)
+    _stacked(sd, f"{prefix}.blocks", tree["blocks"], num_layers)
 
 
 def jax_tree_to_state_dict(tree: Dict[str, Any], cfg: VLMConfig) -> Dict[str, Any]:
-    """Map the JAX param tree onto the port's state_dict names (numpy values)."""
-    unknown = set(tree) - set(_SERVED_SUBTREES) - set(IGNORED_SUBTREES)
+    """Map the JAX VLM param tree onto the port's state_dict names (numpy values)."""
+    unknown = set(tree) - set(_VLM_SUBTREES)
     if unknown:
         raise NotImplementedError(f"param subtrees not ported yet: {sorted(unknown)}")
     sd: Dict[str, Any] = {}
-
     dec = tree["decoder"]
-    blocks = dec["blocks"]
-    sd["decoder.embed_tokens.weight"] = dec["embed_tokens"]["embedding"]
-    for i in range(cfg.decoder.num_layers):
-        pre = f"decoder.blocks.{i}"
-        _norm(sd, f"{pre}.attn_norm", blocks["attn_norm"], i)
-        _norm(sd, f"{pre}.mlp_norm", blocks["mlp_norm"], i)
-        for name in _DECODER_LINEARS:
-            _linear(sd, f"{pre}.{name}", blocks[name], i)
-    _norm(sd, "decoder.final_norm", dec["final_norm"])
-    if "lm_head" in dec:
-        _linear(sd, "decoder.lm_head", dec["lm_head"])
-
-    vt = tree["vision_tower"]
-    _linear(sd, "vision_tower.patch_embed", vt["patch_embed"])
-    sd["vision_tower.pos_embed"] = vt["pos_embed"]
-    sd["vision_tower.cls_token"] = vt["cls_token"]
-    _norm(sd, "vision_tower.pre_norm", vt["pre_norm"])
-    _norm(sd, "vision_tower.final_norm", vt["final_norm"])
-    for i in range(cfg.vision.num_layers):
-        pre = f"vision_tower.blocks.{i}"
-        _norm(sd, f"{pre}.norm1", vt["blocks"]["norm1"], i)
-        _norm(sd, f"{pre}.norm2", vt["blocks"]["norm2"], i)
-        for name in _VIT_LINEARS:
-            _linear(sd, f"{pre}.{name}", vt["blocks"][name], i)
-
-    for j, layer in enumerate(tree["mm_projector"].get("layers", ())):
-        _linear(sd, f"mm_projector.layers.{j}", layer)
-    for task, tok in tree.get("special_tokens", {}).items():
-        sd[f"special_tokens.{task}"] = tok
+    _flatten(sd, "decoder", {k: v for k, v in dec.items() if k != "blocks"})
+    _stacked(sd, "decoder.blocks", dec["blocks"], cfg.decoder.num_layers)
+    _vit(sd, "vision_tower", tree["vision_tower"], cfg.vision.num_layers)
+    for name in ("mm_projector", "special_tokens", "heads", "logit_scales"):
+        if name in tree:
+            _flatten(sd, name, tree[name])
     return sd
+
+
+def _load(module: nn.Module, sd: Dict[str, Any], device, dtype) -> None:
+    tensors = {}
+    for name, leaf in sd.items():
+        t = _tensor(leaf)
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        tensors[name] = t.to(device)
+    module.load_state_dict(tensors, strict=True, assign=True)
+
+
+def load_jax_tree(
+    module: nn.Module, tree: Dict[str, Any], device: Union[str, torch.device],
+    dtype: Optional[torch.dtype] = None,
+) -> nn.Module:
+    """Load a JAX subtree with no stacked blocks (a head, a resampler) into
+    `module` in place, strictly; returns the module."""
+    sd: Dict[str, Any] = {}
+    _flatten(sd, "", tree)
+    _load(module, {k[1:]: v for k, v in sd.items()}, torch.device(device), dtype)
+    return module
 
 
 def from_jax_params(
@@ -107,11 +131,39 @@ def from_jax_params(
     device = resolve_device(device)
     with torch.device("meta"):
         model = VLM(cfg)
-    sd = {}
-    for name, leaf in jax_tree_to_state_dict(tree, cfg).items():
-        t = _tensor(leaf)
-        if dtype is not None and t.is_floating_point():
-            t = t.to(dtype)
-        sd[name] = t.to(device)
-    model.load_state_dict(sd, strict=True, assign=True)
+    _load(model, jax_tree_to_state_dict(tree, cfg), device, dtype)
     return model.eval()
+
+
+def teachers_from_jax_params(
+    tree: Dict[str, Any],
+    cfg: VLMConfig,
+    tcfgs: Optional[TeacherConfigs] = None,
+    device: Optional[Union[str, torch.device]] = None,
+    dtype: Optional[torch.dtype] = None,
+) -> nn.ModuleDict:
+    """The teachers (frozen, eval) holding the JAX `init_teachers` tree's
+    weights, for each of dinov2, clip_h and swin the tree holds: the towers
+    with their stacked blocks unstacked, swin with its stacked blocks per
+    stage unstacked, rel_bias and downsample weights carried."""
+    device = resolve_device(device)
+    tcfgs = tcfgs or TeacherConfigs()
+    with torch.device("meta"):
+        built = build_teachers(cfg, tcfgs)
+    teachers = nn.ModuleDict({n: m for n, m in built.items() if n in tree})
+    sd: Dict[str, Any] = {}
+    for name in teachers:
+        sub = tree[name]
+        if name == "dinov2":
+            _vit(sd, name, sub, tcfgs.dinov2.num_layers)
+        elif name == "clip_h":
+            _vit(sd, name, sub, tcfgs.clip_h.num_layers)
+        else:
+            _flatten(sd, name, {k: v for k, v in sub.items() if k != "stages"})
+            for s, stage in enumerate(sub["stages"]):
+                pre = f"{name}.stages.{s}"
+                _stacked(sd, f"{pre}.blocks", stage["blocks"], tcfgs.swin.depths[s])
+                if "downsample" in stage:
+                    _flatten(sd, f"{pre}.downsample", stage["downsample"])
+    _load(teachers, sd, device, dtype)
+    return teachers.requires_grad_(False).eval()
