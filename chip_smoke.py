@@ -13,8 +13,10 @@ Phases, each of which raises (exit code != 0) when it fails:
      the card could take. Tolerances against the plain version computed in f32:
        B1 flash forward: bf16 max abs error <= 2e-2 (f32 1e-4) on rows with a
           valid key, lse <= 1e-3;
-       B2/B3 flash backward (dq, dk/dv): bf16 max abs error <= 2e-2 x the
-          reference's largest magnitude (gradients sum over up to 1024 rows);
+       B2/B3 flash backward (dq, dk/dv) against the plain backward fed the
+          plain forward's f32 out and lse: relative Frobenius error <= 1e-2
+          and, per element, |err| <= 2e-2 + 1e-2 x |ref| (the bf16 rounding
+          of the largest gradients, which sum over up to 1024 rows);
        B4 Swin window attention: bf16 max abs error <= 2e-2;
   4. serving path: Phi3-mini-4k + CLIP-ViT-L/14-336 (distill task tokens) at
      full width with seeded random weights serves 8 left-padded multimodal
@@ -31,8 +33,9 @@ Phases, each of which raises (exit code != 0) when it fails:
      the loss must be finite and change from step 2 on (update 1 has lr 0); a
      frozen decoder weight must not change; at B1 the step's loss and
      trainable gradients with the kernels must match the same step with plain
-     attention (decoder and window): loss within 2 %, cosine >= 0.99 for every
-     trainable with a nonzero gradient. Then one step is profiled.
+     attention (decoder and window): loss within 1e-3 (relative), cosine
+     >= 0.999 for every trainable with a nonzero gradient. Then one step is
+     profiled.
 
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Needs no network; builds into
@@ -211,15 +214,24 @@ def bwd_case(name, b, t, nq, nkv, h, causal, starts, lens, gen, fa):
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     dq = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
-    ref = fa.flash_attention_bwd_reference(
-        q.float(), k.float(), v.float(), out.float(), lse, dout.float(), **kw)
+    # the reference shares nothing with the kernels: its out and lse come
+    # from the plain forward in f32
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out_ref, lse_ref = fa.flash_attention_reference(qf, kf, vf, **kw)
+    ref = fa.flash_attention_bwd_reference(qf, kf, vf, out_ref, lse_ref, dout.float(), **kw)
+    del qf, kf, vf, out_ref, lse_ref
     torch.cuda.synchronize()
-    err, mag = {}, {}
+    err, mag, fro = {}, {}, {}
     for gname, got, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
-        err[gname] = (got.float() - r).abs().max().item()
+        e = (got.float() - r).abs()
+        err[gname] = e.max().item()
         mag[gname] = r.abs().max().item()
-        check(err[gname] <= 2e-2 * mag[gname],
-              f"{name}: {gname} max abs err {err[gname]} > 2e-2 x {mag[gname]}")
+        fro[gname] = (e.norm() / r.norm()).item()
+        excess = (e - (2e-2 + 1e-2 * r.abs())).max().item()
+        print(f"bwd_case {name} {gname}: max abs err {err[gname]:.4g}, max |ref| "
+              f"{mag[gname]:.4g}, relative Frobenius err {fro[gname]:.4g}")
+        check(fro[gname] <= 1e-2, f"{name}: {gname} relative Frobenius err {fro[gname]} > 1e-2")
+        check(excess <= 0, f"{name}: {gname} exceeds 2e-2 + 1e-2 x |ref| by {excess}")
     del ref
     ms_dq = cuda_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw), 10)
     ms_dkv = cuda_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw), 10)
@@ -248,7 +260,8 @@ def bwd_case(name, b, t, nq, nkv, h, causal, starts, lens, gen, fa):
     ):
         rec = dict(
             case=f"{name}_{kname}", shape=shape, max_abs_err=max(err[x] for x in errs),
-            max_abs_ref=max(mag[x] for x in errs), tol="2e-2 x max_abs_ref", ms=ms,
+            max_abs_ref=max(mag[x] for x in errs), rel_fro_err=max(fro[x] for x in errs),
+            tol="rel Frobenius 1e-2, |err| <= 2e-2 + 1e-2 x |ref|", ms=ms,
             plain_ms=plain_ms, library_ms=library_ms, **bound(nbytes, flops, dtype),
             tflops=flops / ms * 1e-9,
         )
@@ -403,6 +416,10 @@ def main() -> int:
     tbatch = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ)
     train_lens = tbatch["seq_lengths"].tolist()
     print(f"training batch seq_lengths {train_lens}")
+    kernel_case(
+        "train", TRAIN_BATCH, TRAIN_SEQ, d.num_heads, d.num_kv_heads, d.head_dim,
+        torch.bfloat16, True, [0] * TRAIN_BATCH, train_lens, gen, fa,
+    )
     dq_rec, dkv_rec = bwd_case(
         "train", TRAIN_BATCH, TRAIN_SEQ, d.num_heads, d.num_kv_heads, d.head_dim, True,
         [0] * TRAIN_BATCH, train_lens, gen, fa,
@@ -566,8 +583,8 @@ def main() -> int:
     del grads_k, grads_p
     print(f"train B1 kernel vs plain: loss {loss_k:.6f} vs {loss_p:.6f} (rel {rel:.3g}), "
           f"min grad cosine {min_cos:.6f} ({min_name}) over {n_cmp} tensors")
-    check(rel <= 0.02, f"B1 loss kernel vs plain differs by {rel:.3g} > 2 %")
-    check(min_cos >= 0.99, f"B1 grad cosine {min_cos} < 0.99 for {min_name}")
+    check(rel <= 1e-3, f"B1 loss kernel vs plain differs by {rel:.3g} > 1e-3")
+    check(min_cos >= 0.999, f"B1 grad cosine {min_cos} < 0.999 for {min_name}")
 
     # where the training step's time goes
     train_prof = profile_window("train_step", lambda: step(tbatch), top=15)

@@ -7,8 +7,9 @@ without one. This file imports no JAX, so it runs on a machine without it:
 
 Tolerances (max abs error on rows with at least one valid key, against the
 plain version computed in f32): bf16 2e-2, f32 1e-4; lse 1e-3. Backward
-(dq, dk, dv against `flash_attention_bwd_reference` in f32): bf16 2e-2 of the
-reference's largest magnitude, f32 1e-4. Window attention: bf16 2e-2.
+(bf16 only; dq, dk, dv against `flash_attention_bwd_reference` fed the plain
+forward's f32 out and lse): relative Frobenius error 1e-2 and, per element,
+|err| <= 2e-2 + 1e-2 x |ref|. Window attention: bf16 2e-2.
 """
 
 import pytest
@@ -89,35 +90,42 @@ def test_flash_kernel_counts_launches_and_rejects_what_it_cannot_run(cuda_gen):
     assert fa.launches == before + 1
 
 
-def _rel_err(got, ref):
-    return (got.float() - ref.float()).abs().max().item() / max(ref.abs().max().item(), 1e-6)
+def _assert_grad_close(got, ref, name):
+    """Relative Frobenius error <= 1e-2 (no bulk of rows may be off), and
+    per element |err| <= 2e-2 + 1e-2 x |ref| (bf16 rounding of the largest)."""
+    err = (got.float() - ref.float()).abs()
+    fro = (err.norm() / ref.float().norm()).item()
+    assert fro <= 1e-2, f"{name}: relative Frobenius err {fro}"
+    excess = (err - (2e-2 + 1e-2 * ref.float().abs())).max().item()
+    assert excess <= 0, f"{name}: max abs err {err.max().item()} exceeds its bound by {excess}"
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize(
     "h,nq,nkv,causal", [(96, 4, 4, True), (128, 4, 2, True), (64, 2, 2, False)]
 )
-def test_flash_backward_kernels_match_plain(cuda_gen, dtype, h, nq, nkv, causal):
+def test_flash_backward_kernels_match_plain(cuda_gen, h, nq, nkv, causal):
     b, t = 2, 320
-    q, k, v = _qkv(cuda_gen, b, t, nq, nkv, h, dtype)
+    q, k, v = _qkv(cuda_gen, b, t, nq, nkv, h, torch.bfloat16)
     starts = torch.tensor([70, 0], device="cuda")
     lens = torch.tensor([t, 250], device="cuda")
     kw = dict(causal=causal, kv_starts=starts, kv_lengths=lens)
     out, lse = fa.flash_attention_fwd(q, k, v, **kw)
-    dout = torch.randn(out.shape, device="cuda", generator=cuda_gen).to(dtype)
+    dout = torch.randn(out.shape, device="cuda", generator=cuda_gen).to(torch.bfloat16)
     d0, k0 = fa.dq_launches, fa.dkv_launches
     got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     assert (fa.dq_launches, fa.dkv_launches) == (d0 + 1, k0 + 1)
-    ref = fa.flash_attention_bwd_reference(
-        q.float(), k.float(), v.float(), out.float(), lse, dout.float(), **kw
-    )
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out_ref, lse_ref = fa.flash_attention_reference(qf, kf, vf, **kw)
+    ref = fa.flash_attention_bwd_reference(qf, kf, vf, out_ref, lse_ref, dout.float(), **kw)
     torch.cuda.synchronize()
-    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     for name, g, r in zip(("dq", "dk", "dv"), got, ref):
-        assert g.dtype == dtype and g.shape == r.shape
-        assert _rel_err(g, r) <= tol, name
+        assert g.dtype == torch.bfloat16 and g.shape == r.shape
+        _assert_grad_close(g, r, name)
     if causal:
         assert torch.all(got[0][0, :70] == 0)  # rows with no valid key
+    with pytest.raises(ValueError):           # the backward kernels take bf16 only
+        fa.flash_attention_bwd(qf, kf, vf, out_ref, lse_ref, dout.float(), **kw)
+    assert (fa.dq_launches, fa.dkv_launches) == (d0 + 1, k0 + 1)
 
 
 def test_flash_autograd_runs_the_backward_kernels(cuda_gen):
@@ -125,14 +133,17 @@ def test_flash_autograd_runs_the_backward_kernels(cuda_gen):
     q, k, v = (x.requires_grad_(True) for x in (q, k, v))
     lens = torch.tensor([256, 190], device="cuda")
     out = fa.flash_attention(q, k, v, kv_lengths=lens)
+    # a fixed dout (bf16 values) on both sides, so the gradients differ only
+    # by the backward, not by the forward's error carried into dout
+    w = torch.randn(out.shape, device="cuda", generator=cuda_gen).to(torch.bfloat16).float()
     d0, k0 = fa.dq_launches, fa.dkv_launches
-    out.float().square().sum().backward()
+    (out.float() * w).sum().backward()
     assert (fa.dq_launches, fa.dkv_launches) == (d0 + 1, k0 + 1)
     qr, kr, vr = (x.detach().float().requires_grad_(True) for x in (q, k, v))
     ref, _ = fa.flash_attention_reference(qr, kr, vr, kv_lengths=lens)
-    ref.square().sum().backward()
-    for g, r in ((q.grad, qr.grad), (k.grad, kr.grad), (v.grad, vr.grad)):
-        assert _rel_err(g, r) <= 3e-2
+    (ref * w).sum().backward()
+    for name, g, r in (("dq", q.grad, qr.grad), ("dk", k.grad, kr.grad), ("dv", v.grad, vr.grad)):
+        _assert_grad_close(g, r, name)
 
 
 @pytest.mark.parametrize("n,d,heads,nw,windows", [(144, 32, 6, 16, 32), (144, 32, 48, 1, 8), (64, 16, 3, 4, 8)])

@@ -22,7 +22,7 @@
 // outputs (~0.04 ms at 3.35 TB/s): the ideal pair of kernels is bound by
 // operations.
 //
-// Design (correct and simple first; wgmma/TMA later). bf16, 4 warps per CTA,
+// Design (correct and simple first; wgmma/TMA later). 4 warps per CTA,
 // mma.sync m16n8k16 with f32 accumulation, tiles of 64 rows staged in padded
 // shared memory (row stride H + 8) and fragments read from there:
 //   * dq: one CTA per (q tile of 64 rows, q head, batch); each warp owns 16
@@ -39,8 +39,8 @@
 //     dP^T = V dO^T, then dv += P^T dO and dk += dS^T Q in f32 registers. dk and
 //     dv are written once per kv head in the input dtype: no atomics, no f32
 //     buffer of G copies.
-//   * f32 (for checking): SIMT kernels, one thread per query row (dq) or per
-//     key (dk/dv), in full f32.
+// bf16 only: the training path is bf16, and the plain version in f32 is the
+// oracle the kernels are held to.
 
 #include <math.h>
 
@@ -379,181 +379,25 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_bf16_kernel(const Para
   }
 }
 
-// ---------------------------------------------------------------------------
-// f32: SIMT, one thread per query row (dq) or per key (dk/dv)
-// ---------------------------------------------------------------------------
-
-constexpr int kSimt = 32;      // threads (rows or keys) per CTA
-constexpr int kSimtTile = 8;   // keys or rows staged per step (f32 smem < 48 KB at H128)
-
 template <int H>
-__global__ void __launch_bounds__(kSimt) flash_bwd_dq_f32_kernel(const Params p) {
-  __shared__ float qs[kSimt][H + 1];
-  __shared__ float dos[kSimt][H + 1];
-  __shared__ float ks[kSimtTile][H];
-  __shared__ float vs[kSimtTile][H];
-  const int q0 = blockIdx.x * kSimt;
-  const int head = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = head / p.group;
-  const int t = threadIdx.x;
-  const int row = q0 + t;
-  const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + head * p.q_sn;
-  const float* dob = static_cast<const float*>(p.dout) + b * p.do_sb + head * p.do_sn;
-  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sn;
-  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sn;
-  for (int i = t; i < kSimt * H; i += kSimt) {
-    const int r = i / H, c = i % H;
-    const bool in = q0 + r < p.T;
-    qs[r][c] = in ? qb[(q0 + r) * p.q_st + c] : 0.f;
-    dos[r][c] = in ? dob[(q0 + r) * p.do_st + c] : 0.f;
-  }
-  const long long idx = (static_cast<long long>(b) * p.Nq + head) * p.T + row;
-  const float l = row < p.T ? p.lse[idx] : kNegInf;
-  const bool live = l != kNegInf;
-  const float dlt = row < p.T ? p.delta[idx] : 0.f;
-
-  float acc[H];
-#pragma unroll
-  for (int c = 0; c < H; ++c) acc[c] = 0.f;
-  int lo, len;
-  col_bounds(p, b, lo, len);
-  const int hi = p.causal ? min(len, q0 + kSimt) : len;
-  for (int k0 = (lo / kSimtTile) * kSimtTile; k0 < hi; k0 += kSimtTile) {
-    __syncthreads();
-    for (int i = t; i < kSimtTile * H; i += kSimt) {
-      const int r = i / H, c = i % H;
-      const bool in = k0 + r < p.S;
-      ks[r][c] = in ? kb[(k0 + r) * p.k_st + c] : 0.f;
-      vs[r][c] = in ? vb[(k0 + r) * p.v_st + c] : 0.f;
-    }
-    __syncthreads();
-    for (int j = 0; j < kSimtTile; ++j) {
-      const int col = k0 + j;
-      if (!live || !pair_ok(p, row, col, lo, len)) continue;
-      float sc = 0.f, dpv = 0.f;
-#pragma unroll
-      for (int c = 0; c < H; ++c) {
-        sc = fmaf(qs[t][c], ks[j][c], sc);
-        dpv = fmaf(dos[t][c], vs[j][c], dpv);
-      }
-      const float ds = expf(sc * p.scale - l) * (dpv - dlt);
-#pragma unroll
-      for (int c = 0; c < H; ++c) acc[c] = fmaf(ds, ks[j][c], acc[c]);
-    }
-  }
-  if (row < p.T) {
-    float* out = static_cast<float*>(p.dq) + b * p.dq_sb + head * p.dq_sn + row * p.dq_st;
-#pragma unroll
-    for (int c = 0; c < H; ++c) out[c] = acc[c] * p.scale;
-  }
-}
-
-template <int H>
-__global__ void __launch_bounds__(kSimt) flash_bwd_dkv_f32_kernel(const Params p) {
-  __shared__ float ks[kSimt][H + 1];
-  __shared__ float vs[kSimt][H + 1];
-  __shared__ float qs[kSimtTile][H];
-  __shared__ float dos[kSimtTile][H];
-  __shared__ float ls[kSimtTile];
-  __shared__ float ds_[kSimtTile];
-  const int k0 = blockIdx.x * kSimt;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int t = threadIdx.x;
-  const int key = k0 + t;
-  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sn;
-  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sn;
-  for (int i = t; i < kSimt * H; i += kSimt) {
-    const int r = i / H, c = i % H;
-    const bool in = k0 + r < p.S;
-    ks[r][c] = in ? kb[(k0 + r) * p.k_st + c] : 0.f;
-    vs[r][c] = in ? vb[(k0 + r) * p.v_st + c] : 0.f;
-  }
-  float dk[H], dv[H];
-#pragma unroll
-  for (int c = 0; c < H; ++c) dk[c] = dv[c] = 0.f;
-  int lo, len;
-  col_bounds(p, b, lo, len);
-  const int q_first = p.causal ? (k0 / kSimtTile) * kSimtTile : 0;
-  for (int gi = 0; gi < p.group; ++gi) {
-    const int head = kvh * p.group + gi;
-    const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + head * p.q_sn;
-    const float* dob = static_cast<const float*>(p.dout) + b * p.do_sb + head * p.do_sn;
-    const long long stat0 = (static_cast<long long>(b) * p.Nq + head) * p.T;
-    for (int q0 = q_first; q0 < p.T; q0 += kSimtTile) {
-      __syncthreads();
-      for (int i = t; i < kSimtTile * H; i += kSimt) {
-        const int r = i / H, c = i % H;
-        const bool in = q0 + r < p.T;
-        qs[r][c] = in ? qb[(q0 + r) * p.q_st + c] : 0.f;
-        dos[r][c] = in ? dob[(q0 + r) * p.do_st + c] : 0.f;
-      }
-      if (t < kSimtTile) {
-        const int row = q0 + t;
-        ls[t] = row < p.T ? p.lse[stat0 + row] : kNegInf;
-        ds_[t] = row < p.T ? p.delta[stat0 + row] : 0.f;
-      }
-      __syncthreads();
-      for (int j = 0; j < kSimtTile; ++j) {
-        const int row = q0 + j;
-        if (key >= p.S || ls[j] == kNegInf || !pair_ok(p, row, key, lo, len)) continue;
-        float sc = 0.f, dpv = 0.f;
-#pragma unroll
-        for (int c = 0; c < H; ++c) {
-          sc = fmaf(ks[t][c], qs[j][c], sc);
-          dpv = fmaf(vs[t][c], dos[j][c], dpv);
-        }
-        const float pe = expf(sc * p.scale - ls[j]);
-        const float ds = pe * (dpv - ds_[j]);
-#pragma unroll
-        for (int c = 0; c < H; ++c) {
-          dv[c] = fmaf(pe, dos[j][c], dv[c]);
-          dk[c] = fmaf(ds, qs[j][c], dk[c]);
-        }
-      }
-    }
-  }
-  if (key < p.S) {
-    float* ok_ = static_cast<float*>(p.dk) + b * p.dk_sb + kvh * p.dk_sn + key * p.dk_st;
-    float* ov_ = static_cast<float*>(p.dv) + b * p.dv_sb + kvh * p.dv_sn + key * p.dv_st;
-#pragma unroll
-    for (int c = 0; c < H; ++c) {
-      ok_[c] = dk[c] * p.scale;
-      ov_[c] = dv[c];
-    }
-  }
-}
-
-template <int H>
-cudaError_t launch_dq(const Params& p, int is_f32, cudaStream_t stream) {
-  if (is_f32) {
-    const dim3 grid((p.T + kSimt - 1) / kSimt, p.Nq, p.B);
-    flash_bwd_dq_f32_kernel<H><<<grid, kSimt, 0, stream>>>(p);
-  } else {
-    constexpr int smem = smem_bytes<H>();
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_bf16_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((p.T + kTile - 1) / kTile, p.Nq, p.B);
-    flash_bwd_dq_bf16_kernel<H><<<grid, kThreads, smem, stream>>>(p);
-  }
+cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<H>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_bf16_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.T + kTile - 1) / kTile, p.Nq, p.B);
+  flash_bwd_dq_bf16_kernel<H><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int H>
-cudaError_t launch_dkv(const Params& p, int is_f32, cudaStream_t stream) {
-  if (is_f32) {
-    const dim3 grid((p.S + kSimt - 1) / kSimt, p.Nkv, p.B);
-    flash_bwd_dkv_f32_kernel<H><<<grid, kSimt, 0, stream>>>(p);
-  } else {
-    constexpr int smem = smem_bytes<H>();
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkv_bf16_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((p.S + kTile - 1) / kTile, p.Nkv, p.B);
-    flash_bwd_dkv_bf16_kernel<H><<<grid, kThreads, smem, stream>>>(p);
-  }
+cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<H>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_bf16_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.S + kTile - 1) / kTile, p.Nkv, p.B);
+  flash_bwd_dkv_bf16_kernel<H><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -586,22 +430,22 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
 
 // Launch on `stream`; each returns cudaGetLastError() (0 on success).
 // `strides` holds 21 element strides (batch, token, head) of q, k, v, dout,
-// dq, dk, dv in that order; the head-dim stride of each must be 1. is_f32
-// selects f32 tensors, otherwise bf16. kv_len / kv_start may be null.
+// dq, dk, dv in that order; the head-dim stride of each must be 1. All
+// tensors are bf16. kv_len / kv_start may be null.
 // visper_flash_bwd_dq writes dq (reads dk/dv as unused); visper_flash_bwd_dkv
 // writes dk and dv.
 extern "C" int visper_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
     const void* delta, void* dq, void* dk, void* dv, const void* kv_len,
     const void* kv_start, const long long* strides, int B, int T, int S, int Nq,
-    int Nkv, int H, float scale, int causal, int is_f32, void* stream) {
+    int Nkv, int H, float scale, int causal, void* stream) {
   const Params p = make_params(q, k, v, dout, lse, delta, dq, dk, dv, kv_len, kv_start,
                                strides, B, T, S, Nq, Nkv, scale, causal);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (H) {
-    case 64: return static_cast<int>(launch_dq<64>(p, is_f32, st));
-    case 96: return static_cast<int>(launch_dq<96>(p, is_f32, st));
-    case 128: return static_cast<int>(launch_dq<128>(p, is_f32, st));
+    case 64: return static_cast<int>(launch_dq<64>(p, st));
+    case 96: return static_cast<int>(launch_dq<96>(p, st));
+    case 128: return static_cast<int>(launch_dq<128>(p, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -610,14 +454,14 @@ extern "C" int visper_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
     const void* delta, void* dq, void* dk, void* dv, const void* kv_len,
     const void* kv_start, const long long* strides, int B, int T, int S, int Nq,
-    int Nkv, int H, float scale, int causal, int is_f32, void* stream) {
+    int Nkv, int H, float scale, int causal, void* stream) {
   const Params p = make_params(q, k, v, dout, lse, delta, dq, dk, dv, kv_len, kv_start,
                                strides, B, T, S, Nq, Nkv, scale, causal);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (H) {
-    case 64: return static_cast<int>(launch_dkv<64>(p, is_f32, st));
-    case 96: return static_cast<int>(launch_dkv<96>(p, is_f32, st));
-    case 128: return static_cast<int>(launch_dkv<128>(p, is_f32, st));
+    case 64: return static_cast<int>(launch_dkv<64>(p, st));
+    case 96: return static_cast<int>(launch_dkv<96>(p, st));
+    case 128: return static_cast<int>(launch_dkv<128>(p, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -32,7 +32,7 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _BWD = (
-    [_P] * 11 + [ctypes.POINTER(_LL)] + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
+    [_P] * 11 + [ctypes.POINTER(_LL)] + [_I] * 6 + [ctypes.c_float, _I, _P],
     ctypes.c_int,
 )
 SIGNATURES: Dict[str, Dict[str, tuple]] = {

@@ -13,7 +13,9 @@ and its custom VJP `_flash_bhtd` (:604-627):
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and uses the
 plain version only for tensors on the CPU. Each kernel has its own launch
-counter (`launches`, `dq_launches`, `dkv_launches`).
+counter (`launches`, `dq_launches`, `dkv_launches`). The forward kernel
+takes bf16 and f32; the backward kernels take bf16 only (the training path's
+dtype), so backward() of f32 CUDA tensors raises.
 
 Fully masked rows (left padding before kv_starts): the kernel gives 0 and
 lse = NEG_INF, the plain forward a uniform average of v. Compare the two on
@@ -199,8 +201,10 @@ def flash_attention_fwd(
 def _bwd_launch(
     fn: str, q, k, v, dout, lse, delta, kv_lengths, kv_starts, causal, scale,
 ) -> Tuple[torch.Tensor, ...]:
-    """Launch the dq (B2) or dk/dv (B3) kernel on the current stream."""
+    """Launch the dq (B2) or dk/dv (B3) kernel on the current stream (bf16 only)."""
     _check(q, k, v, kv_lengths, kv_starts)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention_bwd: the backward kernels take bf16, not {q.dtype}")
     b, t, nq, h = q.shape
     if dout.shape != q.shape or lse.shape != (b, nq, t) or delta.shape != (b, nq, t):
         raise ValueError("flash_attention_bwd: dout/lse/delta shapes do not match q")
@@ -229,7 +233,7 @@ def _bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _ptr(lens), _ptr(starts), strides,
-        b, t, s, nq, nkv, h, float(scale), int(causal), int(q.dtype == torch.float32),
+        b, t, s, nq, nkv, h, float(scale), int(causal),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
@@ -241,7 +245,7 @@ def flash_attention_bwd_dq(
     q, k, v, dout, lse, delta, *, causal=True, kv_lengths=None, kv_starts=None, scale=None,
 ) -> torch.Tensor:
     """B2: dq (B, T, Nq, H) in q's dtype, from dout, the forward's lse and
-    delta = rowsum(dout o out) (B, Nq, T) f32. CUDA tensors only."""
+    delta = rowsum(dout o out) (B, Nq, T) f32. bf16 CUDA tensors only."""
     global dq_launches
     (dq,) = _bwd_launch("dq", q, k, v, dout, lse, delta, kv_lengths, kv_starts, causal, scale)
     dq_launches += 1
@@ -252,7 +256,7 @@ def flash_attention_bwd_dkv(
     q, k, v, dout, lse, delta, *, causal=True, kv_lengths=None, kv_starts=None, scale=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B3: (dk, dv) (B, S, Nkv, H) in the input dtypes, summed over each kv
-    head's query group. CUDA tensors only."""
+    head's query group. bf16 CUDA tensors only."""
     global dkv_launches
     dk, dv = _bwd_launch("dkv", q, k, v, dout, lse, delta, kv_lengths, kv_starts, causal, scale)
     dkv_launches += 1
@@ -274,9 +278,9 @@ def flash_attention_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) in the inputs' dtypes and shapes.
 
-    CPU tensors take the plain version; CUDA tensors get delta from a plain
-    torch reduction and launch the dq kernel (B2) and the dk/dv kernel (B3)
-    on the current stream, or raise."""
+    CPU tensors take the plain version; bf16 CUDA tensors get delta from a
+    plain torch reduction and launch the dq kernel (B2) and the dk/dv kernel
+    (B3) on the current stream; other CUDA tensors raise."""
     kw = dict(causal=causal, kv_lengths=kv_lengths, kv_starts=kv_starts, scale=scale)
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, out, lse, dout, **kw)

@@ -69,26 +69,19 @@ def make_loss_fn(
 
 
 class TrainStep:
-    """One device's train state: the model (trainables updated in place), the
-    frozen teachers, the optimizer state. Call it with a batch of numpy
-    arrays or tensors; it returns the step's metrics as floats."""
+    """One device's train state, built by `make_train_step`: the model
+    (trainables updated in place), the frozen teachers, the optimizer state.
+    Call it with a batch of numpy arrays or tensors; it returns the step's
+    metrics as floats."""
 
-    def __init__(
-        self, cfg: VLMConfig, opt_cfg: OptimizerConfig, model: VLM, *,
-        teacher_fn: Optional[TeacherFn] = None, teachers: Optional[nn.ModuleDict] = None,
-        use_kernel: Optional[bool] = None,
-    ):
+    def __init__(self, model: VLM, teacher_params: Optional[nn.ModuleDict],
+                 trainable: Dict[str, nn.Parameter], optimizer: AdamW, loss_fn):
         self.model = model
-        self.teachers = teachers
+        self.teacher_params = teacher_params
         self.device = next(model.parameters()).device
-        mask = trainable_mask(model.named_parameters(), opt_cfg.stage)
-        self.trainable = {n: p for n, p in model.named_parameters() if mask[n]}
-        for n, p in model.named_parameters():
-            p.requires_grad_(mask[n])
-        if teachers is not None:
-            teachers.requires_grad_(False)
-        self.optimizer = AdamW(self.trainable.items(), opt_cfg)
-        self.loss_fn = make_loss_fn(cfg, teacher_fn=teacher_fn, use_kernel=use_kernel)
+        self.trainable = trainable
+        self.optimizer = optimizer
+        self.loss_fn = loss_fn
 
     def to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
@@ -101,7 +94,7 @@ class TrainStep:
         batch = self.to_device(batch)
         for p in self.trainable.values():
             p.grad = None
-        total, metrics = self.loss_fn(self.model, batch, self.teachers)
+        total, metrics = self.loss_fn(self.model, batch, self.teacher_params)
         total.backward()
         grads = {
             n: p.grad if p.grad is not None else torch.zeros_like(p)
@@ -124,12 +117,17 @@ def make_train_step(
     *,
     teacher_fn: Optional[TeacherFn] = None,
     teacher_params: Optional[nn.ModuleDict] = None,
-    use_kernel: Optional[bool] = None,
 ) -> TrainStep:
     """The single-device step: `step(batch) -> metrics`. The model's
     trainable parameters (by the stage's policy) are updated in place; every
-    other parameter, and the teachers, are frozen."""
+    other parameter, and the teachers, are frozen (`requires_grad_(False)`)."""
+    mask = trainable_mask(model.named_parameters(), opt_cfg.stage)
+    trainable = {n: p for n, p in model.named_parameters() if mask[n]}
+    for n, p in model.named_parameters():
+        p.requires_grad_(mask[n])
+    if teacher_params is not None:
+        teacher_params.requires_grad_(False)
     return TrainStep(
-        cfg, opt_cfg, model, teacher_fn=teacher_fn, teachers=teacher_params,
-        use_kernel=use_kernel,
+        model, teacher_params, trainable, AdamW(trainable.items(), opt_cfg),
+        make_loss_fn(cfg, teacher_fn=teacher_fn),
     )
