@@ -18,6 +18,15 @@ Phases, each of which raises (exit code != 0) when it fails:
           and, per element, |err| <= 2e-2 + 1e-2 x |ref| (the bf16 rounding
           of the largest gradients, which sum over up to 1024 rows);
        B4 Swin window attention: bf16 max abs error <= 2e-2;
+       B5 w4a16 matmul (Phi3-mini's four (din, dout) pairs at M = 8 and, but
+          for lm_head, M = 6144; one AWQ case) against its plain version in
+          f32: relative Frobenius error <= 1e-2 and max abs error <= 2e-2 x
+          max|ref| (the bf16 output's rounding);
+       B6 decode attention (standalone, as in the JAX package: no path calls
+          it, and its launch count over phases 4-7 must stay 0) at the decode
+          shape in bf16 and int8, and GQA 32/8 H128 with a fully masked row:
+          on rows with a valid key relative Frobenius error <= 1e-2 and max
+          abs error <= 5e-3 (max |out| is about 0.3), the masked row exactly 0;
   4. serving path: Phi3-mini-4k + CLIP-ViT-L/14-336 (distill task tokens) at
      full width with seeded random weights serves 8 left-padded multimodal
      prompts (768 tokens) through `Generator.generate`, greedy, 32 new tokens.
@@ -25,7 +34,16 @@ Phases, each of which raises (exit code != 0) when it fails:
      prefill logits must match a prefill with plain attention within
      0.05 x max|logits| (bf16 through 32 layers);
   5. serving profile: device time by kernel for one prefill and one decode chunk;
-  6. training path: config #1's PT distillation step (the same VLM plus the
+  6. quantized serving on the same model and batch: AWQ activation RMS over
+     the batch's spliced embeddings (`decoder_act_rms`), then int8 KV +
+     calibrated w4a16 weights through `Generator.generate`: 8 x 32 tokens, B5
+     launched 225 times per decoder forward (7 linears x 32 layers + lm_head;
+     prefill and every decode step), the prefill logits with the kernels
+     within 0.05 x max|logits| of the plain versions' on the same quantized
+     weights; the int4-vs-bf16 drift is printed (a quality trade-off, not a
+     check). Then int8 KV + w8a16 generates 8 x 32 tokens. Both are timed as
+     in phase 4; one int4 decode chunk is profiled;
+  7. training path: config #1's PT distillation step (the same VLM plus the
      frozen DINOv2-L, CLIP-H and Swin-L teachers computing their targets in
      the step, bf16, B4 x T1024) through `make_train_step`: one warm-up step,
      then 3 timed steps. Each step must launch B1, B2 and B3 once per decoder
@@ -309,6 +327,124 @@ def window_case(stage, w, heads, shifted, gen, wa, swin):
     return rec
 
 
+def w4_case(name, m, din, dout, gen, qm, param, awq=False, group=128):
+    """B5 vs its plain version at one linear's shape: weights drawn as the
+    decoder's init (U(+-1/sqrt(din)), bf16) and quantized by the port's int4
+    quantizer; with awq, the rows are AWQ-scaled and x takes q4_in_scale first,
+    as the linear does."""
+    dev = "cuda"
+    bound_w = din ** -0.5
+    w = ((torch.rand(din, dout, device=dev, generator=gen) * 2 - 1) * bound_w).to(torch.bfloat16)
+    rms = torch.rand(din, device=dev, generator=gen) * 4 + 0.05 if awq else None
+    qd = param.quantize_linear_int4(w, group, rms)
+    pk, sc = qd["weight_q4p"], qd["q4_scale"]
+    del w
+    x = torch.randn(m, din, device=dev, generator=gen).to(torch.bfloat16)
+    if awq:
+        x = x * qd["q4_in_scale"].to(x.dtype)
+    out = qm.w4_matmul(x, pk, sc, group)
+    ref = qm.w4_matmul_reference(x.float(), pk, sc, group)
+    torch.cuda.synchronize()
+    e = (out.float() - ref).abs()
+    err, mag, fro = e.max().item(), ref.abs().max().item(), (e.norm() / ref.norm()).item()
+    del ref, e
+    check(fro <= 1e-2, f"{name}: relative Frobenius err {fro} > 1e-2")
+    check(err <= 2e-2 * mag, f"{name}: max abs err {err} > 2e-2 x {mag}")
+    iters = 50 if m <= 16 else 10
+    ms = cuda_ms(lambda: qm.w4_matmul(x, pk, sc, group), iters)
+    plain_ms = cuda_ms(lambda: qm.w4_matmul_reference(x, pk, sc, group), 2)
+    # yardstick: one torch.matmul with the same weight already dequantized to
+    # bf16 (four times the weight bytes)
+    w_deq = (qm.unpack_int4(pk).to(torch.bfloat16).reshape(-1, group, dout)
+             * sc[:, None, :].to(torch.bfloat16)).reshape(din, dout)
+    library_ms = cuda_ms(lambda: torch.matmul(x, w_deq), iters)
+    del w_deq
+    # least time: x, packed, scales read once, out written once, vs 2 M din dout
+    nbytes = x.numel() * 2 + pk.numel() + sc.numel() * 4 + m * dout * 2
+    flops = 2.0 * m * din * dout
+    rec = dict(
+        case=name, shape=f"M{m} din{din} dout{dout} group{group}{' awq' if awq else ''}",
+        max_abs_err=err, max_abs_ref=mag, rel_fro_err=fro,
+        tol="rel Frobenius 1e-2, max abs 2e-2 x max|ref|", ms=ms, plain_ms=plain_ms,
+        library_ms=library_ms, library="torch.matmul on the bf16-dequantized weight",
+        **bound(nbytes, flops, torch.bfloat16), tflops=flops / ms * 1e-9,
+        gbytes_s=nbytes / ms * 1e-6,
+    )
+    print("kernel_case " + json.dumps(rec))
+    return rec
+
+
+def decode_case(name, b, nq, nkv, h, s, quant, starts, lens, gen, da, quantize_head_vectors):
+    """B6 vs its plain version on one single-token case: q (B, 1, Nq, H) bf16,
+    a head-major (B, Nkv, S, H) cache in bf16 or int8 + per-vector scales."""
+    dev = "cuda"
+    q = torch.randn(b, 1, nq, h, device=dev, generator=gen).to(torch.bfloat16)
+    k = torch.randn(b, nkv, s, h, device=dev, generator=gen)
+    v = torch.randn(b, nkv, s, h, device=dev, generator=gen)
+    if quant:
+        (k, ks), (v, vs) = quantize_head_vectors(k), quantize_head_vectors(v)
+        ks, vs = ks[..., 0], vs[..., 0]
+        kd, vd = (k.float() * ks[..., None]).to(q.dtype), (v.float() * vs[..., None]).to(q.dtype)
+    else:
+        k, v, ks, vs = k.to(q.dtype), v.to(q.dtype), None, None
+        kd, vd = k, v
+    st = torch.tensor(starts, device=dev)
+    ln = torch.tensor(lens, device=dev)
+    kw = dict(kv_lengths=ln, kv_starts=st)
+    out = da.decode_attention(q, k, v, ks, vs, **kw)
+    ref = da.decode_attention_reference(q.float(), k, v, ks, vs, **kw)
+    torch.cuda.synchronize()
+    live = [i for i in range(b) if starts[i] < lens[i]]
+    e = out[live].float() - ref[live]
+    err, fro = e.abs().max().item(), (e.norm() / ref[live].norm()).item()
+    check(fro <= 1e-2, f"{name}: relative Frobenius err {fro} > 1e-2")
+    check(err <= 5e-3, f"{name}: max abs err {err} > 5e-3")
+    for i in set(range(b)) - set(live):
+        check(bool(torch.all(out[i] == 0)), f"{name}: fully masked row {i} is not 0")
+    ms = cuda_ms(lambda: da.decode_attention(q, k, v, ks, vs, **kw), 100)
+    plain_ms = cuda_ms(lambda: da.decode_attention_reference(q, k, v, ks, vs, **kw), 5)
+    # yardstick: SDPA with a boolean mask over the bf16 (or dequantized) cache
+    cols = torch.arange(s, device=dev)
+    mask = ((cols[None, :] >= st[:, None]) & (cols[None, :] < ln[:, None]))[:, None, None, :]
+    qt = q.transpose(1, 2)
+    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kd, vd, attn_mask=mask, enable_gqa=nq != nkv), 100)
+    # least time: q read, out written, and the cache rows (and scales) of the
+    # valid positions read once, which is all this data needs; 4H FLOPs per
+    # query head and valid position
+    valid = sum(max(min(lens[i], s) - max(starts[i], 0), 0) for i in range(b))
+    nbytes = 2 * q.numel() * 2 + valid * nkv * h * k.element_size() * 2
+    nbytes += valid * nkv * 8 if quant else 0
+    flops = 4.0 * h * nq * valid
+    rec = dict(
+        case=name, shape=f"B{b} {nq}/{nkv} H{h} S{s} {'int8' if quant else 'bf16'} cache",
+        max_abs_err=err, max_abs_ref=ref[live].abs().max().item(), rel_fro_err=fro,
+        tol="rel Frobenius 1e-2, max abs 5e-3", ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        library="SDPA, boolean mask, bf16 (dequantized) cache",
+        **bound(nbytes, flops, torch.bfloat16), gbytes_s=nbytes / ms * 1e-6,
+    )
+    print("kernel_case " + json.dumps(rec))
+    return rec
+
+
+def timed_generate(generator, batch, gen_cfg):
+    """Prefill and generate timed warm (host clock around work that ends in a
+    synchronise), as phase 4 does."""
+    t0 = time.perf_counter()
+    generator.prefill(batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    generator.generate(batch)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    steps = -(-NEW_TOKENS // gen_cfg.decode_chunk) * gen_cfg.decode_chunk
+    return dict(
+        prefill_ms=prefill_s * 1e3, decode_ms_per_token=(gen_s - prefill_s) / steps * 1e3,
+        generate_s=gen_s, tokens_per_s=BATCH * NEW_TOKENS / gen_s, decode_steps=steps,
+    )
+
+
 def train_batch(cfg, batch_size: int, seq_len: int):
     """bench.py's PT batch (`build_batch` + `add_teacher_inputs`), in numpy
     from the same seeds: right-padded splice plans, images, per-task masks,
@@ -372,12 +508,17 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from visper_lm_tpu_torch.config import phi3_clip_vlm
     from visper_lm_tpu_torch.models.teachers import init_teachers, make_teacher_fn
+    from visper_lm_tpu_torch.models.decoder import quantize_head_vectors
     from visper_lm_tpu_torch.models.teachers import swin
-    from visper_lm_tpu_torch.models.vlm import init_vlm
+    from visper_lm_tpu_torch.models.vlm import encode_images, init_vlm, splice_embeddings
     from visper_lm_tpu_torch.ops import _build
+    from visper_lm_tpu_torch.ops import decode_attention as da
     from visper_lm_tpu_torch.ops import flash_attention as fa
+    from visper_lm_tpu_torch.ops import quant_matmul as qm
     from visper_lm_tpu_torch.ops import window_attention as wa
+    from visper_lm_tpu_torch.serve.calibrate import decoder_act_rms
     from visper_lm_tpu_torch.serve.generate import GenerationConfig, Generator
+    from visper_lm_tpu_torch.utils import param
     from visper_lm_tpu_torch.train.optimizer import OptimizerConfig
     from visper_lm_tpu_torch.train.train_step import make_loss_fn, make_train_step
 
@@ -430,6 +571,30 @@ def main() -> int:
         for i, (w, heads) in enumerate(SWIN_STAGES) for shifted in (False, True)
     ]
     win_rec = win_recs[1]                       # stage 1, shifted: the largest launch
+    # B5 at the quantized serving path's linears: prefill (M = B8 x T768) and
+    # decode (M = 8); lm_head runs at M = 8 only (prefill keeps the last row)
+    h_, m_, v_ = d.hidden_size, d.mlp_dim, d.vocab_size
+    w4_recs = {}
+    for lname, din, dout in (("qkvo", h_, d.num_heads * d.head_dim), ("gate_up", h_, m_),
+                             ("down", m_, h_)):
+        for m in (BATCH, BATCH * PROMPT_LEN):
+            key = f"{lname}_M{m}"
+            w4_recs[key] = w4_case(key, m, din, dout, gen, qm, param)
+    w4_recs["lm_head_M8"] = w4_case("lm_head_M8", BATCH, h_, v_, gen, qm, param)
+    w4_recs["gate_up_M8_awq"] = w4_case("gate_up_M8_awq", BATCH, h_, m_, gen, qm, param, awq=True)
+    w4_rec = w4_recs[f"gate_up_M{BATCH * PROMPT_LEN}"]
+    # B6 at the decode shape (this Generator's max_len 896, the last decode
+    # step's lengths 800 over the main path's left pads) in bf16 and int8, and
+    # GQA 32/8 H128 with a fully masked row (batch row 2)
+    serve_max_len = -(-(PROMPT_LEN + NEW_TOKENS + 1) // 128) * 128
+    dec_lens = [PROMPT_LEN + NEW_TOKENS] * BATCH
+    dec_bf16 = decode_case("decode_bf16", BATCH, d.num_heads, d.num_kv_heads, d.head_dim,
+                           serve_max_len, False, offsets, dec_lens, gen, da, quantize_head_vectors)
+    dec_rec = decode_case("decode_int8", BATCH, d.num_heads, d.num_kv_heads, d.head_dim,
+                          serve_max_len, True, offsets, dec_lens, gen, da, quantize_head_vectors)
+    for quant in (False, True):
+        decode_case(f"decode_gqa_{'int8' if quant else 'bf16'}", 4, 32, 8, 128, 1024, quant,
+                    [0, 100, 0, 0], [1024, 700, 0, 1024], gen, da, quantize_head_vectors)
 
     # 4. main path
     t0 = time.perf_counter()
@@ -442,6 +607,7 @@ def main() -> int:
 
     torch.cuda.reset_peak_memory_stats()
     fa.launches = 0
+    da.launches = 0                             # B6: no path may call it (read after phase 7)
     t0 = time.perf_counter()
     outputs = generator.generate(batch)
     torch.cuda.synchronize()
@@ -470,22 +636,7 @@ def main() -> int:
           f"argmax agree {agree}/{BATCH}")
     check(diff <= 0.05 * scale, f"prefill logits differ by {diff} > 0.05 x {scale}")
 
-    # timings (warm)
-    t0 = time.perf_counter()
-    generator.prefill(batch)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    generator.generate(batch)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
-    steps = -(-NEW_TOKENS // gen_cfg.decode_chunk) * gen_cfg.decode_chunk
-    decode_ms = (gen_s - prefill_s) / steps * 1e3
-    timing = dict(
-        prefill_ms=prefill_s * 1e3, decode_ms_per_token=decode_ms,
-        generate_s=gen_s, tokens_per_s=BATCH * NEW_TOKENS / gen_s,
-        peak_gib=peak / 2**30, decode_steps=steps,
-    )
+    timing = dict(timed_generate(generator, batch, gen_cfg), peak_gib=peak / 2**30)
     print("main_path " + json.dumps(timing))
 
     # 5. where the time goes: device time by op for one prefill and one decode chunk
@@ -496,8 +647,82 @@ def main() -> int:
     profile_window("decode_chunk", lambda: generator._decode_chunk(
         cache, token, 0, offs, torch.Generator(device="cuda")))
 
-    # 6. training path: config #1's PT step with the three teachers
-    del generator, model, logits, cache
+    # 6. quantized serving: int8 KV + AWQ-calibrated w4a16 (B5), then int8 KV + w8a16
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        dev_batch = generator._to_device(batch)
+        embeds = splice_embeddings(
+            model, dev_batch["text_ids"].long(), dev_batch["token_type"],
+            dev_batch["src_index"].long(), encode_images(model, dev_batch["images"]),
+        )
+    act_rms = decoder_act_rms(model.decoder, d, [embeds])
+    torch.cuda.synchronize()
+    del embeds
+    print(f"calibration (decoder_act_rms, {BATCH}x{PROMPT_LEN} tokens) "
+          f"{time.perf_counter() - t0:.2f} s")
+    per_forward = 7 * d.num_layers + 1          # the block linears + lm_head
+    quant_timing = {}
+    for qname, wq in (("int4_awq", "int4"), ("w8a16", True)):
+        q_cfg = GenerationConfig(max_new_tokens=NEW_TOKENS, kv_quant=True, weight_quant=wq,
+                                 calibration=act_rms if wq == "int4" else None)
+        t0 = time.perf_counter()
+        q_gen = Generator(model, cfg, q_cfg, BATCH, PROMPT_LEN, device="cuda")
+        torch.cuda.synchronize()
+        print(f"quantize decoder ({qname}) {time.perf_counter() - t0:.2f} s")
+        torch.cuda.reset_peak_memory_stats()
+        qm.launches = 0
+        t0 = time.perf_counter()
+        q_out = q_gen.generate(batch)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        q_launches = qm.launches
+        q_peak = torch.cuda.max_memory_allocated()
+        check(len(q_out) == BATCH and all(len(o) == NEW_TOKENS for o in q_out),
+              f"{qname}: expected {BATCH}x{NEW_TOKENS} tokens, got {[len(o) for o in q_out]}")
+        check(all(0 <= tok < d.vocab_size for o in q_out for tok in o), f"{qname}: token out of vocab")
+        forwards = 1 + -(-NEW_TOKENS // q_cfg.decode_chunk) * q_cfg.decode_chunk
+        if wq == "int4":
+            w4_launches = q_launches
+            check(q_launches == per_forward * forwards,
+                  f"w4 kernel launched {q_launches} times in the int4 generate, expected "
+                  f"{per_forward} x {forwards} forwards")
+            qm.launches = 0
+            logits_q, cache_q = q_gen.prefill(batch)
+            check(qm.launches == per_forward, f"w4 launches per prefill {qm.launches} != {per_forward}")
+            offs = torch.as_tensor(batch["pad_offsets"], device="cuda").long()
+            qm.launches = 0
+            q_gen._decode_chunk(cache_q, logits_q.argmax(-1), 0, offs, torch.Generator(device="cuda"))
+            torch.cuda.synchronize()
+            check(qm.launches == per_forward * q_cfg.decode_chunk,
+                  f"w4 launches per decode chunk {qm.launches} != {per_forward} x {q_cfg.decode_chunk}")
+            logits_p, _ = q_gen.prefill(batch, use_kernel=False)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(logits_q).all()), "int4 prefill logits not finite")
+            diff = (logits_q - logits_p).abs().max().item()
+            scale = logits_p.abs().max().item()
+            agree = int((logits_q.argmax(-1) == logits_p.argmax(-1)).sum())
+            print(f"int4 prefill logits kernels vs plain: max abs diff {diff:.4g}, max |logit| "
+                  f"{scale:.4g}, argmax agree {agree}/{BATCH}")
+            check(diff <= 0.05 * scale, f"int4 prefill logits differ by {diff} > 0.05 x {scale}")
+            drift = ((logits_q - logits_k).square().mean().sqrt()
+                     / logits_k.square().mean().sqrt()).item()
+            agree_bf16 = int((logits_q.argmax(-1) == logits_k.argmax(-1)).sum())
+            print(f"int4 vs bf16 prefill logits: relative RMS drift {drift:.4g}, argmax agree "
+                  f"{agree_bf16}/{BATCH} (printed only: int4 is a quality trade-off)")
+            profile_window("int4_decode_chunk", lambda: q_gen._decode_chunk(
+                cache_q, logits_q.argmax(-1), 0, offs, torch.Generator(device="cuda")))
+            del logits_q, logits_p, cache_q
+        print(f"{qname}: {BATCH}x{NEW_TOKENS} tokens, first run {first_s:.3f} s, "
+              f"{q_launches} w4 launches, peak {q_peak / 2**30:.2f} GiB")
+        print(f"{qname} sample tokens {q_out[0][:8]} ... {q_out[-1][:8]}")
+        quant_timing[qname] = dict(timed_generate(q_gen, batch, q_cfg), peak_gib=q_peak / 2**30)
+        print(f"quant_path_{qname} " + json.dumps(quant_timing[qname]))
+        del q_gen
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 7. training path: config #1's PT step with the three teachers
+    del generator, model, logits, cache, act_rms
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -589,6 +814,9 @@ def main() -> int:
     # where the training step's time goes
     train_prof = profile_window("train_step", lambda: step(tbatch), top=15)
     print("train_profile " + json.dumps(train_prof))
+    dec_launches = da.launches                  # over phases 4-7: bf16, int4, w8a16, training
+    print(f"decode_attn launches over the serving and training paths: {dec_launches}")
+    check(dec_launches == 0, f"decode_attn launched {dec_launches} times; no path calls it")
 
     def entry(kname, source, replaces, rec, launches):
         return dict(
@@ -598,6 +826,7 @@ def main() -> int:
         )
 
     csrc = "visper_lm_tpu_torch/csrc/"
+    w4_decode = w4_recs[f"gate_up_M{BATCH}"]
     kernels = [
         dict(entry("flash_fwd", csrc + "flash_fwd.cu", "visper_lm_tpu/ops/flash_attention.py:234",
                    slice_rec, train_launches["flash_fwd"]),
@@ -608,6 +837,15 @@ def main() -> int:
               dkv_rec, train_launches["flash_bwd_dkv"]),
         entry("window_attn", csrc + "window_attn.cu", "visper_lm_tpu/ops/window_attention.py:112",
               win_rec, train_launches["window_attn"]),
+        dict(entry("w4_matmul", csrc + "w4_matmul.cu", "visper_lm_tpu/ops/quant_matmul.py:125",
+                   w4_rec, w4_launches),
+             shape=w4_rec["shape"], launches_per_forward=per_forward,
+             decode=dict(shape=w4_decode["shape"], ms=w4_decode["ms"],
+                         bound_ms=w4_decode["bound_ms"], library_ms=w4_decode["library_ms"])),
+        dict(entry("decode_attn", csrc + "decode_attn.cu",
+                   "visper_lm_tpu/ops/decode_attention.py:188", dec_rec, dec_launches),
+             shape=dec_rec["shape"], bf16_ms=dec_bf16["ms"], bf16_bound_ms=dec_bf16["bound_ms"],
+             note="standalone op: no path calls it, as in the JAX package"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -153,13 +153,18 @@ def test_sample_tokens_top_p_keeps_only_the_nucleus():
 
 
 def test_generator_needs_a_device_and_rejects_quantized_serving(slice_setup, monkeypatch):
+    """Quantized serving is ported: the Generator quantizes its own decoder and
+    leaves the caller's VLM weights as they were. Without CUDA and without a
+    device it still raises."""
     cfg_j, cfg_t, params, model, raw, plans, batch = slice_setup
-    with pytest.raises(NotImplementedError):
-        tgen.Generator(model, cfg_t, tgen.GenerationConfig(kv_quant=True), 2, PROMPT_LEN,
-                       device="cpu")
-    with pytest.raises(NotImplementedError):
-        tgen.Generator(model, cfg_t, tgen.GenerationConfig(weight_quant="int4"), 2,
-                       PROMPT_LEN, device="cpu")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    for wq in (True, "int4"):
+        gen = tgen.Generator(model, cfg_t, tgen.GenerationConfig(kv_quant=True, weight_quant=wq),
+                             2, PROMPT_LEN, device="cpu")
+        assert gen.decoder is not model.decoder
+        assert gen.decoder.embed_tokens is model.decoder.embed_tokens
+    assert all(torch.equal(p, before[n]) for n, p in model.named_parameters())
+    assert isinstance(model.decoder.blocks[0].q_proj, torch.nn.Linear)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tgen.Generator(model, cfg_t, tgen.GenerationConfig(), 2, PROMPT_LEN)

@@ -9,14 +9,22 @@ Tolerances (max abs error on rows with at least one valid key, against the
 plain version computed in f32): bf16 2e-2, f32 1e-4; lse 1e-3. Backward
 (bf16 only; dq, dk, dv against `flash_attention_bwd_reference` fed the plain
 forward's f32 out and lse): relative Frobenius error 1e-2 and, per element,
-|err| <= 2e-2 + 1e-2 x |ref|. Window attention: bf16 2e-2.
+|err| <= 2e-2 + 1e-2 x |ref|. Window attention: bf16 2e-2. w4 matmul (bf16
+out against `w4_matmul_reference` in f32): relative Frobenius error 1e-2 and
+max abs error 2e-2 x max|ref|. Decode attention (bf16 q; bf16 or int8
+cache): relative Frobenius error 1e-2 and max abs error 5e-3 on rows with a
+valid key; a row with none is exactly 0.
 """
 
 import pytest
 import torch
 
+from visper_lm_tpu_torch.models.decoder import quantize_head_vectors
+from visper_lm_tpu_torch.ops import decode_attention as da
 from visper_lm_tpu_torch.ops import flash_attention as fa
+from visper_lm_tpu_torch.ops import quant_matmul as qm
 from visper_lm_tpu_torch.ops import window_attention as wa
+from visper_lm_tpu_torch.utils.param import QuantLinear, quantize_linear_int4
 
 pytestmark = pytest.mark.cuda
 
@@ -180,3 +188,129 @@ def test_window_kernel_rejects_what_it_cannot_run(cuda_gen):
     with pytest.raises(ValueError):
         wa.window_attention(q, q, q, bias, torch.zeros(3, 144, 144, device="cuda"))
     assert wa.launches == before
+
+
+def _w4_weights(gen, din, dout, group, act_rms=None):
+    w = 0.05 * torch.randn(din, dout, device="cuda", generator=gen)
+    return quantize_linear_int4(w, group, act_rms)
+
+
+def _assert_w4_close(got, ref):
+    err = (got.float() - ref).abs()
+    assert (err.norm() / ref.norm()).item() <= 1e-2
+    assert err.max().item() <= 2e-2 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("m", [1, 8, 13, 256])
+@pytest.mark.parametrize("din,dout,group", [(512, 384, 128), (256, 500, 64), (1024, 320, 32), (384, 256, 16)])
+def test_w4_kernel_matches_plain(cuda_gen, m, din, dout, group):
+    """Decode- and prefill-sized M (both tile shapes), every k-step size, and a
+    ragged dout (500: the packed rows are not 16-byte multiples)."""
+    qd = _w4_weights(cuda_gen, din, dout, group)
+    x = torch.randn(m, din, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    before = qm.launches
+    got = qm.w4_matmul(x, qd["weight_q4p"], qd["q4_scale"], group)
+    assert qm.launches == before + 1
+    ref = qm.w4_matmul_reference(x.float(), qd["weight_q4p"], qd["q4_scale"], group)
+    torch.cuda.synchronize()
+    assert got.shape == (m, dout) and got.dtype == torch.bfloat16
+    _assert_w4_close(got, ref)
+
+
+def test_w4_quant_linear_with_awq_in_scale_takes_the_kernel(cuda_gen):
+    din, dout = 768, 640
+    rms = torch.rand(din, device="cuda", generator=cuda_gen) * 4 + 0.05
+    qd = _w4_weights(cuda_gen, din, dout, 128, act_rms=rms)
+    assert "q4_in_scale" in qd
+    layer = QuantLinear(**qd)
+    x = torch.randn(2, 5, din, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    before = qm.launches
+    got = layer(x)
+    assert qm.launches == before + 1 and got.shape == (2, 5, dout)
+    xs = (x * qd["q4_in_scale"].to(x.dtype)).reshape(-1, din)
+    ref = qm.w4_matmul_reference(xs.float(), qd["weight_q4p"], qd["q4_scale"], 128)
+    _assert_w4_close(got.reshape(-1, dout), ref)
+    plain = layer(x, use_kernel=False)           # the dequantized (XLA-branch) product
+    assert qm.launches == before + 1
+    _assert_w4_close(plain.reshape(-1, dout), ref)
+
+
+def test_w4_kernel_rejects_what_it_cannot_run(cuda_gen):
+    qd = _w4_weights(cuda_gen, 256, 128, 128)
+    pk, sc = qd["weight_q4p"], qd["q4_scale"]
+    x = torch.randn(4, 256, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    before = qm.launches
+    with pytest.raises(ValueError):
+        qm.w4_matmul(x.float(), pk, sc, 128)              # f32 x
+    with pytest.raises(ValueError):
+        qm.w4_matmul(x, pk.cpu(), sc, 128)                # packed on the CPU
+    with pytest.raises(ValueError):
+        qm.w4_matmul(x, pk, sc.repeat(16, 1), 8)          # group 8: not a k-step multiple
+    with pytest.raises(ValueError):
+        qm.w4_matmul(x[:, :128], pk, sc, 128)             # din mismatch
+    assert qm.launches == before
+
+
+def test_w4_quant_linear_with_a_group_the_kernel_cannot_run_raises(cuda_gen):
+    """Group 8 passes JAX's gate (even, >= 2) but is not a multiple of the
+    kernel's k-step: a CUDA QuantLinear raises rather than take the plain
+    product; use_kernel=False still takes it."""
+    w = 0.05 * torch.randn(256, 128, device="cuda", generator=cuda_gen)
+    layer = QuantLinear(**quantize_linear_int4(w, 8))
+    assert layer.q4_scale.shape == (32, 128)
+    x = torch.randn(4, 256, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    assert qm.w4_supported(layer.weight_q4p, layer.q4_scale, x)
+    before = qm.launches
+    with pytest.raises(ValueError, match="group 8"):
+        layer(x)
+    assert qm.launches == before
+    assert layer(x, use_kernel=False).shape == (4, 128)
+
+
+def _decode_inputs(gen, b, nq, nkv, h, s, quant):
+    q = torch.randn(b, 1, nq, h, device="cuda", generator=gen).to(torch.bfloat16)
+    k = torch.randn(b, nkv, s, h, device="cuda", generator=gen)
+    v = torch.randn(b, nkv, s, h, device="cuda", generator=gen)
+    if not quant:
+        return q, k.to(torch.bfloat16), v.to(torch.bfloat16), None, None
+    (kq, ks), (vq, vs) = quantize_head_vectors(k), quantize_head_vectors(v)
+    return q, kq, vq, ks[..., 0], vs[..., 0]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("nq,nkv,h", [(8, 8, 64), (8, 2, 96), (32, 8, 128), (4, 4, 96)])
+def test_decode_kernel_matches_plain(cuda_gen, quant, nq, nkv, h):
+    """MHA and GQA (G up to 4), H 64/96/128, bf16 and int8 caches; S = 300 is
+    not a multiple of the 32-position tile; batch row 2 has no valid position."""
+    b, s = 3, 300
+    q, k, v, ks, vs = _decode_inputs(cuda_gen, b, nq, nkv, h, s, quant)
+    lens = torch.tensor([300, 131, 40], device="cuda")
+    starts = torch.tensor([0, 37, 40], device="cuda")
+    before = da.launches
+    got = da.decode_attention(q, k, v, ks, vs, kv_lengths=lens, kv_starts=starts)
+    assert da.launches == before + 1
+    ref = da.decode_attention_reference(q.float(), k, v, ks, vs, kv_lengths=lens, kv_starts=starts)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    err = got[:2].float() - ref[:2]
+    assert (err.norm() / ref[:2].norm()).item() <= 1e-2
+    assert err.abs().max().item() <= 5e-3
+    assert torch.all(got[2] == 0)
+
+
+def test_decode_kernel_rejects_what_it_cannot_run(cuda_gen):
+    q, k, v, ks, vs = _decode_inputs(cuda_gen, 2, 4, 4, 96, 64, True)
+    lens = torch.tensor([64, 10], device="cuda")
+    before = da.launches
+    with pytest.raises(ValueError):
+        da.decode_attention(q, k, v, kv_lengths=lens)               # int8 without scales
+    with pytest.raises(ValueError):
+        da.decode_attention(q, k.cpu(), v, ks, vs, kv_lengths=lens)  # cache on the CPU
+    with pytest.raises(ValueError):
+        da.decode_attention(q.half(), k, v, ks, vs, kv_lengths=lens)
+    with pytest.raises(ValueError):                                 # f32 q: bf16 only
+        da.decode_attention(q.float(), k, v, ks, vs, kv_lengths=lens)
+    with pytest.raises(ValueError):                                 # group 8 > 4
+        qg = torch.zeros(2, 1, 32, 96, device="cuda", dtype=torch.bfloat16)
+        da.decode_attention(qg, k, v, ks, vs, kv_lengths=lens)
+    assert da.launches == before

@@ -193,12 +193,13 @@ TRAINING_SLICE_MODULES = (
     "models.teachers", "models.teachers.dinov2", "models.teachers.unclip",
     "models.teachers.swin", "models.resampler", "models.heads", "ops.window_attention",
 )
+QUANT_SERVING_MODULES = ("ops.quant_matmul", "ops.decode_attention", "serve.calibrate")
 
 
 def test_port_imports_no_jax():
-    """Importing every port module, the training slice's included, pulls in
-    neither jax nor the JAX package."""
-    wanted = ["visper_lm_tpu_torch." + m for m in TRAINING_SLICE_MODULES]
+    """Importing every port module, the training and quantized-serving slices'
+    included, pulls in neither jax nor the JAX package."""
+    wanted = ["visper_lm_tpu_torch." + m for m in TRAINING_SLICE_MODULES + QUANT_SERVING_MODULES]
     code = (
         "import pkgutil, importlib, sys\n"
         "import visper_lm_tpu_torch as p\n"
@@ -208,7 +209,7 @@ def test_port_imports_no_jax():
         "missing = [m for m in wanted if m not in mods]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'visper_lm_tpu' or m.startswith('visper_lm_tpu.')]\n"
-        "assert len(mods) >= 24, mods\n"
+        "assert len(mods) >= 27, mods\n"
         "assert not missing, missing\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"

@@ -1,6 +1,6 @@
 // Shared pieces of the port's tensor-core kernels (flash_fwd.cu, flash_bwd.cu,
-// window_attn.cu): the mma.sync m16n8k16 bf16 product with f32 accumulation,
-// bf16 packing, and tile loads into padded shared memory.
+// window_attn.cu, w4_matmul.cu): the mma.sync m16n8k16 bf16 product with f32
+// accumulation, bf16 packing, and tile loads into padded shared memory.
 //
 // Fragment layout of m16n8k16 (lane = 4 * g + tq):
 //   A (16 x 16, row-major): a0 = A[g][2tq..], a1 = A[g+8][2tq..],

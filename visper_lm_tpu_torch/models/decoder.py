@@ -1,17 +1,19 @@
 """Decoder-only transformer (counterpart of visper_lm_tpu/models/decoder.py).
 
 Covers Phi3-mini-4k and Llama-style decoders: pre-norm blocks with GQA
-attention, rope and a SiLU-gated MLP, a slot-major KV cache for serving, and
-layer taps for the distillation heads in training. The JAX layer `lax.scan`
-over stacked blocks becomes a Python loop over an `nn.ModuleList`; remat,
-LoRA, MoE, the quantized cache and the pipelined stack are later-slice
-machinery and are not here.
+attention, rope and a SiLU-gated MLP, a slot-major KV cache for serving (bf16
+/ f32, or int8 with per-vector scales), quantized serving weights
+(`quantize_decoder`: w8a16 or w4a16 `QuantLinear`s), per-channel activation
+statistics for AWQ calibration, and layer taps for the distillation heads in
+training. The JAX layer `lax.scan` over stacked blocks becomes a Python loop
+over an `nn.ModuleList`; remat, LoRA, MoE and the pipelined stack are
+later-slice machinery and are not here.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -19,7 +21,16 @@ import torch.nn as nn
 from visper_lm_tpu_torch.config import DecoderConfig
 from visper_lm_tpu_torch.models.rope import apply_rope, rope_cos_sin
 from visper_lm_tpu_torch.ops.attention import mha_plain_cache, multi_head_attention
-from visper_lm_tpu_torch.utils.param import RMSNorm
+from visper_lm_tpu_torch.utils.param import (
+    QuantLinear,
+    RMSNorm,
+    apply_linear,
+    quantize_linear_int4,
+    quantize_linear_int8,
+)
+
+# the seven linears of a block, in JAX's param names
+LINEAR_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
 
 
 @dataclasses.dataclass
@@ -34,6 +45,27 @@ class KVCache:
     def max_len(self) -> int:
         return self.k.shape[1]
 
+    def layer(self, i: int) -> Tuple[torch.Tensor, ...]:
+        return self.k[i], self.v[i]
+
+
+@dataclasses.dataclass
+class QuantKVCache:
+    """int8 slot-major cache (L, S_max, B, Nkv, H) with one f32 scale per
+    (layer, slot, batch, kv head) vector over H (JAX `QuantKVCache`)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor             # (L, S_max, B, Nkv) f32
+    v_scale: torch.Tensor
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[1]
+
+    def layer(self, i: int) -> Tuple[torch.Tensor, ...]:
+        return self.k[i], self.v[i], self.k_scale[i], self.v_scale[i]
+
 
 def init_kv_cache(
     cfg: DecoderConfig, batch: int, max_len: int, *, dtype: torch.dtype = torch.bfloat16,
@@ -44,6 +76,33 @@ def init_kv_cache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
     )
+
+
+def init_quant_kv_cache(
+    cfg: DecoderConfig, batch: int, max_len: int, *, device: Union[str, torch.device],
+) -> QuantKVCache:
+    """int8 values at 0 and scales at 1, as JAX `init_quant_kv_cache`."""
+    shape = (cfg.num_layers, max_len, batch, cfg.num_kv_heads, cfg.head_dim)
+    return QuantKVCache(
+        k=torch.zeros(shape, dtype=torch.int8, device=device),
+        v=torch.zeros(shape, dtype=torch.int8, device=device),
+        k_scale=torch.ones(shape[:-1], dtype=torch.float32, device=device),
+        v_scale=torch.ones(shape[:-1], dtype=torch.float32, device=device),
+    )
+
+
+def quantize_head_vectors(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 per (..., H) vector: (int8, f32 scale (..., 1)), scale
+    amax / 127 with floor 1e-6 (JAX `_quantize_head_vectors`)."""
+    xf = x.float()
+    # amax / 127 as amax * f32(1 / 127), the form XLA folds it into
+    scale = xf.abs().amax(dim=-1, keepdim=True).clamp(min=1e-6) * (1.0 / 127.0)
+    return torch.round(xf / scale).clamp(-127, 127).to(torch.int8), scale
+
+
+def _mean_square(x: torch.Tensor) -> torch.Tensor:
+    """Per-channel mean square over (B, T) in f32: (D,)."""
+    return x.float().square().mean(dim=(0, 1))
 
 
 class DecoderBlock(nn.Module):
@@ -73,24 +132,36 @@ class DecoderBlock(nn.Module):
         kv_lengths: Optional[torch.Tensor],
         kv_starts: Optional[torch.Tensor],
         q_offset: int,
-        cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]],  # this layer's (S, B, Nkv, H)
+        cache_kv: Optional[Tuple[torch.Tensor, ...]],  # this layer's (S, B, Nkv, H) k, v [, scales]
         use_kernel: Optional[bool],
+        stats_out: Optional[List[Dict[str, torch.Tensor]]] = None,
     ) -> torch.Tensor:
         """JAX `_block_forward`. With a cache, the chunk's K/V are written into
         the cache IN PLACE at slots [q_offset, q_offset + T), after attention,
-        which saw them as extras (decode) or as the whole sequence (prefill)."""
+        which saw them unquantized, as extras (decode) or as the whole
+        sequence (prefill). A 4-tuple cache_kv is int8 + scales: the chunk is
+        stored quantized per (token, head) vector. stats_out, when given, gets
+        the per-input-channel mean square at each linear's input (calibration)."""
         cfg = self.cfg
         b, t, _ = h.shape
         nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        x = self.attn_norm(h)
-        q = apply_rope(self.q_proj(x).reshape(b, t, nh, hd), cos, sin)
-        k = apply_rope(self.k_proj(x).reshape(b, t, nkv, hd), cos, sin)
-        v = self.v_proj(x).reshape(b, t, nkv, hd)
 
+        def record(**sites):
+            if stats_out is not None:
+                stats_out.append({k: _mean_square(v) for k, v in sites.items()})
+
+        x = self.attn_norm(h)
+        record(q_proj=x, k_proj=x, v_proj=x)
+        q = apply_rope(apply_linear(self.q_proj, x, use_kernel).reshape(b, t, nh, hd), cos, sin)
+        k = apply_rope(apply_linear(self.k_proj, x, use_kernel).reshape(b, t, nkv, hd), cos, sin)
+        v = apply_linear(self.v_proj, x, use_kernel).reshape(b, t, nkv, hd)
+
+        quant = cache_kv is not None and len(cache_kv) == 4
         if cache_kv is not None and not (q_offset == 0 and t > 1):
-            ck, cv = cache_kv
             attn = mha_plain_cache(
-                q, ck, cv, extra_k=k, extra_v=v, cache_len=q_offset, kv_starts=kv_starts,
+                q, cache_kv[0], cache_kv[1],
+                k_scale=cache_kv[2] if quant else None, v_scale=cache_kv[3] if quant else None,
+                extra_k=k, extra_v=v, cache_len=q_offset, kv_starts=kv_starts,
             )
         else:
             # prefill (empty cache) or cacheless: attention over the chunk itself,
@@ -100,14 +171,27 @@ class DecoderBlock(nn.Module):
                 kv_starts=kv_starts, use_kernel=use_kernel,
             )
         if cache_kv is not None:
-            ck, cv = cache_kv
-            ck[q_offset:q_offset + t].copy_(k.transpose(0, 1))  # in place
-            cv[q_offset:q_offset + t].copy_(v.transpose(0, 1))  # in place
+            slots = slice(q_offset, q_offset + t)
+            kt, vt = k.transpose(0, 1), v.transpose(0, 1)     # slot-major (T, B, Nkv, H)
+            if quant:
+                for new, values, scales in ((kt, cache_kv[0], cache_kv[2]),
+                                            (vt, cache_kv[1], cache_kv[3])):
+                    qv, sc = quantize_head_vectors(new)
+                    values[slots].copy_(qv)                   # in place
+                    scales[slots].copy_(sc[..., 0])
+            else:
+                cache_kv[0][slots].copy_(kt)                  # in place
+                cache_kv[1][slots].copy_(vt)
 
-        h = h + self.o_proj(attn.reshape(b, t, nh * hd))
+        attn = attn.reshape(b, t, nh * hd)
+        record(o_proj=attn)
+        h = h + apply_linear(self.o_proj, attn, use_kernel)
         x = self.mlp_norm(h)
-        gate = torch.nn.functional.silu(self.gate_proj(x))
-        return h + self.down_proj(gate * self.up_proj(x))
+        record(gate_proj=x, up_proj=x)
+        gate = torch.nn.functional.silu(apply_linear(self.gate_proj, x, use_kernel))
+        gu = gate * apply_linear(self.up_proj, x, use_kernel)
+        record(down_proj=gu)
+        return h + apply_linear(self.down_proj, gu, use_kernel)
 
 
 class Decoder(nn.Module):
@@ -127,11 +211,12 @@ class Decoder(nn.Module):
             else nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False, **kw)
         )
 
-    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        """Output projection in the model dtype, returned as f32."""
+    def logits(self, hidden: torch.Tensor, use_kernel: Optional[bool] = None) -> torch.Tensor:
+        """Output projection in the model dtype (a quantized lm_head goes
+        through its QuantLinear), returned as f32."""
         if self.lm_head is None:
             return (hidden @ self.embed_tokens.weight.T).float()
-        return self.lm_head(hidden).float()
+        return apply_linear(self.lm_head, hidden, use_kernel).float()
 
     def forward(
         self,
@@ -140,7 +225,7 @@ class Decoder(nn.Module):
         positions: Optional[torch.Tensor] = None,     # (B, T) or (T,); default arange
         kv_lengths: Optional[torch.Tensor] = None,    # (B,) valid kv length incl. this chunk
         kv_starts: Optional[torch.Tensor] = None,     # (B,) first valid kv slot (left pad)
-        cache: Optional[KVCache] = None,
+        cache: Optional[Union[KVCache, QuantKVCache]] = None,
         q_offset: int = 0,
         use_kernel: Optional[bool] = None,
         compute_logits: bool = True,
@@ -168,7 +253,7 @@ class Decoder(nn.Module):
             h = block(
                 h, cos, sin, kv_lengths=kv_lengths, kv_starts=kv_starts,
                 q_offset=q_offset,
-                cache_kv=None if cache is None else (cache.k[i], cache.v[i]),
+                cache_kv=None if cache is None else cache.layer(i),
                 use_kernel=use_kernel,
             )
             if i in tap_layers:
@@ -178,5 +263,54 @@ class Decoder(nn.Module):
             "hidden": hidden, "cache": cache, "taps": tuple(taps[i] for i in tap_layers),
         }
         if compute_logits:
-            out["logits"] = self.logits(hidden)
+            out["logits"] = self.logits(hidden, use_kernel)
         return out
+
+
+def _quantized(linear: nn.Linear, mode: str, rms: Optional[torch.Tensor]) -> nn.Module:
+    w = linear.weight.detach().T                     # input-major (din, dout)
+    if mode == "int8":
+        return QuantLinear(**quantize_linear_int8(w))
+    buffers = quantize_linear_int4(w, act_rms=rms)
+    return linear if buffers is None else QuantLinear(**buffers)
+
+
+@torch.no_grad()
+def quantize_decoder(
+    decoder: Decoder,
+    mode: str,
+    act_rms: Optional[Mapping[str, object]] = None,
+) -> Decoder:
+    """A NEW decoder for serving whose seven block linears (and lm_head when
+    untied) are `QuantLinear`s: mode "int8" (w8a16, JAX
+    `quantize_linear_weights`) or "int4" (w4a16, JAX
+    `quantize_linear_weights_int4` at its defaults, group 128; a layer whose
+    din no group size divides stays dense). act_rms: AWQ calibration for
+    "int4", {proj name: (L, din), "lm_head": (din,)} from
+    serve/calibrate.decoder_act_rms (tensors or arrays); an entry of another
+    shape is ignored, as in JAX.
+
+    The embedding and the norms are the caller's modules, shared; the
+    caller's decoder is left as it was (JAX quantizes a copy of the tree)."""
+    if mode not in ("int8", "int4"):
+        raise ValueError(f"unknown weight quantization {mode!r}")
+    cfg = decoder.cfg
+    device = decoder.embed_tokens.weight.device
+    rms = {}
+    if mode == "int4" and act_rms:
+        rms = {k: v.to(device) if torch.is_tensor(v) else torch.tensor(v, device=device)
+               for k, v in act_rms.items()}
+    with torch.device("meta"):
+        out = Decoder(cfg)
+    out.embed_tokens = decoder.embed_tokens
+    out.final_norm = decoder.final_norm
+    for i, (src, dst) in enumerate(zip(decoder.blocks, out.blocks)):
+        dst.attn_norm, dst.mlp_norm = src.attn_norm, src.mlp_norm
+        for name in LINEAR_NAMES:
+            lin = getattr(src, name)
+            r = rms.get(name)
+            r = r[i] if r is not None and tuple(r.shape) == (cfg.num_layers, lin.in_features) else None
+            setattr(dst, name, _quantized(lin, mode, r))
+    if decoder.lm_head is not None:
+        out.lm_head = _quantized(decoder.lm_head, mode, rms.get("lm_head"))
+    return out.eval()

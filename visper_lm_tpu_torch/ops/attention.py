@@ -3,7 +3,8 @@
   * `mha_plain` — plain PyTorch attention (JAX `mha_xla`): the CPU path and the
     numerical reference of the flash kernel.
   * `mha_plain_cache` — decode attention over the slot-major (S, B, Nkv, H)
-    cache plus the current chunk as extras (JAX `mha_xla_cache`).
+    cache (bf16 / f32, or int8 with per-vector scales folded into scores and
+    probabilities) plus the current chunk as extras (JAX `mha_xla_cache`).
   * `multi_head_attention` — sends eligible self-attention on CUDA tensors to
     the hand-written flash kernel (ops/flash_attention.py), everything else
     to `mha_plain`, with the JAX package's eligibility predicate.
@@ -151,8 +152,10 @@ def multi_head_attention(
 
 def mha_plain_cache(
     q: torch.Tensor,                 # (B, T, Nq, H)
-    k: torch.Tensor,                 # (S, B, Nkv, H) slot-major cache (read only)
+    k: torch.Tensor,                 # (S, B, Nkv, H) slot-major cache (read only), float or int8
     v: torch.Tensor,                 # (S, B, Nkv, H)
+    k_scale: Optional[torch.Tensor] = None,  # (S, B, Nkv) f32 when k is int8
+    v_scale: Optional[torch.Tensor] = None,
     *,
     extra_k: torch.Tensor,           # (B, T, Nkv, H) current chunk K
     extra_v: torch.Tensor,           # (B, T, Nkv, H) current chunk V
@@ -160,23 +163,29 @@ def mha_plain_cache(
     kv_starts: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Decode attention over the slot-major cache + the current chunk as extras.
+    """Decode attention over the slot-major cache + the current chunk as extras
+    (JAX `mha_xla_cache`).
 
     The cache is read only; the caller writes the chunk's K/V into it after
-    this call. Dot operands are rounded to the cache dtype (the JAX package
-    uses bf16 operands on the TPU and f32 on the CPU; with an f32 cache both
-    agree) and accumulate in f32. GQA is a grouped query reshape: K/V are
-    never repeated.
+    this call. Dot operands are rounded to the cache dtype for a float cache
+    (the JAX package uses bf16 operands on the TPU and f32 on the CPU; with
+    an f32 cache both agree) and to q's dtype for an int8 cache (bf16 on the
+    card, f32 for an f32 model), and accumulate in f32. The int8 cache's
+    per-vector scales are folded in, not dequantized: k scales multiply the
+    cache scores after the dot, v scales the cache probabilities before the
+    PV dot. GQA is a grouped query reshape: K/V are never repeated.
     """
     b, t, nq, h = q.shape
     s_len, nkv = k.shape[0], k.shape[2]
     g = nq // nkv
     if scale is None:
         scale = h ** -0.5
-    dot_t = k.dtype
+    dot_t = q.dtype if k_scale is not None else k.dtype
     qd = (q.float() * scale).reshape(b, t, nkv, g, h).to(dot_t).float()
 
-    logits_c = torch.einsum("btkgh,sbkh->bkgts", qd, k.float())
+    logits_c = torch.einsum("btkgh,sbkh->bkgts", qd, k.to(dot_t).float())
+    if k_scale is not None:
+        logits_c = logits_c * k_scale.permute(1, 2, 0)[:, :, None, None, :]
     pos = torch.arange(s_len, device=q.device)
     limit = torch.as_tensor(cache_len, device=q.device).reshape(-1).expand(b)
     valid = pos[None, :] < limit[:, None]
@@ -190,7 +199,9 @@ def mha_plain_cache(
 
     probs = torch.softmax(torch.cat([logits_c, logits_e], dim=-1), dim=-1)
     pc, pe = probs[..., :s_len], probs[..., s_len:]
-    out = torch.einsum("bkgts,sbkh->btkgh", pc.to(dot_t).float(), v.float())
+    if v_scale is not None:
+        pc = pc * v_scale.permute(1, 2, 0)[:, :, None, None, :]
+    out = torch.einsum("bkgts,sbkh->btkgh", pc.to(dot_t).float(), v.to(dot_t).float())
     out = out + torch.einsum(
         "bkgtu,bukh->btkgh", pe.to(dot_t).float(), extra_v.to(dot_t).float()
     )

@@ -10,7 +10,10 @@
     device and one host sync per chunk; stop conditions are checked at chunk
     boundaries and over-generated tokens are trimmed;
   * greedy (temperature 0: first-max argmax) or temperature/top-p sampling
-    from a torch.Generator.
+    from a torch.Generator;
+  * quantized serving: an int8 KV cache (`kv_quant`) and w8a16 or w4a16
+    decoder weights (`weight_quant`, optionally AWQ-calibrated), quantized
+    into the Generator's own decoder; the caller's model is left as it is.
 
 The distillation heads do not run during generation.
 """
@@ -27,7 +30,13 @@ from visper_lm_tpu_torch import constants
 from visper_lm_tpu_torch.config import VLMConfig
 from visper_lm_tpu_torch.data.collate import SplicePlan
 from visper_lm_tpu_torch.device import resolve_device
-from visper_lm_tpu_torch.models.decoder import KVCache, init_kv_cache
+from visper_lm_tpu_torch.models.decoder import (
+    KVCache,
+    QuantKVCache,
+    init_kv_cache,
+    init_quant_kv_cache,
+    quantize_decoder,
+)
 from visper_lm_tpu_torch.models.vlm import VLM, encode_images, splice_embeddings
 
 
@@ -39,10 +48,15 @@ class GenerationConfig:
     eos_token_ids: Tuple[int, ...] = ()
     stop_strings: Tuple[str, ...] = ()
     decode_chunk: int = 16            # tokens decoded between host syncs
-    # int8 KV cache and w8a16/w4a16 serving weights belong to the quantized
-    # serving slice; the Generator raises NotImplementedError when set.
+    # int8 KV cache with per-(token, head) scales (half the bf16 cache bytes)
     kv_quant: bool = False
+    # serving weights: True / "int8" = w8a16 per-output-channel int8 decoder
+    # linears; "int4" = w4a16 group-wise int4 through the w4 kernel on CUDA
+    # (a quality trade-off). The Generator quantizes its own copy.
     weight_quant: object = False
+    # AWQ calibration for "int4": serve.calibrate.decoder_act_rms's dict;
+    # ignored for other weight_quant modes
+    calibration: object = None
 
 
 def left_pad_plans(plans: Sequence[SplicePlan], pad_to: int) -> Dict[str, np.ndarray]:
@@ -100,10 +114,6 @@ class Generator:
         device: Optional[Union[str, torch.device]] = None,
     ):
         self.device = resolve_device(device)
-        if gen_cfg.kv_quant:
-            raise NotImplementedError("int8 KV cache is not ported yet")
-        if gen_cfg.weight_quant:
-            raise NotImplementedError("quantized serving weights are not ported yet")
         param = next(model.parameters())
         if param.device.type != self.device.type:
             raise ValueError(f"model is on {param.device}, generator on {self.device}")
@@ -117,6 +127,12 @@ class Generator:
         # cache length rounded up to a multiple of 128, as in the JAX package
         self.max_len = -(-(prompt_len + n_chunks * chunk + 1) // 128) * 128
         self.cache_dtype = cache_dtype
+        self.decoder = model.decoder
+        if gen_cfg.weight_quant:
+            # truthy and not "int4" means int8, as in the JAX Generator
+            mode = "int4" if gen_cfg.weight_quant == "int4" else "int8"
+            calibration = gen_cfg.calibration if mode == "int4" else None
+            self.decoder = quantize_decoder(model.decoder, mode, act_rms=calibration)
 
     def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
@@ -124,10 +140,11 @@ class Generator:
     @torch.no_grad()
     def prefill(
         self, batch: Dict[str, Any], *, use_kernel: Optional[bool] = None
-    ) -> Tuple[torch.Tensor, KVCache]:
+    ) -> Tuple[torch.Tensor, Union[KVCache, QuantKVCache]]:
         """Multimodal forward over the left-padded prompts that fills a new
         cache. Returns the last position's logits (B, vocab) f32 and the cache.
-        use_kernel=False forces plain attention (for comparisons)."""
+        use_kernel=False forces the plain version of every kernel on the path
+        (flash attention and the w4 matmul), for comparisons."""
         batch = self._to_device(batch)
         model, cfg = self.model, self.cfg
         if "image_features" in batch:
@@ -142,11 +159,16 @@ class Generator:
         positions = (
             torch.arange(self.prompt_len, device=self.device)[None, :] - offsets[:, None]
         ).clamp(min=0)
-        cache = init_kv_cache(
-            cfg.decoder, self.batch_size, self.max_len, dtype=self.cache_dtype,
-            device=self.device,
-        )
-        out = model.decoder(
+        if self.gen_cfg.kv_quant:
+            cache = init_quant_kv_cache(
+                cfg.decoder, self.batch_size, self.max_len, device=self.device
+            )
+        else:
+            cache = init_kv_cache(
+                cfg.decoder, self.batch_size, self.max_len, dtype=self.cache_dtype,
+                device=self.device,
+            )
+        out = self.decoder(
             embeds,
             positions=positions,
             kv_lengths=torch.full((self.batch_size,), self.prompt_len, device=self.device),
@@ -154,15 +176,15 @@ class Generator:
             cache=cache, q_offset=0, use_kernel=use_kernel, compute_logits=False,
         )
         # only the LAST position's logits are needed
-        return model.decoder.logits(out["hidden"][:, -1]), out["cache"]
+        return self.decoder.logits(out["hidden"][:, -1], use_kernel), out["cache"]
 
     @torch.no_grad()
     def _decode_chunk(
-        self, cache: KVCache, token: torch.Tensor, step: int, offsets: torch.Tensor,
-        generator: torch.Generator,
+        self, cache: Union[KVCache, QuantKVCache], token: torch.Tensor, step: int,
+        offsets: torch.Tensor, generator: torch.Generator,
     ) -> torch.Tensor:
         """Decode decode_chunk tokens on the device (no host sync). Returns (chunk, B)."""
-        decoder = self.model.decoder
+        decoder = self.decoder
         tokens = []
         for i in range(max(self.gen_cfg.decode_chunk, 1)):
             slot = self.prompt_len + step + i
@@ -244,3 +266,43 @@ class Generator:
                 cleaned.append(text)
             return cleaned
         return outputs
+
+
+def greedy_decode_text(
+    model: VLM,
+    cfg: VLMConfig,
+    plans: Sequence[SplicePlan],
+    images: np.ndarray,
+    tokenizer,
+    *,
+    max_new_tokens: int = 128,
+    stop_strings: Sequence[str] = (),
+    eos_token_ids: Sequence[int] = (),
+    kv_quant: Optional[bool] = None,
+    weight_quant: object = None,
+    device: Optional[Union[str, torch.device]] = None,
+) -> List[str]:
+    """plans + images -> decoded strings, prompts left-padded to the next
+    multiple of 128. kv_quant / weight_quant default to the quantized serving
+    configuration (int8 KV + w8a16) when CUDA is present, bf16 otherwise."""
+    if kv_quant is None:
+        kv_quant = torch.cuda.is_available()
+    if weight_quant is None:
+        weight_quant = torch.cuda.is_available()
+    longest = max(p.seq_length for p in plans)
+    pad_to = -(-longest // 128) * 128
+    batch = left_pad_plans(plans, pad_to)
+    batch["images"] = images
+    gen_cfg = GenerationConfig(
+        max_new_tokens=max_new_tokens,
+        eos_token_ids=tuple(eos_token_ids),
+        stop_strings=tuple(stop_strings),
+        kv_quant=bool(kv_quant),
+        # keep "int4" intact: bool() would turn it into w8a16
+        weight_quant=weight_quant if isinstance(weight_quant, str) else bool(weight_quant),
+    )
+    gen = Generator(model, cfg, gen_cfg, len(plans), pad_to, device=device)
+    out = gen.generate(batch, tokenizer=tokenizer)
+    if stop_strings:
+        return [t.strip() for t in out]
+    return [tokenizer.decode(ids, skip_special_tokens=True).strip() for ids in out]

@@ -1,22 +1,127 @@
 """Layer primitives (the serving subset of visper_lm_tpu/utils/param.py).
 
-Plain functions on tensors plus the two small norm modules. Linear layers are
-`nn.Linear`, whose weight is (out, in): the transpose of the JAX package's
-input-major {"kernel": (in, out)} (weights.py converts between them).
+Plain functions on tensors, the two small norm modules, and the quantized
+serving linear. Dense linear layers are `nn.Linear`, whose weight is
+(out, in): the transpose of the JAX package's input-major {"kernel": (in,
+out)} (weights.py converts between them). `QuantLinear` keeps JAX's
+input-major layout for its int8 buffers, so JAX's quantized leaves map onto
+it as they are.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from visper_lm_tpu_torch.ops.quant_matmul import unpack_int4, w4_linear, w4_supported
+
 
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dense y = x @ weight.T (+ bias), in the input dtype."""
     return F.linear(x, weight, bias)
+
+
+def quantize_linear_int8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """JAX `quantize_linear_weights` for one input-major (din, dout) weight:
+    per-output-channel symmetric int8, scale amax / 127 (floor 1e-8), in f32.
+    Returns {"weight_q8" (din, dout) int8, "out_scale" (dout,) f32}."""
+    wf = w.float()
+    # amax / 127 as amax * f32(1 / 127), the form XLA folds a division by a
+    # constant into (so the scales, and the rounding ties, match JAX's)
+    scale = wf.abs().amax(dim=-2, keepdim=True).clamp(min=1e-8) * (1.0 / 127.0)
+    q = torch.round(wf / scale).clamp(-127, 127).to(torch.int8)
+    return {"weight_q8": q, "out_scale": scale.squeeze(-2)}
+
+
+AWQ_ALPHA = 0.5  # JAX `quantize_linear_weights_int4`'s default awq_alpha
+
+
+def quantize_linear_int4(
+    w: torch.Tensor, group: int = 128, act_rms: Optional[torch.Tensor] = None
+) -> Optional[Dict[str, torch.Tensor]]:
+    """JAX `quantize_linear_weights_int4` for one input-major (din, dout)
+    weight; None when no group size in (group, 64, 32, 16) divides din (the
+    layer stays dense).
+
+    Group-wise symmetric int4 (amax / 7, floor 1e-8, clip +-7), nibble-packed
+    with row 2r in the low and row 2r + 1 in the high nibble. With act_rms
+    (din,) (AWQ, serve/calibrate.decoder_act_rms): s = clip((rms / gmean)^0.5,
+    0.1, 10), the weight rows are scaled by s (in f32, then rounded to the
+    weight's dtype, as JAX does) and 1 / s is kept as "q4_in_scale".
+    Returns {"weight_q4p" (din/2, dout) int8, "q4_scale" (G, dout) f32
+    [, "q4_in_scale" (din,) f32]}."""
+    din, dout = w.shape
+    size = next((c for c in (group, 64, 32, 16) if din % c == 0), None)
+    if size is None:
+        return None
+    out: Dict[str, torch.Tensor] = {}
+    if act_rms is not None and tuple(act_rms.shape) == (din,):
+        r = act_rms.float().clamp(min=1e-6)
+        gmean = torch.exp(torch.log(r).mean(dim=-1, keepdim=True))
+        s = ((r / gmean) ** AWQ_ALPHA).clamp(0.1, 10.0)
+        w = (w.float() * s[:, None]).to(w.dtype)
+        out["q4_in_scale"] = 1.0 / s
+    grouped = w.float().reshape(din // size, size, dout)
+    scale = grouped.abs().amax(dim=-2, keepdim=True).clamp(min=1e-8) * (1.0 / 7.0)
+    q = torch.round(grouped / scale).clamp(-7, 7).to(torch.int32).reshape(din // 2, 2, dout)
+    out["weight_q4p"] = ((q[:, 0] & 0x0F) | (q[:, 1] << 4)).to(torch.int8)
+    out["q4_scale"] = scale.squeeze(-2)
+    return out
+
+
+class QuantLinear(nn.Module):
+    """A serving linear with quantized weights held as buffers (no
+    parameters, no bias; the decoder's linears have none), input-major:
+
+      * w8a16: weight_q8 (din, dout) int8, out_scale (dout,) f32;
+      * w4a16: weight_q4p (din/2, dout) int8 nibble-packed, q4_scale (G, dout)
+        f32, and q4_in_scale (din,) f32 when AWQ-calibrated.
+
+    Build it from `quantize_linear_int8` / `quantize_linear_int4`'s dict, or
+    from JAX's quantized leaves (weights.py)."""
+
+    def __init__(self, **buffers: torch.Tensor):
+        super().__init__()
+        names = set(buffers)
+        if names not in ({"weight_q8", "out_scale"}, {"weight_q4p", "q4_scale"},
+                         {"weight_q4p", "q4_scale", "q4_in_scale"}):
+            raise ValueError(f"QuantLinear: unknown buffer set {sorted(names)}")
+        for name in ("weight_q8", "out_scale", "weight_q4p", "q4_scale", "q4_in_scale"):
+            buf = buffers.get(name)
+            self.register_buffer(name, None if buf is None else buf.contiguous())
+
+    def forward(self, x: torch.Tensor, use_kernel: Optional[bool] = None) -> torch.Tensor:
+        """JAX `linear`'s kernel_q8 / kernel_q4p branches. A packed-int4 weight
+        goes to the w4 kernel (ops/quant_matmul.py) when use_kernel (None =
+        "x is on CUDA") and its layout is supported, else to the dequantized
+        product: q * s rounded to x's dtype, then one matmul."""
+        if self.weight_q8 is not None:
+            y = x @ self.weight_q8.to(x.dtype)
+            return y * self.out_scale.to(y.dtype)
+        if self.q4_in_scale is not None:
+            x = x * self.q4_in_scale.to(x.dtype)
+        if use_kernel is None:
+            use_kernel = x.is_cuda
+        if use_kernel and w4_supported(self.weight_q4p, self.q4_scale, x):
+            return w4_linear(self.weight_q4p, self.q4_scale, x)
+        q = unpack_int4(self.weight_q4p)
+        din, dout = q.shape
+        groups = self.q4_scale.shape[0]
+        wf = (
+            q.to(x.dtype).reshape(groups, din // groups, dout)
+            * self.q4_scale[:, None, :].to(x.dtype)
+        ).reshape(din, dout)
+        return x @ wf
+
+
+def apply_linear(layer: nn.Module, x: torch.Tensor, use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """A dense `nn.Linear` or a `QuantLinear` (which takes use_kernel)."""
+    if isinstance(layer, QuantLinear):
+        return layer(x, use_kernel=use_kernel)
+    return layer(x)
 
 
 def layernorm(

@@ -8,8 +8,12 @@ A tree is nested dicts/lists of numpy arrays (np.asarray of the JAX leaves);
 bfloat16 leaves (ml_dtypes) are carried bit for bit.
 
 `from_jax_params` maps the whole VLM tree, the distillation heads and their
-logit scales included; `teachers_from_jax_params` maps the teachers' tree
-(dinov2, clip_h, swin; the DPT decoder is not ported yet and is skipped).
+logit scales included, and a decoder quantized by the JAX package
+(`quantize_linear_weights` / `quantize_linear_weights_int4`): its
+{kernel_q8, out_scale} and {kernel_q4p, q4_scale[, q4_in_scale]} leaves
+become `QuantLinear` buffers as they are (both input-major), bit for bit.
+`teachers_from_jax_params` maps the teachers' tree (dinov2, clip_h, swin; the
+DPT decoder is not ported yet and is skipped).
 """
 
 from __future__ import annotations
@@ -22,12 +26,19 @@ import torch.nn as nn
 
 from visper_lm_tpu_torch.config import VLMConfig
 from visper_lm_tpu_torch.device import resolve_device
+from visper_lm_tpu_torch.models.decoder import LINEAR_NAMES, Decoder
 from visper_lm_tpu_torch.models.teachers import TeacherConfigs, build_teachers
 from visper_lm_tpu_torch.models.vlm import VLM
+from visper_lm_tpu_torch.utils.param import QuantLinear
 
 _VLM_SUBTREES = (
     "decoder", "vision_tower", "mm_projector", "special_tokens", "heads", "logit_scales",
 )
+# JAX quantized-linear leaf -> QuantLinear buffer (same layout, no transpose)
+_QUANT_LEAVES = {
+    "kernel_q8": "weight_q8", "out_scale": "out_scale", "kernel_q4p": "weight_q4p",
+    "q4_scale": "q4_scale", "q4_in_scale": "q4_in_scale",
+}
 
 
 def _tensor(x: Any) -> torch.Tensor:
@@ -47,7 +58,7 @@ def _leaf(name: str, x: Any):
         return "weight", a.T
     if name == "embedding":
         return "weight", a
-    return name, a
+    return _QUANT_LEAVES.get(name, name), a
 
 
 def _flatten(sd: Dict[str, Any], prefix: str, tree: Any) -> None:
@@ -97,11 +108,33 @@ def jax_tree_to_state_dict(tree: Dict[str, Any], cfg: VLMConfig) -> Dict[str, An
     return sd
 
 
+def _quant_shells(decoder: Decoder, tree: Dict[str, Any]) -> None:
+    """Put a meta-device `QuantLinear` of the right buffer shapes wherever the
+    JAX decoder tree holds a quantized linear (stacked blocks: (L, ...))."""
+
+    def shell(p: Dict[str, Any], stacked: bool) -> QuantLinear:
+        bufs = {}
+        for k, v in p.items():
+            a = np.asarray(v)
+            dt = torch.from_numpy(np.zeros((0,), a.dtype)).dtype
+            bufs[_QUANT_LEAVES[k]] = torch.empty(a.shape[1:] if stacked else a.shape, dtype=dt)
+        return QuantLinear(**bufs)
+
+    for name in LINEAR_NAMES:
+        p = tree["blocks"][name]
+        if "kernel" not in p:
+            for block in decoder.blocks:
+                setattr(block, name, shell(p, stacked=True))
+    if "lm_head" in tree and "kernel" not in tree["lm_head"]:
+        decoder.lm_head = shell(tree["lm_head"], stacked=False)
+
+
 def _load(module: nn.Module, sd: Dict[str, Any], device, dtype) -> None:
     tensors = {}
     for name, leaf in sd.items():
         t = _tensor(leaf)
-        if dtype is not None and t.is_floating_point():
+        # quantized linears keep their f32 scales whatever the model dtype
+        if dtype is not None and t.is_floating_point() and name.rsplit(".", 1)[-1] not in _QUANT_LEAVES.values():
             t = t.to(dtype)
         tensors[name] = t.to(device)
     module.load_state_dict(tensors, strict=True, assign=True)
@@ -125,12 +158,15 @@ def from_jax_params(
     device: Optional[Union[str, torch.device]] = None,
     dtype: Optional[torch.dtype] = None,
 ) -> VLM:
-    """A VLM holding the JAX tree's weights on `device` (CUDA when None).
+    """A VLM holding the JAX tree's weights on `device` (CUDA when None);
+    quantized decoder linears become `QuantLinear`s.
 
-    dtype=None keeps each leaf's dtype; otherwise floating leaves are cast."""
+    dtype=None keeps each leaf's dtype; otherwise floating leaves other than
+    the quantization scales are cast."""
     device = resolve_device(device)
     with torch.device("meta"):
         model = VLM(cfg)
+        _quant_shells(model.decoder, tree["decoder"])
     _load(model, jax_tree_to_state_dict(tree, cfg), device, dtype)
     return model.eval()
 
