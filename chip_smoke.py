@@ -21,7 +21,15 @@ Phases, each of which raises (exit code != 0) when it fails:
        B5 w4a16 matmul (Phi3-mini's four (din, dout) pairs at M = 8 and, but
           for lm_head, M = 6144; one AWQ case) against its plain version in
           f32: relative Frobenius error <= 1e-2 and max abs error <= 2e-2 x
-          max|ref| (the bf16 output's rounding);
+          max|ref| (the bf16 output's rounding). Each case also times the
+          mma.sync kernel it replaced (`mma_sync_ms`; in turns: old, new, new,
+          old). An M = 8 case is host-bound in an eager loop, so beside `ms`
+          (eager, as before) it is timed as a CUDA graph of launches: warm
+          (`device_ms`: one weight, resident in L2) and cold (`cold_ms`: in
+          turn over enough copies of the weight to exceed the 50 MB L2, as
+          the decode path finds it), the library call the same way; the
+          byte bound is a device-memory bound and goes with `cold_ms`. The
+          same M = 8 launch 20 times must give identical bytes;
        B6 decode attention (standalone, as in the JAX package: no path calls
           it, and its launch count over phases 4-7 must stay 0) at the decode
           shape in bf16 and int8, and GQA 32/8 H128 with a fully masked row:
@@ -42,7 +50,8 @@ Phases, each of which raises (exit code != 0) when it fails:
      within 0.05 x max|logits| of the plain versions' on the same quantized
      weights; the int4-vs-bf16 drift is printed (a quality trade-off, not a
      check). Then int8 KV + w8a16 generates 8 x 32 tokens. Both are timed as
-     in phase 4; one int4 decode chunk is profiled;
+     in phase 4; one int4 prefill and one int4 decode chunk are profiled,
+     with B5's share of the device time;
   7. training path: config #1's PT distillation step (the same VLM plus the
      frozen DINOv2-L, CLIP-H and Swin-L teachers computing their targets in
      the step, bf16, B4 x T1024) through `make_train_step`: one warm-up step,
@@ -76,6 +85,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / f32 SIMT
+L2_BYTES = 50e6                # H100: a rotation of weights must exceed it to find them cold
 
 BATCH, PROMPT_LEN, NEW_TOKENS = 8, 768, 32
 TEXT_LENS = (155, 140, 121, 96, 77, 50, 31, 12)   # 13 sys + 600 image/task + text <= 768
@@ -100,6 +110,30 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fns, reps: int) -> float:
+    """Mean device time per call of the calls in fns, captured `reps` times
+    over into one CUDA graph and replayed: no host time between launches."""
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        for fn in fns:
+            fn()                                # warm-up on the capture stream
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(reps):
+            for fn in fns:
+                fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * len(fns))
 
 
 def environment(build) -> str:
@@ -351,24 +385,58 @@ def w4_case(name, m, din, dout, gen, qm, param, awq=False, group=128):
     check(fro <= 1e-2, f"{name}: relative Frobenius err {fro} > 1e-2")
     check(err <= 2e-2 * mag, f"{name}: max abs err {err} > 2e-2 x {mag}")
     iters = 50 if m <= 16 else 10
-    ms = cuda_ms(lambda: qm.w4_matmul(x, pk, sc, group), iters)
+    def new_fn():
+        return qm.w4_matmul(x, pk, sc, group)
+
+    def old_fn():
+        return qm.w4_matmul(x, pk, sc, group, kernel="mma_sync")
+
+    old_a = cuda_ms(old_fn, iters)              # in turns: old, new, new, old
+    ms = 0.5 * (cuda_ms(new_fn, iters) + cuda_ms(new_fn, iters))
+    mma_sync_ms = 0.5 * (old_a + cuda_ms(old_fn, iters))
     plain_ms = cuda_ms(lambda: qm.w4_matmul_reference(x, pk, sc, group), 2)
     # yardstick: one torch.matmul with the same weight already dequantized to
     # bf16 (four times the weight bytes)
     w_deq = (qm.unpack_int4(pk).to(torch.bfloat16).reshape(-1, group, dout)
              * sc[:, None, :].to(torch.bfloat16)).reshape(din, dout)
     library_ms = cuda_ms(lambda: torch.matmul(x, w_deq), iters)
+    small = {}
+    if m <= 16:
+        # device times without the host between launches, warm and cold in L2
+        copies = max(8, -(-3 * int(L2_BYTES) // pk.numel()))
+        pks = [pk.clone() for _ in range(copies)]
+        scs = [sc.clone() for _ in range(copies)]
+
+        def cold(kern):
+            return graph_ms([lambda a=a, b=b: qm.w4_matmul(x, a, b, group, kernel=kern)
+                             for a, b in zip(pks, scs)], 2)
+
+        small = dict(device_ms=graph_ms([new_fn], 20), cold_ms=cold(None),
+                     mma_sync_device_ms=graph_ms([old_fn], 20), mma_sync_cold_ms=cold("mma_sync"),
+                     library_device_ms=graph_ms([lambda: torch.matmul(x, w_deq)], 20))
+        del pks, scs
+        lib_copies = max(8, -(-3 * int(L2_BYTES) // (2 * w_deq.numel())))
+        w_deqs = [w_deq.clone() for _ in range(lib_copies)]
+        small["library_cold_ms"] = graph_ms([lambda w=w: torch.matmul(x, w) for w in w_deqs], 2)
+        small["cold_copies"] = copies
+        del w_deqs
+        # the split-K sum runs in a fixed order: the same launch gives the same bytes
+        first = new_fn()
+        for _ in range(20):
+            check(torch.equal(new_fn(), first), f"{name}: a repeated launch gave other bytes")
     del w_deq
     # least time: x, packed, scales read once, out written once, vs 2 M din dout
     nbytes = x.numel() * 2 + pk.numel() + sc.numel() * 4 + m * dout * 2
     flops = 2.0 * m * din * dout
     rec = dict(
         case=name, shape=f"M{m} din{din} dout{dout} group{group}{' awq' if awq else ''}",
+        kernel=qm.w4_kernel_for(m, din, dout, group),
         max_abs_err=err, max_abs_ref=mag, rel_fro_err=fro,
-        tol="rel Frobenius 1e-2, max abs 2e-2 x max|ref|", ms=ms, plain_ms=plain_ms,
-        library_ms=library_ms, library="torch.matmul on the bf16-dequantized weight",
+        tol="rel Frobenius 1e-2, max abs 2e-2 x max|ref|", ms=ms, mma_sync_ms=mma_sync_ms,
+        plain_ms=plain_ms, library_ms=library_ms,
+        library="torch.matmul on the bf16-dequantized weight", **small,
         **bound(nbytes, flops, torch.bfloat16), tflops=flops / ms * 1e-9,
-        gbytes_s=nbytes / ms * 1e-6,
+        gbytes_s=nbytes / small.get("cold_ms", ms) * 1e-6,
     )
     print("kernel_case " + json.dumps(rec))
     return rec
@@ -476,10 +544,11 @@ def train_batch(cfg, batch_size: int, seq_len: int):
     return batch
 
 
-def profile_window(name: str, fn, top: int = 10) -> dict:
+def profile_window(name: str, fn, top: int = 10, match: str = "") -> dict:
     """Device time of one call of fn by kernel (torch.profiler), and the
     device's idle share of the same call's wall time timed without the
-    profiler (the profiler slows the host)."""
+    profiler (the profiler slows the host). With `match`, also the device
+    time of the kernels whose name contains it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -498,7 +567,14 @@ def profile_window(name: str, fn, top: int = 10) -> dict:
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
         print(f"profile {name}:   {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<5d} {e.key[:100]}")
-    return dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3, idle_share=1 - busy_us / wall_us)
+    out = dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3, idle_share=1 - busy_us / wall_us)
+    if match:
+        hit = [e for e in kernels if match in e.key]
+        out["match_ms"] = sum(e.self_device_time_total for e in hit) / 1e3
+        out["match_launches"] = sum(e.count for e in hit)
+        print(f"profile {name}: kernels matching '{match}': {out['match_ms']:.3f} ms "
+              f"in {out['match_launches']} launches")
+    return out
 
 
 def main() -> int:
@@ -709,8 +785,12 @@ def main() -> int:
             agree_bf16 = int((logits_q.argmax(-1) == logits_k.argmax(-1)).sum())
             print(f"int4 vs bf16 prefill logits: relative RMS drift {drift:.4g}, argmax agree "
                   f"{agree_bf16}/{BATCH} (printed only: int4 is a quality trade-off)")
-            profile_window("int4_decode_chunk", lambda: q_gen._decode_chunk(
-                cache_q, logits_q.argmax(-1), 0, offs, torch.Generator(device="cuda")))
+            prof = dict(
+                prefill=profile_window("int4_prefill", lambda: q_gen.prefill(batch), match="w4_"),
+                decode_chunk=profile_window("int4_decode_chunk", lambda: q_gen._decode_chunk(
+                    cache_q, logits_q.argmax(-1), 0, offs, torch.Generator(device="cuda")),
+                    match="w4_"))
+            print("int4_profile " + json.dumps(prof))
             del logits_q, logits_p, cache_q
         print(f"{qname}: {BATCH}x{NEW_TOKENS} tokens, first run {first_s:.3f} s, "
               f"{q_launches} w4 launches, peak {q_peak / 2**30:.2f} GiB")
@@ -840,8 +920,13 @@ def main() -> int:
         dict(entry("w4_matmul", csrc + "w4_matmul.cu", "visper_lm_tpu/ops/quant_matmul.py:125",
                    w4_rec, w4_launches),
              shape=w4_rec["shape"], launches_per_forward=per_forward,
+             mma_sync_ms=w4_rec["mma_sync_ms"],
              decode=dict(shape=w4_decode["shape"], ms=w4_decode["ms"],
-                         bound_ms=w4_decode["bound_ms"], library_ms=w4_decode["library_ms"])),
+                         device_ms=w4_decode["device_ms"], cold_ms=w4_decode["cold_ms"],
+                         mma_sync_ms=w4_decode["mma_sync_ms"],
+                         mma_sync_cold_ms=w4_decode["mma_sync_cold_ms"],
+                         bound_ms=w4_decode["bound_ms"], library_ms=w4_decode["library_ms"],
+                         library_cold_ms=w4_decode["library_cold_ms"])),
         dict(entry("decode_attn", csrc + "decode_attn.cu",
                    "visper_lm_tpu/ops/decode_attention.py:188", dec_rec, dec_launches),
              shape=dec_rec["shape"], bf16_ms=dec_bf16["ms"], bf16_bound_ms=dec_bf16["bound_ms"],

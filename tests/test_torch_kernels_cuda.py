@@ -11,7 +11,8 @@ plain version computed in f32): bf16 2e-2, f32 1e-4; lse 1e-3. Backward
 forward's f32 out and lse): relative Frobenius error 1e-2 and, per element,
 |err| <= 2e-2 + 1e-2 x |ref|. Window attention: bf16 2e-2. w4 matmul (bf16
 out against `w4_matmul_reference` in f32): relative Frobenius error 1e-2 and
-max abs error 2e-2 x max|ref|. Decode attention (bf16 q; bf16 or int8
+max abs error 2e-2 x max|ref|; the same small-M launch repeated gives the
+same bytes. Decode attention (bf16 q; bf16 or int8
 cache): relative Frobenius error 1e-2 and max abs error 5e-3 on rows with a
 valid key; a row with none is exactly 0.
 """
@@ -201,11 +202,25 @@ def _assert_w4_close(got, ref):
     assert err.max().item() <= 2e-2 * ref.abs().max().item()
 
 
-@pytest.mark.parametrize("m", [1, 8, 13, 256])
-@pytest.mark.parametrize("din,dout,group", [(512, 384, 128), (256, 500, 64), (1024, 320, 32), (384, 256, 16)])
+W4_CARD_M = [1, 8, 13, 16, 17, 100, 256, 300]
+W4_CARD_SHAPES = [
+    (512, 384, 128), (256, 500, 64), (1024, 320, 32), (384, 256, 16),
+    (512, 336, 128),    # dout ragged against the 128-column tile, still 16-byte rows
+    (128, 256, 128),    # split-K with one group: a single split
+    (256, 192, 128),    # two groups
+    (8192, 64, 128),    # 64 groups on one column tile: 8 splits of two rounds each
+]
+
+
+@pytest.mark.parametrize("m", W4_CARD_M)
+@pytest.mark.parametrize("din,dout,group", W4_CARD_SHAPES)
 def test_w4_kernel_matches_plain(cuda_gen, m, din, dout, group):
-    """Decode- and prefill-sized M (both tile shapes), every k-step size, and a
-    ragged dout (500: the packed rows are not 16-byte multiples)."""
+    """M across the regime boundary (16 | 17) and the tile edges, every k-step
+    size, a dout that is no multiple of 16 (500: the mma.sync kernel for
+    M > 16, byte-wise staging in the split-K kernel) and one that is ragged
+    against the warpgroup kernel's tile (336), few and many groups per split.
+    Tolerances: the bf16 output's rounding (relative 2^-9 per element) and
+    f32 sums in another order than the plain version's, against it in f32."""
     qd = _w4_weights(cuda_gen, din, dout, group)
     x = torch.randn(m, din, device="cuda", generator=cuda_gen).to(torch.bfloat16)
     before = qm.launches
@@ -215,6 +230,44 @@ def test_w4_kernel_matches_plain(cuda_gen, m, din, dout, group):
     torch.cuda.synchronize()
     assert got.shape == (m, dout) and got.dtype == torch.bfloat16
     _assert_w4_close(got, ref)
+
+
+@pytest.mark.parametrize("m", [8, 300])
+@pytest.mark.parametrize("din,dout,group", [(512, 384, 128), (256, 500, 64), (384, 256, 16)])
+def test_w4_mma_sync_kernel_matches_plain(cuda_gen, m, din, dout, group):
+    """The mma.sync kernel, which takes the shapes the other two do not, on
+    shapes that all three take: forced by name."""
+    qd = _w4_weights(cuda_gen, din, dout, group)
+    x = torch.randn(m, din, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    got = qm.w4_matmul(x, qd["weight_q4p"], qd["q4_scale"], group, kernel="mma_sync")
+    ref = qm.w4_matmul_reference(x.float(), qd["weight_q4p"], qd["q4_scale"], group)
+    torch.cuda.synchronize()
+    _assert_w4_close(got, ref)
+
+
+@pytest.mark.parametrize("m,din,dout,group", [(8, 3072, 3072, 128), (1, 8192, 320, 128), (16, 1024, 500, 32)])
+def test_w4_small_m_launch_is_bit_identical(cuda_gen, m, din, dout, group):
+    """The split-K kernel sums its splits in split order, without float
+    atomics: the same launch 20 times gives the same bytes (greedy decoding
+    must give the same tokens run after run)."""
+    assert qm.w4_kernel_for(m, din, dout, group) == "splitk"
+    assert qm.w4_split_plan(din, dout, group)[1] > 1
+    qd = _w4_weights(cuda_gen, din, dout, group)
+    x = torch.randn(m, din, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    first = qm.w4_matmul(x, qd["weight_q4p"], qd["q4_scale"], group)
+    for _ in range(20):
+        assert torch.equal(qm.w4_matmul(x, qd["weight_q4p"], qd["q4_scale"], group), first)
+
+
+def test_w4_forced_kernel_rejects_a_shape_it_does_not_take(cuda_gen):
+    qd = _w4_weights(cuda_gen, 256, 500, 64)
+    x = torch.randn(300, 256, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    before = qm.launches
+    with pytest.raises(ValueError):                       # M 300 is not the split-K kernel's
+        qm.w4_matmul(x, qd["weight_q4p"], qd["q4_scale"], 64, kernel="splitk")
+    with pytest.raises(RuntimeError):                     # dout 500: not 16-byte rows
+        qm.w4_matmul(x, qd["weight_q4p"], qd["q4_scale"], 64, kernel="wgmma")
+    assert qm.launches == before
 
 
 def test_w4_quant_linear_with_awq_in_scale_takes_the_kernel(cuda_gen):

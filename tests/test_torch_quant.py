@@ -153,6 +153,65 @@ def test_w4_gate_is_the_jax_gate(din, groups, x_din):
     assert tqm.w4_supported(_t(packed), _t(scales), _t(x)) == want
 
 
+# (din, dout, group) of the serving path's linears (Phi3-mini) and of the card tests
+W4_SERVING_SHAPES = [(3072, 3072, 128), (3072, 8192, 128), (8192, 3072, 128), (3072, 32064, 128)]
+W4_CARD_SHAPES = [(512, 384, 128), (256, 500, 64), (1024, 320, 32), (384, 256, 16),
+                  (512, 336, 128), (128, 256, 128), (256, 192, 128), (8192, 64, 128)]
+
+
+@pytest.mark.parametrize("din,dout,group", W4_SERVING_SHAPES + W4_CARD_SHAPES)
+def test_w4_split_plan_covers_every_group_once(din, dout, group):
+    """The split-K plan cuts K on group boundaries: the splits' group ranges,
+    as the kernel derives them from (groups per split, splits), are disjoint,
+    in order and cover every group; no split is empty; the cluster holds
+    them; and the serving shapes get more CTAs than an H100 has SMs."""
+    gps, splits = tqm.w4_split_plan(din, dout, group)
+    groups = din // group
+    ranges = [(s * gps, min(groups, (s + 1) * gps)) for s in range(splits)]
+    assert all(lo < hi for lo, hi in ranges)
+    assert [g for lo, hi in ranges for g in range(lo, hi)] == list(range(groups))
+    assert 1 <= splits <= tqm.SPLITK_MAX_SPLITS
+    if (din, dout, group) in W4_SERVING_SHAPES:
+        assert -(-dout // tqm.SPLITK_TILE_N) * splits > 132
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 100, 256, 300, 6144])
+@pytest.mark.parametrize("din,dout,group", W4_SERVING_SHAPES + W4_CARD_SHAPES)
+def test_w4_gate_names_a_kernel_for_every_shape(m, din, dout, group):
+    """Every (M, din, dout, group) of the serving path and of the card tests
+    goes to a named hand-written kernel whose constraints it meets."""
+    name = tqm.w4_kernel_for(m, din, dout, group)
+    assert name in tqm.KERNEL_IDS
+    if name == "splitk":
+        assert m <= tqm.SPLITK_MAX_M and tqm.w4_split_plan(din, dout, group) is not None
+    elif name == "wgmma":
+        assert m > tqm.SPLITK_MAX_M and group % 64 == 0 and dout % 16 == 0
+    if (din, dout, group) in W4_SERVING_SHAPES:
+        assert name == ("splitk" if m <= 16 else "wgmma")
+
+
+@pytest.mark.parametrize(
+    "m,din,dout,group,want",
+    [(8, 1024, 64, 1024, "mma_sync"),      # a group of more than eight 64-k chunks
+     (8, 1152, 64, 144, "mma_sync"),       # 144 = 9 chunks of 16
+     (300, 256, 500, 64, "mma_sync"),      # dout not a multiple of 16
+     (300, 1024, 320, 32, "mma_sync"),     # group not a multiple of 64
+     (300, 512, 336, 128, "wgmma"), (16, 512, 336, 128, "splitk")],
+)
+def test_w4_gate_remainder_goes_to_the_mma_sync_kernel(m, din, dout, group, want):
+    assert tqm.w4_kernel_for(m, din, dout, group) == want
+
+
+@pytest.mark.parametrize("din,group", [(256, 8), (256, 24), (250, 50), (256, 96), (256, 0)])
+def test_w4_gate_raises_for_a_group_no_kernel_runs(din, group):
+    """Never the plain version: a group that is no multiple of 16 dividing
+    din raises, and the split-K plan has no answer for it."""
+    for m in (8, 300):
+        with pytest.raises(ValueError, match="group"):
+            tqm.w4_kernel_for(m, din, 64, group)
+    assert tqm.w4_split_plan(din, 64, group) is None
+
+
 def test_unpack_matches_the_jax_layout():
     """Nibble unpack through int32: every packed byte value, both nibbles."""
     packed = np.arange(-128, 128, dtype=np.int8).reshape(128, 2)

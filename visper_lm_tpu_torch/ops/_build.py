@@ -49,7 +49,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
             ctypes.c_int,
         ),
     },
-    "w4_matmul": {"visper_w4_matmul": ([_P] * 4 + [_I] * 4 + [_P], ctypes.c_int)},
+    "w4_matmul": {"visper_w4_matmul": ([_P] * 4 + [_I] * 6 + [_P], ctypes.c_int)},
     "decode_attn": {
         "visper_decode_attn": (
             [_P] * 8 + [_I] * 5 + [ctypes.c_float, _I, _P],

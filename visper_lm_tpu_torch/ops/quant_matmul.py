@@ -17,17 +17,73 @@ is cast to x's dtype. This differs from the plain `kernel_q4p` branch of
 utils/param.linear (JAX's XLA branch), which rounds q * s to x's dtype and
 takes one product.
 
-`w4_matmul` launches the kernel for CUDA tensors (bf16 x) or raises; CPU
-tensors take the plain version. `launches` counts kernel launches.
+`w4_matmul` launches a kernel for CUDA tensors (bf16 x) or raises; CPU
+tensors take the plain version. csrc/w4_matmul.cu holds three kernels and
+`w4_kernel_for` names the one a shape takes: "wgmma" (M > 16: the pipelined
+warpgroup kernel), "splitk" (M <= 16: K split across the CTAs of a cluster by
+`w4_split_plan`, the splits summed in split order through distributed shared
+memory, so the result is the same bits run after run) and "mma_sync" (the
+shapes those two do not take). `launches` counts the `w4_matmul` calls that
+launched a kernel.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 # Kernel launches since the last reset; a caller sets it to 0 and reads it to
 # show that a run went through the kernel.
 launches = 0
+
+
+SPLITK_MAX_M = 16          # rows of one m16 tile: the split-K kernel's M
+SPLITK_TILE_N = 64         # output columns per split-K CTA
+SPLITK_ROUND_CHUNKS = 8    # chunks (<= 64 k each) a CTA holds in shared memory at once
+SPLITK_TARGET_CTAS = 528   # four CTAs on each of an H100's 132 SMs
+SPLITK_MAX_SPLITS = 8      # the splits of a tile are one cluster (portable size 8)
+KERNEL_IDS = {"mma_sync": 0, "wgmma": 1, "splitk": 2}
+
+
+@functools.lru_cache(maxsize=None)
+def w4_split_plan(din: int, dout: int, group: int) -> Optional[Tuple[int, int]]:
+    """(groups per split, splits) of the split-K kernel for a (din, dout)
+    linear, or None where it cannot take the group (one that does not fit
+    SPLITK_ROUND_CHUNKS chunks of the largest of 64/32/16 k dividing it).
+    Splits lie on group boundaries and cover the groups in order, each
+    exactly once (the last split may be shorter): as many splits, up to
+    SPLITK_MAX_SPLITS, as it takes to reach about SPLITK_TARGET_CTAS CTAs;
+    a split that would just overflow one round of shared memory is cut to a
+    round when that still fits the cluster."""
+    if group <= 0 or group % 16 or din % group:
+        return None
+    chunk = 64 if group % 64 == 0 else 32 if group % 32 == 0 else 16
+    round_groups = SPLITK_ROUND_CHUNKS * chunk // group
+    if round_groups == 0:
+        return None
+    groups = din // group
+    tiles = -(-dout // SPLITK_TILE_N)
+    want_splits = min(SPLITK_MAX_SPLITS, groups, -(-SPLITK_TARGET_CTAS // tiles))
+    gps = -(-groups // want_splits)
+    if gps > round_groups and -(-groups // round_groups) <= SPLITK_MAX_SPLITS:
+        gps = round_groups
+    return gps, -(-groups // gps)
+
+
+@functools.lru_cache(maxsize=None)
+def w4_kernel_for(m: int, din: int, dout: int, group: int) -> str:
+    """The name of the hand-written kernel that an (M, din) x (din, dout)
+    product with this group takes on CUDA; raises for a group no kernel runs.
+    Never the plain version."""
+    if group <= 0 or group % 16 or din % group:
+        raise ValueError(f"w4_matmul: group {group} must be a multiple of 16 dividing din {din}")
+    if m <= SPLITK_MAX_M:
+        return "splitk" if w4_split_plan(din, dout, group) is not None else "mma_sync"
+    if group % 64 == 0 and dout % 16 == 0:
+        return "wgmma"
+    return "mma_sync"
 
 
 def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
@@ -72,18 +128,21 @@ def _check(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, group: i
             f"w4_matmul: shapes x {tuple(x.shape)} packed {tuple(packed.shape)} "
             f"scales {tuple(scales.shape)}"
         )
-    if group % 16 or scales.shape[0] * group != din:
+    if group <= 0 or group % 16 or scales.shape[0] * group != din:
         raise ValueError(f"w4_matmul: group {group} must be a multiple of 16 dividing din {din}")
-    if x.data_ptr() % 16 or packed.data_ptr() % 16:
-        raise ValueError("w4_matmul: x and packed must be 16-byte aligned")
+    if x.data_ptr() % 16 or packed.data_ptr() % 16 or scales.data_ptr() % 16:
+        raise ValueError("w4_matmul: x, packed and scales must be 16-byte aligned")
 
 
 def w4_matmul(
-    x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, group: int = 128
+    x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, group: int = 128,
+    kernel: Optional[str] = None,
 ) -> torch.Tensor:
     """(M, din) @ dequant(packed (din/2, dout) int8, scales (G, dout) f32)
     -> (M, dout) in x's dtype. CPU tensors take the plain version; CUDA
-    tensors launch the kernel on the current stream or raise."""
+    tensors launch the kernel `w4_kernel_for` names on the current stream, or
+    raise. `kernel` forces one of KERNEL_IDS instead (to time or test one
+    against another); a shape that kernel does not take raises."""
     if x.device.type == "cpu":
         return w4_matmul_reference(x, packed, scales, group)
     _check(x, packed, scales, group)
@@ -93,13 +152,24 @@ def w4_matmul(
     lib = _build.load("w4_matmul")
     m, din = x.shape
     dout = packed.shape[1]
+    if kernel is None:
+        kernel = w4_kernel_for(m, din, dout, group)
+    elif kernel not in KERNEL_IDS:
+        raise ValueError(f"w4_matmul: no kernel named {kernel!r} (one of {sorted(KERNEL_IDS)})")
     out = torch.empty((m, dout), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    gps = 0
+    if kernel == "splitk":
+        plan = w4_split_plan(din, dout, group)
+        if plan is None or m > SPLITK_MAX_M:
+            raise ValueError(f"w4_matmul: the split-K kernel does not take M {m}, group {group}")
+        gps = plan[0]
     rc = lib.visper_w4_matmul(
         x.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
-        m, din, dout, group, torch.cuda.current_stream(x.device).cuda_stream,
+        m, din, dout, group, KERNEL_IDS[kernel], gps, stream,
     )
     if rc != 0:
-        raise RuntimeError(f"w4_matmul: kernel launch failed with CUDA error {rc}")
+        raise RuntimeError(f"w4_matmul: {kernel} kernel launch failed with CUDA error {rc}")
     launches += 1
     return out
 
