@@ -41,28 +41,29 @@
 //      no transposition through shared memory, every warp store fills whole
 //      32-byte sectors. Nibbles are unpacked without a conversion: v + 8
 //      or-ed into the mantissa of bf16 128.0 is 136 + v, and one bf16x2
-//      subtraction of 136 leaves v (exact): 3.5 instructions a register,
-//      and the kernel is still bound by them, not by the tensor cores (a
-//      weight layout with the nibbles of a register 16 bits apart would
-//      save the shifts). The next block's bytes are unpacked into a second
-//      register set while this block's wgmmas run.
+//      subtraction of 136 leaves v (exact): 3.5 integer or bf16 ops a
+//      register, and the kernel is still bound by them, not by the tensor
+//      cores (a weight layout with the nibbles of a register 16 bits apart
+//      would save the shifts). The next block's bytes are unpacked into a
+//      second register set while this block's wgmmas run.
 //    - A group's k-steps accumulate into a partial accumulator (the first
 //      with scale-d = 0); only a block that ends its group is waited for
 //      before the next goes out; then acc += part * s, two scale values per
 //      thread (its two dout columns).
 // 2. `w4_splitk_kernel` (M <= 16): bound by bytes (gate_proj at M = 8 reads
 //    12.6 MB of packed weights, ~4 us at 3.35 TB/s), so the work is in
-//    keeping bytes in flight and the instructions per byte few: K is split on group boundaries across the CTAs of a
-//    thread block cluster until the grid is several CTAs per SM
-//    (ops/quant_matmul.py `w4_split_plan`); each CTA issues a whole slab
-//    (at most 512 k of 64 columns: 16 KB of a 25 KB CTA at M <= 8) as
-//    16-byte cp.async copies at once and multiplies chunk by chunk as they
-//    land (mma.sync m16n8k16; the n8 tiles' columns are permuted so that a
-//    thread's two tiles are one 16-bit shared load). Each split's f32 result, a sum of whole scaled
-//    groups, stays in its CTA's shared memory; after a cluster barrier every
-//    CTA sums a share of the tile over the splits through distributed shared
-//    memory, always in split order, and rounds to bf16. No float atomics, no
-//    scratch in device memory: the result is the same bits run after run.
+//    keeping bytes in flight and the unpack short: K is split on group
+//    boundaries across the CTAs of a thread block cluster until the grid is
+//    several CTAs per SM (ops/quant_matmul.py `w4_split_plan`); each CTA
+//    issues a whole slab (at most 512 k of 64 columns: 16 KB of a 25 KB CTA
+//    at M <= 8) as 16-byte cp.async copies at once and multiplies chunk by
+//    chunk as they land (mma.sync m16n8k16; the n8 tiles' columns are
+//    permuted so that a thread's two tiles are one 16-bit shared load). Each
+//    split's f32 result, a sum of whole scaled groups, stays in its CTA's
+//    shared memory; after a cluster barrier every CTA sums a share of the
+//    tile over the splits through distributed shared memory, always in split
+//    order, and rounds to bf16. No float atomics, no scratch in device
+//    memory: the result is the same bits run after run.
 // 3. `w4_matmul_kernel` (what the two above do not take: M > 16 with a group
 //    that is not a multiple of 64 or a dout that is not a multiple of 16;
 //    M <= 16 with a group of more than eight chunks: above 512, or nine
@@ -98,7 +99,7 @@ struct Params {
   int gps;                 // split-K: groups per split
   // 0x43004300, bf16x2 (128.0, 128.0). Passed in so that it sits in a
   // register: a literal would be a second immediate and split the unpack's
-  // (y & mask) | magic into two instructions.
+  // (y & mask) | magic into two LOP3s.
   uint32_t magic;
 };
 
@@ -168,7 +169,7 @@ __device__ __forceinline__ uint32_t minus_136(uint32_t r) {
   return r;
 }
 
-// (y & 0x000F000F) | magic in one instruction.
+// (y & 0x000F000F) | magic as one LOP3.
 __device__ __forceinline__ uint32_t nibbles_into(uint32_t y, uint32_t magic) {
   uint32_t r;
   asm("lop3.b32 %0, %1, 0x000F000F, %2, 0xEA;\n" : "=r"(r) : "r"(y), "r"(magic));
@@ -731,7 +732,7 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
 
 // The map of a row-major (rows, cols) tensor of 1- or 2-byte elements, cut in
 // boxes of box_rows x 128 bytes in the 128-byte swizzle. Built once per
-// (pointer, shape) and kept; false when the driver refuses it.
+// (pointer, shape) and kept; false when the encoding is refused.
 bool tensor_map(const void* ptr, int elem_bytes, long long rows, long long cols, int box_rows,
                 CUtensorMap* out) {
   static std::mutex mu;
