@@ -12,7 +12,9 @@ Phases, each of which raises (exit code != 0) when it fails:
      call is a yardstick only; the port never calls it) beside the least time
      the card could take. Tolerances against the plain version computed in f32:
        B1 flash forward: bf16 max abs error <= 2e-2 (f32 1e-4) on rows with a
-          valid key, lse <= 1e-3;
+          valid key, lse <= 1e-3. At the serving and the training shape the
+          mma.sync kernel it replaced is held to the same bounds and timed in
+          the same call (`mma_sync_ms`; in turns: old, new, new, old);
        B2/B3 flash backward (dq, dk/dv) against the plain backward fed the
           plain forward's f32 out and lse: relative Frobenius error <= 1e-2
           and, per element, |err| <= 2e-2 + 1e-2 x |ref| (the bf16 rounding
@@ -34,7 +36,14 @@ Phases, each of which raises (exit code != 0) when it fails:
           it, and its launch count over phases 4-7 must stay 0) at the decode
           shape in bf16 and int8, and GQA 32/8 H128 with a fully masked row:
           on rows with a valid key relative Frobenius error <= 1e-2 and max
-          abs error <= 5e-3 (max |out| is about 0.3), the masked row exactly 0;
+          abs error <= 5e-3 (max |out| is about 0.3), the masked row exactly 0,
+          20 repeated launches the same bytes; the serial kernel it replaced
+          is held to the same bounds. A call is host-bound in an eager loop
+          (`eager_ms`), so the split kernel, the serial kernel and the library
+          call are each timed as a CUDA graph of launches, in turns: warm
+          (`device_ms`: one cache; the int8 one fits the L2) and cold
+          (`cold_ms`, which is the record's `ms`: in turn over enough copies
+          of the cache to exceed the 50 MB L2);
   4. serving path: Phi3-mini-4k + CLIP-ViT-L/14-336 (distill task tokens) at
      full width with seeded random weights serves 8 left-padded multimodal
      prompts (768 tokens) through `Generator.generate`, greedy, 32 new tokens.
@@ -71,6 +80,7 @@ visper_lm_tpu_torch/_build/.
 
 from __future__ import annotations
 
+import ctypes
 import gc
 import importlib.util
 import json
@@ -200,8 +210,9 @@ def bound(nbytes: float, flops: float, dtype) -> dict:
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_case(name, b, t, nq, nkv, h, dtype, causal, starts, lens, gen, fa):
-    """Kernel vs plain version on one case; returns the measured record."""
+def kernel_case(name, b, t, nq, nkv, h, dtype, causal, starts, lens, gen, fa, old=False):
+    """Kernel vs plain version on one case; returns the measured record. With
+    `old`, the mma.sync kernel is checked and timed beside the wgmma one."""
     dev = "cuda"
     q = torch.randn(b, t, nq, h, device=dev, generator=gen).to(dtype)
     k = torch.randn(b, t, nkv, h, device=dev, generator=gen).to(dtype)
@@ -227,7 +238,25 @@ def kernel_case(name, b, t, nq, nkv, h, dtype, causal, starts, lens, gen, fa):
     check(err <= tol, f"{name}: kernel vs plain max abs err {err} > {tol}")
     check(lse_err <= 1e-3, f"{name}: lse max abs err {lse_err} > 1e-3")
 
-    ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw), 20)
+    def new_fn():
+        return fa.flash_attention_fwd(q, k, v, **kw)
+
+    def old_fn():
+        return fa.flash_attention_fwd(q, k, v, kernel="mma_sync", **kw)
+
+    extra = {}
+    if old:
+        out_o, lse_o = old_fn()
+        torch.cuda.synchronize()
+        err_o = max((out_o[i, (starts[i] if causal else 0):].float()
+                     - ref[i, (starts[i] if causal else 0):]).abs().max().item()
+                    for i in range(b) if starts[i] < lens[i])
+        check(err_o <= tol, f"{name}: mma.sync kernel vs plain max abs err {err_o} > {tol}")
+        old_a = cuda_ms(old_fn, 20)             # in turns: old, new, new, old
+        ms = 0.5 * (cuda_ms(new_fn, 20) + cuda_ms(new_fn, 20))
+        extra = dict(mma_sync_ms=0.5 * (old_a + cuda_ms(old_fn, 20)), mma_sync_max_abs_err=err_o)
+    else:
+        ms = cuda_ms(new_fn, 20)
     plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v, **kw), 3)
     cols = torch.arange(t, device=dev)
     mask = (cols[None, :] >= st[:, None]) & (cols[None, :] < ln[:, None])
@@ -246,6 +275,7 @@ def kernel_case(name, b, t, nq, nkv, h, dtype, causal, starts, lens, gen, fa):
     rec = dict(
         case=name, shape=f"B{b} T{t} {nq}/{nkv} H{h} {str(dtype)[6:]} "
         f"{'causal' if causal else 'noncausal'}",
+        kernel=fa.flash_fwd_kernel_for(dtype, h, t, causal), **extra,
         max_abs_err=err, lse_max_abs_err=lse_err, tol=tol, ms=ms, plain_ms=plain_ms,
         library_ms=library_ms, **bound(nbytes, flops, dtype),
         tflops=flops / ms * 1e-9, gbytes_s=nbytes / ms * 1e-6,
@@ -459,24 +489,60 @@ def decode_case(name, b, nq, nkv, h, s, quant, starts, lens, gen, da, quantize_h
     st = torch.tensor(starts, device=dev)
     ln = torch.tensor(lens, device=dev)
     kw = dict(kv_lengths=ln, kv_starts=st)
-    out = da.decode_attention(q, k, v, ks, vs, **kw)
     ref = da.decode_attention_reference(q.float(), k, v, ks, vs, **kw)
-    torch.cuda.synchronize()
     live = [i for i in range(b) if starts[i] < lens[i]]
-    e = out[live].float() - ref[live]
-    err, fro = e.abs().max().item(), (e.norm() / ref[live].norm()).item()
-    check(fro <= 1e-2, f"{name}: relative Frobenius err {fro} > 1e-2")
-    check(err <= 5e-3, f"{name}: max abs err {err} > 5e-3")
-    for i in set(range(b)) - set(live):
-        check(bool(torch.all(out[i] == 0)), f"{name}: fully masked row {i} is not 0")
-    ms = cuda_ms(lambda: da.decode_attention(q, k, v, ks, vs, **kw), 100)
+    errs = {}
+    for kern in ("split", "serial"):
+        out = da.decode_attention(q, k, v, ks, vs, kernel=kern, **kw)
+        torch.cuda.synchronize()
+        e = out[live].float() - ref[live]
+        errs[kern] = (e.abs().max().item(), (e.norm() / ref[live].norm()).item())
+        check(errs[kern][1] <= 1e-2, f"{name}: {kern} relative Frobenius err {errs[kern][1]} > 1e-2")
+        check(errs[kern][0] <= 5e-3, f"{name}: {kern} max abs err {errs[kern][0]} > 5e-3")
+        for i in set(range(b)) - set(live):
+            check(bool(torch.all(out[i] == 0)), f"{name}: {kern}: fully masked row {i} is not 0")
+    err, fro = errs["split"]
+
+    def new_fn():
+        return da.decode_attention(q, k, v, ks, vs, **kw)
+
+    # the splits merge in split order: the same launch gives the same bytes
+    first = new_fn()
+    for _ in range(20):
+        check(torch.equal(new_fn(), first), f"{name}: a repeated launch gave other bytes")
+    eager_ms = cuda_ms(new_fn, 100)
     plain_ms = cuda_ms(lambda: da.decode_attention_reference(q, k, v, ks, vs, **kw), 5)
     # yardstick: SDPA with a boolean mask over the bf16 (or dequantized) cache
     cols = torch.arange(s, device=dev)
     mask = ((cols[None, :] >= st[:, None]) & (cols[None, :] < ln[:, None]))[:, None, None, :]
     qt = q.transpose(1, 2)
-    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kd, vd, attn_mask=mask, enable_gqa=nq != nkv), 100)
+
+    def sdpa(kc, vc):
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kc, vc, attn_mask=mask, enable_gqa=nq != nkv)
+
+    # device times without the host between launches: warm (one cache) and
+    # cold (in turn over copies that together exceed the L2), in turns:
+    # serial, split, library, library, split, serial
+    cache_bytes = 2 * k.numel() * k.element_size() + (2 * ks.numel() * 4 if quant else 0)
+    copies = max(2, -(-3 * int(L2_BYTES) // cache_bytes))
+    caches = [tuple(None if x is None else x.clone() for x in (k, v, ks, vs)) for _ in range(copies)]
+    lib_copies = max(2, -(-3 * int(L2_BYTES) // (2 * kd.numel() * 2)))
+    libs = [(kd.clone(), vd.clone()) for _ in range(lib_copies)]
+
+    def timed(kern):
+        warm = graph_ms([lambda: da.decode_attention(q, k, v, ks, vs, kernel=kern, **kw)], 20)
+        cold = graph_ms([lambda c=c: da.decode_attention(q, *c, kernel=kern, **kw) for c in caches], 4)
+        return warm, cold
+
+    def timed_lib():
+        return (graph_ms([lambda: sdpa(kd, vd)], 20),
+                graph_ms([lambda c=c: sdpa(*c) for c in libs], 4))
+
+    t_old, t_new, t_lib = timed("serial"), timed("split"), timed_lib()
+    t_lib2, t_new2, t_old2 = timed_lib(), timed("split"), timed("serial")
+    del caches, libs
+    device_ms, cold_ms = 0.5 * (t_new[0] + t_new2[0]), 0.5 * (t_new[1] + t_new2[1])
     # least time: q read, out written, and the cache rows (and scales) of the
     # valid positions read once, which is all this data needs; 4H FLOPs per
     # query head and valid position
@@ -484,12 +550,19 @@ def decode_case(name, b, nq, nkv, h, s, quant, starts, lens, gen, da, quantize_h
     nbytes = 2 * q.numel() * 2 + valid * nkv * h * k.element_size() * 2
     nbytes += valid * nkv * 8 if quant else 0
     flops = 4.0 * h * nq * valid
+    span, splits, rnd = da.decode_split_plan(b, nkv, s, h, k.element_size())
     rec = dict(
         case=name, shape=f"B{b} {nq}/{nkv} H{h} S{s} {'int8' if quant else 'bf16'} cache",
+        plan=dict(span=span, splits=splits, round=rnd, ctas=b * nkv * splits,
+                  dynamic_smem_bytes=da.decode_split_smem_bytes(rnd, h, k.element_size(), nq // nkv)),
         max_abs_err=err, max_abs_ref=ref[live].abs().max().item(), rel_fro_err=fro,
-        tol="rel Frobenius 1e-2, max abs 5e-3", ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        library="SDPA, boolean mask, bf16 (dequantized) cache",
-        **bound(nbytes, flops, torch.bfloat16), gbytes_s=nbytes / ms * 1e-6,
+        serial_max_abs_err=errs["serial"][0],
+        tol="rel Frobenius 1e-2, max abs 5e-3", ms=cold_ms, cold_ms=cold_ms, device_ms=device_ms,
+        eager_ms=eager_ms, serial_cold_ms=0.5 * (t_old[1] + t_old2[1]),
+        serial_device_ms=0.5 * (t_old[0] + t_old2[0]), plain_ms=plain_ms,
+        library_ms=0.5 * (t_lib[1] + t_lib2[1]), library_device_ms=0.5 * (t_lib[0] + t_lib2[0]),
+        library="SDPA, boolean mask, bf16 (dequantized) cache", cold_copies=copies,
+        **bound(nbytes, flops, torch.bfloat16), gbytes_s=nbytes / cold_ms * 1e-6,
     )
     print("kernel_case " + json.dumps(rec))
     return rec
@@ -610,10 +683,23 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build_all()
     print(f"build {time.perf_counter() - t0:.1f} s ({', '.join(logs) or 'cached'})")
+    print("build seconds by library " + json.dumps(
+        {lib: round(sec, 1) for lib, sec in _build.build_seconds.items()}))
     for lib, log in logs.items():
-        for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
-                print(f"ptxas[{lib}] {ln.strip()}")
+        for entry, res in _build.kernel_resources(log).items():
+            print(f"ptxas[{lib}] {entry}: {json.dumps(res)}")
+    # the redesigned kernels: registers, spills and shared memory
+    smem, kv_tile, stages = (ctypes.c_int() for _ in range(3))
+    for h in fa.SUPPORTED_HEAD_DIMS:
+        check(_build.load("flash_fwd").visper_flash_fwd_wgmma_info(
+            h, ctypes.byref(smem), ctypes.byref(kv_tile), ctypes.byref(stages)) == 0,
+            f"no wgmma forward kernel at H{h}")
+        print(f"flash_fwd wgmma H{h}: {smem.value} B dynamic shared memory, {kv_tile.value}-key "
+              f"tiles, {stages.value} stages, 288 threads, 1 CTA per SM")
+    for lib, mark in (("flash_fwd", "wgmma_kernel"), ("decode_attn", "split_kernel")):
+        for entry, res in _build.kernel_resources(logs.get(lib, "")).items():
+            if mark in entry:
+                check(res["spill_bytes"] == 0, f"{entry} spills {res['spill_bytes']} bytes")
 
     cfg = phi3_clip_vlm(distill=True)
     batch = main_path_batch(cfg)
@@ -625,7 +711,7 @@ def main() -> int:
     d = cfg.decoder
     slice_rec = kernel_case(
         "slice", BATCH, PROMPT_LEN, d.num_heads, d.num_kv_heads, d.head_dim,
-        torch.bfloat16, True, offsets, [PROMPT_LEN] * BATCH, gen, fa,
+        torch.bfloat16, True, offsets, [PROMPT_LEN] * BATCH, gen, fa, old=True,
     )
     kernel_case("gqa", 2, 1024, 32, 8, 128, torch.bfloat16, True, [0, 100], [1024, 1024], gen, fa)
     kernel_case("noncausal_kvlen", 2, 512, 16, 16, 64, torch.bfloat16, False, [0, 0], [512, 300], gen, fa)
@@ -633,9 +719,9 @@ def main() -> int:
     tbatch = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ)
     train_lens = tbatch["seq_lengths"].tolist()
     print(f"training batch seq_lengths {train_lens}")
-    kernel_case(
+    train_fwd_rec = kernel_case(
         "train", TRAIN_BATCH, TRAIN_SEQ, d.num_heads, d.num_kv_heads, d.head_dim,
-        torch.bfloat16, True, [0] * TRAIN_BATCH, train_lens, gen, fa,
+        torch.bfloat16, True, [0] * TRAIN_BATCH, train_lens, gen, fa, old=True,
     )
     dq_rec, dkv_rec = bwd_case(
         "train", TRAIN_BATCH, TRAIN_SEQ, d.num_heads, d.num_kv_heads, d.head_dim, True,
@@ -910,7 +996,12 @@ def main() -> int:
     kernels = [
         dict(entry("flash_fwd", csrc + "flash_fwd.cu", "visper_lm_tpu/ops/flash_attention.py:234",
                    slice_rec, train_launches["flash_fwd"]),
-             launches_serving=launches),
+             launches_serving=launches, shape=slice_rec["shape"], kernel=slice_rec["kernel"],
+             mma_sync_ms=slice_rec["mma_sync_ms"],
+             train=dict(shape=train_fwd_rec["shape"], ms=train_fwd_rec["ms"],
+                        mma_sync_ms=train_fwd_rec["mma_sync_ms"],
+                        library_ms=train_fwd_rec["library_ms"],
+                        bound_ms=train_fwd_rec["bound_ms"])),
         entry("flash_bwd_dq", csrc + "flash_bwd.cu", "visper_lm_tpu/ops/flash_attention.py:497",
               dq_rec, train_launches["flash_bwd_dq"]),
         entry("flash_bwd_dkv", csrc + "flash_bwd.cu", "visper_lm_tpu/ops/flash_attention.py:562",
@@ -929,7 +1020,12 @@ def main() -> int:
                          library_cold_ms=w4_decode["library_cold_ms"])),
         dict(entry("decode_attn", csrc + "decode_attn.cu",
                    "visper_lm_tpu/ops/decode_attention.py:188", dec_rec, dec_launches),
-             shape=dec_rec["shape"], bf16_ms=dec_bf16["ms"], bf16_bound_ms=dec_bf16["bound_ms"],
+             shape=dec_rec["shape"], timing="ms, library_ms: CUDA graphs over caches that exceed L2",
+             device_ms=dec_rec["device_ms"], eager_ms=dec_rec["eager_ms"],
+             serial_cold_ms=dec_rec["serial_cold_ms"],
+             bf16=dict(shape=dec_bf16["shape"], ms=dec_bf16["ms"], device_ms=dec_bf16["device_ms"],
+                       serial_cold_ms=dec_bf16["serial_cold_ms"], bound_ms=dec_bf16["bound_ms"],
+                       library_ms=dec_bf16["library_ms"]),
              note="standalone op: no path calls it, as in the JAX package"),
     ]
     print(json.dumps({"kernels": kernels}))

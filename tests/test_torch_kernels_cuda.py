@@ -14,7 +14,8 @@ out against `w4_matmul_reference` in f32): relative Frobenius error 1e-2 and
 max abs error 2e-2 x max|ref|; the same small-M launch repeated gives the
 same bytes. Decode attention (bf16 q; bf16 or int8
 cache): relative Frobenius error 1e-2 and max abs error 5e-3 on rows with a
-valid key; a row with none is exactly 0.
+valid key; a row with none is exactly 0; the same launch repeated gives the
+same bytes (the splits merge in split order).
 """
 
 import pytest
@@ -77,6 +78,90 @@ def test_flash_kernel_ragged_lengths_and_strided_inputs(cuda_gen):
     ref, _ = fa.flash_attention_reference(q.float(), k.float(), v.float(), causal=True)
     torch.cuda.synchronize()
     assert (out.float() - ref).abs().max().item() <= 2e-2
+
+
+def _assert_flash_close(out, lse, q, k, v, starts, lens, causal):
+    kw = dict(causal=causal, kv_starts=starts, kv_lengths=lens)
+    ref, lse_ref = fa.flash_attention_reference(q.float(), k.float(), v.float(), **kw)
+    torch.cuda.synchronize()
+    for i in range(q.shape[0]):
+        lo = int(starts[i]) if (causal and starts is not None) else 0
+        assert (out[i, lo:].float() - ref[i, lo:]).abs().max().item() <= 2e-2
+        assert (lse[i, :, lo:] - lse_ref[i, :, lo:]).abs().max().item() <= 1e-3
+        if lo:
+            assert torch.all(out[i, :lo] == 0)
+            assert torch.all(lse[i, :, :lo] == fa.NEG_INF)
+
+
+@pytest.mark.parametrize("kernel", ["wgmma", "mma_sync"])
+@pytest.mark.parametrize("t", [128, 200, 768, 2048])
+@pytest.mark.parametrize("h,nq,nkv", [(64, 4, 4), (96, 4, 4), (128, 8, 2), (96, 32, 8)])
+def test_flash_bf16_kernels_across_lengths_and_heads(cuda_gen, kernel, t, h, nq, nkv):
+    """Both bf16 kernels (the wgmma one every call takes, and the mma.sync one
+    kept beside it) at T 128...2048 (200 is ragged against both tile sizes),
+    H 64/96/128, GQA 32/8 and 8/2, causal with left pads that start in the
+    middle of a 128-key tile (70, 333 capped to T) and a right pad: pad rows
+    give 0 and NEG_INF."""
+    b = 2
+    q, k, v = _qkv(cuda_gen, b, t, nq, nkv, h, torch.bfloat16)
+    starts = torch.tensor([min(70, t // 2), 0], device="cuda")
+    lens = torch.tensor([t, max(t - 45, 1)], device="cuda")
+    assert fa.flash_fwd_kernel_for(q.dtype, h, t, True) == "wgmma"
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, kv_starts=starts, kv_lengths=lens, kernel=kernel)
+    _assert_flash_close(out, lse, q, k, v, starts, lens, True)
+    starts = torch.tensor([0, min(333, t - 1)], device="cuda")
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, kv_starts=starts, kernel=kernel)
+    _assert_flash_close(out, lse, q, k, v, starts, None, True)
+
+
+@pytest.mark.parametrize("h", [64, 96, 128])
+def test_flash_wgmma_noncausal_with_kv_lengths(cuda_gen, h):
+    """Non-causal attention (the vision towers' kind) with kv_lengths that end
+    inside a tile, at one (300: every query row sees 300 keys) and before the
+    first tile's end (17)."""
+    b, t = 3, 520
+    q, k, v = _qkv(cuda_gen, b, t, 4, 2, h, torch.bfloat16)
+    lens = torch.tensor([520, 300, 17], device="cuda")
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=False, kv_lengths=lens)
+    _assert_flash_close(out, lse, q, k, v, None, lens, False)
+
+
+def test_flash_wgmma_reads_strided_views_and_single_row_batches(cuda_gen):
+    """q/k/v as views of one packed (B, T, 3, N, H) tensor and of a wider
+    (B, T, N, 2H) one (the tensor maps carry the strides; nothing is copied),
+    a B = 1, N = 1 tensor whose unit dimensions carry arbitrary strides, and a
+    different number of query and key rows (T 200 over S 333, non-causal)."""
+    b, t, n, h = 2, 300, 4, 96
+    qkv = torch.randn(b, t, 3, n, h, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not q.is_contiguous()
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    _assert_flash_close(out, lse, q, k, v, None, None, True)
+    wide = torch.randn(b, t, n, 2 * h, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    q2, k2 = wide[..., :h], wide[..., h:]
+    out, lse = fa.flash_attention_fwd(q2, k2, v, causal=True)
+    _assert_flash_close(out, lse, q2, k2, v, None, None, True)
+    one = torch.randn(1, 150, 1, h, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    one = one.as_strided(one.shape, (8, h, 24, 1))        # unit dims with odd (unused) strides
+    out, lse = fa.flash_attention_fwd(one, one, one, causal=True)
+    _assert_flash_close(out, lse, one, one, one, None, None, True)
+    qs = torch.randn(b, 200, n, h, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    ks_ = torch.randn(b, 333, n, h, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    vs_ = torch.randn(b, 333, n, h, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    out, lse = fa.flash_attention_fwd(qs, ks_, vs_, causal=False)
+    _assert_flash_close(out, lse, qs, ks_, vs_, None, None, False)
+
+
+def test_flash_forced_kernel_rejects_a_dtype_it_does_not_take(cuda_gen):
+    q, k, v = _qkv(cuda_gen, 1, 128, 2, 2, 96, torch.float32)
+    before = fa.launches
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(q, k, v, kernel="wgmma")
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(), kernel="simt")
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(q, k, v, kernel="tiles")
+    assert fa.launches == before
 
 
 def test_flash_kernel_counts_launches_and_rejects_what_it_cannot_run(cuda_gen):
@@ -351,6 +436,64 @@ def test_decode_kernel_matches_plain(cuda_gen, quant, nq, nkv, h):
     assert torch.all(got[2] == 0)
 
 
+def _assert_decode_close(got, ref, live, dead):
+    """5e-3 where |out| stays below 1 (many positions average out); a row
+    with a handful of valid positions keeps |out| up to ~3, and the bf16
+    output's rounding (relative 2^-9) grows with it."""
+    err = got[live].float() - ref[live]
+    assert (err.norm() / ref[live].norm()).item() <= 1e-2
+    assert err.abs().max().item() <= 5e-3 * max(1.0, ref[live].abs().max().item())
+    for i in dead:
+        assert torch.all(got[i] == 0)
+
+
+@pytest.mark.parametrize("kernel", ["split", "serial"])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("s", [33, 224, 896, 1024, 4096])
+def test_decode_kernels_across_split_boundaries(cuda_gen, kernel, quant, s):
+    """S from one short split (33: scale rows not 16-byte aligned) to eight
+    splits of two rounds (4096); lengths and starts that leave whole splits
+    without a valid position (row 1: only [s/2 + 1, s/2 + 9); row 3: the last
+    5), a start that is no multiple of 4, a row with no valid position (2)."""
+    b, nq, nkv, h = 4, 4, 2, 96
+    q, k, v, ks, vs = _decode_inputs(cuda_gen, b, nq, nkv, h, s, quant)
+    lens = torch.tensor([s, s // 2 + 9, 7, s], device="cuda")
+    starts = torch.tensor([3, s // 2 + 1, 7, s - 5], device="cuda")
+    got = da.decode_attention(q, k, v, ks, vs, kv_lengths=lens, kv_starts=starts, kernel=kernel)
+    ref = da.decode_attention_reference(q.float(), k, v, ks, vs, kv_lengths=lens, kv_starts=starts)
+    torch.cuda.synchronize()
+    _assert_decode_close(got, ref, [0, 1, 3], [2])
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("nq,nkv", [(8, 8), (8, 4), (12, 4), (16, 4)])
+@pytest.mark.parametrize("h", [64, 96, 128])
+def test_decode_split_kernel_groups_and_head_dims(cuda_gen, quant, nq, nkv, h):
+    """G 1, 2, 3 (held as 4) and 4 at every head dim, lengths beyond S clipped,
+    no kv_starts."""
+    b, s = 2, 500
+    q, k, v, ks, vs = _decode_inputs(cuda_gen, b, nq, nkv, h, s, quant)
+    lens = torch.tensor([s + 40, 123], device="cuda")
+    got = da.decode_attention(q, k, v, ks, vs, kv_lengths=lens)
+    ref = da.decode_attention_reference(q.float(), k, v, ks, vs, kv_lengths=lens)
+    torch.cuda.synchronize()
+    _assert_decode_close(got, ref, [0, 1], [])
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("b,nq,nkv,h,s", [(8, 32, 32, 96, 896), (4, 32, 8, 128, 1024), (1, 4, 4, 64, 4096)])
+def test_decode_split_launch_is_bit_identical(cuda_gen, quant, b, nq, nkv, h, s):
+    """The cluster merges its splits in split order, without atomics or
+    scratch: the same launch 20 times gives the same bytes."""
+    assert da.decode_split_plan(b, nkv, s, h, 1 if quant else 2)[1] > 1
+    q, k, v, ks, vs = _decode_inputs(cuda_gen, b, nq, nkv, h, s, quant)
+    lens = torch.full((b,), s - 96, device="cuda")
+    starts = torch.arange(b, device="cuda") * 17
+    first = da.decode_attention(q, k, v, ks, vs, kv_lengths=lens, kv_starts=starts)
+    for _ in range(20):
+        assert torch.equal(da.decode_attention(q, k, v, ks, vs, kv_lengths=lens, kv_starts=starts), first)
+
+
 def test_decode_kernel_rejects_what_it_cannot_run(cuda_gen):
     q, k, v, ks, vs = _decode_inputs(cuda_gen, 2, 4, 4, 96, 64, True)
     lens = torch.tensor([64, 10], device="cuda")
@@ -366,4 +509,6 @@ def test_decode_kernel_rejects_what_it_cannot_run(cuda_gen):
     with pytest.raises(ValueError):                                 # group 8 > 4
         qg = torch.zeros(2, 1, 32, 96, device="cuda", dtype=torch.bfloat16)
         da.decode_attention(qg, k, v, ks, vs, kv_lengths=lens)
+    with pytest.raises(ValueError):                                 # no such kernel
+        da.decode_attention(q, k, v, ks, vs, kv_lengths=lens, kernel="splitk")
     assert da.launches == before

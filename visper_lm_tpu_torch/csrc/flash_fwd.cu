@@ -13,23 +13,53 @@
 // Bound on an H100 SXM at the serving prefill shape (B8, T768, 32/32 heads,
 // H96, bf16, causal): the bytes it must move (q, k, v read once, out written
 // once: ~151 MB, ~45 us at 3.35 TB/s) exceed its ~2.9e10 causal FLOPs
-// (~29 us at 989 TFLOP/s), so the ideal kernel is bound by memory.
+// (~29 us at 989 TFLOP/s), so the ideal kernel is bound by memory; a real one
+// re-reads K and V once per 128-row query tile (from L2, when the tiles of a
+// head run together) and is held back by how well the tensor cores are fed.
 //
-// Design (correct and simple first; wgmma/TMA/warp specialisation later):
-//   * bf16: one CTA of 4 warps per (q tile of 64 rows, q head, batch). Each
-//     warp owns 16 query rows held as mma.sync m16n8k16 A fragments. K and V
-//     tiles of 64 keys are staged in padded shared memory (row stride H + 8,
-//     so the fragment loads hit 32 distinct banks). S = Q K^T and O += P V run
-//     on the tensor cores with f32 accumulation; P is rounded to bf16 for the
-//     second product, as the Pallas kernel does. The kv loop starts at the
-//     tile holding kv_starts[b] and stops at the causal diagonal / kv length,
-//     which replaces the TPU grid squashing of `_causal_pairs`.
-//   * f32 (for checking): a SIMT kernel, one thread per query row, per-key
-//     online softmax in full f32.
+// Three kernels; ops/flash_attention.py `flash_fwd_kernel_for` names the one
+// a call takes and passes its number here.
+//
+// 1. `flash_fwd_wgmma_kernel` (bf16, every supported shape): built around
+//    wgmma, the only way to the card's tensor-core rate, and a copy engine
+//    that keeps it fed.
+//    - A CTA owns 128 query rows of one (batch, head): two consumer
+//      warpgroups of 64 rows each and one producer warp. The Q tile and a ring
+//      of kStages K/V tiles of 128 keys live in shared memory; one producer
+//      thread fills them with TMA box copies through 4-D tensor maps
+//      (H, N, T, B with the tensor's own strides, so BTNH views need no copy),
+//      encoded per call (activations move) by cuTensorMapEncodeTiled, taken
+//      through cudaGetDriverEntryPoint. mbarriers pass the stages back and
+//      forth (K and V of a stage have a barrier each, so Q K^T starts before
+//      V has landed); rows beyond T or S arrive as zeros, masking still
+//      comes from [kv_start, kv_len) and the diagonal.
+//    - A tile is cut into column blocks of one swizzle span: 64 columns in
+//      the 128-byte swizzle at H 64 and 128, 32 columns in the 64-byte
+//      swizzle at H 96 (192-byte rows fit no 128-byte atom). S = Q K^T takes
+//      both operands from shared memory (K-major descriptors); O += P V takes
+//      P from registers (the S accumulators of two neighbouring 8-column
+//      blocks are one A fragment, rounded to bf16 as the Pallas kernel
+//      rounds it) and V through the transposing (MN-major) descriptor, so V
+//      is never transposed in memory.
+//    - f32 online softmax in the log2 domain on the accumulator registers;
+//      the mask compares run only on tiles that cross a bound or the
+//      diagonal. The kv loop runs from the tile of kv_starts[b] to the
+//      diagonal / kv length.
+//    - The grid is one-dimensional: the tiles of one (batch, head) are
+//      neighbours (their K/V re-reads meet in L2) and the late (long) causal
+//      tiles of each come first.
+// 2. `flash_fwd_bf16_kernel` (the kernel before it, kept to be timed beside
+//    it; no shape is dispatched to it): mma.sync m16n8k16, one CTA of 4 warps
+//    per 64 query rows, K and V tiles of 64 keys copied by the compute warps
+//    into padded shared memory.
+// 3. `flash_fwd_f32_kernel` (f32, for checking): SIMT, one thread per query
+//    row, per-key online softmax in full f32.
 
+#include <cuda.h>  // CUtensorMap and its enums; the entry point comes from the runtime
 #include <math.h>
 
 #include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -40,6 +70,12 @@ using visper::ld32;
 using visper::mma_bf16;
 using visper::pack_bf16;
 using visper::pack_f32;
+using visper::smem_desc;
+using visper::wgmma_commit;
+using visper::wgmma_fence;
+using visper::wgmma_rs;
+using visper::wgmma_ss;
+using visper::wgmma_wait;
 
 struct Params {
   const void* q;
@@ -238,6 +274,352 @@ __global__ void __launch_bounds__(kWarps * 32)
 }
 
 // ---------------------------------------------------------------------------
+// bf16: TMA ring + wgmma, two consumer warpgroups and a producer warp
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// The barrier expects `bytes` more from bulk copies, and this thread arrives.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Spins until the barrier's phase `parity` completes. A wait that outlasts
+// millions of polls is a protocol fault (a copy that was never issued): it
+// traps, so a deadlock surfaces as a launch error, not as a hung card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done, polls = 0;
+  do {
+    if (++polls == (1u << 22)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map (column, head, row, batch), global -> shared,
+// by the copy engine; its bytes count towards `bar`. Rows outside the tensor
+// arrive as 0.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, int col,
+                                            int head, int row, int batch, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+
+constexpr int kWgBM = 128;           // query rows per CTA: 64 per consumer warpgroup
+constexpr int kWgBN = 128;           // keys per kv tile
+constexpr int kWgConsumers = 256;    // two warpgroups
+constexpr int kWgThreads = kWgConsumers + 32;  // and the producer's warp
+
+// Shared-memory geometry of the wgmma kernel at head dim H.
+template <int H>
+struct WgCfg {
+  static constexpr int kCB = (H % 64 == 0) ? 64 : 32;  // columns per swizzled block
+  static constexpr int kNB = H / kCB;                  // column blocks per tile
+  static constexpr int kSwz = kCB * 2;                 // bytes per block row: the swizzle span
+  static constexpr int kStages = (H <= 96) ? 3 : 2;
+  static constexpr int kQBlock = kWgBM * kSwz;         // bytes of one column block of Q
+  static constexpr int kKvBlock = kWgBN * kSwz;        // ... of a K or V tile
+  static constexpr int kQBytes = kNB * kQBlock;
+  static constexpr int kTileBytes = kNB * kKvBlock;
+  static constexpr int kBarriers = 1 + 3 * kStages;    // q; k full, v full, empty per stage
+  static constexpr int kSmem = kQBytes + 2 * kStages * kTileBytes + 8 * kBarriers + 1024;
+};
+
+template <int H>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map, const Params p) {
+  using C = WgCfg<H>;
+  constexpr int kSN = kWgBN / 8;  // 8-column blocks of S
+  constexpr int kON = H / 8;      // 8-column blocks of O
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzled tiles need 1024-byte alignment
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t qs = base;                                   // [kNB][128][kCB]
+  const uint32_t ks = qs + C::kQBytes;                        // [kStages][kNB][128][kCB]
+  const uint32_t vs = ks + C::kStages * C::kTileBytes;        // likewise
+  const uint32_t q_full = vs + C::kStages * C::kTileBytes;    // mbarriers
+  const uint32_t k_full = q_full + 8;
+  const uint32_t v_full = k_full + 8 * C::kStages;
+  const uint32_t empty = v_full + 8 * C::kStages;
+
+  // the tiles of one (batch, head) are neighbours in the grid, the last first
+  const int ntiles = (p.T + kWgBM - 1) / kWgBM;
+  const int tile = ntiles - 1 - static_cast<int>(blockIdx.x % ntiles);
+  const int bh = blockIdx.x / ntiles;
+  const int head = bh % p.Nq;
+  const int b = bh / p.Nq;
+  const int kvh = head / p.group;
+  const int q0 = tile * kWgBM;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);                // the producer's expect_tx arrival
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kWgConsumers / 32);  // one lane of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  int lo, len, hi;
+  kv_bounds(p, b, q0 + kWgBM - 1, lo, len, hi);
+  const int k_begin = (lo / kWgBN) * kWgBN;
+  const int ntk = hi > k_begin ? (hi - k_begin + kWgBN - 1) / kWgBN : 0;
+
+  if (threadIdx.x >= kWgConsumers) {
+    // ---- producer: one thread asks the copy engine for Q, then each stage's K and V
+    if (lane == 0 && ntk > 0) {
+      mbar_expect_tx(q_full, C::kQBytes);
+#pragma unroll
+      for (int nb = 0; nb < C::kNB; ++nb) {
+        tma_load_4d(qs + nb * C::kQBlock, &q_map, nb * C::kCB, head, q0, b, q_full);
+      }
+      for (int it = 0; it < ntk; ++it) {
+        const int s = it % C::kStages;
+        const int k0 = k_begin + it * kWgBN;
+        mbar_wait(empty + 8 * s, ((it / C::kStages) & 1) ^ 1);
+        mbar_expect_tx(k_full + 8 * s, C::kTileBytes);
+#pragma unroll
+        for (int nb = 0; nb < C::kNB; ++nb) {
+          tma_load_4d(ks + s * C::kTileBytes + nb * C::kKvBlock, &k_map, nb * C::kCB, kvh, k0, b,
+                      k_full + 8 * s);
+        }
+        mbar_expect_tx(v_full + 8 * s, C::kTileBytes);
+#pragma unroll
+        for (int nb = 0; nb < C::kNB; ++nb) {
+          tma_load_4d(vs + s * C::kTileBytes + nb * C::kKvBlock, &v_map, nb * C::kCB, kvh, k0, b,
+                      v_full + 8 * s);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: thread (w, g, tq) holds rows 16 w + g and + 8 of
+  // its warpgroup's 64
+  const int wg = warp / 4, w = warp % 4;
+  const int g = lane / 4, tq = lane % 4;
+  const int wg_row0 = q0 + 64 * wg;
+  const int rows[2] = {wg_row0 + 16 * w + g, wg_row0 + 16 * w + g + 8};
+  const float scale_log2 = p.scale * kLog2e;
+
+  float o[H / 2];
+#pragma unroll
+  for (int i = 0; i < H / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running row max, log2 domain
+  float l[2] = {0.f, 0.f};              // this thread's part of the row sum
+
+  if (ntk > 0) {
+    mbar_wait(q_full, 0);
+    __syncwarp();  // wgmma is warp-aligned: reconverge after the spin
+  }
+  for (int it = 0; it < ntk; ++it) {
+    const int s = it % C::kStages;
+    const uint32_t phase = (it / C::kStages) & 1;
+    const int k0 = k_begin + it * kWgBN;
+    const uint32_t kt = ks + s * C::kTileBytes;
+    const uint32_t vt = vs + s * C::kTileBytes;
+
+    // S = Q K^T: a k-step is 32 bytes along a swizzled block row
+    mbar_wait(k_full + 8 * s, phase);
+    __syncwarp();
+    float sa[kWgBN / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < H / 16; ++kk) {
+      const int nb = (kk * 16) / C::kCB, within = ((kk * 16) % C::kCB) * 2;
+      const uint64_t da = smem_desc<C::kSwz>(
+          qs + nb * C::kQBlock + wg * 64 * C::kSwz + within, 16, 8 * C::kSwz);
+      const uint64_t db = smem_desc<C::kSwz>(kt + nb * C::kKvBlock + within, 16, 8 * C::kSwz);
+      wgmma_ss<kWgBN>(sa, da, db, kk > 0 ? 1 : 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+
+    // scale in f32 (log2 domain), mask where the tile crosses a bound, row max
+    const bool need_mask = k0 < lo || k0 + kWgBN > len || (p.causal && k0 + kWgBN - 1 > wg_row0);
+    float mx[2] = {-INFINITY, -INFINITY};
+    if (need_mask) {
+#pragma unroll
+      for (int nt = 0; nt < kSN; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + nt * 8 + tq * 2 + (e & 1);
+          const int row = rows[e >> 1];
+          const bool ok = col >= lo && col < len && (!p.causal || col <= row);
+          const float x = ok ? sa[4 * nt + e] * scale_log2 : -INFINITY;
+          sa[4 * nt + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kWgBN / 2; ++i) {
+        sa[i] *= scale_log2;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sa[i]);
+      }
+    }
+    float rowbase[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      // a row with no valid column yet keeps exp() arguments at -inf
+      rowbase[r] = (m_new == -INFINITY) ? 0.f : m_new;
+      const float alpha = (m[r] == -INFINITY) ? 0.f : exp2f(m[r] - rowbase[r]);
+      m[r] = m_new;
+      l[r] *= alpha;
+#pragma unroll
+      for (int nt = 0; nt < kON; ++nt) {
+        o[4 * nt + 2 * r] *= alpha;
+        o[4 * nt + 2 * r + 1] *= alpha;
+      }
+    }
+    // P = exp2(S - max), rounded to bf16 for the second product: the
+    // accumulators of blocks 2 kk and 2 kk + 1 are the A fragment of k-step kk
+    uint32_t pa[kWgBN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kWgBN / 16; ++kk) {
+      float pe[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        pe[i] = exp2f(sa[8 * kk + i] - rowbase[(i >> 1) & 1]);
+        l[(i >> 1) & 1] += pe[i];
+      }
+      pa[kk][0] = pack_f32(pe[0], pe[1]);
+      pa[kk][1] = pack_f32(pe[2], pe[3]);
+      pa[kk][2] = pack_f32(pe[4], pe[5]);
+      pa[kk][3] = pack_f32(pe[6], pe[7]);
+    }
+
+    // O += P V: V rows are keys (k), its columns the output's (n): MN-major
+    mbar_wait(v_full + 8 * s, phase);
+    __syncwarp();
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgBN / 16; ++kk) {
+      const uint64_t db = smem_desc<C::kSwz>(vt + kk * 16 * C::kSwz, C::kKvBlock, 8 * C::kSwz);
+      wgmma_rs<H>(o, pa[kk], db, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+  }
+
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + head * p.o_sn;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = rows[r];
+    if (row >= p.T) continue;
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    __nv_bfloat16* orow = ob + row * p.o_st;
+#pragma unroll
+    for (int nt = 0; nt < kON; ++nt) {
+      *reinterpret_cast<uint32_t*>(orow + nt * 8 + tq * 2) =
+          pack_f32(o[4 * nt + 2 * r] * inv, o[4 * nt + 2 * r + 1] * inv);
+    }
+    if (tq == 0) {
+      p.lse[(static_cast<long long>(b) * p.Nq + head) * p.T + row] =
+          l[r] > 0.f ? m[r] * kLn2 + logf(l[r]) : kNegInf;
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled through the runtime: the library links no libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+            cudaSuccess || found != cudaDriverEntryPointSuccess) {
+      fn = nullptr;
+    }
+    return reinterpret_cast<EncodeTiled>(fn);
+  }();
+  return encode;
+}
+
+// The map of a bf16 (B, rows, N, H) tensor with element strides (sb, st, sn, 1),
+// as the 4-D tensor (H, N, rows, B), cut in boxes of box_rows x cb columns of
+// one head in the swizzle of cb * 2 bytes. The stride of a dimension of size 1
+// is never used; a valid one stands in for whatever the tensor carries.
+bool tensor_map(const void* ptr, int H, int N, int rows, int B, long long sb, long long st,
+                long long sn, int cb, int box_rows, CUtensorMap* out) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(B)};
+  const cuuint64_t row_bytes = static_cast<cuuint64_t>(H) * 2;
+  const cuuint64_t strides[3] = {N > 1 ? static_cast<cuuint64_t>(sn) * 2 : row_bytes,
+                                 rows > 1 ? static_cast<cuuint64_t>(st) * 2 : row_bytes,
+                                 B > 1 ? static_cast<cuuint64_t>(sb) * 2 : row_bytes};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cb), 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return encode(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                cb * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <int H>
+cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
+  using C = WgCfg<H>;
+  static bool attr_set = false;  // shared memory above 48 KB is opted into once
+  if (!attr_set) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        flash_fwd_wgmma_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+    if (rc != cudaSuccess) return rc;
+    attr_set = true;
+  }
+  CUtensorMap q_map, k_map, v_map;
+  if (!tensor_map(p.q, H, p.Nq, p.T, p.B, p.q_sb, p.q_st, p.q_sn, C::kCB, kWgBM, &q_map) ||
+      !tensor_map(p.k, H, p.Nkv, p.S, p.B, p.k_sb, p.k_st, p.k_sn, C::kCB, kWgBN, &k_map) ||
+      !tensor_map(p.v, H, p.Nkv, p.S, p.B, p.v_sb, p.v_st, p.v_sn, C::kCB, kWgBN, &v_map)) {
+    return cudaErrorInvalidValue;
+  }
+  const long long ctas = static_cast<long long>((p.T + kWgBM - 1) / kWgBM) * p.Nq * p.B;
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_fwd_wgmma_kernel<H><<<static_cast<unsigned>(ctas), kWgThreads, C::kSmem, stream>>>(
+      q_map, k_map, v_map, p);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // f32: SIMT, one thread per query row
 // ---------------------------------------------------------------------------
 
@@ -310,14 +692,18 @@ __global__ void __launch_bounds__(kSimtRows) flash_fwd_f32_kernel(const Params p
   }
 }
 
+// kernel: 0 the f32 SIMT kernel, 1 wgmma (bf16), 2 mma.sync (bf16)
 template <int H>
-cudaError_t launch(const Params& p, int is_f32, cudaStream_t stream) {
-  if (is_f32) {
+cudaError_t launch(const Params& p, int kernel, cudaStream_t stream) {
+  if (kernel == 1) return launch_wgmma<H>(p, stream);
+  if (kernel == 0) {
     const dim3 grid((p.T + kSimtRows - 1) / kSimtRows, p.Nq, p.B);
     flash_fwd_f32_kernel<H><<<grid, kSimtRows, 0, stream>>>(p);
-  } else {
+  } else if (kernel == 2) {
     const dim3 grid((p.T + kBM - 1) / kBM, p.Nq, p.B);
     flash_fwd_bf16_kernel<H><<<grid, kWarps * 32, 0, stream>>>(p);
+  } else {
+    return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
@@ -325,8 +711,9 @@ cudaError_t launch(const Params& p, int is_f32, cudaStream_t stream) {
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success). Strides are in
-// elements; the last (head-dim) stride must be 1. is_f32 selects f32 inputs,
-// otherwise bf16. kv_len / kv_start may be null.
+// elements; the last (head-dim) stride must be 1. kernel: 0 the f32 SIMT kernel
+// (f32 inputs), 1 wgmma, 2 mma.sync (bf16 inputs; wgmma also needs 16-byte
+// aligned rows). kv_len / kv_start may be null.
 extern "C" int visper_flash_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     const void* kv_len, const void* kv_start,
@@ -335,7 +722,7 @@ extern "C" int visper_flash_fwd(
     long long v_sb, long long v_st, long long v_sn,
     long long o_sb, long long o_st, long long o_sn,
     int B, int T, int S, int Nq, int Nkv, int H, float scale, int causal,
-    int is_f32, void* stream) {
+    int kernel, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -354,9 +741,23 @@ extern "C" int visper_flash_fwd(
   p.causal = causal;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (H) {
-    case 64: return static_cast<int>(launch<64>(p, is_f32, st));
-    case 96: return static_cast<int>(launch<96>(p, is_f32, st));
-    case 128: return static_cast<int>(launch<128>(p, is_f32, st));
+    case 64: return static_cast<int>(launch<64>(p, kernel, st));
+    case 96: return static_cast<int>(launch<96>(p, kernel, st));
+    case 128: return static_cast<int>(launch<128>(p, kernel, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Geometry of the wgmma kernel at head dim H, for reports: dynamic shared
+// memory in bytes, keys per kv tile, ring stages. Returns 0, or 1 for an H it
+// does not take.
+extern "C" int visper_flash_fwd_wgmma_info(int H, int* smem_bytes, int* kv_tile, int* stages) {
+  switch (H) {
+    case 64: *smem_bytes = WgCfg<64>::kSmem; *stages = WgCfg<64>::kStages; break;
+    case 96: *smem_bytes = WgCfg<96>::kSmem; *stages = WgCfg<96>::kStages; break;
+    case 128: *smem_bytes = WgCfg<128>::kSmem; *stages = WgCfg<128>::kStages; break;
+    default: return 1;
+  }
+  *kv_tile = kWgBN;
+  return 0;
 }

@@ -12,8 +12,10 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict
 
@@ -41,6 +43,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
             [_P] * 7 + [_LL] * 12 + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
             ctypes.c_int,
         ),
+        "visper_flash_fwd_wgmma_info": ([_I] + [ctypes.POINTER(_I)] * 3, ctypes.c_int),
     },
     "flash_bwd": {"visper_flash_bwd_dq": _BWD, "visper_flash_bwd_dkv": _BWD},
     "window_attn": {
@@ -52,13 +55,14 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "w4_matmul": {"visper_w4_matmul": ([_P] * 4 + [_I] * 6 + [_P], ctypes.c_int)},
     "decode_attn": {
         "visper_decode_attn": (
-            [_P] * 8 + [_I] * 5 + [ctypes.c_float, _I, _P],
+            [_P] * 8 + [_I] * 5 + [ctypes.c_float] + [_I] * 5 + [_P],
             ctypes.c_int,
         ),
     },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+build_seconds: Dict[str, float] = {}   # library name -> seconds its nvcc took in `build_all`
 
 
 def nvcc_path() -> str:
@@ -93,8 +97,18 @@ def build_all() -> Dict[str, str]:
     """Compile every library that is not built yet, one nvcc each, in parallel.
 
     Returns {name: compiler output} for the libraries built by this call
-    (nvcc's -Xptxas -v lines give registers, shared memory and spills)."""
+    (nvcc's -Xptxas -v lines give registers, shared memory and spills);
+    `build_seconds` then holds how long each took."""
+    t0 = time.perf_counter()
     procs = {n: _start(n) for n in SIGNATURES if not _lib_path(n).exists()}
+    pending = set(procs)
+    while pending:
+        for name in sorted(pending):
+            if procs[name].poll() is not None:
+                build_seconds[name] = time.perf_counter() - t0
+                pending.discard(name)
+        if pending:
+            time.sleep(0.05)
     logs = {}
     failed = []
     for name, proc in procs.items():
@@ -112,6 +126,30 @@ def build_all() -> Dict[str, str]:
             + "\n".join(logs[n] for n in failed)
         )
     return logs
+
+
+def kernel_resources(log: str) -> Dict[str, Dict[str, int]]:
+    """{mangled entry name: registers, spill_bytes, static_smem_bytes} from one
+    library's -Xptxas -v output."""
+    out: Dict[str, Dict[str, int]] = {}
+    entry = None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            entry = m.group(1)
+            out[entry] = dict(registers=0, spill_bytes=0, static_smem_bytes=0)
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out[entry]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            out[entry]["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

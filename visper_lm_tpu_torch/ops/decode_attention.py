@@ -15,21 +15,62 @@ attends through ops/attention.mha_plain_cache over the slot-major
 decode does through `mha_xla_cache`. Routing decode through this kernel would
 need a head-major cache.
 
-`decode_attention` launches the kernel for CUDA tensors or raises; CPU
-tensors take the plain version. `launches` counts kernel launches.
+`decode_attention` launches a kernel for CUDA tensors or raises; CPU
+tensors take the plain version. csrc/decode_attn.cu holds two kernels:
+"split" (every supported shape: S cut by `decode_split_plan` into spans, one
+CTA each, the CTAs of a (batch, kv head) one thread block cluster that merges
+its partial softmaxes in split order through distributed shared memory, so a
+launch gives the same bits run after run) and "serial" (the kernel before it,
+one CTA per (batch, kv head); kept to be timed beside the other, forced with
+`kernel="serial"`). The plan depends on shapes only: the wrapper never reads
+`kv_lengths` or `kv_starts` on the host. `launches` counts kernel launches.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 SUPPORTED_HEAD_DIMS = (64, 96, 128)
 MAX_GROUP = 4      # query heads per kv head the kernel keeps in registers
 
+KERNEL_IDS = {"serial": 0, "split": 1}
+
+SPLIT_POS_STEP = 16          # positions a CTA of 128 threads handles per step (8 threads each)
+SPLIT_MAX_SPLITS = 8         # the splits of a (batch, kv head) are one cluster (portable size 8)
+SPLIT_TARGET_CTAS = 2112     # sixteen CTAs for each of an H100's 132 SMs: two waves of eight
+SPLIT_SLAB_BYTES = 12 * 1024  # K rows (and as many V rows) a CTA holds in shared memory at once
+SPLIT_MIN_SPAN = 32          # no span shorter than this unless S is
+
 # Kernel launches since the last reset; a caller sets it to 0 and reads it.
 launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def decode_split_plan(b: int, nkv: int, s: int, h: int, elem_bytes: int) -> Tuple[int, int, int]:
+    """(span, splits, round) of the split kernel for a (B, Nkv, S, H) cache of
+    `elem_bytes`-byte elements: split i takes positions [i * span, (i + 1) *
+    span) of S, so every position lies in exactly one split; `round` <= span
+    is how many of them a CTA holds in shared memory at once (a longer span
+    takes several rounds). A pure function of the shapes, never of
+    kv_lengths or kv_starts: each CTA clips its span on the device. As many
+    splits, up to SPLIT_MAX_SPLITS, as it takes to reach SPLIT_TARGET_CTAS
+    CTAs and, where the cluster allows, to fit a span into one round."""
+    cap = max(SPLIT_POS_STEP,
+              SPLIT_SLAB_BYTES // (h * elem_bytes) // SPLIT_POS_STEP * SPLIT_POS_STEP)
+    for_ctas = min(-(-SPLIT_TARGET_CTAS // (b * nkv)), max(1, s // SPLIT_MIN_SPAN))
+    want = max(1, min(SPLIT_MAX_SPLITS, max(for_ctas, -(-s // cap))))
+    span = -(-(-(-s // want)) // SPLIT_POS_STEP) * SPLIT_POS_STEP
+    return span, -(-s // span), min(span, cap)
+
+
+def decode_split_smem_bytes(round_positions: int, h: int, elem_bytes: int, group: int) -> int:
+    """Dynamic shared memory of a split-kernel CTA: the K and V slabs, both
+    scale rows and the scores of the query heads the registers hold (1, 2 or 4)."""
+    held = 1 if group == 1 else 2 if group == 2 else 4
+    return 2 * round_positions * h * elem_bytes + (2 + held) * round_positions * 4
 
 
 def decode_attention_reference(
@@ -81,6 +122,8 @@ def _check(q, k, v, k_scale, v_scale, kv_lengths, kv_starts) -> None:
             raise ValueError(f"decode_attention: {name} is on {x.device}, expected CUDA")
         if x.device != q.device:
             raise ValueError("decode_attention: inputs on different devices")
+        if x.is_contiguous() and x.data_ptr() % 16:
+            raise ValueError(f"decode_attention: {name} must be 16-byte aligned")
     if q.ndim != 4 or q.shape[1] != 1:
         raise ValueError(f"decode_attention: q must be (B, 1, Nq, H), got {tuple(q.shape)}")
     b, _, nq, h = q.shape
@@ -117,14 +160,20 @@ def decode_attention(
     kv_lengths: torch.Tensor,               # (B,) valid length incl. this token
     kv_starts: Optional[torch.Tensor] = None,  # (B,) first valid slot (left pad)
     scale: Optional[float] = None,
+    kernel: Optional[str] = None,
 ) -> torch.Tensor:
     """(B, 1, Nq, H) in q's dtype. CPU tensors take the plain version (any
-    float q); CUDA tensors (bf16 q) launch the kernel on the current stream or
-    raise."""
+    float q); CUDA tensors (bf16 q) launch the split kernel on the current
+    stream or raise. `kernel` forces one of KERNEL_IDS instead (to time or
+    test one against the other)."""
     kw = dict(kv_lengths=kv_lengths, kv_starts=kv_starts, scale=scale)
     if q.device.type == "cpu":
         return decode_attention_reference(q, k, v, k_scale, v_scale, **kw)
     _check(q, k, v, k_scale, v_scale, kv_lengths, kv_starts)
+    if kernel is None:
+        kernel = "split"
+    elif kernel not in KERNEL_IDS:
+        raise ValueError(f"decode_attention: no kernel named {kernel!r} (one of {sorted(KERNEL_IDS)})")
     from visper_lm_tpu_torch.ops import _build
 
     global launches
@@ -140,14 +189,16 @@ def decode_attention(
     lens = kv_lengths.to(device=q.device, dtype=torch.int32).contiguous()
     starts = None if kv_starts is None else kv_starts.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    span, splits, round_positions = decode_split_plan(b, nkv, s_len, h, k.element_size())
     rc = lib.visper_decode_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if ks is None else ks.data_ptr(), None if vs is None else vs.data_ptr(),
         out.data_ptr(), lens.data_ptr(), None if starts is None else starts.data_ptr(),
         b, nq, nkv, s_len, h, float(scale), int(quant),
+        KERNEL_IDS[kernel], span, splits, round_positions,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"decode_attention: kernel launch failed with CUDA error {rc}")
+        raise RuntimeError(f"decode_attention: {kernel} kernel launch failed with CUDA error {rc}")
     launches += 1
     return out

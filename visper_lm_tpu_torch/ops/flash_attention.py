@@ -13,9 +13,16 @@ and its custom VJP `_flash_bhtd` (:604-627):
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and uses the
 plain version only for tensors on the CPU. Each kernel has its own launch
-counter (`launches`, `dq_launches`, `dkv_launches`). The forward kernel
-takes bf16 and f32; the backward kernels take bf16 only (the training path's
-dtype), so backward() of f32 CUDA tensors raises.
+counter (`launches`, `dq_launches`, `dkv_launches`). The forward takes bf16
+and f32; the backward kernels take bf16 only (the training path's dtype), so
+backward() of f32 CUDA tensors raises.
+
+csrc/flash_fwd.cu holds three forward kernels and `flash_fwd_kernel_for`
+names the one a call takes: "wgmma" (bf16, every supported shape: 128 query
+rows per CTA, K/V tiles through a TMA ring, two consumer warpgroups on
+`wgmma`), "simt" (f32, for checking) and "mma_sync" (the bf16 kernel before
+"wgmma"; no shape is dispatched to it, `kernel="mma_sync"` forces it to be
+timed beside the other).
 
 Fully masked rows (left padding before kv_starts): the kernel gives 0 and
 lse = NEG_INF, the plain forward a uniform average of v. Compare the two on
@@ -41,6 +48,9 @@ from visper_lm_tpu_torch.ops.attention import (
 NEG_INF = -2.3819763e38
 SUPPORTED_HEAD_DIMS = (64, 96, 128)
 SUPPORTED_DTYPES = (torch.bfloat16, torch.float32)
+KERNEL_IDS = {"simt": 0, "wgmma": 1, "mma_sync": 2}
+KERNEL_DTYPES = {"simt": torch.float32, "wgmma": torch.bfloat16, "mma_sync": torch.bfloat16}
+WGMMA_Q_TILE = 128      # query rows per CTA of the wgmma kernel
 
 # Kernel launches since the last reset, one counter per kernel; a caller sets
 # them to 0 and reads them to show that a run went through the kernels.
@@ -114,6 +124,30 @@ def flash_attention_bwd_reference(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_fwd_kernel_for(dtype: torch.dtype, h: int, t: int, causal: bool) -> str:
+    """The name of the hand-written forward kernel a (dtype, head dim, length,
+    causal) call takes on CUDA; raises for what no kernel runs. Never the
+    plain version. Every bf16 shape takes "wgmma" (no remainder is left to
+    "mma_sync"), f32 takes "simt"."""
+    if dtype not in SUPPORTED_DTYPES:
+        raise ValueError(f"flash_attention: dtype {dtype} not supported")
+    if h not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {h} not in {SUPPORTED_HEAD_DIMS}")
+    if t < 1:
+        raise ValueError(f"flash_attention: sequence length {t}")
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
+
+
+def flash_fwd_tile_order(t: int, causal: bool) -> Tuple[int, ...]:
+    """The order in which the wgmma kernel's grid visits the query tiles of
+    one (batch, head): every tile of ceil(T / 128) exactly once, the last
+    (for causal attention the longest) first. The tiles of one (batch, head)
+    are neighbours in the grid, so their K/V reads meet in L2. The order is
+    the same without causal masking, where the tiles are equally long."""
+    ntiles = -(-t // WGMMA_Q_TILE)
+    return tuple(ntiles - 1 - i for i in range(ntiles))
+
+
 def _check(q, k, v, kv_lengths, kv_starts) -> None:
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_cuda:
@@ -161,11 +195,14 @@ def flash_attention_fwd(
     kv_lengths: Optional[torch.Tensor] = None,
     kv_starts: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    kernel: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out (B, T, Nq, H) in q's dtype, lse (B, Nq, T) f32).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel on the
-    current stream or raise."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    `flash_fwd_kernel_for` names on the current stream, or raise. `kernel`
+    forces one of KERNEL_IDS instead (to time or test one against another); a
+    dtype that kernel does not take raises."""
     if q.device.type == "cpu":
         return flash_attention_reference(
             q, k, v, causal=causal, kv_lengths=kv_lengths, kv_starts=kv_starts,
@@ -178,6 +215,12 @@ def flash_attention_fwd(
     lib = _build.load("flash_fwd")
     b, t, nq, h = q.shape
     s, nkv = k.shape[1], k.shape[2]
+    if kernel is None:
+        kernel = flash_fwd_kernel_for(q.dtype, h, t, causal)
+    elif kernel not in KERNEL_IDS:
+        raise ValueError(f"flash_attention: no kernel named {kernel!r} (one of {sorted(KERNEL_IDS)})")
+    if KERNEL_DTYPES[kernel] != q.dtype:
+        raise ValueError(f"flash_attention: the {kernel} kernel takes {KERNEL_DTYPES[kernel]}, not {q.dtype}")
     if scale is None:
         scale = h ** -0.5
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -189,11 +232,11 @@ def flash_attention_fwd(
         _ptr(lens), _ptr(starts),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         b, t, s, nq, nkv, h, float(scale), int(causal),
-        int(q.dtype == torch.float32),
+        KERNEL_IDS[kernel],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {rc}")
+        raise RuntimeError(f"flash_attention: {kernel} kernel launch failed with CUDA error {rc}")
     launches += 1
     return out, lse
 
