@@ -161,6 +161,16 @@ def test_every_supported_forward_shape_names_a_kernel(dtype, h, t, causal):
     assert name == ("wgmma" if dtype == torch.bfloat16 else "simt")
 
 
+@pytest.mark.parametrize("scale", [0.0, -0.125])
+@pytest.mark.parametrize("h", tfa.SUPPORTED_HEAD_DIMS)
+def test_the_named_remainder_is_a_scale_that_is_not_positive(h, scale):
+    """The wgmma kernel takes the row max before it scales, so a scale <= 0
+    stays with the mma.sync kernel; a positive one never does."""
+    assert tfa.flash_fwd_kernel_for(torch.bfloat16, h, 768, True, scale) == "mma_sync"
+    assert tfa.flash_fwd_kernel_for(torch.bfloat16, h, 768, True, h ** -0.5) == "wgmma"
+    assert tfa.flash_fwd_kernel_for(torch.float32, h, 768, True, scale) == "simt"
+
+
 @pytest.mark.parametrize("dtype,h", [(torch.float16, 96), (torch.bfloat16, 80), (torch.float32, 256)])
 def test_unsupported_forward_shapes_raise(dtype, h):
     with pytest.raises(ValueError):

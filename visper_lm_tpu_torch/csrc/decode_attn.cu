@@ -257,7 +257,7 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+  asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
                : "memory");
 }
 
@@ -443,6 +443,7 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(const Param
     float lmax[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) lmax[g] = -INFINITY;
+#pragma unroll 2
     for (int base = 0; base < n; base += kPosPerStep) {
       const int pi = base + grp;             // < round: a multiple of kPosPerStep
       const bool ok = pi < n && r0 + pi >= p_begin;
@@ -492,6 +493,7 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(const Param
     // ---- acc += p [* v scale] . V
     cp_async_wait_but_one();
     __syncthreads();
+#pragma unroll 2
     for (int base = 0; base < n; base += kPosPerStep) {
       const int pi = base + grp;
       if (pi >= n || r0 + pi < p_begin) continue;   // unloaded rows may hold anything

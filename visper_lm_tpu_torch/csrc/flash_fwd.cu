@@ -41,17 +41,24 @@
 //      blocks are one A fragment, rounded to bf16 as the Pallas kernel
 //      rounds it) and V through the transposing (MN-major) descriptor, so V
 //      is never transposed in memory.
-//    - f32 online softmax in the log2 domain on the accumulator registers;
-//      the mask compares run only on tiles that cross a bound or the
-//      diagonal. The kv loop runs from the tile of kv_starts[b] to the
-//      diagonal / kv length.
+//    - f32 online softmax in the log2 domain on the accumulator registers,
+//      cut to few instructions, because with two warps on each scheduler
+//      they, not the tensor cores, set the pace: the row max is taken on the
+//      raw scores (the scale must be positive), each probability is one
+//      fused multiply-add and one ex2.approx, O is rescaled only when a
+//      row's max moved, and a mask is one unsigned compare per score, on
+//      tiles that cross a bound or the diagonal only. The kv loop runs from
+//      the tile of kv_starts[b] to the diagonal / kv length.
+//    - O leaves through shared memory (the warpgroup's own rows of the Q
+//      tile, free by then) and a TMA store: whole row pieces instead of
+//      4-byte stores from the accumulator layout.
 //    - The grid is one-dimensional: the tiles of one (batch, head) are
 //      neighbours (their K/V re-reads meet in L2) and the late (long) causal
 //      tiles of each come first.
-// 2. `flash_fwd_bf16_kernel` (the kernel before it, kept to be timed beside
-//    it; no shape is dispatched to it): mma.sync m16n8k16, one CTA of 4 warps
-//    per 64 query rows, K and V tiles of 64 keys copied by the compute warps
-//    into padded shared memory.
+// 2. `flash_fwd_bf16_kernel` (the kernel before it: it keeps the calls whose
+//    scale is not positive, and is timed beside the other): mma.sync
+//    m16n8k16, one CTA of 4 warps per 64 query rows, K and V tiles of 64 keys
+//    copied by the compute warps into padded shared memory.
 // 3. `flash_fwd_f32_kernel` (f32, for checking): SIMT, one thread per query
 //    row, per-key online softmax in full f32.
 
@@ -326,6 +333,24 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// 2^x by the special-function unit alone (2^-inf = 0; about 2 ulp).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One box of a 4-D tensor map, shared -> global, by the copy engine, in this
+// thread's bulk group; rows outside the tensor are not written.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int col,
+                                             int head, int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(col), "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+
 constexpr int kWgBM = 128;           // query rows per CTA: 64 per consumer warpgroup
 constexpr int kWgBN = 128;           // keys per kv tile
 constexpr int kWgConsumers = 256;    // two warpgroups
@@ -350,7 +375,8 @@ template <int H>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                            const __grid_constant__ CUtensorMap k_map,
-                           const __grid_constant__ CUtensorMap v_map, const Params p) {
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap o_map, const Params p) {
   using C = WgCfg<H>;
   constexpr int kSN = kWgBN / 8;  // 8-column blocks of S
   constexpr int kON = H / 8;      // 8-column blocks of O
@@ -462,57 +488,65 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     wgmma_commit();
     wgmma_wait<0>();
 
-    // scale in f32 (log2 domain), mask where the tile crosses a bound, row max
+    // Mask where the tile crosses a bound or the diagonal: seen from this
+    // thread's first column, row r's valid columns are [c_lo, c_lo + width[r])
     const bool need_mask = k0 < lo || k0 + kWgBN > len || (p.causal && k0 + kWgBN - 1 > wg_row0);
-    float mx[2] = {-INFINITY, -INFINITY};
     if (need_mask) {
+      const int first = k0 + 2 * tq;
+      const int c_lo = lo - first;
+      unsigned width[2];
 #pragma unroll
-      for (int nt = 0; nt < kSN; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + nt * 8 + tq * 2 + (e & 1);
-          const int row = rows[e >> 1];
-          const bool ok = col >= lo && col < len && (!p.causal || col <= row);
-          const float x = ok ? sa[4 * nt + e] * scale_log2 : -INFINITY;
-          sa[4 * nt + e] = x;
-          mx[e >> 1] = fmaxf(mx[e >> 1], x);
-        }
+      for (int r = 0; r < 2; ++r) {
+        const int c_hi = (p.causal ? min(len, rows[r] + 1) : len) - first;
+        width[r] = static_cast<unsigned>(max(c_hi - c_lo, 0));
       }
-    } else {
 #pragma unroll
       for (int i = 0; i < kWgBN / 2; ++i) {
-        sa[i] *= scale_log2;
-        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sa[i]);
+        const int c = 8 * (i >> 2) + (i & 1);
+        if (static_cast<unsigned>(c - c_lo) >= width[(i >> 1) & 1]) sa[i] = -INFINITY;
       }
+    }
+    // Row max of the raw scores (the scale is positive, so it commutes with
+    // the max), two chains per row; then one fused multiply-add and one
+    // ex2 per score: p = 2^(s * scale_log2 - max)
+    float mx[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
+#pragma unroll
+    for (int nt = 0; nt < kSN; ++nt) {
+      mx[0][nt & 1] = fmaxf(mx[0][nt & 1], fmaxf(sa[4 * nt], sa[4 * nt + 1]));
+      mx[1][nt & 1] = fmaxf(mx[1][nt & 1], fmaxf(sa[4 * nt + 2], sa[4 * nt + 3]));
     }
     float rowbase[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      // a row with no valid column yet keeps exp() arguments at -inf
+      float mr = fmaxf(mx[r][0], mx[r][1]);
+      mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 1));
+      mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 2));
+      const float m_new = fmaxf(m[r], mr * scale_log2);
+      // a row with no valid column yet keeps ex2's arguments at -inf
       rowbase[r] = (m_new == -INFINITY) ? 0.f : m_new;
-      const float alpha = (m[r] == -INFINITY) ? 0.f : exp2f(m[r] - rowbase[r]);
+      const float alpha = ex2(m[r] - rowbase[r]);
       m[r] = m_new;
-      l[r] *= alpha;
+      if (alpha != 1.f) {  // the max moves in the first tiles of a row and seldom later
+        l[r] *= alpha;
 #pragma unroll
-      for (int nt = 0; nt < kON; ++nt) {
-        o[4 * nt + 2 * r] *= alpha;
-        o[4 * nt + 2 * r + 1] *= alpha;
+        for (int nt = 0; nt < kON; ++nt) {
+          o[4 * nt + 2 * r] *= alpha;
+          o[4 * nt + 2 * r + 1] *= alpha;
+        }
       }
     }
-    // P = exp2(S - max), rounded to bf16 for the second product: the
-    // accumulators of blocks 2 kk and 2 kk + 1 are the A fragment of k-step kk
+    // P rounded to bf16 for the second product: the accumulators of blocks
+    // 2 kk and 2 kk + 1 are the A fragment of k-step kk
     uint32_t pa[kWgBN / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kWgBN / 16; ++kk) {
       float pe[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        pe[i] = exp2f(sa[8 * kk + i] - rowbase[(i >> 1) & 1]);
-        l[(i >> 1) & 1] += pe[i];
+        pe[i] = ex2(fmaf(sa[8 * kk + i], scale_log2, -rowbase[(i >> 1) & 1]));
       }
+      l[0] += (pe[0] + pe[1]) + (pe[4] + pe[5]);
+      l[1] += (pe[2] + pe[3]) + (pe[6] + pe[7]);
       pa[kk][0] = pack_f32(pe[0], pe[1]);
       pa[kk][1] = pack_f32(pe[2], pe[3]);
       pa[kk][2] = pack_f32(pe[4], pe[5]);
@@ -533,24 +567,47 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     if (lane == 0) mbar_arrive(empty + 8 * s);
   }
 
-  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + head * p.o_sn;
+  // O / l leaves through this warpgroup's own rows of the Q tile (its last
+  // Q K^T is done), written in the tile's swizzled layout (a warp's eight rows
+  // land on distinct banks), and from there as one TMA box per column block:
+  // whole 128- or 64-byte row pieces, rows beyond T clipped by the copy engine.
+  uint8_t* const stage = smem_raw + (qs - smem_u32(smem_raw)) + wg * 64 * C::kSwz;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const int row = rows[r];
-    if (row >= p.T) continue;
+    const int lrow = 16 * w + g + 8 * r;  // row within the warpgroup's 64
     const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
-    __nv_bfloat16* orow = ob + row * p.o_st;
+    // the 16-byte chunk c of row i sits at chunk c ^ (i & 7) in the 128-byte
+    // swizzle, at c ^ ((i >> 1) & 3) in the 64-byte one
+    const int sw = C::kSwz == 128 ? (lrow & 7) : ((lrow >> 1) & 3);
 #pragma unroll
     for (int nt = 0; nt < kON; ++nt) {
-      *reinterpret_cast<uint32_t*>(orow + nt * 8 + tq * 2) =
+      const int nb = (nt * 8) / C::kCB, chunk = ((nt * 8) % C::kCB) / 8;
+      *reinterpret_cast<uint32_t*>(stage + nb * C::kQBlock + lrow * C::kSwz +
+                                   ((chunk ^ sw) << 4) + 4 * tq) =
           pack_f32(o[4 * nt + 2 * r] * inv, o[4 * nt + 2 * r + 1] * inv);
     }
-    if (tq == 0) {
+    const int row = rows[r];
+    if (tq == 0 && row < p.T) {
       p.lse[(static_cast<long long>(b) * p.Nq + head) * p.T + row] =
           l[r] > 0.f ? m[r] * kLn2 + logf(l[r]) : kNegInf;
     }
+  }
+  // the copy engine reads what the warpgroup's threads wrote
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (wg == 0) {
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  } else {
+    asm volatile("bar.sync 2, 128;\n" ::: "memory");
+  }
+  if (w == 0 && lane == 0) {
+#pragma unroll
+    for (int nb = 0; nb < C::kNB; ++nb) {
+      tma_store_4d(&o_map, qs + nb * C::kQBlock + wg * 64 * C::kSwz, nb * C::kCB, head, wg_row0, b);
+    }
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");  // before the CTA's memory goes
   }
 }
 
@@ -599,6 +656,7 @@ bool tensor_map(const void* ptr, int H, int N, int rows, int B, long long sb, lo
 template <int H>
 cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
   using C = WgCfg<H>;
+  if (!(p.scale > 0.f)) return cudaErrorInvalidValue;
   static bool attr_set = false;  // shared memory above 48 KB is opted into once
   if (!attr_set) {
     const cudaError_t rc = cudaFuncSetAttribute(
@@ -606,8 +664,9 @@ cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
     if (rc != cudaSuccess) return rc;
     attr_set = true;
   }
-  CUtensorMap q_map, k_map, v_map;
-  if (!tensor_map(p.q, H, p.Nq, p.T, p.B, p.q_sb, p.q_st, p.q_sn, C::kCB, kWgBM, &q_map) ||
+  CUtensorMap q_map, k_map, v_map, o_map;
+  if (!tensor_map(p.o, H, p.Nq, p.T, p.B, p.o_sb, p.o_st, p.o_sn, C::kCB, kWgBM / 2, &o_map) ||
+      !tensor_map(p.q, H, p.Nq, p.T, p.B, p.q_sb, p.q_st, p.q_sn, C::kCB, kWgBM, &q_map) ||
       !tensor_map(p.k, H, p.Nkv, p.S, p.B, p.k_sb, p.k_st, p.k_sn, C::kCB, kWgBN, &k_map) ||
       !tensor_map(p.v, H, p.Nkv, p.S, p.B, p.v_sb, p.v_st, p.v_sn, C::kCB, kWgBN, &v_map)) {
     return cudaErrorInvalidValue;
@@ -615,7 +674,7 @@ cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
   const long long ctas = static_cast<long long>((p.T + kWgBM - 1) / kWgBM) * p.Nq * p.B;
   if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
   flash_fwd_wgmma_kernel<H><<<static_cast<unsigned>(ctas), kWgThreads, C::kSmem, stream>>>(
-      q_map, k_map, v_map, p);
+      q_map, k_map, v_map, o_map, p);
   return cudaGetLastError();
 }
 
@@ -713,7 +772,7 @@ cudaError_t launch(const Params& p, int kernel, cudaStream_t stream) {
 // Launch on `stream`; returns cudaGetLastError() (0 on success). Strides are in
 // elements; the last (head-dim) stride must be 1. kernel: 0 the f32 SIMT kernel
 // (f32 inputs), 1 wgmma, 2 mma.sync (bf16 inputs; wgmma also needs 16-byte
-// aligned rows). kv_len / kv_start may be null.
+// aligned rows and a positive scale). kv_len / kv_start may be null.
 extern "C" int visper_flash_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     const void* kv_len, const void* kv_start,

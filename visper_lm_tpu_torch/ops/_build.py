@@ -27,6 +27,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
     "-Xptxas", "-v",
+    "-split-compile", "0",   # a source's kernels are optimized on all cores: decode_attn.cu has 24
 )
 
 # library name -> C signatures (argtypes, restype)

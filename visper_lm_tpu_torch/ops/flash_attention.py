@@ -21,8 +21,8 @@ csrc/flash_fwd.cu holds three forward kernels and `flash_fwd_kernel_for`
 names the one a call takes: "wgmma" (bf16, every supported shape: 128 query
 rows per CTA, K/V tiles through a TMA ring, two consumer warpgroups on
 `wgmma`), "simt" (f32, for checking) and "mma_sync" (the bf16 kernel before
-"wgmma"; no shape is dispatched to it, `kernel="mma_sync"` forces it to be
-timed beside the other).
+"wgmma": it keeps the calls whose scale is not positive, and
+`kernel="mma_sync"` forces it to be timed beside the other).
 
 Fully masked rows (left padding before kv_starts): the kernel gives 0 and
 lse = NEG_INF, the plain forward a uniform average of v. Compare the two on
@@ -124,18 +124,23 @@ def flash_attention_bwd_reference(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_fwd_kernel_for(dtype: torch.dtype, h: int, t: int, causal: bool) -> str:
+def flash_fwd_kernel_for(
+    dtype: torch.dtype, h: int, t: int, causal: bool, scale: Optional[float] = None,
+) -> str:
     """The name of the hand-written forward kernel a (dtype, head dim, length,
-    causal) call takes on CUDA; raises for what no kernel runs. Never the
-    plain version. Every bf16 shape takes "wgmma" (no remainder is left to
-    "mma_sync"), f32 takes "simt"."""
+    causal, scale) call takes on CUDA; raises for what no kernel runs. Never
+    the plain version. bf16 takes "wgmma" at every supported shape; the one
+    remainder left to "mma_sync" is a scale that is not positive (`wgmma`
+    takes the row max before it scales); f32 takes "simt"."""
     if dtype not in SUPPORTED_DTYPES:
         raise ValueError(f"flash_attention: dtype {dtype} not supported")
     if h not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {h} not in {SUPPORTED_HEAD_DIMS}")
     if t < 1:
         raise ValueError(f"flash_attention: sequence length {t}")
-    return "wgmma" if dtype == torch.bfloat16 else "simt"
+    if dtype == torch.float32:
+        return "simt"
+    return "wgmma" if scale is None or scale > 0 else "mma_sync"
 
 
 def flash_fwd_tile_order(t: int, causal: bool) -> Tuple[int, ...]:
@@ -215,14 +220,16 @@ def flash_attention_fwd(
     lib = _build.load("flash_fwd")
     b, t, nq, h = q.shape
     s, nkv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = h ** -0.5
     if kernel is None:
-        kernel = flash_fwd_kernel_for(q.dtype, h, t, causal)
+        kernel = flash_fwd_kernel_for(q.dtype, h, t, causal, scale)
     elif kernel not in KERNEL_IDS:
         raise ValueError(f"flash_attention: no kernel named {kernel!r} (one of {sorted(KERNEL_IDS)})")
     if KERNEL_DTYPES[kernel] != q.dtype:
         raise ValueError(f"flash_attention: the {kernel} kernel takes {KERNEL_DTYPES[kernel]}, not {q.dtype}")
-    if scale is None:
-        scale = h ** -0.5
+    if kernel == "wgmma" and not scale > 0:
+        raise ValueError(f"flash_attention: the wgmma kernel takes a positive scale, not {scale}")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, nq, t), dtype=torch.float32, device=q.device)
     lens = _int32_on(kv_lengths, q.device)
