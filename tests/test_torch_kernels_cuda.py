@@ -152,6 +152,34 @@ def test_flash_wgmma_reads_strided_views_and_single_row_batches(cuda_gen):
     _assert_flash_close(out, lse, qs, ks_, vs_, None, None, False)
 
 
+@pytest.mark.parametrize("h", [64, 96, 128])
+@pytest.mark.parametrize("t,s", [(1, 1), (7, 7), (63, 200), (65, 65), (129, 64), (300, 1)])
+def test_flash_wgmma_edge_lengths(cuda_gen, h, t, s):
+    """Fewer rows than a tile (the TMA box is larger than the tensor), one
+    row, T != S in both directions (causal compares column <= row without an
+    offset, as the kernel before it), a batch row with kv_lengths 0 and one
+    whose start lies at or beyond its length: both give 0 and NEG_INF."""
+    b, n = 3, 2
+    q = torch.randn(b, t, n, h, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    k = torch.randn(b, s, n, h, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    v = torch.randn(b, s, n, h, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    lens = torch.tensor([s, 0, max(s // 2, 1)], device="cuda")
+    starts = torch.tensor([0, 0, max(s // 2, 1)], device="cuda")
+    for causal in (True, False):
+        kw = dict(causal=causal, kv_starts=starts, kv_lengths=lens)
+        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        old, lse_old = fa.flash_attention_fwd(q, k, v, kernel="mma_sync", **kw)
+        ref, lse_ref = fa.flash_attention_reference(q.float(), k.float(), v.float(), **kw)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        assert (out[0].float() - ref[0]).abs().max().item() <= 2e-2
+        assert (lse[0] - lse_ref[0]).abs().max().item() <= 1e-3
+        for i in (1, 2):                                   # no valid key in the row
+            assert torch.all(out[i] == 0) and torch.all(lse[i] == fa.NEG_INF)
+        assert (out.float() - old.float()).abs().max().item() <= 2e-2
+        assert torch.equal(lse == fa.NEG_INF, lse_old == fa.NEG_INF)
+
+
 def test_flash_forced_kernel_rejects_a_dtype_it_does_not_take(cuda_gen):
     q, k, v = _qkv(cuda_gen, 1, 128, 2, 2, 96, torch.float32)
     before = fa.launches
@@ -478,6 +506,23 @@ def test_decode_split_kernel_groups_and_head_dims(cuda_gen, quant, nq, nkv, h):
     ref = da.decode_attention_reference(q.float(), k, v, ks, vs, kv_lengths=lens)
     torch.cuda.synchronize()
     _assert_decode_close(got, ref, [0, 1], [])
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("s", [1, 4, 16, 17, 31])
+def test_decode_split_kernel_short_caches(cuda_gen, quant, s):
+    """Caches shorter than one step of 16 positions, a batch in which no row
+    has a valid position, and many (batch, kv head) pairs at once."""
+    b, nq, nkv, h = 5, 6, 2, 128
+    q, k, v, ks, vs = _decode_inputs(cuda_gen, b, nq, nkv, h, s, quant)
+    lens = torch.tensor([s, 1, 0, s, max(s - 1, 1)], device="cuda")
+    starts = torch.tensor([0, 0, 0, s - 1, 0], device="cuda")
+    got = da.decode_attention(q, k, v, ks, vs, kv_lengths=lens, kv_starts=starts)
+    ref = da.decode_attention_reference(q.float(), k, v, ks, vs, kv_lengths=lens, kv_starts=starts)
+    torch.cuda.synchronize()
+    _assert_decode_close(got, ref, [0, 1, 3, 4], [2])
+    none = da.decode_attention(q, k, v, ks, vs, kv_lengths=torch.zeros_like(lens))
+    assert torch.all(none == 0)
 
 
 @pytest.mark.parametrize("quant", [False, True])

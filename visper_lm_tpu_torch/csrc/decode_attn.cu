@@ -378,13 +378,13 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(const Param
   const int r_begin = p_begin & ~3;
   const int nrounds = p_end > p_begin ? (p_end - r_begin + p.round - 1) / p.round : 0;
 
-  auto issue_rows = [&](uint8_t* dst, const uint8_t* src, int r) {  // round r's rows
+  auto copy_rows = [&](uint8_t* dst, const uint8_t* src, int r) {  // round r's rows
     const int r0 = r_begin + r * p.round;
     const int n16 = min(p.round, p_end - r0) * (L::kRowBytes / 16);
     const uint8_t* from = src + static_cast<long long>(r0) * L::kRowBytes;
     for (int i = tid; i < n16; i += kSplitThreads) cp_async16(dst + i * 16, from + i * 16);
   };
-  auto issue_scales = [&](float* dst, const float* src, int r) {
+  auto copy_scales = [&](float* dst, const float* src, int r) {
     if (!quant) return;
     const int r0 = r_begin + r * p.round;
     const int n = min(p.round, p_end - r0);
@@ -397,11 +397,11 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(const Param
 
   // the first round is asked for before anything else is read
   if (nrounds > 0) {
-    issue_rows(ks, kb, 0);
-    issue_scales(ksc, ksg, 0);
+    copy_rows(ks, kb, 0);
+    copy_scales(ksc, ksg, 0);
     cp_async_commit();
-    issue_rows(vs, vb, 0);
-    issue_scales(vsc, vsg, 0);
+    copy_rows(vs, vb, 0);
+    copy_scales(vsc, vsg, 0);
     cp_async_commit();
   }
 
@@ -471,8 +471,8 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(const Param
     }
     __syncthreads();                         // the scores are written; the K slab is free
     if (r + 1 < nrounds) {
-      issue_rows(ks, kb, r + 1);
-      issue_scales(ksc, ksg, r + 1);
+      copy_rows(ks, kb, r + 1);
+      copy_scales(ksc, ksg, r + 1);
     }
     cp_async_commit();
 
@@ -511,8 +511,8 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(const Param
     }
     __syncthreads();                         // the V slab and the scores are free
     if (r + 1 < nrounds) {
-      issue_rows(vs, vb, r + 1);
-      issue_scales(vsc, vsg, r + 1);
+      copy_rows(vs, vb, r + 1);
+      copy_scales(vsc, vsg, r + 1);
     }
     cp_async_commit();
   }

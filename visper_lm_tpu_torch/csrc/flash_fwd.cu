@@ -303,7 +303,7 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
 }
 
 // Spins until the barrier's phase `parity` completes. A wait that outlasts
-// millions of polls is a protocol fault (a copy that was never issued): it
+// millions of polls is a protocol fault (a copy that was never started): it
 // traps, so a deadlock surfaces as a launch error, not as a hung card.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done, polls = 0;

@@ -143,12 +143,11 @@ def flash_fwd_kernel_for(
     return "wgmma" if scale is None or scale > 0 else "mma_sync"
 
 
-def flash_fwd_tile_order(t: int, causal: bool) -> Tuple[int, ...]:
+def flash_fwd_tile_order(t: int) -> Tuple[int, ...]:
     """The order in which the wgmma kernel's grid visits the query tiles of
     one (batch, head): every tile of ceil(T / 128) exactly once, the last
     (for causal attention the longest) first. The tiles of one (batch, head)
-    are neighbours in the grid, so their K/V reads meet in L2. The order is
-    the same without causal masking, where the tiles are equally long."""
+    are neighbours in the grid, so their K/V reads meet in L2."""
     ntiles = -(-t // WGMMA_Q_TILE)
     return tuple(ntiles - 1 - i for i in range(ntiles))
 
