@@ -18,7 +18,11 @@ Phases, each of which raises (exit code != 0) when it fails:
        B2/B3 flash backward (dq, dk/dv) against the plain backward fed the
           plain forward's f32 out and lse: relative Frobenius error <= 1e-2
           and, per element, |err| <= 2e-2 + 1e-2 x |ref| (the bf16 rounding
-          of the largest gradients, which sum over up to 1024 rows);
+          of the largest gradients, which sum over up to 1024 rows). At the
+          training and the GQA shape the mma.sync kernels they replaced are
+          held to the same bounds and timed in the same call (`mma_sync_ms`;
+          in turns: old, new, new, old), beside SDPA's backward; the same
+          launch 20 times must give identical bytes;
        B4 Swin window attention: bf16 max abs error <= 2e-2;
        B5 w4a16 matmul (Phi3-mini's four (din, dout) pairs at M = 8 and, but
           for lm_head, M = 6144; one AWQ case) against its plain version in
@@ -294,29 +298,53 @@ def bwd_case(name, b, t, nq, nkv, h, causal, starts, lens, gen, fa):
               kv_lengths=torch.tensor(lens, device=dev))
     out, lse = fa.flash_attention_fwd(q, k, v, **kw)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    dq = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
-    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
     # the reference shares nothing with the kernels: its out and lse come
     # from the plain forward in f32
     qf, kf, vf = q.float(), k.float(), v.float()
     out_ref, lse_ref = fa.flash_attention_reference(qf, kf, vf, **kw)
     ref = fa.flash_attention_bwd_reference(qf, kf, vf, out_ref, lse_ref, dout.float(), **kw)
     del qf, kf, vf, out_ref, lse_ref
-    torch.cuda.synchronize()
     err, mag, fro = {}, {}, {}
-    for gname, got, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
-        e = (got.float() - r).abs()
-        err[gname] = e.max().item()
-        mag[gname] = r.abs().max().item()
-        fro[gname] = (e.norm() / r.norm()).item()
-        excess = (e - (2e-2 + 1e-2 * r.abs())).max().item()
-        print(f"bwd_case {name} {gname}: max abs err {err[gname]:.4g}, max |ref| "
-              f"{mag[gname]:.4g}, relative Frobenius err {fro[gname]:.4g}")
-        check(fro[gname] <= 1e-2, f"{name}: {gname} relative Frobenius err {fro[gname]} > 1e-2")
-        check(excess <= 0, f"{name}: {gname} exceeds 2e-2 + 1e-2 x |ref| by {excess}")
+    for kern in ("wgmma", "mma_sync"):
+        dq = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, kernel=kern, **kw)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kernel=kern, **kw)
+        torch.cuda.synchronize()
+        for gname, got, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+            e = (got.float() - r).abs()
+            key = gname if kern == "wgmma" else f"{kern}_{gname}"
+            err[key] = e.max().item()
+            mag[key] = r.abs().max().item()
+            fro[key] = (e.norm() / r.norm()).item()
+            excess = (e - (2e-2 + 1e-2 * r.abs())).max().item()
+            print(f"bwd_case {name} {kern} {gname}: max abs err {err[key]:.4g}, max |ref| "
+                  f"{mag[key]:.4g}, relative Frobenius err {fro[key]:.4g}")
+            check(fro[key] <= 1e-2, f"{name}: {kern} {gname} relative Frobenius err {fro[key]} > 1e-2")
+            check(excess <= 0, f"{name}: {kern} {gname} exceeds 2e-2 + 1e-2 x |ref| by {excess}")
+        if kern == "wgmma":
+            # every element is written once by one CTA: the same launch gives the same bytes
+            for _ in range(20):
+                check(torch.equal(fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw), dq),
+                      f"{name}: a repeated dq launch gave other bytes")
+                dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+                check(torch.equal(dk2, dk) and torch.equal(dv2, dv),
+                      f"{name}: a repeated dk/dv launch gave other bytes")
+        del dq, dk, dv
     del ref
-    ms_dq = cuda_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw), 10)
-    ms_dkv = cuda_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw), 10)
+
+    def timed(fn):                              # in turns: old, new, new, old
+        old_a = cuda_ms(lambda: fn("mma_sync"), 10)
+        new = 0.5 * (cuda_ms(lambda: fn("wgmma"), 10) + cuda_ms(lambda: fn("wgmma"), 10))
+        return new, 0.5 * (old_a + cuda_ms(lambda: fn("mma_sync"), 10))
+
+    def dq_fn(kern):
+        return fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, kernel=kern, **kw)
+
+    def dkv_fn(kern):
+        return fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kernel=kern, **kw)
+
+    (ms_dq, old_dq), (ms_dkv, old_dkv) = timed(dq_fn), timed(dkv_fn)
+    # the same launches as CUDA graphs: device time without the host between them
+    device = {kname: graph_ms([lambda: fn("wgmma")], 10) for kname, fn in (("dq", dq_fn), ("dkv", dkv_fn))}
     plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, dout, **kw), 2)
     # yardstick: SDPA's backward with a boolean mask (dq, dk and dv in one call)
     cols = torch.arange(t, device=dev)
@@ -336,16 +364,20 @@ def bwd_case(name, b, t, nq, nkv, h, causal, starts, lens, gen, fa):
     in_bytes = (q.numel() + k.numel() + v.numel() + dout.numel()) * e + 2 * lse.numel() * 4
     shape = f"B{b} T{t} {nq}/{nkv} H{h} bf16 {'causal' if causal else 'noncausal'}"
     recs = []
-    for kname, ms, nbytes, flops, errs in (
-        ("dq", ms_dq, in_bytes + q.numel() * e, 6.0 * h * pairs, ("dq",)),
-        ("dkv", ms_dkv, in_bytes + (k.numel() + v.numel()) * e, 8.0 * h * pairs, ("dk", "dv")),
+    for kname, ms, old_ms, nbytes, flops, errs in (
+        ("dq", ms_dq, old_dq, in_bytes + q.numel() * e, 6.0 * h * pairs, ("dq",)),
+        ("dkv", ms_dkv, old_dkv, in_bytes + (k.numel() + v.numel()) * e, 8.0 * h * pairs,
+         ("dk", "dv")),
     ):
         rec = dict(
-            case=f"{name}_{kname}", shape=shape, max_abs_err=max(err[x] for x in errs),
+            case=f"{name}_{kname}", shape=shape,
+            kernel=fa.flash_bwd_kernel_for(dtype, h, t, t), max_abs_err=max(err[x] for x in errs),
             max_abs_ref=max(mag[x] for x in errs), rel_fro_err=max(fro[x] for x in errs),
+            mma_sync_max_abs_err=max(err[f"mma_sync_{x}"] for x in errs),
             tol="rel Frobenius 1e-2, |err| <= 2e-2 + 1e-2 x |ref|", ms=ms,
+            device_ms=device[kname], mma_sync_ms=old_ms,
             plain_ms=plain_ms, library_ms=library_ms, **bound(nbytes, flops, dtype),
-            tflops=flops / ms * 1e-9,
+            tflops=flops / ms * 1e-9, mma_sync_tflops=flops / old_ms * 1e-9,
         )
         print("kernel_case " + json.dumps(rec))
         recs.append(rec)
@@ -696,10 +728,23 @@ def main() -> int:
             f"no wgmma forward kernel at H{h}")
         print(f"flash_fwd wgmma H{h}: {smem.value} B dynamic shared memory, {kv_tile.value}-key "
               f"tiles, {stages.value} stages, 288 threads, 1 CTA per SM")
-    for lib, mark in (("flash_fwd", "wgmma_kernel"), ("decode_attn", "split_kernel")):
+    dq_smem, dkv_smem, threads = (ctypes.c_int() for _ in range(3))
+    for h in fa.SUPPORTED_HEAD_DIMS:
+        check(_build.load("flash_bwd").visper_flash_bwd_wgmma_info(
+            h, ctypes.byref(dq_smem), ctypes.byref(dkv_smem), ctypes.byref(stages),
+            ctypes.byref(threads)) == 0, f"no wgmma backward kernels at H{h}")
+        print(f"flash_bwd wgmma H{h}: dq {dq_smem.value} B, dk/dv {dkv_smem.value} B dynamic shared "
+              f"memory, {stages.value} stages, {threads.value} threads (two warpgroups; warp 0 "
+              f"refills the ring), 1 CTA per SM")
+    for lib, mark in (("flash_fwd", "wgmma_kernel"), ("flash_bwd", "wgmma_kernel"),
+                      ("decode_attn", "split_kernel")):
         for entry, res in _build.kernel_resources(logs.get(lib, "")).items():
             if mark in entry:
                 check(res["spill_bytes"] == 0, f"{entry} spills {res['spill_bytes']} bytes")
+        # ptxas reports a wgmma it had to serialise only as an info line
+        for ln in logs.get(lib, "").splitlines():
+            if "C75" in ln:
+                print(f"ptxas[{lib}] {ln.strip()}")
 
     cfg = phi3_clip_vlm(distill=True)
     batch = main_path_batch(cfg)
@@ -727,7 +772,7 @@ def main() -> int:
         "train", TRAIN_BATCH, TRAIN_SEQ, d.num_heads, d.num_kv_heads, d.head_dim, True,
         [0] * TRAIN_BATCH, train_lens, gen, fa,
     )
-    bwd_case("gqa", 2, 1024, 32, 8, 128, True, [0, 100], [1024, 900], gen, fa)
+    gqa_dq, gqa_dkv = bwd_case("gqa", 2, 1024, 32, 8, 128, True, [0, 100], [1024, 900], gen, fa)
     win_recs = [
         window_case(i, w, heads, shifted, gen, wa, swin)
         for i, (w, heads) in enumerate(SWIN_STAGES) for shifted in (False, True)
@@ -978,7 +1023,7 @@ def main() -> int:
     check(min_cos >= 0.999, f"B1 grad cosine {min_cos} < 0.999 for {min_name}")
 
     # where the training step's time goes
-    train_prof = profile_window("train_step", lambda: step(tbatch), top=15)
+    train_prof = profile_window("train_step", lambda: step(tbatch), top=15, match="flash_bwd")
     print("train_profile " + json.dumps(train_prof))
     dec_launches = da.launches                  # over phases 4-7: bf16, int4, w8a16, training
     print(f"decode_attn launches over the serving and training paths: {dec_launches}")
@@ -1002,10 +1047,22 @@ def main() -> int:
                         mma_sync_ms=train_fwd_rec["mma_sync_ms"],
                         library_ms=train_fwd_rec["library_ms"],
                         bound_ms=train_fwd_rec["bound_ms"])),
-        entry("flash_bwd_dq", csrc + "flash_bwd.cu", "visper_lm_tpu/ops/flash_attention.py:497",
-              dq_rec, train_launches["flash_bwd_dq"]),
-        entry("flash_bwd_dkv", csrc + "flash_bwd.cu", "visper_lm_tpu/ops/flash_attention.py:562",
-              dkv_rec, train_launches["flash_bwd_dkv"]),
+        dict(entry("flash_bwd_dq", csrc + "flash_bwd.cu", "visper_lm_tpu/ops/flash_attention.py:497",
+                   dq_rec, train_launches["flash_bwd_dq"]),
+             shape=dq_rec["shape"], kernel=dq_rec["kernel"], mma_sync_ms=dq_rec["mma_sync_ms"],
+             device_ms=dq_rec["device_ms"],
+             library="SDPA backward (dq, dk and dv in one call)",
+             gqa=dict(shape=gqa_dq["shape"], ms=gqa_dq["ms"], device_ms=gqa_dq["device_ms"],
+                      mma_sync_ms=gqa_dq["mma_sync_ms"],
+                      library_ms=gqa_dq["library_ms"], bound_ms=gqa_dq["bound_ms"])),
+        dict(entry("flash_bwd_dkv", csrc + "flash_bwd.cu", "visper_lm_tpu/ops/flash_attention.py:562",
+                   dkv_rec, train_launches["flash_bwd_dkv"]),
+             shape=dkv_rec["shape"], kernel=dkv_rec["kernel"], mma_sync_ms=dkv_rec["mma_sync_ms"],
+             device_ms=dkv_rec["device_ms"],
+             library="SDPA backward (dq, dk and dv in one call)",
+             gqa=dict(shape=gqa_dkv["shape"], ms=gqa_dkv["ms"], device_ms=gqa_dkv["device_ms"],
+                      mma_sync_ms=gqa_dkv["mma_sync_ms"],
+                      library_ms=gqa_dkv["library_ms"], bound_ms=gqa_dkv["bound_ms"])),
         entry("window_attn", csrc + "window_attn.cu", "visper_lm_tpu/ops/window_attention.py:112",
               win_rec, train_launches["window_attn"]),
         dict(entry("w4_matmul", csrc + "w4_matmul.cu", "visper_lm_tpu/ops/quant_matmul.py:125",

@@ -14,7 +14,15 @@ what decides their grids is plain Python and is held here:
   * `flash_fwd_kernel_for` / `flash_fwd_tile_order` (B1): every supported
     (dtype, head dim, length, causal) names a hand-written kernel, nothing is
     left to the kernel kept for timing, and the grid visits every query tile
-    once, the longest first.
+    once, the longest first;
+  * `flash_bwd_kernel_for` / `flash_bwd_tile_order` and the loops
+    `flash_bwd_dq_visits` / `flash_bwd_dkv_visits` (B2/B3): every bf16 call at
+    H 64/96/128 names the wgmma pair, both grids visit every tile once, the
+    longest first, and every unmasked (q head, row, key) lies in exactly one
+    visit of each loop, as it does in the JAX package's pair lists; the
+    pair's tile arithmetic in torch (P and dS rounded to bf16 per tile, f32
+    sums in visit order) is held to `flash_attention_bwd_reference` at the
+    card's bound for the kernels.
 """
 
 import inspect
@@ -194,3 +202,201 @@ def test_forward_on_the_cpu_ignores_the_kernel_name_and_counts_no_launch():
     ref, lse_ref = tfa.flash_attention_reference(q, q, q)
     assert tfa.launches == before
     assert torch.equal(out, ref) and torch.equal(lse, lse_ref)
+
+
+# --------------------------------------------------------------------------
+# B2/B3: the wgmma backward pair's kernel choice, grids and loops
+# --------------------------------------------------------------------------
+
+BWD_LENGTHS = [1, 63, 64, 65, 127, 128, 129, 657, 1024, 2048]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t,s", [(t, t) for t in BWD_LENGTHS] + [(200, 333), (333, 200), (1, 65)])
+@pytest.mark.parametrize("h", tfa.SUPPORTED_HEAD_DIMS)
+def test_every_supported_backward_shape_names_the_wgmma_pair(h, t, s, causal):
+    name = tfa.flash_bwd_kernel_for(torch.bfloat16, h, t, s)
+    assert name == "wgmma" and name in tfa.BWD_KERNEL_IDS    # never the plain version or mma_sync
+
+
+@pytest.mark.parametrize("dtype,h", [(torch.float32, 96), (torch.float16, 96), (torch.bfloat16, 80),
+                                     (torch.bfloat16, 192), (torch.float32, 256)])
+def test_unsupported_backward_shapes_raise(dtype, h):
+    with pytest.raises(ValueError):
+        tfa.flash_bwd_kernel_for(dtype, h, 1024, 1024)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 127, 128, 129, 657, 1000, 1024, 2048, 4097])
+def test_backward_grids_visit_every_tile_once_longest_first(n):
+    dq = tfa.flash_bwd_tile_order("dq", n)
+    assert sorted(dq) == list(range(-(-n // tfa.BWD_DQ_ROWS)))
+    assert list(dq) == sorted(dq, reverse=True)        # a causal q tile's kv loop grows with its index
+    dkv = tfa.flash_bwd_tile_order("dkv", n)
+    assert sorted(dkv) == list(range(-(-n // tfa.BWD_DKV_KEYS)))
+    assert list(dkv) == sorted(dkv)                    # a causal key tile's q loop shrinks with its index
+    with pytest.raises(ValueError):
+        tfa.flash_bwd_tile_order("dv", n)
+
+
+def _unmasked(t, s, causal, length, start):
+    """(T, S) booleans: the pairs `_recompute_p` leaves unmasked."""
+    rows, cols = np.arange(t)[:, None], np.arange(s)[None, :]
+    ok = (cols < min(length, s)) & (cols >= max(start, 0))
+    return ok & (cols <= rows) if causal else ok & np.ones((t, 1), bool)
+
+
+def _dq_counts(t, s, g, causal, length, start):
+    counts = np.zeros((t, s), np.int32)
+    for q0 in range(0, t, tfa.BWD_DQ_ROWS):
+        for row0, tiles in tfa.flash_bwd_dq_visits(s, causal, length, start, q0):
+            for k0 in tiles:
+                counts[row0:row0 + tfa.WARPGROUP_ROWS, k0:k0 + tfa.BWD_DQ_KEYS] += 1
+    return np.broadcast_to(counts, (g, t, s))           # every q head runs the same loop
+
+
+def _dkv_counts(t, s, g, causal, length, start):
+    counts = np.zeros((g, t, s), np.int32)
+    for k0 in range(0, s, tfa.BWD_DKV_KEYS):
+        for key0, visits in tfa.flash_bwd_dkv_visits(t, s, g, causal, length, start, k0):
+            for gi, q0 in visits:
+                counts[gi, q0:q0 + tfa.BWD_DKV_ROWS, key0:key0 + tfa.WARPGROUP_ROWS] += 1
+    return counts
+
+
+BWD_MASKS = [(None, None), ("len", None), ("len", "start")]
+
+
+@pytest.mark.parametrize("masks", BWD_MASKS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 129, 657, 1024])
+def test_backward_loops_cover_every_unmasked_pair_once(t, g, causal, masks):
+    """Every unmasked (q head of the group, row, key) lies in exactly one
+    visit of the dq loop and one of the dk/dv loop (so each gradient term is
+    added once); T = S, and T != S on the side."""
+    for s in (t, max(t // 2, 1) + 3):
+        length = s if masks[0] is None else max(s - 70, 1)
+        start = None if masks[1] is None else min(s // 3, length)
+        need = np.broadcast_to(_unmasked(t, s, causal, length, 0 if start is None else start), (g, t, s))
+        for counts in (_dq_counts(t, s, g, causal, length, start),
+                       _dkv_counts(t, s, g, causal, length, start)):
+            assert np.all(counts[need] == 1)
+            assert np.all(counts <= 1)                 # no pair twice, masked or not
+
+
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("t", [64, 128, 256, 640, 1024])
+def test_jax_backward_pairs_cover_every_causal_pair_once(t, g):
+    """The same coverage for the JAX package's squashed grids
+    (`_causal_pairs` for dq, `_kv_major_group_pairs` for dk/dv) at the block
+    sizes its tests use: the port's loops replace them, pair for pair."""
+    from visper_lm_tpu.ops import flash_attention as jflash
+
+    bq, bk = jflash._block_sizes(t, t, 128, 128)
+    need = np.broadcast_to(_unmasked(t, t, True, t, 0), (g, t, t))
+    qi, kj, _ = jflash._causal_pairs(t // bq, t // bk, bq, bk)
+    dq = np.zeros((t, t), np.int32)
+    for a, c in zip(qi, kj):
+        dq[a * bq:(a + 1) * bq, c * bk:(c + 1) * bk] += 1
+    qi, kj, gi, _, _ = jflash._kv_major_group_pairs(t // bq, t // bk, bq, bk, g)
+    dkv = np.zeros((g, t, t), np.int32)
+    for a, c, h in zip(qi, kj, gi):
+        dkv[h, a * bq:(a + 1) * bq, c * bk:(c + 1) * bk] += 1
+    for counts in (np.broadcast_to(dq, (g, t, t)), dkv):
+        assert np.all(counts[need] == 1) and np.all(counts <= 1)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _emulate_bwd(q, k, v, dout, lse, delta, causal, lens, starts, scale):
+    """The wgmma pair's tile arithmetic in torch (f32 in, bf16 out): each
+    CTA's warpgroups over their visits in the kernels' order; P from the lse
+    in the log2 domain (a dead row's lse is +inf); dS, and P for dv, rounded
+    to bf16 before the products that take them from registers; f32 sums; dq
+    and dk times the scale, all three rounded to bf16 once."""
+    b, t, nq, h = q.shape
+    s, nkv = k.shape[1], k.shape[2]
+    g = nq // nkv
+    c = scale * 1.4426950408889634
+    dead = lse == tfa.NEG_INF
+    lse2 = torch.where(dead, torch.full_like(lse, float("inf")), lse * 1.4426950408889634)
+    dq, dk, dv = torch.zeros(q.shape), torch.zeros(k.shape), torch.zeros(v.shape)
+
+    def p_and_ds(bi, head, rows, keys):
+        ok = _unmasked(t, s, causal, int(lens[bi]), int(starts[bi]))[rows][:, keys]
+        sc = q[bi, rows, head] @ k[bi, keys, head // g].T
+        x = sc * c - lse2[bi, head, rows][:, None]
+        p = torch.exp2(torch.where(torch.from_numpy(ok), x, torch.full_like(x, -float("inf"))))
+        dp = dout[bi, rows, head] @ v[bi, keys, head // g].T
+        return p, p * (dp - delta[bi, head, rows][:, None])
+
+    for bi in range(b):
+        ln, st = int(lens[bi]), int(starts[bi])
+        for head in range(nq):
+            for q0 in range(0, t, tfa.BWD_DQ_ROWS):
+                for row0, tiles in tfa.flash_bwd_dq_visits(s, causal, ln, st, q0):
+                    rows = np.arange(row0, min(row0 + tfa.WARPGROUP_ROWS, t))
+                    acc = torch.zeros(len(rows), h)
+                    for k0 in tiles:
+                        keys = np.arange(k0, min(k0 + tfa.BWD_DQ_KEYS, s))
+                        _, ds = p_and_ds(bi, head, rows, keys)
+                        acc += _bf16(ds) @ k[bi, keys, head // g]
+                    dq[bi, rows, head] = acc * scale
+        for kvh in range(nkv):
+            for k0 in range(0, s, tfa.BWD_DKV_KEYS):
+                for key0, visits in tfa.flash_bwd_dkv_visits(t, s, g, causal, ln, st, k0):
+                    keys = np.arange(key0, min(key0 + tfa.WARPGROUP_ROWS, s))
+                    acc_k, acc_v = torch.zeros(len(keys), h), torch.zeros(len(keys), h)
+                    for gi, q0 in visits:
+                        rows = np.arange(q0, min(q0 + tfa.BWD_DKV_ROWS, t))
+                        p, ds = p_and_ds(bi, kvh * g + gi, rows, keys)
+                        acc_v += _bf16(p).T @ dout[bi, rows, kvh * g + gi]
+                        acc_k += _bf16(ds).T @ q[bi, rows, kvh * g + gi]
+                    dk[bi, keys, kvh] = acc_k * scale
+                    dv[bi, keys, kvh] = acc_v
+    return _bf16(dq), _bf16(dk), _bf16(dv)
+
+
+BWD_EMULATION_CASES = {
+    "mha_causal_pads": dict(t=200, s=200, nq=2, nkv=2, causal=True, lens=[200, 150], starts=[70, 0]),
+    "gqa4_causal_whole_tiles_past_len": dict(t=300, s=300, nq=4, nkv=1, causal=True, lens=[300, 100],
+                                             starts=[0, 0]),
+    "gqa2_noncausal": dict(t=130, s=130, nq=4, nkv=2, causal=False, lens=[130, 61], starts=[0, 40]),
+    "t_over_s_causal": dict(t=150, s=70, nq=2, nkv=1, causal=True, lens=[70, 70], starts=[0, 5]),
+    "s_over_t_noncausal": dict(t=65, s=200, nq=2, nkv=2, causal=False, lens=[200, 129], starts=[3, 0]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BWD_EMULATION_CASES))
+def test_backward_tile_arithmetic_matches_the_plain_version(case):
+    """The emulation of the kernels' arithmetic against
+    `flash_attention_bwd_reference` fed the plain forward's f32 out and lse,
+    inputs rounded to bf16 as the kernels get them. Tolerance: the card's
+    bound for the kernels (relative Frobenius error <= 1e-2, per element
+    |err| <= 2e-2 + 1e-2 x |ref|: P and dS rounded to bf16, outputs in
+    bf16); pad rows give dq = 0 and keys outside [start, length) dk = dv = 0
+    exactly, as in the reference."""
+    c = BWD_EMULATION_CASES[case]
+    rng = np.random.default_rng(11)
+    b, h = 2, 64
+    q, dout = (_bf16(torch.from_numpy(rng.standard_normal((b, c["t"], c["nq"], h)).astype(np.float32)))
+               for _ in range(2))
+    k, v = (_bf16(torch.from_numpy(rng.standard_normal((b, c["s"], c["nkv"], h)).astype(np.float32)))
+            for _ in range(2))
+    lens, starts = torch.tensor(c["lens"]), torch.tensor(c["starts"])
+    kw = dict(causal=c["causal"], kv_lengths=lens, kv_starts=starts)
+    out, lse = tfa.flash_attention_reference(q, k, v, **kw)
+    ref = tfa.flash_attention_bwd_reference(q, k, v, out, lse, dout, **kw)
+    delta = (dout * out).sum(-1).transpose(1, 2)
+    got = _emulate_bwd(q, k, v, dout, lse, delta, c["causal"], lens, starts, h ** -0.5)
+    for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+        err = (x - r).abs()
+        assert (err.norm() / r.norm()).item() <= 1e-2, name
+        assert (err - (2e-2 + 1e-2 * r.abs())).max().item() <= 0, name
+    for i in range(b):
+        lo, ln = c["starts"][i], min(c["lens"][i], c["s"])
+        assert torch.all(got[1][i, :lo] == 0) and torch.all(got[2][i, ln:] == 0)
+        if c["causal"]:
+            assert torch.all(got[0][i, :lo] == 0)

@@ -9,7 +9,7 @@ Tolerances (max abs error on rows with at least one valid key, against the
 plain version computed in f32): bf16 2e-2, f32 1e-4; lse 1e-3. Backward
 (bf16 only; dq, dk, dv against `flash_attention_bwd_reference` fed the plain
 forward's f32 out and lse): relative Frobenius error 1e-2 and, per element,
-|err| <= 2e-2 + 1e-2 x |ref|. Window attention: bf16 2e-2. w4 matmul (bf16
+|err| <= 2e-2 + 1e-2 x |ref|; the same launch repeated gives the same bytes. Window attention: bf16 2e-2. w4 matmul (bf16
 out against `w4_matmul_reference` in f32): relative Frobenius error 1e-2 and
 max abs error 2e-2 x max|ref|; the same small-M launch repeated gives the
 same bytes. Decode attention (bf16 q; bf16 or int8
@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from visper_lm_tpu_torch.models.decoder import quantize_head_vectors
+from visper_lm_tpu_torch.ops import attention as attn
 from visper_lm_tpu_torch.ops import decode_attention as da
 from visper_lm_tpu_torch.ops import flash_attention as fa
 from visper_lm_tpu_torch.ops import quant_matmul as qm
@@ -248,6 +249,186 @@ def test_flash_backward_kernels_match_plain(cuda_gen, h, nq, nkv, causal):
     with pytest.raises(ValueError):           # the backward kernels take bf16 only
         fa.flash_attention_bwd(qf, kf, vf, out_ref, lse_ref, dout.float(), **kw)
     assert (fa.dq_launches, fa.dkv_launches) == (d0 + 1, k0 + 1)
+
+
+def _assert_bwd_close(got, ref, name):
+    """`_assert_grad_close`, but for a gradient that is zero in exact
+    arithmetic (every row with one valid key: dS = P (dP - delta) = 0, so dq
+    = dk = 0) its relative error is one of rounding noise, and the
+    per-element bound alone holds it."""
+    ref = ref.float()
+    if ref.norm().item() > 1e-3 * ref.numel() ** 0.5:
+        _assert_grad_close(got, ref, name)
+        return
+    excess = ((got.float() - ref).abs() - (2e-2 + 1e-2 * ref.abs())).max().item()
+    assert excess <= 0, f"{name}: exceeds 2e-2 + 1e-2 x |ref| by {excess}"
+
+
+def _bwd_against_plain(q, k, v, dout, kw, kernel=None):
+    """Both backward kernels (the pair `flash_attention_bwd` takes, or the one
+    `kernel` forces) vs the plain backward fed the plain forward's f32 out and
+    lse (the reference shares nothing with the kernels); returns the kernels'
+    (dq, dk, dv)."""
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    d0, k0 = fa.dq_launches, fa.dkv_launches
+    if kernel is None:
+        got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    else:
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+        got = (fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, kernel=kernel, **kw),
+               *fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kernel=kernel, **kw))
+    assert (fa.dq_launches, fa.dkv_launches) == (d0 + 1, k0 + 1)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out_ref, lse_ref = fa.flash_attention_reference(qf, kf, vf, **kw)
+    ref = fa.flash_attention_bwd_reference(qf, kf, vf, out_ref, lse_ref, dout.float(), **kw)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == torch.bfloat16 and g.shape == r.shape
+        assert torch.isfinite(g).all(), name
+        _assert_bwd_close(g, r, name)
+    return got
+
+
+BWD_LENGTHS = [1, 63, 64, 65, 127, 128, 129, 657, 1024, 2048]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("nq,nkv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("h", [64, 96, 128])
+@pytest.mark.parametrize("t", BWD_LENGTHS)
+def test_flash_bwd_wgmma_across_lengths(cuda_gen, t, h, nq, nkv, causal):
+    """The wgmma pair every call takes, at T = S from one row to 2048 (ragged
+    against the 64- and 128-row tiles on both sides), G 1 and 4, causal and
+    not, with a batch row whose kv_lengths end inside a tile and leave whole
+    128-key tiles past it (their dk/dv must be written as zeros)."""
+    assert fa.flash_bwd_kernel_for(torch.bfloat16, h, t, t) == "wgmma"
+    b = 2
+    q, k, v = _qkv(cuda_gen, b, t, nq, nkv, h, torch.bfloat16)
+    dout = torch.randn(q.shape, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    lens = torch.tensor([t, max(t // 3, 1)], device="cuda")
+    kw = dict(causal=causal, kv_lengths=lens)
+    dq, dk, dv = _bwd_against_plain(q, k, v, dout, kw)
+    cut = int(lens[1])
+    assert torch.all(dk[1, cut:] == 0) and torch.all(dv[1, cut:] == 0)
+
+
+@pytest.mark.parametrize("h", [64, 96, 128])
+@pytest.mark.parametrize("t,s", [(200, 333), (333, 200), (65, 1), (1, 65), (129, 64)])
+def test_flash_bwd_wgmma_t_differs_from_s(cuda_gen, h, t, s):
+    """T != S both ways (causal compares column <= row without an offset, as
+    the forward), causal and not, GQA 8/2."""
+    b, nq, nkv = 2, 8, 2
+    q = torch.randn(b, t, nq, h, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    k = torch.randn(b, s, nkv, h, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    v = torch.randn(b, s, nkv, h, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    dout = torch.randn(q.shape, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    for causal in (True, False):
+        _bwd_against_plain(q, k, v, dout, dict(causal=causal))
+
+
+@pytest.mark.parametrize("kernel", ["wgmma", "mma_sync"])
+@pytest.mark.parametrize("h,nq,nkv", [(64, 4, 4), (96, 32, 8), (128, 8, 2)])
+def test_flash_bwd_pads_before_kv_starts(cuda_gen, kernel, h, nq, nkv):
+    """Left pads that start inside a tile (70) and cover whole tiles (333),
+    with a right pad, a batch row whose start lies beyond its length and one
+    with kv_lengths 0: rows before kv_starts have no valid key (dq = 0) and
+    keys outside [kv_starts, kv_lengths) get no share (dk = dv = 0)."""
+    b, t = 5, 768
+    q, k, v = _qkv(cuda_gen, b, t, nq, nkv, h, torch.bfloat16)
+    dout = torch.randn(q.shape, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    starts = torch.tensor([70, 333, 0, 500, 0], device="cuda")
+    lens = torch.tensor([t, 700, 600, 400, 0], device="cuda")
+    for causal in (True, False):
+        kw = dict(causal=causal, kv_starts=starts, kv_lengths=lens)
+        dq, dk, dv = _bwd_against_plain(q, k, v, dout, kw, kernel=kernel)
+        for i in range(b):
+            lo, ln = int(starts[i]), int(lens[i])
+            if causal:
+                assert torch.all(dq[i, :lo] == 0)
+            assert torch.all(dk[i, :lo] == 0) and torch.all(dv[i, :lo] == 0)
+            assert torch.all(dk[i, ln:] == 0) and torch.all(dv[i, ln:] == 0)
+        for i in (3, 4):                        # no valid pair in the row at all
+            assert torch.all(dq[i] == 0) and torch.all(dk[i] == 0) and torch.all(dv[i] == 0)
+
+
+def test_flash_bwd_wgmma_strided_views_of_a_packed_qkv(cuda_gen):
+    """q/k/v (and the cotangent) as strided views: the tensor maps carry the
+    strides, nothing is copied."""
+    b, t, n, h = 2, 300, 4, 96
+    qkv = torch.randn(b, t, 3, n, h, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not q.is_contiguous()
+    wide = torch.randn(b, t, n, 2 * h, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    dout = wide[..., h:]
+    lens = torch.tensor([300, 211], device="cuda")
+    _bwd_against_plain(q, k, v, dout, dict(causal=True, kv_lengths=lens))
+    ones = [torch.randn(1, 150, 1, h, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+            for _ in range(4)]
+    ones = [x.as_strided(x.shape, (8, h, 24, 1)) for x in ones]   # unit dims with odd (unused) strides
+    _bwd_against_plain(*ones, dict(causal=True))
+
+
+@pytest.mark.parametrize("b,t,nq,nkv,h", [(4, 1024, 32, 32, 96), (2, 1024, 32, 8, 128), (2, 200, 4, 4, 64)])
+def test_flash_bwd_wgmma_launch_is_bit_identical(cuda_gen, b, t, nq, nkv, h):
+    """Every dq, dk and dv element is written once by one CTA, with no
+    atomics: the same launch 20 times gives the same bytes."""
+    q, k, v = _qkv(cuda_gen, b, t, nq, nkv, h, torch.bfloat16)
+    dout = torch.randn(q.shape, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    kw = dict(causal=True, kv_lengths=torch.tensor([max(t - 300, 1)] + [t] * (b - 1), device="cuda"))
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+    for _ in range(20):
+        assert torch.equal(fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw), dq)
+        dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+        assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+
+
+def test_flash_bwd_forced_kernel_and_what_it_rejects(cuda_gen):
+    q, k, v = _qkv(cuda_gen, 1, 128, 2, 2, 96, torch.bfloat16)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    dout = torch.randn(q.shape, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    before = (fa.dq_launches, fa.dkv_launches)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, kernel="simt")
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd_dkv(q.float(), k.float(), v.float(), dout, lse, delta, kernel="wgmma")
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd_dq(q.float(), k.float(), v.float(), dout, lse, delta)
+    assert (fa.dq_launches, fa.dkv_launches) == before
+    new = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta)
+    old = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, kernel="mma_sync")
+    torch.cuda.synchronize()
+    _assert_grad_close(new, old.float(), "dq wgmma vs mma_sync")
+
+
+@pytest.mark.parametrize("dtype,h", [(torch.float32, 96), (torch.bfloat16, 192), (torch.float32, 256)])
+def test_dispatcher_trains_what_the_kernels_do_not_take(cuda_gen, dtype, h):
+    """An f32 input that needs a gradient (no backward kernel takes f32) and
+    head dims 192/256 (no kernel takes them) train through
+    multi_head_attention on the plain path: no kernel launch, and the
+    gradients of autograd through mha_plain."""
+    b, t, n = 2, 256, 2
+    q, k, v = _qkv(cuda_gen, b, t, n, n, h, dtype)
+    lens = torch.tensor([256, 190], device="cuda")
+    assert fa.flash_remainder(dtype, h, True) is not None
+    counts = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = attn.multi_head_attention(*xs, kv_lengths=lens)
+    w = torch.randn(out.shape, device="cuda", generator=cuda_gen)
+    (out.float() * w).sum().backward()
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == counts
+    ys = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref = attn.mha_plain(*ys, kv_lengths=lens)
+    (ref.float() * w).sum().backward()
+    for a, r in zip(xs, ys):
+        torch.testing.assert_close(a.grad, r.grad)
+    if dtype == torch.float32 and h in fa.SUPPORTED_HEAD_DIMS:   # without a gradient: the f32 kernel
+        with torch.no_grad():
+            attn.multi_head_attention(q, k, v, kv_lengths=lens)
+        assert fa.launches == counts[0] + 1
 
 
 def test_flash_autograd_runs_the_backward_kernels(cuda_gen):

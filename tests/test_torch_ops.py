@@ -192,3 +192,39 @@ def test_dispatch_on_cpu_uses_plain_versions_and_counts_no_launch():
     assert tflash.launches == before
     _close(routed[1, 32:], plain[1, 32:])
     _close(routed[0], plain[0])
+
+
+REMAINDER_CASES = [
+    # dtype, head dim, needs a gradient, taken by the hand-written kernels
+    *[(torch.bfloat16, h, g, True) for h in (64, 96, 128) for g in (False, True)],
+    *[(torch.float32, h, False, True) for h in (64, 96, 128)],
+    *[(torch.float32, h, True, False) for h in (64, 96, 128)],     # no f32 backward kernel
+    (torch.bfloat16, 192, False, False), (torch.bfloat16, 256, True, False),
+    (torch.float32, 192, False, False), (torch.float16, 96, False, False),
+    (torch.float16, 128, True, False), (torch.bfloat16, 80, False, False),
+]
+
+
+@pytest.mark.parametrize("dtype,h,needs_grad,taken", REMAINDER_CASES)
+def test_flash_remainder_names_what_no_kernel_takes(dtype, h, needs_grad, taken):
+    """The dispatcher's CUDA predicate: the kernels take bf16 and f32 forwards
+    at head dims 64/96/128 and bf16 backwards; the remainder is named (and
+    `multi_head_attention` sends it to `mha_plain`). On the CPU the flash
+    Function runs the plain versions and takes every call, as JAX's dispatch
+    does (test_dispatch_on_cpu_uses_plain_versions_and_counts_no_launch)."""
+    why = tflash.flash_remainder(dtype, h, needs_grad)
+    assert (why is None) == taken
+    if taken and dtype == torch.bfloat16:
+        assert tflash.flash_bwd_kernel_for(dtype, h, 256, 256) == "wgmma"
+    if not taken:
+        assert isinstance(why, str) and why
+
+
+@pytest.mark.parametrize("h", [32, 64, 96, 128, 160, 192, 256])
+def test_remainder_is_what_jax_admits_and_the_kernels_refuse(h):
+    """JAX's eligibility admits head dims 96 and multiples of 64; of those the
+    port's kernels take 64, 96 and 128, and the rest are named."""
+    jax_eligible = h % 64 == 0 or h == 96
+    kernel_takes = tflash.flash_remainder(torch.bfloat16, h, True) is None
+    assert kernel_takes == (h in tflash.SUPPORTED_HEAD_DIMS)
+    assert not kernel_takes or jax_eligible

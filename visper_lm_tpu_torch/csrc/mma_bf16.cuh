@@ -22,6 +22,13 @@ constexpr float kNegInf = -2.3819763e38f;  // NEG_INF of the JAX kernels
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// 2^x by the special-function unit alone (2^-inf = 0; about 2 ulp).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(

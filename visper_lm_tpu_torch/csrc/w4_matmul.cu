@@ -82,13 +82,18 @@
 #include <tuple>
 
 #include "mma_bf16.cuh"
+#include "tma_sm90.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
 using visper::load_a;
+using visper::mbar_arrive;
+using visper::mbar_expect_tx;
+using visper::mbar_init;
 using visper::mma_bf16;
 using visper::pack_f32;
+using visper::smem_u32;
 
 struct Params {
   const __nv_bfloat16* x;  // (M, din)
@@ -105,9 +110,6 @@ struct Params {
 
 // ---------------------------------------------------------------- helpers
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 16 bytes global -> shared, asynchronously; `bytes` (16 or 0) are read and
 // the rest of the 16 is written as zeros.
@@ -132,14 +134,6 @@ __device__ __forceinline__ void cp_async_wait(int n) {
     case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
     default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
   }
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
@@ -195,12 +189,6 @@ constexpr int kStageBytes = kXTile + kPTile;
 constexpr int kConsumers = 256;          // two warpgroups
 constexpr int kWgmmaThreads = kConsumers + 32;  // and the producer's warp
 constexpr int kWgmmaSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;
-
-// The barrier expects `bytes` more from bulk copies, and this thread arrives.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
 
 // One box of a 2-D tensor map, global -> shared, by the copy engine; its
 // bytes count towards `bar`. Rows and columns outside the tensor arrive as 0.
@@ -724,12 +712,6 @@ cudaError_t launch_mma_sync(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled through the runtime: the library links no libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
 // The map of a row-major (rows, cols) tensor of 1- or 2-byte elements, cut in
 // boxes of box_rows x 128 bytes in the 128-byte swizzle. Built once per
 // (pointer, shape) and kept; false when the encoding is refused.
@@ -737,17 +719,9 @@ bool tensor_map(const void* ptr, int elem_bytes, long long rows, long long cols,
                 CUtensorMap* out) {
   static std::mutex mu;
   static std::map<std::tuple<const void*, int, long long, long long, int>, CUtensorMap> maps;
-  static EncodeTiled encode = nullptr;
   std::lock_guard<std::mutex> lock(mu);
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
-            cudaSuccess || found != cudaDriverEntryPointSuccess) {
-      return false;
-    }
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
+  const visper::EncodeTiled encode = visper::encode_tiled();
+  if (encode == nullptr) return false;
   const auto key = std::make_tuple(ptr, elem_bytes, rows, cols, box_rows);
   auto it = maps.find(key);
   if (it != maps.end()) {

@@ -35,7 +35,7 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _BWD = (
-    [_P] * 11 + [ctypes.POINTER(_LL)] + [_I] * 6 + [ctypes.c_float, _I, _P],
+    [_P] * 11 + [ctypes.POINTER(_LL)] + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
     ctypes.c_int,
 )
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
@@ -46,7 +46,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         ),
         "visper_flash_fwd_wgmma_info": ([_I] + [ctypes.POINTER(_I)] * 3, ctypes.c_int),
     },
-    "flash_bwd": {"visper_flash_bwd_dq": _BWD, "visper_flash_bwd_dkv": _BWD},
+    "flash_bwd": {
+        "visper_flash_bwd_dq": _BWD,
+        "visper_flash_bwd_dkv": _BWD,
+        "visper_flash_bwd_wgmma_info": ([_I] + [ctypes.POINTER(_I)] * 4, ctypes.c_int),
+    },
     "window_attn": {
         "visper_window_attn": (
             [_P] * 6 + [_LL] * 12 + [_I] * 5 + [ctypes.c_float, _P],

@@ -7,7 +7,8 @@
     probabilities) plus the current chunk as extras (JAX `mha_xla_cache`).
   * `multi_head_attention` — sends eligible self-attention on CUDA tensors to
     the hand-written flash kernel (ops/flash_attention.py), everything else
-    to `mha_plain`, with the JAX package's eligibility predicate.
+    to `mha_plain`, with the JAX package's eligibility predicate and, on
+    CUDA, without what the kernels do not take (`flash_remainder`).
 
 Shapes follow the "BTNH" convention: q (B, T, Nq, H), k/v (B, S, Nkv, H).
 Dot products run on operands rounded to the working dtype and accumulate in
@@ -124,6 +125,10 @@ def multi_head_attention(
     use_kernel=None means "the tensors are on CUDA" (JAX: "running on TPU");
     False forces the plain path. Eligibility is the JAX predicate: T == S,
     T >= 128, T % 128 == 0, head_dim 96 or a multiple of 64, q_offset == 0.
+    On CUDA the remainder that no hand-written kernel takes (head dims other
+    than 64/96/128, dtypes other than bf16/f32, f32 inputs that need a
+    gradient: `flash_remainder`) takes the plain path too; on the CPU the
+    flash Function runs the plain versions, which take every call.
     """
     if use_kernel is None:
         use_kernel = q.is_cuda
@@ -137,6 +142,11 @@ def multi_head_attention(
         and isinstance(q_offset, int)
         and q_offset == 0
     )
+    if eligible and q.is_cuda:
+        from visper_lm_tpu_torch.ops.flash_attention import flash_remainder
+
+        needs_grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+        eligible = flash_remainder(q.dtype, head_dim, needs_grad) is None
     if eligible:
         from visper_lm_tpu_torch.ops.flash_attention import flash_attention
 

@@ -15,7 +15,9 @@ Each wrapper launches its kernel for CUDA tensors (or raises) and uses the
 plain version only for tensors on the CPU. Each kernel has its own launch
 counter (`launches`, `dq_launches`, `dkv_launches`). The forward takes bf16
 and f32; the backward kernels take bf16 only (the training path's dtype), so
-backward() of f32 CUDA tensors raises.
+backward() of f32 CUDA tensors raises; `flash_remainder` names what no
+kernel takes, and `ops.attention.multi_head_attention` sends that to the
+plain version.
 
 csrc/flash_fwd.cu holds three forward kernels and `flash_fwd_kernel_for`
 names the one a call takes: "wgmma" (bf16, every supported shape: 128 query
@@ -23,6 +25,14 @@ rows per CTA, K/V tiles through a TMA ring, two consumer warpgroups on
 `wgmma`), "simt" (f32, for checking) and "mma_sync" (the bf16 kernel before
 "wgmma": it keeps the calls whose scale is not positive, and
 `kernel="mma_sync"` forces it to be timed beside the other).
+
+csrc/flash_bwd.cu holds two designs of the backward pair and
+`flash_bwd_kernel_for` names the one a call takes: "wgmma" (every call: dq
+over CTAs of 128 query rows with K/V tiles of 64 keys through a TMA ring,
+dk/dv over CTAs of 128 keys with Q/dO tiles of 64 rows and their lse/delta
+through it; `flash_bwd_dq_visits` / `flash_bwd_dkv_visits` are their loops
+and `flash_bwd_tile_order` their grids) and "mma_sync" (the kernels before
+them, `kernel="mma_sync"` to time them).
 
 Fully masked rows (left padding before kv_starts): the kernel gives 0 and
 lse = NEG_INF, the plain forward a uniform average of v. Compare the two on
@@ -51,6 +61,12 @@ SUPPORTED_DTYPES = (torch.bfloat16, torch.float32)
 KERNEL_IDS = {"simt": 0, "wgmma": 1, "mma_sync": 2}
 KERNEL_DTYPES = {"simt": torch.float32, "wgmma": torch.bfloat16, "mma_sync": torch.bfloat16}
 WGMMA_Q_TILE = 128      # query rows per CTA of the wgmma kernel
+BWD_KERNEL_IDS = {"wgmma": 1, "mma_sync": 2}
+BWD_DQ_ROWS = 128       # wgmma dq: query rows per CTA, 64 per warpgroup
+BWD_DQ_KEYS = 64        # wgmma dq: keys per streamed K/V tile
+BWD_DKV_KEYS = 128      # wgmma dk/dv: keys per CTA, 64 per warpgroup
+BWD_DKV_ROWS = 64       # wgmma dk/dv: query rows per streamed Q/dO tile
+WARPGROUP_ROWS = 64     # rows of a wgmma product: one warpgroup's share of a CTA
 
 # Kernel launches since the last reset, one counter per kernel; a caller sets
 # them to 0 and reads them to show that a run went through the kernels.
@@ -152,6 +168,96 @@ def flash_fwd_tile_order(t: int) -> Tuple[int, ...]:
     return tuple(ntiles - 1 - i for i in range(ntiles))
 
 
+def flash_remainder(dtype: torch.dtype, h: int, needs_grad: bool) -> Optional[str]:
+    """Why no hand-written kernel takes a (dtype, head dim, needs a gradient)
+    call on CUDA, or None when the kernels take it: the forward takes bf16 and
+    f32 at head dims 64/96/128, the backward bf16 only. The dispatcher sends
+    the remainder to the plain version."""
+    if dtype not in SUPPORTED_DTYPES:
+        return f"dtype {dtype}"
+    if h not in SUPPORTED_HEAD_DIMS:
+        return f"head_dim {h} not in {SUPPORTED_HEAD_DIMS}"
+    if needs_grad and dtype != torch.bfloat16:
+        return f"the backward kernels take bf16, not {dtype}"
+    return None
+
+
+def flash_bwd_kernel_for(dtype: torch.dtype, h: int, t: int, s: int) -> str:
+    """The name of the hand-written backward pair a (dtype, head dim, query
+    length, key length) call takes on CUDA; raises for what no kernel runs.
+    Never the plain version: "wgmma" takes every bf16 call at H 64/96/128
+    (causal or not, any lengths, masks and strides); "mma_sync" is only
+    forced, to be timed beside it."""
+    if dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention_bwd: the backward kernels take bf16, not {dtype}")
+    if h not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head_dim {h} not in {SUPPORTED_HEAD_DIMS}")
+    if t < 1 or s < 1:
+        raise ValueError(f"flash_attention_bwd: lengths T {t}, S {s}")
+    return "wgmma"
+
+
+def flash_bwd_tile_order(which: str, n: int) -> Tuple[int, ...]:
+    """The order in which a wgmma backward kernel's grid visits the tiles of
+    one (batch, head): "dq" the ceil(T / 128) query tiles, the last (for
+    causal attention the longest) first; "dkv" the ceil(S / 128) key tiles,
+    the first (under causal masking they see the most rows) first. The tiles
+    of one (batch, head) are neighbours in the grid, so re-reads meet in L2."""
+    if which == "dq":
+        ntiles = -(-n // BWD_DQ_ROWS)
+        return tuple(ntiles - 1 - i for i in range(ntiles))
+    if which == "dkv":
+        return tuple(range(-(-n // BWD_DKV_KEYS)))
+    raise ValueError(f"flash_bwd_tile_order: no kernel {which!r}")
+
+
+def flash_bwd_dq_visits(
+    s: int, causal: bool, kv_length: Optional[int], kv_start: Optional[int], q0: int,
+) -> Tuple[Tuple[int, Tuple[int, ...]], ...]:
+    """The loop of the wgmma dq kernel's CTA of query rows [q0, q0 + 128) of
+    one batch row: for each warpgroup, (its first row, the first
+    keys of the 64-key tiles whose products it runs). Tiles run from the one
+    holding kv_start to the diagonal / kv length; a warpgroup skips those
+    above its own diagonal."""
+    length = s if kv_length is None else min(kv_length, s)
+    lo = 0 if kv_start is None else max(kv_start, 0)
+    hi = min(length, q0 + BWD_DQ_ROWS) if causal else length
+    tiles = range((lo // BWD_DQ_KEYS) * BWD_DQ_KEYS, hi, BWD_DQ_KEYS)
+    out = []
+    for row0 in range(q0, q0 + BWD_DQ_ROWS, WARPGROUP_ROWS):
+        wg_hi = min(length, row0 + WARPGROUP_ROWS) if causal else length
+        out.append((row0, tuple(k0 for k0 in tiles if k0 < wg_hi)))
+    return tuple(out)
+
+
+def flash_bwd_dkv_visits(
+    t: int, s: int, g: int, causal: bool, kv_length: Optional[int], kv_start: Optional[int],
+    k0: int,
+) -> Tuple[Tuple[int, Tuple[Tuple[int, int], ...]], ...]:
+    """The loop of the wgmma dk/dv kernel's CTA of keys [k0, k0 + 128) of one
+    (batch row, kv head): for each warpgroup, (its first key, the
+    (query head in the group, first row) of the 64-row tiles whose products
+    it runs), in the kernel's order: the group's heads in turn, for each the
+    q tiles from the causal diagonal on. A warpgroup whose keys all lie
+    outside [kv_start, kv_length) runs none; one whose keys all lie after a
+    tile's rows skips it."""
+    length = s if kv_length is None else min(kv_length, s)
+    lo = 0 if kv_start is None else max(kv_start, 0)
+    active = k0 < length and k0 + BWD_DKV_KEYS > lo
+    q_first = (max(k0, lo) // BWD_DKV_ROWS) * BWD_DKV_ROWS if causal else 0
+    tiles = [(gi, q0) for gi in range(g) for q0 in range(q_first, t, BWD_DKV_ROWS)] if active else []
+    out = []
+    for key0 in range(k0, k0 + BWD_DKV_KEYS, WARPGROUP_ROWS):
+        first_key = max(key0, lo)
+        if not (key0 < length and key0 + WARPGROUP_ROWS > lo):
+            out.append((key0, ()))
+            continue
+        out.append((key0, tuple(
+            (gi, q0) for gi, q0 in tiles if not (causal and q0 + BWD_DKV_ROWS - 1 < first_key)
+        )))
+    return tuple(out)
+
+
 def _check(q, k, v, kv_lengths, kv_starts) -> None:
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_cuda:
@@ -248,19 +354,24 @@ def flash_attention_fwd(
 
 
 def _bwd_launch(
-    fn: str, q, k, v, dout, lse, delta, kv_lengths, kv_starts, causal, scale,
+    fn: str, q, k, v, dout, lse, delta, kv_lengths, kv_starts, causal, scale, kernel,
 ) -> Tuple[torch.Tensor, ...]:
-    """Launch the dq (B2) or dk/dv (B3) kernel on the current stream (bf16 only)."""
+    """Launch the dq (B2) or dk/dv (B3) kernel on the current stream (bf16
+    only): the one `flash_bwd_kernel_for` names, or `kernel`."""
     _check(q, k, v, kv_lengths, kv_starts)
+    b, t, nq, h = q.shape
+    s, nkv = k.shape[1], k.shape[2]
+    if kernel is None:
+        kernel = flash_bwd_kernel_for(q.dtype, h, t, s)
+    elif kernel not in BWD_KERNEL_IDS:
+        raise ValueError(f"flash_attention_bwd: no kernel named {kernel!r} (one of {sorted(BWD_KERNEL_IDS)})")
     if q.dtype != torch.bfloat16:
         raise ValueError(f"flash_attention_bwd: the backward kernels take bf16, not {q.dtype}")
-    b, t, nq, h = q.shape
     if dout.shape != q.shape or lse.shape != (b, nq, t) or delta.shape != (b, nq, t):
         raise ValueError("flash_attention_bwd: dout/lse/delta shapes do not match q")
     from visper_lm_tpu_torch.ops import _build
 
     lib = _build.load("flash_bwd")
-    s, nkv = k.shape[1], k.shape[2]
     if scale is None:
         scale = h ** -0.5
     dout = dout.to(q.dtype).contiguous()
@@ -282,32 +393,38 @@ def _bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _ptr(lens), _ptr(starts), strides,
-        b, t, s, nq, nkv, h, float(scale), int(causal),
+        b, t, s, nq, nkv, h, float(scale), int(causal), BWD_KERNEL_IDS[kernel],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"flash_attention: {fn} kernel launch failed with CUDA error {rc}")
+        raise RuntimeError(f"flash_attention: {kernel} {fn} kernel launch failed with CUDA error {rc}")
     return outs
 
 
 def flash_attention_bwd_dq(
     q, k, v, dout, lse, delta, *, causal=True, kv_lengths=None, kv_starts=None, scale=None,
+    kernel: Optional[str] = None,
 ) -> torch.Tensor:
     """B2: dq (B, T, Nq, H) in q's dtype, from dout, the forward's lse and
-    delta = rowsum(dout o out) (B, Nq, T) f32. bf16 CUDA tensors only."""
+    delta = rowsum(dout o out) (B, Nq, T) f32. bf16 CUDA tensors only;
+    `kernel` forces one of BWD_KERNEL_IDS."""
     global dq_launches
-    (dq,) = _bwd_launch("dq", q, k, v, dout, lse, delta, kv_lengths, kv_starts, causal, scale)
+    (dq,) = _bwd_launch("dq", q, k, v, dout, lse, delta, kv_lengths, kv_starts, causal, scale,
+                        kernel)
     dq_launches += 1
     return dq
 
 
 def flash_attention_bwd_dkv(
     q, k, v, dout, lse, delta, *, causal=True, kv_lengths=None, kv_starts=None, scale=None,
+    kernel: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B3: (dk, dv) (B, S, Nkv, H) in the input dtypes, summed over each kv
-    head's query group. bf16 CUDA tensors only."""
+    head's query group. bf16 CUDA tensors only; `kernel` forces one of
+    BWD_KERNEL_IDS."""
     global dkv_launches
-    dk, dv = _bwd_launch("dkv", q, k, v, dout, lse, delta, kv_lengths, kv_starts, causal, scale)
+    dk, dv = _bwd_launch("dkv", q, k, v, dout, lse, delta, kv_lengths, kv_starts, causal, scale,
+                         kernel)
     dkv_launches += 1
     return dk, dv
 
