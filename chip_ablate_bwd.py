@@ -17,7 +17,6 @@ nothing else. Builds go to visper_lm_tpu_torch/_build/ablate/.
 
 from __future__ import annotations
 
-import ctypes
 import subprocess
 import sys
 from pathlib import Path
@@ -38,16 +37,28 @@ SHAPES = {  # b, t, nq, nkv, h, kv_lengths
 }
 
 
+# (text, replacement, times it must occur in the wgmma kernels' part of the
+# source): a renamed or reformatted call fails the build of the ablations
+# instead of leaving a variant that is the full kernel.
+SWITCHES = (
+    ("wgmma_ss<", "if (ABL_SS) wgmma_ss<", 4),              # S, dP; S^T, dP^T
+    ("wgmma_rs<H>(", "if (ABL_RS) wgmma_rs<H>(", 3),        # dq; dv, dk
+    ("= ex2(", "= ABL_EX2 ? ex2(", 2),                      # P in dq, P^T in dk/dv
+    ("ABL_EX2 ? ex2(st[i]);", "ABL_EX2 ? ex2(st[i]) : st[i];", 1),
+    ("ABL_EX2 ? ex2(sa[i]);", "ABL_EX2 ? ex2(sa[i]) : sa[i];", 1),
+)
+
+
 def ablatable_source(src: str) -> str:
     """flash_bwd.cu with each product and ex2 of the wgmma kernels behind a
-    switch (the mma.sync kernels above them are left as they are)."""
+    switch (the mma.sync kernels above them are left as they are). Raises if
+    a switched call does not occur as often as SWITCHES says."""
     cut = src.index("// bf16: TMA ring + wgmma")
     head, body = src[:cut], src[cut:]
-    body = body.replace("wgmma_ss<", "if (ABL_SS) wgmma_ss<")
-    body = body.replace("wgmma_rs<H>(", "if (ABL_RS) wgmma_rs<H>(")
-    body = body.replace("= ex2(", "= ABL_EX2 ? ex2(")
-    body = body.replace("ABL_EX2 ? ex2(st[i]);", "ABL_EX2 ? ex2(st[i]) : st[i];")
-    body = body.replace("ABL_EX2 ? ex2(sa[i]);", "ABL_EX2 ? ex2(sa[i]) : sa[i];")
+    for old, new, times in SWITCHES:
+        if body.count(old) != times:
+            raise ValueError(f"chip_ablate_bwd: {old!r} occurs {body.count(old)} times, not {times}")
+        body = body.replace(old, new)
     return head + body
 
 
@@ -68,9 +79,8 @@ def main() -> int:
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     procs = {
         name: subprocess.Popen(
-            [_build.nvcc_path(), *flags, f"-I{_build.CSRC}",
-             *(f"-D{k}={v}" for k, v in {"ABL_SS": 1, "ABL_RS": 1, "ABL_EX2": 1, **over}.items()),
-             "-o", str(out_dir / f"{name}.so"), str(src)],
+            _build.nvcc_command(src, out_dir / f"{name}.so", flags=flags,
+                                defines={"ABL_SS": 1, "ABL_RS": 1, "ABL_EX2": 1, **over}),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for name, over in VARIANTS.items()
     }
@@ -79,11 +89,7 @@ def main() -> int:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        for fn, (argtypes, restype) in _build.SIGNATURES["flash_bwd"].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
-        libs[name] = lib
+        libs[name] = _build.bind("flash_bwd", out_dir / f"{name}.so")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -96,11 +102,11 @@ def main() -> int:
         delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
         times = {name: ([], []) for name in VARIANTS}
         for name in [*VARIANTS, *reversed(VARIANTS)]:
-            _build._loaded["flash_bwd"] = libs[name]
-            times[name][0].append(graph_ms(
-                [lambda: fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)], 20))
-            times[name][1].append(graph_ms(
-                [lambda: fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)], 20))
+            with _build.loaded_as("flash_bwd", libs[name]):
+                times[name][0].append(graph_ms(
+                    [lambda: fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)], 20))
+                times[name][1].append(graph_ms(
+                    [lambda: fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)], 20))
         for name, (dq, dkv) in times.items():
             print(f"ablation {shape} {name}: dq {sum(dq) / 2:.4f} ms {dq}, "
                   f"dk/dv {sum(dkv) / 2:.4f} ms {dkv}")

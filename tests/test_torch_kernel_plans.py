@@ -22,16 +22,22 @@ what decides their grids is plain Python and is held here:
     visit of each loop, as it does in the JAX package's pair lists; the
     pair's tile arithmetic in torch (P and dS rounded to bf16 per tile, f32
     sums in visit order) is held to `flash_attention_bwd_reference` at the
-    card's bound for the kernels.
+    card's bound for the kernels;
+  * the ablation builds of chip_ablate_bwd.py: each switched call of the
+    wgmma kernels occurs as often as the script expects, and a renamed one
+    stops the script instead of leaving a variant that is the full kernel.
 """
 
+import importlib.util
 import inspect
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from visper_lm_tpu_torch.ops import decode_attention as tda
+from visper_lm_tpu_torch.ops import _build
 from visper_lm_tpu_torch.ops import flash_attention as tfa
 
 torch.set_num_threads(2)
@@ -400,3 +406,34 @@ def test_backward_tile_arithmetic_matches_the_plain_version(case):
         assert torch.all(got[1][i, :lo] == 0) and torch.all(got[2][i, ln:] == 0)
         if c["causal"]:
             assert torch.all(got[0][i, :lo] == 0)
+
+
+def _ablate_script():
+    path = Path(__file__).resolve().parent.parent / "chip_ablate_bwd.py"
+    spec = importlib.util.spec_from_file_location("chip_ablate_bwd", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_ablation_switches_every_product_and_ex2():
+    abl = _ablate_script()
+    src = (_build.CSRC / "flash_bwd.cu").read_text()
+    got = abl.ablatable_source(src)
+    cut = src.index("// bf16: TMA ring + wgmma")
+    assert got[:cut] == src[:cut]                      # the mma.sync kernels untouched
+    body = got[cut:]
+    assert body.count("if (ABL_SS) wgmma_ss<") == body.count("wgmma_ss<") == 4
+    assert body.count("if (ABL_RS) wgmma_rs<H>(") == body.count("wgmma_rs<H>(") == 3
+    assert body.count("ABL_EX2 ? ex2(") == body.count("ex2(") == 2
+
+
+@pytest.mark.parametrize("which", range(3))
+def test_ablation_refuses_a_source_whose_calls_it_does_not_find(which):
+    abl = _ablate_script()
+    src = (_build.CSRC / "flash_bwd.cu").read_text()
+    old = abl.SWITCHES[which][0]
+    at = src.rindex(old)
+    renamed = src[:at] + old.replace("(", " (").replace("<", " <") + src[at + len(old):]
+    with pytest.raises(ValueError, match="occurs"):
+        abl.ablatable_source(renamed)

@@ -353,7 +353,8 @@ def test_flash_bwd_pads_before_kv_starts(cuda_gen, kernel, h, nq, nkv):
 
 def test_flash_bwd_wgmma_strided_views_of_a_packed_qkv(cuda_gen):
     """q/k/v (and the cotangent) as strided views: the tensor maps carry the
-    strides, nothing is copied."""
+    strides, nothing is copied. A cotangent whose rows are not 16-byte
+    aligned is copied first and gives the same gradients."""
     b, t, n, h = 2, 300, 4, 96
     qkv = torch.randn(b, t, 3, n, h, device="cuda", generator=cuda_gen).to(torch.bfloat16)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -362,6 +363,10 @@ def test_flash_bwd_wgmma_strided_views_of_a_packed_qkv(cuda_gen):
     dout = wide[..., h:]
     lens = torch.tensor([300, 211], device="cuda")
     _bwd_against_plain(q, k, v, dout, dict(causal=True, kv_lengths=lens))
+    flat = torch.randn(dout.numel() + 1, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    shifted = flat[1:].view(dout.shape)                 # 2 bytes past an aligned start
+    assert shifted.data_ptr() % 16
+    _bwd_against_plain(q, k, v, shifted, dict(causal=True, kv_lengths=lens))
     ones = [torch.randn(1, 150, 1, h, device="cuda", generator=cuda_gen).to(torch.bfloat16)
             for _ in range(4)]
     ones = [x.as_strided(x.shape, (8, h, 24, 1)) for x in ones]   # unit dims with odd (unused) strides
@@ -404,19 +409,25 @@ def test_flash_bwd_forced_kernel_and_what_it_rejects(cuda_gen):
     _assert_grad_close(new, old.float(), "dq wgmma vs mma_sync")
 
 
-@pytest.mark.parametrize("dtype,h", [(torch.float32, 96), (torch.bfloat16, 192), (torch.float32, 256)])
-def test_dispatcher_trains_what_the_kernels_do_not_take(cuda_gen, dtype, h):
-    """An f32 input that needs a gradient (no backward kernel takes f32) and
-    head dims 192/256 (no kernel takes them) train through
-    multi_head_attention on the plain path: no kernel launch, and the
-    gradients of autograd through mha_plain."""
+@pytest.mark.parametrize(
+    "dtype,h", [(torch.float32, 96), (torch.bfloat16, 192), (torch.float32, 256), (torch.float16, 128)]
+)
+def test_dispatcher_raises_for_what_the_kernels_do_not_take(cuda_gen, dtype, h):
+    """An eligible call that no hand-written kernel takes (an f32 input that
+    needs a gradient: no backward kernel takes f32; f16; head dims 192/256)
+    raises in multi_head_attention before the forward runs, with no kernel
+    launch. Asked for with use_kernel=False, the plain path trains it with
+    the gradients of autograd through mha_plain."""
     b, t, n = 2, 256, 2
     q, k, v = _qkv(cuda_gen, b, t, n, n, h, dtype)
     lens = torch.tensor([256, 190], device="cuda")
-    assert fa.flash_remainder(dtype, h, True) is not None
+    why = fa.flash_remainder(dtype, h, True)
+    assert why is not None
     counts = (fa.launches, fa.dq_launches, fa.dkv_launches)
     xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
-    out = attn.multi_head_attention(*xs, kv_lengths=lens)
+    with pytest.raises(ValueError, match="no hand-written kernel takes"):
+        attn.multi_head_attention(*xs, kv_lengths=lens)
+    out = attn.multi_head_attention(*xs, kv_lengths=lens, use_kernel=False)
     w = torch.randn(out.shape, device="cuda", generator=cuda_gen)
     (out.float() * w).sum().backward()
     assert (fa.launches, fa.dq_launches, fa.dkv_launches) == counts

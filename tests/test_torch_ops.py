@@ -209,7 +209,7 @@ REMAINDER_CASES = [
 def test_flash_remainder_names_what_no_kernel_takes(dtype, h, needs_grad, taken):
     """The dispatcher's CUDA predicate: the kernels take bf16 and f32 forwards
     at head dims 64/96/128 and bf16 backwards; the remainder is named (and
-    `multi_head_attention` sends it to `mha_plain`). On the CPU the flash
+    `multi_head_attention` raises for it on CUDA). On the CPU the flash
     Function runs the plain versions and takes every call, as JAX's dispatch
     does (test_dispatch_on_cpu_uses_plain_versions_and_counts_no_launch)."""
     why = tflash.flash_remainder(dtype, h, needs_grad)

@@ -16,8 +16,9 @@ import re
 import shutil
 import subprocess
 import time
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterator, List, Mapping, Optional, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -90,11 +91,20 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / h.hexdigest()[:16] / f"lib{name}.so"
 
 
+def nvcc_command(
+    src: Path, out: Path, *, defines: Optional[Mapping[str, int]] = None,
+    flags: Sequence[str] = NVCC_FLAGS,
+) -> List[str]:
+    """The nvcc command that builds `src` into the shared library `out`, with
+    the sources' headers on the include path and `-D` for each define."""
+    return [nvcc_path(), *flags, f"-I{CSRC}", *(f"-D{k}={v}" for k, v in (defines or {}).items()),
+            "-o", str(out), str(src)]
+
+
 def _start(name: str) -> subprocess.Popen:
     lib = _lib_path(name)
     lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = nvcc_command(CSRC / f"{name}.cu", lib.with_suffix(f".{os.getpid()}.tmp"))
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
@@ -157,6 +167,16 @@ def kernel_resources(log: str) -> Dict[str, Dict[str, int]]:
     return out
 
 
+def bind(name: str, path: Path) -> ctypes.CDLL:
+    """Load the shared library at `path` with the C signatures of `name`."""
+    lib = ctypes.CDLL(str(path))
+    for fn, (argtypes, restype) in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = restype
+    return lib
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library `name`, building it first if needed."""
     lib = _loaded.get(name)
@@ -165,10 +185,20 @@ def load(name: str) -> ctypes.CDLL:
     path = _lib_path(name)
     if not path.exists():
         build_all()
-    lib = ctypes.CDLL(str(path))
-    for fn, (argtypes, restype) in SIGNATURES[name].items():
-        f = getattr(lib, fn)
-        f.argtypes = argtypes
-        f.restype = restype
-    _loaded[name] = lib
+    lib = _loaded[name] = bind(name, path)
     return lib
+
+
+@contextmanager
+def loaded_as(name: str, lib: ctypes.CDLL) -> Iterator[None]:
+    """Within the block, the wrappers that `load(name)` launch from `lib` (a
+    library built from a modified copy of the source, to time it)."""
+    before = _loaded.get(name)
+    _loaded[name] = lib
+    try:
+        yield
+    finally:
+        if before is None:
+            _loaded.pop(name, None)
+        else:
+            _loaded[name] = before

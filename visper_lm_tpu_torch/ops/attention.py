@@ -7,8 +7,8 @@
     probabilities) plus the current chunk as extras (JAX `mha_xla_cache`).
   * `multi_head_attention` — sends eligible self-attention on CUDA tensors to
     the hand-written flash kernel (ops/flash_attention.py), everything else
-    to `mha_plain`, with the JAX package's eligibility predicate and, on
-    CUDA, without what the kernels do not take (`flash_remainder`).
+    to `mha_plain`, with the JAX package's eligibility predicate; an eligible
+    CUDA call that the kernels do not take (`flash_remainder`) raises.
 
 Shapes follow the "BTNH" convention: q (B, T, Nq, H), k/v (B, S, Nkv, H).
 Dot products run on operands rounded to the working dtype and accumulate in
@@ -125,10 +125,11 @@ def multi_head_attention(
     use_kernel=None means "the tensors are on CUDA" (JAX: "running on TPU");
     False forces the plain path. Eligibility is the JAX predicate: T == S,
     T >= 128, T % 128 == 0, head_dim 96 or a multiple of 64, q_offset == 0.
-    On CUDA the remainder that no hand-written kernel takes (head dims other
-    than 64/96/128, dtypes other than bf16/f32, f32 inputs that need a
-    gradient: `flash_remainder`) takes the plain path too; on the CPU the
-    flash Function runs the plain versions, which take every call.
+    An eligible call on CUDA that no hand-written kernel takes (head dims
+    other than 64/96/128, dtypes other than bf16/f32, f32 inputs that need a
+    gradient: `flash_remainder`) raises ValueError before the forward runs;
+    on the CPU the flash Function runs the plain versions, which take every
+    call.
     """
     if use_kernel is None:
         use_kernel = q.is_cuda
@@ -142,21 +143,23 @@ def multi_head_attention(
         and isinstance(q_offset, int)
         and q_offset == 0
     )
-    if eligible and q.is_cuda:
-        from visper_lm_tpu_torch.ops.flash_attention import flash_remainder
-
-        needs_grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
-        eligible = flash_remainder(q.dtype, head_dim, needs_grad) is None
-    if eligible:
-        from visper_lm_tpu_torch.ops.flash_attention import flash_attention
-
-        return flash_attention(
-            q, k, v, causal=causal, kv_lengths=kv_lengths, kv_starts=kv_starts,
-            scale=scale,
+    if not eligible:
+        return mha_plain(
+            q, k, v, causal=causal, q_offset=q_offset, kv_lengths=kv_lengths,
+            kv_starts=kv_starts, scale=scale,
         )
-    return mha_plain(
-        q, k, v, causal=causal, q_offset=q_offset, kv_lengths=kv_lengths,
-        kv_starts=kv_starts, scale=scale,
+    from visper_lm_tpu_torch.ops.flash_attention import flash_attention, flash_remainder
+
+    if q.is_cuda:
+        needs_grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+        why = flash_remainder(q.dtype, head_dim, needs_grad)
+        if why is not None:
+            raise ValueError(
+                f"multi_head_attention: no hand-written kernel takes this call ({why}); "
+                "pass use_kernel=False for the plain path"
+            )
+    return flash_attention(
+        q, k, v, causal=causal, kv_lengths=kv_lengths, kv_starts=kv_starts, scale=scale,
     )
 
 

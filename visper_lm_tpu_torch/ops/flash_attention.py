@@ -16,8 +16,8 @@ plain version only for tensors on the CPU. Each kernel has its own launch
 counter (`launches`, `dq_launches`, `dkv_launches`). The forward takes bf16
 and f32; the backward kernels take bf16 only (the training path's dtype), so
 backward() of f32 CUDA tensors raises; `flash_remainder` names what no
-kernel takes, and `ops.attention.multi_head_attention` sends that to the
-plain version.
+kernel takes, and `ops.attention.multi_head_attention` raises for it before
+the forward runs.
 
 csrc/flash_fwd.cu holds three forward kernels and `flash_fwd_kernel_for`
 names the one a call takes: "wgmma" (bf16, every supported shape: 128 query
@@ -171,8 +171,9 @@ def flash_fwd_tile_order(t: int) -> Tuple[int, ...]:
 def flash_remainder(dtype: torch.dtype, h: int, needs_grad: bool) -> Optional[str]:
     """Why no hand-written kernel takes a (dtype, head dim, needs a gradient)
     call on CUDA, or None when the kernels take it: the forward takes bf16 and
-    f32 at head dims 64/96/128, the backward bf16 only. The dispatcher sends
-    the remainder to the plain version."""
+    f32 at head dims 64/96/128, the backward bf16 only. The dispatcher raises
+    for the remainder; the plain version runs only for CPU tensors or when
+    the caller asks for it (`use_kernel=False`)."""
     if dtype not in SUPPORTED_DTYPES:
         return f"dtype {dtype}"
     if h not in SUPPORTED_HEAD_DIMS:
@@ -187,7 +188,7 @@ def flash_bwd_kernel_for(dtype: torch.dtype, h: int, t: int, s: int) -> str:
     length, key length) call takes on CUDA; raises for what no kernel runs.
     Never the plain version: "wgmma" takes every bf16 call at H 64/96/128
     (causal or not, any lengths, masks and strides); "mma_sync" is only
-    forced, to be timed beside it."""
+    forced, to be timed beside it, and takes the same calls."""
     if dtype != torch.bfloat16:
         raise ValueError(f"flash_attention_bwd: the backward kernels take bf16, not {dtype}")
     if h not in SUPPORTED_HEAD_DIMS:
@@ -218,7 +219,9 @@ def flash_bwd_dq_visits(
     one batch row: for each warpgroup, (its first row, the first
     keys of the 64-key tiles whose products it runs). Tiles run from the one
     holding kv_start to the diagonal / kv length; a warpgroup skips those
-    above its own diagonal."""
+    above its own diagonal. A copy of the bounds in `flash_bwd_dq_wgmma_kernel`
+    (csrc/flash_bwd.cu: `hi`, `k_begin`, `ntk`, `wg_hi`), kept for the CPU
+    coverage tests: a change to either must be made to both."""
     length = s if kv_length is None else min(kv_length, s)
     lo = 0 if kv_start is None else max(kv_start, 0)
     hi = min(length, q0 + BWD_DQ_ROWS) if causal else length
@@ -240,7 +243,10 @@ def flash_bwd_dkv_visits(
     it runs), in the kernel's order: the group's heads in turn, for each the
     q tiles from the causal diagonal on. A warpgroup whose keys all lie
     outside [kv_start, kv_length) runs none; one whose keys all lie after a
-    tile's rows skips it."""
+    tile's rows skips it. A copy of the bounds in `flash_bwd_dkv_wgmma_kernel`
+    (csrc/flash_bwd.cu: `active`, `q_first`, `nqt`, `wg_active`,
+    `wg_first_key`), kept for the CPU coverage tests: a change to either must
+    be made to both."""
     length = s if kv_length is None else min(kv_length, s)
     lo = 0 if kv_start is None else max(kv_start, 0)
     active = k0 < length and k0 + BWD_DKV_KEYS > lo
@@ -361,12 +367,11 @@ def _bwd_launch(
     _check(q, k, v, kv_lengths, kv_starts)
     b, t, nq, h = q.shape
     s, nkv = k.shape[1], k.shape[2]
+    named = flash_bwd_kernel_for(q.dtype, h, t, s)     # raises for what no kernel takes
     if kernel is None:
-        kernel = flash_bwd_kernel_for(q.dtype, h, t, s)
+        kernel = named
     elif kernel not in BWD_KERNEL_IDS:
         raise ValueError(f"flash_attention_bwd: no kernel named {kernel!r} (one of {sorted(BWD_KERNEL_IDS)})")
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"flash_attention_bwd: the backward kernels take bf16, not {q.dtype}")
     if dout.shape != q.shape or lse.shape != (b, nq, t) or delta.shape != (b, nq, t):
         raise ValueError("flash_attention_bwd: dout/lse/delta shapes do not match q")
     from visper_lm_tpu_torch.ops import _build
@@ -374,7 +379,9 @@ def _bwd_launch(
     lib = _build.load("flash_bwd")
     if scale is None:
         scale = h ** -0.5
-    dout = dout.to(q.dtype).contiguous()
+    dout = dout.to(q.dtype)
+    if dout.stride(-1) != 1 or dout.data_ptr() % 16 or any(st % 8 for st in dout.stride()[:3]):
+        dout = dout.clone(memory_format=torch.contiguous_format)   # rows 16-byte aligned
     lse = lse.float().contiguous()
     delta = delta.float().contiguous()
     if fn == "dq":
