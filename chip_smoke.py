@@ -18,12 +18,16 @@ Phases, each of which raises (exit code != 0) when it fails:
        B2/B3 flash backward (dq, dk/dv) against the plain backward fed the
           plain forward's f32 out and lse: relative Frobenius error <= 1e-2
           and, per element, |err| <= 2e-2 + 1e-2 x |ref| (the bf16 rounding
-          of the largest gradients, which sum over up to 1024 rows). At the
-          training and the GQA shape the mma.sync kernels they replaced are
-          held to the same bounds and timed in the same call (`mma_sync_ms`;
-          in turns: old, new, new, old), beside SDPA's backward; the same
-          launch 20 times must give identical bytes;
-       B4 Swin window attention: bf16 max abs error <= 2e-2;
+          of the largest gradients, which sum over up to 1024 rows), at the
+          training and the GQA shape, timed eager and as CUDA graphs beside
+          SDPA's backward; the same launch 20 times must give identical bytes;
+       B4 Swin window attention at the eight Swin-L launch shapes (stages 1-4,
+          unshifted and shifted; micro-batch 2): bf16 max abs error <= 2e-2
+          for the kernel every call takes and for the per_window kernel it
+          replaced, and between the two; the same launch 20 times the same
+          bytes. Both kernels and SDPA (bf16 bias + mask) timed as CUDA
+          graphs in turns, and their sums weighted by a train step's 48
+          launches beside the bound's;
        B5 w4a16 matmul (Phi3-mini's four (din, dout) pairs at M = 8 and, but
           for lm_head, M = 6144; one AWQ case) against its plain version in
           f32: relative Frobenius error <= 1e-2 and max abs error <= 2e-2 x
@@ -75,7 +79,8 @@ Phases, each of which raises (exit code != 0) when it fails:
      trainable gradients with the kernels must match the same step with plain
      attention (decoder and window): loss within 1e-3 (relative), cosine
      >= 0.999 for every trainable with a nonzero gradient. Then one step is
-     profiled.
+     profiled: B2/B3's and B4's device time, and B4's 48 launches all of the
+     streamed kernel.
 
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Needs no network; builds into
@@ -305,46 +310,37 @@ def bwd_case(name, b, t, nq, nkv, h, causal, starts, lens, gen, fa):
     ref = fa.flash_attention_bwd_reference(qf, kf, vf, out_ref, lse_ref, dout.float(), **kw)
     del qf, kf, vf, out_ref, lse_ref
     err, mag, fro = {}, {}, {}
-    for kern in ("wgmma", "mma_sync"):
-        dq = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, kernel=kern, **kw)
-        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kernel=kern, **kw)
-        torch.cuda.synchronize()
-        for gname, got, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
-            e = (got.float() - r).abs()
-            key = gname if kern == "wgmma" else f"{kern}_{gname}"
-            err[key] = e.max().item()
-            mag[key] = r.abs().max().item()
-            fro[key] = (e.norm() / r.norm()).item()
-            excess = (e - (2e-2 + 1e-2 * r.abs())).max().item()
-            print(f"bwd_case {name} {kern} {gname}: max abs err {err[key]:.4g}, max |ref| "
-                  f"{mag[key]:.4g}, relative Frobenius err {fro[key]:.4g}")
-            check(fro[key] <= 1e-2, f"{name}: {kern} {gname} relative Frobenius err {fro[key]} > 1e-2")
-            check(excess <= 0, f"{name}: {kern} {gname} exceeds 2e-2 + 1e-2 x |ref| by {excess}")
-        if kern == "wgmma":
-            # every element is written once by one CTA: the same launch gives the same bytes
-            for _ in range(20):
-                check(torch.equal(fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw), dq),
-                      f"{name}: a repeated dq launch gave other bytes")
-                dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
-                check(torch.equal(dk2, dk) and torch.equal(dv2, dv),
-                      f"{name}: a repeated dk/dv launch gave other bytes")
-        del dq, dk, dv
-    del ref
+    dq = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+    torch.cuda.synchronize()
+    for gname, got, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        e = (got.float() - r).abs()
+        err[gname] = e.max().item()
+        mag[gname] = r.abs().max().item()
+        fro[gname] = (e.norm() / r.norm()).item()
+        excess = (e - (2e-2 + 1e-2 * r.abs())).max().item()
+        print(f"bwd_case {name} {gname}: max abs err {err[gname]:.4g}, max |ref| "
+              f"{mag[gname]:.4g}, relative Frobenius err {fro[gname]:.4g}")
+        check(fro[gname] <= 1e-2, f"{name}: {gname} relative Frobenius err {fro[gname]} > 1e-2")
+        check(excess <= 0, f"{name}: {gname} exceeds 2e-2 + 1e-2 x |ref| by {excess}")
+    # every element is written once by one CTA: the same launch gives the same bytes
+    for _ in range(20):
+        check(torch.equal(fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw), dq),
+              f"{name}: a repeated dq launch gave other bytes")
+        dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+        check(torch.equal(dk2, dk) and torch.equal(dv2, dv),
+              f"{name}: a repeated dk/dv launch gave other bytes")
+    del dq, dk, dv, ref
 
-    def timed(fn):                              # in turns: old, new, new, old
-        old_a = cuda_ms(lambda: fn("mma_sync"), 10)
-        new = 0.5 * (cuda_ms(lambda: fn("wgmma"), 10) + cuda_ms(lambda: fn("wgmma"), 10))
-        return new, 0.5 * (old_a + cuda_ms(lambda: fn("mma_sync"), 10))
+    def dq_fn():
+        return fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
 
-    def dq_fn(kern):
-        return fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, kernel=kern, **kw)
+    def dkv_fn():
+        return fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
 
-    def dkv_fn(kern):
-        return fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kernel=kern, **kw)
-
-    (ms_dq, old_dq), (ms_dkv, old_dkv) = timed(dq_fn), timed(dkv_fn)
+    ms_dq, ms_dkv = cuda_ms(dq_fn, 10), cuda_ms(dkv_fn, 10)
     # the same launches as CUDA graphs: device time without the host between them
-    device = {kname: graph_ms([lambda: fn("wgmma")], 10) for kname, fn in (("dq", dq_fn), ("dkv", dkv_fn))}
+    device = {kname: graph_ms([fn], 10) for kname, fn in (("dq", dq_fn), ("dkv", dkv_fn))}
     plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, dout, **kw), 2)
     # yardstick: SDPA's backward with a boolean mask (dq, dk and dv in one call)
     cols = torch.arange(t, device=dev)
@@ -364,20 +360,17 @@ def bwd_case(name, b, t, nq, nkv, h, causal, starts, lens, gen, fa):
     in_bytes = (q.numel() + k.numel() + v.numel() + dout.numel()) * e + 2 * lse.numel() * 4
     shape = f"B{b} T{t} {nq}/{nkv} H{h} bf16 {'causal' if causal else 'noncausal'}"
     recs = []
-    for kname, ms, old_ms, nbytes, flops, errs in (
-        ("dq", ms_dq, old_dq, in_bytes + q.numel() * e, 6.0 * h * pairs, ("dq",)),
-        ("dkv", ms_dkv, old_dkv, in_bytes + (k.numel() + v.numel()) * e, 8.0 * h * pairs,
-         ("dk", "dv")),
+    for kname, ms, nbytes, flops, errs in (
+        ("dq", ms_dq, in_bytes + q.numel() * e, 6.0 * h * pairs, ("dq",)),
+        ("dkv", ms_dkv, in_bytes + (k.numel() + v.numel()) * e, 8.0 * h * pairs, ("dk", "dv")),
     ):
         rec = dict(
             case=f"{name}_{kname}", shape=shape,
             kernel=fa.flash_bwd_kernel_for(dtype, h, t, t), max_abs_err=max(err[x] for x in errs),
             max_abs_ref=max(mag[x] for x in errs), rel_fro_err=max(fro[x] for x in errs),
-            mma_sync_max_abs_err=max(err[f"mma_sync_{x}"] for x in errs),
             tol="rel Frobenius 1e-2, |err| <= 2e-2 + 1e-2 x |ref|", ms=ms,
-            device_ms=device[kname], mma_sync_ms=old_ms,
-            plain_ms=plain_ms, library_ms=library_ms, **bound(nbytes, flops, dtype),
-            tflops=flops / ms * 1e-9, mma_sync_tflops=flops / old_ms * 1e-9,
+            device_ms=device[kname], plain_ms=plain_ms, library_ms=library_ms,
+            **bound(nbytes, flops, dtype), tflops=flops / ms * 1e-9,
         )
         print("kernel_case " + json.dumps(rec))
         recs.append(rec)
@@ -386,7 +379,12 @@ def bwd_case(name, b, t, nq, nkv, h, causal, starts, lens, gen, fa):
 
 def window_case(stage, w, heads, shifted, gen, wa, swin):
     """B4 vs its plain version at one Swin-L stage shape (N 144, D 32, bf16),
-    q/k/v as the strided views of a packed projection the Swin block passes."""
+    q/k/v as the strided views of a packed projection the Swin block passes:
+    the kernel every call takes and the per_window kernel it replaced, each
+    within 2e-2 of the plain version and of each other, the same launch 20
+    times the same bytes. Both kernels and SDPA are timed as CUDA graphs (a
+    stage-3 or stage-4 launch is shorter than its host time), in turns: old,
+    new, SDPA, SDPA, new, old."""
     dev, n, d, ws = "cuda", 144, 32, 12
     nw = w // 2                                  # windows per image (micro-batch 2)
     qkv = torch.randn(w, n, 3, heads, d, device=dev, generator=gen).to(torch.bfloat16)
@@ -397,27 +395,53 @@ def window_case(stage, w, heads, shifted, gen, wa, swin):
         side = int(round(nw ** 0.5)) * ws
         mask = torch.as_tensor(swin._shift_attn_mask(side, side, ws, ws // 2), device=dev)
     scale = d ** -0.5
-    out = wa.window_attention_kernel(q, k, v, bias, mask, scale)
+    name = f"window_stage{stage + 1}{'_shifted' if shifted else ''}"
+    kernel = wa.window_attn_kernel_for(n, d)
+
+    def new_fn():
+        return wa.window_attention_kernel(q, k, v, bias, mask, scale)
+
+    def old_fn():
+        return wa.window_attention_kernel(q, k, v, bias, mask, scale, kernel="per_window")
+
+    out, old = new_fn(), old_fn()
     ref = wa.window_attention_plain(q.float(), k.float(), v.float(), bias, mask, scale)
     torch.cuda.synchronize()
     err = (out.float() - ref).abs().max().item()
-    name = f"window_stage{stage + 1}{'_shifted' if shifted else ''}"
+    err_old = (old.float() - ref).abs().max().item()
+    diff = (out.float() - old.float()).abs().max().item()
     check(err <= 2e-2, f"{name}: max abs err {err} > 2e-2")
-    ms = cuda_ms(lambda: wa.window_attention_kernel(q, k, v, bias, mask, scale), 20)
-    plain_ms = cuda_ms(lambda: wa.window_attention_plain(q, k, v, bias, mask, scale), 3)
+    check(err_old <= 2e-2, f"{name}: per_window kernel max abs err {err_old} > 2e-2")
+    check(diff <= 2e-2, f"{name}: the kernels differ by {diff} > 2e-2")
+    # every output element is written once by one CTA: the same launch gives the same bytes
+    for _ in range(20):
+        check(torch.equal(new_fn(), out), f"{name}: a repeated launch gave other bytes")
+    del out, old, ref
     # yardstick: SDPA with the float bias (+ shift mask tiled over the windows)
     attn = bias[None].expand(w, heads, n, n)
     if mask is not None:
         attn = attn + mask.repeat(w // nw, 1, 1)[:, None]
     attn = attn.to(torch.bfloat16).contiguous()
-    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=attn, scale=scale), 20)
+
+    def lib_fn():
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=attn, scale=scale)
+
+    t_old, t_new, t_lib = graph_ms([old_fn], 20), graph_ms([new_fn], 20), graph_ms([lib_fn], 20)
+    t_lib2, t_new2, t_old2 = graph_ms([lib_fn], 20), graph_ms([new_fn], 20), graph_ms([old_fn], 20)
+    ms = 0.5 * (t_new + t_new2)
+    eager_ms = cuda_ms(new_fn, 20)
+    plain_ms = cuda_ms(lambda: wa.window_attention_plain(q, k, v, bias, mask, scale), 3)
     nbytes = 4 * q.numel() * 2 + bias.numel() * 4 + (0 if mask is None else mask.numel() * 4)
     flops = 4.0 * n * n * d * w * heads
+    plan = wa.window_attn_plan(w, heads, n, d, nw if shifted else 0,
+                               torch.cuda.get_device_properties(0).multi_processor_count)
     rec = dict(
-        case=name, shape=f"W{w} heads{heads} N{n} D{d} bf16", max_abs_err=err, tol=2e-2,
-        ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound(nbytes, flops, torch.bfloat16),
-        gbytes_s=nbytes / ms * 1e-6,
+        case=name, shape=f"W{w} heads{heads} N{n} D{d} bf16", kernel=kernel,
+        plan=plan._asdict(), max_abs_err=err, per_window_max_abs_err=err_old,
+        new_vs_per_window_max_abs_diff=diff, tol=2e-2, ms=ms, eager_ms=eager_ms,
+        per_window_ms=0.5 * (t_old + t_old2), plain_ms=plain_ms, library_ms=0.5 * (t_lib + t_lib2),
+        library="SDPA, bf16 bias (+ mask) per window", timing="ms, per_window_ms, library_ms: CUDA graphs",
+        **bound(nbytes, flops, torch.bfloat16), gbytes_s=nbytes / ms * 1e-6,
     )
     print("kernel_case " + json.dumps(rec))
     return rec
@@ -649,11 +673,11 @@ def train_batch(cfg, batch_size: int, seq_len: int):
     return batch
 
 
-def profile_window(name: str, fn, top: int = 10, match: str = "") -> dict:
+def profile_window(name: str, fn, top: int = 10, match=()) -> dict:
     """Device time of one call of fn by kernel (torch.profiler), and the
     device's idle share of the same call's wall time timed without the
-    profiler (the profiler slows the host). With `match`, also the device
-    time of the kernels whose name contains it."""
+    profiler (the profiler slows the host). For each string in `match`, also
+    the device time and launches of the kernels whose name contains it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -673,12 +697,12 @@ def profile_window(name: str, fn, top: int = 10, match: str = "") -> dict:
         print(f"profile {name}:   {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<5d} {e.key[:100]}")
     out = dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3, idle_share=1 - busy_us / wall_us)
-    if match:
-        hit = [e for e in kernels if match in e.key]
-        out["match_ms"] = sum(e.self_device_time_total for e in hit) / 1e3
-        out["match_launches"] = sum(e.count for e in hit)
-        print(f"profile {name}: kernels matching '{match}': {out['match_ms']:.3f} ms "
-              f"in {out['match_launches']} launches")
+    for key in match:
+        hit = [e for e in kernels if key in e.key]
+        out[key] = dict(ms=sum(e.self_device_time_total for e in hit) / 1e3,
+                        launches=sum(e.count for e in hit))
+        print(f"profile {name}: kernels matching '{key}': {out[key]['ms']:.3f} ms "
+              f"in {out[key]['launches']} launches")
     return out
 
 
@@ -736,8 +760,24 @@ def main() -> int:
         print(f"flash_bwd wgmma H{h}: dq {dq_smem.value} B, dk/dv {dkv_smem.value} B dynamic shared "
               f"memory, {stages.value} stages, {threads.value} threads (two warpgroups; warp 0 "
               f"refills the ring), 1 CTA per SM")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    win_threads, win_ctas = ctypes.c_int(), ctypes.c_int()
+    for nw in (0, SWIN_STAGES[0][0] // 2):
+        plan = wa.window_attn_plan(*SWIN_STAGES[0], 144, 32, nw, sms)
+        check(_build.load("window_attn").visper_window_attn_info(
+            wa.KERNEL_IDS["streamed"], 144, 32, int(nw > 0), plan.stages, plan.teams,
+            ctypes.byref(win_threads), ctypes.byref(smem), ctypes.byref(win_ctas)) == 0,
+            "no streamed window kernel at N144 D32")
+        check(smem.value == plan.smem_bytes,
+              f"window_attn_plan counts {plan.smem_bytes} B of shared memory, the kernel {smem.value}")
+        check(win_ctas.value >= 1, f"the streamed window kernel does not fit an SM: {plan}")
+        print(f"window_attn streamed N144 D32 {'shifted' if nw else 'unshifted'} stage 1: "
+              f"{smem.value} B dynamic shared memory, {win_threads.value} threads, "
+              f"{win_ctas.value} CTA per SM; plan {json.dumps(plan._asdict())}")
+    # the window kernel the plan launches (its third template argument is the plan's teams)
+    win_mark = f"stream_kernelILi144ELi32ELi{wa.window_attn_plan(*SWIN_STAGES[0], 144, 32, 0, sms).teams}E"
     for lib, mark in (("flash_fwd", "wgmma_kernel"), ("flash_bwd", "wgmma_kernel"),
-                      ("decode_attn", "split_kernel")):
+                      ("decode_attn", "split_kernel"), ("window_attn", win_mark)):
         for entry, res in _build.kernel_resources(logs.get(lib, "")).items():
             if mark in entry:
                 check(res["spill_bytes"] == 0, f"{entry} spills {res['spill_bytes']} bytes")
@@ -778,6 +818,15 @@ def main() -> int:
         for i, (w, heads) in enumerate(SWIN_STAGES) for shifted in (False, True)
     ]
     win_rec = win_recs[1]                       # stage 1, shifted: the largest launch
+    # B4 in a train step: every Swin-L block launches once per teacher
+    # micro-batch of 2, the odd blocks of each stage shifted
+    win_step = dict(ms=0.0, per_window_ms=0.0, library_ms=0.0, bound_ms=0.0, launches=0)
+    for rec, depth in zip(win_recs, [dd for dd in swin.SWIN_L.depths for _ in range(2)]):
+        n_launch = depth // 2 * (TRAIN_BATCH // 2)
+        win_step["launches"] += n_launch
+        for key in ("ms", "per_window_ms", "library_ms", "bound_ms"):
+            win_step[key] += n_launch * rec[key]
+    print("window_attn per train step (launch-weighted; CUDA graphs) " + json.dumps(win_step))
     # B5 at the quantized serving path's linears: prefill (M = B8 x T768) and
     # decode (M = 8); lm_head runs at M = 8 only (prefill keeps the last row)
     h_, m_, v_ = d.hidden_size, d.mlp_dim, d.vocab_size
@@ -917,10 +966,10 @@ def main() -> int:
             print(f"int4 vs bf16 prefill logits: relative RMS drift {drift:.4g}, argmax agree "
                   f"{agree_bf16}/{BATCH} (printed only: int4 is a quality trade-off)")
             prof = dict(
-                prefill=profile_window("int4_prefill", lambda: q_gen.prefill(batch), match="w4_"),
+                prefill=profile_window("int4_prefill", lambda: q_gen.prefill(batch), match=("w4_",)),
                 decode_chunk=profile_window("int4_decode_chunk", lambda: q_gen._decode_chunk(
                     cache_q, logits_q.argmax(-1), 0, offs, torch.Generator(device="cuda")),
-                    match="w4_"))
+                    match=("w4_",)))
             print("int4_profile " + json.dumps(prof))
             del logits_q, logits_p, cache_q
         print(f"{qname}: {BATCH}x{NEW_TOKENS} tokens, first run {first_s:.3f} s, "
@@ -1023,8 +1072,14 @@ def main() -> int:
     check(min_cos >= 0.999, f"B1 grad cosine {min_cos} < 0.999 for {min_name}")
 
     # where the training step's time goes
-    train_prof = profile_window("train_step", lambda: step(tbatch), top=15, match="flash_bwd")
+    train_prof = profile_window("train_step", lambda: step(tbatch), top=15,
+                                match=("flash_bwd", "window_attn_stream", "window_attn_bf16"))
     print("train_profile " + json.dumps(train_prof))
+    check(train_prof["window_attn_stream"]["launches"] == expected["window_attn"]
+          and train_prof["window_attn_bf16"]["launches"] == 0,
+          f"the profiled step ran {train_prof['window_attn_stream']['launches']} streamed and "
+          f"{train_prof['window_attn_bf16']['launches']} per_window window kernels, expected "
+          f"{expected['window_attn']} and 0")
     dec_launches = da.launches                  # over phases 4-7: bf16, int4, w8a16, training
     print(f"decode_attn launches over the serving and training paths: {dec_launches}")
     check(dec_launches == 0, f"decode_attn launched {dec_launches} times; no path calls it")
@@ -1049,22 +1104,24 @@ def main() -> int:
                         bound_ms=train_fwd_rec["bound_ms"])),
         dict(entry("flash_bwd_dq", csrc + "flash_bwd.cu", "visper_lm_tpu/ops/flash_attention.py:497",
                    dq_rec, train_launches["flash_bwd_dq"]),
-             shape=dq_rec["shape"], kernel=dq_rec["kernel"], mma_sync_ms=dq_rec["mma_sync_ms"],
-             device_ms=dq_rec["device_ms"],
+             shape=dq_rec["shape"], kernel=dq_rec["kernel"], device_ms=dq_rec["device_ms"],
              library="SDPA backward (dq, dk and dv in one call)",
              gqa=dict(shape=gqa_dq["shape"], ms=gqa_dq["ms"], device_ms=gqa_dq["device_ms"],
-                      mma_sync_ms=gqa_dq["mma_sync_ms"],
                       library_ms=gqa_dq["library_ms"], bound_ms=gqa_dq["bound_ms"])),
         dict(entry("flash_bwd_dkv", csrc + "flash_bwd.cu", "visper_lm_tpu/ops/flash_attention.py:562",
                    dkv_rec, train_launches["flash_bwd_dkv"]),
-             shape=dkv_rec["shape"], kernel=dkv_rec["kernel"], mma_sync_ms=dkv_rec["mma_sync_ms"],
-             device_ms=dkv_rec["device_ms"],
+             shape=dkv_rec["shape"], kernel=dkv_rec["kernel"], device_ms=dkv_rec["device_ms"],
              library="SDPA backward (dq, dk and dv in one call)",
              gqa=dict(shape=gqa_dkv["shape"], ms=gqa_dkv["ms"], device_ms=gqa_dkv["device_ms"],
-                      mma_sync_ms=gqa_dkv["mma_sync_ms"],
                       library_ms=gqa_dkv["library_ms"], bound_ms=gqa_dkv["bound_ms"])),
-        entry("window_attn", csrc + "window_attn.cu", "visper_lm_tpu/ops/window_attention.py:112",
-              win_rec, train_launches["window_attn"]),
+        dict(entry("window_attn", csrc + "window_attn.cu", "visper_lm_tpu/ops/window_attention.py:112",
+                   win_rec, train_launches["window_attn"]),
+             shape=win_rec["shape"], kernel=win_rec["kernel"], timing=win_rec["timing"],
+             per_window_ms=win_rec["per_window_ms"], eager_ms=win_rec["eager_ms"],
+             stages={r["case"]: dict(ms=r["ms"], per_window_ms=r["per_window_ms"],
+                                     library_ms=r["library_ms"], bound_ms=r["bound_ms"],
+                                     max_abs_err=r["max_abs_err"]) for r in win_recs},
+             per_train_step=win_step, profile_ms_per_train_step=train_prof["window_attn_stream"]["ms"]),
         dict(entry("w4_matmul", csrc + "w4_matmul.cu", "visper_lm_tpu/ops/quant_matmul.py:125",
                    w4_rec, w4_launches),
              shape=w4_rec["shape"], launches_per_forward=per_forward,

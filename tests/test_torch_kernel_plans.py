@@ -39,6 +39,7 @@ import torch
 from visper_lm_tpu_torch.ops import decode_attention as tda
 from visper_lm_tpu_torch.ops import _build
 from visper_lm_tpu_torch.ops import flash_attention as tfa
+from visper_lm_tpu_torch.ops import window_attention as twa
 
 torch.set_num_threads(2)
 
@@ -222,7 +223,7 @@ BWD_LENGTHS = [1, 63, 64, 65, 127, 128, 129, 657, 1024, 2048]
 @pytest.mark.parametrize("h", tfa.SUPPORTED_HEAD_DIMS)
 def test_every_supported_backward_shape_names_the_wgmma_pair(h, t, s, causal):
     name = tfa.flash_bwd_kernel_for(torch.bfloat16, h, t, s)
-    assert name == "wgmma" and name in tfa.BWD_KERNEL_IDS    # never the plain version or mma_sync
+    assert name == "wgmma"                                   # the one pair; never the plain version
 
 
 @pytest.mark.parametrize("dtype,h", [(torch.float32, 96), (torch.float16, 96), (torch.bfloat16, 80),
@@ -437,3 +438,158 @@ def test_ablation_refuses_a_source_whose_calls_it_does_not_find(which):
     renamed = src[:at] + old.replace("(", " (").replace("<", " <") + src[at + len(old):]
     with pytest.raises(ValueError, match="occurs"):
         abl.ablatable_source(renamed)
+
+
+# --------------------------------------------------------------------------
+# B4: the streamed window kernel's plan and arithmetic
+# --------------------------------------------------------------------------
+
+SWIN_L_LAUNCHES = [(512, 6), (128, 12), (32, 24), (8, 48)]   # (W, heads) at 768 px, micro-batch 2
+WINDOW_PLAN_CASES = (
+    [(w, heads, 144, 32, nw) for w, heads in SWIN_L_LAUNCHES for nw in (0, w // 2)]
+    # the card tests' shapes
+    + [(32, 6, 144, 32, 16), (8, 48, 144, 32, 1), (8, 3, 64, 16, 4), (4, 2, 144, 32, 0)]
+    + [(64, 5, 64, 16, nw) for nw in (0, 1, 32, 64)]
+    + [(w, heads, 64, 16, nw) for w, heads in ((8, 3), (48, 7)) for nw in (1, w // 2, w)]
+)
+
+
+@pytest.mark.parametrize("sms", [132, 1, 16])
+@pytest.mark.parametrize("w,heads,n,d,nw", WINDOW_PLAN_CASES)
+def test_window_plan_visits_every_window_and_head_once(w, heads, n, d, nw, sms):
+    """Every (window, head) lies in exactly one CTA; a CTA's windows share one
+    head and, when shifted, one mask index, so it reads each once; its shared
+    memory stays within the 227 KB a CTA may ask for."""
+    plan = twa.window_attn_plan(w, heads, n, d, nw, sms)
+    ctas = twa.window_attn_ctas(w, heads, nw, plan)
+    assert len(ctas) == plan.grid[0] * plan.grid[1]
+    seen = np.zeros((w, heads), np.int32)
+    for head, windows in ctas:
+        assert 1 <= len(windows) <= plan.windows_per_cta
+        if nw:
+            assert len({x % nw for x in windows}) == 1       # one mask index
+        for x in windows:
+            seen[x, head] += 1
+    assert np.all(seen == 1)
+    assert plan.smem_bytes == twa.window_attn_smem_bytes(n, d, nw > 0, plan.stages, plan.teams)
+    assert plan.smem_bytes <= 227 * 1024
+    assert 1 <= plan.stages <= min(twa.MAX_STAGES, -(-plan.windows_per_cta // plan.teams))
+    cx, cy = plan.cluster
+    assert plan.grid[0] % cx == 0 and plan.grid[1] % cy == 0 and cx * cy <= 8
+    assert nw or plan.cluster == (1, 1)
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("w,heads", SWIN_L_LAUNCHES)
+def test_window_plan_fills_the_card_at_every_swin_l_stage(w, heads, shifted):
+    """No SM takes more than one window beyond an even share of the launch,
+    so reuse never leaves a stage with a long partial wave; bias and mask are
+    read once for at least two windows where a CTA can hold two."""
+    nw = w // 2 if shifted else 0
+    plan = twa.window_attn_plan(w, heads, 144, 32, nw, 132)
+    ctas = plan.grid[0] * plan.grid[1]
+    waves = -(-ctas // 132)                                  # one CTA an SM
+    assert waves * plan.windows_per_cta <= -(-w * heads // 132) + 1
+    assert plan.windows_per_cta >= 2
+    assert twa.window_attn_kernel_for(144, 32) == "streamed"
+
+
+def test_window_plan_is_a_function_of_shapes_only():
+    params = list(inspect.signature(twa.window_attn_plan.__wrapped__).parameters)
+    assert params == ["w", "heads", "n", "d", "nw", "sms", "teams"]
+    assert twa.window_attn_plan(32, 24, 144, 32, 16) == twa.window_attn_plan(32, 24, 144, 32, 16, 132)
+    with pytest.raises(ValueError):
+        twa.window_attn_plan(30, 24, 144, 32, 16)        # W not a multiple of nW
+    with pytest.raises(ValueError):
+        twa.window_attn_plan(32, 24, 128, 32, 0)         # no kernel at N 128
+    for dtype, n, d in ((torch.float32, 144, 32), (torch.bfloat16, 49, 32), (torch.bfloat16, 144, 64)):
+        with pytest.raises(ValueError):
+            twa.window_attn_kernel_for(n, d, dtype)
+
+
+def _emulate_window(q, k, v, bias, mask, scale, plan):
+    """The streamed kernel's arithmetic in torch, CTA by CTA in the plan's
+    order (f32 from bf16 inputs): S = q k^T, x = S * scale + bias, + mask;
+    P = 2^(x log2 e - max log2 e), normalised in f32 by 1 / sum and rounded to
+    bf16; O = P v in f32, rounded to bf16 once."""
+    w, heads = q.shape[:2]
+    nw = 0 if mask is None else mask.shape[0]
+    out = torch.full(q.shape, float("nan"))
+    for head, windows in twa.window_attn_ctas(w, heads, nw, plan):
+        for x in windows:
+            s = q[x, head].float() @ k[x, head].float().T
+            s = s * scale + bias[head]
+            if mask is not None:
+                s = s + mask[x % nw]
+            ml = s.amax(-1, keepdim=True) * 1.4426950408889634
+            p = torch.exp2(s * 1.4426950408889634 - ml)
+            p = _bf16(p * (1.0 / p.sum(-1, keepdim=True)))
+            out[x, head] = _bf16(p @ v[x, head].float())
+    return out
+
+
+WINDOW_EMULATION_CASES = {
+    "swin_l_shifted_runs": dict(w=8, heads=2, n=144, d=32, nw=4, sms=1),
+    "swin_l_unshifted_runs": dict(w=6, heads=3, n=144, d=32, nw=0, sms=2),
+    "test_shape_nw1": dict(w=8, heads=3, n=64, d=16, nw=1, sms=1),
+    "test_shape_nw_w": dict(w=8, heads=3, n=64, d=16, nw=8, sms=132),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WINDOW_EMULATION_CASES))
+def test_window_kernel_arithmetic_matches_the_pallas_kernel(case):
+    """The emulation against `window_attention_pallas(..., interpret=True)` on
+    the same bf16 inputs, the model's (0 / -100) style of mask and runs of
+    several windows per CTA (few SMs). Tolerance 1e-2 absolute: both round P
+    and the output to bf16, after exp2 here and exp there; the card's bound
+    against the plain version is 2e-2."""
+    import jax.numpy as jnp
+    from visper_lm_tpu.ops.window_attention import window_attention_pallas
+
+    c = WINDOW_EMULATION_CASES[case]
+    w, heads, n, d, nw = c["w"], c["heads"], c["n"], c["d"], c["nw"]
+    rng = np.random.default_rng(7)
+    q, k, v = (_bf16(torch.from_numpy(rng.standard_normal((w, heads, n, d)).astype(np.float32)))
+               for _ in range(3))
+    bias = torch.from_numpy(rng.standard_normal((heads, n, n)).astype(np.float32))
+    mask = None
+    if nw:
+        mask = torch.from_numpy(rng.choice([0.0, -100.0], p=[0.7, 0.3], size=(nw, n, n)).astype(np.float32))
+    scale = d ** -0.5
+    plan = twa.window_attn_plan(w, heads, n, d, nw, c["sms"])
+    got = _emulate_window(q, k, v, bias, mask, scale, plan)
+    ref = window_attention_pallas(
+        *(jnp.asarray(x.numpy()).astype(jnp.bfloat16) for x in (q, k, v)), jnp.asarray(bias.numpy()),
+        None if mask is None else jnp.asarray(mask.numpy()), scale, interpret=True)
+    ref = torch.from_numpy(np.array(ref.astype(jnp.float32)))
+    assert not torch.isnan(got).any()
+    assert (got - ref).abs().max().item() <= 1e-2
+
+
+def test_window_ablation_switches_both_kernels():
+    """chip_ablate_bwd.py's window table: every product, read of bias and
+    mask, exponential and cross-lane reduction of both window kernels lies
+    behind a switch, and nothing before the cut changes."""
+    abl = _ablate_script()
+    src = (_build.CSRC / "window_attn.cu").read_text()
+    got = abl.ablatable_source(src, "window_attn")
+    cut = src.index(abl.ABLATIONS["window_attn"].cut)
+    assert got[:cut] == src[:cut]
+    body = got[cut:]
+    assert body.count("if (ABL_MMA) mma_bf16(") == body.count("mma_bf16(") == 6
+    assert body.count("ABL_BIAS ? *reinterpret_cast<const float2*>(bias + off)") == 2
+    assert body.count("if (ABL_BIAS && mask) {") == 2 and "if (mask) {" not in body
+    assert body.count("WA_EXP(") == 2 and "expf(" not in body
+    assert body.count("ABL_SOFTMAX ? ex2(") == body.count("ex2(") == 1
+    assert body.count("if (ABL_SOFTMAX)") == body.count("__shfl_xor_sync(") == 8
+
+
+@pytest.mark.parametrize("which", range(len(_ablate_script().WINDOW_SWITCHES)))
+def test_window_ablation_refuses_a_source_whose_calls_it_does_not_find(which):
+    abl = _ablate_script()
+    src = (_build.CSRC / "window_attn.cu").read_text()
+    old = abl.WINDOW_SWITCHES[which][0]
+    at = src.rindex(old)
+    renamed = src[:at] + old.replace("(", " (").replace("<", " <") + src[at + len(old):]
+    with pytest.raises(ValueError, match="occurs"):
+        abl.ablatable_source(renamed, "window_attn")

@@ -9,7 +9,9 @@ Tolerances (max abs error on rows with at least one valid key, against the
 plain version computed in f32): bf16 2e-2, f32 1e-4; lse 1e-3. Backward
 (bf16 only; dq, dk, dv against `flash_attention_bwd_reference` fed the plain
 forward's f32 out and lse): relative Frobenius error 1e-2 and, per element,
-|err| <= 2e-2 + 1e-2 x |ref|; the same launch repeated gives the same bytes. Window attention: bf16 2e-2. w4 matmul (bf16
+|err| <= 2e-2 + 1e-2 x |ref|; the same launch repeated gives the same bytes. Window attention: bf16 2e-2
+(the kernel against the plain version and against the per_window kernel it
+replaced); the same launch repeated gives the same bytes. w4 matmul (bf16
 out against `w4_matmul_reference` in f32): relative Frobenius error 1e-2 and
 max abs error 2e-2 x max|ref|; the same small-M launch repeated gives the
 same bytes. Decode attention (bf16 q; bf16 or int8
@@ -264,19 +266,13 @@ def _assert_bwd_close(got, ref, name):
     assert excess <= 0, f"{name}: exceeds 2e-2 + 1e-2 x |ref| by {excess}"
 
 
-def _bwd_against_plain(q, k, v, dout, kw, kernel=None):
-    """Both backward kernels (the pair `flash_attention_bwd` takes, or the one
-    `kernel` forces) vs the plain backward fed the plain forward's f32 out and
-    lse (the reference shares nothing with the kernels); returns the kernels'
-    (dq, dk, dv)."""
+def _bwd_against_plain(q, k, v, dout, kw):
+    """Both backward kernels (the pair `flash_attention_bwd` takes) vs the
+    plain backward fed the plain forward's f32 out and lse (the reference
+    shares nothing with the kernels); returns the kernels' (dq, dk, dv)."""
     out, lse = fa.flash_attention_fwd(q, k, v, **kw)
     d0, k0 = fa.dq_launches, fa.dkv_launches
-    if kernel is None:
-        got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
-    else:
-        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
-        got = (fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, kernel=kernel, **kw),
-               *fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kernel=kernel, **kw))
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     assert (fa.dq_launches, fa.dkv_launches) == (d0 + 1, k0 + 1)
     qf, kf, vf = q.float(), k.float(), v.float()
     out_ref, lse_ref = fa.flash_attention_reference(qf, kf, vf, **kw)
@@ -326,9 +322,8 @@ def test_flash_bwd_wgmma_t_differs_from_s(cuda_gen, h, t, s):
         _bwd_against_plain(q, k, v, dout, dict(causal=causal))
 
 
-@pytest.mark.parametrize("kernel", ["wgmma", "mma_sync"])
 @pytest.mark.parametrize("h,nq,nkv", [(64, 4, 4), (96, 32, 8), (128, 8, 2)])
-def test_flash_bwd_pads_before_kv_starts(cuda_gen, kernel, h, nq, nkv):
+def test_flash_bwd_pads_before_kv_starts(cuda_gen, h, nq, nkv):
     """Left pads that start inside a tile (70) and cover whole tiles (333),
     with a right pad, a batch row whose start lies beyond its length and one
     with kv_lengths 0: rows before kv_starts have no valid key (dq = 0) and
@@ -340,7 +335,7 @@ def test_flash_bwd_pads_before_kv_starts(cuda_gen, kernel, h, nq, nkv):
     lens = torch.tensor([t, 700, 600, 400, 0], device="cuda")
     for causal in (True, False):
         kw = dict(causal=causal, kv_starts=starts, kv_lengths=lens)
-        dq, dk, dv = _bwd_against_plain(q, k, v, dout, kw, kernel=kernel)
+        dq, dk, dv = _bwd_against_plain(q, k, v, dout, kw)
         for i in range(b):
             lo, ln = int(starts[i]), int(lens[i])
             if causal:
@@ -390,23 +385,19 @@ def test_flash_bwd_wgmma_launch_is_bit_identical(cuda_gen, b, t, nq, nkv, h):
         assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
 
 
-def test_flash_bwd_forced_kernel_and_what_it_rejects(cuda_gen):
+def test_flash_bwd_rejects_what_it_cannot_run(cuda_gen):
     q, k, v = _qkv(cuda_gen, 1, 128, 2, 2, 96, torch.bfloat16)
     out, lse = fa.flash_attention_fwd(q, k, v)
     dout = torch.randn(q.shape, device="cuda", generator=cuda_gen).to(torch.bfloat16)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     before = (fa.dq_launches, fa.dkv_launches)
     with pytest.raises(ValueError):
-        fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, kernel="simt")
-    with pytest.raises(ValueError):
-        fa.flash_attention_bwd_dkv(q.float(), k.float(), v.float(), dout, lse, delta, kernel="wgmma")
+        fa.flash_attention_bwd_dkv(q.float(), k.float(), v.float(), dout, lse, delta)
     with pytest.raises(ValueError):
         fa.flash_attention_bwd_dq(q.float(), k.float(), v.float(), dout, lse, delta)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd_dq(q[..., :80], k[..., :80], v[..., :80], dout[..., :80], lse, delta)
     assert (fa.dq_launches, fa.dkv_launches) == before
-    new = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta)
-    old = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, kernel="mma_sync")
-    torch.cuda.synchronize()
-    _assert_grad_close(new, old.float(), "dq wgmma vs mma_sync")
 
 
 @pytest.mark.parametrize(
@@ -481,6 +472,65 @@ def test_window_kernel_matches_plain(cuda_gen, n, d, heads, nw, windows, with_ma
     assert (got.float() - ref).abs().max().item() <= 2e-2
 
 
+SWIN_L_LAUNCHES = [(512, 6), (128, 12), (32, 24), (8, 48)]   # (W, heads) at 768 px, micro-batch 2
+
+
+def _packed_qkv(gen, w, n, heads, d):
+    qkv = torch.randn(w, n, 3, heads, d, device="cuda", generator=gen).to(torch.bfloat16)
+    return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+
+
+def _window_against_plain_and_per_window(q, k, v, bias, mask):
+    """The kernel the dispatch takes vs the plain version (f32) and vs the
+    per_window kernel it replaced, each within 2e-2; the same launch 20 times
+    gives the same bytes. Returns the output."""
+    d = q.shape[-1]
+    before = wa.launches
+    got = wa.window_attention(q, k, v, bias, mask)
+    assert wa.launches == before + 1
+    ref = wa.window_attention_plain(q.float(), k.float(), v.float(), bias, mask, d ** -0.5)
+    old = wa.window_attention_kernel(q, k, v, bias, mask, d ** -0.5, kernel="per_window")
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == torch.bfloat16
+    assert (got.float() - ref).abs().max().item() <= 2e-2
+    assert (got.float() - old.float()).abs().max().item() <= 2e-2
+    for _ in range(20):
+        assert torch.equal(wa.window_attention(q, k, v, bias, mask), got)
+    return got
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("w,heads", SWIN_L_LAUNCHES)
+def test_window_streamed_kernel_at_the_swin_l_stages(cuda_gen, w, heads, shifted):
+    """Every Swin-L launch of a train step's teacher (N144 D32, the model's own
+    shift mask with nW = W / 2) through strided views of a packed qkv."""
+    from visper_lm_tpu_torch.models.teachers import swin
+
+    n, d = 144, 32
+    assert wa.window_attn_kernel_for(n, d) == "streamed"
+    q, k, v = _packed_qkv(cuda_gen, w, n, heads, d)
+    bias = torch.randn(heads, n, n, device="cuda", generator=cuda_gen)
+    mask = None
+    if shifted:
+        side = int(round((w // 2) ** 0.5)) * 12
+        mask = torch.as_tensor(swin._shift_attn_mask(side, side, 12, 6), device="cuda")
+    _window_against_plain_and_per_window(q, k, v, bias, mask)
+
+
+@pytest.mark.parametrize("nw", [0, 1, 32, 64])
+def test_window_streamed_kernel_at_the_test_shape(cuda_gen, nw):
+    """(64, 16) with no mask and nW in {1, W/2, W} (W 64, 5 heads), and a bias
+    that starts 4 bytes past a 16-byte boundary (the wrapper copies it: the
+    kernel copies rows with the copy engine)."""
+    w, heads, n, d = 64, 5, 64, 16
+    q, k, v = _packed_qkv(cuda_gen, w, n, heads, d)
+    bias = torch.randn(heads * n * n + 1, device="cuda", generator=cuda_gen)[1:].view(heads, n, n)
+    mask = None
+    if nw:
+        mask = torch.where(torch.rand(nw, n, n, device="cuda", generator=cuda_gen) < 0.3, -100.0, 0.0)
+    _window_against_plain_and_per_window(q, k, v, bias, mask)
+
+
 def test_window_kernel_rejects_what_it_cannot_run(cuda_gen):
     q = torch.randn(4, 2, 144, 32, device="cuda", generator=cuda_gen).to(torch.bfloat16)
     bias = torch.zeros(2, 144, 144, device="cuda")
@@ -493,6 +543,8 @@ def test_window_kernel_rejects_what_it_cannot_run(cuda_gen):
         wa.window_attention(q[..., :16], q[..., :16], q[..., :16], bias)
     with pytest.raises(ValueError):
         wa.window_attention(q, q, q, bias, torch.zeros(3, 144, 144, device="cuda"))
+    with pytest.raises(ValueError):
+        wa.window_attention_kernel(q, q, q, bias, None, 0.25, kernel="tiles")
     assert wa.launches == before
 
 

@@ -38,6 +38,22 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Four 8 x 8 bf16 matrices from shared memory (lane i gives the address of
+// row i % 8 of matrix i / 8; register j holds matrix j in the fragment layout:
+// row g, columns 2 tq and 2 tq + 1), and the same transposed (register j holds
+// columns g of rows 2 tq and 2 tq + 1).
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
 // Two floats -> packed bf16x2, `lo` in the low half (the lower column).
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

@@ -1,6 +1,7 @@
 // Hopper copy-engine pieces shared by the port's TMA-fed kernels
-// (flash_fwd.cu, flash_bwd.cu; w4_matmul.cu takes the ones its copies matched):
-// mbarriers, 4-D tensor-map box copies in both directions, and
+// (flash_fwd.cu, flash_bwd.cu, window_attn.cu; w4_matmul.cu takes the ones its
+// copies matched): mbarriers, 4-D tensor-map box copies in both directions,
+// 3-D f32 box loads (also multicast to a cluster), the cluster barrier, and
 // cuTensorMapEncodeTiled, found through the runtime's entry-point query (the
 // libraries link no libcuda).
 //
@@ -65,6 +66,38 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One box of a 3-D tensor map (column, row, index), global -> shared, by the
+// copy engine; its bytes count towards `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int col, int row,
+                                            int index, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(index)
+      : "memory");
+}
+
+// The same box into the shared memory of every CTA of the cluster whose bit is
+// set in `cta_mask`, at the same offset; the bytes count towards the mbarrier
+// at `bar`'s offset in each of them. One read of L2 serves them all.
+__device__ __forceinline__ void tma_load_3d_multicast(uint32_t dst, const CUtensorMap* map, int col,
+                                                      int row, int index, uint32_t bar,
+                                                      uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(index), "h"(cta_mask)
+      : "memory");
+}
+
+// Every thread of every CTA of the cluster arrives, then waits for the rest:
+// orders this CTA's shared-memory writes (an mbarrier's init) before the
+// other CTAs' accesses that follow.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" :::
+                   "memory");
+}
+
 // One box of a 4-D tensor map, shared -> global, by the copy engine, in this
 // thread's bulk group; rows outside the tensor are not written.
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int col,
@@ -110,7 +143,7 @@ inline EncodeTiled encode_tiled() {
 // The map of a bf16 (B, rows, N, H) tensor with element strides (sb, st, sn, 1),
 // as the 4-D tensor (H, N, rows, B), cut in boxes of box_rows x cb columns of
 // one head in the swizzle of cb * 2 bytes (cb 64: 128-byte swizzle, cb 32:
-// 64-byte). The stride of a dimension of size 1 is never used; a valid one
+// 64-byte, cb 16: 32-byte). The stride of a dimension of size 1 is never used; a valid one
 // stands in for whatever the tensor carries.
 inline bool tensor_map(const void* ptr, int H, int N, int rows, int B, long long sb,
                        long long st, long long sn, int cb, int box_rows, CUtensorMap* out) {
@@ -126,7 +159,28 @@ inline bool tensor_map(const void* ptr, int H, int N, int rows, int B, long long
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return encode(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
                 box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                cb * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                cb * 2 == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                : cb * 2 == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                               : CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// The map of a contiguous f32 (count, rows, cols) tensor as the 3-D tensor
+// (cols, rows, count), cut in boxes of box_rows x 16 columns (64 bytes) in the
+// 64-byte swizzle.
+inline bool tensor_map_f32(const void* ptr, int cols, int rows, int count, int box_rows,
+                           CUtensorMap* out) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(count)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 4,
+                                 static_cast<cuuint64_t>(cols) * rows * 4};
+  const cuuint32_t box[3] = {16, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return encode(out, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims, strides, box,
+                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }

@@ -7,33 +7,78 @@
 // with q, k, v, out (W, heads, N, D) read and written through their strides,
 // bias (heads, N, N) f32, the optional shift mask (nW, N, N) f32 tiled over W
 // with period nW (the `i % period` index map of :104-106). The scale is applied
-// to the f32 scores, the softmax is taken in f32 and normalised before P is
-// rounded to bf16 for the second product, as the Pallas kernel does.
+// to the f32 scores, bias is added before the mask, the softmax is taken in
+// f32 and normalised before P is rounded to bf16 for the second product, as
+// the Pallas kernel does. Supported (N, D): (144, 32) for Swin-L, (64, 16) for
+// tests.
 //
 // Bound on an H100 SXM at Swin-L's stage-1 shape (768 px, micro-batch 2:
 // W = 512 windows, 6 heads, N = 144, D = 32, bf16): q, k, v read once and the
-// output written once are ~113 MB (~34 us at 3.35 TB/s) against ~8 GFLOP
-// (~8 us at 989 TFLOP/s), so the ideal kernel is bound by memory. A window's
-// problem is tiny (144 x 32), so what matters is touching q, k, v, out once
-// and keeping the 144 x 144 scores out of device memory.
+// output written once are ~113 MB (~34 us at 3.35 TB/s; the shift mask adds
+// 21 MB) against ~8 GFLOP (~8 us at 989 TFLOP/s), so the ideal kernel is bound
+// by memory. A window's problem is tiny (144 x 32); the f32 bias of a head and
+// the mask of a window position (83 KB each) are larger than a window's own
+// q, k, v and output (37 KB).
 //
-// Design (correct and simple first): one CTA per (window, head) with N / 16
-// warps (9 for N = 144); each warp owns 16 query rows. q, k and v of the window
-// are staged in padded shared memory (row stride D + 8). S = Q K^T runs on the
-// tensor cores (mma.sync m16n8k16, f32 accumulation) and stays in registers
-// (16 x 144 per warp); bias and mask are added from global memory (L2-resident:
-// they are shared by all windows), the row softmax is reduced across each quad
-// with shuffles, and O = P V runs on the tensor cores again. The output is
-// written once. Supported (N, D): (144, 32) for Swin-L, (64, 16) for tests.
+// Two kernels; ops/window_attention.py `window_attn_kernel_for` names the one
+// a call takes and `window_attn_plan` its grid.
+//
+// 1. streamed (every call): a CTA takes a run of windows that share their
+//    bias and mask: one head and, in a shifted launch, one mask index m, so
+//    windows m, m + nW, ... across the batch's images; in an unshifted launch
+//    a run of consecutive windows. The copy engine brings the head's bias and
+//    the mask once per CTA into shared memory, N / 16 boxes of 16 columns
+//    each in the 64-byte swizzle (a warp's 8-byte reads of 8 rows take the
+//    two wavefronts 256 bytes need). In a shifted launch the CTAs of a
+//    thread block cluster share them further: the CTAs of one head (a cluster
+//    row) split the bias's boxes and multicast them to each other, those of
+//    one mask index (a column) the mask's, so L2 serves each box once a row
+//    or column. The CTA is TEAMS teams of N / 16 warps (the plan's `teams`):
+//    team t takes windows t, t + TEAMS, ... of the run and streams their q, k
+//    and v (one 4-D tensor-map box each, in the 64- or 32-byte swizzle of a
+//    D-wide row) through its own ring of `stages` stages, refilled by the
+//    team's warp 0 at the top of each window; mbarriers pass the stages, and
+//    a team's barriers are waited on by its own warps only, in order. Each
+//    warp owns 16 query rows of its team's windows: S = Q K^T by mma.sync
+//    m16n8k16 (f32) with Q and K fragments from ldmatrix, + bias + mask from
+//    shared memory, the row max and sum over the quad by shuffles,
+//    P = 2^(x log2 e - max log2 e) by ex2.approx, P normalised in f32 and
+//    rounded to bf16 as the A operand of O = P V (V through ldmatrix.trans).
+//    O goes back into the warp's own q rows of the stage and out as 16-byte
+//    rows through the output's strides. Every output element is written once
+//    by one CTA: a launch is bit-identical when repeated.
+// 2. per_window (the kernel before it, kept to be timed beside it): one CTA of
+//    N / 16 warps for each (window, head); q, k and v staged in padded shared
+//    memory by the warps themselves, bias and mask read from global memory by
+//    every CTA, expf, the output written from registers.
 
 #include <math.h>
 
 #include "mma_bf16.cuh"
+#include "tma_sm90.cuh"
 
 namespace {
 
+using visper::cluster_sync;
+using visper::ex2;
+using visper::fence_proxy_async;
+using visper::kLog2e;
+using visper::ldsm_x4;
+using visper::ldsm_x4_t;
+using visper::mbar_arrive;
+using visper::mbar_expect_tx;
+using visper::mbar_init;
+using visper::mbar_wait;
 using visper::mma_bf16;
 using visper::pack_f32;
+using visper::smem_u32;
+using visper::tensor_map;
+using visper::tensor_map_f32;
+using visper::tma_load_3d;
+using visper::tma_load_3d_multicast;
+using visper::tma_load_4d;
+
+constexpr int kSmemLimit = 232448;  // dynamic shared memory a CTA may ask for (227 KB)
 
 struct Params {
   const void* q;
@@ -47,8 +92,12 @@ struct Params {
   long long v_sw, v_sh, v_sn;
   long long o_sw, o_sh, o_sn;
   int W, heads, nW;
+  int windows_per_cta, stages;  // streamed: the plan
+  int cluster_x, cluster_y;     // streamed: CTAs of a cluster along windows and heads
   float scale;
 };
+
+// per_window: one CTA of N / 16 warps for each (window, head)
 
 template <int N, int D>
 __global__ void __launch_bounds__(N * 2) window_attn_bf16_kernel(const Params p) {
@@ -166,24 +215,390 @@ __global__ void __launch_bounds__(N * 2) window_attn_bf16_kernel(const Params p)
   }
 }
 
+// streamed: teams of N / 16 warps for a run of windows that share bias and mask
+
+template <int N, int D, int TEAMS>
+struct StreamCfg {
+  static constexpr int kWarps = N / 16;             // of a team
+  static constexpr int kThreads = TEAMS * N * 2;
+  static constexpr int kArrayBytes = N * N * 4;     // bias or mask: N / 16 blocks of 16 columns
+  static constexpr int kBlockBytes = N * 64;
+  static constexpr int kRowBytes = D * 2;
+  static constexpr int kTileBytes = N * kRowBytes;  // one of q, k, v
+  static constexpr int kStageBytes = 3 * kTileBytes;
+  // the teams' rings, bias (and mask), the mbarriers, and the slack that
+  // aligns the swizzled tiles to 1024 bytes
+  static int smem(bool masked, int stages) {
+    return TEAMS * stages * kStageBytes + (masked ? 2 : 1) * kArrayBytes +
+           8 * (1 + 2 * TEAMS * stages) + 1024;
+  }
+};
+
+// Byte offset of the 16-byte chunk `chunk` of row `row` of a tile with D-wide
+// bf16 rows, in the copy engine's swizzle of that width (64 bytes at D 32, 32
+// at D 16): the chunk index is XORed with the row's bits above the 128-byte
+// line, so a warp's ldmatrix rows land on distinct banks. Rows 16 apart (and
+// 8 apart) share their swizzle: tile_off(row + 16 i, c) = 16 i x row bytes +
+// tile_off(row, c).
+template <int D>
+__device__ __forceinline__ uint32_t tile_off(int row, int chunk) {
+  constexpr uint32_t kSpan = D * 2;
+  const uint32_t off = row * kSpan + chunk * 16;
+  return off ^ (((off >> 7) & (kSpan / 16 - 1)) << 4);
+}
+
+template <int N, int D, int TEAMS>
+__global__ void __launch_bounds__(StreamCfg<N, D, TEAMS>::kThreads, 1)
+    window_attn_stream_kernel(const __grid_constant__ CUtensorMap q_map,
+                              const __grid_constant__ CUtensorMap k_map,
+                              const __grid_constant__ CUtensorMap v_map,
+                              const __grid_constant__ CUtensorMap bias_map,
+                              const __grid_constant__ CUtensorMap mask_map, const Params p) {
+  using C = StreamCfg<N, D, TEAMS>;
+  constexpr int KS = D / 16;  // k-steps of S
+  constexpr int SN = N / 8;   // n-tiles of S
+  constexpr int PK = N / 16;  // k-steps of O = P V
+  constexpr int ON = D / 8;   // n-tiles of O, and 16-byte chunks of a row
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const bool masked = p.mask != nullptr;
+  const bool clustered = p.cluster_x * p.cluster_y > 1;
+  const int stages = p.stages;  // of each team's ring
+  // [team][stages][q, k, v] | bias | mask | bm_full, [team][full[stages], empty[stages]]
+  const uint32_t bias_s = base + TEAMS * stages * C::kStageBytes;
+  const uint32_t mask_s = bias_s + C::kArrayBytes;
+  const uint32_t bm_full = bias_s + (masked ? 2 : 1) * C::kArrayBytes;
+  const float* bias = reinterpret_cast<const float*>(smem_raw + (bias_s - raw));
+  const float* mask = masked ? bias + N * N : nullptr;
+
+  // this CTA: head blockIdx.y, mask index m, windows j of the run at
+  // m + (first + j) * period; team t takes j = t + TEAMS k, k = 0, 1, ...,
+  // through its own ring, whose barriers only its own warps wait on, in order
+  const int period = masked ? p.nW : 1;
+  const int group = p.W / period;
+  const int runs = (group + p.windows_per_cta - 1) / p.windows_per_cta;
+  const int m = blockIdx.x / runs;
+  const int first = (blockIdx.x % runs) * p.windows_per_cta;
+  const int count = min(p.windows_per_cta, group - first);
+  const int head = blockIdx.y;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int team = warp / C::kWarps;
+  const int tw = warp % C::kWarps;  // the team's warp, owner of rows 16 tw .. 16 tw + 15
+  const int g = lane / 4;
+  const int tq = lane % 4;
+  const int r0 = tw * 16;
+  const int mine = (count - team + TEAMS - 1) / TEAMS;  // windows of this team
+  const uint32_t ring = base + team * stages * C::kStageBytes;
+  const uint32_t full = bm_full + 8 + team * 16 * stages;
+  const uint32_t empty = full + 8 * stages;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bm_full, 1);
+    for (int s = 0; s < TEAMS * stages; ++s) {
+      const uint32_t team_bars = bm_full + 8 + 16 * stages * (s / stages);
+      mbar_init(team_bars + 8 * (s % stages), 1);                     // the producer's expect_tx
+      mbar_init(team_bars + 8 * (stages + s % stages), C::kWarps);   // a lane of each warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (clustered) cluster_sync();  // the cluster's mbarriers exist before a copy signals one
+
+  // the team's k-th window into its stage s: q, k, v of (window, head), a box each
+  auto load_window = [&](int k, int s) {
+    const int w = m + (first + team + TEAMS * k) * period;
+    const uint32_t dst = ring + s * C::kStageBytes;
+    mbar_expect_tx(full + 8 * s, C::kStageBytes);
+    tma_load_4d(dst, &q_map, 0, head, 0, w, full + 8 * s);
+    tma_load_4d(dst + C::kTileBytes, &k_map, 0, head, 0, w, full + 8 * s);
+    tma_load_4d(dst + 2 * C::kTileBytes, &v_map, 0, head, 0, w, full + 8 * s);
+  };
+  if (threadIdx.x == 0) {
+    // the head's bias and the mask once, boxes of 16 columns. In a cluster
+    // the CTAs of one head (one cluster row) share the bias and those of one
+    // mask index (one column) the mask: each asks for its share of the boxes
+    // for all of them
+    mbar_expect_tx(bm_full, (masked ? 2 : 1) * C::kArrayBytes);
+    const int cx = p.cluster_x, cy = p.cluster_y;
+    const int xr = blockIdx.x % cx, yr = blockIdx.y % cy;
+    const uint16_t row_ctas = static_cast<uint16_t>(((1u << cx) - 1u) << (yr * cx));
+    uint16_t col_ctas = 0;
+    for (int i = 0; i < cy; ++i) col_ctas |= static_cast<uint16_t>(1u << (i * cx + xr));
+    for (int b = xr; b < N / 16; b += cx) {
+      if (cx > 1) {
+        tma_load_3d_multicast(bias_s + b * C::kBlockBytes, &bias_map, 16 * b, 0, head, bm_full,
+                              row_ctas);
+      } else {
+        tma_load_3d(bias_s + b * C::kBlockBytes, &bias_map, 16 * b, 0, head, bm_full);
+      }
+    }
+    for (int b = yr; masked && b < N / 16; b += cy) {
+      if (cy > 1) {
+        tma_load_3d_multicast(mask_s + b * C::kBlockBytes, &mask_map, 16 * b, 0, m, bm_full,
+                              col_ctas);
+      } else {
+        tma_load_3d(mask_s + b * C::kBlockBytes, &mask_map, 16 * b, 0, m, bm_full);
+      }
+    }
+  }
+  if (tw == 0 && lane == 0) {
+    for (int k = 0; k < min(stages, mine); ++k) load_window(k, k);
+  }
+
+  // this thread's shared-memory offsets, fixed for the whole run: ldmatrix
+  // rows of Q, K and V (lane i gives row i % 8 of matrix i / 8), its two
+  // column pairs of a 16-column bias / mask block in row 16 tw + g (row + 8
+  // is 128 floats on: the swizzle repeats), and its O chunks
+  uint32_t qoff[KS], koff[KS];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    qoff[kk] = tile_off<D>(r0 + (lane & 7) + ((lane >> 3) & 1) * 8, 2 * kk + (lane >> 4));
+    koff[kk] = tile_off<D>((lane & 7) + (lane >> 4) * 8, 2 * kk + ((lane >> 3) & 1));
+  }
+  uint32_t voff[ON / 2];
+#pragma unroll
+  for (int np = 0; np < ON / 2; ++np) {
+    voff[np] = tile_off<D>((lane & 7) + ((lane >> 3) & 1) * 8, 2 * np + (lane >> 4));
+  }
+  const int row = r0 + g;
+  const int bswz = (row >> 1) & 3;
+  const int boff0 = row * 16 + (((tq >> 1) ^ bswz) << 2) + (tq & 1) * 2;
+  const int boff1 = row * 16 + (((2 + (tq >> 1)) ^ bswz) << 2) + (tq & 1) * 2;
+  const uint32_t orow = row * C::kRowBytes + tq * 4;
+  const int oswz = (tile_off<D>(row, 0) >> 4) & (ON - 1);  // the row's chunk XOR
+
+  for (int k = 0; k < mine; ++k) {
+    const int st = k % stages;
+    // the team's warp 0 refills the stage its previous window left
+    if (tw == 0 && k > 0 && k - 1 + stages < mine) {
+      if (lane == 0) {
+        const int prev = (k - 1) % stages;
+        mbar_wait(empty + 8 * prev, ((k - 1) / stages) & 1);
+        load_window(k - 1 + stages, prev);
+      }
+      __syncwarp();
+    }
+    const uint32_t qt = ring + st * C::kStageBytes;
+    const uint32_t kt = qt + C::kTileBytes;
+    const uint32_t vt = kt + C::kTileBytes;
+    mbar_wait(full + 8 * st, (k / stages) & 1);
+
+    // S = Q K^T
+    float s[SN][4];
+#pragma unroll
+    for (int nt = 0; nt < SN; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4];
+      ldsm_x4(qa, qt + qoff[kk]);
+#pragma unroll
+      for (int np = 0; np < SN / 2; ++np) {
+        uint32_t kb[4];
+        ldsm_x4(kb, kt + np * 16 * C::kRowBytes + koff[kk]);
+        mma_bf16(s[2 * np], qa, kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
+      }
+    }
+    if (k == 0) mbar_wait(bm_full, 0);
+
+    // scores in f32: scale, + bias, + mask; row max over the quad
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < SN; ++nt) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int off = (nt >> 1) * N * 16 + r * 128 + ((nt & 1) ? boff1 : boff0);
+        const float2 bv = *reinterpret_cast<const float2*>(bias + off);
+        float x0 = s[nt][2 * r] * p.scale + bv.x;
+        float x1 = s[nt][2 * r + 1] * p.scale + bv.y;
+        if (mask) {
+          const float2 mv = *reinterpret_cast<const float2*>(mask + off);
+          x0 += mv.x;
+          x1 += mv.y;
+        }
+        s[nt][2 * r] = x0;
+        s[nt][2 * r + 1] = x1;
+        mx[r] = fmaxf(mx[r], fmaxf(x0, x1));
+      }
+    }
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float ml = mx[r] * kLog2e;
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < SN; ++nt) {
+#pragma unroll
+        for (int i = 2 * r; i < 2 * r + 2; ++i) s[nt][i] = ex2(fmaf(s[nt][i], kLog2e, -ml));
+        sum += s[nt][2 * r] + s[nt][2 * r + 1];
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      inv[r] = 1.f / sum;
+    }
+
+    // O = P V with P normalised, then rounded to bf16 (V through ldmatrix.trans)
+    float o[ON][4];
+#pragma unroll
+    for (int nt = 0; nt < ON; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < PK; ++kk) {
+      const uint32_t pa[4] = {
+          pack_f32(s[2 * kk][0] * inv[0], s[2 * kk][1] * inv[0]),
+          pack_f32(s[2 * kk][2] * inv[1], s[2 * kk][3] * inv[1]),
+          pack_f32(s[2 * kk + 1][0] * inv[0], s[2 * kk + 1][1] * inv[0]),
+          pack_f32(s[2 * kk + 1][2] * inv[1], s[2 * kk + 1][3] * inv[1]),
+      };
+#pragma unroll
+      for (int np = 0; np < ON / 2; ++np) {
+        uint32_t vb[4];
+        ldsm_x4_t(vb, vt + kk * 16 * C::kRowBytes + voff[np]);
+        mma_bf16(o[2 * np], pa, vb[0], vb[1]);
+        mma_bf16(o[2 * np + 1], pa, vb[2], vb[3]);
+      }
+    }
+
+    // O into the warp's own q rows (no other warp reads them), then out as
+    // 16-byte row chunks through the output's strides
+    uint8_t* const q_rows = smem_raw + (qt - raw);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int nt = 0; nt < ON; ++nt) {
+        *reinterpret_cast<uint32_t*>(q_rows + orow + r * 8 * C::kRowBytes + ((nt ^ oswz) << 4)) =
+            pack_f32(o[nt][2 * r], o[nt][2 * r + 1]);
+      }
+    }
+    __syncwarp();
+    const int w = m + (first + team + TEAMS * k) * period;
+    __nv_bfloat16* const ob = static_cast<__nv_bfloat16*>(p.o) + w * p.o_sw + head * p.o_sh;
+#pragma unroll
+    for (int i = lane; i < 16 * ON; i += 32) {
+      const int orow_i = r0 + i / ON, chunk = i % ON;
+      *reinterpret_cast<uint4*>(ob + orow_i * p.o_sn + chunk * 8) =
+          *reinterpret_cast<const uint4*>(q_rows + tile_off<D>(orow_i, chunk));
+    }
+    // the copy engine refills this stage next: order these accesses before it
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * st);
+  }
+  if (clustered) cluster_sync();  // no CTA leaves while a peer's copies may target it
+}
+
 template <int N, int D>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+cudaError_t launch_per_window(const Params& p, cudaStream_t stream) {
   const dim3 grid(p.W, p.heads);
   window_attn_bf16_kernel<N, D><<<grid, N * 2, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
+template <int N, int D, int TEAMS>
+cudaError_t allow_smem() {
+  static bool set = false;  // shared memory above 48 KB is opted into once
+  if (!set) {
+    const cudaError_t rc =
+        cudaFuncSetAttribute(window_attn_stream_kernel<N, D, TEAMS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (rc != cudaSuccess) return rc;
+    set = true;
+  }
+  return cudaSuccess;
+}
+
+template <int N, int D, int TEAMS>
+cudaError_t launch_streamed(const Params& p, cudaStream_t stream) {
+  using C = StreamCfg<N, D, TEAMS>;
+  const int smem = C::smem(p.mask != nullptr, p.stages);
+  const int period = p.mask ? p.nW : 1;
+  if (p.windows_per_cta < 1 || p.stages < 1 || smem > kSmemLimit || p.W % period) {
+    return cudaErrorInvalidValue;
+  }
+  const int runs = (p.W / period + p.windows_per_cta - 1) / p.windows_per_cta;
+  const dim3 grid(period * runs, p.heads);
+  if (p.cluster_x < 1 || p.cluster_y < 1 || p.cluster_x * p.cluster_y > 8 ||
+      grid.x % p.cluster_x || grid.y % p.cluster_y) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t rc = allow_smem<N, D, TEAMS>();
+  if (rc != cudaSuccess) return rc;
+  CUtensorMap q_map, k_map, v_map, bias_map, mask_map;
+  if (!tensor_map(p.q, D, p.heads, N, p.W, p.q_sw, p.q_sn, p.q_sh, D, N, &q_map) ||
+      !tensor_map(p.k, D, p.heads, N, p.W, p.k_sw, p.k_sn, p.k_sh, D, N, &k_map) ||
+      !tensor_map(p.v, D, p.heads, N, p.W, p.v_sw, p.v_sn, p.v_sh, D, N, &v_map) ||
+      !tensor_map_f32(p.bias, N, N, p.heads, N, &bias_map) ||
+      !tensor_map_f32(p.mask ? p.mask : p.bias, N, N, p.mask ? p.nW : p.heads, N, &mask_map)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(C::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster_x;
+  attr[0].val.clusterDim.y = p.cluster_y;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.cluster_x * p.cluster_y > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, window_attn_stream_kernel<N, D, TEAMS>, q_map, k_map, v_map,
+                            bias_map, mask_map, p);
+}
+
+// kernel: 0 per_window, 1 streamed
+template <int N, int D>
+cudaError_t launch(const Params& p, int kernel, int teams, cudaStream_t stream) {
+  if (kernel == 0) return launch_per_window<N, D>(p, stream);
+  if (kernel == 1 && teams == 1) return launch_streamed<N, D, 1>(p, stream);
+  if (kernel == 1 && teams == 2) return launch_streamed<N, D, 2>(p, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <int N, int D, int TEAMS>
+int info_streamed(bool masked, int stages, int* threads, int* smem, int* ctas_per_sm) {
+  *threads = StreamCfg<N, D, TEAMS>::kThreads;
+  *smem = StreamCfg<N, D, TEAMS>::smem(masked, stages);
+  const cudaError_t rc = allow_smem<N, D, TEAMS>();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, window_attn_stream_kernel<N, D, TEAMS>, *threads, *smem));
+}
+
+template <int N, int D>
+int info(int kernel, bool masked, int stages, int teams, int* threads, int* smem,
+         int* ctas_per_sm) {
+  if (kernel == 0) {
+    *threads = N * 2;
+    *smem = 0;
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        ctas_per_sm, window_attn_bf16_kernel<N, D>, *threads, 0));
+  }
+  if (kernel != 1 || stages < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (teams == 1) return info_streamed<N, D, 1>(masked, stages, threads, smem, ctas_per_sm);
+  if (teams == 2) return info_streamed<N, D, 2>(masked, stages, threads, smem, ctas_per_sm);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success). Strides are in
-// elements (window, head, row); the D stride must be 1. mask may be null
-// (nW is then ignored). Only bf16 tensors and the (N, D) pairs above.
+// elements (window, head, row); the D stride must be 1 and the others multiples
+// of 8 (16-byte rows for the copy engine). mask may be null (nW is then
+// ignored). Only bf16 tensors and the (N, D) pairs above. kernel: 0
+// per_window, 1 streamed, which takes windows_per_cta, stages, teams and the
+// cluster's shape from `window_attn_plan`.
 extern "C" int visper_window_attn(
     const void* q, const void* k, const void* v, void* o, const void* bias,
     const void* mask, long long q_sw, long long q_sh, long long q_sn, long long k_sw,
     long long k_sh, long long k_sn, long long v_sw, long long v_sh, long long v_sn,
     long long o_sw, long long o_sh, long long o_sn, int W, int heads, int N, int D,
-    int nW, float scale, void* stream) {
+    int nW, float scale, int kernel, int windows_per_cta, int stages, int teams,
+    int cluster_x, int cluster_y, void* stream) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.bias = static_cast<const float*>(bias);
@@ -193,9 +608,26 @@ extern "C" int visper_window_attn(
   p.v_sw = v_sw; p.v_sh = v_sh; p.v_sn = v_sn;
   p.o_sw = o_sw; p.o_sh = o_sh; p.o_sn = o_sn;
   p.W = W; p.heads = heads; p.nW = nW > 0 ? nW : 1;
+  p.windows_per_cta = windows_per_cta; p.stages = stages;
+  p.cluster_x = cluster_x; p.cluster_y = cluster_y;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N == 144 && D == 32) return static_cast<int>(launch<144, 32>(p, st));
-  if (N == 64 && D == 16) return static_cast<int>(launch<64, 16>(p, st));
+  if (N == 144 && D == 32) return static_cast<int>(launch<144, 32>(p, kernel, teams, st));
+  if (N == 64 && D == 16) return static_cast<int>(launch<64, 16>(p, kernel, teams, st));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Geometry of a kernel at (N, D), for reports: threads and dynamic shared
+// memory of a CTA (streamed: with or without the mask, `stages` stages,
+// `teams` teams), and how many CTAs the occupancy calculator fits on one SM.
+// Returns 0, or a CUDA error for what the kernels do not take.
+extern "C" int visper_window_attn_info(int kernel, int N, int D, int masked, int stages,
+                                       int teams, int* threads, int* smem, int* ctas_per_sm) {
+  if (N == 144 && D == 32) {
+    return info<144, 32>(kernel, masked, stages, teams, threads, smem, ctas_per_sm);
+  }
+  if (N == 64 && D == 16) {
+    return info<64, 16>(kernel, masked, stages, teams, threads, smem, ctas_per_sm);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -36,7 +36,7 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _BWD = (
-    [_P] * 11 + [ctypes.POINTER(_LL)] + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
+    [_P] * 11 + [ctypes.POINTER(_LL)] + [_I] * 6 + [ctypes.c_float, _I, _P],
     ctypes.c_int,
 )
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
@@ -54,9 +54,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "window_attn": {
         "visper_window_attn": (
-            [_P] * 6 + [_LL] * 12 + [_I] * 5 + [ctypes.c_float, _P],
+            [_P] * 6 + [_LL] * 12 + [_I] * 5 + [ctypes.c_float] + [_I] * 6 + [_P],
             ctypes.c_int,
         ),
+        "visper_window_attn_info": ([_I] * 6 + [ctypes.POINTER(_I)] * 3, ctypes.c_int),
     },
     "w4_matmul": {"visper_w4_matmul": ([_P] * 4 + [_I] * 6 + [_P], ctypes.c_int)},
     "decode_attn": {
@@ -165,6 +166,12 @@ def kernel_resources(log: str) -> Dict[str, Dict[str, int]]:
             sm = re.search(r"(\d+) bytes smem", ln)
             out[entry]["static_smem_bytes"] = int(sm.group(1)) if sm else 0
     return out
+
+
+def build_log(name: str) -> str:
+    """The compiler output of library `name`'s build (built first if needed)."""
+    load(name)
+    return _lib_path(name).with_suffix(".log").read_text()
 
 
 def bind(name: str, path: Path) -> ctypes.CDLL:

@@ -26,13 +26,12 @@ rows per CTA, K/V tiles through a TMA ring, two consumer warpgroups on
 "wgmma": it keeps the calls whose scale is not positive, and
 `kernel="mma_sync"` forces it to be timed beside the other).
 
-csrc/flash_bwd.cu holds two designs of the backward pair and
-`flash_bwd_kernel_for` names the one a call takes: "wgmma" (every call: dq
-over CTAs of 128 query rows with K/V tiles of 64 keys through a TMA ring,
-dk/dv over CTAs of 128 keys with Q/dO tiles of 64 rows and their lse/delta
-through it; `flash_bwd_dq_visits` / `flash_bwd_dkv_visits` are their loops
-and `flash_bwd_tile_order` their grids) and "mma_sync" (the kernels before
-them, `kernel="mma_sync"` to time them).
+csrc/flash_bwd.cu holds the backward pair, which `flash_bwd_kernel_for`
+names "wgmma" for every call: dq over CTAs of 128 query rows with K/V tiles
+of 64 keys through a TMA ring, dk/dv over CTAs of 128 keys with Q/dO tiles
+of 64 rows and their lse/delta through it; `flash_bwd_dq_visits` /
+`flash_bwd_dkv_visits` are their loops and `flash_bwd_tile_order` their
+grids.
 
 Fully masked rows (left padding before kv_starts): the kernel gives 0 and
 lse = NEG_INF, the plain forward a uniform average of v. Compare the two on
@@ -61,7 +60,6 @@ SUPPORTED_DTYPES = (torch.bfloat16, torch.float32)
 KERNEL_IDS = {"simt": 0, "wgmma": 1, "mma_sync": 2}
 KERNEL_DTYPES = {"simt": torch.float32, "wgmma": torch.bfloat16, "mma_sync": torch.bfloat16}
 WGMMA_Q_TILE = 128      # query rows per CTA of the wgmma kernel
-BWD_KERNEL_IDS = {"wgmma": 1, "mma_sync": 2}
 BWD_DQ_ROWS = 128       # wgmma dq: query rows per CTA, 64 per warpgroup
 BWD_DQ_KEYS = 64        # wgmma dq: keys per streamed K/V tile
 BWD_DKV_KEYS = 128      # wgmma dk/dv: keys per CTA, 64 per warpgroup
@@ -187,8 +185,7 @@ def flash_bwd_kernel_for(dtype: torch.dtype, h: int, t: int, s: int) -> str:
     """The name of the hand-written backward pair a (dtype, head dim, query
     length, key length) call takes on CUDA; raises for what no kernel runs.
     Never the plain version: "wgmma" takes every bf16 call at H 64/96/128
-    (causal or not, any lengths, masks and strides); "mma_sync" is only
-    forced, to be timed beside it, and takes the same calls."""
+    (causal or not, any lengths, masks and strides)."""
     if dtype != torch.bfloat16:
         raise ValueError(f"flash_attention_bwd: the backward kernels take bf16, not {dtype}")
     if h not in SUPPORTED_HEAD_DIMS:
@@ -360,18 +357,14 @@ def flash_attention_fwd(
 
 
 def _bwd_launch(
-    fn: str, q, k, v, dout, lse, delta, kv_lengths, kv_starts, causal, scale, kernel,
+    fn: str, q, k, v, dout, lse, delta, kv_lengths, kv_starts, causal, scale,
 ) -> Tuple[torch.Tensor, ...]:
     """Launch the dq (B2) or dk/dv (B3) kernel on the current stream (bf16
-    only): the one `flash_bwd_kernel_for` names, or `kernel`."""
+    only): the one `flash_bwd_kernel_for` names."""
     _check(q, k, v, kv_lengths, kv_starts)
     b, t, nq, h = q.shape
     s, nkv = k.shape[1], k.shape[2]
-    named = flash_bwd_kernel_for(q.dtype, h, t, s)     # raises for what no kernel takes
-    if kernel is None:
-        kernel = named
-    elif kernel not in BWD_KERNEL_IDS:
-        raise ValueError(f"flash_attention_bwd: no kernel named {kernel!r} (one of {sorted(BWD_KERNEL_IDS)})")
+    kernel = flash_bwd_kernel_for(q.dtype, h, t, s)    # raises for what no kernel takes
     if dout.shape != q.shape or lse.shape != (b, nq, t) or delta.shape != (b, nq, t):
         raise ValueError("flash_attention_bwd: dout/lse/delta shapes do not match q")
     from visper_lm_tpu_torch.ops import _build
@@ -400,7 +393,7 @@ def _bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _ptr(lens), _ptr(starts), strides,
-        b, t, s, nq, nkv, h, float(scale), int(causal), BWD_KERNEL_IDS[kernel],
+        b, t, s, nq, nkv, h, float(scale), int(causal),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
@@ -410,28 +403,22 @@ def _bwd_launch(
 
 def flash_attention_bwd_dq(
     q, k, v, dout, lse, delta, *, causal=True, kv_lengths=None, kv_starts=None, scale=None,
-    kernel: Optional[str] = None,
 ) -> torch.Tensor:
     """B2: dq (B, T, Nq, H) in q's dtype, from dout, the forward's lse and
-    delta = rowsum(dout o out) (B, Nq, T) f32. bf16 CUDA tensors only;
-    `kernel` forces one of BWD_KERNEL_IDS."""
+    delta = rowsum(dout o out) (B, Nq, T) f32. bf16 CUDA tensors only."""
     global dq_launches
-    (dq,) = _bwd_launch("dq", q, k, v, dout, lse, delta, kv_lengths, kv_starts, causal, scale,
-                        kernel)
+    (dq,) = _bwd_launch("dq", q, k, v, dout, lse, delta, kv_lengths, kv_starts, causal, scale)
     dq_launches += 1
     return dq
 
 
 def flash_attention_bwd_dkv(
     q, k, v, dout, lse, delta, *, causal=True, kv_lengths=None, kv_starts=None, scale=None,
-    kernel: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B3: (dk, dv) (B, S, Nkv, H) in the input dtypes, summed over each kv
-    head's query group. bf16 CUDA tensors only; `kernel` forces one of
-    BWD_KERNEL_IDS."""
+    head's query group. bf16 CUDA tensors only."""
     global dkv_launches
-    dk, dv = _bwd_launch("dkv", q, k, v, dout, lse, delta, kv_lengths, kv_starts, causal, scale,
-                         kernel)
+    dk, dv = _bwd_launch("dkv", q, k, v, dout, lse, delta, kv_lengths, kv_starts, causal, scale)
     dkv_launches += 1
     return dk, dv
 

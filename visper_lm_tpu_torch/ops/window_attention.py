@@ -1,14 +1,24 @@
-"""Fused Swin window attention: the CUDA kernel's wrapper, its plain version
+"""Fused Swin window attention: the CUDA kernels' wrapper, their plain version
 and the dispatch (counterpart of visper_lm_tpu/ops/window_attention.py).
 
   * `window_attention_plain` — JAX `window_attention_xla` (:33-54): the CPU
-    path and the kernel's oracle;
+    path and the kernels' oracle;
   * `window_attention_kernel` — wraps csrc/window_attn.cu (B4), which replaces
     the Pallas `window_attention_pallas` (:82, pallas_call :112). Forward only,
     bf16, (N, D) in `SUPPORTED_SHAPES`; a CUDA tensor launches the kernel or
     raises, an input that requires grad raises;
   * `window_attention` — JAX `window_attention` (:134): the kernel for tensors
     on CUDA, the plain version elsewhere or when use_kernel=False.
+
+csrc/window_attn.cu holds two kernels and `window_attn_kernel_for` names the
+one a call takes: "streamed" (every call: a CTA takes a run of windows that
+share one head and, in a shifted launch, one mask index, reads their bias and
+mask once into shared memory (shared further across a thread block cluster
+in shifted launches), and its teams of warps take alternate windows, whose
+q, k, v stream through a ring; `window_attn_plan` sets the run length, the
+grid, the ring and the cluster, `window_attn_ctas` lists what each CTA
+takes) and "per_window" (the kernel before it, one CTA per (window, head);
+`kernel="per_window"` to time it).
 
 q, k, v are (W, heads, N, D) with W = batch * windows flattened batch-major;
 bias (heads, N, N) is added to the scores; mask (nW, N, N) tiles W with
@@ -18,14 +28,31 @@ over (one card).
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 SUPPORTED_SHAPES = ((144, 32), (64, 16))   # (N, D): Swin-L window 12, a test shape
+KERNEL_IDS = {"per_window": 0, "streamed": 1}
+SMEM_PER_CTA = 232_448   # dynamic shared memory a CTA may ask for on sm_90 (227 KB)
+MAX_STAGES = 5           # ring stages of q, k, v of a team
+MAX_CLUSTER = 8          # CTAs of a cluster (the portable limit)
+TEAMS = 1                # teams of N / 16 warps in a CTA
+ARRAY_COST = 0.5         # loading one N x N f32 array (bias or mask) ~ half a window's time
+H100_SMS = 132
 
 # Kernel launches since the last reset (see ops/flash_attention.py).
 launches = 0
+
+
+class WindowPlan(NamedTuple):
+    windows_per_cta: int      # the longest run of windows a CTA takes
+    grid: Tuple[int, int]     # (mask indices x runs, heads)
+    stages: int               # ring stages of q, k, v of each team
+    smem_bytes: int           # dynamic shared memory of a CTA (one CTA an SM)
+    teams: int                # teams of N / 16 warps; team t takes windows t, t + teams, ...
+    cluster: Tuple[int, int]  # CTAs of a cluster along the grid: those of a row share bias, of a column the mask
 
 
 def window_attention_plain(
@@ -52,6 +79,92 @@ def window_attention_plain(
     return out.to(q.dtype)
 
 
+def window_attn_kernel_for(n: int, d: int, dtype: torch.dtype = torch.bfloat16) -> str:
+    """The hand-written kernel a (N, D, dtype) call takes on CUDA; raises for
+    what no kernel runs. Never the plain version: "streamed" takes every
+    supported shape; "per_window" is only forced, to be timed beside it."""
+    if dtype != torch.bfloat16:
+        raise ValueError(f"window_attention: the kernels take bf16, not {dtype}")
+    if (n, d) not in SUPPORTED_SHAPES:
+        raise ValueError(f"window_attention: (N, D) = ({n}, {d}) not in {SUPPORTED_SHAPES}")
+    return "streamed"
+
+
+def window_attn_smem_bytes(n: int, d: int, masked: bool, stages: int, teams: int = TEAMS) -> int:
+    """Dynamic shared memory of a streamed CTA (`StreamCfg::smem` in
+    csrc/window_attn.cu): the teams' rings of q, k, v tiles, bias (and mask)
+    in N x N floats, the mbarriers, 1 KB to align the swizzled tiles."""
+    return (teams * stages * 3 * n * d * 2 + (2 if masked else 1) * n * n * 4
+            + 8 * (1 + 2 * teams * stages) + 1024)
+
+
+def _cluster(grid: Tuple[int, int], masked: bool) -> Tuple[int, int]:
+    """The cluster of a shifted launch that reads the least bias and mask from
+    L2 a CTA (each is read once by a cluster row or column and multicast):
+    min 1/cx + 1/cy over cx | grid x, cy | grid y, cx * cy <= MAX_CLUSTER; the
+    smaller cluster on a tie. Unshifted launches read little bias: none."""
+    if not masked:
+        return (1, 1)
+    shapes = [(cx, cy) for cx in range(1, MAX_CLUSTER + 1) for cy in range(1, MAX_CLUSTER + 1)
+              if cx * cy <= MAX_CLUSTER and grid[0] % cx == 0 and grid[1] % cy == 0]
+    return min(shapes, key=lambda c: (1 / c[0] + 1 / c[1], c[0] * c[1]))
+
+
+@functools.lru_cache(maxsize=None)
+def window_attn_plan(
+    w: int, heads: int, n: int, d: int, nw: int, sms: int = H100_SMS, teams: int = TEAMS,
+) -> WindowPlan:
+    """The streamed kernel's grid for W windows of `heads` heads, nW mask
+    indices (0: unshifted) on `sms` SMs; a function of shapes only.
+
+    The windows that share a head and a mask index (W / nW of them; all W
+    when unshifted) are cut into runs of `windows_per_cta`, one CTA each, so
+    that each CTA reads its bias and mask once. A CTA fills its SM (bias and
+    mask take most of the shared memory, and the kernel's launch bounds give
+    its 18 warps an SM's registers), so the run length minimises the
+    estimated time of waves of CTAs over the SMs, each as long as its run
+    plus the loads of its N x N arrays (ARRAY_COST windows each); on a tie
+    the fewer CTAs (the more reuse)."""
+    if (n, d) not in SUPPORTED_SHAPES:
+        raise ValueError(f"window_attn_plan: (N, D) = ({n}, {d}) not in {SUPPORTED_SHAPES}")
+    period = nw if nw > 0 else 1
+    if w < 1 or heads < 1 or w % period:
+        raise ValueError(f"window_attn_plan: W {w} is not a positive multiple of nW {nw}")
+    masked = nw > 0
+    group = w // period
+    fit = [s for s in range(1, MAX_STAGES + 1)
+           if window_attn_smem_bytes(n, d, masked, s, teams) <= SMEM_PER_CTA]
+    if not fit:
+        raise ValueError(f"window_attn_plan: bias and mask at N {n} exceed a CTA's shared memory")
+    best = None
+    for run in range(1, group + 1):
+        stages = min(fit[-1], -(-run // teams))
+        smem = window_attn_smem_bytes(n, d, masked, stages, teams)
+        ctas = heads * period * -(-group // run)
+        cost = -(-ctas // sms) * (run + ARRAY_COST * (2 if masked else 1))
+        if best is None or (cost, ctas) < best[0]:
+            grid = (period * -(-group // run), heads)
+            best = ((cost, ctas), WindowPlan(run, grid, stages, smem, teams, _cluster(grid, masked)))
+    return best[1]
+
+
+def window_attn_ctas(w: int, heads: int, nw: int, plan: WindowPlan) -> Tuple[Tuple[int, Tuple[int, ...]], ...]:
+    """(head, windows) of each streamed CTA in grid order (blockIdx.x fastest):
+    a copy of the kernel's index arithmetic (`window_attn_stream_kernel`:
+    `runs`, `m`, `first`, `count`), kept for the CPU tests; a change to either
+    must be made to both."""
+    period = nw if nw > 0 else 1
+    group = w // period
+    runs = -(-group // plan.windows_per_cta)
+    out = []
+    for head in range(plan.grid[1]):
+        for x in range(plan.grid[0]):
+            m, first = x // runs, (x % runs) * plan.windows_per_cta
+            count = min(plan.windows_per_cta, group - first)
+            out.append((head, tuple(m + (first + j) * period for j in range(count))))
+    return tuple(out)
+
+
 def _check(q, k, v, bias, mask) -> None:
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_cuda or x.device != q.device:
@@ -65,12 +178,18 @@ def _check(q, k, v, bias, mask) -> None:
         if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3]):
             raise ValueError(f"window_attention: {name} needs 16-byte aligned rows")
     w, h, n, d = q.shape
-    if (n, d) not in SUPPORTED_SHAPES:
-        raise ValueError(f"window_attention: (N, D) = ({n}, {d}) not in {SUPPORTED_SHAPES}")
+    window_attn_kernel_for(n, d, q.dtype)
     if tuple(bias.shape) != (h, n, n):
         raise ValueError(f"window_attention: bias must be ({h}, {n}, {n})")
     if mask is not None and (mask.ndim != 3 or mask.shape[1:] != (n, n) or w % mask.shape[0]):
         raise ValueError(f"window_attention: mask must be (nW, {n}, {n}) with W % nW == 0")
+
+
+def _f32_rows(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """x as contiguous f32 on `device` starting on a 16-byte boundary (the
+    kernel copies its rows with the copy engine)."""
+    x = x.to(device=device, dtype=torch.float32).contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def window_attention_kernel(
@@ -80,30 +199,40 @@ def window_attention_kernel(
     bias: torch.Tensor,
     mask: Optional[torch.Tensor],
     scale: float,
+    kernel: Optional[str] = None,
+    plan: Optional[WindowPlan] = None,
 ) -> torch.Tensor:
-    """Launch B4 on the current stream. The result is a (W, heads, N, D) view
-    of a (W, N, heads, D) buffer, so the Swin block's merge of the heads back
-    into (W, N, C) is free."""
+    """Launch B4 on the current stream: the kernel `window_attn_kernel_for`
+    names, or `kernel` (one of KERNEL_IDS); the streamed kernel with
+    `window_attn_plan`'s plan for this card, or `plan` (to time or test
+    another). The result is a (W, heads, N, D) view of a (W, N, heads, D)
+    buffer, so the Swin block's merge of the heads back into (W, N, C) is
+    free."""
     _check(q, k, v, bias, mask)
+    w, h, n, d = q.shape
+    if kernel is None:
+        kernel = window_attn_kernel_for(n, d, q.dtype)
+    elif kernel not in KERNEL_IDS:
+        raise ValueError(f"window_attention: no kernel named {kernel!r} (one of {sorted(KERNEL_IDS)})")
     from visper_lm_tpu_torch.ops import _build
 
     global launches
     lib = _build.load("window_attn")
-    w, h, n, d = q.shape
-    bias32 = bias.to(device=q.device, dtype=torch.float32).contiguous()
-    mask32 = None
-    if mask is not None:
-        mask32 = mask.to(device=q.device, dtype=torch.float32).contiguous()
+    bias32 = _f32_rows(bias, q.device)
+    mask32 = None if mask is None else _f32_rows(mask, q.device)
+    nw = 0 if mask32 is None else mask32.shape[0]
+    if plan is None:
+        plan = window_attn_plan(w, h, n, d, nw, torch.cuda.get_device_properties(q.device).multi_processor_count)
     out = torch.empty((w, n, h, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
     rc = lib.visper_window_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bias32.data_ptr(),
         None if mask32 is None else mask32.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        w, h, n, d, 0 if mask32 is None else mask32.shape[0], float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        w, h, n, d, nw, float(scale), KERNEL_IDS[kernel], plan.windows_per_cta, plan.stages,
+        plan.teams, *plan.cluster, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"window_attention: kernel launch failed with CUDA error {rc}")
+        raise RuntimeError(f"window_attention: {kernel} kernel launch failed with CUDA error {rc}")
     launches += 1
     return out
 
