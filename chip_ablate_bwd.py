@@ -26,10 +26,8 @@ exponential by the special-function unit (`__expf`, an `ex2.approx` of
 x * log2(e), as the streamed kernel does) in place of `expf` ("ex2"). Each
 kernel of each build at Swin-L's stages 1 and 3 without and with the shift
 mask (W512 / W32, 6 / 24 heads, N144, D32), q, k and v as views of a packed
-projection. It also times both kernels of the full build at all
-eight Swin-L stage launches, the streamed kernel there with two teams of
-warps in place of the plan's one and, shifted, with other thread block clusters,
-and prints the kernels' registers, spills and CTAs per SM.
+projection. It also times both kernels of the full build at all eight Swin-L
+stage launches and prints their registers, spills and CTAs per SM.
 """
 
 from __future__ import annotations
@@ -165,13 +163,13 @@ def run_window_attn(libs, graph_ms) -> None:
     for entry, r in res.items():
         print(f"ptxas[window_attn] {entry}: {r}")
     threads, smem, ctas = (ctypes.c_int() for _ in range(3))
-    for kernel, teams in (("per_window", 1), ("streamed", 1), ("streamed", 2)):
+    for kernel in wa.KERNEL_IDS:
         for masked, stages in ((0, wa.MAX_STAGES), (1, 2)):
             rc = _build.load("window_attn").visper_window_attn_info(
-                wa.KERNEL_IDS[kernel], 144, 32, masked, stages, teams, ctypes.byref(threads),
+                wa.KERNEL_IDS[kernel], 144, 32, masked, stages, ctypes.byref(threads),
                 ctypes.byref(smem), ctypes.byref(ctas))
-            print(f"window_attn {kernel} teams {teams} N144 D32 masked {masked} stages {stages}: "
-                  f"rc {rc}, {threads.value} threads, {smem.value} B dynamic shared memory, "
+            print(f"window_attn {kernel} N144 D32 masked {masked} stages {stages}: rc {rc}, "
+                  f"{threads.value} threads, {smem.value} B dynamic shared memory, "
                   f"{ctas.value} CTAs per SM")
     gen = torch.Generator(device="cuda").manual_seed(0)
     for i, (w, heads) in enumerate(SWIN_STAGES):
@@ -191,23 +189,6 @@ def run_window_attn(libs, graph_ms) -> None:
                         [lambda: wa.window_attention_kernel(*args, kernel=kernel)], 20))
             for name, t in times.items():
                 print(f"ablation {case} {kernel} {name}: {sum(t) / 2:.4f} ms {t}")
-        # the streamed kernel's plan with one team, and with other clusters
-        plan = wa.window_attn_plan(w, heads, 144, 32, w // 2 if shifted else 0,
-                                   torch.cuda.get_device_properties(0).multi_processor_count)
-        two_teams = wa.window_attn_plan(w, heads, 144, 32, w // 2 if shifted else 0,
-                                        torch.cuda.get_device_properties(0).multi_processor_count,
-                                        teams=2)
-        variants = {"plan": plan, "two_teams": two_teams}
-        if shifted:
-            for cx, cy in ((1, 1), (2, 1), (1, 2), (2, 2)):
-                variants[f"cluster_{cx}x{cy}"] = plan._replace(cluster=(cx, cy))
-                variants[f"two_teams_cluster_{cx}x{cy}"] = two_teams._replace(cluster=(cx, cy))
-        ms = {}
-        for name in [*variants, *reversed(variants)]:
-            ms.setdefault(name, []).append(graph_ms(
-                [lambda: wa.window_attention_kernel(*args, plan=variants[name])], 20))
-        for name, t in ms.items():
-            print(f"plan {case} {name} {tuple(variants[name])}: {sum(t) / 2:.4f} ms {t}")
 
 
 ABLATIONS = {

@@ -765,7 +765,7 @@ def main() -> int:
     for nw in (0, SWIN_STAGES[0][0] // 2):
         plan = wa.window_attn_plan(*SWIN_STAGES[0], 144, 32, nw, sms)
         check(_build.load("window_attn").visper_window_attn_info(
-            wa.KERNEL_IDS["streamed"], 144, 32, int(nw > 0), plan.stages, plan.teams,
+            wa.KERNEL_IDS["streamed"], 144, 32, int(nw > 0), plan.stages,
             ctypes.byref(win_threads), ctypes.byref(smem), ctypes.byref(win_ctas)) == 0,
             "no streamed window kernel at N144 D32")
         check(smem.value == plan.smem_bytes,
@@ -774,10 +774,8 @@ def main() -> int:
         print(f"window_attn streamed N144 D32 {'shifted' if nw else 'unshifted'} stage 1: "
               f"{smem.value} B dynamic shared memory, {win_threads.value} threads, "
               f"{win_ctas.value} CTA per SM; plan {json.dumps(plan._asdict())}")
-    # the window kernel the plan launches (its third template argument is the plan's teams)
-    win_mark = f"stream_kernelILi144ELi32ELi{wa.window_attn_plan(*SWIN_STAGES[0], 144, 32, 0, sms).teams}E"
     for lib, mark in (("flash_fwd", "wgmma_kernel"), ("flash_bwd", "wgmma_kernel"),
-                      ("decode_attn", "split_kernel"), ("window_attn", win_mark)):
+                      ("decode_attn", "split_kernel"), ("window_attn", "stream_kernel")):
         for entry, res in _build.kernel_resources(logs.get(lib, "")).items():
             if mark in entry:
                 check(res["spill_bytes"] == 0, f"{entry} spills {res['spill_bytes']} bytes")

@@ -1,7 +1,7 @@
 // Hopper copy-engine pieces shared by the port's TMA-fed kernels
 // (flash_fwd.cu, flash_bwd.cu, window_attn.cu; w4_matmul.cu takes the ones its
 // copies matched): mbarriers, 4-D tensor-map box copies in both directions,
-// 3-D f32 box loads (also multicast to a cluster), the cluster barrier, and
+// 3-D f32 box loads, and
 // cuTensorMapEncodeTiled, found through the runtime's entry-point query (the
 // libraries link no libcuda).
 //
@@ -75,27 +75,6 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(index)
       : "memory");
-}
-
-// The same box into the shared memory of every CTA of the cluster whose bit is
-// set in `cta_mask`, at the same offset; the bytes count towards the mbarrier
-// at `bar`'s offset in each of them. One read of L2 serves them all.
-__device__ __forceinline__ void tma_load_3d_multicast(uint32_t dst, const CUtensorMap* map, int col,
-                                                      int row, int index, uint32_t bar,
-                                                      uint16_t cta_mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
-      "[%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(index), "h"(cta_mask)
-      : "memory");
-}
-
-// Every thread of every CTA of the cluster arrives, then waits for the rest:
-// orders this CTA's shared-memory writes (an mbarrier's init) before the
-// other CTAs' accesses that follow.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" :::
-                   "memory");
 }
 
 // One box of a 4-D tensor map, shared -> global, by the copy engine, in this

@@ -23,30 +23,25 @@
 // Two kernels; ops/window_attention.py `window_attn_kernel_for` names the one
 // a call takes and `window_attn_plan` its grid.
 //
-// 1. streamed (every call): a CTA takes a run of windows that share their
-//    bias and mask: one head and, in a shifted launch, one mask index m, so
-//    windows m, m + nW, ... across the batch's images; in an unshifted launch
-//    a run of consecutive windows. The copy engine brings the head's bias and
-//    the mask once per CTA into shared memory, N / 16 boxes of 16 columns
-//    each in the 64-byte swizzle (a warp's 8-byte reads of 8 rows take the
-//    two wavefronts 256 bytes need). In a shifted launch the CTAs of a
-//    thread block cluster share them further: the CTAs of one head (a cluster
-//    row) split the bias's boxes and multicast them to each other, those of
-//    one mask index (a column) the mask's, so L2 serves each box once a row
-//    or column. The CTA is TEAMS teams of N / 16 warps (the plan's `teams`):
-//    team t takes windows t, t + TEAMS, ... of the run and streams their q, k
-//    and v (one 4-D tensor-map box each, in the 64- or 32-byte swizzle of a
-//    D-wide row) through its own ring of `stages` stages, refilled by the
-//    team's warp 0 at the top of each window; mbarriers pass the stages, and
-//    a team's barriers are waited on by its own warps only, in order. Each
-//    warp owns 16 query rows of its team's windows: S = Q K^T by mma.sync
+// 1. streamed (every call): a CTA of N / 16 warps (9 for N = 144) takes a
+//    run of windows that share their bias and mask: one head and, in a
+//    shifted launch, one mask index m, so windows m, m + nW, ... across the
+//    batch's images; in an unshifted launch a run of consecutive windows. The
+//    copy engine brings the head's bias and the mask once per CTA into shared
+//    memory, N / 16 boxes of 16 columns each in the 64-byte swizzle (a warp's
+//    8-byte reads of 8 rows take the two wavefronts 256 bytes need), and each
+//    window's q, k and v (one 4-D tensor-map box each, in the 64- or 32-byte
+//    swizzle of a D-wide row) through a ring of `stages` stages (up to 5),
+//    refilled by warp 0 at the top of each window; mbarriers pass the stages.
+//    Each warp owns 16 query rows of every window: S = Q K^T by mma.sync
 //    m16n8k16 (f32) with Q and K fragments from ldmatrix, + bias + mask from
 //    shared memory, the row max and sum over the quad by shuffles,
 //    P = 2^(x log2 e - max log2 e) by ex2.approx, P normalised in f32 and
 //    rounded to bf16 as the A operand of O = P V (V through ldmatrix.trans).
 //    O goes back into the warp's own q rows of the stage and out as 16-byte
 //    rows through the output's strides. Every output element is written once
-//    by one CTA: a launch is bit-identical when repeated.
+//    by one CTA: a launch is bit-identical when repeated. Bias and mask take
+//    most of the shared memory, so a CTA fills its SM (one CTA, 9 warps).
 // 2. per_window (the kernel before it, kept to be timed beside it): one CTA of
 //    N / 16 warps for each (window, head); q, k and v staged in padded shared
 //    memory by the warps themselves, bias and mask read from global memory by
@@ -59,7 +54,6 @@
 
 namespace {
 
-using visper::cluster_sync;
 using visper::ex2;
 using visper::fence_proxy_async;
 using visper::kLog2e;
@@ -75,7 +69,6 @@ using visper::smem_u32;
 using visper::tensor_map;
 using visper::tensor_map_f32;
 using visper::tma_load_3d;
-using visper::tma_load_3d_multicast;
 using visper::tma_load_4d;
 
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a CTA may ask for (227 KB)
@@ -93,7 +86,6 @@ struct Params {
   long long o_sw, o_sh, o_sn;
   int W, heads, nW;
   int windows_per_cta, stages;  // streamed: the plan
-  int cluster_x, cluster_y;     // streamed: CTAs of a cluster along windows and heads
   float scale;
 };
 
@@ -215,22 +207,21 @@ __global__ void __launch_bounds__(N * 2) window_attn_bf16_kernel(const Params p)
   }
 }
 
-// streamed: teams of N / 16 warps for a run of windows that share bias and mask
+// streamed: one CTA of N / 16 warps for a run of windows that share bias and mask
 
-template <int N, int D, int TEAMS>
+template <int N, int D>
 struct StreamCfg {
-  static constexpr int kWarps = N / 16;             // of a team
-  static constexpr int kThreads = TEAMS * N * 2;
+  static constexpr int kWarps = N / 16;
+  static constexpr int kThreads = N * 2;
   static constexpr int kArrayBytes = N * N * 4;     // bias or mask: N / 16 blocks of 16 columns
   static constexpr int kBlockBytes = N * 64;
   static constexpr int kRowBytes = D * 2;
   static constexpr int kTileBytes = N * kRowBytes;  // one of q, k, v
   static constexpr int kStageBytes = 3 * kTileBytes;
-  // the teams' rings, bias (and mask), the mbarriers, and the slack that
-  // aligns the swizzled tiles to 1024 bytes
+  // the ring, bias (and mask), the mbarriers, and the slack that aligns the
+  // swizzled tiles to 1024 bytes
   static int smem(bool masked, int stages) {
-    return TEAMS * stages * kStageBytes + (masked ? 2 : 1) * kArrayBytes +
-           8 * (1 + 2 * TEAMS * stages) + 1024;
+    return stages * kStageBytes + (masked ? 2 : 1) * kArrayBytes + 8 * (1 + 2 * stages) + 1024;
   }
 };
 
@@ -247,14 +238,14 @@ __device__ __forceinline__ uint32_t tile_off(int row, int chunk) {
   return off ^ (((off >> 7) & (kSpan / 16 - 1)) << 4);
 }
 
-template <int N, int D, int TEAMS>
-__global__ void __launch_bounds__(StreamCfg<N, D, TEAMS>::kThreads, 1)
+template <int N, int D>
+__global__ void __launch_bounds__(StreamCfg<N, D>::kThreads, 1)
     window_attn_stream_kernel(const __grid_constant__ CUtensorMap q_map,
                               const __grid_constant__ CUtensorMap k_map,
                               const __grid_constant__ CUtensorMap v_map,
                               const __grid_constant__ CUtensorMap bias_map,
                               const __grid_constant__ CUtensorMap mask_map, const Params p) {
-  using C = StreamCfg<N, D, TEAMS>;
+  using C = StreamCfg<N, D>;
   constexpr int KS = D / 16;  // k-steps of S
   constexpr int SN = N / 8;   // n-tiles of S
   constexpr int PK = N / 16;  // k-steps of O = P V
@@ -263,18 +254,18 @@ __global__ void __launch_bounds__(StreamCfg<N, D, TEAMS>::kThreads, 1)
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const bool masked = p.mask != nullptr;
-  const bool clustered = p.cluster_x * p.cluster_y > 1;
-  const int stages = p.stages;  // of each team's ring
-  // [team][stages][q, k, v] | bias | mask | bm_full, [team][full[stages], empty[stages]]
-  const uint32_t bias_s = base + TEAMS * stages * C::kStageBytes;
+  const int stages = p.stages;
+  // [stages][q, k, v] | bias | mask | bm_full, full[stages], empty[stages]
+  const uint32_t bias_s = base + stages * C::kStageBytes;
   const uint32_t mask_s = bias_s + C::kArrayBytes;
   const uint32_t bm_full = bias_s + (masked ? 2 : 1) * C::kArrayBytes;
+  const uint32_t full = bm_full + 8;
+  const uint32_t empty = full + 8 * stages;
   const float* bias = reinterpret_cast<const float*>(smem_raw + (bias_s - raw));
   const float* mask = masked ? bias + N * N : nullptr;
 
   // this CTA: head blockIdx.y, mask index m, windows j of the run at
-  // m + (first + j) * period; team t takes j = t + TEAMS k, k = 0, 1, ...,
-  // through its own ring, whose barriers only its own warps wait on, in order
+  // m + (first + j) * period
   const int period = masked ? p.nW : 1;
   const int group = p.W / period;
   const int runs = (group + p.windows_per_cta - 1) / p.windows_per_cta;
@@ -284,72 +275,43 @@ __global__ void __launch_bounds__(StreamCfg<N, D, TEAMS>::kThreads, 1)
   const int head = blockIdx.y;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int team = warp / C::kWarps;
-  const int tw = warp % C::kWarps;  // the team's warp, owner of rows 16 tw .. 16 tw + 15
   const int g = lane / 4;
   const int tq = lane % 4;
-  const int r0 = tw * 16;
-  const int mine = (count - team + TEAMS - 1) / TEAMS;  // windows of this team
-  const uint32_t ring = base + team * stages * C::kStageBytes;
-  const uint32_t full = bm_full + 8 + team * 16 * stages;
-  const uint32_t empty = full + 8 * stages;
+  const int r0 = warp * 16;  // the warp's query rows: r0 .. r0 + 15
 
   if (threadIdx.x == 0) {
     mbar_init(bm_full, 1);
-    for (int s = 0; s < TEAMS * stages; ++s) {
-      const uint32_t team_bars = bm_full + 8 + 16 * stages * (s / stages);
-      mbar_init(team_bars + 8 * (s % stages), 1);                     // the producer's expect_tx
-      mbar_init(team_bars + 8 * (stages + s % stages), C::kWarps);   // a lane of each warp
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1);            // the producer's expect_tx arrival
+      mbar_init(empty + 8 * s, C::kWarps);   // one lane of each warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (clustered) cluster_sync();  // the cluster's mbarriers exist before a copy signals one
 
-  // the team's k-th window into its stage s: q, k, v of (window, head), a box each
-  auto load_window = [&](int k, int s) {
-    const int w = m + (first + team + TEAMS * k) * period;
-    const uint32_t dst = ring + s * C::kStageBytes;
+  // window j of the run into stage s: q, k, v of (window, head), a box each
+  auto load_window = [&](int j, int s) {
+    const int w = m + (first + j) * period;
+    const uint32_t dst = base + s * C::kStageBytes;
     mbar_expect_tx(full + 8 * s, C::kStageBytes);
     tma_load_4d(dst, &q_map, 0, head, 0, w, full + 8 * s);
     tma_load_4d(dst + C::kTileBytes, &k_map, 0, head, 0, w, full + 8 * s);
     tma_load_4d(dst + 2 * C::kTileBytes, &v_map, 0, head, 0, w, full + 8 * s);
   };
   if (threadIdx.x == 0) {
-    // the head's bias and the mask once, boxes of 16 columns. In a cluster
-    // the CTAs of one head (one cluster row) share the bias and those of one
-    // mask index (one column) the mask: each asks for its share of the boxes
-    // for all of them
+    // the head's bias and the mask once, boxes of 16 columns, and the first stages
     mbar_expect_tx(bm_full, (masked ? 2 : 1) * C::kArrayBytes);
-    const int cx = p.cluster_x, cy = p.cluster_y;
-    const int xr = blockIdx.x % cx, yr = blockIdx.y % cy;
-    const uint16_t row_ctas = static_cast<uint16_t>(((1u << cx) - 1u) << (yr * cx));
-    uint16_t col_ctas = 0;
-    for (int i = 0; i < cy; ++i) col_ctas |= static_cast<uint16_t>(1u << (i * cx + xr));
-    for (int b = xr; b < N / 16; b += cx) {
-      if (cx > 1) {
-        tma_load_3d_multicast(bias_s + b * C::kBlockBytes, &bias_map, 16 * b, 0, head, bm_full,
-                              row_ctas);
-      } else {
-        tma_load_3d(bias_s + b * C::kBlockBytes, &bias_map, 16 * b, 0, head, bm_full);
-      }
+#pragma unroll
+    for (int b = 0; b < N / 16; ++b) {
+      tma_load_3d(bias_s + b * C::kBlockBytes, &bias_map, 16 * b, 0, head, bm_full);
+      if (masked) tma_load_3d(mask_s + b * C::kBlockBytes, &mask_map, 16 * b, 0, m, bm_full);
     }
-    for (int b = yr; masked && b < N / 16; b += cy) {
-      if (cy > 1) {
-        tma_load_3d_multicast(mask_s + b * C::kBlockBytes, &mask_map, 16 * b, 0, m, bm_full,
-                              col_ctas);
-      } else {
-        tma_load_3d(mask_s + b * C::kBlockBytes, &mask_map, 16 * b, 0, m, bm_full);
-      }
-    }
-  }
-  if (tw == 0 && lane == 0) {
-    for (int k = 0; k < min(stages, mine); ++k) load_window(k, k);
+    for (int j = 0; j < min(stages, count); ++j) load_window(j, j);
   }
 
   // this thread's shared-memory offsets, fixed for the whole run: ldmatrix
   // rows of Q, K and V (lane i gives row i % 8 of matrix i / 8), its two
-  // column pairs of a 16-column bias / mask block in row 16 tw + g (row + 8
+  // column pairs of a 16-column bias / mask block in row r0 + g (row + 8
   // is 128 floats on: the swizzle repeats), and its O chunks
   uint32_t qoff[KS], koff[KS];
 #pragma unroll
@@ -369,21 +331,21 @@ __global__ void __launch_bounds__(StreamCfg<N, D, TEAMS>::kThreads, 1)
   const uint32_t orow = row * C::kRowBytes + tq * 4;
   const int oswz = (tile_off<D>(row, 0) >> 4) & (ON - 1);  // the row's chunk XOR
 
-  for (int k = 0; k < mine; ++k) {
-    const int st = k % stages;
-    // the team's warp 0 refills the stage its previous window left
-    if (tw == 0 && k > 0 && k - 1 + stages < mine) {
+  for (int j = 0; j < count; ++j) {
+    const int st = j % stages;
+    // warp 0 refills the stage window j - 1 left with window j - 1 + stages
+    if (warp == 0 && j > 0 && j - 1 + stages < count) {
       if (lane == 0) {
-        const int prev = (k - 1) % stages;
-        mbar_wait(empty + 8 * prev, ((k - 1) / stages) & 1);
-        load_window(k - 1 + stages, prev);
+        const int prev = (j - 1) % stages;
+        mbar_wait(empty + 8 * prev, ((j - 1) / stages) & 1);
+        load_window(j - 1 + stages, prev);
       }
       __syncwarp();
     }
-    const uint32_t qt = ring + st * C::kStageBytes;
+    const uint32_t qt = base + st * C::kStageBytes;
     const uint32_t kt = qt + C::kTileBytes;
     const uint32_t vt = kt + C::kTileBytes;
-    mbar_wait(full + 8 * st, (k / stages) & 1);
+    mbar_wait(full + 8 * st, (j / stages) & 1);
 
     // S = Q K^T
     float s[SN][4];
@@ -401,7 +363,7 @@ __global__ void __launch_bounds__(StreamCfg<N, D, TEAMS>::kThreads, 1)
         mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
       }
     }
-    if (k == 0) mbar_wait(bm_full, 0);
+    if (j == 0) mbar_wait(bm_full, 0);
 
     // scores in f32: scale, + bias, + mask; row max over the quad
     float mx[2] = {-INFINITY, -INFINITY};
@@ -474,7 +436,7 @@ __global__ void __launch_bounds__(StreamCfg<N, D, TEAMS>::kThreads, 1)
       }
     }
     __syncwarp();
-    const int w = m + (first + team + TEAMS * k) * period;
+    const int w = m + (first + j) * period;
     __nv_bfloat16* const ob = static_cast<__nv_bfloat16*>(p.o) + w * p.o_sw + head * p.o_sh;
 #pragma unroll
     for (int i = lane; i < 16 * ON; i += 32) {
@@ -487,7 +449,6 @@ __global__ void __launch_bounds__(StreamCfg<N, D, TEAMS>::kThreads, 1)
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + 8 * st);
   }
-  if (clustered) cluster_sync();  // no CTA leaves while a peer's copies may target it
 }
 
 template <int N, int D>
@@ -497,34 +458,27 @@ cudaError_t launch_per_window(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int N, int D, int TEAMS>
+template <int N, int D>
 cudaError_t allow_smem() {
   static bool set = false;  // shared memory above 48 KB is opted into once
   if (!set) {
-    const cudaError_t rc =
-        cudaFuncSetAttribute(window_attn_stream_kernel<N, D, TEAMS>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    const cudaError_t rc = cudaFuncSetAttribute(
+        window_attn_stream_kernel<N, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
     if (rc != cudaSuccess) return rc;
     set = true;
   }
   return cudaSuccess;
 }
 
-template <int N, int D, int TEAMS>
+template <int N, int D>
 cudaError_t launch_streamed(const Params& p, cudaStream_t stream) {
-  using C = StreamCfg<N, D, TEAMS>;
+  using C = StreamCfg<N, D>;
   const int smem = C::smem(p.mask != nullptr, p.stages);
   const int period = p.mask ? p.nW : 1;
   if (p.windows_per_cta < 1 || p.stages < 1 || smem > kSmemLimit || p.W % period) {
     return cudaErrorInvalidValue;
   }
-  const int runs = (p.W / period + p.windows_per_cta - 1) / p.windows_per_cta;
-  const dim3 grid(period * runs, p.heads);
-  if (p.cluster_x < 1 || p.cluster_y < 1 || p.cluster_x * p.cluster_y > 8 ||
-      grid.x % p.cluster_x || grid.y % p.cluster_y) {
-    return cudaErrorInvalidValue;
-  }
-  const cudaError_t rc = allow_smem<N, D, TEAMS>();
+  const cudaError_t rc = allow_smem<N, D>();
   if (rc != cudaSuccess) return rc;
   CUtensorMap q_map, k_map, v_map, bias_map, mask_map;
   if (!tensor_map(p.q, D, p.heads, N, p.W, p.q_sw, p.q_sn, p.q_sh, D, N, &q_map) ||
@@ -534,44 +488,23 @@ cudaError_t launch_streamed(const Params& p, cudaStream_t stream) {
       !tensor_map_f32(p.mask ? p.mask : p.bias, N, N, p.mask ? p.nW : p.heads, N, &mask_map)) {
     return cudaErrorInvalidValue;
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(C::kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.cluster_x;
-  attr[0].val.clusterDim.y = p.cluster_y;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = p.cluster_x * p.cluster_y > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, window_attn_stream_kernel<N, D, TEAMS>, q_map, k_map, v_map,
-                            bias_map, mask_map, p);
+  const int runs = (p.W / period + p.windows_per_cta - 1) / p.windows_per_cta;
+  const dim3 grid(period * runs, p.heads);
+  window_attn_stream_kernel<N, D><<<grid, C::kThreads, smem, stream>>>(q_map, k_map, v_map,
+                                                                       bias_map, mask_map, p);
+  return cudaGetLastError();
 }
 
 // kernel: 0 per_window, 1 streamed
 template <int N, int D>
-cudaError_t launch(const Params& p, int kernel, int teams, cudaStream_t stream) {
+cudaError_t launch(const Params& p, int kernel, cudaStream_t stream) {
   if (kernel == 0) return launch_per_window<N, D>(p, stream);
-  if (kernel == 1 && teams == 1) return launch_streamed<N, D, 1>(p, stream);
-  if (kernel == 1 && teams == 2) return launch_streamed<N, D, 2>(p, stream);
+  if (kernel == 1) return launch_streamed<N, D>(p, stream);
   return cudaErrorInvalidValue;
 }
 
-template <int N, int D, int TEAMS>
-int info_streamed(bool masked, int stages, int* threads, int* smem, int* ctas_per_sm) {
-  *threads = StreamCfg<N, D, TEAMS>::kThreads;
-  *smem = StreamCfg<N, D, TEAMS>::smem(masked, stages);
-  const cudaError_t rc = allow_smem<N, D, TEAMS>();
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas_per_sm, window_attn_stream_kernel<N, D, TEAMS>, *threads, *smem));
-}
-
 template <int N, int D>
-int info(int kernel, bool masked, int stages, int teams, int* threads, int* smem,
-         int* ctas_per_sm) {
+int info(int kernel, bool masked, int stages, int* threads, int* smem, int* ctas_per_sm) {
   if (kernel == 0) {
     *threads = N * 2;
     *smem = 0;
@@ -579,9 +512,12 @@ int info(int kernel, bool masked, int stages, int teams, int* threads, int* smem
         ctas_per_sm, window_attn_bf16_kernel<N, D>, *threads, 0));
   }
   if (kernel != 1 || stages < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (teams == 1) return info_streamed<N, D, 1>(masked, stages, threads, smem, ctas_per_sm);
-  if (teams == 2) return info_streamed<N, D, 2>(masked, stages, threads, smem, ctas_per_sm);
-  return static_cast<int>(cudaErrorInvalidValue);
+  *threads = StreamCfg<N, D>::kThreads;
+  *smem = StreamCfg<N, D>::smem(masked, stages);
+  const cudaError_t rc = allow_smem<N, D>();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, window_attn_stream_kernel<N, D>, *threads, *smem));
 }
 
 }  // namespace
@@ -590,15 +526,14 @@ int info(int kernel, bool masked, int stages, int teams, int* threads, int* smem
 // elements (window, head, row); the D stride must be 1 and the others multiples
 // of 8 (16-byte rows for the copy engine). mask may be null (nW is then
 // ignored). Only bf16 tensors and the (N, D) pairs above. kernel: 0
-// per_window, 1 streamed, which takes windows_per_cta, stages, teams and the
-// cluster's shape from `window_attn_plan`.
+// per_window, 1 streamed, which takes windows_per_cta and stages from
+// `window_attn_plan`.
 extern "C" int visper_window_attn(
     const void* q, const void* k, const void* v, void* o, const void* bias,
     const void* mask, long long q_sw, long long q_sh, long long q_sn, long long k_sw,
     long long k_sh, long long k_sn, long long v_sw, long long v_sh, long long v_sn,
     long long o_sw, long long o_sh, long long o_sn, int W, int heads, int N, int D,
-    int nW, float scale, int kernel, int windows_per_cta, int stages, int teams,
-    int cluster_x, int cluster_y, void* stream) {
+    int nW, float scale, int kernel, int windows_per_cta, int stages, void* stream) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.bias = static_cast<const float*>(bias);
@@ -609,25 +544,20 @@ extern "C" int visper_window_attn(
   p.o_sw = o_sw; p.o_sh = o_sh; p.o_sn = o_sn;
   p.W = W; p.heads = heads; p.nW = nW > 0 ? nW : 1;
   p.windows_per_cta = windows_per_cta; p.stages = stages;
-  p.cluster_x = cluster_x; p.cluster_y = cluster_y;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N == 144 && D == 32) return static_cast<int>(launch<144, 32>(p, kernel, teams, st));
-  if (N == 64 && D == 16) return static_cast<int>(launch<64, 16>(p, kernel, teams, st));
+  if (N == 144 && D == 32) return static_cast<int>(launch<144, 32>(p, kernel, st));
+  if (N == 64 && D == 16) return static_cast<int>(launch<64, 16>(p, kernel, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Geometry of a kernel at (N, D), for reports: threads and dynamic shared
-// memory of a CTA (streamed: with or without the mask, `stages` stages,
-// `teams` teams), and how many CTAs the occupancy calculator fits on one SM.
-// Returns 0, or a CUDA error for what the kernels do not take.
+// memory of a CTA (streamed: with or without the mask, `stages` stages), and
+// how many CTAs the occupancy calculator fits on one SM. Returns 0, or a CUDA
+// error for what the kernels do not take.
 extern "C" int visper_window_attn_info(int kernel, int N, int D, int masked, int stages,
-                                       int teams, int* threads, int* smem, int* ctas_per_sm) {
-  if (N == 144 && D == 32) {
-    return info<144, 32>(kernel, masked, stages, teams, threads, smem, ctas_per_sm);
-  }
-  if (N == 64 && D == 16) {
-    return info<64, 16>(kernel, masked, stages, teams, threads, smem, ctas_per_sm);
-  }
+                                       int* threads, int* smem, int* ctas_per_sm) {
+  if (N == 144 && D == 32) return info<144, 32>(kernel, masked, stages, threads, smem, ctas_per_sm);
+  if (N == 64 && D == 16) return info<64, 16>(kernel, masked, stages, threads, smem, ctas_per_sm);
   return static_cast<int>(cudaErrorInvalidValue);
 }

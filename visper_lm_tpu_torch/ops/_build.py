@@ -54,10 +54,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "window_attn": {
         "visper_window_attn": (
-            [_P] * 6 + [_LL] * 12 + [_I] * 5 + [ctypes.c_float] + [_I] * 6 + [_P],
+            [_P] * 6 + [_LL] * 12 + [_I] * 5 + [ctypes.c_float] + [_I] * 3 + [_P],
             ctypes.c_int,
         ),
-        "visper_window_attn_info": ([_I] * 6 + [ctypes.POINTER(_I)] * 3, ctypes.c_int),
+        "visper_window_attn_info": ([_I] * 5 + [ctypes.POINTER(_I)] * 3, ctypes.c_int),
     },
     "w4_matmul": {"visper_w4_matmul": ([_P] * 4 + [_I] * 6 + [_P], ctypes.c_int)},
     "decode_attn": {

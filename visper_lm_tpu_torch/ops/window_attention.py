@@ -13,12 +13,10 @@ and the dispatch (counterpart of visper_lm_tpu/ops/window_attention.py).
 csrc/window_attn.cu holds two kernels and `window_attn_kernel_for` names the
 one a call takes: "streamed" (every call: a CTA takes a run of windows that
 share one head and, in a shifted launch, one mask index, reads their bias and
-mask once into shared memory (shared further across a thread block cluster
-in shifted launches), and its teams of warps take alternate windows, whose
-q, k, v stream through a ring; `window_attn_plan` sets the run length, the
-grid, the ring and the cluster, `window_attn_ctas` lists what each CTA
-takes) and "per_window" (the kernel before it, one CTA per (window, head);
-`kernel="per_window"` to time it).
+mask once into shared memory and streams the windows' q, k, v through a
+ring; `window_attn_plan` sets the run length, the grid and the ring,
+`window_attn_ctas` lists what each CTA takes) and "per_window" (the kernel
+before it, one CTA per (window, head); `kernel="per_window"` to time it).
 
 q, k, v are (W, heads, N, D) with W = batch * windows flattened batch-major;
 bias (heads, N, N) is added to the scores; mask (nW, N, N) tiles W with
@@ -36,9 +34,7 @@ import torch
 SUPPORTED_SHAPES = ((144, 32), (64, 16))   # (N, D): Swin-L window 12, a test shape
 KERNEL_IDS = {"per_window": 0, "streamed": 1}
 SMEM_PER_CTA = 232_448   # dynamic shared memory a CTA may ask for on sm_90 (227 KB)
-MAX_STAGES = 5           # ring stages of q, k, v of a team
-MAX_CLUSTER = 8          # CTAs of a cluster (the portable limit)
-TEAMS = 1                # teams of N / 16 warps in a CTA
+MAX_STAGES = 5           # ring stages of q, k, v
 ARRAY_COST = 0.5         # loading one N x N f32 array (bias or mask) ~ half a window's time
 H100_SMS = 132
 
@@ -49,10 +45,8 @@ launches = 0
 class WindowPlan(NamedTuple):
     windows_per_cta: int      # the longest run of windows a CTA takes
     grid: Tuple[int, int]     # (mask indices x runs, heads)
-    stages: int               # ring stages of q, k, v of each team
+    stages: int               # ring stages of q, k, v
     smem_bytes: int           # dynamic shared memory of a CTA (one CTA an SM)
-    teams: int                # teams of N / 16 warps; team t takes windows t, t + teams, ...
-    cluster: Tuple[int, int]  # CTAs of a cluster along the grid: those of a row share bias, of a column the mask
 
 
 def window_attention_plain(
@@ -90,38 +84,22 @@ def window_attn_kernel_for(n: int, d: int, dtype: torch.dtype = torch.bfloat16) 
     return "streamed"
 
 
-def window_attn_smem_bytes(n: int, d: int, masked: bool, stages: int, teams: int = TEAMS) -> int:
+def window_attn_smem_bytes(n: int, d: int, masked: bool, stages: int) -> int:
     """Dynamic shared memory of a streamed CTA (`StreamCfg::smem` in
-    csrc/window_attn.cu): the teams' rings of q, k, v tiles, bias (and mask)
-    in N x N floats, the mbarriers, 1 KB to align the swizzled tiles."""
-    return (teams * stages * 3 * n * d * 2 + (2 if masked else 1) * n * n * 4
-            + 8 * (1 + 2 * teams * stages) + 1024)
-
-
-def _cluster(grid: Tuple[int, int], masked: bool) -> Tuple[int, int]:
-    """The cluster of a shifted launch that reads the least bias and mask from
-    L2 a CTA (each is read once by a cluster row or column and multicast):
-    min 1/cx + 1/cy over cx | grid x, cy | grid y, cx * cy <= MAX_CLUSTER; the
-    smaller cluster on a tie. Unshifted launches read little bias: none."""
-    if not masked:
-        return (1, 1)
-    shapes = [(cx, cy) for cx in range(1, MAX_CLUSTER + 1) for cy in range(1, MAX_CLUSTER + 1)
-              if cx * cy <= MAX_CLUSTER and grid[0] % cx == 0 and grid[1] % cy == 0]
-    return min(shapes, key=lambda c: (1 / c[0] + 1 / c[1], c[0] * c[1]))
+    csrc/window_attn.cu): the ring of q, k, v tiles, bias (and mask) in N x N
+    floats, the mbarriers, 1 KB to align the swizzled tiles."""
+    return stages * 3 * n * d * 2 + (2 if masked else 1) * n * n * 4 + 8 * (1 + 2 * stages) + 1024
 
 
 @functools.lru_cache(maxsize=None)
-def window_attn_plan(
-    w: int, heads: int, n: int, d: int, nw: int, sms: int = H100_SMS, teams: int = TEAMS,
-) -> WindowPlan:
+def window_attn_plan(w: int, heads: int, n: int, d: int, nw: int, sms: int = H100_SMS) -> WindowPlan:
     """The streamed kernel's grid for W windows of `heads` heads, nW mask
     indices (0: unshifted) on `sms` SMs; a function of shapes only.
 
     The windows that share a head and a mask index (W / nW of them; all W
     when unshifted) are cut into runs of `windows_per_cta`, one CTA each, so
     that each CTA reads its bias and mask once. A CTA fills its SM (bias and
-    mask take most of the shared memory, and the kernel's launch bounds give
-    its 18 warps an SM's registers), so the run length minimises the
+    mask take most of its shared memory), so the run length minimises the
     estimated time of waves of CTAs over the SMs, each as long as its run
     plus the loads of its N x N arrays (ARRAY_COST windows each); on a tie
     the fewer CTAs (the more reuse)."""
@@ -132,19 +110,18 @@ def window_attn_plan(
         raise ValueError(f"window_attn_plan: W {w} is not a positive multiple of nW {nw}")
     masked = nw > 0
     group = w // period
-    fit = [s for s in range(1, MAX_STAGES + 1)
-           if window_attn_smem_bytes(n, d, masked, s, teams) <= SMEM_PER_CTA]
+    fit = [s for s in range(1, MAX_STAGES + 1) if window_attn_smem_bytes(n, d, masked, s) <= SMEM_PER_CTA]
     if not fit:
         raise ValueError(f"window_attn_plan: bias and mask at N {n} exceed a CTA's shared memory")
     best = None
     for run in range(1, group + 1):
-        stages = min(fit[-1], -(-run // teams))
-        smem = window_attn_smem_bytes(n, d, masked, stages, teams)
+        stages = min(fit[-1], run)
+        smem = window_attn_smem_bytes(n, d, masked, stages)
         ctas = heads * period * -(-group // run)
         cost = -(-ctas // sms) * (run + ARRAY_COST * (2 if masked else 1))
         if best is None or (cost, ctas) < best[0]:
             grid = (period * -(-group // run), heads)
-            best = ((cost, ctas), WindowPlan(run, grid, stages, smem, teams, _cluster(grid, masked)))
+            best = ((cost, ctas), WindowPlan(run, grid, stages, smem))
     return best[1]
 
 
@@ -200,14 +177,12 @@ def window_attention_kernel(
     mask: Optional[torch.Tensor],
     scale: float,
     kernel: Optional[str] = None,
-    plan: Optional[WindowPlan] = None,
 ) -> torch.Tensor:
     """Launch B4 on the current stream: the kernel `window_attn_kernel_for`
-    names, or `kernel` (one of KERNEL_IDS); the streamed kernel with
-    `window_attn_plan`'s plan for this card, or `plan` (to time or test
-    another). The result is a (W, heads, N, D) view of a (W, N, heads, D)
-    buffer, so the Swin block's merge of the heads back into (W, N, C) is
-    free."""
+    names, or `kernel` (one of KERNEL_IDS); the streamed kernel takes
+    `window_attn_plan`'s plan for this card. The result is a (W, heads, N, D)
+    view of a (W, N, heads, D) buffer, so the Swin block's merge of the heads
+    back into (W, N, C) is free."""
     _check(q, k, v, bias, mask)
     w, h, n, d = q.shape
     if kernel is None:
@@ -221,15 +196,14 @@ def window_attention_kernel(
     bias32 = _f32_rows(bias, q.device)
     mask32 = None if mask is None else _f32_rows(mask, q.device)
     nw = 0 if mask32 is None else mask32.shape[0]
-    if plan is None:
-        plan = window_attn_plan(w, h, n, d, nw, torch.cuda.get_device_properties(q.device).multi_processor_count)
+    plan = window_attn_plan(w, h, n, d, nw, torch.cuda.get_device_properties(q.device).multi_processor_count)
     out = torch.empty((w, n, h, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
     rc = lib.visper_window_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bias32.data_ptr(),
         None if mask32 is None else mask32.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         w, h, n, d, nw, float(scale), KERNEL_IDS[kernel], plan.windows_per_cta, plan.stages,
-        plan.teams, *plan.cluster, torch.cuda.current_stream(q.device).cuda_stream,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"window_attention: {kernel} kernel launch failed with CUDA error {rc}")
