@@ -17,17 +17,14 @@ stores are left); the dq (B2) and the dk/dv (B3) kernel of each build at the
 training shape (B4 T1024 32/32 H96, kv_lengths 657/659/655/659) and the GQA
 shape (B2 T1024 32/8 H128).
 
-window_attn: both window-attention kernels (B4: "streamed" and "per_window")
-skip their products ("no_products"), the reads of bias and mask
-("no_bias_mask"), the softmax (no exponential and no row reductions across
-lanes: "no_softmax") or all three ("loads_only": the loads of q, k, v and the
-store of the output are left); the per_window kernel also takes an
-exponential by the special-function unit (`__expf`, an `ex2.approx` of
-x * log2(e), as the streamed kernel does) in place of `expf` ("ex2"). Each
-kernel of each build at Swin-L's stages 1 and 3 without and with the shift
-mask (W512 / W32, 6 / 24 heads, N144, D32), q, k and v as views of a packed
-projection. It also times both kernels of the full build at all eight Swin-L
-stage launches and prints their registers, spills and CTAs per SM.
+window_attn: the window-attention kernel (B4, "streamed") skips its products
+("no_products"), the reads of bias and mask ("no_bias_mask"), the softmax (no
+exponential and no row reductions across lanes: "no_softmax") or all three
+("loads_only": the loads of q, k, v and the store of the output are left);
+each build at Swin-L's stages 1 and 3 without and with the shift mask (W512 /
+W32, 6 / 24 heads, N144, D32), q, k and v as views of a packed projection. It
+also times the full build at all eight Swin-L stage launches and prints its
+registers, spills and CTAs per SM.
 """
 
 from __future__ import annotations
@@ -67,23 +64,21 @@ SWITCHES = (
 
 WINDOW_VARIANTS = {
     "full": {},
-    "ex2": {"WA_EXP": "__expf"},
     "no_bias_mask": {"ABL_BIAS": 0},
-    "no_softmax": {"ABL_SOFTMAX": 0, "WA_EXP": ""},
+    "no_softmax": {"ABL_SOFTMAX": 0},
     "no_products": {"ABL_MMA": 0},
-    "loads_only": {"ABL_MMA": 0, "ABL_BIAS": 0, "ABL_SOFTMAX": 0, "WA_EXP": ""},
+    "loads_only": {"ABL_MMA": 0, "ABL_BIAS": 0, "ABL_SOFTMAX": 0},
 }
-WINDOW_SWITCHES = (   # per_window, then streamed
-    ("mma_bf16(", "if (ABL_MMA) mma_bf16(", 6),                             # S, O
+WINDOW_SWITCHES = (
+    ("mma_bf16(", "if (ABL_MMA) mma_bf16(", 4),                             # S, O
     ("const float2 bv = *reinterpret_cast<const float2*>(bias + off);",
      "const float2 bv = ABL_BIAS ? *reinterpret_cast<const float2*>(bias + off)"
-     " : make_float2(0.f, 0.f);", 2),
-    ("if (mask) {", "if (ABL_BIAS && mask) {", 2),
-    ("expf(", "WA_EXP(", 2),
+     " : make_float2(0.f, 0.f);", 1),
+    ("if (mask) {", "if (ABL_BIAS && mask) {", 1),
     ("s[nt][i] = ex2(fmaf(s[nt][i], kLog2e, -ml));",
      "s[nt][i] = ABL_SOFTMAX ? ex2(fmaf(s[nt][i], kLog2e, -ml)) : s[nt][i];", 1),
-    ("mx[r] = fmaxf(mx[r], __shfl_xor_sync(", "if (ABL_SOFTMAX) mx[r] = fmaxf(mx[r], __shfl_xor_sync(", 4),
-    ("sum += __shfl_xor_sync(", "if (ABL_SOFTMAX) sum += __shfl_xor_sync(", 4),
+    ("mx[r] = fmaxf(mx[r], __shfl_xor_sync(", "if (ABL_SOFTMAX) mx[r] = fmaxf(mx[r], __shfl_xor_sync(", 2),
+    ("sum += __shfl_xor_sync(", "if (ABL_SOFTMAX) sum += __shfl_xor_sync(", 2),
 )
 WINDOW_CASES = {  # W, heads, shifted
     "stage1": (512, 6, False), "stage1_shifted": (512, 6, True), "stage3": (32, 24, False),
@@ -163,39 +158,34 @@ def run_window_attn(libs, graph_ms) -> None:
     for entry, r in res.items():
         print(f"ptxas[window_attn] {entry}: {r}")
     threads, smem, ctas = (ctypes.c_int() for _ in range(3))
-    for kernel in wa.KERNEL_IDS:
-        for masked, stages in ((0, wa.MAX_STAGES), (1, 2)):
-            rc = _build.load("window_attn").visper_window_attn_info(
-                wa.KERNEL_IDS[kernel], 144, 32, masked, stages, ctypes.byref(threads),
-                ctypes.byref(smem), ctypes.byref(ctas))
-            print(f"window_attn {kernel} N144 D32 masked {masked} stages {stages}: rc {rc}, "
-                  f"{threads.value} threads, {smem.value} B dynamic shared memory, "
-                  f"{ctas.value} CTAs per SM")
+    for masked, stages in ((0, wa.MAX_STAGES), (1, 2)):
+        rc = _build.load("window_attn").visper_window_attn_info(
+            144, 32, masked, stages, ctypes.byref(threads), ctypes.byref(smem), ctypes.byref(ctas))
+        print(f"window_attn N144 D32 masked {masked} stages {stages}: rc {rc}, "
+              f"{threads.value} threads, {smem.value} B dynamic shared memory, "
+              f"{ctas.value} CTAs per SM")
     gen = torch.Generator(device="cuda").manual_seed(0)
     for i, (w, heads) in enumerate(SWIN_STAGES):
         for shifted in (False, True):
             args = window_inputs(w, heads, shifted, gen)
-            ms = {kernel: graph_ms([lambda: wa.window_attention_kernel(*args, kernel=kernel)], 20)
-                  for kernel in wa.KERNEL_IDS}
+            ms = graph_ms([lambda: wa.window_attention_kernel(*args)], 20)
             print(f"window stage{i + 1}{'_shifted' if shifted else ''} W{w} heads{heads} "
-                  f"(full build, CUDA graph): " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
+                  f"(full build, CUDA graph): {ms:.4f} ms")
     for case, (w, heads, shifted) in WINDOW_CASES.items():
         args = window_inputs(w, heads, shifted, gen)
-        for kernel in wa.KERNEL_IDS:
-            times = {name: [] for name in libs}
-            for name in [*libs, *reversed(libs)]:
-                with _build.loaded_as("window_attn", libs[name]):
-                    times[name].append(graph_ms(
-                        [lambda: wa.window_attention_kernel(*args, kernel=kernel)], 20))
-            for name, t in times.items():
-                print(f"ablation {case} {kernel} {name}: {sum(t) / 2:.4f} ms {t}")
+        times = {name: [] for name in libs}
+        for name in [*libs, *reversed(libs)]:
+            with _build.loaded_as("window_attn", libs[name]):
+                times[name].append(graph_ms([lambda: wa.window_attention_kernel(*args)], 20))
+        for name, t in times.items():
+            print(f"ablation {case} {name}: {sum(t) / 2:.4f} ms {t}")
 
 
 ABLATIONS = {
     "flash_bwd": Ablation("// bf16: TMA ring + wgmma", SWITCHES,
                           {"ABL_SS": 1, "ABL_RS": 1, "ABL_EX2": 1}, VARIANTS, run_flash_bwd),
-    "window_attn": Ablation("// per_window:", WINDOW_SWITCHES,
-                            {"ABL_MMA": 1, "ABL_BIAS": 1, "ABL_SOFTMAX": 1, "WA_EXP": "expf"},
+    "window_attn": Ablation("// streamed:", WINDOW_SWITCHES,
+                            {"ABL_MMA": 1, "ABL_BIAS": 1, "ABL_SOFTMAX": 1},
                             WINDOW_VARIANTS, run_window_attn),
 }
 

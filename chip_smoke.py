@@ -22,12 +22,10 @@ Phases, each of which raises (exit code != 0) when it fails:
           training and the GQA shape, timed eager and as CUDA graphs beside
           SDPA's backward; the same launch 20 times must give identical bytes;
        B4 Swin window attention at the eight Swin-L launch shapes (stages 1-4,
-          unshifted and shifted; micro-batch 2): bf16 max abs error <= 2e-2
-          for the kernel every call takes and for the per_window kernel it
-          replaced, and between the two; the same launch 20 times the same
-          bytes. Both kernels and SDPA (bf16 bias + mask) timed as CUDA
-          graphs in turns, and their sums weighted by a train step's 48
-          launches beside the bound's;
+          unshifted and shifted; micro-batch 2): bf16 max abs error <= 2e-2;
+          the same launch 20 times the same bytes. The kernel and SDPA
+          (bf16 bias + mask) timed as CUDA graphs in turns, and their sums
+          weighted by a train step's 48 launches beside the bound's;
        B5 w4a16 matmul (Phi3-mini's four (din, dout) pairs at M = 8 and, but
           for lm_head, M = 6144; one AWQ case) against its plain version in
           f32: relative Frobenius error <= 1e-2 and max abs error <= 2e-2 x
@@ -80,7 +78,25 @@ Phases, each of which raises (exit code != 0) when it fails:
      attention (decoder and window): loss within 1e-3 (relative), cosine
      >= 0.999 for every trainable with a nonzero gradient. Then one step is
      profiled: B2/B3's and B4's device time, and B4's 48 launches all of the
-     streamed kernel.
+     streamed kernel. This phase's step runs without remat;
+  8. trainer path, the main path (same model, teachers and batch): one
+     warm-up and two timed steps with no remat and under each of the seven
+     remat policies (bench.py's default is "save_gate"), each printing step
+     ms, peak GiB and its B1-B4 launches (B1 once per layer, twice where the
+     recompute runs the flash forward again: every policy that does not
+     keep "flash_out"; B2/B3 once per layer; B4 48), save_gate's peak below
+     no remat's, each exact policy's (all but save_mlp_q8, which changes the
+     forward and cuts the gradient at its int8 cast, as in JAX) loss within
+     1e-3 and gradient cosine >= 0.999 of no remat's at B1, and one
+     save_gate step profiled. Then `trainer.train` (save_gate,
+     grad_accum_steps 2, 4 steps, a checkpoint every 2) with its launches
+     per step checked, restarted from its step-2 checkpoint to step 4: the
+     resumed steps' losses within 1e-5 (relative) of the uninterrupted
+     run's; examples/s and MFU (`train_step_flops` + `teacher_flops` against
+     989 TFLOP/s). One step at B8 (the chunked cross-entropy): loss within
+     1e-3 and gradient cosine >= 0.999 of the full f32 logits'. Two updates
+     at B1 with f32 master weights: every trainable equals its master
+     rounded to its dtype.
 
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Needs no network; builds into
@@ -109,6 +125,12 @@ L2_BYTES = 50e6                # H100: a rotation of weights must exceed it to f
 BATCH, PROMPT_LEN, NEW_TOKENS = 8, 768, 32
 TEXT_LENS = (155, 140, 121, 96, 77, 50, 31, 12)   # 13 sys + 600 image/task + text <= 768
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 3    # bench.py's config #1 cell
+# None: no remat, then every JAX policy (save_gate: bench.py's default)
+REMAT_RUNS = (None, "none", "save_gate", "save_gate_flash", "save_flash", "save_mlp",
+              "save_qkv_mlp", "save_mlp_q8")
+REMAT_EXACT = REMAT_RUNS[1:-1]             # save_mlp_q8 changes the forward and its gradient
+REMAT_STEPS = 2                            # timed steps per policy, after one warm-up
+TRAINER_STEPS, TRAINER_ACCUM = 4, 2
 SWIN_STAGES = ((512, 6), (128, 12), (32, 24), (8, 48))  # Swin-L at 768 px, micro-batch 2: (W, heads)
 
 
@@ -380,11 +402,10 @@ def bwd_case(name, b, t, nq, nkv, h, causal, starts, lens, gen, fa):
 def window_case(stage, w, heads, shifted, gen, wa, swin):
     """B4 vs its plain version at one Swin-L stage shape (N 144, D 32, bf16),
     q/k/v as the strided views of a packed projection the Swin block passes:
-    the kernel every call takes and the per_window kernel it replaced, each
-    within 2e-2 of the plain version and of each other, the same launch 20
-    times the same bytes. Both kernels and SDPA are timed as CUDA graphs (a
-    stage-3 or stage-4 launch is shorter than its host time), in turns: old,
-    new, SDPA, SDPA, new, old."""
+    within 2e-2 of the plain version, the same launch 20 times the same
+    bytes. The kernel and SDPA are timed as CUDA graphs (a stage-3 or
+    stage-4 launch is shorter than its host time), in turns: new, SDPA,
+    SDPA, new."""
     dev, n, d, ws = "cuda", 144, 32, 12
     nw = w // 2                                  # windows per image (micro-batch 2)
     qkv = torch.randn(w, n, 3, heads, d, device=dev, generator=gen).to(torch.bfloat16)
@@ -401,22 +422,15 @@ def window_case(stage, w, heads, shifted, gen, wa, swin):
     def new_fn():
         return wa.window_attention_kernel(q, k, v, bias, mask, scale)
 
-    def old_fn():
-        return wa.window_attention_kernel(q, k, v, bias, mask, scale, kernel="per_window")
-
-    out, old = new_fn(), old_fn()
+    out = new_fn()
     ref = wa.window_attention_plain(q.float(), k.float(), v.float(), bias, mask, scale)
     torch.cuda.synchronize()
     err = (out.float() - ref).abs().max().item()
-    err_old = (old.float() - ref).abs().max().item()
-    diff = (out.float() - old.float()).abs().max().item()
     check(err <= 2e-2, f"{name}: max abs err {err} > 2e-2")
-    check(err_old <= 2e-2, f"{name}: per_window kernel max abs err {err_old} > 2e-2")
-    check(diff <= 2e-2, f"{name}: the kernels differ by {diff} > 2e-2")
     # every output element is written once by one CTA: the same launch gives the same bytes
     for _ in range(20):
         check(torch.equal(new_fn(), out), f"{name}: a repeated launch gave other bytes")
-    del out, old, ref
+    del out, ref
     # yardstick: SDPA with the float bias (+ shift mask tiled over the windows)
     attn = bias[None].expand(w, heads, n, n)
     if mask is not None:
@@ -426,8 +440,8 @@ def window_case(stage, w, heads, shifted, gen, wa, swin):
     def lib_fn():
         return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=attn, scale=scale)
 
-    t_old, t_new, t_lib = graph_ms([old_fn], 20), graph_ms([new_fn], 20), graph_ms([lib_fn], 20)
-    t_lib2, t_new2, t_old2 = graph_ms([lib_fn], 20), graph_ms([new_fn], 20), graph_ms([old_fn], 20)
+    t_new, t_lib = graph_ms([new_fn], 20), graph_ms([lib_fn], 20)
+    t_lib2, t_new2 = graph_ms([lib_fn], 20), graph_ms([new_fn], 20)
     ms = 0.5 * (t_new + t_new2)
     eager_ms = cuda_ms(new_fn, 20)
     plain_ms = cuda_ms(lambda: wa.window_attention_plain(q, k, v, bias, mask, scale), 3)
@@ -437,10 +451,9 @@ def window_case(stage, w, heads, shifted, gen, wa, swin):
                                torch.cuda.get_device_properties(0).multi_processor_count)
     rec = dict(
         case=name, shape=f"W{w} heads{heads} N{n} D{d} bf16", kernel=kernel,
-        plan=plan._asdict(), max_abs_err=err, per_window_max_abs_err=err_old,
-        new_vs_per_window_max_abs_diff=diff, tol=2e-2, ms=ms, eager_ms=eager_ms,
-        per_window_ms=0.5 * (t_old + t_old2), plain_ms=plain_ms, library_ms=0.5 * (t_lib + t_lib2),
-        library="SDPA, bf16 bias (+ mask) per window", timing="ms, per_window_ms, library_ms: CUDA graphs",
+        plan=plan._asdict(), max_abs_err=err, tol=2e-2, ms=ms, eager_ms=eager_ms,
+        plain_ms=plain_ms, library_ms=0.5 * (t_lib + t_lib2),
+        library="SDPA, bf16 bias (+ mask) per window", timing="ms, library_ms: CUDA graphs",
         **bound(nbytes, flops, torch.bfloat16), gbytes_s=nbytes / ms * 1e-6,
     )
     print("kernel_case " + json.dumps(rec))
@@ -642,14 +655,15 @@ def timed_generate(generator, batch, gen_cfg):
     )
 
 
-def train_batch(cfg, batch_size: int, seq_len: int):
+def train_batch(cfg, batch_size: int, seq_len: int, seed: int = 0):
     """bench.py's PT batch (`build_batch` + `add_teacher_inputs`), in numpy
-    from the same seeds: right-padded splice plans, images, per-task masks,
-    and the three teachers' pixel tensors."""
+    from the same seeds (seed 0; another seed gives another batch of the
+    same kind): right-padded splice plans, images, per-task masks, and the
+    three teachers' pixel tensors."""
     from visper_lm_tpu_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
     from visper_lm_tpu_torch.data.collate import build_splice_plan, collate_plans
 
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     vocab, ns = cfg.decoder.vocab_size, cfg.num_sys_tokens
     plans = []
     for _ in range(batch_size):
@@ -667,7 +681,7 @@ def train_batch(cfg, batch_size: int, seq_len: int):
     batch = collate_plans(plans, images=img.astype(np.float32))
     for tcfg in cfg.distill.tasks:
         batch[f"{tcfg.task}_mask"] = np.ones((batch_size,), np.float32)
-    rng = np.random.default_rng(1)
+    rng = np.random.default_rng(seed + 1)
     for key, size in (("depth_images", 336), ("gen_images", 224), ("seg_images", 768)):
         batch[key] = rng.normal(size=(batch_size, size, size, 3)).astype(np.float32)
     return batch
@@ -703,6 +717,252 @@ def profile_window(name: str, fn, top: int = 10, match=()) -> dict:
                         launches=sum(e.count for e in hit))
         print(f"profile {name}: kernels matching '{key}': {out[key]['ms']:.3f} ms "
               f"in {out[key]['launches']} launches")
+    return out
+
+
+def loss_and_grads(loss_fn, model, batch, teachers, params):
+    """One forward and backward without an update: (loss, grads of params)."""
+    total, _ = loss_fn(model, batch, teachers)
+    grads = torch.autograd.grad(total, params, allow_unused=True)
+    return float(total.detach()), grads
+
+
+def grad_agreement(names, grads_a, grads_b):
+    """(min cosine, its tensor, tensors compared) over the gradients that are
+    not zero on both sides."""
+    min_cos, min_name, n_cmp = 1.0, None, 0
+    for n, ga, gb in zip(names, grads_a, grads_b):
+        if ga is None or gb is None:
+            continue
+        ga, gb = ga.float().flatten(), gb.float().flatten()
+        if gb.norm() == 0 and ga.norm() == 0:
+            continue
+        cos = float(ga @ gb / (ga.norm() * gb.norm()).clamp(min=1e-30))
+        n_cmp += 1
+        if cos < min_cos:
+            min_cos, min_name = cos, n
+    return min_cos, min_name, n_cmp
+
+
+def trainer_phase(cfg, model, teachers, tbatch, reset_counts, counts):
+    """Phase 8: remat policies at B4 x T1024, trainer.train with accumulation,
+    a checkpoint and a resume, the chunked cross-entropy at B8, master
+    weights at B1. Returns the record printed as `trainer_path`."""
+    import dataclasses
+    import os
+    import shutil
+
+    from visper_lm_tpu_torch.models.decoder import REMAT_POLICIES
+    from visper_lm_tpu_torch.models.teachers import make_teacher_fn
+    from visper_lm_tpu_torch.train.optimizer import OptimizerConfig
+    from visper_lm_tpu_torch.train.train_step import make_loss_fn, make_train_step, uses_chunked_ce
+    from visper_lm_tpu_torch.train.trainer import TrainerConfig, train
+    from visper_lm_tpu_torch.utils.diagnostics import teacher_flops, train_step_flops
+
+    d = cfg.decoder
+    tfn = make_teacher_fn(cfg)
+    opt_cfg = OptimizerConfig(learning_rate=1e-3, total_steps=1000, stage="pretrain")
+    n_swin = sum(teachers["swin"].cfg.depths)
+    out = {}
+
+    def expected(policy, micro_batches=1, batch=TRAIN_BATCH):
+        # a launch per decoder layer, and the recompute runs the flash forward
+        # again unless the policy keeps its output; B4 once per Swin block and
+        # teacher micro-batch of 2
+        fwd = 1 if policy is None or "flash_out" in REMAT_POLICIES[policy] else 2
+        per = dict(flash_fwd=fwd * d.num_layers, flash_bwd_dq=d.num_layers,
+                   flash_bwd_dkv=d.num_layers, window_attn=n_swin * batch // 2)
+        return {k: v * micro_batches for k, v in per.items()}
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # remat: no remat (phase 7's step), full remat, save_gate; at B4 x T1024
+    remat = {}
+    for policy in REMAT_RUNS:
+        name = policy or "no_remat"
+        step = make_train_step(cfg, opt_cfg, model, teacher_fn=tfn, teacher_params=teachers,
+                               remat=policy is not None, remat_policy=policy)
+        step(tbatch)                            # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for i in range(REMAT_STEPS):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(tbatch)              # ends in a host read of the metrics
+            ms.append((time.perf_counter() - t0) * 1e3)
+            c = counts()
+            check(c == expected(policy), f"remat {name} step {i + 2}: launches {c}, expected "
+                  f"{expected(policy)}")
+            check(math.isfinite(metrics["loss"]), f"remat {name}: loss {metrics['loss']}")
+        remat[name] = dict(step_ms=ms, mean_step_ms=sum(ms) / len(ms),
+                           peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=c,
+                           loss=metrics["loss"])
+        print(f"remat {name}: {json.dumps(remat[name])}")
+        if policy == "save_gate":               # a profile costs seconds: bench.py's default only
+            prof = profile_window("train_step_save_gate", lambda: step(tbatch), top=15,
+                                  match=("flash_fwd", "flash_bwd", "window_attn_stream"))
+            remat[name].update(busy_ms=prof["busy_ms"], idle_share=prof["idle_share"])
+        del step
+        release()
+    check(remat["save_gate"]["peak_gib"] < remat["no_remat"]["peak_gib"],
+          f"save_gate's peak {remat['save_gate']['peak_gib']:.2f} GiB is not below no remat's "
+          f"{remat['no_remat']['peak_gib']:.2f}")
+    out["remat"] = remat
+
+    # each exact policy's loss and gradients against the no-remat step's, at B1
+    b1 = {k: torch.as_tensor(v[:1]).cuda() for k, v in tbatch.items()}
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    params = [p for p in model.parameters() if p.requires_grad]
+    ref_loss, ref_grads = loss_and_grads(make_loss_fn(cfg, teacher_fn=tfn, remat=False),
+                                         model, b1, teachers, params)
+    out["remat_parity"] = {}
+    for policy in REMAT_EXACT:
+        loss, grads = loss_and_grads(make_loss_fn(cfg, teacher_fn=tfn, remat=True, remat_policy=policy),
+                                     model, b1, teachers, params)
+        rel = abs(loss - ref_loss) / abs(ref_loss)
+        min_cos, min_name, n_cmp = grad_agreement(names, grads, ref_grads)
+        out["remat_parity"][policy] = dict(loss=loss, no_remat_loss=ref_loss, rel=rel,
+                                           min_grad_cosine=min_cos, tensors=n_cmp)
+        print(f"remat {policy} vs no remat at B1: loss {loss:.6f} vs {ref_loss:.6f} (rel "
+              f"{rel:.3g}), min grad cosine {min_cos:.6f} ({min_name}) over {n_cmp} tensors")
+        check(rel <= 1e-3, f"remat {policy}: loss differs by {rel:.3g} > 1e-3")
+        check(min_cos >= 0.999, f"remat {policy}: grad cosine {min_cos} < 0.999 for {min_name}")
+        del grads
+    del ref_grads
+    release()
+
+    # trainer.train: save_gate, accumulation 2, a checkpoint at step 2, then a
+    # resume from it to step 4
+    root = Path(__file__).resolve().parent / "tmp" / "chip_smoke_trainer"
+    shutil.rmtree(root, ignore_errors=True)
+    requested = []
+
+    def data_iter(epoch, skip_batches=0):
+        requested.append((epoch, skip_batches))
+        for i in range(skip_batches, TRAINER_STEPS * TRAINER_ACCUM):
+            yield train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=100 + 2 * i)
+
+    def records(run):
+        with open(root / run / "metrics.jsonl") as f:
+            return [json.loads(line) for line in f]
+
+    per_step = expected("save_gate", TRAINER_ACCUM)
+    tcfg = TrainerConfig(output_dir=str(root / "full"), max_steps=TRAINER_STEPS, save_steps=2,
+                         grad_accum_steps=TRAINER_ACCUM, remat_policy="save_gate", resume=False)
+    try:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = train(cfg, opt_cfg, tcfg, model, data_iter, teacher_fn=tfn, teacher_params=teachers)
+        full_s = time.perf_counter() - t0
+        launches = counts()
+        want = {k: v * TRAINER_STEPS for k, v in per_step.items()}
+        check(state.step == TRAINER_STEPS, f"trainer ran {state.step} steps")
+        check(launches == want, f"trainer launches {launches}, expected {want}")
+        full = records("full")
+        check([r["step"] for r in full] == list(range(1, TRAINER_STEPS + 1)), f"logged {full}")
+        del state
+        release()
+        resume_dir = root / "resume" / "checkpoints"
+        resume_dir.mkdir(parents=True)
+        shutil.copytree(root / "full" / "checkpoints" / "2", resume_dir / "2", copy_function=os.link)
+        requested.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        state = train(cfg, opt_cfg, dataclasses.replace(tcfg, output_dir=str(root / "resume"),
+                                                        resume=True),
+                      model, data_iter, teacher_fn=tfn, teacher_params=teachers)
+        resume_s = time.perf_counter() - t0
+        resumed_launches = counts()
+        want = {k: v * (TRAINER_STEPS - 2) for k, v in per_step.items()}
+        check(resumed_launches == want, f"resumed launches {resumed_launches}, expected {want}")
+        check(requested == [(0, 2 * TRAINER_ACCUM)], f"the resume asked the stream for {requested}")
+        resumed = records("resume")
+        check([r["step"] for r in resumed] == [3, 4], f"the resume logged {resumed}")
+        diffs = {}
+        for r in resumed:
+            ref = full[r["step"] - 1]["loss"]
+            diffs[r["step"]] = abs(r["loss"] - ref) / abs(ref)
+            print(f"trainer step {r['step']}: resumed loss {r['loss']:.7f}, uninterrupted "
+                  f"{ref:.7f}, relative difference {diffs[r['step']]:.3g}")
+            check(diffs[r["step"]] <= 1e-5, f"resumed step {r['step']} loss differs by "
+                  f"{diffs[r['step']]:.3g} > 1e-5")
+        del state
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    release()
+    # steps 2 and 4: no checkpoint is written inside their logged intervals
+    sps = [full[i]["steps_per_sec"] for i in (1, 3)]
+    examples = TRAIN_BATCH * TRAINER_ACCUM
+    flops = train_step_flops(cfg, examples, TRAIN_SEQ) + teacher_flops(examples)
+    mean_sps = sum(sps) / len(sps)
+    out["trainer"] = dict(
+        remat_policy="save_gate", grad_accum_steps=TRAINER_ACCUM, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        steps=TRAINER_STEPS, run_s=full_s, resume_run_s=resume_s, losses=[r["loss"] for r in full],
+        resumed_losses=[r["loss"] for r in resumed], resumed_rel_diff=diffs,
+        step_ms=[1e3 / x for x in sps], examples_per_s=examples * mean_sps,
+        mfu=flops * mean_sps / PEAK_FLOPS[torch.bfloat16], flops_per_step=flops,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches,
+        launches_per_step=per_step, resumed_launches=resumed_launches,
+    )
+    print("trainer " + json.dumps(out["trainer"]))
+
+    # the chunked cross-entropy: one step at B8 x T1024
+    b8 = {k: torch.as_tensor(v).cuda() for k, v in train_batch(cfg, 8, TRAIN_SEQ, seed=50).items()}
+    check(uses_chunked_ce(cfg, 8, TRAIN_SEQ), "B8 x T1024 does not take the chunked cross-entropy")
+    step = make_train_step(cfg, opt_cfg, model, teacher_fn=tfn, teacher_params=teachers,
+                           remat_policy="save_gate")
+    loss_c, grads_c = loss_and_grads(step.loss_fn, model, b8, teachers, params)
+    loss_f, grads_f = loss_and_grads(
+        make_loss_fn(cfg, teacher_fn=tfn, remat_policy="save_gate", chunked_ce=False),
+        model, b8, teachers, params)
+    rel = abs(loss_c - loss_f) / abs(loss_f)
+    min_cos, min_name, n_cmp = grad_agreement(names, grads_c, grads_f)
+    del grads_c, grads_f
+    release()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = step(b8)
+    b8_ms = (time.perf_counter() - t0) * 1e3
+    b8_launches = counts()
+    check(b8_launches == expected("save_gate", batch=8),
+          f"B8 step launches {b8_launches}, expected {expected('save_gate', batch=8)}")
+    out["chunked_ce"] = dict(loss=loss_c, full_logits_loss=loss_f, rel=rel, min_grad_cosine=min_cos,
+                             tensors=n_cmp, step_ms=b8_ms, step_loss=metrics["loss"],
+                             launches=b8_launches,
+                             peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print("chunked_ce " + json.dumps(out["chunked_ce"]))
+    check(rel <= 1e-3, f"chunked CE loss differs from the full logits' by {rel:.3g} > 1e-3")
+    check(min_cos >= 0.999, f"chunked CE grad cosine {min_cos} < 0.999 for {min_name}")
+    check(math.isfinite(metrics["loss"]), f"B8 step loss {metrics['loss']}")
+    del step, b8
+    release()
+
+    # f32 master weights at B1: after two updates (update 1 has lr 0) every
+    # bf16 trainable is its master copy rounded
+    opt_m = dataclasses.replace(opt_cfg, warmup_ratio=0.0, master_weights=True)
+    step = make_train_step(cfg, opt_m, model, teacher_fn=tfn, teacher_params=teachers,
+                           remat_policy="save_gate")
+    before = {n: p.detach().clone() for n, p in step.trainable.items()}
+    for _ in range(2):
+        step(b1)
+    master = step.optimizer.master
+    off = sum(int((p != master[n].to(p.dtype)).sum()) for n, p in step.trainable.items())
+    moved = sum(int((p != before[n]).sum()) for n, p in step.trainable.items())
+    total = sum(p.numel() for p in step.trainable.values())
+    out["master_weights"] = dict(params=total, moved=moved, off_rounded_master=off,
+                                 dtypes=sorted({str(p.dtype) for p in step.trainable.values()}))
+    print("master_weights " + json.dumps(out["master_weights"]))
+    check(off == 0, f"{off} trainable values are not their master copy rounded")
+    check(moved > 0, "no trainable moved in two updates")
+    del step, before, master
+    release()
     return out
 
 
@@ -765,7 +1025,7 @@ def main() -> int:
     for nw in (0, SWIN_STAGES[0][0] // 2):
         plan = wa.window_attn_plan(*SWIN_STAGES[0], 144, 32, nw, sms)
         check(_build.load("window_attn").visper_window_attn_info(
-            wa.KERNEL_IDS["streamed"], 144, 32, int(nw > 0), plan.stages,
+            144, 32, int(nw > 0), plan.stages,
             ctypes.byref(win_threads), ctypes.byref(smem), ctypes.byref(win_ctas)) == 0,
             "no streamed window kernel at N144 D32")
         check(smem.value == plan.smem_bytes,
@@ -818,11 +1078,11 @@ def main() -> int:
     win_rec = win_recs[1]                       # stage 1, shifted: the largest launch
     # B4 in a train step: every Swin-L block launches once per teacher
     # micro-batch of 2, the odd blocks of each stage shifted
-    win_step = dict(ms=0.0, per_window_ms=0.0, library_ms=0.0, bound_ms=0.0, launches=0)
+    win_step = dict(ms=0.0, library_ms=0.0, bound_ms=0.0, launches=0)
     for rec, depth in zip(win_recs, [dd for dd in swin.SWIN_L.depths for _ in range(2)]):
         n_launch = depth // 2 * (TRAIN_BATCH // 2)
         win_step["launches"] += n_launch
-        for key in ("ms", "per_window_ms", "library_ms", "bound_ms"):
+        for key in ("ms", "library_ms", "bound_ms"):
             win_step[key] += n_launch * rec[key]
     print("window_attn per train step (launch-weighted; CUDA graphs) " + json.dumps(win_step))
     # B5 at the quantized serving path's linears: prefill (M = B8 x T768) and
@@ -988,7 +1248,7 @@ def main() -> int:
     teachers = init_teachers(cfg, device="cuda", seed=7)
     opt_cfg = OptimizerConfig(learning_rate=1e-3, total_steps=1000, stage="pretrain")
     step = make_train_step(cfg, opt_cfg, model, teacher_fn=make_teacher_fn(cfg),
-                           teacher_params=teachers)
+                           teacher_params=teachers, remat=False)
     torch.cuda.synchronize()
     print(f"training init {time.perf_counter() - t0:.1f} s: "
           f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B student params "
@@ -1042,27 +1302,15 @@ def main() -> int:
     b1 = step.to_device({k: v[:1] for k, v in tbatch.items()})
     names = list(step.trainable)
 
-    def loss_and_grads(use_kernel):
+    def kernel_or_plain(use_kernel):
         loss_fn = make_loss_fn(cfg, teacher_fn=make_teacher_fn(cfg, use_kernel=use_kernel),
-                               use_kernel=use_kernel)
-        total, _ = loss_fn(model, b1, teachers)
-        grads = torch.autograd.grad(total, [step.trainable[n] for n in names], allow_unused=True)
-        return float(total.detach()), grads
+                               use_kernel=use_kernel, remat=False)
+        return loss_and_grads(loss_fn, model, b1, teachers, [step.trainable[n] for n in names])
 
-    loss_k, grads_k = loss_and_grads(None)
-    loss_p, grads_p = loss_and_grads(False)
+    loss_k, grads_k = kernel_or_plain(None)
+    loss_p, grads_p = kernel_or_plain(False)
     rel = abs(loss_k - loss_p) / abs(loss_p)
-    min_cos, min_name, n_cmp = 1.0, None, 0
-    for n, gk, gp in zip(names, grads_k, grads_p):
-        if gk is None or gp is None:
-            continue
-        gk, gp = gk.float().flatten(), gp.float().flatten()
-        if gp.norm() == 0 and gk.norm() == 0:
-            continue
-        cos = float(gk @ gp / (gk.norm() * gp.norm()).clamp(min=1e-30))
-        n_cmp += 1
-        if cos < min_cos:
-            min_cos, min_name = cos, n
+    min_cos, min_name, n_cmp = grad_agreement(names, grads_k, grads_p)
     del grads_k, grads_p
     print(f"train B1 kernel vs plain: loss {loss_k:.6f} vs {loss_p:.6f} (rel {rel:.3g}), "
           f"min grad cosine {min_cos:.6f} ({min_name}) over {n_cmp} tensors")
@@ -1071,14 +1319,21 @@ def main() -> int:
 
     # where the training step's time goes
     train_prof = profile_window("train_step", lambda: step(tbatch), top=15,
-                                match=("flash_bwd", "window_attn_stream", "window_attn_bf16"))
+                                match=("flash_bwd", "window_attn_stream"))
     print("train_profile " + json.dumps(train_prof))
-    check(train_prof["window_attn_stream"]["launches"] == expected["window_attn"]
-          and train_prof["window_attn_bf16"]["launches"] == 0,
-          f"the profiled step ran {train_prof['window_attn_stream']['launches']} streamed and "
-          f"{train_prof['window_attn_bf16']['launches']} per_window window kernels, expected "
-          f"{expected['window_attn']} and 0")
-    dec_launches = da.launches                  # over phases 4-7: bf16, int4, w8a16, training
+    check(train_prof["window_attn_stream"]["launches"] == expected["window_attn"],
+          f"the profiled step ran {train_prof['window_attn_stream']['launches']} window "
+          f"kernels, expected {expected['window_attn']}")
+    # 8. trainer path: remat policies, trainer.train with accumulation,
+    # checkpoint and resume, the chunked cross-entropy, master weights
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    trainer = trainer_phase(cfg, model, teachers, tbatch, reset_counts, counts)
+    print(f"trainer phase {time.perf_counter() - t0:.1f} s")
+    print("trainer_path " + json.dumps(trainer))
+    dec_launches = da.launches                  # over phases 4-8: bf16, int4, w8a16, training
     print(f"decode_attn launches over the serving and training paths: {dec_launches}")
     check(dec_launches == 0, f"decode_attn launched {dec_launches} times; no path calls it")
 
@@ -1091,32 +1346,34 @@ def main() -> int:
 
     csrc = "visper_lm_tpu_torch/csrc/"
     w4_decode = w4_recs[f"gate_up_M{BATCH}"]
+    main_launches = trainer["trainer"]["launches"]   # trainer.train, the main path
     kernels = [
         dict(entry("flash_fwd", csrc + "flash_fwd.cu", "visper_lm_tpu/ops/flash_attention.py:234",
-                   slice_rec, train_launches["flash_fwd"]),
-             launches_serving=launches, shape=slice_rec["shape"], kernel=slice_rec["kernel"],
+                   slice_rec, main_launches["flash_fwd"]),
+             launches_serving=launches, launches_phase7=train_launches["flash_fwd"],
+             shape=slice_rec["shape"], kernel=slice_rec["kernel"],
              mma_sync_ms=slice_rec["mma_sync_ms"],
              train=dict(shape=train_fwd_rec["shape"], ms=train_fwd_rec["ms"],
                         mma_sync_ms=train_fwd_rec["mma_sync_ms"],
                         library_ms=train_fwd_rec["library_ms"],
                         bound_ms=train_fwd_rec["bound_ms"])),
         dict(entry("flash_bwd_dq", csrc + "flash_bwd.cu", "visper_lm_tpu/ops/flash_attention.py:497",
-                   dq_rec, train_launches["flash_bwd_dq"]),
-             shape=dq_rec["shape"], kernel=dq_rec["kernel"], device_ms=dq_rec["device_ms"],
+                   dq_rec, main_launches["flash_bwd_dq"]),
+             launches_phase7=train_launches["flash_bwd_dq"], shape=dq_rec["shape"], kernel=dq_rec["kernel"], device_ms=dq_rec["device_ms"],
              library="SDPA backward (dq, dk and dv in one call)",
              gqa=dict(shape=gqa_dq["shape"], ms=gqa_dq["ms"], device_ms=gqa_dq["device_ms"],
                       library_ms=gqa_dq["library_ms"], bound_ms=gqa_dq["bound_ms"])),
         dict(entry("flash_bwd_dkv", csrc + "flash_bwd.cu", "visper_lm_tpu/ops/flash_attention.py:562",
-                   dkv_rec, train_launches["flash_bwd_dkv"]),
-             shape=dkv_rec["shape"], kernel=dkv_rec["kernel"], device_ms=dkv_rec["device_ms"],
+                   dkv_rec, main_launches["flash_bwd_dkv"]),
+             launches_phase7=train_launches["flash_bwd_dkv"], shape=dkv_rec["shape"], kernel=dkv_rec["kernel"], device_ms=dkv_rec["device_ms"],
              library="SDPA backward (dq, dk and dv in one call)",
              gqa=dict(shape=gqa_dkv["shape"], ms=gqa_dkv["ms"], device_ms=gqa_dkv["device_ms"],
                       library_ms=gqa_dkv["library_ms"], bound_ms=gqa_dkv["bound_ms"])),
         dict(entry("window_attn", csrc + "window_attn.cu", "visper_lm_tpu/ops/window_attention.py:112",
-                   win_rec, train_launches["window_attn"]),
-             shape=win_rec["shape"], kernel=win_rec["kernel"], timing=win_rec["timing"],
-             per_window_ms=win_rec["per_window_ms"], eager_ms=win_rec["eager_ms"],
-             stages={r["case"]: dict(ms=r["ms"], per_window_ms=r["per_window_ms"],
+                   win_rec, main_launches["window_attn"]),
+             launches_phase7=train_launches["window_attn"], shape=win_rec["shape"], kernel=win_rec["kernel"], timing=win_rec["timing"],
+             eager_ms=win_rec["eager_ms"],
+             stages={r["case"]: dict(ms=r["ms"],
                                      library_ms=r["library_ms"], bound_ms=r["bound_ms"],
                                      max_abs_err=r["max_abs_err"]) for r in win_recs},
              per_train_step=win_step, profile_ms_per_train_step=train_prof["window_attn_stream"]["ms"]),

@@ -574,20 +574,21 @@ def test_window_kernel_arithmetic_matches_the_pallas_kernel(case):
 
 def test_window_ablation_switches_both_kernels():
     """chip_ablate_bwd.py's window table: every product, read of bias and
-    mask, exponential and cross-lane reduction of both window kernels lies
-    behind a switch, and nothing before the cut changes."""
+    mask, exponential and cross-lane reduction of the window kernel (the
+    streamed one, the source's only kernel) lies behind a switch, and
+    nothing before the cut changes."""
     abl = _ablate_script()
     src = (_build.CSRC / "window_attn.cu").read_text()
     got = abl.ablatable_source(src, "window_attn")
     cut = src.index(abl.ABLATIONS["window_attn"].cut)
     assert got[:cut] == src[:cut]
     body = got[cut:]
-    assert body.count("if (ABL_MMA) mma_bf16(") == body.count("mma_bf16(") == 6
-    assert body.count("ABL_BIAS ? *reinterpret_cast<const float2*>(bias + off)") == 2
-    assert body.count("if (ABL_BIAS && mask) {") == 2 and "if (mask) {" not in body
-    assert body.count("WA_EXP(") == 2 and "expf(" not in body
+    assert body.count("if (ABL_MMA) mma_bf16(") == body.count("mma_bf16(") == 4
+    assert body.count("ABL_BIAS ? *reinterpret_cast<const float2*>(bias + off)") == 1
+    assert body.count("if (ABL_BIAS && mask) {") == 1 and "if (mask) {" not in body
+    assert "expf(" not in body and "window_attn_bf16_kernel" not in src
     assert body.count("ABL_SOFTMAX ? ex2(") == body.count("ex2(") == 1
-    assert body.count("if (ABL_SOFTMAX)") == body.count("__shfl_xor_sync(") == 8
+    assert body.count("if (ABL_SOFTMAX)") == body.count("__shfl_xor_sync(") == 4
 
 
 @pytest.mark.parametrize("which", range(len(_ablate_script().WINDOW_SWITCHES)))

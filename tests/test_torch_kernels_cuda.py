@@ -10,8 +10,8 @@ plain version computed in f32): bf16 2e-2, f32 1e-4; lse 1e-3. Backward
 (bf16 only; dq, dk, dv against `flash_attention_bwd_reference` fed the plain
 forward's f32 out and lse): relative Frobenius error 1e-2 and, per element,
 |err| <= 2e-2 + 1e-2 x |ref|; the same launch repeated gives the same bytes. Window attention: bf16 2e-2
-(the kernel against the plain version and against the per_window kernel it
-replaced); the same launch repeated gives the same bytes. w4 matmul (bf16
+(the kernel against the plain version); the same launch repeated gives the
+same bytes. w4 matmul (bf16
 out against `w4_matmul_reference` in f32): relative Frobenius error 1e-2 and
 max abs error 2e-2 x max|ref|; the same small-M launch repeated gives the
 same bytes. Decode attention (bf16 q; bf16 or int8
@@ -480,20 +480,17 @@ def _packed_qkv(gen, w, n, heads, d):
     return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
 
 
-def _window_against_plain_and_per_window(q, k, v, bias, mask):
-    """The kernel the dispatch takes vs the plain version (f32) and vs the
-    per_window kernel it replaced, each within 2e-2; the same launch 20 times
-    gives the same bytes. Returns the output."""
+def _window_against_plain(q, k, v, bias, mask):
+    """The kernel the dispatch takes vs the plain version (f32), within
+    2e-2; the same launch 20 times gives the same bytes. Returns the output."""
     d = q.shape[-1]
     before = wa.launches
     got = wa.window_attention(q, k, v, bias, mask)
     assert wa.launches == before + 1
     ref = wa.window_attention_plain(q.float(), k.float(), v.float(), bias, mask, d ** -0.5)
-    old = wa.window_attention_kernel(q, k, v, bias, mask, d ** -0.5, kernel="per_window")
     torch.cuda.synchronize()
     assert got.shape == ref.shape and got.dtype == torch.bfloat16
     assert (got.float() - ref).abs().max().item() <= 2e-2
-    assert (got.float() - old.float()).abs().max().item() <= 2e-2
     for _ in range(20):
         assert torch.equal(wa.window_attention(q, k, v, bias, mask), got)
     return got
@@ -514,7 +511,7 @@ def test_window_streamed_kernel_at_the_swin_l_stages(cuda_gen, w, heads, shifted
     if shifted:
         side = int(round((w // 2) ** 0.5)) * 12
         mask = torch.as_tensor(swin._shift_attn_mask(side, side, 12, 6), device="cuda")
-    _window_against_plain_and_per_window(q, k, v, bias, mask)
+    _window_against_plain(q, k, v, bias, mask)
 
 
 @pytest.mark.parametrize("nw", [0, 1, 32, 64])
@@ -528,7 +525,7 @@ def test_window_streamed_kernel_at_the_test_shape(cuda_gen, nw):
     mask = None
     if nw:
         mask = torch.where(torch.rand(nw, n, n, device="cuda", generator=cuda_gen) < 0.3, -100.0, 0.0)
-    _window_against_plain_and_per_window(q, k, v, bias, mask)
+    _window_against_plain(q, k, v, bias, mask)
 
 
 def test_window_kernel_rejects_what_it_cannot_run(cuda_gen):
@@ -544,7 +541,7 @@ def test_window_kernel_rejects_what_it_cannot_run(cuda_gen):
     with pytest.raises(ValueError):
         wa.window_attention(q, q, q, bias, torch.zeros(3, 144, 144, device="cuda"))
     with pytest.raises(ValueError):
-        wa.window_attention_kernel(q, q, q, bias, None, 0.25, kernel="tiles")
+        wa.window_attention(q, q, q, torch.zeros(3, 144, 144, device="cuda"))
     assert wa.launches == before
 
 

@@ -8,6 +8,12 @@ f32 throughout. Tolerances: loss and metrics rtol 1e-5; step-1 gradients
 atol 1e-4 x the tensor's largest |grad| + rtol 1e-3 (the decoder's sums, as
 through the decoder in tests/test_torch_models.py); trainables after three
 updates atol 2e-5 / rtol 1e-4.
+
+Also: the chunked cross-entropy (against `ntp_loss` and JAX's, and its
+switch in the loss), gradient accumulation (identical micro-batches against
+one step; distinct ones against JAX's accumulated update) and f32 master
+weights (against optax over three updates of bf16 parameters); each test
+states its tolerance.
 """
 
 import numpy as np
@@ -16,6 +22,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+import optax
 
 from visper_lm_tpu import config as jconfig
 from visper_lm_tpu.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
@@ -25,6 +32,7 @@ from visper_lm_tpu.models import vlm as jvlm
 from visper_lm_tpu.models.teachers import swin as jswin
 from visper_lm_tpu.models.teachers import unclip as junclip
 from visper_lm_tpu.parallel.mesh import make_mesh
+from visper_lm_tpu.train import losses as jloss
 from visper_lm_tpu.train import optimizer as jopt
 from visper_lm_tpu.train import train_step as jts
 
@@ -32,6 +40,7 @@ from visper_lm_tpu_torch import config as tconfig
 from visper_lm_tpu_torch.data.collate import collate_plans
 from visper_lm_tpu_torch.models import teachers as tteach
 from visper_lm_tpu_torch.models.teachers import swin as tswin
+from visper_lm_tpu_torch.train import losses as tloss
 from visper_lm_tpu_torch.train import optimizer as topt
 from visper_lm_tpu_torch.train import train_step as tts
 from visper_lm_tpu_torch.weights import from_jax_params, teachers_from_jax_params
@@ -199,8 +208,229 @@ def test_frozen_parameters_are_unchanged_bit_for_bit(runs):
         assert torch.equal(p, after[n]), n
 
 
-def test_loss_raises_where_the_chunked_cross_entropy_would_run():
+# ---------------------------------------------------------------------------
+# The chunked cross-entropy
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("t, tied", [(257, False), (300, False), (700, False), (513, True)])
+def test_chunked_cross_entropy_matches_ntp_loss_and_jax(t, tied):
+    """ntp_loss_chunked against ntp_loss on the full logits (loss and the
+    gradients to hidden and to the head) and JAX's ntp_loss_chunked, rtol
+    1e-6 (gradients 1e-5 relative to their largest value). t - 1 is a
+    multiple of 256 (257, 513) or not (300, 700: padded with IGNORE_INDEX);
+    tied: hidden is drawn from the head's own rows (a tied embedding), so the
+    head's gradient comes by both paths."""
+    rng = np.random.default_rng(t)
+    b, d, v = 2, 16, 40
+    weight = rng.standard_normal((v, d)).astype(np.float32)
+    ids = rng.integers(0, v, size=(b, t))
+    labels = rng.integers(0, v, size=(b, t)).astype(np.int32)
+    labels[0, : t // 3] = IGNORE_INDEX
+    labels[1, -5:] = IGNORE_INDEX
+    hidden = rng.standard_normal((b, t, d)).astype(np.float32)
+    lab = torch.from_numpy(labels)
+
+    def port(chunked):
+        w = torch.from_numpy(weight).requires_grad_(True)
+        h0 = torch.from_numpy(hidden).requires_grad_(True)
+        h = 1.5 * w[torch.from_numpy(ids)] + h0 if tied else h0
+        loss = (tloss.ntp_loss_chunked(h, w, lab) if chunked
+                else tloss.ntp_loss(h @ w.T, lab))
+        return (loss.detach(), *torch.autograd.grad(loss, [w, h0]))
+
+    got, ref = port(True), port(False)
+    np.testing.assert_allclose(float(got[0]), float(ref[0]), rtol=1e-6)
+    for g, r in zip(got[1:], ref[1:]):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-5, atol=1e-5 * float(r.abs().max()))
+    h_in = 1.5 * weight[ids] + hidden if tied else hidden
+    ref_j = jloss.ntp_loss_chunked(jnp.asarray(h_in), jnp.asarray(weight.T), jnp.asarray(labels))
+    np.testing.assert_allclose(float(got[0]), float(ref_j), rtol=1e-6)
+
+
+def test_loss_takes_the_chunked_cross_entropy_where_jax_does(monkeypatch):
+    """The step's switch (B * T * vocab >= 2^27, JAX's) and its wiring: with
+    the switch forced on, the tiny step's loss and trainable gradients equal
+    those of the full logits (rtol 1e-6), without computing the logits."""
     cfg = tconfig.tiny_test_vlm(distill=True)
-    loss_fn = tts.make_loss_fn(cfg)
-    with pytest.raises(NotImplementedError, match="chunked"):
-        loss_fn(None, {"labels": torch.zeros((4, 65536), dtype=torch.int32)})
+    assert not tts.uses_chunked_ce(cfg, 4, 64)
+    phi3 = tconfig.phi3_clip_vlm(distill=True)
+    assert not tts.uses_chunked_ce(phi3, 4, 1024) and tts.uses_chunked_ce(phi3, 8, 1024)
+    params = jvlm.init_vlm(jax.random.PRNGKey(0), jconfig.tiny_test_vlm(distill=True))
+    model = from_jax_params(jax.tree_util.tree_map(np.asarray, params), cfg, device="cpu")
+    batch = _batch(jconfig.tiny_test_vlm(distill=True))
+    for t in cfg.distill.tasks:
+        batch[f"{t.task}_target"] = np.random.default_rng(5).normal(
+            size=(4, t.target_tokens, t.target_dim)).astype(np.float32)
+    step = tts.make_train_step(cfg, topt.OptimizerConfig(**OPT), model)
+    met_full, grads_full = step.loss_and_grads(batch)
+    seen = []
+    orig = tloss.ntp_loss_chunked
+    monkeypatch.setattr(tts, "uses_chunked_ce", lambda *a: True)
+    monkeypatch.setattr(tts, "ntp_loss_chunked", lambda *a, **k: seen.append(1) or orig(*a, **k))
+    met_chunk, grads_chunk = step.loss_and_grads(batch)
+    assert seen
+    for k in met_full:
+        np.testing.assert_allclose(float(met_chunk[k]), float(met_full[k]), rtol=1e-6, err_msg=k)
+    for n, g in grads_full.items():
+        np.testing.assert_allclose(grads_chunk[n].numpy(), g.numpy(), rtol=1e-5,
+                                   atol=1e-6 * float(g.abs().max()), err_msg=n)
+
+
+# ---------------------------------------------------------------------------
+# Gradient accumulation
+# ---------------------------------------------------------------------------
+
+
+def _targets(cfg, batch, seed):
+    rng = np.random.default_rng(seed)
+    out = dict(batch)
+    for t in cfg.distill.tasks:
+        out[f"{t.task}_target"] = rng.normal(size=(4, t.target_tokens, t.target_dim)).astype(np.float32)
+    return out
+
+
+ACC_OPT = dict(learning_rate=5e-3, total_steps=20, warmup_ratio=0.0, stage="pretrain")
+
+
+@pytest.fixture(scope="module")
+def accum_runs():
+    """Two accumulated updates over distinct micro-batches (targets in the
+    batch), JAX's and the port's, from the same weights: per-step metrics
+    and the trainables after; and the port's single step on one micro-batch
+    beside its accumulated step over two copies of it."""
+    cfg_j, cfg_t = jconfig.tiny_test_vlm(distill=True), tconfig.tiny_test_vlm(distill=True)
+    params = jvlm.init_vlm(jax.random.PRNGKey(0), cfg_j)
+    b0 = _targets(cfg_j, _batch(cfg_j), 7)
+    b1 = _targets(cfg_j, _batch(cfg_j), 3)
+    b1["images"] = np.random.default_rng(9).normal(size=b1["images"].shape).astype(np.float32)
+    stacked = {k: np.stack([b0[k], b1[k]]) for k in b0}
+    mesh = make_mesh(dp=1, tp=1, devices=jax.devices()[:1])
+    with mesh:
+        step_j, state, _ = jts.make_train_step(
+            cfg_j, jopt.OptimizerConfig(**ACC_OPT), params, mesh, use_pallas=False, accum_steps=2,
+        )
+        dbatch = jts.shard_batch(stacked, mesh, leading_accum=True)
+        metrics_j = []
+        for _ in range(2):
+            state, m = step_j(state, dbatch)
+            metrics_j.append({k: float(v) for k, v in m.items()})
+    host = jax.tree_util.tree_map(np.asarray, params)
+
+    def port(accum, batch):
+        model = from_jax_params(host, cfg_t, device="cpu")
+        step = tts.make_train_step(cfg_t, topt.OptimizerConfig(**ACC_OPT), model, accum_steps=accum)
+        metrics = [step(batch) for _ in range(2)]
+        return metrics, {n: p.detach().clone() for n, p in step.trainable.items()}, step.step
+
+    return dict(
+        metrics_j=metrics_j, params_j=_flat(state.params), step_j=int(state.step),
+        accum=port(2, stacked), single=port(1, b0),
+        twice=port(2, {k: np.stack([v, v]) for k, v in b0.items()}),
+    )
+
+
+def test_accumulating_identical_micro_batches_equals_a_single_step(accum_runs):
+    (m_single, p_single, _), (m_twice, p_twice, _) = accum_runs["single"], accum_runs["twice"]
+    for a, b in zip(m_twice, m_single):
+        for k in b:
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-6, err_msg=k)
+    for n, p in p_single.items():
+        np.testing.assert_allclose(p_twice[n].numpy(), p.numpy(), rtol=1e-6, atol=1e-7, err_msg=n)
+
+
+def test_accumulated_update_over_distinct_micro_batches_matches_jax(accum_runs):
+    """One update on the mean of two micro-batches' gradients (summed in
+    f32), metrics averaged over them; update 1 has lr 0, so the trainables
+    after update 2 show the accumulated gradient. Tolerances as the single
+    step's: metrics rtol 1e-5, trainables atol 2e-5 / rtol 1e-4."""
+    metrics, params, steps = accum_runs["accum"]
+    assert steps == accum_runs["step_j"] == 2
+    for m_t, m_j in zip(metrics, accum_runs["metrics_j"]):
+        assert sorted(m_t) == sorted(m_j)
+        for k in m_j:
+            np.testing.assert_allclose(m_t[k], m_j[k], rtol=1e-5, atol=1e-7, err_msg=k)
+    assert metrics[1]["loss"] == metrics[0]["loss"]          # lr 0 on update 1
+    for n, p in params.items():
+        np.testing.assert_allclose(_port_view(n, p.numpy()), accum_runs["params_j"][topt.jax_path(n)],
+                                   atol=2e-5, rtol=1e-4, err_msg=n)
+    single = accum_runs["single"][1]
+    assert any(not torch.equal(params[n], single[n]) for n in params)
+
+
+# ---------------------------------------------------------------------------
+# f32 master weights
+# ---------------------------------------------------------------------------
+
+
+def test_master_weights_match_optax_over_three_updates():
+    """bf16 trainables with f32 master copies (JAX `with_master_weights`
+    last in `make_optimizer`'s chain) over three updates of the same f32
+    gradients: the master copies match optax's (rtol 1e-6, atol 1e-7: the
+    schedule is f32 there and double here, XLA divides the first moment by
+    bc1 x (sqrt + eps), and where a parameter differs by an ulp (below) its
+    weight decay term differs by wd x lr x that ulp), every
+    parameter is its master rounded to bf16, and it equals optax's wherever
+    the two masters round to the same bf16 value and optax's parameter is
+    its own rounded master (JAX adds the delta round(master) - p in bf16,
+    which rounds where a parameter crosses zero by more than its size). The
+    port keeps
+    both moments in f32 whatever the parameter dtype, so optax's state is
+    made from f32 copies of the parameters (its second moment then is f32
+    too) and it updates the bf16 parameters."""
+    rng = np.random.default_rng(11)
+    shapes = {"mm_projector.layers.0.weight": (24, 16), "mm_projector.layers.0.bias": (24,),
+              "special_tokens.gen": (2, 16), "heads.gen.0.proj_out.weight": (8, 16),
+              "logit_scales.gen": ()}
+    init = {n: np.asarray(0.05 * rng.standard_normal(s), np.float32) for n, s in shapes.items()}
+    cfg = dict(learning_rate=2e-3, total_steps=10, warmup_ratio=0.0, weight_decay=0.1,
+               stage="pretrain", master_weights=True)
+
+    def tree(flat):
+        out = {}
+        for n, a in flat.items():
+            node = out
+            parts = topt.jax_path(n).split("/")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = _port_view(n, a)
+        return out
+
+    bf16 = {n: torch.from_numpy(a).to(torch.bfloat16) for n, a in init.items()}
+    init32 = {n: t.float().numpy() for n, t in bf16.items()}      # the bf16 values, in f32
+    port = topt.AdamW(list((n, torch.nn.Parameter(t)) for n, t in bf16.items()),
+                      topt.OptimizerConfig(**cfg))
+    jcfg = jopt.OptimizerConfig(**cfg)
+    params_j = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.bfloat16), tree(init32))
+    tx = jopt.make_optimizer(tree(init32), jcfg)
+    state_j = tx.init(jax.tree_util.tree_map(jnp.asarray, tree(init32)))
+    update = jax.jit(tx.update)
+    for _ in range(3):
+        grads = {n: np.asarray(rng.standard_normal(s), np.float32) for n, s in shapes.items()}
+        port.step({n: torch.from_numpy(g) for n, g in grads.items()})
+        upd, state_j = update(jax.tree_util.tree_map(jnp.asarray, tree(grads)), state_j, params_j)
+        params_j = optax.apply_updates(params_j, upd)
+    masters = [s for s in jax.tree_util.tree_leaves(
+        state_j, is_leaf=lambda x: isinstance(x, dict) and "master" in x)
+        if isinstance(s, dict) and "master" in s]
+    master_j = {}
+    for s in masters:
+        master_j.update({k: np.asarray(v) for k, v in _flat(s["master"]).items()
+                         if hasattr(v, "shape")})
+    params_j = _flat(params_j)
+    moved = 0
+    for n, p in port.params.items():
+        key = topt.jax_path(n)
+        m_t = port.master[n]
+        np.testing.assert_allclose(_port_view(n, m_t.numpy()), master_j[key], rtol=1e-6, atol=1e-7,
+                                   err_msg=n)
+        assert torch.equal(p.detach(), m_t.to(torch.bfloat16)), n
+        p_j = params_j[key].astype(np.float32)
+        rounded_j = np.asarray(jnp.asarray(master_j[key]).astype(jnp.bfloat16).astype(jnp.float32))
+        comparable = ((_port_view(n, m_t.to(torch.bfloat16).float().numpy()) == rounded_j)
+                      & (p_j == rounded_j))
+        assert comparable.mean() > 0.9, n
+        np.testing.assert_array_equal(_port_view(n, p.detach().float().numpy())[comparable],
+                                      p_j[comparable], err_msg=n)
+        moved += int((p.detach().float().numpy() != init32[n]).sum())
+    assert moved > 0

@@ -7,6 +7,8 @@ port config equals the JAX one; tests/test_torch_models.py holds them equal.
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import re
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -167,6 +169,33 @@ class DistillConfig:
             if t.task == name:
                 return t
         return None
+
+
+@dataclass(frozen=True)
+class ConvNeXtConfig:
+    """OpenCLIP ConvNeXt-XXL trunk config (the port has no ConvNeXt tower
+    yet; the class is here so a config that names one round-trips)."""
+
+    image_size: int = 768
+    depths: Tuple[int, ...] = (3, 4, 30, 3)
+    dims: Tuple[int, ...] = (384, 768, 1536, 3072)
+    norm_eps: float = 1e-6
+    dtype: str = "bfloat16"
+
+
+@dataclass(frozen=True)
+class LoraConfig:
+    """LoRA adapter config (not ported yet; here so a config round-trips)."""
+
+    r: int = 64
+    alpha: int = 16
+    targets: Tuple[str, ...] = (
+        "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj"
+    )
+
+    @property
+    def scaling(self) -> float:
+        return self.alpha / self.r
 
 
 @dataclass(frozen=True)
@@ -371,3 +400,59 @@ def tiny_test_vlm(distill: bool = False) -> VLMConfig:
         num_sys_tokens=3,
         num_image_tokens=vision.num_patches,
     )
+
+
+# ---------------------------------------------------------------------------
+# (De)serialization: checkpoints embed the config as JSON (JAX config.py)
+# ---------------------------------------------------------------------------
+
+_CONFIG_CLASSES = {
+    c.__name__: c
+    for c in (
+        DecoderConfig,
+        VisionConfig,
+        ConvNeXtConfig,
+        ProjectorConfig,
+        LoraConfig,
+        ResamplerConfig,
+        DistillTaskConfig,
+        DistillConfig,
+        VLMConfig,
+    )
+}
+
+
+def config_to_dict(cfg: Any) -> Any:
+    """Nested dicts tagged with "__class__", lists for tuples (JAX's form)."""
+    if dataclasses.is_dataclass(cfg):
+        body = {
+            f.name: config_to_dict(getattr(cfg, f.name)) for f in dataclasses.fields(cfg)
+        }
+        return {"__class__": type(cfg).__name__, **body}
+    if isinstance(cfg, (list, tuple)):
+        return [config_to_dict(v) for v in cfg]
+    return cfg
+
+
+def config_from_dict(obj: Any) -> Any:
+    """Inverse of `config_to_dict`: lists become tuples where the field is a Tuple."""
+    if isinstance(obj, dict) and "__class__" in obj:
+        cls = _CONFIG_CLASSES[obj["__class__"]]
+        kwargs = {k: config_from_dict(v) for k, v in obj.items() if k != "__class__"}
+        fields = {f.name: f for f in dataclasses.fields(cls)}
+        for k, v in kwargs.items():
+            if isinstance(v, list) and fields[k].type.startswith("Tuple"):
+                kwargs[k] = tuple(v)
+        return cls(**kwargs)
+    if isinstance(obj, list):
+        vals = [config_from_dict(v) for v in obj]
+        return tuple(vals) if any(dataclasses.is_dataclass(v) for v in vals) else vals
+    return obj
+
+
+def config_to_json(cfg: Any) -> str:
+    return json.dumps(config_to_dict(cfg), indent=2)
+
+
+def config_from_json(text: str) -> Any:
+    return config_from_dict(json.loads(text))

@@ -20,10 +20,9 @@
 // the mask of a window position (83 KB each) are larger than a window's own
 // q, k, v and output (37 KB).
 //
-// Two kernels; ops/window_attention.py `window_attn_kernel_for` names the one
-// a call takes and `window_attn_plan` its grid.
-//
-// 1. streamed (every call): a CTA of N / 16 warps (9 for N = 144) takes a
+// One kernel, "streamed" (ops/window_attention.py `window_attn_kernel_for`
+// names it, `window_attn_plan` sets its grid): a CTA of N / 16 warps (9 for
+// N = 144) takes a
 //    run of windows that share their bias and mask: one head and, in a
 //    shifted launch, one mask index m, so windows m, m + nW, ... across the
 //    batch's images; in an unshifted launch a run of consecutive windows. The
@@ -42,10 +41,6 @@
 //    rows through the output's strides. Every output element is written once
 //    by one CTA: a launch is bit-identical when repeated. Bias and mask take
 //    most of the shared memory, so a CTA fills its SM (one CTA, 9 warps).
-// 2. per_window (the kernel before it, kept to be timed beside it): one CTA of
-//    N / 16 warps for each (window, head); q, k and v staged in padded shared
-//    memory by the warps themselves, bias and mask read from global memory by
-//    every CTA, expf, the output written from registers.
 
 #include <math.h>
 
@@ -88,124 +83,6 @@ struct Params {
   int windows_per_cta, stages;  // streamed: the plan
   float scale;
 };
-
-// per_window: one CTA of N / 16 warps for each (window, head)
-
-template <int N, int D>
-__global__ void __launch_bounds__(N * 2) window_attn_bf16_kernel(const Params p) {
-  constexpr int LD = D + 8;
-  constexpr int THREADS = N * 2;  // N / 16 warps
-  constexpr int KS = D / 16;      // k-steps of S
-  constexpr int SN = N / 8;       // n-tiles of S
-  constexpr int PK = N / 16;      // k-steps of O = P V
-  constexpr int ON = D / 8;       // n-tiles of O
-  __shared__ __align__(16) __nv_bfloat16 qs[N * LD];
-  __shared__ __align__(16) __nv_bfloat16 ks[N * LD];
-  __shared__ __align__(16) __nv_bfloat16 vs[N * LD];
-
-  const int w = blockIdx.x;
-  const int head = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int tq = lane % 4;
-  const int r0 = warp * 16;
-
-  visper::load_tile<N, D, LD, THREADS>(
-      qs, static_cast<const __nv_bfloat16*>(p.q) + w * p.q_sw + head * p.q_sh, p.q_sn, 0, N);
-  visper::load_tile<N, D, LD, THREADS>(
-      ks, static_cast<const __nv_bfloat16*>(p.k) + w * p.k_sw + head * p.k_sh, p.k_sn, 0, N);
-  visper::load_tile<N, D, LD, THREADS>(
-      vs, static_cast<const __nv_bfloat16*>(p.v) + w * p.v_sw + head * p.v_sh, p.v_sn, 0, N);
-  __syncthreads();
-
-  float s[SN][4];
-#pragma unroll
-  for (int nt = 0; nt < SN; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    uint32_t qa[4];
-    visper::load_a<LD>(qa, qs, r0, kk * 16, g, tq);
-#pragma unroll
-    for (int nt = 0; nt < SN; ++nt) {
-      uint32_t b0, b1;
-      visper::load_b_t<LD>(b0, b1, ks, nt * 8, kk * 16, g, tq);
-      mma_bf16(s[nt], qa, b0, b1);
-    }
-  }
-
-  // scores in f32: scale, + bias, + mask; row max over the quad
-  const float* bias = p.bias + static_cast<long long>(head) * N * N;
-  const float* mask =
-      p.mask ? p.mask + static_cast<long long>(w % p.nW) * N * N : nullptr;
-  const int rows[2] = {r0 + g, r0 + g + 8};
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int nt = 0; nt < SN; ++nt) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int off = rows[r] * N + nt * 8 + tq * 2;
-      const float2 bv = *reinterpret_cast<const float2*>(bias + off);
-      float x0 = s[nt][2 * r] * p.scale + bv.x;
-      float x1 = s[nt][2 * r + 1] * p.scale + bv.y;
-      if (mask) {
-        const float2 mv = *reinterpret_cast<const float2*>(mask + off);
-        x0 += mv.x;
-        x1 += mv.y;
-      }
-      s[nt][2 * r] = x0;
-      s[nt][2 * r + 1] = x1;
-      mx[r] = fmaxf(mx[r], fmaxf(x0, x1));
-    }
-  }
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    float sum = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < SN; ++nt) {
-      s[nt][2 * r] = expf(s[nt][2 * r] - mx[r]);
-      s[nt][2 * r + 1] = expf(s[nt][2 * r + 1] - mx[r]);
-      sum += s[nt][2 * r] + s[nt][2 * r + 1];
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    inv[r] = 1.f / sum;
-  }
-
-  // O = P V with P normalised, then rounded to bf16
-  float o[ON][4];
-#pragma unroll
-  for (int nt = 0; nt < ON; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < PK; ++kk) {
-    const uint32_t pa[4] = {
-        pack_f32(s[2 * kk][0] * inv[0], s[2 * kk][1] * inv[0]),
-        pack_f32(s[2 * kk][2] * inv[1], s[2 * kk][3] * inv[1]),
-        pack_f32(s[2 * kk + 1][0] * inv[0], s[2 * kk + 1][1] * inv[0]),
-        pack_f32(s[2 * kk + 1][2] * inv[1], s[2 * kk + 1][3] * inv[1]),
-    };
-#pragma unroll
-    for (int nt = 0; nt < ON; ++nt) {
-      uint32_t b0, b1;
-      visper::load_b<LD>(b0, b1, vs, kk * 16, nt * 8, g, tq);
-      mma_bf16(o[nt], pa, b0, b1);
-    }
-  }
-
-  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + w * p.o_sw + head * p.o_sh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    __nv_bfloat16* orow = ob + rows[r] * p.o_sn;
-#pragma unroll
-    for (int nt = 0; nt < ON; ++nt) {
-      *reinterpret_cast<uint32_t*>(orow + nt * 8 + tq * 2) =
-          pack_f32(o[nt][2 * r], o[nt][2 * r + 1]);
-    }
-  }
-}
 
 // streamed: one CTA of N / 16 warps for a run of windows that share bias and mask
 
@@ -452,13 +329,6 @@ __global__ void __launch_bounds__(StreamCfg<N, D>::kThreads, 1)
 }
 
 template <int N, int D>
-cudaError_t launch_per_window(const Params& p, cudaStream_t stream) {
-  const dim3 grid(p.W, p.heads);
-  window_attn_bf16_kernel<N, D><<<grid, N * 2, 0, stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <int N, int D>
 cudaError_t allow_smem() {
   static bool set = false;  // shared memory above 48 KB is opted into once
   if (!set) {
@@ -495,23 +365,9 @@ cudaError_t launch_streamed(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// kernel: 0 per_window, 1 streamed
 template <int N, int D>
-cudaError_t launch(const Params& p, int kernel, cudaStream_t stream) {
-  if (kernel == 0) return launch_per_window<N, D>(p, stream);
-  if (kernel == 1) return launch_streamed<N, D>(p, stream);
-  return cudaErrorInvalidValue;
-}
-
-template <int N, int D>
-int info(int kernel, bool masked, int stages, int* threads, int* smem, int* ctas_per_sm) {
-  if (kernel == 0) {
-    *threads = N * 2;
-    *smem = 0;
-    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        ctas_per_sm, window_attn_bf16_kernel<N, D>, *threads, 0));
-  }
-  if (kernel != 1 || stages < 1) return static_cast<int>(cudaErrorInvalidValue);
+int info(bool masked, int stages, int* threads, int* smem, int* ctas_per_sm) {
+  if (stages < 1) return static_cast<int>(cudaErrorInvalidValue);
   *threads = StreamCfg<N, D>::kThreads;
   *smem = StreamCfg<N, D>::smem(masked, stages);
   const cudaError_t rc = allow_smem<N, D>();
@@ -525,15 +381,14 @@ int info(int kernel, bool masked, int stages, int* threads, int* smem, int* ctas
 // Launch on `stream`; returns cudaGetLastError() (0 on success). Strides are in
 // elements (window, head, row); the D stride must be 1 and the others multiples
 // of 8 (16-byte rows for the copy engine). mask may be null (nW is then
-// ignored). Only bf16 tensors and the (N, D) pairs above. kernel: 0
-// per_window, 1 streamed, which takes windows_per_cta and stages from
-// `window_attn_plan`.
+// ignored). Only bf16 tensors and the (N, D) pairs above. windows_per_cta
+// and stages come from `window_attn_plan`.
 extern "C" int visper_window_attn(
     const void* q, const void* k, const void* v, void* o, const void* bias,
     const void* mask, long long q_sw, long long q_sh, long long q_sn, long long k_sw,
     long long k_sh, long long k_sn, long long v_sw, long long v_sh, long long v_sn,
     long long o_sw, long long o_sh, long long o_sn, int W, int heads, int N, int D,
-    int nW, float scale, int kernel, int windows_per_cta, int stages, void* stream) {
+    int nW, float scale, int windows_per_cta, int stages, void* stream) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.bias = static_cast<const float*>(bias);
@@ -546,18 +401,18 @@ extern "C" int visper_window_attn(
   p.windows_per_cta = windows_per_cta; p.stages = stages;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N == 144 && D == 32) return static_cast<int>(launch<144, 32>(p, kernel, st));
-  if (N == 64 && D == 16) return static_cast<int>(launch<64, 16>(p, kernel, st));
+  if (N == 144 && D == 32) return static_cast<int>(launch_streamed<144, 32>(p, st));
+  if (N == 64 && D == 16) return static_cast<int>(launch_streamed<64, 16>(p, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Geometry of a kernel at (N, D), for reports: threads and dynamic shared
-// memory of a CTA (streamed: with or without the mask, `stages` stages), and
-// how many CTAs the occupancy calculator fits on one SM. Returns 0, or a CUDA
-// error for what the kernels do not take.
-extern "C" int visper_window_attn_info(int kernel, int N, int D, int masked, int stages,
+// Geometry of the kernel at (N, D), for reports: threads and dynamic shared
+// memory of a CTA (with or without the mask, `stages` stages), and how many
+// CTAs the occupancy calculator fits on one SM. Returns 0, or a CUDA error for
+// what the kernel does not take.
+extern "C" int visper_window_attn_info(int N, int D, int masked, int stages,
                                        int* threads, int* smem, int* ctas_per_sm) {
-  if (N == 144 && D == 32) return info<144, 32>(kernel, masked, stages, threads, smem, ctas_per_sm);
-  if (N == 64 && D == 16) return info<64, 16>(kernel, masked, stages, threads, smem, ctas_per_sm);
+  if (N == 144 && D == 32) return info<144, 32>(masked, stages, threads, smem, ctas_per_sm);
+  if (N == 64 && D == 16) return info<64, 16>(masked, stages, threads, smem, ctas_per_sm);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,20 +6,36 @@ attention, rope and a SiLU-gated MLP, a slot-major KV cache for serving (bf16
 (`quantize_decoder`: w8a16 or w4a16 `QuantLinear`s), per-channel activation
 statistics for AWQ calibration, and layer taps for the distillation heads in
 training. The JAX layer `lax.scan` over stacked blocks becomes a Python loop
-over an `nn.ModuleList`; remat, LoRA, MoE and the pipelined stack are
-later-slice machinery and are not here.
+over an `nn.ModuleList`; LoRA, MoE and the pipelined stack are later-slice
+machinery and are not here.
+
+Rematerialisation (`Decoder.forward(remat=True, remat_policy=...)`, JAX
+`jax.checkpoint` with `_remat_policy`) wraps each block in
+`torch.utils.checkpoint.checkpoint(use_reentrant=False)`: the forward keeps
+the block's input, the backward runs the block again to rebuild what it
+needs. A policy names tensors the recompute does not rebuild (JAX's
+`checkpoint_name` sites, `REMAT_POLICIES`): the block's first run keeps
+them in a `_Stash`, and its recompute takes them from there without running
+the op that made them. A kept linear output (`qkv` post-rope, `mlp_gate`,
+`mlp_up`) is a `_StashedLinear`, whose backward is the linear's (and rope's)
+vector-Jacobian product, so the gradient still reaches the block's input
+and, when it trains, the weight; a kept attention output (`flash_out`, with
+the flash forward's lse) goes through the `saved` list of
+`multi_head_attention`, so the recompute launches no flash forward.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, Optional, Tuple, Union
+from typing import Dict, FrozenSet, List, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from visper_lm_tpu_torch.config import DecoderConfig
-from visper_lm_tpu_torch.models.rope import apply_rope, rope_cos_sin
+from visper_lm_tpu_torch.models.rope import apply_rope, apply_rope_transpose, rope_cos_sin
 from visper_lm_tpu_torch.ops.attention import mha_plain_cache, multi_head_attention
 from visper_lm_tpu_torch.utils.param import (
     QuantLinear,
@@ -100,6 +116,96 @@ def quantize_head_vectors(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.round(xf / scale).clamp(-127, 127).to(torch.int8), scale
 
 
+# JAX `_remat_policy`: the checkpoint names each policy keeps across a
+# block's recompute. save_mlp_q8 keeps none: JAX's int8 cast passes no
+# gradient, so gate/up reach the input only through the scale's amax, whose
+# backward needs the unquantized product: JAX recomputes it, as the port does.
+REMAT_POLICIES: Dict[str, FrozenSet[str]] = {
+    "none": frozenset(),
+    "save_flash": frozenset({"flash_out"}),
+    "save_mlp": frozenset({"mlp_gate", "mlp_up"}),
+    "save_qkv_mlp": frozenset({"mlp_gate", "mlp_up", "qkv"}),
+    "save_gate": frozenset({"mlp_gate"}),
+    "save_gate_flash": frozenset({"mlp_gate", "flash_out"}),
+    "save_mlp_q8": frozenset(),
+}
+
+
+def remat_saves(policy: Optional[str]) -> FrozenSet[str]:
+    """The names `policy` keeps (None is "none"); raises for an unknown name."""
+    name = "none" if policy is None else policy
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {policy!r}")
+    return REMAT_POLICIES[name]
+
+
+def quant_saved(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """JAX `_quant_saved`: per-token symmetric int8 of a saved residual,
+    (int8 values, f32 scale (..., 1)); scale amax / 127, or 1 where amax is 0."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    # amax / 127 as amax * f32(1 / 127), the form XLA folds the division into
+    scale = torch.where(amax > 0, amax * (1.0 / 127.0), torch.ones_like(amax))
+    return torch.round(xf / scale).clamp(-127, 127).to(torch.int8), scale
+
+
+def dequant_saved(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """JAX `_dequant_saved`: q x scale in f32, rounded to bf16 (its default)."""
+    return (q.float() * scale).to(torch.bfloat16)
+
+
+def silu_per_op(x: torch.Tensor) -> torch.Tensor:
+    """silu as jax.nn.silu lowers it, x * (1 / (1 + exp(-x))), each op
+    rounded to x's dtype: bit-equal to JAX's in bf16, where F.silu (one
+    rounding) differs in the last bit of about 40 % of the values."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+class _Stash:
+    """The tensors one block call keeps across its recompute: the names of
+    a remat policy, and their values, stored by the block's first run and
+    read by its recompute."""
+
+    def __init__(self, names: FrozenSet[str]):
+        self.names = names
+        self.values: Dict[str, object] = {}
+
+
+class _StashedLinear(torch.autograd.Function):
+    """y = x @ W.T, split to heads by `shape` and rotated when cos/sin are
+    given, whose value a remat policy keeps under `key`: the first run
+    computes and stores it, the recompute returns it without the product.
+    The backward is the vector-Jacobian product of rope and the linear:
+    dx = g W, and dW = g^T x when W trains."""
+
+    @staticmethod
+    def forward(ctx, x, weight, cos, sin, shape, stash, key):
+        y = stash.values.get(key)
+        if y is None:
+            y = F.linear(x, weight)
+            if shape is not None:
+                y = y.reshape(shape)
+            if cos is not None:
+                y = apply_rope(y, cos, sin)
+            stash.values[key] = y.detach()
+        else:
+            y = y.detach()
+        ctx.save_for_backward(x if weight.requires_grad else None, weight, cos, sin)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, cos, sin = ctx.saved_tensors
+        if cos is not None:
+            g = apply_rope_transpose(g, cos, sin)
+        g = g.reshape(*g.shape[:2], -1)
+        dx = g @ weight
+        dw = None
+        if ctx.needs_input_grad[1]:
+            dw = g.reshape(-1, g.shape[-1]).T @ x.reshape(-1, x.shape[-1])
+        return dx, dw, None, None, None, None, None
+
+
 def _mean_square(x: torch.Tensor) -> torch.Tensor:
     """Per-channel mean square over (B, T) in f32: (D,)."""
     return x.float().square().mean(dim=(0, 1))
@@ -135,26 +241,43 @@ class DecoderBlock(nn.Module):
         cache_kv: Optional[Tuple[torch.Tensor, ...]],  # this layer's (S, B, Nkv, H) k, v [, scales]
         use_kernel: Optional[bool],
         stats_out: Optional[List[Dict[str, torch.Tensor]]] = None,
+        stash: Optional[_Stash] = None,
+        quant_saves: bool = False,
     ) -> torch.Tensor:
         """JAX `_block_forward`. With a cache, the chunk's K/V are written into
         the cache IN PLACE at slots [q_offset, q_offset + T), after attention,
         which saw them unquantized, as extras (decode) or as the whole
         sequence (prefill). A 4-tuple cache_kv is int8 + scales: the chunk is
         stored quantized per (token, head) vector. stats_out, when given, gets
-        the per-input-channel mean square at each linear's input (calibration)."""
+        the per-input-channel mean square at each linear's input (calibration).
+        stash: the remat policy's kept tensors (see the module docstring);
+        quant_saves: gate and up pass through `quant_saved` /
+        `dequant_saved` (the save_mlp_q8 policy)."""
         cfg = self.cfg
         b, t, _ = h.shape
         nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        keeps = stash.names if stash is not None else frozenset()
 
         def record(**sites):
             if stats_out is not None:
                 stats_out.append({k: _mean_square(v) for k, v in sites.items()})
 
+        def kept(name, key, x, shape=None, rope=False):
+            layer = getattr(self, name)
+            if key.split(".")[0] in keeps:
+                return _StashedLinear.apply(
+                    x, layer.weight, cos if rope else None, sin if rope else None, shape,
+                    stash, key,
+                )
+            y = apply_linear(layer, x, use_kernel)
+            y = y if shape is None else y.reshape(shape)
+            return apply_rope(y, cos, sin) if rope else y
+
         x = self.attn_norm(h)
         record(q_proj=x, k_proj=x, v_proj=x)
-        q = apply_rope(apply_linear(self.q_proj, x, use_kernel).reshape(b, t, nh, hd), cos, sin)
-        k = apply_rope(apply_linear(self.k_proj, x, use_kernel).reshape(b, t, nkv, hd), cos, sin)
-        v = apply_linear(self.v_proj, x, use_kernel).reshape(b, t, nkv, hd)
+        q = kept("q_proj", "qkv.q", x, (b, t, nh, hd), rope=True)
+        k = kept("k_proj", "qkv.k", x, (b, t, nkv, hd), rope=True)
+        v = kept("v_proj", "qkv.v", x, (b, t, nkv, hd))
 
         quant = cache_kv is not None and len(cache_kv) == 4
         if cache_kv is not None and not (q_offset == 0 and t > 1):
@@ -169,6 +292,7 @@ class DecoderBlock(nn.Module):
             attn = multi_head_attention(
                 q, k, v, causal=True, q_offset=q_offset, kv_lengths=kv_lengths,
                 kv_starts=kv_starts, use_kernel=use_kernel,
+                saved=stash.values.setdefault("flash_out", []) if "flash_out" in keeps else None,
             )
         if cache_kv is not None:
             slots = slice(q_offset, q_offset + t)
@@ -188,9 +312,18 @@ class DecoderBlock(nn.Module):
         h = h + apply_linear(self.o_proj, attn, use_kernel)
         x = self.mlp_norm(h)
         record(gate_proj=x, up_proj=x)
-        gate = torch.nn.functional.silu(apply_linear(self.gate_proj, x, use_kernel))
-        gu = gate * apply_linear(self.up_proj, x, use_kernel)
+        gate_pre = kept("gate_proj", "mlp_gate", x)
+        up = kept("up_proj", "mlp_up", x)
+        if quant_saves:
+            # fwd and bwd both see the dequantized bf16 values, as in JAX
+            gate_pre = dequant_saved(*quant_saved(gate_pre))
+            up = dequant_saved(*quant_saved(up))
+            gu = silu_per_op(gate_pre) * up
+        else:
+            gu = F.silu(gate_pre) * up
         record(down_proj=gu)
+        if quant_saves:
+            gu = gu.to(self.down_proj.weight.dtype)       # JAX's dot promotes bf16 x to the kernel's dtype
         return h + apply_linear(self.down_proj, gu, use_kernel)
 
 
@@ -230,12 +363,19 @@ class Decoder(nn.Module):
         use_kernel: Optional[bool] = None,
         compute_logits: bool = True,
         tap_layers: Tuple[int, ...] = (),            # 0-indexed block outputs to keep
+        remat: bool = False,
+        remat_policy: Optional[str] = None,
     ) -> Dict[str, object]:
         """JAX `decoder_forward`: {'hidden' (final-normed), 'logits' (f32, when
         compute_logits), 'taps' (tuple of the raw block outputs at tap_layers,
         before the final norm), 'cache' (the same cache object, updated in
-        place, when one was passed)}."""
+        place, when one was passed)}. remat: each block is checkpointed while
+        autograd records, keeping what `remat_policy` names (`REMAT_POLICIES`)."""
         cfg = self.cfg
+        saves = remat_saves(remat_policy) if remat else None
+        quant_saves = remat and remat_policy == "save_mlp_q8"
+        if remat and cache is not None:
+            raise ValueError("remat is a training feature (no cache)")
         t = inputs_embeds.shape[1]
         if tap_layers:
             if max(tap_layers) >= cfg.num_layers:
@@ -250,12 +390,14 @@ class Decoder(nn.Module):
         h = inputs_embeds
         taps = {}
         for i, block in enumerate(self.blocks):
-            h = block(
-                h, cos, sin, kv_lengths=kv_lengths, kv_starts=kv_starts,
-                q_offset=q_offset,
-                cache_kv=None if cache is None else cache.layer(i),
-                use_kernel=use_kernel,
-            )
+            kw = dict(kv_lengths=kv_lengths, kv_starts=kv_starts, q_offset=q_offset,
+                      cache_kv=None if cache is None else cache.layer(i),
+                      use_kernel=use_kernel, quant_saves=quant_saves)
+            if remat and torch.is_grad_enabled():
+                h = checkpoint(block, h, cos, sin, stash=_Stash(saves), **kw,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                h = block(h, cos, sin, **kw)
             if i in tap_layers:
                 taps[i] = h
         hidden = self.final_norm(h)

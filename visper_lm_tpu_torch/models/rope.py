@@ -36,3 +36,16 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     sin = sin[:, :, None, :]
     xf = x.float()
     return (xf * cos + _rotate_half(xf) * sin).to(x.dtype)
+
+
+def apply_rope_transpose(g: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """The vector-Jacobian product of `apply_rope`: g (B, T, N, H), the
+    gradient of its output, to the gradient of its input (in g's dtype)."""
+    if cos.ndim == 2:
+        cos, sin = cos[None], sin[None]
+    cos = cos[:, :, None, :]
+    sin = sin[:, :, None, :]
+    gf = g.float()
+    gs = gf * sin
+    half = g.shape[-1] // 2
+    return (gf * cos + torch.cat([gs[..., half:], -gs[..., :half]], dim=-1)).to(g.dtype)

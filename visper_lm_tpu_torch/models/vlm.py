@@ -175,10 +175,13 @@ def vlm_forward(
     use_kernel: Optional[bool] = None,
     tap: bool = True,
     compute_logits: bool = True,
+    remat: bool = False,
+    remat_policy: Optional[str] = None,
 ) -> Dict[str, Any]:
     """JAX `vlm_forward` (training / prefill). batch: images (B,H,W,3) or
     image_features, text_ids, token_type, src_index, seq_lengths (right
-    padding: the attention masks keys >= seq_lengths)."""
+    padding: the attention masks keys >= seq_lengths). remat / remat_policy
+    go to the decoder (`Decoder.forward`)."""
     if "image_features" in batch:
         image_features = batch["image_features"]
     else:
@@ -191,6 +194,7 @@ def vlm_forward(
     out = model.decoder(
         embeds, kv_lengths=batch.get("seq_lengths"), tap_layers=taps,
         use_kernel=use_kernel, compute_logits=compute_logits,
+        remat=remat, remat_policy=remat_policy,
     )
     out["tap_layers"] = taps
     out["image_features"] = image_features

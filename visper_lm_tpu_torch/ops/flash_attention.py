@@ -456,14 +456,24 @@ class FlashAttention(torch.autograd.Function):
     """JAX `_flash_bhtd`'s custom VJP: the forward saves q, k, v, out, lse and
     the masks; the backward runs the two backward kernels. It returns dq, dk
     and dv whenever q, k or v need a gradient (a frozen decoder's inputs
-    still do)."""
+    still do).
+
+    `saved` (a list, or None) keeps the forward across a rematerialised
+    block's recompute (the save_flash remat policies): an empty list gets
+    (out, lse) appended, a list that holds them is used instead of running
+    the forward again, so the recompute launches no kernel."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_lengths, kv_starts, causal, scale):
-        out, lse = flash_attention_fwd(
-            q, k, v, causal=causal, kv_lengths=kv_lengths, kv_starts=kv_starts,
-            scale=scale,
-        )
+    def forward(ctx, q, k, v, kv_lengths, kv_starts, causal, scale, saved):
+        if saved:
+            out, lse = saved[0].detach(), saved[1]
+        else:
+            out, lse = flash_attention_fwd(
+                q, k, v, causal=causal, kv_lengths=kv_lengths, kv_starts=kv_starts,
+                scale=scale,
+            )
+            if saved is not None:
+                saved.extend((out.detach(), lse))
         ctx.save_for_backward(q, k, v, out, lse, kv_lengths, kv_starts)
         ctx.causal, ctx.scale = causal, scale
         return out
@@ -475,7 +485,7 @@ class FlashAttention(torch.autograd.Function):
             q, k, v, out, lse, dout, causal=ctx.causal, kv_lengths=kv_lengths,
             kv_starts=kv_starts, scale=ctx.scale,
         )
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(
@@ -487,10 +497,12 @@ def flash_attention(
     kv_lengths: Optional[torch.Tensor] = None,
     kv_starts: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    saved: Optional[list] = None,
 ) -> torch.Tensor:
     """Flash attention in the BTNH convention, differentiable; returns out
     (B, T, Nq, H).
 
     kv_starts masks columns before a per-batch start (left padding, generation
-    prefill); kv_lengths masks columns at/after a per-batch length."""
-    return FlashAttention.apply(q, k, v, kv_lengths, kv_starts, causal, scale)
+    prefill); kv_lengths masks columns at/after a per-batch length. `saved`:
+    see `FlashAttention`."""
+    return FlashAttention.apply(q, k, v, kv_lengths, kv_starts, causal, scale, saved)

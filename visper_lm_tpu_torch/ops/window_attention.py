@@ -10,13 +10,12 @@ and the dispatch (counterpart of visper_lm_tpu/ops/window_attention.py).
   * `window_attention` — JAX `window_attention` (:134): the kernel for tensors
     on CUDA, the plain version elsewhere or when use_kernel=False.
 
-csrc/window_attn.cu holds two kernels and `window_attn_kernel_for` names the
-one a call takes: "streamed" (every call: a CTA takes a run of windows that
-share one head and, in a shifted launch, one mask index, reads their bias and
-mask once into shared memory and streams the windows' q, k, v through a
-ring; `window_attn_plan` sets the run length, the grid and the ring,
-`window_attn_ctas` lists what each CTA takes) and "per_window" (the kernel
-before it, one CTA per (window, head); `kernel="per_window"` to time it).
+csrc/window_attn.cu holds one kernel, which `window_attn_kernel_for` names:
+"streamed" (a CTA takes a run of windows that share one head and, in a
+shifted launch, one mask index, reads their bias and mask once into shared
+memory and streams the windows' q, k, v through a ring; `window_attn_plan`
+sets the run length, the grid and the ring, `window_attn_ctas` lists what
+each CTA takes).
 
 q, k, v are (W, heads, N, D) with W = batch * windows flattened batch-major;
 bias (heads, N, N) is added to the scores; mask (nW, N, N) tiles W with
@@ -32,7 +31,6 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 SUPPORTED_SHAPES = ((144, 32), (64, 16))   # (N, D): Swin-L window 12, a test shape
-KERNEL_IDS = {"per_window": 0, "streamed": 1}
 SMEM_PER_CTA = 232_448   # dynamic shared memory a CTA may ask for on sm_90 (227 KB)
 MAX_STAGES = 5           # ring stages of q, k, v
 ARRAY_COST = 0.5         # loading one N x N f32 array (bias or mask) ~ half a window's time
@@ -76,9 +74,9 @@ def window_attention_plain(
 def window_attn_kernel_for(n: int, d: int, dtype: torch.dtype = torch.bfloat16) -> str:
     """The hand-written kernel a (N, D, dtype) call takes on CUDA; raises for
     what no kernel runs. Never the plain version: "streamed" takes every
-    supported shape; "per_window" is only forced, to be timed beside it."""
+    supported shape."""
     if dtype != torch.bfloat16:
-        raise ValueError(f"window_attention: the kernels take bf16, not {dtype}")
+        raise ValueError(f"window_attention: the kernel takes bf16, not {dtype}")
     if (n, d) not in SUPPORTED_SHAPES:
         raise ValueError(f"window_attention: (N, D) = ({n}, {d}) not in {SUPPORTED_SHAPES}")
     return "streamed"
@@ -176,19 +174,14 @@ def window_attention_kernel(
     bias: torch.Tensor,
     mask: Optional[torch.Tensor],
     scale: float,
-    kernel: Optional[str] = None,
 ) -> torch.Tensor:
     """Launch B4 on the current stream: the kernel `window_attn_kernel_for`
-    names, or `kernel` (one of KERNEL_IDS); the streamed kernel takes
-    `window_attn_plan`'s plan for this card. The result is a (W, heads, N, D)
-    view of a (W, N, heads, D) buffer, so the Swin block's merge of the heads
-    back into (W, N, C) is free."""
+    names, with `window_attn_plan`'s plan for this card. The result is a
+    (W, heads, N, D) view of a (W, N, heads, D) buffer, so the Swin block's
+    merge of the heads back into (W, N, C) is free."""
     _check(q, k, v, bias, mask)
     w, h, n, d = q.shape
-    if kernel is None:
-        kernel = window_attn_kernel_for(n, d, q.dtype)
-    elif kernel not in KERNEL_IDS:
-        raise ValueError(f"window_attention: no kernel named {kernel!r} (one of {sorted(KERNEL_IDS)})")
+    kernel = window_attn_kernel_for(n, d, q.dtype)
     from visper_lm_tpu_torch.ops import _build
 
     global launches
@@ -202,7 +195,7 @@ def window_attention_kernel(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bias32.data_ptr(),
         None if mask32 is None else mask32.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        w, h, n, d, nw, float(scale), KERNEL_IDS[kernel], plan.windows_per_cta, plan.stages,
+        w, h, n, d, nw, float(scale), plan.windows_per_cta, plan.stages,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:

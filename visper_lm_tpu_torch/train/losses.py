@@ -7,8 +7,10 @@ contrastive); counterpart of visper_lm_tpu/train/losses.py.
   * batch-contrastive with the batch's targets as negatives, exp(scale)
     clamped at 100, labels = arange(B) (one card: the batch is global).
 
-`ntp_loss_chunked` (sequence-chunked cross-entropy for large vocabularies) is
-not ported yet; the train step raises where the JAX step would take it.
+`ntp_loss_chunked` is the shifted cross-entropy over chunks of 256
+positions, each chunk's f32 logits built inside a checkpoint and rebuilt in
+the backward, so the full (B, T, vocab) logits never exist (the train step
+takes it where B * T * vocab >= 2^27, as the JAX step does).
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from visper_lm_tpu_torch import constants
 from visper_lm_tpu_torch.config import VLMConfig
@@ -31,6 +35,67 @@ def ntp_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     gold = torch.gather(shift_logits, -1, safe[..., None])[..., 0]
     nll = torch.where(valid, logz - gold, torch.zeros_like(logz))
     return nll.sum() / valid.sum().clamp(min=1)
+
+
+def _chunk_nll(h: torch.Tensor, head_weight: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Summed NLL of one chunk: h (B, C, D), labels (B, C)."""
+    logits = torch.matmul(h, head_weight.T).float()               # (B, C, V)
+    valid = labels != constants.IGNORE_INDEX
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    return torch.where(valid, logz - gold, torch.zeros_like(logz)).sum()
+
+
+def ntp_loss_chunked(
+    hidden: torch.Tensor,         # (B, T, D) final-normed decoder states
+    head_weight: torch.Tensor,    # (V, D): lm_head.weight, or the tied embedding table
+    labels: torch.Tensor,         # (B, T)
+    chunk: int = 256,
+) -> torch.Tensor:
+    """JAX `ntp_loss_chunked`: the shifted cross-entropy of `ntp_loss`
+    without the full (B, T, V) logits. The shifted sequence is padded to a
+    multiple of `chunk` with IGNORE_INDEX labels; each chunk's logits
+    (h @ head_weight.T in the weight's dtype, then f32) live only inside a
+    checkpoint and are rebuilt in the backward, which takes the gradient to
+    hidden and, when it trains, to head_weight."""
+    b, t, d = hidden.shape
+    shift_h = hidden[:, :-1]
+    shift_labels = labels[:, 1:].long()
+    n = t - 1
+    pad = (-n) % chunk
+    if pad:
+        shift_h = F.pad(shift_h, (0, 0, 0, pad))
+        shift_labels = F.pad(shift_labels, (0, pad), value=constants.IGNORE_INDEX)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(0, n + pad, chunk):
+        h, lab = shift_h[:, c:c + chunk], shift_labels[:, c:c + chunk]
+        if torch.is_grad_enabled() and (h.requires_grad or head_weight.requires_grad):
+            total = total + checkpoint(_chunk_nll, h, head_weight, lab,
+                                       use_reentrant=False, preserve_rng_state=False)
+        else:
+            total = total + _chunk_nll(h, head_weight, lab)
+    count = (shift_labels != constants.IGNORE_INDEX).sum().clamp(min=1)
+    return total / count
+
+
+def silog_loss(
+    depth_est: torch.Tensor, depth_gt: torch.Tensor, variance_focus: float = 0.5
+) -> torch.Tensor:
+    """JAX `silog_loss`: scale-invariant log depth loss over depth_gt > 0 (0
+    when no pixel is valid)."""
+    mask = depth_gt > 0
+    n = mask.sum()
+    count = n.clamp(min=1)
+    d = torch.where(
+        mask,
+        torch.log(depth_est.clamp(min=1e-12)) - torch.log(depth_gt.clamp(min=1e-12)),
+        torch.zeros_like(depth_est),
+    )
+    mean_sq = (d * d).sum() / count
+    mean = d.sum() / count
+    loss = torch.sqrt((mean_sq - variance_focus * mean * mean).clamp(min=0.0))
+    return torch.where(n == 0, torch.zeros_like(loss), loss)
 
 
 def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0) -> torch.Tensor:

@@ -14,10 +14,18 @@ add_decayed_weights -> scale_by_learning_rate -> apply_updates):
     norm, as optax.multi_transform runs one chain per group;
   * the moments are f32 whatever the parameter dtype (optax keeps the first
     moment in `mu_dtype` f32 and the second in the parameter dtype: the two
-    agree for f32 parameters);
-  * the f32 update is added to the parameter and the sum rounded to its dtype.
-
-f32 master weights (`master_weights`) are not ported yet.
+    agree for f32 parameters); the bias corrections 1 - b^n are computed in
+    f32, as optax does;
+  * the weight decay constant takes the parameter's dtype, as optax's weakly
+    typed scalar does (bf16(0.1) = 0.10009766 for a bf16 parameter), and
+    multiplies the parameter in f32;
+  * the f32 update is added to the parameter and the sum rounded to its dtype;
+  * with `master_weights` (JAX `with_master_weights`, last in the chain) the
+    update goes to an f32 copy of each trainable instead, and the parameter
+    becomes that copy rounded to its dtype. (JAX emits the delta
+    round(master) - p in the parameter's dtype, which rounds where a
+    parameter crosses zero by more than its own size: there its parameter
+    lands an ulp off the rounded master; the port's does not.)
 """
 
 from __future__ import annotations
@@ -27,7 +35,12 @@ import math
 import re
 from typing import Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
+
+from visper_lm_tpu_torch.utils.param import (
+    jax_path,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,23 +70,6 @@ _STAGE_TRAINABLE: Dict[str, Tuple[str, ...]] = {
     "probe": (r"^heads/", r"^probes/", r"^logit_scales/"),
     "lora": (r"^lora/", r"^mm_projector/"),
 }
-
-_STACKED = ("decoder.blocks.", "vision_tower.blocks.")
-
-
-def jax_path(name: str) -> str:
-    """The JAX param-tree path of a port parameter name: '.' -> '/', a linear
-    `weight` -> `kernel`, the token table -> `embedding`, and the layer index
-    of stacked decoder / vision blocks dropped (JAX stacks them)."""
-    for prefix in _STACKED:
-        if name.startswith(prefix):
-            rest = name[len(prefix):].split(".", 1)[1]
-            name = prefix + rest
-    parts = name.split(".")
-    if parts[-1] == "weight":
-        parts[-1] = "embedding" if parts[-2] == "embed_tokens" else "kernel"
-    return "/".join(parts)
-
 
 def trainable_mask(named_params: Iterable[Tuple[str, torch.Tensor]], stage: str) -> Dict[str, bool]:
     patterns = _STAGE_TRAINABLE[stage]
@@ -131,8 +127,6 @@ class AdamW:
     """optax adamw (+ clip_by_global_norm) over named parameters, in place."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], cfg: OptimizerConfig):
-        if cfg.master_weights:
-            raise NotImplementedError("f32 master weights are not ported yet")
         if cfg.mu_dtype != "float32":
             raise NotImplementedError("the port keeps its moments in f32")
         self.cfg = cfg
@@ -148,7 +142,29 @@ class AdamW:
         self.decay = decay_mask(self.params.items())
         self.mu = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in self.params.items()}
         self.nu = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in self.params.items()}
+        self.master = (
+            {n: p.detach().float().clone() for n, p in self.params.items()}
+            if cfg.master_weights else None
+        )
         self.count = 0
+
+    def state_tensors(self) -> Dict[str, torch.Tensor]:
+        """The state as flat {"mu/<name>", "nu/<name>", "master/<name>"} tensors
+        (what a checkpoint keeps, beside `count`)."""
+        out = {f"mu/{n}": t for n, t in self.mu.items()}
+        out.update({f"nu/{n}": t for n, t in self.nu.items()})
+        if self.master is not None:
+            out.update({f"master/{n}": t for n, t in self.master.items()})
+        return out
+
+    @torch.no_grad()
+    def load_state_tensors(self, tensors: Dict[str, torch.Tensor], count: int) -> None:
+        """Copy a `state_tensors` dict (and the update count) into this state."""
+        for key, dst in self.state_tensors().items():
+            if key not in tensors:
+                raise KeyError(f"optimizer state has no {key!r}")
+            dst.copy_(torch.as_tensor(tensors[key]))
+        self.count = int(count)
 
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -167,8 +183,11 @@ class AdamW:
                 norm < cfg.max_grad_norm, torch.ones_like(norm), cfg.max_grad_norm / norm
             )
         self.count += 1
-        bc1 = 1.0 - cfg.b1 ** self.count
-        bc2 = 1.0 - cfg.b2 ** self.count
+        # optax's bias corrections, 1 - b^count in f32: in double they differ
+        # from its by up to 1e-5 relative (the subtraction cancels)
+        n = np.float32(self.count)
+        bc1 = float(np.float32(1.0) - np.float32(cfg.b1) ** n)
+        bc2 = float(np.float32(1.0) - np.float32(cfg.b2) ** n)
         for n in names:
             p, g = self.params[n], g32[n] * clip[self.group[n]]
             mu, nu = self.mu[n], self.nu[n]
@@ -176,7 +195,15 @@ class AdamW:
             nu.mul_(cfg.b2).add_(g.square(), alpha=1.0 - cfg.b2)
             upd = (mu / bc1) / ((nu / bc2).sqrt() + cfg.eps)
             if cfg.weight_decay and self.decay[n]:
-                upd = upd + cfg.weight_decay * p.float()
+                # optax's weakly typed weight decay takes p's dtype: bf16(0.1)
+                # for a bf16 parameter, times p in f32
+                wd = float(torch.tensor(cfg.weight_decay, dtype=p.dtype))
+                upd = upd + wd * p.float()
             lr = self.schedules[self.group[n]](self.count - 1)
-            p.copy_((p.float() - lr * upd).to(p.dtype))
+            if self.master is None:
+                p.copy_((p.float() - lr * upd).to(p.dtype))
+            else:
+                master = self.master[n]
+                master.sub_(lr * upd)
+                p.copy_(master.to(p.dtype))
         return gnorm

@@ -1,4 +1,5 @@
-"""Layer primitives (the serving subset of visper_lm_tpu/utils/param.py).
+"""Layer primitives and parameter trees (counterpart of
+visper_lm_tpu/utils/param.py).
 
 Plain functions on tensors, the two small norm modules, and the quantized
 serving linear. Dense linear layers are `nn.Linear`, whose weight is
@@ -6,12 +7,21 @@ serving linear. Dense linear layers are `nn.Linear`, whose weight is
 out)} (weights.py converts between them). `QuantLinear` keeps JAX's
 input-major layout for its int8 buffers, so JAX's quantized leaves map onto
 it as they are.
+
+The tree functions (`count_params` ... `load_params_npz`) work on a model's
+`named_parameters()` as a flat {port name: tensor} dict; `jax_path` names
+each parameter by its path in the JAX tree. `save_params_npz` writes the
+JAX package's .npz layout (stacked decoder and vision blocks, input-major
+kernels, HWIO convs, bf16 as raw 2-byte values), so the JAX package's
+`load_params_npz` reads it, and `load_params_npz` reads the JAX package's
+files into its nested tree (`weights.from_jax_params` builds a model from it).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -209,3 +219,134 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
             m.scale.fill_(1.0)
             if isinstance(m, LayerNorm):
                 m.bias.zero_()
+
+
+# ---------------------------------------------------------------------------
+# Parameter trees: flat {port name: tensor} dicts keyed like the JAX tree
+# ---------------------------------------------------------------------------
+
+# module lists the JAX package stacks into one (L, ...) leaf per parameter
+_STACKED = ("decoder.blocks.", "vision_tower.blocks.")
+
+NamedParams = Union[nn.Module, Mapping[str, Optional[torch.Tensor]]]
+
+
+def _named(params: NamedParams) -> Dict[str, Optional[torch.Tensor]]:
+    """A module's named parameters, or a {port name: tensor or None} mapping."""
+    if isinstance(params, nn.Module):
+        return dict(params.named_parameters())
+    return dict(params)
+
+
+def split_layer(name: str) -> Tuple[str, Optional[int]]:
+    """(name without the layer index of a stacked block list, that index or None)."""
+    for prefix in _STACKED:
+        if name.startswith(prefix):
+            idx, rest = name[len(prefix):].split(".", 1)
+            return prefix + rest, int(idx)
+    return name, None
+
+
+def jax_path(name: str) -> str:
+    """The JAX param-tree path of a port parameter name: '.' -> '/', a linear
+    `weight` -> `kernel`, the token table -> `embedding`, and the layer index
+    of stacked decoder / vision blocks dropped (JAX stacks them)."""
+    parts = split_layer(name)[0].split(".")
+    if parts[-1] == "weight":
+        parts[-1] = "embedding" if parts[-2] == "embed_tokens" else "kernel"
+    return "/".join(parts)
+
+
+def count_params(params: NamedParams) -> int:
+    return sum(t.numel() for t in _named(params).values() if t is not None)
+
+
+def tree_cast(params: NamedParams, dtype: Union[str, torch.dtype]) -> Dict[str, torch.Tensor]:
+    """Floating tensors cast to dtype, others as they are."""
+    dt = torch_dtype(dtype) if isinstance(dtype, str) else dtype
+    return {n: t.to(dt) if t is not None and t.is_floating_point() else t
+            for n, t in _named(params).items()}
+
+
+def partition_params(
+    params: NamedParams, mask: Mapping[str, bool]
+) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(trainable, frozen) by a per-name bool mask; both keep every name,
+    with None at the other side's entries (merge with `merge_params`)."""
+    named = _named(params)
+    return ({n: t if mask[n] else None for n, t in named.items()},
+            {n: None if mask[n] else t for n, t in named.items()})
+
+
+def merge_params(a: Mapping[str, Any], b: Mapping[str, Any]) -> Dict[str, Any]:
+    """Inverse of `partition_params`: the non-None entry at each name."""
+    return {n: b[n] if a[n] is None else a[n] for n in a}
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")   # the bytes JAX's npz holds
+    return t.numpy()
+
+
+def jax_flat_arrays(params: NamedParams) -> Dict[str, Optional[np.ndarray]]:
+    """{JAX path: array in the JAX layout}: stacked blocks (L, ...) in layer
+    order, linear kernels (in, out), convs HWIO; a None entry stays None."""
+    stacks: Dict[str, Dict[int, Optional[np.ndarray]]] = {}
+    flat: Dict[str, Optional[np.ndarray]] = {}
+    for name, t in _named(params).items():
+        key = jax_path(name)
+        a = None
+        if t is not None:
+            a = _to_numpy(t)
+            if key.endswith("/kernel"):
+                a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        layer = split_layer(name)[1]
+        if layer is None:
+            flat[key] = a
+        else:
+            stacks.setdefault(key, {})[layer] = a
+    for key, layers in stacks.items():
+        vals = [layers[i] for i in range(len(layers))]
+        flat[key] = None if any(v is None for v in vals) else np.stack(vals)
+    return flat
+
+
+def save_params_npz(path: str, params: NamedParams) -> None:
+    """JAX `save_params_npz` of the parameters' JAX tree: '/'-joined paths,
+    list indices as decimal segments, None entries as `<path>#None`."""
+    flat = {}
+    for key, a in jax_flat_arrays(params).items():
+        if a is None:
+            flat[key + "#None"] = np.zeros((0,), np.int8)
+        else:
+            flat[key] = np.asarray(a, order="C")
+    np.savez(path, **flat)
+
+
+def load_params_npz(path: str) -> Any:
+    """JAX `load_params_npz`: the nested tree (dicts; all-integer-keyed
+    levels become lists) of numpy arrays; bf16 leaves stay raw 2-byte values
+    (`weights.from_jax_params` reads them as bf16)."""
+    data = np.load(path)
+    root: dict = {}
+    for key in data.files:
+        value = data[key]
+        if key.endswith("#None"):
+            key, value = key[: -len("#None")], None
+        node = root
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: listify(v) for k, v in node.items()}
+        if out and all(k.isdigit() for k in out):
+            return [out[str(i)] for i in range(len(out))]
+        return out
+
+    return listify(root)

@@ -44,7 +44,7 @@ _QUANT_LEAVES = {
 def _tensor(x: Any) -> torch.Tensor:
     # an owned, writable C-order copy: JAX leaves convert to read-only arrays
     a = np.array(x, copy=True, order="C")
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or a.dtype == np.dtype("V2"):   # V2: bf16 read from an npz
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)
 
