@@ -93,8 +93,10 @@ Phases, each of which raises (exit code != 0) when it fails:
      per step checked, restarted from its step-2 checkpoint to step 4: the
      resumed steps' losses within 1e-5 (relative) of the uninterrupted
      run's; examples/s and MFU (`train_step_flops` + `teacher_flops` against
-     989 TFLOP/s). One step at B8 (the chunked cross-entropy): loss within
-     1e-3 and gradient cosine >= 0.999 of the full f32 logits'. Two updates
+     989 TFLOP/s; `mfu_pt` without the frozen decoder's weight gradients,
+     which JAX's count includes). One step at B8 (the chunked
+     cross-entropy): loss within 1e-3 and gradient cosine >= 0.999 of the
+     full f32 logits'. Two updates
      at B1 with f32 master weights: every trainable equals its master
      rounded to its dtype.
 
@@ -755,9 +757,10 @@ def trainer_phase(cfg, model, teachers, tbatch, reset_counts, counts):
     from visper_lm_tpu_torch.models.decoder import REMAT_POLICIES
     from visper_lm_tpu_torch.models.teachers import make_teacher_fn
     from visper_lm_tpu_torch.train.optimizer import OptimizerConfig
+    from visper_lm_tpu_torch.train import train_step as train_step_mod
     from visper_lm_tpu_torch.train.train_step import make_loss_fn, make_train_step, uses_chunked_ce
     from visper_lm_tpu_torch.train.trainer import TrainerConfig, train
-    from visper_lm_tpu_torch.utils.diagnostics import teacher_flops, train_step_flops
+    from visper_lm_tpu_torch.utils.diagnostics import decoder_params, teacher_flops, train_step_flops
 
     d = cfg.decoder
     tfn = make_teacher_fn(cfg)
@@ -899,6 +902,9 @@ def trainer_phase(cfg, model, teachers, tbatch, reset_counts, counts):
     sps = [full[i]["steps_per_sec"] for i in (1, 3)]
     examples = TRAIN_BATCH * TRAINER_ACCUM
     flops = train_step_flops(cfg, examples, TRAIN_SEQ) + teacher_flops(examples)
+    # train_step_flops is JAX's nominal count: 6 P per token for the decoder.
+    # In PT the decoder is frozen, so its weight gradients (2 P) never run.
+    pt_flops = flops - 2.0 * decoder_params(cfg) * examples * TRAIN_SEQ
     mean_sps = sum(sps) / len(sps)
     out["trainer"] = dict(
         remat_policy="save_gate", grad_accum_steps=TRAINER_ACCUM, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
@@ -906,6 +912,7 @@ def trainer_phase(cfg, model, teachers, tbatch, reset_counts, counts):
         resumed_losses=[r["loss"] for r in resumed], resumed_rel_diff=diffs,
         step_ms=[1e3 / x for x in sps], examples_per_s=examples * mean_sps,
         mfu=flops * mean_sps / PEAK_FLOPS[torch.bfloat16], flops_per_step=flops,
+        mfu_pt=pt_flops * mean_sps / PEAK_FLOPS[torch.bfloat16], pt_flops_per_step=pt_flops,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches,
         launches_per_step=per_step, resumed_launches=resumed_launches,
     )
@@ -917,9 +924,14 @@ def trainer_phase(cfg, model, teachers, tbatch, reset_counts, counts):
     step = make_train_step(cfg, opt_cfg, model, teacher_fn=tfn, teacher_params=teachers,
                            remat_policy="save_gate")
     loss_c, grads_c = loss_and_grads(step.loss_fn, model, b8, teachers, params)
-    loss_f, grads_f = loss_and_grads(
-        make_loss_fn(cfg, teacher_fn=tfn, remat_policy="save_gate", chunked_ce=False),
-        model, b8, teachers, params)
+    # the reference: the same loss on the full f32 logits (JAX's switch turned off)
+    switch = train_step_mod.uses_chunked_ce
+    train_step_mod.uses_chunked_ce = lambda *a: False
+    try:
+        loss_f, grads_f = loss_and_grads(
+            make_loss_fn(cfg, teacher_fn=tfn, remat_policy="save_gate"), model, b8, teachers, params)
+    finally:
+        train_step_mod.uses_chunked_ce = switch
     rel = abs(loss_c - loss_f) / abs(loss_f)
     min_cos, min_name, n_cmp = grad_agreement(names, grads_c, grads_f)
     del grads_c, grads_f

@@ -9,7 +9,8 @@ forward); against JAX (`make_loss_fn(remat=True, remat_policy=...)`), loss
 rtol 1e-5 and gradients atol 1e-4 x the tensor's largest |grad| + rtol 1e-3,
 as tests/test_torch_train_step.py; save_mlp_q8's int8 values and scales
 bit-equal to JAX's `_quant_saved`, its MLP bit-equal on the same input, and
-its step held looser (see test_policy_matches_jax).
+the gradients that cross its backward held to a relative Frobenius error
+(see test_policy_matches_jax).
 """
 
 import dataclasses
@@ -118,29 +119,60 @@ def test_exact_policy_gives_the_no_remat_loss_and_gradients(setup, no_remat, pol
                                    atol=1e-7 * float(base_grads[name].abs().max()), err_msg=name)
 
 
+# The trainables upstream of the decoder: their gradient crosses every
+# block's backward, so under save_mlp_q8 it passes the int8 cast.
+THROUGH_THE_DECODER = ("mm_projector.", "special_tokens.")
+Q8_FROBENIUS = 1e-2
+
+
+def _frobenius(got, ref):
+    return float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+
+
 @pytest.mark.parametrize("policy", AGAINST_JAX)
 def test_policy_matches_jax(setup, policy):
     """save_mlp_q8 included: the forward sees the dequantized bf16 gate/up,
     and, as in JAX, the int8 cast passes no gradient (only the scale's amax
-    does). Its rounding to int8 is discontinuous: f32 sums that differ in
-    the last bit upstream (the norms' means) move a few int8 values by one
-    step and the amax location with them, so q8 is held to loss rtol 1e-4
-    and gradients to a relative Frobenius error of 2e-2 per tensor
-    (measured 2.9e-5 and 3.8e-3), and its arithmetic to bit equality on
-    the same input (test_q8_mlp_is_bit_equal_to_jax_on_the_same_input)."""
+    does). Its loss and the gradients of the heads and logit scales are held
+    as the other policies'. The seven gradients that cross the q8 backward
+    (THROUGH_THE_DECODER) are held to a relative Frobenius error of 1e-2
+    (measured 0.9e-3 to 1.5e-3): the port rounds the backward's bf16
+    cotangents where XLA on the CPU keeps them in f32.
+    test_q8_limit_catches_a_straight_through_gradient shows the limit
+    below what a gradient through the int8 cast reads on each of them."""
     loss, grads = _port_loss_and_grads(setup, True, policy)
     ref_loss, ref_grads = setup["jax"][policy]
-    q8 = policy == "save_mlp_q8"
-    np.testing.assert_allclose(loss, ref_loss, rtol=1e-4 if q8 else 1e-5)
+    np.testing.assert_allclose(loss, ref_loss, rtol=1e-5)
     assert len(grads) == len(ref_grads)
     for name, g in grads.items():
         ref = ref_grads[topt.jax_path(name)]
         got = _port_view(name, g.numpy())
-        if q8:
-            assert np.linalg.norm(got - ref) <= 2e-2 * np.linalg.norm(ref) + 1e-12, name
+        if policy == "save_mlp_q8" and name.startswith(THROUGH_THE_DECODER):
+            assert _frobenius(got, ref) <= Q8_FROBENIUS, name
         else:
             np.testing.assert_allclose(got, ref, atol=1e-4 * float(np.abs(ref).max()) + 1e-12,
                                        rtol=1e-3, err_msg=f"{policy} {name}")
+
+
+def test_q8_limit_catches_a_straight_through_gradient(setup, monkeypatch):
+    """The fault the q8 limit is for: a gradient that passes the int8 cast
+    (straight through the rounding) reads far above Q8_FROBENIUS against
+    JAX on every gradient that crosses the decoder (measured 0.42 to 1.44)."""
+    orig = tdec.quant_saved
+
+    def straight_through(x):
+        q, scale = orig(x)
+        xs = x.float() / scale.detach()
+        return xs + (q.float() - xs).detach(), scale
+
+    monkeypatch.setattr(tdec, "quant_saved", straight_through)
+    _, grads = _port_loss_and_grads(setup, True, "save_mlp_q8")
+    ref_grads = setup["jax"]["save_mlp_q8"][1]
+    through = [n for n in grads if n.startswith(THROUGH_THE_DECODER)]
+    assert len(through) == 7
+    for name in through:
+        got = _port_view(name, grads[name].numpy())
+        assert _frobenius(got, ref_grads[topt.jax_path(name)]) > 20 * Q8_FROBENIUS, name
 
 
 def test_q8_mlp_is_bit_equal_to_jax_on_the_same_input(setup):

@@ -364,20 +364,19 @@ def test_accumulated_update_over_distinct_micro_batches_matches_jax(accum_runs):
 
 
 def test_master_weights_match_optax_over_three_updates():
-    """bf16 trainables with f32 master copies (JAX `with_master_weights`
+    """f32 master weights (JAX `with_master_weights`, on a bf16 param tree,
     last in `make_optimizer`'s chain) over three updates of the same f32
     gradients: the master copies match optax's (rtol 1e-6, atol 1e-7: the
     schedule is f32 there and double here, XLA divides the first moment by
     bc1 x (sqrt + eps), and where a parameter differs by an ulp (below) its
-    weight decay term differs by wd x lr x that ulp), every
-    parameter is its master rounded to bf16, and it equals optax's wherever
-    the two masters round to the same bf16 value and optax's parameter is
-    its own rounded master (JAX adds the delta round(master) - p in bf16,
-    which rounds where a parameter crosses zero by more than its size). The
-    port keeps
-    both moments in f32 whatever the parameter dtype, so optax's state is
-    made from f32 copies of the parameters (its second moment then is f32
-    too) and it updates the bf16 parameters."""
+    weight decay term differs by wd x lr x that ulp), every parameter is
+    its master rounded to bf16, and so is optax's except where JAX's delta
+    round(master) - p, added in bf16, rounds. Those elements are worked out
+    from JAX's previous parameter (float64 sums, one rounding to bf16 each),
+    none lies within a factor 2 of its previous value (where the delta is
+    exact), and the port's parameter equals optax's everywhere else. The port keeps both moments in f32 whatever the parameter dtype,
+    so optax's state is made from f32 copies of the parameters (its second
+    moment then is f32 too) and it updates the bf16 parameters."""
     rng = np.random.default_rng(11)
     shapes = {"mm_projector.layers.0.weight": (24, 16), "mm_projector.layers.0.bias": (24,),
               "special_tokens.gen": (2, 16), "heads.gen.0.proj_out.weight": (8, 16),
@@ -396,41 +395,54 @@ def test_master_weights_match_optax_over_three_updates():
             node[parts[-1]] = _port_view(n, a)
         return out
 
-    bf16 = {n: torch.from_numpy(a).to(torch.bfloat16) for n, a in init.items()}
-    init32 = {n: t.float().numpy() for n, t in bf16.items()}      # the bf16 values, in f32
-    port = topt.AdamW(list((n, torch.nn.Parameter(t)) for n, t in bf16.items()),
+    def bf16(a):
+        """float64 values held exactly in f32, rounded once to bf16 (as f64)."""
+        a = np.asarray(a, np.float64)
+        assert np.array_equal(a.astype(np.float32), a)
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16).double().numpy()
+
+    bf = {n: torch.from_numpy(a).to(torch.bfloat16) for n, a in init.items()}
+    init32 = {n: t.float().numpy() for n, t in bf.items()}      # the bf16 values, in f32
+    port = topt.AdamW(list((n, torch.nn.Parameter(t)) for n, t in bf.items()),
                       topt.OptimizerConfig(**cfg))
     jcfg = jopt.OptimizerConfig(**cfg)
     params_j = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.bfloat16), tree(init32))
     tx = jopt.make_optimizer(tree(init32), jcfg)
     state_j = tx.init(jax.tree_util.tree_map(jnp.asarray, tree(init32)))
     update = jax.jit(tx.update)
+    rounded_off = 0
     for _ in range(3):
+        prev_j = {k: np.asarray(v, np.float64) for k, v in _flat(params_j).items()}
         grads = {n: np.asarray(rng.standard_normal(s), np.float32) for n, s in shapes.items()}
         port.step({n: torch.from_numpy(g) for n, g in grads.items()})
         upd, state_j = update(jax.tree_util.tree_map(jnp.asarray, tree(grads)), state_j, params_j)
         params_j = optax.apply_updates(params_j, upd)
-    masters = [s for s in jax.tree_util.tree_leaves(
-        state_j, is_leaf=lambda x: isinstance(x, dict) and "master" in x)
-        if isinstance(s, dict) and "master" in s]
-    master_j = {}
-    for s in masters:
-        master_j.update({k: np.asarray(v) for k, v in _flat(s["master"]).items()
-                         if hasattr(v, "shape")})
-    params_j = _flat(params_j)
-    moved = 0
-    for n, p in port.params.items():
-        key = topt.jax_path(n)
-        m_t = port.master[n]
-        np.testing.assert_allclose(_port_view(n, m_t.numpy()), master_j[key], rtol=1e-6, atol=1e-7,
-                                   err_msg=n)
-        assert torch.equal(p.detach(), m_t.to(torch.bfloat16)), n
-        p_j = params_j[key].astype(np.float32)
-        rounded_j = np.asarray(jnp.asarray(master_j[key]).astype(jnp.bfloat16).astype(jnp.float32))
-        comparable = ((_port_view(n, m_t.to(torch.bfloat16).float().numpy()) == rounded_j)
-                      & (p_j == rounded_j))
-        assert comparable.mean() > 0.9, n
-        np.testing.assert_array_equal(_port_view(n, p.detach().float().numpy())[comparable],
-                                      p_j[comparable], err_msg=n)
-        moved += int((p.detach().float().numpy() != init32[n]).sum())
+        masters = [s for s in jax.tree_util.tree_leaves(
+            state_j, is_leaf=lambda x: isinstance(x, dict) and "master" in x)
+            if isinstance(s, dict) and "master" in s]
+        master_j = {}
+        for s in masters:
+            master_j.update({k: np.asarray(v) for k, v in _flat(s["master"]).items()
+                             if hasattr(v, "shape")})
+        flat_j = _flat(params_j)
+        for n, p in port.params.items():
+            key = topt.jax_path(n)
+            m_t = port.master[n]
+            np.testing.assert_allclose(_port_view(n, m_t.numpy()), master_j[key], rtol=1e-6,
+                                       atol=1e-7, err_msg=n)
+            assert torch.equal(p.detach(), m_t.to(torch.bfloat16)), n
+            p_t = _port_view(n, p.detach().double().numpy())
+            p_j, prev = flat_j[key].astype(np.float64), prev_j[key]
+            target = bf16(master_j[key])
+            snapped = bf16(prev + bf16(target - prev)) == target
+            np.testing.assert_array_equal(p_j == target, snapped, err_msg=n)
+            # Sterbenz: target - prev is exact in bf16 where they are within a factor 2
+            exact = (prev * target > 0) & (np.abs(target) * 2 >= np.abs(prev)) & (
+                np.abs(target) <= 2 * np.abs(prev))
+            assert not (exact & ~snapped).any(), n
+            np.testing.assert_array_equal(p_t[snapped], p_j[snapped], err_msg=n)
+            rounded_off += int((~snapped).sum())
+    moved = sum(int((p.detach().float().numpy() != init32[n]).sum())
+                for n, p in port.params.items())
     assert moved > 0
+    assert rounded_off < moved

@@ -31,6 +31,7 @@ from visper_lm_tpu.utils import param as jparam
 
 from visper_lm_tpu_torch import config as tconfig
 from visper_lm_tpu_torch.data.collate import collate_plans
+from visper_lm_tpu_torch.models import decoder as tdec
 from visper_lm_tpu_torch.train import checkpoint as tckpt
 from visper_lm_tpu_torch.train import optimizer as topt
 from visper_lm_tpu_torch.train import train_step as tts
@@ -329,6 +330,17 @@ def test_flop_counts_are_the_jax_packages(preset):
                                    jdiag.train_step_flops(jcfg, b, t), rtol=1e-12)
     np.testing.assert_allclose(tdiag.vision_flops(tcfg), jdiag.vision_flops(jcfg), rtol=1e-12)
     np.testing.assert_allclose(tdiag.teacher_flops(4), jdiag.teacher_flops(4), rtol=1e-12)
+
+
+def test_decoder_params_are_the_decoders_matmul_weights():
+    """Every decoder parameter but the norms' scales, with the lm_head
+    counted once more when it is tied to the embedding."""
+    cfg = tconfig.tiny_test_vlm(distill=True)
+    dec = tdec.Decoder(cfg.decoder)
+    n = sum(p.numel() for name, p in dec.named_parameters() if "norm" not in name)
+    if dec.lm_head is None:
+        n += dec.embed_tokens.weight.numel()
+    assert tdiag.decoder_params(cfg) == n
 
 
 def test_finite_check_step_timer_and_trace(tmp_path):

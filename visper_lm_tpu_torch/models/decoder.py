@@ -318,12 +318,14 @@ class DecoderBlock(nn.Module):
             # fwd and bwd both see the dequantized bf16 values, as in JAX
             gate_pre = dequant_saved(*quant_saved(gate_pre))
             up = dequant_saved(*quant_saved(up))
-            gu = silu_per_op(gate_pre) * up
+            # the product in down_proj's dtype: JAX's dot promotes the bf16
+            # product to an f32 kernel's dtype, and XLA folds the rounding
+            # between them away (a bf16 x bf16 product is exact in f32)
+            wdt = self.down_proj.weight.dtype
+            gu = silu_per_op(gate_pre).to(wdt) * up.to(wdt)
         else:
             gu = F.silu(gate_pre) * up
         record(down_proj=gu)
-        if quant_saves:
-            gu = gu.to(self.down_proj.weight.dtype)       # JAX's dot promotes bf16 x to the kernel's dtype
         return h + apply_linear(self.down_proj, gu, use_kernel)
 
 

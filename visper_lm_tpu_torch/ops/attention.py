@@ -132,10 +132,11 @@ def multi_head_attention(
     on the CPU the flash Function runs the plain versions, which take every
     call.
 
-    `saved` (a list, or None) keeps the output across a rematerialised
-    block's recompute (the save_flash remat policies): the first call fills
-    it, a later call with the same list returns what it holds and runs no
-    forward (`FlashAttention`; on the plain path `_SavedPlainAttention`).
+    `saved` (a list, or None) keeps the flash kernel's output across a
+    rematerialised block's recompute (the save_flash remat policies): the
+    first call fills it, a later call with the same list returns what it
+    holds and launches no forward (`FlashAttention`). The plain path ignores
+    it and recomputes.
     """
     if use_kernel is None:
         use_kernel = q.is_cuda
@@ -150,11 +151,10 @@ def multi_head_attention(
         and q_offset == 0
     )
     if not eligible:
-        kw = dict(causal=causal, q_offset=q_offset, kv_lengths=kv_lengths,
-                  kv_starts=kv_starts, scale=scale)
-        if saved is not None:
-            return _SavedPlainAttention.apply(q, k, v, kw, saved)
-        return mha_plain(q, k, v, **kw)
+        return mha_plain(
+            q, k, v, causal=causal, q_offset=q_offset, kv_lengths=kv_lengths,
+            kv_starts=kv_starts, scale=scale,
+        )
     from visper_lm_tpu_torch.ops.flash_attention import flash_attention, flash_remainder
 
     if q.is_cuda:
@@ -169,31 +169,6 @@ def multi_head_attention(
         q, k, v, causal=causal, kv_lengths=kv_lengths, kv_starts=kv_starts, scale=scale,
         saved=saved,
     )
-
-
-class _SavedPlainAttention(torch.autograd.Function):
-    """`mha_plain` whose output a remat policy keeps (`saved`, as in
-    `multi_head_attention`): the forward runs once, the backward recomputes
-    it with autograd to take the vector-Jacobian product."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, kw, saved):
-        if saved:
-            out = saved[0].detach()
-        else:
-            out = mha_plain(q, k, v, **kw)
-            saved.append(out.detach())
-        ctx.save_for_backward(q, k, v)
-        ctx.kw = kw
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v = (x.detach().requires_grad_(True) for x in ctx.saved_tensors)
-        with torch.enable_grad():
-            out = mha_plain(q, k, v, **ctx.kw)
-        dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
-        return dq, dk, dv, None, None
 
 
 def mha_plain_cache(

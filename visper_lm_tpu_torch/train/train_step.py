@@ -45,16 +45,14 @@ def make_loss_fn(
     remat: bool = True,
     remat_policy: Optional[str] = None,
     use_kernel: Optional[bool] = None,
-    chunked_ce: Optional[bool] = None,
 ):
     """loss_fn(model, batch, teachers=None) -> (total, metrics), batch tensors
     on the model's device. use_kernel=False forces plain attention in the
-    decoder and in the teachers' window attention; chunked_ce forces the
-    chunked cross-entropy on (True) or off (False) instead of JAX's switch."""
+    decoder and in the teachers' window attention."""
 
     def loss_fn(model: VLM, batch: Dict[str, torch.Tensor], teachers=None):
         b, t = batch["labels"].shape
-        chunked = uses_chunked_ce(cfg, b, t) if chunked_ce is None else chunked_ce
+        chunked = uses_chunked_ce(cfg, b, t)
         out = vlm_forward(
             model, cfg, batch, use_kernel=use_kernel, compute_logits=not chunked,
             remat=remat, remat_policy=remat_policy,

@@ -7,7 +7,8 @@ visper_lm_tpu/utils/diagnostics.py).
   * trace(): a torch.profiler trace of the enclosed work, written to log_dir
     as a Chrome trace;
   * train_step_flops / vision_flops / teacher_flops: the JAX package's
-    analytic counts (matmul terms);
+    analytic counts (matmul terms); decoder_params: the decoder parameters
+    train_step_flops charges 6 FLOPs per token;
   * finite_check(): per-group (all finite?, abs-max) of named tensors, with
     one host read;
   * nan_guard(): autograd anomaly detection (a NaN made in a backward op
@@ -86,7 +87,18 @@ def train_step_flops(cfg, batch_size: int, seq_len: int) -> float:
     2 * P_vis * patches. Recomputation under remat is not counted (MFU
     counts the model's math, not the math a policy repeats)."""
     d = cfg.decoder
-    p_dec = (
+    tokens = batch_size * seq_len
+    flops = 6.0 * decoder_params(cfg) * tokens
+    flops += 6.0 * batch_size * d.num_layers * seq_len * seq_len * d.num_heads * d.head_dim / 2
+    flops += vision_flops(cfg) * batch_size
+    return flops
+
+
+def decoder_params(cfg) -> int:
+    """The decoder's matmul parameters as train_step_flops counts them: the
+    blocks' linears, the embedding and the lm_head."""
+    d = cfg.decoder
+    return (
         d.num_layers
         * (
             d.hidden_size * (d.num_heads + 2 * d.num_kv_heads) * d.head_dim
@@ -95,11 +107,6 @@ def train_step_flops(cfg, batch_size: int, seq_len: int) -> float:
         )
         + 2 * d.vocab_size * d.hidden_size
     )
-    tokens = batch_size * seq_len
-    flops = 6.0 * p_dec * tokens
-    flops += 6.0 * batch_size * d.num_layers * seq_len * seq_len * d.num_heads * d.head_dim / 2
-    flops += vision_flops(cfg) * batch_size
-    return flops
 
 
 def vision_flops(cfg) -> float:
