@@ -39,7 +39,7 @@ Phases, each of which raises (exit code != 0) when it fails:
           byte bound is a device-memory bound and goes with `cold_ms`. The
           same M = 8 launch 20 times must give identical bytes;
        B6 decode attention (standalone, as in the JAX package: no path calls
-          it, and its launch count over phases 4-7 must stay 0) at the decode
+          it, and its launch count over phases 4-9 must stay 0) at the decode
           shape in bf16 and int8, and GQA 32/8 H128 with a fully masked row:
           on rows with a valid key relative Frobenius error <= 1e-2 and max
           abs error <= 5e-3 (max |out| is about 0.3), the masked row exactly 0,
@@ -55,7 +55,10 @@ Phases, each of which raises (exit code != 0) when it fails:
      prompts (768 tokens) through `Generator.generate`, greedy, 32 new tokens.
      The flash kernel must launch exactly once per decoder layer (32), and the
      prefill logits must match a prefill with plain attention within
-     0.05 x max|logits| (bf16 through 32 layers);
+     0.05 x max|logits| (bf16 through 32 layers). The decode chunk keeps its
+     step and slot on the device: the same prefill and cache decoded with a
+     Python-int q_offset must give the same tokens and cache, bit for bit
+     (the same arithmetic), and generate() the same tokens;
   5. serving profile: device time by kernel for one prefill and one decode chunk;
   6. quantized serving on the same model and batch: AWQ activation RMS over
      the batch's spliced embeddings (`decoder_act_rms`), then int8 KV +
@@ -98,7 +101,34 @@ Phases, each of which raises (exit code != 0) when it fails:
      cross-entropy): loss within 1e-3 and gradient cosine >= 0.999 of the
      full f32 logits'. Two updates
      at B1 with f32 master weights: every trainable equals its master
-     rounded to its dtype.
+     rounded to its dtype;
+  9. engine path: the continuous-batching `Engine` at bench_engine.py's
+     defaults (8 slots, max_len 1536, decode quantum 8, admission groups of
+     8 with a deferral of 4, prompt bucket 128; int8 KV + w8a16; phase 4's
+     decoder, which phases 7-8 leave frozen) serves bench_engine.py's 32
+     requests (13 system ids, one image, 16-63 text tokens, 8-127 new tokens
+     from np.random.default_rng(0)) after a warm-up, twice, in turns with
+     the batch loop (bench_engine.py measurement 2: a Generator per batch of
+     8, each batch decoding to its longest request): engine, loop, loop,
+     engine. Each engine run: every request gets exactly its max_new_tokens
+     (no EOS is set), no slot stays occupied, one host sync per quantum (the
+     engine's count, and torch's sync-debug warnings raised inside the
+     engine, counted by call stack),
+     B1 32 times per prefill dispatch; requests/s, tokens/s, time to the
+     first token (its arrival on the host), ms per engine step. One engine
+     step with every slot busy and one decode chunk of the loop profiled.
+     The engine's prefill logits with the kernels within 0.05 x max|logits|
+     of use_kernel=False. On a one-slot bf16 engine: a prefix
+     handle + a 40-token suffix, and a prefill in chunks of 256, each
+     against the full prompt's prefill within 0.05 x max|logits|. The
+     speculative engine (spec_k 4, spec_quantum 4) on 8 requests, its token
+     agreement with the plain engine printed (bf16 GEMMs of other shapes
+     round otherwise: not bounded); `SpeculativeDecoder` (Phi3's decoder as
+     target, its first 4 blocks with the same embedding, norm and head as
+     draft) and `BeamSearchDecoder` (4 beams) on one 128-token prompt, 32
+     tokens; an int4 engine run (phase 6's AWQ calibration) on 8 requests
+     with B5 at 225 launches per decoder forward. B6 must stay at 0 over
+     phases 4-9.
 
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Needs no network; builds into
@@ -107,6 +137,7 @@ visper_lm_tpu_torch/_build/.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import gc
 import importlib.util
@@ -115,6 +146,7 @@ import math
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -134,6 +166,11 @@ REMAT_EXACT = REMAT_RUNS[1:-1]             # save_mlp_q8 changes the forward and
 REMAT_STEPS = 2                            # timed steps per policy, after one warm-up
 TRAINER_STEPS, TRAINER_ACCUM = 4, 2
 SWIN_STAGES = ((512, 6), (128, 12), (32, 24), (8, 48))  # Swin-L at 768 px, micro-batch 2: (W, heads)
+# bench_engine.py's defaults (int8 KV + w8a16 on top of these)
+ENGINE = dict(num_slots=8, max_len=1536, decode_quantum=8, admit_group=8, admit_defer=4,
+              prompt_bucket=128)
+ENGINE_REQUESTS = 32
+ENGINE_CHUNK = 256             # the chunked-prefill check's prefill_chunk
 
 
 def check(cond: bool, msg: str) -> None:
@@ -712,7 +749,8 @@ def profile_window(name: str, fn, top: int = 10, match=()) -> dict:
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
         print(f"profile {name}:   {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<5d} {e.key[:100]}")
-    out = dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3, idle_share=1 - busy_us / wall_us)
+    out = dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3, idle_share=1 - busy_us / wall_us,
+               kernels=sum(e.count for e in kernels))
     for key in match:
         hit = [e for e in kernels if key in e.key]
         out[key] = dict(ms=sum(e.self_device_time_total for e in hit) / 1e3,
@@ -978,6 +1016,317 @@ def trainer_phase(cfg, model, teachers, tbatch, reset_counts, counts):
     return out
 
 
+def engine_workload(cfg, n: int, max_len: int):
+    """bench_engine.py's mixed workload (`reqs_spec`), from
+    np.random.default_rng(0) in its order: per request 13 system ids, one
+    image and 16-63 text tokens, and 8-127 new tokens."""
+    from visper_lm_tpu_torch.constants import IMAGE_TOKEN_INDEX
+    from visper_lm_tpu_torch.data.collate import build_splice_plan
+
+    rng = np.random.default_rng(0)
+    vocab = cfg.decoder.vocab_size
+
+    def make_plan(prompt_tokens):
+        return build_splice_plan(
+            list(rng.integers(3, vocab - 10, size=cfg.num_sys_tokens)) + [IMAGE_TOKEN_INDEX]
+            + list(rng.integers(3, vocab - 10, size=prompt_tokens)),
+            None, max_len, num_image_tokens=cfg.num_image_tokens,
+            num_task_tokens=cfg.distill.num_task_tokens,
+            num_tasks=len(cfg.distill.task_order()),
+        )
+
+    size = cfg.vision.image_size
+    return [(make_plan(int(rng.integers(16, 64))),
+             rng.normal(size=(1, size, size, 3)).astype(np.float32),
+             int(rng.integers(8, 128)))
+            for _ in range(n)]
+
+
+def int_offset_decode(generator, cache, token, offsets, n: int) -> torch.Tensor:
+    """Greedy decode of n tokens with a Python-int q_offset, as the decode
+    chunk ran before its slot lived on the device: the reference the
+    device-slot chunk must equal bit for bit."""
+    dec = generator.decoder
+    toks = []
+    with torch.no_grad():
+        for i in range(n):
+            slot = generator.prompt_len + i
+            out = dec(dec.embed_tokens(token[:, None]), positions=(slot - offsets)[:, None],
+                      kv_starts=offsets, cache=cache, q_offset=slot)
+            token = out["logits"][:, 0].argmax(-1)
+            toks.append(token)
+    return torch.stack(toks)
+
+
+def engine_phase(cfg, model, act_rms, fa, qm) -> dict:
+    """Phase 9: the continuous-batching Engine at bench_engine.py's defaults
+    (int8 KV + w8a16), the batch loop beside it, prefix caching, chunked
+    prefill, the speculative engine, SpeculativeDecoder, BeamSearchDecoder
+    and an int4 engine run. Returns the record printed as `engine_path`."""
+    import dataclasses
+    import warnings
+
+    from visper_lm_tpu_torch.models.decoder import Decoder
+    from visper_lm_tpu_torch.serve.beam import BeamSearchDecoder
+    from visper_lm_tpu_torch.serve.engine import Engine, EngineConfig, Request
+    from visper_lm_tpu_torch.serve.generate import GenerationConfig, Generator, left_pad_plans
+    from visper_lm_tpu_torch.serve.speculative import SpeculativeDecoder
+
+    d = cfg.decoder
+    ecfg = EngineConfig(**ENGINE, kv_quant=True, weight_quant=True)
+    work = engine_workload(cfg, ENGINE_REQUESTS, ecfg.max_len)
+    per_forward = 7 * d.num_layers + 1
+    out = {}
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def requests(spec, arrivals=None):
+        reqs = []
+        for i, (plan, im, mn) in enumerate(spec):
+            r = Request(plan=plan, images=im, max_new_tokens=mn, uid=i)
+            if arrivals is not None:
+                r.stream_callback = (lambda uid: lambda tok: arrivals.setdefault(
+                    uid, time.perf_counter()))(i)
+            reqs.append(r)
+        return reqs
+
+    def logits_close(name, got, ref):
+        diff = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        print(f"{name}: max abs diff {diff:.4g}, max |logit| {scale:.4g}, "
+              f"argmax agree {bool(got.argmax(-1).eq(ref.argmax(-1)).all())}")
+        check(bool(torch.isfinite(got).all()), f"{name}: logits not finite")
+        check(diff <= 0.05 * scale, f"{name}: logits differ by {diff} > 0.05 x {scale}")
+        return dict(max_abs_diff=diff, max_abs_logit=scale)
+
+    # the main path: bench_engine.py's 32 requests through the engine, and
+    # through the batch loop (bench_engine.py measurement 2: a Generator per
+    # batch of 8, each batch decoding to its longest request), in turns:
+    # engine, loop, loop, engine (both host-bound: one call, one card)
+    t0 = time.perf_counter()
+    eng = Engine(model, cfg, ecfg, device="cuda")
+    longest = max(p.seq_length for p, _, _ in work)
+    prompt_pad = -(-longest // 128) * 128
+    g_cfg = GenerationConfig(max_new_tokens=127, decode_chunk=8, kv_quant=True, weight_quant=True)
+    gen = Generator(model, cfg, g_cfg, ecfg.num_slots, prompt_pad, device="cuda")
+    torch.cuda.synchronize()
+    print(f"engine and batch-loop init (w8a16 copies of the decoder, {ecfg.num_slots} x "
+          f"{ecfg.max_len} int8 cache) {time.perf_counter() - t0:.2f} s")
+    out["prefill_logits"] = logits_close(
+        "engine prefill logits kernels vs plain",
+        eng.prefill_logits(requests(work[:1])[0]),
+        eng.prefill_logits(requests(work[:1])[0], use_kernel=False))
+
+    def engine_pass(spec_list):
+        """One run of the engine over spec_list, checked; its record. torch's
+        sync-debug warnings are counted by the call stack that raised them."""
+        eng.stats = {k: 0 for k in eng.stats}
+        fa.launches = 0
+        arrivals = {}
+        sites = collections.Counter()
+
+        def on_warning(message, category, filename, lineno, file=None, line=None):
+            if "synchronizing" in str(message):
+                stack = traceback.extract_stack()[:-1]
+                where = "engine" if any(Path(f.filename).name == "engine.py" for f in stack) else "other"
+                sites[where + ": " + " < ".join(f"{Path(f.filename).name}:{f.lineno}"
+                                                for f in reversed(stack[-3:]))] += 1
+
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = on_warning
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            done = eng.run(requests(spec_list, arrivals))
+            run_s = time.perf_counter() - t0
+            torch.cuda.set_sync_debug_mode("default")
+        st = dict(eng.stats)
+        n = len(spec_list)
+        check(len(done) == n, f"engine finished {len(done)} of {n}")
+        by_uid = {r.uid: r for r in done}
+        check(all(len(by_uid[i].output_ids) == spec_list[i][2] for i in range(n)),
+              "an engine request did not get exactly its max_new_tokens")
+        check(all(0 <= t < d.vocab_size for r in done for t in r.output_ids),
+              "engine token out of vocab")
+        check(all(r is None for r in eng.slot_req) and not eng.queue, "a slot stayed occupied")
+        engine_syncs = sum(c for k, c in sites.items() if k.startswith("engine:"))
+        check(st["host_syncs"] == st["steps"] == engine_syncs,
+              f"engine synced {st['host_syncs']} times by its count and {engine_syncs} by "
+              f"torch's over {st['steps']} quanta: {dict(sites)}")
+        check(fa.launches == d.num_layers * st["admit_dispatches"],
+              f"flash kernel launched {fa.launches} times over {st['admit_dispatches']} "
+              "prefill dispatches")
+        ttft = sorted((arrivals[r.uid] - r.submit_t) * 1e3 for r in done)
+        n_tok = sum(len(r.output_ids) for r in done)
+        return dict(
+            seconds=run_s, requests_per_s=n / run_s, tokens=n_tok, tokens_per_s=n_tok / run_s,
+            ttft_mean_ms=sum(ttft) / n, ttft_p90_ms=ttft[int(0.9 * (n - 1))],
+            ms_per_step=run_s / st["steps"] * 1e3,
+            occupancy=st["slot_steps"] / (st["steps"] * ecfg.num_slots * ecfg.decode_quantum),
+            flash_launches=fa.launches, engine_sync_warnings=engine_syncs,
+            sync_sites=dict(sites), stats=st,
+        ), {r.uid: r.output_ids for r in done}
+
+    def loop_pass(spec_list):
+        """The batch loop over spec_list: (tokens, seconds)."""
+        t0 = time.perf_counter()
+        tokens = 0
+        for i in range(0, len(spec_list), ecfg.num_slots):
+            chunk = spec_list[i:i + ecfg.num_slots]
+            tokens += sum(c[2] for c in chunk)
+            chunk = chunk + chunk[-1:] * (ecfg.num_slots - len(chunk))
+            batch = left_pad_plans([c[0] for c in chunk], prompt_pad)
+            batch["images"] = np.concatenate([c[1] for c in chunk])
+            logits, cache = gen.prefill(batch)
+            token = logits.argmax(-1)
+            offs = torch.as_tensor(batch["pad_offsets"], device="cuda").long()
+            rng = torch.Generator(device="cuda")
+            step = torch.zeros((), dtype=torch.long, device="cuda")
+            for _ in range(-(-(max(c[2] for c in chunk) - 1) // 8)):
+                token = gen._decode_chunk(cache, token, step, offs, rng)[-1]
+                step = step + 8
+            token.cpu()
+        return tokens, time.perf_counter() - t0
+
+    warm = [(p, im, 8) for p, im, _ in work[: ecfg.num_slots]]
+    eng.run(requests(warm))                                         # warm-ups
+    loop_pass(warm)
+    torch.cuda.reset_peak_memory_stats()
+    runs = {"engine": [], "batch_loop": []}
+    for turn in ("engine", "batch_loop", "batch_loop", "engine"):
+        if turn == "engine":
+            rec, plain_tokens = engine_pass(work)
+            print("engine_main " + json.dumps(rec))
+        else:
+            tok, sec = loop_pass(work)
+            rec = dict(seconds=sec, tokens=tok, tokens_per_s=tok / sec,
+                       requests_per_s=ENGINE_REQUESTS / sec)
+            print("batch_loop " + json.dumps(rec))
+        runs[turn].append(rec)
+    out["engine"] = dict(runs["engine"][0], requests=ENGINE_REQUESTS,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    out["turns"] = {k: [dict((m, r[m]) for m in ("seconds", "tokens_per_s", "requests_per_s"))
+                        for r in v] for k, v in runs.items()}
+    for rec in runs["engine"]:
+        rec.pop("stats")
+    out["engine_second"] = runs["engine"][1]
+    out["batch_loop"] = dict(prompt_pad=prompt_pad, requests=ENGINE_REQUESTS)
+    for k in ("tokens_per_s", "requests_per_s"):
+        out["engine"][f"mean_{k}"] = sum(r[k] for r in runs["engine"]) / 2
+        out["batch_loop"][f"mean_{k}"] = sum(r[k] for r in runs["batch_loop"]) / 2
+    print("engine_vs_batch_loop " + json.dumps(out["turns"]))
+
+    # where the time goes: an engine step with every slot busy (one quantum)
+    # beside a decode chunk of the batch loop (8 tokens)
+    for i, (p, im, _) in enumerate(work[: ecfg.num_slots]):
+        eng.submit(Request(plan=p, images=im, max_new_tokens=10 ** 6, uid=("busy", i)))
+    eng.step()                                  # admits them
+    out["step_profile"] = profile_window("engine_step", eng.step)
+    batch = left_pad_plans([c[0] for c in work[: ecfg.num_slots]], prompt_pad)
+    batch["images"] = np.concatenate([c[1] for c in work[: ecfg.num_slots]])
+    logits, cache = gen.prefill(batch)
+    offs = torch.as_tensor(batch["pad_offsets"], device="cuda").long()
+    out["loop_chunk_profile"] = profile_window("batch_loop_chunk", lambda: gen._decode_chunk(
+        cache, logits.argmax(-1), torch.zeros((), dtype=torch.long, device="cuda"), offs,
+        torch.Generator(device="cuda")))
+    del gen, cache, logits
+    release()
+
+    # prefix caching and chunked prefill, on a one-slot bf16-cache engine
+    side = Engine(model, cfg, EngineConfig(num_slots=1, max_len=ecfg.max_len,
+                                           prompt_bucket=ecfg.prompt_bucket,
+                                           prefill_chunk=ENGINE_CHUNK), device="cuda")
+    plan, im, _ = work[0]
+    head = eng._chunk_plan(plan, 0, plan.seq_length - 40)
+    tail = eng._chunk_plan(plan, plan.seq_length - 40, plan.seq_length)
+    full = side.prefill_logits(Request(plan=plan, images=im))
+    fa.launches = 0
+    handle = side.prefill_prefix(head, images=im)
+    check(fa.launches == d.num_layers, f"prefill_prefix launched the flash kernel {fa.launches} times")
+    suffix_logits, _, _ = side._run_suffix(handle, tail, None, None)
+    out["prefix"] = logits_close("prefix handle + suffix vs full prefill", suffix_logits, full)
+    req = Request(plan=plan, images=im)
+    n_chunks = 0
+    while side._needs_chunk(req):
+        side._advance_chunk(req)
+        n_chunks += 1
+    check(n_chunks >= 1, f"a {plan.seq_length}-token prompt took no chunk of {ENGINE_CHUNK}")
+    chunk_logits, _, _ = side._run_suffix(req.prefix, req.plan, None, req.image_features)
+    out["chunked"] = dict(logits_close(f"chunked prefill ({n_chunks} chunks of {ENGINE_CHUNK}) vs "
+                                       "single shot",
+                                       chunk_logits, full), chunks=n_chunks)
+    del side, handle, req, eng
+    release()
+
+    # the speculative engine against the plain engine's tokens
+    sub = work[: ecfg.num_slots]
+    spec = Engine(model, cfg, dataclasses.replace(ecfg, spec_k=4, spec_quantum=4), device="cuda")
+    t0 = time.perf_counter()
+    spec_done = spec.run(requests(sub))
+    spec_s = time.perf_counter() - t0
+    agree = sum(r.output_ids == plain_tokens[r.uid] for r in spec_done)
+    same = sum(a == b for r in spec_done for a, b in zip(r.output_ids, plain_tokens[r.uid]))
+    out["spec_engine"] = dict(
+        requests=len(sub), seconds=spec_s, identical_requests=agree,
+        token_agreement=same / sum(len(r.output_ids) for r in spec_done),
+        proposed=spec.stats["spec_proposed"], accepted=spec.stats["spec_accepted"],
+        steps=spec.stats["steps"], host_syncs=spec.stats["host_syncs"])
+    print("engine_spec " + json.dumps(out["spec_engine"]))
+    check(all(len(r.output_ids) == r.max_new_tokens for r in spec_done), "spec engine token counts")
+    del spec
+    release()
+
+    # SpeculativeDecoder: Phi3's decoder as the target, its first 4 blocks with
+    # the same embedding, norm and head as the draft; BeamSearchDecoder
+    target = model.decoder
+    with torch.device("meta"):
+        draft = Decoder(dataclasses.replace(d, num_layers=4))
+    draft.embed_tokens, draft.final_norm, draft.lm_head = (
+        target.embed_tokens, target.final_norm, target.lm_head)
+    draft.blocks = torch.nn.ModuleList(target.blocks[:4])
+    prompt = np.random.default_rng(1).integers(3, d.vocab_size - 10, size=128).tolist()
+    t0 = time.perf_counter()
+    s_out, s_stats = SpeculativeDecoder(target, draft.eval(), k=4, max_len=512).generate(
+        prompt, max_new_tokens=32)
+    out["speculative"] = dict(seconds=time.perf_counter() - t0, tokens=len(s_out),
+                              acceptance_rate=s_stats.acceptance_rate,
+                              tokens_per_target_pass=s_stats.tokens_per_target_pass,
+                              iterations=s_stats.iterations)
+    check(len(s_out) == 32, f"SpeculativeDecoder gave {len(s_out)} tokens")
+    t0 = time.perf_counter()
+    b_out, b_score = BeamSearchDecoder(target, num_beams=4, max_len=512).generate(
+        prompt, max_new_tokens=32)
+    out["beam"] = dict(seconds=time.perf_counter() - t0, tokens=len(b_out), score=b_score)
+    check(len(b_out) == 32 and math.isfinite(b_score), f"beam search: {len(b_out)} tokens, {b_score}")
+    print("engine_decoders " + json.dumps(dict(speculative=out["speculative"], beam=out["beam"])))
+    del draft
+    release()
+
+    # one engine run at int4 (AWQ calibration of phase 6): B5 in every linear
+    q4 = Engine(model, cfg, dataclasses.replace(ecfg, weight_quant="int4", calibration=act_rms),
+                device="cuda")
+    qm.launches = 0
+    t0 = time.perf_counter()
+    q4_done = q4.run(requests(sub))
+    q4_s = time.perf_counter() - t0
+    st4 = q4.stats
+    forwards = st4["admit_dispatches"] + st4["steps"] * ecfg.decode_quantum
+    check(qm.launches == per_forward * forwards,
+          f"w4 kernel launched {qm.launches} times in the int4 engine run, expected "
+          f"{per_forward} x {forwards} forwards")
+    check(all(len(r.output_ids) == r.max_new_tokens for r in q4_done), "int4 engine token counts")
+    out["int4_engine"] = dict(requests=len(sub), seconds=q4_s, w4_launches=qm.launches,
+                              forwards=forwards,
+                              tokens_per_s=sum(len(r.output_ids) for r in q4_done) / q4_s)
+    print("engine_int4 " + json.dumps(out["int4_engine"]))
+    del q4
+    release()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1133,7 +1482,7 @@ def main() -> int:
 
     torch.cuda.reset_peak_memory_stats()
     fa.launches = 0
-    da.launches = 0                             # B6: no path may call it (read after phase 7)
+    da.launches = 0                             # B6: no path may call it (read after phase 9)
     t0 = time.perf_counter()
     outputs = generator.generate(batch)
     torch.cuda.synchronize()
@@ -1161,6 +1510,31 @@ def main() -> int:
     print(f"prefill logits kernel vs plain: max abs diff {diff:.4g}, max |logit| {scale:.4g}, "
           f"argmax agree {agree}/{BATCH}")
     check(diff <= 0.05 * scale, f"prefill logits differ by {diff} > 0.05 x {scale}")
+
+    # the decode slot lives on the device: the same prefill and cache decoded
+    # with a Python-int q_offset must give the same tokens, bit for bit
+    logits_s, cache_s = generator.prefill(batch)
+    first = logits_s.argmax(-1)
+    cache_i = type(cache_s)(*(t.clone() for t in vars(cache_s).values()))
+    offs = torch.as_tensor(batch["pad_offsets"], device="cuda").long()
+    chunk = gen_cfg.decode_chunk
+    step, tok, slot_toks = torch.zeros((), dtype=torch.long, device="cuda"), first, []
+    for _ in range(-(-(NEW_TOKENS - 1) // chunk)):
+        slot_toks.append(generator._decode_chunk(cache_s, tok, step, offs,
+                                                 torch.Generator(device="cuda")))
+        tok, step = slot_toks[-1][-1], step + chunk
+    slot_toks = torch.cat(slot_toks)
+    int_toks = int_offset_decode(generator, cache_i, first, offs, slot_toks.shape[0])
+    check(torch.equal(slot_toks, int_toks),
+          f"device-slot decode differs from the int-offset decode at "
+          f"{int((slot_toks != int_toks).sum())} of {slot_toks.numel()} tokens")
+    check(torch.equal(cache_s.k, cache_i.k) and torch.equal(cache_s.v, cache_i.v),
+          "device-slot and int-offset decodes wrote different caches")
+    gen_toks = torch.cat([first[None], slot_toks])[:NEW_TOKENS].T.tolist()
+    check(gen_toks == outputs, "generate() differs from its own prefill + decode chunks")
+    print(f"device-slot decode: {slot_toks.shape[0]} x {BATCH} tokens and the cache equal to "
+          f"the int-offset decode's, bit for bit")
+    del logits_s, cache_s, cache_i
 
     timing = dict(timed_generate(generator, batch, gen_cfg), peak_gib=peak / 2**30)
     print("main_path " + json.dumps(timing))
@@ -1252,7 +1626,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # 7. training path: config #1's PT step with the three teachers
-    del generator, model, logits, cache, act_rms
+    del generator, model, logits, cache
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1345,8 +1719,20 @@ def main() -> int:
     trainer = trainer_phase(cfg, model, teachers, tbatch, reset_counts, counts)
     print(f"trainer phase {time.perf_counter() - t0:.1f} s")
     print("trainer_path " + json.dumps(trainer))
-    dec_launches = da.launches                  # over phases 4-8: bf16, int4, w8a16, training
-    print(f"decode_attn launches over the serving and training paths: {dec_launches}")
+
+    # 9. the continuous-batching engine at bench_engine.py's defaults, the
+    # batch loop beside it, prefix caching, chunked prefill, speculative and
+    # beam decoding, an int4 engine run. The decoder is frozen in phases 7-8:
+    # it is phase 4's
+    del teachers
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    engine = engine_phase(cfg, model, act_rms, fa, qm)
+    print(f"engine phase {time.perf_counter() - t0:.1f} s")
+    print("engine_path " + json.dumps(engine))
+    dec_launches = da.launches                  # over phases 4-9: serving, training, engine
+    print(f"decode_attn launches over the serving, training and engine paths: {dec_launches}")
     check(dec_launches == 0, f"decode_attn launched {dec_launches} times; no path calls it")
 
     def entry(kname, source, replaces, rec, launches):
@@ -1363,6 +1749,7 @@ def main() -> int:
         dict(entry("flash_fwd", csrc + "flash_fwd.cu", "visper_lm_tpu/ops/flash_attention.py:234",
                    slice_rec, main_launches["flash_fwd"]),
              launches_serving=launches, launches_phase7=train_launches["flash_fwd"],
+             launches_engine=engine["engine"]["flash_launches"],
              shape=slice_rec["shape"], kernel=slice_rec["kernel"],
              mma_sync_ms=slice_rec["mma_sync_ms"],
              train=dict(shape=train_fwd_rec["shape"], ms=train_fwd_rec["ms"],
@@ -1392,6 +1779,7 @@ def main() -> int:
         dict(entry("w4_matmul", csrc + "w4_matmul.cu", "visper_lm_tpu/ops/quant_matmul.py:125",
                    w4_rec, w4_launches),
              shape=w4_rec["shape"], launches_per_forward=per_forward,
+             launches_engine=engine["int4_engine"]["w4_launches"],
              mma_sync_ms=w4_rec["mma_sync_ms"],
              decode=dict(shape=w4_decode["shape"], ms=w4_decode["ms"],
                          device_ms=w4_decode["device_ms"], cold_ms=w4_decode["cold_ms"],

@@ -798,3 +798,61 @@ def test_decode_kernel_rejects_what_it_cannot_run(cuda_gen):
     with pytest.raises(ValueError):                                 # no such kernel
         da.decode_attention(q, k, v, ks, vs, kv_lengths=lens, kernel="splitk")
     assert da.launches == before
+
+
+def _engine_vlm():
+    """tiny_test_vlm widened to a head dim the flash kernel takes (H64), bf16."""
+    import dataclasses
+
+    from visper_lm_tpu_torch.config import tiny_test_vlm
+    from visper_lm_tpu_torch.models.vlm import init_vlm
+
+    cfg = tiny_test_vlm(distill=True)
+    cfg = dataclasses.replace(
+        cfg,
+        decoder=dataclasses.replace(cfg.decoder, hidden_size=256, head_dim=64, mlp_dim=512,
+                                    dtype="bfloat16", max_seq_len=1024),
+        vision=dataclasses.replace(cfg.vision, dtype="bfloat16"),
+        projector=dataclasses.replace(cfg.projector, output_dim=256),
+    )
+    return cfg, init_vlm(cfg, device="cuda", seed=0)
+
+
+@pytest.mark.parametrize("quant", ["bf16", "int8_kv_int4"])
+def test_engine_runs_the_kernels_and_matches_plain(cuda_gen, quant):
+    """A small Engine on the card: prefill logits with the kernels within
+    0.05 x max|logits| of use_kernel=False; the flash kernel once per decoder
+    layer and prefill dispatch, the w4 kernel in every linear of every
+    forward at int4, the decode kernel never; one host sync per quantum."""
+    import numpy as np
+
+    from visper_lm_tpu_torch.constants import IMAGE_TOKEN_INDEX
+    from visper_lm_tpu_torch.data.collate import build_splice_plan
+    from visper_lm_tpu_torch.serve.engine import Engine, EngineConfig, Request
+
+    cfg, model = _engine_vlm()
+    d = cfg.decoder
+    kw = {} if quant == "bf16" else dict(kv_quant=True, weight_quant="int4")
+    eng = Engine(model, cfg, EngineConfig(num_slots=4, max_len=512, **kw), device="cuda")
+    rng = np.random.default_rng(0)
+    reqs = []
+    for i, n in enumerate((20, 150, 90, 200, 40, 130)):
+        ids = [1, 2, 3, IMAGE_TOKEN_INDEX] + rng.integers(4, d.vocab_size, size=n).tolist()
+        plan = build_splice_plan(ids, None, 256, num_image_tokens=cfg.num_image_tokens,
+                                 num_task_tokens=cfg.distill.num_task_tokens, num_tasks=3)
+        image = rng.standard_normal((1, 28, 28, 3)).astype(np.float32)
+        reqs.append(Request(plan=plan, images=image, max_new_tokens=5 + 3 * i, uid=i))
+    got = eng.prefill_logits(reqs[1])
+    ref = eng.prefill_logits(reqs[1], use_kernel=False)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 0.05 * ref.abs().max().item()
+    fa.launches = qm.launches = da.launches = 0
+    done = eng.run(reqs)
+    st = eng.stats
+    assert sorted(len(r.output_ids) for r in done) == sorted(r.max_new_tokens for r in reqs)
+    assert fa.launches == d.num_layers * st["admit_dispatches"]
+    assert st["host_syncs"] == st["steps"]
+    assert da.launches == 0
+    per_forward = 7 * d.num_layers + (0 if d.tie_embeddings else 1)
+    forwards = st["admit_dispatches"] + st["steps"] * eng.ecfg.decode_quantum
+    assert qm.launches == (0 if quant == "bf16" else per_forward * forwards)

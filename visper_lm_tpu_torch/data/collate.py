@@ -140,3 +140,11 @@ def collate_plans(
     if extra:
         batch.update(extra)
     return batch
+
+
+def pad_to_bucket(length: int, buckets: Sequence[int]) -> int:
+    """Smallest bucket >= length (static-shape bucketing for variable text)."""
+    for b in sorted(buckets):
+        if length <= b:
+            return b
+    return max(buckets)

@@ -2,7 +2,8 @@
 
 Covers Phi3-mini-4k and Llama-style decoders: pre-norm blocks with GQA
 attention, rope and a SiLU-gated MLP, a slot-major KV cache for serving (bf16
-/ f32, or int8 with per-vector scales), quantized serving weights
+/ f32, or int8 with per-vector scales) written at one offset for the batch or
+one per sample (`write_cache_chunk`), quantized serving weights
 (`quantize_decoder`: w8a16 or w4a16 `QuantLinear`s), per-channel activation
 statistics for AWQ calibration, and layer taps for the distillation heads in
 training. The JAX layer `lax.scan` over stacked blocks becomes a Python loop
@@ -36,7 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from visper_lm_tpu_torch.config import DecoderConfig
 from visper_lm_tpu_torch.models.rope import apply_rope, apply_rope_transpose, rope_cos_sin
-from visper_lm_tpu_torch.ops.attention import mha_plain_cache, multi_head_attention
+from visper_lm_tpu_torch.ops.attention import Offset, mha_plain_cache, multi_head_attention
 from visper_lm_tpu_torch.utils.param import (
     QuantLinear,
     RMSNorm,
@@ -105,6 +106,34 @@ def init_quant_kv_cache(
         k_scale=torch.ones(shape[:-1], dtype=torch.float32, device=device),
         v_scale=torch.ones(shape[:-1], dtype=torch.float32, device=device),
     )
+
+
+def write_cache_chunk(cache: torch.Tensor, new: torch.Tensor, q_offset: Offset) -> None:
+    """Write a chunk `new` (T, B, ...) into one layer's slot-major cache
+    (S, B, ...) in place at slots q_offset + arange(T), with no host sync.
+
+    q_offset is a Python int or a 0-d tensor (one position for the whole
+    batch: JAX's dynamic_update_slice), or a (B,) tensor (a position per
+    sample: JAX's scatter with mode="drop"), where slots at or past S are
+    dropped: nothing is written for them and nothing wraps around. A
+    dropped row is sent to slot p - T < start, which this chunk does not
+    write, and writes back the value it finds there."""
+    t = new.shape[0]
+    new = new.to(cache.dtype)
+    if isinstance(q_offset, int):
+        cache[q_offset:q_offset + t].copy_(new)
+        return
+    rows = torch.arange(t, device=cache.device)
+    if q_offset.ndim == 0:
+        cache.index_copy_(0, q_offset + rows, new)
+        return
+    s, b = cache.shape[0], cache.shape[1]
+    pos = q_offset.to(cache.device)[None, :] + rows[:, None]          # (T, B)
+    keep = pos < s
+    dst = torch.where(keep, pos, pos - t)
+    col = torch.arange(b, device=cache.device)[None, :].expand(t, b)
+    keep = keep.reshape(t, b, *([1] * (new.ndim - 2)))
+    cache.index_put_((dst, col), torch.where(keep, new, cache[dst, col]))
 
 
 def quantize_head_vectors(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -237,7 +266,7 @@ class DecoderBlock(nn.Module):
         *,
         kv_lengths: Optional[torch.Tensor],
         kv_starts: Optional[torch.Tensor],
-        q_offset: int,
+        q_offset: Offset,
         cache_kv: Optional[Tuple[torch.Tensor, ...]],  # this layer's (S, B, Nkv, H) k, v [, scales]
         use_kernel: Optional[bool],
         stats_out: Optional[List[Dict[str, torch.Tensor]]] = None,
@@ -245,9 +274,10 @@ class DecoderBlock(nn.Module):
         quant_saves: bool = False,
     ) -> torch.Tensor:
         """JAX `_block_forward`. With a cache, the chunk's K/V are written into
-        the cache IN PLACE at slots [q_offset, q_offset + T), after attention,
-        which saw them unquantized, as extras (decode) or as the whole
-        sequence (prefill). A 4-tuple cache_kv is int8 + scales: the chunk is
+        the cache IN PLACE at slots [q_offset, q_offset + T) (per sample for a
+        (B,) offset: `write_cache_chunk`), after attention, which saw them
+        unquantized, as extras (decode) or as the whole sequence (prefill). A
+        4-tuple cache_kv is int8 + scales: the chunk is
         stored quantized per (token, head) vector. stats_out, when given, gets
         the per-input-channel mean square at each linear's input (calibration).
         stash: the remat policy's kept tensors (see the module docstring);
@@ -280,7 +310,10 @@ class DecoderBlock(nn.Module):
         v = kept("v_proj", "qkv.v", x, (b, t, nkv, hd))
 
         quant = cache_kv is not None and len(cache_kv) == 4
-        if cache_kv is not None and not (q_offset == 0 and t > 1):
+        # only a Python int 0 with T > 1 is a prefill over an empty cache (JAX's
+        # routing): a tensor offset, even 0, takes the cache route
+        prefill = isinstance(q_offset, int) and q_offset == 0 and t > 1
+        if cache_kv is not None and not prefill:
             attn = mha_plain_cache(
                 q, cache_kv[0], cache_kv[1],
                 k_scale=cache_kv[2] if quant else None, v_scale=cache_kv[3] if quant else None,
@@ -295,17 +328,16 @@ class DecoderBlock(nn.Module):
                 saved=stash.values.setdefault("flash_out", []) if "flash_out" in keeps else None,
             )
         if cache_kv is not None:
-            slots = slice(q_offset, q_offset + t)
             kt, vt = k.transpose(0, 1), v.transpose(0, 1)     # slot-major (T, B, Nkv, H)
             if quant:
                 for new, values, scales in ((kt, cache_kv[0], cache_kv[2]),
                                             (vt, cache_kv[1], cache_kv[3])):
                     qv, sc = quantize_head_vectors(new)
-                    values[slots].copy_(qv)                   # in place
-                    scales[slots].copy_(sc[..., 0])
+                    write_cache_chunk(values, qv, q_offset)
+                    write_cache_chunk(scales, sc[..., 0], q_offset)
             else:
-                cache_kv[0][slots].copy_(kt)                  # in place
-                cache_kv[1][slots].copy_(vt)
+                write_cache_chunk(cache_kv[0], kt, q_offset)
+                write_cache_chunk(cache_kv[1], vt, q_offset)
 
         attn = attn.reshape(b, t, nh * hd)
         record(o_proj=attn)
@@ -361,7 +393,7 @@ class Decoder(nn.Module):
         kv_lengths: Optional[torch.Tensor] = None,    # (B,) valid kv length incl. this chunk
         kv_starts: Optional[torch.Tensor] = None,     # (B,) first valid kv slot (left pad)
         cache: Optional[Union[KVCache, QuantKVCache]] = None,
-        q_offset: int = 0,
+        q_offset: Offset = 0,
         use_kernel: Optional[bool] = None,
         compute_logits: bool = True,
         tap_layers: Tuple[int, ...] = (),            # 0-indexed block outputs to keep
@@ -372,7 +404,15 @@ class Decoder(nn.Module):
         compute_logits), 'taps' (tuple of the raw block outputs at tap_layers,
         before the final norm), 'cache' (the same cache object, updated in
         place, when one was passed)}. remat: each block is checkpointed while
-        autograd records, keeping what `remat_policy` names (`REMAT_POLICIES`)."""
+        autograd records, keeping what `remat_policy` names (`REMAT_POLICIES`).
+
+        q_offset is the chunk's first slot: a Python int, a 0-d tensor (one
+        position for the whole batch) or a (B,) tensor (a position per
+        sample; the serving engine's slots). Only an int 0 with T > 1 runs
+        attention over the chunk itself (the flash kernel on CUDA); with a
+        cache every other offset, a tensor 0 included, attends through
+        `mha_plain_cache`, as JAX routes a traced offset. Tensor offsets stay
+        on the device: nothing here reads them on the host."""
         cfg = self.cfg
         saves = remat_saves(remat_policy) if remat else None
         quant_saves = remat and remat_policy == "save_mlp_q8"
@@ -385,7 +425,8 @@ class Decoder(nn.Module):
             if cache is not None:
                 raise ValueError("layer taps are a training/prefill feature (no cache)")
         if positions is None:
-            positions = torch.arange(t, device=inputs_embeds.device) + q_offset
+            positions = torch.arange(t, device=inputs_embeds.device) + (
+                q_offset if isinstance(q_offset, int) else q_offset.reshape(-1, 1))
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
         if cos.ndim == 2:
             cos, sin = cos[None], sin[None]

@@ -188,10 +188,12 @@ def mha_plain_cache(
     (JAX `mha_xla_cache`).
 
     The cache is read only; the caller writes the chunk's K/V into it after
-    this call. Dot operands are rounded to the cache dtype for a float cache
-    (the JAX package uses bf16 operands on the TPU and f32 on the CPU; with
-    an f32 cache both agree) and to q's dtype for an int8 cache (bf16 on the
-    card, f32 for an f32 model), and accumulate in f32. The int8 cache's
+    this call. Dot operands are rounded to the wider of q's and the cache's
+    dtype for a float cache (bf16 for a bf16 model and cache; f32 for an f32
+    model over the bf16 cache the serving engine keeps, as JAX's f32 dots on
+    the CPU) and to q's dtype for an int8 cache (bf16 on the card, f32 for an
+    f32 model), and accumulate in f32. cache_len is an int, a 0-d tensor or
+    a (B,) tensor (a length per sample), never read on the host. The int8 cache's
     per-vector scales are folded in, not dequantized: k scales multiply the
     cache scores after the dot, v scales the cache probabilities before the
     PV dot. GQA is a grouped query reshape: K/V are never repeated.
@@ -201,7 +203,7 @@ def mha_plain_cache(
     g = nq // nkv
     if scale is None:
         scale = h ** -0.5
-    dot_t = q.dtype if k_scale is not None else k.dtype
+    dot_t = q.dtype if k_scale is not None else torch.promote_types(q.dtype, k.dtype)
     qd = (q.float() * scale).reshape(b, t, nkv, g, h).to(dot_t).float()
 
     logits_c = torch.einsum("btkgh,sbkh->bkgts", qd, k.to(dot_t).float())

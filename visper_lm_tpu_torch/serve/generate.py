@@ -6,9 +6,10 @@
     shifted so each sample's first real token is position 0;
   * prefill is one multimodal forward that fills the KV cache (the flash
     kernel on CUDA);
-  * decode runs `decode_chunk` tokens per chunk with the tokens kept on the
-    device and one host sync per chunk; stop conditions are checked at chunk
-    boundaries and over-generated tokens are trimmed;
+  * decode runs `decode_chunk` tokens per chunk with the tokens, the step and
+    the slot it writes kept on the device and one host sync per chunk; stop
+    conditions are checked at chunk boundaries and over-generated tokens are
+    trimmed;
   * greedy (temperature 0: first-max argmax) or temperature/top-p sampling
     from a torch.Generator;
   * quantized serving: an int8 KV cache (`kv_quant`) and w8a16 or w4a16
@@ -80,6 +81,31 @@ def left_pad_plans(plans: Sequence[SplicePlan], pad_to: int) -> Dict[str, np.nda
         "token_type": token_type,
         "src_index": src_index,
         "pad_offsets": offsets,
+    }
+
+
+def right_pad_plans(plans: Sequence[SplicePlan], pad_to: int) -> Dict[str, np.ndarray]:
+    """Stack plans right-padded to pad_to (prefix-continuation prefill: the
+    valid tokens sit flush against the cached prefix, so padding goes at the
+    end; `seq_lengths` marks where each sample's real tokens stop)."""
+    b = len(plans)
+    text_ids = np.zeros((b, pad_to), dtype=np.int32)
+    token_type = np.full((b, pad_to), constants.SEG_PAD, dtype=np.int32)
+    src_index = np.zeros((b, pad_to), dtype=np.int32)
+    seq_lengths = np.zeros((b,), dtype=np.int32)
+    for i, p in enumerate(plans):
+        n = p.seq_length
+        if n > pad_to:
+            raise ValueError(f"plan {i} has {n} tokens, more than pad_to={pad_to}")
+        seq_lengths[i] = n
+        text_ids[i, :n] = p.text_ids[:n]
+        token_type[i, :n] = p.token_type[:n]
+        src_index[i, :n] = p.src_index[:n]
+    return {
+        "text_ids": text_ids,
+        "token_type": token_type,
+        "src_index": src_index,
+        "seq_lengths": seq_lengths,
     }
 
 
@@ -180,21 +206,28 @@ class Generator:
 
     @torch.no_grad()
     def _decode_chunk(
-        self, cache: Union[KVCache, QuantKVCache], token: torch.Tensor, step: int,
-        offsets: torch.Tensor, generator: torch.Generator,
+        self, cache: Union[KVCache, QuantKVCache], token: torch.Tensor,
+        step: Union[int, torch.Tensor], offsets: torch.Tensor, generator: torch.Generator,
     ) -> torch.Tensor:
-        """Decode decode_chunk tokens on the device (no host sync). Returns (chunk, B)."""
+        """Decode decode_chunk tokens on the device (no host sync). Returns (chunk, B).
+
+        The step and the slot it writes are 0-d device tensors, as JAX's
+        `_step_impl` takes `step` traced: nothing of the chunk depends on a
+        host value but its length."""
         decoder = self.decoder
+        step = torch.as_tensor(step, device=self.device)
         tokens = []
-        for i in range(max(self.gen_cfg.decode_chunk, 1)):
-            slot = self.prompt_len + step + i
+        for _ in range(max(self.gen_cfg.decode_chunk, 1)):
+            slot = self.prompt_len + step
             emb = decoder.embed_tokens(token[:, None])
             positions = (slot - offsets)[:, None]
             out = decoder(
-                emb, positions=positions, kv_starts=offsets, cache=cache, q_offset=slot,
+                emb, positions=positions, kv_lengths=(slot + 1).expand(self.batch_size),
+                kv_starts=offsets, cache=cache, q_offset=slot,
             )
             token = _sample_tokens(out["logits"][:, 0], self.gen_cfg, generator)
             tokens.append(token)
+            step = step + 1
         return torch.stack(tokens)
 
     @torch.no_grad()
@@ -242,7 +275,7 @@ class Generator:
                             finished[i] = True
 
         absorb(token.cpu().numpy()[None])
-        step = 0
+        step = torch.zeros((), dtype=torch.long, device=self.device)
 
         def _need_more() -> bool:
             lens = [len(o) for i, o in enumerate(outputs) if not finished[i]]
@@ -252,7 +285,7 @@ class Generator:
             chunk_tokens = self._decode_chunk(cache, token, step, offsets, generator)
             toks_np = chunk_tokens.cpu().numpy()  # the chunk's one host sync
             token = chunk_tokens[-1]
-            step += toks_np.shape[0]
+            step = step + toks_np.shape[0]
             absorb(toks_np)
 
         if gen_cfg.stop_strings and tokenizer is not None:

@@ -12,7 +12,8 @@ logit scales included, and a decoder quantized by the JAX package
 (`quantize_linear_weights` / `quantize_linear_weights_int4`): its
 {kernel_q8, out_scale} and {kernel_q4p, q4_scale[, q4_in_scale]} leaves
 become `QuantLinear` buffers as they are (both input-major), bit for bit.
-`teachers_from_jax_params` maps the teachers' tree (dinov2, clip_h, swin; the
+`decoder_from_jax_params` maps a bare decoder tree (beam search and
+speculative decoding take one). `teachers_from_jax_params` maps the teachers' tree (dinov2, clip_h, swin; the
 DPT decoder is not ported yet and is skipped).
 """
 
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from visper_lm_tpu_torch.config import VLMConfig
+from visper_lm_tpu_torch.config import DecoderConfig, VLMConfig
 from visper_lm_tpu_torch.device import resolve_device
 from visper_lm_tpu_torch.models.decoder import LINEAR_NAMES, Decoder
 from visper_lm_tpu_torch.models.teachers import TeacherConfigs, build_teachers
@@ -169,6 +170,27 @@ def from_jax_params(
         _quant_shells(model.decoder, tree["decoder"])
     _load(model, jax_tree_to_state_dict(tree, cfg), device, dtype)
     return model.eval()
+
+
+def decoder_from_jax_params(
+    tree: Dict[str, Any],
+    decoder_cfg: DecoderConfig,
+    device: Optional[Union[str, torch.device]] = None,
+    dtype: Optional[torch.dtype] = None,
+) -> Decoder:
+    """A `Decoder` holding a bare JAX decoder tree's weights (what
+    `init_decoder` returns, and what beam search and speculative decoding
+    take) on `device` (CUDA when None): stacked blocks unstacked, quantized
+    linears as `QuantLinear`s, dtype as in `from_jax_params`."""
+    device = resolve_device(device)
+    with torch.device("meta"):
+        decoder = Decoder(decoder_cfg)
+        _quant_shells(decoder, tree)
+    sd: Dict[str, Any] = {}
+    _flatten(sd, "", {k: v for k, v in tree.items() if k != "blocks"})
+    _stacked(sd, ".blocks", tree["blocks"], decoder_cfg.num_layers)
+    _load(decoder, {k[1:]: v for k, v in sd.items()}, device, dtype)
+    return decoder.eval()
 
 
 def teachers_from_jax_params(
