@@ -128,7 +128,32 @@ Phases, each of which raises (exit code != 0) when it fails:
      draft) and `BeamSearchDecoder` (4 beams) on one 128-token prompt, 32
      tokens; an int4 engine run (phase 6's AWQ calibration) on 8 requests
      with B5 at 225 launches per decoder forward. B6 must stay at 0 over
-     phases 4-9.
+     phases 4-10;
+ 10. user API path (visper_lm_tpu_torch/api.py) at Llama-3-8B + CLIP-ViT-L/14-336
+     (llama3_clip_vlm with distillation heads, bf16, full width and depth,
+     seeded random weights made on the card; phases 4-9's model released
+     first) with a whitespace tokenizer defined here (the card has no
+     `transformers`): B1 and B5 at Llama-3's shapes against their plain
+     versions (B1: B8 at the chat batch's padded length, GQA 32/8 H128, its
+     left pads, SDPA with enable_gqa as the yardstick; B5: gate/up 4096 ->
+     14336 and down 14336 -> 4096 at M = 8 and M = 8 x the padded length),
+     as in phase 3; `export_vlm` -> `import_vlm` in memory, every tensor
+     bit-equal; `VisperModel.chat` of 8 questions over 8 seeded uint8 images
+     of mixed sizes (LLaVA-1.5's "pad" aspect; "square" once in bf16), 32
+     new tokens, in bf16, at the auto quantization (int8 KV + w8a16 on CUDA)
+     and at int4: B1 32 per prefill, B5 225 per forward at int4 and 0
+     otherwise, first-token logits with the kernels within 0.05 x
+     max|logits| of the plain path (the share printed), prefill ms, decode
+     ms/token, tokens/s and peak GiB, the bf16 prefill and decode chunk
+     profiled; `serve` of the same questions (its B1 launches a multiple of
+     32; each request's engine prefill logits within 0.05 x max|logits| of
+     chat's Generator row); a `ChatSession` of three turns whose turns 2-3
+     prefill only their own tokens (the engine's `prefill_tokens`);
+     `save_hf_checkpoint` -> `from_hf_checkpoint` at full width and 2 layers
+     through the repo's tmp/ (removed after), tensors bit-equal, and a
+     LLaVA-style config.json without "visper_config" giving the same config
+     through `config_from_hf_json`; Vicuna-7B at full width and 4 layers:
+     one chat of 2 questions under the vicuna_v1 template.
 
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Needs no network; builds into
@@ -171,6 +196,17 @@ ENGINE = dict(num_slots=8, max_len=1536, decode_quantum=8, admit_group=8, admit_
               prompt_bucket=128)
 ENGINE_REQUESTS = 32
 ENGINE_CHUNK = 256             # the chunked-prefill check's prefill_chunk
+# phase 10: Llama-3-8B + CLIP-L through the user API
+LLAMA3_KEYS = ("shape", "kernel", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
+CHAT_IMAGES = ((480, 640), (336, 336), (768, 1024), (900, 200), (200, 900), (640, 480),
+               (1024, 1024), (337, 509))                       # (H, W), uint8, seeded
+CHAT_WORDS = (60, 44, 31, 75, 20, 52, 9, 68)                   # question lengths
+LLAMA3_SPECIALS = {"<|begin_of_text|>": 128000, "<|start_header_id|>": 128006,
+                   "<|end_header_id|>": 128007, "<|eot_id|>": 128009, "\n": 198}
+VICUNA_SPECIALS = {"<s>": 1, "</s>": 2, "\n": 13}
+FILE_LAYERS = 2                # the safetensors file round trip's depth (full width)
+VICUNA_LAYERS = 4              # Vicuna-7B at full width, cut in depth
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1042,6 +1078,18 @@ def engine_workload(cfg, n: int, max_len: int):
             for _ in range(n)]
 
 
+def logits_close(name, got, ref):
+    """Logits with the kernels vs the plain path: within 0.05 x max|ref|
+    (bf16 through every layer); returns the measured difference and share."""
+    diff = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    print(f"{name}: max abs diff {diff:.4g}, max |logit| {scale:.4g} (share {diff / scale:.4g}), "
+          f"argmax agree {bool(got.argmax(-1).eq(ref.argmax(-1)).all())}")
+    check(bool(torch.isfinite(got).all()), f"{name}: logits not finite")
+    check(diff <= 0.05 * scale, f"{name}: logits differ by {diff} > 0.05 x {scale}")
+    return dict(max_abs_diff=diff, max_abs_logit=scale, share=diff / scale)
+
+
 def int_offset_decode(generator, cache, token, offsets, n: int) -> torch.Tensor:
     """Greedy decode of n tokens with a Python-int q_offset, as the decode
     chunk ran before its slot lived on the device: the reference the
@@ -1091,15 +1139,6 @@ def engine_phase(cfg, model, act_rms, fa, qm) -> dict:
                     uid, time.perf_counter()))(i)
             reqs.append(r)
         return reqs
-
-    def logits_close(name, got, ref):
-        diff = (got - ref).abs().max().item()
-        scale = ref.abs().max().item()
-        print(f"{name}: max abs diff {diff:.4g}, max |logit| {scale:.4g}, "
-              f"argmax agree {bool(got.argmax(-1).eq(ref.argmax(-1)).all())}")
-        check(bool(torch.isfinite(got).all()), f"{name}: logits not finite")
-        check(diff <= 0.05 * scale, f"{name}: logits differ by {diff} > 0.05 x {scale}")
-        return dict(max_abs_diff=diff, max_abs_logit=scale)
 
     # the main path: bench_engine.py's 32 requests through the engine, and
     # through the batch loop (bench_engine.py measurement 2: a Generator per
@@ -1327,6 +1366,300 @@ def engine_phase(cfg, model, act_rms, fa, qm) -> dict:
     return out
 
 
+class WordTokenizer:
+    """A whitespace tokenizer with the HF surface the api uses (the card has
+    no `transformers`). Special strings and newlines are tokens of their own;
+    a word "w<k>" is id k, which is how decode writes every other id, and any
+    other word is a crc32 hash above the special range: decode then encode
+    gives the ids back, so a chat session finds its cached history."""
+
+    def __init__(self, vocab_size: int, specials: dict, bos: int, eos: int, first_word: int):
+        import re
+
+        self.vocab_size, self.first_word = vocab_size, first_word
+        self.specials = dict(specials)
+        self.bos_token_id, self.eos_token_id = bos, eos
+        self._split = re.compile("(" + "|".join(map(re.escape, self.specials)) + ")")
+
+    def __call__(self, text):
+        import types
+        import zlib
+
+        ids = [self.bos_token_id]
+        top = min([v for v in self.specials.values() if v >= self.first_word] + [self.vocab_size])
+        for part in self._split.split(text):
+            if part in self.specials:
+                ids.append(self.specials[part])
+                continue
+            for w in part.split():
+                if w[0] == "w" and w[1:].isdigit() and int(w[1:]) < self.vocab_size:
+                    ids.append(int(w[1:]))
+                else:
+                    ids.append(self.first_word + zlib.crc32(w.encode()) % (top - self.first_word))
+        return types.SimpleNamespace(input_ids=ids)
+
+    def decode(self, ids, skip_special_tokens=False):
+        names = {v: k for k, v in self.specials.items()}
+        return " ".join(
+            ("" if skip_special_tokens and names[i] != "\n" else names[i]) if i in names
+            else f"w{i}" for i in ids)
+
+
+def api_phase(fa, qm, da, param, gen) -> dict:
+    """Phase 10: Llama-3-8B + CLIP-ViT-L/14-336 through the user API
+    (visper_lm_tpu_torch/api.py) at full width and depth: the export/import
+    round trip in memory, chat() three ways, serve(), a ChatSession, the
+    safetensors file round trip at 2 layers, Vicuna-7B at 4 layers. Returns
+    the record printed as `api_path` (with the B1 and B5 cases at Llama-3's
+    shapes)."""
+    import dataclasses
+    import shutil
+
+    from visper_lm_tpu_torch.api import VisperModel, config_from_hf_json
+    from visper_lm_tpu_torch.checkpoint.hf_export import export_vlm, save_hf_checkpoint
+    from visper_lm_tpu_torch.checkpoint.hf_import import import_vlm
+    from visper_lm_tpu_torch.config import config_to_json, llama3_clip_vlm, vicuna_clip_vlm
+    from visper_lm_tpu_torch.data.mm_utils import tokenizer_image_token
+    from visper_lm_tpu_torch.models.vlm import init_vlm
+    from visper_lm_tpu_torch.serve.engine import EngineConfig
+    from visper_lm_tpu_torch.serve.generate import GenerationConfig
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def bit_equal(a, b, what):
+        check(sorted(a) == sorted(b), f"{what}: the tensor names differ")
+        bad = [k for k in a if a[k].dtype != b[k].dtype or a[k].shape != b[k].shape
+               or not torch.equal(a[k], b[k])]
+        check(not bad, f"{what}: {len(bad)} tensors differ, e.g. {bad[:3]}")
+
+    out = {}
+    cfg = llama3_clip_vlm(distill=True, image_aspect_ratio="pad")   # LLaVA-1.5's padding
+    d = cfg.decoder
+    per_forward = 7 * d.num_layers + 1
+    tok = WordTokenizer(d.vocab_size, LLAMA3_SPECIALS, bos=128000, eos=128009, first_word=256)
+    rng = np.random.default_rng(10)
+    questions = [" ".join(f"w{i}" for i in rng.integers(256, 128000, size=n)) for n in CHAT_WORDS]
+    images = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in CHAT_IMAGES]
+
+    # the chat batch (host only: templates, tokenizer, image preprocessing)
+    t0 = time.perf_counter()
+    batch = VisperModel(cfg=cfg, model=None, tokenizer=tok).chat_batch(questions, images)
+    out["chat_batch_s"] = time.perf_counter() - t0
+    pad_to = batch["text_ids"].shape[1]
+    offsets = batch["pad_offsets"].tolist()
+    print(f"llama3 chat batch: {len(questions)} prompts padded to {pad_to}, offsets {offsets}, "
+          f"{len(images)} images {CHAT_IMAGES} preprocessed in {out['chat_batch_s']:.2f} s")
+
+    # B1 and B5 at the shapes Llama-3-8B gives them here
+    out["b1"] = kernel_case("llama3_prefill", len(questions), pad_to, d.num_heads, d.num_kv_heads,
+                            d.head_dim, torch.bfloat16, True, offsets, [pad_to] * len(questions),
+                            gen, fa)
+    out["b5"] = {f"{lname}_M{m}": w4_case(f"llama3_{lname}_M{m}", m, din, dout, gen, qm, param)
+                 for lname, din, dout in (("gate_up", d.hidden_size, d.mlp_dim),
+                                          ("down", d.mlp_dim, d.hidden_size))
+                 for m in (len(questions), len(questions) * pad_to)}
+    release()
+
+    t0 = time.perf_counter()
+    model = init_vlm(cfg, device="cuda", seed=10)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"llama3 init_vlm {time.perf_counter() - t0:.1f} s, {n_params / 1e9:.3f} B params, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    # 1. export_vlm -> import_vlm in memory: a renaming (CLIP's qkv split and
+    # joined again): every tensor comes back bit-equal
+    t0 = time.perf_counter()
+    own = model.state_dict()
+    bit_equal(import_vlm(export_vlm(model, cfg), cfg), own, "in-memory export -> import")
+    out["memory_round_trip"] = dict(tensors=len(own), values=n_params,
+                                    seconds=time.perf_counter() - t0)
+    print(f"export_vlm -> import_vlm in memory: {len(own)} tensors bit-equal "
+          f"({out['memory_round_trip']['seconds']:.2f} s)")
+    del own
+    release()
+
+    # 2. chat(): bf16, the auto quantization (int8 KV + w8a16 on CUDA), int4
+    chats = {}
+    for mode, kvq, wq in (("bf16", False, False), ("auto", None, None), ("int4", None, "int4")):
+        vm = VisperModel(cfg=cfg, model=model, tokenizer=tok)
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = qm.launches = 0
+        t0 = time.perf_counter()
+        answers = vm.chat(questions, images, max_new_tokens=NEW_TOKENS, kv_quant=kvq,
+                          weight_quant=wq)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        b1, b5 = fa.launches, qm.launches
+        generator = list(vm._gen_cache.values())[-1]
+        forwards = b5 // per_forward
+        check(b1 == d.num_layers, f"chat {mode}: B1 launched {b1} times, expected {d.num_layers}")
+        if mode == "int4":
+            check(b5 == per_forward * forwards and (forwards - 1) % generator.gen_cfg.decode_chunk == 0,
+                  f"chat int4: B5 launched {b5} times, not {per_forward} per forward")
+        else:
+            check(b5 == 0, f"chat {mode}: B5 launched {b5} times")
+        check(len(answers) == len(questions) and all(isinstance(a, str) for a in answers),
+              f"chat {mode}: answers {answers}")
+        timing = timed_generate(generator, batch, generator.gen_cfg)
+        logits_k = generator.prefill(batch)[0]
+        logits_p = generator.prefill(batch, use_kernel=False)[0]
+        close = logits_close(f"llama3 chat {mode} first-token logits kernels vs plain",
+                             logits_k, logits_p)
+        del logits_k, logits_p
+        chats[mode] = dict(first_call_s=first_s, **timing, peak_gib=peak / 2**30,
+                           resident_before_gib=resident / 2**30, b1_launches=b1,
+                           b5_launches=b5, kernel_vs_plain=close, sample=answers[0][:80])
+        if mode == "bf16":
+            logits, cache = generator.prefill(batch)
+            offs = torch.as_tensor(batch["pad_offsets"], device="cuda").long()
+            chats[mode]["profile"] = dict(
+                prefill=profile_window("llama3_prefill", lambda: generator.prefill(batch)),
+                decode_chunk=profile_window("llama3_decode_chunk", lambda: generator._decode_chunk(
+                    cache, logits.argmax(-1), 0, offs, torch.Generator(device="cuda"))))
+            del logits, cache
+            square = VisperModel(cfg=dataclasses.replace(cfg, image_aspect_ratio="square"),
+                                 model=model, tokenizer=tok)
+            fa.launches = 0
+            t0 = time.perf_counter()
+            sq = square.chat(questions, images, max_new_tokens=NEW_TOKENS, kv_quant=False,
+                             weight_quant=False)
+            chats[mode]["square_s"] = time.perf_counter() - t0
+            check(len(sq) == len(questions) and fa.launches == d.num_layers,
+                  f"chat square: {len(sq)} answers, {fa.launches} B1 launches")
+            del square
+        print(f"chat_{mode} " + json.dumps(chats[mode]))
+        del vm, generator
+        release()
+    out["chat"] = chats
+
+    # 3. serve(): the same prompts through the engine (auto quantization);
+    # its prefill logits held against chat()'s Generator, row by row
+    vm = VisperModel(cfg=cfg, model=model, tokenizer=tok)
+    fa.launches = 0
+    t0 = time.perf_counter()
+    served = vm.serve(questions, images, max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    check(len(served) == len(questions) and fa.launches > 0 and fa.launches % d.num_layers == 0,
+          f"serve: {len(served)} answers, {fa.launches} B1 launches")
+    serve_rec = dict(seconds=serve_s, b1_launches=fa.launches,
+                     prefill_dispatches=fa.launches // d.num_layers)
+    chat_gen = vm._generator(GenerationConfig(kv_quant=True, weight_quant=True),
+                             len(questions), pad_to)
+    chat_logits = chat_gen.prefill(batch)[0]
+    engine = vm.engine(EngineConfig(num_slots=1, max_len=pad_to, kv_quant=True), weight_quant=True)
+    worst = None
+    for i, req in enumerate(vm.requests(questions, images)):
+        rec = logits_close(f"serve request {i} prefill logits vs chat's row", engine.prefill_logits(
+            req)[0], chat_logits[i])
+        worst = rec if worst is None or rec["share"] > worst["share"] else worst
+    serve_rec["logits_vs_chat_worst"] = worst
+    print("serve " + json.dumps(serve_rec))
+    out["serve"] = serve_rec
+    del engine, chat_gen, chat_logits
+    release()
+
+    # 4. ChatSession: three turns on one image; turns 2 and 3 prefill only
+    # their own tokens (the engine's count)
+    session = vm.chat_session(images[0])
+    turns = []
+    for i, q in enumerate((questions[1], "w17 w23 w99 w5", "w4242 w77")):
+        conv = session.conv.copy()
+        conv.append_message(conv.roles[0], q if i else "<image>\n" + q)
+        conv.append_message(conv.roles[1], None)
+        full = len(tokenizer_image_token(conv.get_prompt(), tok))
+        before, cached = session.engine.stats["prefill_tokens"], len(session._ids)
+        t0 = time.perf_counter()
+        answer = session.ask(q, max_new_tokens=16)
+        turn_s = time.perf_counter() - t0
+        prefilled = session.engine.stats["prefill_tokens"] - before
+        turns.append(dict(seconds=turn_s, prompt_tokens=full, prefilled=prefilled,
+                          cached_before=cached, answer=answer[:60]))
+        if i:
+            check(prefilled == full - cached and prefilled < full,
+                  f"session turn {i + 1} prefilled {prefilled} of {full} tokens "
+                  f"({cached} cached)")
+    print("chat_session " + json.dumps(turns))
+    out["session"] = turns
+    del session, vm, model
+    release()
+
+    # 5. the safetensors file round trip at full width and 2 layers, into
+    # the repo's tmp/ (gitignored), removed after
+    cfg2 = dataclasses.replace(cfg, decoder=dataclasses.replace(d, num_layers=FILE_LAYERS))
+    model2 = init_vlm(cfg2, device="cuda", seed=11)
+    ckpt = Path(__file__).resolve().parent / "tmp" / "llama3_2layer"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        save_hf_checkpoint(str(ckpt), model2, cfg2)
+        write_s = time.perf_counter() - t0
+        size = (ckpt / "model.safetensors").stat().st_size
+        t0 = time.perf_counter()
+        loaded = VisperModel.from_hf_checkpoint(str(ckpt), tokenizer=tok, dtype=None,
+                                                 device="cuda")
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        check(config_to_json(loaded.cfg) == config_to_json(cfg2), "file round trip: config differs")
+        bit_equal(loaded.model.state_dict(), model2.state_dict(), "file round trip")
+        del loaded
+        # a LLaVA-style config.json: the HF fields, no visper_config
+        hand = dict(architectures=["LlavaLlamaForCausalLM"], model_type="llava_llama",
+                    vocab_size=d.vocab_size, hidden_size=d.hidden_size,
+                    intermediate_size=d.mlp_dim, num_hidden_layers=FILE_LAYERS,
+                    num_attention_heads=d.num_heads, num_key_value_heads=d.num_kv_heads,
+                    rope_theta=d.rope_theta, rms_norm_eps=d.norm_eps,
+                    max_position_embeddings=8192, max_sequence_length=4096,
+                    mm_vision_tower="openai/clip-vit-large-patch14-336", mm_hidden_size=1024,
+                    mm_projector_type="mlp2x_gelu", image_aspect_ratio="pad",
+                    mm_patch_merge_type="flat", mm_use_im_patch_token=False,
+                    mm_use_im_start_end=False, torch_dtype="bfloat16")
+        (ckpt / "config.json").write_text(json.dumps(hand, indent=1))
+        plain = dataclasses.replace(cfg2, distill=None)
+        check(config_to_json(config_from_hf_json(hand)) == config_to_json(plain),
+              "config_from_hf_json of the LLaVA-style config.json differs")
+        llava = VisperModel.from_hf_checkpoint(str(ckpt), tokenizer=tok, dtype=None,
+                                                 device="cuda")
+        ref = model2.state_dict()
+        bit_equal(llava.model.state_dict(), {k: ref[k] for k in llava.model.state_dict()},
+                  "LLaVA-style load")
+        del llava, ref
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    out["file_round_trip"] = dict(layers=FILE_LAYERS, bytes=size, write_s=write_s, read_s=read_s,
+                                  write_gb_s=size / write_s / 1e9, read_gb_s=size / read_s / 1e9)
+    print("file_round_trip " + json.dumps(out["file_round_trip"]))
+    del model2
+    release()
+
+    # 6. Vicuna-7B at full width, 4 layers: the vicuna_v1 template
+    vcfg = vicuna_clip_vlm(image_aspect_ratio="pad")
+    vcfg = dataclasses.replace(vcfg, decoder=dataclasses.replace(vcfg.decoder,
+                                                                 num_layers=VICUNA_LAYERS))
+    vtok = WordTokenizer(vcfg.decoder.vocab_size, VICUNA_SPECIALS, bos=1, eos=2, first_word=259)
+    vvm = VisperModel(cfg=vcfg, model=init_vlm(vcfg, device="cuda", seed=12), tokenizer=vtok)
+    prompt = vvm.build_prompt(questions[0])
+    check(prompt.startswith("A chat between a curious user") and prompt.endswith(" ASSISTANT:")
+          and vvm.stop_strings() == ["</s>"], f"vicuna prompt {prompt[:80]!r}")
+    fa.launches = 0
+    t0 = time.perf_counter()
+    vans = vvm.chat(questions[:2], images[:2], max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    check(len(vans) == 2 and fa.launches == VICUNA_LAYERS,
+          f"vicuna chat: {len(vans)} answers, {fa.launches} B1 launches")
+    out["vicuna"] = dict(layers=VICUNA_LAYERS, seconds=time.perf_counter() - t0,
+                         b1_launches=fa.launches, eos_ids=vvm._eos_ids(), sample=vans[0][:60])
+    print("vicuna " + json.dumps(out["vicuna"]))
+    del vvm
+    release()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1499,8 +1832,9 @@ def main() -> int:
     print(f"sample tokens {outputs[0][:8]} ... {outputs[-1][:8]}")
 
     # prefill logits: kernel path vs plain attention
-    logits_k, _ = generator.prefill(batch)
-    logits_p, _ = generator.prefill(batch, use_kernel=False)
+    # [0]: the logits only; a cache kept in `_` would hold 1.4 GB to the end
+    logits_k = generator.prefill(batch)[0]
+    logits_p = generator.prefill(batch, use_kernel=False)[0]
     torch.cuda.synchronize()
     check(bool(torch.isfinite(logits_k).all()), "prefill logits not finite")
     check(tuple(logits_k.shape) == (BATCH, d.vocab_size), f"logits shape {tuple(logits_k.shape)}")
@@ -1595,7 +1929,7 @@ def main() -> int:
             torch.cuda.synchronize()
             check(qm.launches == per_forward * q_cfg.decode_chunk,
                   f"w4 launches per decode chunk {qm.launches} != {per_forward} x {q_cfg.decode_chunk}")
-            logits_p, _ = q_gen.prefill(batch, use_kernel=False)
+            logits_p = q_gen.prefill(batch, use_kernel=False)[0]
             torch.cuda.synchronize()
             check(bool(torch.isfinite(logits_q).all()), "int4 prefill logits not finite")
             diff = (logits_q - logits_p).abs().max().item()
@@ -1731,8 +2065,18 @@ def main() -> int:
     engine = engine_phase(cfg, model, act_rms, fa, qm)
     print(f"engine phase {time.perf_counter() - t0:.1f} s")
     print("engine_path " + json.dumps(engine))
-    dec_launches = da.launches                  # over phases 4-9: serving, training, engine
-    print(f"decode_attn launches over the serving, training and engine paths: {dec_launches}")
+
+    # 10. the user API at Llama-3-8B + CLIP-L: export/import, chat, serve,
+    # ChatSession, the file round trip, Vicuna-7B. Phases 4-9's models go first
+    del model, act_rms
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    api = api_phase(fa, qm, da, param, gen)
+    print(f"api phase {time.perf_counter() - t0:.1f} s")
+    print("api_path " + json.dumps({k: v for k, v in api.items() if k not in ("b1", "b5")}))
+    dec_launches = da.launches                  # over phases 4-10
+    print(f"decode_attn launches over the serving, training, engine and api paths: {dec_launches}")
     check(dec_launches == 0, f"decode_attn launched {dec_launches} times; no path calls it")
 
     def entry(kname, source, replaces, rec, launches):
@@ -1752,6 +2096,9 @@ def main() -> int:
              launches_engine=engine["engine"]["flash_launches"],
              shape=slice_rec["shape"], kernel=slice_rec["kernel"],
              mma_sync_ms=slice_rec["mma_sync_ms"],
+             llama3=dict({k: api["b1"][k] for k in LLAMA3_KEYS},
+                         launches=api["chat"]["bf16"]["b1_launches"],
+                         library="SDPA, boolean mask, enable_gqa=True"),
              train=dict(shape=train_fwd_rec["shape"], ms=train_fwd_rec["ms"],
                         mma_sync_ms=train_fwd_rec["mma_sync_ms"],
                         library_ms=train_fwd_rec["library_ms"],
@@ -1781,6 +2128,10 @@ def main() -> int:
              shape=w4_rec["shape"], launches_per_forward=per_forward,
              launches_engine=engine["int4_engine"]["w4_launches"],
              mma_sync_ms=w4_rec["mma_sync_ms"],
+             llama3=dict({case: {k: rec[k] for k in LLAMA3_KEYS + ("cold_ms", "library_cold_ms")
+                                 if k in rec}
+                          for case, rec in api["b5"].items()},
+                         launches=api["chat"]["int4"]["b5_launches"]),
              decode=dict(shape=w4_decode["shape"], ms=w4_decode["ms"],
                          device_ms=w4_decode["device_ms"], cold_ms=w4_decode["cold_ms"],
                          mma_sync_ms=w4_decode["mma_sync_ms"],

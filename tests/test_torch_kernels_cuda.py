@@ -117,6 +117,19 @@ def test_flash_bf16_kernels_across_lengths_and_heads(cuda_gen, kernel, t, h, nq,
     _assert_flash_close(out, lse, q, k, v, starts, None, True)
 
 
+def test_flash_kernel_at_the_llama3_serving_prefill(cuda_gen):
+    """Llama-3-8B's served prefill: B8 x T768, GQA 32/8 at H128, causal, the
+    chat batch's left pads (offsets up to 190, mid-tile)."""
+    b, t = 8, 768
+    q, k, v = _qkv(cuda_gen, b, t, 32, 8, 128, torch.bfloat16)
+    starts = torch.tensor([0, 17, 64, 100, 127, 128, 150, 190], device="cuda")
+    assert fa.flash_fwd_kernel_for(q.dtype, 128, t, True) == "wgmma"
+    before = fa.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, kv_starts=starts)
+    assert fa.launches == before + 1
+    _assert_flash_close(out, lse, q, k, v, starts, None, True)
+
+
 @pytest.mark.parametrize("h", [64, 96, 128])
 def test_flash_wgmma_noncausal_with_kv_lengths(cuda_gen, h):
     """Non-causal attention (the vision towers' kind) with kv_lengths that end
@@ -586,6 +599,21 @@ def test_w4_kernel_matches_plain(cuda_gen, m, din, dout, group):
     _assert_w4_close(got, ref)
 
 
+@pytest.mark.parametrize("m", [8, 768])
+@pytest.mark.parametrize("din,dout", [(4096, 14336), (14336, 4096), (4096, 1024)])
+def test_w4_kernel_at_llama3_widths(cuda_gen, m, din, dout):
+    """Llama-3-8B's gate/up, down and k/v projections at a decode step's M
+    (split-K) and a prefill's (the warpgroup kernel), group 128."""
+    qd = _w4_weights(cuda_gen, din, dout, 128)
+    x = torch.randn(m, din, device="cuda", generator=cuda_gen).to(torch.bfloat16)
+    assert qm.w4_kernel_for(m, din, dout, 128) == ("splitk" if m <= 16 else "wgmma")
+    got = qm.w4_matmul(x, qd["weight_q4p"], qd["q4_scale"], 128)
+    ref = qm.w4_matmul_reference(x.float(), qd["weight_q4p"], qd["q4_scale"], 128)
+    torch.cuda.synchronize()
+    assert got.shape == (m, dout)
+    _assert_w4_close(got, ref)
+
+
 @pytest.mark.parametrize("m", [8, 300])
 @pytest.mark.parametrize("din,dout,group", [(512, 384, 128), (256, 500, 64), (384, 256, 16)])
 def test_w4_mma_sync_kernel_matches_plain(cuda_gen, m, din, dout, group):
@@ -856,3 +884,60 @@ def test_engine_runs_the_kernels_and_matches_plain(cuda_gen, quant):
     per_forward = 7 * d.num_layers + (0 if d.tie_embeddings else 1)
     forwards = st["admit_dispatches"] + st["steps"] * eng.ecfg.decode_quantum
     assert qm.launches == (0 if quant == "bf16" else per_forward * forwards)
+
+
+@pytest.mark.parametrize("weight_quant", [None, "int4"])
+def test_visper_model_chat_serve_and_session_run_the_kernels(cuda_gen, weight_quant):
+    """The user API on the card: chat at the auto quantization (int8 KV +
+    w8a16 on CUDA) and at int4, serve's answers equal chat's one by one, a
+    session's later turn prefills only its own tokens; B1 once per layer and
+    prefill, B5 in every linear of every forward at int4."""
+    import numpy as np
+
+    from visper_lm_tpu_torch.api import VisperModel
+
+    import re
+    import types
+
+    class Tok:
+        """Specials and words; "w<k>" is id k, as decode writes it, so a
+        session's history tokenizes back to the ids it cached."""
+        bos_token_id, eos_token_id = 1, None
+        specials = {"<|system|>": 500, "<|user|>": 501, "<|assistant|>": 502, "<|end|>": 503,
+                    "\n": 504}
+
+        def __call__(self, text):
+            ids = [1]
+            for part in re.split("(" + "|".join(map(re.escape, self.specials)) + ")", text):
+                if part in self.specials:
+                    ids.append(self.specials[part])
+                    continue
+                ids += [int(w[1:]) if w[0] == "w" and w[1:].isdigit() else 3 + hash(w) % 490
+                        for w in part.split()]
+            return types.SimpleNamespace(input_ids=ids)
+
+        def decode(self, ids, skip_special_tokens=False):
+            names = {v: k for k, v in self.specials.items()}
+            return " ".join(names.get(i, f"w{i}") for i in ids)
+
+    cfg, model = _engine_vlm()
+    d = cfg.decoder
+    vm = VisperModel(cfg=cfg, model=model, tokenizer=Tok(), context_len=512)
+    rng = np.random.default_rng(0)
+    images = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in ((40, 60), (28, 28))]
+    qs = ["what is it?", "how many things are there in this picture?"]
+    fa.launches = qm.launches = da.launches = 0
+    out = vm.chat(qs, images, max_new_tokens=6, weight_quant=weight_quant)
+    assert fa.launches == d.num_layers and da.launches == 0
+    if weight_quant == "int4":
+        forwards = 1 + 16        # the prefill and one decode chunk of 16
+        assert qm.launches == (7 * d.num_layers + 1) * forwards
+    assert [len(t.split()) for t in out] == [6, 6]
+    assert vm.serve(qs, images, max_new_tokens=6, weight_quant=weight_quant) == \
+        [vm.chat([q], [im], max_new_tokens=6, weight_quant=weight_quant)[0]
+         for q, im in zip(qs, images)]
+    session = vm.chat_session(images[0], weight_quant=weight_quant)
+    session.ask("w1 w2 w3", max_new_tokens=4)
+    before = session.engine.stats["prefill_tokens"]
+    session.ask("w4 w5", max_new_tokens=4)
+    assert 0 < session.engine.stats["prefill_tokens"] - before < 20

@@ -194,12 +194,16 @@ TRAINING_SLICE_MODULES = (
     "models.teachers.swin", "models.resampler", "models.heads", "ops.window_attention",
 )
 QUANT_SERVING_MODULES = ("ops.quant_matmul", "ops.decode_attention", "serve.calibrate")
+USER_API_MODULES = ("api", "conversation", "checkpoint.hf_import", "checkpoint.hf_export",
+                    "data.mm_utils", "data.preprocess")
 
 
 def test_port_imports_no_jax():
-    """Importing every port module, the training and quantized-serving slices'
-    included, pulls in neither jax nor the JAX package."""
-    wanted = ["visper_lm_tpu_torch." + m for m in TRAINING_SLICE_MODULES + QUANT_SERVING_MODULES]
+    """Importing every port module, the training, quantized-serving and user
+    API slices' included, pulls in neither jax nor the JAX package, nor PIL,
+    safetensors or transformers (the card has none of them)."""
+    wanted = ["visper_lm_tpu_torch." + m
+              for m in TRAINING_SLICE_MODULES + QUANT_SERVING_MODULES + USER_API_MODULES]
     code = (
         "import pkgutil, importlib, sys\n"
         "import visper_lm_tpu_torch as p\n"
@@ -208,8 +212,9 @@ def test_port_imports_no_jax():
         "for m in mods + wanted: importlib.import_module(m)\n"
         "missing = [m for m in wanted if m not in mods]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'visper_lm_tpu' or m.startswith('visper_lm_tpu.')]\n"
-        "assert len(mods) >= 27, mods\n"
+        " or m == 'visper_lm_tpu' or m.startswith('visper_lm_tpu.')"
+        " or m.split('.')[0] in ('PIL', 'safetensors', 'transformers')]\n"
+        "assert len(mods) >= 47, mods\n"
         "assert not missing, missing\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"

@@ -155,11 +155,14 @@ def test_w4_gate_is_the_jax_gate(din, groups, x_din):
 
 # (din, dout, group) of the serving path's linears (Phi3-mini) and of the card tests
 W4_SERVING_SHAPES = [(3072, 3072, 128), (3072, 8192, 128), (8192, 3072, 128), (3072, 32064, 128)]
+# Llama-3-8B's and Vicuna-7B's linears: q/o, k/v, gate/up, down, lm_head
+W4_LLAMA_SHAPES = [(4096, 4096, 128), (4096, 1024, 128), (4096, 14336, 128), (14336, 4096, 128),
+                   (4096, 128256, 128), (4096, 11008, 128), (11008, 4096, 128), (4096, 32000, 128)]
 W4_CARD_SHAPES = [(512, 384, 128), (256, 500, 64), (1024, 320, 32), (384, 256, 16),
                   (512, 336, 128), (128, 256, 128), (256, 192, 128), (8192, 64, 128)]
 
 
-@pytest.mark.parametrize("din,dout,group", W4_SERVING_SHAPES + W4_CARD_SHAPES)
+@pytest.mark.parametrize("din,dout,group", W4_SERVING_SHAPES + W4_LLAMA_SHAPES + W4_CARD_SHAPES)
 def test_w4_split_plan_covers_every_group_once(din, dout, group):
     """The split-K plan cuts K on group boundaries: the splits' group ranges,
     as the kernel derives them from (groups per split, splits), are disjoint,
@@ -176,7 +179,7 @@ def test_w4_split_plan_covers_every_group_once(din, dout, group):
 
 
 @pytest.mark.parametrize("m", [1, 8, 16, 17, 100, 256, 300, 6144])
-@pytest.mark.parametrize("din,dout,group", W4_SERVING_SHAPES + W4_CARD_SHAPES)
+@pytest.mark.parametrize("din,dout,group", W4_SERVING_SHAPES + W4_LLAMA_SHAPES + W4_CARD_SHAPES)
 def test_w4_gate_names_a_kernel_for_every_shape(m, din, dout, group):
     """Every (M, din, dout, group) of the serving path and of the card tests
     goes to a named hand-written kernel whose constraints it meets."""
@@ -186,7 +189,7 @@ def test_w4_gate_names_a_kernel_for_every_shape(m, din, dout, group):
         assert m <= tqm.SPLITK_MAX_M and tqm.w4_split_plan(din, dout, group) is not None
     elif name == "wgmma":
         assert m > tqm.SPLITK_MAX_M and group % 64 == 0 and dout % 16 == 0
-    if (din, dout, group) in W4_SERVING_SHAPES:
+    if (din, dout, group) in W4_SERVING_SHAPES + W4_LLAMA_SHAPES:
         assert name == ("splitk" if m <= 16 else "wgmma")
 
 

@@ -1,5 +1,6 @@
-"""Typed configuration (a copy of the serving and PT-training subset of
-visper_lm_tpu/config.py).
+"""Typed configuration (a copy of visper_lm_tpu/config.py: the Phi3-mini,
+Llama-3-8B and Vicuna-7B presets, the ConvNeXt and probe helpers, the JSON
+functions).
 
 Field names and defaults are the JAX package's, so `dataclasses.asdict` of a
 port config equals the JAX one; tests/test_torch_models.py holds them equal.
@@ -269,6 +270,20 @@ def make_distill_config(
     )
 
 
+LLAMA3_8B = DecoderConfig(
+    vocab_size=128256,
+    hidden_size=4096,
+    num_layers=32,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    mlp_dim=14336,
+    rope_theta=500000.0,
+    norm_eps=1e-5,
+    max_seq_len=4096,
+    family="llama",
+)
+
 PHI3_MINI_4K = DecoderConfig(
     vocab_size=32064,
     hidden_size=3072,
@@ -281,6 +296,20 @@ PHI3_MINI_4K = DecoderConfig(
     norm_eps=1e-5,
     max_seq_len=4096,
     family="phi3",
+)
+
+VICUNA_7B = DecoderConfig(
+    vocab_size=32000,
+    hidden_size=4096,
+    num_layers=32,
+    num_heads=32,
+    num_kv_heads=32,
+    head_dim=128,
+    mlp_dim=11008,
+    rope_theta=10000.0,
+    norm_eps=1e-5,
+    max_seq_len=4096,
+    family="llama",
 )
 
 CLIP_VIT_L_336 = VisionConfig(
@@ -330,6 +359,74 @@ def phi3_clip_vlm(distill: bool = False, **kwargs: Any) -> VLMConfig:
         conv_template="llava_phi_3",
         num_sys_tokens=13,
         **kwargs,
+    )
+
+
+CONVNEXT_XXL_768 = ConvNeXtConfig()
+
+
+def llama3_clip_vlm(distill: bool = False, **kwargs: Any) -> VLMConfig:
+    return VLMConfig(
+        decoder=LLAMA3_8B,
+        vision=CLIP_VIT_L_336,
+        projector=ProjectorConfig(input_dim=1024, output_dim=4096),
+        distill=make_distill_config() if distill else None,
+        conv_template="llava_llama_3",
+        num_sys_tokens=38,
+        **kwargs,
+    )
+
+
+def vicuna_clip_vlm(distill: bool = False, **kwargs: Any) -> VLMConfig:
+    """Vicuna-7b-v1.5 + CLIP-ViT-L; the vicuna_v1 template's system prompt
+    is 26 tokens."""
+    return VLMConfig(
+        decoder=VICUNA_7B,
+        vision=CLIP_VIT_L_336,
+        projector=ProjectorConfig(input_dim=1024, output_dim=4096),
+        distill=make_distill_config() if distill else None,
+        conv_template="vicuna_v1",
+        num_sys_tokens=26,
+        **kwargs,
+    )
+
+
+def with_convnext_tower(cfg: VLMConfig) -> VLMConfig:
+    """The OpenCLIP ConvNeXt-XXL@768 tower in place of CLIP-ViT (576 tokens
+    x 3072). A config only: the port's VLM raises for it (ROADMAP item 6)."""
+    return dataclasses.replace(
+        cfg,
+        use_convnext_tower=True,
+        convnext=CONVNEXT_XXL_768,
+        projector=dataclasses.replace(cfg.projector, input_dim=3072),
+    )
+
+
+def probe_distill_config(probe_mode: str, num_layers: int, **overrides: Any) -> DistillConfig:
+    """Probing: one head per LLM layer for a single task, plain smooth-L1,
+    no task tokens, no contrastive loss (the probe heads are not ported)."""
+    specs = {
+        "gen": (ResamplerConfig(num_tokens=1, output_dim=1024), 1024, 1),
+        "seg": (ResamplerConfig(num_tokens=576, output_dim=1536), 1536, 576),
+        "depth": (ResamplerConfig(num_tokens=576, output_dim=1024), 1024, 576),
+    }
+    head, tdim, ttok = specs[probe_mode]
+    return DistillConfig(
+        mode=probe_mode,
+        num_task_tokens=0,
+        use_contrastive=False,
+        contrastive_loss_weight=0.0,
+        tasks=(
+            DistillTaskConfig(
+                task=probe_mode,
+                layer_indices=tuple(range(num_layers)),
+                loss_weight=1.0,
+                head=head,
+                target_dim=tdim,
+                target_tokens=ttok,
+            ),
+        ),
+        **overrides,
     )
 
 

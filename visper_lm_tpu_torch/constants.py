@@ -6,6 +6,10 @@ datasets and splice plans.
 
 IGNORE_INDEX = -100
 IMAGE_TOKEN_INDEX = -200
+DEFAULT_IMAGE_TOKEN = "<image>"
+DEFAULT_IMAGE_PATCH_TOKEN = "<im_patch>"
+DEFAULT_IM_START_TOKEN = "<im_start>"
+DEFAULT_IM_END_TOKEN = "<im_end>"
 
 # Number of system-prompt tokens preceding the image span in the PT-stage
 # prompt layout, per base LLM family.

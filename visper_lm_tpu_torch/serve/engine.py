@@ -30,6 +30,8 @@ and, at weight_quant="int4", every decoder linear runs the w4 kernel (B5).
 Host-to-device copies of request data go through pinned memory without a
 stream sync, and device scalars are made by fills, so the engine's reads of
 device values are the only host syncs (`stats["host_syncs"]`).
+`stats["prefill_tokens"]` counts the prompt tokens prefilled (a suffix over a
+prefix counts only the suffix).
 """
 
 from __future__ import annotations
@@ -216,7 +218,8 @@ class Engine:
             self.hist_len = self._full((B,), 0)
         self.stats = {"steps": 0, "decoded_tokens": 0, "slot_steps": 0,
                       "prefills": 0, "spec_proposed": 0, "spec_accepted": 0,
-                      "group_admissions": 0, "admit_dispatches": 0, "host_syncs": 0}
+                      "group_admissions": 0, "admit_dispatches": 0, "host_syncs": 0,
+                      "prefill_tokens": 0}
         self._admit_deferred = 0
 
     # ------------------------------------------------------------ device I/O
@@ -347,6 +350,7 @@ class Engine:
         Without `prefix`: a fresh base prefix (bucketed, left-padded: no
         garbage slots). With `prefix`: extends it with `plan`'s tokens (chat
         history growth) into a new handle; the older one stays valid."""
+        self.stats["prefill_tokens"] += plan.seq_length
         if prefix is None:
             pad_to = self._bucket(plan.seq_length)
             req = Request(plan=plan, images=images, image_features=image_features)
@@ -577,6 +581,7 @@ class Engine:
         self._insert([slot], kv, first, [new_len], [new_start])
         self._occupy(slot, req, new_len, new_start, time.perf_counter())
         self.stats["prefills"] += 1
+        self.stats["prefill_tokens"] += plan.seq_length
         self.stats["admit_dispatches"] += 1
         self._take_firsts([slot], [req], first)
 
@@ -596,6 +601,7 @@ class Engine:
         for slot, req, start in zip(slots, reqs, new_starts):
             self._occupy(slot, req, pad_to, start, now)
         self.stats["prefills"] += len(slots)
+        self.stats["prefill_tokens"] += sum(p.seq_length for p in plans)
         self.stats["admit_dispatches"] += 1
         self.stats["group_admissions"] += 1
         self._take_firsts(slots, reqs, firsts)

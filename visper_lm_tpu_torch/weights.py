@@ -93,6 +93,21 @@ def _vit(sd: Dict[str, Any], prefix: str, tree: Dict[str, Any], num_layers: int)
     _stacked(sd, f"{prefix}.blocks", tree["blocks"], num_layers)
 
 
+def decoder_tree_to_state_dict(tree: Dict[str, Any], num_layers: int) -> Dict[str, Any]:
+    """A bare JAX decoder tree -> `Decoder` state-dict names (numpy values)."""
+    sd: Dict[str, Any] = {}
+    _flatten(sd, "", {k: v for k, v in tree.items() if k != "blocks"})
+    _stacked(sd, ".blocks", tree["blocks"], num_layers)
+    return {k[1:]: v for k, v in sd.items()}
+
+
+def vit_tree_to_state_dict(tree: Dict[str, Any], num_layers: int) -> Dict[str, Any]:
+    """A JAX ViT tree -> `VisionTower` state-dict names (numpy values)."""
+    sd: Dict[str, Any] = {}
+    _vit(sd, "", tree, num_layers)
+    return {k[1:]: v for k, v in sd.items()}
+
+
 def jax_tree_to_state_dict(tree: Dict[str, Any], cfg: VLMConfig) -> Dict[str, Any]:
     """Map the JAX VLM param tree onto the port's state_dict names (numpy values)."""
     unknown = set(tree) - set(_VLM_SUBTREES)
@@ -186,10 +201,7 @@ def decoder_from_jax_params(
     with torch.device("meta"):
         decoder = Decoder(decoder_cfg)
         _quant_shells(decoder, tree)
-    sd: Dict[str, Any] = {}
-    _flatten(sd, "", {k: v for k, v in tree.items() if k != "blocks"})
-    _stacked(sd, ".blocks", tree["blocks"], decoder_cfg.num_layers)
-    _load(decoder, {k[1:]: v for k, v in sd.items()}, device, dtype)
+    _load(decoder, decoder_tree_to_state_dict(tree, decoder_cfg.num_layers), device, dtype)
     return decoder.eval()
 
 
