@@ -140,20 +140,40 @@ Phases, each of which raises (exit code != 0) when it fails:
      as in phase 3; `export_vlm` -> `import_vlm` in memory, every tensor
      bit-equal; `VisperModel.chat` of 8 questions over 8 seeded uint8 images
      of mixed sizes (LLaVA-1.5's "pad" aspect; "square" once in bf16), 32
-     new tokens, in bf16, at the auto quantization (int8 KV + w8a16 on CUDA)
-     and at int4: B1 32 per prefill, B5 225 per forward at int4 and 0
-     otherwise, first-token logits with the kernels within 0.05 x
-     max|logits| of the plain path (the share printed), prefill ms, decode
-     ms/token, tokens/s and peak GiB, the bf16 prefill and decode chunk
-     profiled; `serve` of the same questions (its B1 launches a multiple of
-     32; each request's engine prefill logits within 0.05 x max|logits| of
-     chat's Generator row); a `ChatSession` of three turns whose turns 2-3
-     prefill only their own tokens (the engine's `prefill_tokens`);
+     new tokens, in bf16, at the default quantization (bf16 too: JAX
+     quantizes by itself only on a TPU; its answers must equal the bf16
+     row's), at int8 KV + w8a16 and at int8 KV + int4 (explicit flags): B1
+     32 per prefill, B5 225 per forward at int4 and 0 otherwise, first-token
+     logits with the kernels within 0.05 x max|logits| of the plain path
+     (the share printed), prefill ms, decode ms/token, tokens/s and peak
+     GiB, the bf16 prefill and decode chunk profiled; `serve` of the same
+     questions at int8 KV + w8a16 (its B1 launches a multiple of 32; each
+     request's engine prefill logits within 0.05 x max|logits| of chat's
+     Generator row); a `ChatSession` (int8 KV + w8a16) of three turns whose
+     turns 2-3 prefill only their own tokens (the engine's `prefill_tokens`);
      `save_hf_checkpoint` -> `from_hf_checkpoint` at full width and 2 layers
      through the repo's tmp/ (removed after), tensors bit-equal, and a
      LLaVA-style config.json without "visper_config" giving the same config
      through `config_from_hf_json`; Vicuna-7B at full width and 4 layers:
      one chat of 2 questions under the vicuna_v1 template.
+ 11. vision path at Llama-3-8B, reusing phase 10's decoder (the tower
+     swapped, not the model made again): the ConvNeXt-XXL trunk at 768 px
+     (`with_convnext_tower(llama3_clip_vlm(distill=True))`, 843 M params in
+     bf16, every block's gamma from N(0, 0.1^2)) on the chat's 8 images:
+     output (8, 576, 3072), finite, relative Frobenius error against an f32
+     copy of the same weights <= 2e-2, its time; `chat` through it (bf16,
+     32 new tokens; B1 32, first-token logits within 0.05 x max|logits| of
+     the plain path); an anyres chat (CLIP-L, spatial_unpad, JAX's
+     grid_pinpoints) of 4 images whose sizes select four grids (3, 3, 5
+     and 4 tiles: the tiles padded to 5, the newline indices moved), the
+     same checks; B1 at both chats' prefill shapes against its plain
+     version as in phase 3; one S2 call (`clip_tower_features_s2`, CLIP-L,
+     batch 2, scales 336 and 1008): (2, 576, 2048), finite; then, with the
+     Llama-3 model released, one PT step of bench.py's --tower convnext
+     cell (Phi3-mini, config #1, B4 x T1024, the teachers, save_gate): B1
+     64, B2/B3 32, B4 48, loss and every trainable gradient finite, the
+     frozen trunk without a gradient and unchanged. Every record carries the
+     card's name and power limit.
 
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Needs no network; builds into
@@ -163,6 +183,7 @@ visper_lm_tpu_torch/_build/.
 from __future__ import annotations
 
 import collections
+import copy
 import ctypes
 import gc
 import importlib.util
@@ -207,6 +228,10 @@ LLAMA3_SPECIALS = {"<|begin_of_text|>": 128000, "<|start_header_id|>": 128006,
 VICUNA_SPECIALS = {"<s>": 1, "</s>": 2, "\n": 13}
 FILE_LAYERS = 2                # the safetensors file round trip's depth (full width)
 VICUNA_LAYERS = 4              # Vicuna-7B at full width, cut in depth
+# phase 11: anyres images (H, W) that select the grids 672x336, 336x672,
+# 672x672 and 336x1008 of JAX's grid_pinpoints: base + 2, 2, 4, 3 tiles
+ANYRES_IMAGES = ((500, 1000), (1000, 500), (900, 900), (1200, 400))
+ANYRES_TILES = (3, 3, 5, 4)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -712,7 +737,7 @@ def decode_case(name, b, nq, nkv, h, s, quant, starts, lens, gen, da, quantize_h
     return rec
 
 
-def timed_generate(generator, batch, gen_cfg):
+def timed_generate(generator, batch, gen_cfg, batch_size: int = BATCH):
     """Prefill and generate timed warm (host clock around work that ends in a
     synchronise), as phase 4 does."""
     t0 = time.perf_counter()
@@ -726,7 +751,7 @@ def timed_generate(generator, batch, gen_cfg):
     steps = -(-NEW_TOKENS // gen_cfg.decode_chunk) * gen_cfg.decode_chunk
     return dict(
         prefill_ms=prefill_s * 1e3, decode_ms_per_token=(gen_s - prefill_s) / steps * 1e3,
-        generate_s=gen_s, tokens_per_s=BATCH * NEW_TOKENS / gen_s, decode_steps=steps,
+        generate_s=gen_s, tokens_per_s=batch_size * NEW_TOKENS / gen_s, decode_steps=steps,
     )
 
 
@@ -751,7 +776,7 @@ def train_batch(cfg, batch_size: int, seq_len: int, seed: int = 0):
             num_task_tokens=cfg.distill.num_task_tokens,
             num_tasks=len(cfg.distill.task_order()),
         ))
-    side = cfg.vision.image_size
+    side = cfg.convnext.image_size if cfg.use_convnext_tower else cfg.vision.image_size
     img = rng.normal(size=(batch_size, side, side, 3))
     batch = collate_plans(plans, images=img.astype(np.float32))
     for tcfg in cfg.distill.tasks:
@@ -1405,13 +1430,14 @@ class WordTokenizer:
             else f"w{i}" for i in ids)
 
 
-def api_phase(fa, qm, da, param, gen) -> dict:
+def api_phase(fa, qm, da, param, gen):
     """Phase 10: Llama-3-8B + CLIP-ViT-L/14-336 through the user API
     (visper_lm_tpu_torch/api.py) at full width and depth: the export/import
-    round trip in memory, chat() three ways, serve(), a ChatSession, the
+    round trip in memory, chat() four ways, serve(), a ChatSession, the
     safetensors file round trip at 2 layers, Vicuna-7B at 4 layers. Returns
     the record printed as `api_path` (with the B1 and B5 cases at Llama-3's
-    shapes)."""
+    shapes), and what phase 11 reuses: the model, its config, the tokenizer,
+    the questions and the images."""
     import dataclasses
     import shutil
 
@@ -1481,9 +1507,11 @@ def api_phase(fa, qm, da, param, gen) -> dict:
     del own
     release()
 
-    # 2. chat(): bf16, the auto quantization (int8 KV + w8a16 on CUDA), int4
-    chats = {}
-    for mode, kvq, wq in (("bf16", False, False), ("auto", None, None), ("int4", None, "int4")):
+    # 2. chat(): bf16, the default (bf16 by JAX's rule: it quantizes by
+    # itself only on a TPU), int8 KV + w8a16, int8 KV + int4
+    chats, answers_by_mode = {}, {}
+    for mode, kvq, wq in (("bf16", False, False), ("bf16_default", None, None),
+                          ("int8", True, True), ("int4", True, "int4")):
         vm = VisperModel(cfg=cfg, model=model, tokenizer=tok)
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1505,6 +1533,10 @@ def api_phase(fa, qm, da, param, gen) -> dict:
             check(b5 == 0, f"chat {mode}: B5 launched {b5} times")
         check(len(answers) == len(questions) and all(isinstance(a, str) for a in answers),
               f"chat {mode}: answers {answers}")
+        answers_by_mode[mode] = answers
+        if mode == "bf16_default":
+            check(not generator.gen_cfg.kv_quant and answers == answers_by_mode["bf16"],
+                  "chat with the default quantization is not the bf16 chat")
         timing = timed_generate(generator, batch, generator.gen_cfg)
         logits_k = generator.prefill(batch)[0]
         logits_p = generator.prefill(batch, use_kernel=False)[0]
@@ -1537,12 +1569,13 @@ def api_phase(fa, qm, da, param, gen) -> dict:
         release()
     out["chat"] = chats
 
-    # 3. serve(): the same prompts through the engine (auto quantization);
+    # 3. serve(): the same prompts through the engine (int8 KV + w8a16);
     # its prefill logits held against chat()'s Generator, row by row
     vm = VisperModel(cfg=cfg, model=model, tokenizer=tok)
     fa.launches = 0
     t0 = time.perf_counter()
-    served = vm.serve(questions, images, max_new_tokens=NEW_TOKENS)
+    served = vm.serve(questions, images, max_new_tokens=NEW_TOKENS, kv_quant=True,
+                      weight_quant=True)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     check(len(served) == len(questions) and fa.launches > 0 and fa.launches % d.num_layers == 0,
@@ -1564,9 +1597,9 @@ def api_phase(fa, qm, da, param, gen) -> dict:
     del engine, chat_gen, chat_logits
     release()
 
-    # 4. ChatSession: three turns on one image; turns 2 and 3 prefill only
-    # their own tokens (the engine's count)
-    session = vm.chat_session(images[0])
+    # 4. ChatSession (int8 KV + w8a16): three turns on one image; turns 2
+    # and 3 prefill only their own tokens (the engine's count)
+    session = vm.chat_session(images[0], kv_quant=True, weight_quant=True)
     turns = []
     for i, q in enumerate((questions[1], "w17 w23 w99 w5", "w4242 w77")):
         conv = session.conv.copy()
@@ -1586,7 +1619,7 @@ def api_phase(fa, qm, da, param, gen) -> dict:
                   f"({cached} cached)")
     print("chat_session " + json.dumps(turns))
     out["session"] = turns
-    del session, vm, model
+    del session, vm
     release()
 
     # 5. the safetensors file round trip at full width and 2 layers, into
@@ -1657,6 +1690,248 @@ def api_phase(fa, qm, da, param, gen) -> dict:
     print("vicuna " + json.dumps(out["vicuna"]))
     del vvm
     release()
+    return out, dict(model=model, cfg=cfg, tok=tok, questions=questions, images=images)
+
+
+def swap_vision(model, cfg, seed: int):
+    """A VLM of `cfg` on the card sharing `model`'s decoder, task tokens, heads
+    and logit scales (the Llama-3-8B weights are made once): a ConvNeXt
+    config gets a seeded trunk (every block's gamma from N(0, 0.1^2), so each
+    block's branch counts in bf16) and projector; otherwise the CLIP tower
+    and projector are shared too. image_newline, where the config has one,
+    is drawn from N(0, 0.02^2)."""
+    from visper_lm_tpu_torch.models.convnext import init_convnext_
+    from visper_lm_tpu_torch.models.vlm import VLM
+    from visper_lm_tpu_torch.utils.param import init_weights_
+
+    with torch.device("meta"):
+        view = VLM(cfg)
+    for name in ("decoder", "special_tokens", "heads", "logit_scales"):
+        setattr(view, name, getattr(model, name))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if cfg.use_convnext_tower:
+        view.vision_tower = init_convnext_(view.vision_tower.to_empty(device="cuda"), gen)
+        view.mm_projector = view.mm_projector.to_empty(device="cuda")
+        init_weights_(view.mm_projector, gen)
+        with torch.no_grad():
+            for stage in view.vision_tower.stages:
+                for block in stage.blocks:
+                    block.gamma.normal_(0.0, 0.1, generator=gen)
+    else:
+        view.vision_tower, view.mm_projector = model.vision_tower, model.mm_projector
+    if view.image_newline is not None:
+        drawn = torch.randn(cfg.decoder.hidden_size, device="cuda", generator=gen)
+        view.image_newline = torch.nn.Parameter(
+            (0.02 * drawn).to(model.decoder.embed_tokens.weight.dtype))
+    return view.eval()
+
+
+def vision_phase(api_state, fa, qm, wa, gen, smi: str) -> dict:
+    """Phase 11: the vision side at Llama-3-8B through the user API (phase
+    10's decoder, tokenizer, questions and images): the ConvNeXt-XXL tower at
+    768 px (tower output shape, bf16 against f32 on the same weights), a
+    ConvNeXt chat and an anyres chat (tiles padded to the batch's most,
+    spatial_unpad, JAX's grid_pinpoints), B1 at both chats' prefill shapes
+    against its plain version, one S2 tower call at CLIP-L; then, with the
+    Llama-3 model released, one PT step of bench.py's --tower convnext cell
+    (Phi3-mini, config #1, B4 x T1024, teachers, save_gate). Returns the
+    record printed as `vision_path`."""
+    import dataclasses
+
+    from visper_lm_tpu_torch.api import VisperModel
+    from visper_lm_tpu_torch.config import llama3_clip_vlm, phi3_clip_vlm, with_convnext_tower
+    from visper_lm_tpu_torch.models.convnext import convnext_tower_features
+    from visper_lm_tpu_torch.models.teachers import init_teachers, make_teacher_fn
+    from visper_lm_tpu_torch.models.vit import clip_tower_features_s2
+    from visper_lm_tpu_torch.models.vlm import init_vlm
+    from visper_lm_tpu_torch.train.optimizer import OptimizerConfig
+    from visper_lm_tpu_torch.train.train_step import make_train_step
+    from visper_lm_tpu_torch.utils.diagnostics import convnext_flops
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    model, tok = api_state["model"], api_state["tok"]
+    questions, images = api_state["questions"], api_state["images"]
+    d = model.cfg.decoder
+    out = dict(card=smi)
+
+    def chat_run(name, vm, qs, ims):
+        """One chat in bf16 with B1's launches counted, timed warm after, and
+        its first-token logits with the kernels against the plain path."""
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = qm.launches = 0
+        t0 = time.perf_counter()
+        answers = vm.chat(qs, ims, max_new_tokens=NEW_TOKENS)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        b1, b5 = fa.launches, qm.launches
+        peak = torch.cuda.max_memory_allocated()
+        check(b1 == d.num_layers and b5 == 0, f"{name}: B1 {b1} launches (want {d.num_layers}), "
+              f"B5 {b5}")
+        check(len(answers) == len(qs) and all(isinstance(a, str) for a in answers),
+              f"{name}: answers {answers}")
+        generator = list(vm._gen_cache.values())[-1]
+        check(not generator.gen_cfg.kv_quant and not generator.gen_cfg.weight_quant,
+              f"{name}: the default chat is not bf16")
+        batch = vm.chat_batch(qs, ims)
+        timing = timed_generate(generator, batch, generator.gen_cfg, batch_size=len(qs))
+        logits_k = generator.prefill(batch)[0]
+        logits_p = generator.prefill(batch, use_kernel=False)[0]
+        close = logits_close(f"{name} first-token logits kernels vs plain", logits_k, logits_p)
+        del logits_k, logits_p, generator
+        vm._gen_cache.clear()
+        rec = dict(first_call_s=first_s, **timing, peak_gib=peak / 2**30,
+                   resident_before_gib=resident / 2**30, b1_launches=b1,
+                   prompt_len=int(batch["text_ids"].shape[1]), kernel_vs_plain=close,
+                   sample=answers[0][:80], card=smi)
+        return rec, batch
+
+    # 1. ConvNeXt-XXL at 768 px with the Llama-3-8B decoder
+    t_phase = time.perf_counter()
+    cx_cfg = with_convnext_tower(llama3_clip_vlm(distill=True))
+    t0 = time.perf_counter()
+    cx = swap_vision(model, cx_cfg, seed=21)
+    torch.cuda.synchronize()
+    tower_params = sum(p.numel() for p in cx.vision_tower.parameters())
+    print(f"convnext tower on the card {time.perf_counter() - t0:.1f} s, "
+          f"{tower_params / 1e6:.1f} M params (bf16) [{smi}]")
+    check(abs(tower_params - 843.4e6) < 1e6, f"ConvNeXt-XXL has {tower_params} params")
+    vm = VisperModel(cfg=cx_cfg, model=cx, tokenizer=tok)
+    t0 = time.perf_counter()
+    pixels = torch.from_numpy(vm.chat_batch(questions, images)["images"]).cuda()
+    prep_s = time.perf_counter() - t0
+    check(tuple(pixels.shape) == (len(images), 768, 768, 3), f"convnext pixels {pixels.shape}")
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        feats = convnext_tower_features(cx.vision_tower, pixels)
+        tower_peak = torch.cuda.max_memory_allocated() - resident
+        tower_ms = cuda_ms(lambda: convnext_tower_features(cx.vision_tower, pixels), 3)
+        tower32 = copy.deepcopy(cx.vision_tower).float()
+        feats32 = convnext_tower_features(tower32, pixels)
+    check(tuple(feats.shape) == (len(images), 576, 3072) and feats.dtype == torch.bfloat16,
+          f"convnext tower output {tuple(feats.shape)} {feats.dtype}")
+    check(bool(torch.isfinite(feats).all()), "convnext tower output not finite")
+    rel = float((feats.float() - feats32).norm() / feats32.norm())
+    del tower32, feats32
+    flops = convnext_flops(cx_cfg.convnext) * len(images)
+    # where the trunk's time goes: depthwise convs, GEMMs, the elementwise rest
+    with torch.no_grad():
+        prof = profile_window("convnext_tower", lambda: convnext_tower_features(
+            cx.vision_tower, pixels), top=12, match=("conv", "nvjet", "gemm", "elementwise"))
+    out["convnext_tower"] = dict(
+        params=tower_params, shape=list(feats.shape), bf16_vs_f32_rel_frobenius=rel,
+        ms=tower_ms, tflops=flops / tower_ms * 1e-9, transient_gib=tower_peak / 2**30,
+        preprocess_s=prep_s, profile=prof, card=smi)
+    print("convnext_tower " + json.dumps(out["convnext_tower"]))
+    check(rel <= 2e-2, f"convnext tower bf16 vs f32: relative Frobenius {rel} > 2e-2")
+    del feats, pixels
+    release()
+    out["convnext_chat"], cx_batch = chat_run("convnext chat", vm, questions, images)
+    print("convnext_chat " + json.dumps(out["convnext_chat"]))
+    cx_offsets = cx_batch["pad_offsets"].tolist()
+    t = int(cx_batch["text_ids"].shape[1])
+    out["b1_convnext"] = kernel_case("llama3_convnext_prefill", len(questions), t, d.num_heads,
+                                     d.num_kv_heads, d.head_dim, torch.bfloat16, True, cx_offsets,
+                                     [t] * len(questions), gen, fa)
+    del vm, cx, cx_batch
+    release()
+    out["convnext_s"] = time.perf_counter() - t_phase
+
+    # 2. anyres chat: CLIP-L tiles, spatial_unpad, JAX's grid_pinpoints; four
+    # images that select four grids, so tile counts differ and pad + remap run
+    t_phase = time.perf_counter()
+    ar_cfg = dataclasses.replace(model.cfg, image_aspect_ratio="anyres",
+                                 mm_patch_merge_type="spatial_unpad")
+    ar = swap_vision(model, ar_cfg, seed=22)
+    vm = VisperModel(cfg=ar_cfg, model=ar, tokenizer=tok)
+    rng = np.random.default_rng(11)
+    ar_images = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in ANYRES_IMAGES]
+    ar_questions = questions[: len(ar_images)]
+    tiles, own = vm.anyres_inputs(ar_images)
+    n_tiles = [int(x.shape[0]) for x in tiles]
+    n_tokens = [int(len(i)) for i in own]
+    check(n_tiles == list(ANYRES_TILES), f"anyres tiles {n_tiles}, want {ANYRES_TILES}")
+    print(f"anyres images (H, W) {ANYRES_IMAGES}: tiles {n_tiles}, image tokens {n_tokens} [{smi}]")
+    out["anyres_chat"], ar_batch = chat_run("anyres chat", vm, ar_questions, ar_images)
+    out["anyres_chat"].update(tiles=n_tiles, image_tokens=n_tokens)
+    check(ar_batch["images"].shape[:2] == (len(ar_images), max(n_tiles)),
+          f"anyres pixels {ar_batch['images'].shape}")
+    print("anyres_chat " + json.dumps(out["anyres_chat"]))
+    t = int(ar_batch["text_ids"].shape[1])
+    out["b1_anyres"] = kernel_case("llama3_anyres_prefill", len(ar_images), t, d.num_heads,
+                                   d.num_kv_heads, d.head_dim, torch.bfloat16, True,
+                                   ar_batch["pad_offsets"].tolist(), [t] * len(ar_images), gen, fa)
+    del vm, ar, ar_batch, tiles
+    release()
+    out["anyres_s"] = time.perf_counter() - t_phase
+
+    # 3. one S2 call at CLIP-L full width: batch 2, scales (336, 1008)
+    t_phase = time.perf_counter()
+    s2_in = torch.randn(2, 1008, 1008, 3, device="cuda", generator=gen)
+    with torch.no_grad():
+        s2 = clip_tower_features_s2(model.vision_tower, s2_in, (336, 1008))
+        s2_ms = cuda_ms(lambda: clip_tower_features_s2(model.vision_tower, s2_in, (336, 1008)), 2)
+    check(tuple(s2.shape) == (2, 576, 2048) and bool(torch.isfinite(s2).all()),
+          f"S2 features {tuple(s2.shape)}, finite {bool(torch.isfinite(s2).all())}")
+    out["s2"] = dict(shape=list(s2.shape), ms=s2_ms, card=smi,
+                     seconds=time.perf_counter() - t_phase)
+    print("s2 " + json.dumps(out["s2"]))
+    del s2, s2_in
+    api_state.clear()
+    del model
+    release()
+
+    # 4. one PT step of bench.py's --tower convnext cell: Phi3-mini, config
+    # #1, B4 x T1024, the three teachers, save_gate (bench.py's default)
+    t_phase = time.perf_counter()
+    pt_cfg = with_convnext_tower(phi3_clip_vlm(distill=True))
+    pt = init_vlm(pt_cfg, device="cuda", seed=23)
+    teachers = init_teachers(pt_cfg, device="cuda", seed=7)
+    step = make_train_step(pt_cfg, OptimizerConfig(learning_rate=1e-3, total_steps=1000,
+                                                   stage="pretrain"),
+                           pt, teacher_fn=make_teacher_fn(pt_cfg), teacher_params=teachers,
+                           remat_policy="save_gate")
+    tbatch = train_batch(pt_cfg, TRAIN_BATCH, TRAIN_SEQ)
+    check(tbatch["images"].shape[1:] == (768, 768, 3), f"PT images {tbatch['images'].shape}")
+    tower = dict(pt.vision_tower.named_parameters())
+    check(not any(n.startswith("vision_tower.") for n in step.trainable)
+          and not any(p.requires_grad for p in tower.values()), "the ConvNeXt tower trains")
+    watch = {n: tower[n].detach().clone() for n in ("stem_conv.weight",
+                                                    "stages.2.blocks.29.fc1.weight")}
+    metrics = step(tbatch)                      # warm-up: update 1, lr 0
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.dq_launches = fa.dkv_launches = wa.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = step(tbatch)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(flash_fwd=fa.launches, flash_bwd_dq=fa.dq_launches,
+                    flash_bwd_dkv=fa.dkv_launches, window_attn=wa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    n_layers = pt_cfg.decoder.num_layers
+    check(launches == dict(flash_fwd=2 * n_layers, flash_bwd_dq=n_layers, flash_bwd_dkv=n_layers,
+                           window_attn=sum(teachers["swin"].cfg.depths) * TRAIN_BATCH // 2),
+          f"convnext PT step launches {launches}")
+    check(math.isfinite(metrics["loss"]) and math.isfinite(metrics["grad_norm"]),
+          f"convnext PT step metrics {metrics}")
+    _, grads = step.loss_and_grads(tbatch)
+    bad = [n for n, g in grads.items() if not bool(torch.isfinite(g).all())]
+    check(not bad, f"convnext PT step: non-finite gradients in {bad[:3]}")
+    check(all(p.grad is None for p in tower.values()), "the ConvNeXt tower got a gradient")
+    check(all(torch.equal(tower[n], w) for n, w in watch.items()), "the ConvNeXt tower changed")
+    out["convnext_pt_step"] = dict(
+        step_ms=step_ms, peak_gib=peak / 2**30, resident_before_gib=resident / 2**30,
+        launches=launches, loss=metrics["loss"],
+        grad_norm=metrics["grad_norm"], trainable=len(grads), batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        card=smi, seconds=time.perf_counter() - t_phase)
+    print("convnext_pt_step " + json.dumps(out["convnext_pt_step"]))
+    del step, pt, teachers, grads, tower, watch
+    release()
     return out
 
 
@@ -1686,7 +1961,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. environment
-    environment(_build)
+    smi = environment(_build)
     name = torch.cuda.get_device_name(0)
 
     # 2. build
@@ -2072,11 +2347,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    api = api_phase(fa, qm, da, param, gen)
+    api, api_state = api_phase(fa, qm, da, param, gen)
     print(f"api phase {time.perf_counter() - t0:.1f} s")
     print("api_path " + json.dumps({k: v for k, v in api.items() if k not in ("b1", "b5")}))
-    dec_launches = da.launches                  # over phases 4-10
-    print(f"decode_attn launches over the serving, training, engine and api paths: {dec_launches}")
+
+    # 11. the vision side at Llama-3-8B: the ConvNeXt-XXL tower and a chat
+    # through it, an anyres chat, an S2 call; a PT step of the convnext cell
+    t0 = time.perf_counter()
+    vision = vision_phase(api_state, fa, qm, wa, gen, smi)
+    print(f"vision phase {time.perf_counter() - t0:.1f} s")
+    print("vision_path " + json.dumps(
+        {k: v for k, v in vision.items() if k not in ("b1_convnext", "b1_anyres")}))
+    dec_launches = da.launches                  # over phases 4-11
+    print(f"decode_attn launches over the serving, training, engine, api and vision paths: "
+          f"{dec_launches}")
     check(dec_launches == 0, f"decode_attn launched {dec_launches} times; no path calls it")
 
     def entry(kname, source, replaces, rec, launches):
@@ -2099,6 +2383,11 @@ def main() -> int:
              llama3=dict({k: api["b1"][k] for k in LLAMA3_KEYS},
                          launches=api["chat"]["bf16"]["b1_launches"],
                          library="SDPA, boolean mask, enable_gqa=True"),
+             convnext_chat=dict({k: vision["b1_convnext"][k] for k in LLAMA3_KEYS},
+                                launches=vision["convnext_chat"]["b1_launches"]),
+             anyres_chat=dict({k: vision["b1_anyres"][k] for k in LLAMA3_KEYS},
+                              launches=vision["anyres_chat"]["b1_launches"]),
+             launches_convnext_pt_step=vision["convnext_pt_step"]["launches"]["flash_fwd"],
              train=dict(shape=train_fwd_rec["shape"], ms=train_fwd_rec["ms"],
                         mma_sync_ms=train_fwd_rec["mma_sync_ms"],
                         library_ms=train_fwd_rec["library_ms"],

@@ -137,6 +137,33 @@ def test_quantized_serving_shares_one_decoder_copy(models):
     assert torch.equal(tm.model.decoder.blocks[0].q_proj.weight, before)
 
 
+@pytest.mark.parametrize("kv", [None, False, True])
+@pytest.mark.parametrize("wq", [None, False, True, "int4"])
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_resolve_quant_follows_jax_rule(models, monkeypatch, kv, wq, device):
+    """ROADMAP C11: JAX turns quantization on by itself only on a TPU; the
+    port runs on none, so auto is off on the CPU and on CUDA alike (the
+    model's device is faked: the rule must not read it). Per call and as
+    the instance's defaults, every answer is JAX's under JAX_PLATFORMS=cpu."""
+    jm, tm = models
+    assert jax.default_backend() == "cpu"
+    monkeypatch.setattr(tapi.VisperModel, "device", property(lambda self: torch.device(device)))
+    assert tm._resolve_quant(kv, wq) == jm._resolve_quant(kv, wq)
+    jd = dataclasses.replace(jm, kv_quant=kv, weight_quant=wq)
+    td = dataclasses.replace(tm, kv_quant=kv, weight_quant=wq)
+    assert td._resolve_quant(None, None) == jd._resolve_quant(None, None)
+    assert td._resolve_quant(False, False) == (False, False)
+    if kv is None and wq is None:
+        assert tm._resolve_quant(kv, wq) == (False, False)
+
+
+def test_grid_pinpoints_default_equals_jax(models):
+    jm, tm = models
+    assert tm.grid_pinpoints == jm.grid_pinpoints
+    assert tapi.VisperModel(cfg=tm.cfg, model=None).grid_pinpoints == japi.VisperModel(
+        cfg=jm.cfg, params=None).grid_pinpoints
+
+
 def test_generator_cache_keeps_eight(models):
     _, tm = models
     tm = dataclasses.replace(tm)
@@ -296,6 +323,7 @@ def test_what_is_not_ported_raises(models):
     _, tm = models
     with pytest.raises(NotImplementedError, match="item 10"):
         tm.get_visual_interpretations("describe", _images([(40, 40)])[0])
-    anyres = dataclasses.replace(tm, cfg=dataclasses.replace(tm.cfg, image_aspect_ratio="anyres"))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        anyres.chat(["what?"], _images([(40, 40)]), max_new_tokens=2)
+    from visper_lm_tpu_torch.models.vlm import VLM
+
+    with pytest.raises(NotImplementedError, match="item 4"):
+        VLM(dataclasses.replace(tm.cfg, lora=tconfig.LoraConfig()))

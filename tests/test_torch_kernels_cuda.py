@@ -888,10 +888,11 @@ def test_engine_runs_the_kernels_and_matches_plain(cuda_gen, quant):
 
 @pytest.mark.parametrize("weight_quant", [None, "int4"])
 def test_visper_model_chat_serve_and_session_run_the_kernels(cuda_gen, weight_quant):
-    """The user API on the card: chat at the auto quantization (int8 KV +
-    w8a16 on CUDA) and at int4, serve's answers equal chat's one by one, a
-    session's later turn prefills only its own tokens; B1 once per layer and
-    prefill, B5 in every linear of every forward at int4."""
+    """The user API on the card: chat at the default quantization (bf16: JAX
+    quantizes by itself only on a TPU) and at int4, serve's answers equal
+    chat's one by one, a session's later turn prefills only its own tokens;
+    B1 once per layer and prefill, B5 in every linear of every forward at
+    int4."""
     import numpy as np
 
     from visper_lm_tpu_torch.api import VisperModel

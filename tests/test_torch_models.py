@@ -196,14 +196,16 @@ TRAINING_SLICE_MODULES = (
 QUANT_SERVING_MODULES = ("ops.quant_matmul", "ops.decode_attention", "serve.calibrate")
 USER_API_MODULES = ("api", "conversation", "checkpoint.hf_import", "checkpoint.hf_export",
                     "data.mm_utils", "data.preprocess")
+VISION_MODULES = ("utils.image", "models.convnext", "data.anyres")
 
 
 def test_port_imports_no_jax():
-    """Importing every port module, the training, quantized-serving and user
-    API slices' included, pulls in neither jax nor the JAX package, nor PIL,
-    safetensors or transformers (the card has none of them)."""
+    """Importing every port module, the training, quantized-serving, user
+    API and vision slices' included, pulls in neither jax nor the JAX
+    package, nor PIL, safetensors or transformers (the card has none of them)."""
     wanted = ["visper_lm_tpu_torch." + m
-              for m in TRAINING_SLICE_MODULES + QUANT_SERVING_MODULES + USER_API_MODULES]
+              for m in TRAINING_SLICE_MODULES + QUANT_SERVING_MODULES + USER_API_MODULES
+              + VISION_MODULES]
     code = (
         "import pkgutil, importlib, sys\n"
         "import visper_lm_tpu_torch as p\n"

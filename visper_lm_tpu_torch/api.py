@@ -12,12 +12,24 @@ uses: `tokenizer(text).input_ids`, `decode(ids, skip_special_tokens=)`,
 `bos_token_id`, `eos_token_id` and, for `fixup_tokenizer`, `add_tokens`.
 
 The model runs where its parameters are (CUDA for a user; tests pass
-device="cpu"). Serving quantization is on by default on the accelerator, as
-in the JAX package: int8 KV cache + w8a16 decoder weights when the model is
-on CUDA, bf16 elsewhere; `weight_quant="int4"` opts into w4a16 (the w4
+device="cpu"). Serving is bf16 unless the caller asks for quantization, by
+the JAX package's rule (it turns int8 KV + w8a16 on by itself only on a TPU,
+and the port runs on none): `kv_quant=True` for the int8 KV cache,
+`weight_quant=True` for w8a16, `weight_quant="int4"` for w4a16 (the w4
 kernel). Each quantized decoder is made once per (mode, calibration) and
 shared by every Generator and Engine the model opens: one copy, not one per
 prompt shape.
+
+Images: "square" / "pad" preprocess at the tower's input size (shortest-edge
+resize + centre crop + CLIP normalization): CLIP-L's 336, or the ConvNeXt
+trunk's `cfg.convnext.image_size`, as the JAX package's training CLI sizes
+ConvNeXt data (its chat uses the CLIP size whatever the tower: ROADMAP C12).
+"anyres" tiles each image on its best grid of
+`grid_pinpoints` (data/mm_utils.py), encodes base and tiles in one batch and
+splices them by host-computed gather indices (data/anyres.py); in a batch,
+tile counts are padded to the largest with zero tiles, whose rows are never
+gathered, and each sample's image_newline index is moved to the padded
+buffer's newline row.
 """
 
 from __future__ import annotations
@@ -26,7 +38,7 @@ import collections
 import dataclasses
 import json
 import os
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -53,8 +65,14 @@ from visper_lm_tpu_torch.constants import (
     DEFAULT_IMAGE_PATCH_TOKEN,
     DEFAULT_IMAGE_TOKEN,
 )
+from visper_lm_tpu_torch.data.anyres import anyres_index_plan
 from visper_lm_tpu_torch.data.collate import build_splice_plan
-from visper_lm_tpu_torch.data.mm_utils import process_images, tokenizer_image_token
+from visper_lm_tpu_torch.data.mm_utils import (
+    image_size,
+    process_images,
+    to_rgb_array,
+    tokenizer_image_token,
+)
 from visper_lm_tpu_torch.models.decoder import quantize_decoder
 from visper_lm_tpu_torch.models.vlm import VLM
 from visper_lm_tpu_torch.serve.engine import Engine, EngineConfig, Request
@@ -182,15 +200,17 @@ def _hashable(v):
 @dataclasses.dataclass
 class VisperModel:
     """A VLM with its config and tokenizer (JAX `VisperModel`: `model` is the
-    port's VLM where JAX holds a param tree; JAX's `grid_pinpoints` comes with
-    anyres, ROADMAP item 6)."""
+    port's VLM where JAX holds a param tree)."""
 
     cfg: VLMConfig
     model: Optional[VLM]
     tokenizer: Any = None
     context_len: int = 4096
-    # serving quantization: None = auto (int8 KV + w8a16 when the model is on
-    # CUDA, off elsewhere); per call through chat(kv_quant=..., weight_quant=...)
+    # the anyres grids (LLaVA's image_grid_pinpoints), JAX's default
+    grid_pinpoints: Any = "[[336,672],[672,336],[672,672],[1008,336],[336,1008]]"
+    # serving quantization: None = auto, which is off on every device the port
+    # runs on (JAX turns it on only on a TPU); per call through
+    # chat(kv_quant=..., weight_quant=...)
     kv_quant: Optional[bool] = None
     weight_quant: Optional[Union[bool, str]] = None
     # per instance, not init fields: dataclasses.replace starts empty caches
@@ -204,7 +224,7 @@ class VisperModel:
         return next(self.model.parameters()).device
 
     def _resolve_quant(self, kv, wq):
-        auto = self.device.type == "cuda"
+        auto = False                    # JAX: jax.default_backend() == "tpu"
         kv = self.kv_quant if kv is None else kv
         wq = self.weight_quant if wq is None else wq
         kv = auto if kv is None else bool(kv)
@@ -227,8 +247,7 @@ class VisperModel:
                 view = VLM(self.cfg)
             for name, child in self.model.named_children():
                 setattr(view, name, child)
-            if hasattr(self.model, "image_newline"):
-                view.image_newline = self.model.image_newline
+            view.image_newline = self.model.image_newline
             view.decoder = quantize_decoder(
                 self.model.decoder, mode, act_rms=calibration if mode == "int4" else None)
             self._serving_models[key] = view.eval()
@@ -319,16 +338,21 @@ class VisperModel:
         conv.append_message(conv.roles[1], None)
         return conv.get_prompt()
 
-    def _plans(self, prompts: Sequence[str], max_len: int):
+    def _plans(self, prompts: Sequence[str], max_len: int,
+               feature_indices: Optional[Sequence[np.ndarray]] = None):
+        """Splice plans of the prompts; feature_indices gives each image's
+        gather indices (anyres) in place of the sequential layout."""
         d = self.cfg.distill
+        feature_indices = feature_indices or [None] * len(prompts)
         return [
             build_splice_plan(
                 tokenizer_image_token(p, self.tokenizer), None, max_len,
                 num_image_tokens=self.cfg.num_image_tokens,
                 num_task_tokens=d.num_task_tokens if d else 0,
                 num_tasks=len(d.task_order()) if d else 0,
+                image_feature_indices=None if idx is None else [idx],
             )
-            for p in prompts
+            for p, idx in zip(prompts, feature_indices)
         ]
 
     def stop_strings(self) -> List[str]:
@@ -350,37 +374,89 @@ class VisperModel:
             eos_ids.append(self.tokenizer.eos_token_id)
         return eos_ids
 
+    # ---------------------------------------------------------------- images
+    def tower_geometry(self) -> Tuple[int, int]:
+        """(the tower's input side in pixels, its feature grid's side):
+        CLIP-L 336 / 24, the ConvNeXt-XXL trunk 768 / 24. Images are
+        preprocessed at the first (JAX's chat takes CLIP's whatever the
+        tower: ROADMAP C12)."""
+        if self.cfg.use_convnext_tower:
+            return self.cfg.convnext.image_size, self.cfg.convnext.image_size // 32
+        return self.cfg.vision.image_size, self.cfg.vision.num_patches_per_side
+
+    def _anyres(self) -> bool:
+        return self.cfg.image_aspect_ratio == "anyres" and bool(self.grid_pinpoints)
+
     def _pixels(self, images: Sequence[Any]) -> np.ndarray:
-        if self.cfg.image_aspect_ratio == "anyres":
-            raise NotImplementedError("anyres images are not ported yet (ROADMAP queue A, item 6)")
+        """(B, S, S, 3) f32 pixels at the tower's size; an anyres config's
+        images are squared (a ChatSession's, as JAX's)."""
+        aspect = self.cfg.image_aspect_ratio
+        if aspect == "anyres":
+            aspect = "square"
         return np.asarray(
-            process_images(list(images), image_aspect_ratio=self.cfg.image_aspect_ratio,
-                           image_size=self.cfg.vision.image_size),
+            process_images(list(images), image_aspect_ratio=aspect,
+                           image_size=self.tower_geometry()[0]),
             dtype=np.float32,
         )
+
+    def anyres_inputs(self, images: Sequence[Any]) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+        """Each image's tiles (1 + n_tiles, S, S, 3), base first, and its
+        gather indices into its own feature buffer (the newline row at
+        (1 + n_tiles) x per_tile)."""
+        size, side = self.tower_geometry()
+        tiles = process_images(list(images), image_aspect_ratio="anyres", image_size=size,
+                               grid_pinpoints=self.grid_pinpoints)
+        indices = [
+            anyres_index_plan(image_size(to_rgb_array(im)), self.grid_pinpoints, tile_size=size,
+                              patch_side=side, merge_type=self.cfg.mm_patch_merge_type)[0]
+            for im in images
+        ]
+        return [np.asarray(t, dtype=np.float32) for t in tiles], indices
 
     def chat_batch(self, questions: Sequence[str], images: Sequence[Any]) -> Dict[str, np.ndarray]:
         """chat()'s Generator batch: the templated prompts left-padded to the
         next multiple of 128 that holds the longest (image and task tokens
-        spliced in), and the preprocessed images."""
+        spliced in), and the preprocessed images. anyres: the tiles padded
+        to the batch's most with zero tiles, (B, max_tiles, S, S, 3), each
+        sample's newline index moved to max_tiles x per_tile."""
         d = self.cfg.distill
         prompts = [self.build_prompt(q) for q in questions]
+        indices = None
+        n_image = self.cfg.num_image_tokens
+        if self._anyres():
+            tiles, own = self.anyres_inputs(images)
+            max_tiles = max(t.shape[0] for t in tiles)
+            per_tile = self.tower_geometry()[1] ** 2
+            pixels = np.zeros((len(tiles), max_tiles) + tiles[0].shape[1:], np.float32)
+            indices = []
+            for i, (t, idx) in enumerate(zip(tiles, own)):
+                pixels[i, : t.shape[0]] = t
+                indices.append(np.where(idx == t.shape[0] * per_tile, max_tiles * per_tile, idx))
+            n_image = max(len(idx) for idx in indices)
+        else:
+            pixels = self._pixels(images)
         spliced = max(len(tokenizer_image_token(p, self.tokenizer)) for p in prompts) + (
-            self.cfg.num_image_tokens + (d.num_task_tokens * len(d.task_order()) if d else 0))
+            n_image + (d.num_task_tokens * len(d.task_order()) if d else 0))
         pad_to = min(-(-spliced // 128) * 128, self.context_len)
-        batch = left_pad_plans(self._plans(prompts, pad_to), pad_to)
-        batch["images"] = self._pixels(images)
+        batch = left_pad_plans(self._plans(prompts, pad_to, indices), pad_to)
+        batch["images"] = pixels
         return batch
 
     def requests(self, questions: Sequence[str], images: Sequence[Any],
                  max_new_tokens: int = 128) -> List[Request]:
-        """serve()'s engine requests, uid = the question's index."""
-        plans = self._plans([self.build_prompt(q) for q in questions], self.context_len)
+        """serve()'s engine requests, uid = the question's index; an anyres
+        request carries its own tiles (1, 1 + n_tiles, S, S, 3)."""
+        if self._anyres():
+            tiles, indices = self.anyres_inputs(images)
+            pixels = [t[None] for t in tiles]
+        else:
+            pixels, indices = [self._pixels([im]) for im in images], None
+        plans = self._plans([self.build_prompt(q) for q in questions], self.context_len, indices)
         stops, eos_ids = tuple(self.stop_strings()), tuple(self._eos_ids())
         return [
-            Request(plan=plan, images=self._pixels([im]), max_new_tokens=max_new_tokens,
+            Request(plan=plan, images=px, max_new_tokens=max_new_tokens,
                     eos_token_ids=eos_ids, stop_strings=stops, uid=i)
-            for i, (plan, im) in enumerate(zip(plans, images))
+            for i, (plan, px) in enumerate(zip(plans, pixels))
         ]
 
     # --------------------------------------------------------------- generate

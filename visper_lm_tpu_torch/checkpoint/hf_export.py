@@ -2,9 +2,9 @@
 and safetensors files (counterpart of visper_lm_tpu/checkpoint/hf_export.py).
 
 The inverse of hf_import: the same key surface, Phi3's q/k/v and gate/up
-fused again, the CLIP tower's fused qkv split into q/k/v (views). Tensors
-keep their dtype (bf16 on the card) and stay where they are until the
-writer copies them to the host one at a time.
+fused again, the CLIP tower's fused qkv split into q/k/v (views), a ConvNeXt
+trunk in timm layout. Tensors keep their dtype (bf16 on the card) and stay
+where they are until the writer copies them to the host one at a time.
 """
 
 from __future__ import annotations
@@ -16,8 +16,14 @@ from typing import Any, Dict, Mapping, Union
 import torch
 import torch.nn as nn
 
-from visper_lm_tpu_torch.checkpoint.hf_import import HEAD_NAMES, SAFETENSORS_DTYPES, TOWER_PREFIX
+from visper_lm_tpu_torch.checkpoint.hf_import import (
+    CONVNEXT_PREFIX,
+    HEAD_NAMES,
+    SAFETENSORS_DTYPES,
+    TOWER_PREFIX,
+)
 from visper_lm_tpu_torch.config import DecoderConfig, VisionConfig, VLMConfig, config_to_json
+from visper_lm_tpu_torch.models.convnext import export_openclip_convnext
 
 StateDict = Dict[str, torch.Tensor]
 _DTYPE_NAMES = {v: k for k, v in SAFETENSORS_DTYPES.items()}
@@ -121,9 +127,6 @@ def export_vlm(model: Union[nn.Module, Mapping[str, torch.Tensor]], cfg: VLMConf
     if any(".blocks_chunks." in k for k in params):
         raise NotImplementedError(
             "the stream-grads decoder layout is not ported yet (ROADMAP queue A, item 11)")
-    if cfg.use_convnext_tower:
-        raise NotImplementedError(
-            "ConvNeXt towers are not ported yet (ROADMAP queue A, item 6)")
     sd = export_decoder(_sub(params, "decoder."), cfg.decoder)
     projector = _sub(params, "mm_projector.")
     i = 0
@@ -133,7 +136,9 @@ def export_vlm(model: Union[nn.Module, Mapping[str, torch.Tensor]], cfg: VLMConf
     if "image_newline" in params:
         sd["model.image_newline"] = params["image_newline"]
     tower = _sub(params, "vision_tower.")
-    if tower:
+    if tower and cfg.use_convnext_tower:
+        sd.update(export_openclip_convnext(tower, cfg.convnext, prefix=CONVNEXT_PREFIX))
+    elif tower:
         sd.update(export_clip_vision(tower, cfg.vision, prefix=TOWER_PREFIX))
     if cfg.distill is not None:
         for task, tok in _sub(params, "special_tokens.").items():

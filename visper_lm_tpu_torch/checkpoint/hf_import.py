@@ -5,7 +5,10 @@ The key surface is the reference loader's:
   * the causal LM: model.embed_tokens / model.layers.N.* / model.norm /
     lm_head (Phi3's fused qkv_proj and gate_up_proj are split here);
   * the mm projector Sequential model.mm_projector.{0,2}.*;
-  * the CLIP tower model.vision_tower.vision_tower.vision_model.*;
+  * the CLIP tower model.vision_tower.vision_tower.vision_model.*, or the
+    ConvNeXt trunk in OpenCLIP / timm layout under
+    model.vision_tower.vision_tower.* (models/convnext.py);
+  * image_newline model.image_newline;
   * the task tokens model.special_{depth,seg,gen}_tokens, the per-layer heads
     image_{gen,seg,depth}_heads.N.projector.* and the logit scales
     {gen,seg,depth}_logit_scale.
@@ -40,6 +43,7 @@ from visper_lm_tpu_torch.config import (
     VLMConfig,
 )
 from visper_lm_tpu_torch.device import resolve_device
+from visper_lm_tpu_torch.models.convnext import import_openclip_convnext
 from visper_lm_tpu_torch.models.vlm import VLM
 
 StateDict = Dict[str, torch.Tensor]
@@ -53,6 +57,7 @@ SAFETENSORS_DTYPES = {
 
 HEAD_NAMES = {"gen": "image_gen_heads", "seg": "image_seg_heads", "depth": "image_depth_heads"}
 TOWER_PREFIX = "model.vision_tower.vision_tower.vision_model."
+CONVNEXT_PREFIX = "model.vision_tower.vision_tower."
 
 
 # ---------------------------------------------------------------------------
@@ -262,16 +267,19 @@ def _prefixed(prefix: str, sd: StateDict) -> StateDict:
 def import_vlm(sd: Mapping[str, torch.Tensor], cfg: VLMConfig) -> StateDict:
     """A full OLA / LLaVA checkpoint -> the port's `VLM` state-dict names,
     with image_newline, task tokens, heads and logit scales where the
-    checkpoint has them."""
-    if cfg.use_convnext_tower:
-        raise NotImplementedError(
-            "ConvNeXt towers are not ported yet (ROADMAP queue A, item 6)")
+    checkpoint has them. A ConvNeXt config reads its trunk from the timm
+    keys under model.vision_tower.vision_tower. (where the reference's
+    post-hoc tower reload finds them), unless the checkpoint holds a CLIP
+    tower there, as JAX's importer decides."""
     out = _prefixed("decoder.", import_decoder(sd, cfg.decoder))
     out.update(_prefixed("mm_projector.", import_mlp_projector(sd)))
     if "model.image_newline" in sd:
         out["image_newline"] = sd["model.image_newline"]
     if any(k.startswith(TOWER_PREFIX) for k in sd):
         out.update(_prefixed("vision_tower.", import_clip_vision(sd, cfg.vision, TOWER_PREFIX)))
+    elif cfg.use_convnext_tower and any(k.startswith(CONVNEXT_PREFIX) for k in sd):
+        out.update(_prefixed("vision_tower.", import_openclip_convnext(
+            sd, cfg.convnext, prefix=CONVNEXT_PREFIX)))
 
     d = cfg.distill
     if d is not None:
@@ -306,8 +314,9 @@ def to_model(
     device = resolve_device(device)
     with torch.device("meta"):
         model = VLM(cfg)
-        if "image_newline" in sd:
-            model.image_newline = nn.Parameter(torch.empty(cfg.decoder.hidden_size))
+        # JAX's tree holds image_newline when the checkpoint does, whatever the config
+        model.image_newline = (nn.Parameter(torch.empty(cfg.decoder.hidden_size))
+                               if "image_newline" in sd else None)
     for task in list(model.heads):
         for i in reversed(range(len(model.heads[task]))):
             if not any(k.startswith(f"heads.{task}.{i}.") for k in sd):

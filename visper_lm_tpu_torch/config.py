@@ -174,8 +174,7 @@ class DistillConfig:
 
 @dataclass(frozen=True)
 class ConvNeXtConfig:
-    """OpenCLIP ConvNeXt-XXL trunk config (the port has no ConvNeXt tower
-    yet; the class is here so a config that names one round-trips)."""
+    """OpenCLIP ConvNeXt-XXL trunk config (models/convnext.py)."""
 
     image_size: int = 768
     depths: Tuple[int, ...] = (3, 4, 30, 3)
@@ -212,8 +211,8 @@ class VLMConfig:
     num_image_tokens: int = 576
     image_aspect_ratio: str = "square"
     mm_patch_merge_type: str = "flat"
-    # ConvNeXt tower and LoRA belong to later slices; the fields stay for
-    # config parity and the port rejects configs that set them.
+    # the ConvNeXt tower replaces the CLIP one when set; LoRA belongs to a
+    # later slice (the port's VLM rejects a config that sets it)
     use_convnext_tower: bool = False
     convnext: Optional[Any] = None
     lora: Optional[Any] = None
@@ -393,7 +392,7 @@ def vicuna_clip_vlm(distill: bool = False, **kwargs: Any) -> VLMConfig:
 
 def with_convnext_tower(cfg: VLMConfig) -> VLMConfig:
     """The OpenCLIP ConvNeXt-XXL@768 tower in place of CLIP-ViT (576 tokens
-    x 3072). A config only: the port's VLM raises for it (ROADMAP item 6)."""
+    x 3072); `vision` stays CLIP-L's, as in the JAX package."""
     return dataclasses.replace(
         cfg,
         use_convnext_tower=True,
@@ -404,7 +403,7 @@ def with_convnext_tower(cfg: VLMConfig) -> VLMConfig:
 
 def probe_distill_config(probe_mode: str, num_layers: int, **overrides: Any) -> DistillConfig:
     """Probing: one head per LLM layer for a single task, plain smooth-L1,
-    no task tokens, no contrastive loss (the probe heads are not ported)."""
+    no task tokens, no contrastive loss (models/heads.py has the probe heads)."""
     specs = {
         "gen": (ResamplerConfig(num_tokens=1, output_dim=1024), 1024, 1),
         "seg": (ResamplerConfig(num_tokens=576, output_dim=1536), 1536, 576),

@@ -10,8 +10,8 @@ point coefficients, horizontal pass first, a uint8 clip after each pass), and
 crops and pads as PIL does (outside the image is 0), so the arrays equal the
 JAX package's.
 
-Only the tiling functions of anyres are here: encoding tiles waits for the
-anyres tower (ROADMAP item 6).
+anyres: the tiling is here; the feature index plans are in data/anyres.py
+and the tiles are encoded by models/vlm.py's `encode_images`.
 """
 
 from __future__ import annotations

@@ -4,21 +4,24 @@ visper_lm_tpu/models/heads.py: `TaskHead` holds `init_task_head`'s params,
 
 A head is a Resampler in task-token mode; the depth head runs its resampler
 at the LLM's width and carries three intermediate MLPs (Linear, ReLU,
-Linear) for weight parity. Those MLPs feed only the frozen DPT decoder of the
-visualisation path (JAX `depth_intermediate_features`, not ported), never the
-loss. The probe heads are not on the PT path and are not ported.
+Linear). Those MLPs feed only the frozen DPT decoder of the visualisation
+path (`depth_intermediate_features`), never the loss. `ProbeHead` is the
+DepthProbeHead-style probe: one such MLP per feature level
+(`init_probe_head`, `probe_head_forward`).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from visper_lm_tpu_torch.config import DistillTaskConfig
+from visper_lm_tpu_torch.device import resolve_device
 from visper_lm_tpu_torch.models.resampler import Resampler
+from visper_lm_tpu_torch.utils.param import init_weights_
 
 
 class BuildMLP(nn.Module):
@@ -61,3 +64,39 @@ def task_head_forward(
 ) -> torch.Tensor:
     """The predicted teacher embedding (B, num_tokens, output_dim)."""
     return head.resampler(llm_feats, task_tokens)
+
+
+def depth_intermediate_features(head: TaskHead, visual_feats: torch.Tensor) -> List[torch.Tensor]:
+    """The depth head's 4-level pyramid for the frozen DPT decoder: the three
+    intermediate MLPs of the resampler output, then the output itself."""
+    feats = [mlp(visual_feats) for mlp in (head.intermediate or ())]
+    return feats + [visual_feats]
+
+
+class ProbeHead(nn.Module):
+    """JAX `init_probe_head` params: `mlps`, num_levels BuildMLPs."""
+
+    def __init__(self, llm_hidden_size: int, output_dim: int, num_levels: int = 4, device=None,
+                 dtype=None):
+        super().__init__()
+        self.mlps = nn.ModuleList(
+            BuildMLP(llm_hidden_size, output_dim, device=device, dtype=dtype)
+            for _ in range(num_levels)
+        )
+
+
+def init_probe_head(
+    llm_hidden_size: int, output_dim: int, num_levels: int = 4, *,
+    generator: torch.Generator, device=None, dtype=None,
+) -> ProbeHead:
+    """A ProbeHead with JAX's distributions (linears uniform, bias 0) on
+    `device` (CUDA when None)."""
+    head = ProbeHead(llm_hidden_size, output_dim, num_levels, device=resolve_device(device),
+                     dtype=dtype)
+    init_weights_(head, generator)
+    return head
+
+
+def probe_head_forward(head: ProbeHead, llm_feats: torch.Tensor) -> List[torch.Tensor]:
+    """One prediction per level: each MLP on the same LLM features."""
+    return [mlp(llm_feats) for mlp in head.mlps]

@@ -10,11 +10,14 @@ visper_lm_tpu/models/resampler.py).
     caller, tiled or mean-pooled to num_tokens, and are projected with the same
     proj_in as x.
 
-The JAX `attention_pool2d` is not on the PT path and is not ported.
+  * AttentionPool2d / `attention_pool2d`: CLIP-style attention pooling (the
+    mean token prepended, a learned position embedding, one multi-head
+    attention with its softmax in f32, c_proj to output_dim).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -22,7 +25,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from visper_lm_tpu_torch.config import ResamplerConfig
-from visper_lm_tpu_torch.utils.param import LayerNorm
+from visper_lm_tpu_torch.device import resolve_device
+from visper_lm_tpu_torch.utils.param import LayerNorm, init_weights_
 
 
 class PerceiverAttention(nn.Module):
@@ -124,3 +128,50 @@ class Resampler(nn.Module):
             lat = layer.attn(x, lat) + lat
             lat = layer.ff(lat) + lat
         return self.norm_out(self.proj_out(lat))
+
+
+class AttentionPool2d(nn.Module):
+    """JAX `init_attention_pool2d` params: pos_embed (seq_len + 1, D) and the
+    q/k/v/c projections (with bias); c_proj maps to output_dim."""
+
+    def __init__(self, seq_len: int, embed_dim: int, output_dim: Optional[int] = None,
+                 device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.pos_embed = nn.Parameter(torch.zeros(seq_len + 1, embed_dim, **kw))
+        self.q_proj = nn.Linear(embed_dim, embed_dim, **kw)
+        self.k_proj = nn.Linear(embed_dim, embed_dim, **kw)
+        self.v_proj = nn.Linear(embed_dim, embed_dim, **kw)
+        self.c_proj = nn.Linear(embed_dim, output_dim or embed_dim, **kw)
+
+
+@torch.no_grad()
+def init_attention_pool2d(
+    seq_len: int, embed_dim: int, output_dim: Optional[int] = None, *,
+    generator: torch.Generator, device=None, dtype=None,
+) -> AttentionPool2d:
+    """An AttentionPool2d with JAX's distributions (pos_embed N(0, 1) / sqrt(D),
+    the linears uniform with bias 0) on `device` (CUDA when None)."""
+    pool = AttentionPool2d(seq_len, embed_dim, output_dim, device=resolve_device(device),
+                           dtype=dtype)
+    init_weights_(pool, generator)
+    pool.pos_embed.normal_(0.0, 1.0, generator=generator).div_(math.sqrt(embed_dim))
+    return pool
+
+
+def attention_pool2d(
+    pool: AttentionPool2d, x: torch.Tensor, num_heads: int, return_all_tokens: bool = False
+) -> torch.Tensor:
+    """x (B, N, D) token features -> pooled (B, out), or every token (B, N + 1, out)."""
+    b, n, d = x.shape
+    h = torch.cat([x.mean(dim=1, keepdim=True), x], dim=1) + pool.pos_embed[None].to(x.dtype)
+    hd = d // num_heads
+
+    def heads(t: torch.Tensor) -> torch.Tensor:
+        return t.reshape(b, n + 1, num_heads, hd).transpose(1, 2)
+
+    q, k, v = heads(pool.q_proj(h)), heads(pool.k_proj(h)), heads(pool.v_proj(h))
+    w = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", q, k).float() / hd ** 0.5, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", w.to(v.dtype), v).transpose(1, 2).reshape(b, n + 1, d)
+    out = pool.c_proj(out)
+    return out if return_all_tokens else out[:, 0]

@@ -7,8 +7,11 @@ One module covers the three towers of the PT step, by config and flags:
     exact gelu, eps 1e-6;
   * CLIP-ViT-H/14-224, the generation teacher: adds the visual projection of
     the final-normed CLS token (`cls` output).
-Patchify is one matmul. Attention is plain PyTorch, as the JAX tower leaves it
-to XLA.
+A tower may have no class token (`VisionConfig.use_class_token=False`: no
+cls_token, a position embedding of num_patches rows, no 'cls' output, and
+`clip_tower_features` keeps every row). `clip_tower_features_s2` is the S2
+multiscale tower. Patchify is one matmul. Attention is plain PyTorch, as the
+JAX tower leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch.nn as nn
 
 from visper_lm_tpu_torch.config import VisionConfig
 from visper_lm_tpu_torch.ops.attention import mha_plain
+from visper_lm_tpu_torch.utils.image import resize_area, resize_bicubic
 from visper_lm_tpu_torch.utils.param import ACTIVATIONS, LayerNorm, init_weights_
 
 
@@ -76,7 +80,8 @@ class ViTBlock(nn.Module):
 
 
 class VisionTower(nn.Module):
-    """ViT with a class token (JAX `init_vit` params + `vit_forward`).
+    """ViT (JAX `init_vit` params + `vit_forward`), with a class token unless
+    cfg.use_class_token is False.
 
     use_layerscale adds DINOv2's ls1/ls2; projection_dim adds CLIP's
     visual_projection (no bias) of the final-normed CLS token."""
@@ -86,14 +91,13 @@ class VisionTower(nn.Module):
         projection_dim: Optional[int] = None, device=None, dtype=None,
     ):
         super().__init__()
-        if not cfg.use_class_token:
-            raise NotImplementedError("towers without a class token are not ported yet")
         kw = dict(device=device, dtype=dtype)
         h = cfg.hidden_size
+        n_cls = int(cfg.use_class_token)
         self.cfg = cfg
         self.patch_embed = nn.Linear(3 * cfg.patch_size ** 2, h, **kw)
-        self.pos_embed = nn.Parameter(torch.zeros(cfg.num_patches + 1, h, **kw))
-        self.cls_token = nn.Parameter(torch.zeros(h, **kw))
+        self.pos_embed = nn.Parameter(torch.zeros(cfg.num_patches + n_cls, h, **kw))
+        self.cls_token = nn.Parameter(torch.zeros(h, **kw)) if n_cls else None
         self.pre_norm = LayerNorm(h, cfg.norm_eps, **kw) if cfg.use_pre_norm else None
         self.blocks = nn.ModuleList(
             ViTBlock(cfg, use_layerscale, **kw) for _ in range(cfg.num_layers)
@@ -118,8 +122,9 @@ class VisionTower(nn.Module):
         cfg = self.cfg
         x = patchify(images.to(self.patch_embed.weight.dtype), cfg.patch_size)
         h = self.patch_embed(x)
-        cls = self.cls_token.expand(h.shape[0], 1, h.shape[-1])
-        h = torch.cat([cls, h], dim=1) + self.pos_embed[None]
+        if self.cls_token is not None:
+            h = torch.cat([self.cls_token.expand(h.shape[0], 1, h.shape[-1]), h], dim=1)
+        h = h + self.pos_embed[None]
         if self.pre_norm is not None:
             h = self.pre_norm(h)
 
@@ -138,10 +143,11 @@ class VisionTower(nn.Module):
         if final_norm:
             h = self.final_norm(h)
             out["last"] = h
-            cls_tok = h[:, 0]
-            if self.visual_projection is not None:
-                cls_tok = self.visual_projection(cls_tok)
-            out["cls"] = cls_tok
+            if self.cls_token is not None:
+                cls_tok = h[:, 0]
+                if self.visual_projection is not None:
+                    cls_tok = self.visual_projection(cls_tok)
+                out["cls"] = cls_tok
         return out
 
 
@@ -151,7 +157,8 @@ def init_tower_(tower: VisionTower, generator: torch.Generator) -> None:
     uniform, norms 1/0, position embedding and class token 0, layerscale 1e-5."""
     init_weights_(tower, generator)
     tower.pos_embed.zero_()
-    tower.cls_token.zero_()
+    if tower.cls_token is not None:
+        tower.cls_token.zero_()
     for m in tower.modules():
         if isinstance(m, LayerScale):
             m.gamma.fill_(1e-5)
@@ -164,7 +171,36 @@ def clip_tower_features(tower: VisionTower, images: torch.Tensor) -> torch.Tenso
     layer = cfg.select_layer if cfg.select_layer >= 0 else cfg.num_layers + cfg.select_layer
     feats = tower(images, output_layers=(layer,), final_norm=False)["taps"][layer]
     if cfg.select_feature == "patch":
-        return feats[:, 1:]
+        return feats[:, 1:] if cfg.use_class_token else feats
     if cfg.select_feature == "cls_patch":
         return feats
     raise ValueError(f"Unexpected select_feature: {cfg.select_feature}")
+
+
+def clip_tower_features_s2(
+    tower: VisionTower,
+    images: torch.Tensor,               # (B, S_max, S_max, 3) at the largest scale
+    scales: Sequence[int] = (336, 1008),
+) -> torch.Tensor:
+    """CLIPVisionTowerS2 multiscale features (s2wrapper semantics): for each
+    scale, bicubic-resize the input, split it into base-size tiles
+    (chessboard, row-major), run the tower on all tiles at once, reassemble
+    the feature grid, area-downscale it to the base grid; the scales'
+    features concatenated on channels -> (B, num_patches, hidden x len(scales))."""
+    base = min(scales)
+    side = tower.cfg.num_patches_per_side
+    b = images.shape[0]
+    outs = []
+    for scale in sorted(scales):
+        imgs = resize_bicubic(images, (scale, scale))
+        n = scale // base
+        if n == 1:
+            grid = clip_tower_features(tower, imgs).reshape(b, side, side, -1)
+        else:
+            tiles = imgs.reshape(b, n, base, n, base, 3).permute(0, 1, 3, 2, 4, 5)
+            feats = clip_tower_features(tower, tiles.reshape(-1, base, base, 3))
+            d = feats.shape[-1]
+            grid = feats.reshape(b, n, n, side, side, d).permute(0, 1, 3, 2, 4, 5)
+            grid = grid.reshape(b, n * side, n * side, d)
+        outs.append(resize_area(grid, (side, side)).reshape(b, side * side, -1))
+    return torch.cat(outs, dim=-1)

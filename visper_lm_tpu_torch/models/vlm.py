@@ -6,6 +6,12 @@ Prompt layout:
 
     [ sys | image (576) | task tokens (num_task_tokens per task, mode order) | text | pad ]
 
+The tower is CLIP-ViT (`models/vit.py`) or, with cfg.use_convnext_tower, the
+ConvNeXt trunk (`models/convnext.py`). `encode_images` also takes anyres tiles
+(B, n_tiles, H, W, 3): every tile goes through the tower in one batch, and
+with an "unpad" merge type the learned image_newline row is appended after
+the tiles' rows (data/anyres.py's index plans gather from that layout).
+
 Serving runs the decoder only; training (`vlm_forward` with taps) also runs
 the distillation heads on static slices of the tapped layer states
 (`predict_task_embeddings`).
@@ -21,6 +27,7 @@ import torch.nn as nn
 from visper_lm_tpu_torch import constants
 from visper_lm_tpu_torch.config import VLMConfig
 from visper_lm_tpu_torch.device import resolve_device
+from visper_lm_tpu_torch.models.convnext import ConvNeXt, convnext_tower_features, init_convnext_
 from visper_lm_tpu_torch.models.decoder import Decoder
 from visper_lm_tpu_torch.models.heads import TaskHead, task_head_forward
 from visper_lm_tpu_torch.models.projector import Projector
@@ -40,23 +47,28 @@ def tap_layer_union(cfg: VLMConfig) -> Tuple[int, ...]:
 
 
 class VLM(nn.Module):
-    """Decoder + CLIP tower + projector + task-token parameters, and with a
-    distill config the heads (per task, one per tapped layer) and the
-    contrastive logit scales (f32)."""
+    """Decoder + vision tower (CLIP-ViT or ConvNeXt) + projector + task-token
+    parameters; image_newline (the decoder's width) with an "unpad" merge
+    type, else None; with a distill config the heads (per task, one per
+    tapped layer) and the contrastive logit scales (f32)."""
 
     def __init__(self, cfg: VLMConfig, device=None):
         super().__init__()
-        if cfg.use_convnext_tower or cfg.lora is not None:
-            raise NotImplementedError("ConvNeXt towers and LoRA are not ported yet")
-        if cfg.image_aspect_ratio == "anyres" or "unpad" in cfg.mm_patch_merge_type:
-            raise NotImplementedError("anyres tiling is not ported yet")
+        if cfg.lora is not None:
+            raise NotImplementedError("LoRA is not ported yet (ROADMAP queue A, item 4)")
         self.cfg = cfg
         dtype = torch_dtype(cfg.decoder.dtype)
         self.decoder = Decoder(cfg.decoder, device=device, dtype=dtype)
-        self.vision_tower = VisionTower(
-            cfg.vision, device=device, dtype=torch_dtype(cfg.vision.dtype)
-        )
+        if cfg.use_convnext_tower:
+            self.vision_tower = ConvNeXt(
+                cfg.convnext, device=device, dtype=torch_dtype(cfg.convnext.dtype))
+        else:
+            self.vision_tower = VisionTower(
+                cfg.vision, device=device, dtype=torch_dtype(cfg.vision.dtype))
         self.mm_projector = Projector(cfg.projector, device=device, dtype=dtype)
+        self.register_parameter("image_newline", nn.Parameter(
+            torch.zeros(cfg.decoder.hidden_size, device=device, dtype=dtype))
+            if "unpad" in cfg.mm_patch_merge_type else None)
         self.special_tokens = nn.ParameterDict()
         d = cfg.distill
         if d is not None and d.num_task_tokens > 0:
@@ -98,8 +110,13 @@ def init_vlm(
     model = model.to_empty(device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
     init_weights_(model, gen)
-    init_tower_(model.vision_tower, gen)
+    if cfg.use_convnext_tower:
+        init_convnext_(model.vision_tower, gen)
+    else:
+        init_tower_(model.vision_tower, gen)
     with torch.no_grad():
+        if model.image_newline is not None:
+            model.image_newline.zero_()
         for p in model.special_tokens.values():
             p.normal_(0.0, 1.0, generator=gen)
         for p in model.logit_scales.values():
@@ -128,11 +145,28 @@ def build_task_token_table(model: VLM) -> Optional[torch.Tensor]:
     return torch.cat(rows, dim=0)
 
 
+def tower_features(model: VLM, images: torch.Tensor) -> torch.Tensor:
+    """The configured tower's features (B, N, tower_hidden) of (B, H, W, 3) images."""
+    if model.cfg.use_convnext_tower:
+        return convnext_tower_features(model.vision_tower, images)
+    return clip_tower_features(model.vision_tower, images)
+
+
 def encode_images(model: VLM, images: torch.Tensor) -> torch.Tensor:
-    """Vision tower + projector for square images (B, H, W, 3) -> (B, N, llm_hidden)."""
-    if images.ndim != 4:
-        raise NotImplementedError("only square (B, H, W, 3) images; anyres tiles come later")
-    return model.mm_projector(clip_tower_features(model.vision_tower, images))
+    """Vision tower + projector: images (B, H, W, 3) -> (B, N, llm_hidden), or
+    anyres tiles (B, n_tiles, H, W, 3) -> (B, n_tiles * per_tile [+ 1],
+    llm_hidden), the tiles' rows in order and the image_newline row last when
+    the model has one."""
+    if images.ndim != 5:
+        return model.mm_projector(tower_features(model, images))
+    b, n_tiles = images.shape[:2]
+    tiles = images.reshape(b * n_tiles, *images.shape[2:])
+    feats = model.mm_projector(tower_features(model, tiles))
+    feats = feats.reshape(b, -1, feats.shape[-1])
+    if model.image_newline is None:
+        return feats
+    newline = model.image_newline.to(feats.dtype).expand(b, 1, feats.shape[-1])
+    return torch.cat([feats, newline], dim=1)
 
 
 def splice_embeddings(

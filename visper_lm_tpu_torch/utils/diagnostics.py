@@ -6,15 +6,14 @@ visper_lm_tpu/utils/diagnostics.py).
     device before each `step()`);
   * trace(): a torch.profiler trace of the enclosed work, written to log_dir
     as a Chrome trace;
-  * train_step_flops / vision_flops / teacher_flops: the JAX package's
-    analytic counts (matmul terms); decoder_params: the decoder parameters
-    train_step_flops charges 6 FLOPs per token;
+  * train_step_flops / vision_flops / convnext_flops / teacher_flops: the
+    JAX package's analytic counts (matmul terms); decoder_params: the decoder
+    parameters train_step_flops charges 6 FLOPs per token;
   * finite_check(): per-group (all finite?, abs-max) of named tensors, with
     one host read;
   * nan_guard(): autograd anomaly detection (a NaN made in a backward op
     raises there).
 
-`convnext_flops` waits for the ConvNeXt tower.
 """
 
 from __future__ import annotations
@@ -110,12 +109,26 @@ def decoder_params(cfg) -> int:
 
 
 def vision_flops(cfg) -> float:
-    """Analytic forward FLOPs per image through the CLIP tower."""
-    if getattr(cfg, "use_convnext_tower", False):
-        raise NotImplementedError("the ConvNeXt tower is not ported yet")
+    """Analytic forward FLOPs per image through the configured tower."""
+    if getattr(cfg, "use_convnext_tower", False) and cfg.convnext is not None:
+        return convnext_flops(cfg.convnext)
     v = cfg.vision
     p_vis = v.num_layers * (4 * v.hidden_size ** 2 + 2 * v.hidden_size * v.mlp_dim)
     return 2.0 * p_vis * (v.num_patches + 1)
+
+
+def convnext_flops(ccfg) -> float:
+    """Analytic forward FLOPs per image through the ConvNeXt trunk (stem /4,
+    then stages at /4, /8, /16, /32). Per block at dim d over N tokens: the
+    7x7 depthwise conv (2 * 49 * d) and the two 4x MLP matmuls (16 d^2)."""
+    side = ccfg.image_size // 4
+    total = 2.0 * side * side * ccfg.dims[0] * 3 * 16            # stem 4x4 conv
+    for s, (depth, d) in enumerate(zip(ccfg.depths, ccfg.dims)):
+        n = (ccfg.image_size // (4 * 2 ** s)) ** 2
+        if s > 0:
+            total += 2.0 * n * ccfg.dims[s - 1] * d * 4             # 2x2 downsample conv
+        total += depth * n * (2.0 * 49 * d + 16.0 * d * d)
+    return total
 
 
 def teacher_flops(batch_size: int) -> float:

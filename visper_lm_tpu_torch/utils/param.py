@@ -19,6 +19,7 @@ files into its nested tree (`weights.from_jax_params` builds a model from it).
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
@@ -225,8 +226,11 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
 # Parameter trees: flat {port name: tensor} dicts keyed like the JAX tree
 # ---------------------------------------------------------------------------
 
-# module lists the JAX package stacks into one (L, ...) leaf per parameter
-_STACKED = ("decoder.blocks.", "vision_tower.blocks.")
+# module lists the JAX package stacks into one (L, ...) leaf per parameter:
+# the decoder's and the ViT's blocks, and each ConvNeXt stage's
+_STACKED = re.compile(
+    r"^(decoder\.blocks\.|vision_tower\.blocks\.|vision_tower\.stages\.\d+\.blocks\.)"
+    r"(\d+)\.(.*)$")
 
 NamedParams = Union[nn.Module, Mapping[str, Optional[torch.Tensor]]]
 
@@ -240,11 +244,10 @@ def _named(params: NamedParams) -> Dict[str, Optional[torch.Tensor]]:
 
 def split_layer(name: str) -> Tuple[str, Optional[int]]:
     """(name without the layer index of a stacked block list, that index or None)."""
-    for prefix in _STACKED:
-        if name.startswith(prefix):
-            idx, rest = name[len(prefix):].split(".", 1)
-            return prefix + rest, int(idx)
-    return name, None
+    m = _STACKED.match(name)
+    if m is None:
+        return name, None
+    return m.group(1) + m.group(3), int(m.group(2))
 
 
 def jax_path(name: str) -> str:

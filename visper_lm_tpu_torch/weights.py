@@ -7,14 +7,17 @@ holds (out, in), and conv kernels are HWIO where `nn.Conv2d` holds OIHW.
 A tree is nested dicts/lists of numpy arrays (np.asarray of the JAX leaves);
 bfloat16 leaves (ml_dtypes) are carried bit for bit.
 
-`from_jax_params` maps the whole VLM tree, the distillation heads and their
-logit scales included, and a decoder quantized by the JAX package
+`from_jax_params` maps the whole VLM tree (a CLIP or ConvNeXt tower, each
+ConvNeXt stage's stacked blocks unstacked; image_newline), the distillation
+heads and their logit scales included, and a decoder quantized by the JAX package
 (`quantize_linear_weights` / `quantize_linear_weights_int4`): its
 {kernel_q8, out_scale} and {kernel_q4p, q4_scale[, q4_in_scale]} leaves
 become `QuantLinear` buffers as they are (both input-major), bit for bit.
 `decoder_from_jax_params` maps a bare decoder tree (beam search and
 speculative decoding take one). `teachers_from_jax_params` maps the teachers' tree (dinov2, clip_h, swin; the
-DPT decoder is not ported yet and is skipped).
+DPT decoder is not ported yet and is skipped). `load_jax_tree` loads a
+subtree with no stacked blocks into a module: a probe head (`ProbeHead`), an
+`AttentionPool2d`, a task head.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from visper_lm_tpu_torch.utils.param import QuantLinear
 
 _VLM_SUBTREES = (
     "decoder", "vision_tower", "mm_projector", "special_tokens", "heads", "logit_scales",
+    "image_newline",
 )
 # JAX quantized-linear leaf -> QuantLinear buffer (same layout, no transpose)
 _QUANT_LEAVES = {
@@ -93,6 +97,16 @@ def _vit(sd: Dict[str, Any], prefix: str, tree: Dict[str, Any], num_layers: int)
     _stacked(sd, f"{prefix}.blocks", tree["blocks"], num_layers)
 
 
+def _convnext(sd: Dict[str, Any], prefix: str, tree: Dict[str, Any]) -> None:
+    _flatten(sd, prefix, {k: v for k, v in tree.items() if k != "stages"})
+    for s, stage in enumerate(tree["stages"]):
+        pre = f"{prefix}.stages.{s}"
+        depth = np.asarray(stage["blocks"]["gamma"]).shape[0]
+        _stacked(sd, f"{pre}.blocks", stage["blocks"], depth)
+        if "downsample" in stage:
+            _flatten(sd, f"{pre}.downsample", stage["downsample"])
+
+
 def decoder_tree_to_state_dict(tree: Dict[str, Any], num_layers: int) -> Dict[str, Any]:
     """A bare JAX decoder tree -> `Decoder` state-dict names (numpy values)."""
     sd: Dict[str, Any] = {}
@@ -108,6 +122,13 @@ def vit_tree_to_state_dict(tree: Dict[str, Any], num_layers: int) -> Dict[str, A
     return {k[1:]: v for k, v in sd.items()}
 
 
+def convnext_tree_to_state_dict(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """A JAX ConvNeXt tree -> `ConvNeXt` state-dict names (numpy values)."""
+    sd: Dict[str, Any] = {}
+    _convnext(sd, "", tree)
+    return {k[1:]: v for k, v in sd.items()}
+
+
 def jax_tree_to_state_dict(tree: Dict[str, Any], cfg: VLMConfig) -> Dict[str, Any]:
     """Map the JAX VLM param tree onto the port's state_dict names (numpy values)."""
     unknown = set(tree) - set(_VLM_SUBTREES)
@@ -117,10 +138,15 @@ def jax_tree_to_state_dict(tree: Dict[str, Any], cfg: VLMConfig) -> Dict[str, An
     dec = tree["decoder"]
     _flatten(sd, "decoder", {k: v for k, v in dec.items() if k != "blocks"})
     _stacked(sd, "decoder.blocks", dec["blocks"], cfg.decoder.num_layers)
-    _vit(sd, "vision_tower", tree["vision_tower"], cfg.vision.num_layers)
+    if cfg.use_convnext_tower:
+        _convnext(sd, "vision_tower", tree["vision_tower"])
+    else:
+        _vit(sd, "vision_tower", tree["vision_tower"], cfg.vision.num_layers)
     for name in ("mm_projector", "special_tokens", "heads", "logit_scales"):
         if name in tree:
             _flatten(sd, name, tree[name])
+    if "image_newline" in tree:
+        sd["image_newline"] = np.asarray(tree["image_newline"])
     return sd
 
 
@@ -182,6 +208,9 @@ def from_jax_params(
     device = resolve_device(device)
     with torch.device("meta"):
         model = VLM(cfg)
+        # the tree holds image_newline when JAX's init or importer put it there
+        model.image_newline = (nn.Parameter(torch.empty(cfg.decoder.hidden_size))
+                               if "image_newline" in tree else None)
         _quant_shells(model.decoder, tree["decoder"])
     _load(model, jax_tree_to_state_dict(tree, cfg), device, dtype)
     return model.eval()
