@@ -174,6 +174,35 @@ Phases, each of which raises (exit code != 0) when it fails:
      64, B2/B3 32, B4 48, loss and every trainable gradient finite, the
      frozen trunk without a gradient and unchanged. Every record carries the
      card's name and power limit.
+ 12. training from the recipes (phases 10-11's Llama-3-8B released first):
+     a seeded dataset in the repo's tmp/ (removed after): 16
+     LLaVA-Pretrain-style records (<image> + a question, a 20-60-word
+     answer) and 16 IFT-style multi-turn ones (a quarter text-only) over 16
+     PNG images of phase 10's sizes written with the port's PNG writer; the
+     host pipeline timed per PT batch (decode, tower pixels, teacher_batch
+     through the native library, whose g++ build is timed). (a) PT at
+     Llama-3-8B + CLIP-L from recipes/pretrain.args through `cli.main`
+     (fake-whitespace tokenizer, B4, 3 steps, a checkpoint at step 2, the
+     teachers seeded with the CLI's WARNING): B1 64 (full remat), B2/B3 32,
+     B4 48 per step; finite losses, 3 metrics rows; every frozen weight
+     bit-equal to a fresh seed-0 init and the trainables moved; one step
+     profiled; a second `cli.main` resumed from the step-2 checkpoint gives
+     step 3's loss within 1e-5. (b) IFT at Phi3-mini from
+     recipes/finetune.args with --init-from a seeded Phi3-mini + CLIP-L
+     checkpoint written by `save_hf_checkpoint` (save_gate, B4, 3 steps;
+     the run's final 38 GB checkpoint of weights and f32 moments is
+     recorded, not written): the whole decoder trains, the tower stays the
+     checkpoint's bit for bit, B1 64 and B2/B3 32 per step, peak GiB; layer
+     16's seven weight gradients with the kernels against use_kernel=False
+     (cosine >= 0.999, relative Frobenius printed) and both against the
+     plain path on an f32 copy of the weights: the kernels' relative
+     Frobenius distance from f32 at most 1e-2 above the plain bf16 path's
+     (itself 1-2.4 % at full depth). (c) bench.py's --stage
+     lora (r 64, alpha 16, all seven targets) and --stage vision_tower
+     configurations on (b)'s model: 3 `trainer.train` steps each at B4 on
+     the IFT data: LoRA's B zero at the start (the first loss equals the
+     base model's bit for bit), the base decoder bit-unchanged by both, the
+     adapters, projector and tower moved where their stage trains them.
 
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Needs no network; builds into
@@ -232,6 +261,9 @@ VICUNA_LAYERS = 4              # Vicuna-7B at full width, cut in depth
 # 672x672 and 336x1008 of JAX's grid_pinpoints: base + 2, 2, 4, 3 tiles
 ANYRES_IMAGES = ((500, 1000), (1000, 500), (900, 900), (1200, 400))
 ANYRES_TILES = (3, 3, 5, 4)
+# phase 12: training from the recipes
+RECIPE_RECORDS, RECIPE_BATCH, RECIPE_STEPS = 16, 4, 3
+RECIPE_GRAD_LAYER = 16          # the IFT layer whose weight gradients are held to the plain path
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1935,6 +1967,399 @@ def vision_phase(api_state, fa, qm, wa, gen, smi: str) -> dict:
     return out
 
 
+def recipe_dataset(root: Path) -> dict:
+    """Phase 12's data under `root`: 16 PNG images of phase 10's sizes
+    (seeded uint8, the port's PNG writer), 16 LLaVA-Pretrain-style records
+    (<image> + a question, a 20-60-word answer) and 16 IFT-style multi-turn
+    ones, a quarter of them text-only."""
+    from visper_lm_tpu_torch.data.image_io import write_png
+
+    rng = np.random.default_rng(12)
+    images = root / "images"
+    images.mkdir(parents=True)
+
+    def words(lo, hi):
+        n = int(rng.integers(lo, hi + 1))
+        return " ".join(f"w{int(x)}" for x in rng.integers(0, 5000, size=n))
+
+    for i in range(RECIPE_RECORDS):
+        h, w = CHAT_IMAGES[i % len(CHAT_IMAGES)]
+        write_png(str(images / f"{i:04d}.png"), rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+    pt = [{"id": f"pt{i}", "image": f"{i:04d}.png", "conversations": [
+        {"from": "human", "value": "<image>\n" + words(5, 15)},
+        {"from": "gpt", "value": words(20, 60)}]} for i in range(RECIPE_RECORDS)]
+    ift = []
+    for i in range(RECIPE_RECORDS):
+        # half the image records multi-turn: under the Phi3 (and Vicuna)
+        # templates the whitespace tokenizer's round lengths miss the
+        # template's arithmetic, and the reference then masks the whole record
+        # (JAX's preprocess alike); the single-turn ones carry the supervision
+        multi = i % 2 == 0 and i % 4 != 3
+        turns = []
+        for _ in range(int(rng.integers(2, 4)) if multi else 1):
+            turns += [{"from": "human", "value": words(5, 10)},
+                      {"from": "gpt", "value": words(5, 15) if multi else words(30, 60)}]
+        rec = {"id": f"ift{i}", "conversations": turns}
+        if i % 4 != 3:
+            rec["image"] = f"{i:04d}.png"
+            turns[0]["value"] = "<image>\n" + turns[0]["value"]
+        ift.append(rec)
+    (root / "pt.json").write_text(json.dumps(pt))
+    (root / "ift.json").write_text(json.dumps(ift))
+    return dict(images=str(images), pt=str(root / "pt.json"), ift=str(root / "ift.json"))
+
+
+def recipe_phase(fa, wa, smi: str) -> dict:
+    """Phase 12: training from the recipes through the port's CLI (see the
+    module docstring). Returns the record printed as `recipe_path`."""
+    import dataclasses
+    import os
+    import shutil
+    from unittest import mock
+
+    from visper_lm_tpu_torch import native
+    from visper_lm_tpu_torch.checkpoint.hf_export import save_hf_checkpoint
+    from visper_lm_tpu_torch.config import LoraConfig
+    from visper_lm_tpu_torch.constants import IGNORE_INDEX
+    from visper_lm_tpu_torch.data.dataset import RAW_IMAGES, BatchIterator, DataConfig, SupervisedDataset
+    from visper_lm_tpu_torch.data.image_io import load_image
+    from visper_lm_tpu_torch.data.mm_utils import process_images
+    from visper_lm_tpu_torch.models.lora import init_lora
+    from visper_lm_tpu_torch.models.teachers import teacher_batch
+    from visper_lm_tpu_torch.models.vlm import init_vlm
+    from visper_lm_tpu_torch.train import cli
+    from visper_lm_tpu_torch.train.checkpoint import CheckpointManager
+    from visper_lm_tpu_torch.train.optimizer import OptimizerConfig
+    from visper_lm_tpu_torch.train.train_step import make_loss_fn
+    from visper_lm_tpu_torch.train.trainer import TrainerConfig, train
+
+    repo = Path(__file__).resolve().parent
+    root = repo / "tmp" / "chip_smoke_recipes"
+    shutil.rmtree(root, ignore_errors=True)
+    out = dict(card=smi)
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def reset_counts():
+        fa.launches = fa.dq_launches = fa.dkv_launches = wa.launches = 0
+
+    def counts():
+        return dict(flash_fwd=fa.launches, flash_bwd_dq=fa.dq_launches,
+                    flash_bwd_dkv=fa.dkv_launches, window_attn=wa.launches)
+
+    def per_step(fwd, window, steps=RECIPE_STEPS):
+        return dict(flash_fwd=fwd * steps, flash_bwd_dq=32 * steps, flash_bwd_dkv=32 * steps,
+                    window_attn=window * steps)
+
+    def rows(run_dir):
+        with open(Path(run_dir) / "metrics.jsonl") as f:
+            return [json.loads(line) for line in f]
+
+    def step_record(recs, batch=RECIPE_BATCH):
+        # each row's steps_per_sec spans its own step; step 1 carries the warm-up
+        ms = [1e3 / r["steps_per_sec"] for r in recs]
+        warm = ms[1:] or ms
+        mean = sum(warm) / len(warm)
+        return dict(step_ms=ms, mean_step_ms_after_first=mean,
+                    examples_per_s=batch / (mean / 1e3), losses=[r["loss"] for r in recs])
+
+    def args(recipe, data_path, run, *extra):
+        return [f"@{repo / 'recipes' / recipe}", "--data-path", data_path,
+                "--image-folder", data["images"], "--tokenizer", "fake-whitespace",
+                "--output-dir", str(root / run), "--per-device-batch-size", str(RECIPE_BATCH),
+                "--max-steps", str(RECIPE_STEPS), *extra]
+
+    try:
+        t_phase = time.perf_counter()
+        data = recipe_dataset(root)
+        print(f"recipe dataset written in {time.perf_counter() - t_phase:.1f} s [{smi}]")
+        t0 = time.perf_counter()
+        native.load()
+        out["native_build_s"] = native.build_seconds
+        out["native_load_s"] = time.perf_counter() - t0
+        out["native_flags"] = " ".join(native.flags())
+        print(f"native preprocessing library: g++ {native.build_seconds} s ({out['native_flags']}), "
+              f"load {out['native_load_s']:.2f} s")
+
+        # the host pipeline per PT batch, inline, in the CLI's order
+        pt_args = cli.build_argparser().parse_args(args("pretrain.args", data["pt"], "pt"))
+        pt_cfg = cli.build_vlm_config(pt_args)
+        tok = cli.load_tokenizer("fake-whitespace")
+        ds = SupervisedDataset(DataConfig(data["pt"], data["images"], pt_args.image_aspect_ratio,
+                                          pt_cfg.vision.image_size), tok, pt_cfg)
+        order = BatchIterator(ds, RECIPE_BATCH, seed=0).order()
+        host = collections.defaultdict(list)
+        for b in range(len(order) // RECIPE_BATCH):
+            recs = [ds.records[i] for i in order[b * RECIPE_BATCH:(b + 1) * RECIPE_BATCH]]
+            t0 = time.perf_counter()
+            arrays = [load_image(os.path.join(data["images"], r["image"])) for r in recs]
+            t1 = time.perf_counter()
+            process_images(arrays, image_aspect_ratio="square", image_size=pt_cfg.vision.image_size)
+            t2 = time.perf_counter()
+            teacher_batch(pt_cfg, arrays, workers=pt_args.dataloader_num_workers)
+            t3 = time.perf_counter()
+            host["decode_ms"].append((t1 - t0) * 1e3)
+            host["tower_pixels_ms"].append((t2 - t1) * 1e3)
+            host["teacher_batch_ms"].append((t3 - t2) * 1e3)
+            t0 = time.perf_counter()
+            next(iter(BatchIterator(ds, RECIPE_BATCH, seed=0, skip_batches=b,
+                                    num_workers=pt_args.dataloader_num_workers)))
+            host["batch_iterator_4_workers_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["host_per_pt_batch"] = {k: dict(ms=v, mean_ms=sum(v) / len(v)) for k, v in host.items()}
+        print("recipe host ms per PT batch " + json.dumps(
+            {k: round(v["mean_ms"], 1) for k, v in out["host_per_pt_batch"].items()}))
+
+        # (a) PT at Llama-3-8B + CLIP-L from recipes/pretrain.args
+        t_a = time.perf_counter()
+        argv = args("pretrain.args", data["pt"], "pt", "--save-steps", "2")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        state = cli.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_a
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        n_swin = 0 if state.teacher_params is None else sum(state.teacher_params["swin"].cfg.depths)
+        want = per_step(64, n_swin * RECIPE_BATCH // 2)
+        check(launches == want, f"recipe PT launches {launches}, expected {want}")
+        recs = rows(root / "pt")
+        check([r["step"] for r in recs] == [1, 2, 3] and all(math.isfinite(r["loss"]) for r in recs),
+              f"recipe PT metrics {recs}")
+        check((root / "pt" / "checkpoints" / "2" / "state.pt").exists(), "no step-2 checkpoint")
+        fresh = dict(init_vlm(state.model.cfg, device="cuda", seed=0).named_parameters())
+        moved, frozen_changed = [], []
+        for n, p in state.model.named_parameters():
+            same = torch.equal(p.detach(), fresh[n].detach())
+            if n in state.trainable:
+                moved += [] if same else [n]
+            elif not same:
+                frozen_changed.append(n)
+        check(not frozen_changed, f"recipe PT: frozen weights changed: {frozen_changed[:3]}")
+        check(any(n.startswith("mm_projector.") for n in moved)
+              and any(n.startswith("heads.") for n in moved)
+              and any(n.startswith("special_tokens.") for n in moved),
+              f"recipe PT: trainables that moved {moved[:5]}")
+        del fresh
+        release()
+        batch = next(iter(cli_batches(pt_cfg, pt_args, ds, teacher_batch)))
+        prof = profile_window("recipe_pt_step", lambda: state(batch), top=12,
+                              match=("flash_fwd", "flash_bwd", "window_attn_stream"))
+        # the logged interval of step 3 holds the step-2 checkpoint's write: the
+        # profiled step's wall time is the step's
+        out["pt"] = dict(step_record(recs), step_wall_ms=prof["wall_ms"],
+                         examples_per_s_wall=RECIPE_BATCH / (prof["wall_ms"] / 1e3),
+                         run_s=run_s, peak_gib=peak / 2**30, launches=launches,
+                         launches_per_step={k: v // RECIPE_STEPS for k, v in launches.items()},
+                         trainable=len(state.trainable), trainables_moved=len(moved),
+                         busy_ms=prof["busy_ms"], wall_ms=prof["wall_ms"],
+                         idle_share=prof["idle_share"], card=smi)
+        del state, batch
+        release()
+        # resume onto the same data order from the step-2 checkpoint
+        res = root / "pt_resume" / "checkpoints"
+        res.mkdir(parents=True)
+        shutil.copytree(root / "pt" / "checkpoints" / "2", res / "2", copy_function=os.link)
+        t0 = time.perf_counter()
+        state = cli.main(args("pretrain.args", data["pt"], "pt_resume", "--save-steps", "2"))
+        resumed = rows(root / "pt_resume")
+        check([r["step"] for r in resumed] == [3], f"the resume logged {resumed}")
+        rel = abs(resumed[0]["loss"] - recs[2]["loss"]) / abs(recs[2]["loss"])
+        print(f"recipe PT resume: step 3 loss {resumed[0]['loss']:.7f}, uninterrupted "
+              f"{recs[2]['loss']:.7f}, relative difference {rel:.3g}")
+        check(rel <= 1e-5, f"recipe PT resume: step 3 loss differs by {rel:.3g} > 1e-5")
+        out["pt"].update(resume_rel_diff=rel, resume_s=time.perf_counter() - t0,
+                         seconds=time.perf_counter() - t_a)
+        print("recipe_pt " + json.dumps(out["pt"]))
+        del state
+        release()
+
+        # (b) IFT at Phi3-mini from recipes/finetune.args with --init-from
+        t_b = time.perf_counter()
+        ckpt = root / "phi3_init"
+        ift_extra = ["--model", "phi3", "--version", "llava_phi_3", "--init-from", str(ckpt),
+                     "--remat-policy", "save_gate"]
+        ift_argv = args("finetune.args", data["ift"], "ift", *ift_extra)
+        ift_args = cli.build_argparser().parse_args(ift_argv)
+        ift_cfg = cli.build_vlm_config(ift_args)
+        src = init_vlm(ift_cfg, device="cuda", seed=31)
+        t0 = time.perf_counter()
+        save_hf_checkpoint(str(ckpt), src, ift_cfg)
+        save_s = time.perf_counter() - t0
+        tower_src = {n: p.detach().clone() for n, p in src.vision_tower.named_parameters()}
+        del src
+        release()
+        saves = []
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(CheckpointManager, "save",
+                               lambda self, step, *a, **k: saves.append(step)):
+            state = cli.main(ift_argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = per_step(64, 0)
+        check(launches == want, f"recipe IFT launches {launches}, expected {want}")
+        recs = rows(root / "ift")
+        check([r["step"] for r in recs] == [1, 2, 3]
+              and all(math.isfinite(r["loss"]) and r["loss"] > 0 for r in recs),
+              f"recipe IFT metrics {recs}")
+        check(saves == [RECIPE_STEPS], f"recipe IFT saves {saves}")
+        model = state.model
+        n_dec = sum(1 for n in state.trainable if n.startswith("decoder."))
+        check(n_dec == sum(1 for n, _ in model.decoder.named_parameters())
+              and not any(n.startswith("vision_tower.") for n in state.trainable),
+              "recipe IFT: the decoder is not wholly trainable, or the tower trains")
+        for n, p in model.vision_tower.named_parameters():
+            check(torch.equal(p.detach(), tower_src[n]), f"recipe IFT: tower {n} is not the checkpoint's")
+        del tower_src
+        trained = sum(p.numel() for p in state.trainable.values())
+        # one layer's weight gradients: the kernels (B1-B3) against the plain
+        # path, both in bf16, and each against the plain path on an f32 copy
+        # of the same weights. At full depth two bf16 paths differ by the bf16
+        # rounding of 32 layers: the plain bf16 path is itself 1-2.4 % from the
+        # f32 one on an H100 (PERF.md), so the kernels are held to add at most
+        # 1e-2 to the plain path's own distance from f32, and to phase 7's
+        # kernel-vs-plain gradient cosine (>= 0.999)
+        ift_ds = SupervisedDataset(DataConfig(data["ift"], data["images"], ift_args.image_aspect_ratio,
+                                              ift_cfg.vision.image_size,
+                                              group_by_modality_length=True), tok, ift_cfg)
+        # the batch with the most supervised tokens
+        gbatch = max(BatchIterator(ift_ds, RECIPE_BATCH, seed=0, seq_buckets=(1024, 2048, 4096)),
+                     key=lambda b: int((b["labels"] != IGNORE_INDEX).sum()))
+        check(int((gbatch["labels"] != IGNORE_INDEX).sum()) > 0, "no IFT batch has a supervised token")
+        gbatch = state.to_device({k: v for k, v in gbatch.items() if k != RAW_IMAGES})
+        del state
+        release()
+        names = [f"decoder.blocks.{RECIPE_GRAD_LAYER}.{w}.weight" for w in (
+            "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")]
+
+        def layer_grads(m, use_kernel):
+            batch_m = {k: v.float() if v.is_floating_point() else v for k, v in gbatch.items()}
+            loss_fn = make_loss_fn(ift_cfg, remat=True, remat_policy="save_gate",
+                                   use_kernel=use_kernel)
+            params = dict(m.named_parameters())
+            loss, g = loss_and_grads(loss_fn, m, batch_m, None, [params[n] for n in names])
+            return loss, [x.float() for x in g]
+
+        def rel(a, b):
+            return float((a - b).norm() / b.norm())
+
+        loss_k, g_k = layer_grads(model, None)
+        loss_p, g_p = layer_grads(model, False)
+        m32 = copy.deepcopy(model).float()
+        loss_32, g_32 = layer_grads(m32, False)
+        del m32
+        release()
+        short = [n.split(".")[-2] for n in names]
+        rel_fro = {w: rel(a, b) for w, a, b in zip(short, g_k, g_p)}
+        kernel_f32 = {w: rel(a, b) for w, a, b in zip(short, g_k, g_32)}
+        plain_f32 = {w: rel(a, b) for w, a, b in zip(short, g_p, g_32)}
+        min_cos, min_name, _ = grad_agreement(short, g_k, g_p)
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        print(f"recipe IFT layer {RECIPE_GRAD_LAYER} weight gradients (relative Frobenius): "
+              f"kernels vs plain {json.dumps({k: round(v, 5) for k, v in rel_fro.items()})}; "
+              f"kernels vs f32 {json.dumps({k: round(v, 5) for k, v in kernel_f32.items()})}; "
+              f"plain bf16 vs f32 {json.dumps({k: round(v, 5) for k, v in plain_f32.items()})}; "
+              f"min cosine kernels vs plain {min_cos:.6f} ({min_name}); losses {loss_k:.6f} / "
+              f"{loss_p:.6f} / {loss_32:.6f}")
+        check(min_cos >= 0.999, f"recipe IFT gradient cosine {min_cos} < 0.999 for {min_name}")
+        for w in short:
+            check(kernel_f32[w] <= plain_f32[w] + 1e-2,
+                  f"recipe IFT {w}: the kernels' gradient is {kernel_f32[w]:.4f} from f32, the "
+                  f"plain path's {plain_f32[w]:.4f}")
+        del g_k, g_p, g_32, gbatch
+        out["ift"] = dict(step_record(recs), run_s=run_s, checkpoint_write_s=save_s,
+                          peak_gib=peak / 2**30, launches=launches,
+                          launches_per_step={k: v // RECIPE_STEPS for k, v in launches.items()},
+                          trainable_params=trained, grad_rel_frobenius=rel_fro,
+                          grad_kernel_vs_f32=kernel_f32, grad_plain_vs_f32=plain_f32,
+                          grad_min_cosine=min_cos, grad_loss_rel=loss_rel, card=smi)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        out["ift"]["seconds"] = time.perf_counter() - t_b
+        print("recipe_ift " + json.dumps(out["ift"]))
+
+        # (c) bench.py's --stage lora and --stage vision_tower on (b)'s model
+        t_c = time.perf_counter()
+
+        def ift_iter(epoch, skip_batches=0):
+            return iter(BatchIterator(ift_ds, RECIPE_BATCH, seed=epoch, skip_batches=skip_batches,
+                                      num_workers=4, seq_buckets=(1024, 2048, 4096)))
+
+        dec_before = {n: p.detach().clone() for n, p in model.decoder.named_parameters()}
+        lora_cfg = dataclasses.replace(ift_cfg, lora=LoraConfig())
+        model.lora = init_lora(ift_cfg.decoder, lora_cfg.lora, device="cuda", seed=41)
+        check(all(float(f.b.detach().abs().max()) == 0.0 for f in model.lora.values()),
+              "LoRA's B is not 0")
+        b0 = {k: torch.as_tensor(v).cuda() for k, v in next(ift_iter(0)).items() if k != RAW_IMAGES}
+        with torch.no_grad():
+            base_loss = make_loss_fn(ift_cfg, remat=False)(model, b0)[0]
+            lora_loss = make_loss_fn(lora_cfg, remat=False)(model, b0)[0]
+        check(torch.equal(base_loss, lora_loss), f"LoRA at B = 0: loss {float(lora_loss)} vs "
+              f"the base model's {float(base_loss)}")
+        del b0
+        stages = {}
+        for stage, cfg_s in (("lora", lora_cfg), ("vision_tower", ift_cfg)):
+            if stage == "vision_tower":
+                model.lora = None
+            watch = {n: p.detach().clone() for n, p in model.named_parameters()
+                     if not n.startswith("decoder.")}
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            st = train(cfg_s, OptimizerConfig(learning_rate=2e-5, total_steps=RECIPE_STEPS,
+                                              stage=stage),
+                       TrainerConfig(output_dir=str(root / stage), max_steps=RECIPE_STEPS,
+                                     save_steps=1000, remat_policy="save_gate", device="cuda"),
+                       model, ift_iter)
+            torch.cuda.synchronize()
+            launches = counts()
+            check(launches == per_step(64, 0), f"{stage} launches {launches}")
+            recs = rows(root / stage)
+            check(all(math.isfinite(r["loss"]) for r in recs) and len(recs) == RECIPE_STEPS,
+                  f"{stage} metrics {recs}")
+            for n, p in model.decoder.named_parameters():
+                check(torch.equal(p.detach(), dec_before[n]), f"{stage}: decoder {n} changed")
+            moved = sorted({n.split(".")[0] for n, p in model.named_parameters()
+                            if n in watch and not torch.equal(p.detach(), watch[n])})
+            want_moved = ["lora", "mm_projector"] if stage == "lora" else ["mm_projector", "vision_tower"]
+            check(moved == want_moved, f"{stage}: moved {moved}, expected {want_moved}")
+            if stage == "lora":
+                check(all(float(f.b.detach().abs().max()) > 0 for f in model.lora.values()),
+                      "LoRA's B stayed 0")
+            stages[stage] = dict(step_record(recs), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                                 launches=launches, trainable_params=sum(
+                                     p.numel() for p in st.trainable.values()),
+                                 moved=moved, seconds=time.perf_counter() - t0, card=smi)
+            print(f"recipe_{stage} " + json.dumps(stages[stage]))
+            del st, watch
+            release()
+        out.update(stages)
+        out["stages_s"] = time.perf_counter() - t_c
+        del model, dec_before
+        release()
+        out["seconds"] = time.perf_counter() - t_phase
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def cli_batches(cfg, args, ds, teacher_batch):
+    """The CLI's PT batches (`cli.main`'s data_iter without the prefetch):
+    splice plans and tower pixels, then the teachers' pixels of the raw
+    images."""
+    from visper_lm_tpu_torch.data.dataset import RAW_IMAGES, BatchIterator
+
+    tasks = tuple(t.task for t in cfg.distill.tasks)
+    for batch in BatchIterator(ds, args.per_device_batch_size, seed=0, distill_tasks=tasks,
+                               seq_buckets=tuple(int(x) for x in args.seq_buckets.split(","))):
+        batch.update(teacher_batch(cfg, batch.pop(RAW_IMAGES), workers=4))
+        yield batch
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2358,9 +2783,19 @@ def main() -> int:
     print(f"vision phase {time.perf_counter() - t0:.1f} s")
     print("vision_path " + json.dumps(
         {k: v for k, v in vision.items() if k not in ("b1_convnext", "b1_anyres")}))
-    dec_launches = da.launches                  # over phases 4-11
-    print(f"decode_attn launches over the serving, training, engine, api and vision paths: "
-          f"{dec_launches}")
+
+    # 12. training from the recipes through the CLI: PT at Llama-3-8B, IFT at
+    # Phi3-mini with --init-from, the LoRA and vision-tower stages
+    del api_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recipe = recipe_phase(fa, wa, smi)
+    print(f"recipe phase {time.perf_counter() - t0:.1f} s")
+    print("recipe_path " + json.dumps(recipe))
+    dec_launches = da.launches                  # over phases 4-12
+    print(f"decode_attn launches over the serving, training, engine, api, vision and recipe "
+          f"paths: {dec_launches}")
     check(dec_launches == 0, f"decode_attn launched {dec_launches} times; no path calls it")
 
     def entry(kname, source, replaces, rec, launches):
@@ -2388,6 +2823,8 @@ def main() -> int:
              anyres_chat=dict({k: vision["b1_anyres"][k] for k in LLAMA3_KEYS},
                               launches=vision["anyres_chat"]["b1_launches"]),
              launches_convnext_pt_step=vision["convnext_pt_step"]["launches"]["flash_fwd"],
+             launches_recipe_pt=recipe["pt"]["launches"]["flash_fwd"],
+             launches_recipe_ift=recipe["ift"]["launches"]["flash_fwd"],
              train=dict(shape=train_fwd_rec["shape"], ms=train_fwd_rec["ms"],
                         mma_sync_ms=train_fwd_rec["mma_sync_ms"],
                         library_ms=train_fwd_rec["library_ms"],
@@ -2395,18 +2832,23 @@ def main() -> int:
         dict(entry("flash_bwd_dq", csrc + "flash_bwd.cu", "visper_lm_tpu/ops/flash_attention.py:497",
                    dq_rec, main_launches["flash_bwd_dq"]),
              launches_phase7=train_launches["flash_bwd_dq"], shape=dq_rec["shape"], kernel=dq_rec["kernel"], device_ms=dq_rec["device_ms"],
+             launches_recipe_pt=recipe["pt"]["launches"]["flash_bwd_dq"],
+             launches_recipe_ift=recipe["ift"]["launches"]["flash_bwd_dq"],
              library="SDPA backward (dq, dk and dv in one call)",
              gqa=dict(shape=gqa_dq["shape"], ms=gqa_dq["ms"], device_ms=gqa_dq["device_ms"],
                       library_ms=gqa_dq["library_ms"], bound_ms=gqa_dq["bound_ms"])),
         dict(entry("flash_bwd_dkv", csrc + "flash_bwd.cu", "visper_lm_tpu/ops/flash_attention.py:562",
                    dkv_rec, main_launches["flash_bwd_dkv"]),
              launches_phase7=train_launches["flash_bwd_dkv"], shape=dkv_rec["shape"], kernel=dkv_rec["kernel"], device_ms=dkv_rec["device_ms"],
+             launches_recipe_pt=recipe["pt"]["launches"]["flash_bwd_dkv"],
+             launches_recipe_ift=recipe["ift"]["launches"]["flash_bwd_dkv"],
              library="SDPA backward (dq, dk and dv in one call)",
              gqa=dict(shape=gqa_dkv["shape"], ms=gqa_dkv["ms"], device_ms=gqa_dkv["device_ms"],
                       library_ms=gqa_dkv["library_ms"], bound_ms=gqa_dkv["bound_ms"])),
         dict(entry("window_attn", csrc + "window_attn.cu", "visper_lm_tpu/ops/window_attention.py:112",
                    win_rec, main_launches["window_attn"]),
              launches_phase7=train_launches["window_attn"], shape=win_rec["shape"], kernel=win_rec["kernel"], timing=win_rec["timing"],
+             launches_recipe_pt=recipe["pt"]["launches"]["window_attn"],
              eager_ms=win_rec["eager_ms"],
              stages={r["case"]: dict(ms=r["ms"],
                                      library_ms=r["library_ms"], bound_ms=r["bound_ms"],

@@ -172,8 +172,9 @@ def test_from_jax_params_ignores_heads_and_rejects_unported_subtrees(tiny):
     head = model.heads["seg"][0].resampler.proj_in.weight
     ref = params["heads"]["seg"][0]["resampler"]["proj_in"]["kernel"]
     np.testing.assert_array_equal(head.detach().numpy(), np.asarray(ref).T)
+    # every subtree JAX's init_vlm makes is ported (LoRA's too); others raise
     with pytest.raises(NotImplementedError):
-        from_jax_params({**params, "lora": {}}, cfg_t, device="cpu")
+        from_jax_params({**params, "probes": {}}, cfg_t, device="cpu")
 
 
 def test_init_vlm_is_seeded_and_needs_a_device(monkeypatch):

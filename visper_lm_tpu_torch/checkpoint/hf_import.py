@@ -317,6 +317,8 @@ def to_model(
         # JAX's tree holds image_newline when the checkpoint does, whatever the config
         model.image_newline = (nn.Parameter(torch.empty(cfg.decoder.hidden_size))
                                if "image_newline" in sd else None)
+        if not any(k.startswith("lora.") for k in sd):
+            model.lora = None           # an HF checkpoint holds no adapters
     for task in list(model.heads):
         for i in reversed(range(len(model.heads[task]))):
             if not any(k.startswith(f"heads.{task}.{i}.") for k in sd):

@@ -185,7 +185,8 @@ class ConvNeXtConfig:
 
 @dataclass(frozen=True)
 class LoraConfig:
-    """LoRA adapter config (not ported yet; here so a config round-trips)."""
+    """LoRA adapter config (models/lora.py): rank, alpha and the targeted
+    block linears; B is scaled by alpha / r."""
 
     r: int = 64
     alpha: int = 16
@@ -211,8 +212,7 @@ class VLMConfig:
     num_image_tokens: int = 576
     image_aspect_ratio: str = "square"
     mm_patch_merge_type: str = "flat"
-    # the ConvNeXt tower replaces the CLIP one when set; LoRA belongs to a
-    # later slice (the port's VLM rejects a config that sets it)
+    # the ConvNeXt tower replaces the CLIP one when set; lora: a LoraConfig
     use_convnext_tower: bool = False
     convnext: Optional[Any] = None
     lora: Optional[Any] = None

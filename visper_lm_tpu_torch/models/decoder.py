@@ -7,8 +7,13 @@ one per sample (`write_cache_chunk`), quantized serving weights
 (`quantize_decoder`: w8a16 or w4a16 `QuantLinear`s), per-channel activation
 statistics for AWQ calibration, and layer taps for the distillation heads in
 training. The JAX layer `lax.scan` over stacked blocks becomes a Python loop
-over an `nn.ModuleList`; LoRA, MoE and the pipelined stack are later-slice
+over an `nn.ModuleList`; MoE and the pipelined stack are later-slice
 machinery and are not here.
+
+LoRA (`Decoder.forward(lora=...)`, JAX `_lora_linear`): the factors of each
+targeted linear, (A, B scaled) stacked over the layers (models/lora.py),
+add the rank-r side path y = x W + (x A) B in every block, with A and B cast
+to x's dtype; dA and dB come from rank-r intermediates only.
 
 Rematerialisation (`Decoder.forward(remat=True, remat_policy=...)`, JAX
 `jax.checkpoint` with `_remat_policy`) wraps each block in
@@ -200,18 +205,33 @@ class _Stash:
         self.values: Dict[str, object] = {}
 
 
+def lora_linear(layer: nn.Module, x: torch.Tensor, ab: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """A block linear plus, with factors ab = (A (din, r), B scaled (r, dout)),
+    the LoRA side path (x A) B, both factors in x's dtype (JAX `_lora_linear`)."""
+    y = apply_linear(layer, x, use_kernel)
+    if ab is None:
+        return y
+    a, b = ab
+    return y + (x @ a.to(x.dtype)) @ b.to(x.dtype)
+
+
 class _StashedLinear(torch.autograd.Function):
-    """y = x @ W.T, split to heads by `shape` and rotated when cos/sin are
-    given, whose value a remat policy keeps under `key`: the first run
-    computes and stores it, the recompute returns it without the product.
+    """y = x @ W.T (+ the LoRA side path (x A) B when a and b are given),
+    split to heads by `shape` and rotated when cos/sin are given, whose value
+    a remat policy keeps under `key`: the first run computes and stores it
+    (the LoRA term included), the recompute returns it without the products.
     The backward is the vector-Jacobian product of rope and the linear:
-    dx = g W, and dW = g^T x when W trains."""
+    dx = g W (+ (g B^T) A^T), dW = g^T x when W trains, and with LoRA
+    dA = x^T (g B^T), dB = (x A)^T g."""
 
     @staticmethod
-    def forward(ctx, x, weight, cos, sin, shape, stash, key):
+    def forward(ctx, x, weight, a, b, cos, sin, shape, stash, key):
         y = stash.values.get(key)
         if y is None:
             y = F.linear(x, weight)
+            if a is not None:
+                y = y + (x @ a) @ b
             if shape is not None:
                 y = y.reshape(shape)
             if cos is not None:
@@ -219,20 +239,29 @@ class _StashedLinear(torch.autograd.Function):
             stash.values[key] = y.detach()
         else:
             y = y.detach()
-        ctx.save_for_backward(x if weight.requires_grad else None, weight, cos, sin)
+        needs_x = weight.requires_grad or a is not None
+        ctx.save_for_backward(x if needs_x else None, weight, a, b, cos, sin)
         return y
 
     @staticmethod
     def backward(ctx, g):
-        x, weight, cos, sin = ctx.saved_tensors
+        x, weight, a, b, cos, sin = ctx.saved_tensors
         if cos is not None:
             g = apply_rope_transpose(g, cos, sin)
         g = g.reshape(*g.shape[:2], -1)
         dx = g @ weight
-        dw = None
+        dw = da = db = None
         if ctx.needs_input_grad[1]:
             dw = g.reshape(-1, g.shape[-1]).T @ x.reshape(-1, x.shape[-1])
-        return dx, dw, None, None, None, None, None
+        if a is not None:
+            gb = g @ b.T                                           # (B, T, r)
+            dx = dx + gb @ a.T
+            x2 = x.reshape(-1, x.shape[-1])
+            if ctx.needs_input_grad[2]:
+                da = x2.T @ gb.reshape(-1, gb.shape[-1])
+            if ctx.needs_input_grad[3]:
+                db = (x2 @ a).T @ g.reshape(-1, g.shape[-1])
+        return dx, dw, da, db, None, None, None, None, None
 
 
 def _mean_square(x: torch.Tensor) -> torch.Tensor:
@@ -272,6 +301,7 @@ class DecoderBlock(nn.Module):
         stats_out: Optional[List[Dict[str, torch.Tensor]]] = None,
         stash: Optional[_Stash] = None,
         quant_saves: bool = False,
+        lora: Optional[Mapping[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
     ) -> torch.Tensor:
         """JAX `_block_forward`. With a cache, the chunk's K/V are written into
         the cache IN PLACE at slots [q_offset, q_offset + T) (per sample for a
@@ -282,7 +312,8 @@ class DecoderBlock(nn.Module):
         the per-input-channel mean square at each linear's input (calibration).
         stash: the remat policy's kept tensors (see the module docstring);
         quant_saves: gate and up pass through `quant_saved` /
-        `dequant_saved` (the save_mlp_q8 policy)."""
+        `dequant_saved` (the save_mlp_q8 policy); lora: this layer's
+        {target: (A (din, r), B scaled (r, dout))}."""
         cfg = self.cfg
         b, t, _ = h.shape
         nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -292,14 +323,19 @@ class DecoderBlock(nn.Module):
             if stats_out is not None:
                 stats_out.append({k: _mean_square(v) for k, v in sites.items()})
 
+        def side(name):
+            return None if lora is None else lora.get(name)
+
         def kept(name, key, x, shape=None, rope=False):
             layer = getattr(self, name)
+            ab = side(name)
             if key.split(".")[0] in keeps:
+                a, b_ = (None, None) if ab is None else (ab[0].to(x.dtype), ab[1].to(x.dtype))
                 return _StashedLinear.apply(
-                    x, layer.weight, cos if rope else None, sin if rope else None, shape,
-                    stash, key,
+                    x, layer.weight, a, b_, cos if rope else None, sin if rope else None,
+                    shape, stash, key,
                 )
-            y = apply_linear(layer, x, use_kernel)
+            y = lora_linear(layer, x, ab, use_kernel)
             y = y if shape is None else y.reshape(shape)
             return apply_rope(y, cos, sin) if rope else y
 
@@ -341,7 +377,7 @@ class DecoderBlock(nn.Module):
 
         attn = attn.reshape(b, t, nh * hd)
         record(o_proj=attn)
-        h = h + apply_linear(self.o_proj, attn, use_kernel)
+        h = h + lora_linear(self.o_proj, attn, side("o_proj"), use_kernel)
         x = self.mlp_norm(h)
         record(gate_proj=x, up_proj=x)
         gate_pre = kept("gate_proj", "mlp_gate", x)
@@ -358,7 +394,7 @@ class DecoderBlock(nn.Module):
         else:
             gu = F.silu(gate_pre) * up
         record(down_proj=gu)
-        return h + apply_linear(self.down_proj, gu, use_kernel)
+        return h + lora_linear(self.down_proj, gu, side("down_proj"), use_kernel)
 
 
 class Decoder(nn.Module):
@@ -399,12 +435,15 @@ class Decoder(nn.Module):
         tap_layers: Tuple[int, ...] = (),            # 0-indexed block outputs to keep
         remat: bool = False,
         remat_policy: Optional[str] = None,
+        lora: Optional[Mapping[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
     ) -> Dict[str, object]:
         """JAX `decoder_forward`: {'hidden' (final-normed), 'logits' (f32, when
         compute_logits), 'taps' (tuple of the raw block outputs at tap_layers,
         before the final norm), 'cache' (the same cache object, updated in
         place, when one was passed)}. remat: each block is checkpointed while
         autograd records, keeping what `remat_policy` names (`REMAT_POLICIES`).
+        lora: {target: (A (L, din, r), B scaled (L, r, dout))}, the side path
+        of every targeted linear (models/lora.py `lora_side_factors`).
 
         q_offset is the chunk's first slot: a Python int, a 0-d tensor (one
         position for the whole batch) or a (B,) tensor (a position per
@@ -435,7 +474,8 @@ class Decoder(nn.Module):
         for i, block in enumerate(self.blocks):
             kw = dict(kv_lengths=kv_lengths, kv_starts=kv_starts, q_offset=q_offset,
                       cache_kv=None if cache is None else cache.layer(i),
-                      use_kernel=use_kernel, quant_saves=quant_saves)
+                      use_kernel=use_kernel, quant_saves=quant_saves,
+                      lora=None if lora is None else {n: (a[i], b[i]) for n, (a, b) in lora.items()})
             if remat and torch.is_grad_enabled():
                 h = checkpoint(block, h, cos, sin, stash=_Stash(saves), **kw,
                                use_reentrant=False, preserve_rng_state=False)

@@ -3,16 +3,19 @@ visper_lm_tpu/models/teachers/__init__.py).
 
 `init_teachers` builds the three teachers of the PT step (DINOv2-L for depth,
 CLIP-H for generation, Swin-L for segmentation) with seeded random weights,
-frozen; `make_teacher_fn` returns the function the train step calls for the
+frozen; `load_teacher` puts imported weights into one of them;
+`make_teacher_fn` returns the function the train step calls for the
 distillation targets, under torch.no_grad(), micro-batched as a Python loop.
-The DPT depth decoder (JAX `teachers["dpt"]`) is not on the target path and
-belongs to a later slice.
+`teacher_batch` is the host side: each teacher's pixels from uint8 images,
+through the native resize (native/). The DPT depth decoder (JAX
+`teachers["dpt"]`) is not on the target path and belongs to a later slice.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -126,3 +129,82 @@ def make_teacher_fn(
         return {k: torch.cat([c[k] for c in chunks]).detach() for k in chunks[0]}
 
     return teacher_fn
+
+
+def load_teacher(teachers: nn.ModuleDict, name: str, sd: Mapping[str, torch.Tensor]) -> None:
+    """Copy an importer's state dict (`import_dav2_dinov2`, `import_clip_h`,
+    `import_swin_backbone`) into teacher `name`, strictly, in its device and
+    dtype."""
+    module = teachers[name]
+    p = next(module.parameters())
+    module.load_state_dict(
+        {k: v.to(device=p.device, dtype=p.dtype) for k, v in sd.items()}, strict=True)
+
+
+def teacher_batch(
+    cfg: VLMConfig, images: Sequence[np.ndarray], workers: int = 0
+) -> Dict[str, np.ndarray]:
+    """Each teacher's f32 pixels for a batch of uint8 (H, W, 3) images, through
+    the native fused resize + normalize (JAX `teacher_batch_from_pil` with its
+    library built; there is no other path):
+
+      * depth_images (B, 336, 336, 3): bicubic to 336, ImageNet normalize,
+        BGR (the normalize with reversed statistics, then the channel flip);
+      * gen_images (B, 224, 224, 3): shortest edge to 224, centre crop, CLIP
+        normalize;
+      * seg_images (B, 768, 768, 3): bicubic to 768, ImageNet normalize,
+        written straight into the batch slab.
+
+    workers > 1 runs the images on a thread pool (the library releases the
+    GIL). The plain numpy versions it is held against are
+    `dinov2.dav2_preprocess_np`, `unclip.unclip_preprocess_np` and
+    `swin.seg_preprocess_np` (PIL's fixed-point resize)."""
+    from visper_lm_tpu_torch import native
+    from visper_lm_tpu_torch.data.mm_utils import (
+        CLIP_IMAGE_MEAN, CLIP_IMAGE_STD, IMAGENET_MEAN, IMAGENET_STD, to_rgb_array,
+    )
+
+    tasks = {t.task for t in cfg.distill.tasks}
+    arrays = [to_rgb_array(im) for im in images]
+
+    def depth(arr: np.ndarray) -> np.ndarray:
+        out = native.resize_normalize(arr, 336, IMAGENET_MEAN[::-1], IMAGENET_STD[::-1],
+                                      native.BICUBIC)
+        return out[..., ::-1]
+
+    def gen(arr: np.ndarray) -> np.ndarray:
+        # CLIPImageProcessor at 224: shortest edge, centre crop (the crop
+        # commutes with the fused normalize)
+        h, w = arr.shape[:2]
+        size = 224
+        if min(w, h) == size:
+            nw, nh = w, h
+        elif w <= h:
+            nw, nh = size, int(size * h / w)
+        else:
+            nw, nh = int(size * w / h), size
+        out = native.resize_normalize(arr, (nh, nw), CLIP_IMAGE_MEAN, CLIP_IMAGE_STD,
+                                      native.BICUBIC)
+        top, left = (nh - size) // 2, (nw - size) // 2
+        return out[top:top + size, left:left + size]
+
+    def run(fn, items):
+        if workers > 1 and len(items) > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(min(workers, len(items))) as pool:
+                return list(pool.map(fn, items))
+        return [fn(x) for x in items]
+
+    out: Dict[str, np.ndarray] = {}
+    if "depth" in tasks:
+        out["depth_images"] = np.stack(run(depth, arrays))
+    if "gen" in tasks:
+        out["gen_images"] = np.stack(run(gen, arrays))
+    if "seg" in tasks:
+        slab = np.empty((len(arrays), 768, 768, 3), np.float32)
+        run(lambda i: native.resize_normalize(arrays[i], 768, IMAGENET_MEAN, IMAGENET_STD,
+                                              native.BICUBIC, out=slab[i]),
+            list(range(len(arrays))))
+        out["seg_images"] = slab
+    return out

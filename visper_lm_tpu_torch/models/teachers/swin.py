@@ -9,12 +9,14 @@ min(h, w) > ws (stage 4 at 24 x 24 still is): a static roll plus an additive
 with a static index. Window attention goes through ops/window_attention.py
 (the B4 kernel on CUDA). The patch embedding is `F.conv2d`, as the JAX
 package leaves its conv to XLA; its weight is OIHW (JAX: HWIO).
+`import_swin_backbone` reads an HF OneFormer / Swin backbone state dict;
+`seg_preprocess_np` is the seg teacher's host pixels in plain numpy.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -226,3 +228,53 @@ def seg_target(
     feats = swin_forward(model, images, out_stages=(3,), use_kernel=use_kernel)[0]
     b, h, w, c = feats.shape
     return feats.reshape(b, h * w, c).float()
+
+
+def seg_preprocess_np(image, size: int = 768) -> np.ndarray:
+    """The seg teacher's pixels: a (size, size) bicubic resize (PIL's
+    default), ImageNet normalize; f32 (size, size, 3)."""
+    from visper_lm_tpu_torch.data.mm_utils import (
+        IMAGENET_MEAN, IMAGENET_STD, normalize_image, resize_bicubic, to_rgb_array,
+    )
+
+    return normalize_image(resize_bicubic(to_rgb_array(image), (size, size)),
+                           IMAGENET_MEAN, IMAGENET_STD)
+
+
+def import_swin_backbone(
+    sd: Mapping[str, object], cfg: SwinConfig, prefix: str
+) -> Dict[str, torch.Tensor]:
+    """An HF OneFormer / Swin backbone state dict (e.g. prefix
+    "pixel_level_module.encoder.") -> `SwinBackbone` state-dict names: the
+    query, key and value linears concatenated into qkv."""
+    from visper_lm_tpu_torch.checkpoint.hf_import import _lin, _ln, as_state_dict
+
+    sd = as_state_dict(sd)
+    emb = prefix + "embeddings."
+    out: Dict[str, torch.Tensor] = {
+        "patch_embed.weight": sd[emb + "patch_embeddings.projection.weight"],   # OIHW
+        "patch_embed.bias": sd[emb + "patch_embeddings.projection.bias"],
+    }
+    _ln(out, "patch_norm", sd, emb + "norm")
+    for s_ in range(len(cfg.depths)):
+        sp = f"{prefix}encoder.layers.{s_}."
+        for i in range(cfg.depths[s_]):
+            bp, op = f"{sp}blocks.{i}.", f"stages.{s_}.blocks.{i}."
+            att = bp + "attention."
+            for part in ("weight", "bias"):
+                out[f"{op}qkv.{part}"] = torch.cat(
+                    [sd[f"{att}self.{n}.{part}"] for n in ("query", "key", "value")])
+            _ln(out, op + "norm1", sd, bp + "layernorm_before")
+            _lin(out, op + "proj", sd, att + "output.dense")
+            out[op + "rel_bias"] = sd[att + "self.relative_position_bias_table"]
+            _ln(out, op + "norm2", sd, bp + "layernorm_after")
+            _lin(out, op + "fc1", sd, bp + "intermediate.dense")
+            _lin(out, op + "fc2", sd, bp + "output.dense")
+        if f"{sp}downsample.reduction.weight" in sd:
+            _ln(out, f"stages.{s_}.downsample.norm", sd, sp + "downsample.norm")
+            _lin(out, f"stages.{s_}.downsample.reduction", sd, sp + "downsample.reduction")
+    i = 0
+    while f"{prefix}hidden_states_norms.stage{i + 1}.weight" in sd:
+        _ln(out, f"out_norms.{i}", sd, f"{prefix}hidden_states_norms.stage{i + 1}")
+        i += 1
+    return out

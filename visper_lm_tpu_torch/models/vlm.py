@@ -14,7 +14,10 @@ the tiles' rows (data/anyres.py's index plans gather from that layout).
 
 Serving runs the decoder only; training (`vlm_forward` with taps) also runs
 the distillation heads on static slices of the tapped layer states
-(`predict_task_embeddings`).
+(`predict_task_embeddings`). With cfg.lora the VLM owns the LoRA factors
+(`lora`, models/lora.py), and `vlm_forward` runs them as the decoder's side
+path, never merged inside the step (JAX's choice: the merged form's backward
+carries a full (din, dout) cotangent per target to reach A and B).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from visper_lm_tpu_torch.device import resolve_device
 from visper_lm_tpu_torch.models.convnext import ConvNeXt, convnext_tower_features, init_convnext_
 from visper_lm_tpu_torch.models.decoder import Decoder
 from visper_lm_tpu_torch.models.heads import TaskHead, task_head_forward
+from visper_lm_tpu_torch.models.lora import build_lora, init_lora_, lora_side_factors
 from visper_lm_tpu_torch.models.projector import Projector
 from visper_lm_tpu_torch.models.resampler import Resampler
 from visper_lm_tpu_torch.models.vit import VisionTower, clip_tower_features, init_tower_
@@ -50,12 +54,11 @@ class VLM(nn.Module):
     """Decoder + vision tower (CLIP-ViT or ConvNeXt) + projector + task-token
     parameters; image_newline (the decoder's width) with an "unpad" merge
     type, else None; with a distill config the heads (per task, one per
-    tapped layer) and the contrastive logit scales (f32)."""
+    tapped layer) and the contrastive logit scales (f32); with a LoRA config
+    the adapters' stacked f32 factors (`lora.<target>.a` / `.b`), else None."""
 
     def __init__(self, cfg: VLMConfig, device=None):
         super().__init__()
-        if cfg.lora is not None:
-            raise NotImplementedError("LoRA is not ported yet (ROADMAP queue A, item 4)")
         self.cfg = cfg
         dtype = torch_dtype(cfg.decoder.dtype)
         self.decoder = Decoder(cfg.decoder, device=device, dtype=dtype)
@@ -66,6 +69,7 @@ class VLM(nn.Module):
             self.vision_tower = VisionTower(
                 cfg.vision, device=device, dtype=torch_dtype(cfg.vision.dtype))
         self.mm_projector = Projector(cfg.projector, device=device, dtype=dtype)
+        self.lora = None if cfg.lora is None else build_lora(cfg.decoder, cfg.lora, device=device)
         self.register_parameter("image_newline", nn.Parameter(
             torch.zeros(cfg.decoder.hidden_size, device=device, dtype=dtype))
             if "unpad" in cfg.mm_patch_merge_type else None)
@@ -114,6 +118,8 @@ def init_vlm(
         init_convnext_(model.vision_tower, gen)
     else:
         init_tower_(model.vision_tower, gen)
+    if model.lora is not None:
+        init_lora_(model.lora, gen)
     with torch.no_grad():
         if model.image_newline is not None:
             model.image_newline.zero_()
@@ -229,6 +235,7 @@ def vlm_forward(
         embeds, kv_lengths=batch.get("seq_lengths"), tap_layers=taps,
         use_kernel=use_kernel, compute_logits=compute_logits,
         remat=remat, remat_policy=remat_policy,
+        lora=lora_side_factors(model.lora, cfg.lora),
     )
     out["tap_layers"] = taps
     out["image_features"] = image_features

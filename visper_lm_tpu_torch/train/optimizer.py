@@ -172,8 +172,9 @@ class AdamW:
         pass zeros for unused ones). Returns the pre-clip global norm (f32)."""
         cfg = self.cfg
         names = [n for n in self.params if self.group[n] != "frozen"]
-        g32 = {n: grads[n].float() for n in names}
-        sq = {n: g.square().sum() for n, g in g32.items()}
+        # each gradient is widened to f32 where it is used, one at a time: a
+        # whole f32 copy of them (4 bytes a trainable) would outweigh the step
+        sq = {n: grads[n].float().square().sum() for n in names}
         gnorm = torch.sqrt(sum(sq.values()))
         # each lr group is its own optax chain: clipped by its own global norm
         clip = {}
@@ -189,7 +190,7 @@ class AdamW:
         bc1 = float(np.float32(1.0) - np.float32(cfg.b1) ** n)
         bc2 = float(np.float32(1.0) - np.float32(cfg.b2) ** n)
         for n in names:
-            p, g = self.params[n], g32[n] * clip[self.group[n]]
+            p, g = self.params[n], grads[n].float() * clip[self.group[n]]
             mu, nu = self.mu[n], self.nu[n]
             mu.mul_(cfg.b1).add_(g, alpha=1.0 - cfg.b1)
             nu.mul_(cfg.b2).add_(g.square(), alpha=1.0 - cfg.b2)

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from visper_lm_tpu_torch.config import VLMConfig
+from visper_lm_tpu_torch.data.dataset import RAW_IMAGES
 from visper_lm_tpu_torch.device import resolve_device
 from visper_lm_tpu_torch.train.checkpoint import CheckpointManager
 from visper_lm_tpu_torch.train.optimizer import OptimizerConfig
@@ -189,7 +190,8 @@ def train(
     place); returns the final `TrainStep`.
 
     data_iter_fn(epoch) yields host batches (splice plans + images +
-    targets / masks, numpy); it may also take `skip_batches`."""
+    targets / masks, numpy; the dataset's host-only RAW_IMAGES is dropped);
+    it may also take `skip_batches`."""
     if (trainer_cfg.dp or 1) != 1 or trainer_cfg.tp != 1:
         raise NotImplementedError(
             f"train: one device only (dp={trainer_cfg.dp}, tp={trainer_cfg.tp})")
@@ -266,7 +268,7 @@ def train(
                 host_iter = data_iter_fn(epoch)
                 epoch_step = 0
 
-            host_iter = ({k: v for k, v in b.items() if k != "pil_images"} for b in host_iter)
+            host_iter = ({k: v for k, v in b.items() if k != RAW_IMAGES} for b in host_iter)
             for dbatch in _Prefetcher(_grouped(host_iter, accum), device,
                                       depth=trainer_cfg.prefetch_depth):
                 if done():

@@ -9,7 +9,8 @@ bfloat16 leaves (ml_dtypes) are carried bit for bit.
 
 `from_jax_params` maps the whole VLM tree (a CLIP or ConvNeXt tower, each
 ConvNeXt stage's stacked blocks unstacked; image_newline), the distillation
-heads and their logit scales included, and a decoder quantized by the JAX package
+heads and their logit scales, the LoRA factors (`params["lora"]`, stacked
+as they are), and a decoder quantized by the JAX package
 (`quantize_linear_weights` / `quantize_linear_weights_int4`): its
 {kernel_q8, out_scale} and {kernel_q4p, q4_scale[, q4_in_scale]} leaves
 become `QuantLinear` buffers as they are (both input-major), bit for bit.
@@ -37,7 +38,7 @@ from visper_lm_tpu_torch.utils.param import QuantLinear
 
 _VLM_SUBTREES = (
     "decoder", "vision_tower", "mm_projector", "special_tokens", "heads", "logit_scales",
-    "image_newline",
+    "image_newline", "lora",
 )
 # JAX quantized-linear leaf -> QuantLinear buffer (same layout, no transpose)
 _QUANT_LEAVES = {
@@ -142,7 +143,8 @@ def jax_tree_to_state_dict(tree: Dict[str, Any], cfg: VLMConfig) -> Dict[str, An
         _convnext(sd, "vision_tower", tree["vision_tower"])
     else:
         _vit(sd, "vision_tower", tree["vision_tower"], cfg.vision.num_layers)
-    for name in ("mm_projector", "special_tokens", "heads", "logit_scales"):
+    # lora: {target: {a (L, din, r), b (L, r, dout)}}, stacked as the port keeps it
+    for name in ("mm_projector", "special_tokens", "heads", "logit_scales", "lora"):
         if name in tree:
             _flatten(sd, name, tree[name])
     if "image_newline" in tree:
