@@ -203,6 +203,35 @@ Phases, each of which raises (exit code != 0) when it fails:
      the IFT data: LoRA's B zero at the start (the first loss equals the
      base model's bit for bit), the base decoder bit-unchanged by both, the
      adapters, projector and tower moved where their stage trains them.
+ 13. visual interpretations at Llama-3-8B + CLIP-L (phase 12's models
+     released; `llama3_clip_vlm(distill=True)` made on the card as phase 10
+     makes it, with its whitespace tokenizer), every record with the card's
+     name and power limit. (a) `VisperModel.get_visual_interpretations` of one
+     seeded 480 x 640 image and a 40-word question: B1 exactly 32 launches,
+     every task / layer prediction of the expected shape and within 0.05 x
+     max|ref| of the same call with use_kernel=False (the shares printed),
+     its ms. (b) DPT at DAv2-L's widths (in_channels 1024, seeded): each
+     depth layer's map 336 x 336, finite, in [0, 1]. (c) OneFormer at
+     ONEFORMER_COCO (seeded) over Swin-L (bf16, seeded) at 768 px with the seg
+     head's prediction substituted for the last stage: B4 launches equal to
+     Swin-L's 24 blocks (printed), class and mask logits within 0.05 x
+     max|ref| of use_kernel=False, the semantic maps equal on >= 99 % of
+     pixels, its ms. (d) the unCLIP pipeline at SD21_UNCLIP's widths (bf16,
+     seeded) renders one 768 x 768 image from the gen head's 1024-wide
+     prediction, 25 DPM-Solver++ steps at guidance 10: finite, in [0, 1], the
+     same seed the same bytes twice (cuDNN's deterministic algorithms); one
+     UNet forward in bf16 within 2e-2 relative Frobenius of an f32 copy of the
+     same weights; ms per denoise step (one UNet call on the CFG batch), the
+     VAE's ms, the whole generation's ms and its peak GiB. (e)
+     `teacher_bundles.pack_modules` writes (b)-(d)'s decoders into the
+     repo's tmp/ (removed after); `demo.main` one-shot --viz loads them
+     through `load_viz_decoders` and writes all three tasks' PNGs for every
+     tapped layer, each read back with `read_png`; `DistillVizHook` called
+     directly writes its grids; a `delta` of the heads (bf16) round-trips
+     bit for bit.
+Phase 3 also holds B1-B3 at phase 12's recipe PT shape (Llama-3-8B, B4 x
+T1024, GQA 32/8 H128, causal) against their plain versions, beside SDPA's
+forward and backward and the bound, as at the training shape.
 
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Needs no network; builds into
@@ -2347,6 +2376,255 @@ def recipe_phase(fa, wa, smi: str) -> dict:
     return out
 
 
+def viz_phase(fa, wa, smi: str) -> dict:
+    """Phase 13: visual interpretations at Llama-3-8B + CLIP-L through the
+    user API (see the module docstring). Returns the record printed as
+    `viz_path`."""
+    import shutil
+
+    from visper_lm_tpu_torch import demo
+    from visper_lm_tpu_torch.api import VisperModel
+    from visper_lm_tpu_torch.checkpoint import delta, teacher_bundles
+    from visper_lm_tpu_torch.config import llama3_clip_vlm
+    from visper_lm_tpu_torch.data.collate import build_splice_plan, collate_plans
+    from visper_lm_tpu_torch.data.image_io import read_png, write_png
+    from visper_lm_tpu_torch.data.mm_utils import (
+        IMAGENET_MEAN, IMAGENET_STD, process_images, resize_bicubic, tokenizer_image_token)
+    from visper_lm_tpu_torch.models import genpipe
+    from visper_lm_tpu_torch.models.genpipe.clip_text import clip_text_forward, empty_prompt_ids
+    from visper_lm_tpu_torch.models.genpipe.unet import unet_forward
+    from visper_lm_tpu_torch.models.genpipe.vae import vae_decode
+    from visper_lm_tpu_torch.models.teachers import oneformer
+    from visper_lm_tpu_torch.models.teachers import swin as swin_lib
+    from visper_lm_tpu_torch.models.teachers.dpt import init_dpt_head, normalized_depth
+    from visper_lm_tpu_torch.models.vlm import init_vlm
+    from visper_lm_tpu_torch.train.viz import DistillVizHook
+
+    import contextlib
+    import io
+    import os
+
+    repo = Path(__file__).resolve().parent
+    root = repo / "tmp" / "chip_smoke_viz"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out = dict(card=smi)
+
+    def synced_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def within(name, got, ref, share=0.05):
+        got, ref = torch.as_tensor(got).float(), torch.as_tensor(ref).float()
+        diff, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+        check(bool(torch.isfinite(got).all()), f"{name}: not finite")
+        check(diff <= share * scale, f"{name}: kernels vs plain {diff} > {share} x {scale}")
+        return dict(max_abs_diff=diff, max_abs_ref=scale, share=diff / max(scale, 1e-30))
+
+    try:
+        # (a) the tap forward and the heads, as phase 10 builds the model
+        cfg = llama3_clip_vlm(distill=True, image_aspect_ratio="pad")
+        d = cfg.decoder
+        tok = WordTokenizer(d.vocab_size, LLAMA3_SPECIALS, bos=128000, eos=128009, first_word=256)
+        t0 = time.perf_counter()
+        vm = VisperModel(cfg=cfg, model=init_vlm(cfg, device="cuda", seed=13), tokenizer=tok)
+        torch.cuda.synchronize()
+        out["init_s"] = time.perf_counter() - t0
+        rng = np.random.default_rng(13)
+        image = rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+        question = " ".join(f"w{i}" for i in rng.integers(256, 128000, size=40))
+        fa.launches = 0
+        interp, first_ms = synced_ms(lambda: vm.get_visual_interpretations(question, image))
+        b1 = fa.launches
+        check(b1 == d.num_layers, f"get_visual_interpretations: B1 {b1} launches, want {d.num_layers}")
+        _, warm_ms = synced_ms(lambda: vm.get_visual_interpretations(question, image))
+        plain = vm.get_visual_interpretations(question, image, use_kernel=False)
+        shares = {}
+        for tcfg in cfg.distill.tasks:
+            for layer in tcfg.layer_indices:
+                got = interp[tcfg.task][layer]
+                want = (1, tcfg.head.num_tokens, tcfg.head.output_dim)
+                check(got.shape == want, f"{tcfg.task}/{layer}: shape {got.shape}, want {want}")
+                shares[f"{tcfg.task}/{layer}"] = within(f"{tcfg.task}/{layer}", got,
+                                                        plain[tcfg.task][layer])
+        prompt_len = -(-(len(tokenizer_image_token(vm.build_prompt(question), tok))
+                         + cfg.num_image_tokens + cfg.distill.num_task_tokens * 3) // 128) * 128
+        prof = profile_window("viz tap forward", lambda: vm.get_visual_interpretations(question, image),
+                              match=("flash",))
+        out["tap_forward"] = dict(b1_launches=b1, first_ms=first_ms, ms=warm_ms, prompt_len=prompt_len,
+                                  kernels_vs_plain=shares, profile=prof, card=smi)
+        print("viz tap_forward " + json.dumps(out["tap_forward"]))
+        gen = torch.Generator(device="cuda").manual_seed(13)
+
+        # (b) depth through DPT at DAv2-L's widths
+        dpt = init_dpt_head(1024, generator=gen, device="cuda")
+        depth_ms = {}
+        for layer, emb in interp["depth"].items():
+            m, depth_ms[layer] = synced_ms(
+                lambda: normalized_depth(dpt, demo._depth_pyramid(vm, layer, emb)))
+            check(tuple(m.shape) == (1, 336, 336) and bool(torch.isfinite(m).all())
+                  and float(m.min()) >= 0.0 and float(m.max()) <= 1.0,
+                  f"depth layer {layer}: map {tuple(m.shape)} [{float(m.min())}, {float(m.max())}]")
+        out["depth"] = dict(ms=depth_ms, card=smi)
+        print("viz depth " + json.dumps(out["depth"]))
+
+        # (c) segmentation: OneFormer (COCO) over Swin-L at 768 px, the seg head's
+        # prediction substituted for the last stage
+        swin = swin_lib.SwinBackbone(swin_lib.SWIN_L, device="cuda", dtype=torch.bfloat16)
+        swin_lib.init_swin_(swin, gen)
+        swin = swin.requires_grad_(False).eval()
+        dec = oneformer.init_oneformer(oneformer.ONEFORMER_COCO, generator=gen, device="cuda")
+        px = resize_bicubic(image, (768, 768)).astype(np.float32)[None] / 255.0
+        px = torch.as_tensor(((px - np.asarray(IMAGENET_MEAN)) / np.asarray(IMAGENET_STD))
+                             .astype(np.float32), device="cuda")
+        task = torch.zeros(1, 77, device="cuda")
+        layer = cfg.distill.get_task("seg").layer_indices[-1]
+        sub = torch.as_tensor(interp["seg"][layer], device="cuda").reshape(1, 24, 24, 1536)
+
+        def masks(use_kernel):
+            return oneformer.get_masks(dec, oneformer.ONEFORMER_COCO, swin, px, task,
+                                       backbone_last_feature=sub, use_kernel=use_kernel)
+
+        wa.launches = 0
+        res_k, first_seg_ms = synced_ms(lambda: masks(None))
+        b4 = wa.launches
+        want_b4 = sum(swin_lib.SWIN_L.depths)   # swin_forward launches once a block
+        print(f"viz seg: B4 launches {b4} for one 768-px image (Swin-L blocks {want_b4}) [{smi}]")
+        check(b4 == want_b4, f"get_masks: B4 {b4} launches, want {want_b4}")
+        _, seg_ms = synced_ms(lambda: masks(None))
+        res_p = masks(False)
+        seg_rec = {k: within(f"oneformer {k}", res_k[k], res_p[k])
+                   for k in ("class_queries_logits", "masks_queries_logits")}
+        sem_k = oneformer.semantic_segmentation(res_k["class_queries_logits"],
+                                                res_k["masks_queries_logits"], (480, 640))
+        sem_p = oneformer.semantic_segmentation(res_p["class_queries_logits"],
+                                                res_p["masks_queries_logits"], (480, 640))
+        agree = float((sem_k == sem_p).float().mean())
+        check(agree >= 0.99, f"semantic maps kernels vs plain agree on {agree:.4f} of pixels")
+        prof = profile_window("viz get_masks", lambda: masks(None), match=("window",))
+        out["seg"] = dict(b4_launches=b4, first_ms=first_seg_ms, ms=seg_ms, map_agree=agree, profile=prof,
+                          shapes={k: list(v.shape) for k, v in res_k.items()}, **seg_rec, card=smi)
+        print("viz seg " + json.dumps(out["seg"]))
+        del res_k, res_p
+
+        # (d) generation: the unCLIP pipeline at SD21_UNCLIP's widths, bf16
+        gcfg = genpipe.SD21_UNCLIP
+        pipe, init_ms = synced_ms(lambda: genpipe.init_genpipe(gcfg, device="cuda",
+                                                               dtype=torch.bfloat16, seed=13))
+        emb = interp["gen"][cfg.distill.get_task("gen").layer_indices[0]]
+        cudnn_det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True    # the seed, not the algorithm, sets the bytes
+        torch.cuda.reset_peak_memory_stats()
+        img1, gen_ms = synced_ms(lambda: genpipe.generate_from_embeds(
+            pipe, gcfg, emb, num_inference_steps=25, seed=0))
+        peak = torch.cuda.max_memory_allocated()
+        img2 = genpipe.generate_from_embeds(pipe, gcfg, emb, num_inference_steps=25, seed=0)
+        torch.backends.cudnn.deterministic = cudnn_det
+        check(img1.shape == (1, 768, 768, 3) and np.isfinite(img1).all() and img1.min() >= 0.0
+              and img1.max() <= 1.0, f"generated image {img1.shape} [{img1.min()}, {img1.max()}]")
+        check(img1.tobytes() == img2.tobytes(), "the same seed gave other image bytes")
+        # one denoise step (the UNet on the CFG batch of 2) and the VAE, timed alone
+        lat = torch.randn(2, 96, 96, 4, generator=gen, device="cuda")
+        text = clip_text_forward(pipe.text, gcfg.text, empty_prompt_ids(gcfg.text, "cuda")).expand(2, -1, -1)
+        noise = torch.randn(1, gcfg.embed_dim, generator=gen, device="cuda")
+        cond = genpipe.noise_image_embeddings(pipe, gcfg, torch.as_tensor(emb, device="cuda")[:, 0],
+                                              0, noise)
+        labels = torch.cat([torch.zeros_like(cond), cond]).to(torch.bfloat16)
+        t500 = torch.tensor(500, device="cuda")
+        with torch.no_grad():
+            step_ms = cuda_ms(lambda: unet_forward(pipe.unet, gcfg.unet, lat, t500, text, labels), 5)
+            step_prof = profile_window(
+                "viz unet step", lambda: unet_forward(pipe.unet, gcfg.unet, lat, t500, text, labels),
+                match=("softmax", "gemm", "conv", "elementwise"))
+            vae_ms = cuda_ms(lambda: vae_decode(pipe.vae, gcfg.vae, lat[:1]), 3)
+            ref_unet = copy.deepcopy(pipe.unet).float()
+            got = unet_forward(pipe.unet, gcfg.unet, lat, t500, text, labels).float()
+            ref = unet_forward(ref_unet, gcfg.unet, lat, t500, text.float(), labels.float())
+            rel = ((got - ref).norm() / ref.norm()).item()
+            del ref_unet, got, ref
+        check(rel <= 2e-2, f"UNet bf16 vs f32 relative Frobenius {rel} > 2e-2")
+        n_unet = sum(p.numel() for p in pipe.unet.parameters())
+        out["gen"] = dict(unet_params=n_unet, init_ms=init_ms, generate_ms=gen_ms,
+                          step_ms=step_ms, step_profile=step_prof, vae_ms=vae_ms, steps=25,
+                          guidance=gcfg.guidance_scale,
+                          peak_gib=peak / 2**30, unet_bf16_vs_f32_rel_fro=rel,
+                          image_mean=float(img1.mean()), card=smi)
+        print("viz gen " + json.dumps(out["gen"]))
+        release_cuda()
+
+        # (e) the tools: bundles, the demo one-shot, the viz hook, deltas
+        t0 = time.perf_counter()
+        teachers = root / "teachers"
+        packed = teacher_bundles.pack_modules(
+            str(teachers), dpt=dpt,
+            oneformer=dict(decoder=dec, cfg=oneformer.ONEFORMER_COCO, swin=swin,
+                           swin_cfg=swin_lib.SWIN_L, image_size=768),
+            genpipe=dict(pipe=pipe, cfg=gcfg, num_inference_steps=25))
+        pack_s = time.perf_counter() - t0
+        sizes = {k: os.path.getsize(v) / 2**30 for k, v in packed.items()}
+        del pipe
+        release_cuda()
+        write_png(str(root / "in.png"), image)
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            demo.main(["--image", str(root / "in.png"), "--question", question, "--viz",
+                       "--teachers", str(teachers), "--out-dir", str(root / "out")], model=vm)
+        demo_s = time.perf_counter() - t0
+        text_out = printed.getvalue()
+        manifest = json.loads(text_out[text_out.index("{"):])
+        pngs = {}
+        for tcfg in cfg.distill.tasks:
+            for layer in tcfg.layer_indices:
+                key = f"{tcfg.task}/{layer + 1}" + ("_sem" if tcfg.task == "seg" else "_png")
+                check(key in manifest, f"demo: no {key} in the manifest {sorted(manifest)}")
+                arr = read_png(manifest[key])
+                want = {"depth": (336, 336, 3), "seg": (480, 640, 3), "gen": (768, 768, 3)}[tcfg.task]
+                check(arr is not None and arr.shape == want, f"demo: {key} reads back as "
+                      f"{None if arr is None else arr.shape}, want {want}")
+                pngs[key] = list(arr.shape)
+        # the viz hook, called directly on the model and a one-image batch
+        plan = build_splice_plan(tokenizer_image_token(vm.build_prompt(question), tok), None,
+                                 prompt_len, num_image_tokens=cfg.num_image_tokens,
+                                 num_task_tokens=cfg.distill.num_task_tokens, num_tasks=3)
+        batch = collate_plans([plan], images=np.asarray(
+            process_images([image], image_aspect_ratio="square", image_size=336), np.float32))
+        hook = DistillVizHook(cfg, str(root / "hook"), dpt, every=1)
+        state = type("State", (), {"model": vm.model})()
+        maps = hook(1, state, batch)
+        n_depth = len(cfg.distill.get_task("depth").layer_indices)
+        check(maps is not None and maps.shape == (n_depth, 1, 336, 336) and np.isfinite(maps).all(),
+              f"viz hook maps {None if maps is None else maps.shape}")
+        hook_files = sorted(os.listdir(root / "hook" / "viz"))
+        check(hook_files == [f"depth_l{i}_step1.png" for i in range(n_depth)],
+              f"viz hook files {hook_files}")
+        for f in hook_files:
+            check(read_png(str(root / "hook" / "viz" / f)).shape == (336, 336, 3), f"hook {f}")
+        # a checkpoint delta of the heads round-trips bit for bit (bf16)
+        target = copy.deepcopy(vm.model.heads)
+        with torch.no_grad():
+            for p in target.parameters():
+                p.add_(0.01 * torch.randn(p.shape, generator=gen, device="cuda").to(p.dtype))
+        back = delta.apply_delta(vm.model.heads, delta.make_delta(vm.model.heads, target))
+        want = delta.flat(target)
+        check(sorted(back) == sorted(want) and all(np.array_equal(back[k], want[k]) for k in want),
+              "delta: the heads did not round-trip bit for bit")
+        out["tools"] = dict(pack_s=pack_s, bundle_gib=sizes, demo_s=demo_s, pngs=pngs,
+                            hook_files=hook_files, delta_tensors=len(want), card=smi)
+        print("viz tools " + json.dumps(out["tools"]))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def release_cuda():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def cli_batches(cfg, args, ds, teacher_batch):
     """The CLI's PT batches (`cli.main`'s data_iter without the prefetch):
     splice plans and tower pixels, then the teachers' pixels of the raw
@@ -2365,7 +2643,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from visper_lm_tpu_torch.config import phi3_clip_vlm
+    from visper_lm_tpu_torch.config import LLAMA3_8B, phi3_clip_vlm
     from visper_lm_tpu_torch.models.teachers import init_teachers, make_teacher_fn
     from visper_lm_tpu_torch.models.decoder import quantize_head_vectors
     from visper_lm_tpu_torch.models.teachers import swin
@@ -2465,6 +2743,13 @@ def main() -> int:
         [0] * TRAIN_BATCH, train_lens, gen, fa,
     )
     gqa_dq, gqa_dkv = bwd_case("gqa", 2, 1024, 32, 8, 128, True, [0, 100], [1024, 900], gen, fa)
+    # B1-B3 at phase 12's recipe PT shape: Llama-3-8B, B4 x T1024, GQA 32/8 H128, causal
+    l3 = LLAMA3_8B
+    full = ([0] * RECIPE_BATCH, [TRAIN_SEQ] * RECIPE_BATCH)
+    recipe_fwd = kernel_case("recipe_pt", RECIPE_BATCH, TRAIN_SEQ, l3.num_heads, l3.num_kv_heads,
+                             l3.head_dim, torch.bfloat16, True, *full, gen, fa)
+    recipe_dq, recipe_dkv = bwd_case("recipe_pt", RECIPE_BATCH, TRAIN_SEQ, l3.num_heads,
+                                     l3.num_kv_heads, l3.head_dim, True, *full, gen, fa)
     win_recs = [
         window_case(i, w, heads, shifted, gen, wa, swin)
         for i, (w, heads) in enumerate(SWIN_STAGES) for shifted in (False, True)
@@ -2793,9 +3078,18 @@ def main() -> int:
     recipe = recipe_phase(fa, wa, smi)
     print(f"recipe phase {time.perf_counter() - t0:.1f} s")
     print("recipe_path " + json.dumps(recipe))
-    dec_launches = da.launches                  # over phases 4-12
-    print(f"decode_attn launches over the serving, training, engine, api, vision and recipe "
-          f"paths: {dec_launches}")
+
+    # 13. visual interpretations at Llama-3-8B: the tap forward, DPT, OneFormer
+    # over Swin-L, the unCLIP pipeline, the bundles, the demo, the hook, deltas
+    release_cuda()
+    t0 = time.perf_counter()
+    viz = viz_phase(fa, wa, smi)
+    viz["seconds"] = time.perf_counter() - t0
+    print(f"viz phase {viz['seconds']:.1f} s [{smi}]")
+    print("viz_path " + json.dumps(viz))
+    dec_launches = da.launches                  # over phases 4-13
+    print(f"decode_attn launches over the serving, training, engine, api, vision, recipe and "
+          f"viz paths: {dec_launches}")
     check(dec_launches == 0, f"decode_attn launched {dec_launches} times; no path calls it")
 
     def entry(kname, source, replaces, rec, launches):
@@ -2825,6 +3119,8 @@ def main() -> int:
              launches_convnext_pt_step=vision["convnext_pt_step"]["launches"]["flash_fwd"],
              launches_recipe_pt=recipe["pt"]["launches"]["flash_fwd"],
              launches_recipe_ift=recipe["ift"]["launches"]["flash_fwd"],
+             recipe_pt={k: recipe_fwd[k] for k in LLAMA3_KEYS},
+             launches_phase13=viz["tap_forward"]["b1_launches"],
              train=dict(shape=train_fwd_rec["shape"], ms=train_fwd_rec["ms"],
                         mma_sync_ms=train_fwd_rec["mma_sync_ms"],
                         library_ms=train_fwd_rec["library_ms"],
@@ -2834,6 +3130,7 @@ def main() -> int:
              launches_phase7=train_launches["flash_bwd_dq"], shape=dq_rec["shape"], kernel=dq_rec["kernel"], device_ms=dq_rec["device_ms"],
              launches_recipe_pt=recipe["pt"]["launches"]["flash_bwd_dq"],
              launches_recipe_ift=recipe["ift"]["launches"]["flash_bwd_dq"],
+             recipe_pt={k: recipe_dq[k] for k in LLAMA3_KEYS + ("device_ms",)},
              library="SDPA backward (dq, dk and dv in one call)",
              gqa=dict(shape=gqa_dq["shape"], ms=gqa_dq["ms"], device_ms=gqa_dq["device_ms"],
                       library_ms=gqa_dq["library_ms"], bound_ms=gqa_dq["bound_ms"])),
@@ -2842,6 +3139,7 @@ def main() -> int:
              launches_phase7=train_launches["flash_bwd_dkv"], shape=dkv_rec["shape"], kernel=dkv_rec["kernel"], device_ms=dkv_rec["device_ms"],
              launches_recipe_pt=recipe["pt"]["launches"]["flash_bwd_dkv"],
              launches_recipe_ift=recipe["ift"]["launches"]["flash_bwd_dkv"],
+             recipe_pt={k: recipe_dkv[k] for k in LLAMA3_KEYS + ("device_ms",)},
              library="SDPA backward (dq, dk and dv in one call)",
              gqa=dict(shape=gqa_dkv["shape"], ms=gqa_dkv["ms"], device_ms=gqa_dkv["device_ms"],
                       library_ms=gqa_dkv["library_ms"], bound_ms=gqa_dkv["bound_ms"])),
@@ -2849,6 +3147,7 @@ def main() -> int:
                    win_rec, main_launches["window_attn"]),
              launches_phase7=train_launches["window_attn"], shape=win_rec["shape"], kernel=win_rec["kernel"], timing=win_rec["timing"],
              launches_recipe_pt=recipe["pt"]["launches"]["window_attn"],
+             launches_phase13=viz["seg"]["b4_launches"],
              eager_ms=win_rec["eager_ms"],
              stages={r["case"]: dict(ms=r["ms"],
                                      library_ms=r["library_ms"], bound_ms=r["bound_ms"],

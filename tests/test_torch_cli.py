@@ -176,7 +176,15 @@ def test_pretrain_full_recipe_raises_for_its_memory_levers(dataset, tmp_path):
                    "--tokenizer", "fake-whitespace", "--output-dir", str(tmp_path), "--device", "cpu"])
 
 
-BANNED = ("jax", "jaxlib", "visper_lm_tpu", "PIL", "safetensors", "transformers")
+BANNED = ("jax", "jaxlib", "visper_lm_tpu", "PIL", "safetensors", "transformers", "diffusers",
+          "gradio")
+# the visual-interpretation slice's modules, which must be among those checked
+VIZ_MODULES = (
+    "checkpoint/delta.py", "checkpoint/teacher_bundles.py", "demo.py", "train/viz.py",
+    "models/teachers/dpt.py", "models/teachers/oneformer.py", "models/genpipe/__init__.py",
+    "models/genpipe/schedulers.py", "models/genpipe/clip_text.py", "models/genpipe/unet.py",
+    "models/genpipe/vae.py", "models/genpipe/pipeline.py",
+)
 
 
 def _module_level_imports(path):
@@ -201,12 +209,15 @@ def _module_level_imports(path):
 
 def test_no_module_level_import_of_jax_pil_safetensors_or_transformers():
     """Every module of the port and chip_smoke.py: none imports JAX, the JAX
-    package, PIL, safetensors or transformers at module level (the card has
-    none of them; the PIL and transformers paths import inside functions)."""
+    package, PIL, safetensors, transformers, diffusers or gradio at module
+    level (the card has none of them; the PIL, transformers and gradio paths
+    import inside functions)."""
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "visper_lm_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
-    assert len(paths) > 55
+    assert len(paths) > 68
+    for rel in VIZ_MODULES:
+        assert os.path.join(REPO, "visper_lm_tpu_torch", rel) in paths, rel
     for path in paths:
         bad = [n for n in _module_level_imports(path) if n in BANNED]
         assert not bad, (path, bad)

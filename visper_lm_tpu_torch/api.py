@@ -552,10 +552,43 @@ class VisperModel:
         prefills only its new tokens (see ChatSession)."""
         return ChatSession(self, image, **kw)
 
-    def get_visual_interpretations(self, question: str, image: Any) -> Dict[str, Any]:
-        raise NotImplementedError(
-            "visual interpretations need the teachers' decoders, which are not "
-            "ported yet (ROADMAP queue A, item 10)")
+    @torch.no_grad()
+    def get_visual_interpretations(self, question: str, image: Any, *,
+                                   use_kernel: Optional[bool] = None) -> Dict[str, Any]:
+        """Forward the templated prompt over one image with the decoder's
+        taps and run every distillation head on its tapped layer (JAX
+        `get_visual_interpretations`): {task: {layer index: (1, num_tokens,
+        dim) f32 prediction}}. The image is squared at the tower's size; the
+        prompt is padded to a multiple of 128. On CUDA the decoder's attention
+        is B1 (use_kernel=False: the plain path)."""
+        from visper_lm_tpu_torch.models.vlm import predict_task_embeddings, vlm_forward
+
+        d = self.cfg.distill
+        if d is None:
+            raise ValueError("the model has no distillation heads")
+        pixels = process_images([image], image_aspect_ratio="square",
+                                image_size=self.tower_geometry()[0])
+        raw = tokenizer_image_token(self.build_prompt(question), self.tokenizer)
+        spliced = len(raw) + self.cfg.num_image_tokens + d.num_task_tokens * len(d.task_order())
+        plan = build_splice_plan(
+            raw, None, -(-spliced // 128) * 128, num_image_tokens=self.cfg.num_image_tokens,
+            num_task_tokens=d.num_task_tokens, num_tasks=len(d.task_order()))
+        dev = self.device
+        batch = {
+            "text_ids": torch.as_tensor(plan.text_ids, device=dev)[None],
+            "token_type": torch.as_tensor(plan.token_type, device=dev)[None],
+            "src_index": torch.as_tensor(plan.src_index, device=dev)[None],
+            "seq_lengths": torch.tensor([plan.seq_length], device=dev),
+            "images": torch.as_tensor(np.asarray(pixels, np.float32), device=dev),
+        }
+        out = vlm_forward(self.model, self.cfg, batch, use_kernel=use_kernel, tap=True,
+                          compute_logits=False)
+        preds = predict_task_embeddings(self.model, self.cfg, out["taps"], out["tap_layers"])
+        return {
+            tcfg.task: {layer: pred.float().cpu().numpy()
+                        for layer, pred in zip(tcfg.layer_indices, preds[tcfg.task])}
+            for tcfg in d.tasks
+        }
 
 
 class _ChunkStreamer:

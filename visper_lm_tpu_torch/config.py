@@ -546,6 +546,13 @@ def config_from_dict(obj: Any) -> Any:
     return obj
 
 
+def dataclass_from_dict(cls, d: Dict[str, Any]) -> Any:
+    """A flat config dataclass from an untagged JSON dict (`dataclasses.asdict`'s
+    form): lists become tuples, unknown keys are dropped."""
+    fields = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: tuple(v) if isinstance(v, list) else v for k, v in d.items() if k in fields})
+
+
 def config_to_json(cfg: Any) -> str:
     return json.dumps(config_to_dict(cfg), indent=2)
 

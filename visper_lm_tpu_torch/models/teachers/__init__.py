@@ -2,13 +2,14 @@
 visper_lm_tpu/models/teachers/__init__.py).
 
 `init_teachers` builds the three teachers of the PT step (DINOv2-L for depth,
-CLIP-H for generation, Swin-L for segmentation) with seeded random weights,
-frozen; `load_teacher` puts imported weights into one of them;
+CLIP-H for generation, Swin-L for segmentation) and, with the depth task,
+the DPT decoder that renders depth predictions (`dpt`, at DINOv2's width;
+not on the target path), with seeded random weights, frozen; `load_teacher`
+puts imported weights into one of them;
 `make_teacher_fn` returns the function the train step calls for the
 distillation targets, under torch.no_grad(), micro-batched as a Python loop.
 `teacher_batch` is the host side: each teacher's pixels from uint8 images,
-through the native resize (native/). The DPT depth decoder (JAX
-`teachers["dpt"]`) is not on the target path and belongs to a later slice.
+through the native resize (native/).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch.nn as nn
 from visper_lm_tpu_torch.config import CLIP_VIT_H_224, DINOV2_VIT_L, VLMConfig
 from visper_lm_tpu_torch.device import resolve_device
 from visper_lm_tpu_torch.models.teachers import dinov2 as dinov2_lib
+from visper_lm_tpu_torch.models.teachers import dpt as dpt_lib
 from visper_lm_tpu_torch.models.teachers import swin as swin_lib
 from visper_lm_tpu_torch.models.teachers import unclip as unclip_lib
 from visper_lm_tpu_torch.models.vit import init_tower_
@@ -51,6 +53,7 @@ def build_teachers(
     teachers = nn.ModuleDict()
     if "depth" in tasks:
         teachers["dinov2"] = dinov2_lib.init_dinov2(tcfgs.dinov2, **kw)
+        teachers["dpt"] = dpt_lib.DPTHead(tcfgs.dinov2.hidden_size, **kw)
     if "gen" in tasks:
         teachers["clip_h"] = unclip_lib.init_clip_h(tcfgs.clip_h, tcfgs.gen_embed_dim, **kw)
     if "seg" in tasks:
@@ -76,6 +79,8 @@ def init_teachers(
     for name, module in teachers.items():
         if name == "swin":
             swin_lib.init_swin_(module, gen)
+        elif name == "dpt":
+            dpt_lib.init_dpt_(module, gen)
         else:
             init_tower_(module, gen)
     return teachers.requires_grad_(False).eval()

@@ -286,11 +286,29 @@ def merge_params(a: Mapping[str, Any], b: Mapping[str, Any]) -> Dict[str, Any]:
     return {n: b[n] if a[n] is None else a[n] for n in a}
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor's host copy; bf16 as raw 2-byte values ("V2"), the bytes the
+    JAX package's .npz files hold."""
     t = t.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view("V2")   # the bytes JAX's npz holds
     return t.numpy()
+
+
+def widen_bf16(a: np.ndarray) -> np.ndarray:
+    """Raw bf16 bytes ("V2", `to_numpy`'s form) as f32, exactly; other arrays as they are."""
+    if a.dtype == np.dtype("V2"):
+        return (a.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    return a
+
+
+def host_array(v: Any) -> np.ndarray:
+    """A state-dict value (tensor or array) as a numpy array, bf16 widened
+    to f32 (JAX's `torch_state_dict_to_numpy`): the importers' input."""
+    if torch.is_tensor(v):
+        v = v.detach().cpu()
+        return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+    return np.asarray(v)
 
 
 def jax_flat_arrays(params: NamedParams) -> Dict[str, Optional[np.ndarray]]:
@@ -302,7 +320,7 @@ def jax_flat_arrays(params: NamedParams) -> Dict[str, Optional[np.ndarray]]:
         key = jax_path(name)
         a = None
         if t is not None:
-            a = _to_numpy(t)
+            a = to_numpy(t)
             if key.endswith("/kernel"):
                 a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
         layer = split_layer(name)[1]
@@ -325,6 +343,28 @@ def save_params_npz(path: str, params: NamedParams) -> None:
             flat[key + "#None"] = np.zeros((0,), np.int8)
         else:
             flat[key] = np.asarray(a, order="C")
+    np.savez(path, **flat)
+
+
+def save_tree_npz(path: str, tree: Any) -> None:
+    """JAX `save_params_npz` of a nested JAX-layout tree (dicts, lists,
+    numpy arrays or tensors, None leaves): the format `load_params_npz` of
+    both packages reads."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node, parts):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, parts + [str(k)])
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, parts + [str(i)])
+        elif node is None:
+            flat["/".join(parts) + "#None"] = np.zeros((0,), np.int8)
+        else:
+            flat["/".join(parts)] = to_numpy(node) if torch.is_tensor(node) else np.asarray(node)
+
+    walk(tree, [])
     np.savez(path, **flat)
 
 

@@ -15,15 +15,22 @@ as they are), and a decoder quantized by the JAX package
 {kernel_q8, out_scale} and {kernel_q4p, q4_scale[, q4_in_scale]} leaves
 become `QuantLinear` buffers as they are (both input-major), bit for bit.
 `decoder_from_jax_params` maps a bare decoder tree (beam search and
-speculative decoding take one). `teachers_from_jax_params` maps the teachers' tree (dinov2, clip_h, swin; the
-DPT decoder is not ported yet and is skipped). `load_jax_tree` loads a
-subtree with no stacked blocks into a module: a probe head (`ProbeHead`), an
-`AttentionPool2d`, a task head.
+speculative decoding take one). `teachers_from_jax_params` maps the
+teachers' tree (dinov2, clip_h, swin and the DPT depth decoder `dpt`).
+`load_jax_tree` loads a subtree with no stacked blocks into a module: a probe
+head (`ProbeHead`), an `AttentionPool2d`, a task head; a None leaf (an
+identity projection) is skipped. The visualisation decoders have loaders of
+their own: `dpt_from_jax_params` (its two transposed convs are (kh, kw, in,
+out) in JAX, (in, out, kh, kw) in `nn.ConvTranspose2d`),
+`oneformer_from_jax_params`, `swin_from_jax_params` and
+`genpipe_from_jax_params` (the text encoder's stacked blocks unstacked).
+`module_to_jax_tree` is the way back: a module's JAX-layout tree, which
+`utils.param.save_tree_npz` writes as the JAX package's .npz bundles.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -34,7 +41,7 @@ from visper_lm_tpu_torch.device import resolve_device
 from visper_lm_tpu_torch.models.decoder import LINEAR_NAMES, Decoder
 from visper_lm_tpu_torch.models.teachers import TeacherConfigs, build_teachers
 from visper_lm_tpu_torch.models.vlm import VLM
-from visper_lm_tpu_torch.utils.param import QuantLinear
+from visper_lm_tpu_torch.utils.param import QuantLinear, to_numpy
 
 _VLM_SUBTREES = (
     "decoder", "vision_tower", "mm_projector", "special_tokens", "heads", "logit_scales",
@@ -71,6 +78,8 @@ def _flatten(sd: Dict[str, Any], prefix: str, tree: Any) -> None:
     """Every leaf of a (non-stacked) subtree under `prefix`."""
     if isinstance(tree, dict):
         for k, v in tree.items():
+            if v is None:
+                continue
             if isinstance(v, (dict, list, tuple)):
                 _flatten(sd, f"{prefix}.{k}", v)
             else:
@@ -78,7 +87,8 @@ def _flatten(sd: Dict[str, Any], prefix: str, tree: Any) -> None:
                 sd[f"{prefix}.{name}"] = val
     else:
         for i, v in enumerate(tree):
-            _flatten(sd, f"{prefix}.{i}", v)
+            if v is not None:
+                _flatten(sd, f"{prefix}.{i}", v)
 
 
 def _unstack(tree: Any, i: int) -> Any:
@@ -259,12 +269,175 @@ def teachers_from_jax_params(
             _vit(sd, name, sub, tcfgs.dinov2.num_layers)
         elif name == "clip_h":
             _vit(sd, name, sub, tcfgs.clip_h.num_layers)
+        elif name == "dpt":
+            _dpt(sd, name, sub)
         else:
-            _flatten(sd, name, {k: v for k, v in sub.items() if k != "stages"})
-            for s, stage in enumerate(sub["stages"]):
-                pre = f"{name}.stages.{s}"
-                _stacked(sd, f"{pre}.blocks", stage["blocks"], tcfgs.swin.depths[s])
-                if "downsample" in stage:
-                    _flatten(sd, f"{pre}.downsample", stage["downsample"])
+            _swin(sd, name, sub, tcfgs.swin.depths)
     _load(teachers, sd, device, dtype)
     return teachers.requires_grad_(False).eval()
+
+
+def _swin(sd: Dict[str, Any], prefix: str, tree: Dict[str, Any], depths: Sequence[int]) -> None:
+    _flatten(sd, prefix, {k: v for k, v in tree.items() if k != "stages"})
+    for s, stage in enumerate(tree["stages"]):
+        pre = f"{prefix}.stages.{s}"
+        _stacked(sd, f"{pre}.blocks", stage["blocks"], depths[s])
+        if "downsample" in stage:
+            _flatten(sd, f"{pre}.downsample", stage["downsample"])
+
+
+# the DPT head's transposed convs: JAX (kh, kw, in, out), nn.ConvTranspose2d (in, out, kh, kw)
+_DPT_DECONVS = ("resize0", "resize1")
+
+
+def _dpt(sd: Dict[str, Any], prefix: str, tree: Dict[str, Any]) -> None:
+    _flatten(sd, prefix, tree)
+    for name in _DPT_DECONVS:
+        sd[f"{prefix}.{name}.weight"] = np.asarray(tree[name]["kernel"]).transpose(2, 3, 0, 1)
+
+
+def dpt_from_jax_params(
+    tree: Dict[str, Any], device: Optional[Union[str, torch.device]] = None,
+    dtype: Optional[torch.dtype] = None,
+) -> nn.Module:
+    """A frozen `DPTHead` holding a JAX `init_dpt_head` / `import_dpt_head`
+    tree, its widths read from the tree (DAv2-L's, or a smaller test head's)."""
+    from visper_lm_tpu_torch.models.teachers.dpt import DPTHead
+
+    device = resolve_device(device)
+    projects = [np.asarray(p["kernel"]) for p in tree["projects"]]
+    with torch.device("meta"):
+        head = DPTHead(
+            in_channels=projects[0].shape[2], out_channels=tuple(k.shape[3] for k in projects),
+            features=np.asarray(tree["layer_rn"][0]["kernel"]).shape[3],
+        )
+    sd: Dict[str, Any] = {}
+    _dpt(sd, "", tree)
+    _load(head, {k[1:]: v for k, v in sd.items()}, device, dtype)
+    return head.requires_grad_(False).eval()
+
+
+def swin_from_jax_params(
+    tree: Dict[str, Any], cfg, device: Optional[Union[str, torch.device]] = None,
+    dtype: Optional[torch.dtype] = None,
+) -> nn.Module:
+    """A frozen `SwinBackbone` of `cfg` holding a JAX `init_swin` /
+    `import_swin_backbone` tree (its stacked blocks unstacked per stage)."""
+    from visper_lm_tpu_torch.models.teachers.swin import SwinBackbone
+
+    device = resolve_device(device)
+    with torch.device("meta"):
+        model = SwinBackbone(cfg)
+    sd: Dict[str, Any] = {}
+    _swin(sd, "", tree, cfg.depths)
+    _load(model, {k[1:]: v for k, v in sd.items()}, device, dtype)
+    return model.requires_grad_(False).eval()
+
+
+def oneformer_from_jax_params(
+    tree: Dict[str, Any], cfg, device: Optional[Union[str, torch.device]] = None,
+    dtype: Optional[torch.dtype] = None,
+) -> nn.Module:
+    """A frozen `OneFormerDecoder` of `cfg` holding a JAX
+    `import_oneformer_decoder` tree; a transformer-decoder input projection
+    the tree holds as None (conv_dim == hidden_dim) is an identity. The layer
+    counts, feed-forward widths, query, class and task-text sizes are the
+    tree's (JAX reads them from the params, not the config; an HF
+    config.json without num_labels gives the config COCO's 133)."""
+    import dataclasses
+
+    from visper_lm_tpu_torch.models.teachers.oneformer import OneFormerDecoder
+
+    device = resolve_device(device)
+    pd, td = tree["pixel_decoder"], tree["transformer_decoder"]
+    projections = tuple(p is not None for p in td["input_projections"])
+    cfg = dataclasses.replace(
+        cfg, encoder_layers=len(pd["encoder_layers"]),
+        encoder_ffn_dim=np.shape(pd["encoder_layers"][0]["fc1"]["kernel"])[1],
+        decoder_layers=len(td["decoder_layers"]) + 1,
+        query_dec_layers=len(td["query_transformer_layers"]),
+        dim_feedforward=np.shape(td["query_transformer_layers"][0]["fc1"]["kernel"])[1],
+        num_queries=np.shape(td["queries_embedder"])[0],
+        num_classes=np.shape(td["class_embed"]["kernel"])[1] - 1,
+        task_seq_len=np.shape(tree["task_encoder"]["layers"][0]["kernel"])[0])
+    with torch.device("meta"):
+        model = OneFormerDecoder(cfg, input_projections=projections)
+    return load_jax_tree(model, tree, device, dtype).requires_grad_(False).eval()
+
+
+def genpipe_from_jax_params(
+    tree: Dict[str, Any], cfg, device: Optional[Union[str, torch.device]] = None,
+    dtype: Optional[torch.dtype] = None,
+) -> nn.Module:
+    """A frozen `GenPipe` of `cfg` holding a JAX `init_genpipe` /
+    `import_genpipe` tree (the text encoder's stacked blocks unstacked)."""
+    from visper_lm_tpu_torch.models.genpipe.pipeline import GenPipe
+
+    device = resolve_device(device)
+    with torch.device("meta"):
+        pipe = GenPipe(cfg)
+    sd: Dict[str, Any] = {}
+    text = tree["text"]
+    _flatten(sd, "text", {k: v for k, v in text.items() if k != "blocks"})
+    _stacked(sd, "text.blocks", text["blocks"], cfg.text.num_layers)
+    _flatten(sd, "", {k: v for k, v in tree.items() if k != "text"})
+    _load(pipe, {k.lstrip("."): v for k, v in sd.items()}, device, dtype)
+    return pipe.requires_grad_(False).eval()
+
+
+def module_to_jax_tree(module: nn.Module, stacked: Sequence[str] = ()) -> Dict[str, Any]:
+    """The JAX-layout tree of a module's parameters and buffers, the inverse
+    of the loaders above: linear kernels (in, out), convs HWIO, transposed
+    convs (kh, kw, in, out), embedding tables under "embedding", an
+    `nn.Identity` as None, module-list indices as list positions, and the
+    module lists named in `stacked` ("text.blocks", "stages.*.blocks")
+    stacked into (L, ...) leaves. bf16 leaves are raw 2-byte values, as the
+    JAX package's .npz files hold them."""
+    import fnmatch
+
+    root: Dict[str, Any] = {}
+
+    def put(path, value):
+        node = root
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = value
+
+    for mname, m in module.named_modules():
+        parts = mname.split(".") if mname else []
+        if isinstance(m, nn.Identity):
+            put(parts, None)
+            continue
+        leaves = list(m.named_parameters(recurse=False)) + list(m.named_buffers(recurse=False))
+        for name, t in leaves:
+            if t is None:
+                continue
+            a = to_numpy(t)
+            if name == "weight" and isinstance(m, nn.Embedding):
+                name = "embedding"
+            elif name == "weight" and isinstance(m, nn.ConvTranspose2d):
+                name, a = "kernel", a.transpose(2, 3, 0, 1)
+            elif name == "weight" and isinstance(m, nn.Conv2d):
+                name, a = "kernel", a.transpose(2, 3, 1, 0)
+            elif name == "weight" and isinstance(m, nn.Linear):
+                name, a = "kernel", a.T
+            put(parts + [name], np.ascontiguousarray(a))
+
+    def listify(node, path):
+        if not isinstance(node, dict):
+            return node
+        out = {k: listify(v, path + [k]) for k, v in node.items()}
+        if out and all(k.isdigit() for k in out):
+            items = [out[str(i)] for i in range(len(out))]
+            if any(fnmatch.fnmatch(".".join(path), pat) for pat in stacked):
+                return _stack_trees(items)
+            return items
+        return out
+
+    return listify(root, [])
+
+
+def _stack_trees(items):
+    if isinstance(items[0], dict):
+        return {k: _stack_trees([it[k] for it in items]) for k in items[0]}
+    return np.stack(items)
