@@ -229,6 +229,30 @@ Phases, each of which raises (exit code != 0) when it fails:
      tapped layer, each read back with `read_png`; `DistillVizHook` called
      directly writes its grids; a `delta` of the heads (bf16) round-trips
      bit for bit.
+ 14. evaluation at Llama-3-8B + CLIP-L (made again, seed 14, phase 10's
+     tokenizer) through the port's eval package, every record with the card's
+     name and power limit: (a) 16 CV-Bench-shaped records (test.jsonl and
+     PNGs of four sizes) and 16 MMStar-shaped ones, written under the repo's
+     tmp/ (removed after); (b) `run_cvbench` / `run_mmstar` in chat batches
+     of 8 (8 new tokens): B1 exactly 32 per prefill, every score in [0, 1],
+     an answer per record; (c) `harness.evaluate` of 8 CV-Bench docs through
+     `VisperLmms.generate_until` (B1 32 per chunk, `errors` empty),
+     `loglikelihood` on 8 requests (B1 exactly 32 a request) and
+     `loglikelihood_rolling` on 3 (32 a request), finite and negative; (d)
+     the 8 requests' per-token log-probs with the kernel, with the plain path
+     (bf16) and with the plain path on an f32 copy of the weights: the
+     kernel's relative distance from f32 at most 1e-2 above the plain bf16
+     path's (phase 12's form: both bf16 paths drift over 32 layers); (e)
+     FID-InceptionV3 from a seeded pt_inception-layout state dict on 64
+     images at 512 px (the antialiased downscale to 299): (64, 2048) finite,
+     within 1e-4 relative Frobenius of the CPU run of the same weights (f32,
+     TF32 off: f32 sums in other orders), its ms; (f) `python -m
+     visper_lm_tpu_torch.eval.validate` (run in-process through runpy, so its
+     B1 launches are counted: 2 layers x 2 prefills) on a full-width 2-layer
+     checkpoint written by `save_hf_checkpoint`, `--tokenizer fake-whitespace
+     --device cuda --limit 8`: exit 0, both score tables, the answer files;
+     the logit-parity gate runs where transformers is installed (its diff in
+     the report) and prints its skip where it is not.
 Phase 3 also holds B1-B3 at phase 12's recipe PT shape (Llama-3-8B, B4 x
 T1024, GQA 32/8 H128, causal) against their plain versions, beside SDPA's
 forward and backward and the bound, as at the training shape.
@@ -293,6 +317,10 @@ ANYRES_TILES = (3, 3, 5, 4)
 # phase 12: training from the recipes
 RECIPE_RECORDS, RECIPE_BATCH, RECIPE_STEPS = 16, 4, 3
 RECIPE_GRAD_LAYER = 16          # the IFT layer whose weight gradients are held to the plain path
+# phase 14: evaluation
+EVAL_RECORDS, EVAL_BATCH, EVAL_NEW_TOKENS = 16, 8, 8   # per benchmark; chat batch; answer tokens
+EVAL_IMAGES = ((480, 640), (336, 336), (600, 400), (256, 512))   # (H, W) of the records' PNGs
+INCEPTION_IMAGES, INCEPTION_SIZE = 64, 512                       # FID features: the downscale path
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2620,6 +2648,248 @@ def viz_phase(fa, wa, smi: str) -> dict:
     return out
 
 
+def eval_phase(fa, smi: str) -> dict:
+    """Phase 14: evaluation at Llama-3-8B + CLIP-L through the port's eval
+    package (see the module docstring). Returns the record printed as
+    `eval_path`."""
+    import contextlib
+    import dataclasses
+    import io
+    import runpy
+    import shutil
+
+    from visper_lm_tpu_torch.api import VisperModel
+    from visper_lm_tpu_torch.checkpoint.hf_export import save_hf_checkpoint
+    from visper_lm_tpu_torch.config import llama3_clip_vlm
+    from visper_lm_tpu_torch.data.image_io import load_image, write_png
+    from visper_lm_tpu_torch.eval import cvbench, harness, inception, lmms_tasks, mmstar
+    from visper_lm_tpu_torch.eval.lmms_adapter import VisperLmms
+    from visper_lm_tpu_torch.eval.olympiad import OlympiadBenchEvaluator
+    from visper_lm_tpu_torch.models.vlm import init_vlm
+
+    import sympy
+
+    repo = Path(__file__).resolve().parent
+    root = repo / "tmp" / "chip_smoke_eval"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out = dict(card=smi, sympy=sympy.__version__, transformers=None,
+               pil=importlib.util.find_spec("PIL") is not None)
+    if importlib.util.find_spec("transformers") is not None:
+        import transformers
+
+        out["transformers"] = transformers.__version__
+
+    def synced_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def words(n):
+        return " ".join(f"w{k}" for k in rng.integers(256, 128000, size=n))
+
+    try:
+        # the host scorers on the card's Python: sympy (torch's dependency) for OlympiadBench
+        check(OlympiadBenchEvaluator().judge("\\boxed{\\frac{\\sqrt{2}}{2}}", "0.7071", 1e-3),
+              "OlympiadBench's sympy judge failed")
+        check(len(lmms_tasks.task_builders()) == 39, "lmms_tasks registry")
+        cfg = llama3_clip_vlm(distill=True, image_aspect_ratio="pad")
+        d = cfg.decoder
+        tok = WordTokenizer(d.vocab_size, LLAMA3_SPECIALS, bos=128000, eos=128009, first_word=256)
+        t0 = time.perf_counter()
+        vm = VisperModel(cfg=cfg, model=init_vlm(cfg, device="cuda", seed=14), tokenizer=tok)
+        torch.cuda.synchronize()
+        out["init_s"] = time.perf_counter() - t0
+
+        # (a) 16 CV-Bench records (test.jsonl + PNGs) and 16 MMStar records, seeded
+        rng = np.random.default_rng(14)
+        cv_dir = root / "cvbench"
+        cv_dir.mkdir()
+        sources, tasks = ("ADE20K", "COCO", "Omni3D"), ("Count", "Relation", "Depth", "Distance")
+        l2 = [(cat, sub) for cat, subs in mmstar.MMSTAR_L2.items() for sub in subs]
+        mm_path = root / "mmstar.jsonl"
+        with open(cv_dir / "test.jsonl", "w") as fc, open(mm_path, "w") as fm:
+            for i in range(EVAL_RECORDS):
+                h, w = EVAL_IMAGES[i % len(EVAL_IMAGES)]
+                write_png(str(cv_dir / f"{i}.png"), rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+                fc.write(json.dumps({"filename": f"{i}.png", "prompt": f"{words(10 + 3 * i)} (A) w11 (B) w12",
+                                     "answer": "(A)" if i % 2 else "(B)", "task": tasks[i % 4],
+                                     "source": sources[i % 3]}) + "\n")
+                png = root / f"mm{i}.png"
+                write_png(str(png), rng.integers(0, 256, (w, h, 3), dtype=np.uint8))
+                cat, sub = l2[i % len(l2)]
+                fm.write(json.dumps({"image": str(png), "question": f"{words(8 + 2 * i)}\nA. w21\nB. w22"
+                                     + mmstar.PROMPT_SUFFIX, "answer": "AB"[i % 2], "category": cat,
+                                     "l2_category": sub}) + "\n")
+        cv_data = cvbench.prepare_cvbench(str(cv_dir))
+        mm_data = cvbench.load_jsonl(str(mm_path))
+        launches = {}
+
+        # (b) the batched benchmark runs: a chat prefill (B1 32) per batch of 8
+        for name, run, data in (("cvbench", cvbench.run_cvbench, cv_data),
+                                ("mmstar", mmstar.run_mmstar, mm_data)):
+            answers = root / f"{name}_answers.jsonl"
+            fa.launches = 0
+            scores, ms = synced_ms(lambda: run(vm, data, batch_size=EVAL_BATCH,
+                                               max_new_tokens=EVAL_NEW_TOKENS,
+                                               output_path=str(answers)))
+            prefills = -(-len(data) // EVAL_BATCH)
+            check(fa.launches == d.num_layers * prefills,
+                  f"run_{name}: B1 {fa.launches} launches, want {d.num_layers} x {prefills}")
+            check(all(0.0 <= v <= 1.0 for v in scores.values()), f"run_{name} scores {scores}")
+            check(len(cvbench.load_jsonl(str(answers))) == len(data), f"run_{name}: answer file")
+            launches[f"run_{name}"] = fa.launches
+            out[name] = dict(ms=ms, records=len(data), prefills=prefills, b1_launches=fa.launches,
+                             scores=scores, card=smi)
+            print(f"eval {name} " + json.dumps(out[name]))
+
+        # (c) the harness through the lmms adapter: generate_until over 8 CV-Bench
+        # docs (one chat; the task asks for 128 new tokens), then loglikelihood
+        # and loglikelihood_rolling
+        lm = VisperLmms(vm, batch_size=EVAL_BATCH, max_new_tokens=EVAL_NEW_TOKENS)
+        fa.launches = 0
+        res, ms = synced_ms(lambda: harness.evaluate(lm, [harness.cvbench_task(cv_data[:EVAL_BATCH])]))
+        check(lm.errors == [], f"generate_until caught {lm.errors}")
+        check(fa.launches == d.num_layers, f"evaluate: B1 {fa.launches} launches, want 32")
+        check(set(res) == {"cvbench"} and "exact_match" in res["cvbench"]
+              and 0.0 <= harness.cvbench_overall(res["cvbench"]) <= 1.0, f"evaluate {res}")
+        launches["evaluate"] = fa.launches
+        out["evaluate"] = dict(ms=ms, docs=EVAL_BATCH, b1_launches=fa.launches, results=res, card=smi)
+        print("eval evaluate " + json.dumps(out["evaluate"]))
+        lm.task_dict = {}
+        conts = [" (A)", " (B)", " w11 w12 w13", " A", " the answer is (A)", " w5", " B .", " (A) w11"]
+        reqs = [harness.Instance(args=(cv_data[i]["question"], conts[i],
+                                       lambda _, p=cv_data[i]["image"]: [load_image(p)], i,
+                                       "cvbench", "test")) for i in range(EVAL_BATCH)]
+        fa.launches = 0
+        ll, ll_ms = synced_ms(lambda: lm.loglikelihood(reqs))
+        check(fa.launches == len(reqs) * d.num_layers,
+              f"loglikelihood: B1 {fa.launches} launches for {len(reqs)} requests, want 32 each")
+        check(all(np.isfinite(lp) and lp < 0 for lp, _ in ll), f"loglikelihood {ll}")
+        launches["loglikelihood"] = fa.launches
+        texts = [words(n) for n in (30, 120, 250)]     # T 128, 128, 256
+        fa.launches = 0
+        rolling, roll_ms = synced_ms(lambda: lm.loglikelihood_rolling(
+            [harness.Instance(args=(t,)) for t in texts]))
+        check(fa.launches == len(texts) * d.num_layers,
+              f"loglikelihood_rolling: B1 {fa.launches} launches for {len(texts)} requests, want 32 each")
+        check(all(np.isfinite(s) and s < 0 for s in rolling), f"loglikelihood_rolling {rolling}")
+        launches["loglikelihood_rolling"] = fa.launches
+        check(lm.errors == [], f"the adapter caught {lm.errors}")
+
+        # (d) B1's log-probs against an f32 run of the same weights: both bf16
+        # paths (kernel, plain) drift from f32 over 32 layers; the kernel may
+        # add at most 1e-2 to the plain path's relative distance (phase 12's form)
+        lp_k = lm.continuation_logprobs(reqs)
+        lp_p = VisperLmms(vm, use_kernel=False).continuation_logprobs(reqs)
+        m32 = copy.deepcopy(vm.model).float()
+        lp_32 = VisperLmms(dataclasses.replace(vm, model=m32), use_kernel=False).continuation_logprobs(reqs)
+        del m32
+        release_cuda()
+
+        def flat(x):
+            return np.concatenate([lps for lps, _ in x])
+
+        ref = flat(lp_32)
+        kernel_f32 = float(np.linalg.norm(flat(lp_k) - ref) / np.linalg.norm(ref))
+        plain_f32 = float(np.linalg.norm(flat(lp_p) - ref) / np.linalg.norm(ref))
+        kernel_plain = float(np.abs(flat(lp_k) - flat(lp_p)).max())
+        check(kernel_f32 <= plain_f32 + 1e-2,
+              f"loglikelihood: the kernel's log-probs are {kernel_f32:.4g} from f32, the plain path's {plain_f32:.4g}")
+        out["loglikelihood"] = dict(
+            ms=ll_ms, requests=len(reqs), tokens=int(ref.size), b1_launches=launches["loglikelihood"],
+            sums=[lp for lp, _ in ll], greedy=[g for _, g in ll], kernel_vs_f32=kernel_f32,
+            plain_vs_f32=plain_f32, kernel_vs_plain_max_abs=kernel_plain,
+            greedy_f32=[g for _, g in lp_32], rolling_ms=roll_ms, rolling_tokens=[len(tok(t).input_ids)
+                                                                              for t in texts],
+            rolling=rolling, rolling_b1_launches=launches["loglikelihood_rolling"], card=smi)
+        print("eval loglikelihood " + json.dumps(out["loglikelihood"]))
+        del vm, lm
+        release_cuda()
+
+        # (e) FID-Inception on the card: 64 seeded 512-px images (the
+        # antialiased downscale to 299) against the CPU run of the same weights
+        shapes = inception.conv_shapes()
+        sd = {}
+        for mod, brs in inception.module_branches().items():
+            for br in brs:
+                full = mod if br == "" else f"{mod}.{br}"
+                cin, cout, kh, kw = shapes[full]
+                sd[f"{full}.conv.weight"] = (rng.standard_normal((cout, cin, kh, kw)) * 0.05).astype(np.float32)
+                sd[f"{full}.bn.weight"] = np.abs(rng.standard_normal(cout)).astype(np.float32)
+                sd[f"{full}.bn.bias"] = rng.standard_normal(cout).astype(np.float32)
+                sd[f"{full}.bn.running_mean"] = rng.standard_normal(cout).astype(np.float32)
+                sd[f"{full}.bn.running_var"] = (np.abs(rng.standard_normal(cout)) + 0.5).astype(np.float32)
+        images = rng.uniform(0, 1, (INCEPTION_IMAGES, INCEPTION_SIZE, INCEPTION_SIZE, 3)).astype(np.float32)
+        fn_gpu = inception.inception_feature_fn(inception.import_inception(sd, device="cuda"),
+                                                batch_size=INCEPTION_IMAGES)
+        fn_gpu(images[:2])                                              # cuDNN's algorithm choice
+        feats, inc_ms = synced_ms(lambda: fn_gpu(images))
+        t0 = time.perf_counter()
+        feats_cpu = inception.inception_feature_fn(inception.import_inception(sd, device="cpu"),
+                                                   batch_size=16)(images)
+        cpu_s = time.perf_counter() - t0
+        rel = float(np.linalg.norm(feats - feats_cpu) / np.linalg.norm(feats_cpu))
+        worst = float(np.abs(feats - feats_cpu).max() / np.abs(feats_cpu).max())
+        check(feats.shape == (INCEPTION_IMAGES, 2048) and np.isfinite(feats).all(), f"features {feats.shape}")
+        # f32 sums in other orders: ~1e-6; TF32 convolutions would give ~1e-3
+        check(rel <= 1e-4, f"inception card vs CPU relative Frobenius {rel} > 1e-4")
+        out["inception"] = dict(images=INCEPTION_IMAGES, size=INCEPTION_SIZE, ms=inc_ms, cpu_s=cpu_s,
+                                rel_fro_vs_cpu=rel, max_abs_share_vs_cpu=worst, card=smi)
+        print("eval inception " + json.dumps(out["inception"]))
+
+        # (f) the validation CLI, as `python -m visper_lm_tpu_torch.eval.validate`,
+        # on a full-width 2-layer checkpoint written by save_hf_checkpoint
+        cfg2 = dataclasses.replace(cfg, decoder=dataclasses.replace(d, num_layers=FILE_LAYERS))
+        ckpt = root / "llama3_2layer"
+        model2 = init_vlm(cfg2, device="cuda", seed=15)
+        t0 = time.perf_counter()
+        save_hf_checkpoint(str(ckpt), model2, cfg2)
+        write_s = time.perf_counter() - t0
+        del model2
+        release_cuda()
+        report_path = root / "report" / "scores.json"
+        argv = ["validate", "--ckpt", str(ckpt), "--tasks", "cvbench,mmstar",
+                "--cvbench-path", str(cv_dir), "--mmstar-path", str(mm_path),
+                "--tokenizer", "fake-whitespace", "--device", "cuda", "--limit", str(EVAL_BATCH),
+                "--batch-size", str(EVAL_BATCH), "--max-new-tokens", "4", "--out", str(report_path)]
+        saved_argv, sys.argv = sys.argv, argv
+        err = io.StringIO()
+        fa.launches = 0
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stderr(err):
+                runpy.run_module("visper_lm_tpu_torch.eval.validate", run_name="__main__", alter_sys=True)
+            code = None
+        except SystemExit as e:
+            code = e.code
+        finally:
+            sys.argv = saved_argv
+        cli_s = time.perf_counter() - t0
+        check(code == 0, f"validate exited with {code}: {err.getvalue()[-2000:]}")
+        with open(report_path) as f:
+            report = json.load(f)
+        check({"Overall", "2D", "3D"} <= set(report["cvbench"]) and "final score" in report["mmstar"],
+              f"validate report {report}")
+        if importlib.util.find_spec("transformers") is None:
+            check("logit_parity" not in report and "parity gate skipped" in err.getvalue(),
+                  "validate without transformers: the parity gate must print its skip")
+        check(fa.launches == 2 * FILE_LAYERS, f"validate: B1 {fa.launches} launches, want 2 x {FILE_LAYERS}")
+        check((root / "report" / "cvbench_answers.jsonl").exists(), "validate: no answer file")
+        launches["validate"] = fa.launches
+        out["validate"] = dict(layers=FILE_LAYERS, checkpoint_write_s=write_s, cli_s=cli_s,
+                               b1_launches=fa.launches, cvbench=report["cvbench"]["Overall"],
+                               mmstar=report["mmstar"]["final score"],
+                               parity="logit_parity" in report, card=smi)
+        print("eval validate " + json.dumps(out["validate"]))
+        out["b1_launches"] = launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def release_cuda():
     gc.collect()
     torch.cuda.empty_cache()
@@ -3087,9 +3357,19 @@ def main() -> int:
     viz["seconds"] = time.perf_counter() - t0
     print(f"viz phase {viz['seconds']:.1f} s [{smi}]")
     print("viz_path " + json.dumps(viz))
-    dec_launches = da.launches                  # over phases 4-13
-    print(f"decode_attn launches over the serving, training, engine, api, vision, recipe and "
-          f"viz paths: {dec_launches}")
+
+    # 14. evaluation at Llama-3-8B: CV-Bench / MMStar through chat, the harness
+    # and the lmms adapter (generate_until, loglikelihood, rolling), B1 against
+    # an f32 run, FID-Inception on the card, the validation CLI
+    release_cuda()
+    t0 = time.perf_counter()
+    evals = eval_phase(fa, smi)
+    evals["seconds"] = time.perf_counter() - t0
+    print(f"eval phase {evals['seconds']:.1f} s, B1 launches {json.dumps(evals['b1_launches'])} [{smi}]")
+    print("eval_path " + json.dumps(evals))
+    dec_launches = da.launches                  # over phases 4-14
+    print(f"decode_attn launches over the serving, training, engine, api, vision, recipe, viz "
+          f"and eval paths: {dec_launches}")
     check(dec_launches == 0, f"decode_attn launched {dec_launches} times; no path calls it")
 
     def entry(kname, source, replaces, rec, launches):
@@ -3121,6 +3401,8 @@ def main() -> int:
              launches_recipe_ift=recipe["ift"]["launches"]["flash_fwd"],
              recipe_pt={k: recipe_fwd[k] for k in LLAMA3_KEYS},
              launches_phase13=viz["tap_forward"]["b1_launches"],
+             launches_phase14=dict(evals["b1_launches"], per_loglikelihood_request=(
+                 evals["b1_launches"]["loglikelihood"] // evals["loglikelihood"]["requests"])),
              train=dict(shape=train_fwd_rec["shape"], ms=train_fwd_rec["ms"],
                         mma_sync_ms=train_fwd_rec["mma_sync_ms"],
                         library_ms=train_fwd_rec["library_ms"],

@@ -185,6 +185,11 @@ VIZ_MODULES = (
     "models/genpipe/schedulers.py", "models/genpipe/clip_text.py", "models/genpipe/unet.py",
     "models/genpipe/vae.py", "models/genpipe/pipeline.py",
 )
+# the evaluation slice's modules: one for each file of visper_lm_tpu/eval
+EVAL_MODULES = tuple(f"eval/{name}.py" for name in (
+    "__init__", "caption_metrics", "cmmmu", "cvbench", "fid", "grounding_tasks", "harness",
+    "inception", "lmms_adapter", "lmms_tasks", "mmmu", "mmstar", "olympiad", "pan_to_sem",
+    "probe", "validate"))
 
 
 def _module_level_imports(path):
@@ -212,12 +217,40 @@ def test_no_module_level_import_of_jax_pil_safetensors_or_transformers():
     package, PIL, safetensors, transformers, diffusers or gradio at module
     level (the card has none of them; the PIL, transformers and gradio paths
     import inside functions)."""
-    paths = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, files in os.walk(os.path.join(REPO, "visper_lm_tpu_torch")):
-        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    paths = _port_paths()
     assert len(paths) > 68
-    for rel in VIZ_MODULES:
+    for rel in VIZ_MODULES + EVAL_MODULES:
         assert os.path.join(REPO, "visper_lm_tpu_torch", rel) in paths, rel
     for path in paths:
         bad = [n for n in _module_level_imports(path) if n in BANNED]
         assert not bad, (path, bad)
+
+
+def _port_paths():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "visper_lm_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return paths
+
+
+def test_no_import_of_jax_anywhere():
+    """No import of JAX or the JAX package at any depth (inside functions
+    too) in the port and chip_smoke.py; the eval package has a twin of every
+    module of visper_lm_tpu/eval."""
+    import ast
+
+    paths = _port_paths()
+    for path in paths:
+        tree = ast.parse(open(path).read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+                names = [node.module.split(".")[0]]
+            else:
+                continue
+            bad = [n for n in names if n in ("jax", "jaxlib", "visper_lm_tpu")]
+            assert not bad, (path, node.lineno, bad)
+    jax_eval = sorted(f for f in os.listdir(os.path.join(REPO, "visper_lm_tpu", "eval"))
+                      if f.endswith(".py"))
+    assert sorted(os.path.basename(m) for m in EVAL_MODULES) == jax_eval

@@ -5,8 +5,9 @@ Images are HWC uint8 numpy arrays (a 2-D array is grey, a fourth channel is
 dropped); an object with a `convert` method (a PIL image) is read through
 `np.asarray(image.convert("RGB"))`, so PIL is never imported here. The JAX
 package resizes through PIL; this module computes Pillow's resampling itself
-(`resize_bicubic`: libImaging/Resample.c's separable filter with 22-bit fixed
-point coefficients, horizontal pass first, a uint8 clip after each pass), and
+(`resize_bicubic`, `resize_lanczos`: libImaging/Resample.c's separable
+filter with 22-bit fixed point coefficients, horizontal pass first, a uint8
+clip after each pass), and
 crops and pads as PIL does (outside the image is 0), so the arrays equal the
 JAX package's.
 
@@ -41,7 +42,6 @@ Image = Any  # an (H, W, 3) uint8 array, or anything with .convert("RGB")
 # ---------------------------------------------------------------------------
 
 _PRECISION_BITS = 32 - 8 - 2
-_BICUBIC_SUPPORT = 2.0
 
 
 def _bicubic(x: np.ndarray) -> np.ndarray:
@@ -53,13 +53,33 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
     return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
 
 
-def _coefficients(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
+def _sinc(x: float) -> float:
+    if x == 0.0:
+        return 1.0
+    x = x * math.pi
+    return math.sin(x) / x
+
+
+def _lanczos(x: np.ndarray) -> np.ndarray:
+    """Pillow's lanczos_filter (a truncated sinc, support 3), element by
+    element with the C library's sin, as Pillow computes it in double."""
+    flat = [_sinc(v) * _sinc(v / 3) if -3.0 <= v < 3.0 else 0.0 for v in x.reshape(-1).tolist()]
+    return np.asarray(flat, np.float64).reshape(x.shape)
+
+
+# Pillow's filters: (function, support)
+_FILTERS = {"bicubic": (_bicubic, 2.0), "lanczos": (_lanczos, 3.0)}
+
+
+def _coefficients(in_size: int, out_size: int,
+                  resample: str = "bicubic") -> Tuple[np.ndarray, np.ndarray]:
     """precompute_coeffs + normalize_coeffs_8bpc: each output pixel's first
     input pixel (out_size,) and its fixed-point weights (out_size, ksize),
     zero past the window's end."""
+    filt, filter_support = _FILTERS[resample]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = _BICUBIC_SUPPORT * filterscale
+    support = filter_support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     center = (np.arange(out_size) + 0.5) * scale
     # C's (int) truncates toward zero
@@ -67,7 +87,7 @@ def _coefficients(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
     xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), in_size) - xmin
     taps = np.arange(ksize)
     valid = taps[None, :] < xmax[:, None]
-    w = _bicubic(((taps[None, :] + xmin[:, None]) - center[:, None] + 0.5) * (1.0 / filterscale))
+    w = filt(((taps[None, :] + xmin[:, None]) - center[:, None] + 0.5) * (1.0 / filterscale))
     w = np.where(valid, w, 0.0)
     ww = np.zeros(out_size)
     for k in range(ksize):                      # the C loop's summation order
@@ -78,13 +98,14 @@ def _coefficients(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
     return xmin, fixed
 
 
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+def _resample_axis(img: np.ndarray, out_size: int, axis: int,
+                   resample: str = "bicubic") -> np.ndarray:
     """One pass along `axis` (1: horizontal, 0: vertical) of an (H, W, C) uint8
     image. The fixed-point sums are one float64 product with the (out, in)
     matrix of the windows' weights: every partial sum is an integer below
     2^53, so the product is exact and equals C's int32 sums."""
     in_size = img.shape[axis]
-    xmin, k = _coefficients(in_size, out_size)
+    xmin, k = _coefficients(in_size, out_size, resample)
     weights = np.zeros((out_size, in_size))
     taps = xmin[:, None] + np.arange(k.shape[1])[None, :]
     valid = k != 0
@@ -94,16 +115,26 @@ def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
-def resize_bicubic(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """Pillow's `Image.resize(size, BICUBIC)` of an (H, W, C) uint8 image;
-    size is (width, height) as PIL takes it."""
+def _resize(img: np.ndarray, size: Tuple[int, int], resample: str) -> np.ndarray:
     w, h = size
     out = img
     if w != img.shape[1]:
-        out = _resample_axis(out, w, axis=1)
+        out = _resample_axis(out, w, axis=1, resample=resample)
     if h != img.shape[0]:
-        out = _resample_axis(out, h, axis=0)
+        out = _resample_axis(out, h, axis=0, resample=resample)
     return out if out is not img else img.copy()
+
+
+def resize_bicubic(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """Pillow's `Image.resize(size, BICUBIC)` of an (H, W, C) uint8 image;
+    size is (width, height) as PIL takes it."""
+    return _resize(img, size, "bicubic")
+
+
+def resize_lanczos(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """Pillow's `Image.resize(size, LANCZOS)` of an (H, W, C) uint8 image;
+    size is (width, height) as PIL takes it."""
+    return _resize(img, size, "lanczos")
 
 
 def to_rgb_array(image: Image) -> np.ndarray:

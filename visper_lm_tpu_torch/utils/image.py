@@ -254,23 +254,51 @@ def grid_sample_bilinear(
     return top * (1 - ty) + bot * ty
 
 
-def _jax_cubic_matrix(in_size: int, out_size: int) -> np.ndarray:
-    """(out, in) weights of jax.image.resize(method='bicubic') along one axis:
-    Keys cubic (a = -0.5) on half-pixel coordinates, the kernel widened by
-    in / out when downsampling (antialias), each row renormalised to sum 1."""
-    scale = np.float32(out_size / in_size)
-    inv_scale = np.float32(1.0) / scale
+def _jax_keys_cubic(x: np.ndarray) -> np.ndarray:
+    """jax.image's Keys cubic kernel (a = -0.5)."""
+    w = ((1.5 * x - 2.5) * x) * x + 1.0
+    w = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, w)
+    return np.where(x >= 2.0, 0.0, w)
+
+
+def _jax_triangle(x: np.ndarray) -> np.ndarray:
+    """jax.image's triangle (bilinear) kernel."""
+    return np.maximum(np.float32(0.0), np.float32(1.0) - x)
+
+
+def _jax_resize_matrix(in_size: int, out_size: int, kernel) -> np.ndarray:
+    """(out, in) weights of jax.image.resize along one axis (its
+    `_compute_weight_mat`): the kernel on half-pixel coordinates, widened by
+    in / out when downsampling (antialias), each row renormalised to sum 1,
+    in f32 (the inverse scale taken in double and rounded once, as JAX's
+    weakly typed Python float is)."""
+    inv_scale = np.float32(1.0 / (out_size / in_size))
     kernel_scale = max(inv_scale, np.float32(1.0))
     sample = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
     x = np.abs(sample[None, :] - np.arange(in_size, dtype=np.float32)[:, None]) / kernel_scale
-    w = ((1.5 * x - 2.5) * x) * x + 1.0
-    w = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, w)
-    w = np.where(x >= 2.0, 0.0, w).astype(np.float32)
+    w = kernel(x).astype(np.float32)
     total = w.sum(axis=0, keepdims=True)
     w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
                  w / np.where(total != 0, total, 1), 0)
     inside = (sample >= -0.5) & (sample <= in_size - 0.5)
     return np.where(inside[None, :], w, 0).T.astype(np.float64)
+
+
+def _jax_cubic_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """jax.image.resize(method='bicubic') along one axis."""
+    return _jax_resize_matrix(in_size, out_size, _jax_keys_cubic)
+
+
+def _jax_linear_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """jax.image.resize(method='bilinear') along one axis."""
+    return _jax_resize_matrix(in_size, out_size, _jax_triangle)
+
+
+def resize_bilinear_jax(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """jax.image.resize(method='bilinear') of NHWC `x` to `size` (H, W): the
+    triangle kernel, antialiased when it downscales (unlike F.interpolate and
+    `resize_bilinear`), as two f32 matrix products, H first as JAX does."""
+    return _resize_by_matrix(x, size, _jax_linear_matrix)
 
 
 def resize_bicubic_pos_embed(
