@@ -105,7 +105,9 @@ Phases, each of which raises (exit code != 0) when it fails:
   9. engine path: the continuous-batching `Engine` at bench_engine.py's
      defaults (8 slots, max_len 1536, decode quantum 8, admission groups of
      8 with a deferral of 4, prompt bucket 128; int8 KV + w8a16; phase 4's
-     decoder, which phases 7-8 leave frozen) serves bench_engine.py's 32
+     decoder, which phases 7-8 leave frozen, cut in depth to its first 8 of
+     32 blocks since PR 15 to keep the script inside its time limit: the
+     per-layer counts below are of those 8) serves bench_engine.py's 32
      requests (13 system ids, one image, 16-63 text tokens, 8-127 new tokens
      from np.random.default_rng(0)) after a warm-up, twice, in turns with
      the batch loop (bench_engine.py measurement 2: a Generator per batch of
@@ -114,7 +116,7 @@ Phases, each of which raises (exit code != 0) when it fails:
      (no EOS is set), no slot stays occupied, one host sync per quantum (the
      engine's count, and torch's sync-debug warnings raised inside the
      engine, counted by call stack),
-     B1 32 times per prefill dispatch; requests/s, tokens/s, time to the
+     B1 once per layer per prefill dispatch; requests/s, tokens/s, time to the
      first token (its arrival on the host), ms per engine step. One engine
      step with every slot busy and one decode chunk of the loop profiled.
      The engine's prefill logits with the kernels within 0.05 x max|logits|
@@ -127,7 +129,7 @@ Phases, each of which raises (exit code != 0) when it fails:
      target, its first 4 blocks with the same embedding, norm and head as
      draft) and `BeamSearchDecoder` (4 beams) on one 128-token prompt, 32
      tokens; an int4 engine run (phase 6's AWQ calibration) on 8 requests
-     with B5 at 225 launches per decoder forward. B6 must stay at 0 over
+     with B5 at 7 x layers + 1 launches per decoder forward. B6 must stay at 0 over
      phases 4-10;
  10. user API path (visper_lm_tpu_torch/api.py) at Llama-3-8B + CLIP-ViT-L/14-336
      (llama3_clip_vlm with distillation heads, bf16, full width and depth,
@@ -253,6 +255,33 @@ Phases, each of which raises (exit code != 0) when it fails:
      --device cuda --limit 8`: exit 0, both score tables, the answer files;
      the logit-parity gate runs where transformers is installed (its diff in
      the report) and prints its skip where it is not.
+ 15. the memory levers (every record with the card's name and power limit;
+     phase 1 also prints the host's MemTotal / MemAvailable and the
+     locked-memory limit): (a) 1 GiB between page-locked host memory
+     (`device.HostPool`) and the card, each way and both at once: GB/s;
+     (b) at Llama-3-8B + CLIP-L widths cut to 4 layers (bf16, IFT stage, lr
+     1e-3, B2 x T1024 full-length rows), 3 steps each of the on-card AdamW,
+     `offload_opt_state=True` and offload + `stream_grads=2`: B1 8 / B2 4 /
+     B3 4 a step, the losses within rtol 1e-5 and every trainable within
+     rtol 1e-4 / atol 1e-6 of the on-card run's (JAX's
+     test_stream_grads_step_matches_plain bounds), bit-equality reported;
+     (c) `cli.main` of recipes/finetune.args with --offload-opt-state
+     --stream-grads 8 at Llama-3-8B + CLIP-L, full depth (seeded weights
+     through --init-from a `save_hf_checkpoint` directory; 16 written
+     single-turn records whose batches pad to T 4096; the whitespace
+     tokenizer; --per-device-batch-size cut from 16 to 4, 3 steps; the final
+     checkpoint of weights and moments recorded, not written): B1 64 / B2 32 /
+     B3 32 / B4 0 a step, finite losses that change from step 2, the state
+     page-locked, step ms, peak GiB, pinned GiB; one more step timed whole
+     and its update on its own; B1-B3 at the run's batch shape against their
+     plain versions and SDPA as in phase 3; then the same configuration
+     without the levers must raise torch.OutOfMemoryError (where is
+     printed). Phi3-mini stands in, with a line that says so, when
+     MemAvailable is below the pinned state plus 10 GB; (d) `python -m
+     visper_lm_tpu_torch.train.aot` (in-process through runpy) with --run at
+     (c)'s configuration: B1 64 / B2 32 / B3 32 a step over its 2 steps, and
+     its static breakdown of weights, host state, device state and streamed
+     gradients within 5 % of what (c) allocated.
 Phase 3 also holds B1-B3 at phase 12's recipe PT shape (Llama-3-8B, B4 x
 T1024, GQA 32/8 H128, causal) against their plain versions, beside SDPA's
 forward and backward and the bound, as at the training shape.
@@ -298,6 +327,7 @@ SWIN_STAGES = ((512, 6), (128, 12), (32, 24), (8, 48))  # Swin-L at 768 px, micr
 ENGINE = dict(num_slots=8, max_len=1536, decode_quantum=8, admit_group=8, admit_defer=4,
               prompt_bucket=128)
 ENGINE_REQUESTS = 32
+ENGINE_LAYERS = 8              # phase 9 runs phase 4's model cut in depth (time: PR 15)
 ENGINE_CHUNK = 256             # the chunked-prefill check's prefill_chunk
 # phase 10: Llama-3-8B + CLIP-L through the user API
 LLAMA3_KEYS = ("shape", "kernel", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -321,6 +351,12 @@ RECIPE_GRAD_LAYER = 16          # the IFT layer whose weight gradients are held 
 EVAL_RECORDS, EVAL_BATCH, EVAL_NEW_TOKENS = 16, 8, 8   # per benchmark; chat batch; answer tokens
 EVAL_IMAGES = ((480, 640), (336, 336), (600, 400), (256, 512))   # (H, W) of the records' PNGs
 INCEPTION_IMAGES, INCEPTION_SIZE = 64, 512                       # FID features: the downscale path
+# phase 15: the memory levers
+MEM_LAYERS, MEM_BATCH, MEM_SEQ, MEM_STEPS = 4, 2, 1024, 3   # (b) parity at Llama-3-8B widths
+MEM_RECORDS, MEM_WORDS = 16, (2900, 3200)   # (c) single-turn IFT records: a batch pads to T 4096
+MEM_STREAM = 8                              # (c) --stream-grads segments
+MEM_PROBE_BYTES = 1 << 30                   # (a) one copy of the bandwidth probe
+MEM_HOST_MARGIN_GB = 10.0                   # (c) host memory beside the pinned state
 
 
 def check(cond: bool, msg: str) -> None:
@@ -382,7 +418,24 @@ def environment(build) -> str:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
+    mem = host_memory()
+    print(f"host memory: MemTotal {mem['mem_total_gb']:.1f} GB, MemAvailable "
+          f"{mem['mem_available_gb']:.1f} GB, locked-memory limit (ulimit -l) {mem['memlock']}")
     return smi
+
+
+def host_memory() -> dict:
+    """/proc/meminfo's MemTotal and MemAvailable (GB) and RLIMIT_MEMLOCK."""
+    import resource
+
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            info[key] = int(val.split()[0]) * 1024
+    soft, _ = resource.getrlimit(resource.RLIMIT_MEMLOCK)
+    return dict(mem_total_gb=info["MemTotal"] / 1e9, mem_available_gb=info["MemAvailable"] / 1e9,
+                memlock="unlimited" if soft == resource.RLIM_INFINITY else f"{soft} bytes")
 
 
 def main_path_batch(cfg):
@@ -1218,6 +1271,24 @@ def int_offset_decode(generator, cache, token, offsets, n: int) -> torch.Tensor:
             token = out["logits"][:, 0].argmax(-1)
             toks.append(token)
     return torch.stack(toks)
+
+
+def cut_depth(model, cfg, act_rms, layers: int):
+    """(model, cfg, act_rms) with the decoder's first `layers` blocks: a
+    shallow copy sharing every parameter with `model` (nothing is copied)."""
+    import dataclasses
+
+    dcfg = dataclasses.replace(cfg.decoder, num_layers=layers)
+    dec = copy.copy(model.decoder)
+    dec._modules = dict(model.decoder._modules)
+    dec.blocks = torch.nn.ModuleList(list(model.decoder.blocks)[:layers])
+    dec.cfg = dcfg
+    cut = copy.copy(model)
+    cut._modules = dict(model._modules)
+    cut.decoder = dec
+    rms = {k: v[:layers] if v.dim() == 2 and v.shape[0] == cfg.decoder.num_layers else v
+           for k, v in act_rms.items()}
+    return cut, dataclasses.replace(cfg, decoder=dcfg), rms
 
 
 def engine_phase(cfg, model, act_rms, fa, qm) -> dict:
@@ -2890,6 +2961,326 @@ def eval_phase(fa, smi: str) -> dict:
     return out
 
 
+def memory_dataset(root: Path) -> dict:
+    """Phase 15's data under `root`: 16 PNG images of phase 10's sizes and 16
+    single-turn IFT records (<image> + a question, a 2,900-3,200-word answer:
+    with the image's 576 tokens every batch pads to the 4,096 bucket)."""
+    from visper_lm_tpu_torch.data.image_io import write_png
+
+    rng = np.random.default_rng(15)
+    images = root / "images"
+    images.mkdir(parents=True)
+    recs = []
+    for i in range(MEM_RECORDS):
+        h, w = CHAT_IMAGES[i % len(CHAT_IMAGES)]
+        write_png(str(images / f"{i:04d}.png"), rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        words = lambda n: " ".join(f"w{int(x)}" for x in rng.integers(0, 5000, size=n))  # noqa: E731
+        recs.append({"id": f"mem{i}", "image": f"{i:04d}.png", "conversations": [
+            {"from": "human", "value": "<image>\n" + words(8)},
+            {"from": "gpt", "value": words(int(rng.integers(*MEM_WORDS)))}]})
+    (root / "ift.json").write_text(json.dumps(recs))
+    return dict(images=str(images), ift=str(root / "ift.json"))
+
+
+def bandwidth_probe() -> dict:
+    """(a) One GiB between page-locked host memory (`HostPool`, as the
+    offloaded state and streamed gradients use it) and the card, each way
+    and both at once on two streams: GB/s, the staged update's bound."""
+    from visper_lm_tpu_torch.device import HostPool
+
+    pool = HostPool(2 * MEM_PROBE_BYTES, "cuda")
+    host = [pool.take((MEM_PROBE_BYTES,), torch.uint8) for _ in range(2)]
+    check(all(h.is_pinned() for h in host), "the probe's host buffers are not page-locked")
+    dev = [torch.empty(MEM_PROBE_BYTES, dtype=torch.uint8, device="cuda") for _ in range(2)]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+
+    def timed(copies, reps=3):
+        best = float("inf")
+        for _ in range(reps):
+            cur = torch.cuda.current_stream()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record(cur)
+            for (dst, src), st in zip(copies, streams):
+                st.wait_stream(cur)
+                with torch.cuda.stream(st):
+                    dst.copy_(src, non_blocking=True)
+            for st in streams[:len(copies)]:
+                cur.wait_stream(st)
+            end.record(cur)
+            end.synchronize()
+            best = min(best, start.elapsed_time(end))
+        return len(copies) * MEM_PROBE_BYTES / (best / 1e3) / 1e9, best
+
+    h2d, h2d_ms = timed([(dev[0], host[0])])
+    d2h, d2h_ms = timed([(host[1], dev[1])])
+    both, both_ms = timed([(dev[0], host[0]), (host[1], dev[1])])
+    dev[0].fill_(7)
+    host[1].copy_(dev[0])
+    check(bool(host[1][:: 1 << 20].eq(7).all()), "the probe's device-to-host copy lost bytes")
+    out = dict(bytes=MEM_PROBE_BYTES, h2d_gb_per_s=h2d, d2h_gb_per_s=d2h, both_gb_per_s=both,
+               h2d_ms=h2d_ms, d2h_ms=d2h_ms, both_ms=both_ms)
+    print("memory bandwidth " + json.dumps(out))
+    del host, dev, pool
+    return out
+
+
+def memory_phase(fa, wa, smi: str) -> dict:
+    """Phase 15: the memory levers (see the module docstring). Returns the
+    record printed as `memory_path`; its "b1".."b3" are the kernel records at
+    (c)'s shape."""
+    import dataclasses
+    import os
+    import runpy
+    import shutil
+    from unittest import mock
+
+    from visper_lm_tpu_torch.checkpoint.hf_export import save_hf_checkpoint
+    from visper_lm_tpu_torch.config import llama3_clip_vlm
+    from visper_lm_tpu_torch.data.dataset import RAW_IMAGES, BatchIterator, DataConfig, SupervisedDataset
+    from visper_lm_tpu_torch.models.vlm import init_vlm
+    from visper_lm_tpu_torch.train import aot, cli
+    from visper_lm_tpu_torch.train.checkpoint import CheckpointManager
+    from visper_lm_tpu_torch.train.optimizer import OptimizerConfig
+    from visper_lm_tpu_torch.train.train_step import make_train_step
+
+    repo = Path(__file__).resolve().parent
+    root = repo / "tmp" / "chip_smoke_memory"
+    shutil.rmtree(root, ignore_errors=True)
+    out = dict(card=smi)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+
+    def reset_counts():
+        fa.launches = fa.dq_launches = fa.dkv_launches = wa.launches = 0
+
+    def counts():
+        return dict(flash_fwd=fa.launches, flash_bwd_dq=fa.dq_launches,
+                    flash_bwd_dkv=fa.dkv_launches, window_attn=wa.launches)
+
+    def per_step(layers, steps):
+        return dict(flash_fwd=2 * layers * steps, flash_bwd_dq=layers * steps,
+                    flash_bwd_dkv=layers * steps, window_attn=0)
+
+    def nbytes(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    try:
+        # (a) the host link
+        out["bandwidth"] = bandwidth_probe()
+        release_cuda()
+
+        # (b) parity at Llama-3-8B widths, 4 layers: on-card AdamW, offloaded, offloaded + streamed
+        t0 = time.perf_counter()
+        cfg4 = llama3_clip_vlm(distill=False)
+        cfg4 = dataclasses.replace(cfg4, decoder=dataclasses.replace(cfg4.decoder, num_layers=MEM_LAYERS))
+        base = init_vlm(cfg4, device="cuda", seed=15)
+        batch = aot.full_length_batch(cfg4, MEM_BATCH, MEM_SEQ, with_teachers=False)
+        opt_cfg = OptimizerConfig(learning_rate=1e-3, total_steps=10, stage="finetune")
+        runs = {}
+        for run, kw in (("on_card", {}), ("offload", dict(offload_opt_state=True)),
+                        ("offload_stream", dict(offload_opt_state=True, stream_grads=2))):
+            model = copy.deepcopy(base)
+            step = make_train_step(cfg4, opt_cfg, model, **kw)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            losses = [step(batch)["loss"] for _ in range(MEM_STEPS)]
+            torch.cuda.synchronize()
+            launches = counts()
+            check(launches == per_step(MEM_LAYERS, MEM_STEPS),
+                  f"parity {run}: launches {launches}, expected {per_step(MEM_LAYERS, MEM_STEPS)}")
+            check(all(math.isfinite(x) for x in losses) and losses[2] != losses[1],
+                  f"parity {run}: losses {losses}")
+            host = getattr(step.optimizer, "host_bytes", 0)
+            check((host > 0) == ("offload_opt_state" in kw), f"parity {run}: {host} host bytes")
+            if step.grad_stream is not None:
+                check(len(step.grad_stream.ranges) == 2, f"parity {run}: segments {step.grad_stream.ranges}")
+                step.grad_stream.close()
+            runs[run] = dict(losses=losses, update_ms=step.update_ms(),
+                             peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                             host_gib=host / 2**30,
+                             launches_per_step={k: v // MEM_STEPS for k, v in launches.items()},
+                             params={n: p.detach().clone() for n, p in step.trainable.items()})
+            del step, model
+            release_cuda()
+        ref = runs["on_card"]
+        for run in ("offload", "offload_stream"):
+            r = runs[run]
+            np.testing.assert_allclose(r["losses"], ref["losses"], rtol=1e-5,
+                                       err_msg=f"parity {run}: losses")
+            bit = r["losses"] == ref["losses"]
+            worst = 0.0
+            for n, p in r["params"].items():
+                a, b = p.float(), ref["params"][n].float()
+                excess = ((a - b).abs() - (1e-6 + 1e-4 * b.abs())).max().item()
+                check(excess <= 0, f"parity {run}: {n} beyond rtol 1e-4 / atol 1e-6 by {excess}")
+                worst = max(worst, (a - b).abs().max().item())
+                bit = bit and torch.equal(p, ref["params"][n])
+            r.update(bit_equal=bit, max_abs_param_diff=worst)
+        moved = sum(int(not torch.equal(p, dict(base.named_parameters())[n]))
+                    for n, p in ref["params"].items())
+        check(moved > 0, "parity: no trainable moved")
+        out["parity"] = {k: {kk: vv for kk, vv in v.items() if kk != "params"} for k, v in runs.items()}
+        out["parity"]["seconds"] = time.perf_counter() - t0
+        out["parity"]["trainables_moved"] = moved
+        print("memory parity " + json.dumps(out["parity"]))
+        del runs, ref, base
+        release_cuda()
+
+        # (c) IFT from recipes/finetune.args with the levers, at full depth
+        data = memory_dataset(root)
+        mem = host_memory()
+        sizes = aot.static_breakdown(llama3_clip_vlm(distill=False), stage="finetune",
+                                     batch_size=RECIPE_BATCH, seq_len=4096, offload_opt_state=True,
+                                     stream_grads=MEM_STREAM)
+        need_gb = (sizes["opt_state_host"] + sizes["grads_host"]) / 1e9 + MEM_HOST_MARGIN_GB
+        model_name = "llama3" if mem["mem_available_gb"] >= need_gb else "phi3"
+        if model_name != "llama3":
+            print(f"memory phase: the host has {mem['mem_available_gb']:.1f} GB available, "
+                  f"Llama-3-8B's levers need {need_gb:.1f} GB: running Phi3-mini instead")
+        out["host"] = dict(mem, need_gb=need_gb, model=model_name)
+        extra = [] if model_name == "llama3" else ["--model", "phi3", "--version", "llava_phi_3"]
+        argv = [f"@{repo / 'recipes' / 'finetune.args'}", "--offload-opt-state",
+                "--stream-grads", str(MEM_STREAM), "--data-path", data["ift"],
+                "--image-folder", data["images"], "--tokenizer", "fake-whitespace",
+                "--output-dir", str(root / "ift"), "--per-device-batch-size", str(RECIPE_BATCH),
+                "--max-steps", str(RECIPE_STEPS), "--init-from", str(root / "init"), *extra]
+        args = cli.build_argparser().parse_args(argv)
+        cfg = cli.build_vlm_config(args)
+        tok = cli.load_tokenizer("fake-whitespace")
+        ds = SupervisedDataset(DataConfig(data["ift"], data["images"], args.image_aspect_ratio,
+                                          cfg.vision.image_size, group_by_modality_length=True), tok, cfg)
+        first = next(iter(BatchIterator(ds, RECIPE_BATCH, seed=0, seq_buckets=(1024, 2048, 4096))))
+        seq = first["labels"].shape[1]
+        lens = first["seq_lengths"].tolist()
+        check(seq == 4096, f"memory IFT batch pads to T {seq}, not 4096")
+        print(f"memory IFT batch seq_lengths {lens}")
+
+        # B1-B3 at this batch's shape against their plain versions, SDPA the yardstick
+        d = cfg.decoder
+        out["b1"] = kernel_case("ift_t4096", RECIPE_BATCH, seq, d.num_heads, d.num_kv_heads,
+                                d.head_dim, torch.bfloat16, True, [0] * RECIPE_BATCH, lens, gen, fa)
+        out["b2"], out["b3"] = bwd_case("ift_t4096", RECIPE_BATCH, seq, d.num_heads, d.num_kv_heads,
+                                        d.head_dim, True, [0] * RECIPE_BATCH, lens, gen, fa)
+        release_cuda()
+
+        src = init_vlm(cfg, device="cuda", seed=15)
+        t0 = time.perf_counter()
+        save_hf_checkpoint(str(root / "init"), src, cfg)
+        save_s = time.perf_counter() - t0
+        del src
+        release_cuda()
+        saves = []
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(CheckpointManager, "save",
+                               lambda self, step, *a, **k: saves.append(step)):
+            state = cli.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        check(launches == per_step(d.num_layers, RECIPE_STEPS),
+              f"memory IFT launches {launches}, expected {per_step(d.num_layers, RECIPE_STEPS)}")
+        with open(root / "ift" / "metrics.jsonl") as f:
+            recs = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in recs]
+        check([r["step"] for r in recs] == [1, 2, 3] and all(math.isfinite(x) for x in losses)
+              and losses[2] != losses[1], f"memory IFT metrics {recs}")
+        check(saves == [RECIPE_STEPS], f"memory IFT saves {saves}")
+        opt, stream = state.optimizer, state.grad_stream
+        check(type(opt).__name__ == "OffloadedAdamW" and stream is not None
+              and len(stream.ranges) == MEM_STREAM, "memory IFT: the levers are not on")
+        check(all(t.is_pinned() for k, t in opt.state_tensors().items() if t.device.type == "cpu"),
+              "memory IFT: host state not page-locked")
+        measured = dict(
+            weights=nbytes(state.model.parameters()),
+            opt_state_host=opt.host_bytes,
+            opt_state_device=nbytes(t for t in opt.state_tensors().values() if t.is_cuda),
+            grads_host=stream.host_bytes,
+        )
+        # one more step on a batch of the run, timed whole, with the update's own time
+        dbatch = {k: v for k, v in first.items() if k != RAW_IMAGES}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        extra_loss = state(dbatch)["loss"]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t1) * 1e3
+        update_ms = state.update_ms()
+        check(math.isfinite(extra_loss), f"memory IFT: step 4 loss {extra_loss}")
+        out["ift"] = dict(
+            model=model_name, batch=RECIPE_BATCH, seq=seq, stream_grads=MEM_STREAM,
+            losses=losses, step_ms=[1e3 / r["steps_per_sec"] for r in recs],
+            timed_step_ms=step_ms, update_ms=update_ms, forward_backward_ms=step_ms - update_ms,
+            run_s=run_s, init_checkpoint_write_s=save_s, peak_gib=peak / 2**30,
+            pinned_gib=(opt.host_bytes + stream.host_bytes) / 2**30,
+            launches_per_step={k: v // RECIPE_STEPS for k, v in launches.items()},
+            trainable_params=sum(p.numel() for p in state.trainable.values()),
+            measured_gib={k: v / 2**30 for k, v in measured.items()}, card=smi)
+        print("memory ift " + json.dumps(out["ift"]))
+
+        # the same configuration without the levers
+        stream.close()
+        model = state.model
+        del state, opt, stream
+        release_cuda()
+        where = None
+        try:
+            where = "optimizer state"
+            plain = make_train_step(cfg, OptimizerConfig(learning_rate=2e-5, total_steps=RECIPE_STEPS,
+                                                         stage="finetune"), model)
+            where = "step"
+            plain(dbatch)
+            where = None
+        except torch.OutOfMemoryError as e:
+            out["without_levers"] = dict(
+                fits=False, raised="torch.OutOfMemoryError", at=where,
+                allocated_gib=torch.cuda.memory_allocated() / 2**30, message=str(e).splitlines()[0])
+        check(where is not None, "memory IFT: the configuration without the levers fit on the card")
+        print("memory without levers " + json.dumps(out["without_levers"]))
+        for p in model.parameters():
+            p.grad = None
+        plain = model = None
+        release_cuda()
+
+        # (d) train/aot.py at (c)'s configuration, through its command line
+        aot_out = root / "aot.jsonl"
+        aot_argv = ["aot", "--model", model_name, "--stage", "finetune", "--batch", str(RECIPE_BATCH),
+                    "--seq", str(seq), "--offload-opt", "--stream-grads", str(MEM_STREAM), "--run",
+                    "--out", str(aot_out)]
+        reset_counts()
+        saved_argv = sys.argv
+        sys.argv = aot_argv
+        sys.modules.pop("visper_lm_tpu_torch.train.aot", None)   # run as `python -m` would
+        try:
+            runpy.run_module("visper_lm_tpu_torch.train.aot", run_name="__main__")
+        except SystemExit as e:
+            check(e.code in (0, None), f"train.aot exited {e.code}")
+        finally:
+            sys.argv = saved_argv
+        rep = json.loads(aot_out.read_text().strip().splitlines()[-1])
+        aot_launches = counts()
+        check(aot_launches == per_step(d.num_layers, 2),
+              f"train.aot --run launches {aot_launches}, expected {per_step(d.num_layers, 2)}")
+        static = dict(weights=rep["params_gib_per_chip"] + rep["frozen_gib_per_chip"],
+                      opt_state_host=rep["opt_state_host_gib"],
+                      opt_state_device=rep["opt_state_device_gib"],
+                      grads_host=rep["grads_host_gib"])
+        share = {}
+        for k, v in static.items():
+            got = out["ift"]["measured_gib"][k]
+            share[k] = abs(v - got) / max(got, 1e-9)
+            check(share[k] <= 0.05 or abs(v - got) < 1e-3,
+                  f"train.aot's {k} {v:.3f} GiB is {share[k]:.3f} off (c)'s {got:.3f} GiB")
+        check(all(math.isfinite(x) for x in rep["losses"]), f"train.aot --run losses {rep['losses']}")
+        out["aot"] = dict(rep, static_vs_measured_share=share, launches=aot_launches)
+        print("memory aot " + json.dumps(out["aot"]))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        release_cuda()
+    return out
+
+
 def release_cuda():
     gc.collect()
     torch.cuda.empty_cache()
@@ -3317,8 +3708,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    engine = engine_phase(cfg, model, act_rms, fa, qm)
-    print(f"engine phase {time.perf_counter() - t0:.1f} s")
+    cut, cut_cfg, cut_rms = cut_depth(model, cfg, act_rms, ENGINE_LAYERS)
+    engine = engine_phase(cut_cfg, cut, cut_rms, fa, qm)
+    del cut, cut_rms
+    print(f"engine phase {time.perf_counter() - t0:.1f} s ({ENGINE_LAYERS} of "
+          f"{cfg.decoder.num_layers} layers)")
     print("engine_path " + json.dumps(engine))
 
     # 10. the user API at Llama-3-8B + CLIP-L: export/import, chat, serve,
@@ -3367,9 +3761,18 @@ def main() -> int:
     evals["seconds"] = time.perf_counter() - t0
     print(f"eval phase {evals['seconds']:.1f} s, B1 launches {json.dumps(evals['b1_launches'])} [{smi}]")
     print("eval_path " + json.dumps(evals))
-    dec_launches = da.launches                  # over phases 4-14
-    print(f"decode_attn launches over the serving, training, engine, api, vision, recipe, viz "
-          f"and eval paths: {dec_launches}")
+    # 15. the memory levers: the host link, offloaded and streamed steps held to
+    # the on-card step at 4 layers, IFT at Llama-3-8B from recipes/finetune.args
+    # with --offload-opt-state --stream-grads 8, without them (out of memory),
+    # and train/aot.py's breakdown against what the run allocated
+    t0 = time.perf_counter()
+    memory = memory_phase(fa, wa, smi)
+    memory["seconds"] = time.perf_counter() - t0
+    print(f"memory phase {memory['seconds']:.1f} s [{smi}]")
+    print("memory_path " + json.dumps({k: v for k, v in memory.items() if k not in ("b1", "b2", "b3")}))
+    dec_launches = da.launches                  # over phases 4-15
+    print(f"decode_attn launches over the serving, training, engine, api, vision, recipe, viz, "
+          f"eval and memory paths: {dec_launches}")
     check(dec_launches == 0, f"decode_attn launched {dec_launches} times; no path calls it")
 
     def entry(kname, source, replaces, rec, launches):
@@ -3403,6 +3806,8 @@ def main() -> int:
              launches_phase13=viz["tap_forward"]["b1_launches"],
              launches_phase14=dict(evals["b1_launches"], per_loglikelihood_request=(
                  evals["b1_launches"]["loglikelihood"] // evals["loglikelihood"]["requests"])),
+             launches_phase15_per_step=memory["ift"]["launches_per_step"]["flash_fwd"],
+             ift_t4096={k: memory["b1"][k] for k in LLAMA3_KEYS},
              train=dict(shape=train_fwd_rec["shape"], ms=train_fwd_rec["ms"],
                         mma_sync_ms=train_fwd_rec["mma_sync_ms"],
                         library_ms=train_fwd_rec["library_ms"],
@@ -3413,6 +3818,8 @@ def main() -> int:
              launches_recipe_pt=recipe["pt"]["launches"]["flash_bwd_dq"],
              launches_recipe_ift=recipe["ift"]["launches"]["flash_bwd_dq"],
              recipe_pt={k: recipe_dq[k] for k in LLAMA3_KEYS + ("device_ms",)},
+             launches_phase15_per_step=memory["ift"]["launches_per_step"]["flash_bwd_dq"],
+             ift_t4096={k: memory["b2"][k] for k in LLAMA3_KEYS + ("device_ms",)},
              library="SDPA backward (dq, dk and dv in one call)",
              gqa=dict(shape=gqa_dq["shape"], ms=gqa_dq["ms"], device_ms=gqa_dq["device_ms"],
                       library_ms=gqa_dq["library_ms"], bound_ms=gqa_dq["bound_ms"])),
@@ -3422,6 +3829,8 @@ def main() -> int:
              launches_recipe_pt=recipe["pt"]["launches"]["flash_bwd_dkv"],
              launches_recipe_ift=recipe["ift"]["launches"]["flash_bwd_dkv"],
              recipe_pt={k: recipe_dkv[k] for k in LLAMA3_KEYS + ("device_ms",)},
+             launches_phase15_per_step=memory["ift"]["launches_per_step"]["flash_bwd_dkv"],
+             ift_t4096={k: memory["b3"][k] for k in LLAMA3_KEYS + ("device_ms",)},
              library="SDPA backward (dq, dk and dv in one call)",
              gqa=dict(shape=gqa_dkv["shape"], ms=gqa_dkv["ms"], device_ms=gqa_dkv["device_ms"],
                       library_ms=gqa_dkv["library_ms"], bound_ms=gqa_dkv["bound_ms"])),

@@ -16,6 +16,8 @@ import dataclasses
 import json
 import os
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -294,9 +296,20 @@ def test_bf16_file_round_trip_is_bit_equal(tmp_path):
 
 
 def test_what_is_not_ported_raises():
+    """Once not ported, now ported: the stream-grads layout (decoder blocks
+    as `decoder.blocks_chunks.<c>.<j>.` sub-stacks, here two chunks)
+    exports as the stacked layout does, bit for bit."""
     cfg = tconfig.tiny_test_vlm(distill=True)
     model = _port_model(cfg)
-    chunked = {k.replace("decoder.blocks.", "decoder.blocks_chunks.0."): v
-               for k, v in model.state_dict().items()}
-    with pytest.raises(NotImplementedError, match="item 11"):
-        texp.export_vlm(chunked, cfg)
+    half = cfg.decoder.num_layers // 2
+
+    def chunked_name(k):
+        m = re.match(r"decoder\.blocks\.(\d+)\.(.*)", k)
+        if m is None:
+            return k
+        i = int(m.group(1))
+        return f"decoder.blocks_chunks.{int(i >= half)}.{i - half * (i >= half)}.{m.group(2)}"
+
+    chunked = {chunked_name(k): v for k, v in model.state_dict().items()}
+    assert any(".blocks_chunks.1.0." in k for k in chunked)
+    _bit_equal(texp.export_vlm(chunked, cfg), texp.export_vlm(model, cfg))

@@ -374,9 +374,9 @@ def test_master_weights_match_optax_over_three_updates():
     round(master) - p, added in bf16, rounds. Those elements are worked out
     from JAX's previous parameter (float64 sums, one rounding to bf16 each),
     none lies within a factor 2 of its previous value (where the delta is
-    exact), and the port's parameter equals optax's everywhere else. The port keeps both moments in f32 whatever the parameter dtype,
-    so optax's state is made from f32 copies of the parameters (its second
-    moment then is f32 too) and it updates the bf16 parameters."""
+    exact), and the port's parameter equals optax's everywhere else. Both
+    keep the second moment in bf16, the parameters' dtype, and both take
+    the gradients in bf16, as a bf16 model's backward gives them."""
     rng = np.random.default_rng(11)
     shapes = {"mm_projector.layers.0.weight": (24, 16), "mm_projector.layers.0.bias": (24,),
               "special_tokens.gen": (2, 16), "heads.gen.0.proj_out.weight": (8, 16),
@@ -407,15 +407,18 @@ def test_master_weights_match_optax_over_three_updates():
                       topt.OptimizerConfig(**cfg))
     jcfg = jopt.OptimizerConfig(**cfg)
     params_j = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.bfloat16), tree(init32))
-    tx = jopt.make_optimizer(tree(init32), jcfg)
-    state_j = tx.init(jax.tree_util.tree_map(jnp.asarray, tree(init32)))
+    tx = jopt.make_optimizer(params_j, jcfg)
+    state_j = tx.init(params_j)
     update = jax.jit(tx.update)
     rounded_off = 0
     for _ in range(3):
         prev_j = {k: np.asarray(v, np.float64) for k, v in _flat(params_j).items()}
-        grads = {n: np.asarray(rng.standard_normal(s), np.float32) for n, s in shapes.items()}
-        port.step({n: torch.from_numpy(g) for n, g in grads.items()})
-        upd, state_j = update(jax.tree_util.tree_map(jnp.asarray, tree(grads)), state_j, params_j)
+        grads = {n: torch.from_numpy(np.asarray(rng.standard_normal(s), np.float32)).to(torch.bfloat16)
+                 for n, s in shapes.items()}
+        port.step(grads)
+        upd, state_j = update(jax.tree_util.tree_map(
+            lambda a: jnp.asarray(a, jnp.bfloat16),
+            tree({n: g.float().numpy() for n, g in grads.items()})), state_j, params_j)
         params_j = optax.apply_updates(params_j, upd)
         masters = [s for s in jax.tree_util.tree_leaves(
             state_j, is_leaf=lambda x: isinstance(x, dict) and "master" in x)

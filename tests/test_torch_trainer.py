@@ -300,13 +300,25 @@ def test_a_failing_data_stream_raises_in_the_loop(host_params, tmp_path):
 def test_what_the_port_does_not_have_raises(host_params, tmp_path):
     cfg = tconfig.tiny_test_vlm(distill=True)
     model = _model(host_params)
-    for kw in (dict(zero_params=True), dict(zero_frozen=True), dict(offload_opt_state=True),
-               dict(shard_teachers=True), dict(stream_grads=2)):
-        with pytest.raises(NotImplementedError):
+    for kw in (dict(zero_params=True), dict(zero_frozen=True), dict(shard_teachers=True)):
+        with pytest.raises(NotImplementedError, match="item 8"):
             tts.make_train_step(cfg, topt.OptimizerConfig(**OPT), model, **kw)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="item 8"):
             ttrain.train(cfg, topt.OptimizerConfig(**OPT), _trainer(tmp_path, "x", **kw), model,
                          lambda epoch: iter(()))
+    # the one-device memory levers train, and as the plain loop does
+    batches = _batches(2, seed=5)
+    plain = _trainables(_train(host_params, _trainer(tmp_path, "plain", max_steps=2),
+                               lambda epoch: iter(batches)))
+    for name, kw in (("offload", dict(offload_opt_state=True)), ("stream", dict(stream_grads=2))):
+        state = _train(host_params, _trainer(tmp_path, name, max_steps=2, **kw),
+                       lambda epoch: iter(batches))
+        assert state.step == 2
+        assert (state.grad_stream is not None) == ("stream_grads" in kw)
+        assert type(state.optimizer).__name__ == ("OffloadedAdamW" if "offload_opt_state" in kw
+                                                  else "AdamW")
+        for n, p in _trainables(state).items():
+            assert torch.equal(p, plain[n]), (name, n)
     for kw in (dict(dp=2), dict(tp=2)):
         with pytest.raises(NotImplementedError, match="one device"):
             ttrain.train(cfg, topt.OptimizerConfig(**OPT), _trainer(tmp_path, "x", **kw), model,

@@ -24,6 +24,7 @@ from visper_lm_tpu_torch.checkpoint.hf_import import (
 )
 from visper_lm_tpu_torch.config import DecoderConfig, VisionConfig, VLMConfig, config_to_json
 from visper_lm_tpu_torch.models.convnext import export_openclip_convnext
+from visper_lm_tpu_torch.models.decoder import normalize_stream_layout
 
 StateDict = Dict[str, torch.Tensor]
 _DTYPE_NAMES = {v: k for k, v in SAFETENSORS_DTYPES.items()}
@@ -122,11 +123,11 @@ def export_resampler(sd: StateDict, prefix: str, params: Mapping[str, torch.Tens
 
 
 def export_vlm(model: Union[nn.Module, Mapping[str, torch.Tensor]], cfg: VLMConfig) -> StateDict:
-    """The full OLA / LLaVA state dict of a `VLM` (or of its state dict)."""
+    """The full OLA / LLaVA state dict of a `VLM` (or of its state dict; one
+    whose decoder blocks are `decoder.blocks_chunks.<c>.<j>.` sub-stacks is
+    stacked back first, as JAX's exporter normalises the streamed layout)."""
     params = model.state_dict() if isinstance(model, nn.Module) else dict(model)
-    if any(".blocks_chunks." in k for k in params):
-        raise NotImplementedError(
-            "the stream-grads decoder layout is not ported yet (ROADMAP queue A, item 11)")
+    params = normalize_stream_layout(params)
     sd = export_decoder(_sub(params, "decoder."), cfg.decoder)
     projector = _sub(params, "mm_projector.")
     i = 0

@@ -33,8 +33,10 @@ the flash forward's lse) goes through the `saved` list of
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, FrozenSet, List, Mapping, Optional, Tuple, Union
+import re
+from typing import Any, Dict, FrozenSet, List, Mapping, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -413,6 +415,8 @@ class Decoder(nn.Module):
             None if cfg.tie_embeddings
             else nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False, **kw)
         )
+        # set by GradStream: the blocks' gradients leave for the host per segment
+        self.grad_stream: Optional["GradStream"] = None
 
     def logits(self, hidden: torch.Tensor, use_kernel: Optional[bool] = None) -> torch.Tensor:
         """Output projection in the model dtype (a quantized lm_head goes
@@ -458,6 +462,9 @@ class Decoder(nn.Module):
         if remat and cache is not None:
             raise ValueError("remat is a training feature (no cache)")
         t = inputs_embeds.shape[1]
+        stream = self.grad_stream
+        if stream is not None and stream.armed:
+            stream.check_forward(tap_layers, cache)
         if tap_layers:
             if max(tap_layers) >= cfg.num_layers:
                 raise ValueError(f"tap layers {tap_layers} out of range for {cfg.num_layers} layers")
@@ -490,6 +497,213 @@ class Decoder(nn.Module):
         if compute_logits:
             out["logits"] = self.logits(hidden, use_kernel)
         return out
+
+
+# ---------------------------------------------------------------------------
+# Gradient streaming (JAX's blocks_chunks layout and host_grad_segment)
+# ---------------------------------------------------------------------------
+
+
+def stream_chunk_ranges(
+    num_layers: int, n_chunks: int, tap_layers: Sequence[int] = ()
+) -> Tuple[Tuple[int, int], ...]:
+    """Layer ranges of the gradient-streaming segments: the uniform n_chunks
+    grid unioned with the tap boundaries, so every tapped block output ends
+    a segment (JAX `stream_chunk_ranges`)."""
+    n_chunks = max(1, min(n_chunks, num_layers))
+    ends = {(i + 1) * num_layers // n_chunks for i in range(n_chunks)} | {l + 1 for l in tap_layers}
+    ends = sorted(e for e in ends if 0 < e <= num_layers)
+    return tuple(zip([0] + ends[:-1], ends))
+
+
+def chunk_blocks_at(blocks: Mapping[str, Any], ranges: Sequence[Tuple[int, int]]) -> Tuple[Any, ...]:
+    """A JAX stacked blocks tree (numpy leaves (L, ...)) cut into the layer
+    ranges' sub-stacks (JAX `chunk_blocks_at`)."""
+
+    def cut(node, s, e):
+        if isinstance(node, Mapping):
+            return {k: cut(v, s, e) for k, v in node.items()}
+        return node[s:e]
+
+    return tuple(cut(blocks, s, e) for s, e in ranges)
+
+
+def unchunk_blocks(chunks: Sequence[Any]) -> Any:
+    """The sub-stacks concatenated back into one stacked tree (JAX `unchunk_blocks`)."""
+    first = chunks[0]
+    if isinstance(first, Mapping):
+        return {k: unchunk_blocks([c[k] for c in chunks]) for k in first}
+    return np.concatenate([np.asarray(c) for c in chunks], axis=0)
+
+
+_CHUNK_KEY = re.compile(r"^(.*?decoder\.)blocks_chunks\.(\d+)\.(\d+)\.(.*)$")
+
+
+def normalize_stream_layout(params: Any) -> Any:
+    """Undo the gradient-streaming layout at an export or serving boundary
+    (JAX `normalize_stream_layout`): a JAX tree whose decoder holds
+    `blocks_chunks` {"0": sub-stack, ...} gets its stacked `blocks` back; a
+    state dict with keys `...decoder.blocks_chunks.<c>.<j>.<rest>` gets
+    `...decoder.blocks.<layer>.<rest>`, the layer counted over the chunks in
+    order. Anything else is returned as it is."""
+    if not isinstance(params, Mapping):
+        return params
+    dec = params.get("decoder")
+    if isinstance(dec, Mapping) and "blocks_chunks" in dec:
+        dec = dict(dec)
+        chunks = dec.pop("blocks_chunks")
+        subs = [chunks[k] for k in sorted(chunks, key=int)] if isinstance(chunks, Mapping) else list(chunks)
+        dec["blocks"] = unchunk_blocks(subs)
+        out = dict(params)
+        out["decoder"] = dec
+        return out
+    found = {k: _CHUNK_KEY.match(k) for k in params}
+    if not any(found.values()):
+        return params
+    sizes: Dict[Tuple[str, int], int] = {}
+    for m in filter(None, found.values()):
+        key = (m.group(1), int(m.group(2)))
+        sizes[key] = max(sizes.get(key, 0), int(m.group(3)) + 1)
+    starts, total = {}, {}
+    for prefix, c in sorted(sizes):
+        starts[(prefix, c)] = total.get(prefix, 0)
+        total[prefix] = starts[(prefix, c)] + sizes[(prefix, c)]
+    out = {}
+    for k, v in params.items():
+        m = found[k]
+        if m is None:
+            out[k] = v
+        else:
+            layer = starts[(m.group(1), int(m.group(2)))] + int(m.group(3))
+            out[f"{m.group(1)}blocks.{layer}.{m.group(4)}"] = v
+    return out
+
+
+class GradStream:
+    """JAX `host_grad_segment` for the port's one-layout decoder: a VLM's
+    decoder blocks are cut into segments (`ranges`, from `stream_chunk_ranges`), and while
+    the stream is `armed` each segment's weight gradients leave the card as
+    soon as the backward has produced the last of them.
+
+    A post-accumulate-grad hook on every trainable block parameter counts the
+    segment down; at zero the segment's gradients are summed for the global
+    norm on the card (`leaf_sumsq`, so the norm pass never brings them back)
+    and copied on a side stream into page-locked host buffers, each
+    `.grad` is freed (its memory returns to the allocator once the copy is
+    done) and the step's stream waits for the PREVIOUS segment's copies
+    first: at most two segments' gradients are on the card at once, the
+    counterpart of JAX's optimization_barrier tie. On the CPU the host
+    buffers are the gradients themselves (JAX's host put is a no-op off the
+    TPU). `collect()` ends a backward: it waits for the copies and returns
+    {name: host gradient} and {name: (sum of squares, dtype)}."""
+
+    def __init__(self, model: nn.Module, ranges: Sequence[Tuple[int, int]], device: torch.device):
+        from visper_lm_tpu_torch.device import HostPool
+
+        decoder = model.decoder
+        cfg = decoder.cfg
+        covered = sum(e - s for s, e in ranges)
+        if covered != cfg.num_layers or any(b != a for (_, a), (b, _) in zip(ranges, ranges[1:])):
+            raise ValueError(f"stream ranges {tuple(ranges)} cover {covered} layers, "
+                             f"decoder has {cfg.num_layers}")
+        self.decoder, self.ranges, self.device = decoder, tuple(ranges), torch.device(device)
+        self.segments: List[List[Tuple[str, nn.Parameter]]] = []
+        for s, e in self.ranges:
+            self.segments.append([
+                (f"decoder.blocks.{i}.{n}", p)
+                for i in range(s, e) for n, p in decoder.blocks[i].named_parameters()
+                if p.requires_grad
+            ])
+        self._segment_of = {id(p): k for k, seg in enumerate(self.segments) for _, p in seg}
+        self.pool = None
+        self.host: Dict[str, torch.Tensor] = {}
+        if self.device.type == "cuda":
+            params = [p for seg in self.segments for _, p in seg]
+            self.pool = HostPool(sum(HostPool.size_of(p.shape, p.dtype) for p in params), self.device)
+            self.host = {n: self.pool.take(p.shape, p.dtype) for seg in self.segments for n, p in seg}
+            self.side = torch.cuda.Stream(self.device)
+        self._hooks = [p.register_post_accumulate_grad_hook(self._ready)
+                       for seg in self.segments for _, p in seg]
+        self.armed = False
+        decoder.grad_stream = self
+
+    @property
+    def host_bytes(self) -> int:
+        return 0 if self.pool is None else self.pool.nbytes
+
+    def check_forward(self, tap_layers: Sequence[int], cache) -> None:
+        """JAX's asserts on the streamed layout: training only, every tap a segment end."""
+        if cache is not None or self.decoder.cfg.moe_experts:
+            raise ValueError("blocks_chunks is a training-only layout (no cache/MoE)")
+        ends = {e - 1 for _, e in self.ranges}
+        missing = [l for l in sorted(set(tap_layers)) if l not in ends]
+        if missing:
+            raise ValueError(
+                f"tap layers {missing} do not land on chunk boundaries — build the layout "
+                "with stream_chunk_ranges(num_layers, n_chunks, tap_layers)")
+
+    def arm(self) -> None:
+        """Start a streamed forward and backward."""
+        self._pending = [len(seg) for seg in self.segments]
+        self._shipped = [False] * len(self.segments)
+        self._last = None
+        self.grads: Dict[str, torch.Tensor] = {}
+        self.sumsq: Dict[str, Tuple[torch.Tensor, torch.dtype]] = {}
+        self.armed = True
+
+    def _ready(self, p: torch.Tensor) -> None:
+        if not self.armed:
+            return
+        k = self._segment_of[id(p)]
+        self._pending[k] -= 1
+        if self._pending[k] == 0:
+            self._ship(k)
+
+    def _ship(self, k: int) -> None:
+        from visper_lm_tpu_torch.train.optimizer import leaf_sumsq
+
+        seg = self.segments[k]
+        grads = [(n, p.grad if p.grad is not None else torch.zeros_like(p)) for n, p in seg]
+        for n, g in grads:
+            self.sumsq[n] = (leaf_sumsq(g), g.dtype)
+        if self.device.type != "cuda":
+            self.grads.update(grads)
+        else:
+            compute = torch.cuda.current_stream(self.device)
+            if self._last is not None:
+                compute.wait_event(self._last)       # the previous segment's copies first
+            self.side.wait_stream(compute)
+            with torch.cuda.stream(self.side):
+                for n, g in grads:
+                    self.host[n].copy_(g, non_blocking=True)
+                    g.record_stream(self.side)
+                self._last = torch.cuda.Event()
+                self._last.record(self.side)
+            self.grads.update((n, self.host[n]) for n, _ in grads)
+        for _, p in seg:
+            p.grad = None
+        self._shipped[k] = True
+
+    def collect(self) -> Tuple[Dict[str, torch.Tensor], Dict[str, Tuple[torch.Tensor, torch.dtype]]]:
+        """End the backward: ship what is left (a parameter the loss did not
+        reach gets zeros), make the step's stream wait for every copy, disarm.
+        Returns (grads, sums)."""
+        for k in range(len(self.segments)):
+            if not self._shipped[k]:
+                self._ship(k)
+        if self._last is not None:
+            torch.cuda.current_stream(self.device).wait_event(self._last)
+        self.armed = False
+        return self.grads, self.sumsq
+
+    def close(self) -> None:
+        """Remove the hooks and release the host buffers."""
+        for h in self._hooks:
+            h.remove()
+        self._hooks = []
+        if self.decoder.grad_stream is self:
+            self.decoder.grad_stream = None
+        self.host, self.pool = {}, None
 
 
 def _quantized(linear: nn.Linear, mode: str, rms: Optional[torch.Tensor]) -> nn.Module:

@@ -5,7 +5,7 @@ for the reference's launch scripts, with the JAX CLI's flags and stages.
   finetune (IFT)                recipes/finetune.args, recipes/vpt_ift.args
   vpt                           recipes/vpt.args
   probe                         recipes/probe.args
-  pretrain_full                 recipes/pretrain_full.args (needs items 7-8)
+  pretrain_full                 recipes/pretrain_full.args (needs item 8)
 
     python -m visper_lm_tpu_torch.train.cli @recipes/pretrain.args \\
         --data-path data.json --image-folder images --tokenizer fake-whitespace \\
@@ -15,9 +15,14 @@ A recipe file holds one '--flag value' per line with '#' comments; flags
 given after it override it. `--device` (default cuda) is where the model
 and the step run; the tests pass `--device cpu`. One device only: the
 multi-process flags (--coordinator, --num-processes, --process-id), a mesh
-(--dp / --tp other than 1), ZeRO (--zero-params, --zero-frozen), the
-offloaded optimizer state, sharded teachers and gradient streaming parse as
-in JAX and then raise NotImplementedError (ROADMAP queue A, items 7 and 8).
+(--dp / --tp other than 1), ZeRO (--zero-params, --zero-frozen) and sharded
+teachers parse as in JAX and then raise NotImplementedError (ROADMAP queue
+A, item 8). The one-device memory levers run: --offload-opt-state (the
+moments in host memory) and --stream-grads N (the decoder blocks'
+gradients to the host in N segments); IFT at Llama-3-8B on one 80 GB card:
+
+    python -m visper_lm_tpu_torch.train.cli @recipes/finetune.args \
+        --offload-opt-state --stream-grads 8 ...
 
 The model is made on the device from seed 0 (`init_vlm`); `--init-from`
 overlays an HF-layout checkpoint directory on it (`import_vlm`, each tensor
@@ -104,10 +109,12 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--dp", type=int, default=None)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--zero-params", action="store_true")
-    p.add_argument("--offload-opt-state", action="store_true")
+    p.add_argument("--offload-opt-state", action="store_true",
+                   help="optimizer moments in host memory (zero3_offload.json)")
     p.add_argument("--zero-frozen", action="store_true")
     p.add_argument("--shard-teachers", action="store_true")
-    p.add_argument("--stream-grads", type=int, default=0)
+    p.add_argument("--stream-grads", type=int, default=0,
+                   help="the decoder blocks' gradients to host memory in N segments")
     p.add_argument("--remat-policy", default=None,
                    help="remat save set (models/decoder.REMAT_POLICIES); none given: "
                         "every block rematerialised in full")
@@ -123,8 +130,8 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def unported_flags(args) -> List[str]:
-    """The flags asked for that need more than one device or host-memory
-    machinery the port does not have yet."""
+    """The flags asked for that need more than one device (ROADMAP queue A,
+    item 8)."""
     asked = []
     if args.coordinator is not None:
         asked.append("--coordinator")
@@ -136,11 +143,9 @@ def unported_flags(args) -> List[str]:
         asked.append("--dp")
     if args.tp != 1:
         asked.append("--tp")
-    for flag in ("zero_params", "zero_frozen", "offload_opt_state", "shard_teachers"):
+    for flag in ("zero_params", "zero_frozen", "shard_teachers"):
         if getattr(args, flag):
             asked.append("--" + flag.replace("_", "-"))
-    if args.stream_grads:
-        asked.append("--stream-grads")
     return asked
 
 
@@ -279,8 +284,8 @@ def main(argv: Optional[Sequence[str]] = None):
     asked = unported_flags(args)
     if asked:
         raise NotImplementedError(
-            f"{', '.join(asked)}: multi-device and host-offload training are not ported yet "
-            "(ROADMAP queue A, items 7 and 8); the port trains on one device")
+            f"{', '.join(asked)}: multi-device training is not ported yet "
+            "(ROADMAP queue A, item 8); the port trains on one device")
 
     from visper_lm_tpu_torch.config import tiny_test_vlm
     from visper_lm_tpu_torch.data.dataset import RAW_IMAGES, BatchIterator, DataConfig, SupervisedDataset
@@ -369,6 +374,8 @@ def main(argv: Optional[Sequence[str]] = None):
         logging_steps=args.logging_steps,
         remat_policy=args.remat_policy,
         grad_accum_steps=args.gradient_accumulation_steps,
+        offload_opt_state=args.offload_opt_state,
+        stream_grads=args.stream_grads,
         device=args.device,
     )
     return train(cfg, opt_cfg, trainer_cfg, model, prefetched_iter,

@@ -3,8 +3,11 @@
 
 The stage policies are the JAX package's regexes, matched on JAX-style paths
 built from the port's parameter names (`jax_path`). The update is plain torch
-written to follow optax's arithmetic (clip_by_global_norm -> scale_by_adam ->
-add_decayed_weights -> scale_by_learning_rate -> apply_updates):
+written to follow optax's arithmetic as XLA runs it jitted on the CPU
+(clip_by_global_norm -> scale_by_adam -> add_decayed_weights ->
+scale_by_learning_rate -> apply_updates), one tensor at a time in
+`adam_leaf_update`, which the on-card `AdamW` and the offloaded update
+(train/staged_update.py) share:
 
   * the learning rate of update n (0-based) is schedule(n): a linear warmup
     from 0 over max(int(warmup_ratio * total_steps), 1) steps, then a cosine
@@ -12,14 +15,17 @@ add_decayed_weights -> scale_by_learning_rate -> apply_updates):
   * clipping by the global norm has no epsilon (unlike `clip_grad_norm_`),
     and each lr group (base / projector / vision) is clipped by its own
     norm, as optax.multi_transform runs one chain per group;
-  * the moments are f32 whatever the parameter dtype (optax keeps the first
-    moment in `mu_dtype` f32 and the second in the parameter dtype: the two
-    agree for f32 parameters); the bias corrections 1 - b^n are computed in
-    f32, as optax does;
-  * the weight decay constant takes the parameter's dtype, as optax's weakly
-    typed scalar does (bf16(0.1) = 0.10009766 for a bf16 parameter), and
-    multiplies the parameter in f32;
-  * the f32 update is added to the parameter and the sum rounded to its dtype;
+  * the first moment is kept in `mu_dtype`, the second in the parameter's
+    dtype, as optax's `scale_by_adam` keeps them (bf16 for a bf16 parameter:
+    6 bytes a trainable with an f32 first moment);
+  * every operation rounds to the dtype optax's type promotion gives it
+    (Python constants take the other operand's dtype: bf16(0.9) = 0.8984375,
+    bf16(0.999) = 1), except where its result is at once widened to f32 by
+    a mixed-dtype operation: XLA keeps that intermediate in f32. XLA also
+    rewrites (mu / bc1) / (sqrt(nu_hat) + eps) as mu / (bc1 x (...)) where
+    the first moment is f32. The bias corrections 1 - b^n are f32;
+  * the global norm is optax's: each gradient's sum of squares in f32,
+    rounded to its dtype, the sums added in their promoted dtype;
   * with `master_weights` (JAX `with_master_weights`, last in the chain) the
     update goes to an f32 copy of each trainable instead, and the parameter
     becomes that copy rounded to its dtype. (JAX emits the delta
@@ -33,14 +39,12 @@ from __future__ import annotations
 import dataclasses
 import math
 import re
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from visper_lm_tpu_torch.utils.param import (
-    jax_path,
-)
+from visper_lm_tpu_torch.utils.param import jax_path, torch_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,12 +127,118 @@ def cosine_schedule(cfg: OptimizerConfig, peak_lr: float):
     return schedule
 
 
+def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An f32 value as an operation in `dtype` stores it, widened back to f32."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
+def _weak(value: float, dtype: torch.dtype) -> float:
+    """A Python constant as optax's weakly typed scalar takes `dtype`."""
+    return float(torch.tensor(value, dtype=torch.float64).to(dtype))
+
+
+def _fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """a x b + c rounded once to f32, as XLA's CPU code contracts a product
+    into the add that consumes it (a fused multiply-add): the f32 product is
+    exact in f64."""
+    return (a.double() * b + c.double()).float()
+
+
+def bias_correction(b: float, count: int) -> float:
+    """optax's 1 - b^count, in f32: in double it differs by up to 1e-5
+    relative (the subtraction cancels)."""
+    return float(np.float32(1.0) - np.float32(b) ** np.float32(count))
+
+
+def leaf_sumsq(g: torch.Tensor) -> torch.Tensor:
+    """One gradient's share of optax.global_norm: its squares summed in f32
+    and rounded to its dtype (as f32, 0-d)."""
+    return _rounded(g.float().square().sum(), g.dtype)
+
+
+def combine_norm(parts: Sequence[Tuple[torch.Tensor, torch.dtype]]) -> Tuple[torch.Tensor, torch.dtype]:
+    """optax.global_norm from its leaves' (`leaf_sumsq`, dtype), in the tree's
+    order: summed in the promoted dtype, rounded after each add, and the root
+    rounded to it. Returns (norm as f32, its dtype)."""
+    total, dtype = None, None
+    for s, dt in parts:
+        if total is None:
+            total, dtype = s, dt
+        else:
+            dtype = torch.promote_types(dtype, dt)
+            total = _rounded(total + s, dtype)
+    if total is None:
+        return torch.zeros(()), torch.float32
+    return _rounded(total.sqrt(), dtype), dtype
+
+
+@torch.no_grad()
+def adam_leaf_update(
+    p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+    master: Optional[torch.Tensor], cfg: OptimizerConfig, *,
+    norm: torch.Tensor, norm_dtype: torch.dtype, lr: float, count: int, decay: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """One tensor's optax update (a whole parameter or a block of rows of
+    it): clip by its group's global norm `norm` (`combine_norm`), the moments,
+    the bias corrections of update `count` (1-based), weight decay where
+    `decay`, the step of `lr`. Returns (new p, new mu, new nu, new master or
+    None) in the dtypes of p, mu, nu and master."""
+    pd, md = p.dtype, mu.dtype
+    mres = torch.promote_types(pd, md)                # the first moment's sum
+    gf = g.float()
+    # clip_by_global_norm: t / norm.astype(t.dtype) * max_norm unless norm < max_norm
+    clipped = _rounded(gf / _rounded(norm, pd), pd)
+    if cfg.max_grad_norm != 1.0:
+        clipped = _rounded(clipped * _weak(cfg.max_grad_norm, pd), pd)
+    g = torch.where(norm < _weak(cfg.max_grad_norm, norm_dtype), gf, clipped)
+    # mu: (1 - b1) g + b1 mu, each product kept in f32 where the sum widens it
+    # (which product XLA fuses into the add is its choice, read off its results)
+    c1, d1 = _weak(1.0 - cfg.b1, pd), _weak(cfg.b1, md)
+    if mres != torch.float32:
+        mu_sum = _rounded(_rounded(g * c1, pd) + _rounded(mu.float() * d1, md), mres)
+    elif pd == torch.float32:
+        mu_sum = _fma(g, c1, mu.float() * d1)
+    else:
+        mu_sum = _fma(mu.float(), d1, g * c1)         # g x c1 is exact in f32
+    # nu in the parameter's dtype, every step rounded to it
+    c2, d2 = _weak(1.0 - cfg.b2, pd), _weak(cfg.b2, pd)
+    if pd == torch.float32:
+        nu_new = _fma(nu, d2, g.square() * c2)
+    else:
+        nu_new = _rounded(_rounded(_rounded(g.square(), pd) * c2, pd)
+                          + _rounded(nu.float() * d2, pd), pd)
+    bc1, bc2 = bias_correction(cfg.b1, count), bias_correction(cfg.b2, count)
+    root = _rounded(_rounded(nu_new / _weak(bc2, pd), pd).sqrt(), pd)
+    if mres == torch.float32:
+        # XLA: (mu / bc1) / (root + eps) -> mu / (bc1 (root + eps)); root + eps
+        # widens into the f32 division, so it stays f32
+        u = mu_sum / (bc1 * (root + _weak(cfg.eps, pd)))
+        if decay and cfg.weight_decay:
+            u = _fma(p.float(), _weak(cfg.weight_decay, pd), u)
+        u = u * float(np.float32(-lr))
+    else:
+        # an all-bf16 chain: every step rounds, the step size too
+        u = _rounded(_rounded(mu_sum / _weak(bc1, mres), mres)
+                     / _rounded(root + _weak(cfg.eps, pd), pd), mres)
+        if decay and cfg.weight_decay:
+            u = _rounded(u + _rounded(p.float() * _weak(cfg.weight_decay, pd), pd), mres)
+        u = _rounded(u * _weak(-lr, mres), mres)
+    if master is None:
+        return (p.float() + u).to(pd), mu_sum.to(md), nu_new.to(nu.dtype), None
+    new_master = master + u
+    return new_master.to(pd), mu_sum.to(md), nu_new.to(nu.dtype), new_master
+
+
+def jax_leaf_order(names: Iterable[str]) -> List[str]:
+    """Names in the order of the JAX tree's leaves (sorted paths), the order
+    optax.global_norm adds them in."""
+    return sorted(names, key=lambda n: (jax_path(n), n))
+
+
 class AdamW:
     """optax adamw (+ clip_by_global_norm) over named parameters, in place."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], cfg: OptimizerConfig):
-        if cfg.mu_dtype != "float32":
-            raise NotImplementedError("the port keeps its moments in f32")
         self.cfg = cfg
         self.params = dict(named_params)
         groups = lr_group_labels(self.params.items(), cfg, cfg.stage)
@@ -140,13 +250,19 @@ class AdamW:
         self.schedules = {g: cosine_schedule(cfg, lr) for g, lr in peaks.items()}
         self.group = {n: groups[n] for n in self.params}
         self.decay = decay_mask(self.params.items())
-        self.mu = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in self.params.items()}
-        self.nu = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in self.params.items()}
+        self.mu_dtype = torch_dtype(cfg.mu_dtype)
+        self.count = 0
+        self.init_state()
+
+    def init_state(self) -> None:
+        """The moments at zero (mu in `mu_dtype`, nu in each parameter's
+        dtype) and the f32 master copies, beside the parameters."""
+        self.mu = {n: torch.zeros_like(p, dtype=self.mu_dtype) for n, p in self.params.items()}
+        self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
         self.master = (
             {n: p.detach().float().clone() for n, p in self.params.items()}
-            if cfg.master_weights else None
+            if self.cfg.master_weights else None
         )
-        self.count = 0
 
     def state_tensors(self) -> Dict[str, torch.Tensor]:
         """The state as flat {"mu/<name>", "nu/<name>", "master/<name>"} tensors
@@ -159,52 +275,44 @@ class AdamW:
 
     @torch.no_grad()
     def load_state_tensors(self, tensors: Dict[str, torch.Tensor], count: int) -> None:
-        """Copy a `state_tensors` dict (and the update count) into this state."""
+        """Copy a `state_tensors` dict (and the update count) into this state;
+        each tensor is cast to the state's dtype (a checkpoint with an f32
+        second moment loads into a bf16 one)."""
         for key, dst in self.state_tensors().items():
             if key not in tensors:
                 raise KeyError(f"optimizer state has no {key!r}")
             dst.copy_(torch.as_tensor(tensors[key]))
         self.count = int(count)
 
+    def trained(self) -> List[str]:
+        """The names this optimizer updates, in the JAX tree's leaf order."""
+        return jax_leaf_order(n for n in self.params if self.group[n] != "frozen")
+
     @torch.no_grad()
-    def step(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def step(self, grads: Dict[str, torch.Tensor],
+             sumsq: Optional[Dict[str, Tuple[torch.Tensor, torch.dtype]]] = None) -> torch.Tensor:
         """Apply one update from {name: grad} (every parameter needs a grad;
-        pass zeros for unused ones). Returns the pre-clip global norm (f32)."""
-        cfg = self.cfg
-        names = [n for n in self.params if self.group[n] != "frozen"]
-        # each gradient is widened to f32 where it is used, one at a time: a
-        # whole f32 copy of them (4 bytes a trainable) would outweigh the step
-        sq = {n: grads[n].float().square().sum() for n in names}
-        gnorm = torch.sqrt(sum(sq.values()))
+        pass zeros for unused ones; `sumsq` may hold some gradients'
+        `leaf_sumsq`, taken where they were made). Returns the pre-clip
+        global norm (f32)."""
+        names = self.trained()
+        sq = {n: (sumsq or {}).get(n) or (leaf_sumsq(grads[n]), grads[n].dtype) for n in names}
         # each lr group is its own optax chain: clipped by its own global norm
-        clip = {}
-        for group in set(self.group[n] for n in names):
-            norm = torch.sqrt(sum(sq[n] for n in names if self.group[n] == group))
-            clip[group] = torch.where(
-                norm < cfg.max_grad_norm, torch.ones_like(norm), cfg.max_grad_norm / norm
-            )
+        norms = {group: combine_norm([sq[n] for n in names if self.group[n] == group])
+                 for group in set(self.group[n] for n in names)}
         self.count += 1
-        # optax's bias corrections, 1 - b^count in f32: in double they differ
-        # from its by up to 1e-5 relative (the subtraction cancels)
-        n = np.float32(self.count)
-        bc1 = float(np.float32(1.0) - np.float32(cfg.b1) ** n)
-        bc2 = float(np.float32(1.0) - np.float32(cfg.b2) ** n)
         for n in names:
-            p, g = self.params[n], grads[n].float() * clip[self.group[n]]
-            mu, nu = self.mu[n], self.nu[n]
-            mu.mul_(cfg.b1).add_(g, alpha=1.0 - cfg.b1)
-            nu.mul_(cfg.b2).add_(g.square(), alpha=1.0 - cfg.b2)
-            upd = (mu / bc1) / ((nu / bc2).sqrt() + cfg.eps)
-            if cfg.weight_decay and self.decay[n]:
-                # optax's weakly typed weight decay takes p's dtype: bf16(0.1)
-                # for a bf16 parameter, times p in f32
-                wd = float(torch.tensor(cfg.weight_decay, dtype=p.dtype))
-                upd = upd + wd * p.float()
-            lr = self.schedules[self.group[n]](self.count - 1)
-            if self.master is None:
-                p.copy_((p.float() - lr * upd).to(p.dtype))
-            else:
-                master = self.master[n]
-                master.sub_(lr * upd)
-                p.copy_(master.to(p.dtype))
-        return gnorm
+            p = self.params[n]
+            norm, norm_dtype = norms[self.group[n]]
+            new_p, new_mu, new_nu, new_master = adam_leaf_update(
+                p, grads[n], self.mu[n], self.nu[n],
+                None if self.master is None else self.master[n], self.cfg,
+                norm=norm, norm_dtype=norm_dtype, lr=self.schedules[self.group[n]](self.count - 1),
+                count=self.count, decay=self.decay[n],
+            )
+            p.copy_(new_p)
+            self.mu[n].copy_(new_mu)
+            self.nu[n].copy_(new_nu)
+            if self.master is not None:
+                self.master[n].copy_(new_master)
+        return combine_norm([sq[n] for n in names])[0]

@@ -13,8 +13,14 @@ the step count: `step(batch) -> metrics` runs forward, backward and the
 update, over `accum_steps` micro-batches when that is above 1 (JAX
 `make_step_fn`).
 
-ZeRO, the offloaded optimizer state, gradient streaming, sharded teachers
-and meshes of more than one device are not ported: asking for them raises.
+The memory levers of one device (JAX's): `offload_opt_state` keeps the
+moments (and master weights) in host memory and streams them through the
+card block by block (train/staged_update.py; `blockwise_staging=False` is
+whole-tree staging); `stream_grads=N` cuts the decoder blocks into N
+segments (unioned with the tap boundaries) whose weight gradients leave
+for the host as each segment's backward ends (models/decoder.GradStream).
+ZeRO, sharded teachers and meshes of more than one device wait for
+ROADMAP queue A item 8: asking for them raises.
 """
 
 from __future__ import annotations
@@ -25,9 +31,11 @@ import torch
 import torch.nn as nn
 
 from visper_lm_tpu_torch.config import VLMConfig
-from visper_lm_tpu_torch.models.vlm import VLM, predict_task_embeddings, vlm_forward
+from visper_lm_tpu_torch.models.decoder import GradStream, stream_chunk_ranges
+from visper_lm_tpu_torch.models.vlm import VLM, predict_task_embeddings, tap_layer_union, vlm_forward
 from visper_lm_tpu_torch.train.losses import distill_losses, ntp_loss, ntp_loss_chunked
 from visper_lm_tpu_torch.train.optimizer import AdamW, OptimizerConfig, trainable_mask
+from visper_lm_tpu_torch.train.staged_update import OffloadedAdamW
 
 TeacherFn = Callable[[nn.ModuleDict, Dict[str, Any]], Dict[str, torch.Tensor]]
 
@@ -96,7 +104,7 @@ class TrainStep:
 
     def __init__(self, model: VLM, teacher_params: Optional[nn.ModuleDict],
                  trainable: Dict[str, nn.Parameter], optimizer: AdamW, loss_fn,
-                 accum_steps: int = 1):
+                 accum_steps: int = 1, grad_stream: Optional[GradStream] = None):
         self.model = model
         self.teacher_params = teacher_params
         self.device = next(model.parameters()).device
@@ -104,6 +112,10 @@ class TrainStep:
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.accum_steps = accum_steps
+        self.grad_stream = grad_stream
+        self.grad_sums: Dict[str, Tuple[torch.Tensor, torch.dtype]] = {}
+        # CUDA events around the last update (`update_ms`)
+        self._update_events: Optional[Tuple[torch.cuda.Event, torch.cuda.Event]] = None
         self.step = 0
 
     def to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -132,14 +144,19 @@ class TrainStep:
     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         """Forward and backward of one micro-batch without an update:
         (metrics as tensors, {trainable name: grad}); a trainable the loss
-        does not reach gets zeros."""
+        does not reach gets zeros. With gradient streaming the decoder
+        blocks' gradients are host tensors, and their sums of squares are
+        left in `grad_sums`."""
         batch = self.to_device(batch)
         for p in self.trainable.values():
             p.grad = None
+        if self.grad_stream is not None:
+            self.grad_stream.arm()
         total, metrics = self.loss_fn(self.model, batch, self.teacher_params)
         total.backward()
+        streamed, self.grad_sums = self.grad_stream.collect() if self.grad_stream else ({}, {})
         grads = {
-            n: p.grad if p.grad is not None else torch.zeros_like(p)
+            n: streamed[n] if n in streamed else p.grad if p.grad is not None else torch.zeros_like(p)
             for n, p in self.trainable.items()
         }
         for p in self.trainable.values():
@@ -172,9 +189,48 @@ class TrainStep:
             metrics, grads = self.accumulated_grads(batch)
         else:
             metrics, grads = self.loss_and_grads(batch)
-        metrics["grad_norm"] = self.optimizer.step(grads)
+        if self.device.type == "cuda":
+            self._update_events = (torch.cuda.Event(enable_timing=True),
+                                   torch.cuda.Event(enable_timing=True))
+            self._update_events[0].record()
+        metrics["grad_norm"] = self.optimizer.step(grads, self.grad_sums)
+        if self._update_events is not None:
+            self._update_events[1].record()
         self.step += 1
         return {k: float(v) for k, v in metrics.items()}
+
+    def update_ms(self) -> Optional[float]:
+        """The last optimizer update's time on the card (ms), None off CUDA."""
+        if self._update_events is None:
+            return None
+        self._update_events[1].synchronize()
+        return self._update_events[0].elapsed_time(self._update_events[1])
+
+
+def check_step_options(
+    device: torch.device, *, accum_steps: int = 1, zero_params: bool = False,
+    zero_frozen: bool = False, shard_teachers: bool = False, offload_opt_state: bool = False,
+    blockwise_staging: bool = True, stream_grads: int = 0,
+) -> None:
+    """The rules on the step's options, in one place (JAX make_train_step's asserts)."""
+    multi = [k for k, v in dict(zero_params=zero_params, zero_frozen=zero_frozen,
+                                shard_teachers=shard_teachers).items() if v]
+    if multi:
+        raise NotImplementedError(
+            f"make_train_step: {', '.join(multi)} need more than one device "
+            "(ROADMAP queue A, item 8)")
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, not {accum_steps}")
+    if stream_grads < 0:
+        raise ValueError(f"stream_grads must be >= 0, not {stream_grads}")
+    if stream_grads and accum_steps > 1:
+        raise ValueError("gradient streaming composes with single-microbatch steps only "
+                         "(the f32 accumulator would re-materialize the full grad tree)")
+    if stream_grads and device.type == "cuda" and not (offload_opt_state and blockwise_staging):
+        raise ValueError(
+            "--stream-grads on CUDA requires offload_opt_state=True and blockwise_staging=True: "
+            "the streamed dW lands in pinned host memory and only the blockwise staged update "
+            "can stage it back")
 
 
 def make_train_step(
@@ -191,32 +247,47 @@ def make_train_step(
     zero_frozen: bool = False,
     offload_opt_state: bool = False,
     shard_teachers: bool = False,
+    blockwise_staging: bool = True,
+    block_bytes: int = 256 << 20,
+    scan_chunks: bool = False,
     stream_grads: int = 0,
+    donate_params: bool = True,
 ) -> TrainStep:
     """The single-device step: `step(batch) -> metrics`. The model's
-    trainable parameters (by the stage's policy) are updated in place; every
-    other parameter, and the teachers, are frozen (`requires_grad_(False)`).
-    remat / remat_policy as JAX `make_loss_fn` (every block rematerialised by
-    default); accum_steps > 1 takes batches with a leading micro-batch axis.
-    ZeRO (zero_params, zero_frozen), offload_opt_state, shard_teachers and
-    stream_grads are multi-device or host-memory machinery the port does not
-    have: they raise."""
-    unported = dict(zero_params=zero_params, zero_frozen=zero_frozen,
-                    offload_opt_state=offload_opt_state, shard_teachers=shard_teachers,
-                    stream_grads=stream_grads)
-    asked = [k for k, v in unported.items() if v]
-    if asked:
-        raise NotImplementedError(f"make_train_step: {', '.join(asked)} not ported (one device)")
-    if accum_steps < 1:
-        raise ValueError(f"accum_steps must be >= 1, not {accum_steps}")
+    trainable parameters (by the stage's policy) are updated in place (JAX's
+    donate_params=True; the port has no other way, and False is accepted for
+    the signature); every other parameter, and the teachers, are frozen
+    (`requires_grad_(False)`). remat / remat_policy as JAX `make_loss_fn`
+    (every block rematerialised by default); accum_steps > 1 takes batches
+    with a leading micro-batch axis. offload_opt_state: `OffloadedAdamW`
+    (blockwise_staging, block_bytes, scan_chunks: its layout);
+    stream_grads=N: a `GradStream` over `stream_chunk_ranges(layers, N,
+    taps)`. `check_step_options` holds the rules; ZeRO (zero_params,
+    zero_frozen) and shard_teachers raise."""
+    device = next(model.parameters()).device
+    check_step_options(device, accum_steps=accum_steps, zero_params=zero_params,
+                       zero_frozen=zero_frozen, shard_teachers=shard_teachers,
+                       offload_opt_state=offload_opt_state,
+                       blockwise_staging=blockwise_staging, stream_grads=stream_grads)
     mask = trainable_mask(model.named_parameters(), opt_cfg.stage)
     trainable = {n: p for n, p in model.named_parameters() if mask[n]}
     for n, p in model.named_parameters():
         p.requires_grad_(mask[n])
     if teacher_params is not None:
         teacher_params.requires_grad_(False)
+    if offload_opt_state:
+        optimizer: AdamW = OffloadedAdamW(trainable.items(), opt_cfg, block_bytes=block_bytes,
+                                          scan_chunks=scan_chunks, blockwise=blockwise_staging)
+    else:
+        optimizer = AdamW(trainable.items(), opt_cfg)
+    if model.decoder.grad_stream is not None:
+        model.decoder.grad_stream.close()
+    stream = None
+    if stream_grads:
+        ranges = stream_chunk_ranges(cfg.decoder.num_layers, stream_grads, tap_layer_union(cfg))
+        stream = GradStream(model, ranges, device)
     return TrainStep(
-        model, teacher_params, trainable, AdamW(trainable.items(), opt_cfg),
+        model, teacher_params, trainable, optimizer,
         make_loss_fn(cfg, teacher_fn=teacher_fn, remat=remat, remat_policy=remat_policy),
-        accum_steps=accum_steps,
+        accum_steps=accum_steps, grad_stream=stream,
     )

@@ -16,9 +16,11 @@ visper_lm_tpu/train/trainer.py), on one device.
 
 The device is `TrainerConfig.device`, resolved by `resolve_device` (CUDA
 when None; no quiet CPU fallback) and it must hold the model. There is no
-mesh: a config asking for more than one device raises, as do ZeRO, the
-offloaded optimizer state, sharded teachers and gradient streaming (in
-`make_train_step`).
+mesh: a config asking for more than one device raises, as do ZeRO and
+sharded teachers (in `make_train_step`). The one-device memory levers pass
+through: `offload_opt_state` (the moments in host memory, the blockwise
+staged update) and `stream_grads` (the decoder blocks' gradients to the host
+per segment).
 """
 
 from __future__ import annotations
@@ -57,8 +59,9 @@ class TrainerConfig:
     # one device: dp / tp other than 1 raise
     dp: Optional[int] = None
     tp: int = 1
-    # ZeRO / offload / sharded teachers / gradient streaming: not ported (raise)
+    # ZeRO / sharded teachers: more than one device (raise)
     zero_params: bool = False
+    # the moments (and master weights) in host memory, staged per block
     offload_opt_state: bool = False
     zero_frozen: bool = False
     shard_teachers: bool = False
@@ -66,6 +69,7 @@ class TrainerConfig:
     remat_policy: Optional[str] = None
     # gradient accumulation: N host batches per optimizer update
     grad_accum_steps: int = 1
+    # N: the decoder blocks' gradients leave for the host in N segments
     stream_grads: int = 0
     resume: bool = True
     # device batches copied ahead of the step

@@ -26,6 +26,11 @@ out) in JAX, (in, out, kh, kw) in `nn.ConvTranspose2d`),
 `genpipe_from_jax_params` (the text encoder's stacked blocks unstacked).
 `module_to_jax_tree` is the way back: a module's JAX-layout tree, which
 `utils.param.save_tree_npz` writes as the JAX package's .npz bundles.
+
+A tree trained with JAX's gradient streaming holds its decoder blocks as
+`blocks_chunks` sub-stacks: every decoder entry point here stacks them
+back first (`normalize_stream_layout`, JAX's rule at its serving and export
+boundaries).
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ import torch.nn as nn
 
 from visper_lm_tpu_torch.config import DecoderConfig, VLMConfig
 from visper_lm_tpu_torch.device import resolve_device
-from visper_lm_tpu_torch.models.decoder import LINEAR_NAMES, Decoder
+from visper_lm_tpu_torch.models.decoder import LINEAR_NAMES, Decoder, normalize_stream_layout
 from visper_lm_tpu_torch.models.teachers import TeacherConfigs, build_teachers
 from visper_lm_tpu_torch.models.vlm import VLM
 from visper_lm_tpu_torch.utils.param import QuantLinear, to_numpy
@@ -120,6 +125,7 @@ def _convnext(sd: Dict[str, Any], prefix: str, tree: Dict[str, Any]) -> None:
 
 def decoder_tree_to_state_dict(tree: Dict[str, Any], num_layers: int) -> Dict[str, Any]:
     """A bare JAX decoder tree -> `Decoder` state-dict names (numpy values)."""
+    tree = normalize_stream_layout({"decoder": tree})["decoder"]
     sd: Dict[str, Any] = {}
     _flatten(sd, "", {k: v for k, v in tree.items() if k != "blocks"})
     _stacked(sd, ".blocks", tree["blocks"], num_layers)
@@ -142,6 +148,7 @@ def convnext_tree_to_state_dict(tree: Dict[str, Any]) -> Dict[str, Any]:
 
 def jax_tree_to_state_dict(tree: Dict[str, Any], cfg: VLMConfig) -> Dict[str, Any]:
     """Map the JAX VLM param tree onto the port's state_dict names (numpy values)."""
+    tree = normalize_stream_layout(tree)
     unknown = set(tree) - set(_VLM_SUBTREES)
     if unknown:
         raise NotImplementedError(f"param subtrees not ported yet: {sorted(unknown)}")
@@ -218,6 +225,7 @@ def from_jax_params(
     dtype=None keeps each leaf's dtype; otherwise floating leaves other than
     the quantization scales are cast."""
     device = resolve_device(device)
+    tree = normalize_stream_layout(tree)
     with torch.device("meta"):
         model = VLM(cfg)
         # the tree holds image_newline when JAX's init or importer put it there
@@ -239,6 +247,7 @@ def decoder_from_jax_params(
     take) on `device` (CUDA when None): stacked blocks unstacked, quantized
     linears as `QuantLinear`s, dtype as in `from_jax_params`."""
     device = resolve_device(device)
+    tree = normalize_stream_layout({"decoder": tree})["decoder"]
     with torch.device("meta"):
         decoder = Decoder(decoder_cfg)
         _quant_shells(decoder, tree)
