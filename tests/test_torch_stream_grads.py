@@ -160,6 +160,14 @@ def test_stream_grads_rules():
             tts.check_step_options(cpu, **kw)
 
 
+def test_donate_params_false_raises(jax_run):
+    """The port updates the trainables in place; it has no copying step, so
+    donate_params=False raises instead of being ignored."""
+    with pytest.raises(ValueError, match="donate_params=False"):
+        _port_step(jax_run["init"], tconfig.tiny_test_vlm(distill=False), donate_params=False)
+    _port_step(jax_run["init"], tconfig.tiny_test_vlm(distill=False), donate_params=True)
+
+
 def test_taps_must_end_segments():
     """With taps (distill, stage full) the step's segments are JAX's tap-aligned
     ranges and train as the plain step does; a tap that misses a segment

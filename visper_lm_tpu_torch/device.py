@@ -74,5 +74,7 @@ class HostPool:
 
     def __del__(self):
         if self._registered:
+            # no copy still queued on any stream may read or write the block
+            torch.cuda.synchronize(self.device)
             torch.cuda.cudart().cudaHostUnregister(self.buffer.ctypes.data)
             self._registered = False

@@ -648,7 +648,7 @@ class GradStream:
         self._shipped = [False] * len(self.segments)
         self._last = None
         self.grads: Dict[str, torch.Tensor] = {}
-        self.sumsq: Dict[str, Tuple[torch.Tensor, torch.dtype]] = {}
+        self.sumsq: Dict[str, torch.Tensor] = {}
         self.armed = True
 
     def _ready(self, p: torch.Tensor) -> None:
@@ -665,7 +665,7 @@ class GradStream:
         seg = self.segments[k]
         grads = [(n, p.grad if p.grad is not None else torch.zeros_like(p)) for n, p in seg]
         for n, g in grads:
-            self.sumsq[n] = (leaf_sumsq(g), g.dtype)
+            self.sumsq[n] = leaf_sumsq(g)
         if self.device.type != "cuda":
             self.grads.update(grads)
         else:
@@ -684,7 +684,7 @@ class GradStream:
             p.grad = None
         self._shipped[k] = True
 
-    def collect(self) -> Tuple[Dict[str, torch.Tensor], Dict[str, Tuple[torch.Tensor, torch.dtype]]]:
+    def collect(self) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         """End the backward: ship what is left (a parameter the loss did not
         reach gets zeros), make the step's stream wait for every copy, disarm.
         Returns (grads, sums)."""

@@ -16,8 +16,12 @@ port's evidence has two parts behind JAX's command line:
     (`params_gib_per_chip`, `opt_state_gib_per_chip`, ...);
   * `--run`: on the card, the model made from a seed, one warm-up step and
     one measured step of that configuration on a batch of full-length
-    sequences: `torch.cuda.max_memory_allocated` as `peak_hbm_gib`, the
-    page-locked host GiB, the step's and the update's ms.
+    sequences: what the allocator holds once the model and the optimizer
+    are set up as `resident_hbm_gib` (the reading the static weights and
+    on-card state are held to), `torch.cuda.max_memory_allocated` as
+    `peak_hbm_gib`, the page-locked host GiB, the step's and the update's
+    ms. The breakdown counts no activations: whether a configuration fits
+    is what `--run` shows, or its torch.OutOfMemoryError.
 
     python -m visper_lm_tpu_torch.train.aot --model llama3 --stage finetune \\
         --batch 4 --seq 4096 --offload-opt --stream-grads 8 [--run]
@@ -165,6 +169,7 @@ def run_step(cfg, *, stage: str, batch_size: int, seq_len: int, with_teachers: b
     cuda = dev.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
     model = init_vlm(cfg, device=dev, seed=0)
     weights = sum(_nbytes(p) for p in model.parameters())
     teacher_fn = teachers = None
@@ -181,6 +186,8 @@ def run_step(cfg, *, stage: str, batch_size: int, seq_len: int, with_teachers: b
                            scan_chunks=scan_chunks, stream_grads=stream_grads)
     opt = step.optimizer
     state_device = sum(_nbytes(t) for t in opt.state_tensors().values() if t.device == dev)
+    # the allocator's own count of what the set-up left on the card
+    resident = torch.cuda.memory_allocated(dev) - before if cuda else None
     batch = full_length_batch(cfg, batch_size, seq_len, with_teachers=with_teachers)
     losses, times = [], []
     for _ in range(2):
@@ -205,6 +212,7 @@ def run_step(cfg, *, stage: str, batch_size: int, seq_len: int, with_teachers: b
         "update_ms": step.update_ms(),
     }
     if cuda:
+        out["resident_hbm_gib"] = resident / GIB
         out["peak_hbm_gib"] = torch.cuda.max_memory_allocated(dev) / GIB
     if stream is not None:
         stream.close()

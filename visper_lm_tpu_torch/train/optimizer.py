@@ -2,12 +2,11 @@
 (counterpart of visper_lm_tpu/train/optimizer.py).
 
 The stage policies are the JAX package's regexes, matched on JAX-style paths
-built from the port's parameter names (`jax_path`). The update is plain torch
-written to follow optax's arithmetic as XLA runs it jitted on the CPU
-(clip_by_global_norm -> scale_by_adam -> add_decayed_weights ->
-scale_by_learning_rate -> apply_updates), one tensor at a time in
-`adam_leaf_update`, which the on-card `AdamW` and the offloaded update
-(train/staged_update.py) share:
+built from the port's parameter names (`jax_path`). The update is optax's
+chain (clip_by_global_norm -> scale_by_adam -> add_decayed_weights ->
+scale_by_learning_rate -> apply_updates) in plain torch ops, in place, one
+tensor at a time in `adam_leaf_update`, which the on-card `AdamW` and the
+offloaded update (train/staged_update.py) share:
 
   * the learning rate of update n (0-based) is schedule(n): a linear warmup
     from 0 over max(int(warmup_ratio * total_steps), 1) steps, then a cosine
@@ -18,14 +17,15 @@ scale_by_learning_rate -> apply_updates), one tensor at a time in
   * the first moment is kept in `mu_dtype`, the second in the parameter's
     dtype, as optax's `scale_by_adam` keeps them (bf16 for a bf16 parameter:
     6 bytes a trainable with an f32 first moment);
-  * every operation rounds to the dtype optax's type promotion gives it
-    (Python constants take the other operand's dtype: bf16(0.9) = 0.8984375,
-    bf16(0.999) = 1), except where its result is at once widened to f32 by
-    a mixed-dtype operation: XLA keeps that intermediate in f32. XLA also
-    rewrites (mu / bc1) / (sqrt(nu_hat) + eps) as mu / (bc1 x (...)) where
-    the first moment is f32. The bias corrections 1 - b^n are f32;
-  * the global norm is optax's: each gradient's sum of squares in f32,
-    rounded to its dtype, the sums added in their promoted dtype;
+  * what optax computes in the parameter's dtype is computed in it here,
+    each op rounding as its does: the clipped gradient, the second moment,
+    its bias correction, root and epsilon, the global norm's per-leaf sums
+    and their adds. Python constants take the other operand's dtype, as
+    optax's weakly typed scalars do (bf16(0.9) = 0.8984375, bf16(0.999) =
+    1). The first moment, the quotient and the step are f32 where mu is,
+    with 1 / bc1 folded into the step; the bias corrections 1 - b^n are f32.
+    On bf16 parameters this lands within an ulp of optax's jitted update
+    (tests/test_torch_staged_update.py states the bound);
   * with `master_weights` (JAX `with_master_weights`, last in the chain) the
     update goes to an f32 copy of each trainable instead, and the parameter
     becomes that copy rounded to its dtype. (JAX emits the delta
@@ -37,6 +37,7 @@ scale_by_learning_rate -> apply_updates), one tensor at a time in
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import re
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
@@ -127,21 +128,9 @@ def cosine_schedule(cfg: OptimizerConfig, peak_lr: float):
     return schedule
 
 
-def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """An f32 value as an operation in `dtype` stores it, widened back to f32."""
-    return x if dtype == torch.float32 else x.to(dtype).float()
-
-
 def _weak(value: float, dtype: torch.dtype) -> float:
     """A Python constant as optax's weakly typed scalar takes `dtype`."""
     return float(torch.tensor(value, dtype=torch.float64).to(dtype))
-
-
-def _fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
-    """a x b + c rounded once to f32, as XLA's CPU code contracts a product
-    into the add that consumes it (a fused multiply-add): the f32 product is
-    exact in f64."""
-    return (a.double() * b + c.double()).float()
 
 
 def bias_correction(b: float, count: int) -> float:
@@ -152,81 +141,63 @@ def bias_correction(b: float, count: int) -> float:
 
 def leaf_sumsq(g: torch.Tensor) -> torch.Tensor:
     """One gradient's share of optax.global_norm: its squares summed in f32
-    and rounded to its dtype (as f32, 0-d)."""
-    return _rounded(g.float().square().sum(), g.dtype)
+    (one read of g), as a 0-d tensor in its dtype."""
+    return torch.linalg.vector_norm(g, dtype=torch.float32).square().to(g.dtype)
 
 
-def combine_norm(parts: Sequence[Tuple[torch.Tensor, torch.dtype]]) -> Tuple[torch.Tensor, torch.dtype]:
-    """optax.global_norm from its leaves' (`leaf_sumsq`, dtype), in the tree's
-    order: summed in the promoted dtype, rounded after each add, and the root
-    rounded to it. Returns (norm as f32, its dtype)."""
-    total, dtype = None, None
-    for s, dt in parts:
-        if total is None:
-            total, dtype = s, dt
-        else:
-            dtype = torch.promote_types(dtype, dt)
-            total = _rounded(total + s, dtype)
-    if total is None:
-        return torch.zeros(()), torch.float32
-    return _rounded(total.sqrt(), dtype), dtype
+def combine_norm(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """optax.global_norm from its leaves' `leaf_sumsq`, in the tree's order:
+    added in their promoted dtype (each add rounds to it), then the root."""
+    if not parts:
+        return torch.zeros(())
+    return functools.reduce(torch.add, parts).sqrt()
+
+
+def clip_divisor(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """clip_by_global_norm as one division, t / clip_divisor: 1 where norm <
+    max_norm, else norm / max_norm (optax's t / norm x max_norm, the same
+    bytes for max_norm 1)."""
+    return torch.where(norm < max_norm, torch.ones_like(norm), norm / max_norm)
+
+
+def _add_scaled(acc: torch.Tensor, x: torch.Tensor, c: float) -> torch.Tensor:
+    """acc += c x, as optax's weakly typed c x: the product rounds to x's
+    dtype, unless acc is f32 and so widens it at once (XLA keeps it f32)."""
+    if acc.dtype == torch.float32:
+        return acc.add_(x, alpha=_weak(c, x.dtype))
+    return acc.add_(x * _weak(c, x.dtype))
 
 
 @torch.no_grad()
 def adam_leaf_update(
     p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
     master: Optional[torch.Tensor], cfg: OptimizerConfig, *,
-    norm: torch.Tensor, norm_dtype: torch.dtype, lr: float, count: int, decay: bool,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """One tensor's optax update (a whole parameter or a block of rows of
-    it): clip by its group's global norm `norm` (`combine_norm`), the moments,
-    the bias corrections of update `count` (1-based), weight decay where
-    `decay`, the step of `lr`. Returns (new p, new mu, new nu, new master or
-    None) in the dtypes of p, mu, nu and master."""
-    pd, md = p.dtype, mu.dtype
-    mres = torch.promote_types(pd, md)                # the first moment's sum
-    gf = g.float()
-    # clip_by_global_norm: t / norm.astype(t.dtype) * max_norm unless norm < max_norm
-    clipped = _rounded(gf / _rounded(norm, pd), pd)
-    if cfg.max_grad_norm != 1.0:
-        clipped = _rounded(clipped * _weak(cfg.max_grad_norm, pd), pd)
-    g = torch.where(norm < _weak(cfg.max_grad_norm, norm_dtype), gf, clipped)
-    # mu: (1 - b1) g + b1 mu, each product kept in f32 where the sum widens it
-    # (which product XLA fuses into the add is its choice, read off its results)
-    c1, d1 = _weak(1.0 - cfg.b1, pd), _weak(cfg.b1, md)
-    if mres != torch.float32:
-        mu_sum = _rounded(_rounded(g * c1, pd) + _rounded(mu.float() * d1, md), mres)
-    elif pd == torch.float32:
-        mu_sum = _fma(g, c1, mu.float() * d1)
-    else:
-        mu_sum = _fma(mu.float(), d1, g * c1)         # g x c1 is exact in f32
-    # nu in the parameter's dtype, every step rounded to it
-    c2, d2 = _weak(1.0 - cfg.b2, pd), _weak(cfg.b2, pd)
-    if pd == torch.float32:
-        nu_new = _fma(nu, d2, g.square() * c2)
-    else:
-        nu_new = _rounded(_rounded(_rounded(g.square(), pd) * c2, pd)
-                          + _rounded(nu.float() * d2, pd), pd)
+    clip: torch.Tensor, lr: float, count: int, decay: bool,
+) -> None:
+    """One tensor's optax update, in place (p, mu, nu and master: a whole
+    parameter or a block of rows of it): g clipped by its group's
+    `clip_divisor`, the moments, the bias corrections of update `count`
+    (1-based), weight decay where `decay`, the step of `lr`."""
+    pd = p.dtype
+    g = torch.div(g, clip.to(g.dtype))
+    _add_scaled(mu.mul_(_weak(cfg.b1, mu.dtype)), g, 1.0 - cfg.b1)
+    # nu = (1 - b2) g^2 + b2 nu in the parameter's dtype, each op rounding to
+    # it as optax's does (bf16(0.999) is 1)
+    d2 = _weak(cfg.b2, pd)
+    if d2 != 1.0:
+        nu.mul_(d2)
+    nu.add_(torch.mul(g, g).mul_(_weak(1.0 - cfg.b2, pd)))
     bc1, bc2 = bias_correction(cfg.b1, count), bias_correction(cfg.b2, count)
-    root = _rounded(_rounded(nu_new / _weak(bc2, pd), pd).sqrt(), pd)
-    if mres == torch.float32:
-        # XLA: (mu / bc1) / (root + eps) -> mu / (bc1 (root + eps)); root + eps
-        # widens into the f32 division, so it stays f32
-        u = mu_sum / (bc1 * (root + _weak(cfg.eps, pd)))
-        if decay and cfg.weight_decay:
-            u = _fma(p.float(), _weak(cfg.weight_decay, pd), u)
-        u = u * float(np.float32(-lr))
-    else:
-        # an all-bf16 chain: every step rounds, the step size too
-        u = _rounded(_rounded(mu_sum / _weak(bc1, mres), mres)
-                     / _rounded(root + _weak(cfg.eps, pd), pd), mres)
-        if decay and cfg.weight_decay:
-            u = _rounded(u + _rounded(p.float() * _weak(cfg.weight_decay, pd), pd), mres)
-        u = _rounded(u * _weak(-lr, mres), mres)
+    denom = torch.div(nu, _weak(bc2, pd)).sqrt_().add_(_weak(cfg.eps, pd))
+    u = torch.div(torch.div(mu, _weak(bc1, mu.dtype)), denom)
+    if decay and cfg.weight_decay:
+        _add_scaled(u, p, cfg.weight_decay)
+    u.mul_(_weak(float(np.float32(-lr)), u.dtype))
     if master is None:
-        return (p.float() + u).to(pd), mu_sum.to(md), nu_new.to(nu.dtype), None
-    new_master = master + u
-    return new_master.to(pd), mu_sum.to(md), nu_new.to(nu.dtype), new_master
+        p.add_(u)
+    else:
+        master.add_(u)
+        p.copy_(master)
 
 
 def jax_leaf_order(names: Iterable[str]) -> List[str]:
@@ -288,31 +259,39 @@ class AdamW:
         """The names this optimizer updates, in the JAX tree's leaf order."""
         return jax_leaf_order(n for n in self.params if self.group[n] != "frozen")
 
+    def norm_pass(self, names: List[str], grads: Dict[str, torch.Tensor],
+                  sumsq: Optional[Dict[str, torch.Tensor]] = None,
+                  ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """Each lr group's `clip_divisor` (each group is its own optax chain,
+        clipped by its own global norm) and the global norm over all (f32).
+        A gradient without its `leaf_sumsq` in `sumsq` is summed beside its
+        parameter."""
+        sq = {n: sumsq[n] if sumsq and n in sumsq
+              else leaf_sumsq(grads[n].to(self.params[n].device, non_blocking=True))
+              for n in names}
+        clips = {group: clip_divisor(combine_norm([sq[n] for n in names if self.group[n] == group]),
+                                     self.cfg.max_grad_norm)
+                 for group in set(self.group[n] for n in names)}
+        return clips, combine_norm([sq[n] for n in names]).float()
+
+    def leaf_kwargs(self, n: str, clips: Dict[str, torch.Tensor]) -> dict:
+        """`adam_leaf_update`'s keywords for parameter n in the current update."""
+        group = self.group[n]
+        return dict(clip=clips[group], lr=self.schedules[group](self.count - 1),
+                    count=self.count, decay=self.decay[n])
+
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor],
-             sumsq: Optional[Dict[str, Tuple[torch.Tensor, torch.dtype]]] = None) -> torch.Tensor:
+             sumsq: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """Apply one update from {name: grad} (every parameter needs a grad;
         pass zeros for unused ones; `sumsq` may hold some gradients'
         `leaf_sumsq`, taken where they were made). Returns the pre-clip
         global norm (f32)."""
         names = self.trained()
-        sq = {n: (sumsq or {}).get(n) or (leaf_sumsq(grads[n]), grads[n].dtype) for n in names}
-        # each lr group is its own optax chain: clipped by its own global norm
-        norms = {group: combine_norm([sq[n] for n in names if self.group[n] == group])
-                 for group in set(self.group[n] for n in names)}
+        clips, total = self.norm_pass(names, grads, sumsq)
         self.count += 1
         for n in names:
-            p = self.params[n]
-            norm, norm_dtype = norms[self.group[n]]
-            new_p, new_mu, new_nu, new_master = adam_leaf_update(
-                p, grads[n], self.mu[n], self.nu[n],
-                None if self.master is None else self.master[n], self.cfg,
-                norm=norm, norm_dtype=norm_dtype, lr=self.schedules[self.group[n]](self.count - 1),
-                count=self.count, decay=self.decay[n],
-            )
-            p.copy_(new_p)
-            self.mu[n].copy_(new_mu)
-            self.nu[n].copy_(new_nu)
-            if self.master is not None:
-                self.master[n].copy_(new_master)
-        return combine_norm([sq[n] for n in names])[0]
+            adam_leaf_update(self.params[n], grads[n], self.mu[n], self.nu[n],
+                             None if self.master is None else self.master[n], self.cfg,
+                             **self.leaf_kwargs(n, clips))
+        return total

@@ -15,20 +15,21 @@ where the state lives differs:
     the blocks (JAX's ChunkedHostArray / StackedHostArray exist so that XLA
     can stage a block; `scan_chunks` only makes the blocks uniform, as
     JAX's stacked layout does);
-  * `blockwise_staged_update` first takes each lr group's global norm.
-    Streamed gradients come with their sums of squares, taken on the card
-    before they left, so each crosses the host link once, in the update
-    loop (JAX stages them in for the norm too, and keeps the first 256 MiB
-    staged for the loop; here there is nothing to keep); a host gradient
-    without its sum is staged in for it, one at a time. Then it runs each
+  * `blockwise_staged_update` first takes each lr group's global norm
+    (`AdamW.norm_pass`). Streamed gradients come with their sums of
+    squares, taken on the card before they left, so each crosses the host
+    link once, in the update loop (JAX stages them in for the norm too, and
+    keeps the first 256 MiB staged for the loop; here there is nothing to
+    keep); a host gradient without its sum is staged in for it, one at a
+    time. Then it runs each
     block: mu, nu, master and the gradient come in on a
     host-to-device stream, the update runs in f32 on the card on the step's
     stream, and the new mu, nu and master go back on a device-to-host
     stream. Two slots of device buffers alternate, ordered by CUDA events:
     block k+1 comes in while block k computes and block k-1 goes out, and at
     most two blocks of state are on the card (JAX's token chain);
-  * `blockwise=False` is JAX's whole-tree staging: every offloaded tensor is
-    copied to the card, updated, and copied back.
+  * `blockwise=False` plans JAX's whole-tree staging layout, every tensor
+    one block (JAX keeps it as a compile A/B); the same loop runs it.
 
 On the CPU the "host" tensors are ordinary CPU tensors and every copy is the
 identity, as JAX's host put is a no-op off the TPU: the blocks are updated
@@ -44,13 +45,7 @@ from typing import Dict, Iterable, Iterator, List, Mapping, Optional, Sequence, 
 import torch
 
 from visper_lm_tpu_torch.device import HostPool
-from visper_lm_tpu_torch.train.optimizer import (
-    AdamW,
-    OptimizerConfig,
-    adam_leaf_update,
-    combine_norm,
-    leaf_sumsq,
-)
+from visper_lm_tpu_torch.train.optimizer import AdamW, OptimizerConfig, adam_leaf_update
 
 # None: on the card; a tuple of row ranges: on the host in those blocks;
 # the empty tuple: on the host, the whole tensor one block
@@ -72,7 +67,7 @@ def plan_offload_layout(
     `block_bytes` (and that has more than one row) gets ceil(bytes /
     block_bytes) row ranges; with `scan_chunks` the smallest count at least
     that which divides the rows (uniform blocks); chunk=False keeps every
-    tensor whole (the whole-tree staging path)."""
+    tensor whole (JAX's whole-tree staging layout)."""
     out: Dict[str, Placement] = {}
     for key, (shape, dtype) in shapes.items():
         shape = tuple(int(d) for d in shape)
@@ -119,8 +114,8 @@ def unchunk_state(chunked: Mapping[str, Sequence[torch.Tensor]]) -> Dict[str, to
 
 class OffloadedAdamW(AdamW):
     """`AdamW` whose moments and master weights live in host memory where
-    `plan_offload_layout` says, updated by `blockwise_staged_update` (or by
-    whole-tree staging, blockwise=False). Same constructor and checkpoint
+    `plan_offload_layout` says, updated by `blockwise_staged_update`
+    (blockwise=False: every tensor one block). Same constructor and checkpoint
     API as `AdamW`, plus the layout's knobs; `device` is where the
     parameters and the update are."""
 
@@ -189,26 +184,8 @@ class OffloadedAdamW(AdamW):
             torch.cuda.current_stream(self.device).synchronize()
 
     def step(self, grads: Dict[str, torch.Tensor],
-             sumsq: Optional[Dict[str, Tuple[torch.Tensor, torch.dtype]]] = None) -> torch.Tensor:
-        return blockwise_staged_update(self, grads, sumsq) if self.blockwise \
-            else whole_tree_staged_update(self, grads, sumsq)
-
-
-def _group_norms(opt: AdamW, names: List[str], grads: Mapping[str, torch.Tensor],
-                 sumsq: Optional[Mapping[str, Tuple[torch.Tensor, torch.dtype]]],
-                 ) -> Tuple[Dict[str, Tuple[torch.Tensor, torch.dtype]], torch.Tensor]:
-    """The norm pass: per lr group (and over all) optax's global norm, from
-    the sums given and, for a gradient without one, its sum on the card."""
-    sq = {}
-    for n in names:
-        if sumsq is not None and n in sumsq:
-            sq[n] = sumsq[n]
-        else:
-            g = grads[n].to(opt.device, non_blocking=True)
-            sq[n] = (leaf_sumsq(g), g.dtype)
-    norms = {group: combine_norm([sq[n] for n in names if opt.group[n] == group])
-             for group in set(opt.group[n] for n in names)}
-    return norms, combine_norm([sq[n] for n in names])[0]
+             sumsq: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        return blockwise_staged_update(self, grads, sumsq)
 
 
 def _block_bytes(t: torch.Tensor, s: Optional[int], e: Optional[int]) -> int:
@@ -256,14 +233,14 @@ def _carve(buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def blockwise_staged_update(
     opt: OffloadedAdamW, grads: Dict[str, torch.Tensor],
-    sumsq: Optional[Dict[str, Tuple[torch.Tensor, torch.dtype]]] = None,
+    sumsq: Optional[Dict[str, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """One update of `opt` from {name: grad} (on the card, or on the host
     from gradient streaming, with their sums in `sumsq`), streaming the
     offloaded state through the card block by block. Returns the global
     norm (f32), as `AdamW.step` does."""
     names = opt.trained()
-    norms, total = _group_norms(opt, names, grads, sumsq)
+    clips, total = opt.norm_pass(names, grads, sumsq)
     opt.count += 1
     cuda = opt.device.type == "cuda"
     compute = torch.cuda.current_stream(opt.device) if cuda else None
@@ -274,9 +251,7 @@ def blockwise_staged_update(
     for n in names:
         p, g = opt.params[n], grads[n]
         master = None if opt.master is None else opt.master[n]
-        norm, norm_dtype = norms[opt.group[n]]
-        kw = dict(norm=norm, norm_dtype=norm_dtype, lr=opt.schedules[opt.group[n]](opt.count - 1),
-                  count=opt.count, decay=opt.decay[n])
+        kw = opt.leaf_kwargs(n, clips)
         for s, e in _blocks(_placement(opt, n)):
             host = {kind: _rows(t, s, e) for kind, t in (("mu", opt.mu[n]), ("nu", opt.nu[n]),
                                                          ("master", master))
@@ -297,13 +272,8 @@ def blockwise_staged_update(
                     ready = torch.cuda.Event()
                     ready.record(opt._h2d)
                 compute.wait_event(ready)
-            new_p, new_mu, new_nu, new_master = adam_leaf_update(
-                _rows(p, s, e), gb, dev["mu"], dev["nu"], dev.get("master"), opt.cfg, **kw)
-            _rows(p, s, e).copy_(new_p)
-            dev["mu"].copy_(new_mu)
-            dev["nu"].copy_(new_nu)
-            if master is not None:
-                dev["master"].copy_(new_master)
+            adam_leaf_update(_rows(p, s, e), gb, dev["mu"], dev["nu"], dev.get("master"),
+                             opt.cfg, **kw)
             if uses_slot:
                 done = torch.cuda.Event()
                 done.record(compute)
@@ -318,34 +288,4 @@ def blockwise_staged_update(
     if cuda:
         # the next step's first reads of the host state come after these writes
         opt._h2d.wait_stream(opt._d2h)
-    return total
-
-
-@torch.no_grad()
-def whole_tree_staged_update(
-    opt: OffloadedAdamW, grads: Dict[str, torch.Tensor],
-    sumsq: Optional[Dict[str, Tuple[torch.Tensor, torch.dtype]]] = None,
-) -> torch.Tensor:
-    """JAX's A/B path (blockwise_staging=False): every offloaded tensor
-    copied to the card whole, the update, and every one copied back."""
-    names = opt.trained()
-    norms, total = _group_norms(opt, names, grads, sumsq)
-    opt.count += 1
-    state = opt.state_tensors()
-    on_card = {k: t.to(opt.device, non_blocking=True) for k, t in state.items()}
-    for n in names:
-        g = grads[n].to(opt.device, non_blocking=True)
-        norm, norm_dtype = norms[opt.group[n]]
-        master = on_card.get(f"master/{n}")
-        new = adam_leaf_update(
-            opt.params[n], g, on_card[f"mu/{n}"], on_card[f"nu/{n}"], master, opt.cfg,
-            norm=norm, norm_dtype=norm_dtype, lr=opt.schedules[opt.group[n]](opt.count - 1),
-            count=opt.count, decay=opt.decay[n])
-        opt.params[n].copy_(new[0])
-        for kind, t in zip(("mu", "nu", "master"), new[1:]):
-            if t is not None:
-                on_card[f"{kind}/{n}"].copy_(t)
-    for k, t in state.items():
-        if t is not on_card[k]:
-            t.copy_(on_card[k])
     return total

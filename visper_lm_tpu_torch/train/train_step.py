@@ -15,8 +15,8 @@ update, over `accum_steps` micro-batches when that is above 1 (JAX
 
 The memory levers of one device (JAX's): `offload_opt_state` keeps the
 moments (and master weights) in host memory and streams them through the
-card block by block (train/staged_update.py; `blockwise_staging=False` is
-whole-tree staging); `stream_grads=N` cuts the decoder blocks into N
+card block by block (train/staged_update.py; `blockwise_staging=False`
+plans every tensor as one block, JAX's whole-tree staging layout); `stream_grads=N` cuts the decoder blocks into N
 segments (unioned with the tap boundaries) whose weight gradients leave
 for the host as each segment's backward ends (models/decoder.GradStream).
 ZeRO, sharded teachers and meshes of more than one device wait for
@@ -113,7 +113,7 @@ class TrainStep:
         self.loss_fn = loss_fn
         self.accum_steps = accum_steps
         self.grad_stream = grad_stream
-        self.grad_sums: Dict[str, Tuple[torch.Tensor, torch.dtype]] = {}
+        self.grad_sums: Dict[str, torch.Tensor] = {}
         # CUDA events around the last update (`update_ms`)
         self._update_events: Optional[Tuple[torch.cuda.Event, torch.cuda.Event]] = None
         self.step = 0
@@ -255,8 +255,8 @@ def make_train_step(
 ) -> TrainStep:
     """The single-device step: `step(batch) -> metrics`. The model's
     trainable parameters (by the stage's policy) are updated in place (JAX's
-    donate_params=True; the port has no other way, and False is accepted for
-    the signature); every other parameter, and the teachers, are frozen
+    donate_params=True; the port has no copying path, so False raises);
+    every other parameter, and the teachers, are frozen
     (`requires_grad_(False)`). remat / remat_policy as JAX `make_loss_fn`
     (every block rematerialised by default); accum_steps > 1 takes batches
     with a leading micro-batch axis. offload_opt_state: `OffloadedAdamW`
@@ -264,6 +264,9 @@ def make_train_step(
     stream_grads=N: a `GradStream` over `stream_chunk_ranges(layers, N,
     taps)`. `check_step_options` holds the rules; ZeRO (zero_params,
     zero_frozen) and shard_teachers raise."""
+    if not donate_params:
+        raise ValueError("make_train_step updates the parameters in place: "
+                         "donate_params=False has no counterpart in the port")
     device = next(model.parameters()).device
     check_step_options(device, accum_steps=accum_steps, zero_params=zero_params,
                        zero_frozen=zero_frozen, shard_teachers=shard_teachers,
