@@ -284,6 +284,47 @@ Phases, each of which raises (exit code != 0) when it fails:
      allocator's reading once its run had set them up (the breakdown counts
      no activations: the OOM of (c) is what shows the configuration without
      the levers does not fit).
+ 16. data parallelism and ZeRO (every record with the card's name and power
+     limit; the kernels are built by phase 2, before any rank starts): the
+     one-process PT step of config #1 (Phi3-mini-4k + CLIP-L, teachers in
+     the step, B4 x T1024, save_gate, lr 1e-3 without warmup) from seeds,
+     3 updates on 3 batches (update 1 has lr 0, as the schedule gives it;
+     2 and 3 lr 1e-3, so the moments mix two batches' gradients and the
+     last loss is taken after a real update); (a) the same step in a
+     one-rank NCCL group (`init_distributed`, `make_train_step(mesh=...)`):
+     losses within rtol 1e-5 and trainables within rtol 1e-4 / atol 1e-6 of
+     the step without a group, bit-equality reported, B1 64 / B2 32 / B3 32
+     / B4 48 a step; then the tolerance of two bf16 runs, from an f32 run of
+     the student (plain attention, the port's AdamW in f32) from the same
+     weights on the same batches: each loss's, the step-1 gradients' and
+     the parameter moves' (p - p0) distance from the bf16 run, with two
+     checks that the bounds below can fail (the last loss moves more than
+     3 x its tolerance; the moves' bounds stay under 0.75, where a move of
+     0 is at 1); (b) two ranks (`chip_smoke.py --phase16-rank`) share the
+     card over gloo (it carries CUDA tensors by staging each collective
+     through host memory; NCCL refuses two ranks on one GPU), each its 2
+     rows of each global batch, as plain dp, zero_frozen and zero_params:
+     each loss within 2 x the bf16-vs-f32 distance + 1e-4 relative of the
+     one-process step's; the step-1 gradients as the optimizer's own
+     `reduce_grads` leaves them (the ranks' reduce-scattered slices put
+     side by side, an all-reduced leaf bit-equal on both ranks; a strided
+     sample of 65,536 elements a tensor) at most 1e-2 farther from the f32
+     ones than the one-process step's; the parameter moves after 3 updates
+     within 2 x the one-process run's relative Frobenius distance from f32
+     (+ 1e-3) of the f32 moves, and within 3 x it of the one-process moves
+     (publish's all-gather and ZeRO-3's shard update are in them); B1 64 /
+     B2 32 / B3 32 / B4 24 a rank and step, with zero_frozen 45-55 % of the
+     decoder's bytes on each rank; each rank's peak GiB, parameter bytes
+     held, launches and step ms; (c) IFT at Phi3-mini (3.8 B trainables, B4
+     x T1024 full-length rows, 2 per rank, 3 batches) with ZeRO-2 moments on
+     the two ranks against the one-process run (no f32 run of it fits
+     beside: (b)'s f32 distances stand in): losses within 2 x (b)'s largest
+     relative loss distance + 1e-4, plus a tenth of the last loss's move
+     (which must exceed twice that bound); the reduced step-1 gradients
+     (sampled) within 2 x (b)'s gradient distance + 1e-2 of the one-process
+     ones; the sampled parameter moves within 3 x (b)'s move distance +
+     1e-2; each rank's peak beside the one-process peak. Any rank that
+     fails or does not finish within 420 s fails the phase.
 Phase 3 also holds B1-B3 at phase 12's recipe PT shape (Llama-3-8B, B4 x
 T1024, GQA 32/8 H128, causal) against their plain versions, beside SDPA's
 forward and backward and the bound, as at the training shape.
@@ -359,6 +400,11 @@ MEM_RECORDS, MEM_WORDS = 16, (2900, 3200)   # (c) single-turn IFT records: a bat
 MEM_STREAM = 8                              # (c) --stream-grads segments
 MEM_PROBE_BYTES = 1 << 30                   # (a) one copy of the bandwidth probe
 MEM_HOST_MARGIN_GB = 10.0                   # (c) host memory beside the pinned state
+# phase 16: data parallelism and ZeRO
+DP_STEPS, DP_LR = 3, 1e-3      # a batch each; update 1 has lr 0 (warmup ratio 0), 2-3 DP_LR
+DP_MODES = ("plain", "zero_frozen", "zero_params")   # (b)
+DP_SAMPLE = 1 << 16            # elements of a tensor compared by sample (a fixed stride)
+DP_TIMEOUT = 420               # s for the two ranks' whole run
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3272,6 +3318,515 @@ def memory_phase(fa, wa, smi: str) -> dict:
     return out
 
 
+def dp_opt_cfg(stage: str):
+    from visper_lm_tpu_torch.train.optimizer import OptimizerConfig
+
+    return OptimizerConfig(learning_rate=DP_LR, warmup_ratio=0.0, total_steps=1000, stage=stage)
+
+
+def dp_sample(t: torch.Tensor) -> torch.Tensor:
+    """A fixed strided sample of a tensor's elements, f32 on the host."""
+    flat = t.detach().reshape(-1)
+    return flat[::max(1, flat.numel() // DP_SAMPLE)][:DP_SAMPLE].float().cpu()
+
+
+def rel_fro(got: dict, ref: dict) -> float:
+    """Relative Frobenius distance of two {name: tensor} sets as one vector."""
+    num = sum(float((got[k].float() - r.float()).square().sum()) for k, r in ref.items())
+    den = sum(float(r.float().square().sum()) for r in ref.values())
+    return math.sqrt(num / den)
+
+
+def deltas(after: dict, before: dict) -> dict:
+    """{name: after - before} in f32: what the updates moved."""
+    return {n: after[n].float() - b.float() for n, b in before.items()}
+
+
+def delta_record(got: dict, ref: dict, f32, lr: float) -> dict:
+    """One run's parameter moves against the one-process run's (and the f32
+    run's, where there is one): relative Frobenius distances, the RMS
+    difference per element in units of lr, the share of elements moved
+    exactly alike."""
+    n = sum(r.numel() for r in ref.values())
+    sq = sum(float((got[k] - r).square().sum()) for k, r in ref.items())
+    same = sum(int((got[k] == r).sum()) for k, r in ref.items())
+    out = dict(rel_frobenius=rel_fro(got, ref), rms_over_lr=math.sqrt(sq / n) / lr,
+               bit_equal_share=same / n)
+    if f32 is not None:
+        out["rel_frobenius_to_f32"] = rel_fro(got, f32)
+    return out
+
+
+def dp_grads(step) -> dict:
+    """Arm `step` to keep, from its next update, each trainable's gradient
+    as the optimizer's own `reduce_grads` leaves it (summed over the ranks:
+    this rank's slice, or the whole leaf where it is replicated; in one
+    process the gradient): {name: (sharded, dp_sample of the leaf with
+    zeros outside this rank's slice)}, filled by that update."""
+    opt, kept = step.optimizer, {}
+
+    def reduce_grads(names, grads):
+        del opt.reduce_grads                  # once: the class's method again
+        opt.reduce_grads(names, grads)
+        for n in names:
+            pl = None if opt.zero is None else opt.zero.moments[n]
+            if pl is None or not pl.sharded:
+                kept[n] = (False, dp_sample(grads[n]))
+                continue
+            full = torch.zeros(opt.params[n].shape, dtype=grads[n].dtype, device=grads[n].device)
+            mine = pl.local(full, opt.zero.rank)
+            mine.copy_(grads[n].reshape(mine.shape))
+            kept[n] = (True, dp_sample(full))
+
+    opt.reduce_grads = reduce_grads
+    return kept
+
+
+def dp_reduced(per_rank: list) -> tuple:
+    """The ranks' `dp_grads` as one {name: sample}: a sharded leaf's slices
+    added, a replicated leaf from rank 0; and whether each replicated leaf
+    came out bit-equal on every rank."""
+    out, same = {}, True
+    for n, (sharded, s) in per_rank[0].items():
+        if sharded:
+            out[n] = sum(kept[n][1] for kept in per_rank)
+        else:
+            out[n] = s
+            same &= all(torch.equal(kept[n][1], s) for kept in per_rank[1:])
+    return out, same
+
+
+def dp_counters():
+    from visper_lm_tpu_torch.ops import flash_attention as fa
+    from visper_lm_tpu_torch.ops import window_attention as wa
+
+    def reset():
+        fa.launches = fa.dq_launches = fa.dkv_launches = wa.launches = 0
+
+    def read():
+        return dict(flash_fwd=fa.launches, flash_bwd_dq=fa.dq_launches,
+                    flash_bwd_dkv=fa.dkv_launches, window_attn=wa.launches)
+
+    return reset, read
+
+
+def dp_steps(step, batches, reset, read) -> dict:
+    """One update on each batch: each step's loss, ms (host clock to a
+    synchronise) and B1-B4 launches."""
+    losses, ms, launches = [], [], []
+    for batch in batches:
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(batch)["loss"])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(read())
+    return dict(losses=losses, step_ms=ms, launches=launches)
+
+
+@torch.no_grad()
+def dp_loss_at(step, batch) -> float:
+    """The step's loss on `batch` at its current parameters, no update."""
+    total, _ = step.loss_fn(step.model, step.to_device(batch), step.teacher_params)
+    return float(total)
+
+
+def dp_expected(layers: int, n_swin: int, batch: int) -> dict:
+    """B1-B4 launches a save_gate step: the recompute runs the flash forward
+    again; B4 once per Swin block and teacher micro-batch of 2."""
+    return dict(flash_fwd=2 * layers, flash_bwd_dq=layers, flash_bwd_dkv=layers,
+                window_attn=n_swin * batch // 2)
+
+
+def dp_batches(cfg, pt: bool) -> list:
+    """DP_STEPS global batches of B TRAIN_BATCH x T TRAIN_SEQ, one a step
+    (seeds 0, 1, ...): config #1's PT batches, or full-length IFT rows."""
+    from visper_lm_tpu_torch.train import aot
+
+    if pt:
+        return [train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=s) for s in range(DP_STEPS)]
+    return [aot.full_length_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, with_teachers=False, seed=s)
+            for s in range(DP_STEPS)]
+
+
+def dp_rank(argv) -> int:
+    """One of phase 16's two ranks (`chip_smoke.py --phase16-rank R PORT DIR`):
+    both share the card over gloo (collectives staged through host memory).
+    (b) the PT step of config #1 on its 2 rows of each global batch, as
+    plain dp, zero_frozen and zero_params; (c) IFT at Phi3-mini with ZeRO-2
+    moments. Writes what it measured to DIR/rank<R>.pt."""
+    from visper_lm_tpu_torch.config import phi3_clip_vlm
+    from visper_lm_tpu_torch.models.teachers import init_teachers, make_teacher_fn
+    from visper_lm_tpu_torch.models.vlm import init_vlm
+    from visper_lm_tpu_torch.parallel import distributed as D
+    from visper_lm_tpu_torch.train.train_step import make_train_step
+
+    rank, port, root = int(argv[0]), int(argv[1]), Path(argv[2])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    D.init_distributed(f"localhost:{port}", 2, rank, local_device_ids=[0], device="cuda",
+                       backend="gloo")
+    mesh = D.make_global_mesh()
+    lb = D.local_batch_size(TRAIN_BATCH)
+    rows = slice(rank * lb, (rank + 1) * lb)
+    dev = torch.device("cuda", 0)
+    reset, read = dp_counters()
+    out = dict(backend=str(torch.distributed.get_backend()), start_s=time.perf_counter() - t_start)
+
+    def shards(batches):
+        return [D.shard_batch_multihost({k: v[rows] for k, v in b.items()}, mesh, device=dev)
+                for b in batches]
+
+    def held(model, sharded, prefix=""):
+        """Bytes of the parameters under `prefix` this rank keeps."""
+        n = sum(p.untyped_storage().nbytes() for name, p in model.named_parameters()
+                if name.startswith(prefix))
+        if sharded is not None:
+            n += sum(t.numel() * t.element_size() for name, t in sharded.shards.items()
+                     if name.startswith(prefix))
+        return n
+
+    cfg = phi3_clip_vlm(distill=True)
+    local = shards(dp_batches(cfg, pt=True))
+    teachers = init_teachers(cfg, device=dev, seed=7)
+    tfn = make_teacher_fn(cfg)
+    for mode in DP_MODES:
+        t0 = time.perf_counter()
+        model = init_vlm(cfg, device=dev, seed=0)
+        step = make_train_step(cfg, dp_opt_cfg("pretrain"), model, teacher_fn=tfn,
+                               teacher_params=teachers, remat_policy="save_gate", mesh=mesh,
+                               **({} if mode == "plain" else {mode: True}))
+        rec = dict(persistent_gib=held(model, step.sharded) / 2**30,
+                   decoder_gib=held(model, step.sharded, "decoder.") / 2**30,
+                   sharded=0 if step.sharded is None else len(step.sharded.shards))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec["grads"] = dp_grads(step)
+        rec.update(dp_steps(step, local, reset, read))
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        # collective under zero_params: every rank gathers, rank 0 keeps
+        trained = {n: step.full_param(n).detach().cpu() for n in step.trainable}
+        rec["trainables"] = trained if rank == 0 else None
+        rec["seconds"] = time.perf_counter() - t0
+        out[mode] = rec
+        del step, model, trained
+        release_cuda()
+    del teachers
+    release_cuda()
+
+    # (c) IFT at Phi3-mini, ZeRO-2 moments
+    t0 = time.perf_counter()
+    cfg = phi3_clip_vlm(distill=False)
+    local = shards(dp_batches(cfg, pt=False))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_vlm(cfg, device=dev, seed=0)
+    step = make_train_step(cfg, dp_opt_cfg("finetune"), model, remat_policy="save_gate", mesh=mesh)
+    opt = step.optimizer
+    rec = dict(moments_gib=sum(t.numel() * t.element_size() for t in opt.state_tensors().values())
+               / 2**30, sharded_moments=sum(pl.sharded for pl in step.zero.moments.values()),
+               trainables=len(step.trainable))
+    rec["init"] = {n: dp_sample(p) for n, p in step.trainable.items()} if rank == 0 else None
+    rec["grads"] = dp_grads(step)
+    rec.update(dp_steps(step, local, reset, read))
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["samples"] = {n: dp_sample(p) for n, p in step.trainable.items()} if rank == 0 else None
+    rec["seconds"] = time.perf_counter() - t0
+    out["ift"] = rec
+    del step, model, opt
+    release_cuda()
+    out["seconds"] = time.perf_counter() - t_start
+    torch.save(out, root / f"rank{rank}.pt")
+    D.barrier()
+    D.shutdown()
+    return 0
+
+
+def dp_phase(smi: str) -> dict:
+    """Phase 16: data parallelism and ZeRO on the card (see the module
+    docstring). Returns the record printed as `dp_path`."""
+    import shutil
+    import socket
+
+    from visper_lm_tpu_torch.config import phi3_clip_vlm
+    from visper_lm_tpu_torch.models.teachers import init_teachers, make_teacher_fn
+    from visper_lm_tpu_torch.models.vlm import init_vlm
+    from visper_lm_tpu_torch.parallel import distributed as D
+    from visper_lm_tpu_torch.train.optimizer import AdamW
+    from visper_lm_tpu_torch.train.train_step import make_loss_fn, make_train_step
+
+    root = Path(__file__).resolve().parent / "tmp" / "chip_smoke_dp"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    reset, read = dp_counters()
+    out = dict(card=smi)
+
+    def free_port() -> int:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            return sock.getsockname()[1]
+
+    cfg = phi3_clip_vlm(distill=True)
+    batches = dp_batches(cfg, pt=True)
+    try:
+        # the one-process PT step of config #1 (phase 8's, save_gate), from seeds
+        t0 = time.perf_counter()
+        model = init_vlm(cfg, device="cuda", seed=0)
+        teachers = init_teachers(cfg, device="cuda", seed=7)
+        n_swin = sum(teachers["swin"].cfg.depths)
+        tfn = make_teacher_fn(cfg)
+
+        def pt_step(**kw):
+            return make_train_step(cfg, dp_opt_cfg("pretrain"), model, teacher_fn=tfn,
+                                   teacher_params=teachers, remat_policy="save_gate", **kw)
+
+        step = pt_step()
+        names = list(step.trainable)
+        init = {n: p.detach().clone() for n, p in step.trainable.items()}
+        p0 = {n: p.float().cpu() for n, p in init.items()}
+
+        def restore():
+            params = dict(model.named_parameters())
+            with torch.no_grad():
+                for n in names:
+                    params[n].copy_(init[n])
+
+        # the last batch's loss before any update: how far the updates move it
+        still = dp_loss_at(step, batches[-1])
+        kept = dp_grads(step)
+        torch.cuda.reset_peak_memory_stats()
+        one = dp_steps(step, batches, reset, read)
+        one["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        g_1 = {n: s for n, (_, s) in kept.items()}
+        p_1 = {n: p.detach().cpu() for n, p in step.trainable.items()}
+        want = dp_expected(cfg.decoder.num_layers, n_swin, TRAIN_BATCH)
+        check(all(c == want for c in one["launches"]),
+              f"one-process PT step launches {one['launches']}, expected {want} a step")
+
+        # (a) a one-rank NCCL group: the same step, its collectives on the card
+        restore()
+        D.init_distributed(f"localhost:{free_port()}", 1, 0, device="cuda")
+        backend_a = str(torch.distributed.get_backend())
+        check(backend_a == "nccl", f"phase 16 (a): backend {backend_a}, expected nccl")
+        del step
+        step = pt_step(mesh=D.make_global_mesh())
+        check(step.zero is not None and step.zero.size == 1, "phase 16 (a): no data-parallel step")
+        grp = dp_steps(step, batches, reset, read)
+        p_a = {n: p.detach().cpu() for n, p in step.trainable.items()}
+        D.shutdown()
+        check(all(c == want for c in grp["launches"]),
+              f"phase 16 (a) launches {grp['launches']}, expected {want} a step")
+        same = grp["losses"] == one["losses"] and all(torch.equal(p_a[n], p_1[n]) for n in names)
+        for a, b in zip(grp["losses"], one["losses"]):
+            check(abs(a - b) <= 1e-5 * abs(b), f"phase 16 (a): loss {a} vs {b} without a group")
+        for n in names:
+            check(torch.allclose(p_a[n].float(), p_1[n].float(), rtol=1e-4, atol=1e-6),
+                  f"phase 16 (a): {n} differs from the step without a group")
+        out["a"] = dict(backend=backend_a, losses=grp["losses"], losses_no_group=one["losses"],
+                        bit_equal=same, step_ms=grp["step_ms"], step_ms_no_group=one["step_ms"],
+                        launches_per_step=grp["launches"][-1])
+        print(f"phase 16 (a) one-rank {backend_a} group: losses {grp['losses']} (no group "
+              f"{one['losses']}), bit-equal {same}, step ms {grp['step_ms'][-1]:.1f} (no group "
+              f"{one['step_ms'][-1]:.1f}), B1-B4 a step {grp['launches'][-1]} [{smi}]")
+        del p_a, step
+
+        # the tolerance of two bf16 runs, from an f32 run of the student
+        # (plain attention) from the same weights on the same batches: its
+        # losses, step-1 gradients and parameter moves against the bf16
+        # one-process run's
+        restore()
+        model.float()
+        loss_fn = make_loss_fn(cfg, teacher_fn=tfn, use_kernel=False)
+        params = dict(model.named_parameters())
+        opt_f = AdamW(((n, params[n]) for n in names), dp_opt_cfg("pretrain"))
+        losses_f, g_f = [], None
+        for batch in batches:
+            dbatch = {k: torch.as_tensor(v).to("cuda") for k, v in batch.items()}
+            loss, grads = loss_and_grads(loss_fn, model, dbatch, teachers,
+                                         [params[n] for n in names])
+            # a trainable the loss does not reach has a zero gradient, as the step gives it
+            grads = {n: torch.zeros_like(params[n]) if g is None else g
+                     for n, g in zip(names, grads)}
+            if g_f is None:
+                g_f = {n: dp_sample(g) for n, g in grads.items()}
+            opt_f.step(grads)
+            losses_f.append(loss)
+            del grads, dbatch
+        p_f = {n: params[n].detach().cpu() for n in names}
+        del opt_f, params
+        move_1, move_f = deltas(p_1, p0), deltas(p_f, p0)
+        d_loss = [abs(a - f) / abs(f) for a, f in zip(one["losses"], losses_f)]
+        d_grad = rel_fro(g_1, g_f)
+        e_1 = rel_fro(move_1, move_f)
+        out["f32"] = dict(losses=losses_f, losses_bf16=one["losses"], loss_rel=d_loss,
+                          grads_rel_frobenius=d_grad, moves_rel_frobenius=e_1)
+        print(f"phase 16 f32 student: losses {losses_f}, bf16 one-process {one['losses']} (rel "
+              f"{', '.join(f'{x:.3g}' for x in d_loss)}); step-1 gradients rel Frobenius "
+              f"{d_grad:.4g}; parameter moves after {DP_STEPS} updates rel Frobenius {e_1:.4g}")
+        # the bounds below must tell a wrong update from a right one: the
+        # last batch's loss moves well beyond its tolerance, and a move of
+        # 0 (at distance 1) stays outside the moves' bounds
+        tol_last = 2 * abs(one["losses"][-1] - losses_f[-1]) + 1e-4 * abs(one["losses"][-1])
+        moved = abs(one["losses"][-1] - still)
+        check(moved > 3 * tol_last, f"phase 16: the updates move the last loss {moved:.3g}, "
+              f"not beyond 3 x its tolerance {tol_last:.3g}")
+        check(3 * e_1 + 1e-2 <= 0.75, f"phase 16: bf16 moves {e_1:.3g} from f32, too far to "
+              f"tell an update from none")
+        del model, teachers, init
+        release_cuda()
+        pt_s = time.perf_counter() - t0
+
+        # the one-process IFT step at Phi3-mini: (c)'s reference
+        t0 = time.perf_counter()
+        cfg_i = phi3_clip_vlm(distill=False)
+        batches_i = dp_batches(cfg_i, pt=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model = init_vlm(cfg_i, device="cuda", seed=0)
+        step = make_train_step(cfg_i, dp_opt_cfg("finetune"), model, remat_policy="save_gate")
+        s_0 = {n: dp_sample(p) for n, p in step.trainable.items()}
+        still_i = dp_loss_at(step, batches_i[-1])
+        kept = dp_grads(step)
+        ift_1 = dp_steps(step, batches_i, reset, read)
+        ift_1["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        g_i1 = {n: s for n, (_, s) in kept.items()}
+        move_i1 = deltas({n: dp_sample(p) for n, p in step.trainable.items()}, s_0)
+        trainables_i = sum(p.numel() for p in step.trainable.values())
+        del step, model, kept
+        release_cuda()
+        ift_s = time.perf_counter() - t0
+
+        # (b) and (c): two ranks share the card
+        t0 = time.perf_counter()
+        port = free_port()
+        logs = [open(root / f"rank{r}.log", "w") for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--phase16-rank",
+                                   str(r), str(port), str(root)], stdout=logs[r],
+                                  stderr=subprocess.STDOUT) for r in range(2)]
+        deadline = time.perf_counter() + DP_TIMEOUT
+        try:
+            codes = [p.wait(timeout=max(deadline - time.perf_counter(), 0)) for p in procs]
+        except subprocess.TimeoutExpired:
+            codes = None
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        ranks_s = time.perf_counter() - t0
+        for r in range(2):
+            tail = (root / f"rank{r}.log").read_text()[-3000:]
+            if codes is None or codes[r] != 0:
+                print(f"phase 16 rank {r} log (tail):\n{tail}")
+        check(codes is not None, f"phase 16: the ranks did not finish within {DP_TIMEOUT} s")
+        check(codes == [0, 0], f"phase 16: rank exit codes {codes}")
+        ranks = [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(2)]
+        check(all(r["backend"] == "gloo" for r in ranks), "phase 16: the ranks did not run gloo")
+
+        # (b): each mode held to the one-process step and to the f32 run
+        want_r = dp_expected(cfg.decoder.num_layers, n_swin, TRAIN_BATCH // 2)
+        b = {}
+        for mode in DP_MODES:
+            recs = [r[mode] for r in ranks]
+            check(recs[0]["losses"] == recs[1]["losses"],
+                  f"phase 16 (b) {mode}: the ranks' losses differ {recs[0]['losses']} "
+                  f"{recs[1]['losses']}")
+            for rr in recs:
+                check(all(c == want_r for c in rr["launches"]),
+                      f"phase 16 (b) {mode}: launches {rr['launches']}, expected {want_r}")
+            for a, c, f in zip(recs[0]["losses"], one["losses"], losses_f):
+                check(abs(a - c) <= 2 * abs(c - f) + 1e-4 * abs(c),
+                      f"phase 16 (b) {mode}: loss {a} vs one process {c} (f32 {f})")
+            g_m, replicas_equal = dp_reduced([rr["grads"] for rr in recs])
+            check(replicas_equal, f"phase 16 (b) {mode}: a replicated gradient differs between "
+                  "the ranks")
+            d_grad_m = rel_fro(g_m, g_f)
+            check(d_grad_m <= d_grad + 1e-2,
+                  f"phase 16 (b) {mode}: reduced gradients {d_grad_m:.4g} from f32 (one process "
+                  f"{d_grad:.4g})")
+            moves = delta_record(deltas(recs[0]["trainables"], p0), move_1, move_f, DP_LR)
+            check(moves["rel_frobenius_to_f32"] <= 2 * e_1 + 1e-3 and
+                  moves["rel_frobenius"] <= 3 * e_1 + 1e-3,
+                  f"phase 16 (b) {mode}: parameter moves {moves} (one process {e_1:.4g} from f32)")
+            b[mode] = dict(
+                losses=recs[0]["losses"], grads_rel_frobenius_to_f32=d_grad_m, moves=moves,
+                ranks=[dict(peak_gib=rr["peak_gib"], persistent_gib=rr["persistent_gib"],
+                            decoder_gib=rr["decoder_gib"], sharded=rr["sharded"],
+                            launches_per_step=rr["launches"][-1], step_ms=rr["step_ms"],
+                            seconds=rr["seconds"]) for rr in recs])
+            for r, rr in enumerate(b[mode]["ranks"]):
+                print(f"phase 16 (b) {mode} rank {r}: peak {rr['peak_gib']:.2f} GiB, parameters "
+                      f"held {rr['persistent_gib']:.3f} GiB (decoder {rr['decoder_gib']:.3f}), "
+                      f"B1-B4 a step {rr['launches_per_step']}, step ms "
+                      f"{', '.join(f'{x:.1f}' for x in rr['step_ms'])} [{smi}]")
+            print(f"phase 16 (b) {mode}: losses {recs[0]['losses']} (one process {one['losses']}); "
+                  f"reduced step-1 gradients rel Frobenius to f32 {d_grad_m:.4g} (one process "
+                  f"{d_grad:.4g}, bound + 1e-2); parameter moves {json.dumps(moves)} (bounds "
+                  f"{2 * e_1 + 1e-3:.4g} to f32, {3 * e_1 + 1e-3:.4g} to one process)")
+        dec_plain = b["plain"]["ranks"][0]["decoder_gib"]
+        for r in range(2):
+            share = b["zero_frozen"]["ranks"][r]["decoder_gib"] / dec_plain
+            check(0.45 <= share <= 0.55, f"phase 16 (b): zero_frozen keeps {share:.3f} of the decoder")
+        out["b"] = b
+        out["one_process_pt"] = dict(losses=one["losses"], loss_before_updates=still,
+                                     step_ms=one["step_ms"], peak_gib=one["peak_gib"])
+
+        # (c): IFT at Phi3-mini, dp 2, ZeRO-2 moments. No f32 run fits beside
+        # it: its bounds take (b)'s f32 distances (the same bf16 decoder), with
+        # 1e-2 of room for the backward through all of it, and a tenth of the
+        # loss's move
+        recs = [r["ift"] for r in ranks]
+        check(recs[0]["losses"] == recs[1]["losses"], "phase 16 (c): the ranks' losses differ")
+        want_i = dp_expected(cfg_i.decoder.num_layers, 0, 0)
+        for rr in recs + [ift_1]:
+            check(all(c == want_i for c in rr["launches"]),
+                  f"phase 16 (c): launches {rr['launches']}, expected {want_i}")
+        check(all(torch.equal(recs[0]["init"][n], s) for n, s in s_0.items()),
+              "phase 16 (c): the ranks start from other weights")
+        moved_i = abs(ift_1["losses"][-1] - still_i)
+        tol_i = [(2 * max(d_loss) + 1e-4) * abs(c) + 0.1 * moved_i for c in ift_1["losses"]]
+        check(tol_i[-1] < 0.5 * moved_i, f"phase 16 (c): the updates move the last loss "
+              f"{moved_i:.3g}, not beyond twice its tolerance {tol_i[-1]:.3g}")
+        for a, c, t in zip(recs[0]["losses"], ift_1["losses"], tol_i):
+            check(abs(a - c) <= t, f"phase 16 (c): loss {a} vs one process {c} (bound {t:.3g})")
+        g_c, replicas_equal = dp_reduced([rr["grads"] for rr in recs])
+        check(replicas_equal, "phase 16 (c): a replicated gradient differs between the ranks")
+        d_grad_c = rel_fro(g_c, g_i1)
+        check(d_grad_c <= 2 * d_grad + 1e-2,
+              f"phase 16 (c): reduced gradients {d_grad_c:.4g} from the one-process run's")
+        moves_c = delta_record(deltas(recs[0]["samples"], recs[0]["init"]), move_i1, None, DP_LR)
+        check(moves_c["rel_frobenius"] <= 3 * e_1 + 1e-2,
+              f"phase 16 (c): parameter moves {moves_c} (bound {3 * e_1 + 1e-2:.4g})")
+        out["c"] = dict(trainables=trainables_i, losses=recs[0]["losses"],
+                        losses_one_process=ift_1["losses"], loss_before_updates=still_i,
+                        grads_rel_frobenius=d_grad_c, moves=moves_c,
+                        one_process=dict(peak_gib=ift_1["peak_gib"], step_ms=ift_1["step_ms"]),
+                        ranks=[dict(peak_gib=rr["peak_gib"], moments_gib=rr["moments_gib"],
+                                    sharded_moments=rr["sharded_moments"], step_ms=rr["step_ms"],
+                                    launches_per_step=rr["launches"][-1]) for rr in recs])
+        for r, rr in enumerate(out["c"]["ranks"]):
+            print(f"phase 16 (c) IFT rank {r}: peak {rr['peak_gib']:.2f} GiB (one process "
+                  f"{ift_1['peak_gib']:.2f}), moments {rr['moments_gib']:.2f} GiB, step ms "
+                  f"{', '.join(f'{x:.1f}' for x in rr['step_ms'])}, B1-B3 a step "
+                  f"{rr['launches_per_step']} [{smi}]")
+        print(f"phase 16 (c): losses {recs[0]['losses']} (one process {ift_1['losses']}; last "
+              f"batch before the updates {still_i:.6f}), {trainables_i / 1e9:.3f} B trainables, "
+              f"reduced step-1 gradients rel Frobenius {d_grad_c:.4g} (bound "
+              f"{2 * d_grad + 1e-2:.4g}), sampled parameter moves {json.dumps(moves_c)} (bound "
+              f"{3 * e_1 + 1e-2:.4g})")
+        out["seconds_by_part"] = dict(pt_one_process_a_f32=pt_s, ift_one_process=ift_s,
+                                      ranks=ranks_s, rank_start=[r["start_s"] for r in ranks])
+    finally:
+        D.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+        release_cuda()
+    return out
+
+
 def release_cuda():
     gc.collect()
     torch.cuda.empty_cache()
@@ -3295,6 +3850,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    if sys.argv[1:2] == ["--phase16-rank"]:
+        return dp_rank(sys.argv[2:])
     from visper_lm_tpu_torch.config import LLAMA3_8B, phi3_clip_vlm
     from visper_lm_tpu_torch.models.teachers import init_teachers, make_teacher_fn
     from visper_lm_tpu_torch.models.decoder import quantize_head_vectors
@@ -3328,6 +3885,12 @@ def main() -> int:
     for lib, log in logs.items():
         for entry, res in _build.kernel_resources(log).items():
             print(f"ptxas[{lib}] {entry}: {json.dumps(res)}")
+    if sys.argv[1:2] == ["--phase16"]:
+        # phase 16 on its own, after the build (a measurement run; the
+        # contract's run takes no argument and runs every phase)
+        dp = dp_phase(smi)
+        print("dp_path " + json.dumps(dp))
+        return 0
     # the redesigned kernels: registers, spills and shared memory
     smem, kv_tile, stages = (ctypes.c_int() for _ in range(3))
     for h in fa.SUPPORTED_HEAD_DIMS:
@@ -3761,7 +4324,15 @@ def main() -> int:
     memory["seconds"] = time.perf_counter() - t0
     print(f"memory phase {memory['seconds']:.1f} s [{smi}]")
     print("memory_path " + json.dumps({k: v for k, v in memory.items() if k not in ("b1", "b2", "b3")}))
-    dec_launches = da.launches                  # over phases 4-15
+    # 16. data parallelism and ZeRO: a one-rank NCCL group, two ranks sharing
+    # the card (plain dp, zero_frozen, zero_params), IFT with ZeRO-2 moments
+    release_cuda()
+    t0 = time.perf_counter()
+    dp = dp_phase(smi)
+    dp["seconds"] = time.perf_counter() - t0
+    print(f"dp phase {dp['seconds']:.1f} s [{smi}]")
+    print("dp_path " + json.dumps(dp))
+    dec_launches = da.launches                  # over phases 4-16
     print(f"decode_attn launches over the serving, training, engine, api, vision, recipe, viz, "
           f"eval and memory paths: {dec_launches}")
     check(dec_launches == 0, f"decode_attn launched {dec_launches} times; no path calls it")
@@ -3775,6 +4346,7 @@ def main() -> int:
 
     csrc = "visper_lm_tpu_torch/csrc/"
     w4_decode = w4_recs[f"gate_up_M{BATCH}"]
+    dp_rank_launches = dp["b"]["plain"]["ranks"][0]["launches_per_step"]   # phase 16, a rank's step
     main_launches = trainer["trainer"]["launches"]   # trainer.train, the main path
     kernels = [
         dict(entry("flash_fwd", csrc + "flash_fwd.cu", "visper_lm_tpu/ops/flash_attention.py:234",
@@ -3798,6 +4370,7 @@ def main() -> int:
              launches_phase14=dict(evals["b1_launches"], per_loglikelihood_request=(
                  evals["b1_launches"]["loglikelihood"] // evals["loglikelihood"]["requests"])),
              launches_phase15_per_step=memory["ift"]["launches_per_step"]["flash_fwd"],
+             launches_phase16_rank_per_step=dp_rank_launches["flash_fwd"],
              ift_t4096={k: memory["b1"][k] for k in LLAMA3_KEYS},
              train=dict(shape=train_fwd_rec["shape"], ms=train_fwd_rec["ms"],
                         mma_sync_ms=train_fwd_rec["mma_sync_ms"],
@@ -3810,6 +4383,7 @@ def main() -> int:
              launches_recipe_ift=recipe["ift"]["launches"]["flash_bwd_dq"],
              recipe_pt={k: recipe_dq[k] for k in LLAMA3_KEYS + ("device_ms",)},
              launches_phase15_per_step=memory["ift"]["launches_per_step"]["flash_bwd_dq"],
+             launches_phase16_rank_per_step=dp_rank_launches["flash_bwd_dq"],
              ift_t4096={k: memory["b2"][k] for k in LLAMA3_KEYS + ("device_ms",)},
              library="SDPA backward (dq, dk and dv in one call)",
              gqa=dict(shape=gqa_dq["shape"], ms=gqa_dq["ms"], device_ms=gqa_dq["device_ms"],
@@ -3821,6 +4395,7 @@ def main() -> int:
              launches_recipe_ift=recipe["ift"]["launches"]["flash_bwd_dkv"],
              recipe_pt={k: recipe_dkv[k] for k in LLAMA3_KEYS + ("device_ms",)},
              launches_phase15_per_step=memory["ift"]["launches_per_step"]["flash_bwd_dkv"],
+             launches_phase16_rank_per_step=dp_rank_launches["flash_bwd_dkv"],
              ift_t4096={k: memory["b3"][k] for k in LLAMA3_KEYS + ("device_ms",)},
              library="SDPA backward (dq, dk and dv in one call)",
              gqa=dict(shape=gqa_dkv["shape"], ms=gqa_dkv["ms"], device_ms=gqa_dkv["device_ms"],
@@ -3830,6 +4405,7 @@ def main() -> int:
              launches_phase7=train_launches["window_attn"], shape=win_rec["shape"], kernel=win_rec["kernel"], timing=win_rec["timing"],
              launches_recipe_pt=recipe["pt"]["launches"]["window_attn"],
              launches_phase13=viz["seg"]["b4_launches"],
+             launches_phase16_rank_per_step=dp_rank_launches["window_attn"],
              eager_ms=win_rec["eager_ms"],
              stages={r["case"]: dict(ms=r["ms"],
                                      library_ms=r["library_ms"], bound_ms=r["bound_ms"],

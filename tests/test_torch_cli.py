@@ -11,8 +11,11 @@ package's (visper_lm_tpu/train/cli.py).
     call resumes from it onto the same data order (step 3's loss equal to the
     uninterrupted run's, rtol 1e-6);
   * `--init-from` overlays an HF-layout checkpoint (bf16-rounded, as JAX),
-    a missing one raises; the flags the port does not have raise
-    NotImplementedError naming ROADMAP items 7 and 8.
+    a missing one raises; --tp and --shard-teachers raise NotImplementedError
+    naming ROADMAP item A10b; the multi-process flags start the runtime
+    (tests/test_torch_multiprocess.py runs two ranks), and in one process
+    --zero-params / --zero-frozen train, --dp 2 fails JAX's mesh assertion
+    and a coordinator without its process count and id raises.
 """
 
 import json
@@ -159,13 +162,27 @@ def test_init_from_overlays_a_checkpoint(dataset, tmp_path):
                         "--init-from", str(tmp_path / "missing")))
 
 
-@pytest.mark.parametrize("flags", [
-    ["--tp", "4"], ["--dp", "2"], ["--zero-params"], ["--zero-frozen"],
-    ["--shard-teachers"], ["--coordinator", "localhost:1234"],
-    ["--num-processes", "2", "--process-id", "1"],
+@pytest.mark.parametrize("flags, error, match", [
+    (["--tp", "4"], NotImplementedError, "A10b"),
+    (["--dp", "2"], AssertionError, r"dp\(2\) \* pp\(1\) \* sp\(1\) \* ep\(1\) \* tp\(1\) "
+                                    r"!= available devices\(1\)"),
+    (["--zero-params"], None, None),
+    (["--zero-frozen"], None, None),
+    (["--shard-teachers"], NotImplementedError, "A10b"),
+    (["--coordinator", "localhost:1234"], ValueError, "number of processes"),
+    (["--num-processes", "2", "--process-id", "1"], ValueError, "coordinator address"),
 ])
-def test_unported_flags_raise(flags, dataset, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
+def test_unported_flags_raise(flags, error, match, dataset, tmp_path):
+    """Only tensor parallelism's flags are unported (A10b). In one process
+    ZeRO-3 has nothing to shard and trains; --dp 2 asks for a second
+    process that is not there (JAX's mesh assertion); the runtime's flags
+    need each other."""
+    if error is None:
+        state = tcli.main(_argv("pretrain", dataset, tmp_path, *flags, "--max-steps", "1"))
+        assert state.step == 1 and state.sharded is None and state.zero is None
+        assert len(_metrics(tmp_path)) == 1
+        return
+    with pytest.raises(error, match=match):
         tcli.main(_argv("pretrain", dataset, tmp_path, *flags))
     assert not os.path.exists(tmp_path / "metrics.jsonl")
 
@@ -192,7 +209,7 @@ def test_memory_levers_train_as_without_them(flags, dataset, tmp_path, finetune_
 
 
 def test_pretrain_full_recipe_raises_for_its_memory_levers(dataset, tmp_path):
-    with pytest.raises(NotImplementedError, match="--tp, --zero-params"):
+    with pytest.raises(NotImplementedError, match="--tp, --shard-teachers"):
         tcli.main([_recipe("pretrain_full.args"), "--data-path", str(dataset / "data.json"),
                    "--tokenizer", "fake-whitespace", "--output-dir", str(tmp_path), "--device", "cpu"])
 

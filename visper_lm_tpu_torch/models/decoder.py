@@ -405,7 +405,7 @@ class Decoder(nn.Module):
     def __init__(self, cfg: DecoderConfig, device=None, dtype=None):
         super().__init__()
         if cfg.moe_experts:
-            raise NotImplementedError("MoE decoders are not ported yet")
+            raise NotImplementedError("MoE decoders are not ported yet (ROADMAP queue A, item A10d)")
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
@@ -417,6 +417,9 @@ class Decoder(nn.Module):
         )
         # set by GradStream: the blocks' gradients leave for the host per segment
         self.grad_stream: Optional["GradStream"] = None
+        # set by a ZeRO-3 step (parallel/sharding.ShardedParams): each block's
+        # parameters are gathered around its forward and its backward
+        self.zero3 = None
 
     def logits(self, hidden: torch.Tensor, use_kernel: Optional[bool] = None) -> torch.Tensor:
         """Output projection in the model dtype (a quantized lm_head goes
@@ -483,11 +486,15 @@ class Decoder(nn.Module):
                       cache_kv=None if cache is None else cache.layer(i),
                       use_kernel=use_kernel, quant_saves=quant_saves,
                       lora=None if lora is None else {n: (a[i], b[i]) for n, (a, b) in lora.items()})
+            if self.zero3 is not None:
+                h = self.zero3.enter(i, h)
             if remat and torch.is_grad_enabled():
                 h = checkpoint(block, h, cos, sin, stash=_Stash(saves), **kw,
                                use_reentrant=False, preserve_rng_state=False)
             else:
                 h = block(h, cos, sin, **kw)
+            if self.zero3 is not None:
+                h = self.zero3.leave(i, h)
             if i in tap_layers:
                 taps[i] = h
         hidden = self.final_norm(h)

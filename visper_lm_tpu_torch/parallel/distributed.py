@@ -1,0 +1,337 @@
+"""The multi-process runtime (counterpart of visper_lm_tpu/parallel/distributed.py).
+
+JAX starts one process per host with `jax.distributed.initialize`, builds
+one global mesh, and XLA inserts every collective into the compiled step.
+The port runs one process per device on `torch.distributed` and writes the
+step's collectives itself; they are all here:
+
+  * `init_distributed` once per process (idempotent). With no argument and
+    none of the environment variables below it does nothing: one process.
+    The backend is explicit: NCCL where the process's device is CUDA, gloo
+    on the CPU, or the `backend` argument (two processes that share one card
+    cannot use NCCL, which refuses two ranks on one GPU: they take gloo);
+  * each process feeds its own shard of the global batch
+    (`shard_batch_multihost`): there is no global array, and the losses
+    divide by counts summed over the ranks (train/losses.py);
+  * the collectives the step needs: `all_reduce`, `reduce_scatter` and
+    `all_gather` along a dim, `all_gather_autograd` (gradients flow back,
+    summed over the ranks), `broadcast` and `reduce`. Where a backend does
+    not run a collective on CUDA tensors, the collective is staged through
+    page-locked host memory; `BACKENDS` says which, by the backend's name.
+
+Environment variables honoured (as JAX's):
+  VISPER_COORDINATOR        "host:port" of process 0
+  VISPER_NUM_PROCESSES, VISPER_PROCESS_ID
+  VISPER_AUTO_DISTRIBUTED=1 take them from the launcher instead: torchrun's
+                            RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT (and
+                            LOCAL_RANK for the device); JAX's counterpart
+                            reads a TPU pod's metadata
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, List, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from visper_lm_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, make_mesh
+
+# backend -> whether it runs collectives on CUDA tensors (else each is
+# staged through host memory)
+BACKENDS: Dict[str, bool] = {"nccl": True, "gloo": False}
+
+_state: Dict[str, Any] = dict(initialized=False, local_index=None)
+
+
+def init_distributed(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    local_device_ids: Optional[Sequence[int]] = None,
+    *,
+    device: Optional[str] = None,
+    backend: Optional[str] = None,
+) -> None:
+    """Join the process group (idempotent). Arguments win over VISPER_*;
+    with neither (and no VISPER_AUTO_DISTRIBUTED=1) this is a no-op.
+    local_device_ids[0]: this process's CUDA device index (default
+    LOCAL_RANK, else the rank modulo the devices present). device: where
+    the process computes, which picks the default backend (NCCL for CUDA,
+    gloo for the CPU); backend overrides it."""
+    if _state["initialized"] or dist.is_initialized():
+        _state["initialized"] = True
+        return
+    coordinator_address = coordinator_address or os.environ.get("VISPER_COORDINATOR")
+    env_np = os.environ.get("VISPER_NUM_PROCESSES")
+    env_pid = os.environ.get("VISPER_PROCESS_ID")
+    if num_processes is None and env_np is not None:
+        num_processes = int(env_np)
+    if process_id is None and env_pid is not None:
+        process_id = int(env_pid)
+    explicit = coordinator_address is not None or num_processes is not None
+    autodetect = os.environ.get("VISPER_AUTO_DISTRIBUTED") == "1"
+    if not explicit and not autodetect:
+        return
+    if explicit:
+        if coordinator_address is None or num_processes is None or process_id is None:
+            raise ValueError(
+                "init_distributed needs the coordinator address, the number of processes and "
+                f"this process's id (got {coordinator_address!r}, {num_processes}, {process_id})")
+        address, world, rank = coordinator_address, int(num_processes), int(process_id)
+    else:
+        address = f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}"
+        world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+    if local_device_ids:
+        local = int(local_device_ids[0])
+    elif "LOCAL_RANK" in os.environ:
+        local = int(os.environ["LOCAL_RANK"])
+    else:
+        local = rank % max(torch.cuda.device_count(), 1)
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    if backend is None:
+        backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: the port knows {sorted(BACKENDS)}")
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(local)
+    dist.init_process_group(backend, init_method=f"tcp://{address}", world_size=world, rank=rank)
+    _state.update(initialized=True, local_index=local)
+
+
+def is_initialized() -> bool:
+    return dist.is_initialized()
+
+
+def shutdown() -> None:
+    """Leave the process group (a no-op when there is none)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _state.update(initialized=False, local_index=None)
+
+
+def process_index() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def is_coordinator() -> bool:
+    """Rank-0 gate for logging and for writing files (JAX: process_index() == 0)."""
+    return process_index() == 0
+
+
+def local_device(device: Optional[str]) -> Optional[torch.device]:
+    """The device this process computes on: `device` as given, but a bare
+    "cuda" in a process group is this process's own card (init_distributed's
+    local index). None stays None (the caller resolves it)."""
+    if device is None:
+        return None
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None and dist.is_initialized():
+        return torch.device("cuda", _state["local_index"] or 0)
+    return dev
+
+
+def barrier() -> None:
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def make_global_mesh(dp: Optional[int] = None, tp: int = 1) -> Mesh:
+    """The ('data', 'model') grid over every process."""
+    return make_mesh(dp=dp, tp=tp, world=process_count())
+
+
+def data_group(mesh: Mesh):
+    """(process group, this process's rank in it, its size) of the data axis
+    this process sits on; the group is None (every process) when the data
+    axis spans them all."""
+    ranks = mesh.data_group_ranks(process_index())
+    if len(ranks) == process_count():
+        return None, process_index(), len(ranks)
+    # every process takes part in creating every group
+    groups = {}
+    for r in range(mesh.size):
+        key = mesh.data_group_ranks(r)
+        if key not in groups:
+            groups[key] = dist.new_group(list(key))
+    return groups[ranks], ranks.index(process_index()), len(ranks)
+
+
+def local_batch_size(global_batch_size: int) -> int:
+    """Per-process share of a global batch (must divide evenly)."""
+    n = process_count()
+    assert global_batch_size % n == 0, (
+        f"global batch {global_batch_size} not divisible by {n} processes"
+    )
+    return global_batch_size // n
+
+
+class LocalBatch(dict):
+    """A process's shard of the global batch, on its device, with the
+    global batch size that the losses divide by."""
+
+    global_batch_size: int = 0
+
+
+def shard_batch_multihost(
+    batch: Mapping[str, Any], mesh: Mesh, leading_accum: bool = False,
+    device: Optional[torch.device] = None,
+) -> LocalBatch:
+    """Each process passes its LOCAL (local_batch, ...) shard (with a leading
+    (accum_steps, ...) axis when leading_accum): its arrays go to `device`
+    as they are, and the result records the global batch size, the local
+    one times the mesh's data size. JAX assembles a global array here; the
+    port never does."""
+    from visper_lm_tpu_torch.parallel.sharding import batch_pspecs
+
+    specs = batch_pspecs(batch, leading_accum=leading_accum)
+    out = LocalBatch()
+    local = None
+    for k, v in batch.items():
+        t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
+        axis = specs[k].index(DATA_AXIS) if DATA_AXIS in specs[k] else None
+        if axis is not None:
+            if local is None:
+                local = t.shape[axis]
+            elif t.shape[axis] != local:
+                raise ValueError(f"batch[{k!r}] has {t.shape[axis]} rows on the batch axis, "
+                                 f"the others {local}")
+        out[k] = t if device is None else t.to(device)
+    out.global_batch_size = (local or 0) * mesh.data_size
+    return out
+
+
+# ---------------------------------------------------------------------------
+# collectives (group=None: every process)
+# ---------------------------------------------------------------------------
+
+
+def group_size(group=None) -> int:
+    return dist.get_world_size(group)
+
+
+def group_rank(group=None) -> int:
+    return dist.get_rank(group)
+
+
+def _staged(t: torch.Tensor, group) -> bool:
+    """Whether a collective on t goes through host memory (BACKENDS)."""
+    return t.device.type == "cuda" and not BACKENDS[str(dist.get_backend(group)).lower()]
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A page-locked host copy of t (a copy through pageable memory runs at
+    a tenth of the rate on an H100 host)."""
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+
+
+def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum t over the group, in place (t must be contiguous); returns t."""
+    if _staged(t, group):
+        host = _host(t)
+        dist.all_reduce(host, group=group)
+        t.copy_(host)
+    else:
+        dist.all_reduce(t, group=group)
+    return t
+
+
+def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """t from group rank `src` to every rank, in place; returns t."""
+    if _staged(t, group):
+        host = _host(t)
+        dist.broadcast(host, group=group, group_src=src)
+        t.copy_(host)
+    else:
+        dist.broadcast(t, group=group, group_src=src)
+    return t
+
+
+def reduce(t: torch.Tensor, dst: int, group=None) -> torch.Tensor:
+    """The sum of t over the group lands in t on group rank `dst` (in place;
+    the others' t is left unspecified); returns t."""
+    if _staged(t, group):
+        host = _host(t)
+        dist.reduce(host, group=group, group_dst=dst)
+        t.copy_(host)
+    else:
+        dist.reduce(t, group=group, group_dst=dst)
+    return t
+
+
+def reduce_scatter(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """The sum of t over the group, cut into equal slices along `dim`: this
+    rank's slice (a new tensor)."""
+    size = t.shape[dim] // group_size(group)
+    x = t.movedim(dim, 0).contiguous()
+    out = torch.empty((size,) + tuple(x.shape[1:]), dtype=t.dtype, device=t.device)
+    if _staged(t, group):
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        dist.reduce_scatter_tensor(host, _host(x), group=group)
+        out.copy_(host)
+    else:
+        dist.reduce_scatter_tensor(out, x, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def all_gather(t: torch.Tensor, dim: int, group=None,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Every rank's equal slice t concatenated along `dim`, in rank order;
+    into `out` when given. Layout work stays on t's device: only contiguous
+    bytes cross to the host where the collective is staged."""
+    n = group_size(group)
+    shape = list(t.shape)
+    shape[dim] *= n
+    if out is None:
+        out = torch.empty(shape, dtype=t.dtype, device=t.device)
+    src = t.movedim(dim, 0).contiguous()
+    staged = _staged(t, group)
+    if staged:
+        src = _host(src)
+    # the ranks' parts one after another along dim 0 (gloo takes no other layout)
+    flat = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]), dtype=t.dtype,
+                       device=src.device, pin_memory=staged)
+    dist.all_gather_into_tensor(flat, src, group=group)
+    if staged:
+        flat = flat.to(t.device)
+    # part k, (size, *shape[:dim], *shape[dim + 1:]), lands at index k of out
+    # viewed as (pre, n, size, post) along dim
+    pre = int(np.prod(shape[:dim], dtype=np.int64))
+    post = int(np.prod(shape[dim + 1:], dtype=np.int64))
+    size = t.shape[dim]
+    out.view(pre, n, size, post).copy_(flat.view(n, size, pre, post).permute(2, 0, 1, 3))
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(t.contiguous(), dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        # every rank's loss reads the gathered tensor: this rank's slice's
+        # gradient is the sum of the ranks' gradients of that slice
+        return reduce_scatter(g.contiguous(), ctx.dim, ctx.group), None, None
+
+
+def all_gather_autograd(t: torch.Tensor, dim: int = 0, group=None) -> torch.Tensor:
+    """`all_gather` through which gradients flow back, summed over the ranks."""
+    return _AllGather.apply(t, dim, group)
+
+
+def all_reduce_scalars(values: List[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """Sum each 0-d tensor over the group in one collective (f32 on their device)."""
+    if not values:
+        return []
+    stacked = torch.stack([v.detach().float().reshape(()) for v in values])
+    all_reduce(stacked, group)
+    return list(stacked.unbind(0))

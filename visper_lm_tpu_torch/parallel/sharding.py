@@ -1,0 +1,478 @@
+"""Parameter / optimizer-state sharding plans and their placements
+(counterpart of visper_lm_tpu/parallel/sharding.py).
+
+The plans are JAX's, computed the way JAX computes them: on the JAX param
+tree's paths and on its STACKED shapes (the decoder's and the towers'
+blocks as (L, ...) leaves; `jax_shapes` builds that view of the port's
+parameters), so each leaf's spec equals JAX's PartitionSpec, as a plain
+tuple of axis names:
+
+  * `param_pspecs`: `_PARAM_RULES` (the Megatron rules of the 'model' axis;
+    with tp = 1 they shard nothing, but they decide which dims ZeRO may
+    take);
+  * `zero_pspec`: the 'data' axis on the largest still-unsharded dim that
+    the data size divides, for a leaf of at least `min_size` elements
+    (ZeRO-1/2 on the moments; ZeRO-3 on the parameters with `zero_params`,
+    on the frozen ones with `zero_frozen`);
+  * `opt_state_pspecs`: a moment's spec is `zero_pspec` of the spec of the
+    FIRST trainable of its shape in the tree's order, as JAX looks it up by
+    shape (so q_proj's moments take o_proj's spec where their shapes agree);
+  * `batch_pspecs`, `model_shard_pspec`.
+
+`placements` turns a leaf's spec into the port's placement of each of its
+per-layer tensors: the tensor's dim that is split over the data axis (the
+JAX dim mapped through the port's layout: a linear kernel is the transpose
+of nn.Linear's weight, a conv kernel HWIO of OIHW) and this rank's slice.
+Where JAX splits a stacked leaf along its layers, each layer's tensor lives
+whole on the rank that owns that layer (`Placement.owner`).
+
+`ShardedParams` keeps ZeRO-3's persistent copy: the rank's slices, the
+full parameters' storage freed, gathered for a decoder block's forward and
+again for its backward (models/decoder.py calls `enter` / `leave` around
+each block), and for the step for the rest.
+
+JAX's `to_named` and `constrain` have no twin: the port has no sharding
+annotations, only these plans and the collectives that apply them.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import re
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+from visper_lm_tpu_torch.parallel import distributed
+from visper_lm_tpu_torch.parallel.mesh import DATA_AXIS, EXPERT_AXIS, MODEL_AXIS
+from visper_lm_tpu_torch.utils.param import jax_path, split_layer
+
+Spec = Tuple[Any, ...]
+
+# (path-regex, spec) — first match wins. Paths look like
+# "decoder/blocks/q_proj/kernel"; stacked block params have a leading layer axis.
+_PARAM_RULES: Tuple[Tuple[str, Spec], ...] = (
+    (r"decoder/embed_tokens/embedding$", (MODEL_AXIS, None)),
+    (r"decoder/lm_head/kernel$", (None, MODEL_AXIS)),
+    (r"decoder/blocks(?:_chunks/\d+)?/(q_proj|k_proj|v_proj)/kernel$", (None, None, MODEL_AXIS)),
+    (r"decoder/blocks(?:_chunks/\d+)?/o_proj/kernel$", (None, MODEL_AXIS, None)),
+    (r"decoder/blocks(?:_chunks/\d+)?/(gate_proj|up_proj)/kernel$", (None, None, MODEL_AXIS)),
+    (r"decoder/blocks(?:_chunks/\d+)?/down_proj/kernel$", (None, MODEL_AXIS, None)),
+    (r"decoder/blocks/(moe_gate|moe_up|moe_down)/kernel$", (None, EXPERT_AXIS, None, None)),
+)
+
+
+def _has_data(entry) -> bool:
+    return entry == DATA_AXIS or (isinstance(entry, tuple) and DATA_AXIS in entry)
+
+
+def jax_shapes(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, Tuple[int, ...]]:
+    """{JAX path: the JAX leaf's shape} of the port's parameters: a linear
+    kernel (in, out), a conv kernel HWIO, a stacked block list (L, ...), in
+    the JAX tree's leaf order (sorted paths)."""
+    per: Dict[str, Tuple[int, ...]] = {}
+    layers: Dict[str, int] = {}
+    for name, t in named:
+        path = jax_path(name)
+        per[path] = _jax_layout(path, tuple(t.shape))
+        if split_layer(name)[1] is not None:
+            layers[path] = layers.get(path, 0) + 1
+    return {p: ((layers[p],) + per[p] if p in layers else per[p])
+            for p in sorted(per, key=tree_order)}
+
+
+def tree_order(path: str) -> Tuple[Tuple[int, Any], ...]:
+    """Sort key of a JAX path in the tree's leaf order: dict keys as
+    strings, list indices as numbers."""
+    return tuple((0, int(s)) if s.isdigit() else (1, s) for s in path.split("/"))
+
+
+def _jax_layout(path: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    """A port tensor's shape in the JAX layout (`utils.param.jax_flat_arrays`)."""
+    if not path.endswith("/kernel"):
+        return shape
+    return tuple(shape[d] for d in _kernel_perm(len(shape)))
+
+
+def _kernel_perm(ndim: int) -> Tuple[int, ...]:
+    """JAX dim k of a kernel is the port's dim perm[k]."""
+    return (2, 3, 1, 0) if ndim == 4 else tuple(range(ndim))[::-1]
+
+
+def param_pspecs(shapes: Mapping[str, Sequence[int]]) -> Dict[str, Spec]:
+    """{JAX path: spec} by `_PARAM_RULES` (JAX `param_pspecs`)."""
+
+    def assign(path, shape):
+        for pattern, spec in _PARAM_RULES:
+            if re.search(pattern, path) and len(spec) <= len(shape):
+                return spec
+        return ()
+
+    return {p: assign(p, s) for p, s in shapes.items()}
+
+
+def zero_pspec(spec: Spec, shape: Sequence[int], data_size: int, min_size: int = 2 ** 16) -> Spec:
+    """Add the 'data' axis to the largest unsharded divisible dim (ZeRO
+    sharding); leaves under min_size elements, and leaves already
+    data-sharded, keep their spec."""
+    shape = tuple(int(d) for d in shape)
+    spec = tuple(spec)
+    if math.prod(shape) < min_size or data_size <= 1:
+        return spec
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    if any(_has_data(e) for e in entries):
+        return spec
+    best_axis, best_dim = None, 0
+    for i, (s, d) in enumerate(zip(entries, shape)):
+        if s is None and d % data_size == 0 and d > best_dim:
+            best_axis, best_dim = i, d
+    if best_axis is None:
+        return spec
+    entries[best_axis] = DATA_AXIS
+    return tuple(entries)
+
+
+def opt_state_pspecs(trainable_shapes: Mapping[str, Sequence[int]],
+                     train_specs: Mapping[str, Spec], data_size: int) -> Dict[str, Spec]:
+    """{JAX path: the spec of that trainable's moments (and master copy)}
+    (JAX `opt_state_pspecs`): the spec of the first trainable of the same
+    shape, in the tree's order, with ZeRO's 'data' axis added. Scalars
+    replicate."""
+    by_shape: Dict[Tuple[int, ...], Spec] = {}
+    for path in sorted(trainable_shapes, key=tree_order):
+        by_shape.setdefault(tuple(trainable_shapes[path]), train_specs[path])
+    out = {}
+    for path, shape in trainable_shapes.items():
+        shape = tuple(shape)
+        out[path] = () if not shape else zero_pspec(by_shape.get(shape, ()), shape, data_size)
+    return out
+
+
+def batch_pspecs(batch: Mapping[str, Any], leading_accum: bool = False) -> Dict[str, Spec]:
+    """Every batch array split along 'data' on its batch axis (axis 1 under
+    a leading (accum_steps, ...) axis)."""
+
+    def assign(leaf):
+        nd = getattr(leaf, "ndim", 0)
+        if leading_accum:
+            return () if nd <= 1 else (None, DATA_AXIS) + (None,) * (nd - 2)
+        return () if nd == 0 else (DATA_AXIS,) + (None,) * (nd - 1)
+
+    return {k: assign(v) for k, v in batch.items()}
+
+
+def model_shard_pspec(shape: Sequence[int], tp_size: int, min_size: int = 2 ** 16) -> Spec:
+    """Shard the largest tp-divisible dim over 'model' (frozen teacher
+    weights; used with tp, ROADMAP A10b). Small tensors replicate."""
+    shape = tuple(int(d) for d in shape)
+    if tp_size <= 1 or not shape or math.prod(shape) < min_size:
+        return ()
+    best = None
+    for i, d in enumerate(shape):
+        if d % tp_size == 0 and (best is None or d > shape[best]):
+            best = i
+    if best is None:
+        return ()
+    entries: List[Any] = [None] * len(shape)
+    entries[best] = MODEL_AXIS
+    return tuple(entries)
+
+
+# ---------------------------------------------------------------------------
+# placements: a spec applied to the port's tensors
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where one port tensor lives over the data axis of `parts` ranks:
+    replicated (dim and owner None), split into equal slices along `dim`,
+    or whole on rank `owner` (a stacked leaf split along its layers: the
+    other ranks hold an empty slice of it)."""
+
+    dim: Optional[int] = None
+    parts: int = 1
+    owner: Optional[int] = None
+
+    @property
+    def sharded(self) -> bool:
+        return self.dim is not None or self.owner is not None
+
+    def bounds(self, shape: Sequence[int], rank: int) -> Tuple[int, int, int]:
+        """(dim, start, stop) of rank's slice."""
+        if self.owner is not None:
+            return 0, 0, (int(shape[0]) if rank == self.owner else 0)
+        if self.dim is None:
+            return 0, 0, (int(shape[0]) if len(shape) else 1)
+        size = int(shape[self.dim]) // self.parts
+        return self.dim, rank * size, (rank + 1) * size
+
+    def local(self, t: torch.Tensor, rank: int) -> torch.Tensor:
+        """rank's slice of t (a view; t itself when replicated)."""
+        if not self.sharded:
+            return t
+        if t.ndim == 0:
+            t = t.reshape(1)
+        dim, start, stop = self.bounds(t.shape, rank)
+        return t.narrow(dim, start, stop - start)
+
+    def local_shape(self, shape: Sequence[int], rank: int) -> Tuple[int, ...]:
+        shape = tuple(int(d) for d in shape)
+        if not self.sharded:
+            return shape
+        shape = shape or (1,)
+        dim, start, stop = self.bounds(shape, rank)
+        return shape[:dim] + (stop - start,) + shape[dim + 1:]
+
+
+def placements(named_shapes: Mapping[str, Sequence[int]], specs: Mapping[str, Spec],
+               data_size: int) -> Dict[str, Placement]:
+    """{port name: Placement} of each per-layer tensor under its JAX leaf's
+    spec (specs keyed by JAX path; a path without one replicates)."""
+    layers: Dict[str, int] = {}
+    for name in named_shapes:
+        if split_layer(name)[1] is not None:
+            layers[jax_path(name)] = layers.get(jax_path(name), 0) + 1
+    out = {}
+    for name, shape in named_shapes.items():
+        path, layer = jax_path(name), split_layer(name)[1]
+        spec = tuple(specs.get(path, ()))
+        axis = next((i for i, e in enumerate(spec) if _has_data(e)), None)
+        if axis is None or data_size <= 1:
+            out[name] = Placement()
+            continue
+        if layer is not None:
+            if axis == 0:
+                out[name] = Placement(parts=data_size, owner=layer // (layers[path] // data_size))
+                continue
+            axis -= 1
+        ndim = len(shape)
+        dim = _kernel_perm(ndim)[axis] if path.endswith("/kernel") else axis
+        out[name] = Placement(dim=dim, parts=data_size)
+    return out
+
+
+def assemble(pl: Placement, local: torch.Tensor, out: torch.Tensor, group, rank: int) -> None:
+    """Every rank's slice `local` of a tensor placed by `pl` into `out`, the
+    whole tensor, on every rank (collective): an all-gather along the split
+    dim, or a broadcast from the owner."""
+    if pl.owner is not None:
+        if rank == pl.owner:
+            out.copy_(local.reshape(out.shape))
+        distributed.broadcast(out, pl.owner, group)
+    elif pl.dim is not None:
+        distributed.all_gather(local.contiguous(), pl.dim, group, out=out)
+    else:
+        out.copy_(local)
+
+
+def scatter_grad(pl: Placement, g: torch.Tensor, group, rank: int) -> torch.Tensor:
+    """A full gradient summed over the ranks, as rank's slice under `pl`
+    (collective; g must be contiguous and may be overwritten): an
+    all-reduce, a reduce-scatter along the split dim, or a reduce to the
+    owner."""
+    if pl.owner is not None:
+        return pl.local(distributed.reduce(g, pl.owner, group), rank)
+    if pl.dim is not None:
+        return distributed.reduce_scatter(g, pl.dim, group)
+    return distributed.all_reduce(g, group)
+
+
+@dataclasses.dataclass
+class ZeroPlan:
+    """The ZeRO layout of one train step on a data axis of `size` ranks:
+    each trainable's moments (and master copy), each parameter's persistent
+    copy (replicated unless zero_params / zero_frozen shard it), and the
+    process group the collectives run on."""
+
+    group: Any
+    rank: int
+    size: int
+    moments: Dict[str, Placement]
+    params: Dict[str, Placement]
+
+
+def plan_zero(named: Mapping[str, torch.Tensor], trainable: Mapping[str, bool], data_size: int,
+              *, zero_params: bool = False, zero_frozen: bool = False,
+              zero_min_size: int = 2 ** 16) -> Tuple[Dict[str, Placement], Dict[str, Placement],
+                                                     Dict[str, Spec], Dict[str, Spec]]:
+    """JAX `plan_train_shardings` on the port's parameters: (moment
+    placements of the trainables, parameter placements of all, the
+    parameters' JAX specs, the moments' JAX specs)."""
+    shapes = jax_shapes((n, t) for n, t in named.items())
+    is_train = {jax_path(n): trainable[n] for n in named}
+    specs = param_pspecs(shapes)
+    for path, shape in shapes.items():
+        if (zero_params and is_train[path]) or (zero_frozen and not is_train[path]):
+            specs[path] = zero_pspec(specs[path], shape, data_size, min_size=zero_min_size)
+    train_shapes = {p: s for p, s in shapes.items() if is_train[p]}
+    moment_specs = opt_state_pspecs(train_shapes, {p: specs[p] for p in train_shapes}, data_size)
+    port_shapes = {n: tuple(t.shape) for n, t in named.items()}
+    params = placements(port_shapes, specs, data_size)
+    moments = placements({n: s for n, s in port_shapes.items() if trainable[n]}, moment_specs,
+                         data_size)
+    return moments, params, specs, moment_specs
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-3: the parameters' persistent copy sharded, gathered per use
+# ---------------------------------------------------------------------------
+
+
+class _GatherBeforeBackward(torch.autograd.Function):
+    """Identity; its backward (which runs before the block's) gathers the
+    block's parameters."""
+
+    @staticmethod
+    def forward(ctx, h, owner, key):
+        ctx.owner, ctx.key = owner, key
+        return h.view_as(h)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.owner.gather(ctx.key)
+        return g, None, None
+
+
+class _FreeAfterBackward(torch.autograd.Function):
+    """Identity; its backward (which runs once the block's has given the
+    block's input its gradient) frees the block's parameters."""
+
+    @staticmethod
+    def forward(ctx, h, owner, key):
+        ctx.owner, ctx.key = owner, key
+        return h.view_as(h)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.owner.free(ctx.key)
+        return g, None, None
+
+
+_BLOCK = re.compile(r"^decoder\.blocks\.(\d+)\.")
+
+
+class ShardedParams:
+    """ZeRO-3's persistent copy of the parameters that `placements` shards:
+    `shards[name]` is the rank's slice; the parameter keeps its shape and
+    identity, but its storage is freed (resized to 0 bytes) between uses.
+
+    `gather(key)` refills the storage of one group of parameters from every
+    rank's slice, `free(key)` releases it. The groups are the decoder blocks
+    (key: the block's index), gathered by `enter` before the block's forward
+    and by the backward of the boundary `leave` puts on its output, and
+    freed after each (whatever remat recomputes runs between the two); and
+    "rest", every other sharded parameter. `in_step()` holds the step's
+    forward and backward: "rest" gathered throughout, `enter` / `leave`
+    active, every group freed after. Outside it `enter` / `leave` do
+    nothing, so what reads the model between steps sees the parameters as
+    they are: `whole()` gathers every group for a while (a step hook),
+    `gather_all()` for good (the model `train` returns). A saved activation
+    that refers to a parameter sees the same storage again once it is
+    gathered."""
+
+    REST = "rest"
+
+    def __init__(self, named: Mapping[str, nn.Parameter], plan: Mapping[str, Placement],
+                 group, rank: int):
+        self.group, self.rank = group, rank
+        self.params = {n: p for n, p in named.items() if plan[n].sharded}
+        self.plan = {n: plan[n] for n in self.params}
+        self.groups: Dict[Any, List[str]] = {}
+        self.shards: Dict[str, torch.Tensor] = {}
+        for n, p in self.params.items():
+            m = _BLOCK.match(n)
+            self.groups.setdefault(int(m.group(1)) if m else self.REST, []).append(n)
+            with torch.no_grad():
+                self.shards[n] = self.plan[n].local(p.detach(), rank).clone()
+                # a storage of the allocator's own, which can be resized
+                p.data = torch.empty(p.shape, dtype=p.dtype, device=p.device)
+        self.gathered = set(self.groups)
+        self.active = False
+        for key in list(self.groups):
+            self.free(key)
+
+    @property
+    def shard_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.shards.values())
+
+    @torch.no_grad()
+    def gather(self, key) -> None:
+        if key in self.gathered or key not in self.groups:
+            return
+        for n in self.groups[key]:
+            p = self.params[n]
+            p.data.untyped_storage().resize_(p.numel() * p.element_size())
+            self.assemble(n, self.shards[n], p.data)
+        self.gathered.add(key)
+
+    def assemble(self, n: str, shard: torch.Tensor, out: torch.Tensor) -> None:
+        """Every rank's `shard` of parameter n into `out` (the full tensor)."""
+        assemble(self.plan[n], shard, out, self.group, self.rank)
+
+    def free(self, key) -> None:
+        if key not in self.gathered:
+            return
+        for n in self.groups[key]:
+            self.params[n].data.untyped_storage().resize_(0)
+        self.gathered.discard(key)
+
+    def free_all(self) -> None:
+        for key in list(self.gathered):
+            self.free(key)
+
+    def gather_all(self) -> None:
+        """Every parameter whole until the next step frees it (collective)."""
+        for key in self.groups:
+            self.gather(key)
+
+    @contextlib.contextmanager
+    def whole(self):
+        """Every parameter whole inside the block, and as before after it
+        (collective: every rank enters it)."""
+        before = set(self.gathered)
+        self.gather_all()
+        try:
+            yield
+        finally:
+            for key in set(self.groups) - before:
+                self.free(key)
+
+    @contextlib.contextmanager
+    def in_step(self):
+        """The step's forward and backward (see the class)."""
+        self.gather(self.REST)
+        self.active = True
+        try:
+            yield
+        finally:
+            self.active = False
+            self.free_all()
+
+    def full(self, n: str) -> torch.Tensor:
+        """Parameter n whole, in a new tensor (collective)."""
+        p = self.params[n]
+        out = torch.empty(p.shape, dtype=p.dtype, device=p.device)
+        self.assemble(n, self.shards[n], out)
+        return out
+
+    @torch.no_grad()
+    def load_full(self, n: str, full: torch.Tensor) -> None:
+        """Set parameter n from its whole value (every rank keeps its slice)."""
+        self.shards[n].copy_(self.plan[n].local(full.to(self.shards[n].device), self.rank))
+
+    # the decoder's hooks around block i
+    def enter(self, i: int, h: torch.Tensor) -> torch.Tensor:
+        if not self.active or i not in self.groups:
+            return h
+        self.gather(i)
+        return _FreeAfterBackward.apply(h, self, i) if h.requires_grad else h
+
+    def leave(self, i: int, h: torch.Tensor) -> torch.Tensor:
+        if not self.active or i not in self.groups:
+            return h
+        self.free(i)
+        return _GatherBeforeBackward.apply(h, self, i) if h.requires_grad else h

@@ -26,9 +26,15 @@ port's evidence has two parts behind JAX's command line:
     python -m visper_lm_tpu_torch.train.aot --model llama3 --stage finetune \\
         --batch 4 --seq 4096 --offload-opt --stream-grads 8 [--run]
 
-It prints one JSON line (and appends it to `--out`). A mesh (`--topology`,
-`--dp` / `--tp` other than 1, ZeRO) waits for ROADMAP queue A item 8 and
-raises.
+With `--dp N` the breakdown is one rank's of N data-parallel processes, as
+JAX's is one chip's of its mesh: ZeRO's plan (parallel/sharding.plan_zero,
+JAX's specs on JAX's stacked shapes) splits each sharded leaf over the N
+ranks, so its bytes are divided by N: the moments always (ZeRO-1/2), the
+trainables unless `--no-zero3` (ZeRO-3, on by default as in JAX), the
+frozen parameters with `--zero-frozen`. The gradients stay whole on every
+rank until the step's reduce. `--run` measures one process (dp 1).
+`--tp`, `--topology` (a TPU slice) and `--shard-teachers` wait for tensor
+parallelism (ROADMAP queue A, item A10b) and raise.
 """
 
 from __future__ import annotations
@@ -71,10 +77,13 @@ def static_breakdown(
     cfg, *, stage: str, batch_size: int, seq_len: int, with_teachers: bool = False,
     offload_opt_state: bool = False, stream_grads: int = 0, master_weights: bool = False,
     mu_dtype: str = "float32", block_bytes: int = 256 << 20, min_bytes: int = 1 << 20,
+    dp: int = 1, zero_params: bool = False, zero_frozen: bool = False,
 ) -> Dict[str, int]:
-    """Bytes by group (see the module docstring), from shapes alone."""
+    """Bytes by group (see the module docstring), from shapes alone; with
+    dp > 1 one rank's, each ZeRO leaf's bytes divided by dp."""
     from visper_lm_tpu_torch.models.decoder import stream_chunk_ranges
     from visper_lm_tpu_torch.models.vlm import VLM
+    from visper_lm_tpu_torch.parallel.sharding import plan_zero
     from visper_lm_tpu_torch.train.optimizer import trainable_mask
     from visper_lm_tpu_torch.train.staged_update import plan_offload_layout
     from visper_lm_tpu_torch.utils.param import torch_dtype
@@ -89,13 +98,21 @@ def static_breakdown(
     named = dict(model.named_parameters())
     mask = trainable_mask(named.items(), stage)
     trainable = {n: p for n, p in named.items() if mask[n]}
+    moments, placed, _, _ = plan_zero(named, mask, dp, zero_params=zero_params,
+                                      zero_frozen=zero_frozen)
+
+    def held(n: str) -> int:
+        """The bytes of parameter n one rank keeps."""
+        return _nbytes(named[n]) // placed[n].parts
+
     mu = torch_dtype(mu_dtype)
     shapes = {}
     for n, p in trainable.items():
-        shapes[f"mu/{n}"] = (p.shape, mu)
-        shapes[f"nu/{n}"] = (p.shape, p.dtype)
+        local = moments[n].local_shape(p.shape, 0)
+        shapes[f"mu/{n}"] = (local, mu)
+        shapes[f"nu/{n}"] = (local, p.dtype)
         if master_weights:
-            shapes[f"master/{n}"] = (p.shape, torch.float32)
+            shapes[f"master/{n}"] = (local, torch.float32)
     plan = (plan_offload_layout(shapes, block_bytes=block_bytes, min_bytes=min_bytes)
             if offload_opt_state else {k: None for k in shapes})
     state = {k: int(np.prod(s)) * torch.empty((), dtype=d).element_size()
@@ -109,13 +126,13 @@ def static_breakdown(
         streamed = {n for n in trainable
                     if any(n.startswith(f"decoder.blocks.{i}.") for i in layers)}
     return {
-        "params": sum(_nbytes(p) for p in trainable.values()),
+        "params": sum(held(n) for n in trainable),
         "opt_state": sum(state.values()),
         "opt_state_device": sum(v for k, v in state.items() if plan[k] is None),
         "opt_state_host": sum(v for k, v in state.items() if plan[k] is not None),
         "grads_device": sum(_nbytes(p) for n, p in trainable.items() if n not in streamed),
         "grads_host": sum(_nbytes(p) for n, p in trainable.items() if n in streamed),
-        "frozen": sum(_nbytes(p) for n, p in named.items() if not mask[n]),
+        "frozen": sum(held(n) for n in named if not mask[n]),
         "teachers": 0 if teachers is None else sum(_nbytes(p) for p in teachers.parameters()),
         "batch": batch_bytes(cfg, batch_size, seq_len, with_teachers=with_teachers),
     }
@@ -222,9 +239,9 @@ def run_step(cfg, *, stage: str, batch_size: int, seq_len: int, with_teachers: b
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--topology", default=None, help="a TPU topology: item 8 (raises)")
-    p.add_argument("--dp", type=int, default=1)
-    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--topology", default=None, help="a TPU topology: item A10b (raises)")
+    p.add_argument("--dp", type=int, default=1, help="data-parallel ranks: one rank's breakdown")
+    p.add_argument("--tp", type=int, default=1, help="above 1: item A10b (raises)")
     p.add_argument("--batch", type=int, default=8, help="the batch on the card")
     p.add_argument("--seq", type=int, default=4096)
     p.add_argument("--model", default="llama3", choices=["llama3", "phi3"])
@@ -234,15 +251,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--remat-policy", default=None)
     p.add_argument("--no-teachers", action="store_true")
-    p.add_argument("--no-zero3", action="store_true", help="item 8 (raises)")
+    p.add_argument("--no-zero3", action="store_true",
+                   help="keep the trainables whole on every rank (the moments stay sharded)")
     p.add_argument("--offload-opt", action="store_true")
     p.add_argument("--whole-tree-staging", action="store_true")
     p.add_argument("--block-bytes", type=int, default=256 << 20)
     p.add_argument("--scan-staging", action="store_true")
     p.add_argument("--stream-grads", type=int, default=0)
     p.add_argument("--mu-dtype", default=None)
-    p.add_argument("--shard-teachers", action="store_true", help="item 8 (raises)")
-    p.add_argument("--zero-frozen", action="store_true", help="item 8 (raises)")
+    p.add_argument("--shard-teachers", action="store_true", help="item A10b (raises)")
+    p.add_argument("--zero-frozen", action="store_true",
+                   help="shard the frozen parameters over the data axis too")
     p.add_argument("--run", action="store_true",
                    help="also run a warm-up and a measured step on the card")
     p.add_argument("--device", default="cuda", help="where --run runs")
@@ -253,13 +272,15 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     multi = [flag for flag, asked in (
-        ("--topology", args.topology is not None), ("--dp", args.dp != 1), ("--tp", args.tp != 1),
-        ("--no-zero3", args.no_zero3), ("--shard-teachers", args.shard_teachers),
-        ("--zero-frozen", args.zero_frozen)) if asked]
+        ("--topology", args.topology is not None), ("--tp", args.tp != 1),
+        ("--shard-teachers", args.shard_teachers)) if asked]
     if multi:
         raise NotImplementedError(
-            f"{', '.join(multi)}: a mesh of more than one device is ROADMAP queue A item 8; "
-            "this fit is for one card")
+            f"{', '.join(multi)}: tensor parallelism (and a TPU slice's topology) is ROADMAP "
+            "queue A, item A10b; the port's mesh has a data axis only")
+    if args.run and args.dp != 1:
+        raise ValueError("--run measures one process on one card; --dp N gives one rank's "
+                         "static breakdown")
     from visper_lm_tpu_torch.config import llama3_clip_vlm, phi3_clip_vlm
 
     distill = args.stage in ("pretrain", "pretrain_full")
@@ -273,8 +294,11 @@ def main(argv=None) -> int:
         cfg, stage=stage, batch_size=args.batch, seq_len=args.seq, with_teachers=with_teachers,
         offload_opt_state=args.offload_opt, stream_grads=args.stream_grads,
         master_weights=args.master_weights, mu_dtype=mu_dtype, block_bytes=args.block_bytes,
+        dp=args.dp, zero_params=not args.no_zero3, zero_frozen=args.zero_frozen,
     )
     report: Dict[str, Any] = {
+        "mesh": {"data": args.dp, "model": args.tp}, "zero3": not args.no_zero3,
+        "zero_frozen": args.zero_frozen,
         "model": args.model, "stage": args.stage, "master_weights": args.master_weights,
         "remat_policy": args.remat_policy, "global_batch": args.batch, "seq": args.seq,
         "teachers_in_step": with_teachers, "offload_opt_state": args.offload_opt,

@@ -12,6 +12,12 @@ A step is written into a hidden temporary directory beside the others and
 renamed into place, so a directory named by a step is always complete; the
 newest `save_total_limit` are kept (all when it is 0). A step that is already on disk is not
 written again (the trainer's final save often repeats its last periodic one).
+
+In a process group every rank calls `save` and `restore`: `save` gathers a
+ZeRO-sharded state whole (`TrainStep.state_tensors`, collective) and the
+coordinator alone writes the files a one-device run writes; `restore` reads
+them on every rank, and each takes its slices for the data size it runs at
+(JAX's multi-host Orbax save and restore).
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import numpy as np
 import torch
 
 from visper_lm_tpu_torch.config import VLMConfig, config_from_json, config_to_json
+from visper_lm_tpu_torch.parallel import distributed
 from visper_lm_tpu_torch.utils.param import NamedParams, jax_flat_arrays
 
 
@@ -52,23 +59,26 @@ class CheckpointManager:
         the data-stream cursor, so that resume can fast-forward the stream
         to the first batch the run has not trained on."""
         final = self._path(step)
+        distributed.barrier()           # every rank sees the coordinator's last save
         if os.path.exists(final):
             return
-        tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
         tensors = {k: v.detach().cpu() for k, v in state.state_tensors().items()}
-        torch.save({"step": int(step), "tensors": tensors}, os.path.join(tmp, "state.pt"))
-        if cfg is not None:
-            with open(os.path.join(tmp, "config.json"), "w") as f:
-                f.write(config_to_json(cfg))
-        if data_state is not None:
-            with open(os.path.join(tmp, "data.json"), "w") as f:
-                json.dump(data_state, f)
-        os.rename(tmp, final)
-        if self.save_total_limit > 0:
-            for old in self.steps()[:-self.save_total_limit]:
-                shutil.rmtree(self._path(old), ignore_errors=True)
+        if distributed.is_coordinator():
+            tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            torch.save({"step": int(step), "tensors": tensors}, os.path.join(tmp, "state.pt"))
+            if cfg is not None:
+                with open(os.path.join(tmp, "config.json"), "w") as f:
+                    f.write(config_to_json(cfg))
+            if data_state is not None:
+                with open(os.path.join(tmp, "data.json"), "w") as f:
+                    json.dump(data_state, f)
+            os.rename(tmp, final)
+            if self.save_total_limit > 0:
+                for old in self.steps()[:-self.save_total_limit]:
+                    shutil.rmtree(self._path(old), ignore_errors=True)
+        distributed.barrier()
 
     def latest_step(self) -> Optional[int]:
         steps = self.steps()

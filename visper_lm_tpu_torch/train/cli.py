@@ -5,7 +5,7 @@ for the reference's launch scripts, with the JAX CLI's flags and stages.
   finetune (IFT)                recipes/finetune.args, recipes/vpt_ift.args
   vpt                           recipes/vpt.args
   probe                         recipes/probe.args
-  pretrain_full                 recipes/pretrain_full.args (needs item 8)
+  pretrain_full                 recipes/pretrain_full.args (needs tp: ROADMAP A10b)
 
     python -m visper_lm_tpu_torch.train.cli @recipes/pretrain.args \\
         --data-path data.json --image-folder images --tokenizer fake-whitespace \\
@@ -13,13 +13,19 @@ for the reference's launch scripts, with the JAX CLI's flags and stages.
 
 A recipe file holds one '--flag value' per line with '#' comments; flags
 given after it override it. `--device` (default cuda) is where the model
-and the step run; the tests pass `--device cpu`. One device only: the
-multi-process flags (--coordinator, --num-processes, --process-id), a mesh
-(--dp / --tp other than 1), ZeRO (--zero-params, --zero-frozen) and sharded
-teachers parse as in JAX and then raise NotImplementedError (ROADMAP queue
-A, item 8). The one-device memory levers run: --offload-opt-state (the
-moments in host memory) and --stream-grads N (the decoder blocks'
-gradients to the host in N segments); IFT at Llama-3-8B on one 80 GB card:
+and the step run; the tests pass `--device cpu`. Several processes, one a
+device, train data parallel: --coordinator / --num-processes /
+--process-id (or VISPER_COORDINATOR / VISPER_NUM_PROCESSES /
+VISPER_PROCESS_ID, or torchrun with VISPER_AUTO_DISTRIBUTED=1) start the
+runtime (NCCL on CUDA, gloo on the CPU), --per-device-batch-size is each
+process's batch, --dp sizes the data axis, and --zero-params /
+--zero-frozen shard the trainables' / the frozen parameters' persistent
+copy (ZeRO-3; the moments are always sharded). --tp above 1 and
+--shard-teachers parse as in JAX and raise NotImplementedError (tensor
+parallelism, ROADMAP queue A, item A10b). The one-device memory levers run:
+--offload-opt-state (the moments in host memory; with several processes
+each rank's slices) and --stream-grads N (the decoder blocks' gradients to
+the host in N segments; one process); IFT at Llama-3-8B on one 80 GB card:
 
     python -m visper_lm_tpu_torch.train.cli @recipes/finetune.args \
         --offload-opt-state --stream-grads 8 ...
@@ -105,7 +111,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--save-steps", type=int, default=200)
     p.add_argument("--save-total-limit", type=int, default=3)
     p.add_argument("--logging-steps", type=int, default=1)
-    # mesh / multi-process runtime: parsed, not ported (raise)
+    # mesh / multi-process runtime (--tp and --shard-teachers raise: ROADMAP A10b)
     p.add_argument("--dp", type=int, default=None)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--zero-params", action="store_true")
@@ -130,22 +136,13 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def unported_flags(args) -> List[str]:
-    """The flags asked for that need more than one device (ROADMAP queue A,
-    item 8)."""
+    """The flags asked for that need tensor parallelism (ROADMAP queue A,
+    item A10b)."""
     asked = []
-    if args.coordinator is not None:
-        asked.append("--coordinator")
-    if args.num_processes not in (None, 1):
-        asked.append("--num-processes")
-    if args.process_id not in (None, 0):
-        asked.append("--process-id")
-    if args.dp not in (None, 1):
-        asked.append("--dp")
     if args.tp != 1:
         asked.append("--tp")
-    for flag in ("zero_params", "zero_frozen", "shard_teachers"):
-        if getattr(args, flag):
-            asked.append("--" + flag.replace("_", "-"))
+    if args.shard_teachers:
+        asked.append("--shard-teachers")
     return asked
 
 
@@ -284,8 +281,15 @@ def main(argv: Optional[Sequence[str]] = None):
     asked = unported_flags(args)
     if asked:
         raise NotImplementedError(
-            f"{', '.join(asked)}: multi-device training is not ported yet "
-            "(ROADMAP queue A, item 8); the port trains on one device")
+            f"{', '.join(asked)}: tensor parallelism is not ported yet "
+            "(ROADMAP queue A, item A10b); the port trains data parallel")
+
+    from visper_lm_tpu_torch.parallel.distributed import (
+        init_distributed, local_device, process_count, process_index)
+
+    # before anything touches a device (JAX's order)
+    init_distributed(args.coordinator, args.num_processes, args.process_id, device=args.device)
+    device = str(local_device(args.device))
 
     from visper_lm_tpu_torch.config import tiny_test_vlm
     from visper_lm_tpu_torch.data.dataset import RAW_IMAGES, BatchIterator, DataConfig, SupervisedDataset
@@ -318,7 +322,8 @@ def main(argv: Optional[Sequence[str]] = None):
         it = BatchIterator(
             ds, args.per_device_batch_size, seq_buckets=buckets, seed=epoch,
             distill_tasks=distill_tasks, num_workers=args.dataloader_num_workers,
-            skip_batches=skip_batches,
+            skip_batches=skip_batches, process_index=process_index(),
+            process_count=process_count(),
         )
         size = dcfg.image_size
         for batch in it:
@@ -350,10 +355,10 @@ def main(argv: Optional[Sequence[str]] = None):
         finally:
             it.close()
 
-    model = init_vlm(cfg, device=args.device, seed=0)
+    model = init_vlm(cfg, device=device, seed=0)
     if args.init_from:
         overlay_checkpoint(model, cfg, args.init_from)
-    teacher_fn, teachers = (None, None) if args.smoke else load_teachers(args, cfg, args.device)
+    teacher_fn, teachers = (None, None) if args.smoke else load_teachers(args, cfg, device)
 
     opt_cfg = OptimizerConfig(
         learning_rate=args.lr,
@@ -374,9 +379,14 @@ def main(argv: Optional[Sequence[str]] = None):
         logging_steps=args.logging_steps,
         remat_policy=args.remat_policy,
         grad_accum_steps=args.gradient_accumulation_steps,
+        dp=args.dp,
+        tp=args.tp,
+        zero_params=args.zero_params,
+        zero_frozen=args.zero_frozen,
+        shard_teachers=args.shard_teachers,
         offload_opt_state=args.offload_opt_state,
         stream_grads=args.stream_grads,
-        device=args.device,
+        device=device,
     )
     return train(cfg, opt_cfg, trainer_cfg, model, prefetched_iter,
                  teacher_fn=teacher_fn, teacher_params=teachers)

@@ -5,7 +5,17 @@ contrastive); counterpart of visper_lm_tpu/train/losses.py.
     flag, mean over ALL elements (the mask zeroes samples, the denominator
     stays full);
   * batch-contrastive with the batch's targets as negatives, exp(scale)
-    clamped at 100, labels = arange(B) (one card: the batch is global).
+    clamped at 100, labels = arange(B).
+
+Under data parallelism (`dp`: the step's ZeRO plan, with the process
+group, this rank and the data size) each rank holds its shard of the global
+batch, and every reduction comes out as on the global batch: NTP divides
+its rank's summed NLL by the count of valid tokens summed over the ranks
+(`count`), smooth-L1 and the masked means divide by the global batch's
+element and sample counts, and the contrastive logits of the rank's rows
+run against every rank's normalised targets (`all_gather_autograd`), the
+labels offset by the rank's place in the global batch. Each rank's loss is
+then its share of the global loss, and the ranks' gradients are summed.
 
 `ntp_loss_chunked` is the shifted cross-entropy over chunks of 256
 positions, each chunk's f32 logits built inside a checkpoint and rebuilt in
@@ -23,10 +33,22 @@ from torch.utils.checkpoint import checkpoint
 
 from visper_lm_tpu_torch import constants
 from visper_lm_tpu_torch.config import VLMConfig
+from visper_lm_tpu_torch.parallel.distributed import all_gather_autograd, all_reduce
 
 
-def ntp_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Shifted cross-entropy in f32; labels == IGNORE_INDEX are excluded (mean over valid)."""
+def valid_count(labels: torch.Tensor, dp=None) -> torch.Tensor:
+    """The supervised (shifted) tokens of the batch: over every rank's shard
+    under data parallelism (an all-reduce)."""
+    count = (labels[:, 1:] != constants.IGNORE_INDEX).sum()
+    if dp is not None:
+        count = all_reduce(count.clone(), dp.group)
+    return count
+
+
+def ntp_loss(logits: torch.Tensor, labels: torch.Tensor,
+             count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Shifted cross-entropy in f32; labels == IGNORE_INDEX are excluded (mean
+    over valid; over `count` valid tokens when given: the global batch's)."""
     shift_logits = logits[:, :-1].float()
     shift_labels = labels[:, 1:].long()
     valid = shift_labels != constants.IGNORE_INDEX
@@ -34,7 +56,7 @@ def ntp_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logz = torch.logsumexp(shift_logits, dim=-1)
     gold = torch.gather(shift_logits, -1, safe[..., None])[..., 0]
     nll = torch.where(valid, logz - gold, torch.zeros_like(logz))
-    return nll.sum() / valid.sum().clamp(min=1)
+    return nll.sum() / (valid.sum() if count is None else count).clamp(min=1)
 
 
 def _chunk_nll(h: torch.Tensor, head_weight: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -52,6 +74,7 @@ def ntp_loss_chunked(
     head_weight: torch.Tensor,    # (V, D): lm_head.weight, or the tied embedding table
     labels: torch.Tensor,         # (B, T)
     chunk: int = 256,
+    count: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """JAX `ntp_loss_chunked`: the shifted cross-entropy of `ntp_loss`
     without the full (B, T, V) logits. The shifted sequence is padded to a
@@ -75,8 +98,9 @@ def ntp_loss_chunked(
                                        use_reentrant=False, preserve_rng_state=False)
         else:
             total = total + _chunk_nll(h, head_weight, lab)
-    count = (shift_labels != constants.IGNORE_INDEX).sum().clamp(min=1)
-    return total / count
+    if count is None:
+        count = (shift_labels != constants.IGNORE_INDEX).sum()
+    return total / count.clamp(min=1)
 
 
 def silog_loss(
@@ -105,16 +129,21 @@ def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0) -> to
 
 
 def contrastive_loss(
-    preds: torch.Tensor, targets: torch.Tensor, logit_scale: torch.Tensor
+    preds: torch.Tensor, targets: torch.Tensor, logit_scale: torch.Tensor, dp=None,
 ) -> torch.Tensor:
-    """Per-sample InfoNCE over the batch -> (B,)."""
+    """Per-sample InfoNCE over the (global) batch -> (B,), B this rank's rows."""
     b = preds.shape[0]
     p = preds.reshape(b, -1).float()
     t = targets.reshape(b, -1).float()
     p = p / p.norm(dim=-1, keepdim=True).clamp(min=1e-12)
     t = t / t.norm(dim=-1, keepdim=True).clamp(min=1e-12)
-    logits = (p @ t.T) * logit_scale.float().exp().clamp(max=100.0)
-    return torch.logsumexp(logits, dim=-1) - torch.diagonal(logits)
+    if dp is None:
+        logits = (p @ t.T) * logit_scale.float().exp().clamp(max=100.0)
+        return torch.logsumexp(logits, dim=-1) - torch.diagonal(logits)
+    # row i of the (B_global, B_global) logits needs pred i and every target
+    logits = (p @ all_gather_autograd(t, 0, dp.group).T) * logit_scale.float().exp().clamp(max=100.0)
+    rows = torch.arange(b, device=logits.device)
+    return torch.logsumexp(logits, dim=-1) - logits[rows, dp.rank * b + rows]
 
 
 def emb_loss(
@@ -123,14 +152,17 @@ def emb_loss(
     mask: torch.Tensor,                       # (B,) 1.0 = real image sample
     logit_scale: Optional[torch.Tensor],
     contrastive_weight: float,
+    dp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(total, smooth_l1_term, contrastive_term)."""
+    """(total, smooth_l1_term, contrastive_term); under `dp` this rank's
+    share of each mean over the global batch."""
     mask = mask.float()
     sl1 = smooth_l1(preds.float(), targets.float())
-    sl1_term = (sl1 * mask.reshape((-1,) + (1,) * (sl1.ndim - 1))).mean()
+    masked = sl1 * mask.reshape((-1,) + (1,) * (sl1.ndim - 1))
+    sl1_term = masked.mean() if dp is None else masked.sum() / (masked.numel() * dp.size)
     if logit_scale is not None:
-        cont = contrastive_loss(preds, targets, logit_scale)
-        cont_term = (contrastive_weight * cont * mask).mean()
+        cont = contrastive_weight * contrastive_loss(preds, targets, logit_scale, dp) * mask
+        cont_term = cont.mean() if dp is None else cont.sum() / (cont.numel() * dp.size)
     else:
         cont_term = torch.zeros((), dtype=torch.float32, device=preds.device)
     return sl1_term + cont_term, sl1_term, cont_term
@@ -142,9 +174,11 @@ def distill_losses(
     targets: Dict[str, torch.Tensor],          # {task: (B, N, D)}
     task_masks: Dict[str, torch.Tensor],       # {task: (B,)}
     logit_scales: Optional[Dict[str, torch.Tensor]],
+    dp=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Per-task, per-tapped-layer embedding losses, weighted by the task's
-    loss weight and summed; metrics {task}_loss / _l1_loss / _contrastive_loss."""
+    loss weight and summed; metrics {task}_loss / _l1_loss / _contrastive_loss
+    (under `dp` this rank's shares of them)."""
     d = cfg.distill
     device = next(iter(targets.values())).device if targets else None
     total = torch.zeros((), dtype=torch.float32, device=device)
@@ -162,7 +196,7 @@ def distill_losses(
         task_total = task_sl1 = task_cont = torch.zeros((), dtype=torch.float32, device=device)
         for layer_pred in preds[task]:
             loss, sl1_term, cont_term = emb_loss(
-                layer_pred, targets[task], mask, scale, d.contrastive_loss_weight
+                layer_pred, targets[task], mask, scale, d.contrastive_loss_weight, dp
             )
             task_total = task_total + loss * tcfg.loss_weight
             task_sl1 = task_sl1 + sl1_term * tcfg.loss_weight

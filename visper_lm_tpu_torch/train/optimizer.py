@@ -45,6 +45,8 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from visper_lm_tpu_torch.parallel.distributed import all_reduce
+from visper_lm_tpu_torch.parallel.sharding import assemble, scatter_grad
 from visper_lm_tpu_torch.utils.param import jax_path, torch_dtype
 
 
@@ -207,11 +209,32 @@ def jax_leaf_order(names: Iterable[str]) -> List[str]:
 
 
 class AdamW:
-    """optax adamw (+ clip_by_global_norm) over named parameters, in place."""
+    """optax adamw (+ clip_by_global_norm) over named parameters, in place.
 
-    def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], cfg: OptimizerConfig):
+    With a `zero` plan (parallel/sharding.ZeroPlan; data parallelism over
+    its process group) every rank keeps the moments and master copies of
+    its slice of each trainable only (ZeRO-1/2: the plan's moment
+    placements, JAX's `opt_state_pspecs`). `step` takes each rank's own
+    gradients (its shard of the global batch, already normalised by the
+    global counts) and sums them over the ranks: a replicated leaf's by an
+    all-reduce (every rank updates the whole leaf, as JAX), a sharded
+    leaf's by a reduce-scatter onto the rank's slice, which
+    `adam_leaf_update` updates unchanged; the updated slices are then
+    gathered into the parameters in place. A leaf's share of the global
+    norm is then the sum of its slices' f32 sums of squares, added over the
+    ranks in f32 before the cast to the leaf's dtype: the one-device sum
+    taken in another order (within a few f32 ulps of the leaf's sum, so at
+    most one ulp of a bf16 leaf's). With `sharded` (ZeRO-3:
+    parallel/sharding.ShardedParams) a parameter whose persistent copy is
+    sharded is updated in its slices, and never whole where its slices are
+    its moments'."""
+
+    def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], cfg: OptimizerConfig,
+                 *, zero=None, sharded=None):
         self.cfg = cfg
         self.params = dict(named_params)
+        self.zero, self.sharded = zero, sharded
+        self._full: Dict[str, torch.Tensor] = {}
         groups = lr_group_labels(self.params.items(), cfg, cfg.stage)
         peaks = {
             "base": cfg.learning_rate,
@@ -227,13 +250,86 @@ class AdamW:
 
     def init_state(self) -> None:
         """The moments at zero (mu in `mu_dtype`, nu in each parameter's
-        dtype) and the f32 master copies, beside the parameters."""
-        self.mu = {n: torch.zeros_like(p, dtype=self.mu_dtype) for n, p in self.params.items()}
-        self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
+        dtype) and the f32 master copies, beside the parameters (of the
+        rank's slice, under a zero plan)."""
+        self.mu, self.nu = {}, {}
+        for n, p in self.params.items():
+            shape = self.local_shape(n)
+            self.mu[n] = torch.zeros(shape, dtype=self.mu_dtype, device=p.device)
+            self.nu[n] = torch.zeros(shape, dtype=p.dtype, device=p.device)
         self.master = (
-            {n: p.detach().float().clone() for n, p in self.params.items()}
+            {n: self.local_param(n).detach().float().clone() for n in self.params}
             if self.cfg.master_weights else None
         )
+        self._full.clear()
+
+    # -- the rank's slices under a zero plan (the whole tensors without one) --
+
+    def local_shape(self, n: str) -> Tuple[int, ...]:
+        """The shape of parameter n's moments on this rank."""
+        shape = tuple(self.params[n].shape)
+        return shape if self.zero is None else self.zero.moments[n].local_shape(shape, self.zero.rank)
+
+    def local_param(self, n: str) -> torch.Tensor:
+        """The tensor whose values are this rank's slice of parameter n (its
+        moments' slice), updated in place: the parameter, a view of it, its
+        ZeRO-3 shard, or (where the shard and the moments' slice differ) a
+        slice of a gathered copy that `publish` hands back."""
+        p = self.params[n]
+        if self.zero is None:
+            return p
+        pl, rank = self.zero.moments[n], self.zero.rank
+        if self.sharded is not None and n in self.sharded.shards:
+            if self.sharded.plan[n] == pl:
+                return self.sharded.shards[n]
+            if n not in self._full:
+                self._full[n] = self.sharded.full(n)
+            return pl.local(self._full[n], rank)
+        return pl.local(p.data, rank)
+
+    def reduce_grads(self, names: List[str], grads: Dict[str, torch.Tensor]) -> None:
+        """Each rank's gradients summed over the ranks, in place of `grads`:
+        grads[n] becomes this rank's slice (`scatter_grad`)."""
+        if self.zero is None:
+            return
+        for n in names:
+            grads[n] = scatter_grad(self.zero.moments[n], grads[n].contiguous(),
+                                    self.zero.group, self.zero.rank)
+
+    @torch.no_grad()
+    def publish(self, names: List[str]) -> None:
+        """The updated slices into the parameters on every rank (a
+        replicated parameter's whole value; a ZeRO-3 shard is its own)."""
+        if self.zero is None:
+            return
+        rank, group = self.zero.rank, self.zero.group
+        for n in names:
+            pl = self.zero.moments[n]
+            if n in self._full:
+                full = self._full.pop(n)
+                assemble(pl, pl.local(full, rank), full, group, rank)
+                self.sharded.shards[n].copy_(self.sharded.plan[n].local(full, rank))
+            elif pl.sharded and not (self.sharded is not None and n in self.sharded.shards):
+                p = self.params[n].data
+                assemble(pl, pl.local(p, rank), p, group, rank)
+
+    def full_state_tensors(self) -> Dict[str, torch.Tensor]:
+        """`state_tensors` as one device holds them: under a zero plan each
+        rank's slices gathered (collective), on the host."""
+        if self.zero is None:
+            return self.state_tensors()
+        out = {}
+        for key, t in self.state_tensors().items():
+            n = key.split("/", 1)[1]
+            pl = self.zero.moments[n]
+            if not pl.sharded:
+                out[key] = t.detach().cpu()
+                continue
+            dev = self.params[n].device
+            full = torch.empty(self.params[n].shape, dtype=t.dtype, device=dev)
+            assemble(pl, t.to(dev), full, self.zero.group, self.zero.rank)
+            out[key] = full.cpu()
+        return out
 
     def state_tensors(self) -> Dict[str, torch.Tensor]:
         """The state as flat {"mu/<name>", "nu/<name>", "master/<name>"} tensors
@@ -248,11 +344,15 @@ class AdamW:
     def load_state_tensors(self, tensors: Dict[str, torch.Tensor], count: int) -> None:
         """Copy a `state_tensors` dict (and the update count) into this state;
         each tensor is cast to the state's dtype (a checkpoint with an f32
-        second moment loads into a bf16 one)."""
+        second moment loads into a bf16 one). Under a zero plan the tensors
+        are whole and each rank takes its slices."""
         for key, dst in self.state_tensors().items():
             if key not in tensors:
                 raise KeyError(f"optimizer state has no {key!r}")
-            dst.copy_(torch.as_tensor(tensors[key]))
+            src = torch.as_tensor(tensors[key])
+            if self.zero is not None:
+                src = self.zero.moments[key.split("/", 1)[1]].local(src, self.zero.rank)
+            dst.copy_(src)
         self.count = int(count)
 
     def trained(self) -> List[str]:
@@ -266,9 +366,17 @@ class AdamW:
         clipped by its own global norm) and the global norm over all (f32).
         A gradient without its `leaf_sumsq` in `sumsq` is summed beside its
         parameter."""
+        split = [n for n in names
+                 if self.zero is not None and self.zero.moments[n].sharded]
         sq = {n: sumsq[n] if sumsq and n in sumsq
               else leaf_sumsq(grads[n].to(self.params[n].device, non_blocking=True))
-              for n in names}
+              for n in names if n not in split}
+        if split:
+            # a sharded leaf's sum: its slices' f32 sums added over the ranks
+            parts = torch.stack([torch.linalg.vector_norm(grads[n], dtype=torch.float32).square()
+                                 for n in split])
+            all_reduce(parts, self.zero.group)
+            sq.update({n: v.to(grads[n].dtype) for n, v in zip(split, parts.unbind(0))})
         clips = {group: clip_divisor(combine_norm([sq[n] for n in names if self.group[n] == group]),
                                      self.cfg.max_grad_norm)
                  for group in set(self.group[n] for n in names)}
@@ -288,10 +396,12 @@ class AdamW:
         `leaf_sumsq`, taken where they were made). Returns the pre-clip
         global norm (f32)."""
         names = self.trained()
+        self.reduce_grads(names, grads)
         clips, total = self.norm_pass(names, grads, sumsq)
         self.count += 1
         for n in names:
-            adam_leaf_update(self.params[n], grads[n], self.mu[n], self.nu[n],
+            adam_leaf_update(self.local_param(n), grads[n], self.mu[n], self.nu[n],
                              None if self.master is None else self.master[n], self.cfg,
                              **self.leaf_kwargs(n, clips))
+        self.publish(names)
         return total

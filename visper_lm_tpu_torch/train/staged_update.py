@@ -31,6 +31,12 @@ where the state lives differs:
   * `blockwise=False` plans JAX's whole-tree staging layout, every tensor
     one block (JAX keeps it as a compile A/B); the same loop runs it.
 
+Under a zero plan (data parallelism, `AdamW`'s `zero`) each rank offloads
+only its own slices: the layout is planned on the local slices' shapes, as
+JAX plans on the data-sharded specs, the gradients are summed over the ranks
+before the norm pass, and the updated slices are gathered into the
+parameters after the loop.
+
 On the CPU the "host" tensors are ordinary CPU tensors and every copy is the
 identity, as JAX's host put is a no-op off the TPU: the blocks are updated
 in place, which is the math under test. A checkpoint of this state has the
@@ -121,10 +127,10 @@ class OffloadedAdamW(AdamW):
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], cfg: OptimizerConfig, *,
                  block_bytes: int = 256 << 20, min_bytes: int = 1 << 20, scan_chunks: bool = False,
-                 blockwise: bool = True):
+                 blockwise: bool = True, zero=None, sharded=None):
         self.block_bytes, self.min_bytes = block_bytes, min_bytes
         self.scan_chunks, self.blockwise = scan_chunks, blockwise
-        super().__init__(named_params, cfg)
+        super().__init__(named_params, cfg, zero=zero, sharded=sharded)
 
     def init_state(self) -> None:
         """JAX `init_opt_state_offloaded`: host zeros in one pool, the
@@ -133,10 +139,11 @@ class OffloadedAdamW(AdamW):
         self.device = next(iter(self.params.values())).device
         shapes = {}
         for n, p in self.params.items():
-            shapes[f"mu/{n}"] = (p.shape, self.mu_dtype)
-            shapes[f"nu/{n}"] = (p.shape, p.dtype)
+            local = self.local_shape(n)
+            shapes[f"mu/{n}"] = (local, self.mu_dtype)
+            shapes[f"nu/{n}"] = (local, p.dtype)
             if self.cfg.master_weights:
-                shapes[f"master/{n}"] = (p.shape, torch.float32)
+                shapes[f"master/{n}"] = (local, torch.float32)
         self.plan = plan_offload_layout(shapes, block_bytes=self.block_bytes,
                                         min_bytes=self.min_bytes, chunk=self.blockwise,
                                         scan_chunks=self.scan_chunks)
@@ -154,9 +161,11 @@ class OffloadedAdamW(AdamW):
         if self.cfg.master_weights:
             self.master = {n: state[f"master/{n}"] for n in self.params}
             with torch.no_grad():
-                for n, p in self.params.items():
+                for n in self.params:
+                    p = self.local_param(n)
                     for s, e in _blocks(self.plan[f"master/{n}"]):
                         _rows(self.master[n], s, e).copy_(_rows(p, s, e).float())
+            self._full.clear()
         cuda = self.device.type == "cuda"
         self._h2d = torch.cuda.Stream(self.device) if cuda else None
         self._d2h = torch.cuda.Stream(self.device) if cuda else None
@@ -240,6 +249,7 @@ def blockwise_staged_update(
     offloaded state through the card block by block. Returns the global
     norm (f32), as `AdamW.step` does."""
     names = opt.trained()
+    opt.reduce_grads(names, grads)
     clips, total = opt.norm_pass(names, grads, sumsq)
     opt.count += 1
     cuda = opt.device.type == "cuda"
@@ -249,7 +259,7 @@ def blockwise_staged_update(
         opt._h2d.wait_stream(compute)       # the gradients and parameters are ready
     k = 0
     for n in names:
-        p, g = opt.params[n], grads[n]
+        p, g = opt.local_param(n), grads[n]
         master = None if opt.master is None else opt.master[n]
         kw = opt.leaf_kwargs(n, clips)
         for s, e in _blocks(_placement(opt, n)):
@@ -288,4 +298,5 @@ def blockwise_staged_update(
     if cuda:
         # the next step's first reads of the host state come after these writes
         opt._h2d.wait_stream(opt._d2h)
+    opt.publish(names)
     return total

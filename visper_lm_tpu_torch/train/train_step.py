@@ -19,12 +19,25 @@ card block by block (train/staged_update.py; `blockwise_staging=False`
 plans every tensor as one block, JAX's whole-tree staging layout); `stream_grads=N` cuts the decoder blocks into N
 segments (unioned with the tap boundaries) whose weight gradients leave
 for the host as each segment's backward ends (models/decoder.GradStream).
-ZeRO, sharded teachers and meshes of more than one device wait for
-ROADMAP queue A item 8: asking for them raises.
+
+Data parallelism (`mesh`, in a process group: parallel/distributed.py)
+runs the same step on each rank's shard of the global batch. JAX writes the
+step on the global batch and lets XLA insert the collectives; here the loss
+divides by the global counts (train/losses.py), the ranks' gradients are
+summed by the optimizer's reduce, and the metrics are summed over the ranks,
+so every rank logs the global loss. ZeRO, as JAX plans it
+(parallel/sharding.plan_zero): the moments of each trainable of at least
+2^16 elements are sharded over the data axis (ZeRO-1/2, always with a
+mesh); `zero_params` keeps the trainables' persistent copy sharded
+(ZeRO-3) and `zero_frozen` the frozen parameters' (`ShardedParams`: a
+decoder block's gathered for its forward and again for its backward, the
+rest for the step). Sharded teachers need tensor parallelism and gradient
+streaming with a process group waits for it too (ROADMAP A10b): both raise.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -33,7 +46,11 @@ import torch.nn as nn
 from visper_lm_tpu_torch.config import VLMConfig
 from visper_lm_tpu_torch.models.decoder import GradStream, stream_chunk_ranges
 from visper_lm_tpu_torch.models.vlm import VLM, predict_task_embeddings, tap_layer_union, vlm_forward
-from visper_lm_tpu_torch.train.losses import distill_losses, ntp_loss, ntp_loss_chunked
+from visper_lm_tpu_torch.parallel import distributed
+from visper_lm_tpu_torch.parallel.distributed import all_reduce_scalars
+from visper_lm_tpu_torch.parallel.mesh import Mesh
+from visper_lm_tpu_torch.parallel.sharding import ShardedParams, ZeroPlan, plan_zero
+from visper_lm_tpu_torch.train.losses import distill_losses, ntp_loss, ntp_loss_chunked, valid_count
 from visper_lm_tpu_torch.train.optimizer import AdamW, OptimizerConfig, trainable_mask
 from visper_lm_tpu_torch.train.staged_update import OffloadedAdamW
 
@@ -53,14 +70,19 @@ def make_loss_fn(
     remat: bool = True,
     remat_policy: Optional[str] = None,
     use_kernel: Optional[bool] = None,
+    dp=None,
 ):
     """loss_fn(model, batch, teachers=None) -> (total, metrics), batch tensors
     on the model's device. use_kernel=False forces plain attention in the
-    decoder and in the teachers' window attention."""
+    decoder and in the teachers' window attention. dp (data parallelism: the
+    step's ZeRO plan): the batch is this rank's shard, and the loss is its
+    share of the global batch's loss."""
 
     def loss_fn(model: VLM, batch: Dict[str, torch.Tensor], teachers=None):
         b, t = batch["labels"].shape
-        chunked = uses_chunked_ce(cfg, b, t)
+        # JAX's switch sees the global batch
+        chunked = uses_chunked_ce(cfg, b * (1 if dp is None else dp.size), t)
+        count = None if dp is None else valid_count(batch["labels"], dp)
         out = vlm_forward(
             model, cfg, batch, use_kernel=use_kernel, compute_logits=not chunked,
             remat=remat, remat_policy=remat_policy,
@@ -68,9 +90,9 @@ def make_loss_fn(
         if chunked:
             dec = model.decoder
             head = dec.embed_tokens.weight if dec.lm_head is None else dec.lm_head.weight
-            text_loss = ntp_loss_chunked(out["hidden"], head, batch["labels"])
+            text_loss = ntp_loss_chunked(out["hidden"], head, batch["labels"], count=count)
         else:
-            text_loss = ntp_loss(out["logits"], batch["labels"])
+            text_loss = ntp_loss(out["logits"], batch["labels"], count=count)
         metrics: Dict[str, torch.Tensor] = {"text_loss": text_loss}
         total = text_loss
         if cfg.distill is not None and out["taps"]:
@@ -85,7 +107,7 @@ def make_loss_fn(
             ones = torch.ones((b,), dtype=torch.float32, device=batch["labels"].device)
             task_masks = {tc.task: batch.get(f"{tc.task}_mask", ones) for tc in cfg.distill.tasks}
             dloss, dmetrics = distill_losses(
-                cfg, preds, targets, task_masks, dict(model.logit_scales.items()),
+                cfg, preds, targets, task_masks, dict(model.logit_scales.items()), dp,
             )
             total = total + dloss
             metrics.update(dmetrics)
@@ -104,8 +126,10 @@ class TrainStep:
 
     def __init__(self, model: VLM, teacher_params: Optional[nn.ModuleDict],
                  trainable: Dict[str, nn.Parameter], optimizer: AdamW, loss_fn,
-                 accum_steps: int = 1, grad_stream: Optional[GradStream] = None):
+                 accum_steps: int = 1, grad_stream: Optional[GradStream] = None,
+                 zero: Optional[ZeroPlan] = None, sharded: Optional[ShardedParams] = None):
         self.model = model
+        self.zero, self.sharded = zero, sharded
         self.teacher_params = teacher_params
         self.device = next(model.parameters()).device
         self.trainable = trainable
@@ -114,6 +138,8 @@ class TrainStep:
         self.accum_steps = accum_steps
         self.grad_stream = grad_stream
         self.grad_sums: Dict[str, torch.Tensor] = {}
+        # the last step's metrics (what `__call__` returned)
+        self.last_metrics: Dict[str, float] = {}
         # CUDA events around the last update (`update_ms`)
         self._update_events: Optional[Tuple[torch.cuda.Event, torch.cuda.Event]] = None
         self.step = 0
@@ -123,17 +149,36 @@ class TrainStep:
 
     def state_tensors(self) -> Dict[str, torch.Tensor]:
         """What a checkpoint keeps besides `step`: {"params/<name>": each
-        trainable, "opt/<key>": the optimizer's moments and master weights}."""
-        out = {f"params/{n}": p for n, p in self.trainable.items()}
-        out.update({f"opt/{k}": t for k, t in self.optimizer.state_tensors().items()})
+        trainable, "opt/<key>": the optimizer's moments and master weights},
+        whole: under ZeRO every rank's slices are gathered (collective), so
+        the files are those of a one-device run."""
+        out = {f"params/{n}": self.full_param(n) for n in self.trainable}
+        out.update({f"opt/{k}": t for k, t in self.optimizer.full_state_tensors().items()})
         return out
+
+    def whole(self):
+        """A context in which every parameter of the model is whole: ZeRO-3's
+        sharded ones gathered (collective), nothing to do without them."""
+        return self.sharded.whole() if self.sharded is not None else contextlib.nullcontext()
+
+    def full_param(self, n: str) -> torch.Tensor:
+        """Trainable n whole (gathered from its ZeRO-3 slices: collective)."""
+        if self.sharded is not None and n in self.sharded.shards:
+            return self.sharded.full(n)
+        return self.trainable[n]
 
     @torch.no_grad()
     def load_state_tensors(self, tensors: Dict[str, torch.Tensor], step: int) -> None:
         """Copy a `state_tensors` dict into the trainables and the optimizer
-        state, and set the step (the optimizer's update count with it)."""
+        state, and set the step (the optimizer's update count with it).
+        Under ZeRO each rank takes its slices, whatever the data size of the
+        run that saved them."""
         for n, p in self.trainable.items():
-            p.copy_(torch.as_tensor(tensors[f"params/{n}"]))
+            src = torch.as_tensor(tensors[f"params/{n}"])
+            if self.sharded is not None and n in self.sharded.shards:
+                self.sharded.load_full(n, src)
+            else:
+                p.copy_(src)
         self.optimizer.load_state_tensors(
             {k[len("opt/"):]: v for k, v in tensors.items() if k.startswith("opt/")}, step,
         )
@@ -152,8 +197,9 @@ class TrainStep:
             p.grad = None
         if self.grad_stream is not None:
             self.grad_stream.arm()
-        total, metrics = self.loss_fn(self.model, batch, self.teacher_params)
-        total.backward()
+        with self.sharded.in_step() if self.sharded is not None else contextlib.nullcontext():
+            total, metrics = self.loss_fn(self.model, batch, self.teacher_params)
+            total.backward()
         streamed, self.grad_sums = self.grad_stream.collect() if self.grad_stream else ({}, {})
         grads = {
             n: streamed[n] if n in streamed else p.grad if p.grad is not None else torch.zeros_like(p)
@@ -189,6 +235,10 @@ class TrainStep:
             metrics, grads = self.accumulated_grads(batch)
         else:
             metrics, grads = self.loss_and_grads(batch)
+        if self.zero is not None:
+            # each rank's metrics are its shares of the global batch's
+            metrics = dict(zip(metrics, all_reduce_scalars(list(metrics.values()),
+                                                           self.zero.group)))
         if self.device.type == "cuda":
             self._update_events = (torch.cuda.Event(enable_timing=True),
                                    torch.cuda.Event(enable_timing=True))
@@ -197,7 +247,8 @@ class TrainStep:
         if self._update_events is not None:
             self._update_events[1].record()
         self.step += 1
-        return {k: float(v) for k, v in metrics.items()}
+        self.last_metrics = {k: float(v) for k, v in metrics.items()}
+        return self.last_metrics
 
     def update_ms(self) -> Optional[float]:
         """The last optimizer update's time on the card (ms), None off CUDA."""
@@ -210,15 +261,19 @@ class TrainStep:
 def check_step_options(
     device: torch.device, *, accum_steps: int = 1, zero_params: bool = False,
     zero_frozen: bool = False, shard_teachers: bool = False, offload_opt_state: bool = False,
-    blockwise_staging: bool = True, stream_grads: int = 0,
+    blockwise_staging: bool = True, stream_grads: int = 0, data_parallel: bool = False,
 ) -> None:
-    """The rules on the step's options, in one place (JAX make_train_step's asserts)."""
-    multi = [k for k, v in dict(zero_params=zero_params, zero_frozen=zero_frozen,
-                                shard_teachers=shard_teachers).items() if v]
-    if multi:
+    """The rules on the step's options, in one place (JAX make_train_step's
+    asserts). zero_params and zero_frozen are ZeRO-3 over the mesh's data
+    axis (nothing to shard without one, as on JAX's one-device mesh)."""
+    if shard_teachers:
         raise NotImplementedError(
-            f"make_train_step: {', '.join(multi)} need more than one device "
-            "(ROADMAP queue A, item 8)")
+            "make_train_step: shard_teachers splits the teachers over the 'model' axis, "
+            "which is tensor parallelism (ROADMAP queue A, item A10b)")
+    if stream_grads and data_parallel:
+        raise NotImplementedError(
+            "make_train_step: stream_grads in a process group comes with tensor "
+            "parallelism and recipes/pretrain_full.args (ROADMAP queue A, item A10b)")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, not {accum_steps}")
     if stream_grads < 0:
@@ -252,6 +307,8 @@ def make_train_step(
     scan_chunks: bool = False,
     stream_grads: int = 0,
     donate_params: bool = True,
+    mesh: Optional[Mesh] = None,
+    zero_min_size: int = 2 ** 16,
 ) -> TrainStep:
     """The single-device step: `step(batch) -> metrics`. The model's
     trainable parameters (by the stage's policy) are updated in place (JAX's
@@ -262,8 +319,11 @@ def make_train_step(
     with a leading micro-batch axis. offload_opt_state: `OffloadedAdamW`
     (blockwise_staging, block_bytes, scan_chunks: its layout);
     stream_grads=N: a `GradStream` over `stream_chunk_ranges(layers, N,
-    taps)`. `check_step_options` holds the rules; ZeRO (zero_params,
-    zero_frozen) and shard_teachers raise."""
+    taps)`. mesh (in a process group, `init_distributed`): data
+    parallelism over its data axis with ZeRO-1/2 moments, and with
+    zero_params / zero_frozen ZeRO-3 (leaves of at least zero_min_size
+    elements). `check_step_options` holds the rules; shard_teachers
+    raises."""
     if not donate_params:
         raise ValueError("make_train_step updates the parameters in place: "
                          "donate_params=False has no counterpart in the port")
@@ -271,18 +331,34 @@ def make_train_step(
     check_step_options(device, accum_steps=accum_steps, zero_params=zero_params,
                        zero_frozen=zero_frozen, shard_teachers=shard_teachers,
                        offload_opt_state=offload_opt_state,
-                       blockwise_staging=blockwise_staging, stream_grads=stream_grads)
+                       blockwise_staging=blockwise_staging, stream_grads=stream_grads,
+                       data_parallel=mesh is not None)
     mask = trainable_mask(model.named_parameters(), opt_cfg.stage)
     trainable = {n: p for n, p in model.named_parameters() if mask[n]}
     for n, p in model.named_parameters():
         p.requires_grad_(mask[n])
     if teacher_params is not None:
         teacher_params.requires_grad_(False)
+    if model.decoder.zero3 is not None:
+        raise ValueError("make_train_step: the model's parameters are already ZeRO-3 sharded")
+    zero = sharded = None
+    if mesh is not None:
+        if not distributed.is_initialized():
+            raise ValueError("make_train_step: a mesh needs the process group (init_distributed)")
+        group, rank, size = distributed.data_group(mesh)
+        named = dict(model.named_parameters())
+        moments, placed, _, _ = plan_zero(named, mask, size, zero_params=zero_params,
+                                          zero_frozen=zero_frozen, zero_min_size=zero_min_size)
+        zero = ZeroPlan(group, rank, size, moments, placed)
+        if any(pl.sharded for pl in placed.values()):
+            sharded = ShardedParams(named, placed, group, rank)
+            model.decoder.zero3 = sharded
     if offload_opt_state:
         optimizer: AdamW = OffloadedAdamW(trainable.items(), opt_cfg, block_bytes=block_bytes,
-                                          scan_chunks=scan_chunks, blockwise=blockwise_staging)
+                                          scan_chunks=scan_chunks, blockwise=blockwise_staging,
+                                          zero=zero, sharded=sharded)
     else:
-        optimizer = AdamW(trainable.items(), opt_cfg)
+        optimizer = AdamW(trainable.items(), opt_cfg, zero=zero, sharded=sharded)
     if model.decoder.grad_stream is not None:
         model.decoder.grad_stream.close()
     stream = None
@@ -291,6 +367,6 @@ def make_train_step(
         stream = GradStream(model, ranges, device)
     return TrainStep(
         model, teacher_params, trainable, optimizer,
-        make_loss_fn(cfg, teacher_fn=teacher_fn, remat=remat, remat_policy=remat_policy),
-        accum_steps=accum_steps, grad_stream=stream,
+        make_loss_fn(cfg, teacher_fn=teacher_fn, remat=remat, remat_policy=remat_policy, dp=zero),
+        accum_steps=accum_steps, grad_stream=stream, zero=zero, sharded=sharded,
     )

@@ -12,15 +12,27 @@ visper_lm_tpu/train/trainer.py), on one device.
   * resume (the default): the newest checkpoint is restored and the data
     stream fast-forwarded past the batches it trained on (the iterator's
     `skip_batches` when it takes one, else `itertools.islice`);
-  * SIGTERM asks for a checkpoint at the next step boundary, then the loop ends.
+  * SIGTERM asks for a checkpoint at the next step boundary, then the loop
+    ends; in a process group the ranks agree on it after each step (one
+    signalled rank stops them all at the same step, as a checkpoint's save
+    is collective).
 
 The device is `TrainerConfig.device`, resolved by `resolve_device` (CUDA
-when None; no quiet CPU fallback) and it must hold the model. There is no
-mesh: a config asking for more than one device raises, as do ZeRO and
-sharded teachers (in `make_train_step`). The one-device memory levers pass
-through: `offload_opt_state` (the moments in host memory, the blockwise
-staged update) and `stream_grads` (the decoder blocks' gradients to the host
-per segment).
+when None; no quiet CPU fallback) and it must hold the model. `train`
+calls `init_distributed` (a no-op unless VISPER_* start several processes,
+parallel/distributed.py); in a process group the step is data parallel over
+`make_mesh(dp, tp)`'s data axis, with ZeRO-1/2 moments and, by
+`zero_params` / `zero_frozen`, ZeRO-3 (train/train_step.py), each process
+feeding its own shard of the global batch (the caller's iterator strides
+the data: `BatchIterator`'s process_index / process_count). Only the
+coordinator writes metrics.jsonl; every rank takes part in a checkpoint's
+save, which the coordinator writes. Under ZeRO-3 the step hooks run with
+every parameter whole (`TrainStep.whole`, a gather each step that has
+hooks), and the model `train` returns is whole. tp above 1 and sharded teachers raise
+(ROADMAP A10b). The one-device memory levers pass through:
+`offload_opt_state` (the moments in host memory, the blockwise staged
+update; with data parallelism each rank's slices) and `stream_grads` (the
+decoder blocks' gradients to the host per segment; one process only).
 """
 
 from __future__ import annotations
@@ -42,6 +54,14 @@ import torch
 from visper_lm_tpu_torch.config import VLMConfig
 from visper_lm_tpu_torch.data.dataset import RAW_IMAGES
 from visper_lm_tpu_torch.device import resolve_device
+from visper_lm_tpu_torch.parallel.distributed import (
+    all_reduce_scalars,
+    init_distributed,
+    is_coordinator,
+    is_initialized,
+    local_device,
+)
+from visper_lm_tpu_torch.parallel.mesh import make_mesh
 from visper_lm_tpu_torch.train.checkpoint import CheckpointManager
 from visper_lm_tpu_torch.train.optimizer import OptimizerConfig
 from visper_lm_tpu_torch.train.train_step import TrainStep, make_train_step
@@ -56,10 +76,10 @@ class TrainerConfig:
     save_total_limit: int = 3
     logging_steps: int = 1
     seed: int = 0
-    # one device: dp / tp other than 1 raise
+    # the mesh: dp processes on the data axis (None: every process); tp > 1 raises
     dp: Optional[int] = None
     tp: int = 1
-    # ZeRO / sharded teachers: more than one device (raise)
+    # ZeRO-3 of the trainables / of the frozen parameters (sharded teachers raise)
     zero_params: bool = False
     # the moments (and master weights) in host memory, staged per block
     offload_opt_state: bool = False
@@ -83,8 +103,12 @@ class MetricsLogger:
         os.makedirs(output_dir, exist_ok=True)
         self.path = os.path.join(output_dir, "metrics.jsonl")
         self.sinks = list(sinks)
+        # rank-0 gating, as JAX's (the reference's dist.get_rank() == 0)
+        self.enabled = is_coordinator()
 
     def log(self, step: int, metrics: Dict[str, Any]) -> None:
+        if not self.enabled:
+            return
         record = {"step": step}
         for k, v in metrics.items():
             try:
@@ -196,10 +220,9 @@ def train(
     data_iter_fn(epoch) yields host batches (splice plans + images +
     targets / masks, numpy; the dataset's host-only RAW_IMAGES is dropped);
     it may also take `skip_batches`."""
-    if (trainer_cfg.dp or 1) != 1 or trainer_cfg.tp != 1:
-        raise NotImplementedError(
-            f"train: one device only (dp={trainer_cfg.dp}, tp={trainer_cfg.tp})")
-    device = resolve_device(trainer_cfg.device)
+    init_distributed(device=trainer_cfg.device)
+    mesh = make_mesh(dp=trainer_cfg.dp, tp=trainer_cfg.tp)
+    device = resolve_device(local_device(trainer_cfg.device))
     on = next(model.parameters()).device
     if on.type != device.type or (device.index is not None and on != device):
         raise ValueError(f"train: the model is on {on}, the trainer's device is {device}")
@@ -215,6 +238,7 @@ def train(
         zero_params=trainer_cfg.zero_params, zero_frozen=trainer_cfg.zero_frozen,
         offload_opt_state=trainer_cfg.offload_opt_state,
         shard_teachers=trainer_cfg.shard_teachers, stream_grads=trainer_cfg.stream_grads,
+        mesh=mesh if is_initialized() else None,
     )
 
     # preemption: SIGTERM asks for a checkpoint at the next step boundary
@@ -222,6 +246,14 @@ def train(
 
     def _on_sigterm(signum, frame):
         preempted["flag"] = True
+
+    def stop_now() -> bool:
+        """Whether a rank was asked to stop: every rank's flag summed
+        (collective), else this process's."""
+        if not is_initialized():
+            return preempted["flag"]
+        flag = torch.tensor(float(preempted["flag"]), device=device)
+        return float(all_reduce_scalars([flag])[0]) > 0
 
     try:
         prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
@@ -245,6 +277,8 @@ def train(
                           "original run's order")
 
         step = start_step
+        stop = False
+        hooks = list(step_hooks)
         t_last = time.perf_counter()
         epoch, epoch_step = start_epoch, skip_in_epoch
 
@@ -291,21 +325,27 @@ def train(
                 if step % trainer_cfg.save_steps == 0:
                     ckpt.save(step, state, cfg, data_state=cursor())
 
-                for hook in step_hooks:
-                    try:
-                        hook(step, state, dbatch)
-                    except Exception as e:  # a hook must never end training
-                        print(f"step hook failed at {step}: {e}")
+                if hooks:
+                    with state.whole():
+                        for hook in hooks:
+                            try:
+                                hook(step, state, dbatch)
+                            except Exception as e:  # a hook must never end training
+                                print(f"step hook failed at {step}: {e}")
 
-                if preempted["flag"]:
+                stop = stop_now()
+                if stop:
                     ckpt.save(step, state, cfg, data_state=cursor())
                     break
                 if done():
                     break
-            if preempted["flag"] or done():
+            if stop or done():
                 break
 
         ckpt.save(step, state, cfg, data_state=cursor())
+        if state.sharded is not None:
+            # the model handed back is whole (export, eval, generation read it)
+            state.sharded.gather_all()
     finally:
         if prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)
