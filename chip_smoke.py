@@ -126,15 +126,16 @@ Phases, each of which raises (exit code != 0) when it fails:
      speculative engine (spec_k 4, spec_quantum 4) on 8 requests, its token
      agreement with the plain engine printed (bf16 GEMMs of other shapes
      round otherwise: not bounded); `SpeculativeDecoder` (Phi3's decoder as
-     target, its first 4 blocks with the same embedding, norm and head as
-     draft) and `BeamSearchDecoder` (4 beams) on one 128-token prompt, 32
+     target, its first half of the blocks with the same embedding, norm and
+     head as draft) and `BeamSearchDecoder` (4 beams) on one 128-token prompt, 32
      tokens; an int4 engine run (phase 6's AWQ calibration) on 8 requests
      with B5 at 7 x layers + 1 launches per decoder forward. B6 must stay at 0 over
      phases 4-10;
  10. user API path (visper_lm_tpu_torch/api.py) at Llama-3-8B + CLIP-ViT-L/14-336
-     (llama3_clip_vlm with distillation heads, bf16, full width and depth,
-     seeded random weights made on the card; phases 4-9's model released
-     first) with a whitespace tokenizer defined here (the card has no
+     (llama3_clip_vlm with distillation heads, bf16, full width, cut to
+     API_LAYERS = 8 of 32 layers for time (the per-layer
+     launch counts below scale with it: "32" is the depth), seeded random
+     weights made on the card; phases 4-9's model released first) with a whitespace tokenizer defined here (the card has no
      `transformers`): B1 and B5 at Llama-3's shapes against their plain
      versions (B1: B8 at the chat batch's padded length, GQA 32/8 H128, its
      left pads, SDPA with enable_gqa as the yardstick; B5: gate/up 4096 ->
@@ -232,7 +233,8 @@ Phases, each of which raises (exit code != 0) when it fails:
      directly writes its grids; a `delta` of the heads (bf16) round-trips
      bit for bit.
  14. evaluation at Llama-3-8B + CLIP-L (made again, seed 14, phase 10's
-     tokenizer) through the port's eval package, every record with the card's
+     tokenizer; full width, cut to EVAL_LAYERS = 8 layers for time: the
+     "32"s below are the depth) through the port's eval package, every record with the card's
      name and power limit: (a) 16 CV-Bench-shaped records (test.jsonl and
      PNGs of four sizes) and 16 MMStar-shaped ones, written under the repo's
      tmp/ (removed after); (b) `run_cvbench` / `run_mmstar` in chat batches
@@ -287,7 +289,9 @@ Phases, each of which raises (exit code != 0) when it fails:
  16. data parallelism and ZeRO (every record with the card's name and power
      limit; the kernels are built by phase 2, before any rank starts): the
      one-process PT step of config #1 (Phi3-mini-4k + CLIP-L, teachers in
-     the step, B4 x T1024, save_gate, lr 1e-3 without warmup) from seeds,
+     the step, B4 x T1024, save_gate, lr 1e-3 without warmup; its decoder
+     cut to DP_LAYERS = 4 layers with the taps inside them, DP_TAPS, for
+     time) from seeds,
      3 updates on 3 batches (update 1 has lr 0, as the schedule gives it;
      2 and 3 lr 1e-3, so the moments mix two batches' gradients and the
      last loss is taken after a real update); (a) the same step in a
@@ -325,6 +329,34 @@ Phases, each of which raises (exit code != 0) when it fails:
      ones; the sampled parameter moves within 3 x (b)'s move distance +
      1e-2; each rank's peak beside the one-process peak. Any rank that
      fails or does not finish within 420 s fails the phase.
+ 17. tensor parallelism (`--phase17-rank`, `--phase17c-rank`: gloo ranks
+     sharing the card, dp 1; every record with the card's name and power
+     limit): (a) the `Generator` at Phi3-mini-4k + CLIP-L, full width and
+     depth, bf16, on phase 4's 8 x 768-token prompts, at tp 2: the prefill
+     logits within 2 x the distance between the one-process bf16 logits
+     and an f32 copy's on the plain path, of the one-process logits; the
+     greedy tokens (8 a row) equal to the one-process Generator's through
+     the first position where the one-process top-2 margin falls under
+     that tolerance (printed); the two ranks' logits and tokens bit-equal;
+     per rank B1 32 a prefill, a cache of 16 kv heads, half the decoder's
+     bytes (50-51 %), an init peak under the whole decoder's bytes, peak
+     GiB, prefill ms and decode ms/token. (b) phase 16's PT step (config #1
+     at 4 layers, its 3 global batches, 3 updates) at tp 2, plain and with
+     shard_teachers: each loss, the reduced step-1 gradients and the
+     parameter moves held to phase 16's one-process step and f32 run by
+     phase 16's bounds; the replicated trainables bit-equal on both ranks;
+     shard_teachers' losses equal to plain's, its teachers 45-60 % of their
+     bytes a rank; B1 8 / B2 4 / B3 4 / B4 48 a rank and step; per rank
+     peak GiB, the decoder's and the teachers' bytes, step ms. (c)
+     `cli.main(["@recipes/pretrain_full.args", ...])` at Llama-3-8B widths
+     cut to 8 layers (taps DP_TAPS) on four ranks (--tp 4, the recipe's
+     --zero-params --offload-opt-state --shard-teachers --stream-grads 8),
+     2 steps on phase 12's PT records, the final checkpoint recorded, not
+     written: every rank a quarter of the decoder (25-26 %), its init peak
+     under the whole decoder's bytes (no rank held it), the same finite
+     metrics on every rank, B1 16 / B2 8 / B3 8 / B4 24 a step, the pinned
+     total under 57.99 GiB; per rank peak and pinned GiB and step ms. Any
+     rank that fails or does not finish within 420 s fails the phase.
 Phase 3 also holds B1-B3 at phase 12's recipe PT shape (Llama-3-8B, B4 x
 T1024, GQA 32/8 H128, causal) against their plain versions, beside SDPA's
 forward and backward and the bound, as at the training shape.
@@ -343,6 +375,7 @@ import gc
 import importlib.util
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -370,7 +403,7 @@ SWIN_STAGES = ((512, 6), (128, 12), (32, 24), (8, 48))  # Swin-L at 768 px, micr
 ENGINE = dict(num_slots=8, max_len=1536, decode_quantum=8, admit_group=8, admit_defer=4,
               prompt_bucket=128)
 ENGINE_REQUESTS = 32
-ENGINE_LAYERS = 8              # phase 9 runs phase 4's model cut in depth (time: PR 15)
+ENGINE_LAYERS = 4              # phase 9 runs phase 4's model cut in depth (time)
 ENGINE_CHUNK = 256             # the chunked-prefill check's prefill_chunk
 # phase 10: Llama-3-8B + CLIP-L through the user API
 LLAMA3_KEYS = ("shape", "kernel", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -382,6 +415,7 @@ LLAMA3_SPECIALS = {"<|begin_of_text|>": 128000, "<|start_header_id|>": 128006,
                    "<|end_header_id|>": 128007, "<|eot_id|>": 128009, "\n": 198}
 VICUNA_SPECIALS = {"<s>": 1, "</s>": 2, "\n": 13}
 FILE_LAYERS = 2                # the safetensors file round trip's depth (full width)
+API_LAYERS = 8                 # phases 10-11's Llama-3-8B chat model, cut in depth (time)
 VICUNA_LAYERS = 4              # Vicuna-7B at full width, cut in depth
 # phase 11: anyres images (H, W) that select the grids 672x336, 336x672,
 # 672x672 and 336x1008 of JAX's grid_pinpoints: base + 2, 2, 4, 3 tiles
@@ -392,6 +426,7 @@ RECIPE_RECORDS, RECIPE_BATCH, RECIPE_STEPS = 16, 4, 3
 RECIPE_GRAD_LAYER = 16          # the IFT layer whose weight gradients are held to the plain path
 # phase 14: evaluation
 EVAL_RECORDS, EVAL_BATCH, EVAL_NEW_TOKENS = 16, 8, 8   # per benchmark; chat batch; answer tokens
+EVAL_LAYERS = 8                # phase 14's Llama-3-8B, cut in depth (time)
 EVAL_IMAGES = ((480, 640), (336, 336), (600, 400), (256, 512))   # (H, W) of the records' PNGs
 INCEPTION_IMAGES, INCEPTION_SIZE = 64, 512                       # FID features: the downscale path
 # phase 15: the memory levers
@@ -405,6 +440,13 @@ DP_STEPS, DP_LR = 3, 1e-3      # a batch each; update 1 has lr 0 (warmup ratio 0
 DP_MODES = ("plain", "zero_frozen", "zero_params")   # (b)
 DP_SAMPLE = 1 << 16            # elements of a tensor compared by sample (a fixed stride)
 DP_TIMEOUT = 420               # s for the two ranks' whole run
+DP_LAYERS = 4                  # phases 16-17 (b): config #1 cut in depth (time)
+DP_TAPS = "d3-4_s2-4_g3-4"     # its tapped layers (1-indexed, two a task), inside the cut
+# phase 17: tensor parallelism
+TP_NEW_TOKENS = 8              # (a) greedy tokens a row
+TP_MODES = ("plain", "shard_teachers")   # (b)
+TP_RECIPE_LAYERS, TP_RECIPE_STEPS = 8, 2   # (c) Llama-3-8B cut in depth, steps
+TP_TIMEOUT = 420               # s for each spawn's whole run
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1551,14 +1593,14 @@ def engine_phase(cfg, model, act_rms, fa, qm) -> dict:
     del spec
     release()
 
-    # SpeculativeDecoder: Phi3's decoder as the target, its first 4 blocks with
-    # the same embedding, norm and head as the draft; BeamSearchDecoder
+    # SpeculativeDecoder: Phi3's decoder as the target, its first half of the
+    # blocks with the same embedding, norm and head as the draft; BeamSearchDecoder
     target = model.decoder
     with torch.device("meta"):
-        draft = Decoder(dataclasses.replace(d, num_layers=4))
+        draft = Decoder(dataclasses.replace(d, num_layers=d.num_layers // 2))
     draft.embed_tokens, draft.final_norm, draft.lm_head = (
         target.embed_tokens, target.final_norm, target.lm_head)
-    draft.blocks = torch.nn.ModuleList(target.blocks[:4])
+    draft.blocks = torch.nn.ModuleList(target.blocks[:d.num_layers // 2])
     prompt = np.random.default_rng(1).integers(3, d.vocab_size - 10, size=128).tolist()
     t0 = time.perf_counter()
     s_out, s_stats = SpeculativeDecoder(target, draft.eval(), k=4, max_len=512).generate(
@@ -1670,6 +1712,7 @@ def api_phase(fa, qm, da, param, gen):
 
     out = {}
     cfg = llama3_clip_vlm(distill=True, image_aspect_ratio="pad")   # LLaVA-1.5's padding
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, num_layers=API_LAYERS))
     d = cfg.decoder
     per_forward = 7 * d.num_layers + 1
     tok = WordTokenizer(d.vocab_size, LLAMA3_SPECIALS, bos=128000, eos=128009, first_word=256)
@@ -2815,6 +2858,8 @@ def eval_phase(fa, smi: str) -> dict:
               "OlympiadBench's sympy judge failed")
         check(len(lmms_tasks.task_builders()) == 39, "lmms_tasks registry")
         cfg = llama3_clip_vlm(distill=True, image_aspect_ratio="pad")
+        cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder,
+                                                                   num_layers=EVAL_LAYERS))
         d = cfg.decoder
         tok = WordTokenizer(d.vocab_size, LLAMA3_SPECIALS, bos=128000, eos=128009, first_word=256)
         t0 = time.perf_counter()
@@ -2871,7 +2916,8 @@ def eval_phase(fa, smi: str) -> dict:
         fa.launches = 0
         res, ms = synced_ms(lambda: harness.evaluate(lm, [harness.cvbench_task(cv_data[:EVAL_BATCH])]))
         check(lm.errors == [], f"generate_until caught {lm.errors}")
-        check(fa.launches == d.num_layers, f"evaluate: B1 {fa.launches} launches, want 32")
+        check(fa.launches == d.num_layers,
+              f"evaluate: B1 {fa.launches} launches, want {d.num_layers}")
         check(set(res) == {"cvbench"} and "exact_match" in res["cvbench"]
               and 0.0 <= harness.cvbench_overall(res["cvbench"]) <= 1.0, f"evaluate {res}")
         launches["evaluate"] = fa.launches
@@ -2885,7 +2931,8 @@ def eval_phase(fa, smi: str) -> dict:
         fa.launches = 0
         ll, ll_ms = synced_ms(lambda: lm.loglikelihood(reqs))
         check(fa.launches == len(reqs) * d.num_layers,
-              f"loglikelihood: B1 {fa.launches} launches for {len(reqs)} requests, want 32 each")
+              f"loglikelihood: B1 {fa.launches} launches for {len(reqs)} requests, want "
+              f"{d.num_layers} each")
         check(all(np.isfinite(lp) and lp < 0 for lp, _ in ll), f"loglikelihood {ll}")
         launches["loglikelihood"] = fa.launches
         texts = [words(n) for n in (30, 120, 250)]     # T 128, 128, 256
@@ -2893,7 +2940,8 @@ def eval_phase(fa, smi: str) -> dict:
         rolling, roll_ms = synced_ms(lambda: lm.loglikelihood_rolling(
             [harness.Instance(args=(t,)) for t in texts]))
         check(fa.launches == len(texts) * d.num_layers,
-              f"loglikelihood_rolling: B1 {fa.launches} launches for {len(texts)} requests, want 32 each")
+              f"loglikelihood_rolling: B1 {fa.launches} launches for {len(texts)} requests, want "
+              f"{d.num_layers} each")
         check(all(np.isfinite(s) and s < 0 for s in rolling), f"loglikelihood_rolling {rolling}")
         launches["loglikelihood_rolling"] = fa.launches
         check(lm.errors == [], f"the adapter caught {lm.errors}")
@@ -3365,9 +3413,9 @@ def dp_grads(step) -> dict:
     zeros outside this rank's slice)}, filled by that update."""
     opt, kept = step.optimizer, {}
 
-    def reduce_grads(names, grads):
+    def reduce_grads(names, grads, reduced=()):
         del opt.reduce_grads                  # once: the class's method again
-        opt.reduce_grads(names, grads)
+        opt.reduce_grads(names, grads, reduced)
         for n in names:
             pl = None if opt.zero is None else opt.zero.moments[n]
             if pl is None or not pl.sharded:
@@ -3456,7 +3504,6 @@ def dp_rank(argv) -> int:
     (b) the PT step of config #1 on its 2 rows of each global batch, as
     plain dp, zero_frozen and zero_params; (c) IFT at Phi3-mini with ZeRO-2
     moments. Writes what it measured to DIR/rank<R>.pt."""
-    from visper_lm_tpu_torch.config import phi3_clip_vlm
     from visper_lm_tpu_torch.models.teachers import init_teachers, make_teacher_fn
     from visper_lm_tpu_torch.models.vlm import init_vlm
     from visper_lm_tpu_torch.parallel import distributed as D
@@ -3488,7 +3535,7 @@ def dp_rank(argv) -> int:
                      if name.startswith(prefix))
         return n
 
-    cfg = phi3_clip_vlm(distill=True)
+    cfg = dp_config(distill=True)
     local = shards(dp_batches(cfg, pt=True))
     teachers = init_teachers(cfg, device=dev, seed=7)
     tfn = make_teacher_fn(cfg)
@@ -3518,7 +3565,7 @@ def dp_rank(argv) -> int:
 
     # (c) IFT at Phi3-mini, ZeRO-2 moments
     t0 = time.perf_counter()
-    cfg = phi3_clip_vlm(distill=False)
+    cfg = dp_config(distill=False)
     local = shards(dp_batches(cfg, pt=False))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3544,13 +3591,27 @@ def dp_rank(argv) -> int:
     return 0
 
 
-def dp_phase(smi: str) -> dict:
+def dp_config(distill: bool):
+    """Phases 16-17's Phi3-mini + CLIP-L (config #1 with distill), cut to
+    DP_LAYERS layers with its taps inside them (DP_TAPS)."""
+    import dataclasses
+
+    from visper_lm_tpu_torch.config import make_distill_config, phi3_clip_vlm
+
+    cfg = phi3_clip_vlm(distill=distill)
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, num_layers=DP_LAYERS))
+    if distill:
+        cfg = dataclasses.replace(cfg, distill=make_distill_config(layer_indices=DP_TAPS))
+    return cfg
+
+
+def dp_phase(smi: str, keep=None) -> dict:
     """Phase 16: data parallelism and ZeRO on the card (see the module
-    docstring). Returns the record printed as `dp_path`."""
+    docstring). Returns the record printed as `dp_path`; `keep` gets the
+    one-process PT step's references (phase 17 (b) holds its ranks to them)."""
     import shutil
     import socket
 
-    from visper_lm_tpu_torch.config import phi3_clip_vlm
     from visper_lm_tpu_torch.models.teachers import init_teachers, make_teacher_fn
     from visper_lm_tpu_torch.models.vlm import init_vlm
     from visper_lm_tpu_torch.parallel import distributed as D
@@ -3568,7 +3629,7 @@ def dp_phase(smi: str) -> dict:
             sock.bind(("localhost", 0))
             return sock.getsockname()[1]
 
-    cfg = phi3_clip_vlm(distill=True)
+    cfg = dp_config(distill=True)
     batches = dp_batches(cfg, pt=True)
     try:
         # the one-process PT step of config #1 (phase 8's, save_gate), from seeds
@@ -3674,13 +3735,17 @@ def dp_phase(smi: str) -> dict:
               f"not beyond 3 x its tolerance {tol_last:.3g}")
         check(3 * e_1 + 1e-2 <= 0.75, f"phase 16: bf16 moves {e_1:.3g} from f32, too far to "
               f"tell an update from none")
+        if keep is not None:
+            keep.update(cfg=cfg, batches=batches, losses=one["losses"], losses_f=losses_f,
+                        p0=p0, move_1=move_1, move_f=move_f, e_1=e_1, g_f=g_f, d_grad=d_grad,
+                        launches=want)
         del model, teachers, init
         release_cuda()
         pt_s = time.perf_counter() - t0
 
         # the one-process IFT step at Phi3-mini: (c)'s reference
         t0 = time.perf_counter()
-        cfg_i = phi3_clip_vlm(distill=False)
+        cfg_i = dp_config(distill=False)
         batches_i = dp_batches(cfg_i, pt=False)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3827,6 +3892,457 @@ def dp_phase(smi: str) -> dict:
     return out
 
 
+@torch.no_grad()
+def greedy_margins(generator, batch, n: int):
+    """Greedy decoding of `n` tokens a row through the Generator's prefill
+    and its decoder (a step at a time), with each step's top-2 logit margin:
+    ((n, B) tokens, (n, B) margins) on the host."""
+    logits, cache = generator.prefill(batch)
+    offsets = torch.as_tensor(batch["pad_offsets"], device=generator.device).long()
+    b = offsets.shape[0]
+    tokens, margins = [], []
+    for i in range(n):
+        top = logits.topk(2, dim=-1).values
+        margins.append((top[:, 0] - top[:, 1]).float().cpu())
+        token = logits.argmax(-1)
+        tokens.append(token.cpu())
+        if i + 1 == n:
+            break
+        slot = torch.full((), generator.prompt_len + i, dtype=torch.long, device=generator.device)
+        dec = generator.decoder
+        out = dec(dec.embed(token[:, None]), positions=(slot - offsets)[:, None],
+                  kv_lengths=(slot + 1).expand(b), kv_starts=offsets, cache=cache, q_offset=slot)
+        logits = out["logits"][:, 0]
+    return torch.stack(tokens), torch.stack(margins)
+
+
+def decoder_bytes(model) -> int:
+    """Bytes of the decoder's parameters this process holds."""
+    return sum(p.numel() * p.element_size() for p in model.decoder.parameters())
+
+
+def held_bytes(params) -> int:
+    """Bytes of the storage behind `params` (a freed ZeRO / teacher slice holds 0)."""
+    return sum(p.untyped_storage().nbytes() for p in params)
+
+
+def tp_rank(argv) -> int:
+    """One of phase 17's two tensor-parallel ranks (`chip_smoke.py
+    --phase17-rank R PORT DIR`, dp 1 x tp 2 sharing the card over gloo):
+    (a) the Generator at Phi3-mini + CLIP-L, full width and depth, bf16, on
+    phase 4's batch; (b) config #1's PT step (phase 16's depth-cut model)
+    with and without shard_teachers on phase 16's 3 global batches. Writes
+    what it measured to DIR/rank<R>.pt."""
+    from visper_lm_tpu_torch.config import phi3_clip_vlm
+    from visper_lm_tpu_torch.models.teachers import init_teachers, make_teacher_fn
+    from visper_lm_tpu_torch.models.vlm import init_vlm
+    from visper_lm_tpu_torch.parallel import distributed as D
+    from visper_lm_tpu_torch.parallel.tensor import tensor_parallel
+    from visper_lm_tpu_torch.serve.generate import GenerationConfig, Generator
+    from visper_lm_tpu_torch.train.train_step import make_train_step
+
+    rank, port, root = int(argv[0]), int(argv[1]), Path(argv[2])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    D.init_distributed(f"localhost:{port}", 2, rank, local_device_ids=[0], device="cuda",
+                       backend="gloo")
+    mesh = D.make_global_mesh(dp=1, tp=2)
+    tp = tensor_parallel(mesh)
+    dev = torch.device("cuda", 0)
+    reset, read = dp_counters()
+    out = dict(backend=str(torch.distributed.get_backend()), start_s=time.perf_counter() - t_start)
+
+    # (a) serving: each rank half the heads and the MLP, the logits gathered
+    cfg = phi3_clip_vlm(distill=True)
+    batch = main_path_batch(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_vlm(cfg, device=dev, seed=0, tp=tp)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    rec = dict(init_s=time.perf_counter() - t0, init_peak_gib=init_peak / 2**30,
+               decoder_gib=decoder_bytes(model) / 2**30)
+    generator = Generator(model, cfg, GenerationConfig(max_new_tokens=TP_NEW_TOKENS), BATCH,
+                          PROMPT_LEN, device=dev)
+    generator.prefill(batch)                       # warm-up
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = generator.prefill(batch)
+    torch.cuda.synchronize()
+    rec["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    rec["prefill_launches"] = read()["flash_fwd"]
+    rec["cache_heads"] = int(cache.k.shape[3])
+    rec["logits"] = logits.float().cpu()
+    del cache
+    t0 = time.perf_counter()
+    rec["tokens"] = generator.generate(batch)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    steps = -(-TP_NEW_TOKENS // generator.gen_cfg.decode_chunk) * generator.gen_cfg.decode_chunk
+    rec["decode_ms_per_token"] = (gen_ms - rec["prefill_ms"]) / steps
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["a"] = rec
+    del generator, model, logits
+    release_cuda()
+
+    # (b) config #1's PT step, the whole global batch on each rank
+    cfg = dp_config(distill=True)
+    local = [D.shard_batch_multihost(b, mesh, device=dev) for b in dp_batches(cfg, pt=True)]
+    tfn = make_teacher_fn(cfg)
+    for mode in TP_MODES:
+        t0 = time.perf_counter()
+        teachers = init_teachers(cfg, device=dev, seed=7)
+        teacher_whole = held_bytes(teachers.parameters())
+        model = init_vlm(cfg, device=dev, seed=0, tp=tp)
+        step = make_train_step(cfg, dp_opt_cfg("pretrain"), model, teacher_fn=tfn,
+                               teacher_params=teachers, remat_policy="save_gate", mesh=mesh,
+                               shard_teachers=mode == "shard_teachers")
+        held_t = held_bytes(teachers.parameters())
+        if step.teacher_sharded is not None:
+            held_t += step.teacher_sharded.shard_bytes
+        rec = dict(decoder_gib=decoder_bytes(model) / 2**30, teachers_gib=held_t / 2**30,
+                   teachers_whole_gib=teacher_whole / 2**30)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec["grads"] = dp_grads(step)
+        rec.update(dp_steps(step, local, reset, read))
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        # every trainable is replicated over tp (PT trains no Megatron leaf):
+        # rank 0's bytes against this rank's, whole
+        same = True
+        for p in step.trainable.values():
+            mine = p.detach().contiguous()
+            theirs = D.broadcast(mine.clone(), 0)
+            same &= bool(torch.equal(mine, theirs))
+        rec["replicas_bit_equal"] = same
+        rec["trainables"] = ({n: p.detach().cpu() for n, p in step.trainable.items()}
+                             if rank == 0 else None)
+        rec["seconds"] = time.perf_counter() - t0
+        out[mode] = rec
+        del step, model, teachers
+        release_cuda()
+    out["seconds"] = time.perf_counter() - t_start
+    torch.save(out, root / f"rank{rank}.pt")
+    D.barrier()
+    D.shutdown()
+    return 0
+
+
+def tp_recipe_rank(argv) -> int:
+    """One of phase 17 (c)'s four ranks (`chip_smoke.py --phase17c-rank R
+    PORT DIR`): `cli.main(["@recipes/pretrain_full.args", ...])` at
+    Llama-3-8B full width, cut to TP_RECIPE_LAYERS layers, --tp 4 over gloo
+    on the one card, TP_RECIPE_STEPS steps on phase 12's PT records. Writes
+    what it measured to DIR/rank<R>.pt."""
+    import dataclasses
+    from unittest import mock
+
+    from visper_lm_tpu_torch.models import vlm as vlm_lib
+    from visper_lm_tpu_torch.parallel import distributed as D
+    from visper_lm_tpu_torch.train import cli
+    from visper_lm_tpu_torch.train import train_step as ts
+    from visper_lm_tpu_torch.train.checkpoint import CheckpointManager
+
+    rank, port, root = int(argv[0]), int(argv[1]), Path(argv[2])
+    t_start = time.perf_counter()
+    D.init_distributed(f"localhost:{port}", 4, rank, local_device_ids=[0], device="cuda",
+                       backend="gloo")
+    reset, read = dp_counters()
+    out = dict(backend=str(torch.distributed.get_backend()))
+    repo = Path(__file__).resolve().parent
+    data = json.loads((root / "data.json").read_text())
+    build_cfg, init, call = cli.build_vlm_config, vlm_lib.init_vlm, ts.TrainStep.__call__
+
+    def cut(args):
+        cfg = build_cfg(args)
+        return dataclasses.replace(cfg, decoder=dataclasses.replace(
+            cfg.decoder, num_layers=TP_RECIPE_LAYERS))
+
+    def init_vlm(cfg, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model = init(cfg, **kw)
+        torch.cuda.synchronize()
+        out.update(init_peak_bytes=torch.cuda.max_memory_allocated(),
+                   decoder_bytes=decoder_bytes(model))
+        return model
+
+    step_ms, launches = [], []
+
+    def timed_call(self, batch):
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = call(self, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(read())
+        return metrics
+
+    saves = []
+    argv_cli = [f"@{repo / 'recipes' / 'pretrain_full.args'}", "--layer-indices", DP_TAPS,
+                "--data-path", data["pt"], "--image-folder", data["images"], "--tokenizer",
+                "fake-whitespace", "--output-dir", str(root / "run"), "--max-steps",
+                str(TP_RECIPE_STEPS), "--seq-buckets", "1024,2048"]
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(cli, "build_vlm_config", cut), \
+            mock.patch.object(vlm_lib, "init_vlm", init_vlm), \
+            mock.patch.object(ts.TrainStep, "__call__", timed_call), \
+            mock.patch.object(CheckpointManager, "save",
+                              lambda self, step, *a, **k: saves.append(step)):
+        state = cli.main(argv_cli)
+    torch.cuda.synchronize()
+    opt, stream = state.optimizer, state.grad_stream
+    out.update(
+        step_ms=step_ms, launches=launches, metrics=state.last_metrics, saves=saves,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        pinned_gib=(opt.host_bytes + (stream.host_bytes if stream is not None else 0)) / 2**30,
+        optimizer=type(opt).__name__, streamed=stream is not None,
+        tp=state.model.decoder.tp.size, layers=state.model.cfg.decoder.num_layers,
+        teacher_split=0 if state.teacher_sharded is None else len(state.teacher_sharded.shards),
+        teachers_gib=(held_bytes(state.teacher_params.parameters()) + (
+            state.teacher_sharded.shard_bytes if state.teacher_sharded else 0)) / 2**30,
+        seconds=time.perf_counter() - t_start)
+    torch.save(out, root / f"rank{rank}.pt")
+    D.barrier()
+    D.shutdown()
+    return 0
+
+
+def spawn_ranks(flag: str, world: int, root: Path, name: str) -> list:
+    """`world` processes of this script (`flag R PORT DIR`) from a free port,
+    each logging to DIR/rank<R>.log; waits for all within TP_TIMEOUT, kills
+    what is left, prints a failed rank's log and fails the phase unless
+    every rank exits 0. Returns the ranks' records."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONHASHSEED="0")
+    logs = [open(root / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), flag, str(r),
+                               str(port), str(root)], stdout=logs[r], stderr=subprocess.STDOUT,
+                              env=env) for r in range(world)]
+    deadline = time.perf_counter() + TP_TIMEOUT
+    try:
+        codes = [p.wait(timeout=max(deadline - time.perf_counter(), 0)) for p in procs]
+    except subprocess.TimeoutExpired:
+        codes = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r in range(world):
+        if codes is None or codes[r] != 0:
+            print(f"{name} rank {r} log (tail):\n{(root / f'rank{r}.log').read_text()[-3000:]}")
+    check(codes is not None, f"{name}: the ranks did not finish within {TP_TIMEOUT} s")
+    check(codes == [0] * world, f"{name}: rank exit codes {codes}")
+    return [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def tp_phase(smi: str, ref: dict) -> dict:
+    """Phase 17: tensor parallelism on the card (see the module docstring);
+    `ref`: phase 16's one-process PT references. Returns the record printed
+    as `tp_path`."""
+    import dataclasses
+    import shutil
+
+    from visper_lm_tpu_torch import native
+    from visper_lm_tpu_torch.config import LLAMA3_8B, phi3_clip_vlm
+    from visper_lm_tpu_torch.models.decoder import Decoder
+    from visper_lm_tpu_torch.models.vlm import init_vlm
+    from visper_lm_tpu_torch.serve.generate import GenerationConfig, Generator
+
+    root = Path(__file__).resolve().parent / "tmp" / "chip_smoke_tp"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out = dict(card=smi)
+    try:
+        # (a)'s one-process references: phase 4's model and batch, bf16, and
+        # the same weights in f32 on the plain path
+        t0 = time.perf_counter()
+        cfg = phi3_clip_vlm(distill=True)
+        batch = main_path_batch(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        model = init_vlm(cfg, device="cuda", seed=0)
+        one_dec = decoder_bytes(model)
+        gen_cfg = GenerationConfig(max_new_tokens=TP_NEW_TOKENS)
+        generator = Generator(model, cfg, gen_cfg, BATCH, PROMPT_LEN, device="cuda")
+        logits_1 = generator.prefill(batch)[0].float().cpu()
+        tokens_1, margins_1 = greedy_margins(generator, batch, TP_NEW_TOKENS)
+        gen_1 = generator.generate(batch)
+        check(gen_1 == tokens_1.T.tolist(), "phase 17 (a): the margins' greedy decode is not "
+              "the Generator's")
+        one_peak = torch.cuda.max_memory_allocated() / 2**30
+        del generator
+        model.float()
+        logits_f = Generator(model, cfg, gen_cfg, BATCH, PROMPT_LEN, cache_dtype=torch.float32,
+                             device="cuda").prefill(batch, use_kernel=False)[0].float().cpu()
+        del model
+        release_cuda()
+        e_bf16 = float((logits_1 - logits_f).abs().max())
+        tol = 2 * e_bf16
+        ref_s = time.perf_counter() - t0
+
+        # (a) and (b): two ranks, dp 1 x tp 2
+        t0 = time.perf_counter()
+        ranks = spawn_ranks("--phase17-rank", 2, root, "phase 17 (a)-(b)")
+        ranks_s = time.perf_counter() - t0
+        check(all(r["backend"] == "gloo" for r in ranks), "phase 17: the ranks did not run gloo")
+        a = [r["a"] for r in ranks]
+        check(torch.equal(a[0]["logits"], a[1]["logits"]) and a[0]["tokens"] == a[1]["tokens"],
+              "phase 17 (a): the tp ranks' logits or tokens differ")
+        d_tp = float((a[0]["logits"] - logits_1).abs().max())
+        check(d_tp <= tol, f"phase 17 (a): prefill logits {d_tp:.4g} from the one-process run's, "
+              f"beyond 2 x the bf16-vs-f32 distance {e_bf16:.4g}")
+        low = margins_1 < tol                     # (n, B): the one-process margin under tol
+        first_low = [int(low[:, i].nonzero()[0]) if low[:, i].any() else TP_NEW_TOKENS
+                     for i in range(BATCH)]
+        agree = [next((j for j in range(TP_NEW_TOKENS) if a[0]["tokens"][i][j] != gen_1[i][j]),
+                      TP_NEW_TOKENS) for i in range(BATCH)]
+        check(all(g >= f for g, f in zip(agree, first_low)),
+              f"phase 17 (a): tokens differ at {agree} before the first position where the "
+              f"one-process top-2 margin falls under {tol:.4g} ({first_low})")
+        for r, rec in enumerate(a):
+            check(rec["prefill_launches"] == cfg.decoder.num_layers,
+                  f"phase 17 (a) rank {r}: {rec['prefill_launches']} B1 launches a prefill")
+            check(rec["cache_heads"] == cfg.decoder.num_kv_heads // 2,
+                  f"phase 17 (a) rank {r}: a cache of {rec['cache_heads']} kv heads")
+            share = rec["decoder_gib"] * 2**30 / one_dec
+            check(0.5 <= share <= 0.51, f"phase 17 (a) rank {r}: {share:.3f} of the decoder")
+            check(rec["init_peak_gib"] * 2**30 < one_dec, f"phase 17 (a) rank {r}: the init "
+                  f"peak {rec['init_peak_gib']:.2f} GiB reaches the whole decoder's bytes")
+        out["a"] = dict(
+            logits_max_abs_to_one=d_tp, bf16_to_f32=e_bf16, tolerance=tol, tokens_agree=agree,
+            first_low_margin=first_low, one_process=dict(peak_gib=one_peak,
+                                                         decoder_gib=one_dec / 2**30),
+            ranks=[{k: v for k, v in rec.items() if k not in ("logits", "tokens")} for rec in a])
+        for r, rec in enumerate(out["a"]["ranks"]):
+            print(f"phase 17 (a) rank {r}: B1 {rec['prefill_launches']} a prefill, peak "
+                  f"{rec['peak_gib']:.2f} GiB (decoder {rec['decoder_gib']:.2f} of "
+                  f"{one_dec / 2**30:.2f}), prefill {rec['prefill_ms']:.1f} ms, decode "
+                  f"{rec['decode_ms_per_token']:.1f} ms/token [{smi}]")
+        print(f"phase 17 (a): prefill logits {d_tp:.4g} from one process (bf16 vs f32 "
+              f"{e_bf16:.4g}, tolerance {tol:.4g}); greedy tokens equal through positions "
+              f"{agree} (one-process margin first under the tolerance at {first_low})")
+
+        # (b): each mode against the one-process step and the f32 run of phase 16
+        cfg_b = ref["cfg"]
+        b = {}
+        for mode in TP_MODES:
+            recs = [r[mode] for r in ranks]
+            check(recs[0]["losses"] == recs[1]["losses"],
+                  f"phase 17 (b) {mode}: the ranks' losses differ")
+            for r, rr in enumerate(recs):
+                check(all(c == ref["launches"] for c in rr["launches"]),
+                      f"phase 17 (b) {mode} rank {r}: launches {rr['launches']}, expected "
+                      f"{ref['launches']} a step")
+            for x, c, f in zip(recs[0]["losses"], ref["losses"], ref["losses_f"]):
+                check(abs(x - c) <= 2 * abs(c - f) + 1e-4 * abs(c),
+                      f"phase 17 (b) {mode}: loss {x} vs one process {c} (f32 {f})")
+            g_m, replicas_equal = dp_reduced([rr["grads"] for rr in recs])
+            check(replicas_equal, f"phase 17 (b) {mode}: a gradient differs between the tp ranks")
+            d_grad = rel_fro(g_m, ref["g_f"])
+            check(d_grad <= ref["d_grad"] + 1e-2,
+                  f"phase 17 (b) {mode}: gradients {d_grad:.4g} from f32 (one process "
+                  f"{ref['d_grad']:.4g})")
+            same = all(rr["replicas_bit_equal"] for rr in recs)
+            check(same, f"phase 17 (b) {mode}: the replicated trainables differ between tp ranks")
+            e_1 = ref["e_1"]
+            moves = delta_record(deltas(recs[0]["trainables"], ref["p0"]), ref["move_1"],
+                                 ref["move_f"], DP_LR)
+            check(moves["rel_frobenius_to_f32"] <= 2 * e_1 + 1e-3 and
+                  moves["rel_frobenius"] <= 3 * e_1 + 1e-3,
+                  f"phase 17 (b) {mode}: parameter moves {moves} (one process {e_1:.4g} from f32)")
+            b[mode] = dict(losses=recs[0]["losses"], grads_rel_frobenius_to_f32=d_grad,
+                           moves=moves, replicas_bit_equal=same,
+                           ranks=[dict(peak_gib=rr["peak_gib"], decoder_gib=rr["decoder_gib"],
+                                       teachers_gib=rr["teachers_gib"],
+                                       teachers_whole_gib=rr["teachers_whole_gib"],
+                                       launches_per_step=rr["launches"][-1],
+                                       step_ms=rr["step_ms"], seconds=rr["seconds"])
+                                  for rr in recs])
+            for r, rr in enumerate(b[mode]["ranks"]):
+                print(f"phase 17 (b) {mode} rank {r}: peak {rr['peak_gib']:.2f} GiB, decoder "
+                      f"{rr['decoder_gib']:.3f} GiB, teachers {rr['teachers_gib']:.3f} of "
+                      f"{rr['teachers_whole_gib']:.3f} GiB, B1-B4 a step "
+                      f"{rr['launches_per_step']}, step ms "
+                      f"{', '.join(f'{x:.1f}' for x in rr['step_ms'])} [{smi}]")
+            print(f"phase 17 (b) {mode}: losses {recs[0]['losses']} (one process "
+                  f"{ref['losses']}); gradients rel Frobenius to f32 {d_grad:.4g}; moves "
+                  f"{json.dumps(moves)}; replicated trainables bit-equal across tp {same}")
+        check(b["plain"]["losses"] == b["shard_teachers"]["losses"],
+              "phase 17 (b): shard_teachers changes the losses")
+        for r in range(2):
+            share = b["shard_teachers"]["ranks"][r]["teachers_gib"] / b["plain"]["ranks"][r]["teachers_gib"]
+            check(0.45 <= share <= 0.6, f"phase 17 (b): shard_teachers keeps {share:.3f} of the "
+                  f"teachers' bytes")
+        out["b"] = b
+
+        # (c): the pretrain_full recipe at Llama-3-8B widths on four ranks
+        t0 = time.perf_counter()
+        shutil.rmtree(root, ignore_errors=True)
+        root.mkdir(parents=True)
+        data = recipe_dataset(root)
+        (root / "data.json").write_text(json.dumps(data))
+        native.load()                       # built once here, not by four ranks at once
+        ranks_c = spawn_ranks("--phase17c-rank", 4, root, "phase 17 (c)")
+        c_s = time.perf_counter() - t0
+        with torch.device("meta"):
+            whole = sum(p.numel() * p.element_size() for p in Decoder(dataclasses.replace(
+                LLAMA3_8B, num_layers=TP_RECIPE_LAYERS), dtype=torch.bfloat16).parameters())
+        n_swin = 24
+        want_c = dict(flash_fwd=2 * TP_RECIPE_LAYERS, flash_bwd_dq=TP_RECIPE_LAYERS,
+                      flash_bwd_dkv=TP_RECIPE_LAYERS, window_attn=n_swin)
+        for r, rr in enumerate(ranks_c):
+            check(rr["backend"] == "gloo" and rr["tp"] == 4 and rr["layers"] == TP_RECIPE_LAYERS,
+                  f"phase 17 (c) rank {r}: {rr['backend']}, tp {rr['tp']}, {rr['layers']} layers")
+            check(rr["optimizer"] == "OffloadedAdamW" and rr["streamed"] and rr["teacher_split"],
+                  f"phase 17 (c) rank {r}: the recipe's levers are not on")
+            check(len(rr["step_ms"]) == TP_RECIPE_STEPS and all(
+                c == want_c for c in rr["launches"]),
+                f"phase 17 (c) rank {r}: launches {rr['launches']}, expected {want_c} a step")
+            share = rr["decoder_bytes"] / whole
+            check(0.25 <= share <= 0.26, f"phase 17 (c) rank {r}: {share:.4f} of the decoder")
+            check(rr["init_peak_bytes"] < whole, f"phase 17 (c) rank {r}: the init peak "
+                  f"{rr['init_peak_bytes'] / 2**30:.2f} GiB reaches the whole decoder's "
+                  f"{whole / 2**30:.2f} GiB")
+            check(math.isfinite(rr["metrics"]["loss"]) and rr["metrics"] == ranks_c[0]["metrics"],
+                  f"phase 17 (c): rank {r}'s metrics {rr['metrics']}")
+            check(rr["saves"] == [TP_RECIPE_STEPS], f"phase 17 (c) rank {r}: saves {rr['saves']}")
+        pinned = sum(rr["pinned_gib"] for rr in ranks_c)
+        check(pinned < 57.99, f"phase 17 (c): {pinned:.2f} GiB pinned over the ranks")
+        out["c"] = dict(whole_decoder_gib=whole / 2**30, pinned_gib_total=pinned,
+                        loss=ranks_c[0]["metrics"]["loss"],
+                        ranks=[dict(peak_gib=rr["peak_gib"], pinned_gib=rr["pinned_gib"],
+                                    decoder_gib=rr["decoder_bytes"] / 2**30,
+                                    init_peak_gib=rr["init_peak_bytes"] / 2**30,
+                                    teachers_gib=rr["teachers_gib"],
+                                    launches_per_step=rr["launches"][-1], step_ms=rr["step_ms"],
+                                    seconds=rr["seconds"]) for rr in ranks_c])
+        for r, rr in enumerate(out["c"]["ranks"]):
+            print(f"phase 17 (c) rank {r}: peak {rr['peak_gib']:.2f} GiB (init "
+                  f"{rr['init_peak_gib']:.2f}), pinned {rr['pinned_gib']:.2f} GiB, decoder "
+                  f"{rr['decoder_gib']:.3f} of {whole / 2**30:.3f} GiB, teachers "
+                  f"{rr['teachers_gib']:.3f} GiB, B1-B4 a step {rr['launches_per_step']}, step "
+                  f"ms {', '.join(f'{x:.1f}' for x in rr['step_ms'])} [{smi}]")
+        print(f"phase 17 (c): recipes/pretrain_full.args at Llama-3-8B widths, "
+              f"{TP_RECIPE_LAYERS} layers, tp 4: loss {out['c']['loss']:.6f} on every rank, "
+              f"{pinned:.2f} GiB pinned over the ranks")
+        out["seconds_by_part"] = dict(references=ref_s, ranks_a_b=ranks_s, recipe=c_s,
+                                      rank_start=[r["start_s"] for r in ranks])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        release_cuda()
+    return out
+
+
 def release_cuda():
     gc.collect()
     torch.cuda.empty_cache()
@@ -3852,6 +4368,10 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     if sys.argv[1:2] == ["--phase16-rank"]:
         return dp_rank(sys.argv[2:])
+    if sys.argv[1:2] == ["--phase17-rank"]:
+        return tp_rank(sys.argv[2:])
+    if sys.argv[1:2] == ["--phase17c-rank"]:
+        return tp_recipe_rank(sys.argv[2:])
     from visper_lm_tpu_torch.config import LLAMA3_8B, phi3_clip_vlm
     from visper_lm_tpu_torch.models.teachers import init_teachers, make_teacher_fn
     from visper_lm_tpu_torch.models.decoder import quantize_head_vectors
@@ -3885,11 +4405,19 @@ def main() -> int:
     for lib, log in logs.items():
         for entry, res in _build.kernel_resources(log).items():
             print(f"ptxas[{lib}] {entry}: {json.dumps(res)}")
-    if sys.argv[1:2] == ["--phase16"]:
-        # phase 16 on its own, after the build (a measurement run; the
-        # contract's run takes no argument and runs every phase)
-        dp = dp_phase(smi)
+    if sys.argv[1:2] in (["--phase16"], ["--phase17"]):
+        # phase 16 (with --phase17 phase 17 after it) on its own, after the
+        # build (a measurement run; the contract's run takes no argument and
+        # runs every phase)
+        ref = {}
+        dp = dp_phase(smi, ref)
         print("dp_path " + json.dumps(dp))
+        if sys.argv[1] == "--phase17":
+            t0 = time.perf_counter()
+            tp = tp_phase(smi, ref)
+            tp["seconds"] = time.perf_counter() - t0
+            print(f"tp phase {tp['seconds']:.1f} s [{smi}]")
+            print("tp_path " + json.dumps(tp))
         return 0
     # the redesigned kernels: registers, spills and shared memory
     smem, kv_tile, stages = (ctypes.c_int() for _ in range(3))
@@ -4328,11 +4856,21 @@ def main() -> int:
     # the card (plain dp, zero_frozen, zero_params), IFT with ZeRO-2 moments
     release_cuda()
     t0 = time.perf_counter()
-    dp = dp_phase(smi)
+    dp_ref = {}
+    dp = dp_phase(smi, dp_ref)
     dp["seconds"] = time.perf_counter() - t0
     print(f"dp phase {dp['seconds']:.1f} s [{smi}]")
     print("dp_path " + json.dumps(dp))
-    dec_launches = da.launches                  # over phases 4-16
+    # 17. tensor parallelism: the tp-sharded Generator at Phi3-mini, config
+    # #1's PT step at tp 2 with and without sharded teachers, the
+    # pretrain_full recipe at Llama-3-8B widths on four ranks
+    t0 = time.perf_counter()
+    tp = tp_phase(smi, dp_ref)
+    tp["seconds"] = time.perf_counter() - t0
+    del dp_ref
+    print(f"tp phase {tp['seconds']:.1f} s [{smi}]")
+    print("tp_path " + json.dumps(tp))
+    dec_launches = da.launches                  # over phases 4-17
     print(f"decode_attn launches over the serving, training, engine, api, vision, recipe, viz, "
           f"eval and memory paths: {dec_launches}")
     check(dec_launches == 0, f"decode_attn launched {dec_launches} times; no path calls it")
@@ -4347,6 +4885,8 @@ def main() -> int:
     csrc = "visper_lm_tpu_torch/csrc/"
     w4_decode = w4_recs[f"gate_up_M{BATCH}"]
     dp_rank_launches = dp["b"]["plain"]["ranks"][0]["launches_per_step"]   # phase 16, a rank's step
+    tp_rank_launches = tp["b"]["plain"]["ranks"][0]["launches_per_step"]   # phase 17 (b)
+    tp_recipe_launches = tp["c"]["ranks"][0]["launches_per_step"]          # phase 17 (c)
     main_launches = trainer["trainer"]["launches"]   # trainer.train, the main path
     kernels = [
         dict(entry("flash_fwd", csrc + "flash_fwd.cu", "visper_lm_tpu/ops/flash_attention.py:234",
@@ -4371,6 +4911,9 @@ def main() -> int:
                  evals["b1_launches"]["loglikelihood"] // evals["loglikelihood"]["requests"])),
              launches_phase15_per_step=memory["ift"]["launches_per_step"]["flash_fwd"],
              launches_phase16_rank_per_step=dp_rank_launches["flash_fwd"],
+             launches_phase17=dict(prefill_a_rank=tp["a"]["ranks"][0]["prefill_launches"],
+                                   pt_step_a_rank=tp_rank_launches["flash_fwd"],
+                                   recipe_step_a_rank=tp_recipe_launches["flash_fwd"]),
              ift_t4096={k: memory["b1"][k] for k in LLAMA3_KEYS},
              train=dict(shape=train_fwd_rec["shape"], ms=train_fwd_rec["ms"],
                         mma_sync_ms=train_fwd_rec["mma_sync_ms"],
@@ -4384,6 +4927,8 @@ def main() -> int:
              recipe_pt={k: recipe_dq[k] for k in LLAMA3_KEYS + ("device_ms",)},
              launches_phase15_per_step=memory["ift"]["launches_per_step"]["flash_bwd_dq"],
              launches_phase16_rank_per_step=dp_rank_launches["flash_bwd_dq"],
+             launches_phase17=dict(pt_step_a_rank=tp_rank_launches["flash_bwd_dq"],
+                                   recipe_step_a_rank=tp_recipe_launches["flash_bwd_dq"]),
              ift_t4096={k: memory["b2"][k] for k in LLAMA3_KEYS + ("device_ms",)},
              library="SDPA backward (dq, dk and dv in one call)",
              gqa=dict(shape=gqa_dq["shape"], ms=gqa_dq["ms"], device_ms=gqa_dq["device_ms"],
@@ -4396,6 +4941,8 @@ def main() -> int:
              recipe_pt={k: recipe_dkv[k] for k in LLAMA3_KEYS + ("device_ms",)},
              launches_phase15_per_step=memory["ift"]["launches_per_step"]["flash_bwd_dkv"],
              launches_phase16_rank_per_step=dp_rank_launches["flash_bwd_dkv"],
+             launches_phase17=dict(pt_step_a_rank=tp_rank_launches["flash_bwd_dkv"],
+                                   recipe_step_a_rank=tp_recipe_launches["flash_bwd_dkv"]),
              ift_t4096={k: memory["b3"][k] for k in LLAMA3_KEYS + ("device_ms",)},
              library="SDPA backward (dq, dk and dv in one call)",
              gqa=dict(shape=gqa_dkv["shape"], ms=gqa_dkv["ms"], device_ms=gqa_dkv["device_ms"],
@@ -4406,6 +4953,8 @@ def main() -> int:
              launches_recipe_pt=recipe["pt"]["launches"]["window_attn"],
              launches_phase13=viz["seg"]["b4_launches"],
              launches_phase16_rank_per_step=dp_rank_launches["window_attn"],
+             launches_phase17=dict(pt_step_a_rank=tp_rank_launches["window_attn"],
+                                   recipe_step_a_rank=tp_recipe_launches["window_attn"]),
              eager_ms=win_rec["eager_ms"],
              stages={r["case"]: dict(ms=r["ms"],
                                      library_ms=r["library_ms"], bound_ms=r["bound_ms"],

@@ -5,7 +5,8 @@ dtype), the opt state's host / device split equals JAX's
 `plan_offload_layout` on a 1x1 CPU mesh, and the batch equals JAX's
 `build_abstract_batch`. With --dp one rank's breakdown: each leaf that
 ZeRO's plan shards counts its bytes / dp (JAX's specs on JAX's shapes);
---tp, --topology and --shard-teachers raise, naming item A10b.
+with --tp the decoder's Megatron leaves count their bytes / tp; --topology
+(a TPU slice) raises a ValueError.
 """
 
 import functools
@@ -96,13 +97,15 @@ def test_llama3_ift_counts():
 @pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "4"], ["--topology", "v5e:2x4"],
                                    ["--no-zero3"]])
 def test_multi_device_flags_raise(flags, capsys):
-    """Tensor parallelism's flags raise (A10b); --dp and --no-zero3 give one
-    rank's breakdown: at dp 2 with ZeRO-3 (the default) Phi3-mini's IFT
-    trainables and moments are about halved (the norm scales and the leaves
-    under 2^16 elements stay whole), without ZeRO-3 only the moments."""
+    """--topology (a TPU slice) has no GPU counterpart and raises a
+    ValueError; --dp, --tp and --no-zero3 give one rank's breakdown: at dp
+    2 with ZeRO-3 (the default) Phi3-mini's IFT trainables and moments are
+    about halved (the norm scales and the leaves under 2^16 elements stay
+    whole), without ZeRO-3 only the moments; at tp 4 the decoder's Megatron
+    leaves are quartered (the tower, projector and norms stay whole)."""
     argv = ["--model", "phi3", "--stage", "finetune"]
-    if flags[0] in ("--tp", "--topology"):
-        with pytest.raises(NotImplementedError, match="A10b"):
+    if flags[0] == "--topology":
+        with pytest.raises(ValueError, match="--dp x --tp"):
             taot.main(argv + flags)
         return
     import json
@@ -113,7 +116,14 @@ def test_multi_device_flags_raise(flags, capsys):
     got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert one["mesh"] == {"data": 1, "model": 1}
     assert got["mesh"]["data"] == (2 if flags[0] == "--dp" else 1)
-    if flags[0] == "--dp":
+    assert got["mesh"]["model"] == (4 if flags[0] == "--tp" else 1)
+    if flags[0] == "--tp":
+        # Phi3-mini's decoder (3.82 B) is most of the trainables; the
+        # projector and the norms (0.2 % of them) stay whole on every rank
+        for key in ("params_gib_per_chip", "opt_state_gib_per_chip"):
+            assert 0.25 < got[key] / one[key] < 0.253, key
+        assert got["frozen_gib_per_chip"] == one["frozen_gib_per_chip"]
+    elif flags[0] == "--dp":
         for key in ("params_gib_per_chip", "opt_state_gib_per_chip"):
             assert 0.5 < got[key] / one[key] < 0.501, key
         assert got["frozen_gib_per_chip"] == one["frozen_gib_per_chip"]
@@ -121,6 +131,8 @@ def test_multi_device_flags_raise(flags, capsys):
         assert got == dict(one, zero3=False, breakdown_s=got["breakdown_s"])
     with pytest.raises(ValueError, match="one process"):
         taot.main(argv + ["--dp", "2", "--run"])
+    with pytest.raises(ValueError, match="one process"):
+        taot.main(argv + ["--tp", "2", "--run"])
 
 
 def test_main_prints_the_breakdown_and_runs_a_step_on_the_cpu(capsys, tmp_path):

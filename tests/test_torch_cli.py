@@ -11,11 +11,12 @@ package's (visper_lm_tpu/train/cli.py).
     call resumes from it onto the same data order (step 3's loss equal to the
     uninterrupted run's, rtol 1e-6);
   * `--init-from` overlays an HF-layout checkpoint (bf16-rounded, as JAX),
-    a missing one raises; --tp and --shard-teachers raise NotImplementedError
-    naming ROADMAP item A10b; the multi-process flags start the runtime
-    (tests/test_torch_multiprocess.py runs two ranks), and in one process
-    --zero-params / --zero-frozen train, --dp 2 fails JAX's mesh assertion
-    and a coordinator without its process count and id raises.
+    a missing one raises; the multi-process flags start the runtime
+    (tests/test_torch_multiprocess.py runs two ranks,
+    tests/test_torch_tensor_parallel.py four at dp 2 x tp 2), and in one
+    process --zero-params / --zero-frozen / --shard-teachers train, --dp 2
+    fails JAX's mesh assertion, --tp 4 asks for four processes and a
+    coordinator without its process count and id raises.
 """
 
 import json
@@ -163,23 +164,25 @@ def test_init_from_overlays_a_checkpoint(dataset, tmp_path):
 
 
 @pytest.mark.parametrize("flags, error, match", [
-    (["--tp", "4"], NotImplementedError, "A10b"),
+    (["--tp", "4"], ValueError, "needs 4 processes"),
     (["--dp", "2"], AssertionError, r"dp\(2\) \* pp\(1\) \* sp\(1\) \* ep\(1\) \* tp\(1\) "
                                     r"!= available devices\(1\)"),
     (["--zero-params"], None, None),
     (["--zero-frozen"], None, None),
-    (["--shard-teachers"], NotImplementedError, "A10b"),
+    (["--shard-teachers"], None, None),
     (["--coordinator", "localhost:1234"], ValueError, "number of processes"),
     (["--num-processes", "2", "--process-id", "1"], ValueError, "coordinator address"),
 ])
 def test_unported_flags_raise(flags, error, match, dataset, tmp_path):
-    """Only tensor parallelism's flags are unported (A10b). In one process
-    ZeRO-3 has nothing to shard and trains; --dp 2 asks for a second
-    process that is not there (JAX's mesh assertion); the runtime's flags
-    need each other."""
+    """No flag is unported any more. In one process ZeRO-3 and sharded
+    teachers have nothing to shard and train; --dp 2 asks for a second
+    process that is not there (JAX's mesh assertion), --tp 4 for four (the
+    four-rank run is tests/test_torch_tensor_parallel.py's); the runtime's
+    flags need each other."""
     if error is None:
         state = tcli.main(_argv("pretrain", dataset, tmp_path, *flags, "--max-steps", "1"))
         assert state.step == 1 and state.sharded is None and state.zero is None
+        assert state.teacher_sharded is None
         assert len(_metrics(tmp_path)) == 1
         return
     with pytest.raises(error, match=match):
@@ -209,7 +212,9 @@ def test_memory_levers_train_as_without_them(flags, dataset, tmp_path, finetune_
 
 
 def test_pretrain_full_recipe_raises_for_its_memory_levers(dataset, tmp_path):
-    with pytest.raises(NotImplementedError, match="--tp, --shard-teachers"):
+    """The recipe's --tp 4 needs four processes: in one it raises before any
+    work (tests/test_torch_tensor_parallel.py runs the recipe on four)."""
+    with pytest.raises(ValueError, match="--tp 4: tensor parallelism needs 4 processes"):
         tcli.main([_recipe("pretrain_full.args"), "--data-path", str(dataset / "data.json"),
                    "--tokenizer", "fake-whitespace", "--output-dir", str(tmp_path), "--device", "cpu"])
 

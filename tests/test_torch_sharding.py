@@ -10,11 +10,14 @@ apply the specs to the port's per-layer tensors tile each tensor exactly
 once over the ranks. All exact (specs are tuples of axis names).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
 from visper_lm_tpu import config as jconfig
@@ -28,6 +31,7 @@ from visper_lm_tpu_torch.models.vlm import VLM
 from visper_lm_tpu_torch.parallel import distributed as tdist
 from visper_lm_tpu_torch.parallel import mesh as tmesh
 from visper_lm_tpu_torch.parallel import sharding as tshd
+from visper_lm_tpu_torch.parallel import tensor as T
 from visper_lm_tpu_torch.train import optimizer as topt
 
 torch.set_num_threads(2)
@@ -231,7 +235,17 @@ def test_make_mesh_shapes_and_errors():
     with pytest.raises(AssertionError) as got:
         tmesh.make_mesh(dp=16, world=8)
     assert str(got.value) == str(want.value)
-    for kw, item in ((dict(tp=2), "A10b"), (dict(sp=2), "A10c"), (dict(pp=2), "A10c"),
+    # the 'model' axis innermost, as JAX's: a tensor-parallel group is
+    # consecutive ranks, a data group every tp-th
+    for dp, tp in ((1, 2), (2, 2), (4, 2), (1, 4), (2, 4)):
+        m = tmesh.make_mesh(dp=dp, tp=tp, world=8)
+        assert m.shape == dict(jmesh.make_mesh(dp=dp, tp=tp).shape) == {"data": dp, "model": tp}
+        assert (m.data_size, m.model_size, m.size) == (dp, tp, dp * tp)
+        for r in range(dp * tp):
+            assert m.coords(r) == {"data": r // tp, "model": r % tp}
+            assert m.model_group_ranks(r) == tuple(range(r // tp * tp, r // tp * tp + tp))
+            assert m.data_group_ranks(r) == tuple(range(r % tp, dp * tp, tp))
+    for kw, item in ((dict(sp=2), "A10c"), (dict(pp=2), "A10c"),
                      (dict(ep=2), "A10d")):
         with pytest.raises(NotImplementedError, match=item):
             tmesh.make_mesh(world=8, **kw)
@@ -253,3 +267,203 @@ def test_local_batch_size_and_the_runtime_of_one_process():
         tdist.shard_batch_multihost({"labels": np.zeros((4, 8)), "x": np.zeros((3, 2))}, mesh)
     with pytest.raises(ValueError, match="process's id"):
         tdist.init_distributed("localhost:1", num_processes=2)
+
+
+# ---------------------------------------------------------------------------
+# the 'model' axis: placements over two axes, the moments' layout, the
+# teachers' slices and the offload plan at dp x tp
+# ---------------------------------------------------------------------------
+
+TP_MESHES = [(1, 2), (2, 2), (4, 2), (1, 4), (2, 4)]
+
+
+@functools.lru_cache(maxsize=None)
+def _tp_model(preset, tp):
+    """The port's tp-local parameters (meta device) of model rank 0, the
+    JAX abstract params and shapes."""
+    fn, distill = PRESETS[preset]
+    cfg = getattr(tconfig, fn)(distill=distill)
+    with torch.device("meta"):
+        model = VLM(cfg)
+    jcfg = getattr(jconfig, fn)(distill=distill)
+    params = jax.eval_shape(lambda: jvlm.init_vlm(jax.random.PRNGKey(0), jcfg))
+    if cfg.decoder.num_kv_heads % tp:
+        # trap 2: kv heads split in whole blocks only (tiny's 2 at tp 4); the
+        # plans still tile the tensors' rows
+        with pytest.raises(ValueError, match=f"num_kv_heads 2 does not divide by tp {tp}"):
+            T.shard_model(model, T.TensorParallel(None, 0, tp))
+        plan = T.tp_plan(model, tp)
+        return {n: torch.empty(plan[n].model_local_shape(p.shape), device="meta")
+                for n, p in model.named_parameters()}, params
+    with torch.device("meta"):
+        T.shard_model(model, T.TensorParallel(None, 0, tp))
+    return dict(model.named_parameters()), params
+
+
+def _disjoint_cover(boxes, shape, copies=1):
+    """The ranks' boxes of a tensor's index space: the distinct non-empty
+    ones disjoint, their volumes adding up to the tensor's, each held by
+    `copies` ranks (the sizes of the axes it is replicated over)."""
+    boxes = [box for box in boxes if all(b > a for a, b in box)]
+    assert all(boxes.count(box) == copies for box in boxes)
+    boxes = sorted(set(boxes))
+    vol = [int(np.prod([b - a for a, b in box])) for box in boxes]
+    assert sum(vol) == int(np.prod(shape or (1,)))
+    for i, p in enumerate(boxes):
+        for q in boxes[i + 1:]:
+            assert any(min(b1, b2) <= max(a1, a2) for (a1, b1), (a2, b2) in zip(p, q)) or (
+                0 in [b - a for a, b in p] + [b - a for a, b in q])
+
+
+@pytest.mark.parametrize("dp, tp", TP_MESHES)
+def test_two_axis_placements_tile_each_tensor_once(model, dp, tp):
+    """Every parameter's and moment's placement at dp x tp: the ranks' pieces
+    of the whole tensor (its tp slice, then its ZeRO slice of that) are
+    disjoint and cover it, each the shape the rank holds; the parameters'
+    specs are JAX's plan's; the Megatron leaves split the heads, the MLP
+    and the vocabulary."""
+    name = model[0]
+    named, params = _tp_model(name, tp)
+    stage = "pretrain" if name == "tiny" else "finetune"
+    mask = topt.trainable_mask(named.items(), stage)
+    moments, placed, specs, _ = tshd.plan_zero(named, mask, dp, zero_params=True,
+                                               zero_frozen=True, zero_min_size=1024,
+                                               model_size=tp)
+    want, _ = _jax_plan(params, stage, dp, zero_params=True, zero_frozen=True, min_size=1024)
+    assert specs == want
+    split = 0
+    for plan in (moments, placed):
+        for n, pl in plan.items():
+            local = tuple(named[n].shape)
+            whole = pl.whole_shape(local)
+            split += pl.model_sharded
+            boxes = []
+            for d in range(dp):
+                for m in range(tp):
+                    box = pl.box(whole, d, m)
+                    assert tuple(b - a for a, b in box) == (
+                        pl.local_shape(local, d) if whole else (1,)), (n, d, m)
+                    boxes.append(box)
+            _disjoint_cover(boxes, whole, (1 if pl.model_sharded else tp) *
+                            (1 if pl.sharded else dp))
+            if name == "tiny":
+                index = torch.arange(int(np.prod(whole))).reshape(whole)
+                covered = torch.zeros(index.numel(), dtype=torch.int32)
+                for d in range(dp if pl.sharded else 1):
+                    for m in range(tp if pl.model_sharded else 1):
+                        covered[pl.tile(index, d, m).reshape(-1)] += 1
+                assert (covered == 1).all(), n
+    assert split > 0
+    q, o = placed["decoder.blocks.0.q_proj.weight"], placed["decoder.blocks.0.o_proj.weight"]
+    assert (q.model_dim, o.model_dim, placed["decoder.embed_tokens.weight"].model_dim) == (0, 1, 0)
+    assert placed["decoder.blocks.0.attn_norm.scale"].model_dim is None
+
+
+def _spec_bytes(shape, spec, sizes):
+    """A leaf's bytes on one device under a spec (elements)."""
+    parts = 1
+    for e in spec:
+        for a in (e if isinstance(e, tuple) else (e,)):
+            parts *= sizes.get(a, 1)
+    return int(np.prod(shape)) // parts
+
+
+@pytest.mark.parametrize("dp, tp", TP_MESHES)
+def test_moments_in_their_parameters_tp_slice_hold_jaxs_bytes(model, dp, tp):
+    """ROADMAP C, the moments' layout: JAX looks a moment's spec up by shape
+    (q_proj's take o_proj's 'model' dim at Llama-3-8B, o_proj's k_proj's at
+    Phi3-mini); the port keeps each moment in its parameter's own tp slice,
+    with ZeRO's 'data' dim on that spec: the same elements a rank as JAX's
+    `opt_state_pspecs`, leaf for leaf (the finetune stage: the decoder trains)."""
+    name = model[0]
+    named, params = _tp_model(name, tp)
+    mask = topt.trainable_mask(named.items(), "finetune")
+    moments, _, specs, moment_specs = tshd.plan_zero(named, mask, dp, model_size=tp)
+    _, want = _jax_plan(params, "finetune", dp, zero_params=False, zero_frozen=False,
+                        min_size=2 ** 16)
+    shapes = dict(_flat(params))
+    sizes = {"data": dp, "model": tp}
+    got: dict = {}
+    for n, pl in moments.items():
+        path = topt.jax_path(n)
+        got[path] = got.get(path, 0) + int(np.prod(pl.local_shape(named[n].shape, 0)))
+    assert sorted(got) == sorted(want)
+    for path, n_elems in got.items():
+        assert n_elems == _spec_bytes(shapes[path].shape, want[path], sizes), path
+    moved = [p for p in want if want[p] != moment_specs[p]]
+    if name != "tiny":
+        assert "decoder/blocks/q_proj/kernel" in moved or "decoder/blocks/o_proj/kernel" in moved
+        for p in moved:
+            assert tshd._axis_of(moment_specs[p], "model") == tshd._axis_of(specs[p], "model")
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_teacher_placements_are_model_shard_pspec(tp):
+    """shard_teachers: each teacher tensor's 'model' slice is JAX's
+    `model_shard_pspec` of its leaf in `init_teachers`' tree (stacked
+    blocks; the mapping's paths and shapes are the tree's), and the ranks'
+    slices tile it once."""
+    from visper_lm_tpu.models.teachers import init_teachers as jinit_teachers
+    from visper_lm_tpu_torch.models.teachers import build_teachers
+
+    jcfg = jconfig.tiny_test_vlm(distill=True)
+    tree = jax.eval_shape(lambda: jinit_teachers(jax.random.PRNGKey(7), jcfg))
+    shapes = {k: tuple(v.shape) for k, v in _flat(tree).items()}
+    with torch.device("meta"):
+        teachers = build_teachers(tconfig.tiny_test_vlm(distill=True))
+    leaves = tshd.teacher_leaves(teachers)
+    assert sorted({path for path, *_ in leaves.values()}) == sorted(shapes)
+    placed = tshd.teacher_placements(teachers, tp)
+    n_split = 0
+    for n, (path, shape, perm, stacked) in leaves.items():
+        assert shape == shapes[path], n
+        spec = tuple(jshd.model_shard_pspec(shapes[path], tp))
+        pl = placed[n]
+        if "model" not in spec:
+            assert not pl.model_sharded, n
+            continue
+        n_split += 1
+        assert perm[spec.index("model") - int(stacked)] == pl.model_dim, n
+        whole = tuple(teachers.get_parameter(n).shape)
+        _disjoint_cover([pl.box(whole, 0, m) for m in range(tp)], whole)
+    assert n_split > 100
+
+
+@pytest.mark.parametrize("dp, tp", TP_MESHES)
+def test_plan_offload_layout_matches_jax_on_dp_tp_specs(dp, tp):
+    """JAX `plan_offload_layout` with its `_covers_mesh` / `_axis0_unsharded`
+    rules on make_mesh(dp, tp): Llama-3-8B's IFT moments (stacked leaves, the
+    moments' specs of JAX's plan): offloaded where the spec covers every
+    axis larger than 1, row blocks where dim 0 is free. The port's function
+    gives the same placement and rows, leaf for leaf."""
+    from jax.sharding import NamedSharding
+
+    from visper_lm_tpu.train import staged_update as jsu
+    from visper_lm_tpu_torch.train import staged_update as tsu
+
+    _, params = _tp_model("llama3", tp)
+    _, specs = _jax_plan(params, "finetune", dp, zero_params=False, zero_frozen=False,
+                         min_size=2 ** 16)
+    flat = dict(_flat(params))
+    mesh = jmesh.make_mesh(dp=dp, tp=tp, devices=jax.devices()[:dp * tp])
+    shapes, named_specs, jshape, jns = {}, {}, {}, {}
+    for path, spec in specs.items():
+        for kind, dtype in (("mu", np.float32), ("nu", jnp.bfloat16)):
+            key = f"{kind}/{path}"
+            shapes[key] = (flat[path].shape, torch.float32 if kind == "mu" else torch.bfloat16)
+            named_specs[key] = spec
+            jshape[key] = jax.ShapeDtypeStruct(flat[path].shape, dtype)
+            jns[key] = NamedSharding(mesh, P(*spec))
+    out_s, out_n = jsu.plan_offload_layout(jshape, jns, mesh)
+    want = {}
+    for key in jshape:
+        leaf = out_s[key]
+        if isinstance(leaf, jsu.ChunkedHostArray):
+            want[key] = tuple(leaf.row_ranges)
+        elif getattr(out_n[key], "memory_kind", None) == "pinned_host":
+            want[key] = ()
+        else:
+            want[key] = None
+    got = tsu.plan_offload_layout(shapes, specs=named_specs, axis_sizes={"data": dp, "model": tp})
+    assert got == want
+    assert any(v is None for v in got.values()) and any(v is not None for v in got.values())

@@ -19,6 +19,8 @@ A JAX tree in the streamed layout loads, exports and serves as the stacked
 one does, bit for bit.
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -155,12 +157,11 @@ def test_stream_grads_rules():
         tts.check_step_options(cuda, stream_grads=2, offload_opt_state=True, blockwise_staging=False)
     tts.check_step_options(cuda, stream_grads=2, offload_opt_state=True)
     tts.check_step_options(cpu, stream_grads=2)            # identity copies off the card
-    tts.check_step_options(cpu, zero_params=True, zero_frozen=True)   # ZeRO-3: ported
-    with pytest.raises(NotImplementedError, match="A10b"):
-        tts.check_step_options(cpu, shard_teachers=True)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        tts.check_step_options(cpu, stream_grads=2, data_parallel=True)
-    tts.check_step_options(cpu, data_parallel=True, zero_params=True)
+    # ZeRO-3, sharded teachers and streaming in a process group are no rule
+    # any more but working paths (tests/test_torch_multiprocess.py and
+    # tests/test_torch_tensor_parallel.py run them): no option names them
+    assert set(inspect.signature(tts.check_step_options).parameters) == {
+        "device", "accum_steps", "offload_opt_state", "blockwise_staging", "stream_grads"}
 
 
 def test_donate_params_false_raises(jax_run):

@@ -75,6 +75,7 @@ from visper_lm_tpu_torch.data.mm_utils import (
 )
 from visper_lm_tpu_torch.models.decoder import quantize_decoder
 from visper_lm_tpu_torch.models.vlm import VLM
+from visper_lm_tpu_torch.parallel.tensor import LATER
 from visper_lm_tpu_torch.serve.engine import Engine, EngineConfig, Request
 from visper_lm_tpu_torch.serve.generate import GenerationConfig, Generator, left_pad_plans
 
@@ -476,6 +477,8 @@ class VisperModel:
 
         stream_callback(text_delta) streams sample 0's text as it decodes
         (deltas per decode chunk); the full strings are still returned."""
+        if self.model.decoder.tp is not None:
+            raise NotImplementedError(f"VisperModel.chat {LATER}")
         batch = self.chat_batch(questions, images)
         pad_to = batch["text_ids"].shape[1]
         eos_ids = self._eos_ids()

@@ -177,7 +177,6 @@ class VisperLmms:
         interface, api/model.py:203). Each request's args is (string,) or
         (string, doc_to_visual, doc_id, task, split); scored token-by-token with
         the whole string as continuation after BOS."""
-        from visper_lm_tpu_torch.utils.param import embed
 
         model = self.model
         decoder = model.model.decoder
@@ -195,7 +194,7 @@ class VisperLmms:
             pad_to = -(-len(ids) // 128) * 128
             arr = np.zeros((1, pad_to), np.int64)
             arr[0, : len(ids)] = ids
-            embeds = embed(decoder.embed_tokens.weight, torch.as_tensor(arr, device=dev))
+            embeds = decoder.embed(torch.as_tensor(arr, device=dev))
             fwd = decoder(embeds, kv_lengths=torch.tensor([len(ids)], device=dev),
                           use_kernel=self.use_kernel)
             logits = fwd["logits"][0].float().cpu().numpy()

@@ -85,7 +85,6 @@ def logit_parity_gate(
     from visper_lm_tpu_torch.checkpoint.hf_import import (
         import_vlm, load_sharded_safetensors, to_model,
     )
-    from visper_lm_tpu_torch.utils.param import embed
 
     if prompt_ids is None:
         rng = np.random.default_rng(0)
@@ -107,7 +106,7 @@ def logit_parity_gate(
         with torch.no_grad():
             tokens = torch.as_tensor(ids, device=dev)
             out = m32.decoder(
-                embed(m32.decoder.embed_tokens.weight, tokens),
+                m32.decoder.embed(tokens),
                 positions=torch.arange(ids.shape[1], device=dev)[None], use_kernel=False,
             )
     finally:

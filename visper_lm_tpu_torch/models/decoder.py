@@ -28,6 +28,15 @@ vector-Jacobian product, so the gradient still reaches the block's input
 and, when it trains, the weight; a kept attention output (`flash_out`, with
 the flash forward's lse) goes through the `saved` list of
 `multi_head_attention`, so the recompute launches no flash forward.
+
+Tensor parallelism (parallel/tensor.py `shard_model`: `Decoder.tp`, as it
+carries `zero3`): each block runs nh/tp query and nkv/tp kv heads (the
+flash kernel on the local heads, once a layer) and mlp_dim/tp columns; the
+column-parallel inputs pass `copy_to_group`, o_proj's and down_proj's
+outputs `reduce_from_group`. The lookup is `Decoder.embed` (vocab-parallel
+under tp), `Decoder.logits` gathers the vocabulary unless the loss asks for
+the rank's block, and a cache holds the local kv heads (`init_kv_cache(...,
+tp=)`).
 """
 
 from __future__ import annotations
@@ -45,6 +54,8 @@ from torch.utils.checkpoint import checkpoint
 from visper_lm_tpu_torch.config import DecoderConfig
 from visper_lm_tpu_torch.models.rope import apply_rope, apply_rope_transpose, rope_cos_sin
 from visper_lm_tpu_torch.ops.attention import Offset, mha_plain_cache, multi_head_attention
+from visper_lm_tpu_torch.parallel.distributed import copy_to_group, reduce_from_group
+from visper_lm_tpu_torch.parallel.tensor import LATER, gather_vocab, vocab_embed
 from visper_lm_tpu_torch.utils.param import (
     QuantLinear,
     RMSNorm,
@@ -93,9 +104,10 @@ class QuantKVCache:
 
 def init_kv_cache(
     cfg: DecoderConfig, batch: int, max_len: int, *, dtype: torch.dtype = torch.bfloat16,
-    device: Union[str, torch.device],
+    device: Union[str, torch.device], tp: int = 1,
 ) -> KVCache:
-    shape = (cfg.num_layers, max_len, batch, cfg.num_kv_heads, cfg.head_dim)
+    """Zeros (L, S_max, B, Nkv / tp, H): a tensor-parallel rank's kv heads."""
+    shape = (cfg.num_layers, max_len, batch, cfg.num_kv_heads // tp, cfg.head_dim)
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
@@ -104,9 +116,10 @@ def init_kv_cache(
 
 def init_quant_kv_cache(
     cfg: DecoderConfig, batch: int, max_len: int, *, device: Union[str, torch.device],
+    tp: int = 1,
 ) -> QuantKVCache:
     """int8 values at 0 and scales at 1, as JAX `init_quant_kv_cache`."""
-    shape = (cfg.num_layers, max_len, batch, cfg.num_kv_heads, cfg.head_dim)
+    shape = (cfg.num_layers, max_len, batch, cfg.num_kv_heads // tp, cfg.head_dim)
     return QuantKVCache(
         k=torch.zeros(shape, dtype=torch.int8, device=device),
         v=torch.zeros(shape, dtype=torch.int8, device=device),
@@ -288,6 +301,8 @@ class DecoderBlock(nn.Module):
         self.gate_proj = nn.Linear(h, m, **kw)
         self.up_proj = nn.Linear(h, m, **kw)
         self.down_proj = nn.Linear(m, h, **kw)
+        # set by parallel/tensor.shard_model: the block's tensor-parallel group
+        self.tp = None
 
     def forward(
         self,
@@ -318,7 +333,9 @@ class DecoderBlock(nn.Module):
         {target: (A (din, r), B scaled (r, dout))}."""
         cfg = self.cfg
         b, t, _ = h.shape
-        nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        tp = self.tp
+        split = 1 if tp is None else tp.size
+        nh, nkv, hd = cfg.num_heads // split, cfg.num_kv_heads // split, cfg.head_dim
         keeps = stash.names if stash is not None else frozenset()
 
         def record(**sites):
@@ -342,6 +359,8 @@ class DecoderBlock(nn.Module):
             return apply_rope(y, cos, sin) if rope else y
 
         x = self.attn_norm(h)
+        if tp is not None:
+            x = copy_to_group(x, tp.group)
         record(q_proj=x, k_proj=x, v_proj=x)
         q = kept("q_proj", "qkv.q", x, (b, t, nh, hd), rope=True)
         k = kept("k_proj", "qkv.k", x, (b, t, nkv, hd), rope=True)
@@ -379,8 +398,13 @@ class DecoderBlock(nn.Module):
 
         attn = attn.reshape(b, t, nh * hd)
         record(o_proj=attn)
-        h = h + lora_linear(self.o_proj, attn, side("o_proj"), use_kernel)
+        out = lora_linear(self.o_proj, attn, side("o_proj"), use_kernel)
+        if tp is not None:
+            out = reduce_from_group(out, tp.group)
+        h = h + out
         x = self.mlp_norm(h)
+        if tp is not None:
+            x = copy_to_group(x, tp.group)
         record(gate_proj=x, up_proj=x)
         gate_pre = kept("gate_proj", "mlp_gate", x)
         up = kept("up_proj", "mlp_up", x)
@@ -396,7 +420,10 @@ class DecoderBlock(nn.Module):
         else:
             gu = F.silu(gate_pre) * up
         record(down_proj=gu)
-        return h + lora_linear(self.down_proj, gu, side("down_proj"), use_kernel)
+        out = lora_linear(self.down_proj, gu, side("down_proj"), use_kernel)
+        if tp is not None:
+            out = reduce_from_group(out, tp.group)
+        return h + out
 
 
 class Decoder(nn.Module):
@@ -420,13 +447,33 @@ class Decoder(nn.Module):
         # set by a ZeRO-3 step (parallel/sharding.ShardedParams): each block's
         # parameters are gathered around its forward and its backward
         self.zero3 = None
+        # set by parallel/tensor.shard_model: the tensor-parallel group, and
+        # the 'model' placement of each split parameter (by name in the decoder)
+        self.tp = None
+        self.tp_plan: Dict[str, Any] = {}
 
-    def logits(self, hidden: torch.Tensor, use_kernel: Optional[bool] = None) -> torch.Tensor:
+    def embed(self, ids: torch.Tensor) -> torch.Tensor:
+        """The token embeddings of `ids` (vocab-parallel under tp)."""
+        if self.tp is not None:
+            return vocab_embed(self.embed_tokens.weight, ids, self.tp)
+        return F.embedding(ids, self.embed_tokens.weight)
+
+    def logits(self, hidden: torch.Tensor, use_kernel: Optional[bool] = None,
+               gather: bool = True) -> torch.Tensor:
         """Output projection in the model dtype (a quantized lm_head goes
-        through its QuantLinear), returned as f32."""
+        through its QuantLinear), returned as f32. Under tp the rank's block
+        of the vocabulary, gathered into the whole (collective) unless
+        gather=False (the loss reads the block: train/losses.py)."""
+        tp = self.tp
+        if tp is not None:
+            hidden = copy_to_group(hidden, tp.group)
         if self.lm_head is None:
-            return (hidden @ self.embed_tokens.weight.T).float()
-        return apply_linear(self.lm_head, hidden, use_kernel).float()
+            out = (hidden @ self.embed_tokens.weight.T).float()
+        else:
+            out = apply_linear(self.lm_head, hidden, use_kernel).float()
+        if tp is not None and gather:
+            return gather_vocab(out, tp)
+        return out
 
     def forward(
         self,
@@ -450,7 +497,8 @@ class Decoder(nn.Module):
         place, when one was passed)}. remat: each block is checkpointed while
         autograd records, keeping what `remat_policy` names (`REMAT_POLICIES`).
         lora: {target: (A (L, din, r), B scaled (L, r, dout))}, the side path
-        of every targeted linear (models/lora.py `lora_side_factors`).
+        of every targeted linear (models/lora.py `lora_side_factors`; not
+        under tp).
 
         q_offset is the chunk's first slot: a Python int, a 0-d tensor (one
         position for the whole batch) or a (B,) tensor (a position per
@@ -464,6 +512,8 @@ class Decoder(nn.Module):
         quant_saves = remat and remat_policy == "save_mlp_q8"
         if remat and cache is not None:
             raise ValueError("remat is a training feature (no cache)")
+        if lora is not None and self.tp is not None:
+            raise NotImplementedError(f"the LoRA side path {LATER}")
         t = inputs_embeds.shape[1]
         stream = self.grad_stream
         if stream is not None and stream.armed:
@@ -602,9 +652,18 @@ class GradStream:
     counterpart of JAX's optimization_barrier tie. On the CPU the host
     buffers are the gradients themselves (JAX's host put is a no-op off the
     TPU). `collect()` ends a backward: it waits for the copies and returns
-    {name: host gradient} and {name: (sum of squares, dtype)}."""
+    {name: host gradient} and {name: (sum of squares, dtype)}.
 
-    def __init__(self, model: nn.Module, ranges: Sequence[Tuple[int, int]], device: torch.device):
+    In a process group (`zero`: the step's parallel/sharding.ZeroPlan) each
+    gradient is first summed over the data group onto the rank's ZeRO
+    slice (`scatter_grad`, a collective in the hook: every rank runs the
+    same backward), and only that slice leaves for the host; a leaf split
+    over the data or the model axis reports its slice's f32 sum of squares
+    (the optimizer adds the slices' over the ranks). JAX keeps GSPMD's
+    partitioning on the host transfer."""
+
+    def __init__(self, model: nn.Module, ranges: Sequence[Tuple[int, int]], device: torch.device,
+                 zero=None):
         from visper_lm_tpu_torch.device import HostPool
 
         decoder = model.decoder
@@ -614,6 +673,7 @@ class GradStream:
             raise ValueError(f"stream ranges {tuple(ranges)} cover {covered} layers, "
                              f"decoder has {cfg.num_layers}")
         self.decoder, self.ranges, self.device = decoder, tuple(ranges), torch.device(device)
+        self.zero = zero
         self.segments: List[List[Tuple[str, nn.Parameter]]] = []
         for s, e in self.ranges:
             self.segments.append([
@@ -625,14 +685,20 @@ class GradStream:
         self.pool = None
         self.host: Dict[str, torch.Tensor] = {}
         if self.device.type == "cuda":
-            params = [p for seg in self.segments for _, p in seg]
-            self.pool = HostPool(sum(HostPool.size_of(p.shape, p.dtype) for p in params), self.device)
-            self.host = {n: self.pool.take(p.shape, p.dtype) for seg in self.segments for n, p in seg}
+            shapes = {n: (self._slice_shape(n, p), p.dtype) for seg in self.segments for n, p in seg}
+            self.pool = HostPool(sum(HostPool.size_of(*s) for s in shapes.values()), self.device)
+            self.host = {n: self.pool.take(*s) for n, s in shapes.items()}
             self.side = torch.cuda.Stream(self.device)
         self._hooks = [p.register_post_accumulate_grad_hook(self._ready)
                        for seg in self.segments for _, p in seg]
         self.armed = False
         decoder.grad_stream = self
+
+    def _slice_shape(self, n: str, p: torch.Tensor) -> Tuple[int, ...]:
+        """The shape of what leaves for the host: the rank's ZeRO slice."""
+        if self.zero is None:
+            return tuple(p.shape)
+        return self.zero.moments[n].local_shape(p.shape, self.zero.rank)
 
     @property
     def host_bytes(self) -> int:
@@ -671,8 +737,18 @@ class GradStream:
 
         seg = self.segments[k]
         grads = [(n, p.grad if p.grad is not None else torch.zeros_like(p)) for n, p in seg]
+        if self.zero is not None:
+            from visper_lm_tpu_torch.parallel.sharding import scatter_grad
+
+            z = self.zero
+            grads = [(n, scatter_grad(z.moments[n], g.contiguous(), z.group, z.rank))
+                     for n, g in grads]
         for n, g in grads:
-            self.sumsq[n] = leaf_sumsq(g)
+            pl = None if self.zero is None else self.zero.moments[n]
+            if pl is not None and (pl.sharded or pl.model_sharded):
+                self.sumsq[n] = torch.linalg.vector_norm(g, dtype=torch.float32).square()
+            else:
+                self.sumsq[n] = leaf_sumsq(g)
         if self.device.type != "cuda":
             self.grads.update(grads)
         else:
@@ -740,6 +816,8 @@ def quantize_decoder(
     caller's decoder is left as it was (JAX quantizes a copy of the tree)."""
     if mode not in ("int8", "int4"):
         raise ValueError(f"unknown weight quantization {mode!r}")
+    if decoder.tp is not None:
+        raise NotImplementedError(f"serving quantization {LATER}")
     cfg = decoder.cfg
     device = decoder.embed_tokens.weight.device
     rms = {}

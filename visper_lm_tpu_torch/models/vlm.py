@@ -37,7 +37,8 @@ from visper_lm_tpu_torch.models.lora import build_lora, init_lora_, lora_side_fa
 from visper_lm_tpu_torch.models.projector import Projector
 from visper_lm_tpu_torch.models.resampler import Resampler
 from visper_lm_tpu_torch.models.vit import VisionTower, clip_tower_features, init_tower_
-from visper_lm_tpu_torch.utils.param import embed, init_weights_, torch_dtype
+from visper_lm_tpu_torch.parallel.tensor import model_placements, shard_model
+from visper_lm_tpu_torch.utils.param import init_weights_, torch_dtype
 
 
 def tap_layer_union(cfg: VLMConfig) -> Tuple[int, ...]:
@@ -104,16 +105,25 @@ class VLM(nn.Module):
 
 
 def init_vlm(
-    cfg: VLMConfig, *, device: Optional[Union[str, torch.device]] = None, seed: int = 0
+    cfg: VLMConfig, *, device: Optional[Union[str, torch.device]] = None, seed: int = 0,
+    tp=None,
 ) -> VLM:
     """JAX `init_vlm`, with seeded random weights made on `device` (CUDA when
-    None) by a torch.Generator: the JAX distributions, not its numbers."""
+    None) by a torch.Generator: the JAX distributions, not its numbers.
+
+    tp (a parallel/tensor.TensorParallel): the rank's tensor-parallel form,
+    cut on the meta device (`shard_model`); each split parameter is drawn
+    whole, one at a time, in the one-device order, and only the rank's slice
+    is kept: the same numbers as the whole model's, and never the whole
+    decoder on the device."""
     device = resolve_device(device)
     with torch.device("meta"):
-        model = VLM(cfg)
+        model = shard_model(VLM(cfg), tp)
     model = model.to_empty(device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    init_weights_(model, gen)
+    plan = model_placements(model)
+    whole = {id(model.get_parameter(n)): (pl, tp.rank) for n, pl in plan.items()}
+    init_weights_(model, gen, whole=whole)
     if cfg.use_convnext_tower:
         init_convnext_(model.vision_tower, gen)
     else:
@@ -183,7 +193,7 @@ def splice_embeddings(
     image_features: Optional[torch.Tensor], # (B, N_img, hidden) or None (text only)
 ) -> torch.Tensor:
     """Vectorized gather-select splice -> (B, T, hidden)."""
-    text_emb = embed(model.decoder.embed_tokens.weight, text_ids)
+    text_emb = model.decoder.embed(text_ids)
     dtype = text_emb.dtype
     emb = text_emb
     if image_features is not None:

@@ -12,10 +12,19 @@ step's collectives itself; they are all here:
     cannot use NCCL, which refuses two ranks on one GPU: they take gloo);
   * each process feeds its own shard of the global batch
     (`shard_batch_multihost`): there is no global array, and the losses
-    divide by counts summed over the ranks (train/losses.py);
-  * the collectives the step needs: `all_reduce`, `reduce_scatter` and
+    divide by counts summed over the ranks (train/losses.py). The batch is
+    split over the data axis only: the shard is the one of the process's
+    DATA coordinate (`data_shard`), so the tensor-parallel ranks of one
+    data group read the same rows;
+  * the process groups of the mesh's axes: `data_group` (the ranks that
+    differ only in their data coordinate) and `model_group` (only in their
+    model coordinate: a tensor-parallel group), made once per set of ranks;
+  * the collectives the step needs: `all_reduce` (a sum or a max), `reduce_scatter` and
     `all_gather` along a dim, `all_gather_autograd` (gradients flow back,
-    summed over the ranks), `broadcast` and `reduce`. Where a backend does
+    summed over the ranks), `broadcast` and `reduce`, and the two
+    operators of tensor parallelism, `copy_to_group` (identity forward,
+    all-reduced gradient) and `reduce_from_group` (all-reduce forward,
+    identity backward). Where a backend does
     not run a collective on CUDA tensors, the collective is staged through
     page-locked host memory; `BACKENDS` says which, by the backend's name.
 
@@ -31,13 +40,17 @@ Environment variables honoured (as JAX's):
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Mapping, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from visper_lm_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, make_mesh
+
+# process groups made so far, by their ranks (every process makes every group
+# of an axis in the same order, once)
+_groups: Dict[Tuple[int, ...], Any] = {}
 
 # backend -> whether it runs collectives on CUDA tensors (else each is
 # staged through host memory)
@@ -111,6 +124,7 @@ def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _state.update(initialized=False, local_index=None)
+    _groups.clear()
 
 
 def process_index() -> int:
@@ -148,27 +162,51 @@ def make_global_mesh(dp: Optional[int] = None, tp: int = 1) -> Mesh:
     return make_mesh(dp=dp, tp=tp, world=process_count())
 
 
-def data_group(mesh: Mesh):
-    """(process group, this process's rank in it, its size) of the data axis
-    this process sits on; the group is None (every process) when the data
-    axis spans them all."""
-    ranks = mesh.data_group_ranks(process_index())
+def _axis_group(mesh: Mesh, ranks_of):
+    """(process group, this process's rank in it, its size) of the axis
+    whose groups `ranks_of(rank)` gives; the group is None (every process)
+    when the axis spans them all. Every process takes part in creating every
+    group of the axis, a process outside the mesh too (which then raises)."""
+    if len(ranks_of(0)) < process_count():
+        for r in range(mesh.size):
+            key = ranks_of(r)
+            if key not in _groups:
+                _groups[key] = dist.new_group(list(key))
+    ranks = ranks_of(process_index())
     if len(ranks) == process_count():
         return None, process_index(), len(ranks)
-    # every process takes part in creating every group
-    groups = {}
-    for r in range(mesh.size):
-        key = mesh.data_group_ranks(r)
-        if key not in groups:
-            groups[key] = dist.new_group(list(key))
-    return groups[ranks], ranks.index(process_index()), len(ranks)
+    return _groups[ranks], ranks.index(process_index()), len(ranks)
 
 
-def local_batch_size(global_batch_size: int) -> int:
-    """Per-process share of a global batch (must divide evenly)."""
-    n = process_count()
+def data_group(mesh: Mesh):
+    """(process group, this process's rank in it, its size) of the data axis
+    this process sits on (the ranks with its model coordinate)."""
+    return _axis_group(mesh, mesh.data_group_ranks)
+
+
+def model_group(mesh: Mesh):
+    """(process group, this process's rank in it, its size) of the model
+    axis this process sits on: its tensor-parallel group (the ranks with its
+    data coordinate)."""
+    return _axis_group(mesh, mesh.model_group_ranks)
+
+
+def data_shard(mesh: Optional[Mesh] = None) -> Tuple[int, int]:
+    """(index, count) of this process's shard of the global batch: its data
+    coordinate and the data size (the tensor-parallel ranks of one data
+    group read the same rows); without a mesh (process_index(),
+    process_count())."""
+    if mesh is None:
+        return process_index(), process_count()
+    return mesh.coords(process_index())[DATA_AXIS], mesh.data_size
+
+
+def local_batch_size(global_batch_size: int, mesh: Optional[Mesh] = None) -> int:
+    """Per-process share of a global batch (must divide evenly): over the
+    mesh's data axis, or over every process without a mesh."""
+    n = data_shard(mesh)[1]
     assert global_batch_size % n == 0, (
-        f"global batch {global_batch_size} not divisible by {n} processes"
+        f"global batch {global_batch_size} not divisible by {n} data shards"
     )
     return global_batch_size // n
 
@@ -184,11 +222,12 @@ def shard_batch_multihost(
     batch: Mapping[str, Any], mesh: Mesh, leading_accum: bool = False,
     device: Optional[torch.device] = None,
 ) -> LocalBatch:
-    """Each process passes its LOCAL (local_batch, ...) shard (with a leading
-    (accum_steps, ...) axis when leading_accum): its arrays go to `device`
-    as they are, and the result records the global batch size, the local
-    one times the mesh's data size. JAX assembles a global array here; the
-    port never does."""
+    """Each process passes its LOCAL (local_batch, ...) shard, the rows of
+    its data coordinate (`data_shard`; with a leading (accum_steps, ...)
+    axis when leading_accum): its arrays go to `device` as they are, and
+    the result records the global batch size, the local one times the
+    mesh's data size. JAX assembles a global array here; the port never
+    does."""
     from visper_lm_tpu_torch.parallel.sharding import batch_pspecs
 
     specs = batch_pspecs(batch, leading_accum=leading_accum)
@@ -232,14 +271,18 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
 
 
-def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Sum t over the group, in place (t must be contiguous); returns t."""
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce(t: torch.Tensor, group=None, op: str = "sum") -> torch.Tensor:
+    """Sum (or with op="max" the largest of) t over the group, in place (t
+    must be contiguous); returns t."""
     if _staged(t, group):
         host = _host(t)
-        dist.all_reduce(host, group=group)
+        dist.all_reduce(host, op=_OPS[op], group=group)
         t.copy_(host)
     else:
-        dist.all_reduce(t, group=group)
+        dist.all_reduce(t, op=_OPS[op], group=group)
     return t
 
 
@@ -326,6 +369,44 @@ class _AllGather(torch.autograd.Function):
 def all_gather_autograd(t: torch.Tensor, dim: int = 0, group=None) -> torch.Tensor:
     """`all_gather` through which gradients flow back, summed over the ranks."""
     return _AllGather.apply(t, dim, group)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward; all-reduce of the gradient backward (a
+    column-parallel layer's input: each rank's dX is a partial sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """All-reduce forward; identity backward (a row-parallel layer's
+    output: the ranks' partial sums added; every rank's loss reads the sum,
+    and each rank's gradient of it is the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """x as it is; its gradient summed over the group (Megatron's `f`)."""
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """x summed over the group; its gradient as it is (Megatron's `g`)."""
+    return _ReduceFromGroup.apply(x, group)
 
 
 def all_reduce_scalars(values: List[torch.Tensor], group=None) -> List[torch.Tensor]:

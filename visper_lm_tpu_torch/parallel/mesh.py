@@ -7,9 +7,10 @@ grid: the axis names in JAX's order ('data', 'pipe', 'expert', 'seq',
 'model'), the size of each, and each rank's coordinates. There is no device
 array and no `mesh_utils`.
 
-Only the data axis is ported (ROADMAP A10a). A 'model' (tp), 'seq' (sp),
-'pipe' (pp) or 'expert' (ep) axis of more than one raises, naming the
-ROADMAP item that brings it.
+The data axis (ROADMAP A10a) and the 'model' axis (tensor parallelism,
+A10b) are ported, 'model' innermost as in JAX: the tp ranks of one data
+group are consecutive. A 'seq' (sp), 'pipe' (pp) or 'expert' (ep) axis of
+more than one raises, naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -27,7 +28,6 @@ EXPERT_AXIS = "expert"
 
 # what brings each axis that is not ported yet
 _UNPORTED_AXES = {
-    "tp": "tensor parallelism is ROADMAP queue A, item A10b",
     "sp": "sequence parallelism is ROADMAP queue A, item A10c",
     "pp": "pipeline parallelism is ROADMAP queue A, item A10c",
     "ep": "expert parallelism is ROADMAP queue A, item A10d",
@@ -55,6 +55,10 @@ class Mesh:
     def data_size(self) -> int:
         return self.shape[DATA_AXIS]
 
+    @property
+    def model_size(self) -> int:
+        return self.shape[MODEL_AXIS]
+
     def coords(self, rank: int) -> Dict[str, int]:
         """{axis name: index} of `rank` in the grid."""
         where = np.argwhere(self.ranks == rank)
@@ -69,6 +73,13 @@ class Mesh:
         index = tuple(slice(None) if a == DATA_AXIS else c[a] for a in self.axis_names)
         return tuple(int(r) for r in self.ranks[index].reshape(-1))
 
+    def model_group_ranks(self, rank: int) -> Tuple[int, ...]:
+        """The ranks that share `rank`'s coordinates but for the model axis
+        (its tensor-parallel group), in model order."""
+        c = self.coords(rank)
+        index = tuple(slice(None) if a == MODEL_AXIS else c[a] for a in self.axis_names)
+        return tuple(int(r) for r in self.ranks[index].reshape(-1))
+
 
 def make_mesh(
     dp: Optional[int] = None,
@@ -81,12 +92,12 @@ def make_mesh(
     """The ('data', 'model') grid over `world` processes (default: the
     runtime's process count), with JAX's axis order and rules: dp defaults
     to world // (pp * tp * sp * ep), the grid takes the first dp * pp * tp *
-    sp * ep ranks, and JAX's assertion fires when there are fewer. tp, sp, pp
+    sp * ep ranks, and JAX's assertion fires when there are fewer. sp, pp
     or ep above 1 raise NotImplementedError naming their ROADMAP item."""
-    for name, size in (("tp", tp), ("sp", sp), ("pp", pp), ("ep", ep)):
+    for name, size in (("sp", sp), ("pp", pp), ("ep", ep)):
         if size > 1:
             raise NotImplementedError(
-                f"{name}={size}: {_UNPORTED_AXES[name]}; the port's mesh has a data axis only")
+                f"{name}={size}: {_UNPORTED_AXES[name]}; the port's mesh has the data and model axes only")
     if world is None:
         from visper_lm_tpu_torch.parallel.distributed import process_count
 

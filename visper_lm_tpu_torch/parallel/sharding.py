@@ -166,7 +166,8 @@ def batch_pspecs(batch: Mapping[str, Any], leading_accum: bool = False) -> Dict[
 
 def model_shard_pspec(shape: Sequence[int], tp_size: int, min_size: int = 2 ** 16) -> Spec:
     """Shard the largest tp-divisible dim over 'model' (frozen teacher
-    weights; used with tp, ROADMAP A10b). Small tensors replicate."""
+    weights under shard_teachers: `teacher_placements`). Small tensors
+    replicate."""
     shape = tuple(int(d) for d in shape)
     if tp_size <= 1 or not shape or math.prod(shape) < min_size:
         return ()
@@ -188,21 +189,35 @@ def model_shard_pspec(shape: Sequence[int], tp_size: int, min_size: int = 2 ** 1
 
 @dataclasses.dataclass(frozen=True)
 class Placement:
-    """Where one port tensor lives over the data axis of `parts` ranks:
-    replicated (dim and owner None), split into equal slices along `dim`,
-    or whole on rank `owner` (a stacked leaf split along its layers: the
-    other ranks hold an empty slice of it)."""
+    """Where one port tensor lives over the mesh's two axes.
+
+    Over the 'model' axis of `model_parts` ranks the WHOLE tensor is split
+    into equal slices along `model_dim` (tensor parallelism: each model
+    rank holds its slice as its parameter, the "tp-local" tensor), or
+    replicated (model_dim None). Over the data axis of `parts` ranks that
+    tp-local tensor is replicated (dim and owner None), split into equal
+    slices along `dim`, or whole on data rank `owner` (a stacked leaf split
+    along its layers: the other ranks hold an empty slice of it). `sharded`
+    and the methods without "model" in their names are the data axis's, on
+    the tp-local tensor (ZeRO's group is the ranks with one model
+    coordinate); `tile` and `box` are a rank's piece of the whole tensor."""
 
     dim: Optional[int] = None
     parts: int = 1
     owner: Optional[int] = None
+    model_dim: Optional[int] = None
+    model_parts: int = 1
 
     @property
     def sharded(self) -> bool:
         return self.dim is not None or self.owner is not None
 
+    @property
+    def model_sharded(self) -> bool:
+        return self.model_dim is not None
+
     def bounds(self, shape: Sequence[int], rank: int) -> Tuple[int, int, int]:
-        """(dim, start, stop) of rank's slice."""
+        """(dim, start, stop) of data rank's slice of a tp-local tensor."""
         if self.owner is not None:
             return 0, 0, (int(shape[0]) if rank == self.owner else 0)
         if self.dim is None:
@@ -211,7 +226,8 @@ class Placement:
         return self.dim, rank * size, (rank + 1) * size
 
     def local(self, t: torch.Tensor, rank: int) -> torch.Tensor:
-        """rank's slice of t (a view; t itself when replicated)."""
+        """data rank's slice of the tp-local t (a view; t itself when
+        replicated over the data axis)."""
         if not self.sharded:
             return t
         if t.ndim == 0:
@@ -227,11 +243,77 @@ class Placement:
         dim, start, stop = self.bounds(shape, rank)
         return shape[:dim] + (stop - start,) + shape[dim + 1:]
 
+    def model_local(self, t: torch.Tensor, model_rank: int) -> torch.Tensor:
+        """model rank's tp-local slice of the whole t (a view)."""
+        if self.model_dim is None:
+            return t
+        size = t.shape[self.model_dim] // self.model_parts
+        return t.narrow(self.model_dim, model_rank * size, size)
+
+    def model_local_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        shape = tuple(int(d) for d in shape)
+        if self.model_dim is None:
+            return shape
+        d = self.model_dim
+        return shape[:d] + (shape[d] // self.model_parts,) + shape[d + 1:]
+
+    def whole_shape(self, local_shape: Sequence[int]) -> Tuple[int, ...]:
+        """The whole tensor's shape from a tp-local one."""
+        shape = tuple(int(d) for d in local_shape)
+        if self.model_dim is None:
+            return shape
+        d = self.model_dim
+        return shape[:d] + (shape[d] * self.model_parts,) + shape[d + 1:]
+
+    def spec(self, ndim: int) -> Spec:
+        """The axes over which each dim of the whole tensor is split, as a
+        spec of the port's layout (a layer owner: 'data' on dim 0)."""
+        entries: List[Any] = [None] * max(ndim, 1)
+        if self.model_dim is not None:
+            entries[self.model_dim] = MODEL_AXIS
+        data = 0 if self.owner is not None else self.dim
+        if data is not None:
+            entries[data] = DATA_AXIS if entries[data] is None else (DATA_AXIS, MODEL_AXIS)
+        return tuple(entries)
+
+    def tile(self, t: torch.Tensor, data_rank: int, model_rank: int) -> torch.Tensor:
+        """The (data rank, model rank)'s piece of the whole t (a view)."""
+        return self.local(self.model_local(t, model_rank), data_rank)
+
+    def box(self, shape: Sequence[int], data_rank: int,
+            model_rank: int) -> Tuple[Tuple[int, int], ...]:
+        """The (start, stop) ranges, one a dim, of the whole tensor of
+        `shape` that the (data rank, model rank) holds."""
+        shape = tuple(int(d) for d in shape) or (1,)
+        box = [(0, d) for d in shape]
+        if self.model_dim is not None:
+            size = shape[self.model_dim] // self.model_parts
+            box[self.model_dim] = (model_rank * size, (model_rank + 1) * size)
+        if self.sharded:
+            local = self.model_local_shape(shape)
+            d, a, b = self.bounds(local, data_rank)
+            off = box[d][0]
+            box[d] = (off + a, off + b) if b > a else (off, off)
+        return tuple(box)
+
+
+def _port_dim(path: str, ndim: int, axis: int) -> int:
+    """The port tensor's dim of JAX dim `axis` of a per-layer leaf (a
+    kernel's layout mapped through `_kernel_perm`)."""
+    return _kernel_perm(ndim)[axis] if path.endswith("/kernel") else axis
+
+
+def _axis_of(spec: Spec, axis_name: str) -> Optional[int]:
+    return next((i for i, e in enumerate(spec) if e == axis_name or (
+        isinstance(e, tuple) and axis_name in e)), None)
+
 
 def placements(named_shapes: Mapping[str, Sequence[int]], specs: Mapping[str, Spec],
-               data_size: int) -> Dict[str, Placement]:
+               data_size: int, model_size: int = 1) -> Dict[str, Placement]:
     """{port name: Placement} of each per-layer tensor under its JAX leaf's
-    spec (specs keyed by JAX path; a path without one replicates)."""
+    spec (specs keyed by JAX path; a path without one replicates); shapes
+    are the WHOLE tensors'. The 'model' axis counts only when model_size >
+    1, the data axis only when data_size > 1."""
     layers: Dict[str, int] = {}
     for name in named_shapes:
         if split_layer(name)[1] is not None:
@@ -240,18 +322,21 @@ def placements(named_shapes: Mapping[str, Sequence[int]], specs: Mapping[str, Sp
     for name, shape in named_shapes.items():
         path, layer = jax_path(name), split_layer(name)[1]
         spec = tuple(specs.get(path, ()))
-        axis = next((i for i, e in enumerate(spec) if _has_data(e)), None)
-        if axis is None or data_size <= 1:
-            out[name] = Placement()
-            continue
-        if layer is not None:
-            if axis == 0:
-                out[name] = Placement(parts=data_size, owner=layer // (layers[path] // data_size))
-                continue
-            axis -= 1
         ndim = len(shape)
-        dim = _kernel_perm(ndim)[axis] if path.endswith("/kernel") else axis
-        out[name] = Placement(dim=dim, parts=data_size)
+        stacked = 1 if layer is not None else 0
+        kw: Dict[str, Any] = {}
+        m_axis = _axis_of(spec, MODEL_AXIS) if model_size > 1 else None
+        if m_axis is not None:
+            if m_axis < stacked:
+                raise ValueError(f"{path}: the 'model' axis on the layer axis has no placement")
+            kw.update(model_dim=_port_dim(path, ndim, m_axis - stacked), model_parts=model_size)
+        axis = _axis_of(spec, DATA_AXIS) if data_size > 1 else None
+        if axis is not None:
+            if axis < stacked:
+                kw.update(parts=data_size, owner=layer // (layers[path] // data_size))
+            else:
+                kw.update(dim=_port_dim(path, ndim, axis - stacked), parts=data_size)
+        out[name] = Placement(**kw)
     return out
 
 
@@ -285,36 +370,132 @@ def scatter_grad(pl: Placement, g: torch.Tensor, group, rank: int) -> torch.Tens
 class ZeroPlan:
     """The ZeRO layout of one train step on a data axis of `size` ranks:
     each trainable's moments (and master copy), each parameter's persistent
-    copy (replicated unless zero_params / zero_frozen shard it), and the
-    process group the collectives run on."""
+    copy (replicated unless zero_params / zero_frozen shard it), the
+    process group the collectives run on (the data group), and under tensor
+    parallelism the rank's `tp` group (parallel/tensor.TensorParallel)."""
 
     group: Any
     rank: int
     size: int
     moments: Dict[str, Placement]
     params: Dict[str, Placement]
+    tp: Any = None
 
 
 def plan_zero(named: Mapping[str, torch.Tensor], trainable: Mapping[str, bool], data_size: int,
               *, zero_params: bool = False, zero_frozen: bool = False,
-              zero_min_size: int = 2 ** 16) -> Tuple[Dict[str, Placement], Dict[str, Placement],
-                                                     Dict[str, Spec], Dict[str, Spec]]:
-    """JAX `plan_train_shardings` on the port's parameters: (moment
-    placements of the trainables, parameter placements of all, the
-    parameters' JAX specs, the moments' JAX specs)."""
+              zero_min_size: int = 2 ** 16, model_size: int = 1,
+              ) -> Tuple[Dict[str, Placement], Dict[str, Placement],
+                         Dict[str, Spec], Dict[str, Spec]]:
+    """JAX `plan_train_shardings` on the port's parameters (tp-local when
+    model_size > 1: their whole shapes are planned): (moment placements of
+    the trainables, parameter placements of all, the parameters' JAX specs,
+    the moments' specs).
+
+    The moments' layout under tensor parallelism: JAX looks a moment's spec
+    up by SHAPE (`opt_state_pspecs`), so some moments get a 'model' dim
+    other than their parameter's (q_proj's take o_proj's at Llama-3-8B),
+    and XLA reshards between the gradient and the moment. The update is
+    elementwise, so the port keeps every moment in its parameter's own tp
+    slice: where JAX's moment spec splits 'model' along another dim than
+    the parameter's, the moment's spec is `zero_pspec` of the parameter's
+    own spec, with the same bytes a rank (tests/test_torch_sharding.py).
+    With model_size 1 the moments' specs are JAX's."""
     shapes = jax_shapes((n, t) for n, t in named.items())
     is_train = {jax_path(n): trainable[n] for n in named}
     specs = param_pspecs(shapes)
+    if model_size > 1:
+        shapes = {p: _whole_jax_shape(s, specs[p], model_size) for p, s in shapes.items()}
     for path, shape in shapes.items():
         if (zero_params and is_train[path]) or (zero_frozen and not is_train[path]):
             specs[path] = zero_pspec(specs[path], shape, data_size, min_size=zero_min_size)
     train_shapes = {p: s for p, s in shapes.items() if is_train[p]}
     moment_specs = opt_state_pspecs(train_shapes, {p: specs[p] for p in train_shapes}, data_size)
+    if model_size > 1:
+        for path in train_shapes:
+            if _axis_of(moment_specs[path], MODEL_AXIS) != _axis_of(specs[path], MODEL_AXIS):
+                moment_specs[path] = zero_pspec(specs[path], train_shapes[path], data_size)
     port_shapes = {n: tuple(t.shape) for n, t in named.items()}
-    params = placements(port_shapes, specs, data_size)
+    if model_size > 1:
+        model_only = placements(port_shapes, specs, 1, model_size)
+        port_shapes = {n: model_only[n].whole_shape(s) for n, s in port_shapes.items()}
+    params = placements(port_shapes, specs, data_size, model_size)
     moments = placements({n: s for n, s in port_shapes.items() if trainable[n]}, moment_specs,
-                         data_size)
+                         data_size, model_size)
     return moments, params, specs, moment_specs
+
+
+def _whole_jax_shape(shape: Sequence[int], spec: Spec, model_size: int) -> Tuple[int, ...]:
+    """A tp-local JAX-layout shape times model_size along its 'model' dim."""
+    shape = tuple(int(d) for d in shape)
+    axis = _axis_of(spec, MODEL_AXIS)
+    if axis is None or axis >= len(shape):
+        return shape
+    return shape[:axis] + (shape[axis] * model_size,) + shape[axis + 1:]
+
+
+def tp_placements(named_shapes: Mapping[str, Sequence[int]],
+                  model_size: int) -> Dict[str, Placement]:
+    """{port name: Placement} over the 'model' axis alone (`_PARAM_RULES`,
+    JAX's Megatron rules) of the whole tensors `named_shapes`: what
+    `parallel/tensor.shard_model` cuts."""
+    shapes = jax_shapes((n, torch.empty(tuple(s), device="meta")) for n, s in named_shapes.items())
+    return placements(named_shapes, param_pspecs(shapes), 1, model_size)
+
+
+# the teachers' stacked block lists in the JAX tree (layer index dropped)
+_TEACHER_STACKED = re.compile(r"^((?:dinov2|clip_h)\.blocks\.|swin\.stages\.\d+\.blocks\.)(\d+)\.(.*)$")
+
+
+def _module_perm(module: nn.Module, ndim: int) -> Tuple[int, ...]:
+    """JAX dim k of a teacher weight is the port's dim perm[k]."""
+    if isinstance(module, nn.ConvTranspose2d):
+        return (2, 3, 0, 1)
+    if isinstance(module, (nn.Conv2d, nn.Linear)):
+        return _kernel_perm(ndim)
+    return tuple(range(ndim))
+
+
+def teacher_leaves(teachers: nn.Module) -> Dict[str, Tuple[str, Tuple[int, ...], Tuple[int, ...],
+                                                           bool]]:
+    """{port name: (JAX path, JAX leaf shape (stacked: (L, ...)), JAX dim ->
+    port dim, stacked)} of the teachers' parameters (JAX `init_teachers`'
+    tree: dinov2 / clip_h blocks and each Swin stage's blocks stacked)."""
+    mods = dict(teachers.named_modules())
+    per: Dict[str, Tuple[str, Tuple[int, ...], Tuple[int, ...], bool]] = {}
+    counts: Dict[str, int] = {}
+    for name, p in teachers.named_parameters():
+        mname, leaf = name.rsplit(".", 1)
+        module = mods[mname]
+        perm = _module_perm(module, p.ndim) if leaf == "weight" else tuple(range(p.ndim))
+        jax_leaf = "kernel" if leaf == "weight" and isinstance(
+            module, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)) else leaf
+        m = _TEACHER_STACKED.match(mname + "." + jax_leaf)
+        flat = (m.group(1) + m.group(3)) if m else mname + "." + jax_leaf
+        path = flat.replace(".", "/")
+        shape = tuple(int(p.shape[d]) for d in perm)
+        if m:
+            counts[path] = counts.get(path, 0) + 1
+        per[name] = (path, shape, perm, m is not None)
+    return {n: (path, ((counts[path],) + shape) if stacked else shape, perm, stacked)
+            for n, (path, shape, perm, stacked) in per.items()}
+
+
+def teacher_placements(teachers: nn.Module, model_size: int) -> Dict[str, Placement]:
+    """{port name: Placement over the 'model' axis} of the frozen teachers
+    under `shard_teachers`: JAX's `model_shard_pspec` of each leaf of the
+    JAX tree (its largest tp-divisible dim over 'model', leaves of at least
+    2^16 elements), mapped onto the port's per-layer tensors."""
+    out = {}
+    for name, (path, shape, perm, stacked) in teacher_leaves(teachers).items():
+        axis = _axis_of(model_shard_pspec(shape, model_size), MODEL_AXIS)
+        if axis is None:
+            out[name] = Placement()
+            continue
+        if stacked and axis == 0:
+            raise ValueError(f"{path}: model_shard_pspec splits the layer axis")
+        out[name] = Placement(model_dim=perm[axis - int(stacked)], model_parts=model_size)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from visper_lm_tpu_torch.models.decoder import Decoder, KVCache, init_kv_cache
+from visper_lm_tpu_torch.parallel.tensor import LATER
 
 
 @dataclasses.dataclass
@@ -51,6 +52,8 @@ class BeamSearchDecoder:
     ):
         if num_beams < 1:
             raise ValueError(f"num_beams must be >= 1, got {num_beams}")
+        if decoder.tp is not None:
+            raise NotImplementedError(f"beam search {LATER}")
         self.decoder = decoder
         self.cfg = decoder.cfg
         self.num_beams = num_beams
@@ -73,7 +76,7 @@ class BeamSearchDecoder:
         """The last position's logits (B, V) of a (B, t) chunk at `offset`."""
         q_offset = torch.full((), offset, dtype=torch.long, device=self.device)
         out = self.decoder(
-            self.decoder.embed_tokens(tokens),
+            self.decoder.embed(tokens),
             kv_lengths=(q_offset + tokens.shape[1]).expand(tokens.shape[0]),
             cache=cache, q_offset=q_offset,
         )

@@ -56,6 +56,7 @@ from visper_lm_tpu_torch.models.decoder import (
     quantize_decoder,
 )
 from visper_lm_tpu_torch.models.vlm import VLM, encode_images, splice_embeddings
+from visper_lm_tpu_torch.parallel.tensor import LATER
 from visper_lm_tpu_torch.serve.generate import (
     GenerationConfig,
     _sample_tokens,
@@ -173,6 +174,8 @@ class Engine:
         param = next(model.parameters())
         if param.device.type != self.device.type:
             raise ValueError(f"model is on {param.device}, engine on {self.device}")
+        if model.decoder.tp is not None:
+            raise NotImplementedError(f"the Engine {LATER}")
         if ecfg.spec_k and ecfg.temperature != 0.0:
             raise ValueError("engine speculative decoding is greedy-only (temperature 0); "
                              "sampling uses the plain step or serve/speculative.py")
@@ -386,7 +389,7 @@ class Engine:
         capacity stop advancing (their writes are dropped anyway)."""
         out = []
         for _ in range(n):
-            emb = self.decoder.embed_tokens(tokens[:, None])
+            emb = self.decoder.embed(tokens[:, None])
             o = self.decoder(
                 emb, positions=(lengths - self.kv_starts)[:, None], kv_lengths=lengths + 1,
                 kv_starts=self.kv_starts, cache=self.cache, q_offset=lengths,
@@ -401,7 +404,7 @@ class Engine:
         """One (B, k+1) target forward at every slot's own positions (one
         weight read serves up to k+1 tokens a slot); the argmax at each."""
         k1 = chunk.shape[1]
-        emb = self.decoder.embed_tokens(chunk)
+        emb = self.decoder.embed(chunk)
         positions = (lengths - self.kv_starts)[:, None] + torch.arange(k1, device=self.device)
         out = self.decoder(
             emb, positions=positions, kv_lengths=lengths + k1, kv_starts=self.kv_starts,

@@ -17,6 +17,15 @@
     into the Generator's own decoder; the caller's model is left as it is.
 
 The distillation heads do not run during generation.
+
+Tensor parallelism (a model in its rank's form, parallel/tensor.py): the
+cache (bf16 / f32, or int8 with its scales) holds the rank's kv heads, the
+prefill runs the flash kernel on the
+local heads, the last position's logits are gathered over the vocabulary
+before sampling, so every rank of the group samples the same tokens. Under
+tp x dp each data rank generates the rows of its own data shard (its
+Generator's batch is that shard), as JAX's Generator does on a batch split
+over 'data'. Quantized weights under tp are ROADMAP A10b-2 (they raise).
 """
 
 from __future__ import annotations
@@ -185,14 +194,15 @@ class Generator:
         positions = (
             torch.arange(self.prompt_len, device=self.device)[None, :] - offsets[:, None]
         ).clamp(min=0)
+        split = 1 if self.decoder.tp is None else self.decoder.tp.size
         if self.gen_cfg.kv_quant:
             cache = init_quant_kv_cache(
-                cfg.decoder, self.batch_size, self.max_len, device=self.device
+                cfg.decoder, self.batch_size, self.max_len, device=self.device, tp=split,
             )
         else:
             cache = init_kv_cache(
                 cfg.decoder, self.batch_size, self.max_len, dtype=self.cache_dtype,
-                device=self.device,
+                device=self.device, tp=split,
             )
         out = self.decoder(
             embeds,
@@ -219,7 +229,7 @@ class Generator:
         tokens = []
         for _ in range(max(self.gen_cfg.decode_chunk, 1)):
             slot = self.prompt_len + step
-            emb = decoder.embed_tokens(token[:, None])
+            emb = decoder.embed(token[:, None])
             positions = (slot - offsets)[:, None]
             out = decoder(
                 emb, positions=positions, kv_lengths=(slot + 1).expand(self.batch_size),

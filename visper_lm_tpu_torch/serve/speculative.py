@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from visper_lm_tpu_torch.models.decoder import Decoder, KVCache, init_kv_cache
+from visper_lm_tpu_torch.parallel.tensor import LATER
 
 
 @dataclasses.dataclass
@@ -135,10 +136,15 @@ def _chunk_forward(
     # a 0-d position takes the decoder's cache route, as JAX's traced int32
     q_offset = torch.full((), offset, dtype=torch.long, device=dev)
     out = decoder(
-        decoder.embed_tokens(toks), kv_lengths=(q_offset + toks.shape[1]).reshape(1),
+        decoder.embed(toks), kv_lengths=(q_offset + toks.shape[1]).reshape(1),
         cache=cache, q_offset=q_offset,
     )
     return out["logits"][0]
+
+
+def _not_tensor_parallel(*decoders: Decoder) -> None:
+    if any(d.tp is not None for d in decoders):
+        raise NotImplementedError(f"speculative decoding {LATER}")
 
 
 class SpeculativeDecoder:
@@ -158,6 +164,7 @@ class SpeculativeDecoder:
     ):
         if target.cfg.vocab_size != draft.cfg.vocab_size:
             raise ValueError("draft and target must share the tokenizer/vocab")
+        _not_tensor_parallel(target, draft)
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
         self.target, self.draft = target, draft
@@ -286,6 +293,7 @@ class PromptLookupDecoder:
         temperature: float = 0.0,
         top_p: float = 1.0,
     ):
+        _not_tensor_parallel(target)
         self.target = target
         self.k, self.n = k, ngram
         self.max_len = -(-max_len // 128) * 128

@@ -26,15 +26,19 @@ port's evidence has two parts behind JAX's command line:
     python -m visper_lm_tpu_torch.train.aot --model llama3 --stage finetune \\
         --batch 4 --seq 4096 --offload-opt --stream-grads 8 [--run]
 
-With `--dp N` the breakdown is one rank's of N data-parallel processes, as
-JAX's is one chip's of its mesh: ZeRO's plan (parallel/sharding.plan_zero,
-JAX's specs on JAX's stacked shapes) splits each sharded leaf over the N
-ranks, so its bytes are divided by N: the moments always (ZeRO-1/2), the
-trainables unless `--no-zero3` (ZeRO-3, on by default as in JAX), the
-frozen parameters with `--zero-frozen`. The gradients stay whole on every
-rank until the step's reduce. `--run` measures one process (dp 1).
-`--tp`, `--topology` (a TPU slice) and `--shard-teachers` wait for tensor
-parallelism (ROADMAP queue A, item A10b) and raise.
+With `--dp N --tp M` the breakdown is one rank's of the N x M processes,
+as JAX's is one chip's of its mesh: the decoder's Megatron leaves
+(parallel/tensor.py) are the rank's 1/M slices, and ZeRO's plan
+(parallel/sharding.plan_zero, JAX's specs on JAX's stacked shapes) splits
+each sharded leaf over the N ranks of a data group, so its bytes are
+divided by N: the moments always (ZeRO-1/2), the trainables unless
+`--no-zero3` (ZeRO-3, on by default as in JAX), the frozen parameters with
+`--zero-frozen`; `--shard-teachers` divides the teachers' large leaves by M
+(`teacher_placements`). The gradients stay whole on every rank (of its
+tp-local tensors) until the step's reduce. `--run` measures one process
+(dp 1, tp 1). `--topology` names a TPU slice (JAX compiles for it without
+the chips); it has no counterpart on GPUs and raises a ValueError: the
+device count is `--dp` x `--tp`.
 """
 
 from __future__ import annotations
@@ -77,19 +81,23 @@ def static_breakdown(
     cfg, *, stage: str, batch_size: int, seq_len: int, with_teachers: bool = False,
     offload_opt_state: bool = False, stream_grads: int = 0, master_weights: bool = False,
     mu_dtype: str = "float32", block_bytes: int = 256 << 20, min_bytes: int = 1 << 20,
-    dp: int = 1, zero_params: bool = False, zero_frozen: bool = False,
+    dp: int = 1, zero_params: bool = False, zero_frozen: bool = False, tp: int = 1,
+    shard_teachers: bool = False,
 ) -> Dict[str, int]:
     """Bytes by group (see the module docstring), from shapes alone; with
-    dp > 1 one rank's, each ZeRO leaf's bytes divided by dp."""
+    dp x tp > 1 one rank's: the tp-local tensors, each ZeRO leaf's bytes
+    divided by dp, the sharded teachers' by tp."""
     from visper_lm_tpu_torch.models.decoder import stream_chunk_ranges
     from visper_lm_tpu_torch.models.vlm import VLM
-    from visper_lm_tpu_torch.parallel.sharding import plan_zero
+    from visper_lm_tpu_torch.parallel.sharding import ZeroPlan, plan_zero, teacher_placements
+    from visper_lm_tpu_torch.parallel.tensor import TensorParallel, shard_model
     from visper_lm_tpu_torch.train.optimizer import trainable_mask
-    from visper_lm_tpu_torch.train.staged_update import plan_offload_layout
+    from visper_lm_tpu_torch.train.staged_update import offload_shapes, plan_offload_layout
     from visper_lm_tpu_torch.utils.param import torch_dtype
 
+    group = TensorParallel(None, 0, tp) if tp > 1 else None
     with torch.device("meta"):
-        model = VLM(cfg)
+        model = shard_model(VLM(cfg), group)
         teachers = None
         if with_teachers and cfg.distill is not None:
             from visper_lm_tpu_torch.models.teachers import build_teachers
@@ -99,24 +107,26 @@ def static_breakdown(
     mask = trainable_mask(named.items(), stage)
     trainable = {n: p for n, p in named.items() if mask[n]}
     moments, placed, _, _ = plan_zero(named, mask, dp, zero_params=zero_params,
-                                      zero_frozen=zero_frozen)
+                                      zero_frozen=zero_frozen, model_size=tp)
 
     def held(n: str) -> int:
         """The bytes of parameter n one rank keeps."""
         return _nbytes(named[n]) // placed[n].parts
 
-    mu = torch_dtype(mu_dtype)
-    shapes = {}
-    for n, p in trainable.items():
-        local = moments[n].local_shape(p.shape, 0)
-        shapes[f"mu/{n}"] = (local, mu)
-        shapes[f"nu/{n}"] = (local, p.dtype)
-        if master_weights:
-            shapes[f"master/{n}"] = (local, torch.float32)
-    plan = (plan_offload_layout(shapes, block_bytes=block_bytes, min_bytes=min_bytes)
-            if offload_opt_state else {k: None for k in shapes})
-    state = {k: int(np.prod(s)) * torch.empty((), dtype=d).element_size()
-             for k, (s, d) in shapes.items()}
+    whole, specs, axis_sizes = offload_shapes(
+        trainable, torch_dtype(mu_dtype), master_weights,
+        ZeroPlan(None, 0, dp, moments, placed, tp=group))
+    plan = (plan_offload_layout(whole, block_bytes=block_bytes, min_bytes=min_bytes,
+                                specs=specs, axis_sizes=axis_sizes)
+            if offload_opt_state else {k: None for k in whole})
+    state = {k: int(np.prod(moments[k.split("/", 1)[1]].local_shape(
+        trainable[k.split("/", 1)[1]].shape, 0))) * torch.empty((), dtype=d).element_size()
+        for k, (_, d) in whole.items()}
+    teacher_bytes = 0
+    if teachers is not None:
+        split = teacher_placements(teachers, tp) if shard_teachers and tp > 1 else {}
+        teacher_bytes = sum(_nbytes(p) // (split[n].model_parts if n in split else 1)
+                            for n, p in teachers.named_parameters())
     streamed = set()
     if stream_grads:
         from visper_lm_tpu_torch.models.vlm import tap_layer_union
@@ -133,7 +143,7 @@ def static_breakdown(
         "grads_device": sum(_nbytes(p) for n, p in trainable.items() if n not in streamed),
         "grads_host": sum(_nbytes(p) for n, p in trainable.items() if n in streamed),
         "frozen": sum(held(n) for n in named if not mask[n]),
-        "teachers": 0 if teachers is None else sum(_nbytes(p) for p in teachers.parameters()),
+        "teachers": teacher_bytes,
         "batch": batch_bytes(cfg, batch_size, seq_len, with_teachers=with_teachers),
     }
 
@@ -239,9 +249,10 @@ def run_step(cfg, *, stage: str, batch_size: int, seq_len: int, with_teachers: b
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--topology", default=None, help="a TPU topology: item A10b (raises)")
+    p.add_argument("--topology", default=None,
+                   help="a TPU slice: no GPU counterpart (raises; give --dp and --tp)")
     p.add_argument("--dp", type=int, default=1, help="data-parallel ranks: one rank's breakdown")
-    p.add_argument("--tp", type=int, default=1, help="above 1: item A10b (raises)")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks: one rank's breakdown")
     p.add_argument("--batch", type=int, default=8, help="the batch on the card")
     p.add_argument("--seq", type=int, default=4096)
     p.add_argument("--model", default="llama3", choices=["llama3", "phi3"])
@@ -259,7 +270,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scan-staging", action="store_true")
     p.add_argument("--stream-grads", type=int, default=0)
     p.add_argument("--mu-dtype", default=None)
-    p.add_argument("--shard-teachers", action="store_true", help="item A10b (raises)")
+    p.add_argument("--shard-teachers", action="store_true",
+                   help="the teachers' large leaves over the tp ranks")
     p.add_argument("--zero-frozen", action="store_true",
                    help="shard the frozen parameters over the data axis too")
     p.add_argument("--run", action="store_true",
@@ -271,16 +283,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    multi = [flag for flag, asked in (
-        ("--topology", args.topology is not None), ("--tp", args.tp != 1),
-        ("--shard-teachers", args.shard_teachers)) if asked]
-    if multi:
-        raise NotImplementedError(
-            f"{', '.join(multi)}: tensor parallelism (and a TPU slice's topology) is ROADMAP "
-            "queue A, item A10b; the port's mesh has a data axis only")
-    if args.run and args.dp != 1:
-        raise ValueError("--run measures one process on one card; --dp N gives one rank's "
-                         "static breakdown")
+    if args.topology is not None:
+        raise ValueError(
+            f"--topology {args.topology}: a TPU slice has no counterpart on GPUs; the device "
+            "count is --dp x --tp (ROADMAP C)")
+    if args.run and (args.dp != 1 or args.tp != 1):
+        raise ValueError("--run measures one process on one card; --dp N --tp M give one "
+                         "rank's static breakdown")
     from visper_lm_tpu_torch.config import llama3_clip_vlm, phi3_clip_vlm
 
     distill = args.stage in ("pretrain", "pretrain_full")
@@ -294,11 +303,12 @@ def main(argv=None) -> int:
         cfg, stage=stage, batch_size=args.batch, seq_len=args.seq, with_teachers=with_teachers,
         offload_opt_state=args.offload_opt, stream_grads=args.stream_grads,
         master_weights=args.master_weights, mu_dtype=mu_dtype, block_bytes=args.block_bytes,
-        dp=args.dp, zero_params=not args.no_zero3, zero_frozen=args.zero_frozen,
+        dp=args.dp, zero_params=not args.no_zero3, zero_frozen=args.zero_frozen, tp=args.tp,
+        shard_teachers=args.shard_teachers,
     )
     report: Dict[str, Any] = {
         "mesh": {"data": args.dp, "model": args.tp}, "zero3": not args.no_zero3,
-        "zero_frozen": args.zero_frozen,
+        "zero_frozen": args.zero_frozen, "shard_teachers": args.shard_teachers,
         "model": args.model, "stage": args.stage, "master_weights": args.master_weights,
         "remat_policy": args.remat_policy, "global_batch": args.batch, "seq": args.seq,
         "teachers_in_step": with_teachers, "offload_opt_state": args.offload_opt,

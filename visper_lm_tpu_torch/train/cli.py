@@ -5,7 +5,7 @@ for the reference's launch scripts, with the JAX CLI's flags and stages.
   finetune (IFT)                recipes/finetune.args, recipes/vpt_ift.args
   vpt                           recipes/vpt.args
   probe                         recipes/probe.args
-  pretrain_full                 recipes/pretrain_full.args (needs tp: ROADMAP A10b)
+  pretrain_full                 recipes/pretrain_full.args (tp 4: four processes)
 
     python -m visper_lm_tpu_torch.train.cli @recipes/pretrain.args \\
         --data-path data.json --image-folder images --tokenizer fake-whitespace \\
@@ -14,18 +14,21 @@ for the reference's launch scripts, with the JAX CLI's flags and stages.
 A recipe file holds one '--flag value' per line with '#' comments; flags
 given after it override it. `--device` (default cuda) is where the model
 and the step run; the tests pass `--device cpu`. Several processes, one a
-device, train data parallel: --coordinator / --num-processes /
---process-id (or VISPER_COORDINATOR / VISPER_NUM_PROCESSES /
-VISPER_PROCESS_ID, or torchrun with VISPER_AUTO_DISTRIBUTED=1) start the
-runtime (NCCL on CUDA, gloo on the CPU), --per-device-batch-size is each
-process's batch, --dp sizes the data axis, and --zero-params /
---zero-frozen shard the trainables' / the frozen parameters' persistent
-copy (ZeRO-3; the moments are always sharded). --tp above 1 and
---shard-teachers parse as in JAX and raise NotImplementedError (tensor
-parallelism, ROADMAP queue A, item A10b). The one-device memory levers run:
---offload-opt-state (the moments in host memory; with several processes
-each rank's slices) and --stream-grads N (the decoder blocks' gradients to
-the host in N segments; one process); IFT at Llama-3-8B on one 80 GB card:
+device: --coordinator / --num-processes / --process-id (or
+VISPER_COORDINATOR / VISPER_NUM_PROCESSES / VISPER_PROCESS_ID, or torchrun
+with VISPER_AUTO_DISTRIBUTED=1) start the runtime (NCCL on CUDA, gloo on
+the CPU); the mesh is --dp x --tp ('model' innermost: ranks r tp .. r tp +
+tp - 1 are one tensor-parallel group). --per-device-batch-size is each data
+shard's batch: a process reads the shard of its data coordinate, so the tp
+ranks of a group read the same rows. --tp N splits the decoder Megatron
+style over N ranks (each builds only its slices: `init_vlm(..., tp=)`),
+--zero-params / --zero-frozen shard the trainables' / the frozen
+parameters' persistent copy over the data axis (ZeRO-3; the moments are
+always sharded), --shard-teachers the teachers over the model axis. The
+memory levers run: --offload-opt-state (the moments in host memory; each
+rank's slices) and --stream-grads N (the decoder blocks' gradients to the
+host in N segments, reduced per segment in a process group); IFT at
+Llama-3-8B on one 80 GB card:
 
     python -m visper_lm_tpu_torch.train.cli @recipes/finetune.args \
         --offload-opt-state --stream-grads 8 ...
@@ -111,7 +114,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--save-steps", type=int, default=200)
     p.add_argument("--save-total-limit", type=int, default=3)
     p.add_argument("--logging-steps", type=int, default=1)
-    # mesh / multi-process runtime (--tp and --shard-teachers raise: ROADMAP A10b)
+    # mesh / multi-process runtime
     p.add_argument("--dp", type=int, default=None)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--zero-params", action="store_true")
@@ -133,17 +136,6 @@ def build_argparser() -> argparse.ArgumentParser:
     # the port's own
     p.add_argument("--device", default="cuda", help="where the model and the step run")
     return p
-
-
-def unported_flags(args) -> List[str]:
-    """The flags asked for that need tensor parallelism (ROADMAP queue A,
-    item A10b)."""
-    asked = []
-    if args.tp != 1:
-        asked.append("--tp")
-    if args.shard_teachers:
-        asked.append("--shard-teachers")
-    return asked
 
 
 def build_vlm_config(args) -> Any:
@@ -264,6 +256,8 @@ def overlay_checkpoint(model, cfg, model_dir: str) -> int:
 
     from visper_lm_tpu_torch.checkpoint.hf_import import import_vlm, load_sharded_safetensors
 
+    from visper_lm_tpu_torch.parallel.tensor import local_param
+
     imported = import_vlm(load_sharded_safetensors(model_dir), cfg)
     params = dict(model.named_parameters())
     unknown = sorted(set(imported) - set(params))
@@ -272,24 +266,31 @@ def overlay_checkpoint(model, cfg, model_dir: str) -> int:
     with torch.no_grad():
         for name, t in imported.items():
             p = params[name]
+            # a tensor-parallel rank takes its slice on the host
+            t = local_param(model, name, t)
             p.copy_(t.to(torch.bfloat16).to(device=p.device, dtype=p.dtype))
     return len(imported)
 
 
 def main(argv: Optional[Sequence[str]] = None):
     args = build_argparser().parse_args(argv)
-    asked = unported_flags(args)
-    if asked:
-        raise NotImplementedError(
-            f"{', '.join(asked)}: tensor parallelism is not ported yet "
-            "(ROADMAP queue A, item A10b); the port trains data parallel")
 
     from visper_lm_tpu_torch.parallel.distributed import (
-        init_distributed, local_device, process_count, process_index)
+        data_shard, init_distributed, is_initialized, local_device)
+    from visper_lm_tpu_torch.parallel.mesh import make_mesh
+    from visper_lm_tpu_torch.parallel.tensor import tensor_parallel
 
     # before anything touches a device (JAX's order)
     init_distributed(args.coordinator, args.num_processes, args.process_id, device=args.device)
     device = str(local_device(args.device))
+    mesh = None
+    if is_initialized():
+        mesh = make_mesh(dp=args.dp, tp=args.tp)
+    elif args.tp != 1:
+        raise ValueError(f"--tp {args.tp}: tensor parallelism needs {args.tp} processes or more "
+                         "(--coordinator / --num-processes / --process-id, or VISPER_*)")
+    tp = tensor_parallel(mesh)
+    shard_index, shard_count = data_shard(mesh)
 
     from visper_lm_tpu_torch.config import tiny_test_vlm
     from visper_lm_tpu_torch.data.dataset import RAW_IMAGES, BatchIterator, DataConfig, SupervisedDataset
@@ -322,8 +323,7 @@ def main(argv: Optional[Sequence[str]] = None):
         it = BatchIterator(
             ds, args.per_device_batch_size, seq_buckets=buckets, seed=epoch,
             distill_tasks=distill_tasks, num_workers=args.dataloader_num_workers,
-            skip_batches=skip_batches, process_index=process_index(),
-            process_count=process_count(),
+            skip_batches=skip_batches, process_index=shard_index, process_count=shard_count,
         )
         size = dcfg.image_size
         for batch in it:
@@ -355,7 +355,7 @@ def main(argv: Optional[Sequence[str]] = None):
         finally:
             it.close()
 
-    model = init_vlm(cfg, device=device, seed=0)
+    model = init_vlm(cfg, device=device, seed=0, tp=tp)
     if args.init_from:
         overlay_checkpoint(model, cfg, args.init_from)
     teacher_fn, teachers = (None, None) if args.smoke else load_teachers(args, cfg, device)

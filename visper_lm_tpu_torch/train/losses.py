@@ -21,6 +21,12 @@ then its share of the global loss, and the ranks' gradients are summed.
 positions, each chunk's f32 logits built inside a checkpoint and rebuilt in
 the backward, so the full (B, T, vocab) logits never exist (the train step
 takes it where B * T * vocab >= 2^27, as the JAX step does).
+
+Under tensor parallelism (`tp`: parallel/tensor.TensorParallel) both read
+the rank's block of the vocabulary, (B, T, V/tp) logits or head rows, and
+take the NLL through `vocab_parallel_nll` (Megatron's cross-entropy: two
+all-reduces over the group, no gathered logits); every rank of the group
+gets the same loss, over the same global count.
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ from torch.utils.checkpoint import checkpoint
 
 from visper_lm_tpu_torch import constants
 from visper_lm_tpu_torch.config import VLMConfig
-from visper_lm_tpu_torch.parallel.distributed import all_gather_autograd, all_reduce
+from visper_lm_tpu_torch.parallel.distributed import all_gather_autograd, all_reduce, copy_to_group
+from visper_lm_tpu_torch.parallel.tensor import vocab_parallel_nll
 
 
 def valid_count(labels: torch.Tensor, dp=None) -> torch.Tensor:
@@ -45,28 +52,41 @@ def valid_count(labels: torch.Tensor, dp=None) -> torch.Tensor:
     return count
 
 
+def _nll(logits: torch.Tensor, safe: torch.Tensor, tp=None) -> torch.Tensor:
+    """Per-position NLL of the f32 logits at targets `safe` (over the rank's
+    vocab block under tp)."""
+    if tp is not None:
+        return vocab_parallel_nll(logits, safe, tp)
+    logz = torch.logsumexp(logits, dim=-1)
+    return logz - torch.gather(logits, -1, safe[..., None])[..., 0]
+
+
 def ntp_loss(logits: torch.Tensor, labels: torch.Tensor,
-             count: Optional[torch.Tensor] = None) -> torch.Tensor:
+             count: Optional[torch.Tensor] = None, tp=None) -> torch.Tensor:
     """Shifted cross-entropy in f32; labels == IGNORE_INDEX are excluded (mean
-    over valid; over `count` valid tokens when given: the global batch's)."""
+    over valid; over `count` valid tokens when given: the global batch's).
+    tp: the logits are the rank's (B, T, V/tp) block."""
     shift_logits = logits[:, :-1].float()
     shift_labels = labels[:, 1:].long()
     valid = shift_labels != constants.IGNORE_INDEX
     safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels))
-    logz = torch.logsumexp(shift_logits, dim=-1)
-    gold = torch.gather(shift_logits, -1, safe[..., None])[..., 0]
-    nll = torch.where(valid, logz - gold, torch.zeros_like(logz))
+    nll = _nll(shift_logits, safe, tp)
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
     return nll.sum() / (valid.sum() if count is None else count).clamp(min=1)
 
 
-def _chunk_nll(h: torch.Tensor, head_weight: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Summed NLL of one chunk: h (B, C, D), labels (B, C)."""
+def _chunk_nll(h: torch.Tensor, head_weight: torch.Tensor, labels: torch.Tensor,
+               tp=None) -> torch.Tensor:
+    """Summed NLL of one chunk: h (B, C, D), labels (B, C); under tp the
+    head's rows are the rank's vocab block, and h's gradient is summed over
+    the group."""
+    if tp is not None:
+        h = copy_to_group(h, tp.group)
     logits = torch.matmul(h, head_weight.T).float()               # (B, C, V)
     valid = labels != constants.IGNORE_INDEX
     safe = torch.where(valid, labels, torch.zeros_like(labels))
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
-    return torch.where(valid, logz - gold, torch.zeros_like(logz)).sum()
+    nll = _nll(logits, safe, tp)
+    return torch.where(valid, nll, torch.zeros_like(nll)).sum()
 
 
 def ntp_loss_chunked(
@@ -75,13 +95,16 @@ def ntp_loss_chunked(
     labels: torch.Tensor,         # (B, T)
     chunk: int = 256,
     count: Optional[torch.Tensor] = None,
+    tp=None,
 ) -> torch.Tensor:
     """JAX `ntp_loss_chunked`: the shifted cross-entropy of `ntp_loss`
     without the full (B, T, V) logits. The shifted sequence is padded to a
     multiple of `chunk` with IGNORE_INDEX labels; each chunk's logits
     (h @ head_weight.T in the weight's dtype, then f32) live only inside a
     checkpoint and are rebuilt in the backward, which takes the gradient to
-    hidden and, when it trains, to head_weight."""
+    hidden and, when it trains, to head_weight. tp: head_weight is the
+    rank's (V/tp, D) block (the recompute repeats the chunk's collectives,
+    in the same order on every rank)."""
     b, t, d = hidden.shape
     shift_h = hidden[:, :-1]
     shift_labels = labels[:, 1:].long()
@@ -94,10 +117,10 @@ def ntp_loss_chunked(
     for c in range(0, n + pad, chunk):
         h, lab = shift_h[:, c:c + chunk], shift_labels[:, c:c + chunk]
         if torch.is_grad_enabled() and (h.requires_grad or head_weight.requires_grad):
-            total = total + checkpoint(_chunk_nll, h, head_weight, lab,
+            total = total + checkpoint(_chunk_nll, h, head_weight, lab, tp,
                                        use_reentrant=False, preserve_rng_state=False)
         else:
-            total = total + _chunk_nll(h, head_weight, lab)
+            total = total + _chunk_nll(h, head_weight, lab, tp)
     if count is None:
         count = (shift_labels != constants.IGNORE_INDEX).sum()
     return total / count.clamp(min=1)

@@ -45,7 +45,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from visper_lm_tpu_torch.parallel.distributed import all_reduce
+from visper_lm_tpu_torch.parallel.distributed import all_gather, all_reduce
 from visper_lm_tpu_torch.parallel.sharding import assemble, scatter_grad
 from visper_lm_tpu_torch.utils.param import jax_path, torch_dtype
 
@@ -224,7 +224,12 @@ class AdamW:
     norm is then the sum of its slices' f32 sums of squares, added over the
     ranks in f32 before the cast to the leaf's dtype: the one-device sum
     taken in another order (within a few f32 ulps of the leaf's sum, so at
-    most one ulp of a bf16 leaf's). With `sharded` (ZeRO-3:
+    most one ulp of a bf16 leaf's). Under tensor parallelism (the plan's
+    `tp`) every tensor is the rank's tp-local slice and ZeRO runs over the
+    data group (the ranks of its model coordinate); a 'model'-split leaf's
+    share of the norm is its slices' f32 sums added over the model group as
+    well (the same bound), and a replicated leaf counts once, not tp times:
+    its gradient is the same on every rank of the group. With `sharded` (ZeRO-3:
     parallel/sharding.ShardedParams) a parameter whose persistent copy is
     sharded is updated in its slices, and never whole where its slices are
     its moments'."""
@@ -287,14 +292,18 @@ class AdamW:
             return pl.local(self._full[n], rank)
         return pl.local(p.data, rank)
 
-    def reduce_grads(self, names: List[str], grads: Dict[str, torch.Tensor]) -> None:
+    def reduce_grads(self, names: List[str], grads: Dict[str, torch.Tensor],
+                     reduced: Iterable[str] = ()) -> None:
         """Each rank's gradients summed over the ranks, in place of `grads`:
-        grads[n] becomes this rank's slice (`scatter_grad`)."""
+        grads[n] becomes this rank's slice (`scatter_grad`); the names in
+        `reduced` are already (gradient streaming reduces per segment)."""
         if self.zero is None:
             return
+        reduced = set(reduced)
         for n in names:
-            grads[n] = scatter_grad(self.zero.moments[n], grads[n].contiguous(),
-                                    self.zero.group, self.zero.rank)
+            if n not in reduced:
+                grads[n] = scatter_grad(self.zero.moments[n], grads[n].contiguous(),
+                                        self.zero.group, self.zero.rank)
 
     @torch.no_grad()
     def publish(self, names: List[str]) -> None:
@@ -322,12 +331,13 @@ class AdamW:
         for key, t in self.state_tensors().items():
             n = key.split("/", 1)[1]
             pl = self.zero.moments[n]
-            if not pl.sharded:
-                out[key] = t.detach().cpu()
-                continue
             dev = self.params[n].device
-            full = torch.empty(self.params[n].shape, dtype=t.dtype, device=dev)
-            assemble(pl, t.to(dev), full, self.zero.group, self.zero.rank)
+            full = t.detach().to(dev)
+            if pl.sharded:
+                full = torch.empty(self.params[n].shape, dtype=t.dtype, device=dev)
+                assemble(pl, t.to(dev), full, self.zero.group, self.zero.rank)
+            if pl.model_sharded:
+                full = all_gather(full.contiguous(), pl.model_dim, self.zero.tp.group)
             out[key] = full.cpu()
         return out
 
@@ -351,7 +361,10 @@ class AdamW:
                 raise KeyError(f"optimizer state has no {key!r}")
             src = torch.as_tensor(tensors[key])
             if self.zero is not None:
-                src = self.zero.moments[key.split("/", 1)[1]].local(src, self.zero.rank)
+                pl = self.zero.moments[key.split("/", 1)[1]]
+                if pl.model_sharded:
+                    src = pl.model_local(src, self.zero.tp.rank)
+                src = pl.local(src, self.zero.rank)
             dst.copy_(src)
         self.count = int(count)
 
@@ -365,18 +378,28 @@ class AdamW:
         """Each lr group's `clip_divisor` (each group is its own optax chain,
         clipped by its own global norm) and the global norm over all (f32).
         A gradient without its `leaf_sumsq` in `sumsq` is summed beside its
-        parameter."""
-        split = [n for n in names
-                 if self.zero is not None and self.zero.moments[n].sharded]
+        parameter; for a leaf split over the data or the model axis `sumsq`
+        holds its slice's f32 sum of squares."""
+        moments = {} if self.zero is None else self.zero.moments
+        split = [n for n in names if n in moments and (moments[n].sharded or
+                                                        moments[n].model_sharded)]
         sq = {n: sumsq[n] if sumsq and n in sumsq
               else leaf_sumsq(grads[n].to(self.params[n].device, non_blocking=True))
               for n in names if n not in split}
         if split:
-            # a sharded leaf's sum: its slices' f32 sums added over the ranks
-            parts = torch.stack([torch.linalg.vector_norm(grads[n], dtype=torch.float32).square()
-                                 for n in split])
-            all_reduce(parts, self.zero.group)
-            sq.update({n: v.to(grads[n].dtype) for n, v in zip(split, parts.unbind(0))})
+            # a split leaf's sum: its slices' f32 sums added over the ranks
+            # that hold them (the data group, the model group, or both)
+            parts = {n: sumsq[n].float() if sumsq and n in sumsq else torch.linalg.vector_norm(
+                grads[n].to(self.params[n].device, non_blocking=True), dtype=torch.float32).square()
+                for n in split}
+            for axis, group in (("sharded", self.zero.group),
+                                ("model_sharded", getattr(self.zero.tp, "group", None))):
+                over = [n for n in split if getattr(moments[n], axis)]
+                if over:
+                    stacked = torch.stack([parts[n] for n in over])
+                    all_reduce(stacked, group)
+                    parts.update(zip(over, stacked.unbind(0)))
+            sq.update({n: parts[n].to(grads[n].dtype) for n in split})
         clips = {group: clip_divisor(combine_norm([sq[n] for n in names if self.group[n] == group]),
                                      self.cfg.max_grad_norm)
                  for group in set(self.group[n] for n in names)}
@@ -390,13 +413,14 @@ class AdamW:
 
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor],
-             sumsq: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+             sumsq: Optional[Dict[str, torch.Tensor]] = None,
+             reduced: Iterable[str] = ()) -> torch.Tensor:
         """Apply one update from {name: grad} (every parameter needs a grad;
         pass zeros for unused ones; `sumsq` may hold some gradients'
-        `leaf_sumsq`, taken where they were made). Returns the pre-clip
-        global norm (f32)."""
+        `leaf_sumsq`, taken where they were made; `reduced` names gradients
+        already summed over the ranks). Returns the pre-clip global norm (f32)."""
         names = self.trained()
-        self.reduce_grads(names, grads)
+        self.reduce_grads(names, grads, reduced)
         clips, total = self.norm_pass(names, grads, sumsq)
         self.count += 1
         for n in names:

@@ -31,11 +31,14 @@ where the state lives differs:
   * `blockwise=False` plans JAX's whole-tree staging layout, every tensor
     one block (JAX keeps it as a compile A/B); the same loop runs it.
 
-Under a zero plan (data parallelism, `AdamW`'s `zero`) each rank offloads
-only its own slices: the layout is planned on the local slices' shapes, as
-JAX plans on the data-sharded specs, the gradients are summed over the ranks
-before the norm pass, and the updated slices are gathered into the
-parameters after the loop.
+Under a zero plan (data parallelism, `AdamW`'s `zero`, and tensor
+parallelism with it) each rank offloads only its own slices: the layout is
+JAX's on the whole shapes and the specs (`offload_shapes`): a tensor is
+offloaded only where its spec splits it over every axis larger than 1
+(`covers_mesh`), and cut into row blocks only where no axis splits its dim
+0 (`axis0_unsharded`), so the blocks are rows of each rank's slice; the
+gradients are summed over the ranks before the norm pass, and the updated
+slices are gathered into the parameters after the loop.
 
 On the CPU the "host" tensors are ordinary CPU tensors and every copy is the
 identity, as JAX's host put is a no-op off the TPU: the blocks are updated
@@ -46,7 +49,7 @@ on-card AdamW's names, dtypes and bytes (`state_tensors`).
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable, Iterator, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -62,27 +65,53 @@ def _numel(shape: Sequence[int]) -> int:
     return math.prod(int(d) for d in shape)
 
 
+def _axes(entry) -> Tuple[Any, ...]:
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def covers_mesh(spec: Sequence[Any], axis_sizes: Mapping[str, int]) -> bool:
+    """JAX `_covers_mesh`: the spec splits over every axis larger than 1 (no
+    replication: a replicated leaf stays on the card)."""
+    used = {a for e in spec for a in _axes(e) if a is not None}
+    return {a for a, n in axis_sizes.items() if n > 1} <= used
+
+
+def axis0_unsharded(spec: Sequence[Any], axis_sizes: Mapping[str, int]) -> bool:
+    """JAX `_axis0_unsharded`: no axis larger than 1 splits dim 0 (the row
+    blocks of a leaf are the same rows on every rank)."""
+    return not spec or all(a is None or axis_sizes.get(a, 1) <= 1 for a in _axes(spec[0]))
+
+
 def plan_offload_layout(
     shapes: Mapping[str, Tuple[Sequence[int], torch.dtype]], *,
     block_bytes: int = 256 << 20, min_bytes: int = 1 << 20,
     chunk: bool = True, scan_chunks: bool = False,
+    specs: Optional[Mapping[str, Sequence[Any]]] = None,
+    axis_sizes: Optional[Mapping[str, int]] = None,
 ) -> Dict[str, Placement]:
-    """{state key: (shape, dtype)} -> {state key: placement} (JAX
-    `plan_offload_layout`, one device). A tensor of fewer than `min_bytes`
-    stays on the card. An offloaded one whose f32-equivalent bytes exceed
-    `block_bytes` (and that has more than one row) gets ceil(bytes /
-    block_bytes) row ranges; with `scan_chunks` the smallest count at least
-    that which divides the rows (uniform blocks); chunk=False keeps every
-    tensor whole (JAX's whole-tree staging layout)."""
+    """{state key: (WHOLE shape, dtype)} -> {state key: placement} (JAX
+    `plan_offload_layout`). A tensor of fewer than `min_bytes`, or whose spec
+    (`specs`, by key; none: replicated) does not split it over every axis of
+    `axis_sizes` larger than 1, stays on the card. An offloaded one whose
+    f32-equivalent bytes exceed `block_bytes` (with more than one row, and
+    dim 0 split by no axis) gets ceil(bytes / block_bytes) row ranges; with
+    `scan_chunks` the smallest count at least that which divides the rows
+    (uniform blocks); chunk=False keeps every tensor whole (JAX's whole-tree
+    staging layout). Dim 0 being whole on every rank, the ranges are rows
+    of each rank's slice too."""
+    specs, axis_sizes = specs or {}, axis_sizes or {}
     out: Dict[str, Placement] = {}
     for key, (shape, dtype) in shapes.items():
         shape = tuple(int(d) for d in shape)
-        if _numel(shape) * torch.empty((), dtype=dtype).element_size() < min_bytes:
+        spec = tuple(specs.get(key, ()))
+        if (_numel(shape) * torch.empty((), dtype=dtype).element_size() < min_bytes
+                or not covers_mesh(spec, axis_sizes)):
             out[key] = None
             continue
         nbytes = _numel(shape) * 4
         n_rows = shape[0] if len(shape) > 1 else 1
-        if not chunk or nbytes <= block_bytes or n_rows <= 1:
+        if (not chunk or nbytes <= block_bytes or n_rows <= 1
+                or not axis0_unsharded(spec, axis_sizes)):
             out[key] = ()
             continue
         n = min(n_rows, math.ceil(nbytes / block_bytes))
@@ -90,6 +119,26 @@ def plan_offload_layout(
             n = next(k for k in range(n, n_rows + 1) if n_rows % k == 0)
         out[key] = tuple((i * n_rows // n, (i + 1) * n_rows // n) for i in range(n))
     return out
+
+
+def offload_shapes(params: Mapping[str, torch.Tensor], mu_dtype: torch.dtype, master: bool,
+                   zero=None) -> Tuple[Dict[str, Tuple[Tuple[int, ...], torch.dtype]],
+                                       Dict[str, Tuple[Any, ...]], Dict[str, int]]:
+    """What `plan_offload_layout` plans an optimizer's state on: ({state
+    key: (whole shape, dtype)}, {state key: spec}, the mesh's axis sizes)
+    of the moments (and masters) of `params` (tp-local tensors under a zero
+    plan with tensor parallelism)."""
+    shapes, specs = {}, {}
+    for n, p in params.items():
+        pl = None if zero is None else zero.moments[n]
+        whole = tuple(p.shape) if pl is None else pl.whole_shape(p.shape)
+        kinds = [("mu", mu_dtype), ("nu", p.dtype)] + ([("master", torch.float32)] if master else [])
+        for kind, dtype in kinds:
+            shapes[f"{kind}/{n}"] = (whole, dtype)
+            specs[f"{kind}/{n}"] = () if pl is None else pl.spec(len(whole))
+    axis_sizes = {} if zero is None else {
+        "data": zero.size, "model": 1 if zero.tp is None else zero.tp.size}
+    return shapes, specs, axis_sizes
 
 
 def _blocks(placement: Placement) -> Iterator[Tuple[Optional[int], Optional[int]]]:
@@ -137,16 +186,14 @@ class OffloadedAdamW(AdamW):
         master copies cast from the parameters a block at a time; nothing of
         the whole moment tree is allocated on the card."""
         self.device = next(iter(self.params.values())).device
-        shapes = {}
-        for n, p in self.params.items():
-            local = self.local_shape(n)
-            shapes[f"mu/{n}"] = (local, self.mu_dtype)
-            shapes[f"nu/{n}"] = (local, p.dtype)
-            if self.cfg.master_weights:
-                shapes[f"master/{n}"] = (local, torch.float32)
-        self.plan = plan_offload_layout(shapes, block_bytes=self.block_bytes,
+        whole, specs, axis_sizes = offload_shapes(self.params, self.mu_dtype,
+                                                  self.cfg.master_weights, self.zero)
+        self.plan = plan_offload_layout(whole, block_bytes=self.block_bytes,
                                         min_bytes=self.min_bytes, chunk=self.blockwise,
-                                        scan_chunks=self.scan_chunks)
+                                        scan_chunks=self.scan_chunks, specs=specs,
+                                        axis_sizes=axis_sizes)
+        shapes = {k: (self.local_shape(k.split("/", 1)[1]), dtype)
+                  for k, (_, dtype) in whole.items()}
         on_host = {k: s for k, s in shapes.items() if self.plan[k] is not None}
         self.pool = HostPool(sum(HostPool.size_of(*s) for s in on_host.values()), self.device)
         state: Dict[str, torch.Tensor] = {}
@@ -193,8 +240,9 @@ class OffloadedAdamW(AdamW):
             torch.cuda.current_stream(self.device).synchronize()
 
     def step(self, grads: Dict[str, torch.Tensor],
-             sumsq: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
-        return blockwise_staged_update(self, grads, sumsq)
+             sumsq: Optional[Dict[str, torch.Tensor]] = None,
+             reduced: Iterable[str] = ()) -> torch.Tensor:
+        return blockwise_staged_update(self, grads, sumsq, reduced)
 
 
 def _block_bytes(t: torch.Tensor, s: Optional[int], e: Optional[int]) -> int:
@@ -242,14 +290,14 @@ def _carve(buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def blockwise_staged_update(
     opt: OffloadedAdamW, grads: Dict[str, torch.Tensor],
-    sumsq: Optional[Dict[str, torch.Tensor]] = None,
+    sumsq: Optional[Dict[str, torch.Tensor]] = None, reduced: Iterable[str] = (),
 ) -> torch.Tensor:
     """One update of `opt` from {name: grad} (on the card, or on the host
     from gradient streaming, with their sums in `sumsq`), streaming the
     offloaded state through the card block by block. Returns the global
     norm (f32), as `AdamW.step` does."""
     names = opt.trained()
-    opt.reduce_grads(names, grads)
+    opt.reduce_grads(names, grads, reduced)
     clips, total = opt.norm_pass(names, grads, sumsq)
     opt.count += 1
     cuda = opt.device.type == "cuda"

@@ -31,8 +31,20 @@ so every rank logs the global loss. ZeRO, as JAX plans it
 mesh); `zero_params` keeps the trainables' persistent copy sharded
 (ZeRO-3) and `zero_frozen` the frozen parameters' (`ShardedParams`: a
 decoder block's gathered for its forward and again for its backward, the
-rest for the step). Sharded teachers need tensor parallelism and gradient
-streaming with a process group waits for it too (ROADMAP A10b): both raise.
+rest for the step).
+
+Tensor parallelism (a mesh with a 'model' axis; the model already in its
+rank's form, parallel/tensor.shard_model): ZeRO runs over the data group
+of tp-local tensors, the NTP loss reads the rank's vocab block
+(train/losses.py), every rank of the tensor-parallel group computes the
+same loss on the same rows (its data coordinate's shard), and the metrics
+are summed over the data group only. `shard_teachers` keeps the frozen
+teachers as JAX's `model_shard_pspec` slices over the model group
+(parallel/sharding.teacher_placements), gathered for each step's teacher
+forward and freed after; each rank runs the teachers on its data shard
+(the same numbers on every rank of the group). Gradient streaming in a
+process group reduces each segment's weight gradients over the data group
+onto the rank's ZeRO slice before they leave for the host.
 """
 
 from __future__ import annotations
@@ -49,7 +61,14 @@ from visper_lm_tpu_torch.models.vlm import VLM, predict_task_embeddings, tap_lay
 from visper_lm_tpu_torch.parallel import distributed
 from visper_lm_tpu_torch.parallel.distributed import all_reduce_scalars
 from visper_lm_tpu_torch.parallel.mesh import Mesh
-from visper_lm_tpu_torch.parallel.sharding import ShardedParams, ZeroPlan, plan_zero
+from visper_lm_tpu_torch.parallel.sharding import (
+    Placement,
+    ShardedParams,
+    ZeroPlan,
+    plan_zero,
+    teacher_placements,
+)
+from visper_lm_tpu_torch.parallel.tensor import local_param, whole_param
 from visper_lm_tpu_torch.train.losses import distill_losses, ntp_loss, ntp_loss_chunked, valid_count
 from visper_lm_tpu_torch.train.optimizer import AdamW, OptimizerConfig, trainable_mask
 from visper_lm_tpu_torch.train.staged_update import OffloadedAdamW
@@ -80,19 +99,23 @@ def make_loss_fn(
 
     def loss_fn(model: VLM, batch: Dict[str, torch.Tensor], teachers=None):
         b, t = batch["labels"].shape
-        # JAX's switch sees the global batch
+        dec = model.decoder
+        tp = dec.tp
+        # JAX's switch sees the global batch and the whole vocabulary
         chunked = uses_chunked_ce(cfg, b * (1 if dp is None else dp.size), t)
         count = None if dp is None else valid_count(batch["labels"], dp)
         out = vlm_forward(
-            model, cfg, batch, use_kernel=use_kernel, compute_logits=not chunked,
+            model, cfg, batch, use_kernel=use_kernel, compute_logits=not chunked and tp is None,
             remat=remat, remat_policy=remat_policy,
         )
         if chunked:
-            dec = model.decoder
             head = dec.embed_tokens.weight if dec.lm_head is None else dec.lm_head.weight
-            text_loss = ntp_loss_chunked(out["hidden"], head, batch["labels"], count=count)
+            text_loss = ntp_loss_chunked(out["hidden"], head, batch["labels"], count=count, tp=tp)
         else:
-            text_loss = ntp_loss(out["logits"], batch["labels"], count=count)
+            # under tp the rank's (B, T, V/tp) block, never the whole logits
+            logits = out["logits"] if tp is None else dec.logits(out["hidden"], use_kernel,
+                                                                  gather=False)
+            text_loss = ntp_loss(logits, batch["labels"], count=count, tp=tp)
         metrics: Dict[str, torch.Tensor] = {"text_loss": text_loss}
         total = text_loss
         if cfg.distill is not None and out["taps"]:
@@ -127,9 +150,12 @@ class TrainStep:
     def __init__(self, model: VLM, teacher_params: Optional[nn.ModuleDict],
                  trainable: Dict[str, nn.Parameter], optimizer: AdamW, loss_fn,
                  accum_steps: int = 1, grad_stream: Optional[GradStream] = None,
-                 zero: Optional[ZeroPlan] = None, sharded: Optional[ShardedParams] = None):
+                 zero: Optional[ZeroPlan] = None, sharded: Optional[ShardedParams] = None,
+                 teacher_sharded: Optional[ShardedParams] = None):
         self.model = model
         self.zero, self.sharded = zero, sharded
+        # shard_teachers: the teachers' slices over the model group
+        self.teacher_sharded = teacher_sharded
         self.teacher_params = teacher_params
         self.device = next(model.parameters()).device
         self.trainable = trainable
@@ -138,6 +164,8 @@ class TrainStep:
         self.accum_steps = accum_steps
         self.grad_stream = grad_stream
         self.grad_sums: Dict[str, torch.Tensor] = {}
+        # the gradients gradient streaming already summed over the ranks
+        self.reduced: set = set()
         # the last step's metrics (what `__call__` returned)
         self.last_metrics: Dict[str, float] = {}
         # CUDA events around the last update (`update_ms`)
@@ -150,8 +178,8 @@ class TrainStep:
     def state_tensors(self) -> Dict[str, torch.Tensor]:
         """What a checkpoint keeps besides `step`: {"params/<name>": each
         trainable, "opt/<key>": the optimizer's moments and master weights},
-        whole: under ZeRO every rank's slices are gathered (collective), so
-        the files are those of a one-device run."""
+        whole: under ZeRO and tensor parallelism every rank's slices are
+        gathered (collective), so the files are those of a one-device run."""
         out = {f"params/{n}": self.full_param(n) for n in self.trainable}
         out.update({f"opt/{k}": t for k, t in self.optimizer.full_state_tensors().items()})
         return out
@@ -162,19 +190,21 @@ class TrainStep:
         return self.sharded.whole() if self.sharded is not None else contextlib.nullcontext()
 
     def full_param(self, n: str) -> torch.Tensor:
-        """Trainable n whole (gathered from its ZeRO-3 slices: collective)."""
+        """Trainable n whole (gathered from its ZeRO-3 slices and its
+        tensor-parallel slices: collective)."""
+        t = self.trainable[n]
         if self.sharded is not None and n in self.sharded.shards:
-            return self.sharded.full(n)
-        return self.trainable[n]
+            t = self.sharded.full(n)
+        return whole_param(self.model, n, t)
 
     @torch.no_grad()
     def load_state_tensors(self, tensors: Dict[str, torch.Tensor], step: int) -> None:
         """Copy a `state_tensors` dict into the trainables and the optimizer
         state, and set the step (the optimizer's update count with it).
-        Under ZeRO each rank takes its slices, whatever the data size of the
-        run that saved them."""
+        Under ZeRO and tensor parallelism each rank takes its slices,
+        whatever the (dp, tp) of the run that saved them."""
         for n, p in self.trainable.items():
-            src = torch.as_tensor(tensors[f"params/{n}"])
+            src = local_param(self.model, n, torch.as_tensor(tensors[f"params/{n}"]))
             if self.sharded is not None and n in self.sharded.shards:
                 self.sharded.load_full(n, src)
             else:
@@ -201,6 +231,8 @@ class TrainStep:
             total, metrics = self.loss_fn(self.model, batch, self.teacher_params)
             total.backward()
         streamed, self.grad_sums = self.grad_stream.collect() if self.grad_stream else ({}, {})
+        # a streamed gradient is summed over the ranks already (its ZeRO slice)
+        self.reduced = set(streamed) if self.zero is not None else set()
         grads = {
             n: streamed[n] if n in streamed else p.grad if p.grad is not None else torch.zeros_like(p)
             for n, p in self.trainable.items()
@@ -243,7 +275,7 @@ class TrainStep:
             self._update_events = (torch.cuda.Event(enable_timing=True),
                                    torch.cuda.Event(enable_timing=True))
             self._update_events[0].record()
-        metrics["grad_norm"] = self.optimizer.step(grads, self.grad_sums)
+        metrics["grad_norm"] = self.optimizer.step(grads, self.grad_sums, self.reduced)
         if self._update_events is not None:
             self._update_events[1].record()
         self.step += 1
@@ -259,21 +291,11 @@ class TrainStep:
 
 
 def check_step_options(
-    device: torch.device, *, accum_steps: int = 1, zero_params: bool = False,
-    zero_frozen: bool = False, shard_teachers: bool = False, offload_opt_state: bool = False,
-    blockwise_staging: bool = True, stream_grads: int = 0, data_parallel: bool = False,
+    device: torch.device, *, accum_steps: int = 1, offload_opt_state: bool = False,
+    blockwise_staging: bool = True, stream_grads: int = 0,
 ) -> None:
     """The rules on the step's options, in one place (JAX make_train_step's
-    asserts). zero_params and zero_frozen are ZeRO-3 over the mesh's data
-    axis (nothing to shard without one, as on JAX's one-device mesh)."""
-    if shard_teachers:
-        raise NotImplementedError(
-            "make_train_step: shard_teachers splits the teachers over the 'model' axis, "
-            "which is tensor parallelism (ROADMAP queue A, item A10b)")
-    if stream_grads and data_parallel:
-        raise NotImplementedError(
-            "make_train_step: stream_grads in a process group comes with tensor "
-            "parallelism and recipes/pretrain_full.args (ROADMAP queue A, item A10b)")
+    asserts)."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, not {accum_steps}")
     if stream_grads < 0:
@@ -322,17 +344,15 @@ def make_train_step(
     taps)`. mesh (in a process group, `init_distributed`): data
     parallelism over its data axis with ZeRO-1/2 moments, and with
     zero_params / zero_frozen ZeRO-3 (leaves of at least zero_min_size
-    elements). `check_step_options` holds the rules; shard_teachers
-    raises."""
+    elements); a 'model' axis wider than 1 needs the model in that rank's
+    tensor-parallel form (`init_vlm(..., tp=)`), and shard_teachers then
+    splits the teachers over it. `check_step_options` holds the rules."""
     if not donate_params:
         raise ValueError("make_train_step updates the parameters in place: "
                          "donate_params=False has no counterpart in the port")
     device = next(model.parameters()).device
-    check_step_options(device, accum_steps=accum_steps, zero_params=zero_params,
-                       zero_frozen=zero_frozen, shard_teachers=shard_teachers,
-                       offload_opt_state=offload_opt_state,
-                       blockwise_staging=blockwise_staging, stream_grads=stream_grads,
-                       data_parallel=mesh is not None)
+    check_step_options(device, accum_steps=accum_steps, offload_opt_state=offload_opt_state,
+                       blockwise_staging=blockwise_staging, stream_grads=stream_grads)
     mask = trainable_mask(model.named_parameters(), opt_cfg.stage)
     trainable = {n: p for n, p in model.named_parameters() if mask[n]}
     for n, p in model.named_parameters():
@@ -341,18 +361,38 @@ def make_train_step(
         teacher_params.requires_grad_(False)
     if model.decoder.zero3 is not None:
         raise ValueError("make_train_step: the model's parameters are already ZeRO-3 sharded")
-    zero = sharded = None
+    zero = sharded = teacher_sharded = None
+    tp = model.decoder.tp
     if mesh is not None:
         if not distributed.is_initialized():
             raise ValueError("make_train_step: a mesh needs the process group (init_distributed)")
+        if mesh.model_size != (1 if tp is None else tp.size):
+            raise ValueError(
+                f"make_train_step: the mesh's model axis is {mesh.model_size} wide, the model is "
+                f"cut for tp {1 if tp is None else tp.size} (parallel/tensor.shard_model, "
+                "init_vlm(..., tp=))")
         group, rank, size = distributed.data_group(mesh)
         named = dict(model.named_parameters())
         moments, placed, _, _ = plan_zero(named, mask, size, zero_params=zero_params,
-                                          zero_frozen=zero_frozen, zero_min_size=zero_min_size)
-        zero = ZeroPlan(group, rank, size, moments, placed)
+                                          zero_frozen=zero_frozen, zero_min_size=zero_min_size,
+                                          model_size=mesh.model_size)
+        zero = ZeroPlan(group, rank, size, moments, placed, tp=tp)
         if any(pl.sharded for pl in placed.values()):
             sharded = ShardedParams(named, placed, group, rank)
             model.decoder.zero3 = sharded
+    elif tp is not None:
+        raise ValueError("make_train_step: a tensor-parallel model needs its mesh")
+    if shard_teachers and tp is not None and teacher_params is not None:
+        # JAX's model_shard_pspec slices, held like ZeRO-3's over the model group
+        named_t = dict(teacher_params.named_parameters())
+        plan_t = {n: Placement(dim=pl.model_dim, parts=pl.model_parts) if pl.model_sharded
+                  else Placement() for n, pl in teacher_placements(teacher_params, tp.size).items()}
+        teacher_sharded = ShardedParams(named_t, plan_t, tp.group, tp.rank)
+        inner = teacher_fn
+
+        def teacher_fn(teachers, batch):
+            with teacher_sharded.whole():
+                return inner(teachers, batch)
     if offload_opt_state:
         optimizer: AdamW = OffloadedAdamW(trainable.items(), opt_cfg, block_bytes=block_bytes,
                                           scan_chunks=scan_chunks, blockwise=blockwise_staging,
@@ -364,9 +404,10 @@ def make_train_step(
     stream = None
     if stream_grads:
         ranges = stream_chunk_ranges(cfg.decoder.num_layers, stream_grads, tap_layer_union(cfg))
-        stream = GradStream(model, ranges, device)
+        stream = GradStream(model, ranges, device, zero=zero)
     return TrainStep(
         model, teacher_params, trainable, optimizer,
         make_loss_fn(cfg, teacher_fn=teacher_fn, remat=remat, remat_policy=remat_policy, dp=zero),
         accum_steps=accum_steps, grad_stream=stream, zero=zero, sharded=sharded,
+        teacher_sharded=teacher_sharded,
     )

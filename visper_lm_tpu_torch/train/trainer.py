@@ -22,17 +22,23 @@ when None; no quiet CPU fallback) and it must hold the model. `train`
 calls `init_distributed` (a no-op unless VISPER_* start several processes,
 parallel/distributed.py); in a process group the step is data parallel over
 `make_mesh(dp, tp)`'s data axis, with ZeRO-1/2 moments and, by
-`zero_params` / `zero_frozen`, ZeRO-3 (train/train_step.py), each process
-feeding its own shard of the global batch (the caller's iterator strides
-the data: `BatchIterator`'s process_index / process_count). Only the
+`zero_params` / `zero_frozen`, ZeRO-3 (train/train_step.py), and tensor
+parallel over its model axis when tp > 1 (the model handed in is already
+the rank's form: `init_vlm(..., tp=)`), each process feeding the shard of
+the global batch of its data coordinate (the caller's iterator strides the
+data: `BatchIterator`'s process_index / process_count from
+`distributed.data_shard`, so a tensor-parallel group reads the same rows).
+Metrics are summed over the data group. Only the
 coordinator writes metrics.jsonl; every rank takes part in a checkpoint's
 save, which the coordinator writes. Under ZeRO-3 the step hooks run with
 every parameter whole (`TrainStep.whole`, a gather each step that has
-hooks), and the model `train` returns is whole. tp above 1 and sharded teachers raise
-(ROADMAP A10b). The one-device memory levers pass through:
+hooks), and the model `train` returns is whole over the data axis (each
+rank keeps its tensor-parallel slices). `shard_teachers` holds the teachers
+as slices over the model group. The memory levers pass through:
 `offload_opt_state` (the moments in host memory, the blockwise staged
-update; with data parallelism each rank's slices) and `stream_grads` (the
-decoder blocks' gradients to the host per segment; one process only).
+update; in a process group each rank's slices) and `stream_grads` (the
+decoder blocks' gradients to the host per segment, reduced onto the rank's
+slice first in a process group).
 """
 
 from __future__ import annotations
@@ -76,10 +82,10 @@ class TrainerConfig:
     save_total_limit: int = 3
     logging_steps: int = 1
     seed: int = 0
-    # the mesh: dp processes on the data axis (None: every process); tp > 1 raises
+    # the mesh: dp processes on the data axis (None: every process), tp on the model axis
     dp: Optional[int] = None
     tp: int = 1
-    # ZeRO-3 of the trainables / of the frozen parameters (sharded teachers raise)
+    # ZeRO-3 of the trainables / of the frozen parameters; the teachers over the model axis
     zero_params: bool = False
     # the moments (and master weights) in host memory, staged per block
     offload_opt_state: bool = False
@@ -221,6 +227,9 @@ def train(
     targets / masks, numpy; the dataset's host-only RAW_IMAGES is dropped);
     it may also take `skip_batches`."""
     init_distributed(device=trainer_cfg.device)
+    if trainer_cfg.tp != 1 and not is_initialized():
+        raise ValueError(f"train: tp {trainer_cfg.tp} needs {trainer_cfg.tp} processes or more "
+                         "(init_distributed)")
     mesh = make_mesh(dp=trainer_cfg.dp, tp=trainer_cfg.tp)
     device = resolve_device(local_device(trainer_cfg.device))
     on = next(model.parameters()).device

@@ -203,19 +203,35 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 @torch.no_grad()
-def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
+def init_weights_(module: nn.Module, generator: torch.Generator,
+                  whole: Optional[Mapping[int, Tuple[Any, int]]] = None) -> None:
     """Seeded random init in place, with the JAX package's distributions:
     linear kernels U(-1/sqrt(in), 1/sqrt(in)) and zero bias, embeddings
     N(0, 0.02), norm scales 1 and biases 0. The numbers differ from JAX's
-    for the same seed; parity tests carry JAX weights over instead."""
+    for the same seed; parity tests carry JAX weights over instead.
+
+    whole: {id(parameter): (its parallel/sharding.Placement, model rank)}
+    for a tensor-parallel slice: the whole tensor is drawn (one at a time,
+    in the same order) and the slice kept."""
+    whole = whole or {}
+
+    def draw(p: torch.Tensor, fill) -> None:
+        if id(p) not in whole:
+            fill(p, p.shape)
+            return
+        pl, rank = whole[id(p)]
+        full = torch.empty(pl.whole_shape(p.shape), dtype=p.dtype, device=p.device)
+        fill(full, full.shape)
+        p.copy_(pl.model_local(full, rank))
+
     for m in module.modules():
         if isinstance(m, nn.Linear):
-            bound = m.in_features ** -0.5
-            m.weight.uniform_(-bound, bound, generator=generator)
+            draw(m.weight, lambda t, shape: t.uniform_(-shape[1] ** -0.5, shape[1] ** -0.5,
+                                                       generator=generator))
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.Embedding):
-            m.weight.normal_(0.0, 0.02, generator=generator)
+            draw(m.weight, lambda t, shape: t.normal_(0.0, 0.02, generator=generator))
         elif isinstance(m, (LayerNorm, RMSNorm)):
             m.scale.fill_(1.0)
             if isinstance(m, LayerNorm):

@@ -46,6 +46,7 @@ from visper_lm_tpu_torch.device import resolve_device
 from visper_lm_tpu_torch.models.decoder import LINEAR_NAMES, Decoder, normalize_stream_layout
 from visper_lm_tpu_torch.models.teachers import TeacherConfigs, build_teachers
 from visper_lm_tpu_torch.models.vlm import VLM
+from visper_lm_tpu_torch.parallel.tensor import model_placements, shard_model
 from visper_lm_tpu_torch.utils.param import QuantLinear, to_numpy
 
 _VLM_SUBTREES = (
@@ -218,12 +219,15 @@ def from_jax_params(
     cfg: VLMConfig,
     device: Optional[Union[str, torch.device]] = None,
     dtype: Optional[torch.dtype] = None,
+    tp=None,
 ) -> VLM:
     """A VLM holding the JAX tree's weights on `device` (CUDA when None);
     quantized decoder linears become `QuantLinear`s.
 
     dtype=None keeps each leaf's dtype; otherwise floating leaves other than
-    the quantization scales are cast."""
+    the quantization scales are cast. tp (parallel/tensor.TensorParallel):
+    the rank's tensor-parallel form, each split leaf sliced on the host
+    before it is copied (a rank never holds the whole decoder on the device)."""
     device = resolve_device(device)
     tree = normalize_stream_layout(tree)
     with torch.device("meta"):
@@ -232,7 +236,15 @@ def from_jax_params(
         model.image_newline = (nn.Parameter(torch.empty(cfg.decoder.hidden_size))
                                if "image_newline" in tree else None)
         _quant_shells(model.decoder, tree["decoder"])
-    _load(model, jax_tree_to_state_dict(tree, cfg), device, dtype)
+        shard_model(model, tp)
+    sd = jax_tree_to_state_dict(tree, cfg)
+    for name, pl in model_placements(model).items():
+        a = np.asarray(sd[name])
+        size = a.shape[pl.model_dim] // pl.model_parts
+        index = [slice(None)] * a.ndim
+        index[pl.model_dim] = slice(tp.rank * size, (tp.rank + 1) * size)
+        sd[name] = a[tuple(index)]
+    _load(model, sd, device, dtype)
     return model.eval()
 
 
