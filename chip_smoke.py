@@ -290,7 +290,7 @@ Phases, each of which raises (exit code != 0) when it fails:
      limit; the kernels are built by phase 2, before any rank starts): the
      one-process PT step of config #1 (Phi3-mini-4k + CLIP-L, teachers in
      the step, B4 x T1024, save_gate, lr 1e-3 without warmup; its decoder
-     cut to DP_LAYERS = 4 layers with the taps inside them, DP_TAPS, for
+     cut to DP_LAYERS = 2 layers with the taps inside them, DP_TAPS, for
      time) from seeds,
      3 updates on 3 batches (update 1 has lr 0, as the schedule gives it;
      2 and 3 lr 1e-3, so the moments mix two batches' gradients and the
@@ -331,14 +331,15 @@ Phases, each of which raises (exit code != 0) when it fails:
      fails or does not finish within 420 s fails the phase.
  17. tensor parallelism (`--phase17-rank`, `--phase17c-rank`: gloo ranks
      sharing the card, dp 1; every record with the card's name and power
-     limit): (a) the `Generator` at Phi3-mini-4k + CLIP-L, full width and
-     depth, bf16, on phase 4's 8 x 768-token prompts, at tp 2: the prefill
+     limit): (a) the `Generator` at Phi3-mini-4k + CLIP-L, full width cut to
+     TP_GEN_LAYERS = 8 layers (time), bf16, on phase 4's 8 x 768-token
+     prompts, at tp 2: the prefill
      logits within 2 x the distance between the one-process bf16 logits
      and an f32 copy's on the plain path, of the one-process logits; the
      greedy tokens (8 a row) equal to the one-process Generator's through
      the first position where the one-process top-2 margin falls under
      that tolerance (printed); the two ranks' logits and tokens bit-equal;
-     per rank B1 32 a prefill, a cache of 16 kv heads, half the decoder's
+     per rank B1 8 a prefill (one a layer), a cache of 16 kv heads, half the decoder's
      bytes (50-51 %), an init peak under the whole decoder's bytes, peak
      GiB, prefill ms and decode ms/token. (b) phase 16's PT step (config #1
      at 4 layers, its 3 global batches, 3 updates) at tp 2, plain and with
@@ -346,17 +347,42 @@ Phases, each of which raises (exit code != 0) when it fails:
      parameter moves held to phase 16's one-process step and f32 run by
      phase 16's bounds; the replicated trainables bit-equal on both ranks;
      shard_teachers' losses equal to plain's, its teachers 45-60 % of their
-     bytes a rank; B1 8 / B2 4 / B3 4 / B4 48 a rank and step; per rank
+     bytes a rank; B1 4 / B2 2 / B3 2 / B4 48 a rank and step; per rank
      peak GiB, the decoder's and the teachers' bytes, step ms. (c)
      `cli.main(["@recipes/pretrain_full.args", ...])` at Llama-3-8B widths
-     cut to 8 layers (taps DP_TAPS) on four ranks (--tp 4, the recipe's
+     cut to 4 layers (taps DP_TAPS) on four ranks (--tp 4, the recipe's
      --zero-params --offload-opt-state --shard-teachers --stream-grads 8),
      2 steps on phase 12's PT records, the final checkpoint recorded, not
      written: every rank a quarter of the decoder (25-26 %), its init peak
      under the whole decoder's bytes (no rank held it), the same finite
-     metrics on every rank, B1 16 / B2 8 / B3 8 / B4 24 a step, the pinned
+     metrics on every rank, B1 8 / B2 4 / B3 4 / B4 24 a step, the pinned
      total under 57.99 GiB; per rank peak and pinned GiB and step ms. Any
      rank that fails or does not finish within 420 s fails the phase.
+ 18. sequence and pipeline parallelism (`--phase18-rank`, `--phase18c-rank`:
+     gloo ranks sharing the card; every record with the card's name and
+     power limit): (a) Llama-3-8B's attention (32 q / 8 kv heads, H128,
+     causal, bf16, B1 x T8192, seeded) at sp 2, forward and backward with a
+     fixed dout, through `ulysses_attention` (B1 on each rank's 16 heads
+     over every row, B2/B3 in the backward: 1 / 1 / 1 a rank) and through
+     `ring_attention` (the f32 recurrence in stock ops: no kernel), each
+     rank's rows put together and held to the one-process B1/B2/B3 call
+     (relative Frobenius <= 2e-2, bit-equality printed) and to an f32 plain
+     run, one kv head's group at a time (<= 1e-2), out, dq, dk, dv; (b) the
+     finetune step at Llama-3-8B widths cut to SP_LAYERS = 4 layers, B1 x
+     T8192, save_gate, sp 2 (Ulysses: 32/8 heads divide 2), 2 updates
+     (the first has lr 0) and the loss on the last batch after them,
+     against the one-process step and an f32 run from the same seed (plain
+     attention one kv group at a time, rematerialised; f32 AdamW): phase
+     16's bounds on each loss, the step-1 gradients as the optimizer's
+     reduce leaves them (sampled) and the parameter moves; B1 8 / B2 4 / B3
+     4 a rank and step; (c) the finetune step at Phi3-mini widths cut to 8
+     layers, B4 x T1024, pp 2 x tp 2 on four ranks (4 microbatches of 1,
+     JAX's rule), held the same way (gradients and parameters gathered over
+     tp, each stage's blocks from its ranks, the shared leaves bit-equal
+     across the stages), B1 32 / B2 16 / B3 16 a rank and step, 4
+     point-to-point sends a rank and step. Per rank: peak GiB, the
+     decoder's bytes held, step ms. Any rank that fails or does not finish
+     within 420 s fails the phase.
 Phase 3 also holds B1-B3 at phase 12's recipe PT shape (Llama-3-8B, B4 x
 T1024, GQA 32/8 H128, causal) against their plain versions, beside SDPA's
 forward and backward and the bound, as at the training shape.
@@ -440,13 +466,18 @@ DP_STEPS, DP_LR = 3, 1e-3      # a batch each; update 1 has lr 0 (warmup ratio 0
 DP_MODES = ("plain", "zero_frozen", "zero_params")   # (b)
 DP_SAMPLE = 1 << 16            # elements of a tensor compared by sample (a fixed stride)
 DP_TIMEOUT = 420               # s for the two ranks' whole run
-DP_LAYERS = 4                  # phases 16-17 (b): config #1 cut in depth (time)
-DP_TAPS = "d3-4_s2-4_g3-4"     # its tapped layers (1-indexed, two a task), inside the cut
+DP_LAYERS = 2                  # phases 16-17 (b): config #1 cut in depth (time)
+DP_TAPS = "d1-2_s1-2_g1-2"     # its tapped layers (1-indexed, two a task), inside the cut
 # phase 17: tensor parallelism
 TP_NEW_TOKENS = 8              # (a) greedy tokens a row
 TP_MODES = ("plain", "shard_teachers")   # (b)
-TP_RECIPE_LAYERS, TP_RECIPE_STEPS = 8, 2   # (c) Llama-3-8B cut in depth, steps
+TP_GEN_LAYERS = 8              # (a) Phi3-mini cut in depth (time)
+TP_RECIPE_LAYERS, TP_RECIPE_STEPS = 4, 2   # (c) Llama-3-8B cut in depth, steps
 TP_TIMEOUT = 420               # s for each spawn's whole run
+# phase 18: sequence and pipeline parallelism
+SP_T, SP_LAYERS = 8192, 4      # (a)-(b): Llama-3-8B at B1 x T8192, sp 2; (b) cut in depth (time)
+SP_STEPS = 2                   # (b)-(c): updates (the first has lr 0), then the loss after them
+PP_LAYERS, PP_BATCH, PP_SEQ = 8, 4, 1024   # (c): Phi3-mini cut in depth, pp 2 x tp 2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3926,6 +3957,17 @@ def held_bytes(params) -> int:
     return sum(p.untyped_storage().nbytes() for p in params)
 
 
+def tp_gen_config():
+    """Phase 17 (a)'s Phi3-mini + CLIP-L, cut to TP_GEN_LAYERS layers (time)."""
+    import dataclasses
+
+    from visper_lm_tpu_torch.config import phi3_clip_vlm
+
+    cfg = phi3_clip_vlm(distill=True)
+    return dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder,
+                                                                num_layers=TP_GEN_LAYERS))
+
+
 def tp_rank(argv) -> int:
     """One of phase 17's two tensor-parallel ranks (`chip_smoke.py
     --phase17-rank R PORT DIR`, dp 1 x tp 2 sharing the card over gloo):
@@ -3933,7 +3975,6 @@ def tp_rank(argv) -> int:
     phase 4's batch; (b) config #1's PT step (phase 16's depth-cut model)
     with and without shard_teachers on phase 16's 3 global batches. Writes
     what it measured to DIR/rank<R>.pt."""
-    from visper_lm_tpu_torch.config import phi3_clip_vlm
     from visper_lm_tpu_torch.models.teachers import init_teachers, make_teacher_fn
     from visper_lm_tpu_torch.models.vlm import init_vlm
     from visper_lm_tpu_torch.parallel import distributed as D
@@ -3954,7 +3995,7 @@ def tp_rank(argv) -> int:
     out = dict(backend=str(torch.distributed.get_backend()), start_s=time.perf_counter() - t_start)
 
     # (a) serving: each rank half the heads and the MLP, the logits gathered
-    cfg = phi3_clip_vlm(distill=True)
+    cfg = tp_gen_config()
     batch = main_path_batch(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4154,7 +4195,7 @@ def tp_phase(smi: str, ref: dict) -> dict:
     import shutil
 
     from visper_lm_tpu_torch import native
-    from visper_lm_tpu_torch.config import LLAMA3_8B, phi3_clip_vlm
+    from visper_lm_tpu_torch.config import LLAMA3_8B
     from visper_lm_tpu_torch.models.decoder import Decoder
     from visper_lm_tpu_torch.models.vlm import init_vlm
     from visper_lm_tpu_torch.serve.generate import GenerationConfig, Generator
@@ -4167,7 +4208,7 @@ def tp_phase(smi: str, ref: dict) -> dict:
         # (a)'s one-process references: phase 4's model and batch, bf16, and
         # the same weights in f32 on the plain path
         t0 = time.perf_counter()
-        cfg = phi3_clip_vlm(distill=True)
+        cfg = tp_gen_config()
         batch = main_path_batch(cfg)
         torch.cuda.reset_peak_memory_stats()
         model = init_vlm(cfg, device="cuda", seed=0)
@@ -4343,6 +4384,462 @@ def tp_phase(smi: str, ref: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: sequence and pipeline parallelism
+# ---------------------------------------------------------------------------
+
+
+def sp_config():
+    """Phase 18 (b)'s Llama-3-8B + CLIP-L, cut to SP_LAYERS layers (time)."""
+    import dataclasses
+
+    from visper_lm_tpu_torch.config import llama3_clip_vlm
+
+    cfg = llama3_clip_vlm(distill=False)
+    return dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, num_layers=SP_LAYERS))
+
+
+def pp_config():
+    """Phase 18 (c)'s Phi3-mini-4k + CLIP-L, cut to PP_LAYERS layers (time)."""
+    import dataclasses
+
+    from visper_lm_tpu_torch.config import phi3_clip_vlm
+
+    cfg = phi3_clip_vlm(distill=False)
+    return dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, num_layers=PP_LAYERS))
+
+
+def sp_pp_batches(cfg, batch: int, seq: int) -> list:
+    """SP_STEPS full-length IFT batches (seeds 0, 1, ...)."""
+    from visper_lm_tpu_torch.train import aot
+
+    return [aot.full_length_batch(cfg, batch, seq, with_teachers=False, seed=s)
+            for s in range(SP_STEPS)]
+
+
+def chunked_attention(plain):
+    """`plain` (`mha_plain`) one kv head's group of query heads at a time,
+    each group rematerialised: the same numbers, without the (B, N, T, T)
+    f32 scores of every head at once (an f32 reference at T8192)."""
+    import functools
+
+    from torch.utils.checkpoint import checkpoint
+
+    def attend(q, k, v, **kw):
+        g = q.shape[2] // k.shape[2]
+        fn = functools.partial(plain, **kw)
+        parts = []
+        for i in range(k.shape[2]):
+            args = (q[:, :, i * g:(i + 1) * g], k[:, :, i:i + 1], v[:, :, i:i + 1])
+            parts.append(checkpoint(fn, *args, use_reentrant=False) if torch.is_grad_enabled()
+                         else fn(*args))
+        return torch.cat(parts, 2)
+
+    return attend
+
+
+def f32_steps(cfg, batches, stage: str, chunked: bool) -> dict:
+    """The f32 student from the same seed (plain attention, the port's AdamW
+    in f32, no remat) on the batches: each loss, the step-1 gradients'
+    samples, the samples of the trainables before and after, the loss on
+    the last batch after the updates."""
+    from visper_lm_tpu_torch.models.vlm import init_vlm
+    from visper_lm_tpu_torch.ops import attention
+    from visper_lm_tpu_torch.train.optimizer import AdamW, trainable_mask
+    from visper_lm_tpu_torch.train.train_step import make_loss_fn
+
+    model = init_vlm(cfg, device="cuda", seed=0).float()
+    mask = trainable_mask(model.named_parameters(), stage)
+    names = [n for n, _ in model.named_parameters() if mask[n]]
+    params = dict(model.named_parameters())
+    for n, p in params.items():
+        p.requires_grad_(mask[n])
+    loss_fn = make_loss_fn(cfg, use_kernel=False, remat=False)
+    opt = AdamW(((n, params[n]) for n in names), dp_opt_cfg(stage))
+    s_0 = {n: dp_sample(params[n]) for n in names}
+    losses, g_1 = [], None
+    plain = attention.mha_plain
+    if chunked:
+        attention.mha_plain = chunked_attention(plain)
+    try:
+        for batch in batches:
+            dbatch = {k: torch.as_tensor(v).to("cuda") for k, v in batch.items()}
+            loss, grads = loss_and_grads(loss_fn, model, dbatch, None, [params[n] for n in names])
+            grads = {n: torch.zeros_like(params[n]) if g is None else g for n, g in zip(names, grads)}
+            if g_1 is None:
+                g_1 = {n: dp_sample(g) for n, g in grads.items()}
+            opt.step(grads)
+            losses.append(loss)
+            del grads, dbatch
+        with torch.no_grad():
+            after = float(loss_fn(model, {k: torch.as_tensor(v).to("cuda")
+                                          for k, v in batches[-1].items()}, None)[0])
+    finally:
+        attention.mha_plain = plain
+    out = dict(losses=losses, g_1=g_1, s_0=s_0, s_1={n: dp_sample(params[n]) for n in names},
+               loss_after=after)
+    del opt, model, params
+    release_cuda()
+    return out
+
+
+def one_process_steps(cfg, batches, stage: str, reset, read) -> dict:
+    """The one-process bf16 step (save_gate) on the batches, as phase 16's."""
+    from visper_lm_tpu_torch.models.vlm import init_vlm
+    from visper_lm_tpu_torch.train.train_step import make_train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    model = init_vlm(cfg, device="cuda", seed=0)
+    step = make_train_step(cfg, dp_opt_cfg(stage), model, remat_policy="save_gate")
+    s_0 = {n: dp_sample(p) for n, p in step.trainable.items()}
+    kept = dp_grads(step)
+    rec = dp_steps(step, batches, reset, read)
+    rec.update(peak_gib=torch.cuda.max_memory_allocated() / 2**30, s_0=s_0,
+               g_1={n: s for n, (_, s) in kept.items()},
+               s_1={n: dp_sample(p) for n, p in step.trainable.items()},
+               loss_after=dp_loss_at(step, batches[-1]))
+    del step, model, kept
+    release_cuda()
+    return rec
+
+
+def whole_grads(step) -> dict:
+    """Arm `step` to keep, from its next update, a sample of each of the
+    rank's trainables' gradients as the optimizer's reduce leaves them,
+    gathered whole over the model group (collective: the tp ranks of a
+    stage hold the same names): {name: sample}."""
+    from visper_lm_tpu_torch.parallel.tensor import whole_param
+
+    opt, kept = step.optimizer, {}
+
+    def reduce_grads(names, grads, reduced=()):
+        del opt.reduce_grads
+        opt.reduce_grads(names, grads, reduced)
+        for n in names:
+            kept[n] = dp_sample(whole_param(step.model, n, grads[n]))
+
+    opt.reduce_grads = reduce_grads
+    return kept
+
+
+def whole_samples(step) -> dict:
+    """A sample of each of the rank's trainables, whole over the model group."""
+    from visper_lm_tpu_torch.parallel.tensor import whole_param
+
+    return {n: dp_sample(whole_param(step.model, n, p.detach())) for n, p in step.trainable.items()}
+
+
+def sp_pp_rank_steps(cfg, mesh, dev, tp=None, pp=None) -> dict:
+    """Phase 18 (b) / (c) on one rank: SP_STEPS finetune updates on the
+    rank's share, its gradients and trainables sampled whole, the loss on
+    the last batch after the updates, point-to-point sends a step."""
+    from visper_lm_tpu_torch.models.vlm import init_vlm
+    from visper_lm_tpu_torch.parallel import distributed as D
+    from visper_lm_tpu_torch.train.train_step import make_train_step
+
+    reset, read = dp_counters()
+    batches = sp_pp_batches(cfg, *((1, SP_T) if pp is None else (PP_BATCH, PP_SEQ)))
+    local = [D.shard_batch_multihost(b, mesh, device=dev) for b in batches]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_vlm(cfg, device=dev, seed=0, tp=tp, pp=pp)
+    step = make_train_step(cfg, dp_opt_cfg("finetune"), model, remat_policy="save_gate",
+                           mesh=mesh)
+    rec = dict(init_s=time.perf_counter() - t0, s_0=whole_samples(step),
+               decoder_gib=held_bytes(model.decoder.parameters()) / 2**30)
+    kept = whole_grads(step)
+    runs, p2p = [], []
+    for batch in local:
+        before = D.p2p_sends
+        runs.append(dp_steps(step, [batch], reset, read))
+        p2p.append(D.p2p_sends - before)
+    rec.update({k: [r[k][0] for r in runs] for k in ("losses", "step_ms", "launches")})
+    rec.update(p2p=p2p, g_1=kept, s_1=whole_samples(step),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    with torch.no_grad():
+        total, _ = step.loss_fn(step.model, step.to_device(local[-1]), None)
+        shares = D.all_reduce_scalars([total.detach()], step.zero.group)
+        if step.zero.seq is not None:
+            shares = D.all_reduce_scalars(shares, step.zero.seq.group)
+    rec["loss_after"] = float(shares[0])
+    del step, model
+    release_cuda()
+    return rec
+
+
+def sp_rank(argv) -> int:
+    """One of phase 18 (a)-(b)'s two ranks (`chip_smoke.py --phase18-rank R
+    PORT DIR`, dp 1 x sp 2 sharing the card over gloo): (a) Ulysses and the
+    ring on the rank's rows of DIR/attn.pt, forward and backward; (b) the
+    finetune step at Llama-3-8B widths, B1 x T8192. Writes DIR/rank<R>.pt."""
+    from visper_lm_tpu_torch.parallel import distributed as D
+    from visper_lm_tpu_torch.parallel.sequence import (
+        ring_attention,
+        sequence_parallel,
+        ulysses_attention,
+    )
+
+    rank, port, root = int(argv[0]), int(argv[1]), Path(argv[2])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    D.init_distributed(f"localhost:{port}", 2, rank, local_device_ids=[0], device="cuda",
+                       backend="gloo")
+    mesh = D.make_global_mesh(dp=1, sp=2)
+    seq = sequence_parallel(mesh)
+    dev = torch.device("cuda", 0)
+    reset, read = dp_counters()
+    out = dict(backend=str(torch.distributed.get_backend()), start_s=time.perf_counter() - t_start)
+    inp = torch.load(root / "attn.pt")
+    rows = seq.rows(SP_T)
+    dout = inp["dout"][:, rows].to(dev)
+    for name, fn in (("ulysses", ulysses_attention), ("ring", ring_attention)):
+        for run in range(2):                            # the second timed
+            leaves = [inp[x][:, rows].to(dev).requires_grad_(True) for x in "qkv"]
+            reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o = fn(*leaves, seq=seq, causal=True)
+            o.backward(dout)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        out[name] = dict(ms=ms, launches=read(), rows=(rows.start, rows.stop),
+                         out=o.detach().cpu(), grads=[x.grad.cpu() for x in leaves])
+        del o, leaves
+        release_cuda()
+    del inp, dout
+    out["b"] = sp_pp_rank_steps(sp_config(), mesh, dev)
+    out["seconds"] = time.perf_counter() - t_start
+    torch.save(out, root / f"rank{rank}.pt")
+    D.barrier()
+    D.shutdown()
+    return 0
+
+
+def pp_rank(argv) -> int:
+    """One of phase 18 (c)'s four ranks (`chip_smoke.py --phase18c-rank R
+    PORT DIR`, pp 2 x tp 2 sharing the card over gloo): the finetune step at
+    Phi3-mini widths, PP_LAYERS layers, B4 x T1024. Writes DIR/rank<R>.pt."""
+    from visper_lm_tpu_torch.parallel import distributed as D
+    from visper_lm_tpu_torch.parallel.pipeline import pipe_parallel
+    from visper_lm_tpu_torch.parallel.tensor import tensor_parallel
+
+    rank, port, root = int(argv[0]), int(argv[1]), Path(argv[2])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    D.init_distributed(f"localhost:{port}", 4, rank, local_device_ids=[0], device="cuda",
+                       backend="gloo")
+    mesh = D.make_global_mesh(tp=2, pp=2)
+    tp, pp = tensor_parallel(mesh), pipe_parallel(mesh, PP_LAYERS)
+    out = dict(backend=str(torch.distributed.get_backend()), start_s=time.perf_counter() - t_start,
+               stage=pp.rank, layers=list(pp.layers), tp_rank=tp.rank)
+    out["c"] = sp_pp_rank_steps(pp_config(), mesh, torch.device("cuda", 0), tp=tp, pp=pp)
+    out["seconds"] = time.perf_counter() - t_start
+    torch.save(out, root / f"rank{rank}.pt")
+    D.barrier()
+    D.shutdown()
+    return 0
+
+
+def held_to_refs(name: str, recs: list, one: dict, f32: dict, smi: str) -> dict:
+    """Phase 16's bounds on the ranks' FT run against the one-process bf16
+    run and the f32 run: each loss (and the loss after the updates) within 2
+    x the bf16-vs-f32 distance + 1e-4 relative; the step-1 gradients
+    (sampled, whole) within the one-process run's distance from f32 + 1e-2;
+    the parameter moves within 2 x (to f32) and 3 x (to the one-process
+    moves) the one-process run's distance from the f32 moves, + 1e-3; the
+    last update moves the loss beyond 3 x its tolerance (the bounds can
+    fail)."""
+    g_r, s_0, s_1 = {}, {}, {}
+    for rr in recs:                    # a stage's names from its ranks, bit-equal where shared
+        for src, dst in ((rr["g_1"], g_r), (rr["s_0"], s_0), (rr["s_1"], s_1)):
+            for n, t in src.items():
+                check(n not in dst or torch.equal(dst[n], t),
+                      f"phase 18 {name}: {n} differs between ranks that hold it")
+                dst[n] = t
+    check(sorted(g_r) == sorted(one["g_1"]), f"phase 18 {name}: the ranks hold "
+          f"{len(g_r)} trainables, one process {len(one['g_1'])}")
+    losses = recs[0]["losses"]
+    check(all(rr["losses"] == losses for rr in recs), f"phase 18 {name}: the ranks' losses differ")
+    for x, c, f in zip(losses + [recs[0]["loss_after"]], one["losses"] + [one["loss_after"]],
+                       f32["losses"] + [f32["loss_after"]]):
+        check(abs(x - c) <= 2 * abs(c - f) + 1e-4 * abs(c),
+              f"phase 18 {name}: loss {x} vs one process {c} (f32 {f})")
+    tol_after = 2 * abs(one["loss_after"] - f32["loss_after"]) + 1e-4 * abs(one["loss_after"])
+    moved = abs(one["loss_after"] - one["losses"][-1])
+    check(moved > 3 * tol_after, f"phase 18 {name}: the last update moves the loss {moved:.3g}, "
+          f"not beyond 3 x its tolerance {tol_after:.3g}")
+    d_grad_1 = rel_fro(one["g_1"], f32["g_1"])
+    d_grad = rel_fro(g_r, f32["g_1"])
+    check(d_grad <= d_grad_1 + 1e-2, f"phase 18 {name}: gradients {d_grad:.4g} from f32 (one "
+          f"process {d_grad_1:.4g})")
+    move_1, move_f = deltas(one["s_1"], one["s_0"]), deltas(f32["s_1"], f32["s_0"])
+    e_1 = rel_fro(move_1, move_f)
+    check(all(torch.equal(s_0[n], one["s_0"][n]) for n in s_0),
+          f"phase 18 {name}: the ranks start from other weights")
+    moves = delta_record(deltas(s_1, s_0), move_1, move_f, DP_LR)
+    check(moves["rel_frobenius_to_f32"] <= 2 * e_1 + 1e-3 and moves["rel_frobenius"] <= 3 * e_1 + 1e-3,
+          f"phase 18 {name}: parameter moves {moves} (one process {e_1:.4g} from f32)")
+    rec = dict(losses=losses, loss_after=recs[0]["loss_after"], losses_one_process=one["losses"],
+               loss_after_one_process=one["loss_after"], losses_f32=f32["losses"],
+               loss_after_f32=f32["loss_after"], grads_rel_frobenius_to_f32=d_grad,
+               grads_one_process_to_f32=d_grad_1, moves=moves, moves_one_process_to_f32=e_1,
+               one_process=dict(peak_gib=one["peak_gib"], step_ms=one["step_ms"],
+                                launches_per_step=one["launches"][-1]),
+               ranks=[dict(peak_gib=rr["peak_gib"], decoder_gib=rr["decoder_gib"],
+                           step_ms=rr["step_ms"], launches_per_step=rr["launches"][-1],
+                           p2p=rr["p2p"], init_s=rr["init_s"]) for rr in recs])
+    for r, rr in enumerate(rec["ranks"]):
+        print(f"phase 18 {name} rank {r}: peak {rr['peak_gib']:.2f} GiB (one process "
+              f"{one['peak_gib']:.2f}), decoder {rr['decoder_gib']:.3f} GiB, B1-B4 a step "
+              f"{rr['launches_per_step']}, sends a step {rr['p2p']}, step ms "
+              f"{', '.join(f'{x:.1f}' for x in rr['step_ms'])} (one process "
+              f"{', '.join(f'{x:.1f}' for x in one['step_ms'])}) [{smi}]")
+    print(f"phase 18 {name}: losses {losses} + after {rec['loss_after']:.6f} (one process "
+          f"{one['losses']} + {one['loss_after']:.6f}; f32 {f32['losses']} + "
+          f"{f32['loss_after']:.6f}); step-1 gradients rel Frobenius to f32 {d_grad:.4g} (one "
+          f"process {d_grad_1:.4g}); moves {json.dumps(moves)} (one process {e_1:.4g} from f32)")
+    return rec
+
+
+def sp_pp_phase(smi: str) -> dict:
+    """Phase 18: sequence and pipeline parallelism on the card (see the
+    module docstring). Returns the record printed as `sp_pp_path`."""
+    import shutil
+
+    from visper_lm_tpu_torch.ops.attention import mha_plain, multi_head_attention
+
+    root = Path(__file__).resolve().parent / "tmp" / "chip_smoke_sp_pp"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    reset, read = dp_counters()
+    out = dict(card=smi)
+    try:
+        # (a)'s inputs and references: Llama-3-8B's attention at B1 x T8192,
+        # the one-process B1/B2/B3 call and an f32 plain run
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(18)
+        b, t, nq, nkv, h = 1, SP_T, 32, 8, 128
+        inp = {x: torch.randn((b, t, n, h), generator=gen, device="cuda", dtype=torch.bfloat16)
+               for x, n in (("q", nq), ("k", nkv), ("v", nkv), ("dout", nq))}
+        torch.save({k: v.cpu() for k, v in inp.items()}, root / "attn.pt")
+        leaves = [inp[x].clone().requires_grad_(True) for x in "qkv"]
+        reset()
+        o = multi_head_attention(*leaves, causal=True)
+        o.backward(inp["dout"])
+        one_launches = read()
+        check(one_launches == dict(flash_fwd=1, flash_bwd_dq=1, flash_bwd_dkv=1, window_attn=0),
+              f"phase 18 (a): the one-process call launched {one_launches}")
+        one = dict(out=o.detach().float().cpu(), grads=[x.grad.float().cpu() for x in leaves])
+        ref = dict(out=[], grads=[[], [], []])
+        g = nq // nkv
+        for i in range(nkv):               # one kv head's group at a time (f32 scores fit)
+            lv = [inp["q"][:, :, i * g:(i + 1) * g], inp["k"][:, :, i:i + 1],
+                  inp["v"][:, :, i:i + 1]]
+            lv = [x.float().requires_grad_(True) for x in lv]
+            of = mha_plain(*lv, causal=True)
+            of.backward(inp["dout"][:, :, i * g:(i + 1) * g].float())
+            ref["out"].append(of.detach().cpu())
+            for j in range(3):
+                ref["grads"][j].append(lv[j].grad.cpu())
+            del of, lv
+        f32 = dict(out=torch.cat(ref["out"], 2), grads=[torch.cat(x, 2) for x in ref["grads"]])
+        del o, leaves, inp, ref
+        release_cuda()
+        refs_a_s = time.perf_counter() - t0
+
+        # (b)'s references: the one-process step and the f32 run
+        t0 = time.perf_counter()
+        cfg_b = sp_config()
+        batches_b = sp_pp_batches(cfg_b, 1, SP_T)
+        one_b = one_process_steps(cfg_b, batches_b, "finetune", reset, read)
+        f32_b = f32_steps(cfg_b, batches_b, "finetune", chunked=True)
+        refs_b_s = time.perf_counter() - t0
+
+        # (a) and (b): two ranks, dp 1 x sp 2
+        t0 = time.perf_counter()
+        ranks = spawn_ranks("--phase18-rank", 2, root, "phase 18 (a)-(b)")
+        ranks_ab_s = time.perf_counter() - t0
+        check(all(r["backend"] == "gloo" for r in ranks), "phase 18: the ranks did not run gloo")
+        a = {}
+        for name, want in (("ulysses", dict(flash_fwd=1, flash_bwd_dq=1, flash_bwd_dkv=1,
+                                              window_attn=0)),
+                           ("ring", dict(flash_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0,
+                                         window_attn=0))):
+            recs = [r[name] for r in ranks]
+            for r, rr in enumerate(recs):
+                check(rr["launches"] == want, f"phase 18 (a) {name} rank {r}: launches "
+                      f"{rr['launches']}, expected {want}")
+            got = dict(out=torch.cat([rr["out"].float() for rr in recs], 1),
+                       grads=[torch.cat([rr["grads"][j].float() for rr in recs], 1)
+                              for j in range(3)])
+            rec = dict(ms=[rr["ms"] for rr in recs], launches=recs[0]["launches"])
+            for what, i in (("out", None), ("dq", 0), ("dk", 1), ("dv", 2)):
+                x = got["out"] if i is None else got["grads"][i]
+                r1 = one["out"] if i is None else one["grads"][i]
+                rf = f32["out"] if i is None else f32["grads"][i]
+                d_one = float((x - r1).norm() / r1.norm())
+                d_f32 = float((x - rf).norm() / rf.norm())
+                d_kernel = float((r1 - rf).norm() / rf.norm())
+                rec[what] = dict(rel_frobenius_to_one_process=d_one, rel_frobenius_to_f32=d_f32,
+                                 one_process_to_f32=d_kernel, bit_equal=bool(torch.equal(x, r1)),
+                                 max_abs_err=float((x - rf).abs().max()))
+                check(d_f32 <= 1e-2, f"phase 18 (a) {name} {what}: {d_f32:.4g} from f32")
+                check(d_one <= 2e-2, f"phase 18 (a) {name} {what}: {d_one:.4g} from the "
+                      "one-process kernel call")
+            a[name] = rec
+            print(f"phase 18 (a) {name} at Llama-3-8B's attention (B1 x T{SP_T}, 32/8 heads, "
+                  f"H128, causal, bf16), sp 2: forward + backward ms a rank "
+                  f"{', '.join(f'{x:.1f}' for x in rec['ms'])}, B1-B4 a rank {rec['launches']}; "
+                  + "; ".join(f"{w} rel {rec[w]['rel_frobenius_to_one_process']:.3g} to one "
+                              f"process (bit-equal {rec[w]['bit_equal']}), "
+                              f"{rec[w]['rel_frobenius_to_f32']:.3g} to f32"
+                              for w in ("out", "dq", "dk", "dv")) + f" [{smi}]")
+        out["a"] = a
+        want_b = dp_expected(SP_LAYERS, 0, 0)
+        for rr in [r["b"] for r in ranks] + [one_b]:
+            check(all(c == want_b for c in rr["launches"]),
+                  f"phase 18 (b): launches {rr['launches']}, expected {want_b}")
+        out["b"] = held_to_refs("(b) sp 2", [r["b"] for r in ranks], one_b, f32_b, smi)
+
+        # (c)'s references, then four ranks at pp 2 x tp 2
+        t0 = time.perf_counter()
+        cfg_c = pp_config()
+        batches_c = sp_pp_batches(cfg_c, PP_BATCH, PP_SEQ)
+        one_c = one_process_steps(cfg_c, batches_c, "finetune", reset, read)
+        f32_c = f32_steps(cfg_c, batches_c, "finetune", chunked=False)
+        refs_c_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks_c = spawn_ranks("--phase18c-rank", 4, root, "phase 18 (c)")
+        ranks_c_s = time.perf_counter() - t0
+        check([(r["stage"], r["tp_rank"]) for r in ranks_c] == [(0, 0), (0, 1), (1, 0), (1, 1)],
+              f"phase 18 (c): stages {[(r['stage'], r['tp_rank']) for r in ranks_c]}")
+        micro = PP_BATCH                     # JAX's rule: 4 microbatches of 1 at B4 over 2 stages
+        per_stage = PP_LAYERS // 2
+        want_c = dict(flash_fwd=2 * per_stage * micro, flash_bwd_dq=per_stage * micro,
+                      flash_bwd_dkv=per_stage * micro, window_attn=0)
+        for r, rr in enumerate(ranks_c):
+            check(all(c == want_c for c in rr["c"]["launches"]),
+                  f"phase 18 (c) rank {r}: launches {rr['c']['launches']}, expected {want_c}")
+            check(rr["c"]["p2p"] == [micro] * SP_STEPS,
+                  f"phase 18 (c) rank {r}: point-to-point sends {rr['c']['p2p']}, expected "
+                  f"{micro} a step (stage 0 the activations, stage 1 their gradients)")
+        want_one = dp_expected(PP_LAYERS, 0, 0)
+        check(all(c == want_one for c in one_c["launches"]),
+              f"phase 18 (c): one-process launches {one_c['launches']}, expected {want_one}")
+        out["c"] = held_to_refs("(c) pp 2 x tp 2", [r["c"] for r in ranks_c], one_c, f32_c, smi)
+        out["c"]["layers_by_stage"] = [ranks_c[0]["layers"], ranks_c[2]["layers"]]
+        out["seconds_by_part"] = dict(refs_a=refs_a_s, refs_b=refs_b_s, ranks_a_b=ranks_ab_s,
+                                      refs_c=refs_c_s, ranks_c=ranks_c_s,
+                                      rank_start=[r["start_s"] for r in ranks + ranks_c])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        release_cuda()
+    return out
+
+
 def release_cuda():
     gc.collect()
     torch.cuda.empty_cache()
@@ -4372,6 +4869,10 @@ def main() -> int:
         return tp_rank(sys.argv[2:])
     if sys.argv[1:2] == ["--phase17c-rank"]:
         return tp_recipe_rank(sys.argv[2:])
+    if sys.argv[1:2] == ["--phase18-rank"]:
+        return sp_rank(sys.argv[2:])
+    if sys.argv[1:2] == ["--phase18c-rank"]:
+        return pp_rank(sys.argv[2:])
     from visper_lm_tpu_torch.config import LLAMA3_8B, phi3_clip_vlm
     from visper_lm_tpu_torch.models.teachers import init_teachers, make_teacher_fn
     from visper_lm_tpu_torch.models.decoder import quantize_head_vectors
@@ -4405,6 +4906,14 @@ def main() -> int:
     for lib, log in logs.items():
         for entry, res in _build.kernel_resources(log).items():
             print(f"ptxas[{lib}] {entry}: {json.dumps(res)}")
+    if sys.argv[1:2] == ["--phase18"]:
+        # phase 18 on its own, after the build (a measurement run)
+        t0 = time.perf_counter()
+        sp_pp = sp_pp_phase(smi)
+        sp_pp["seconds"] = time.perf_counter() - t0
+        print(f"sp_pp phase {sp_pp['seconds']:.1f} s [{smi}]")
+        print("sp_pp_path " + json.dumps(sp_pp))
+        return 0
     if sys.argv[1:2] in (["--phase16"], ["--phase17"]):
         # phase 16 (with --phase17 phase 17 after it) on its own, after the
         # build (a measurement run; the contract's run takes no argument and
@@ -4870,7 +5379,16 @@ def main() -> int:
     del dp_ref
     print(f"tp phase {tp['seconds']:.1f} s [{smi}]")
     print("tp_path " + json.dumps(tp))
-    dec_launches = da.launches                  # over phases 4-17
+    # 18. sequence and pipeline parallelism: Ulysses and the ring at
+    # Llama-3-8B's attention, the finetune step at sp 2 (Llama-3-8B widths,
+    # T8192) and at pp 2 x tp 2 (Phi3-mini widths)
+    release_cuda()
+    t0 = time.perf_counter()
+    sp_pp = sp_pp_phase(smi)
+    sp_pp["seconds"] = time.perf_counter() - t0
+    print(f"sp_pp phase {sp_pp['seconds']:.1f} s [{smi}]")
+    print("sp_pp_path " + json.dumps(sp_pp))
+    dec_launches = da.launches                  # over phases 4-18
     print(f"decode_attn launches over the serving, training, engine, api, vision, recipe, viz, "
           f"eval and memory paths: {dec_launches}")
     check(dec_launches == 0, f"decode_attn launched {dec_launches} times; no path calls it")
@@ -4887,6 +5405,14 @@ def main() -> int:
     dp_rank_launches = dp["b"]["plain"]["ranks"][0]["launches_per_step"]   # phase 16, a rank's step
     tp_rank_launches = tp["b"]["plain"]["ranks"][0]["launches_per_step"]   # phase 17 (b)
     tp_recipe_launches = tp["c"]["ranks"][0]["launches_per_step"]          # phase 17 (c)
+
+    def phase18(kname):
+        """A kernel's launches in phase 18: a rank's attention call (a), a
+        rank's step at sp 2 (b) and at pp 2 x tp 2 (c)."""
+        return dict(attention_a_rank=sp_pp["a"]["ulysses"]["launches"][kname],
+                    sp_step_a_rank=sp_pp["b"]["ranks"][0]["launches_per_step"][kname],
+                    pp_step_a_rank=sp_pp["c"]["ranks"][0]["launches_per_step"][kname])
+
     main_launches = trainer["trainer"]["launches"]   # trainer.train, the main path
     kernels = [
         dict(entry("flash_fwd", csrc + "flash_fwd.cu", "visper_lm_tpu/ops/flash_attention.py:234",
@@ -4914,6 +5440,7 @@ def main() -> int:
              launches_phase17=dict(prefill_a_rank=tp["a"]["ranks"][0]["prefill_launches"],
                                    pt_step_a_rank=tp_rank_launches["flash_fwd"],
                                    recipe_step_a_rank=tp_recipe_launches["flash_fwd"]),
+             launches_phase18=phase18("flash_fwd"),
              ift_t4096={k: memory["b1"][k] for k in LLAMA3_KEYS},
              train=dict(shape=train_fwd_rec["shape"], ms=train_fwd_rec["ms"],
                         mma_sync_ms=train_fwd_rec["mma_sync_ms"],
@@ -4929,6 +5456,7 @@ def main() -> int:
              launches_phase16_rank_per_step=dp_rank_launches["flash_bwd_dq"],
              launches_phase17=dict(pt_step_a_rank=tp_rank_launches["flash_bwd_dq"],
                                    recipe_step_a_rank=tp_recipe_launches["flash_bwd_dq"]),
+             launches_phase18=phase18("flash_bwd_dq"),
              ift_t4096={k: memory["b2"][k] for k in LLAMA3_KEYS + ("device_ms",)},
              library="SDPA backward (dq, dk and dv in one call)",
              gqa=dict(shape=gqa_dq["shape"], ms=gqa_dq["ms"], device_ms=gqa_dq["device_ms"],
@@ -4943,6 +5471,7 @@ def main() -> int:
              launches_phase16_rank_per_step=dp_rank_launches["flash_bwd_dkv"],
              launches_phase17=dict(pt_step_a_rank=tp_rank_launches["flash_bwd_dkv"],
                                    recipe_step_a_rank=tp_recipe_launches["flash_bwd_dkv"]),
+             launches_phase18=phase18("flash_bwd_dkv"),
              ift_t4096={k: memory["b3"][k] for k in LLAMA3_KEYS + ("device_ms",)},
              library="SDPA backward (dq, dk and dv in one call)",
              gqa=dict(shape=gqa_dkv["shape"], ms=gqa_dkv["ms"], device_ms=gqa_dkv["device_ms"],
@@ -4955,6 +5484,7 @@ def main() -> int:
              launches_phase16_rank_per_step=dp_rank_launches["window_attn"],
              launches_phase17=dict(pt_step_a_rank=tp_rank_launches["window_attn"],
                                    recipe_step_a_rank=tp_recipe_launches["window_attn"]),
+             launches_phase18=phase18("window_attn"),
              eager_ms=win_rec["eager_ms"],
              stages={r["case"]: dict(ms=r["ms"],
                                      library_ms=r["library_ms"], bound_ms=r["bound_ms"],

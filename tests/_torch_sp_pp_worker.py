@@ -1,0 +1,345 @@
+"""One rank of tests/test_torch_sequence_parallel.py and
+tests/test_torch_pipeline_parallel.py: the port's sequence and pipeline
+parallelism on gloo over the CPU (four ranks).
+
+    VISPER_COORDINATOR=localhost:<port> VISPER_NUM_PROCESSES=4 VISPER_PROCESS_ID=<rank> \\
+        python tests/_torch_sp_pp_worker.py <workdir> sp|pp
+
+The second argument picks the part: "sp" (the sequence-parallel cases and
+steps) or "pp" (the pipeline's).
+
+`<workdir>` holds what the tests wrote: dec.pkl and dec_remat.pkl (JAX
+`init_decoder` trees of the tiny decoder, as numpy), ft.pkl and pt.pkl (JAX
+`init_vlm` trees of tiny_test_vlm without and with distillation), ft.npz
+and pt.npz (the global batches of 4). The attention and pipeline inputs are
+made here from numpy seeds by the functions below, which the tests call
+too. Every case runs on a mesh of all four ranks; each rank writes what it
+computed to rank<r>.pt:
+
+  ulysses / ring   the rank's rows of the output and of dq, dk, dv of
+                   sum(sin(out)) at each (dp, sp, nq, nkv) case;
+  route            multi_head_attention under sp 4 with 2 kv heads (the
+                   ring: point-to-point sends, no all-to-all);
+  dec_sp           decoder_forward's logits of the rank's rows at sp 4 (the
+                   ring) and at dp 2 x sp 2 (Ulysses);
+  pipe             pipeline_scan on the toy blocks at each (dp, pp, m), the
+                   f64 schedule, the gradients at pp 4, the layer guard;
+  dec_pp           decoder_forward under dp 1 x pp 4 with ragged lengths,
+                   at sp 2 x pp 2 (forward), and the remat + save_gate
+                   gradient at dp 2 x pp 2, with the point-to-point sends
+                   each made;
+  ft_* / pt_*      the finetune step at pp 2 x tp 2, at dp 2 x pp 2 with
+                   zero_params and at dp 2 x sp 2; the PT step at dp 2 x sp
+                   2 and at dp 2 x pp 2: 3 updates' metrics and the whole
+                   state after them; ft_dp2_pp2_zero's state saved, restored
+                   at dp 2 x pp 2 in the ranks;
+  trainer_*        `trainer.train` at dp 2 x sp 2 and dp 2 x pp 2, 2 steps
+                   and a checkpoint.
+"""
+
+import os
+import pickle
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+torch.set_num_threads(1)
+
+from visper_lm_tpu_torch import config as tconfig  # noqa: E402
+from visper_lm_tpu_torch.ops.attention import multi_head_attention  # noqa: E402
+from visper_lm_tpu_torch.parallel import distributed as D  # noqa: E402
+from visper_lm_tpu_torch.parallel import pipeline as P  # noqa: E402
+from visper_lm_tpu_torch.parallel import sequence as S  # noqa: E402
+from visper_lm_tpu_torch.parallel import tensor as T  # noqa: E402
+from visper_lm_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
+from visper_lm_tpu_torch.train import train_step as tts  # noqa: E402
+from visper_lm_tpu_torch.train.checkpoint import CheckpointManager  # noqa: E402
+from visper_lm_tpu_torch.train.optimizer import OptimizerConfig  # noqa: E402
+from visper_lm_tpu_torch.train.trainer import TrainerConfig, train  # noqa: E402
+from visper_lm_tpu_torch.weights import decoder_from_jax_params, from_jax_params  # noqa: E402
+
+OPT = dict(learning_rate=3e-3, total_steps=30, warmup_ratio=0.1)
+STEPS = 3
+# (dp, sp, nkv) of the Ulysses cases (nq 4), as tests/test_sequence_parallel.py
+ULYSSES = ((2, 2, 4), (1, 4, 4), (2, 2, 2))
+# (dp, sp, nq, nkv) of the ring cases: JAX's, with sp 4 standing in for its
+# sp 8 (four ranks) in the case of sp beyond the head count
+RING = ((1, 4, 4, 4), (1, 4, 4, 2), (2, 2, 4, 1), (1, 4, 2, 1))
+# (dp, pp, m) of pipeline_scan: JAX's (1, 4, 4) and (2, 2, 2), and m 8 over
+# 4 stages standing in for its (2, 4, 8) and (1, 8, 8) (eight devices)
+PIPE = ((1, 4, 4), (2, 2, 2), (1, 4, 8))
+ATTN_T, ATTN_H = 32, 16
+
+
+def attn_inputs(seed, b, nq, nkv):
+    """q, k, v (f32) and the ragged kv_lengths / kv_starts of one case."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, ATTN_T, nq, ATTN_H)).astype(np.float32)
+    k = rng.normal(size=(b, ATTN_T, nkv, ATTN_H)).astype(np.float32)
+    v = rng.normal(size=(b, ATTN_T, nkv, ATTN_H)).astype(np.float32)
+    lengths = np.array([ATTN_T] * (b - 1) + [ATTN_T - 5], np.int32)
+    starts = np.array([0] * (b - 1) + [3], np.int32)
+    return q, k, v, lengths, starts
+
+
+def toy(seed, L=8, B=8, T=16, D=32, dtype=np.float32):
+    """tests/test_pipeline_parallel.py's toy: w (L, D, D), b (L, D), h, scale."""
+    rng = np.random.default_rng(seed)
+    w = (rng.normal(size=(L, D, D)) * 0.1).astype(dtype)
+    b = (rng.normal(size=(L, D)) * 0.1).astype(dtype)
+    h = rng.normal(size=(B, T, D)).astype(dtype)
+    scale = rng.normal(size=(B, 1, 1)).astype(dtype)
+    return w, b, h, scale
+
+
+def toy_block(blk, hh, args):
+    return hh + torch.tanh(hh @ blk["w"] + blk["b"]) * args["scale"]
+
+
+def _rows(mesh, b):
+    d, n = D.data_shard(mesh)
+    return slice(d * b // n, (d + 1) * b // n)
+
+
+def attention_case(fn, dp, sp, nq, nkv, seed):
+    mesh = make_mesh(dp=dp, sp=sp)
+    seq = S.sequence_parallel(mesh)
+    b = 2 * dp
+    q, k, v, lengths, starts = attn_inputs(seed, b, nq, nkv)
+    br, tr = _rows(mesh, b), seq.rows(ATTN_T)
+    leaves = [torch.tensor(x[br, tr]).requires_grad_(True) for x in (q, k, v)]
+    sends, before = D.p2p_sends, _a2a_calls[0]
+    out = fn(*leaves, seq=seq, causal=True, kv_lengths=torch.tensor(lengths[br]),
+             kv_starts=torch.tensor(starts[br]))
+    torch.sin(out).sum().backward()
+    return dict(rows=(br.start, br.stop, tr.start, tr.stop), out=out.detach(),
+                grads=[x.grad for x in leaves], p2p=D.p2p_sends - sends,
+                all_to_all=_a2a_calls[0] - before)
+
+
+_a2a_calls = [0]
+_a2a = D.all_to_all
+
+
+def _counted_all_to_all(*a, **k):
+    _a2a_calls[0] += 1
+    return _a2a(*a, **k)
+
+
+D.all_to_all = _counted_all_to_all
+
+
+def pipe_case(dp, pp, m, seed=0, dtype=np.float32, grads=False):
+    mesh = make_mesh(dp=dp, pp=pp)
+    group, stage, _ = D.pipe_group(mesh)
+    w, b, h, scale = toy(seed, dtype=dtype)
+    br = _rows(mesh, h.shape[0])
+    blocks = [dict(w=torch.tensor(w[i]).requires_grad_(grads), b=torch.tensor(b[i]))
+              for i in range(w.shape[0])]
+    per = w.shape[0] // pp
+    mine = [blk["w"] for blk in blocks[stage * per:(stage + 1) * per]] if grads else []
+    hh = torch.tensor(h[br]).requires_grad_(grads)
+    sends = D.p2p_sends
+    out = P.pipeline_scan(toy_block, blocks, hh, dict(scale=torch.tensor(scale[br])), group=group,
+                          n_micro=m, params=mine)
+    rec = dict(rows=(br.start, br.stop), out=out.detach(), p2p=D.p2p_sends - sends, stage=stage)
+    if grads:
+        torch.sin(out).sum().backward()
+        rec.update(dh=hh.grad, dw={stage * per + i: x.grad for i, x in enumerate(mine)})
+    return rec
+
+
+def dec_sp_case(tree, dp, sp, embeds):
+    cfg = tconfig.tiny_test_vlm(distill=False).decoder
+    mesh = make_mesh(dp=dp, sp=sp)
+    dec = decoder_from_jax_params(tree, cfg, device="cpu")
+    dec.seq = S.sequence_parallel(mesh)
+    br, tr = _rows(mesh, embeds.shape[0]), dec.seq.rows(embeds.shape[1])
+    sends, before = D.p2p_sends, _a2a_calls[0]
+    with torch.no_grad():
+        logits = dec(torch.tensor(embeds[br, tr]), use_kernel=False)["logits"]
+    return dict(rows=(br.start, br.stop, tr.start, tr.stop), logits=logits,
+                p2p=D.p2p_sends - sends, all_to_all=_a2a_calls[0] - before)
+
+
+def dec_pp_decoder(tree, mesh):
+    cfg = tconfig.tiny_test_vlm(distill=False).decoder
+    pipe = P.pipe_parallel(mesh, cfg.num_layers)
+    dec = P.shard_pipeline(decoder_from_jax_params(tree, cfg, device="cpu"), pipe)
+    return dec, pipe
+
+
+def main(workdir: str, part: str) -> None:
+    t0 = time.perf_counter()
+    D.init_distributed(device="cpu")
+    rank, world = D.process_index(), D.process_count()
+    assert world == 4, world
+
+    def load(name):
+        with open(os.path.join(workdir, name), "rb") as f:
+            return pickle.load(f)
+
+    out = {}
+    if part == "sp":
+        sequence_part(out, load, workdir)
+    else:
+        pipeline_part(out, load, workdir)
+    out["seconds"] = time.perf_counter() - t0
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    D.barrier()
+    D.shutdown()
+
+
+def step_case(cfg, tree, batch, stage, mesh, **kw):
+    """STEPS updates of the step on `mesh` from the JAX tree, on the rank's
+    rows of `batch`: (the step, its record)."""
+    tp = T.tensor_parallel(mesh)
+    pipe = P.pipe_parallel(mesh, cfg.decoder.num_layers)
+    model = from_jax_params(tree, cfg, device="cpu", tp=tp, pp=pipe)
+    step = tts.make_train_step(cfg, OptimizerConfig(**OPT, stage=stage), model, mesh=mesh, **kw)
+    br = _rows(mesh, batch["labels"].shape[0])
+    local = D.shard_batch_multihost({k: v[br] for k, v in batch.items()}, mesh)
+    sends, metrics = [], []
+    for _ in range(STEPS):
+        before = D.p2p_sends
+        metrics.append(step(local))
+        sends.append(D.p2p_sends - before)
+    state = {k: v.detach().clone() for k, v in step.state_tensors().items()}
+    held = {int(n.split(".")[2]) for n, p in model.named_parameters()
+            if n.startswith("decoder.blocks.") and p.untyped_storage().nbytes() > 0}
+    return step, dict(metrics=metrics, p2p=sends, state=state if D.process_index() == 0 else None,
+                      keys=sorted(state), held_blocks=sorted(held), trainable=len(step.trainable))
+
+
+def trainer_case(cfg, tree, batch, workdir, name, **axes):
+    """`trainer.train` on a mesh of `axes` (TrainerConfig's dp / tp / sp /
+    pp), 2 steps on the rank's rows of `batch`, a checkpoint at step 2:
+    the step and the last metrics (the coordinator writes the files)."""
+    mesh = make_mesh(**axes)
+    model = from_jax_params(tree, cfg, device="cpu", tp=T.tensor_parallel(mesh),
+                            pp=P.pipe_parallel(mesh, cfg.decoder.num_layers))
+    br = _rows(mesh, batch["labels"].shape[0])
+    local = {k: v[br] for k, v in batch.items()}
+    state = train(cfg, OptimizerConfig(**OPT, stage="finetune"),
+                  TrainerConfig(output_dir=os.path.join(workdir, name), device="cpu", max_steps=2,
+                                save_steps=2, **axes),
+                  model, lambda epoch: iter([local, local]))
+    return dict(step=state.step, metrics=state.last_metrics)
+
+
+def sequence_part(out, load, workdir):
+    out["ulysses"] = {c: attention_case(S.ulysses_attention, c[0], c[1], 4, c[2], 0) for c in ULYSSES}
+    out["ring"] = {c: attention_case(S.ring_attention, *c, 10) for c in RING}
+    out["route"] = attention_case(multi_head_attention, 1, 4, 4, 2, 12)
+    rng = np.random.default_rng(4)
+    embeds = rng.normal(size=(2, 32, 64)).astype(np.float32)
+    dec_tree = load("dec.pkl")
+    out["dec_sp4"] = dec_sp_case(dec_tree, 1, 4, embeds)
+    embeds22 = np.concatenate([embeds, rng.normal(size=(2, 32, 64)).astype(np.float32)])
+    out["dec_dp2_sp2"] = dec_sp_case(dec_tree, 2, 2, embeds22)
+    cfg_ft = tconfig.tiny_test_vlm(distill=False)
+    cfg_pt = tconfig.tiny_test_vlm(distill=True)
+    ft_batch = dict(np.load(os.path.join(workdir, "ft.npz")))
+    pt_batch = dict(np.load(os.path.join(workdir, "pt.npz")))
+    _, out["ft_dp2_sp2"] = step_case(cfg_ft, load("ft.pkl"), ft_batch, "finetune",
+                                     make_mesh(dp=2, sp=2))
+    _, out["pt_dp2_sp2"] = step_case(cfg_pt, load("pt.pkl"), pt_batch, "pretrain",
+                                     make_mesh(dp=2, sp=2))
+    out["trainer_dp2_sp2"] = trainer_case(cfg_ft, load("ft.pkl"), ft_batch, workdir,
+                                          "trainer_dp2_sp2", dp=2, sp=2)
+
+
+def pipeline_part(out, load, workdir):
+    dec_tree = load("dec.pkl")
+    out["pipe"] = {c: pipe_case(*c) for c in PIPE}
+    out["pipe_f64"] = pipe_case(1, 4, 8, seed=1, dtype=np.float64)
+    out["pipe_grads"] = pipe_case(1, 4, 4, seed=2, grads=True)
+    w, b, h, scale = toy(4, L=6)
+    try:
+        P.pipeline_scan(toy_block, [dict(w=torch.tensor(x), b=torch.tensor(y)) for x, y in
+                                    zip(w, b)], torch.tensor(h), dict(scale=torch.tensor(scale)),
+                        group=D.pipe_group(make_mesh(dp=1, pp=4))[0])
+        out["layer_guard"] = None
+    except ValueError as e:
+        out["layer_guard"] = str(e)
+
+    rng = np.random.default_rng(5)
+    embeds8 = rng.normal(size=(8, 32, 64)).astype(np.float32)
+    lengths8 = np.array([32] * 7 + [20], np.int32)
+    dec, pipe = dec_pp_decoder(dec_tree, make_mesh(dp=1, pp=4))
+    sends = D.p2p_sends
+    with torch.no_grad():
+        logits = dec(torch.tensor(embeds8), kv_lengths=torch.tensor(lengths8),
+                     use_kernel=False)["logits"]
+    out["dec_pp4"] = dict(logits=logits, p2p=D.p2p_sends - sends,
+                          held=sum(p.untyped_storage().nbytes() > 0 for p in dec.parameters()),
+                          stage=pipe.rank)
+    # both axes at once: each stage's seq ranks pipeline their rows
+    mesh = make_mesh(sp=2, pp=2)
+    dec, pipe = dec_pp_decoder(dec_tree, mesh)
+    dec.seq = S.sequence_parallel(mesh)
+    tr = dec.seq.rows(32)
+    sends = D.p2p_sends
+    with torch.no_grad():
+        logits = dec(torch.tensor(embeds8[:4, tr]), kv_lengths=torch.tensor(lengths8[:4]),
+                     use_kernel=False)["logits"]
+    out["dec_sp2_pp2"] = dict(logits=logits, rows=(0, 4, tr.start, tr.stop),
+                              p2p=D.p2p_sends - sends, stage=pipe.rank)
+    rng = np.random.default_rng(6)
+    embeds4 = rng.normal(size=(4, 32, 64)).astype(np.float32)
+    mesh = make_mesh(dp=2, pp=2)
+    dec, pipe = dec_pp_decoder(load("dec_remat.pkl"), mesh)
+    br = _rows(mesh, 4)
+    e = torch.tensor(embeds4[br]).requires_grad_(True)
+    sends = D.p2p_sends
+    lg = dec(e, remat=True, remat_policy="save_gate", use_kernel=False)["logits"]
+    (lg.square().sum() / (4 * lg.shape[1] * lg.shape[2])).backward()
+    out["dec_pp_remat"] = dict(rows=(br.start, br.stop), grad=e.grad, p2p=D.p2p_sends - sends)
+
+    # -- the train steps -----------------------------------------------------
+    cfg_ft = tconfig.tiny_test_vlm(distill=False)
+    cfg_pt = tconfig.tiny_test_vlm(distill=True)
+    ft_tree, pt_tree = load("ft.pkl"), load("pt.pkl")
+    ft_batch = dict(np.load(os.path.join(workdir, "ft.npz")))
+    pt_batch = dict(np.load(os.path.join(workdir, "pt.npz")))
+
+    _, out["ft_pp2_tp2"] = step_case(cfg_ft, ft_tree, ft_batch, "finetune", make_mesh(tp=2, pp=2))
+    # from_jax_params(pp=) holds the stage's blocks; whole_params gathers them back
+    mesh = make_mesh(dp=2, pp=2)
+    model = from_jax_params(ft_tree, cfg_ft, device="cpu",
+                            pp=P.pipe_parallel(mesh, cfg_ft.decoder.num_layers))
+    whole = P.whole_params(model)
+    out["whole_params"] = ({n: t.clone() for n, t in whole.items()} if D.process_index() == 0
+                           else None)
+    out["held_blocks"] = sorted({int(n.split(".")[2]) for n, p in model.named_parameters()
+                                 if n.startswith("decoder.blocks.")
+                                 and p.untyped_storage().nbytes() > 0})
+    del model, whole
+    zstep, out["ft_dp2_pp2_zero"] = step_case(cfg_ft, ft_tree, ft_batch, "finetune",
+                                              make_mesh(dp=2, pp=2), zero_params=True,
+                                              zero_min_size=1024)
+    out["ft_dp2_pp2_zero"]["shard_bytes"] = zstep.sharded.shard_bytes
+    mgr = CheckpointManager(os.path.join(workdir, "ckpt"))
+    mgr.save(STEPS, zstep, cfg_ft)
+    mesh = make_mesh(dp=2, pp=2)
+    back = tts.make_train_step(cfg_ft, OptimizerConfig(**OPT, stage="finetune"), from_jax_params(
+        ft_tree, cfg_ft, device="cpu", pp=P.pipe_parallel(mesh, cfg_ft.decoder.num_layers)),
+        mesh=mesh, zero_params=True, zero_min_size=1024)
+    mgr.restore(back)
+    restored = back.state_tensors()
+    saved = {k: v.detach().clone() for k, v in zstep.state_tensors().items()}
+    out["restore_pp2"] = dict(step=back.step, equal=sorted(saved) == sorted(restored) and all(
+        torch.equal(saved[k], restored[k]) for k in saved))
+    del zstep, back
+    _, out["pt_dp2_pp2"] = step_case(cfg_pt, pt_tree, pt_batch, "pretrain", make_mesh(dp=2, pp=2))
+    out["trainer_dp2_pp2"] = trainer_case(cfg_ft, ft_tree, ft_batch, workdir, "trainer_dp2_pp2",
+                                          dp=2, pp=2)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], sys.argv[2])

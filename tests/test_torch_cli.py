@@ -228,6 +228,10 @@ VIZ_MODULES = (
     "models/genpipe/schedulers.py", "models/genpipe/clip_text.py", "models/genpipe/unet.py",
     "models/genpipe/vae.py", "models/genpipe/pipeline.py",
 )
+# the multi-process slices' modules: one for each file of visper_lm_tpu/parallel,
+# and tensor parallelism (GSPMD's work in JAX)
+PARALLEL_MODULES = tuple(f"parallel/{name}.py" for name in (
+    "__init__", "distributed", "mesh", "pipeline", "sequence", "sharding", "tensor"))
 # the evaluation slice's modules: one for each file of visper_lm_tpu/eval
 EVAL_MODULES = tuple(f"eval/{name}.py" for name in (
     "__init__", "caption_metrics", "cmmmu", "cvbench", "fid", "grounding_tasks", "harness",
@@ -262,7 +266,7 @@ def test_no_module_level_import_of_jax_pil_safetensors_or_transformers():
     import inside functions)."""
     paths = _port_paths()
     assert len(paths) > 68
-    for rel in VIZ_MODULES + EVAL_MODULES:
+    for rel in VIZ_MODULES + EVAL_MODULES + PARALLEL_MODULES:
         assert os.path.join(REPO, "visper_lm_tpu_torch", rel) in paths, rel
     for path in paths:
         bad = [n for n in _module_level_imports(path) if n in BANNED]
@@ -278,8 +282,8 @@ def _port_paths():
 
 def test_no_import_of_jax_anywhere():
     """No import of JAX or the JAX package at any depth (inside functions
-    too) in the port and chip_smoke.py; the eval package has a twin of every
-    module of visper_lm_tpu/eval."""
+    too) in the port and chip_smoke.py; the eval and parallel packages have a
+    twin of every module of visper_lm_tpu/eval and visper_lm_tpu/parallel."""
     import ast
 
     paths = _port_paths()
@@ -297,3 +301,8 @@ def test_no_import_of_jax_anywhere():
     jax_eval = sorted(f for f in os.listdir(os.path.join(REPO, "visper_lm_tpu", "eval"))
                       if f.endswith(".py"))
     assert sorted(os.path.basename(m) for m in EVAL_MODULES) == jax_eval
+    jax_parallel = {f for f in os.listdir(os.path.join(REPO, "visper_lm_tpu", "parallel"))
+                    if f.endswith(".py")}
+    assert jax_parallel <= {os.path.basename(m) for m in PARALLEL_MODULES}
+    for rel in PARALLEL_MODULES:
+        assert os.path.join(REPO, "visper_lm_tpu_torch", rel) in paths, rel

@@ -1,0 +1,305 @@
+"""Pipeline parallelism in the port (visper_lm_tpu_torch/parallel/pipeline.py,
+the 'pipe' mesh axis, the decoder's stages, `from_jax_params(..., pp=)`,
+the optimizer's norm over the stages, the step and its checkpoints) on four
+gloo ranks on the CPU, against the JAX package on the same numpy inputs:
+the cases of tests/test_pipeline_parallel.py, at its bounds.
+
+One spawn of tests/_torch_sp_pp_worker.py (part "pp": four processes from
+the VISPER_* environment, a free port, its own timeout) runs every
+multi-rank case while JAX computes its references here:
+
+  1. `pipeline_scan` on JAX's toy blocks at (dp, pp, m) in {(1, 4, 4),
+     (2, 2, 2), (1, 4, 8)} (four ranks: m 8 over 4 stages stands in for
+     JAX's (2, 4, 8) and (1, 8, 8)) against the plain scan (1e-4), with the
+     point-to-point sends each stage made;
+  2. the schedule in f64, exact to 1e-12 against the plain loop in numpy
+     (a wrong microbatch, layer range or collected bubble is an O(1) error);
+  3. the gradients of sum(sin(out)) to the blocks and to h at pp 4 against
+     JAX's (1e-4): one copy of the loss, not the sum over the stages;
+  4. pp = 1 falls through to the plain loop, and L % S raises;
+  5. `Decoder.forward` at dp 1 x pp 4 with ragged kv_lengths against JAX's
+     single-device logits (2e-4), the pipeline engaged (sends counted) and
+     each stage holding its own block only; remat + save_gate at dp 2 x pp
+     2: the gradient of mean(logits^2) to the embeddings (2e-4);
+  6. the finetune step at pp 2 x tp 2 and at dp 2 x pp 2 with zero_params,
+     and the PT step at dp 2 x pp 2 (taps: the foreign blocks gathered
+     around the plain loop), against JAX's single-device step: metrics of 3
+     updates (rtol 1e-5), the whole state after them (atol 2e-5 / rtol 1e-4);
+  7. a checkpoint saved at dp 2 x pp 2 is one device's files: restored at
+     dp 2 x pp 2 in the ranks and at pp 1 here, bit-true.
+"""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from visper_lm_tpu import config as jconfig
+from visper_lm_tpu.models.decoder import decoder_forward
+
+from visper_lm_tpu_torch import config as tconfig
+from visper_lm_tpu_torch.parallel import pipeline as P
+from visper_lm_tpu_torch.train import optimizer as topt
+from visper_lm_tpu_torch.train import train_step as tts
+from visper_lm_tpu_torch.train.checkpoint import CheckpointManager
+from visper_lm_tpu_torch.weights import from_jax_params
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import _torch_sp_pp_common as C  # noqa: E402
+from _torch_sp_pp_worker import OPT, PIPE, STEPS, toy, toy_block  # noqa: E402
+
+torch.set_num_threads(2)
+
+
+def _jblock(blk, hh, scale):
+    return hh + jnp.tanh(hh @ blk["w"] + blk["b"]) * scale
+
+
+def _jscan(w, b, h, scale):
+    def body(hh, blk):
+        return _jblock(blk, hh, scale), None
+
+    return jax.lax.scan(body, h, {"w": w, "b": b})[0]
+
+
+def _refs(trees, batches):
+    w, b, h, scale = (jnp.asarray(x) for x in toy(0))
+    out = dict(scan=np.asarray(_jscan(w, b, h, scale)))
+    w, b, h, scale = (jnp.asarray(x) for x in toy(2))
+    gw, gh = jax.grad(lambda w_, h_: jnp.sum(jnp.sin(_jscan(w_, b, h_, scale))),
+                      argnums=(0, 1))(w, h)
+    out.update(grad_w=np.asarray(gw), grad_h=np.asarray(gh))
+    dcfg = jconfig.tiny_test_vlm(distill=False).decoder
+    rng = np.random.default_rng(5)
+    e8 = jnp.asarray(rng.normal(size=(8, 32, 64)).astype(np.float32))
+    lengths = jnp.asarray([32] * 7 + [20], jnp.int32)
+    out["dec_pp4"] = np.asarray(jax.jit(lambda p, e: decoder_forward(
+        p, dcfg, e, kv_lengths=lengths, use_pallas=False)["logits"])(trees["dec"], e8))
+    out["dec_sp2_pp2"] = np.asarray(jax.jit(lambda p, e: decoder_forward(
+        p, dcfg, e, kv_lengths=lengths[:4], use_pallas=False)["logits"])(trees["dec"], e8[:4]))
+    e4 = jnp.asarray(np.random.default_rng(6).normal(size=(4, 32, 64)).astype(np.float32))
+
+    def loss(e):
+        lg = decoder_forward(trees["dec_remat"], dcfg, e, remat=True, remat_policy="save_gate",
+                             use_pallas=False)["logits"]
+        return jnp.mean(jnp.square(lg))
+
+    out["dec_pp_remat"] = np.asarray(jax.jit(jax.grad(loss))(e4))
+    out.update(C.step_refs(trees, batches, pt=True))
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    ranks, ref, workdir = C.run(tmp_path_factory, "pp", _refs)
+    return dict(ranks=ranks, ref=ref, workdir=workdir)
+
+
+def _rows(records, key, n):
+    """The data ranks' rows of `key` (each record's (b0, b1)), once each."""
+    out = [None] * n
+    for rec in records:
+        b0, b1 = rec["rows"]
+        part = np.asarray(rec[key])
+        for i in range(b0, b1):
+            assert out[i] is None or np.array_equal(out[i], part[i - b0])
+            out[i] = part[i - b0]
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("case", PIPE, ids=[f"dp{a}-pp{b}-m{c}" for a, b, c in PIPE])
+def test_pipeline_matches_scan(runs, case):
+    """Every stage returns the last stage's result: the plain scan's."""
+    recs = [r["pipe"][case] for r in runs["ranks"]]
+    got = _rows(recs, "out", 8)
+    np.testing.assert_allclose(got, runs["ref"]["scan"], rtol=1e-4, atol=1e-4)
+    dp, pp, m = case
+    for r in recs:
+        # one send a microbatch from every stage but the last
+        assert r["p2p"] == (m if r["stage"] < pp - 1 else 0)
+
+
+def test_schedule_exact_f64(runs):
+    """f64: the pipeline is the plain loop to 1e-12; any off-by-one in the
+    schedule would be an O(1) difference."""
+    w, b, h, scale = toy(1, dtype=np.float64)
+    ref = h
+    for i in range(w.shape[0]):
+        ref = ref + np.tanh(ref @ w[i] + b[i]) * scale
+    for r in runs["ranks"]:
+        got = r["pipe_f64"]["out"]
+        assert got.dtype == torch.float64
+        assert float(np.abs(got.numpy() - ref).max()) < 1e-12
+
+
+def test_pipeline_gradients_match(runs):
+    """The reversed schedule: each stage's blocks' gradients and h's (the
+    same on every stage) are JAX's gradients of ONE copy of the loss."""
+    recs = [r["pipe_grads"] for r in runs["ranks"]]
+    seen = {}
+    for r in recs:
+        np.testing.assert_allclose(r["dh"].numpy(), runs["ref"]["grad_h"], rtol=1e-4, atol=1e-4)
+        seen.update(r["dw"])
+    assert sorted(seen) == list(range(8))
+    for i, g in seen.items():
+        np.testing.assert_allclose(g.numpy(), runs["ref"]["grad_w"][i], rtol=1e-4, atol=1e-4)
+
+
+def test_pp1_falls_through_to_scan():
+    """Without a process group (or a pipe axis of one) it is the plain loop."""
+    w, b, h, scale = toy(3)
+    blocks = [dict(w=torch.tensor(w[i]), b=torch.tensor(b[i])) for i in range(8)]
+    got = P.pipeline_scan(toy_block, blocks, torch.tensor(h), dict(scale=torch.tensor(scale)),
+                          group=None)
+    ref = _jscan(*(jnp.asarray(x) for x in (w, b, h, scale)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
+    from visper_lm_tpu_torch.parallel.mesh import make_mesh
+
+    assert P.pipe_parallel(make_mesh(dp=1, tp=1, world=1), 4) is None
+
+
+def test_layer_divisibility_guard(runs):
+    """6 layers over 4 stages raise ValueError on every rank (JAX's guard)."""
+    for r in runs["ranks"]:
+        assert r["layer_guard"] and "layers (6) % pipe stages (4)" in r["layer_guard"]
+
+
+def test_decoder_forward_under_pipe_mesh_matches_single_device(runs):
+    """dp 1 x pp 4, B 8, ragged kv_lengths: each stage holds its own block
+    only, the pipeline ENGAGES (8 microbatches: stages 0-2 send 8
+    activations each; numbers alone could hide a plain loop), and every
+    stage returns JAX's single-device logits."""
+    per_block = 9                      # two norms and seven linears
+    for r in runs["ranks"]:
+        rec = r["dec_pp4"]
+        np.testing.assert_allclose(rec["logits"].numpy(), runs["ref"]["dec_pp4"], rtol=2e-4,
+                                   atol=2e-4)
+        assert rec["p2p"] == (8 if rec["stage"] < 3 else 0)
+        # the embedding, the final norm, the lm head and the stage's one block
+        assert rec["held"] == 3 + per_block
+
+
+def test_decoder_forward_under_seq_and_pipe_axes_matches_single_device(runs):
+    """sp 2 x pp 2: each stage's two seq ranks pipeline their rows (the ring
+    or Ulysses inside each block, the activations sent between the stages):
+    the rows put together are JAX's logits."""
+    ref = runs["ref"]["dec_sp2_pp2"]
+    got = np.full(ref.shape, np.nan, np.float32)
+    for r in runs["ranks"]:
+        rec = r["dec_sp2_pp2"]
+        b0, b1, t0, t1 = rec["rows"]
+        got[b0:b1, t0:t1] = rec["logits"].numpy()
+        # 4 microbatches of 1 sent by stage 0 (Ulysses inside: no sends)
+        assert rec["p2p"] == (4 if rec["stage"] == 0 else 0)
+    assert not np.isnan(got).any()
+    np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4)
+
+
+def test_decoder_pipeline_with_remat_matches(runs):
+    """remat + save_gate inside the pipeline (dp 2 x pp 2): the gradient of
+    mean(logits^2) to the embeddings, rows of both data ranks."""
+    recs = [r["dec_pp_remat"] for r in runs["ranks"]]
+    got = _rows(recs, "grad", 4)
+    np.testing.assert_allclose(got, runs["ref"]["dec_pp_remat"], rtol=2e-4, atol=2e-4)
+    assert all(r["p2p"] > 0 for r in recs)
+
+
+@pytest.mark.parametrize("name", ["ft_pp2_tp2", "ft_dp2_pp2_zero"])
+def test_finetune_step_at_pp2_matches_jax(runs, name):
+    """The finetune stage trains every block, each on its stage: the
+    pipelined step's metrics and the whole state after 3 updates equal
+    JAX's single-device step's; each rank holds its own stage's blocks."""
+    recs = [r[name] for r in runs["ranks"]]
+    ref = runs["ref"]["ft"]
+    for r in recs:
+        C.check_metrics(r["metrics"], ref["metrics"])
+        assert r["metrics"] == recs[0]["metrics"]
+        # stage 0 sends activations forward, stage 1 gradients back
+        assert all(s > 0 for s in r["p2p"])
+    stages = sorted({tuple(r["held_blocks"]) for r in recs})
+    assert stages == [(0, 1), (2, 3)]
+    assert recs[0]["metrics"][2]["loss"] != recs[0]["metrics"][1]["loss"]
+    state = recs[0]["state"]
+    n = C.check_params(state, ref["params"])
+    assert n > recs[0]["trainable"] and all(r["keys"] == recs[0]["keys"] for r in recs)
+    if name == "ft_dp2_pp2_zero":
+        assert all(r["shard_bytes"] > 0 for r in recs)
+
+
+def test_from_jax_params_holds_the_stage_and_gathers_back(runs):
+    """`from_jax_params(..., pp=)` copies the stage's own blocks only (the
+    others have no storage); `whole_params` gathers every block from its
+    owner: the one-process model's parameters, bit for bit."""
+    # dp 2 x pp 2, 'pipe' inside 'data': ranks 0 and 2 are stage 0, ranks 1 and 3 stage 1
+    assert [r["held_blocks"] for r in runs["ranks"]] == [[0, 1], [2, 3], [0, 1], [2, 3]]
+    import pickle
+
+    with open(runs["workdir"] / "ft.pkl", "rb") as f:
+        tree = pickle.load(f)
+    want = from_jax_params(tree, tconfig.tiny_test_vlm(distill=False), device="cpu")
+    whole = runs["ranks"][0]["whole_params"]
+    assert sorted(whole) == sorted(n for n, _ in want.named_parameters())
+    for n, p in want.named_parameters():
+        assert torch.equal(whole[n], p.detach()), n
+
+
+def test_pt_step_at_pp2_matches_jax(runs):
+    """PT taps the decoder: JAX does not pipeline it, and the port runs the
+    plain loop with each foreign block gathered from its owner: JAX's
+    single-device step, with no activation sent point to point."""
+    recs = [r["pt_dp2_pp2"] for r in runs["ranks"]]
+    ref = runs["ref"]["pt"]
+    for r in recs:
+        C.check_metrics(r["metrics"], ref["metrics"])
+        assert r["p2p"] == [0] * STEPS
+    assert recs[0]["metrics"][2]["loss"] != recs[0]["metrics"][1]["loss"]
+    assert C.check_params(recs[0]["state"], ref["params"]) == recs[0]["trainable"]
+
+
+def test_checkpoint_at_pp2_restores_at_pp1(runs):
+    """The coordinator wrote one device's files, the stages gathered: the
+    ranks restored them at dp 2 x pp 2, and one process restores them here
+    at pp 1, bit-true."""
+    for r in runs["ranks"]:
+        assert r["restore_pp2"] == dict(step=STEPS, equal=True)
+    mgr = CheckpointManager(str(runs["workdir"] / "ckpt"))
+    assert mgr.steps() == [STEPS]
+    import pickle
+
+    with open(runs["workdir"] / "ft.pkl", "rb") as f:
+        tree = pickle.load(f)
+    cfg = tconfig.tiny_test_vlm(distill=False)
+    step = tts.make_train_step(cfg, topt.OptimizerConfig(**OPT, stage="finetune"),
+                               from_jax_params(tree, cfg, device="cpu"))
+    mgr.restore(step)
+    assert step.step == STEPS
+    saved = runs["ranks"][0]["ft_dp2_pp2_zero"]["state"]
+    got = step.state_tensors()
+    assert sorted(got) == sorted(saved)
+    for k, v in saved.items():
+        assert torch.equal(got[k].detach(), v), k
+
+
+def test_trainer_at_dp2_pp2_logs_once_and_ranks_agree(runs):
+    """`trainer.train(TrainerConfig(dp=2, pp=2))`: every rank at step 2 with
+    the same metrics, the step's own (the same batch as ft_dp2_pp2_zero's first
+    two updates); only the coordinator wrote metrics.jsonl and the
+    checkpoint."""
+    import json
+
+    recs = [r["trainer_dp2_pp2"] for r in runs["ranks"]]
+    out = runs["workdir"] / "trainer_dp2_pp2"
+    with open(out / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    assert [r["step"] for r in rows] == [1, 2]
+    assert sorted(os.listdir(out / "checkpoints")) == ["2"]
+    want = runs["ranks"][0]["ft_dp2_pp2_zero"]["metrics"]
+    for r in recs:
+        assert r["step"] == 2 and r["metrics"] == recs[0]["metrics"]
+    for row, m in zip(rows, want):
+        np.testing.assert_allclose(row["loss"], m["loss"], rtol=1e-6)

@@ -7,8 +7,7 @@ one per sample (`write_cache_chunk`), quantized serving weights
 (`quantize_decoder`: w8a16 or w4a16 `QuantLinear`s), per-channel activation
 statistics for AWQ calibration, and layer taps for the distillation heads in
 training. The JAX layer `lax.scan` over stacked blocks becomes a Python loop
-over an `nn.ModuleList`; MoE and the pipelined stack are later-slice
-machinery and are not here.
+over an `nn.ModuleList`; MoE is later-slice machinery and is not here.
 
 LoRA (`Decoder.forward(lora=...)`, JAX `_lora_linear`): the factors of each
 targeted linear, (A, B scaled) stacked over the layers (models/lora.py),
@@ -37,6 +36,20 @@ outputs `reduce_from_group`. The lookup is `Decoder.embed` (vocab-parallel
 under tp), `Decoder.logits` gathers the vocabulary unless the loss asks for
 the rank's block, and a cache holds the local kv heads (`init_kv_cache(...,
 tp=)`).
+
+Sequence parallelism (`Decoder.seq`, parallel/sequence.py, carried as `tp`
+is): the rank holds its T/sp rows of `inputs_embeds` through the whole
+stack, rope takes the rows' global positions, `kv_lengths` / `kv_starts`
+stay global, and attention goes through Ulysses or the ring
+(`multi_head_attention(seq=)`); the taps, `hidden` and the logits are the
+rank's rows. A cache raises: serving is not sequence parallel.
+
+Pipeline parallelism (`Decoder.pipe`, parallel/pipeline.py): the rank owns
+its stage's blocks. A call JAX pipelines (no taps, no cache, an int
+q_offset, B and L dividing by the stages: `_maybe_pipelined_stack`) runs
+`pipeline_scan` over microbatches (JAX's `n_micro` rule), each block
+rematerialised as the plain loop's is; any other call runs the plain loop,
+each foreign block gathered from its owner around its use.
 """
 
 from __future__ import annotations
@@ -319,6 +332,7 @@ class DecoderBlock(nn.Module):
         stash: Optional[_Stash] = None,
         quant_saves: bool = False,
         lora: Optional[Mapping[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
+        seq=None,
     ) -> torch.Tensor:
         """JAX `_block_forward`. With a cache, the chunk's K/V are written into
         the cache IN PLACE at slots [q_offset, q_offset + T) (per sample for a
@@ -330,7 +344,8 @@ class DecoderBlock(nn.Module):
         stash: the remat policy's kept tensors (see the module docstring);
         quant_saves: gate and up pass through `quant_saved` /
         `dequant_saved` (the save_mlp_q8 policy); lora: this layer's
-        {target: (A (din, r), B scaled (r, dout))}."""
+        {target: (A (din, r), B scaled (r, dout))}; seq: the decoder's
+        sequence-parallel group (h is the rank's rows)."""
         cfg = self.cfg
         b, t, _ = h.shape
         tp = self.tp
@@ -383,6 +398,7 @@ class DecoderBlock(nn.Module):
                 q, k, v, causal=True, q_offset=q_offset, kv_lengths=kv_lengths,
                 kv_starts=kv_starts, use_kernel=use_kernel,
                 saved=stash.values.setdefault("flash_out", []) if "flash_out" in keeps else None,
+                seq=seq,
             )
         if cache_kv is not None:
             kt, vt = k.transpose(0, 1), v.transpose(0, 1)     # slot-major (T, B, Nkv, H)
@@ -451,6 +467,11 @@ class Decoder(nn.Module):
         # the 'model' placement of each split parameter (by name in the decoder)
         self.tp = None
         self.tp_plan: Dict[str, Any] = {}
+        # the sequence-parallel group (parallel/sequence.SequenceParallel):
+        # inputs_embeds are the rank's rows
+        self.seq = None
+        # set by parallel/pipeline.shard_pipeline: the rank's pipeline stage
+        self.pipe = None
 
     def embed(self, ids: torch.Tensor) -> torch.Tensor:
         """The token embeddings of `ids` (vocab-parallel under tp)."""
@@ -523,30 +544,68 @@ class Decoder(nn.Module):
                 raise ValueError(f"tap layers {tap_layers} out of range for {cfg.num_layers} layers")
             if cache is not None:
                 raise ValueError("layer taps are a training/prefill feature (no cache)")
+        seq, pipe = self.seq, self.pipe
+        if seq is not None and cache is not None:
+            raise ValueError("a cache under sequence parallelism: serving runs whole sequences "
+                             "on each rank, not the rank's rows")
+        if lora is not None and pipe is not None:
+            from visper_lm_tpu_torch.parallel.pipeline import LATER as PIPE_LATER
+
+            raise NotImplementedError(f"the LoRA side path under pipeline parallelism {PIPE_LATER}")
         if positions is None:
-            positions = torch.arange(t, device=inputs_embeds.device) + (
-                q_offset if isinstance(q_offset, int) else q_offset.reshape(-1, 1))
+            rows = (torch.arange(t, device=inputs_embeds.device) if seq is None
+                    else seq.positions(t, inputs_embeds.device))
+            positions = rows + (q_offset if isinstance(q_offset, int) else q_offset.reshape(-1, 1))
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
         if cos.ndim == 2:
             cos, sin = cos[None], sin[None]
-        h = inputs_embeds
-        taps = {}
-        for i, block in enumerate(self.blocks):
+        zero3 = self.zero3
+
+        def run(i: int, h: torch.Tensor, kv_lengths, kv_starts, cos, sin, cache_kv=None):
+            """Block i, its parameters whole around it: ZeRO-3's gathered
+            first, then (a plain loop under a pipeline) a foreign block's
+            from its owner; the backward gathers them in the same order."""
+            block = self.blocks[i]
             kw = dict(kv_lengths=kv_lengths, kv_starts=kv_starts, q_offset=q_offset,
-                      cache_kv=None if cache is None else cache.layer(i),
-                      use_kernel=use_kernel, quant_saves=quant_saves,
-                      lora=None if lora is None else {n: (a[i], b[i]) for n, (a, b) in lora.items()})
-            if self.zero3 is not None:
-                h = self.zero3.enter(i, h)
+                      cache_kv=cache_kv, use_kernel=use_kernel, quant_saves=quant_saves,
+                      lora=None if lora is None else {n: (a[i], b[i]) for n, (a, b) in lora.items()},
+                      seq=seq)
+            gathers = [g for g in (zero3, None if pipelined else pipe) if g is not None]
+            for g in gathers:
+                h = g.enter(i, h)
             if remat and torch.is_grad_enabled():
                 h = checkpoint(block, h, cos, sin, stash=_Stash(saves), **kw,
                                use_reentrant=False, preserve_rng_state=False)
             else:
                 h = block(h, cos, sin, **kw)
-            if self.zero3 is not None:
-                h = self.zero3.leave(i, h)
-            if i in tap_layers:
-                taps[i] = h
+            for g in reversed(gathers):
+                h = g.leave(i, h)
+            return h
+
+        h = inputs_embeds
+        taps = {}
+        b = inputs_embeds.shape[0]
+        # JAX `_maybe_pipelined_stack`'s predicate
+        pipelined = (pipe is not None and pipe.size > 1 and not tap_layers and cache is None
+                     and cfg.num_layers % pipe.size == 0 and b % pipe.size == 0
+                     and isinstance(q_offset, int))
+        if pipelined:
+            from visper_lm_tpu_torch.parallel.pipeline import n_micro_for, pipeline_scan
+
+            def pipe_block(i, hh, a):
+                return run(i, hh, a["kv_lengths"], a["kv_starts"], a["cos"], a["sin"])
+
+            params = [p for i in pipe.layers for p in self.blocks[i].parameters()
+                      if p.requires_grad]
+            h = pipeline_scan(pipe_block, list(range(cfg.num_layers)), h,
+                              dict(cos=cos, sin=sin, kv_lengths=kv_lengths, kv_starts=kv_starts),
+                              group=pipe.group, n_micro=n_micro_for(b, pipe.size), params=params)
+        else:
+            for i in range(cfg.num_layers):
+                h = run(i, h, kv_lengths, kv_starts, cos, sin,
+                        None if cache is None else cache.layer(i))
+                if i in tap_layers:
+                    taps[i] = h
         hidden = self.final_norm(h)
         out: Dict[str, object] = {
             "hidden": hidden, "cache": cache, "taps": tuple(taps[i] for i in tap_layers),

@@ -37,6 +37,12 @@ from visper_lm_tpu_torch.models.lora import build_lora, init_lora_, lora_side_fa
 from visper_lm_tpu_torch.models.projector import Projector
 from visper_lm_tpu_torch.models.resampler import Resampler
 from visper_lm_tpu_torch.models.vit import VisionTower, clip_tower_features, init_tower_
+from visper_lm_tpu_torch.parallel.pipeline import (
+    foreign_blocks_detached,
+    materialize_foreign,
+    shard_pipeline,
+)
+from visper_lm_tpu_torch.parallel.sequence import local_rows
 from visper_lm_tpu_torch.parallel.tensor import model_placements, shard_model
 from visper_lm_tpu_torch.utils.param import init_weights_, torch_dtype
 
@@ -106,7 +112,7 @@ class VLM(nn.Module):
 
 def init_vlm(
     cfg: VLMConfig, *, device: Optional[Union[str, torch.device]] = None, seed: int = 0,
-    tp=None,
+    tp=None, pp=None,
 ) -> VLM:
     """JAX `init_vlm`, with seeded random weights made on `device` (CUDA when
     None) by a torch.Generator: the JAX distributions, not its numbers.
@@ -115,11 +121,18 @@ def init_vlm(
     cut on the meta device (`shard_model`); each split parameter is drawn
     whole, one at a time, in the one-device order, and only the rank's slice
     is kept: the same numbers as the whole model's, and never the whole
-    decoder on the device."""
+    decoder on the device.
+
+    pp (a parallel/pipeline.PipeParallel): the stage's form, cut on the
+    meta device (`shard_pipeline`): the blocks another stage owns are never
+    allocated (drawn one tensor at a time and dropped, so the stage's own
+    blocks get the whole model's numbers)."""
     device = resolve_device(device)
     with torch.device("meta"):
-        model = shard_model(VLM(cfg), tp)
-    model = model.to_empty(device=device)
+        model = shard_pipeline(shard_model(VLM(cfg), tp), pp)
+    with foreign_blocks_detached(model):
+        model = model.to_empty(device=device)
+    materialize_foreign(model, device)
     gen = torch.Generator(device=device).manual_seed(seed)
     plan = model_placements(model)
     whole = {id(model.get_parameter(n)): (pl, tp.rank) for n, pl in plan.items()}
@@ -231,7 +244,10 @@ def vlm_forward(
     """JAX `vlm_forward` (training / prefill). batch: images (B,H,W,3) or
     image_features, text_ids, token_type, src_index, seq_lengths (right
     padding: the attention masks keys >= seq_lengths). remat / remat_policy
-    go to the decoder (`Decoder.forward`)."""
+    go to the decoder (`Decoder.forward`). Under sequence parallelism (the
+    decoder's `seq`) the splice runs whole on every rank, and the decoder
+    takes the rank's rows of it (a differentiable slice): its hidden
+    states, logits and taps are the rank's rows."""
     if "image_features" in batch:
         image_features = batch["image_features"]
     else:
@@ -240,6 +256,7 @@ def vlm_forward(
         model, batch["text_ids"].long(), batch["token_type"], batch["src_index"].long(),
         image_features,
     )
+    embeds = local_rows(embeds, model.decoder.seq)
     taps = tap_layer_union(cfg) if tap else ()
     out = model.decoder(
         embeds, kv_lengths=batch.get("seq_lengths"), tap_layers=taps,

@@ -8,13 +8,17 @@
   * `multi_head_attention` — sends eligible self-attention on CUDA tensors to
     the hand-written flash kernel (ops/flash_attention.py), everything else
     to `mha_plain`, with the JAX package's eligibility predicate; an eligible
-    CUDA call that the kernels do not take (`flash_remainder`) raises.
+    CUDA call that the kernels do not take (`flash_remainder`) raises. Under
+    sequence parallelism (`seq`, the decoder's group: JAX routes on the
+    ambient mesh's 'seq' axis) self-attention at offset 0 goes through
+    Ulysses when the heads divide sp and through the ring otherwise
+    (parallel/sequence.py); any other call raises, as attending over the
+    rank's rows alone would be wrong.
 
 Shapes follow the "BTNH" convention: q (B, T, Nq, H), k/v (B, S, Nkv, H).
 Dot products run on operands rounded to the working dtype and accumulate in
 f32, as the JAX code's `preferred_element_type=f32` does; bf16 products are
-exact in f32, so upcasting the rounded operands gives the same sums. Mesh,
-Ulysses and ring routing are not carried over (one card).
+exact in f32, so upcasting the rounded operands gives the same sums.
 """
 
 from __future__ import annotations
@@ -120,6 +124,7 @@ def multi_head_attention(
     scale: Optional[float] = None,
     use_kernel: Optional[bool] = None,
     saved: Optional[list] = None,
+    seq=None,
 ) -> torch.Tensor:
     """Flash kernel for eligible self-attention on CUDA tensors, plain elsewhere.
 
@@ -137,7 +142,28 @@ def multi_head_attention(
     first call fills it, a later call with the same list returns what it
     holds and launches no forward (`FlashAttention`). The plain path ignores
     it and recomputes.
+
+    seq (a parallel/sequence.SequenceParallel of more than one rank): q, k
+    and v are this rank's rows; JAX's route (T == S, an int q_offset 0)
+    sends the call through `ulysses_attention` when both head counts divide
+    sp, else through `ring_attention`; any other call raises ValueError.
     """
+    if seq is not None and seq.size > 1:
+        from visper_lm_tpu_torch.parallel.sequence import ring_attention, ulysses_attention
+
+        if not (q.shape[1] == k.shape[1] and isinstance(q_offset, int) and q_offset == 0):
+            raise ValueError(
+                "multi_head_attention under sequence parallelism takes self-attention at offset "
+                f"0 only (T {q.shape[1]}, S {k.shape[1]}, q_offset {q_offset!r}); attending over "
+                "the rank's rows alone would be wrong")
+        if q.shape[2] % seq.size == 0 and k.shape[2] % seq.size == 0:
+            return ulysses_attention(q, k, v, seq=seq, causal=causal, kv_lengths=kv_lengths,
+                                     kv_starts=kv_starts, scale=scale, use_kernel=use_kernel,
+                                     saved=saved)
+        # the heads do not divide sp (GQA with few kv heads): the ring keeps
+        # every head and moves the K/V blocks instead
+        return ring_attention(q, k, v, seq=seq, causal=causal, kv_lengths=kv_lengths,
+                              kv_starts=kv_starts, scale=scale)
     if use_kernel is None:
         use_kernel = q.is_cuda
     t, s, head_dim = q.shape[1], k.shape[1], q.shape[-1]

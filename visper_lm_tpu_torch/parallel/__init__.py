@@ -1,10 +1,12 @@
 """The multi-process runtime (counterpart of visper_lm_tpu/parallel/): the
 process grid (`mesh.py`), process groups and the step's collectives
 (`distributed.py`), the ZeRO plans and placements over the data and model
-axes (`sharding.py`), and tensor parallelism (`tensor.py`: Megatron's
-operators, which GSPMD writes for JAX).
+axes (`sharding.py`), tensor parallelism (`tensor.py`: Megatron's
+operators, which GSPMD writes for JAX), sequence parallelism
+(`sequence.py`: Ulysses and the ring) and pipeline parallelism
+(`pipeline.py`: GPipe).
 
-Data parallelism and ZeRO-1/2/3 (ROADMAP A10a) and tensor parallelism
-(A10b) are ported; sequence, pipeline and expert parallelism raise, naming
-the ROADMAP item that brings each (A10c, A10d).
+Data parallelism and ZeRO-1/2/3 (ROADMAP A10a), tensor parallelism (A10b)
+and sequence and pipeline parallelism (A10c) are ported; expert
+parallelism raises, naming the ROADMAP item that brings it (A10d).
 """

@@ -17,14 +17,22 @@ step's collectives itself; they are all here:
     DATA coordinate (`data_shard`), so the tensor-parallel ranks of one
     data group read the same rows;
   * the process groups of the mesh's axes: `data_group` (the ranks that
-    differ only in their data coordinate) and `model_group` (only in their
-    model coordinate: a tensor-parallel group), made once per set of ranks;
+    differ only in their data coordinate), `model_group` (only in their
+    model coordinate: a tensor-parallel group), `seq_group` (a
+    sequence-parallel group) and `pipe_group` (a pipeline's stages), made
+    once per set of ranks;
   * the collectives the step needs: `all_reduce` (a sum or a max), `reduce_scatter` and
     `all_gather` along a dim, `all_gather_autograd` (gradients flow back,
     summed over the ranks), `broadcast` and `reduce`, and the two
     operators of tensor parallelism, `copy_to_group` (identity forward,
     all-reduced gradient) and `reduce_from_group` (all-reduce forward,
-    identity backward). Where a backend does
+    identity backward); for sequence parallelism `all_to_all` (split one
+    dim over the ranks, concatenate another: JAX's tiled
+    `lax.all_to_all`, with `all_to_all_autograd` whose backward is the
+    inverse exchange) and `ring_shift` (every rank's tensor to the next
+    rank of the group, JAX's `ppermute` one hop, with its autograd form);
+    for pipeline parallelism `send` / `recv` to a neighbour (`p2p_sends`
+    counts the sends). Where a backend does
     not run a collective on CUDA tensors, the collective is staged through
     page-locked host memory; `BACKENDS` says which, by the backend's name.
 
@@ -157,9 +165,9 @@ def barrier() -> None:
         dist.barrier()
 
 
-def make_global_mesh(dp: Optional[int] = None, tp: int = 1) -> Mesh:
-    """The ('data', 'model') grid over every process."""
-    return make_mesh(dp=dp, tp=tp, world=process_count())
+def make_global_mesh(dp: Optional[int] = None, tp: int = 1, sp: int = 1, pp: int = 1) -> Mesh:
+    """The ('data', ['pipe',] ['seq',] 'model') grid over every process."""
+    return make_mesh(dp=dp, tp=tp, sp=sp, pp=pp, world=process_count())
 
 
 def _axis_group(mesh: Mesh, ranks_of):
@@ -189,6 +197,19 @@ def model_group(mesh: Mesh):
     axis this process sits on: its tensor-parallel group (the ranks with its
     data coordinate)."""
     return _axis_group(mesh, mesh.model_group_ranks)
+
+
+def seq_group(mesh: Mesh):
+    """(process group, this process's rank in it, its size) of the seq axis
+    this process sits on: its sequence-parallel group (the ranks with its
+    data, pipe and model coordinates; the process alone without the axis)."""
+    return _axis_group(mesh, mesh.seq_group_ranks)
+
+
+def pipe_group(mesh: Mesh):
+    """(process group, this process's rank in it: its stage, its size) of
+    the pipe axis this process sits on (the process alone without the axis)."""
+    return _axis_group(mesh, mesh.pipe_group_ranks)
 
 
 def data_shard(mesh: Optional[Mesh] = None) -> Tuple[int, int]:
@@ -416,3 +437,117 @@ def all_reduce_scalars(values: List[torch.Tensor], group=None) -> List[torch.Ten
     stacked = torch.stack([v.detach().float().reshape(()) for v in values])
     all_reduce(stacked, group)
     return list(stacked.unbind(0))
+
+
+# ---------------------------------------------------------------------------
+# sequence and pipeline parallelism: all-to-all, ring shift, point to point
+# ---------------------------------------------------------------------------
+
+# point-to-point sends made so far (`send`, `ring_shift`): a pipeline that
+# engaged moved activations between stages
+p2p_sends = 0
+
+
+def _global(group, group_rank: int) -> int:
+    return group_rank if group is None else dist.get_global_rank(group, group_rank)
+
+
+def all_to_all(t: torch.Tensor, split_dim: int, concat_dim: int, group=None) -> torch.Tensor:
+    """JAX's tiled `lax.all_to_all`: t cut into the group's size of equal
+    slices along `split_dim`, slice j sent to group rank j, and the slices
+    received concatenated along `concat_dim` in rank order (a new tensor).
+    Layout work stays on t's device; a staged backend moves contiguous bytes."""
+    n = group_size(group)
+    if n == 1:
+        return t.clone()
+    src = torch.stack(t.chunk(n, split_dim), 0).contiguous()
+    staged = _staged(t, group)
+    out = torch.empty(src.shape, dtype=t.dtype, device="cpu" if staged else t.device,
+                      pin_memory=staged)
+    dist.all_to_all_single(out, _host(src) if staged else src, group=group)
+    if staged:
+        out = out.to(t.device)
+    return torch.cat(out.unbind(0), concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return all_to_all(t, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the exchange's transpose: the inverse all-to-all
+        split_dim, concat_dim = ctx.dims
+        return all_to_all(g.contiguous(), concat_dim, split_dim, ctx.group), None, None, None
+
+
+def all_to_all_autograd(t: torch.Tensor, split_dim: int, concat_dim: int,
+                        group=None) -> torch.Tensor:
+    """`all_to_all` through which gradients flow back by the inverse exchange."""
+    return _AllToAll.apply(t, split_dim, concat_dim, group)
+
+
+def broadcast_object(obj: Any, src: int, group=None) -> Any:
+    """A picklable object (host tensors in it) from group rank `src` to
+    every rank of the group; returns it."""
+    objs = [obj]
+    dist.broadcast_object_list(objs, src=_global(group, src), group=group)
+    return objs[0]
+
+
+def send(t: torch.Tensor, dst: int, group=None) -> None:
+    """t to group rank `dst` (blocking; staged through host memory where the
+    backend needs it)."""
+    global p2p_sends
+    p2p_sends += 1
+    dist.send(_host(t.contiguous()) if _staged(t, group) else t.contiguous(),
+              _global(group, dst), group=group)
+
+
+def recv(shape, dtype: torch.dtype, device, src: int, group=None) -> torch.Tensor:
+    """A tensor of `shape` / `dtype` from group rank `src`, on `device`."""
+    dev = torch.device(device)
+    staged = dev.type == "cuda" and not BACKENDS[str(dist.get_backend(group)).lower()]
+    out = torch.empty(tuple(shape), dtype=dtype, device="cpu" if staged else dev,
+                      pin_memory=staged)
+    dist.recv(out, _global(group, src), group=group)
+    return out.to(dev) if staged else out
+
+
+def ring_shift(t: torch.Tensor, group=None, hop: int = 1) -> torch.Tensor:
+    """Every rank's t to group rank (r + hop) mod n; returns what rank
+    (r - hop) mod n sent (JAX's `ppermute` around the ring)."""
+    global p2p_sends
+    n = group_size(group)
+    if n == 1:
+        return t.clone()
+    r = group_rank(group)
+    staged = _staged(t, group)
+    src = _host(t.contiguous()) if staged else t.contiguous()
+    out = torch.empty(t.shape, dtype=t.dtype, device="cpu" if staged else t.device,
+                      pin_memory=staged)
+    ops = [dist.P2POp(dist.isend, src, _global(group, (r + hop) % n), group),
+           dist.P2POp(dist.irecv, out, _global(group, (r - hop) % n), group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    p2p_sends += 1
+    return out.to(t.device) if staged else out
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, hop):
+        ctx.group, ctx.hop = group, hop
+        return ring_shift(t, group, hop)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the transpose of a shift is the shift the other way
+        return ring_shift(g.contiguous(), ctx.group, -ctx.hop), None, None
+
+
+def ring_shift_autograd(t: torch.Tensor, group=None, hop: int = 1) -> torch.Tensor:
+    """`ring_shift` through which gradients flow back around the ring."""
+    return _RingShift.apply(t, group, hop)

@@ -7,10 +7,12 @@ grid: the axis names in JAX's order ('data', 'pipe', 'expert', 'seq',
 'model'), the size of each, and each rank's coordinates. There is no device
 array and no `mesh_utils`.
 
-The data axis (ROADMAP A10a) and the 'model' axis (tensor parallelism,
-A10b) are ported, 'model' innermost as in JAX: the tp ranks of one data
-group are consecutive. A 'seq' (sp), 'pipe' (pp) or 'expert' (ep) axis of
-more than one raises, naming the ROADMAP item that brings it.
+The data axis (ROADMAP A10a), the 'model' axis (tensor parallelism,
+A10b), and the 'seq' (sequence parallelism) and 'pipe' (pipeline
+parallelism) axes (A10c) are ported, in JAX's order: 'model' innermost, so
+the tp ranks of one data group are consecutive, then 'seq', then 'pipe'.
+An 'expert' (ep) axis of more than one raises, naming the ROADMAP item
+that brings it.
 """
 
 from __future__ import annotations
@@ -28,8 +30,6 @@ EXPERT_AXIS = "expert"
 
 # what brings each axis that is not ported yet
 _UNPORTED_AXES = {
-    "sp": "sequence parallelism is ROADMAP queue A, item A10c",
-    "pp": "pipeline parallelism is ROADMAP queue A, item A10c",
     "ep": "expert parallelism is ROADMAP queue A, item A10d",
 }
 
@@ -66,19 +66,42 @@ class Mesh:
             raise ValueError(f"rank {rank} is not in the mesh {self.shape}")
         return dict(zip(self.axis_names, (int(i) for i in where[0])))
 
+    @property
+    def seq_size(self) -> int:
+        return self.shape.get(SEQ_AXIS, 1)
+
+    @property
+    def pipe_size(self) -> int:
+        return self.shape.get(PIPE_AXIS, 1)
+
+    def axis_group_ranks(self, rank: int, axis: str) -> Tuple[int, ...]:
+        """The ranks that share `rank`'s coordinates but for `axis`, in that
+        axis's order (`rank` alone when the mesh has no such axis)."""
+        c = self.coords(rank)
+        if axis not in c:
+            return (int(rank),)
+        index = tuple(slice(None) if a == axis else c[a] for a in self.axis_names)
+        return tuple(int(r) for r in self.ranks[index].reshape(-1))
+
     def data_group_ranks(self, rank: int) -> Tuple[int, ...]:
         """The ranks that share `rank`'s coordinates but for the data axis
         (its data-parallel group), in data order."""
-        c = self.coords(rank)
-        index = tuple(slice(None) if a == DATA_AXIS else c[a] for a in self.axis_names)
-        return tuple(int(r) for r in self.ranks[index].reshape(-1))
+        return self.axis_group_ranks(rank, DATA_AXIS)
 
     def model_group_ranks(self, rank: int) -> Tuple[int, ...]:
         """The ranks that share `rank`'s coordinates but for the model axis
         (its tensor-parallel group), in model order."""
-        c = self.coords(rank)
-        index = tuple(slice(None) if a == MODEL_AXIS else c[a] for a in self.axis_names)
-        return tuple(int(r) for r in self.ranks[index].reshape(-1))
+        return self.axis_group_ranks(rank, MODEL_AXIS)
+
+    def seq_group_ranks(self, rank: int) -> Tuple[int, ...]:
+        """The ranks that share `rank`'s coordinates but for the seq axis
+        (its sequence-parallel group), in seq order."""
+        return self.axis_group_ranks(rank, SEQ_AXIS)
+
+    def pipe_group_ranks(self, rank: int) -> Tuple[int, ...]:
+        """The ranks that share `rank`'s coordinates but for the pipe axis
+        (its pipeline: stage 0 first)."""
+        return self.axis_group_ranks(rank, PIPE_AXIS)
 
 
 def make_mesh(
@@ -90,14 +113,16 @@ def make_mesh(
     ep: int = 1,
 ) -> Mesh:
     """The ('data', 'model') grid over `world` processes (default: the
-    runtime's process count), with JAX's axis order and rules: dp defaults
-    to world // (pp * tp * sp * ep), the grid takes the first dp * pp * tp *
-    sp * ep ranks, and JAX's assertion fires when there are fewer. sp, pp
-    or ep above 1 raise NotImplementedError naming their ROADMAP item."""
-    for name, size in (("sp", sp), ("pp", pp), ("ep", ep)):
+    runtime's process count), gaining a 'pipe' axis when pp > 1 and a 'seq'
+    axis when sp > 1, with JAX's axis order and rules: dp defaults to world
+    // (pp * tp * sp * ep), the grid takes the first dp * pp * tp * sp * ep
+    ranks, and JAX's assertion fires when there are fewer. ep above 1
+    raises NotImplementedError naming its ROADMAP item."""
+    for name, size in (("ep", ep),):
         if size > 1:
             raise NotImplementedError(
-                f"{name}={size}: {_UNPORTED_AXES[name]}; the port's mesh has the data and model axes only")
+                f"{name}={size}: {_UNPORTED_AXES[name]}; the port's mesh has the data, pipe, "
+                "seq and model axes")
     if world is None:
         from visper_lm_tpu_torch.parallel.distributed import process_count
 

@@ -372,7 +372,12 @@ class ZeroPlan:
     each trainable's moments (and master copy), each parameter's persistent
     copy (replicated unless zero_params / zero_frozen shard it), the
     process group the collectives run on (the data group), and under tensor
-    parallelism the rank's `tp` group (parallel/tensor.TensorParallel)."""
+    parallelism the rank's `tp` group (parallel/tensor.TensorParallel).
+    Under sequence parallelism `seq` (parallel/sequence.SequenceParallel)
+    shards no parameter: its ranks' gradients are summed. Under pipeline
+    parallelism `pipe` (parallel/pipeline.PipeParallel) ZeRO runs over the
+    data group inside the stage, on the stage's blocks and the shared
+    parameters; the plans are made on the whole model's shapes, as JAX's."""
 
     group: Any
     rank: int
@@ -380,6 +385,8 @@ class ZeroPlan:
     moments: Dict[str, Placement]
     params: Dict[str, Placement]
     tp: Any = None
+    seq: Any = None
+    pipe: Any = None
 
 
 def plan_zero(named: Mapping[str, torch.Tensor], trainable: Mapping[str, bool], data_size: int,

@@ -52,6 +52,18 @@ def valid_count(labels: torch.Tensor, dp=None) -> torch.Tensor:
     return count
 
 
+def row_targets(labels: torch.Tensor, seq=None) -> torch.Tensor:
+    """The target of each position the loss reads: labels[:, 1:] for the
+    whole sequence, or under `seq` the labels of positions p + 1 of the
+    rank's rows p (IGNORE_INDEX after the last position): (B, rows)."""
+    shifted = labels[:, 1:].long()
+    if seq is None:
+        return shifted
+    shifted = F.pad(shifted, (0, 1), value=constants.IGNORE_INDEX)
+    r = seq.rows(labels.shape[1])
+    return shifted[:, r]
+
+
 def _nll(logits: torch.Tensor, safe: torch.Tensor, tp=None) -> torch.Tensor:
     """Per-position NLL of the f32 logits at targets `safe` (over the rank's
     vocab block under tp)."""
@@ -62,12 +74,13 @@ def _nll(logits: torch.Tensor, safe: torch.Tensor, tp=None) -> torch.Tensor:
 
 
 def ntp_loss(logits: torch.Tensor, labels: torch.Tensor,
-             count: Optional[torch.Tensor] = None, tp=None) -> torch.Tensor:
+             count: Optional[torch.Tensor] = None, tp=None, seq=None) -> torch.Tensor:
     """Shifted cross-entropy in f32; labels == IGNORE_INDEX are excluded (mean
     over valid; over `count` valid tokens when given: the global batch's).
-    tp: the logits are the rank's (B, T, V/tp) block."""
-    shift_logits = logits[:, :-1].float()
-    shift_labels = labels[:, 1:].long()
+    tp: the logits are the rank's (B, T, V/tp) block; seq: the logits are
+    the rank's rows, the labels whole."""
+    shift_logits = (logits if seq is not None else logits[:, :-1]).float()
+    shift_labels = row_targets(labels, seq)
     valid = shift_labels != constants.IGNORE_INDEX
     safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels))
     nll = _nll(shift_logits, safe, tp)
@@ -96,6 +109,7 @@ def ntp_loss_chunked(
     chunk: int = 256,
     count: Optional[torch.Tensor] = None,
     tp=None,
+    seq=None,
 ) -> torch.Tensor:
     """JAX `ntp_loss_chunked`: the shifted cross-entropy of `ntp_loss`
     without the full (B, T, V) logits. The shifted sequence is padded to a
@@ -104,11 +118,11 @@ def ntp_loss_chunked(
     checkpoint and are rebuilt in the backward, which takes the gradient to
     hidden and, when it trains, to head_weight. tp: head_weight is the
     rank's (V/tp, D) block (the recompute repeats the chunk's collectives,
-    in the same order on every rank)."""
-    b, t, d = hidden.shape
-    shift_h = hidden[:, :-1]
-    shift_labels = labels[:, 1:].long()
-    n = t - 1
+    in the same order on every rank). seq: hidden is the rank's rows, the
+    labels whole."""
+    shift_h = hidden if seq is not None else hidden[:, :-1]
+    shift_labels = row_targets(labels, seq)
+    n = shift_h.shape[1]
     pad = (-n) % chunk
     if pad:
         shift_h = F.pad(shift_h, (0, 0, 0, pad))

@@ -202,6 +202,9 @@ def adam_leaf_update(
         p.copy_(master)
 
 
+_BLOCK = re.compile(r"^decoder\.blocks\.\d+\.")
+
+
 def jax_leaf_order(names: Iterable[str]) -> List[str]:
     """Names in the order of the JAX tree's leaves (sorted paths), the order
     optax.global_norm adds them in."""
@@ -232,22 +235,35 @@ class AdamW:
     its gradient is the same on every rank of the group. With `sharded` (ZeRO-3:
     parallel/sharding.ShardedParams) a parameter whose persistent copy is
     sharded is updated in its slices, and never whole where its slices are
-    its moments'."""
+    its moments'.
+
+    Under sequence parallelism (the plan's `seq`) each rank's gradients are
+    its rows' shares: they are summed over the seq group first (no
+    parameter is split over 'seq'). Under pipeline parallelism (the plan's
+    `pipe`) the optimizer holds the stage's blocks and the parameters every
+    stage shares (their gradients the same on every stage: the pipeline
+    hands each the same values), and `foreign` names the trainables other
+    stages hold: the global norm takes each block's share from its owner
+    (the stage-disjoint blocks' sums all-reduced over the pipe group) and
+    every shared leaf once, in the one-device order."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], cfg: OptimizerConfig,
-                 *, zero=None, sharded=None):
+                 *, zero=None, sharded=None, foreign: Optional[Dict[str, torch.Tensor]] = None):
         self.cfg = cfg
         self.params = dict(named_params)
         self.zero, self.sharded = zero, sharded
+        # {name: parameter} of the trainables other pipeline stages hold
+        self.foreign = dict(foreign or {})
         self._full: Dict[str, torch.Tensor] = {}
-        groups = lr_group_labels(self.params.items(), cfg, cfg.stage)
+        groups = lr_group_labels(list(self.params.items()) + list(self.foreign.items()), cfg,
+                                 cfg.stage)
         peaks = {
             "base": cfg.learning_rate,
             "projector": cfg.mm_projector_lr or cfg.learning_rate,
             "vision": cfg.mm_vision_lr or cfg.learning_rate,
         }
         self.schedules = {g: cosine_schedule(cfg, lr) for g, lr in peaks.items()}
-        self.group = {n: groups[n] for n in self.params}
+        self.group = {n: groups[n] for n in list(self.params) + list(self.foreign)}
         self.decay = decay_mask(self.params.items())
         self.mu_dtype = torch_dtype(cfg.mu_dtype)
         self.count = 0
@@ -300,10 +316,13 @@ class AdamW:
         if self.zero is None:
             return
         reduced = set(reduced)
+        seq = getattr(self.zero, "seq", None)
         for n in names:
             if n not in reduced:
-                grads[n] = scatter_grad(self.zero.moments[n], grads[n].contiguous(),
-                                        self.zero.group, self.zero.rank)
+                g = grads[n].contiguous()
+                if seq is not None:
+                    g = all_reduce(g, seq.group)
+                grads[n] = scatter_grad(self.zero.moments[n], g, self.zero.group, self.zero.rank)
 
     @torch.no_grad()
     def publish(self, names: List[str]) -> None:
@@ -329,17 +348,24 @@ class AdamW:
             return self.state_tensors()
         out = {}
         for key, t in self.state_tensors().items():
-            n = key.split("/", 1)[1]
-            pl = self.zero.moments[n]
-            dev = self.params[n].device
-            full = t.detach().to(dev)
-            if pl.sharded:
-                full = torch.empty(self.params[n].shape, dtype=t.dtype, device=dev)
-                assemble(pl, t.to(dev), full, self.zero.group, self.zero.rank)
-            if pl.model_sharded:
-                full = all_gather(full.contiguous(), pl.model_dim, self.zero.tp.group)
-            out[key] = full.cpu()
+            out[key] = self.full_state_tensor(key, t)
         return out
+
+    def full_state_tensor(self, key: str, t: torch.Tensor) -> torch.Tensor:
+        """One `state_tensors` entry whole, on the host (collective under a
+        zero plan)."""
+        if self.zero is None:
+            return t.detach().cpu()
+        n = key.split("/", 1)[1]
+        pl = self.zero.moments[n]
+        dev = self.params[n].device
+        full = t.detach().to(dev)
+        if pl.sharded:
+            full = torch.empty(self.params[n].shape, dtype=t.dtype, device=dev)
+            assemble(pl, t.to(dev), full, self.zero.group, self.zero.rank)
+        if pl.model_sharded:
+            full = all_gather(full.contiguous(), pl.model_dim, self.zero.tp.group)
+        return full.cpu()
 
     def state_tensors(self) -> Dict[str, torch.Tensor]:
         """The state as flat {"mu/<name>", "nu/<name>", "master/<name>"} tensors
@@ -400,6 +426,20 @@ class AdamW:
                     all_reduce(stacked, group)
                     parts.update(zip(over, stacked.unbind(0)))
             sq.update({n: parts[n].to(grads[n].dtype) for n in split})
+        pipe = None if self.zero is None else getattr(self.zero, "pipe", None)
+        blocks = [] if pipe is None else jax_leaf_order(
+            set(self.foreign) | {n for n in names if _BLOCK.match(n)})
+        if blocks:
+            # the stage-disjoint blocks' sums from their owners (zeros here
+            # for the blocks other stages hold), every shared leaf once
+            dtypes = {n: (self.foreign[n] if n in self.foreign else self.params[n]).dtype
+                      for n in blocks}
+            dev = next(iter(self.params.values())).device
+            vec = torch.stack([sq[n].float().to(dev) if n in sq else torch.zeros((), device=dev)
+                               for n in blocks])
+            all_reduce(vec, pipe.group)
+            sq.update({n: v.to(dtypes[n]) for n, v in zip(blocks, vec.unbind(0))})
+            names = jax_leaf_order(set(names) | set(self.foreign))
         clips = {group: clip_divisor(combine_norm([sq[n] for n in names if self.group[n] == group]),
                                      self.cfg.max_grad_norm)
                  for group in set(self.group[n] for n in names)}

@@ -45,6 +45,22 @@ forward and freed after; each rank runs the teachers on its data shard
 (the same numbers on every rank of the group). Gradient streaming in a
 process group reduces each segment's weight gradients over the data group
 onto the rank's ZeRO slice before they leave for the host.
+
+Sequence parallelism (a mesh with a 'seq' axis: `Decoder.seq` is set from
+it) shards no parameter: every rank of a seq group reads its data
+coordinate's rows, runs the splice whole and the decoder on its T/sp rows
+of it, and its loss is its rows' share (train/losses.py); the PT heads
+read the taps gathered over the group (`gather_rows`) and every rank
+computes them whole, so each takes 1/sp of their loss. The gradients are
+summed over the seq group (the optimizer's reduce) and the metrics over
+the seq and data groups. Pipeline parallelism (a mesh with a 'pipe' axis;
+the model already cut for the rank's stage: `init_vlm(..., pp=)`): the
+stage trains its own blocks, ZeRO runs over the data group inside the
+stage, and every pipe rank computes the loss on the pipeline's result:
+the parameters before and after the pipeline get the same gradient on
+every stage (one process's), and the blocks' only on their owner, whose
+share of the global norm the optimizer adds over the pipe group. A
+checkpoint gathers the stages: the files are one device's.
 """
 
 from __future__ import annotations
@@ -61,6 +77,9 @@ from visper_lm_tpu_torch.models.vlm import VLM, predict_task_embeddings, tap_lay
 from visper_lm_tpu_torch.parallel import distributed
 from visper_lm_tpu_torch.parallel.distributed import all_reduce_scalars
 from visper_lm_tpu_torch.parallel.mesh import Mesh
+from visper_lm_tpu_torch.parallel.pipeline import LATER as PIPE_LATER
+from visper_lm_tpu_torch.parallel.pipeline import foreign_names
+from visper_lm_tpu_torch.parallel.sequence import gather_rows, sequence_parallel
 from visper_lm_tpu_torch.parallel.sharding import (
     Placement,
     ShardedParams,
@@ -71,6 +90,7 @@ from visper_lm_tpu_torch.parallel.sharding import (
 from visper_lm_tpu_torch.parallel.tensor import local_param, whole_param
 from visper_lm_tpu_torch.train.losses import distill_losses, ntp_loss, ntp_loss_chunked, valid_count
 from visper_lm_tpu_torch.train.optimizer import AdamW, OptimizerConfig, trainable_mask
+from visper_lm_tpu_torch.utils.param import split_layer
 from visper_lm_tpu_torch.train.staged_update import OffloadedAdamW
 
 TeacherFn = Callable[[nn.ModuleDict, Dict[str, Any]], Dict[str, torch.Tensor]]
@@ -100,7 +120,7 @@ def make_loss_fn(
     def loss_fn(model: VLM, batch: Dict[str, torch.Tensor], teachers=None):
         b, t = batch["labels"].shape
         dec = model.decoder
-        tp = dec.tp
+        tp, seq = dec.tp, dec.seq
         # JAX's switch sees the global batch and the whole vocabulary
         chunked = uses_chunked_ce(cfg, b * (1 if dp is None else dp.size), t)
         count = None if dp is None else valid_count(batch["labels"], dp)
@@ -110,16 +130,19 @@ def make_loss_fn(
         )
         if chunked:
             head = dec.embed_tokens.weight if dec.lm_head is None else dec.lm_head.weight
-            text_loss = ntp_loss_chunked(out["hidden"], head, batch["labels"], count=count, tp=tp)
+            text_loss = ntp_loss_chunked(out["hidden"], head, batch["labels"], count=count, tp=tp,
+                                         seq=seq)
         else:
             # under tp the rank's (B, T, V/tp) block, never the whole logits
             logits = out["logits"] if tp is None else dec.logits(out["hidden"], use_kernel,
                                                                   gather=False)
-            text_loss = ntp_loss(logits, batch["labels"], count=count, tp=tp)
+            text_loss = ntp_loss(logits, batch["labels"], count=count, tp=tp, seq=seq)
         metrics: Dict[str, torch.Tensor] = {"text_loss": text_loss}
         total = text_loss
         if cfg.distill is not None and out["taps"]:
-            preds = predict_task_embeddings(model, cfg, out["taps"], out["tap_layers"])
+            # under sp the heads read every row: the taps gathered over the group
+            taps = tuple(gather_rows(tap, seq) for tap in out["taps"])
+            preds = predict_task_embeddings(model, cfg, taps, out["tap_layers"])
             targets = {
                 tc.task: batch[f"{tc.task}_target"]
                 for tc in cfg.distill.tasks if f"{tc.task}_target" in batch
@@ -132,6 +155,10 @@ def make_loss_fn(
             dloss, dmetrics = distill_losses(
                 cfg, preds, targets, task_masks, dict(model.logit_scales.items()), dp,
             )
+            if seq is not None:
+                # every seq rank computes the heads' loss whole: each takes its share
+                dloss = dloss / seq.size
+                dmetrics = {k: v / seq.size for k, v in dmetrics.items()}
             total = total + dloss
             metrics.update(dmetrics)
         metrics["loss"] = total
@@ -159,6 +186,9 @@ class TrainStep:
         self.teacher_params = teacher_params
         self.device = next(model.parameters()).device
         self.trainable = trainable
+        # every trainable's name, those other pipeline stages hold included
+        self.trainable_names = [n for n, p in model.named_parameters()
+                                if n in trainable or n in getattr(optimizer, "foreign", {})]
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.accum_steps = accum_steps
@@ -179,9 +209,29 @@ class TrainStep:
         """What a checkpoint keeps besides `step`: {"params/<name>": each
         trainable, "opt/<key>": the optimizer's moments and master weights},
         whole: under ZeRO and tensor parallelism every rank's slices are
-        gathered (collective), so the files are those of a one-device run."""
-        out = {f"params/{n}": self.full_param(n) for n in self.trainable}
-        out.update({f"opt/{k}": t for k, t in self.optimizer.full_state_tensors().items()})
+        gathered, and under pipeline parallelism each block comes from its
+        stage (collective), so the files are those of a one-device run."""
+        pipe = self.model.decoder.pipe
+        if pipe is None:
+            out = {f"params/{n}": self.full_param(n) for n in self.trainable}
+            out.update({f"opt/{k}": t for k, t in self.optimizer.full_state_tensors().items()})
+            return out
+        from visper_lm_tpu_torch.parallel.distributed import broadcast_object
+
+        own = self.optimizer.state_tensors()
+        kinds = ["mu", "nu"] + (["master"] if self.optimizer.master is not None else [])
+        out = {}
+        for n in self.trainable_names:
+            layer = split_layer(n)[1] if n.startswith("decoder.blocks.") else None
+            src = pipe.rank if layer is None else pipe.owner(layer)
+            part = None
+            if src == pipe.rank:
+                part = {f"params/{n}": self.full_param(n).detach().cpu()}
+                part.update({f"opt/{k}/{n}": self.optimizer.full_state_tensor(
+                    f"{k}/{n}", own[f"{k}/{n}"]) for k in kinds})
+            if layer is not None:
+                part = broadcast_object(part, src, pipe.group)
+            out.update(part)
         return out
 
     def whole(self):
@@ -269,8 +319,11 @@ class TrainStep:
             metrics, grads = self.loss_and_grads(batch)
         if self.zero is not None:
             # each rank's metrics are its shares of the global batch's
-            metrics = dict(zip(metrics, all_reduce_scalars(list(metrics.values()),
-                                                           self.zero.group)))
+            # (under sp its rows' shares)
+            values = all_reduce_scalars(list(metrics.values()), self.zero.group)
+            if self.zero.seq is not None:
+                values = all_reduce_scalars(values, self.zero.seq.group)
+            metrics = dict(zip(metrics, values))
         if self.device.type == "cuda":
             self._update_events = (torch.cuda.Event(enable_timing=True),
                                    torch.cuda.Event(enable_timing=True))
@@ -346,7 +399,10 @@ def make_train_step(
     zero_params / zero_frozen ZeRO-3 (leaves of at least zero_min_size
     elements); a 'model' axis wider than 1 needs the model in that rank's
     tensor-parallel form (`init_vlm(..., tp=)`), and shard_teachers then
-    splits the teachers over it. `check_step_options` holds the rules."""
+    splits the teachers over it. A 'seq' axis sets the decoder's
+    sequence-parallel group (`Decoder.seq`); a 'pipe' axis needs the model
+    cut for the rank's stage (`init_vlm(..., pp=)`). `check_step_options`
+    holds the rules."""
     if not donate_params:
         raise ValueError("make_train_step updates the parameters in place: "
                          "donate_params=False has no counterpart in the port")
@@ -354,15 +410,17 @@ def make_train_step(
     check_step_options(device, accum_steps=accum_steps, offload_opt_state=offload_opt_state,
                        blockwise_staging=blockwise_staging, stream_grads=stream_grads)
     mask = trainable_mask(model.named_parameters(), opt_cfg.stage)
-    trainable = {n: p for n, p in model.named_parameters() if mask[n]}
+    # the blocks another pipeline stage owns: planned, never held or trained here
+    foreign = set(foreign_names(model))
+    trainable = {n: p for n, p in model.named_parameters() if mask[n] and n not in foreign}
     for n, p in model.named_parameters():
-        p.requires_grad_(mask[n])
+        p.requires_grad_(mask[n] and n not in foreign)
     if teacher_params is not None:
         teacher_params.requires_grad_(False)
     if model.decoder.zero3 is not None:
         raise ValueError("make_train_step: the model's parameters are already ZeRO-3 sharded")
     zero = sharded = teacher_sharded = None
-    tp = model.decoder.tp
+    tp, pipe = model.decoder.tp, model.decoder.pipe
     if mesh is not None:
         if not distributed.is_initialized():
             raise ValueError("make_train_step: a mesh needs the process group (init_distributed)")
@@ -371,17 +429,30 @@ def make_train_step(
                 f"make_train_step: the mesh's model axis is {mesh.model_size} wide, the model is "
                 f"cut for tp {1 if tp is None else tp.size} (parallel/tensor.shard_model, "
                 "init_vlm(..., tp=))")
+        if mesh.pipe_size != (1 if pipe is None else pipe.size):
+            raise ValueError(
+                f"make_train_step: the mesh's pipe axis is {mesh.pipe_size} wide, the model is "
+                f"cut for pp {1 if pipe is None else pipe.size} (init_vlm(..., pp=))")
+        seq = sequence_parallel(mesh)
+        if (seq is not None or pipe is not None) and (offload_opt_state or stream_grads):
+            raise NotImplementedError(
+                f"offload_opt_state / stream_grads under sequence or pipeline parallelism "
+                f"{PIPE_LATER}")
+        model.decoder.seq = seq
         group, rank, size = distributed.data_group(mesh)
         named = dict(model.named_parameters())
         moments, placed, _, _ = plan_zero(named, mask, size, zero_params=zero_params,
                                           zero_frozen=zero_frozen, zero_min_size=zero_min_size,
                                           model_size=mesh.model_size)
-        zero = ZeroPlan(group, rank, size, moments, placed, tp=tp)
-        if any(pl.sharded for pl in placed.values()):
-            sharded = ShardedParams(named, placed, group, rank)
+        zero = ZeroPlan(group, rank, size, {n: pl for n, pl in moments.items() if n not in foreign},
+                        {n: pl for n, pl in placed.items() if n not in foreign}, tp=tp, seq=seq,
+                        pipe=pipe)
+        if any(pl.sharded for pl in zero.params.values()):
+            sharded = ShardedParams({n: p for n, p in named.items() if n not in foreign},
+                                    zero.params, group, rank)
             model.decoder.zero3 = sharded
-    elif tp is not None:
-        raise ValueError("make_train_step: a tensor-parallel model needs its mesh")
+    elif tp is not None or pipe is not None:
+        raise ValueError("make_train_step: a tensor- or pipeline-parallel model needs its mesh")
     if shard_teachers and tp is not None and teacher_params is not None:
         # JAX's model_shard_pspec slices, held like ZeRO-3's over the model group
         named_t = dict(teacher_params.named_parameters())
@@ -398,7 +469,9 @@ def make_train_step(
                                           scan_chunks=scan_chunks, blockwise=blockwise_staging,
                                           zero=zero, sharded=sharded)
     else:
-        optimizer = AdamW(trainable.items(), opt_cfg, zero=zero, sharded=sharded)
+        params = dict(model.named_parameters())
+        optimizer = AdamW(trainable.items(), opt_cfg, zero=zero, sharded=sharded,
+                          foreign={n: params[n] for n in foreign if mask[n]})
     if model.decoder.grad_stream is not None:
         model.decoder.grad_stream.close()
     stream = None

@@ -24,11 +24,14 @@ parallel/distributed.py); in a process group the step is data parallel over
 `make_mesh(dp, tp)`'s data axis, with ZeRO-1/2 moments and, by
 `zero_params` / `zero_frozen`, ZeRO-3 (train/train_step.py), and tensor
 parallel over its model axis when tp > 1 (the model handed in is already
-the rank's form: `init_vlm(..., tp=)`), each process feeding the shard of
-the global batch of its data coordinate (the caller's iterator strides the
-data: `BatchIterator`'s process_index / process_count from
-`distributed.data_shard`, so a tensor-parallel group reads the same rows).
-Metrics are summed over the data group. Only the
+the rank's form: `init_vlm(..., tp=)`), sequence parallel over its seq
+axis when sp > 1 and pipelined over its pipe axis when pp > 1 (the model
+cut for the rank's stage: `init_vlm(..., pp=)`), each process feeding the
+shard of the global batch of its data coordinate (the caller's iterator
+strides the data: `BatchIterator`'s process_index / process_count from
+`distributed.data_shard`, so the tensor-, sequence- and pipeline-parallel
+ranks of one data coordinate read the same rows). Metrics are summed over
+the data group (and the seq group), the same on every rank. Only the
 coordinator writes metrics.jsonl; every rank takes part in a checkpoint's
 save, which the coordinator writes. Under ZeRO-3 the step hooks run with
 every parameter whole (`TrainStep.whole`, a gather each step that has
@@ -82,9 +85,12 @@ class TrainerConfig:
     save_total_limit: int = 3
     logging_steps: int = 1
     seed: int = 0
-    # the mesh: dp processes on the data axis (None: every process), tp on the model axis
+    # the mesh: dp processes on the data axis (None: every process), tp on the
+    # model axis, sp on the seq axis, pp on the pipe axis
     dp: Optional[int] = None
     tp: int = 1
+    sp: int = 1
+    pp: int = 1
     # ZeRO-3 of the trainables / of the frozen parameters; the teachers over the model axis
     zero_params: bool = False
     # the moments (and master weights) in host memory, staged per block
@@ -227,10 +233,12 @@ def train(
     targets / masks, numpy; the dataset's host-only RAW_IMAGES is dropped);
     it may also take `skip_batches`."""
     init_distributed(device=trainer_cfg.device)
-    if trainer_cfg.tp != 1 and not is_initialized():
-        raise ValueError(f"train: tp {trainer_cfg.tp} needs {trainer_cfg.tp} processes or more "
-                         "(init_distributed)")
-    mesh = make_mesh(dp=trainer_cfg.dp, tp=trainer_cfg.tp)
+    axes = {"tp": trainer_cfg.tp, "sp": trainer_cfg.sp, "pp": trainer_cfg.pp}
+    width = trainer_cfg.tp * trainer_cfg.sp * trainer_cfg.pp
+    if width != 1 and not is_initialized():
+        named = " x ".join(f"{k} {v}" for k, v in axes.items() if v != 1)
+        raise ValueError(f"train: {named} needs {width} processes or more (init_distributed)")
+    mesh = make_mesh(dp=trainer_cfg.dp, tp=trainer_cfg.tp, sp=trainer_cfg.sp, pp=trainer_cfg.pp)
     device = resolve_device(local_device(trainer_cfg.device))
     on = next(model.parameters()).device
     if on.type != device.type or (device.index is not None and on != device):

@@ -212,27 +212,34 @@ def init_weights_(module: nn.Module, generator: torch.Generator,
 
     whole: {id(parameter): (its parallel/sharding.Placement, model rank)}
     for a tensor-parallel slice: the whole tensor is drawn (one at a time,
-    in the same order) and the slice kept."""
+    in the same order) and the slice kept. A parameter with no storage (a
+    block another pipeline stage owns) is drawn all the same and dropped,
+    so the others get the numbers of the whole model."""
     whole = whole or {}
 
+    def held(p: torch.Tensor) -> bool:
+        return p.numel() == 0 or p.untyped_storage().nbytes() > 0
+
     def draw(p: torch.Tensor, fill) -> None:
-        if id(p) not in whole:
+        if id(p) not in whole and held(p):
             fill(p, p.shape)
             return
-        pl, rank = whole[id(p)]
-        full = torch.empty(pl.whole_shape(p.shape), dtype=p.dtype, device=p.device)
+        pl, rank = whole.get(id(p), (None, None))
+        full = torch.empty(p.shape if pl is None else pl.whole_shape(p.shape), dtype=p.dtype,
+                           device=p.device)
         fill(full, full.shape)
-        p.copy_(pl.model_local(full, rank))
+        if held(p):
+            p.copy_(pl.model_local(full, rank))
 
     for m in module.modules():
         if isinstance(m, nn.Linear):
             draw(m.weight, lambda t, shape: t.uniform_(-shape[1] ** -0.5, shape[1] ** -0.5,
                                                        generator=generator))
-            if m.bias is not None:
+            if m.bias is not None and held(m.bias):
                 m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             draw(m.weight, lambda t, shape: t.normal_(0.0, 0.02, generator=generator))
-        elif isinstance(m, (LayerNorm, RMSNorm)):
+        elif isinstance(m, (LayerNorm, RMSNorm)) and held(m.scale):
             m.scale.fill_(1.0)
             if isinstance(m, LayerNorm):
                 m.bias.zero_()

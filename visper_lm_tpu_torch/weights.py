@@ -46,6 +46,7 @@ from visper_lm_tpu_torch.device import resolve_device
 from visper_lm_tpu_torch.models.decoder import LINEAR_NAMES, Decoder, normalize_stream_layout
 from visper_lm_tpu_torch.models.teachers import TeacherConfigs, build_teachers
 from visper_lm_tpu_torch.models.vlm import VLM
+from visper_lm_tpu_torch.parallel.pipeline import foreign_names, shard_pipeline
 from visper_lm_tpu_torch.parallel.tensor import model_placements, shard_model
 from visper_lm_tpu_torch.utils.param import QuantLinear, to_numpy
 
@@ -191,9 +192,19 @@ def _quant_shells(decoder: Decoder, tree: Dict[str, Any]) -> None:
         decoder.lm_head = shell(tree["lm_head"], stacked=False)
 
 
-def _load(module: nn.Module, sd: Dict[str, Any], device, dtype) -> None:
+def _load(module: nn.Module, sd: Dict[str, Any], device, dtype, freed=()) -> None:
+    """The state dict `sd` (host leaves) into `module` on `device`; the
+    names in `freed` (blocks another pipeline stage owns) get storage-less
+    tensors of their shape instead, one at a time."""
     tensors = {}
     for name, leaf in sd.items():
+        if name in freed:
+            a = np.asarray(leaf)
+            t = torch.empty(a.shape, dtype=dtype or _tensor(a.reshape(-1)[:1]).dtype,
+                            device=device)
+            t.untyped_storage().resize_(0)
+            tensors[name] = t
+            continue
         t = _tensor(leaf)
         # quantized linears keep their f32 scales whatever the model dtype
         if dtype is not None and t.is_floating_point() and name.rsplit(".", 1)[-1] not in _QUANT_LEAVES.values():
@@ -220,6 +231,7 @@ def from_jax_params(
     device: Optional[Union[str, torch.device]] = None,
     dtype: Optional[torch.dtype] = None,
     tp=None,
+    pp=None,
 ) -> VLM:
     """A VLM holding the JAX tree's weights on `device` (CUDA when None);
     quantized decoder linears become `QuantLinear`s.
@@ -227,7 +239,10 @@ def from_jax_params(
     dtype=None keeps each leaf's dtype; otherwise floating leaves other than
     the quantization scales are cast. tp (parallel/tensor.TensorParallel):
     the rank's tensor-parallel form, each split leaf sliced on the host
-    before it is copied (a rank never holds the whole decoder on the device)."""
+    before it is copied (a rank never holds the whole decoder on the device).
+    pp (parallel/pipeline.PipeParallel): the stage's form, the stacked
+    blocks cut on the host: only the stage's own blocks are copied, the
+    others are storage-less (`pipeline.whole_params` gathers them back)."""
     device = resolve_device(device)
     tree = normalize_stream_layout(tree)
     with torch.device("meta"):
@@ -236,7 +251,7 @@ def from_jax_params(
         model.image_newline = (nn.Parameter(torch.empty(cfg.decoder.hidden_size))
                                if "image_newline" in tree else None)
         _quant_shells(model.decoder, tree["decoder"])
-        shard_model(model, tp)
+        shard_pipeline(shard_model(model, tp), pp)
     sd = jax_tree_to_state_dict(tree, cfg)
     for name, pl in model_placements(model).items():
         a = np.asarray(sd[name])
@@ -244,7 +259,7 @@ def from_jax_params(
         index = [slice(None)] * a.ndim
         index[pl.model_dim] = slice(tp.rank * size, (tp.rank + 1) * size)
         sd[name] = a[tuple(index)]
-    _load(model, sd, device, dtype)
+    _load(model, sd, device, dtype, freed=set(foreign_names(model)))
     return model.eval()
 
 
