@@ -52,7 +52,7 @@ Phases, each of which raises (exit code != 0) when it fails:
           of the cache to exceed the 50 MB L2);
   4. serving path: Phi3-mini-4k + CLIP-ViT-L/14-336 (distill task tokens) at
      full width with seeded random weights serves 8 left-padded multimodal
-     prompts (768 tokens) through `Generator.generate`, greedy, 32 new tokens.
+     prompts (768 tokens) through `Generator.generate`, greedy, NEW_TOKENS = 16 new tokens.
      The flash kernel must launch exactly once per decoder layer (32), and the
      prefill logits must match a prefill with plain attention within
      0.05 x max|logits| (bf16 through 32 layers). The decode chunk keeps its
@@ -62,12 +62,12 @@ Phases, each of which raises (exit code != 0) when it fails:
   5. serving profile: device time by kernel for one prefill and one decode chunk;
   6. quantized serving on the same model and batch: AWQ activation RMS over
      the batch's spliced embeddings (`decoder_act_rms`), then int8 KV +
-     calibrated w4a16 weights through `Generator.generate`: 8 x 32 tokens, B5
+     calibrated w4a16 weights through `Generator.generate`: 8 x 16 tokens, B5
      launched 225 times per decoder forward (7 linears x 32 layers + lm_head;
      prefill and every decode step), the prefill logits with the kernels
      within 0.05 x max|logits| of the plain versions' on the same quantized
      weights; the int4-vs-bf16 drift is printed (a quality trade-off, not a
-     check). Then int8 KV + w8a16 generates 8 x 32 tokens. Both are timed as
+     check). Then int8 KV + w8a16 generates 8 x 16 tokens. Both are timed as
      in phase 4; one int4 prefill and one int4 decode chunk are profiled,
      with B5's share of the device time;
   7. training path: config #1's PT distillation step (the same VLM plus the
@@ -105,9 +105,10 @@ Phases, each of which raises (exit code != 0) when it fails:
   9. engine path: the continuous-batching `Engine` at bench_engine.py's
      defaults (8 slots, max_len 1536, decode quantum 8, admission groups of
      8 with a deferral of 4, prompt bucket 128; int8 KV + w8a16; phase 4's
-     decoder, which phases 7-8 leave frozen, cut in depth to its first 8 of
-     32 blocks since PR 15 to keep the script inside its time limit: the
-     per-layer counts below are of those 8) serves bench_engine.py's 32
+     decoder, which phases 7-8 leave frozen, cut in depth to its first
+     ENGINE_LAYERS = 2 of 32 blocks to keep the script inside its time
+     limit: the per-layer counts
+     below are of those) serves bench_engine.py's 32
      requests (13 system ids, one image, 16-63 text tokens, 8-127 new tokens
      from np.random.default_rng(0)) after a warm-up, twice, in turns with
      the batch loop (bench_engine.py measurement 2: a Generator per batch of
@@ -133,7 +134,7 @@ Phases, each of which raises (exit code != 0) when it fails:
      phases 4-10;
  10. user API path (visper_lm_tpu_torch/api.py) at Llama-3-8B + CLIP-ViT-L/14-336
      (llama3_clip_vlm with distillation heads, bf16, full width, cut to
-     API_LAYERS = 8 of 32 layers for time (the per-layer
+     API_LAYERS = 4 of 32 layers for time (the per-layer
      launch counts below scale with it: "32" is the depth), seeded random
      weights made on the card; phases 4-9's model released first) with a whitespace tokenizer defined here (the card has no
      `transformers`): B1 and B5 at Llama-3's shapes against their plain
@@ -165,7 +166,7 @@ Phases, each of which raises (exit code != 0) when it fails:
      bf16, every block's gamma from N(0, 0.1^2)) on the chat's 8 images:
      output (8, 576, 3072), finite, relative Frobenius error against an f32
      copy of the same weights <= 2e-2, its time; `chat` through it (bf16,
-     32 new tokens; B1 32, first-token logits within 0.05 x max|logits| of
+     16 new tokens; B1 32, first-token logits within 0.05 x max|logits| of
      the plain path); an anyres chat (CLIP-L, spatial_unpad, JAX's
      grid_pinpoints) of 4 images whose sizes select four grids (3, 3, 5
      and 4 tiles: the tiles padded to 5, the newline indices moved), the
@@ -208,7 +209,9 @@ Phases, each of which raises (exit code != 0) when it fails:
      adapters, projector and tower moved where their stage trains them.
  13. visual interpretations at Llama-3-8B + CLIP-L (phase 12's models
      released; `llama3_clip_vlm(distill=True)` made on the card as phase 10
-     makes it, with its whitespace tokenizer), every record with the card's
+     makes it, with its whitespace tokenizer; its taps VIZ_TAPS, the gen
+     task at layers 18-20 instead of 12-20, for time: the demo renders a
+     25-step generation for each), every record with the card's
      name and power limit. (a) `VisperModel.get_visual_interpretations` of one
      seeded 480 x 640 image and a 40-word question: B1 exactly 32 launches,
      every task / layer prediction of the expected shape and within 0.05 x
@@ -261,10 +264,11 @@ Phases, each of which raises (exit code != 0) when it fails:
      phase 1 also prints the host's MemTotal / MemAvailable and the
      locked-memory limit): (a) 1 GiB between page-locked host memory
      (`device.HostPool`) and the card, each way and both at once: GB/s;
-     (b) at Llama-3-8B + CLIP-L widths cut to 4 layers (bf16, IFT stage, lr
+     (b) at Llama-3-8B + CLIP-L widths cut to MEM_LAYERS = 2 layers (bf16,
+     IFT stage, lr
      1e-3, B2 x T1024 full-length rows), 3 steps each of the on-card AdamW,
-     `offload_opt_state=True` and offload + `stream_grads=2`: B1 8 / B2 4 /
-     B3 4 a step, the losses within rtol 1e-5 and every trainable within
+     `offload_opt_state=True` and offload + `stream_grads=2`: B1 4 / B2 2 /
+     B3 2 a step, the losses within rtol 1e-5 and every trainable within
      rtol 1e-4 / atol 1e-6 of the on-card run's (JAX's
      test_stream_grads_step_matches_plain bounds), bit-equality reported;
      (c) `cli.main` of recipes/finetune.args with --offload-opt-state
@@ -350,12 +354,12 @@ Phases, each of which raises (exit code != 0) when it fails:
      bytes a rank; B1 4 / B2 2 / B3 2 / B4 48 a rank and step; per rank
      peak GiB, the decoder's and the teachers' bytes, step ms. (c)
      `cli.main(["@recipes/pretrain_full.args", ...])` at Llama-3-8B widths
-     cut to 4 layers (taps DP_TAPS) on four ranks (--tp 4, the recipe's
+     cut to TP_RECIPE_LAYERS = 2 layers (taps DP_TAPS) on four ranks (--tp 4, the recipe's
      --zero-params --offload-opt-state --shard-teachers --stream-grads 8),
      2 steps on phase 12's PT records, the final checkpoint recorded, not
      written: every rank a quarter of the decoder (25-26 %), its init peak
      under the whole decoder's bytes (no rank held it), the same finite
-     metrics on every rank, B1 8 / B2 4 / B3 4 / B4 24 a step, the pinned
+     metrics on every rank, B1 4 / B2 2 / B3 2 / B4 24 a step, the pinned
      total under 57.99 GiB; per rank peak and pinned GiB and step ms. Any
      rank that fails or does not finish within 420 s fails the phase.
  18. sequence and pipeline parallelism (`--phase18-rank`, `--phase18c-rank`:
@@ -368,21 +372,50 @@ Phases, each of which raises (exit code != 0) when it fails:
      rank's rows put together and held to the one-process B1/B2/B3 call
      (relative Frobenius <= 2e-2, bit-equality printed) and to an f32 plain
      run, one kv head's group at a time (<= 1e-2), out, dq, dk, dv; (b) the
-     finetune step at Llama-3-8B widths cut to SP_LAYERS = 4 layers, B1 x
+     finetune step at Llama-3-8B widths cut to SP_LAYERS = 2 layers, B1 x
      T8192, save_gate, sp 2 (Ulysses: 32/8 heads divide 2), 2 updates
      (the first has lr 0) and the loss on the last batch after them,
      against the one-process step and an f32 run from the same seed (plain
      attention one kv group at a time, rematerialised; f32 AdamW): phase
      16's bounds on each loss, the step-1 gradients as the optimizer's
-     reduce leaves them (sampled) and the parameter moves; B1 8 / B2 4 / B3
-     4 a rank and step; (c) the finetune step at Phi3-mini widths cut to 8
+     reduce leaves them (sampled) and the parameter moves; B1 4 / B2 2 / B3
+     2 a rank and step; (c) the finetune step at Phi3-mini widths cut to 4
      layers, B4 x T1024, pp 2 x tp 2 on four ranks (4 microbatches of 1,
      JAX's rule), held the same way (gradients and parameters gathered over
      tp, each stage's blocks from its ranks, the shared leaves bit-equal
-     across the stages), B1 32 / B2 16 / B3 16 a rank and step, 4
+     across the stages), B1 16 / B2 8 / B3 8 a rank and step, 4
      point-to-point sends a rank and step. Per rank: peak GiB, the
      decoder's bytes held, step ms. Any rank that fails or does not finish
      within 420 s fails the phase.
+ 19. the MoE decoder and expert parallelism (every record with the card's
+     name and power limit): the model is Phi3-mini-4k + CLIP-L with JAX's
+     dry-run MoE (4 experts, top-2, capacity factor 1.25, aux weight 0.01:
+     11.07 B decoder parameters, 22.1 GB of bf16 weights). (a) the
+     `Generator` at full width and depth on phase 4's 8 x 768-token
+     prompts, 16 greedy tokens: prefill ms, decode ms/token, peak GiB, the
+     dropped share of the prefill and of each decode step (N 8: capacity
+     5), B1 32 a prefill; an int4 prefill (B5 129 a forward: the four
+     attention projections a layer and the head; the banks stay dense);
+     the first 8 layers, bf16 with the kernels, held to the same weights in
+     f32 on the plain path: the prefill logits within 0.05 x max |logit| of
+     the f32 run fed the bf16 run's routes (the arithmetic alone), the f32
+     run's own routes agreeing on >= 0.9 of the (token, k) routes of every
+     layer on the prompts' tokens (pad rows apart: the kernel and the
+     plain version differ there by design; flips counted and printed), the
+     greedy tokens equal through phase 17's margin rule. (b) config #1's PT
+     step (B4 x T1024, teachers in the step, save_gate) with the MoE
+     decoder at full depth, a warm-up and 2 timed steps: ms a step, peak
+     GiB, the MoE metrics, B1 64 / B2 32 / B3 32 / B4 48 a step; at 4
+     layers (taps DP_TAPS) the bf16 step against the same student in f32
+     over 3 updates: losses within 1e-2, step-1 gradients within 3e-2
+     (relative Frobenius), and phase 16's two checks that the bounds can
+     fail. (c) `--phase19-rank`: the finetune step at Phi3-mini widths cut to
+     4 layers, B4 x T1024, ep 2 on two gloo ranks sharing the card (two
+     experts a rank; they start and build their models while the f32 run,
+     whose times are not read, holds the card, and step once it is over),
+     held to the one-process step and an f32 run by phase 16's bounds (phase 18's `held_to_refs`), half the banks' bytes a rank,
+     the routers and replicated parameters bit-equal across the ranks, B1
+     8 / B2 4 / B3 4 a rank and step.
 Phase 3 also holds B1-B3 at phase 12's recipe PT shape (Llama-3-8B, B4 x
 T1024, GQA 32/8 H128, causal) against their plain versions, beside SDPA's
 forward and backward and the bound, as at the training shape.
@@ -415,21 +448,22 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / f32 SIMT
 L2_BYTES = 50e6                # H100: a rotation of weights must exceed it to find them cold
 
-BATCH, PROMPT_LEN, NEW_TOKENS = 8, 768, 32
+BATCH, PROMPT_LEN, NEW_TOKENS = 8, 768, 16     # new tokens cut for time
+B6_DECODED = 32                # B6's decode case: the last of 32 decode steps (its measured shape)
 TEXT_LENS = (155, 140, 121, 96, 77, 50, 31, 12)   # 13 sys + 600 image/task + text <= 768
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 3    # bench.py's config #1 cell
 # None: no remat, then every JAX policy (save_gate: bench.py's default)
 REMAT_RUNS = (None, "none", "save_gate", "save_gate_flash", "save_flash", "save_mlp",
               "save_qkv_mlp", "save_mlp_q8")
 REMAT_EXACT = REMAT_RUNS[1:-1]             # save_mlp_q8 changes the forward and its gradient
-REMAT_STEPS = 2                            # timed steps per policy, after one warm-up
+REMAT_STEPS = 1                            # timed steps per policy, after one warm-up
 TRAINER_STEPS, TRAINER_ACCUM = 4, 2
 SWIN_STAGES = ((512, 6), (128, 12), (32, 24), (8, 48))  # Swin-L at 768 px, micro-batch 2: (W, heads)
 # bench_engine.py's defaults (int8 KV + w8a16 on top of these)
 ENGINE = dict(num_slots=8, max_len=1536, decode_quantum=8, admit_group=8, admit_defer=4,
               prompt_bucket=128)
 ENGINE_REQUESTS = 32
-ENGINE_LAYERS = 4              # phase 9 runs phase 4's model cut in depth (time)
+ENGINE_LAYERS = 2              # phase 9 runs phase 4's model cut in depth (time)
 ENGINE_CHUNK = 256             # the chunked-prefill check's prefill_chunk
 # phase 10: Llama-3-8B + CLIP-L through the user API
 LLAMA3_KEYS = ("shape", "kernel", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -441,7 +475,7 @@ LLAMA3_SPECIALS = {"<|begin_of_text|>": 128000, "<|start_header_id|>": 128006,
                    "<|end_header_id|>": 128007, "<|eot_id|>": 128009, "\n": 198}
 VICUNA_SPECIALS = {"<s>": 1, "</s>": 2, "\n": 13}
 FILE_LAYERS = 2                # the safetensors file round trip's depth (full width)
-API_LAYERS = 8                 # phases 10-11's Llama-3-8B chat model, cut in depth (time)
+API_LAYERS = 4                 # phases 10-11's Llama-3-8B chat model, cut in depth (time)
 VICUNA_LAYERS = 4              # Vicuna-7B at full width, cut in depth
 # phase 11: anyres images (H, W) that select the grids 672x336, 336x672,
 # 672x672 and 336x1008 of JAX's grid_pinpoints: base + 2, 2, 4, 3 tiles
@@ -453,10 +487,11 @@ RECIPE_GRAD_LAYER = 16          # the IFT layer whose weight gradients are held 
 # phase 14: evaluation
 EVAL_RECORDS, EVAL_BATCH, EVAL_NEW_TOKENS = 16, 8, 8   # per benchmark; chat batch; answer tokens
 EVAL_LAYERS = 8                # phase 14's Llama-3-8B, cut in depth (time)
+VIZ_TAPS = "d18-20_s10-18_g18-20"   # phase 13's tapped layers: gen at 3, not 9 (time)
 EVAL_IMAGES = ((480, 640), (336, 336), (600, 400), (256, 512))   # (H, W) of the records' PNGs
 INCEPTION_IMAGES, INCEPTION_SIZE = 64, 512                       # FID features: the downscale path
 # phase 15: the memory levers
-MEM_LAYERS, MEM_BATCH, MEM_SEQ, MEM_STEPS = 4, 2, 1024, 3   # (b) parity at Llama-3-8B widths
+MEM_LAYERS, MEM_BATCH, MEM_SEQ, MEM_STEPS = 2, 2, 1024, 3   # (b) parity at Llama-3-8B widths
 MEM_RECORDS, MEM_WORDS = 16, (2900, 3200)   # (c) single-turn IFT records: a batch pads to T 4096
 MEM_STREAM = 8                              # (c) --stream-grads segments
 MEM_PROBE_BYTES = 1 << 30                   # (a) one copy of the bandwidth probe
@@ -472,12 +507,19 @@ DP_TAPS = "d1-2_s1-2_g1-2"     # its tapped layers (1-indexed, two a task), insi
 TP_NEW_TOKENS = 8              # (a) greedy tokens a row
 TP_MODES = ("plain", "shard_teachers")   # (b)
 TP_GEN_LAYERS = 8              # (a) Phi3-mini cut in depth (time)
-TP_RECIPE_LAYERS, TP_RECIPE_STEPS = 4, 2   # (c) Llama-3-8B cut in depth, steps
+TP_RECIPE_LAYERS, TP_RECIPE_STEPS = 2, 2   # (c) Llama-3-8B cut in depth, steps
 TP_TIMEOUT = 420               # s for each spawn's whole run
 # phase 18: sequence and pipeline parallelism
-SP_T, SP_LAYERS = 8192, 4      # (a)-(b): Llama-3-8B at B1 x T8192, sp 2; (b) cut in depth (time)
+SP_T, SP_LAYERS = 8192, 2      # (a)-(b): Llama-3-8B at B1 x T8192, sp 2; (b) cut in depth (time)
 SP_STEPS = 2                   # (b)-(c): updates (the first has lr 0), then the loss after them
-PP_LAYERS, PP_BATCH, PP_SEQ = 8, 4, 1024   # (c): Phi3-mini cut in depth, pp 2 x tp 2
+PP_LAYERS, PP_BATCH, PP_SEQ = 4, 4, 1024   # (c): Phi3-mini cut in depth, pp 2 x tp 2
+# phase 19: the MoE decoder (JAX's dry-run MoE on the bench model) and expert parallelism
+MOE_EXPERTS, MOE_TOP_K = 4, 2
+MOE_NEW_TOKENS = 16            # (a) greedy tokens a row at full depth
+MOE_F32_LAYERS = 8             # (a) the depth held to an f32 run
+MOE_PT_STEPS = 2               # (b) timed steps at full depth, after a warm-up
+MOE_PT_LAYERS = 4              # (b) the depth held to an f32 run
+MOE_EP_LAYERS = 4              # (c) Phi3-mini widths cut in depth, ep 2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1000,7 +1042,8 @@ def decode_case(name, b, nq, nkv, h, s, quant, starts, lens, gen, da, quantize_h
     return rec
 
 
-def timed_generate(generator, batch, gen_cfg, batch_size: int = BATCH):
+def timed_generate(generator, batch, gen_cfg, batch_size: int = BATCH,
+                   new_tokens: int = NEW_TOKENS):
     """Prefill and generate timed warm (host clock around work that ends in a
     synchronise), as phase 4 does."""
     t0 = time.perf_counter()
@@ -1011,10 +1054,10 @@ def timed_generate(generator, batch, gen_cfg, batch_size: int = BATCH):
     generator.generate(batch)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    steps = -(-NEW_TOKENS // gen_cfg.decode_chunk) * gen_cfg.decode_chunk
+    steps = -(-new_tokens // gen_cfg.decode_chunk) * gen_cfg.decode_chunk
     return dict(
         prefill_ms=prefill_s * 1e3, decode_ms_per_token=(gen_s - prefill_s) / steps * 1e3,
-        generate_s=gen_s, tokens_per_s=batch_size * NEW_TOKENS / gen_s, decode_steps=steps,
+        generate_s=gen_s, tokens_per_s=batch_size * new_tokens / gen_s, decode_steps=steps,
     )
 
 
@@ -2601,12 +2644,13 @@ def viz_phase(fa, wa, smi: str) -> dict:
     """Phase 13: visual interpretations at Llama-3-8B + CLIP-L through the
     user API (see the module docstring). Returns the record printed as
     `viz_path`."""
+    import dataclasses
     import shutil
 
     from visper_lm_tpu_torch import demo
     from visper_lm_tpu_torch.api import VisperModel
     from visper_lm_tpu_torch.checkpoint import delta, teacher_bundles
-    from visper_lm_tpu_torch.config import llama3_clip_vlm
+    from visper_lm_tpu_torch.config import llama3_clip_vlm, make_distill_config
     from visper_lm_tpu_torch.data.collate import build_splice_plan, collate_plans
     from visper_lm_tpu_torch.data.image_io import read_png, write_png
     from visper_lm_tpu_torch.data.mm_utils import (
@@ -2646,8 +2690,10 @@ def viz_phase(fa, wa, smi: str) -> dict:
         return dict(max_abs_diff=diff, max_abs_ref=scale, share=diff / max(scale, 1e-30))
 
     try:
-        # (a) the tap forward and the heads, as phase 10 builds the model
+        # (a) the tap forward and the heads, as phase 10 builds the model, its
+        # gen task tapped at 3 layers, not 9 (time: the demo renders each)
         cfg = llama3_clip_vlm(distill=True, image_aspect_ratio="pad")
+        cfg = dataclasses.replace(cfg, distill=make_distill_config(layer_indices=VIZ_TAPS))
         d = cfg.decoder
         tok = WordTokenizer(d.vocab_size, LLAMA3_SPECIALS, bos=128000, eos=128009, first_word=256)
         t0 = time.perf_counter()
@@ -3192,7 +3238,7 @@ def memory_phase(fa, wa, smi: str) -> dict:
         out["bandwidth"] = bandwidth_probe()
         release_cuda()
 
-        # (b) parity at Llama-3-8B widths, 4 layers: on-card AdamW, offloaded, offloaded + streamed
+        # (b) parity at Llama-3-8B widths, MEM_LAYERS layers: on-card AdamW, offloaded, offloaded + streamed
         t0 = time.perf_counter()
         cfg4 = llama3_clip_vlm(distill=False)
         cfg4 = dataclasses.replace(cfg4, decoder=dataclasses.replace(cfg4.decoder, num_layers=MEM_LAYERS))
@@ -3924,11 +3970,12 @@ def dp_phase(smi: str, keep=None) -> dict:
 
 
 @torch.no_grad()
-def greedy_margins(generator, batch, n: int):
+def greedy_margins(generator, batch, n: int, use_kernel=None):
     """Greedy decoding of `n` tokens a row through the Generator's prefill
-    and its decoder (a step at a time), with each step's top-2 logit margin:
-    ((n, B) tokens, (n, B) margins) on the host."""
-    logits, cache = generator.prefill(batch)
+    (use_kernel=False: plain attention) and its decoder (a step at a time),
+    with each step's top-2 logit margin: ((n, B) tokens, (n, B) margins) on
+    the host."""
+    logits, cache = generator.prefill(batch, use_kernel=use_kernel)
     offsets = torch.as_tensor(batch["pad_offsets"], device=generator.device).long()
     b = offsets.shape[0]
     tokens, margins = [], []
@@ -4152,11 +4199,9 @@ def tp_recipe_rank(argv) -> int:
     return 0
 
 
-def spawn_ranks(flag: str, world: int, root: Path, name: str) -> list:
-    """`world` processes of this script (`flag R PORT DIR`) from a free port,
-    each logging to DIR/rank<R>.log; waits for all within TP_TIMEOUT, kills
-    what is left, prints a failed rank's log and fails the phase unless
-    every rank exits 0. Returns the ranks' records."""
+def start_ranks(flag: str, world: int, root: Path) -> dict:
+    """Start `world` processes of this script (`flag R PORT DIR`) from a free
+    port, each logging to DIR/rank<R>.log; `wait_ranks` collects them."""
     import socket
 
     with socket.socket() as sock:
@@ -4167,24 +4212,43 @@ def spawn_ranks(flag: str, world: int, root: Path, name: str) -> list:
     procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), flag, str(r),
                                str(port), str(root)], stdout=logs[r], stderr=subprocess.STDOUT,
                               env=env) for r in range(world)]
-    deadline = time.perf_counter() + TP_TIMEOUT
+    return dict(procs=procs, logs=logs, root=root, deadline=time.perf_counter() + TP_TIMEOUT)
+
+
+def stop_ranks(ranks: dict) -> None:
+    """Kill what is left of `start_ranks`' processes and close their logs."""
+    for p in ranks["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for f in ranks["logs"]:
+        f.close()
+
+
+def wait_ranks(ranks: dict, name: str) -> list:
+    """Wait for `start_ranks`' processes within TP_TIMEOUT of their start,
+    kill what is left, print a failed rank's log and fail the phase unless
+    every rank exits 0. Returns the ranks' records."""
+    procs, root = ranks["procs"], ranks["root"]
+    world = len(procs)
     try:
-        codes = [p.wait(timeout=max(deadline - time.perf_counter(), 0)) for p in procs]
+        codes = [p.wait(timeout=max(ranks["deadline"] - time.perf_counter(), 0)) for p in procs]
     except subprocess.TimeoutExpired:
         codes = None
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in logs:
-            f.close()
+        stop_ranks(ranks)
     for r in range(world):
         if codes is None or codes[r] != 0:
             print(f"{name} rank {r} log (tail):\n{(root / f'rank{r}.log').read_text()[-3000:]}")
     check(codes is not None, f"{name}: the ranks did not finish within {TP_TIMEOUT} s")
     check(codes == [0] * world, f"{name}: rank exit codes {codes}")
     return [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def spawn_ranks(flag: str, world: int, root: Path, name: str) -> list:
+    """`world` processes of this script (`flag R PORT DIR`), waited for
+    (`start_ranks`, `wait_ranks`). Returns the ranks' records."""
+    return wait_ranks(start_ranks(flag, world, root), name)
 
 
 def tp_phase(smi: str, ref: dict) -> dict:
@@ -4529,25 +4593,34 @@ def whole_samples(step) -> dict:
     return {n: dp_sample(whole_param(step.model, n, p.detach())) for n, p in step.trainable.items()}
 
 
-def sp_pp_rank_steps(cfg, mesh, dev, tp=None, pp=None) -> dict:
-    """Phase 18 (b) / (c) on one rank: SP_STEPS finetune updates on the
-    rank's share, its gradients and trainables sampled whole, the loss on
-    the last batch after the updates, point-to-point sends a step."""
+def sp_pp_rank_steps(cfg, mesh, dev, tp=None, pp=None, ep=None, shape=None,
+                     ready=None) -> dict:
+    """Phase 18 (b) / (c) (and 19 (c)) on one rank: SP_STEPS finetune
+    updates on the rank's share of batches of `shape` (B, T), its gradients
+    and trainables sampled whole, the loss on the last batch after the
+    updates, point-to-point sends a step; ep: a MoE model's expert group;
+    ready: called once the model and step are built, before any step runs
+    (returns when the card is the ranks' alone)."""
     from visper_lm_tpu_torch.models.vlm import init_vlm
     from visper_lm_tpu_torch.parallel import distributed as D
     from visper_lm_tpu_torch.train.train_step import make_train_step
 
     reset, read = dp_counters()
-    batches = sp_pp_batches(cfg, *((1, SP_T) if pp is None else (PP_BATCH, PP_SEQ)))
+    if shape is None:
+        shape = (1, SP_T) if pp is None else (PP_BATCH, PP_SEQ)
+    batches = sp_pp_batches(cfg, *shape)
     local = [D.shard_batch_multihost(b, mesh, device=dev) for b in batches]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = init_vlm(cfg, device=dev, seed=0, tp=tp, pp=pp)
+    model = init_vlm(cfg, device=dev, seed=0, tp=tp, pp=pp, ep=ep)
     step = make_train_step(cfg, dp_opt_cfg("finetune"), model, remat_policy="save_gate",
                            mesh=mesh)
     rec = dict(init_s=time.perf_counter() - t0, s_0=whole_samples(step),
-               decoder_gib=held_bytes(model.decoder.parameters()) / 2**30)
+               decoder_gib=held_bytes(model.decoder.parameters()) / 2**30,
+               bank_bytes=bank_bytes(model))
+    if ready is not None:
+        rec["waited_s"] = ready()
     kept = whole_grads(step)
     runs, p2p = [], []
     for batch in local:
@@ -4643,7 +4716,14 @@ def pp_rank(argv) -> int:
     return 0
 
 
-def held_to_refs(name: str, recs: list, one: dict, f32: dict, smi: str) -> dict:
+def bank_bytes(model) -> int:
+    """Bytes of a MoE decoder's expert banks this process holds (0 for a dense one)."""
+    return sum(p.numel() * p.element_size() for n, p in model.decoder.named_parameters()
+               if ".moe_gate." in n or ".moe_up." in n or ".moe_down." in n)
+
+
+def held_to_refs(name: str, recs: list, one: dict, f32: dict, smi: str,
+                 phase: str = "18") -> dict:
     """Phase 16's bounds on the ranks' FT run against the one-process bf16
     run and the f32 run: each loss (and the loss after the updates) within 2
     x the bf16-vs-f32 distance + 1e-4 relative; the step-1 gradients
@@ -4657,31 +4737,31 @@ def held_to_refs(name: str, recs: list, one: dict, f32: dict, smi: str) -> dict:
         for src, dst in ((rr["g_1"], g_r), (rr["s_0"], s_0), (rr["s_1"], s_1)):
             for n, t in src.items():
                 check(n not in dst or torch.equal(dst[n], t),
-                      f"phase 18 {name}: {n} differs between ranks that hold it")
+                      f"phase {phase} {name}: {n} differs between ranks that hold it")
                 dst[n] = t
-    check(sorted(g_r) == sorted(one["g_1"]), f"phase 18 {name}: the ranks hold "
+    check(sorted(g_r) == sorted(one["g_1"]), f"phase {phase} {name}: the ranks hold "
           f"{len(g_r)} trainables, one process {len(one['g_1'])}")
     losses = recs[0]["losses"]
-    check(all(rr["losses"] == losses for rr in recs), f"phase 18 {name}: the ranks' losses differ")
+    check(all(rr["losses"] == losses for rr in recs), f"phase {phase} {name}: the ranks' losses differ")
     for x, c, f in zip(losses + [recs[0]["loss_after"]], one["losses"] + [one["loss_after"]],
                        f32["losses"] + [f32["loss_after"]]):
         check(abs(x - c) <= 2 * abs(c - f) + 1e-4 * abs(c),
-              f"phase 18 {name}: loss {x} vs one process {c} (f32 {f})")
+              f"phase {phase} {name}: loss {x} vs one process {c} (f32 {f})")
     tol_after = 2 * abs(one["loss_after"] - f32["loss_after"]) + 1e-4 * abs(one["loss_after"])
     moved = abs(one["loss_after"] - one["losses"][-1])
-    check(moved > 3 * tol_after, f"phase 18 {name}: the last update moves the loss {moved:.3g}, "
+    check(moved > 3 * tol_after, f"phase {phase} {name}: the last update moves the loss {moved:.3g}, "
           f"not beyond 3 x its tolerance {tol_after:.3g}")
     d_grad_1 = rel_fro(one["g_1"], f32["g_1"])
     d_grad = rel_fro(g_r, f32["g_1"])
-    check(d_grad <= d_grad_1 + 1e-2, f"phase 18 {name}: gradients {d_grad:.4g} from f32 (one "
+    check(d_grad <= d_grad_1 + 1e-2, f"phase {phase} {name}: gradients {d_grad:.4g} from f32 (one "
           f"process {d_grad_1:.4g})")
     move_1, move_f = deltas(one["s_1"], one["s_0"]), deltas(f32["s_1"], f32["s_0"])
     e_1 = rel_fro(move_1, move_f)
     check(all(torch.equal(s_0[n], one["s_0"][n]) for n in s_0),
-          f"phase 18 {name}: the ranks start from other weights")
+          f"phase {phase} {name}: the ranks start from other weights")
     moves = delta_record(deltas(s_1, s_0), move_1, move_f, DP_LR)
     check(moves["rel_frobenius_to_f32"] <= 2 * e_1 + 1e-3 and moves["rel_frobenius"] <= 3 * e_1 + 1e-3,
-          f"phase 18 {name}: parameter moves {moves} (one process {e_1:.4g} from f32)")
+          f"phase {phase} {name}: parameter moves {moves} (one process {e_1:.4g} from f32)")
     rec = dict(losses=losses, loss_after=recs[0]["loss_after"], losses_one_process=one["losses"],
                loss_after_one_process=one["loss_after"], losses_f32=f32["losses"],
                loss_after_f32=f32["loss_after"], grads_rel_frobenius_to_f32=d_grad,
@@ -4692,12 +4772,12 @@ def held_to_refs(name: str, recs: list, one: dict, f32: dict, smi: str) -> dict:
                            step_ms=rr["step_ms"], launches_per_step=rr["launches"][-1],
                            p2p=rr["p2p"], init_s=rr["init_s"]) for rr in recs])
     for r, rr in enumerate(rec["ranks"]):
-        print(f"phase 18 {name} rank {r}: peak {rr['peak_gib']:.2f} GiB (one process "
+        print(f"phase {phase} {name} rank {r}: peak {rr['peak_gib']:.2f} GiB (one process "
               f"{one['peak_gib']:.2f}), decoder {rr['decoder_gib']:.3f} GiB, B1-B4 a step "
               f"{rr['launches_per_step']}, sends a step {rr['p2p']}, step ms "
               f"{', '.join(f'{x:.1f}' for x in rr['step_ms'])} (one process "
               f"{', '.join(f'{x:.1f}' for x in one['step_ms'])}) [{smi}]")
-    print(f"phase 18 {name}: losses {losses} + after {rec['loss_after']:.6f} (one process "
+    print(f"phase {phase} {name}: losses {losses} + after {rec['loss_after']:.6f} (one process "
           f"{one['losses']} + {one['loss_after']:.6f}; f32 {f32['losses']} + "
           f"{f32['loss_after']:.6f}); step-1 gradients rel Frobenius to f32 {d_grad:.4g} (one "
           f"process {d_grad_1:.4g}); moves {json.dumps(moves)} (one process {e_1:.4g} from f32)")
@@ -4840,6 +4920,455 @@ def sp_pp_phase(smi: str) -> dict:
     return out
 
 
+def moe_config(distill: bool, layers=None):
+    """Phase 19's model: Phi3-mini-4k + CLIP-L (config #1 with distill) with
+    JAX's dry-run MoE (E MOE_EXPERTS, top-MOE_TOP_K, capacity factor 1.25,
+    aux weight 0.01: the config's defaults); `layers` cuts its depth, its
+    taps then inside the cut (DP_TAPS)."""
+    import dataclasses
+
+    from visper_lm_tpu_torch.config import make_distill_config, phi3_clip_vlm
+
+    cfg = phi3_clip_vlm(distill=distill)
+    dec = dataclasses.replace(cfg.decoder, moe_experts=MOE_EXPERTS, moe_top_k=MOE_TOP_K)
+    if layers is not None:
+        dec = dataclasses.replace(dec, num_layers=layers)
+    cfg = dataclasses.replace(cfg, decoder=dec)
+    if distill and layers is not None:
+        cfg = dataclasses.replace(cfg, distill=make_distill_config(layer_indices=DP_TAPS))
+    return cfg
+
+
+def moe_routes(model, run, route=None) -> list:
+    """run() with a hook on each MoE block's input norm: each layer's
+    (token, k) expert ids (`route`, by default `ops.moe.route`, of the
+    block's router on what the MoE layer reads) in the calls of more than
+    one token, on the host."""
+    if route is None:
+        from visper_lm_tpu_torch.ops.moe import route
+
+    routes, hooks = [], []
+    for block in model.decoder.blocks:
+        def hook(mod, inp, out, block=block):
+            if out.shape[1] > 1:
+                logits = out.reshape(-1, out.shape[-1]).float() @ block.moe_router.weight.t()
+                routes.append(route(torch.softmax(logits, -1), block.cfg.moe_top_k)[1].cpu())
+        hooks.append(block.mlp_norm.register_forward_hook(hook))
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return routes
+
+
+def moe_drops(decoder, run) -> dict:
+    """run() with a hook on the decoder: the dropped share of every forward
+    (the mean over the layers), {"prefill": [...], "decode": [...]} by the
+    call's length (read once run() is done: no host sync inside)."""
+    seen = {"prefill": [], "decode": []}
+
+    def hook(mod, args, kwargs, out):
+        t = (args[0] if args else kwargs["inputs_embeds"]).shape[1]
+        seen["prefill" if t > 1 else "decode"].append(out["moe_aux"]["dropped_frac"].detach())
+
+    handle = decoder.register_forward_hook(hook, with_kwargs=True)
+    try:
+        run()
+    finally:
+        handle.remove()
+    return {k: [float(x) for x in v] for k, v in seen.items()}
+
+
+def moe_serving(smi: str, qm) -> tuple:
+    """Phase 19 (a): the Generator on the MoE model at full width and depth,
+    an int4 prefill, and the first MOE_F32_LAYERS layers held to an f32 run.
+    Returns (the record, the model: (b) trains it)."""
+    from visper_lm_tpu_torch.models.vlm import init_vlm
+    from visper_lm_tpu_torch.ops import flash_attention as fa
+    from visper_lm_tpu_torch.serve.generate import GenerationConfig, Generator
+
+    cfg = moe_config(distill=True)
+    d = cfg.decoder
+    batch = main_path_batch(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_vlm(cfg, device="cuda", seed=19)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_dec = sum(p.numel() for p in model.decoder.parameters())
+    w_bytes = decoder_bytes(model)
+    check(abs(n_dec / 11.07e9 - 1) < 0.01, f"phase 19 (a): {n_dec / 1e9:.3f} B decoder parameters, "
+          "not Phi3-mini's widths with 4 experts (11.07 B)")
+    check(model.decoder.blocks[0].moe_router.weight.dtype == torch.float32,
+          "phase 19 (a): the router is not f32")
+    gen_cfg = GenerationConfig(max_new_tokens=MOE_NEW_TOKENS)
+    generator = Generator(model, cfg, gen_cfg, BATCH, PROMPT_LEN, device="cuda")
+    fa.launches = 0
+    holder = {}
+    drops = moe_drops(model.decoder, lambda: holder.update(out=generator.generate(batch)))
+    launches = fa.launches
+    outputs = holder["out"]
+    check(launches == d.num_layers, f"phase 19 (a): {launches} B1 launches, expected {d.num_layers}")
+    check(len(outputs) == BATCH and all(len(o) == MOE_NEW_TOKENS for o in outputs)
+          and all(0 <= x < d.vocab_size for o in outputs for x in o),
+          f"phase 19 (a): tokens {[len(o) for o in outputs]}")
+    check(len(drops["prefill"]) == 1 and len(drops["decode"]) >= MOE_NEW_TOKENS - 1,
+          f"phase 19 (a): {len(drops['prefill'])} prefills, {len(drops['decode'])} decode steps")
+    timing = timed_generate(generator, batch, gen_cfg, new_tokens=MOE_NEW_TOKENS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    logits_bf16 = generator.prefill(batch)[0].float()
+    check(bool(torch.isfinite(logits_bf16).all()), "phase 19 (a): prefill logits not finite")
+    del generator
+    release_cuda()
+
+    # an int4 prefill: B5 on the attention projections and the head only
+    q_gen = Generator(model, cfg, GenerationConfig(max_new_tokens=MOE_NEW_TOKENS,
+                                                   weight_quant="int4"),
+                      BATCH, PROMPT_LEN, device="cuda")
+    qm.launches = 0
+    logits_q = q_gen.prefill(batch)[0].float()
+    torch.cuda.synchronize()
+    q_launches = qm.launches
+    t0 = time.perf_counter()
+    q_gen.prefill(batch)
+    torch.cuda.synchronize()
+    q_ms = (time.perf_counter() - t0) * 1e3
+    want_q = 4 * d.num_layers + 1
+    check(q_launches == want_q, f"phase 19 (a): {q_launches} B5 launches an int4 prefill, "
+          f"expected {want_q} (4 attention projections a layer + the head; the banks stay dense)")
+    check(bool(torch.isfinite(logits_q).all()), "phase 19 (a): int4 prefill logits not finite")
+    drift = float((logits_q - logits_bf16).square().mean().sqrt()
+                  / logits_bf16.square().mean().sqrt())
+    del q_gen, logits_q
+    release_cuda()
+
+    # the first MOE_F32_LAYERS layers, bf16 with the kernels against the same
+    # weights in f32 on the plain path, routing as its own logits say (free)
+    # and routing as the bf16 run did (forced: the arithmetic alone; a
+    # routing flip sends a token to another expert, a jump no bf16 bound
+    # covers, so flips are counted, not bounded away)
+    import visper_lm_tpu_torch.ops.moe as moe_ops
+
+    cut, cfg_c, _ = cut_depth(model, cfg, {}, MOE_F32_LAYERS)
+    g_cfg = GenerationConfig(max_new_tokens=TP_NEW_TOKENS)
+    gen_b = Generator(cut, cfg_c, g_cfg, BATCH, PROMPT_LEN, device="cuda")
+    got, taken = {}, []
+    routed = moe_ops.route
+
+    def recording(probs, k):
+        vals, idx = routed(probs, k)
+        taken.append(idx)
+        return vals, idx
+
+    moe_ops.route = recording
+    try:
+        routes_b = moe_routes(cut, lambda: got.update(
+            logits=gen_b.prefill(batch)[0].float().cpu()), route=routed)
+    finally:
+        moe_ops.route = routed
+    tokens_b, _ = greedy_margins(gen_b, batch, TP_NEW_TOKENS)
+    del gen_b
+    ref = copy.deepcopy(cut).float()
+    gen_f = Generator(ref, cfg_c, g_cfg, BATCH, PROMPT_LEN, cache_dtype=torch.float32,
+                      device="cuda")
+    routes_f = moe_routes(ref, lambda: got.update(
+        logits_f=gen_f.prefill(batch, use_kernel=False)[0].float().cpu()))
+    tokens_f, margins_f = greedy_margins(gen_f, batch, TP_NEW_TOKENS, use_kernel=False)
+    forced = iter(taken)
+
+    def replay(probs, k):
+        idx = next(forced)
+        return probs.gather(1, idx), idx
+
+    moe_ops.route = replay
+    try:
+        got["logits_forced"] = gen_f.prefill(batch, use_kernel=False)[0].float().cpu()
+    finally:
+        moe_ops.route = routed
+    del gen_f, ref, cut, taken
+    release_cuda()
+    scale = float(got["logits_f"].abs().max())
+    diff = float((got["logits"] - got["logits_forced"]).abs().max())
+    free = float((got["logits"] - got["logits_f"]).abs().max())
+    # pad rows differ by design (the kernel gives a fully masked row 0, the
+    # plain version the mean of v), so their routes are compared apart
+    valid = (torch.arange(PROMPT_LEN)[None, :]
+             >= torch.as_tensor(batch["pad_offsets"]).reshape(-1, 1)).reshape(-1)
+    agree = [float((rb == rf)[valid].float().mean()) for rb, rf in zip(routes_b, routes_f)]
+    agree_all = [float((rb == rf).float().mean()) for rb, rf in zip(routes_b, routes_f)]
+    flips = [int((rb != rf)[valid].sum()) for rb, rf in zip(routes_b, routes_f)]
+    tol = 2 * free
+    low = margins_f < tol
+    first_low = [int(low[:, i].nonzero()[0]) if low[:, i].any() else TP_NEW_TOKENS
+                 for i in range(BATCH)]
+    same_to = [next((j for j in range(TP_NEW_TOKENS) if tokens_b[j, i] != tokens_f[j, i]),
+                    TP_NEW_TOKENS) for i in range(BATCH)]
+    print(f"phase 19 (a) {MOE_F32_LAYERS} layers bf16 + kernels vs f32 plain: prefill logits max "
+          f"abs {diff:.4g} with the bf16 run's routes, {free:.4g} routing freely (max |logit| "
+          f"{scale:.4g}); routes of the {int(valid.sum())} tokens agree by layer "
+          f"{', '.join(f'{a:.4f}' for a in agree)} (flips {flips} of "
+          f"{int(valid.sum()) * MOE_TOP_K}; with the pad rows "
+          f"{', '.join(f'{a:.4f}' for a in agree_all)}); greedy tokens equal through {same_to} "
+          f"(f32 margin first under {tol:.4g} at {first_low})")
+    check(diff <= 0.05 * scale, f"phase 19 (a): {MOE_F32_LAYERS}-layer prefill logits {diff:.4g} "
+          f"from f32 on the same routes, beyond 0.05 x {scale:.4g}")
+    check(len(routes_b) == len(routes_f) == MOE_F32_LAYERS, "phase 19 (a): routes not captured")
+    check(min(agree) >= 0.9, f"phase 19 (a): (token, k) routes agree with f32's {agree} by layer")
+    check(all(g >= f for g, f in zip(same_to, first_low)),
+          f"phase 19 (a): tokens differ from f32's at {same_to} before the first position where "
+          f"the f32 top-2 margin falls under {tol:.4g} ({first_low})")
+    rec = dict(card=smi, decoder_params=n_dec, weight_gb=w_bytes / 1e9, weight_gib=w_bytes / 2**30,
+               init_s=init_s, b1_launches_prefill=launches, peak_gib=peak, **timing,
+               dropped_frac_prefill=drops["prefill"][0],
+               dropped_frac_decode_mean=sum(drops["decode"]) / len(drops["decode"]),
+               dropped_frac_decode_max=max(drops["decode"]),
+               int4=dict(b5_launches_prefill=q_launches, prefill_ms=q_ms, drift_vs_bf16=drift),
+               f32_hold=dict(layers=MOE_F32_LAYERS, logits_max_abs=diff, max_abs_logit=scale,
+                             logits_max_abs_free=free,
+                             route_agreement=agree, route_flips=flips,
+                             route_agreement_with_pad_rows=agree_all,
+                             routes_per_layer=int(valid.sum()) * MOE_TOP_K, tolerance=tol,
+                             tokens_equal_through=same_to, first_low_margin=first_low))
+    print(f"phase 19 (a) MoE Generator (Phi3-mini widths, {d.num_layers} layers, E "
+          f"{d.moe_experts} top-{d.moe_top_k}, cf {d.moe_capacity_factor}, bf16; {n_dec / 1e9:.3f} "
+          f"B decoder parameters, {w_bytes / 1e9:.2f} GB = {w_bytes / 2**30:.2f} GiB): B{BATCH} x "
+          f"{PROMPT_LEN} prefill {timing['prefill_ms']:.1f} ms, decode "
+          f"{timing['decode_ms_per_token']:.2f} ms/token ({MOE_NEW_TOKENS} tokens), peak "
+          f"{peak:.2f} GiB, B1 {launches} a prefill; dropped share prefill "
+          f"{rec['dropped_frac_prefill']:.4f}, decode mean {rec['dropped_frac_decode_mean']:.4f} "
+          f"max {rec['dropped_frac_decode_max']:.4f} (N 8: capacity 5) [{smi}]")
+    print(f"phase 19 (a) int4 prefill: B5 {q_launches} a forward, {q_ms:.1f} ms, RMS drift vs bf16 "
+          f"{drift:.4g} [{smi}]")
+    return rec, model
+
+
+def moe_pt_hold(teachers, tfn, reset, read) -> dict:
+    """Phase 19 (b)'s hold: config #1's PT step with the MoE decoder cut to
+    MOE_PT_LAYERS layers, bf16 (save_gate, the kernels) against the same
+    student in f32 (plain attention, the port's AdamW in f32) from the same
+    weights on DP_STEPS batches: phase 16's tolerances of a bf16 run from
+    f32, and its two checks that the bounds can fail."""
+    from visper_lm_tpu_torch.models.vlm import init_vlm
+    from visper_lm_tpu_torch.train.optimizer import AdamW
+    from visper_lm_tpu_torch.train.train_step import make_loss_fn, make_train_step
+
+    cfg = moe_config(distill=True, layers=MOE_PT_LAYERS)
+    batches = [train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=s) for s in range(DP_STEPS)]
+    model = init_vlm(cfg, device="cuda", seed=19)
+    step = make_train_step(cfg, dp_opt_cfg("pretrain"), model, teacher_fn=tfn,
+                           teacher_params=teachers, remat_policy="save_gate")
+    names = list(step.trainable)
+    p0 = {n: p.detach().clone() for n, p in step.trainable.items()}
+    still = dp_loss_at(step, batches[-1])
+    kept = dp_grads(step)
+    one = dp_steps(step, batches, reset, read)
+    g_1 = {n: s for n, (_, s) in kept.items()}
+    move_1 = deltas({n: p.detach().cpu() for n, p in step.trainable.items()},
+                    {n: p.cpu() for n, p in p0.items()})
+    del step
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for n in names:
+            params[n].copy_(p0[n])
+    model.float()
+    loss_fn = make_loss_fn(cfg, teacher_fn=tfn, use_kernel=False)
+    opt_f = AdamW(((n, params[n]) for n in names), dp_opt_cfg("pretrain"))
+    losses_f, g_f = [], None
+    for batch in batches:
+        dbatch = {k: torch.as_tensor(v).to("cuda") for k, v in batch.items()}
+        loss, grads = loss_and_grads(loss_fn, model, dbatch, teachers, [params[n] for n in names])
+        grads = {n: torch.zeros_like(params[n]) if g is None else g for n, g in zip(names, grads)}
+        if g_f is None:
+            g_f = {n: dp_sample(g) for n, g in grads.items()}
+        opt_f.step(grads)
+        losses_f.append(loss)
+        del grads, dbatch
+    move_f = deltas({n: params[n].detach().cpu() for n in names},
+                    {n: p.cpu() for n, p in p0.items()})
+    del opt_f, params, model, p0
+    release_cuda()
+    d_loss = [abs(a - f) / abs(f) for a, f in zip(one["losses"], losses_f)]
+    d_grad = rel_fro(g_1, g_f)
+    e_1 = rel_fro(move_1, move_f)
+    tol_last = 2 * abs(one["losses"][-1] - losses_f[-1]) + 1e-4 * abs(one["losses"][-1])
+    moved = abs(one["losses"][-1] - still)
+    check(max(d_loss) <= 1e-2, f"phase 19 (b): losses {d_loss} from f32 at {MOE_PT_LAYERS} layers")
+    check(d_grad <= 3e-2, f"phase 19 (b): step-1 gradients {d_grad:.4g} from f32")
+    check(moved > 3 * tol_last, f"phase 19 (b): the updates move the last loss {moved:.3g}, not "
+          f"beyond 3 x its tolerance {tol_last:.3g}")
+    check(3 * e_1 + 1e-2 <= 0.75, f"phase 19 (b): bf16 moves {e_1:.3g} from f32, too far to tell "
+          "an update from none")
+    want = dp_expected(MOE_PT_LAYERS, 24, TRAIN_BATCH)
+    check(all(c == want for c in one["launches"]),
+          f"phase 19 (b) hold: launches {one['launches']}, expected {want} a step")
+    return dict(layers=MOE_PT_LAYERS, losses=one["losses"], losses_f32=losses_f, loss_rel=d_loss,
+                grads_rel_frobenius=d_grad, moves_rel_frobenius=e_1, last_loss_moved=moved,
+                last_loss_tolerance=tol_last, launches_per_step=one["launches"][-1])
+
+
+def moe_training(smi: str, model, reset, read) -> dict:
+    """Phase 19 (b): bench.py config #1's PT step (B4 x T1024, the teachers
+    in the step, save_gate) with the MoE decoder at full depth, then the
+    hold at MOE_PT_LAYERS layers."""
+    from visper_lm_tpu_torch.models.teachers import init_teachers, make_teacher_fn
+    from visper_lm_tpu_torch.train.train_step import make_train_step
+
+    cfg = moe_config(distill=True)
+    d = cfg.decoder
+    teachers = init_teachers(cfg, device="cuda", seed=7)
+    tfn = make_teacher_fn(cfg)
+    n_swin = sum(teachers["swin"].cfg.depths)
+    step = make_train_step(cfg, dp_opt_cfg("pretrain"), model, teacher_fn=tfn,
+                           teacher_params=teachers, remat_policy="save_gate")
+    tbatch = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    first = step(tbatch)                                 # update 1: lr 0
+    torch.cuda.reset_peak_memory_stats()
+    want = dp_expected(d.num_layers, n_swin, TRAIN_BATCH)
+    steps = dp_steps(step, [tbatch] * MOE_PT_STEPS, reset, read)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    metrics = step.last_metrics
+    losses = [first["loss"]] + steps["losses"]
+    check(all(c == want for c in steps["launches"]),
+          f"phase 19 (b): launches {steps['launches']}, expected {want} a step")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] != losses[-2],
+          f"phase 19 (b): losses {losses}")
+    check(all(math.isfinite(metrics[k]) for k in ("moe_lb_loss", "moe_z_loss", "moe_dropped_frac")),
+          f"phase 19 (b): MoE metrics {metrics}")
+    del step, model
+    release_cuda()
+    hold = moe_pt_hold(teachers, tfn, reset, read)
+    del teachers
+    release_cuda()
+    rec = dict(card=smi, step_ms=steps["step_ms"], peak_gib=peak, losses=losses,
+               launches_per_step=steps["launches"][-1],
+               moe=dict(lb_loss=metrics["moe_lb_loss"], z_loss=metrics["moe_z_loss"],
+                        dropped_frac=metrics["moe_dropped_frac"]), hold=hold)
+    print(f"phase 19 (b) PT step, MoE decoder at {d.num_layers} layers (B{TRAIN_BATCH} x "
+          f"T{TRAIN_SEQ}, teachers in the step, save_gate): "
+          f"{', '.join(f'{x:.1f}' for x in steps['step_ms'])} ms a step, peak {peak:.2f} GiB, "
+          f"B1-B4 a step {steps['launches'][-1]}, losses {losses}, moe {json.dumps(rec['moe'])} "
+          f"[{smi}]")
+    print(f"phase 19 (b) at {MOE_PT_LAYERS} layers bf16 vs f32: losses {hold['losses']} vs "
+          f"{hold['losses_f32']} (rel {', '.join(f'{x:.3g}' for x in hold['loss_rel'])}); step-1 "
+          f"gradients rel Frobenius {hold['grads_rel_frobenius']:.4g}; moves "
+          f"{hold['moves_rel_frobenius']:.4g}; B1-B4 a step {hold['launches_per_step']}")
+    return rec
+
+
+def ep_rank(argv) -> int:
+    """One of phase 19 (c)'s two ranks (`chip_smoke.py --phase19-rank R PORT
+    DIR`, dp 1 x ep 2 sharing the card over gloo): the finetune step of the
+    MoE decoder at Phi3-mini widths, MOE_EP_LAYERS layers, the rank's two
+    experts. The rank builds its model while the parent's f32 run holds the
+    card, and steps only once DIR/go exists (the f32 run is over), so its
+    step times are its own. Writes DIR/rank<R>.pt."""
+    from visper_lm_tpu_torch.ops.moe import expert_parallel
+    from visper_lm_tpu_torch.parallel import distributed as D
+
+    rank, port, root = int(argv[0]), int(argv[1]), Path(argv[2])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    D.init_distributed(f"localhost:{port}", 2, rank, local_device_ids=[0], device="cuda",
+                       backend="gloo")
+    mesh = D.make_global_mesh(dp=1, ep=2)
+    ep = expert_parallel(mesh)
+    out = dict(backend=str(torch.distributed.get_backend()), start_s=time.perf_counter() - t_start,
+               expert_rank=ep.rank)
+
+    def ready() -> float:
+        t0 = time.perf_counter()
+        while not (root / "go").exists():
+            time.sleep(0.05)
+        D.barrier()
+        return time.perf_counter() - t0
+
+    out["c"] = sp_pp_rank_steps(moe_config(distill=False, layers=MOE_EP_LAYERS), mesh,
+                                torch.device("cuda", 0), ep=ep, shape=(TRAIN_BATCH, TRAIN_SEQ),
+                                ready=ready)
+    out["seconds"] = time.perf_counter() - t_start
+    torch.save(out, root / f"rank{rank}.pt")
+    D.barrier()
+    D.shutdown()
+    return 0
+
+
+def moe_ep(smi: str, reset, read) -> dict:
+    """Phase 19 (c): the finetune step at ep 2 on two gloo ranks sharing the
+    card, held to the one-process step and an f32 run by phase 16's bounds."""
+    import shutil
+
+    root = Path(__file__).resolve().parent / "tmp" / "chip_smoke_ep"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        cfg = moe_config(distill=False, layers=MOE_EP_LAYERS)
+        batches = sp_pp_batches(cfg, TRAIN_BATCH, TRAIN_SEQ)
+        one = one_process_steps(cfg, batches, "finetune", reset, read)
+        whole_banks = MOE_EP_LAYERS * 3 * MOE_EXPERTS * cfg.decoder.hidden_size * \
+            cfg.decoder.mlp_dim * 2
+        # the ranks start, import and build their models while the f32 run
+        # (whose times are not read) holds the card; they step only after it
+        # (DIR/go), so their step times are taken with the card theirs alone
+        t0 = time.perf_counter()
+        started = start_ranks("--phase19-rank", 2, root)
+        try:
+            f32 = f32_steps(cfg, batches, "finetune", chunked=False)
+            release_cuda()
+            (root / "go").touch()
+        except BaseException:
+            stop_ranks(started)
+            raise
+        ranks = wait_ranks(started, "phase 19 (c)")
+        ranks_s = time.perf_counter() - t0
+        check(all(r["backend"] == "gloo" for r in ranks), "phase 19 (c): the ranks did not run gloo")
+        check([r["expert_rank"] for r in ranks] == [0, 1], "phase 19 (c): expert ranks")
+        want = dp_expected(MOE_EP_LAYERS, 0, 0)
+        for rr in [r["c"] for r in ranks] + [one]:
+            check(all(c == want for c in rr["launches"]),
+                  f"phase 19 (c): launches {rr['launches']}, expected {want}")
+        for r, rr in enumerate(ranks):
+            check(rr["c"]["bank_bytes"] * 2 == whole_banks,
+                  f"phase 19 (c) rank {r}: {rr['c']['bank_bytes']} bytes of banks, not half of "
+                  f"{whole_banks}")
+        router = [n for n in ranks[0]["c"]["s_1"] if ".moe_router." in n]
+        check(router and all(torch.equal(ranks[0]["c"]["s_1"][n], ranks[1]["c"]["s_1"][n])
+                             for n in router), "phase 19 (c): the routers differ after the update")
+        rec = held_to_refs("(c) ep 2", [r["c"] for r in ranks], one, f32, smi, phase="19")
+        rec.update(bank_bytes_a_rank=[r["c"]["bank_bytes"] for r in ranks],
+                   bank_bytes_whole=whole_banks, ranks_s=ranks_s,
+                   ranks_waited_s=[r["c"]["waited_s"] for r in ranks])
+        print(f"phase 19 (c) ep 2: banks {ranks[0]['c']['bank_bytes'] / 2**30:.3f} GiB a rank of "
+              f"{whole_banks / 2**30:.3f}; routers and replicated parameters bit-equal across the "
+              f"ranks [{smi}]")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        release_cuda()
+    return rec
+
+
+def moe_phase(smi: str) -> dict:
+    """Phase 19: the MoE decoder and expert parallelism (see the module
+    docstring). Returns the record printed as `moe_path`."""
+    from visper_lm_tpu_torch.ops import quant_matmul as qm
+
+    reset, read = dp_counters()
+    out = {}
+    t0 = time.perf_counter()
+    out["a"], model = moe_serving(smi, qm)
+    out["seconds_a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["b"] = moe_training(smi, model, reset, read)
+    out["seconds_b"] = time.perf_counter() - t0
+    del model
+    release_cuda()
+    t0 = time.perf_counter()
+    out["c"] = moe_ep(smi, reset, read)
+    out["seconds_c"] = time.perf_counter() - t0
+    return out
+
+
 def release_cuda():
     gc.collect()
     torch.cuda.empty_cache()
@@ -4873,6 +5402,8 @@ def main() -> int:
         return sp_rank(sys.argv[2:])
     if sys.argv[1:2] == ["--phase18c-rank"]:
         return pp_rank(sys.argv[2:])
+    if sys.argv[1:2] == ["--phase19-rank"]:
+        return ep_rank(sys.argv[2:])
     from visper_lm_tpu_torch.config import LLAMA3_8B, phi3_clip_vlm
     from visper_lm_tpu_torch.models.teachers import init_teachers, make_teacher_fn
     from visper_lm_tpu_torch.models.decoder import quantize_head_vectors
@@ -4906,6 +5437,14 @@ def main() -> int:
     for lib, log in logs.items():
         for entry, res in _build.kernel_resources(log).items():
             print(f"ptxas[{lib}] {entry}: {json.dumps(res)}")
+    if sys.argv[1:2] == ["--phase19"]:
+        # phase 19 on its own, after the build (a measurement run)
+        t0 = time.perf_counter()
+        moe = moe_phase(smi)
+        moe["seconds"] = time.perf_counter() - t0
+        print(f"moe phase {moe['seconds']:.1f} s [{smi}]")
+        print("moe_path " + json.dumps(moe))
+        return 0
     if sys.argv[1:2] == ["--phase18"]:
         # phase 18 on its own, after the build (a measurement run)
         t0 = time.perf_counter()
@@ -5031,8 +5570,8 @@ def main() -> int:
     # B6 at the decode shape (this Generator's max_len 896, the last decode
     # step's lengths 800 over the main path's left pads) in bf16 and int8, and
     # GQA 32/8 H128 with a fully masked row (batch row 2)
-    serve_max_len = -(-(PROMPT_LEN + NEW_TOKENS + 1) // 128) * 128
-    dec_lens = [PROMPT_LEN + NEW_TOKENS] * BATCH
+    serve_max_len = -(-(PROMPT_LEN + B6_DECODED + 1) // 128) * 128
+    dec_lens = [PROMPT_LEN + B6_DECODED] * BATCH
     dec_bf16 = decode_case("decode_bf16", BATCH, d.num_heads, d.num_kv_heads, d.head_dim,
                            serve_max_len, False, offsets, dec_lens, gen, da, quantize_head_vectors)
     dec_rec = decode_case("decode_int8", BATCH, d.num_heads, d.num_kv_heads, d.head_dim,
@@ -5388,9 +5927,17 @@ def main() -> int:
     sp_pp["seconds"] = time.perf_counter() - t0
     print(f"sp_pp phase {sp_pp['seconds']:.1f} s [{smi}]")
     print("sp_pp_path " + json.dumps(sp_pp))
-    dec_launches = da.launches                  # over phases 4-18
+    # 19. the MoE decoder: the Generator at full depth (and an int4 prefill,
+    # and 8 layers held to f32), config #1's PT step with the MoE decoder, the
+    # finetune step at ep 2
+    t0 = time.perf_counter()
+    moe = moe_phase(smi)
+    moe["seconds"] = time.perf_counter() - t0
+    print(f"moe phase {moe['seconds']:.1f} s [{smi}]")
+    print("moe_path " + json.dumps(moe))
+    dec_launches = da.launches                  # over phases 4-19
     print(f"decode_attn launches over the serving, training, engine, api, vision, recipe, viz, "
-          f"eval and memory paths: {dec_launches}")
+          f"eval, memory, parallel and MoE paths: {dec_launches}")
     check(dec_launches == 0, f"decode_attn launched {dec_launches} times; no path calls it")
 
     def entry(kname, source, replaces, rec, launches):
@@ -5412,6 +5959,13 @@ def main() -> int:
         return dict(attention_a_rank=sp_pp["a"]["ulysses"]["launches"][kname],
                     sp_step_a_rank=sp_pp["b"]["ranks"][0]["launches_per_step"][kname],
                     pp_step_a_rank=sp_pp["c"]["ranks"][0]["launches_per_step"][kname])
+
+    def phase19(kname):
+        """A kernel's launches in phase 19: a MoE prefill (a), a PT step with
+        the MoE decoder (b) and a rank's finetune step at ep 2 (c)."""
+        return dict(prefill=moe["a"]["b1_launches_prefill"] if kname == "flash_fwd" else 0,
+                    pt_step=moe["b"]["launches_per_step"][kname],
+                    ep_step_a_rank=moe["c"]["ranks"][0]["launches_per_step"][kname])
 
     main_launches = trainer["trainer"]["launches"]   # trainer.train, the main path
     kernels = [
@@ -5441,6 +5995,7 @@ def main() -> int:
                                    pt_step_a_rank=tp_rank_launches["flash_fwd"],
                                    recipe_step_a_rank=tp_recipe_launches["flash_fwd"]),
              launches_phase18=phase18("flash_fwd"),
+             launches_phase19=phase19("flash_fwd"),
              ift_t4096={k: memory["b1"][k] for k in LLAMA3_KEYS},
              train=dict(shape=train_fwd_rec["shape"], ms=train_fwd_rec["ms"],
                         mma_sync_ms=train_fwd_rec["mma_sync_ms"],
@@ -5457,6 +6012,7 @@ def main() -> int:
              launches_phase17=dict(pt_step_a_rank=tp_rank_launches["flash_bwd_dq"],
                                    recipe_step_a_rank=tp_recipe_launches["flash_bwd_dq"]),
              launches_phase18=phase18("flash_bwd_dq"),
+             launches_phase19=phase19("flash_bwd_dq"),
              ift_t4096={k: memory["b2"][k] for k in LLAMA3_KEYS + ("device_ms",)},
              library="SDPA backward (dq, dk and dv in one call)",
              gqa=dict(shape=gqa_dq["shape"], ms=gqa_dq["ms"], device_ms=gqa_dq["device_ms"],
@@ -5472,6 +6028,7 @@ def main() -> int:
              launches_phase17=dict(pt_step_a_rank=tp_rank_launches["flash_bwd_dkv"],
                                    recipe_step_a_rank=tp_recipe_launches["flash_bwd_dkv"]),
              launches_phase18=phase18("flash_bwd_dkv"),
+             launches_phase19=phase19("flash_bwd_dkv"),
              ift_t4096={k: memory["b3"][k] for k in LLAMA3_KEYS + ("device_ms",)},
              library="SDPA backward (dq, dk and dv in one call)",
              gqa=dict(shape=gqa_dkv["shape"], ms=gqa_dkv["ms"], device_ms=gqa_dkv["device_ms"],
@@ -5485,6 +6042,7 @@ def main() -> int:
              launches_phase17=dict(pt_step_a_rank=tp_rank_launches["window_attn"],
                                    recipe_step_a_rank=tp_recipe_launches["window_attn"]),
              launches_phase18=phase18("window_attn"),
+             launches_phase19=phase19("window_attn"),
              eager_ms=win_rec["eager_ms"],
              stages={r["case"]: dict(ms=r["ms"],
                                      library_ms=r["library_ms"], bound_ms=r["bound_ms"],
@@ -5493,6 +6051,7 @@ def main() -> int:
         dict(entry("w4_matmul", csrc + "w4_matmul.cu", "visper_lm_tpu/ops/quant_matmul.py:125",
                    w4_rec, w4_launches),
              shape=w4_rec["shape"], launches_per_forward=per_forward,
+             launches_phase19=dict(moe_int4_prefill=moe["a"]["int4"]["b5_launches_prefill"]),
              launches_engine=engine["int4_engine"]["w4_launches"],
              mma_sync_ms=w4_rec["mma_sync_ms"],
              llama3=dict({case: {k: rec[k] for k in LLAMA3_KEYS + ("cold_ms", "library_cold_ms")

@@ -326,6 +326,7 @@ def test_what_is_not_ported_raises(models):
     assert sorted(interp) == sorted(t.task for t in tm.cfg.distill.tasks)
     from visper_lm_tpu_torch.models.decoder import Decoder
 
-    # LoRA is ported (models/lora.py); MoE decoders are still to come
-    with pytest.raises(NotImplementedError, match="MoE"):
-        Decoder(dataclasses.replace(tm.cfg.decoder, moe_experts=4), device="meta")
+    # LoRA is ported (models/lora.py), and MoE decoders (ops/moe.py): a MoE
+    # block holds the router and the expert banks in place of the dense MLP
+    moe = Decoder(dataclasses.replace(tm.cfg.decoder, moe_experts=4), device="meta")
+    assert hasattr(moe.blocks[0], "moe_router") and not hasattr(moe.blocks[0], "gate_proj")

@@ -240,7 +240,7 @@ def test_pt_step_at_dp2_sp2_matches_jax(runs):
 def test_mesh_axes_follow_jax():
     """make_mesh(sp=, pp=) builds JAX's axis order ('data', 'pipe', 'seq',
     'model') over the first dp·pp·sp·tp ranks; the groups are its lines;
-    ep > 1 still raises, naming A10d."""
+    ep > 1 adds JAX's 'expert' axis between 'pipe' and 'seq'."""
     jm = jmake_mesh(dp=1, pp=2, sp=2, tp=2, devices=jax.devices()[:8])
     tm = make_mesh(dp=1, pp=2, sp=2, tp=2, world=8)
     assert tm.axis_names == tuple(jm.axis_names)
@@ -250,8 +250,9 @@ def test_mesh_axes_follow_jax():
     assert tm.seq_group_ranks(0) == (0, 2) and tm.pipe_group_ranks(0) == (0, 4)
     assert tm.model_group_ranks(5) == (4, 5) and tm.data_group_ranks(3) == (3,)
     assert make_mesh(sp=2, world=4).shape == {"data": 2, "seq": 2, "model": 1}
-    with pytest.raises(NotImplementedError, match="A10d"):
-        make_mesh(ep=2, world=4)
+    em = make_mesh(ep=2, world=4)
+    assert em.axis_names == tuple(jmake_mesh(ep=2, devices=jax.devices()[:4]).axis_names)
+    assert em.shape == {"data": 2, "expert": 2, "model": 1}
 
 
 def test_row_targets_cross_the_rank_boundary():

@@ -245,12 +245,13 @@ def test_make_mesh_shapes_and_errors():
             assert m.coords(r) == {"data": r // tp, "model": r % tp}
             assert m.model_group_ranks(r) == tuple(range(r // tp * tp, r // tp * tp + tp))
             assert m.data_group_ranks(r) == tuple(range(r % tp, dp * tp, tp))
-    # the 'seq' and 'pipe' axes (A10c) in JAX's order; 'expert' still raises
-    for kw in (dict(sp=2), dict(pp=2), dict(sp=2, pp=2, tp=2), dict(dp=2, pp=2, tp=2)):
+    # the 'seq', 'pipe' (A10c) and 'expert' (A10d) axes in JAX's order
+    for kw in (dict(sp=2), dict(pp=2), dict(sp=2, pp=2, tp=2), dict(dp=2, pp=2, tp=2),
+               dict(ep=2), dict(dp=2, ep=2, tp=2), dict(pp=2, ep=2, sp=2)):
         m = tmesh.make_mesh(world=8, **kw)
         assert m.shape == dict(jmesh.make_mesh(**kw).shape), kw
-    with pytest.raises(NotImplementedError, match="A10d"):
-        tmesh.make_mesh(world=8, ep=2)
+    m = tmesh.make_mesh(world=8, dp=2, ep=2, tp=2)
+    assert m.expert_size == 2 and m.expert_group_ranks(1) == (1, 3)
     assert tmesh.make_mesh().shape == {"data": 1, "model": 1}    # one process
     assert tmesh.single_device_mesh().size == 1
 

@@ -71,8 +71,10 @@ class DecoderConfig:
     tie_embeddings: bool = False
     family: str = "llama"  # "llama" | "phi3"
     dtype: str = "bfloat16"
-    # Sparse MLP fields, kept for config parity; the port's decoder is dense
-    # and rejects moe_experts > 0.
+    # Sparse MLP (ops/moe.py): 0 = dense (every reference model). When > 0 the
+    # block's MLP is moe_experts SiLU experts, moe_top_k of them a token, each
+    # with a static capacity of moe_capacity_factor x its even share; the
+    # Switch load-balance loss enters the train loss with moe_aux_weight.
     moe_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25

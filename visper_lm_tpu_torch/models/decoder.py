@@ -7,7 +7,25 @@ one per sample (`write_cache_chunk`), quantized serving weights
 (`quantize_decoder`: w8a16 or w4a16 `QuantLinear`s), per-channel activation
 statistics for AWQ calibration, and layer taps for the distillation heads in
 training. The JAX layer `lax.scan` over stacked blocks becomes a Python loop
-over an `nn.ModuleList`; MoE is later-slice machinery and is not here.
+over an `nn.ModuleList`.
+
+Mixture of experts (cfg.moe_experts > 0, JAX's sparse block): the block's
+MLP is ops/moe.py's `moe_mlp` (a router `moe_router`, f32, and the expert
+banks `moe_gate` / `moe_up` / `moe_down` in JAX's (E, din, dout) layout, a
+rank's E/ep of them under expert parallelism, `Decoder.ep`). Each MoE block
+also returns its aux losses, and the decoder returns their mean over the
+layers as `moe_aux` (JAX's, which the train loss adds); the cache path
+returns them too (JAX drops them there). With `moe_data` (the data group,
+which the train step's loss passes under data parallelism) capacity,
+priority and the aux are the global batch's; every other call routes over
+its own tokens. A remat policy saves nothing inside the
+MoE block (JAX names no site there). Under sequence or pipeline
+parallelism a rank holds a slice of the rows or a stage, so capacity would
+be the slice's: MoE raises there (ROADMAP C25), as it does on the streamed
+layout (JAX's assert). Under tensor parallelism the banks are replicated
+over the group and each rank runs the whole MoE MLP on the full hidden
+state after the row-parallel all-reduce (JAX's rules put no 'model' dim on
+them).
 
 LoRA (`Decoder.forward(lora=...)`, JAX `_lora_linear`): the factors of each
 targeted linear, (A, B scaled) stacked over the layers (models/lora.py),
@@ -67,6 +85,7 @@ from torch.utils.checkpoint import checkpoint
 from visper_lm_tpu_torch.config import DecoderConfig
 from visper_lm_tpu_torch.models.rope import apply_rope, apply_rope_transpose, rope_cos_sin
 from visper_lm_tpu_torch.ops.attention import Offset, mha_plain_cache, multi_head_attention
+from visper_lm_tpu_torch.ops.moe import ExpertBank, Router, moe_mlp
 from visper_lm_tpu_torch.parallel.distributed import copy_to_group, reduce_from_group
 from visper_lm_tpu_torch.parallel.tensor import LATER, gather_vocab, vocab_embed
 from visper_lm_tpu_torch.utils.param import (
@@ -79,6 +98,16 @@ from visper_lm_tpu_torch.utils.param import (
 
 # the seven linears of a block, in JAX's param names
 LINEAR_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+# a MoE block's router and expert banks (ops/moe.py), in JAX's param names
+MOE_NAMES = ("moe_router", "moe_gate", "moe_up", "moe_down")
+# the aux losses a MoE block returns, in this order (JAX `_AUX_KEYS`)
+MOE_AUX_KEYS = ("lb_loss", "z_loss", "dropped_frac")
+
+
+def block_linears(cfg: DecoderConfig) -> Tuple[str, ...]:
+    """The dense linears of a block: all seven, or the four attention
+    projections of a MoE block (its MLP is the router and the banks)."""
+    return LINEAR_NAMES[:4] if cfg.moe_experts else LINEAR_NAMES
 
 
 @dataclasses.dataclass
@@ -298,7 +327,7 @@ def _mean_square(x: torch.Tensor) -> torch.Tensor:
 
 
 class DecoderBlock(nn.Module):
-    def __init__(self, cfg: DecoderConfig, device=None, dtype=None):
+    def __init__(self, cfg: DecoderConfig, device=None, dtype=None, ep=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype, bias=False)
         h, nh, nkv, hd, m = (
@@ -311,9 +340,21 @@ class DecoderBlock(nn.Module):
         self.v_proj = nn.Linear(h, nkv * hd, **kw)
         self.o_proj = nn.Linear(nh * hd, h, **kw)
         self.mlp_norm = RMSNorm(h, cfg.norm_eps, device=device, dtype=dtype)
-        self.gate_proj = nn.Linear(h, m, **kw)
-        self.up_proj = nn.Linear(h, m, **kw)
-        self.down_proj = nn.Linear(m, h, **kw)
+        # the expert-parallel group (parallel/distributed.AxisGroup): this rank's share of the experts
+        self.ep = ep
+        self.moe = cfg.moe_experts > 0
+        if self.moe:
+            e = cfg.moe_experts
+            bank = dict(parts=1 if ep is None else ep.size, rank=0 if ep is None else ep.rank,
+                        device=device, dtype=dtype)
+            self.moe_router = Router(h, e, device=device)
+            self.moe_gate = ExpertBank(e, h, m, **bank)
+            self.moe_up = ExpertBank(e, h, m, **bank)
+            self.moe_down = ExpertBank(e, m, h, **bank)
+        else:
+            self.gate_proj = nn.Linear(h, m, **kw)
+            self.up_proj = nn.Linear(h, m, **kw)
+            self.down_proj = nn.Linear(m, h, **kw)
         # set by parallel/tensor.shard_model: the block's tensor-parallel group
         self.tp = None
 
@@ -333,7 +374,8 @@ class DecoderBlock(nn.Module):
         quant_saves: bool = False,
         lora: Optional[Mapping[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
         seq=None,
-    ) -> torch.Tensor:
+        moe_data=None,
+    ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """JAX `_block_forward`. With a cache, the chunk's K/V are written into
         the cache IN PLACE at slots [q_offset, q_offset + T) (per sample for a
         (B,) offset: `write_cache_chunk`), after attention, which saw them
@@ -345,7 +387,11 @@ class DecoderBlock(nn.Module):
         quant_saves: gate and up pass through `quant_saved` /
         `dequant_saved` (the save_mlp_q8 policy); lora: this layer's
         {target: (A (din, r), B scaled (r, dout))}; seq: the decoder's
-        sequence-parallel group (h is the rank's rows)."""
+        sequence-parallel group (h is the rank's rows); moe_data: the data
+        group a MoE block's routing spans (ops/moe.py).
+
+        A MoE block returns (h, its aux losses (3,) f32 in `MOE_AUX_KEYS`
+        order), a dense block h."""
         cfg = self.cfg
         b, t, _ = h.shape
         tp = self.tp
@@ -419,6 +465,16 @@ class DecoderBlock(nn.Module):
             out = reduce_from_group(out, tp.group)
         h = h + out
         x = self.mlp_norm(h)
+        if self.moe:
+            # every tp rank runs the whole MoE MLP on the full hidden state:
+            # its banks are replicated over the group, so is dx
+            mlp_out, aux = moe_mlp(
+                {"router": self.moe_router.weight.t(), "gate": self.moe_gate.kernel,
+                 "up": self.moe_up.kernel, "down": self.moe_down.kernel},
+                x, top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
+                ep=self.ep, data=moe_data,
+            )
+            return h + mlp_out, torch.stack([aux[k].float() for k in MOE_AUX_KEYS])
         if tp is not None:
             x = copy_to_group(x, tp.group)
         record(gate_proj=x, up_proj=x)
@@ -445,14 +501,12 @@ class DecoderBlock(nn.Module):
 class Decoder(nn.Module):
     """Token embedding, blocks, final norm and lm head (JAX `init_decoder` params)."""
 
-    def __init__(self, cfg: DecoderConfig, device=None, dtype=None):
+    def __init__(self, cfg: DecoderConfig, device=None, dtype=None, ep=None):
         super().__init__()
-        if cfg.moe_experts:
-            raise NotImplementedError("MoE decoders are not ported yet (ROADMAP queue A, item A10d)")
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
-        self.blocks = nn.ModuleList(DecoderBlock(cfg, **kw) for _ in range(cfg.num_layers))
+        self.blocks = nn.ModuleList(DecoderBlock(cfg, **kw, ep=ep) for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.norm_eps, **kw)
         self.lm_head = (
             None if cfg.tie_embeddings
@@ -472,6 +526,9 @@ class Decoder(nn.Module):
         self.seq = None
         # set by parallel/pipeline.shard_pipeline: the rank's pipeline stage
         self.pipe = None
+        # a MoE decoder's expert-parallel group (parallel/distributed.AxisGroup;
+        # fixed at construction: the banks hold the rank's experts)
+        self.ep = ep
 
     def embed(self, ids: torch.Tensor) -> torch.Tensor:
         """The token embeddings of `ids` (vocab-parallel under tp)."""
@@ -511,15 +568,22 @@ class Decoder(nn.Module):
         remat: bool = False,
         remat_policy: Optional[str] = None,
         lora: Optional[Mapping[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
+        moe_data=None,
     ) -> Dict[str, object]:
         """JAX `decoder_forward`: {'hidden' (final-normed), 'logits' (f32, when
         compute_logits), 'taps' (tuple of the raw block outputs at tap_layers,
         before the final norm), 'cache' (the same cache object, updated in
-        place, when one was passed)}. remat: each block is checkpointed while
+        place, when one was passed), 'moe_aux' (a MoE decoder's
+        {lb_loss, z_loss, dropped_frac}, each the mean over the layers; None
+        for a dense one)}. remat: each block is checkpointed while
         autograd records, keeping what `remat_policy` names (`REMAT_POLICIES`).
         lora: {target: (A (L, din, r), B scaled (L, r, dout))}, the side path
         of every targeted linear (models/lora.py `lora_side_factors`; not
-        under tp).
+        under tp). moe_data (a parallel/distributed.AxisGroup over the data
+        axis, or None): the group a MoE block's routing spans, so that
+        capacity, priority and the aux are the global batch's (the train
+        step's loss under data parallelism); None routes over this call's
+        tokens.
 
         q_offset is the chunk's first slot: a Python int, a 0-d tensor (one
         position for the whole batch) or a (B,) tensor (a position per
@@ -545,6 +609,11 @@ class Decoder(nn.Module):
             if cache is not None:
                 raise ValueError("layer taps are a training/prefill feature (no cache)")
         seq, pipe = self.seq, self.pipe
+        moe = cfg.moe_experts > 0
+        if moe and (seq is not None or pipe is not None):
+            raise ValueError("a MoE decoder under sequence or pipeline parallelism: ROADMAP C25 (a "
+                             "rank holds a slice of the rows or a pipeline stage, so the MoE "
+                             "layer's capacity and priority would not be the global batch's)")
         if seq is not None and cache is not None:
             raise ValueError("a cache under sequence parallelism: serving runs whole sequences "
                              "on each rank, not the rank's rows")
@@ -569,7 +638,7 @@ class Decoder(nn.Module):
             kw = dict(kv_lengths=kv_lengths, kv_starts=kv_starts, q_offset=q_offset,
                       cache_kv=cache_kv, use_kernel=use_kernel, quant_saves=quant_saves,
                       lora=None if lora is None else {n: (a[i], b[i]) for n, (a, b) in lora.items()},
-                      seq=seq)
+                      seq=seq, moe_data=moe_data)
             gathers = [g for g in (zero3, None if pipelined else pipe) if g is not None]
             for g in gathers:
                 h = g.enter(i, h)
@@ -578,12 +647,16 @@ class Decoder(nn.Module):
                                use_reentrant=False, preserve_rng_state=False)
             else:
                 h = block(h, cos, sin, **kw)
+            if moe:
+                h, aux = h
+                aux_sum.append(aux)
             for g in reversed(gathers):
                 h = g.leave(i, h)
             return h
 
         h = inputs_embeds
         taps = {}
+        aux_sum: List[torch.Tensor] = []
         b = inputs_embeds.shape[0]
         # JAX `_maybe_pipelined_stack`'s predicate
         pipelined = (pipe is not None and pipe.size > 1 and not tap_layers and cache is None
@@ -609,7 +682,13 @@ class Decoder(nn.Module):
         hidden = self.final_norm(h)
         out: Dict[str, object] = {
             "hidden": hidden, "cache": cache, "taps": tuple(taps[i] for i in tap_layers),
+            "moe_aux": None,
         }
+        if moe:
+            # JAX's per-layer mean (f32 sums in layer order), so the loss
+            # weight is depth-independent
+            total = sum(aux_sum[1:], aux_sum[0])
+            out["moe_aux"] = dict(zip(MOE_AUX_KEYS, (total / cfg.num_layers).unbind(0)))
         if compute_logits:
             out["logits"] = self.logits(hidden, use_kernel)
         return out
@@ -862,8 +941,9 @@ def quantize_decoder(
     mode: str,
     act_rms: Optional[Mapping[str, object]] = None,
 ) -> Decoder:
-    """A NEW decoder for serving whose seven block linears (and lm_head when
-    untied) are `QuantLinear`s: mode "int8" (w8a16, JAX
+    """A NEW decoder for serving whose block linears (and lm_head when
+    untied) are `QuantLinear`s, a MoE block's router and expert banks shared
+    dense (JAX leaves every `moe_*` leaf raw): mode "int8" (w8a16, JAX
     `quantize_linear_weights`) or "int4" (w4a16, JAX
     `quantize_linear_weights_int4` at its defaults, group 128; a layer whose
     din no group size divides stays dense). act_rms: AWQ calibration for
@@ -884,12 +964,14 @@ def quantize_decoder(
         rms = {k: v.to(device) if torch.is_tensor(v) else torch.tensor(v, device=device)
                for k, v in act_rms.items()}
     with torch.device("meta"):
-        out = Decoder(cfg)
+        out = Decoder(cfg, ep=decoder.ep)
     out.embed_tokens = decoder.embed_tokens
     out.final_norm = decoder.final_norm
     for i, (src, dst) in enumerate(zip(decoder.blocks, out.blocks)):
         dst.attn_norm, dst.mlp_norm = src.attn_norm, src.mlp_norm
-        for name in LINEAR_NAMES:
+        for name in MOE_NAMES if src.moe else ():
+            setattr(dst, name, getattr(src, name))
+        for name in block_linears(cfg):
             lin = getattr(src, name)
             r = rms.get(name)
             r = r[i] if r is not None and tuple(r.shape) == (cfg.num_layers, lin.in_features) else None

@@ -64,11 +64,11 @@ class VLM(nn.Module):
     tapped layer) and the contrastive logit scales (f32); with a LoRA config
     the adapters' stacked f32 factors (`lora.<target>.a` / `.b`), else None."""
 
-    def __init__(self, cfg: VLMConfig, device=None):
+    def __init__(self, cfg: VLMConfig, device=None, ep=None):
         super().__init__()
         self.cfg = cfg
         dtype = torch_dtype(cfg.decoder.dtype)
-        self.decoder = Decoder(cfg.decoder, device=device, dtype=dtype)
+        self.decoder = Decoder(cfg.decoder, device=device, dtype=dtype, ep=ep)
         if cfg.use_convnext_tower:
             self.vision_tower = ConvNeXt(
                 cfg.convnext, device=device, dtype=torch_dtype(cfg.convnext.dtype))
@@ -112,7 +112,7 @@ class VLM(nn.Module):
 
 def init_vlm(
     cfg: VLMConfig, *, device: Optional[Union[str, torch.device]] = None, seed: int = 0,
-    tp=None, pp=None,
+    tp=None, pp=None, ep=None,
 ) -> VLM:
     """JAX `init_vlm`, with seeded random weights made on `device` (CUDA when
     None) by a torch.Generator: the JAX distributions, not its numbers.
@@ -126,10 +126,15 @@ def init_vlm(
     pp (a parallel/pipeline.PipeParallel): the stage's form, cut on the
     meta device (`shard_pipeline`): the blocks another stage owns are never
     allocated (drawn one tensor at a time and dropped, so the stage's own
-    blocks get the whole model's numbers)."""
+    blocks get the whole model's numbers).
+
+    ep (an parallel/distributed.AxisGroup over the 'expert' axis): a MoE decoder's rank
+    allocates only its E/ep experts of each bank (each bank drawn whole and
+    the rank's experts kept: the whole model's numbers). The router stays
+    f32 in a bf16 model (JAX's dtype cast skips it)."""
     device = resolve_device(device)
     with torch.device("meta"):
-        model = shard_pipeline(shard_model(VLM(cfg), tp), pp)
+        model = shard_pipeline(shard_model(VLM(cfg, ep=ep), tp), pp)
     with foreign_blocks_detached(model):
         model = model.to_empty(device=device)
     materialize_foreign(model, device)
@@ -240,11 +245,13 @@ def vlm_forward(
     compute_logits: bool = True,
     remat: bool = False,
     remat_policy: Optional[str] = None,
+    moe_data=None,
 ) -> Dict[str, Any]:
     """JAX `vlm_forward` (training / prefill). batch: images (B,H,W,3) or
     image_features, text_ids, token_type, src_index, seq_lengths (right
     padding: the attention masks keys >= seq_lengths). remat / remat_policy
-    go to the decoder (`Decoder.forward`). Under sequence parallelism (the
+    and moe_data (the data group a MoE decoder routes over) go to the
+    decoder (`Decoder.forward`). Under sequence parallelism (the
     decoder's `seq`) the splice runs whole on every rank, and the decoder
     takes the rank's rows of it (a differentiable slice): its hidden
     states, logits and taps are the rank's rows."""
@@ -262,7 +269,7 @@ def vlm_forward(
         embeds, kv_lengths=batch.get("seq_lengths"), tap_layers=taps,
         use_kernel=use_kernel, compute_logits=compute_logits,
         remat=remat, remat_policy=remat_policy,
-        lora=lora_side_factors(model.lora, cfg.lora),
+        lora=lora_side_factors(model.lora, cfg.lora), moe_data=moe_data,
     )
     out["tap_layers"] = taps
     out["image_features"] = image_features

@@ -19,11 +19,13 @@ step's collectives itself; they are all here:
   * the process groups of the mesh's axes: `data_group` (the ranks that
     differ only in their data coordinate), `model_group` (only in their
     model coordinate: a tensor-parallel group), `seq_group` (a
-    sequence-parallel group) and `pipe_group` (a pipeline's stages), made
-    once per set of ranks;
+    sequence-parallel group), `pipe_group` (a pipeline's stages) and
+    `expert_group` (the ranks that hold the same tokens and split the
+    experts), made once per set of ranks;
   * the collectives the step needs: `all_reduce` (a sum or a max), `reduce_scatter` and
     `all_gather` along a dim, `all_gather_autograd` (gradients flow back,
-    summed over the ranks), `broadcast` and `reduce`, and the two
+    summed over the ranks), `all_reduce_autograd` (every rank's loss reads
+    the sum), `broadcast` and `reduce`, and the two
     operators of tensor parallelism, `copy_to_group` (identity forward,
     all-reduced gradient) and `reduce_from_group` (all-reduce forward,
     identity backward); for sequence parallelism `all_to_all` (split one
@@ -47,6 +49,7 @@ Environment variables honoured (as JAX's):
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -65,6 +68,20 @@ _groups: Dict[Tuple[int, ...], Any] = {}
 BACKENDS: Dict[str, bool] = {"nccl": True, "gloo": False}
 
 _state: Dict[str, Any] = dict(initialized=False, local_index=None)
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisGroup:
+    """One rank's group on a mesh axis, as the model's layers hold it: the
+    process group (None: every process), the rank's index in it and its
+    size. `AxisGroup(*model_group(mesh))` is a tensor-parallel group
+    (parallel/tensor.TensorParallel), `AxisGroup(*expert_group(mesh))` an
+    expert-parallel one, `AxisGroup(*data_group(mesh))` the data group a
+    MoE layer routes over (ops/moe.py)."""
+
+    group: Any
+    rank: int
+    size: int
 
 
 def init_distributed(
@@ -165,9 +182,10 @@ def barrier() -> None:
         dist.barrier()
 
 
-def make_global_mesh(dp: Optional[int] = None, tp: int = 1, sp: int = 1, pp: int = 1) -> Mesh:
-    """The ('data', ['pipe',] ['seq',] 'model') grid over every process."""
-    return make_mesh(dp=dp, tp=tp, sp=sp, pp=pp, world=process_count())
+def make_global_mesh(dp: Optional[int] = None, tp: int = 1, sp: int = 1, pp: int = 1,
+                     ep: int = 1) -> Mesh:
+    """The ('data', ['pipe',] ['expert',] ['seq',] 'model') grid over every process."""
+    return make_mesh(dp=dp, tp=tp, sp=sp, pp=pp, ep=ep, world=process_count())
 
 
 def _axis_group(mesh: Mesh, ranks_of):
@@ -210,6 +228,14 @@ def pipe_group(mesh: Mesh):
     """(process group, this process's rank in it: its stage, its size) of
     the pipe axis this process sits on (the process alone without the axis)."""
     return _axis_group(mesh, mesh.pipe_group_ranks)
+
+
+def expert_group(mesh: Mesh):
+    """(process group, this process's rank in it, its size) of the expert
+    axis this process sits on: the ranks of its data, pipe, seq and model
+    coordinates, which read the same rows (the process alone without the
+    axis)."""
+    return _axis_group(mesh, mesh.expert_group_ranks)
 
 
 def data_shard(mesh: Optional[Mesh] = None) -> Tuple[int, int]:
@@ -428,6 +454,25 @@ def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
 def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
     """x summed over the group; its gradient as it is (Megatron's `g`)."""
     return _ReduceFromGroup.apply(x, group)
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_reduce(t.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        # every rank's loss reads the sum: a rank's gradient of its summand
+        # is the sum of the ranks' gradients of the sum
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+def all_reduce_autograd(t: torch.Tensor, group=None) -> torch.Tensor:
+    """t summed over the group (a new tensor); its gradient the sum of the
+    ranks' gradients of the sum."""
+    return _AllReduce.apply(t, group)
 
 
 def all_reduce_scalars(values: List[torch.Tensor], group=None) -> List[torch.Tensor]:

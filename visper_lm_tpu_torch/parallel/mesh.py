@@ -7,12 +7,9 @@ grid: the axis names in JAX's order ('data', 'pipe', 'expert', 'seq',
 'model'), the size of each, and each rank's coordinates. There is no device
 array and no `mesh_utils`.
 
-The data axis (ROADMAP A10a), the 'model' axis (tensor parallelism,
-A10b), and the 'seq' (sequence parallelism) and 'pipe' (pipeline
-parallelism) axes (A10c) are ported, in JAX's order: 'model' innermost, so
-the tp ranks of one data group are consecutive, then 'seq', then 'pipe'.
-An 'expert' (ep) axis of more than one raises, naming the ROADMAP item
-that brings it.
+Every axis of JAX's mesh is here, in JAX's order: 'model' innermost (the
+tp ranks of one data group are consecutive), then 'seq', 'expert' (expert
+parallelism, ops/moe.py) and 'pipe', 'data' outermost.
 """
 
 from __future__ import annotations
@@ -27,12 +24,6 @@ MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
 PIPE_AXIS = "pipe"
 EXPERT_AXIS = "expert"
-
-# what brings each axis that is not ported yet
-_UNPORTED_AXES = {
-    "ep": "expert parallelism is ROADMAP queue A, item A10d",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
@@ -74,6 +65,10 @@ class Mesh:
     def pipe_size(self) -> int:
         return self.shape.get(PIPE_AXIS, 1)
 
+    @property
+    def expert_size(self) -> int:
+        return self.shape.get(EXPERT_AXIS, 1)
+
     def axis_group_ranks(self, rank: int, axis: str) -> Tuple[int, ...]:
         """The ranks that share `rank`'s coordinates but for `axis`, in that
         axis's order (`rank` alone when the mesh has no such axis)."""
@@ -103,6 +98,11 @@ class Mesh:
         (its pipeline: stage 0 first)."""
         return self.axis_group_ranks(rank, PIPE_AXIS)
 
+    def expert_group_ranks(self, rank: int) -> Tuple[int, ...]:
+        """The ranks that share `rank`'s coordinates but for the expert axis
+        (its expert-parallel group: the same tokens, each its experts)."""
+        return self.axis_group_ranks(rank, EXPERT_AXIS)
+
 
 def make_mesh(
     dp: Optional[int] = None,
@@ -113,16 +113,11 @@ def make_mesh(
     ep: int = 1,
 ) -> Mesh:
     """The ('data', 'model') grid over `world` processes (default: the
-    runtime's process count), gaining a 'pipe' axis when pp > 1 and a 'seq'
-    axis when sp > 1, with JAX's axis order and rules: dp defaults to world
-    // (pp * tp * sp * ep), the grid takes the first dp * pp * tp * sp * ep
-    ranks, and JAX's assertion fires when there are fewer. ep above 1
-    raises NotImplementedError naming its ROADMAP item."""
-    for name, size in (("ep", ep),):
-        if size > 1:
-            raise NotImplementedError(
-                f"{name}={size}: {_UNPORTED_AXES[name]}; the port's mesh has the data, pipe, "
-                "seq and model axes")
+    runtime's process count), gaining a 'pipe' axis when pp > 1, an
+    'expert' axis when ep > 1 and a 'seq' axis when sp > 1, with JAX's axis
+    order and rules: dp defaults to world // (pp * tp * sp * ep), the grid
+    takes the first dp * pp * tp * sp * ep ranks, and JAX's assertion fires
+    when there are fewer."""
     if world is None:
         from visper_lm_tpu_torch.parallel.distributed import process_count
 

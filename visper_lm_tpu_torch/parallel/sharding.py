@@ -48,7 +48,7 @@ import torch.nn as nn
 
 from visper_lm_tpu_torch.parallel import distributed
 from visper_lm_tpu_torch.parallel.mesh import DATA_AXIS, EXPERT_AXIS, MODEL_AXIS
-from visper_lm_tpu_torch.utils.param import jax_path, split_layer
+from visper_lm_tpu_torch.utils.param import is_expert_kernel, jax_path, split_layer
 
 Spec = Tuple[Any, ...]
 
@@ -92,7 +92,7 @@ def tree_order(path: str) -> Tuple[Tuple[int, Any], ...]:
 
 def _jax_layout(path: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
     """A port tensor's shape in the JAX layout (`utils.param.jax_flat_arrays`)."""
-    if not path.endswith("/kernel"):
+    if not path.endswith("/kernel") or is_expert_kernel(path):
         return shape
     return tuple(shape[d] for d in _kernel_perm(len(shape)))
 
@@ -200,13 +200,19 @@ class Placement:
     along its layers: the other ranks hold an empty slice of it). `sharded`
     and the methods without "model" in their names are the data axis's, on
     the tp-local tensor (ZeRO's group is the ranks with one model
-    coordinate); `tile` and `box` are a rank's piece of the whole tensor."""
+    coordinate); `tile` and `box` are a rank's piece of the whole tensor.
+    Over the 'expert' axis of `expert_parts` ranks a MoE expert bank is
+    split along `expert_dim` (its experts: each rank holds its E/ep as its
+    parameter, like a tp-local tensor); the data axis's methods then work
+    on that expert-local tensor."""
 
     dim: Optional[int] = None
     parts: int = 1
     owner: Optional[int] = None
     model_dim: Optional[int] = None
     model_parts: int = 1
+    expert_dim: Optional[int] = None
+    expert_parts: int = 1
 
     @property
     def sharded(self) -> bool:
@@ -215,6 +221,17 @@ class Placement:
     @property
     def model_sharded(self) -> bool:
         return self.model_dim is not None
+
+    @property
+    def expert_sharded(self) -> bool:
+        return self.expert_dim is not None
+
+    def expert_local(self, t: torch.Tensor, expert_rank: int) -> torch.Tensor:
+        """expert rank's slice of the whole t (a view)."""
+        if self.expert_dim is None:
+            return t
+        size = t.shape[self.expert_dim] // self.expert_parts
+        return t.narrow(self.expert_dim, expert_rank * size, size)
 
     def bounds(self, shape: Sequence[int], rank: int) -> Tuple[int, int, int]:
         """(dim, start, stop) of data rank's slice of a tp-local tensor."""
@@ -258,12 +275,12 @@ class Placement:
         return shape[:d] + (shape[d] // self.model_parts,) + shape[d + 1:]
 
     def whole_shape(self, local_shape: Sequence[int]) -> Tuple[int, ...]:
-        """The whole tensor's shape from a tp-local one."""
+        """The whole tensor's shape from a tp- (or expert-) local one."""
         shape = tuple(int(d) for d in local_shape)
-        if self.model_dim is None:
-            return shape
-        d = self.model_dim
-        return shape[:d] + (shape[d] * self.model_parts,) + shape[d + 1:]
+        for d, parts in ((self.model_dim, self.model_parts), (self.expert_dim, self.expert_parts)):
+            if d is not None:
+                shape = shape[:d] + (shape[d] * parts,) + shape[d + 1:]
+        return shape
 
     def spec(self, ndim: int) -> Spec:
         """The axes over which each dim of the whole tensor is split, as a
@@ -271,6 +288,8 @@ class Placement:
         entries: List[Any] = [None] * max(ndim, 1)
         if self.model_dim is not None:
             entries[self.model_dim] = MODEL_AXIS
+        if self.expert_dim is not None:
+            entries[self.expert_dim] = EXPERT_AXIS
         data = 0 if self.owner is not None else self.dim
         if data is not None:
             entries[data] = DATA_AXIS if entries[data] is None else (DATA_AXIS, MODEL_AXIS)
@@ -300,7 +319,9 @@ class Placement:
 def _port_dim(path: str, ndim: int, axis: int) -> int:
     """The port tensor's dim of JAX dim `axis` of a per-layer leaf (a
     kernel's layout mapped through `_kernel_perm`)."""
-    return _kernel_perm(ndim)[axis] if path.endswith("/kernel") else axis
+    if path.endswith("/kernel") and not is_expert_kernel(path):
+        return _kernel_perm(ndim)[axis]
+    return axis
 
 
 def _axis_of(spec: Spec, axis_name: str) -> Optional[int]:
@@ -309,11 +330,12 @@ def _axis_of(spec: Spec, axis_name: str) -> Optional[int]:
 
 
 def placements(named_shapes: Mapping[str, Sequence[int]], specs: Mapping[str, Spec],
-               data_size: int, model_size: int = 1) -> Dict[str, Placement]:
+               data_size: int, model_size: int = 1, expert_size: int = 1) -> Dict[str, Placement]:
     """{port name: Placement} of each per-layer tensor under its JAX leaf's
     spec (specs keyed by JAX path; a path without one replicates); shapes
     are the WHOLE tensors'. The 'model' axis counts only when model_size >
-    1, the data axis only when data_size > 1."""
+    1, the 'expert' axis only when expert_size > 1, the data axis only when
+    data_size > 1."""
     layers: Dict[str, int] = {}
     for name in named_shapes:
         if split_layer(name)[1] is not None:
@@ -330,6 +352,9 @@ def placements(named_shapes: Mapping[str, Sequence[int]], specs: Mapping[str, Sp
             if m_axis < stacked:
                 raise ValueError(f"{path}: the 'model' axis on the layer axis has no placement")
             kw.update(model_dim=_port_dim(path, ndim, m_axis - stacked), model_parts=model_size)
+        e_axis = _axis_of(spec, EXPERT_AXIS) if expert_size > 1 else None
+        if e_axis is not None:
+            kw.update(expert_dim=_port_dim(path, ndim, e_axis - stacked), expert_parts=expert_size)
         axis = _axis_of(spec, DATA_AXIS) if data_size > 1 else None
         if axis is not None:
             if axis < stacked:
@@ -377,7 +402,10 @@ class ZeroPlan:
     shards no parameter: its ranks' gradients are summed. Under pipeline
     parallelism `pipe` (parallel/pipeline.PipeParallel) ZeRO runs over the
     data group inside the stage, on the stage's blocks and the shared
-    parameters; the plans are made on the whole model's shapes, as JAX's."""
+    parameters; the plans are made on the whole model's shapes, as JAX's.
+    Under expert parallelism `ep` (parallel/distributed.AxisGroup) a MoE bank is the
+    rank's experts, ZeRO runs over the data group of ranks that hold the
+    same experts, and a bank's share of the norm is added over `ep`."""
 
     group: Any
     rank: int
@@ -387,11 +415,12 @@ class ZeroPlan:
     tp: Any = None
     seq: Any = None
     pipe: Any = None
+    ep: Any = None
 
 
 def plan_zero(named: Mapping[str, torch.Tensor], trainable: Mapping[str, bool], data_size: int,
               *, zero_params: bool = False, zero_frozen: bool = False,
-              zero_min_size: int = 2 ** 16, model_size: int = 1,
+              zero_min_size: int = 2 ** 16, model_size: int = 1, expert_size: int = 1,
               ) -> Tuple[Dict[str, Placement], Dict[str, Placement],
                          Dict[str, Spec], Dict[str, Spec]]:
     """JAX `plan_train_shardings` on the port's parameters (tp-local when
@@ -407,12 +436,15 @@ def plan_zero(named: Mapping[str, torch.Tensor], trainable: Mapping[str, bool], 
     slice: where JAX's moment spec splits 'model' along another dim than
     the parameter's, the moment's spec is `zero_pspec` of the parameter's
     own spec, with the same bytes a rank (tests/test_torch_sharding.py).
-    With model_size 1 the moments' specs are JAX's."""
+    With model_size 1 the moments' specs are JAX's. expert_size > 1: the
+    expert banks are the rank's E/ep experts (planned on their whole
+    shapes, JAX's 'expert' dim kept in the specs)."""
     shapes = jax_shapes((n, t) for n, t in named.items())
     is_train = {jax_path(n): trainable[n] for n in named}
     specs = param_pspecs(shapes)
-    if model_size > 1:
-        shapes = {p: _whole_jax_shape(s, specs[p], model_size) for p, s in shapes.items()}
+    for axis, size in ((MODEL_AXIS, model_size), (EXPERT_AXIS, expert_size)):
+        if size > 1:
+            shapes = {p: _whole_jax_shape(s, specs[p], size, axis) for p, s in shapes.items()}
     for path, shape in shapes.items():
         if (zero_params and is_train[path]) or (zero_frozen and not is_train[path]):
             specs[path] = zero_pspec(specs[path], shape, data_size, min_size=zero_min_size)
@@ -423,22 +455,24 @@ def plan_zero(named: Mapping[str, torch.Tensor], trainable: Mapping[str, bool], 
             if _axis_of(moment_specs[path], MODEL_AXIS) != _axis_of(specs[path], MODEL_AXIS):
                 moment_specs[path] = zero_pspec(specs[path], train_shapes[path], data_size)
     port_shapes = {n: tuple(t.shape) for n, t in named.items()}
-    if model_size > 1:
-        model_only = placements(port_shapes, specs, 1, model_size)
-        port_shapes = {n: model_only[n].whole_shape(s) for n, s in port_shapes.items()}
-    params = placements(port_shapes, specs, data_size, model_size)
+    if model_size > 1 or expert_size > 1:
+        split_only = placements(port_shapes, specs, 1, model_size, expert_size)
+        port_shapes = {n: split_only[n].whole_shape(s) for n, s in port_shapes.items()}
+    params = placements(port_shapes, specs, data_size, model_size, expert_size)
     moments = placements({n: s for n, s in port_shapes.items() if trainable[n]}, moment_specs,
-                         data_size, model_size)
+                         data_size, model_size, expert_size)
     return moments, params, specs, moment_specs
 
 
-def _whole_jax_shape(shape: Sequence[int], spec: Spec, model_size: int) -> Tuple[int, ...]:
-    """A tp-local JAX-layout shape times model_size along its 'model' dim."""
+def _whole_jax_shape(shape: Sequence[int], spec: Spec, size: int,
+                     axis_name: str = MODEL_AXIS) -> Tuple[int, ...]:
+    """A tp- (or expert-) local JAX-layout shape times size along its
+    `axis_name` dim."""
     shape = tuple(int(d) for d in shape)
-    axis = _axis_of(spec, MODEL_AXIS)
+    axis = _axis_of(spec, axis_name)
     if axis is None or axis >= len(shape):
         return shape
-    return shape[:axis] + (shape[axis] * model_size,) + shape[axis + 1:]
+    return shape[:axis] + (shape[axis] * size,) + shape[axis + 1:]
 
 
 def tp_placements(named_shapes: Mapping[str, Sequence[int]],

@@ -14,8 +14,9 @@ placements of `sharding.tp_placements` (JAX's rules):
     columns of the MLP;
   * o/down (row-parallel): the matching columns of their input dim;
   * embed_tokens: rows [r V/tp, (r+1) V/tp) of the vocab; lm_head its rows;
-  * every other parameter (norms, tower, projector, heads, task tokens)
-    replicated, and its gradient the same on every rank of the group.
+  * every other parameter (norms, tower, projector, heads, task tokens, a
+    MoE block's router and expert banks) replicated, and its gradient the
+    same on every rank of the group.
 
 Call it on a model built on the meta device or on the host, before the
 rank's share moves to its device: a rank never holds the whole decoder on
@@ -42,8 +43,7 @@ decoding, `VisperModel.chat`.
 
 from __future__ import annotations
 
-import dataclasses
-from typing import Any, Dict, Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -56,14 +56,9 @@ from visper_lm_tpu_torch.parallel.sharding import Placement, tp_placements
 LATER = "under tensor parallelism is ROADMAP queue A, item A10b-2"
 
 
-@dataclasses.dataclass(frozen=True)
-class TensorParallel:
-    """One rank's tensor-parallel group: the process group, the rank's
-    index in it (its model coordinate) and its size."""
-
-    group: Any
-    rank: int
-    size: int
+# one rank's tensor-parallel group: the process group, the rank's index in
+# it (its model coordinate) and its size
+TensorParallel = distributed.AxisGroup
 
 
 def tensor_parallel(mesh) -> Optional[TensorParallel]:
@@ -109,9 +104,10 @@ def shard_model(model: nn.Module, tp: Optional[TensorParallel]) -> nn.Module:
         raise NotImplementedError(f"the LoRA side path {LATER}")
     if decoder.tp is not None:
         raise ValueError("shard_model: the model is already tensor parallel")
-    if any(not isinstance(m, nn.Linear) for block in decoder.blocks for m in (
-            block.q_proj, block.k_proj, block.v_proj, block.o_proj, block.gate_proj,
-            block.up_proj, block.down_proj)):
+    from visper_lm_tpu_torch.models.decoder import block_linears
+
+    if any(not isinstance(getattr(block, n), nn.Linear) for block in decoder.blocks
+           for n in block_linears(decoder.cfg)):
         raise NotImplementedError(f"serving quantization {LATER}")
     check_divisible(decoder.cfg, tp.size)
     plan = tp_plan(model, tp.size)
@@ -146,9 +142,23 @@ def model_placements(model: nn.Module) -> Dict[str, Placement]:
     return {prefix + n: pl for n, pl in plan.items()}
 
 
+def _expert_bank(model: nn.Module, name: str):
+    """The decoder's expert group when `name` is a MoE bank it splits, else None."""
+    from visper_lm_tpu_torch.utils.param import is_expert_kernel, jax_path
+
+    ep = getattr(_decoder_of(model), "ep", None)
+    prefix = "" if hasattr(model, "decoder") else "decoder."
+    return ep if ep is not None and is_expert_kernel(jax_path(prefix + name)) else None
+
+
 def whole_param(model: nn.Module, name: str, local: torch.Tensor) -> torch.Tensor:
     """Parameter `name`'s whole value from every rank's tp-local `local`
-    (collective over the model group; `local` itself where it is not split)."""
+    (collective over the model group; `local` itself where it is not split).
+    A MoE expert bank under expert parallelism: every rank's experts
+    (collective over the expert group)."""
+    ep = _expert_bank(model, name)
+    if ep is not None:
+        return distributed.all_gather(local.detach().contiguous(), 0, ep.group)
     pl = model_placements(model).get(name)
     tp = _decoder_of(model).tp
     if pl is None or tp is None:
@@ -157,7 +167,12 @@ def whole_param(model: nn.Module, name: str, local: torch.Tensor) -> torch.Tenso
 
 
 def local_param(model: nn.Module, name: str, whole: torch.Tensor) -> torch.Tensor:
-    """This rank's tp-local slice of parameter `name`'s whole value (a view)."""
+    """This rank's tp-local slice of parameter `name`'s whole value (a view;
+    a MoE bank's: the rank's experts)."""
+    ep = _expert_bank(model, name)
+    if ep is not None:
+        n = whole.shape[0] // ep.size
+        return whole.narrow(0, ep.rank * n, n)
     pl = model_placements(model).get(name)
     tp = _decoder_of(model).tp
     if pl is None or tp is None:

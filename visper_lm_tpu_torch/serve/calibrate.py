@@ -37,8 +37,9 @@ def decoder_act_rms(
     Replays the blocks over each (B, T, D) inputs-embeds batch with no cache
     and no masks beyond causality (positions 0..T-1, plain attention, as JAX
     does) and takes the mean square of each linear's input; batches are
-    weighted by B x T. Returns {proj name: (L, din) f32} for the seven block
-    projections, and {"lm_head": (din,)} when the head is untied (and
+    weighted by B x T. Returns {proj name: (L, din) f32} for the block's
+    projections (the seven, or a MoE block's four attention ones: JAX
+    records no site in the MoE MLP), and {"lm_head": (din,)} when the head is untied (and
     include_lm_head)."""
     acc: Optional[Dict[str, torch.Tensor]] = None
     total = 0
@@ -53,6 +54,8 @@ def decoder_act_rms(
                 h, cos[None], sin[None], kv_lengths=None, kv_starts=None, q_offset=0,
                 cache_kv=None, use_kernel=False, stats_out=stats,
             )
+            if block.moe:                  # (h, aux): a MoE block's MLP has no linear to scale
+                h = h[0]
             per_layer.append({k: v for s in stats for k, v in s.items()})
         ms = {name: torch.stack([p[name] for p in per_layer]) for name in per_layer[0]}
         if include_lm_head and decoder.lm_head is not None:

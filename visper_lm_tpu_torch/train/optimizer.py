@@ -232,7 +232,10 @@ class AdamW:
     data group (the ranks of its model coordinate); a 'model'-split leaf's
     share of the norm is its slices' f32 sums added over the model group as
     well (the same bound), and a replicated leaf counts once, not tp times:
-    its gradient is the same on every rank of the group. With `sharded` (ZeRO-3:
+    its gradient is the same on every rank of the group. Under expert
+    parallelism (the plan's `ep`) a MoE bank is the rank's experts: its
+    share of the norm is its slices' f32 sums added over the expert group
+    too, and every other leaf (the router included) counts once. With `sharded` (ZeRO-3:
     parallel/sharding.ShardedParams) a parameter whose persistent copy is
     sharded is updated in its slices, and never whole where its slices are
     its moments'.
@@ -365,6 +368,8 @@ class AdamW:
             assemble(pl, t.to(dev), full, self.zero.group, self.zero.rank)
         if pl.model_sharded:
             full = all_gather(full.contiguous(), pl.model_dim, self.zero.tp.group)
+        if pl.expert_sharded:
+            full = all_gather(full.contiguous(), pl.expert_dim, self.zero.ep.group)
         return full.cpu()
 
     def state_tensors(self) -> Dict[str, torch.Tensor]:
@@ -390,6 +395,8 @@ class AdamW:
                 pl = self.zero.moments[key.split("/", 1)[1]]
                 if pl.model_sharded:
                     src = pl.model_local(src, self.zero.tp.rank)
+                if pl.expert_sharded:
+                    src = pl.expert_local(src, self.zero.ep.rank)
                 src = pl.local(src, self.zero.rank)
             dst.copy_(src)
         self.count = int(count)
@@ -408,7 +415,8 @@ class AdamW:
         holds its slice's f32 sum of squares."""
         moments = {} if self.zero is None else self.zero.moments
         split = [n for n in names if n in moments and (moments[n].sharded or
-                                                        moments[n].model_sharded)]
+                                                        moments[n].model_sharded or
+                                                        moments[n].expert_sharded)]
         sq = {n: sumsq[n] if sumsq and n in sumsq
               else leaf_sumsq(grads[n].to(self.params[n].device, non_blocking=True))
               for n in names if n not in split}
@@ -419,7 +427,8 @@ class AdamW:
                 grads[n].to(self.params[n].device, non_blocking=True), dtype=torch.float32).square()
                 for n in split}
             for axis, group in (("sharded", self.zero.group),
-                                ("model_sharded", getattr(self.zero.tp, "group", None))):
+                                ("model_sharded", getattr(self.zero.tp, "group", None)),
+                                ("expert_sharded", getattr(self.zero.ep, "group", None))):
                 over = [n for n in split if getattr(moments[n], axis)]
                 if over:
                     stacked = torch.stack([parts[n] for n in over])

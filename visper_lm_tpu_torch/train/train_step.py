@@ -61,6 +61,18 @@ the parameters before and after the pipeline get the same gradient on
 every stage (one process's), and the blocks' only on their owner, whose
 share of the global norm the optimizer adds over the pipe group. A
 checkpoint gathers the stages: the files are one device's.
+
+A MoE decoder (cfg.decoder.moe_experts > 0) adds JAX's auxiliaries to the
+loss, moe_aux_weight x the load-balance loss + 1e-3 x the z-loss (per-layer
+means), and reports them as `moe_lb_loss`, `moe_z_loss` and
+`moe_dropped_frac`. Under data parallelism the loss has the decoder route
+over the global batch (`moe_data`, the data group, ops/moe.py), in the
+step's forward and backward only: the aux values are the global batch's
+on every rank, and each rank's loss and metrics take 1/dp
+of them. Expert parallelism (a mesh with an 'expert' axis; the model built
+for the rank's experts: `init_vlm(..., ep=)`): ZeRO runs over the data
+group of the ranks that hold the same experts, and a bank's share of the
+norm is added over the expert group (`ZeroPlan.ep`).
 """
 
 from __future__ import annotations
@@ -75,7 +87,7 @@ from visper_lm_tpu_torch.config import VLMConfig
 from visper_lm_tpu_torch.models.decoder import GradStream, stream_chunk_ranges
 from visper_lm_tpu_torch.models.vlm import VLM, predict_task_embeddings, tap_layer_union, vlm_forward
 from visper_lm_tpu_torch.parallel import distributed
-from visper_lm_tpu_torch.parallel.distributed import all_reduce_scalars
+from visper_lm_tpu_torch.parallel.distributed import AxisGroup, all_reduce_scalars
 from visper_lm_tpu_torch.parallel.mesh import Mesh
 from visper_lm_tpu_torch.parallel.pipeline import LATER as PIPE_LATER
 from visper_lm_tpu_torch.parallel.pipeline import foreign_names
@@ -115,7 +127,10 @@ def make_loss_fn(
     on the model's device. use_kernel=False forces plain attention in the
     decoder and in the teachers' window attention. dp (data parallelism: the
     step's ZeRO plan): the batch is this rank's shard, and the loss is its
-    share of the global batch's loss."""
+    share of the global batch's loss; a MoE decoder routes over the global
+    batch (the data group passed as `moe_data`)."""
+    moe_data = (AxisGroup(dp.group, dp.rank, dp.size)
+                if cfg.decoder.moe_experts and dp is not None and dp.size > 1 else None)
 
     def loss_fn(model: VLM, batch: Dict[str, torch.Tensor], teachers=None):
         b, t = batch["labels"].shape
@@ -126,7 +141,7 @@ def make_loss_fn(
         count = None if dp is None else valid_count(batch["labels"], dp)
         out = vlm_forward(
             model, cfg, batch, use_kernel=use_kernel, compute_logits=not chunked and tp is None,
-            remat=remat, remat_policy=remat_policy,
+            remat=remat, remat_policy=remat_policy, moe_data=moe_data,
         )
         if chunked:
             head = dec.embed_tokens.weight if dec.lm_head is None else dec.lm_head.weight
@@ -139,6 +154,16 @@ def make_loss_fn(
             text_loss = ntp_loss(logits, batch["labels"], count=count, tp=tp, seq=seq)
         metrics: Dict[str, torch.Tensor] = {"text_loss": text_loss}
         total = text_loss
+        moe_aux = out.get("moe_aux")
+        if moe_aux is not None:
+            # JAX's Switch auxiliaries: 0.01 (moe_aux_weight) x balance + 1e-3
+            # x z; the global batch's values, of which each data rank takes
+            # its share
+            share = 1 if dp is None else dp.size
+            total = total + (cfg.decoder.moe_aux_weight * moe_aux["lb_loss"]
+                             + 1e-3 * moe_aux["z_loss"]) / share
+            for k in ("lb_loss", "z_loss", "dropped_frac"):
+                metrics[f"moe_{k}"] = moe_aux[k] / share
         if cfg.distill is not None and out["taps"]:
             # under sp the heads read every row: the taps gathered over the group
             taps = tuple(gather_rows(tap, seq) for tap in out["taps"])
@@ -401,8 +426,9 @@ def make_train_step(
     tensor-parallel form (`init_vlm(..., tp=)`), and shard_teachers then
     splits the teachers over it. A 'seq' axis sets the decoder's
     sequence-parallel group (`Decoder.seq`); a 'pipe' axis needs the model
-    cut for the rank's stage (`init_vlm(..., pp=)`). `check_step_options`
-    holds the rules."""
+    cut for the rank's stage (`init_vlm(..., pp=)`); an 'expert' axis a
+    MoE model built for the rank's experts (`init_vlm(..., ep=)`).
+    `check_step_options` holds the rules."""
     if not donate_params:
         raise ValueError("make_train_step updates the parameters in place: "
                          "donate_params=False has no counterpart in the port")
@@ -420,7 +446,7 @@ def make_train_step(
     if model.decoder.zero3 is not None:
         raise ValueError("make_train_step: the model's parameters are already ZeRO-3 sharded")
     zero = sharded = teacher_sharded = None
-    tp, pipe = model.decoder.tp, model.decoder.pipe
+    tp, pipe, ep = model.decoder.tp, model.decoder.pipe, model.decoder.ep
     if mesh is not None:
         if not distributed.is_initialized():
             raise ValueError("make_train_step: a mesh needs the process group (init_distributed)")
@@ -433,6 +459,13 @@ def make_train_step(
             raise ValueError(
                 f"make_train_step: the mesh's pipe axis is {mesh.pipe_size} wide, the model is "
                 f"cut for pp {1 if pipe is None else pipe.size} (init_vlm(..., pp=))")
+        if mesh.expert_size != (1 if ep is None else ep.size):
+            raise ValueError(
+                f"make_train_step: the mesh's expert axis is {mesh.expert_size} wide, the model "
+                f"is built for ep {1 if ep is None else ep.size} (init_vlm(..., ep=))")
+        if ep is not None and (offload_opt_state or stream_grads):
+            raise ValueError("offload_opt_state / stream_grads under expert parallelism: ROADMAP "
+                             "C25 (the offloaded update plans no 'expert' axis)")
         seq = sequence_parallel(mesh)
         if (seq is not None or pipe is not None) and (offload_opt_state or stream_grads):
             raise NotImplementedError(
@@ -443,16 +476,18 @@ def make_train_step(
         named = dict(model.named_parameters())
         moments, placed, _, _ = plan_zero(named, mask, size, zero_params=zero_params,
                                           zero_frozen=zero_frozen, zero_min_size=zero_min_size,
-                                          model_size=mesh.model_size)
+                                          model_size=mesh.model_size,
+                                          expert_size=mesh.expert_size)
         zero = ZeroPlan(group, rank, size, {n: pl for n, pl in moments.items() if n not in foreign},
                         {n: pl for n, pl in placed.items() if n not in foreign}, tp=tp, seq=seq,
-                        pipe=pipe)
+                        pipe=pipe, ep=ep)
         if any(pl.sharded for pl in zero.params.values()):
             sharded = ShardedParams({n: p for n, p in named.items() if n not in foreign},
                                     zero.params, group, rank)
             model.decoder.zero3 = sharded
-    elif tp is not None or pipe is not None:
-        raise ValueError("make_train_step: a tensor- or pipeline-parallel model needs its mesh")
+    elif tp is not None or pipe is not None or ep is not None:
+        raise ValueError("make_train_step: a tensor-, pipeline- or expert-parallel model needs "
+                         "its mesh")
     if shard_teachers and tp is not None and teacher_params is not None:
         # JAX's model_shard_pspec slices, held like ZeRO-3's over the model group
         named_t = dict(teacher_params.named_parameters())

@@ -207,7 +207,9 @@ def init_weights_(module: nn.Module, generator: torch.Generator,
                   whole: Optional[Mapping[int, Tuple[Any, int]]] = None) -> None:
     """Seeded random init in place, with the JAX package's distributions:
     linear kernels U(-1/sqrt(in), 1/sqrt(in)) and zero bias, embeddings
-    N(0, 0.02), norm scales 1 and biases 0. The numbers differ from JAX's
+    N(0, 0.02), norm scales 1 and biases 0; a MoE router N(0, 0.02) and its
+    expert banks U(-1/sqrt(din), 1/sqrt(din)), each bank drawn for all its
+    experts (a rank keeps its own, ops/moe.ExpertBank). The numbers differ from JAX's
     for the same seed; parity tests carry JAX weights over instead.
 
     whole: {id(parameter): (its parallel/sharding.Placement, model rank)}
@@ -231,8 +233,15 @@ def init_weights_(module: nn.Module, generator: torch.Generator,
         if held(p):
             p.copy_(pl.model_local(full, rank))
 
+    from visper_lm_tpu_torch.ops.moe import ExpertBank, Router
+
     for m in module.modules():
-        if isinstance(m, nn.Linear):
+        if isinstance(m, Router):
+            draw(m.weight, lambda t, shape: t.normal_(0.0, 0.02, generator=generator))
+        elif isinstance(m, ExpertBank):
+            if held(m.kernel):
+                m.reset_parameters(generator)
+        elif isinstance(m, nn.Linear):
             draw(m.weight, lambda t, shape: t.uniform_(-shape[1] ** -0.5, shape[1] ** -0.5,
                                                        generator=generator))
             if m.bias is not None and held(m.bias):
@@ -271,6 +280,15 @@ def split_layer(name: str) -> Tuple[str, Optional[int]]:
     if m is None:
         return name, None
     return m.group(1) + m.group(3), int(m.group(2))
+
+
+_EXPERT_BANK = re.compile(r"(^|/)moe_(gate|up|down)/kernel$")
+
+
+def is_expert_kernel(path: str) -> bool:
+    """Whether a JAX path is a MoE expert bank's kernel: the port keeps its
+    (E, din, dout) layout (no transpose)."""
+    return _EXPERT_BANK.search(path) is not None
 
 
 def jax_path(name: str) -> str:
@@ -344,7 +362,7 @@ def jax_flat_arrays(params: NamedParams) -> Dict[str, Optional[np.ndarray]]:
         a = None
         if t is not None:
             a = to_numpy(t)
-            if key.endswith("/kernel"):
+            if key.endswith("/kernel") and not is_expert_kernel(key):
                 a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
         layer = split_layer(name)[1]
         if layer is None:

@@ -15,7 +15,11 @@ as they are), and a decoder quantized by the JAX package
 {kernel_q8, out_scale} and {kernel_q4p, q4_scale[, q4_in_scale]} leaves
 become `QuantLinear` buffers as they are (both input-major), bit for bit.
 `decoder_from_jax_params` maps a bare decoder tree (beam search and
-speculative decoding take one). `teachers_from_jax_params` maps the
+speculative decoding take one). A MoE decoder's `moe_router` (L, D, E) is
+transposed like a linear kernel and stays f32 whatever `dtype` asks; its
+expert banks `moe_gate` / `moe_up` / `moe_down` (L, E, din, dout) keep
+JAX's layout (`ExpertBank`), and with `ep=` a rank takes its E/ep experts
+on the host. `teachers_from_jax_params` maps the
 teachers' tree (dinov2, clip_h, swin and the DPT depth decoder `dpt`).
 `load_jax_tree` loads a subtree with no stacked blocks into a module: a probe
 head (`ProbeHead`), an `AttentionPool2d`, a task head; a None leaf (an
@@ -43,12 +47,12 @@ import torch.nn as nn
 
 from visper_lm_tpu_torch.config import DecoderConfig, VLMConfig
 from visper_lm_tpu_torch.device import resolve_device
-from visper_lm_tpu_torch.models.decoder import LINEAR_NAMES, Decoder, normalize_stream_layout
+from visper_lm_tpu_torch.models.decoder import Decoder, block_linears, normalize_stream_layout
 from visper_lm_tpu_torch.models.teachers import TeacherConfigs, build_teachers
 from visper_lm_tpu_torch.models.vlm import VLM
 from visper_lm_tpu_torch.parallel.pipeline import foreign_names, shard_pipeline
 from visper_lm_tpu_torch.parallel.tensor import model_placements, shard_model
-from visper_lm_tpu_torch.utils.param import QuantLinear, to_numpy
+from visper_lm_tpu_torch.utils.param import QuantLinear, is_expert_kernel, jax_path, to_numpy
 
 _VLM_SUBTREES = (
     "decoder", "vision_tower", "mm_projector", "special_tokens", "heads", "logit_scales",
@@ -69,9 +73,11 @@ def _tensor(x: Any) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def _leaf(name: str, x: Any):
-    """(port leaf name, value) for one JAX leaf name."""
+def _leaf(name: str, x: Any, prefix: str = ""):
+    """(port leaf name, value) for one JAX leaf name under `prefix`."""
     a = np.asarray(x)
+    if name == "kernel" and is_expert_kernel(jax_path(f"{prefix}.kernel")):
+        return "kernel", a                  # (E, din, dout) as JAX holds it
     if name == "kernel":
         if a.ndim == 4:                     # conv HWIO -> OIHW
             return "weight", a.transpose(3, 2, 0, 1)
@@ -90,7 +96,7 @@ def _flatten(sd: Dict[str, Any], prefix: str, tree: Any) -> None:
             if isinstance(v, (dict, list, tuple)):
                 _flatten(sd, f"{prefix}.{k}", v)
             else:
-                name, val = _leaf(k, v)
+                name, val = _leaf(k, v, prefix)
                 sd[f"{prefix}.{name}"] = val
     else:
         for i, v in enumerate(tree):
@@ -183,7 +189,7 @@ def _quant_shells(decoder: Decoder, tree: Dict[str, Any]) -> None:
             bufs[_QUANT_LEAVES[k]] = torch.empty(a.shape[1:] if stacked else a.shape, dtype=dt)
         return QuantLinear(**bufs)
 
-    for name in LINEAR_NAMES:
+    for name in block_linears(decoder.cfg):
         p = tree["blocks"][name]
         if "kernel" not in p:
             for block in decoder.blocks:
@@ -206,8 +212,10 @@ def _load(module: nn.Module, sd: Dict[str, Any], device, dtype, freed=()) -> Non
             tensors[name] = t
             continue
         t = _tensor(leaf)
-        # quantized linears keep their f32 scales whatever the model dtype
-        if dtype is not None and t.is_floating_point() and name.rsplit(".", 1)[-1] not in _QUANT_LEAVES.values():
+        # quantized linears keep their f32 scales, a MoE router its f32
+        # weight, whatever the model dtype
+        if (dtype is not None and t.is_floating_point() and ".moe_router." not in f".{name}"
+                and name.rsplit(".", 1)[-1] not in _QUANT_LEAVES.values()):
             t = t.to(dtype)
         tensors[name] = t.to(device)
     module.load_state_dict(tensors, strict=True, assign=True)
@@ -232,6 +240,7 @@ def from_jax_params(
     dtype: Optional[torch.dtype] = None,
     tp=None,
     pp=None,
+    ep=None,
 ) -> VLM:
     """A VLM holding the JAX tree's weights on `device` (CUDA when None);
     quantized decoder linears become `QuantLinear`s.
@@ -242,17 +251,20 @@ def from_jax_params(
     before it is copied (a rank never holds the whole decoder on the device).
     pp (parallel/pipeline.PipeParallel): the stage's form, the stacked
     blocks cut on the host: only the stage's own blocks are copied, the
-    others are storage-less (`pipeline.whole_params` gathers them back)."""
+    others are storage-less (`pipeline.whole_params` gathers them back).
+    ep (parallel/distributed.AxisGroup): a MoE decoder's expert-parallel form, each
+    bank's E/ep experts of the rank cut on the host."""
     device = resolve_device(device)
     tree = normalize_stream_layout(tree)
     with torch.device("meta"):
-        model = VLM(cfg)
+        model = VLM(cfg, ep=ep)
         # the tree holds image_newline when JAX's init or importer put it there
         model.image_newline = (nn.Parameter(torch.empty(cfg.decoder.hidden_size))
                                if "image_newline" in tree else None)
         _quant_shells(model.decoder, tree["decoder"])
         shard_pipeline(shard_model(model, tp), pp)
     sd = jax_tree_to_state_dict(tree, cfg)
+    expert_slices(model.decoder, sd, "decoder.")
     for name, pl in model_placements(model).items():
         a = np.asarray(sd[name])
         size = a.shape[pl.model_dim] // pl.model_parts
@@ -261,6 +273,17 @@ def from_jax_params(
         sd[name] = a[tuple(index)]
     _load(model, sd, device, dtype, freed=set(foreign_names(model)))
     return model.eval()
+
+
+def expert_slices(decoder: Decoder, sd: Dict[str, Any], prefix: str = "") -> None:
+    """In place: each expert bank of `sd` (host arrays, all E experts) cut
+    to the experts the decoder's rank holds (nothing without expert
+    parallelism)."""
+    for name, p in decoder.named_parameters():
+        if is_expert_kernel(jax_path(f"decoder.{name}")):
+            bank = decoder.get_submodule(name.rsplit(".", 1)[0])
+            sd[prefix + name] = np.asarray(sd[prefix + name])[
+                bank.first:bank.first + p.shape[0]]
 
 
 def decoder_from_jax_params(
