@@ -27,7 +27,8 @@ Phases, each of which raises (exit code != 0) when it fails:
           (bf16 bias + mask) timed as CUDA graphs in turns, and their sums
           weighted by a train step's 48 launches beside the bound's;
        B5 w4a16 matmul (Phi3-mini's four (din, dout) pairs at M = 8 and, but
-          for lm_head, M = 6144; one AWQ case) against its plain version in
+          for lm_head, M = 6144; one AWQ case; a tp 2 rank's slices of the
+          block linears at M = 6144, phase 17 (d)'s) against its plain version in
           f32: relative Frobenius error <= 1e-2 and max abs error <= 2e-2 x
           max|ref| (the bf16 output's rounding). Each case also times the
           mma.sync kernel it replaced (`mma_sync_ms`; in turns: old, new, new,
@@ -211,7 +212,7 @@ Phases, each of which raises (exit code != 0) when it fails:
      released; `llama3_clip_vlm(distill=True)` made on the card as phase 10
      makes it, with its whitespace tokenizer; its taps VIZ_TAPS, the gen
      task at layers 18-20 instead of 12-20, for time: the demo renders a
-     25-step generation for each), every record with the card's
+     generation for each), every record with the card's
      name and power limit. (a) `VisperModel.get_visual_interpretations` of one
      seeded 480 x 640 image and a 40-word question: B1 exactly 32 launches,
      every task / layer prediction of the expected shape and within 0.05 x
@@ -230,7 +231,8 @@ Phases, each of which raises (exit code != 0) when it fails:
      same weights; ms per denoise step (one UNet call on the CFG batch), the
      VAE's ms, the whole generation's ms and its peak GiB. (e)
      `teacher_bundles.pack_modules` writes (b)-(d)'s decoders into the
-     repo's tmp/ (removed after); `demo.main` one-shot --viz loads them
+     repo's tmp/ (removed after; the gen bundle at VIZ_DEMO_STEPS = 5
+     denoise steps, for time); `demo.main` one-shot --viz loads them
      through `load_viz_decoders` and writes all three tasks' PNGs for every
      tapped layer, each read back with `read_png`; `DistillVizHook` called
      directly writes its grids; a `delta` of the heads (bf16) round-trips
@@ -285,7 +287,8 @@ Phases, each of which raises (exit code != 0) when it fails:
      printed). Phi3-mini stands in, with a line that says so, when
      MemAvailable is below the pinned state plus 10 GB; (d) `python -m
      visper_lm_tpu_torch.train.aot` (in-process through runpy) with --run at
-     (c)'s configuration: B1 64 / B2 32 / B3 32 a step over its 2 steps, and
+     (c)'s settings on Phi3-mini (at Llama-3-8B it pinned the moments on the
+     host again: 68.5 s): B1 64 / B2 32 / B3 32 a step over its 2 steps, and
      its static count of weights and on-card state within 5 % of the
      allocator's reading once its run had set them up (the breakdown counts
      no activations: the OOM of (c) is what shows the configuration without
@@ -360,8 +363,31 @@ Phases, each of which raises (exit code != 0) when it fails:
      written: every rank a quarter of the decoder (25-26 %), its init peak
      under the whole decoder's bytes (no rank held it), the same finite
      metrics on every rank, B1 4 / B2 2 / B3 2 / B4 24 a step, the pinned
-     total under 57.99 GiB; per rank peak and pinned GiB and step ms. Any
-     rank that fails or does not finish within 420 s fails the phase.
+     total under 57.99 GiB; per rank peak and pinned GiB and step ms. Inside
+     (a)-(b)'s spawn, on (a)'s tp 2 model, each against the one-process
+     run of the same code before the spawn: (d) the Generator with int4
+     weights, AWQ-calibrated on phase 4's prompts through the rank's
+     decoder: prefill logits within 2 x the one-process int4 logits'
+     distance to (a)'s f32 logits, greedy tokens (8 a row) under (a)'s
+     margin rule with that tolerance, both ranks bit-equal; B5 7 a layer
+     plus the head a forward on each rank (57: no linear falls back to the
+     dequantized product), B1 8 a prefill, 45-55 % of the int4 decoder's
+     bytes, prefill ms and decode ms/token; (e) the Engine at
+     bench_engine.py's settings with int8 KV + w8a16 on TP_ENGINE_REQUESTS
+     = 8 of its workload's requests: tokens under (a)'s margin rule
+     (margins along the one-process tokens by teacher forcing; the first
+     divergence printed with its margin), B1 8 a prefill dispatch, a cache
+     of 16 kv heads, steps and tokens/s a rank; (f) at batch 1 on a
+     128-token prompt, TP_SPEC_TOKENS = 8 tokens: SpeculativeDecoder (the
+     target's first half as the draft), PromptLookupDecoder and
+     BeamSearchDecoder (2 beams), each under (a)'s margin rule on the
+     one-process greedy path's margins; (g) the LoRA stage (r 64, phase
+     12's) at Phi3-mini widths, DP_LAYERS layers, on phase 16's 3 IFT
+     batches (B4 x T1024, save_gate): losses, reduced step-1 gradients and
+     moves held to the one-process LoRA step and an f32 run by phase 16's
+     bounds, the replicated factors bit-equal on both ranks, B1 4 / B2 2 /
+     B3 2 a step, peak GiB a rank. Any rank that fails or does not finish
+     within 420 s fails the phase.
  18. sequence and pipeline parallelism (`--phase18-rank`, `--phase18c-rank`:
      gloo ranks sharing the card; every record with the card's name and
      power limit): (a) Llama-3-8B's attention (32 q / 8 kv heads, H128,
@@ -419,6 +445,11 @@ Phases, each of which raises (exit code != 0) when it fails:
 Phase 3 also holds B1-B3 at phase 12's recipe PT shape (Llama-3-8B, B4 x
 T1024, GQA 32/8 H128, causal) against their plain versions, beside SDPA's
 forward and backward and the bound, as at the training shape.
+
+The ranks of phases 16-19 start at their phase's start, held: each imports
+the port and opens its CUDA context, then waits for the parent's references
+(DIR/start names the port). The profiles (phases 5-13) record the device's
+activity only. Each phase writes a line `chip_smoke +T s: ...` to stderr.
 
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Needs no network; builds into
@@ -488,6 +519,7 @@ RECIPE_GRAD_LAYER = 16          # the IFT layer whose weight gradients are held 
 EVAL_RECORDS, EVAL_BATCH, EVAL_NEW_TOKENS = 16, 8, 8   # per benchmark; chat batch; answer tokens
 EVAL_LAYERS = 8                # phase 14's Llama-3-8B, cut in depth (time)
 VIZ_TAPS = "d18-20_s10-18_g18-20"   # phase 13's tapped layers: gen at 3, not 9 (time)
+VIZ_DEMO_STEPS = 5             # phase 13 (e): the packed gen bundle's denoise steps (time; (d) runs 25)
 EVAL_IMAGES = ((480, 640), (336, 336), (600, 400), (256, 512))   # (H, W) of the records' PNGs
 INCEPTION_IMAGES, INCEPTION_SIZE = 64, 512                       # FID features: the downscale path
 # phase 15: the memory levers
@@ -500,7 +532,6 @@ MEM_HOST_MARGIN_GB = 10.0                   # (c) host memory beside the pinned 
 DP_STEPS, DP_LR = 3, 1e-3      # a batch each; update 1 has lr 0 (warmup ratio 0), 2-3 DP_LR
 DP_MODES = ("plain", "zero_frozen", "zero_params")   # (b)
 DP_SAMPLE = 1 << 16            # elements of a tensor compared by sample (a fixed stride)
-DP_TIMEOUT = 420               # s for the two ranks' whole run
 DP_LAYERS = 2                  # phases 16-17 (b): config #1 cut in depth (time)
 DP_TAPS = "d1-2_s1-2_g1-2"     # its tapped layers (1-indexed, two a task), inside the cut
 # phase 17: tensor parallelism
@@ -508,7 +539,10 @@ TP_NEW_TOKENS = 8              # (a) greedy tokens a row
 TP_MODES = ("plain", "shard_teachers")   # (b)
 TP_GEN_LAYERS = 8              # (a) Phi3-mini cut in depth (time)
 TP_RECIPE_LAYERS, TP_RECIPE_STEPS = 2, 2   # (c) Llama-3-8B cut in depth, steps
-TP_TIMEOUT = 420               # s for each spawn's whole run
+TP_TIMEOUT = 420               # s for each spawn's whole run, from its release
+HOLD_TIMEOUT = 900             # s a held rank waits for its release
+TP_ENGINE_REQUESTS = 8         # (e) engine_workload's first requests
+TP_SPEC_TOKENS, TP_BEAMS = 8, 2   # (f) new tokens at batch 1; beams
 # phase 18: sequence and pipeline parallelism
 SP_T, SP_LAYERS = 8192, 2      # (a)-(b): Llama-3-8B at B1 x T8192, sp 2; (b) cut in depth (time)
 SP_STEPS = 2                   # (b)-(c): updates (the first has lr 0), then the loss after them
@@ -520,6 +554,16 @@ MOE_F32_LAYERS = 8             # (a) the depth held to an f32 run
 MOE_PT_STEPS = 2               # (b) timed steps at full depth, after a warm-up
 MOE_PT_LAYERS = 4              # (b) the depth held to an f32 run
 MOE_EP_LAYERS = 4              # (c) Phi3-mini widths cut in depth, ep 2
+
+
+T_START = time.perf_counter()
+
+
+def progress(what: str) -> None:
+    """One line on stderr with the seconds since this process started: a run
+    stopped at its time limit shows how far it got."""
+    sys.stdout.flush()
+    print(f"chip_smoke +{time.perf_counter() - T_START:.1f} s: {what}", file=sys.stderr, flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1097,19 +1141,26 @@ def profile_window(name: str, fn, top: int = 10, match=()) -> dict:
     """Device time of one call of fn by kernel (torch.profiler), and the
     device's idle share of the same call's wall time timed without the
     profiler (the profiler slows the host). For each string in `match`, also
-    the device time and launches of the kernels whose name contains it."""
+    the device time and launches of the kernels whose name contains it. The
+    profiler records the device's activity only: recording every host op as
+    well cost 37-53 s of host time for a decode chunk's 45,000-64,000
+    launches; it records both only where that finds no kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    t_host = time.perf_counter()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    for activities in ([ProfilerActivity.CUDA], [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with profile(activities=activities) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if kernels:
+            break
     busy_us = sum(e.self_device_time_total for e in kernels)
     print(f"profile {name}: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
           f"idle share {1 - busy_us / wall_us:.3f}, {sum(e.count for e in kernels)} kernels")
@@ -1118,6 +1169,7 @@ def profile_window(name: str, fn, top: int = 10, match=()) -> dict:
               f"x{e.count:<5d} {e.key[:100]}")
     out = dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3, idle_share=1 - busy_us / wall_us,
                kernels=sum(e.count for e in kernels))
+    progress(f"profile {name}: {time.perf_counter() - t_host:.1f} s on the host")
     for key in match:
         hit = [e for e in kernels if key in e.key]
         out[key] = dict(ms=sum(e.self_device_time_total for e in hit) / 1e3,
@@ -2829,7 +2881,7 @@ def viz_phase(fa, wa, smi: str) -> dict:
             str(teachers), dpt=dpt,
             oneformer=dict(decoder=dec, cfg=oneformer.ONEFORMER_COCO, swin=swin,
                            swin_cfg=swin_lib.SWIN_L, image_size=768),
-            genpipe=dict(pipe=pipe, cfg=gcfg, num_inference_steps=25))
+            genpipe=dict(pipe=pipe, cfg=gcfg, num_inference_steps=VIZ_DEMO_STEPS))
         pack_s = time.perf_counter() - t0
         sizes = {k: os.path.getsize(v) / 2**30 for k, v in packed.items()}
         del pipe
@@ -3208,7 +3260,7 @@ def memory_phase(fa, wa, smi: str) -> dict:
     from unittest import mock
 
     from visper_lm_tpu_torch.checkpoint.hf_export import save_hf_checkpoint
-    from visper_lm_tpu_torch.config import llama3_clip_vlm
+    from visper_lm_tpu_torch.config import llama3_clip_vlm, phi3_clip_vlm
     from visper_lm_tpu_torch.data.dataset import RAW_IMAGES, BatchIterator, DataConfig, SupervisedDataset
     from visper_lm_tpu_torch.models.vlm import init_vlm
     from visper_lm_tpu_torch.train import aot, cli
@@ -3238,6 +3290,7 @@ def memory_phase(fa, wa, smi: str) -> dict:
         out["bandwidth"] = bandwidth_probe()
         release_cuda()
 
+        progress("phase 15 (b)")
         # (b) parity at Llama-3-8B widths, MEM_LAYERS layers: on-card AdamW, offloaded, offloaded + streamed
         t0 = time.perf_counter()
         cfg4 = llama3_clip_vlm(distill=False)
@@ -3296,6 +3349,7 @@ def memory_phase(fa, wa, smi: str) -> dict:
         del runs, ref, base
         release_cuda()
 
+        progress("phase 15 (c)")
         # (c) IFT from recipes/finetune.args with the levers, at full depth
         data = memory_dataset(root)
         mem = host_memory()
@@ -3333,12 +3387,14 @@ def memory_phase(fa, wa, smi: str) -> dict:
                                         d.head_dim, True, [0] * RECIPE_BATCH, lens, gen, fa)
         release_cuda()
 
+        progress("phase 15 (c) init checkpoint")
         src = init_vlm(cfg, device="cuda", seed=15)
         t0 = time.perf_counter()
         save_hf_checkpoint(str(root / "init"), src, cfg)
         save_s = time.perf_counter() - t0
         del src
         release_cuda()
+        progress("phase 15 (c) cli.main")
         saves = []
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -3383,6 +3439,7 @@ def memory_phase(fa, wa, smi: str) -> dict:
             card=smi)
         print("memory ift " + json.dumps(out["ift"]))
 
+        progress("phase 15 (c) without the levers")
         # the same configuration without the levers
         stream.close()
         model = state.model
@@ -3407,9 +3464,13 @@ def memory_phase(fa, wa, smi: str) -> dict:
         plain = model = None
         release_cuda()
 
-        # (d) train/aot.py at (c)'s configuration, through its command line
+        progress("phase 15 (d)")
+        # (d) train/aot.py at (c)'s settings, through its command line, on
+        # Phi3-mini: at Llama-3-8B its run pinned the moments on the host
+        # once more (68.5 s of the script's 1,200)
         aot_out = root / "aot.jsonl"
-        aot_argv = ["aot", "--model", model_name, "--stage", "finetune", "--batch", str(RECIPE_BATCH),
+        aot_layers = phi3_clip_vlm(distill=False).decoder.num_layers
+        aot_argv = ["aot", "--model", "phi3", "--stage", "finetune", "--batch", str(RECIPE_BATCH),
                     "--seq", str(seq), "--offload-opt", "--stream-grads", str(MEM_STREAM), "--run",
                     "--out", str(aot_out)]
         reset_counts()
@@ -3424,8 +3485,8 @@ def memory_phase(fa, wa, smi: str) -> dict:
             sys.argv = saved_argv
         rep = json.loads(aot_out.read_text().strip().splitlines()[-1])
         aot_launches = counts()
-        check(aot_launches == per_step(d.num_layers, 2),
-              f"train.aot --run launches {aot_launches}, expected {per_step(d.num_layers, 2)}")
+        check(aot_launches == per_step(aot_layers, 2),
+              f"train.aot --run launches {aot_launches}, expected {per_step(aot_layers, 2)}")
         # the static count of weights and on-card state, from the shapes, against
         # the allocator's reading once the run had set them up
         static = (rep["params_gib_per_chip"] + rep["frozen_gib_per_chip"]
@@ -3682,32 +3743,88 @@ def dp_config(distill: bool):
     return cfg
 
 
+def f32_student(cfg, model, names, batches, stage, teachers=None, tfn=None) -> tuple:
+    """The tolerance run of phases 16-17: `model` cast to f32 in place, the
+    plain path, AdamW on `names` over the batches. Returns (losses, step-1
+    gradients' dp_sample, the trainables after the updates on the host)."""
+    from visper_lm_tpu_torch.train.optimizer import AdamW
+    from visper_lm_tpu_torch.train.train_step import make_loss_fn
+
+    model.float()
+    loss_fn = make_loss_fn(cfg, teacher_fn=tfn, use_kernel=False)
+    params = dict(model.named_parameters())
+    opt_f = AdamW(((n, params[n]) for n in names), dp_opt_cfg(stage))
+    losses_f, g_f = [], None
+    dev = next(model.parameters()).device
+    for batch in batches:
+        dbatch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        loss, grads = loss_and_grads(loss_fn, model, dbatch, teachers,
+                                     [params[n] for n in names])
+        # a trainable the loss does not reach has a zero gradient, as the step gives it
+        grads = {n: torch.zeros_like(params[n]) if g is None else g
+                 for n, g in zip(names, grads)}
+        if g_f is None:
+            g_f = {n: dp_sample(g) for n, g in grads.items()}
+        opt_f.step(grads)
+        losses_f.append(loss)
+        del grads, dbatch
+    return losses_f, g_f, {n: params[n].detach().cpu() for n in names}
+
+
+def lora_references(reset, read) -> dict:
+    """Phase 17 (g)'s references: the one-process LoRA step (save_gate) on
+    phase 16's IFT batches, and the f32 run from the same weights."""
+    from visper_lm_tpu_torch.models.vlm import init_vlm
+    from visper_lm_tpu_torch.train.train_step import make_train_step
+
+    cfg = tp_lora_config()
+    batches = dp_batches(cfg, pt=False)
+    model = init_vlm(cfg, device="cuda", seed=0)
+    step = make_train_step(cfg, dp_opt_cfg("lora"), model, remat_policy="save_gate")
+    names = list(step.trainable)
+    p0 = {n: p.detach().to("cpu", torch.float32, copy=True) for n, p in step.trainable.items()}
+    still = dp_loss_at(step, batches[-1])
+    kept = dp_grads(step)
+    torch.cuda.reset_peak_memory_stats()
+    one = dp_steps(step, batches, reset, read)
+    one["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    p_1 = {n: p.detach().to("cpu", copy=True) for n, p in step.trainable.items()}
+    with torch.no_grad():
+        for n, p in step.trainable.items():
+            p.copy_(p0[n])
+    del step
+    losses_f, g_f, p_f = f32_student(cfg, model, names, batches, "lora")
+    move_1, move_f = deltas(p_1, p0), deltas(p_f, p0)
+    ref = dict(losses=one["losses"], losses_f=losses_f, step_ms=one["step_ms"],
+               peak_gib=one["peak_gib"], still=still, p0=p0, move_1=move_1, move_f=move_f,
+               e_1=rel_fro(move_1, move_f), g_f=g_f, launches=one["launches"],
+               d_grad=rel_fro({n: s for n, (_, s) in kept.items()}, g_f),
+               trainables=sum(v.numel() for v in p0.values()))
+    del model
+    release_cuda()
+    return ref
+
+
 def dp_phase(smi: str, keep=None) -> dict:
     """Phase 16: data parallelism and ZeRO on the card (see the module
     docstring). Returns the record printed as `dp_path`; `keep` gets the
     one-process PT step's references (phase 17 (b) holds its ranks to them)."""
     import shutil
-    import socket
 
     from visper_lm_tpu_torch.models.teachers import init_teachers, make_teacher_fn
     from visper_lm_tpu_torch.models.vlm import init_vlm
     from visper_lm_tpu_torch.parallel import distributed as D
-    from visper_lm_tpu_torch.train.optimizer import AdamW
-    from visper_lm_tpu_torch.train.train_step import make_loss_fn, make_train_step
+    from visper_lm_tpu_torch.train.train_step import make_train_step
 
     root = Path(__file__).resolve().parent / "tmp" / "chip_smoke_dp"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
     reset, read = dp_counters()
     out = dict(card=smi)
-
-    def free_port() -> int:
-        with socket.socket() as sock:
-            sock.bind(("localhost", 0))
-            return sock.getsockname()[1]
-
     cfg = dp_config(distill=True)
     batches = dp_batches(cfg, pt=True)
+    # (b)-(c)'s two ranks start now and wait for the references below
+    held = start_ranks("--phase16-rank", 2, root, hold=True)
     try:
         # the one-process PT step of config #1 (phase 8's, save_gate), from seeds
         t0 = time.perf_counter()
@@ -3775,25 +3892,7 @@ def dp_phase(smi: str, keep=None) -> dict:
         # losses, step-1 gradients and parameter moves against the bf16
         # one-process run's
         restore()
-        model.float()
-        loss_fn = make_loss_fn(cfg, teacher_fn=tfn, use_kernel=False)
-        params = dict(model.named_parameters())
-        opt_f = AdamW(((n, params[n]) for n in names), dp_opt_cfg("pretrain"))
-        losses_f, g_f = [], None
-        for batch in batches:
-            dbatch = {k: torch.as_tensor(v).to("cuda") for k, v in batch.items()}
-            loss, grads = loss_and_grads(loss_fn, model, dbatch, teachers,
-                                         [params[n] for n in names])
-            # a trainable the loss does not reach has a zero gradient, as the step gives it
-            grads = {n: torch.zeros_like(params[n]) if g is None else g
-                     for n, g in zip(names, grads)}
-            if g_f is None:
-                g_f = {n: dp_sample(g) for n, g in grads.items()}
-            opt_f.step(grads)
-            losses_f.append(loss)
-            del grads, dbatch
-        p_f = {n: params[n].detach().cpu() for n in names}
-        del opt_f, params
+        losses_f, g_f, p_f = f32_student(cfg, model, names, batches, "pretrain", teachers, tfn)
         move_1, move_f = deltas(p_1, p0), deltas(p_f, p0)
         d_loss = [abs(a - f) / abs(f) for a, f in zip(one["losses"], losses_f)]
         d_grad = rel_fro(g_1, g_f)
@@ -3842,31 +3941,8 @@ def dp_phase(smi: str, keep=None) -> dict:
 
         # (b) and (c): two ranks share the card
         t0 = time.perf_counter()
-        port = free_port()
-        logs = [open(root / f"rank{r}.log", "w") for r in range(2)]
-        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--phase16-rank",
-                                   str(r), str(port), str(root)], stdout=logs[r],
-                                  stderr=subprocess.STDOUT) for r in range(2)]
-        deadline = time.perf_counter() + DP_TIMEOUT
-        try:
-            codes = [p.wait(timeout=max(deadline - time.perf_counter(), 0)) for p in procs]
-        except subprocess.TimeoutExpired:
-            codes = None
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-            for f in logs:
-                f.close()
+        ranks = wait_ranks(held, "phase 16")
         ranks_s = time.perf_counter() - t0
-        for r in range(2):
-            tail = (root / f"rank{r}.log").read_text()[-3000:]
-            if codes is None or codes[r] != 0:
-                print(f"phase 16 rank {r} log (tail):\n{tail}")
-        check(codes is not None, f"phase 16: the ranks did not finish within {DP_TIMEOUT} s")
-        check(codes == [0, 0], f"phase 16: rank exit codes {codes}")
-        ranks = [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(2)]
         check(all(r["backend"] == "gloo" for r in ranks), "phase 16: the ranks did not run gloo")
 
         # (b): each mode held to the one-process step and to the f32 run
@@ -3963,6 +4039,7 @@ def dp_phase(smi: str, keep=None) -> dict:
         out["seconds_by_part"] = dict(pt_one_process_a_f32=pt_s, ift_one_process=ift_s,
                                       ranks=ranks_s, rank_start=[r["start_s"] for r in ranks])
     finally:
+        stop_ranks(held)
         D.shutdown()
         shutil.rmtree(root, ignore_errors=True)
         release_cuda()
@@ -4013,6 +4090,244 @@ def tp_gen_config():
     cfg = phi3_clip_vlm(distill=True)
     return dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder,
                                                                 num_layers=TP_GEN_LAYERS))
+
+
+def tp_lora_config():
+    """Phase 17 (g)'s Phi3-mini + CLIP-L at DP_LAYERS layers with phase 12's
+    LoRA adapters (r 64, alpha 16, all seven targets)."""
+    import dataclasses
+
+    from visper_lm_tpu_torch.config import LoraConfig
+
+    return dataclasses.replace(dp_config(distill=False), lora=LoraConfig())
+
+
+def margin_rule(name: str, got: list, want: list, margins: list, tol: float) -> tuple:
+    """Phase 17's rule for greedy tokens that ran in other arithmetic: each
+    row of `got` equals `want` through the first position where the
+    one-process top-2 logit margin (`margins`, a list a row) falls under
+    `tol`. Fails the phase otherwise. Returns (agree, first_low): per row
+    the first position that differs and the first low-margin position."""
+    first_low = [next((j for j, m in enumerate(row) if m < tol), len(row)) for row in margins]
+    agree = [next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), len(w))
+             for g, w in zip(got, want)]
+    check(all(a >= f for a, f in zip(agree, first_low)),
+          f"{name}: tokens differ at {agree} before the first position where the one-process "
+          f"top-2 margin falls under {tol:.4g} ({first_low})")
+    return agree, first_low
+
+
+def divergence_note(agree: list, margins: list) -> str:
+    """The first differing position of each row that differs, with the
+    one-process margin there."""
+    notes = [f"row {i} at {a} (margin {margins[i][a]:.4g})"
+             for i, a in enumerate(agree) if a < len(margins[i])]
+    return "; ".join(notes) or "none"
+
+
+@torch.no_grad()
+def forced_margins(generator, batch, forced: list) -> list:
+    """The top-2 logit margins along given token rows (teacher forcing
+    through the Generator's prefill and decoder, a step at a time): a list
+    a row of len(forced[i]) margins, position j's taken before token j."""
+    logits, cache = generator.prefill(batch)
+    offsets = torch.as_tensor(batch["pad_offsets"], device=generator.device).long()
+    b, n = offsets.shape[0], max(len(f) for f in forced)
+    rows = torch.tensor([f + [0] * (n - len(f)) for f in forced], device=generator.device)
+    margins = []
+    dec = generator.decoder
+    for i in range(n):
+        top = logits.topk(2, dim=-1).values
+        margins.append((top[:, 0] - top[:, 1]).float().cpu())
+        if i + 1 == n:
+            break
+        slot = torch.full((), generator.prompt_len + i, dtype=torch.long, device=generator.device)
+        out = dec(dec.embed(rows[:, i:i + 1]), positions=(slot - offsets)[:, None],
+                  kv_lengths=(slot + 1).expand(b), kv_starts=offsets, cache=cache, q_offset=slot)
+        logits = out["logits"][:, 0]
+    m = torch.stack(margins)
+    return [m[:len(f), r].tolist() for r, f in enumerate(forced)]
+
+
+@torch.no_grad()
+def batch1_greedy_margins(decoder, prompt: list, n: int) -> tuple:
+    """Greedy decoding of one prompt, a token at a time through the cache
+    route (as the speculative and beam decoders run): (tokens, margins)."""
+    from visper_lm_tpu_torch.models.decoder import init_kv_cache
+    from visper_lm_tpu_torch.serve.speculative import _chunk_forward
+
+    cache = init_kv_cache(decoder.cfg, 1, 512, device=decoder.embed_tokens.weight.device,
+                          tp=decoder.tp_size)
+    logits, p, tokens, margins = _chunk_forward(decoder, prompt, cache, 0)[-1], len(prompt), [], []
+    for _ in range(n):
+        top = logits.topk(2).values
+        margins.append(float(top[0] - top[1]))
+        tokens.append(int(logits.argmax()))
+        logits = _chunk_forward(decoder, tokens[-1:], cache, p)[-1]
+        p += 1
+    return tokens, margins
+
+
+def half_draft(target):
+    """Phase 9's draft: the target's first half of the blocks with its
+    embedding, final norm and head (tensor parallel as the target is)."""
+    import dataclasses
+
+    from visper_lm_tpu_torch.models.decoder import Decoder
+    from visper_lm_tpu_torch.parallel.tensor import set_tensor_parallel
+
+    d = target.cfg
+    with torch.device("meta"):
+        draft = Decoder(dataclasses.replace(d, num_layers=d.num_layers // 2))
+    draft.embed_tokens, draft.final_norm, draft.lm_head = (
+        target.embed_tokens, target.final_norm, target.lm_head)
+    draft.blocks = torch.nn.ModuleList(target.blocks[:d.num_layers // 2])
+    if target.tp is not None:
+        own = dict(draft.named_parameters())
+        set_tensor_parallel(draft, target.tp, {n: pl for n, pl in target.tp_plan.items()
+                                               if n in own}, {})
+    return draft.eval()
+
+
+def spec_prompt(cfg) -> list:
+    return np.random.default_rng(1).integers(3, cfg.decoder.vocab_size - 10, size=128).tolist()
+
+
+@torch.no_grad()
+def serving_checks(model, cfg, batch, dev, reset, read, margins: bool = False) -> dict:
+    """Phase 17 (d)-(f) on one model (a tp rank's or one process's): (d) the
+    Generator with AWQ-calibrated int4 weights, (e) the Engine at
+    bench_engine.py's defaults with int8 KV + w8a16 on TP_ENGINE_REQUESTS
+    of its workload, (f) speculative, prompt-lookup and beam decoding at
+    batch 1. Returns what each measured; with margins (the one-process
+    reference) also the top-2 logit margins along (d)'s and (e)'s tokens and
+    along (f)'s greedy path."""
+    from visper_lm_tpu_torch.models.vlm import encode_images, splice_embeddings
+    from visper_lm_tpu_torch.ops import quant_matmul as qm
+    from visper_lm_tpu_torch.serve.beam import BeamSearchDecoder
+    from visper_lm_tpu_torch.serve.calibrate import decoder_act_rms
+    from visper_lm_tpu_torch.serve.engine import Engine, EngineConfig, Request
+    from visper_lm_tpu_torch.serve.generate import GenerationConfig, Generator
+    from visper_lm_tpu_torch.serve.speculative import PromptLookupDecoder, SpeculativeDecoder
+
+    out = {}
+    # (d): calibrated on the batch through this model's decoder, then int4
+    t0 = time.perf_counter()
+    gen = Generator(model, cfg, GenerationConfig(), BATCH, PROMPT_LEN, device=dev)
+    b = gen._to_device(batch)
+    embeds = splice_embeddings(model, b["text_ids"].long(), b["token_type"],
+                               b["src_index"].long(), encode_images(model, b["images"]))
+    act_rms = decoder_act_rms(model.decoder, cfg.decoder, [embeds])
+    del embeds, b, gen
+    q_gen = Generator(model, cfg, GenerationConfig(max_new_tokens=TP_NEW_TOKENS,
+                                                   weight_quant="int4", calibration=act_rms),
+                      BATCH, PROMPT_LEN, device=dev)
+    torch.cuda.synchronize()
+    rec = dict(quantize_s=time.perf_counter() - t0, decoder_gib=(
+        sum(t.numel() * t.element_size() for t in q_gen.decoder.parameters())
+        + sum(t.numel() * t.element_size() for t in q_gen.decoder.buffers())) / 2**30)
+    q_gen.prefill(batch)                       # warm-up
+    reset()
+    qm.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = q_gen.prefill(batch)
+    torch.cuda.synchronize()
+    rec.update(prefill_ms=(time.perf_counter() - t0) * 1e3, w4_per_forward=qm.launches,
+               prefill_launches=read()["flash_fwd"], logits=logits.float().cpu())
+    qm.launches = 0
+    t0 = time.perf_counter()
+    rec["tokens"] = q_gen.generate(batch)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    chunk = q_gen.gen_cfg.decode_chunk
+    rec["forwards"] = 1 + -(-TP_NEW_TOKENS // chunk) * chunk
+    rec["w4_generate"] = qm.launches
+    rec["decode_ms_per_token"] = (gen_ms - rec["prefill_ms"]) / (rec["forwards"] - 1)
+    if margins:
+        rec["margins"] = forced_margins(q_gen, batch, rec["tokens"])
+    out["d"] = rec
+    del q_gen, logits, act_rms
+    release_cuda()
+
+    # (e): the Engine, int8 KV + w8a16
+    work = engine_workload(cfg, TP_ENGINE_REQUESTS, ENGINE["max_len"])
+    eng = Engine(model, cfg, EngineConfig(**ENGINE, kv_quant=True, weight_quant=True), device=dev)
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run([Request(plan=p, images=im, max_new_tokens=n, uid=i)
+                    for i, (p, im, n) in enumerate(work)])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    tokens = {r.uid: r.output_ids for r in done}
+    out["e"] = dict(tokens=[tokens[i] for i in range(len(work))], seconds=sec,
+                    tokens_per_s=sum(len(t) for t in tokens.values()) / sec,
+                    steps=eng.stats["steps"], prefills=eng.stats["prefills"],
+                    dispatches=eng.stats["admit_dispatches"],
+                    b1_launches=read()["flash_fwd"], cache_heads=int(eng.cache.k.shape[3]))
+    del eng, done
+    release_cuda()
+    if margins:
+        from visper_lm_tpu_torch.serve.generate import left_pad_plans
+
+        pad_to = -(-max(p.seq_length for p, _, _ in work) // 128) * 128
+        batch_e = left_pad_plans([p for p, _, _ in work], pad_to)
+        batch_e["images"] = np.concatenate([im for _, im, _ in work])
+        gen = Generator(model, cfg, GenerationConfig(kv_quant=True, weight_quant=True),
+                        len(work), pad_to, device=dev)
+        out["e"]["margins"] = forced_margins(gen, batch_e, out["e"]["tokens"])
+        del gen
+        release_cuda()
+
+    # (f): batch 1, the half-depth draft, prompt lookup, 2 beams
+    target, prompt = model.decoder, spec_prompt(cfg)
+    t0 = time.perf_counter()
+    spec, st = SpeculativeDecoder(target, half_draft(target), k=4, max_len=512).generate(
+        prompt, max_new_tokens=TP_SPEC_TOKENS)
+    lookup, _ = PromptLookupDecoder(target, k=4, max_len=512).generate(
+        prompt, max_new_tokens=TP_SPEC_TOKENS)
+    beam, score = BeamSearchDecoder(target, num_beams=TP_BEAMS, max_len=512).generate(
+        prompt, max_new_tokens=TP_SPEC_TOKENS)
+    torch.cuda.synchronize()
+    out["f"] = dict(spec=spec, lookup=lookup, beam=beam, beam_score=score,
+                    acceptance=st.acceptance_rate, seconds=time.perf_counter() - t0)
+    if margins:
+        out["f"]["greedy"], out["f"]["margins"] = batch1_greedy_margins(target, prompt,
+                                                                       TP_SPEC_TOKENS)
+    return out
+
+
+def tp_lora_rank(mesh, tp, dev, rank: int, reset, read) -> dict:
+    """Phase 17 (g) on one rank: `tp_lora_config`'s LoRA stage at tp on
+    phase 16's IFT batches (save_gate): losses, step ms, launches, the
+    reduced gradients' samples, peak GiB, whether every trainable is the
+    same bytes on both ranks, and (rank 0) the trainables after the updates."""
+    from visper_lm_tpu_torch.models.vlm import init_vlm
+    from visper_lm_tpu_torch.parallel import distributed as D
+    from visper_lm_tpu_torch.train.train_step import make_train_step
+
+    t0 = time.perf_counter()
+    cfg = tp_lora_config()
+    local = [D.shard_batch_multihost(b, mesh, device=dev) for b in dp_batches(cfg, pt=False)]
+    model = init_vlm(cfg, device=dev, seed=0, tp=tp)
+    step = make_train_step(cfg, dp_opt_cfg("lora"), model, remat_policy="save_gate", mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = dict(grads=dp_grads(step))
+    rec.update(dp_steps(step, local, reset, read))
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    same = True
+    for p in step.trainable.values():
+        mine = p.detach().contiguous()
+        same &= bool(torch.equal(mine, D.broadcast(mine.clone(), 0)))
+    rec["replicas_bit_equal"] = same
+    rec["trainables"] = ({n: p.detach().cpu() for n, p in step.trainable.items()}
+                         if rank == 0 else None)
+    rec["seconds"] = time.perf_counter() - t0
+    del step, model
+    release_cuda()
+    return rec
 
 
 def tp_rank(argv) -> int:
@@ -4072,7 +4387,16 @@ def tp_rank(argv) -> int:
     rec["decode_ms_per_token"] = (gen_ms - rec["prefill_ms"]) / steps
     rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     out["a"] = rec
-    del generator, model, logits
+    del generator, logits
+    release_cuda()
+
+    # (d)-(f): int4 + AWQ, the Engine, speculative / prompt-lookup / beam
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out["serving"] = serving_checks(model, cfg, batch, dev, reset, read)
+    out["serving"].update(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                          seconds=time.perf_counter() - t0)
+    del model
     release_cuda()
 
     # (b) config #1's PT step, the whole global batch on each rank
@@ -4111,6 +4435,10 @@ def tp_rank(argv) -> int:
         out[mode] = rec
         del step, model, teachers
         release_cuda()
+
+    # (g) the LoRA stage (the factors replicated, their side path on the
+    # rank's slices)
+    out["g"] = tp_lora_rank(mesh, tp, dev, rank, reset, read)
     out["seconds"] = time.perf_counter() - t_start
     torch.save(out, root / f"rank{rank}.pt")
     D.barrier()
@@ -4199,20 +4527,55 @@ def tp_recipe_rank(argv) -> int:
     return 0
 
 
-def start_ranks(flag: str, world: int, root: Path) -> dict:
-    """Start `world` processes of this script (`flag R PORT DIR`) from a free
-    port, each logging to DIR/rank<R>.log; `wait_ranks` collects them."""
+def free_port() -> int:
     import socket
 
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
+        return sock.getsockname()[1]
+
+
+def held_port(root: Path) -> str:
+    """A rank started by `start_ranks(hold=True)`: import what the ranks use
+    and open the CUDA context, then wait for DIR/start (`release_ranks`) and
+    return the port it names."""
+    import importlib
+
+    for mod in ("models.vlm", "models.teachers", "parallel.distributed", "parallel.tensor",
+                "serve.generate", "serve.engine", "train.train_step", "train.cli"):
+        importlib.import_module(f"visper_lm_tpu_torch.{mod}")
+    torch.zeros(1, device="cuda")
+    deadline = time.perf_counter() + HOLD_TIMEOUT
+    while not (root / "start").exists():
+        check(time.perf_counter() < deadline, f"no start within {HOLD_TIMEOUT} s")
+        time.sleep(0.05)
+    return (root / "start").read_text().strip()
+
+
+def start_ranks(flag: str, world: int, root: Path, hold: bool = False) -> dict:
+    """Start `world` processes of this script (`flag R PORT DIR`) from a free
+    port, each logging to DIR/rank<R>.log; `wait_ranks` collects them. With
+    `hold` they start with PORT "hold" and wait, imported and with their CUDA
+    context open, until `release_ranks` names the port: a spawn's start-up
+    (seconds a process) runs beside the parent's work before it."""
+    root.mkdir(parents=True, exist_ok=True)
+    port = "hold" if hold else str(free_port())
     env = dict(os.environ, PYTHONHASHSEED="0")
     logs = [open(root / f"rank{r}.log", "w") for r in range(world)]
     procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), flag, str(r),
-                               str(port), str(root)], stdout=logs[r], stderr=subprocess.STDOUT,
+                               port, str(root)], stdout=logs[r], stderr=subprocess.STDOUT,
                               env=env) for r in range(world)]
-    return dict(procs=procs, logs=logs, root=root, deadline=time.perf_counter() + TP_TIMEOUT)
+    return dict(procs=procs, logs=logs, root=root,
+                deadline=None if hold else time.perf_counter() + TP_TIMEOUT)
+
+
+def release_ranks(ranks: dict) -> None:
+    """Let held ranks (`start_ranks(hold=True)`) go on, from a free port;
+    their TP_TIMEOUT runs from here."""
+    if ranks["deadline"] is None:
+        (ranks["root"] / "start.tmp").write_text(str(free_port()))
+        (ranks["root"] / "start.tmp").rename(ranks["root"] / "start")
+        ranks["deadline"] = time.perf_counter() + TP_TIMEOUT
 
 
 def stop_ranks(ranks: dict) -> None:
@@ -4229,6 +4592,7 @@ def wait_ranks(ranks: dict, name: str) -> list:
     """Wait for `start_ranks`' processes within TP_TIMEOUT of their start,
     kill what is left, print a failed rank's log and fail the phase unless
     every rank exits 0. Returns the ranks' records."""
+    release_ranks(ranks)
     procs, root = ranks["procs"], ranks["root"]
     world = len(procs)
     try:
@@ -4245,10 +4609,136 @@ def wait_ranks(ranks: dict, name: str) -> list:
     return [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(world)]
 
 
-def spawn_ranks(flag: str, world: int, root: Path, name: str) -> list:
-    """`world` processes of this script (`flag R PORT DIR`), waited for
-    (`start_ranks`, `wait_ranks`). Returns the ranks' records."""
-    return wait_ranks(start_ranks(flag, world, root), name)
+def tp_serving_checks(smi: str, cfg, ranks: list, one: dict, logits_f, tol: float,
+                      e_bf16: float) -> dict:
+    """Phase 17 (d)-(f): the two ranks' `serving_checks` against the
+    one-process run's (`one`, with margins) and the f32 logits; (a)'s
+    tolerance `tol` for the margin rule of (e) and (f)."""
+    out = {}
+    d = [r["d"] for r in ranks]
+    per_forward = 7 * cfg.decoder.num_layers + 1
+    check(torch.equal(d[0]["logits"], d[1]["logits"]) and d[0]["tokens"] == d[1]["tokens"],
+          "phase 17 (d): the tp ranks' int4 logits or tokens differ")
+    e_q = float((one["d"]["logits"] - logits_f).abs().max())
+    tol_d = 2 * e_q
+    d_q = float((d[0]["logits"] - one["d"]["logits"]).abs().max())
+    check(d_q <= tol_d, f"phase 17 (d): int4 prefill logits {d_q:.4g} from the one-process int4 "
+          f"run's, beyond 2 x its distance to f32 {e_q:.4g}")
+    agree_d, low_d = margin_rule("phase 17 (d)", d[0]["tokens"], one["d"]["tokens"],
+                                 one["d"]["margins"], tol_d)
+    for r, rec in enumerate(d):
+        check(rec["w4_per_forward"] == per_forward and
+              rec["w4_generate"] == per_forward * rec["forwards"],
+              f"phase 17 (d) rank {r}: B5 {rec['w4_per_forward']} a forward, "
+              f"{rec['w4_generate']} a generate (expected {per_forward} a forward)")
+        check(rec["prefill_launches"] == cfg.decoder.num_layers,
+              f"phase 17 (d) rank {r}: {rec['prefill_launches']} B1 launches a prefill")
+        share = rec["decoder_gib"] / one["d"]["decoder_gib"]
+        check(0.45 <= share <= 0.55, f"phase 17 (d) rank {r}: {share:.3f} of the int4 decoder")
+    out["d"] = dict(logits_max_abs_to_one=d_q, int4_to_f32=e_q, tolerance=tol_d,
+                    tokens_agree=agree_d, first_low_margin=low_d,
+                    one_process={k: one["d"][k] for k in ("prefill_ms", "decode_ms_per_token",
+                                                          "decoder_gib", "w4_per_forward")},
+                    ranks=[{k: v for k, v in rec.items() if k not in ("logits", "tokens")}
+                           for rec in d])
+    for r, rec in enumerate(d):
+        print(f"phase 17 (d) rank {r}: int4 + AWQ decoder {rec['decoder_gib']:.3f} GiB (one "
+              f"process {one['d']['decoder_gib']:.3f}), B5 {rec['w4_per_forward']} a forward, "
+              f"{rec['w4_generate']} a generate, B1 {rec['prefill_launches']} a prefill, "
+              f"prefill {rec['prefill_ms']:.1f} ms, decode {rec['decode_ms_per_token']:.1f} "
+              f"ms/token (one process {one['d']['prefill_ms']:.1f} / "
+              f"{one['d']['decode_ms_per_token']:.1f}) [{smi}]")
+    print(f"phase 17 (d): int4 prefill logits {d_q:.4g} from one process (int4 vs f32 "
+          f"{e_q:.4g}, tolerance {tol_d:.4g}); greedy tokens equal through {agree_d} (margin "
+          f"first under the tolerance at {low_d}); first divergence: "
+          f"{divergence_note(agree_d, one['d']['margins'])}")
+
+    e = [r["e"] for r in ranks]
+    check(e[0]["tokens"] == e[1]["tokens"], "phase 17 (e): the tp ranks' engine tokens differ")
+    check([len(t) for t in e[0]["tokens"]] == [len(t) for t in one["e"]["tokens"]],
+          "phase 17 (e): the engine's token counts differ from one process's")
+    agree_e, low_e = margin_rule("phase 17 (e)", e[0]["tokens"], one["e"]["tokens"],
+                                 one["e"]["margins"], tol)
+    for r, rec in enumerate(e):
+        check(rec["cache_heads"] == cfg.decoder.num_kv_heads // 2,
+              f"phase 17 (e) rank {r}: a cache of {rec['cache_heads']} kv heads")
+        check(rec["b1_launches"] == cfg.decoder.num_layers * rec["dispatches"],
+              f"phase 17 (e) rank {r}: B1 {rec['b1_launches']} for {rec['dispatches']} prefill "
+              "dispatches")
+    out["e"] = dict(tokens_agree=agree_e, first_low_margin=low_e, tolerance=tol,
+                    one_process={k: one["e"][k] for k in ("seconds", "tokens_per_s", "steps",
+                                                          "b1_launches")},
+                    ranks=[{k: v for k, v in rec.items() if k != "tokens"} for rec in e])
+    for r, rec in enumerate(e):
+        print(f"phase 17 (e) rank {r}: Engine int8 KV + w8a16, {TP_ENGINE_REQUESTS} requests, "
+              f"{rec['steps']} steps, {rec['prefills']} prefills, B1 {rec['b1_launches']}, "
+              f"{rec['tokens_per_s']:.1f} tokens/s ({rec['seconds']:.2f} s; one process "
+              f"{one['e']['tokens_per_s']:.1f}) [{smi}]")
+    print(f"phase 17 (e): tokens equal the one-process engine's through {agree_e} (margin first "
+          f"under {tol:.4g} at {low_e}); first divergence: "
+          f"{divergence_note(agree_e, one['e']['margins'])}")
+
+    f = [r["f"] for r in ranks]
+    check(all(f[0][k] == f[1][k] for k in ("spec", "lookup", "beam")),
+          "phase 17 (f): the tp ranks' tokens differ")
+    out["f"] = dict(tolerance=tol, acceptance=f[0]["acceptance"], seconds=f[0]["seconds"],
+                    one_process_seconds=one["f"]["seconds"])
+    for k in ("spec", "lookup", "beam"):
+        ag, low = margin_rule(f"phase 17 (f) {k}", [f[0][k]], [one["f"][k]],
+                              [one["f"]["margins"]], tol)
+        out["f"][k] = dict(agree=ag[0], first_low_margin=low[0], tokens=f[0][k])
+    print(f"phase 17 (f): batch 1, {TP_SPEC_TOKENS} tokens: speculative (half-depth draft, "
+          f"acceptance {f[0]['acceptance']:.3f}), prompt lookup and {TP_BEAMS} beams equal the "
+          f"one-process runs through {[out['f'][k]['agree'] for k in ('spec', 'lookup', 'beam')]}"
+          f" (greedy margin first under {tol:.4g} at {out['f']['spec']['first_low_margin']}); "
+          f"{f[0]['seconds']:.2f} s a rank (one process {one['f']['seconds']:.2f}) [{smi}]")
+    return out
+
+
+def tp_lora_checks(smi: str, recs: list, ref: dict) -> dict:
+    """Phase 17 (g): the ranks' LoRA steps held to the one-process step and
+    the f32 run by phase 16's bounds."""
+    check(recs[0]["losses"] == recs[1]["losses"], "phase 17 (g): the ranks' losses differ")
+    want = dict(flash_fwd=2 * DP_LAYERS, flash_bwd_dq=DP_LAYERS, flash_bwd_dkv=DP_LAYERS,
+                window_attn=0)
+    for r, rr in enumerate(recs):
+        check(all(c == want for c in rr["launches"]),
+              f"phase 17 (g) rank {r}: launches {rr['launches']}, expected {want} a step")
+    check(all(c == want for c in ref["launches"]),
+          f"phase 17 (g): one-process launches {ref['launches']}, expected {want}")
+    for x, c, f in zip(recs[0]["losses"], ref["losses"], ref["losses_f"]):
+        check(abs(x - c) <= 2 * abs(c - f) + 1e-4 * abs(c),
+              f"phase 17 (g): loss {x} vs one process {c} (f32 {f})")
+    g_m, replicas_equal = dp_reduced([rr["grads"] for rr in recs])
+    check(replicas_equal, "phase 17 (g): a factor's gradient differs between the tp ranks")
+    d_grad = rel_fro(g_m, ref["g_f"])
+    check(d_grad <= ref["d_grad"] + 1e-2, f"phase 17 (g): gradients {d_grad:.4g} from f32 (one "
+          f"process {ref['d_grad']:.4g})")
+    same = all(rr["replicas_bit_equal"] for rr in recs)
+    check(same, "phase 17 (g): the replicated factors differ between the tp ranks")
+    e_1 = ref["e_1"]
+    moves = delta_record(deltas(recs[0]["trainables"], ref["p0"]), ref["move_1"], ref["move_f"],
+                         DP_LR)
+    check(moves["rel_frobenius_to_f32"] <= 2 * e_1 + 1e-3 and
+          moves["rel_frobenius"] <= 3 * e_1 + 1e-3,
+          f"phase 17 (g): parameter moves {moves} (one process {e_1:.4g} from f32)")
+    out = dict(losses=recs[0]["losses"], losses_one_process=ref["losses"],
+               losses_f32=ref["losses_f"], grads_rel_frobenius_to_f32=d_grad,
+               grads_one_process_to_f32=ref["d_grad"], moves=moves, replicas_bit_equal=same,
+               trainables=ref["trainables"], one_process=dict(step_ms=ref["step_ms"],
+                                                             peak_gib=ref["peak_gib"]),
+               ranks=[dict(peak_gib=rr["peak_gib"], launches_per_step=rr["launches"][-1],
+                           step_ms=rr["step_ms"], seconds=rr["seconds"]) for rr in recs])
+    for r, rr in enumerate(out["ranks"]):
+        print(f"phase 17 (g) rank {r}: LoRA r 64 at tp 2, peak {rr['peak_gib']:.2f} GiB (one "
+              f"process {ref['peak_gib']:.2f}), B1-B3 a step {rr['launches_per_step']}, step ms "
+              f"{', '.join(f'{x:.1f}' for x in rr['step_ms'])} (one process "
+              f"{', '.join(f'{x:.1f}' for x in ref['step_ms'])}) [{smi}]")
+    print(f"phase 17 (g): losses {recs[0]['losses']} (one process {ref['losses']}, f32 "
+          f"{ref['losses_f']}); reduced step-1 gradients rel Frobenius to f32 {d_grad:.4g} (one "
+          f"process {ref['d_grad']:.4g}); moves {json.dumps(moves)}; factors bit-equal across "
+          f"tp {same}")
+    return out
 
 
 def tp_phase(smi: str, ref: dict) -> dict:
@@ -4268,6 +4758,9 @@ def tp_phase(smi: str, ref: dict) -> dict:
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
     out = dict(card=smi)
+    # both spawns' ranks start now and wait for the references below
+    held = [start_ranks("--phase17-rank", 2, root / "ab", hold=True),
+            start_ranks("--phase17c-rank", 4, root / "c", hold=True)]
     try:
         # (a)'s one-process references: phase 4's model and batch, bf16, and
         # the same weights in f32 on the plain path
@@ -4286,6 +4779,10 @@ def tp_phase(smi: str, ref: dict) -> dict:
               "the Generator's")
         one_peak = torch.cuda.max_memory_allocated() / 2**30
         del generator
+        # (d)-(f)'s one-process references, with their margins
+        reset, read = dp_counters()
+        serv_1 = serving_checks(model, cfg, batch, torch.device("cuda"), reset, read,
+                                margins=True)
         model.float()
         logits_f = Generator(model, cfg, gen_cfg, BATCH, PROMPT_LEN, cache_dtype=torch.float32,
                              device="cuda").prefill(batch, use_kernel=False)[0].float().cpu()
@@ -4293,11 +4790,12 @@ def tp_phase(smi: str, ref: dict) -> dict:
         release_cuda()
         e_bf16 = float((logits_1 - logits_f).abs().max())
         tol = 2 * e_bf16
+        lora_ref = lora_references(reset, read)
         ref_s = time.perf_counter() - t0
 
         # (a) and (b): two ranks, dp 1 x tp 2
         t0 = time.perf_counter()
-        ranks = spawn_ranks("--phase17-rank", 2, root, "phase 17 (a)-(b)")
+        ranks = wait_ranks(held[0], "phase 17 (a)-(b)")
         ranks_s = time.perf_counter() - t0
         check(all(r["backend"] == "gloo" for r in ranks), "phase 17: the ranks did not run gloo")
         a = [r["a"] for r in ranks]
@@ -4306,14 +4804,8 @@ def tp_phase(smi: str, ref: dict) -> dict:
         d_tp = float((a[0]["logits"] - logits_1).abs().max())
         check(d_tp <= tol, f"phase 17 (a): prefill logits {d_tp:.4g} from the one-process run's, "
               f"beyond 2 x the bf16-vs-f32 distance {e_bf16:.4g}")
-        low = margins_1 < tol                     # (n, B): the one-process margin under tol
-        first_low = [int(low[:, i].nonzero()[0]) if low[:, i].any() else TP_NEW_TOKENS
-                     for i in range(BATCH)]
-        agree = [next((j for j in range(TP_NEW_TOKENS) if a[0]["tokens"][i][j] != gen_1[i][j]),
-                      TP_NEW_TOKENS) for i in range(BATCH)]
-        check(all(g >= f for g, f in zip(agree, first_low)),
-              f"phase 17 (a): tokens differ at {agree} before the first position where the "
-              f"one-process top-2 margin falls under {tol:.4g} ({first_low})")
+        agree, first_low = margin_rule("phase 17 (a)", a[0]["tokens"], gen_1,
+                                       margins_1.T.tolist(), tol)
         for r, rec in enumerate(a):
             check(rec["prefill_launches"] == cfg.decoder.num_layers,
                   f"phase 17 (a) rank {r}: {rec['prefill_launches']} B1 launches a prefill")
@@ -4389,15 +4881,18 @@ def tp_phase(smi: str, ref: dict) -> dict:
             check(0.45 <= share <= 0.6, f"phase 17 (b): shard_teachers keeps {share:.3f} of the "
                   f"teachers' bytes")
         out["b"] = b
+        out.update(tp_serving_checks(smi, cfg, [r["serving"] for r in ranks], serv_1, logits_f,
+                                     tol, e_bf16))
+        out["g"] = tp_lora_checks(smi, [r["g"] for r in ranks], lora_ref)
 
         # (c): the pretrain_full recipe at Llama-3-8B widths on four ranks
         t0 = time.perf_counter()
-        shutil.rmtree(root, ignore_errors=True)
-        root.mkdir(parents=True)
-        data = recipe_dataset(root)
-        (root / "data.json").write_text(json.dumps(data))
+        shutil.rmtree(root / "ab", ignore_errors=True)
+        root_c = held[1]["root"]
+        data = recipe_dataset(root_c)
+        (root_c / "data.json").write_text(json.dumps(data))
         native.load()                       # built once here, not by four ranks at once
-        ranks_c = spawn_ranks("--phase17c-rank", 4, root, "phase 17 (c)")
+        ranks_c = wait_ranks(held[1], "phase 17 (c)")
         c_s = time.perf_counter() - t0
         with torch.device("meta"):
             whole = sum(p.numel() * p.element_size() for p in Decoder(dataclasses.replace(
@@ -4443,6 +4938,8 @@ def tp_phase(smi: str, ref: dict) -> dict:
         out["seconds_by_part"] = dict(references=ref_s, ranks_a_b=ranks_s, recipe=c_s,
                                       rank_start=[r["start_s"] for r in ranks])
     finally:
+        for h in held:
+            stop_ranks(h)
         shutil.rmtree(root, ignore_errors=True)
         release_cuda()
     return out
@@ -4796,6 +5293,9 @@ def sp_pp_phase(smi: str) -> dict:
     root.mkdir(parents=True)
     reset, read = dp_counters()
     out = dict(card=smi)
+    # both spawns' ranks start now and wait for the references below
+    held = [start_ranks("--phase18-rank", 2, root / "ab", hold=True),
+            start_ranks("--phase18c-rank", 4, root / "c", hold=True)]
     try:
         # (a)'s inputs and references: Llama-3-8B's attention at B1 x T8192,
         # the one-process B1/B2/B3 call and an f32 plain run
@@ -4804,7 +5304,7 @@ def sp_pp_phase(smi: str) -> dict:
         b, t, nq, nkv, h = 1, SP_T, 32, 8, 128
         inp = {x: torch.randn((b, t, n, h), generator=gen, device="cuda", dtype=torch.bfloat16)
                for x, n in (("q", nq), ("k", nkv), ("v", nkv), ("dout", nq))}
-        torch.save({k: v.cpu() for k, v in inp.items()}, root / "attn.pt")
+        torch.save({k: v.cpu() for k, v in inp.items()}, held[0]["root"] / "attn.pt")
         leaves = [inp[x].clone().requires_grad_(True) for x in "qkv"]
         reset()
         o = multi_head_attention(*leaves, causal=True)
@@ -4840,7 +5340,7 @@ def sp_pp_phase(smi: str) -> dict:
 
         # (a) and (b): two ranks, dp 1 x sp 2
         t0 = time.perf_counter()
-        ranks = spawn_ranks("--phase18-rank", 2, root, "phase 18 (a)-(b)")
+        ranks = wait_ranks(held[0], "phase 18 (a)-(b)")
         ranks_ab_s = time.perf_counter() - t0
         check(all(r["backend"] == "gloo" for r in ranks), "phase 18: the ranks did not run gloo")
         a = {}
@@ -4892,7 +5392,7 @@ def sp_pp_phase(smi: str) -> dict:
         f32_c = f32_steps(cfg_c, batches_c, "finetune", chunked=False)
         refs_c_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        ranks_c = spawn_ranks("--phase18c-rank", 4, root, "phase 18 (c)")
+        ranks_c = wait_ranks(held[1], "phase 18 (c)")
         ranks_c_s = time.perf_counter() - t0
         check([(r["stage"], r["tp_rank"]) for r in ranks_c] == [(0, 0), (0, 1), (1, 0), (1, 1)],
               f"phase 18 (c): stages {[(r['stage'], r['tp_rank']) for r in ranks_c]}")
@@ -4915,6 +5415,8 @@ def sp_pp_phase(smi: str) -> dict:
                                       refs_c=refs_c_s, ranks_c=ranks_c_s,
                                       rank_start=[r["start_s"] for r in ranks + ranks_c])
     finally:
+        for h in held:
+            stop_ranks(h)
         shutil.rmtree(root, ignore_errors=True)
         release_cuda()
     return out
@@ -5294,14 +5796,11 @@ def ep_rank(argv) -> int:
     return 0
 
 
-def moe_ep(smi: str, reset, read) -> dict:
+def moe_ep(smi: str, reset, read, held: dict) -> dict:
     """Phase 19 (c): the finetune step at ep 2 on two gloo ranks sharing the
-    card, held to the one-process step and an f32 run by phase 16's bounds."""
-    import shutil
-
-    root = Path(__file__).resolve().parent / "tmp" / "chip_smoke_ep"
-    shutil.rmtree(root, ignore_errors=True)
-    root.mkdir(parents=True)
+    card (`held`: started at the phase's start), held to the one-process
+    step and an f32 run by phase 16's bounds."""
+    root = held["root"]
     try:
         cfg = moe_config(distill=False, layers=MOE_EP_LAYERS)
         batches = sp_pp_batches(cfg, TRAIN_BATCH, TRAIN_SEQ)
@@ -5312,15 +5811,11 @@ def moe_ep(smi: str, reset, read) -> dict:
         # (whose times are not read) holds the card; they step only after it
         # (DIR/go), so their step times are taken with the card theirs alone
         t0 = time.perf_counter()
-        started = start_ranks("--phase19-rank", 2, root)
-        try:
-            f32 = f32_steps(cfg, batches, "finetune", chunked=False)
-            release_cuda()
-            (root / "go").touch()
-        except BaseException:
-            stop_ranks(started)
-            raise
-        ranks = wait_ranks(started, "phase 19 (c)")
+        release_ranks(held)
+        f32 = f32_steps(cfg, batches, "finetune", chunked=False)
+        release_cuda()
+        (root / "go").touch()
+        ranks = wait_ranks(held, "phase 19 (c)")
         ranks_s = time.perf_counter() - t0
         check(all(r["backend"] == "gloo" for r in ranks), "phase 19 (c): the ranks did not run gloo")
         check([r["expert_rank"] for r in ranks] == [0, 1], "phase 19 (c): expert ranks")
@@ -5343,7 +5838,6 @@ def moe_ep(smi: str, reset, read) -> dict:
               f"{whole_banks / 2**30:.3f}; routers and replicated parameters bit-equal across the "
               f"ranks [{smi}]")
     finally:
-        shutil.rmtree(root, ignore_errors=True)
         release_cuda()
     return rec
 
@@ -5351,21 +5845,31 @@ def moe_ep(smi: str, reset, read) -> dict:
 def moe_phase(smi: str) -> dict:
     """Phase 19: the MoE decoder and expert parallelism (see the module
     docstring). Returns the record printed as `moe_path`."""
+    import shutil
+
     from visper_lm_tpu_torch.ops import quant_matmul as qm
 
     reset, read = dp_counters()
     out = {}
-    t0 = time.perf_counter()
-    out["a"], model = moe_serving(smi, qm)
-    out["seconds_a"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    out["b"] = moe_training(smi, model, reset, read)
-    out["seconds_b"] = time.perf_counter() - t0
-    del model
-    release_cuda()
-    t0 = time.perf_counter()
-    out["c"] = moe_ep(smi, reset, read)
-    out["seconds_c"] = time.perf_counter() - t0
+    root = Path(__file__).resolve().parent / "tmp" / "chip_smoke_ep"
+    shutil.rmtree(root, ignore_errors=True)
+    # (c)'s two ranks start now and wait through (a) and (b)
+    held = start_ranks("--phase19-rank", 2, root, hold=True)
+    try:
+        t0 = time.perf_counter()
+        out["a"], model = moe_serving(smi, qm)
+        out["seconds_a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["b"] = moe_training(smi, model, reset, read)
+        out["seconds_b"] = time.perf_counter() - t0
+        del model
+        release_cuda()
+        t0 = time.perf_counter()
+        out["c"] = moe_ep(smi, reset, read, held)
+        out["seconds_c"] = time.perf_counter() - t0
+    finally:
+        stop_ranks(held)
+        shutil.rmtree(root, ignore_errors=True)
     return out
 
 
@@ -5392,18 +5896,14 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    if sys.argv[1:2] == ["--phase16-rank"]:
-        return dp_rank(sys.argv[2:])
-    if sys.argv[1:2] == ["--phase17-rank"]:
-        return tp_rank(sys.argv[2:])
-    if sys.argv[1:2] == ["--phase17c-rank"]:
-        return tp_recipe_rank(sys.argv[2:])
-    if sys.argv[1:2] == ["--phase18-rank"]:
-        return sp_rank(sys.argv[2:])
-    if sys.argv[1:2] == ["--phase18c-rank"]:
-        return pp_rank(sys.argv[2:])
-    if sys.argv[1:2] == ["--phase19-rank"]:
-        return ep_rank(sys.argv[2:])
+    rank_entries = {"--phase16-rank": dp_rank, "--phase17-rank": tp_rank,
+                    "--phase17c-rank": tp_recipe_rank, "--phase18-rank": sp_rank,
+                    "--phase18c-rank": pp_rank, "--phase19-rank": ep_rank}
+    if sys.argv[1:2] and sys.argv[1] in rank_entries:
+        argv = sys.argv[2:]
+        if argv[1] == "hold":
+            argv[1] = held_port(Path(argv[2]))
+        return rank_entries[sys.argv[1]](argv)
     from visper_lm_tpu_torch.config import LLAMA3_8B, phi3_clip_vlm
     from visper_lm_tpu_torch.models.teachers import init_teachers, make_teacher_fn
     from visper_lm_tpu_torch.models.decoder import quantize_head_vectors
@@ -5424,10 +5924,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    progress("phase 1")
     # 1. environment
     smi = environment(_build)
     name = torch.cuda.get_device_name(0)
 
+    progress("phase 2")
     # 2. build
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -5512,6 +6014,7 @@ def main() -> int:
     offsets = batch["pad_offsets"].tolist()
     print(f"main-path pad offsets {offsets}")
 
+    progress("phase 3")
     # 3. kernels vs plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
     d = cfg.decoder
@@ -5567,6 +6070,12 @@ def main() -> int:
     w4_recs["lm_head_M8"] = w4_case("lm_head_M8", BATCH, h_, v_, gen, qm, param)
     w4_recs["gate_up_M8_awq"] = w4_case("gate_up_M8_awq", BATCH, h_, m_, gen, qm, param, awq=True)
     w4_rec = w4_recs[f"gate_up_M{BATCH * PROMPT_LEN}"]
+    # B5 at a tp 2 rank's slices of the same linears (phase 17 (d)'s path)
+    qkv_ = d.num_heads * d.head_dim
+    w4_tp2 = {f"{lname}_M{BATCH * PROMPT_LEN}": w4_case(f"tp2_{lname}", BATCH * PROMPT_LEN, din,
+                                                       dout, gen, qm, param)
+              for lname, din, dout in (("qkv", h_, qkv_ // 2), ("o", qkv_ // 2, h_),
+                                       ("gate_up", h_, m_ // 2), ("down", m_ // 2, h_))}
     # B6 at the decode shape (this Generator's max_len 896, the last decode
     # step's lengths 800 over the main path's left pads) in bf16 and int8, and
     # GQA 32/8 H128 with a fully masked row (batch row 2)
@@ -5580,6 +6089,7 @@ def main() -> int:
         decode_case(f"decode_gqa_{'int8' if quant else 'bf16'}", 4, 32, 8, 128, 1024, quant,
                     [0, 100, 0, 0], [1024, 700, 0, 1024], gen, da, quantize_head_vectors)
 
+    progress("phase 4")
     # 4. main path
     t0 = time.perf_counter()
     model = init_vlm(cfg, device="cuda", seed=0)
@@ -5649,6 +6159,7 @@ def main() -> int:
     timing = dict(timed_generate(generator, batch, gen_cfg), peak_gib=peak / 2**30)
     print("main_path " + json.dumps(timing))
 
+    progress("phase 5")
     # 5. where the time goes: device time by op for one prefill and one decode chunk
     logits, cache = generator.prefill(batch)
     token = logits.argmax(-1)
@@ -5657,6 +6168,7 @@ def main() -> int:
     profile_window("decode_chunk", lambda: generator._decode_chunk(
         cache, token, 0, offs, torch.Generator(device="cuda")))
 
+    progress("phase 6")
     # 6. quantized serving: int8 KV + AWQ-calibrated w4a16 (B5), then int8 KV + w8a16
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -5735,6 +6247,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    progress("phase 7")
     # 7. training path: config #1's PT step with the three teachers
     del generator, model, logits, cache
     gc.collect()
@@ -5820,6 +6333,7 @@ def main() -> int:
     check(train_prof["window_attn_stream"]["launches"] == expected["window_attn"],
           f"the profiled step ran {train_prof['window_attn_stream']['launches']} window "
           f"kernels, expected {expected['window_attn']}")
+    progress("phase 8")
     # 8. trainer path: remat policies, trainer.train with accumulation,
     # checkpoint and resume, the chunked cross-entropy, master weights
     del step
@@ -5830,6 +6344,7 @@ def main() -> int:
     print(f"trainer phase {time.perf_counter() - t0:.1f} s")
     print("trainer_path " + json.dumps(trainer))
 
+    progress("phase 9")
     # 9. the continuous-batching engine at bench_engine.py's defaults, the
     # batch loop beside it, prefix caching, chunked prefill, speculative and
     # beam decoding, an int4 engine run. The decoder is frozen in phases 7-8:
@@ -5845,6 +6360,7 @@ def main() -> int:
           f"{cfg.decoder.num_layers} layers)")
     print("engine_path " + json.dumps(engine))
 
+    progress("phase 10")
     # 10. the user API at Llama-3-8B + CLIP-L: export/import, chat, serve,
     # ChatSession, the file round trip, Vicuna-7B. Phases 4-9's models go first
     del model, act_rms
@@ -5855,6 +6371,7 @@ def main() -> int:
     print(f"api phase {time.perf_counter() - t0:.1f} s")
     print("api_path " + json.dumps({k: v for k, v in api.items() if k not in ("b1", "b5")}))
 
+    progress("phase 11")
     # 11. the vision side at Llama-3-8B: the ConvNeXt-XXL tower and a chat
     # through it, an anyres chat, an S2 call; a PT step of the convnext cell
     t0 = time.perf_counter()
@@ -5863,6 +6380,7 @@ def main() -> int:
     print("vision_path " + json.dumps(
         {k: v for k, v in vision.items() if k not in ("b1_convnext", "b1_anyres")}))
 
+    progress("phase 12")
     # 12. training from the recipes through the CLI: PT at Llama-3-8B, IFT at
     # Phi3-mini with --init-from, the LoRA and vision-tower stages
     del api_state
@@ -5873,6 +6391,7 @@ def main() -> int:
     print(f"recipe phase {time.perf_counter() - t0:.1f} s")
     print("recipe_path " + json.dumps(recipe))
 
+    progress("phase 13")
     # 13. visual interpretations at Llama-3-8B: the tap forward, DPT, OneFormer
     # over Swin-L, the unCLIP pipeline, the bundles, the demo, the hook, deltas
     release_cuda()
@@ -5882,6 +6401,7 @@ def main() -> int:
     print(f"viz phase {viz['seconds']:.1f} s [{smi}]")
     print("viz_path " + json.dumps(viz))
 
+    progress("phase 14")
     # 14. evaluation at Llama-3-8B: CV-Bench / MMStar through chat, the harness
     # and the lmms adapter (generate_until, loglikelihood, rolling), B1 against
     # an f32 run, FID-Inception on the card, the validation CLI
@@ -5891,6 +6411,7 @@ def main() -> int:
     evals["seconds"] = time.perf_counter() - t0
     print(f"eval phase {evals['seconds']:.1f} s, B1 launches {json.dumps(evals['b1_launches'])} [{smi}]")
     print("eval_path " + json.dumps(evals))
+    progress("phase 15")
     # 15. the memory levers: the host link, offloaded and streamed steps held to
     # the on-card step at 4 layers, IFT at Llama-3-8B from recipes/finetune.args
     # with --offload-opt-state --stream-grads 8, without them (out of memory),
@@ -5900,6 +6421,7 @@ def main() -> int:
     memory["seconds"] = time.perf_counter() - t0
     print(f"memory phase {memory['seconds']:.1f} s [{smi}]")
     print("memory_path " + json.dumps({k: v for k, v in memory.items() if k not in ("b1", "b2", "b3")}))
+    progress("phase 16")
     # 16. data parallelism and ZeRO: a one-rank NCCL group, two ranks sharing
     # the card (plain dp, zero_frozen, zero_params), IFT with ZeRO-2 moments
     release_cuda()
@@ -5909,6 +6431,7 @@ def main() -> int:
     dp["seconds"] = time.perf_counter() - t0
     print(f"dp phase {dp['seconds']:.1f} s [{smi}]")
     print("dp_path " + json.dumps(dp))
+    progress("phase 17")
     # 17. tensor parallelism: the tp-sharded Generator at Phi3-mini, config
     # #1's PT step at tp 2 with and without sharded teachers, the
     # pretrain_full recipe at Llama-3-8B widths on four ranks
@@ -5918,6 +6441,7 @@ def main() -> int:
     del dp_ref
     print(f"tp phase {tp['seconds']:.1f} s [{smi}]")
     print("tp_path " + json.dumps(tp))
+    progress("phase 18")
     # 18. sequence and pipeline parallelism: Ulysses and the ring at
     # Llama-3-8B's attention, the finetune step at sp 2 (Llama-3-8B widths,
     # T8192) and at pp 2 x tp 2 (Phi3-mini widths)
@@ -5927,6 +6451,7 @@ def main() -> int:
     sp_pp["seconds"] = time.perf_counter() - t0
     print(f"sp_pp phase {sp_pp['seconds']:.1f} s [{smi}]")
     print("sp_pp_path " + json.dumps(sp_pp))
+    progress("phase 19")
     # 19. the MoE decoder: the Generator at full depth (and an int4 prefill,
     # and 8 layers held to f32), config #1's PT step with the MoE decoder, the
     # finetune step at ep 2
@@ -5951,6 +6476,7 @@ def main() -> int:
     w4_decode = w4_recs[f"gate_up_M{BATCH}"]
     dp_rank_launches = dp["b"]["plain"]["ranks"][0]["launches_per_step"]   # phase 16, a rank's step
     tp_rank_launches = tp["b"]["plain"]["ranks"][0]["launches_per_step"]   # phase 17 (b)
+    tp_lora_launches = tp["g"]["ranks"][0]["launches_per_step"]            # phase 17 (g)
     tp_recipe_launches = tp["c"]["ranks"][0]["launches_per_step"]          # phase 17 (c)
 
     def phase18(kname):
@@ -5993,7 +6519,10 @@ def main() -> int:
              launches_phase16_rank_per_step=dp_rank_launches["flash_fwd"],
              launches_phase17=dict(prefill_a_rank=tp["a"]["ranks"][0]["prefill_launches"],
                                    pt_step_a_rank=tp_rank_launches["flash_fwd"],
-                                   recipe_step_a_rank=tp_recipe_launches["flash_fwd"]),
+                                   recipe_step_a_rank=tp_recipe_launches["flash_fwd"],
+                                   int4_prefill_a_rank=tp["d"]["ranks"][0]["prefill_launches"],
+                                   engine_run_a_rank=tp["e"]["ranks"][0]["b1_launches"],
+                                   lora_step_a_rank=tp_lora_launches["flash_fwd"]),
              launches_phase18=phase18("flash_fwd"),
              launches_phase19=phase19("flash_fwd"),
              ift_t4096={k: memory["b1"][k] for k in LLAMA3_KEYS},
@@ -6010,7 +6539,8 @@ def main() -> int:
              launches_phase15_per_step=memory["ift"]["launches_per_step"]["flash_bwd_dq"],
              launches_phase16_rank_per_step=dp_rank_launches["flash_bwd_dq"],
              launches_phase17=dict(pt_step_a_rank=tp_rank_launches["flash_bwd_dq"],
-                                   recipe_step_a_rank=tp_recipe_launches["flash_bwd_dq"]),
+                                   recipe_step_a_rank=tp_recipe_launches["flash_bwd_dq"],
+                                   lora_step_a_rank=tp_lora_launches["flash_bwd_dq"]),
              launches_phase18=phase18("flash_bwd_dq"),
              launches_phase19=phase19("flash_bwd_dq"),
              ift_t4096={k: memory["b2"][k] for k in LLAMA3_KEYS + ("device_ms",)},
@@ -6026,7 +6556,8 @@ def main() -> int:
              launches_phase15_per_step=memory["ift"]["launches_per_step"]["flash_bwd_dkv"],
              launches_phase16_rank_per_step=dp_rank_launches["flash_bwd_dkv"],
              launches_phase17=dict(pt_step_a_rank=tp_rank_launches["flash_bwd_dkv"],
-                                   recipe_step_a_rank=tp_recipe_launches["flash_bwd_dkv"]),
+                                   recipe_step_a_rank=tp_recipe_launches["flash_bwd_dkv"],
+                                   lora_step_a_rank=tp_lora_launches["flash_bwd_dkv"]),
              launches_phase18=phase18("flash_bwd_dkv"),
              launches_phase19=phase19("flash_bwd_dkv"),
              ift_t4096={k: memory["b3"][k] for k in LLAMA3_KEYS + ("device_ms",)},
@@ -6052,6 +6583,11 @@ def main() -> int:
                    w4_rec, w4_launches),
              shape=w4_rec["shape"], launches_per_forward=per_forward,
              launches_phase19=dict(moe_int4_prefill=moe["a"]["int4"]["b5_launches_prefill"]),
+             launches_phase17=dict(int4_forward_a_rank=tp["d"]["ranks"][0]["w4_per_forward"],
+                                   int4_generate_a_rank=tp["d"]["ranks"][0]["w4_generate"]),
+             tp2_slices={k: {f: r[f] for f in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                               "library_ms", "max_abs_err")}
+                         for k, r in w4_tp2.items()},
              launches_engine=engine["int4_engine"]["w4_launches"],
              mma_sync_ms=w4_rec["mma_sync_ms"],
              llama3=dict({case: {k: rec[k] for k in LLAMA3_KEYS + ("cold_ms", "library_cold_ms")
@@ -6074,6 +6610,7 @@ def main() -> int:
                        library_ms=dec_bf16["library_ms"]),
              note="standalone op: no path calls it, as in the JAX package"),
     ]
+    progress("done")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -464,9 +464,11 @@ def test_cli_pretrain_full_recipe_at_dp2_tp2_writes_once_and_ranks_agree(runs):
 
 
 def test_divisibility_limit_and_the_raises_of_a10b_2():
-    """Heads, kv heads, the MLP and the vocabulary must divide by tp (the
-    port pads nothing); LoRA, quantized serving, the Engine, speculative
-    and beam decoding and chat raise under tp, naming A10b-2."""
+    """What still raises under tp: heads, kv heads, the MLP and the
+    vocabulary must divide by tp (the port pads nothing, C21), an int4
+    row-parallel linear's groups may not straddle two ranks (C28), and a
+    model is cut once. The serving paths that raised until A10b-2 build on
+    a tp decoder (tests/test_torch_tp_serving.py runs them)."""
     cfg = tconfig.tiny_test_vlm(distill=False).decoder
     T.check_divisible(cfg, 2)
     with pytest.raises(ValueError, match="num_kv_heads 2 does not divide by tp 4"):
@@ -484,10 +486,16 @@ def test_divisibility_limit_and_the_raises_of_a10b_2():
         dec = T.shard_model(Decoder(cfg), group)
     assert dec.blocks[0].q_proj.weight.shape == (cfg.num_heads * cfg.head_dim // 2,
                                                  cfg.hidden_size)
-    for make in (lambda: quantize_decoder(dec, "int8"),
-                 lambda: BeamSearchDecoder(dec, num_beams=2),
-                 lambda: PromptLookupDecoder(dec)):
-        with pytest.raises(NotImplementedError, match="A10b-2"):
-            make()
+    BeamSearchDecoder(dec, num_beams=2)
+    PromptLookupDecoder(dec)
+    with pytest.raises(ValueError, match="C28"):
+        quantize_decoder(dec, "int4")          # o_proj: one group of 64 over din 64
+    T.check_int4_groups(86, 2)                 # Vicuna-7B's down_proj at tp 2 (11008 / 128)
+    with pytest.raises(ValueError, match="86 int4 groups .* tp 4 .*C28"):
+        T.check_int4_groups(86, 4)
+    for shipped in (tconfig.PHI3_MINI_4K, tconfig.LLAMA3_8B):
+        for tp in (2, 4, 8):
+            for din in (shipped.num_heads * shipped.head_dim, shipped.mlp_dim):
+                T.check_int4_groups(din // 128, tp)
     with pytest.raises(ValueError, match="already tensor parallel"):
         T.shard_model(dec, group)

@@ -20,6 +20,13 @@ kernel). Each quantized decoder is made once per (mode, calibration) and
 shared by every Generator and Engine the model opens: one copy, not one per
 prompt shape.
 
+Tensor parallelism (parallel/tensor.py): load on the host
+(`from_hf_checkpoint(..., device="cpu")`), cut the model with
+`shard_model(model.model, tp)` on every rank of the group, then move it to
+the card; chat, serve, sessions and engines run on the rank's slices (a
+quantized decoder is the rank's slice of the one-device one) and every
+rank of the group returns the same answers.
+
 Images: "square" / "pad" preprocess at the tower's input size (shortest-edge
 resize + centre crop + CLIP normalization): CLIP-L's 336, or the ConvNeXt
 trunk's `cfg.convnext.image_size`, as the JAX package's training CLI sizes
@@ -75,7 +82,6 @@ from visper_lm_tpu_torch.data.mm_utils import (
 )
 from visper_lm_tpu_torch.models.decoder import quantize_decoder
 from visper_lm_tpu_torch.models.vlm import VLM
-from visper_lm_tpu_torch.parallel.tensor import LATER
 from visper_lm_tpu_torch.serve.engine import Engine, EngineConfig, Request
 from visper_lm_tpu_torch.serve.generate import GenerationConfig, Generator, left_pad_plans
 
@@ -477,8 +483,6 @@ class VisperModel:
 
         stream_callback(text_delta) streams sample 0's text as it decodes
         (deltas per decode chunk); the full strings are still returned."""
-        if self.model.decoder.tp is not None:
-            raise NotImplementedError(f"VisperModel.chat {LATER}")
         batch = self.chat_batch(questions, images)
         pad_to = batch["text_ids"].shape[1]
         eos_ids = self._eos_ids()

@@ -16,10 +16,10 @@ rank's E/ep of them under expert parallelism, `Decoder.ep`). Each MoE block
 also returns its aux losses, and the decoder returns their mean over the
 layers as `moe_aux` (JAX's, which the train loss adds); the cache path
 returns them too (JAX drops them there). With `moe_data` (the data group,
-which the train step's loss passes under data parallelism) capacity,
-priority and the aux are the global batch's; every other call routes over
-its own tokens. A remat policy saves nothing inside the
-MoE block (JAX names no site there). Under sequence or pipeline
+which the train step's loss and the Generator pass under data parallelism)
+capacity, priority and the aux are the global batch's; every other call
+routes over its own tokens. A remat policy saves nothing inside the MoE
+block (JAX names no site there). Under sequence or pipeline
 parallelism a rank holds a slice of the rows or a stage, so capacity would
 be the slice's: MoE raises there (ROADMAP C25), as it does on the streamed
 layout (JAX's assert). Under tensor parallelism the banks are replicated
@@ -30,7 +30,11 @@ them).
 LoRA (`Decoder.forward(lora=...)`, JAX `_lora_linear`): the factors of each
 targeted linear, (A, B scaled) stacked over the layers (models/lora.py),
 add the rank-r side path y = x W + (x A) B in every block, with A and B cast
-to x's dtype; dA and dB come from rank-r intermediates only.
+to x's dtype; dA and dB come from rank-r intermediates only. Under tensor
+parallelism the factors stay whole (`lora_side`): a column-parallel target
+adds (x A) B_r with the rank's columns of B, a row-parallel one adds
+all-reduce(x_r A_r) B after its output's all-reduce; the gradients of A and
+B come out whole and equal on every rank.
 
 Rematerialisation (`Decoder.forward(remat=True, remat_policy=...)`, JAX
 `jax.checkpoint` with `_remat_policy`) wraps each block in
@@ -53,7 +57,8 @@ column-parallel inputs pass `copy_to_group`, o_proj's and down_proj's
 outputs `reduce_from_group`. The lookup is `Decoder.embed` (vocab-parallel
 under tp), `Decoder.logits` gathers the vocabulary unless the loss asks for
 the rank's block, and a cache holds the local kv heads (`init_kv_cache(...,
-tp=)`).
+tp=)`). `quantize_decoder` quantizes each rank's slices into the slices of
+the one-device quantized decoder.
 
 Sequence parallelism (`Decoder.seq`, parallel/sequence.py, carried as `tp`
 is): the rank holds its T/sp rows of `inputs_embeds` through the whole
@@ -86,8 +91,15 @@ from visper_lm_tpu_torch.config import DecoderConfig
 from visper_lm_tpu_torch.models.rope import apply_rope, apply_rope_transpose, rope_cos_sin
 from visper_lm_tpu_torch.ops.attention import Offset, mha_plain_cache, multi_head_attention
 from visper_lm_tpu_torch.ops.moe import ExpertBank, Router, moe_mlp
-from visper_lm_tpu_torch.parallel.distributed import copy_to_group, reduce_from_group
-from visper_lm_tpu_torch.parallel.tensor import LATER, gather_vocab, vocab_embed
+from visper_lm_tpu_torch.parallel.distributed import all_reduce, copy_to_group, reduce_from_group
+from visper_lm_tpu_torch.parallel.tensor import (
+    gather_vocab,
+    quant_plan,
+    set_tensor_parallel,
+    slice_of_group,
+    split_kind,
+    vocab_embed,
+)
 from visper_lm_tpu_torch.utils.param import (
     QuantLinear,
     RMSNorm,
@@ -262,15 +274,64 @@ class _Stash:
         self.values: Dict[str, object] = {}
 
 
+class _ColumnSide(torch.autograd.Function):
+    """The LoRA side path (x A) B_r of a column-parallel target under tensor
+    parallelism: x the whole input (after `copy_to_group`), A whole, B_r the
+    rank's columns of B. The backward's dx = (g B_r^T) A^T is the rank's
+    share (the input's `copy_to_group` sums the shares), dB_r = (x A)^T g,
+    and dA = x^T (g B^T) with g B^T = the ranks' g B_r^T all-reduced: whole
+    and the same on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, group):
+        u = x @ a
+        ctx.group = group
+        ctx.save_for_backward(x, a, b, u)
+        return u @ b
+
+    @staticmethod
+    def backward(ctx, g):
+        x, a, b, u = ctx.saved_tensors
+        return _column_side_grads(g, x, a, b, u, ctx.group) + (None,)
+
+
+def _column_side_grads(g, x, a, b, u, group):
+    """(dx's share, dA, dB_r) of `_ColumnSide` (u = x A, or None to recompute)."""
+    gb = g @ b.T                                                   # (B, T, r): the rank's share
+    x2 = x.reshape(-1, x.shape[-1])
+    u2 = (x2 @ a) if u is None else u.reshape(-1, u.shape[-1])
+    da = x2.T @ all_reduce(gb.reshape(-1, gb.shape[-1]).clone(), group)
+    db = u2.T @ g.reshape(-1, g.shape[-1])
+    return gb @ a.T, da, db
+
+
+def lora_side(x: torch.Tensor, ab: Tuple[torch.Tensor, torch.Tensor], tp=None,
+              kind: str = "column") -> torch.Tensor:
+    """The LoRA side path (x A) B of one block linear, A (din, r) and B
+    scaled (r, dout) in x's dtype (JAX `_lora_linear`). Under tensor
+    parallelism the factors are whole on every rank: a column-parallel
+    target takes the rank's columns of B (`_ColumnSide`), a row-parallel
+    one the rank's rows of A, (x A) all-reduced, then B whole (so it joins
+    after the linear's all-reduce)."""
+    a, b = ab[0].to(x.dtype), ab[1].to(x.dtype)
+    if tp is None:
+        return (x @ a) @ b
+    if kind == "column":
+        return _ColumnSide.apply(x, a, slice_of_group(b, 1, tp), tp.group)
+    return reduce_from_group(x @ slice_of_group(a, 0, tp), tp.group) @ b
+
+
 def lora_linear(layer: nn.Module, x: torch.Tensor, ab: Optional[Tuple[torch.Tensor, torch.Tensor]],
-                use_kernel: Optional[bool] = None) -> torch.Tensor:
+                use_kernel: Optional[bool] = None, tp=None, kind: str = "column") -> torch.Tensor:
     """A block linear plus, with factors ab = (A (din, r), B scaled (r, dout)),
-    the LoRA side path (x A) B, both factors in x's dtype (JAX `_lora_linear`)."""
+    the LoRA side path (x A) B (`lora_side`). Under tensor parallelism a
+    row-parallel linear's output is all-reduced before the side path joins."""
     y = apply_linear(layer, x, use_kernel)
+    if tp is not None and kind == "row":
+        y = reduce_from_group(y, tp.group)
     if ab is None:
         return y
-    a, b = ab
-    return y + (x @ a.to(x.dtype)) @ b.to(x.dtype)
+    return y + lora_side(x, ab, tp, kind)
 
 
 class _StashedLinear(torch.autograd.Function):
@@ -280,10 +341,11 @@ class _StashedLinear(torch.autograd.Function):
     (the LoRA term included), the recompute returns it without the products.
     The backward is the vector-Jacobian product of rope and the linear:
     dx = g W (+ (g B^T) A^T), dW = g^T x when W trains, and with LoRA
-    dA = x^T (g B^T), dB = (x A)^T g."""
+    dA = x^T (g B^T), dB = (x A)^T g; under tensor parallelism (`tp`, the
+    block's group) b is the rank's columns of B and dA is `_ColumnSide`'s."""
 
     @staticmethod
-    def forward(ctx, x, weight, a, b, cos, sin, shape, stash, key):
+    def forward(ctx, x, weight, a, b, cos, sin, shape, stash, key, tp=None):
         y = stash.values.get(key)
         if y is None:
             y = F.linear(x, weight)
@@ -297,6 +359,7 @@ class _StashedLinear(torch.autograd.Function):
         else:
             y = y.detach()
         needs_x = weight.requires_grad or a is not None
+        ctx.tp = tp
         ctx.save_for_backward(x if needs_x else None, weight, a, b, cos, sin)
         return y
 
@@ -310,7 +373,10 @@ class _StashedLinear(torch.autograd.Function):
         dw = da = db = None
         if ctx.needs_input_grad[1]:
             dw = g.reshape(-1, g.shape[-1]).T @ x.reshape(-1, x.shape[-1])
-        if a is not None:
+        if a is not None and ctx.tp is not None:
+            dx_side, da, db = _column_side_grads(g, x, a, b, None, ctx.tp.group)
+            dx = dx + dx_side
+        elif a is not None:
             gb = g @ b.T                                           # (B, T, r)
             dx = dx + gb @ a.T
             x2 = x.reshape(-1, x.shape[-1])
@@ -318,7 +384,7 @@ class _StashedLinear(torch.autograd.Function):
                 da = x2.T @ gb.reshape(-1, gb.shape[-1])
             if ctx.needs_input_grad[3]:
                 db = (x2 @ a).T @ g.reshape(-1, g.shape[-1])
-        return dx, dw, da, db, None, None, None, None, None
+        return dx, dw, da, db, None, None, None, None, None, None
 
 
 def _mean_square(x: torch.Tensor) -> torch.Tensor:
@@ -411,11 +477,13 @@ class DecoderBlock(nn.Module):
             ab = side(name)
             if key.split(".")[0] in keeps:
                 a, b_ = (None, None) if ab is None else (ab[0].to(x.dtype), ab[1].to(x.dtype))
+                if b_ is not None and tp is not None:
+                    b_ = slice_of_group(b_, 1, tp)
                 return _StashedLinear.apply(
                     x, layer.weight, a, b_, cos if rope else None, sin if rope else None,
-                    shape, stash, key,
+                    shape, stash, key, tp,
                 )
-            y = lora_linear(layer, x, ab, use_kernel)
+            y = lora_linear(layer, x, ab, use_kernel, tp)
             y = y if shape is None else y.reshape(shape)
             return apply_rope(y, cos, sin) if rope else y
 
@@ -460,10 +528,7 @@ class DecoderBlock(nn.Module):
 
         attn = attn.reshape(b, t, nh * hd)
         record(o_proj=attn)
-        out = lora_linear(self.o_proj, attn, side("o_proj"), use_kernel)
-        if tp is not None:
-            out = reduce_from_group(out, tp.group)
-        h = h + out
+        h = h + lora_linear(self.o_proj, attn, side("o_proj"), use_kernel, tp, "row")
         x = self.mlp_norm(h)
         if self.moe:
             # every tp rank runs the whole MoE MLP on the full hidden state:
@@ -492,10 +557,7 @@ class DecoderBlock(nn.Module):
         else:
             gu = F.silu(gate_pre) * up
         record(down_proj=gu)
-        out = lora_linear(self.down_proj, gu, side("down_proj"), use_kernel)
-        if tp is not None:
-            out = reduce_from_group(out, tp.group)
-        return h + out
+        return h + lora_linear(self.down_proj, gu, side("down_proj"), use_kernel, tp, "row")
 
 
 class Decoder(nn.Module):
@@ -518,9 +580,11 @@ class Decoder(nn.Module):
         # parameters are gathered around its forward and its backward
         self.zero3 = None
         # set by parallel/tensor.shard_model: the tensor-parallel group, and
-        # the 'model' placement of each split parameter (by name in the decoder)
+        # the 'model' placement of each split parameter and quantized buffer
+        # (by name in the decoder)
         self.tp = None
         self.tp_plan: Dict[str, Any] = {}
+        self.tp_buffers: Dict[str, Any] = {}
         # the sequence-parallel group (parallel/sequence.SequenceParallel):
         # inputs_embeds are the rank's rows
         self.seq = None
@@ -529,6 +593,12 @@ class Decoder(nn.Module):
         # a MoE decoder's expert-parallel group (parallel/distributed.AxisGroup;
         # fixed at construction: the banks hold the rank's experts)
         self.ep = ep
+
+    @property
+    def tp_size(self) -> int:
+        """The tensor-parallel group's size (1 without one): a cache of this
+        decoder holds num_kv_heads / tp_size kv heads."""
+        return 1 if self.tp is None else self.tp.size
 
     def embed(self, ids: torch.Tensor) -> torch.Tensor:
         """The token embeddings of `ids` (vocab-parallel under tp)."""
@@ -578,8 +648,8 @@ class Decoder(nn.Module):
         for a dense one)}. remat: each block is checkpointed while
         autograd records, keeping what `remat_policy` names (`REMAT_POLICIES`).
         lora: {target: (A (L, din, r), B scaled (L, r, dout))}, the side path
-        of every targeted linear (models/lora.py `lora_side_factors`; not
-        under tp). moe_data (a parallel/distributed.AxisGroup over the data
+        of every targeted linear (models/lora.py `lora_side_factors`; whole
+        under tp: `lora_side`). moe_data (a parallel/distributed.AxisGroup over the data
         axis, or None): the group a MoE block's routing spans, so that
         capacity, priority and the aux are the global batch's (the train
         step's loss under data parallelism); None routes over this call's
@@ -597,8 +667,6 @@ class Decoder(nn.Module):
         quant_saves = remat and remat_policy == "save_mlp_q8"
         if remat and cache is not None:
             raise ValueError("remat is a training feature (no cache)")
-        if lora is not None and self.tp is not None:
-            raise NotImplementedError(f"the LoRA side path {LATER}")
         t = inputs_embeds.shape[1]
         stream = self.grad_stream
         if stream is not None and stream.armed:
@@ -927,11 +995,13 @@ class GradStream:
         self.host, self.pool = {}, None
 
 
-def _quantized(linear: nn.Linear, mode: str, rms: Optional[torch.Tensor]) -> nn.Module:
+def _quantized(linear: nn.Linear, mode: str, rms: Optional[torch.Tensor], tp=None) -> nn.Module:
+    """The QuantLinear of `linear` (tp: its weight is the rank's rows of a
+    row-parallel weight, whose statistics span the group)."""
     w = linear.weight.detach().T                     # input-major (din, dout)
     if mode == "int8":
-        return QuantLinear(**quantize_linear_int8(w))
-    buffers = quantize_linear_int4(w, act_rms=rms)
+        return QuantLinear(**quantize_linear_int8(w, tp))
+    buffers = quantize_linear_int4(w, act_rms=rms, tp=tp)
     return linear if buffers is None else QuantLinear(**buffers)
 
 
@@ -951,12 +1021,19 @@ def quantize_decoder(
     serve/calibrate.decoder_act_rms (tensors or arrays); an entry of another
     shape is ignored, as in JAX.
 
+    Under tensor parallelism (a decoder `shard_model` cut) each rank
+    quantizes its slices into the slices of the one-device quantized
+    decoder: a row-parallel linear's statistics over din are all-reduced
+    over the group (collective), its int4 groups must split evenly over
+    the ranks (ROADMAP C28), and its act_rms is the rank's input channels
+    (`decoder_act_rms` on the tp decoder) or the whole decoder's (sliced here).
+
     The embedding and the norms are the caller's modules, shared; the
     caller's decoder is left as it was (JAX quantizes a copy of the tree)."""
     if mode not in ("int8", "int4"):
         raise ValueError(f"unknown weight quantization {mode!r}")
-    if decoder.tp is not None:
-        raise NotImplementedError(f"serving quantization {LATER}")
+    tp = decoder.tp
+    split = 1 if tp is None else tp.size
     cfg = decoder.cfg
     device = decoder.embed_tokens.weight.device
     rms = {}
@@ -973,9 +1050,16 @@ def quantize_decoder(
             setattr(dst, name, getattr(src, name))
         for name in block_linears(cfg):
             lin = getattr(src, name)
+            row = tp is not None and split_kind(name) == "row"
             r = rms.get(name)
+            if row and r is not None and tuple(r.shape) == (cfg.num_layers, lin.in_features * split):
+                r = r.narrow(1, tp.rank * lin.in_features, lin.in_features)
             r = r[i] if r is not None and tuple(r.shape) == (cfg.num_layers, lin.in_features) else None
-            setattr(dst, name, _quantized(lin, mode, r))
+            setattr(dst, name, _quantized(lin, mode, r, tp if row else None))
     if decoder.lm_head is not None:
         out.lm_head = _quantized(decoder.lm_head, mode, rms.get("lm_head"))
+    if tp is not None:
+        dense = dict(out.named_parameters())
+        set_tensor_parallel(out, tp, {n: pl for n, pl in decoder.tp_plan.items() if n in dense},
+                            quant_plan(out, split))
     return out.eval()

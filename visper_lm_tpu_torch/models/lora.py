@@ -19,6 +19,7 @@ import torch
 import torch.nn as nn
 
 from visper_lm_tpu_torch.config import DecoderConfig, LoraConfig
+from visper_lm_tpu_torch.parallel.tensor import split_kind
 
 
 def kernel_dims(cfg: DecoderConfig, name: str) -> Tuple[int, int]:
@@ -82,9 +83,20 @@ def lora_side_factors(
 def merge_lora_into_decoder(decoder: nn.Module, lora: nn.ModuleDict, lora_cfg: LoraConfig) -> None:
     """Fold the adapters into the decoder's weights in place: W + scaling A B
     per layer, summed in f32 and rounded to W's dtype (JAX
-    `merge_lora_into_decoder`; the reference's merge-on-load)."""
+    `merge_lora_into_decoder`; the reference's merge-on-load). Under tensor
+    parallelism (a decoder `shard_model` cut, the factors whole) each rank
+    adds its slice of the delta: a column-parallel target's columns of B, a
+    row-parallel target's rows of A."""
+    tp = decoder.tp
     for name, f in lora.items():
-        delta = torch.einsum("lir,lro->lio", f.a.float(), f.b.float()) * lora_cfg.scaling
+        a, b = f.a, f.b
+        if tp is not None and split_kind(name) == "row":
+            n = a.shape[1] // tp.size
+            a = a.narrow(1, tp.rank * n, n)
+        elif tp is not None:
+            n = b.shape[2] // tp.size
+            b = b.narrow(2, tp.rank * n, n)
+        delta = torch.einsum("lir,lro->lio", a.float(), b.float()) * lora_cfg.scaling
         for i, block in enumerate(decoder.blocks):
             w = getattr(block, name).weight                  # (dout, din)
             w.copy_((w.float() + delta[i].T).to(w.dtype))

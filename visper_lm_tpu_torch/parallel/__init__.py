@@ -6,7 +6,9 @@ operators, which GSPMD writes for JAX), sequence parallelism
 (`sequence.py`: Ulysses and the ring) and pipeline parallelism
 (`pipeline.py`: GPipe).
 
-Data parallelism and ZeRO-1/2/3 (ROADMAP A10a), tensor parallelism (A10b)
-and sequence and pipeline parallelism (A10c) are ported; expert
-parallelism raises, naming the ROADMAP item that brings it (A10d).
+Data parallelism and ZeRO-1/2/3 (ROADMAP A10a), tensor parallelism with
+serving and LoRA on it (A10b), sequence and pipeline parallelism (A10c) and
+expert parallelism (A10d) are ported; the memory levers and LoRA under
+sequence or pipeline parallelism raise, naming the ROADMAP item that brings
+them (A10c-2).
 """

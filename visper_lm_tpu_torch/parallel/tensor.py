@@ -36,9 +36,27 @@ logit all-reduced; never the (B, T, V) logits); every other reader of
 logits gets the full vocabulary (`gather_vocab`), so sampling and greedy
 decoding run unchanged, identically on every rank.
 
-Not under tensor parallelism (ROADMAP queue A, item A10b-2, each raises):
-the LoRA side path, serving quantization, the Engine, speculative and beam
-decoding, `VisperModel.chat`.
+Quantized serving weights (`QuantLinear`, utils/param.py) are cut as their
+linear's weight is (`QUANT_DIMS`): a column-parallel target's buffers by
+dout, a row-parallel target's by din (packed int4 rows din/2, int4 groups
+G), its int8 `out_scale` whole. `quantize_decoder` quantizes the rank's
+slice: a row-parallel target's statistics over din (int8's max, AWQ's
+geometric mean) are all-reduced, so each rank's buffers are the slice of
+the one-device quantized tree. An int4 group may not straddle two ranks
+(din / tp a multiple of the group size, else a ValueError: ROADMAP C28).
+
+The LoRA factors stay replicated, as JAX's rules leave them (no rule names
+`lora/`): a column-parallel target's side path runs (x A) and the rank's
+columns of B, a row-parallel target's the rank's rows of A, the partial
+(x A) all-reduced, then B. Each slice is `slice_of_group`'s, whose backward
+gathers the slices' gradients, and a column target's dA sees the (x A)
+gradient all-reduced (models/decoder.py), so every factor's gradient is
+whole and the same on every rank of the group, like a norm's.
+
+Serving (the Generator, the Engine, speculative and beam decoding, chat)
+runs the one-device programs on the rank's form: caches of nkv/tp heads,
+logits gathered before every sampling or selection, so every rank of the
+group runs the same host schedule and draws the same tokens.
 """
 
 from __future__ import annotations
@@ -52,8 +70,19 @@ import torch.nn.functional as F
 from visper_lm_tpu_torch.parallel import distributed
 from visper_lm_tpu_torch.parallel.sharding import Placement, tp_placements
 
-# what a raise under tensor parallelism names
-LATER = "under tensor parallelism is ROADMAP queue A, item A10b-2"
+# the block linears by their 'model' split (`_PARAM_RULES`): the output
+# dim (column-parallel; lm_head too) or the input dim (row-parallel)
+ROW_PARALLEL = ("o_proj", "down_proj")
+
+# {split kind: {QuantLinear buffer: the dim split over 'model', None whole}}:
+# buffers are input-major (din, dout) (packed int4 rows (din/2, dout),
+# groups (G, dout), the AWQ input scale (din,))
+QUANT_DIMS = {
+    "column": {"weight_q8": 1, "out_scale": 0, "weight_q4p": 1, "q4_scale": 1,
+               "q4_in_scale": None},
+    "row": {"weight_q8": 0, "out_scale": None, "weight_q4p": 0, "q4_scale": 0,
+            "q4_in_scale": 0},
+}
 
 
 # one rank's tensor-parallel group: the process group, the rank's index in
@@ -73,7 +102,7 @@ def tensor_parallel(mesh) -> Optional[TensorParallel]:
 def check_divisible(cfg, tp: int) -> None:
     """The port splits heads, kv heads, the MLP and the vocabulary in equal
     blocks and pads nothing (GSPMD pads where the port cannot): each must
-    divide by tp (ROADMAP C: tensor parallelism's divisibility limit)."""
+    divide by tp (ROADMAP C21)."""
     for what, n in (("num_heads", cfg.num_heads), ("num_kv_heads", cfg.num_kv_heads),
                     ("mlp_dim", cfg.mlp_dim), ("vocab_size", cfg.vocab_size)):
         if n % tp:
@@ -95,21 +124,20 @@ def tp_plan(model: nn.Module, tp: int) -> Dict[str, Placement]:
 def shard_model(model: nn.Module, tp: Optional[TensorParallel]) -> nn.Module:
     """`model` (a whole VLM or Decoder, on the meta device or the host) in
     tp's local form, in place: every 'model'-split parameter replaced by the
-    rank's slice (a copy, so the whole tensor can go), the decoder and its
-    blocks given the group. Returns the model; tp None changes nothing."""
+    rank's slice (a copy, so the whole tensor can go), each quantized
+    linear's buffers too (`quant_plan`), the decoder and its blocks given
+    the group. LoRA factors stay whole. Returns the model; tp None changes
+    nothing."""
     if tp is None:
         return model
     decoder = _decoder_of(model)
-    if getattr(model, "lora", None) is not None:
-        raise NotImplementedError(f"the LoRA side path {LATER}")
     if decoder.tp is not None:
         raise ValueError("shard_model: the model is already tensor parallel")
-    from visper_lm_tpu_torch.models.decoder import block_linears
-
-    if any(not isinstance(getattr(block, n), nn.Linear) for block in decoder.blocks
-           for n in block_linears(decoder.cfg)):
-        raise NotImplementedError(f"serving quantization {LATER}")
     check_divisible(decoder.cfg, tp.size)
+    buffers = quant_plan(decoder, tp.size)
+    for name, pl in buffers.items():
+        if name.endswith(".q4_scale") and pl.model_dim == 0:       # a row-parallel int4 linear
+            check_int4_groups(decoder.get_buffer(name).shape[0], tp.size, name)
     plan = tp_plan(model, tp.size)
     prefix = "decoder." if model is not decoder else ""
     whole: Dict[str, Placement] = {}
@@ -127,17 +155,60 @@ def shard_model(model: nn.Module, tp: Optional[TensorParallel]) -> nn.Module:
         elif isinstance(module, nn.Embedding):
             module.num_embeddings = new.shape[0]
         whole[name[len(prefix):]] = pl
-    decoder.tp, decoder.tp_plan = tp, whole
+    for name, pl in buffers.items():
+        mname, leaf = name.rsplit(".", 1)
+        module = decoder.get_submodule(mname)
+        module.register_buffer(leaf, pl.model_local(getattr(module, leaf), tp.rank).clone())
+    set_tensor_parallel(decoder, tp, whole, buffers)
+    return model
+
+
+def set_tensor_parallel(decoder: nn.Module, tp: TensorParallel, plan: Dict[str, Placement],
+                        buffers: Dict[str, Placement]) -> None:
+    """Give a decoder in tp's local form its group and the placements of its
+    split parameters and quantized buffers (by name in the decoder)."""
+    decoder.tp, decoder.tp_plan, decoder.tp_buffers = tp, plan, buffers
     for block in decoder.blocks:
         block.tp = tp
-    return model
+
+
+def split_kind(name: str) -> str:
+    """'row' for a row-parallel linear (o_proj, down_proj; by its module
+    name), else 'column' (q/k/v/gate/up and lm_head)."""
+    return "row" if name.rsplit(".", 1)[-1] in ROW_PARALLEL else "column"
+
+
+def check_int4_groups(groups: int, tp: int, what: str = "an int4 linear") -> None:
+    """A row-parallel int4 linear's groups must split evenly over the ranks:
+    a group may not straddle two ranks (ROADMAP C28)."""
+    if groups % tp:
+        raise ValueError(f"{what}: {groups} int4 groups over its input dim do not split over "
+                         f"tp {tp} (a group would straddle two ranks; ROADMAP C28)")
+
+
+def quant_plan(decoder: nn.Module, tp: int) -> Dict[str, Placement]:
+    """{buffer name in the decoder: Placement over 'model'} of the
+    decoder's quantized linears (`QUANT_DIMS`)."""
+    from visper_lm_tpu_torch.utils.param import QuantLinear
+
+    out: Dict[str, Placement] = {}
+    for mname, module in decoder.named_modules():
+        if not isinstance(module, QuantLinear):
+            continue
+        for leaf, _ in module.named_buffers(recurse=False):
+            dim = QUANT_DIMS[split_kind(mname)][leaf]
+            if dim is not None:
+                out[f"{mname}.{leaf}"] = Placement(model_dim=dim, model_parts=tp)
+    return out
 
 
 def model_placements(model: nn.Module) -> Dict[str, Placement]:
     """{name in `model`: Placement over 'model'} of a model `shard_model`
-    cut (the decoder's split parameters; nothing for a whole model)."""
+    cut (the decoder's split parameters and quantized buffers; nothing for a
+    whole model)."""
     decoder = _decoder_of(model)
-    plan = getattr(decoder, "tp_plan", None) or {}
+    plan = {**(getattr(decoder, "tp_plan", None) or {}),
+            **(getattr(decoder, "tp_buffers", None) or {})}
     prefix = "decoder." if model is not decoder else ""
     return {prefix + n: pl for n, pl in plan.items()}
 
@@ -152,8 +223,9 @@ def _expert_bank(model: nn.Module, name: str):
 
 
 def whole_param(model: nn.Module, name: str, local: torch.Tensor) -> torch.Tensor:
-    """Parameter `name`'s whole value from every rank's tp-local `local`
-    (collective over the model group; `local` itself where it is not split).
+    """Parameter (or quantized buffer) `name`'s whole value from every
+    rank's tp-local `local` (collective over the model group; `local`
+    itself where it is not split).
     A MoE expert bank under expert parallelism: every rank's experts
     (collective over the expert group)."""
     ep = _expert_bank(model, name)
@@ -191,6 +263,28 @@ def vocab_embed(weight: torch.Tensor, ids: torch.Tensor, tp: TensorParallel) -> 
     rows = F.embedding(torch.where(inside, ids - start, torch.zeros_like(ids)), weight)
     rows = rows.masked_fill(~inside[..., None], 0)
     return distributed.reduce_from_group(rows, tp.group)
+
+
+class _SliceOfGroup(torch.autograd.Function):
+    """The rank's block of a tensor replicated over the group; the backward
+    gathers every rank's block gradient into the whole (exact, the same on
+    every rank)."""
+
+    @staticmethod
+    def forward(ctx, t, dim, tp):
+        ctx.dim, ctx.tp = dim, tp
+        n = t.shape[dim] // tp.size
+        return t.narrow(dim, tp.rank * n, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return distributed.all_gather(g.contiguous(), ctx.dim, ctx.tp.group), None, None
+
+
+def slice_of_group(t: torch.Tensor, dim: int, tp: TensorParallel) -> torch.Tensor:
+    """The rank's 1/tp block of the replicated `t` along `dim`, whose
+    gradient comes back whole on every rank (the LoRA factors' slices)."""
+    return _SliceOfGroup.apply(t, dim, tp)
 
 
 def gather_vocab(logits: torch.Tensor, tp: TensorParallel) -> torch.Tensor:

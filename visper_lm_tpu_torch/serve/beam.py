@@ -16,7 +16,10 @@ visper_lm_tpu/serve/beam.py).
     early_stopping=False the search ends when the worst finished score beats
     best_sum_logprobs / cur_generated_len ** length_penalty
     (transformers BeamSearchScorer.process / BeamHypotheses.is_done);
-  * num_beams=1 is the greedy path.
+  * num_beams=1 is the greedy path;
+  * on a tensor-parallel decoder the cache holds the rank's nkv/tp heads
+    (the reorder is the same gather) and `_select` reads the gathered
+    logits, so every rank of the group keeps the same beams.
 """
 
 from __future__ import annotations
@@ -28,7 +31,6 @@ import numpy as np
 import torch
 
 from visper_lm_tpu_torch.models.decoder import Decoder, KVCache, init_kv_cache
-from visper_lm_tpu_torch.parallel.tensor import LATER
 
 
 @dataclasses.dataclass
@@ -52,8 +54,6 @@ class BeamSearchDecoder:
     ):
         if num_beams < 1:
             raise ValueError(f"num_beams must be >= 1, got {num_beams}")
-        if decoder.tp is not None:
-            raise NotImplementedError(f"beam search {LATER}")
         self.decoder = decoder
         self.cfg = decoder.cfg
         self.num_beams = num_beams
@@ -101,7 +101,7 @@ class BeamSearchDecoder:
         # candidates per beam: HF's max(2, 1 + n_eos)
         width = max(2, 1 + len(eos)) * B
         cache = init_kv_cache(self.cfg, B, self.max_len, dtype=self.cache_dtype,
-                              device=self.device)
+                              device=self.device, tp=self.decoder.tp_size)
         # beam 0 seeds the search; the others start unreachable, so step 1
         # expands B distinct continuations of the same prompt
         beam_scores = torch.tensor([0.0] + [-1e9] * (B - 1), device=self.device)

@@ -32,6 +32,10 @@ stream sync, and device scalars are made by fills, so the engine's reads of
 device values are the only host syncs (`stats["host_syncs"]`).
 `stats["prefill_tokens"]` counts the prompt tokens prefilled (a suffix over a
 prefix counts only the suffix).
+
+On a tensor-parallel model (parallel/tensor.py) the caches hold the rank's
+nkv/tp heads and every logits read is the gathered vocabulary, so each rank
+of the group runs the same schedule and samples the same tokens.
 """
 
 from __future__ import annotations
@@ -56,7 +60,6 @@ from visper_lm_tpu_torch.models.decoder import (
     quantize_decoder,
 )
 from visper_lm_tpu_torch.models.vlm import VLM, encode_images, splice_embeddings
-from visper_lm_tpu_torch.parallel.tensor import LATER
 from visper_lm_tpu_torch.serve.generate import (
     GenerationConfig,
     _sample_tokens,
@@ -174,8 +177,6 @@ class Engine:
         param = next(model.parameters())
         if param.device.type != self.device.type:
             raise ValueError(f"model is on {param.device}, engine on {self.device}")
-        if model.decoder.tp is not None:
-            raise NotImplementedError(f"the Engine {LATER}")
         if ecfg.spec_k and ecfg.temperature != 0.0:
             raise ValueError("engine speculative decoding is greedy-only (temperature 0); "
                              "sampling uses the plain step or serve/speculative.py")
@@ -248,10 +249,10 @@ class Engine:
     def _new_cache(self, batch: int, length: int) -> Cache:
         """int8 with scales (kv_quant), else bf16 whatever the model's dtype,
         as JAX's engine keeps it."""
-        d = self.cfg.decoder
+        d, split = self.cfg.decoder, self.decoder.tp_size
         if self.ecfg.kv_quant:
-            return init_quant_kv_cache(d, batch, length, device=self.device)
-        return init_kv_cache(d, batch, length, dtype=torch.bfloat16, device=self.device)
+            return init_quant_kv_cache(d, batch, length, device=self.device, tp=split)
+        return init_kv_cache(d, batch, length, dtype=torch.bfloat16, device=self.device, tp=split)
 
     def _image_inputs(self, batch: Dict[str, Any], images: Sequence[Any],
                       features: Sequence[Any]) -> None:

@@ -22,10 +22,16 @@ Tensor parallelism (a model in its rank's form, parallel/tensor.py): the
 cache (bf16 / f32, or int8 with its scales) holds the rank's kv heads, the
 prefill runs the flash kernel on the
 local heads, the last position's logits are gathered over the vocabulary
-before sampling, so every rank of the group samples the same tokens. Under
-tp x dp each data rank generates the rows of its own data shard (its
+before sampling, so every rank of the group samples the same tokens;
+`weight_quant` quantizes each rank's slices (models/decoder.quantize_decoder).
+Under tp x dp each data rank generates the rows of its own data shard (its
 Generator's batch is that shard), as JAX's Generator does on a batch split
-over 'data'. Quantized weights under tp are ROADMAP A10b-2 (they raise).
+over 'data'. A MoE decoder routes over the global batch there, as JAX's
+does (GSPMD hands `moe_mlp` the global arrays): given its data group
+(`data`), the Generator passes it as `moe_data`, and its data ranks step in
+lockstep: every decode step all-gathers the experts' route counts, so a
+rank whose rows have all stopped keeps decoding until every rank's have,
+which the ranks agree on once a decode chunk.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from visper_lm_tpu_torch.models.decoder import (
     quantize_decoder,
 )
 from visper_lm_tpu_torch.models.vlm import VLM, encode_images, splice_embeddings
+from visper_lm_tpu_torch.parallel.distributed import all_reduce
 
 
 @dataclasses.dataclass
@@ -147,7 +154,12 @@ class Generator:
         prompt_len: int,
         cache_dtype: torch.dtype = torch.bfloat16,
         device: Optional[Union[str, torch.device]] = None,
+        data=None,
     ):
+        """data (a parallel/distributed.AxisGroup over the data axis, e.g.
+        `AxisGroup(*data_group(mesh))`): the ranks holding the other rows of
+        the global batch, over which a MoE decoder routes (see the module
+        docstring); ignored for a dense decoder or a group of one."""
         self.device = resolve_device(device)
         param = next(model.parameters())
         if param.device.type != self.device.type:
@@ -163,6 +175,8 @@ class Generator:
         self.max_len = -(-(prompt_len + n_chunks * chunk + 1) // 128) * 128
         self.cache_dtype = cache_dtype
         self.decoder = model.decoder
+        self.moe_data = (data if cfg.decoder.moe_experts and data is not None and data.size > 1
+                         else None)
         if gen_cfg.weight_quant:
             # truthy and not "int4" means int8, as in the JAX Generator
             mode = "int4" if gen_cfg.weight_quant == "int4" else "int8"
@@ -194,7 +208,7 @@ class Generator:
         positions = (
             torch.arange(self.prompt_len, device=self.device)[None, :] - offsets[:, None]
         ).clamp(min=0)
-        split = 1 if self.decoder.tp is None else self.decoder.tp.size
+        split = self.decoder.tp_size
         if self.gen_cfg.kv_quant:
             cache = init_quant_kv_cache(
                 cfg.decoder, self.batch_size, self.max_len, device=self.device, tp=split,
@@ -210,6 +224,7 @@ class Generator:
             kv_lengths=torch.full((self.batch_size,), self.prompt_len, device=self.device),
             kv_starts=offsets,
             cache=cache, q_offset=0, use_kernel=use_kernel, compute_logits=False,
+            moe_data=self.moe_data,
         )
         # only the LAST position's logits are needed
         return self.decoder.logits(out["hidden"][:, -1], use_kernel), out["cache"]
@@ -233,7 +248,7 @@ class Generator:
             positions = (slot - offsets)[:, None]
             out = decoder(
                 emb, positions=positions, kv_lengths=(slot + 1).expand(self.batch_size),
-                kv_starts=offsets, cache=cache, q_offset=slot,
+                kv_starts=offsets, cache=cache, q_offset=slot, moe_data=self.moe_data,
             )
             token = _sample_tokens(out["logits"][:, 0], self.gen_cfg, generator)
             tokens.append(token)
@@ -289,7 +304,12 @@ class Generator:
 
         def _need_more() -> bool:
             lens = [len(o) for i, o in enumerate(outputs) if not finished[i]]
-            return bool(lens) and max(lens) < gen_cfg.max_new_tokens
+            more = bool(lens) and max(lens) < gen_cfg.max_new_tokens
+            if self.moe_data is None:
+                return more
+            # the data ranks route together: one agreement a chunk
+            flag = torch.tensor([float(more)], device=self.device)
+            return bool(all_reduce(flag, self.moe_data.group, op="max")[0])
 
         while _need_more():
             chunk_tokens = self._decode_chunk(cache, token, step, offsets, generator)

@@ -27,7 +27,10 @@ the tokens.
     samples are drawn from an explicit torch.Generator.
 
 Batch 1 (acceptance lengths diverge in a batch); throughput serving is
-`serve/generate.Generator` and `serve/engine.Engine`.
+`serve/generate.Generator` and `serve/engine.Engine`. A tensor-parallel
+target (or draft) keeps nkv/tp heads in its cache and reads gathered logits,
+so every rank of its group accepts and draws the same tokens; the draft may
+be tensor parallel or whole on every rank.
 """
 
 from __future__ import annotations
@@ -39,7 +42,6 @@ import numpy as np
 import torch
 
 from visper_lm_tpu_torch.models.decoder import Decoder, KVCache, init_kv_cache
-from visper_lm_tpu_torch.parallel.tensor import LATER
 
 
 @dataclasses.dataclass
@@ -142,11 +144,6 @@ def _chunk_forward(
     return out["logits"][0]
 
 
-def _not_tensor_parallel(*decoders: Decoder) -> None:
-    if any(d.tp is not None for d in decoders):
-        raise NotImplementedError(f"speculative decoding {LATER}")
-
-
 class SpeculativeDecoder:
     """Draft/verify decoder for one sequence (batch 1): greedy-exact at
     temperature 0, distribution-exact speculative sampling above it."""
@@ -164,7 +161,6 @@ class SpeculativeDecoder:
     ):
         if target.cfg.vocab_size != draft.cfg.vocab_size:
             raise ValueError("draft and target must share the tokenizer/vocab")
-        _not_tensor_parallel(target, draft)
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
         self.target, self.draft = target, draft
@@ -176,7 +172,7 @@ class SpeculativeDecoder:
 
     def _init_cache(self, decoder: Decoder) -> KVCache:
         return init_kv_cache(decoder.cfg, 1, self.max_len, dtype=self.cache_dtype,
-                             device=_device(decoder))
+                             device=_device(decoder), tp=decoder.tp_size)
 
     @torch.no_grad()
     def generate(
@@ -293,7 +289,6 @@ class PromptLookupDecoder:
         temperature: float = 0.0,
         top_p: float = 1.0,
     ):
-        _not_tensor_parallel(target)
         self.target = target
         self.k, self.n = k, ngram
         self.max_len = -(-max_len // 128) * 128
@@ -320,7 +315,7 @@ class PromptLookupDecoder:
             raise ValueError("prompt + max_new_tokens + k + 1 exceeds max_len; raise max_len")
         eos = {int(t) for t in eos_token_ids}
         cache = init_kv_cache(self.target.cfg, 1, self.max_len, dtype=self.cache_dtype,
-                              device=dev)
+                              device=dev, tp=self.target.tp_size)
         p = len(prompt) - 1
         if p:
             _chunk_forward(self.target, prompt[:-1], cache, 0)
@@ -370,7 +365,8 @@ def greedy_reference_ids(
 ) -> List[int]:
     """Plain one-token-at-a-time greedy decode (the exactness oracle)."""
     max_len = -(-max_len // 128) * 128
-    cache = init_kv_cache(decoder.cfg, 1, max_len, dtype=cache_dtype, device=_device(decoder))
+    cache = init_kv_cache(decoder.cfg, 1, max_len, dtype=cache_dtype, device=_device(decoder),
+                          tp=decoder.tp_size)
     prompt = [int(t) for t in prompt_ids]
     eos = {int(t) for t in eos_token_ids}
     out = [int(torch.argmax(_chunk_forward(decoder, prompt, cache, 0)[-1]))]

@@ -35,14 +35,21 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] =
     return F.linear(x, weight, bias)
 
 
-def quantize_linear_int8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+def quantize_linear_int8(w: torch.Tensor, tp=None) -> Dict[str, torch.Tensor]:
     """JAX `quantize_linear_weights` for one input-major (din, dout) weight:
     per-output-channel symmetric int8, scale amax / 127 (floor 1e-8), in f32.
-    Returns {"weight_q8" (din, dout) int8, "out_scale" (dout,) f32}."""
+    Returns {"weight_q8" (din, dout) int8, "out_scale" (dout,) f32}. tp (a
+    parallel/tensor.TensorParallel): `w` is the rank's rows of a
+    row-parallel weight, and the max runs over the whole din (collective)."""
     wf = w.float()
+    amax = wf.abs().amax(dim=-2, keepdim=True)
+    if tp is not None:
+        from visper_lm_tpu_torch.parallel.distributed import all_reduce
+
+        all_reduce(amax, tp.group, op="max")
     # amax / 127 as amax * f32(1 / 127), the form XLA folds a division by a
     # constant into (so the scales, and the rounding ties, match JAX's)
-    scale = wf.abs().amax(dim=-2, keepdim=True).clamp(min=1e-8) * (1.0 / 127.0)
+    scale = amax.clamp(min=1e-8) * (1.0 / 127.0)
     q = torch.round(wf / scale).clamp(-127, 127).to(torch.int8)
     return {"weight_q8": q, "out_scale": scale.squeeze(-2)}
 
@@ -51,11 +58,15 @@ AWQ_ALPHA = 0.5  # JAX `quantize_linear_weights_int4`'s default awq_alpha
 
 
 def quantize_linear_int4(
-    w: torch.Tensor, group: int = 128, act_rms: Optional[torch.Tensor] = None
+    w: torch.Tensor, group: int = 128, act_rms: Optional[torch.Tensor] = None, tp=None,
 ) -> Optional[Dict[str, torch.Tensor]]:
     """JAX `quantize_linear_weights_int4` for one input-major (din, dout)
     weight; None when no group size in (group, 64, 32, 16) divides din (the
-    layer stays dense).
+    layer stays dense). tp (a parallel/tensor.TensorParallel): `w` (and
+    act_rms) are the rank's rows of a row-parallel weight: the group size is
+    chosen from the whole din, a group may not straddle two ranks (a
+    ValueError, ROADMAP C28), and AWQ's geometric mean runs over the whole
+    din (collective).
 
     Group-wise symmetric int4 (amax / 7, floor 1e-8, clip +-7), nibble-packed
     with row 2r in the low and row 2r + 1 in the high nibble. With act_rms
@@ -65,13 +76,24 @@ def quantize_linear_int4(
     Returns {"weight_q4p" (din/2, dout) int8, "q4_scale" (G, dout) f32
     [, "q4_in_scale" (din,) f32]}."""
     din, dout = w.shape
-    size = next((c for c in (group, 64, 32, 16) if din % c == 0), None)
+    whole = din * (1 if tp is None else tp.size)
+    size = next((c for c in (group, 64, 32, 16) if whole % c == 0), None)
     if size is None:
         return None
+    if tp is not None:
+        from visper_lm_tpu_torch.parallel.tensor import check_int4_groups
+
+        check_int4_groups(whole // size, tp.size)
     out: Dict[str, torch.Tensor] = {}
     if act_rms is not None and tuple(act_rms.shape) == (din,):
         r = act_rms.float().clamp(min=1e-6)
-        gmean = torch.exp(torch.log(r).mean(dim=-1, keepdim=True))
+        if tp is None:
+            gmean = torch.exp(torch.log(r).mean(dim=-1, keepdim=True))
+        else:
+            from visper_lm_tpu_torch.parallel.distributed import all_reduce
+
+            logs = all_reduce(torch.log(r).sum(dim=-1, keepdim=True), tp.group)
+            gmean = torch.exp(logs / whole)
         s = ((r / gmean) ** AWQ_ALPHA).clamp(0.1, 10.0)
         w = (w.float() * s[:, None]).to(w.dtype)
         out["q4_in_scale"] = 1.0 / s

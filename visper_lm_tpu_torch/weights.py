@@ -247,8 +247,10 @@ def from_jax_params(
 
     dtype=None keeps each leaf's dtype; otherwise floating leaves other than
     the quantization scales are cast. tp (parallel/tensor.TensorParallel):
-    the rank's tensor-parallel form, each split leaf sliced on the host
-    before it is copied (a rank never holds the whole decoder on the device).
+    the rank's tensor-parallel form, each split leaf (a quantized linear's
+    buffers too, `parallel/tensor.QUANT_DIMS`) sliced on the host before it
+    is copied (a rank never holds the whole decoder on the device); the
+    LoRA factors stay whole.
     pp (parallel/pipeline.PipeParallel): the stage's form, the stacked
     blocks cut on the host: only the stage's own blocks are copied, the
     others are storage-less (`pipeline.whole_params` gathers them back).
@@ -265,14 +267,20 @@ def from_jax_params(
         shard_pipeline(shard_model(model, tp), pp)
     sd = jax_tree_to_state_dict(tree, cfg)
     expert_slices(model.decoder, sd, "decoder.")
+    _tp_slices(model, sd, tp)
+    _load(model, sd, device, dtype, freed=set(foreign_names(model)))
+    return model.eval()
+
+
+def _tp_slices(model: nn.Module, sd: Dict[str, Any], tp) -> None:
+    """In place: each leaf of `sd` (host arrays) that tensor parallelism
+    splits cut to the rank's slice (nothing without tp)."""
     for name, pl in model_placements(model).items():
         a = np.asarray(sd[name])
         size = a.shape[pl.model_dim] // pl.model_parts
         index = [slice(None)] * a.ndim
         index[pl.model_dim] = slice(tp.rank * size, (tp.rank + 1) * size)
         sd[name] = a[tuple(index)]
-    _load(model, sd, device, dtype, freed=set(foreign_names(model)))
-    return model.eval()
 
 
 def expert_slices(decoder: Decoder, sd: Dict[str, Any], prefix: str = "") -> None:
@@ -291,17 +299,21 @@ def decoder_from_jax_params(
     decoder_cfg: DecoderConfig,
     device: Optional[Union[str, torch.device]] = None,
     dtype: Optional[torch.dtype] = None,
+    tp=None,
 ) -> Decoder:
     """A `Decoder` holding a bare JAX decoder tree's weights (what
     `init_decoder` returns, and what beam search and speculative decoding
     take) on `device` (CUDA when None): stacked blocks unstacked, quantized
-    linears as `QuantLinear`s, dtype as in `from_jax_params`."""
+    linears as `QuantLinear`s, dtype and tp as in `from_jax_params`."""
     device = resolve_device(device)
     tree = normalize_stream_layout({"decoder": tree})["decoder"]
     with torch.device("meta"):
         decoder = Decoder(decoder_cfg)
         _quant_shells(decoder, tree)
-    _load(decoder, decoder_tree_to_state_dict(tree, decoder_cfg.num_layers), device, dtype)
+        shard_model(decoder, tp)
+    sd = decoder_tree_to_state_dict(tree, decoder_cfg.num_layers)
+    _tp_slices(decoder, sd, tp)
+    _load(decoder, sd, device, dtype)
     return decoder.eval()
 
 
