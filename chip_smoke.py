@@ -411,8 +411,20 @@ Phases, each of which raises (exit code != 0) when it fails:
      tp, each stage's blocks from its ranks, the shared leaves bit-equal
      across the stages), B1 16 / B2 8 / B3 8 a rank and step, 4
      point-to-point sends a rank and step. Per rank: peak GiB, the
-     decoder's bytes held, step ms. Any rank that fails or does not finish
-     within 420 s fails the phase.
+     decoder's bytes held, step ms. Inside the same spawns, the memory
+     levers and LoRA under sp and pp: (b) and (c) again with
+     `offload_opt_state=True, stream_grads=2` (every state tensor stays on
+     the card: no spec covers 'seq' or 'pipe', JAX's plan; the streamed
+     gradients go through pinned host memory), and the LoRA stage (r 64,
+     alpha 16, seven targets) at (c)'s shape, its factors through the
+     pipeline. Each is held by phase 16's bounds to an f32 run and to a
+     reference step (the levers: the same ranks' plain step, and whether
+     the losses, trainables and moments are bit-equal to it is printed;
+     LoRA: the one-process LoRA step), with (b)'s / (c)'s launches a rank
+     and step, peak GiB and pinned bytes a rank. (c)'s ranks start once
+     (a)'s attention timings are taken and share the card with (b)'s, so
+     (b)'s and (c)'s step times include each other's load. Any rank that
+     fails or does not finish within 420 s fails the phase.
  19. the MoE decoder and expert parallelism (every record with the card's
      name and power limit): the model is Phi3-mini-4k + CLIP-L with JAX's
      dry-run MoE (4 experts, top-2, capacity factor 1.25, aux weight 0.01:
@@ -547,6 +559,7 @@ TP_SPEC_TOKENS, TP_BEAMS = 8, 2   # (f) new tokens at batch 1; beams
 SP_T, SP_LAYERS = 8192, 2      # (a)-(b): Llama-3-8B at B1 x T8192, sp 2; (b) cut in depth (time)
 SP_STEPS = 2                   # (b)-(c): updates (the first has lr 0), then the loss after them
 PP_LAYERS, PP_BATCH, PP_SEQ = 4, 4, 1024   # (c): Phi3-mini cut in depth, pp 2 x tp 2
+SP_PP_LEVERS = dict(offload_opt_state=True, stream_grads=2)   # (b)-(c) again with the levers
 # phase 19: the MoE decoder (JAX's dry-run MoE on the bench model) and expert parallelism
 MOE_EXPERTS, MOE_TOP_K = 4, 2
 MOE_NEW_TOKENS = 16            # (a) greedy tokens a row at full depth
@@ -4569,6 +4582,15 @@ def start_ranks(flag: str, world: int, root: Path, hold: bool = False) -> dict:
                 deadline=None if hold else time.perf_counter() + TP_TIMEOUT)
 
 
+def wait_for_file(path: Path, ranks: dict) -> None:
+    """Wait until `path` exists, one of `ranks`' processes has ended, or
+    their TP_TIMEOUT has passed (`wait_ranks` then reports why)."""
+    while not path.exists() and all(p.poll() is None for p in ranks["procs"]):
+        if time.perf_counter() > ranks["deadline"]:
+            return
+        time.sleep(0.05)
+
+
 def release_ranks(ranks: dict) -> None:
     """Let held ranks (`start_ranks(hold=True)`) go on, from a free port;
     their TP_TIMEOUT runs from here."""
@@ -4970,6 +4992,16 @@ def pp_config():
     return dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, num_layers=PP_LAYERS))
 
 
+def pp_lora_config():
+    """Phase 18 (c)'s model with phase 12's LoRA adapters (r 64, alpha 16,
+    all seven targets)."""
+    import dataclasses
+
+    from visper_lm_tpu_torch.config import LoraConfig
+
+    return dataclasses.replace(pp_config(), lora=LoraConfig())
+
+
 def sp_pp_batches(cfg, batch: int, seq: int) -> list:
     """SP_STEPS full-length IFT batches (seeds 0, 1, ...)."""
     from visper_lm_tpu_torch.train import aot
@@ -5077,7 +5109,8 @@ def whole_grads(step) -> dict:
         del opt.reduce_grads
         opt.reduce_grads(names, grads, reduced)
         for n in names:
-            kept[n] = dp_sample(whole_param(step.model, n, grads[n]))
+            g = grads[n].to(opt.params[n].device)        # a streamed one is on the host
+            kept[n] = dp_sample(whole_param(step.model, n, g))
 
     opt.reduce_grads = reduce_grads
     return kept
@@ -5091,13 +5124,16 @@ def whole_samples(step) -> dict:
 
 
 def sp_pp_rank_steps(cfg, mesh, dev, tp=None, pp=None, ep=None, shape=None,
-                     ready=None) -> dict:
-    """Phase 18 (b) / (c) (and 19 (c)) on one rank: SP_STEPS finetune
-    updates on the rank's share of batches of `shape` (B, T), its gradients
-    and trainables sampled whole, the loss on the last batch after the
-    updates, point-to-point sends a step; ep: a MoE model's expert group;
-    ready: called once the model and step are built, before any step runs
-    (returns when the card is the ranks' alone)."""
+                     ready=None, stage: str = "finetune", step_kw=None,
+                     moments: bool = False) -> dict:
+    """Phase 18 (b) / (c) (and 19 (c)) on one rank: SP_STEPS updates of
+    `stage` on the rank's share of batches of `shape` (B, T), its gradients,
+    trainables (and moments) sampled whole, the loss on the last batch after
+    the updates, point-to-point sends a step, the pinned bytes; ep: a MoE
+    model's expert group; ready: called once the model and step are built,
+    before any step runs (returns when the card is the ranks' alone);
+    step_kw: make_train_step's levers; moments: also sample the moments
+    after the updates."""
     from visper_lm_tpu_torch.models.vlm import init_vlm
     from visper_lm_tpu_torch.parallel import distributed as D
     from visper_lm_tpu_torch.train.train_step import make_train_step
@@ -5111,11 +5147,15 @@ def sp_pp_rank_steps(cfg, mesh, dev, tp=None, pp=None, ep=None, shape=None,
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = init_vlm(cfg, device=dev, seed=0, tp=tp, pp=pp, ep=ep)
-    step = make_train_step(cfg, dp_opt_cfg("finetune"), model, remat_policy="save_gate",
-                           mesh=mesh)
+    step = make_train_step(cfg, dp_opt_cfg(stage), model, remat_policy="save_gate", mesh=mesh,
+                           **(step_kw or {}))
+    opt, stream = step.optimizer, step.grad_stream
     rec = dict(init_s=time.perf_counter() - t0, s_0=whole_samples(step),
                decoder_gib=held_bytes(model.decoder.parameters()) / 2**30,
-               bank_bytes=bank_bytes(model))
+               bank_bytes=bank_bytes(model),
+               pinned_bytes=getattr(opt, "host_bytes", 0) + (stream.host_bytes if stream else 0),
+               on_host=sum(v is not None for v in getattr(opt, "plan", {}).values()),
+               segments=None if stream is None else stream.ranges)
     if ready is not None:
         rec["waited_s"] = ready()
     kept = whole_grads(step)
@@ -5127,13 +5167,18 @@ def sp_pp_rank_steps(cfg, mesh, dev, tp=None, pp=None, ep=None, shape=None,
     rec.update({k: [r[k][0] for r in runs] for k in ("losses", "step_ms", "launches")})
     rec.update(p2p=p2p, g_1=kept, s_1=whole_samples(step),
                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if moments:
+        from visper_lm_tpu_torch.parallel.tensor import whole_param
+
+        rec["m_1"] = {f"{k}/{n}": dp_sample(whole_param(step.model, n, t.to(dev)))
+                      for k, state in (("mu", opt.mu), ("nu", opt.nu)) for n, t in state.items()}
     with torch.no_grad():
         total, _ = step.loss_fn(step.model, step.to_device(local[-1]), None)
         shares = D.all_reduce_scalars([total.detach()], step.zero.group)
         if step.zero.seq is not None:
             shares = D.all_reduce_scalars(shares, step.zero.seq.group)
     rec["loss_after"] = float(shares[0])
-    del step, model
+    del step, model, opt, stream
     release_cuda()
     return rec
 
@@ -5178,8 +5223,14 @@ def sp_rank(argv) -> int:
                          out=o.detach().cpu(), grads=[x.grad.cpu() for x in leaves])
         del o, leaves
         release_cuda()
+    if rank == 0:
+        # (a)'s timings are taken: (c)'s spawn may share the card from here
+        (root / "a_done.tmp").write_text("")
+        (root / "a_done.tmp").rename(root / "a_done")
     del inp, dout
-    out["b"] = sp_pp_rank_steps(sp_config(), mesh, dev)
+    out["b"] = sp_pp_rank_steps(sp_config(), mesh, dev, moments=True)
+    out["b_levers"] = sp_pp_rank_steps(sp_config(), mesh, dev, step_kw=SP_PP_LEVERS,
+                                       moments=True)
     out["seconds"] = time.perf_counter() - t_start
     torch.save(out, root / f"rank{rank}.pt")
     D.barrier()
@@ -5205,7 +5256,11 @@ def pp_rank(argv) -> int:
     tp, pp = tensor_parallel(mesh), pipe_parallel(mesh, PP_LAYERS)
     out = dict(backend=str(torch.distributed.get_backend()), start_s=time.perf_counter() - t_start,
                stage=pp.rank, layers=list(pp.layers), tp_rank=tp.rank)
-    out["c"] = sp_pp_rank_steps(pp_config(), mesh, torch.device("cuda", 0), tp=tp, pp=pp)
+    dev = torch.device("cuda", 0)
+    out["c"] = sp_pp_rank_steps(pp_config(), mesh, dev, tp=tp, pp=pp, moments=True)
+    out["c_levers"] = sp_pp_rank_steps(pp_config(), mesh, dev, tp=tp, pp=pp,
+                                       step_kw=SP_PP_LEVERS, moments=True)
+    out["c_lora"] = sp_pp_rank_steps(pp_lora_config(), mesh, dev, tp=tp, pp=pp, stage="lora")
     out["seconds"] = time.perf_counter() - t_start
     torch.save(out, root / f"rank{rank}.pt")
     D.barrier()
@@ -5281,6 +5336,48 @@ def held_to_refs(name: str, recs: list, one: dict, f32: dict, smi: str,
     return rec
 
 
+def ranks_as_one(recs: list) -> dict:
+    """The ranks' records of one run as `held_to_refs`' reference run: the
+    samples of every rank put together (a stage's names from its ranks),
+    rank 0's losses, step ms and launches, the largest peak."""
+    one = {k: recs[0][k] for k in ("losses", "loss_after", "step_ms", "launches")}
+    for key in ("g_1", "s_0", "s_1"):
+        one[key] = {n: t for rr in recs for n, t in rr[key].items()}
+    one["peak_gib"] = max(rr["peak_gib"] for rr in recs)
+    return one
+
+
+def lever_checks(name: str, recs: list, plain: list, f32: dict, want: dict, smi: str) -> dict:
+    """Phase 18 (b) / (c) with the memory levers: B1-B3 `want` a rank and
+    step; every state tensor on the card (no spec covers 'seq' or 'pipe':
+    JAX's plan); phase 16's bounds against the same ranks' plain step and
+    the f32 run; whether the losses, trainables and moments are bit-equal to
+    the plain step's (rank by rank), with the pinned bytes a rank."""
+    for r, rr in enumerate(recs):
+        check(all(c == want for c in rr["launches"]),
+              f"phase 18 {name} with the levers rank {r}: launches {rr['launches']}, expected "
+              f"{want}")
+        check(rr["on_host"] == 0, f"phase 18 {name} with the levers rank {r}: {rr['on_host']} "
+              "state tensors on the host (JAX's plan keeps every one on the card under sp / pp)")
+    rec = held_to_refs(f"{name} with the levers", recs, ranks_as_one(plain), f32, smi)
+    same = dict(
+        losses=all(rr["losses"] == pr["losses"] and rr["loss_after"] == pr["loss_after"]
+                   for rr, pr in zip(recs, plain)),
+        trainables=all(torch.equal(rr["s_1"][n], pr["s_1"][n])
+                       for rr, pr in zip(recs, plain) for n in pr["s_1"]),
+        moments=all(torch.equal(rr["m_1"][k], pr["m_1"][k])
+                    for rr, pr in zip(recs, plain) for k in pr["m_1"]))
+    rec.update(bit_equal_to_plain=same, pinned_gib=[rr["pinned_bytes"] / 2**30 for rr in recs],
+               segments=[rr["segments"] for rr in recs])
+    for r, rr in enumerate(recs):
+        print(f"phase 18 {name} with the levers rank {r}: pinned {rr['pinned_bytes'] / 2**30:.3f} "
+              f"GiB, state tensors on the host {rr['on_host']}, streamed segments "
+              f"{rr['segments']}, peak {rr['peak_gib']:.2f} GiB (plain {plain[r]['peak_gib']:.2f}) "
+              f"[{smi}]")
+    print(f"phase 18 {name} with the levers: bit-equal to the plain step {json.dumps(same)}")
+    return rec
+
+
 def sp_pp_phase(smi: str) -> dict:
     """Phase 18: sequence and pipeline parallelism on the card (see the
     module docstring). Returns the record printed as `sp_pp_path`."""
@@ -5338,8 +5435,24 @@ def sp_pp_phase(smi: str) -> dict:
         f32_b = f32_steps(cfg_b, batches_b, "finetune", chunked=True)
         refs_b_s = time.perf_counter() - t0
 
-        # (a) and (b): two ranks, dp 1 x sp 2
+        # (c)'s references (the finetune and the LoRA stage)
         t0 = time.perf_counter()
+        cfg_c = pp_config()
+        batches_c = sp_pp_batches(cfg_c, PP_BATCH, PP_SEQ)
+        one_c = one_process_steps(cfg_c, batches_c, "finetune", reset, read)
+        f32_c = f32_steps(cfg_c, batches_c, "finetune", chunked=False)
+        cfg_l = pp_lora_config()
+        one_l = one_process_steps(cfg_l, batches_c, "lora", reset, read)
+        f32_l = f32_steps(cfg_l, batches_c, "lora", chunked=False)
+        refs_c_s = time.perf_counter() - t0
+
+        # (a) and (b): two ranks, dp 1 x sp 2; (c)'s four ranks at pp 2 x tp
+        # 2 share the card with (b) once (a)'s attention timings are taken
+        t0 = time.perf_counter()
+        release_ranks(held[0])
+        wait_for_file(held[0]["root"] / "a_done", held[0])
+        release_ranks(held[1])
+        t_c = time.perf_counter()
         ranks = wait_ranks(held[0], "phase 18 (a)-(b)")
         ranks_ab_s = time.perf_counter() - t0
         check(all(r["backend"] == "gloo" for r in ranks), "phase 18: the ranks did not run gloo")
@@ -5383,17 +5496,12 @@ def sp_pp_phase(smi: str) -> dict:
             check(all(c == want_b for c in rr["launches"]),
                   f"phase 18 (b): launches {rr['launches']}, expected {want_b}")
         out["b"] = held_to_refs("(b) sp 2", [r["b"] for r in ranks], one_b, f32_b, smi)
+        out["b_levers"] = lever_checks("(b) sp 2", [r["b_levers"] for r in ranks],
+                                       [r["b"] for r in ranks], f32_b, want_b, smi)
 
-        # (c)'s references, then four ranks at pp 2 x tp 2
-        t0 = time.perf_counter()
-        cfg_c = pp_config()
-        batches_c = sp_pp_batches(cfg_c, PP_BATCH, PP_SEQ)
-        one_c = one_process_steps(cfg_c, batches_c, "finetune", reset, read)
-        f32_c = f32_steps(cfg_c, batches_c, "finetune", chunked=False)
-        refs_c_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
+        # (c): four ranks at pp 2 x tp 2
         ranks_c = wait_ranks(held[1], "phase 18 (c)")
-        ranks_c_s = time.perf_counter() - t0
+        ranks_c_s = time.perf_counter() - t_c
         check([(r["stage"], r["tp_rank"]) for r in ranks_c] == [(0, 0), (0, 1), (1, 0), (1, 1)],
               f"phase 18 (c): stages {[(r['stage'], r['tp_rank']) for r in ranks_c]}")
         micro = PP_BATCH                     # JAX's rule: 4 microbatches of 1 at B4 over 2 stages
@@ -5401,16 +5509,23 @@ def sp_pp_phase(smi: str) -> dict:
         want_c = dict(flash_fwd=2 * per_stage * micro, flash_bwd_dq=per_stage * micro,
                       flash_bwd_dkv=per_stage * micro, window_attn=0)
         for r, rr in enumerate(ranks_c):
-            check(all(c == want_c for c in rr["c"]["launches"]),
-                  f"phase 18 (c) rank {r}: launches {rr['c']['launches']}, expected {want_c}")
-            check(rr["c"]["p2p"] == [micro] * SP_STEPS,
-                  f"phase 18 (c) rank {r}: point-to-point sends {rr['c']['p2p']}, expected "
-                  f"{micro} a step (stage 0 the activations, stage 1 their gradients)")
+            for run in ("c", "c_levers", "c_lora"):
+                check(all(c == want_c for c in rr[run]["launches"]),
+                      f"phase 18 {run} rank {r}: launches {rr[run]['launches']}, expected {want_c}")
+                check(rr[run]["p2p"] == [micro] * SP_STEPS,
+                      f"phase 18 {run} rank {r}: point-to-point sends {rr[run]['p2p']}, expected "
+                      f"{micro} a step (stage 0 the activations, stage 1 their gradients)")
         want_one = dp_expected(PP_LAYERS, 0, 0)
-        check(all(c == want_one for c in one_c["launches"]),
-              f"phase 18 (c): one-process launches {one_c['launches']}, expected {want_one}")
+        for name, ref in (("finetune", one_c), ("LoRA", one_l)):
+            check(all(c == want_one for c in ref["launches"]),
+                  f"phase 18 (c): one-process {name} launches {ref['launches']}, expected "
+                  f"{want_one}")
         out["c"] = held_to_refs("(c) pp 2 x tp 2", [r["c"] for r in ranks_c], one_c, f32_c, smi)
         out["c"]["layers_by_stage"] = [ranks_c[0]["layers"], ranks_c[2]["layers"]]
+        out["c_levers"] = lever_checks("(c) pp 2 x tp 2", [r["c_levers"] for r in ranks_c],
+                                       [r["c"] for r in ranks_c], f32_c, want_c, smi)
+        out["c_lora"] = held_to_refs("(c) LoRA r 64 at pp 2 x tp 2",
+                                     [r["c_lora"] for r in ranks_c], one_l, f32_l, smi)
         out["seconds_by_part"] = dict(refs_a=refs_a_s, refs_b=refs_b_s, ranks_a_b=ranks_ab_s,
                                       refs_c=refs_c_s, ranks_c=ranks_c_s,
                                       rank_start=[r["start_s"] for r in ranks + ranks_c])
@@ -6481,10 +6596,12 @@ def main() -> int:
 
     def phase18(kname):
         """A kernel's launches in phase 18: a rank's attention call (a), a
-        rank's step at sp 2 (b) and at pp 2 x tp 2 (c)."""
-        return dict(attention_a_rank=sp_pp["a"]["ulysses"]["launches"][kname],
-                    sp_step_a_rank=sp_pp["b"]["ranks"][0]["launches_per_step"][kname],
-                    pp_step_a_rank=sp_pp["c"]["ranks"][0]["launches_per_step"][kname])
+        rank's step at sp 2 (b) and at pp 2 x tp 2 (c), each with the memory
+        levers too, and the LoRA step at (c)."""
+        step = {f"{k}_step_a_rank": sp_pp[run]["ranks"][0]["launches_per_step"][kname]
+                for k, run in (("sp", "b"), ("pp", "c"), ("sp_levers", "b_levers"),
+                               ("pp_levers", "c_levers"), ("pp_lora", "c_lora"))}
+        return dict(attention_a_rank=sp_pp["a"]["ulysses"]["launches"][kname], **step)
 
     def phase19(kname):
         """A kernel's launches in phase 19: a MoE prefill (a), a PT step with

@@ -30,7 +30,7 @@ from visper_lm_tpu_torch.train import optimizer as topt
 from visper_lm_tpu_torch.utils.param import split_layer
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from _torch_sp_pp_worker import OPT, STEPS  # noqa: E402
+from _torch_sp_pp_worker import OPT, STEPS, lora_config  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 4
@@ -59,10 +59,15 @@ def batch(cfg, pt: bool, bsz: int = 4, seq: int = 64):
 def write_inputs(workdir):
     """The JAX trees and batches, written for the ranks; returns them."""
     dcfg = jconfig.tiny_test_vlm(distill=False).decoder
+    lora = jvlm.init_vlm(jax.random.PRNGKey(0), lora_config(jconfig))
+    rng = np.random.default_rng(1)        # a B that is not zero: the side path is live
+    lora["lora"] = {k: {"a": ab["a"], "b": rng.normal(0, 0.05, ab["b"].shape).astype(np.float32)}
+                    for k, ab in lora["lora"].items()}
     trees = dict(dec=init_decoder(jax.random.PRNGKey(0), dcfg),
                  dec_remat=init_decoder(jax.random.PRNGKey(1), dcfg),
                  ft=jvlm.init_vlm(jax.random.PRNGKey(0), jconfig.tiny_test_vlm(distill=False)),
-                 pt=jvlm.init_vlm(jax.random.PRNGKey(0), jconfig.tiny_test_vlm(distill=True)))
+                 pt=jvlm.init_vlm(jax.random.PRNGKey(0), jconfig.tiny_test_vlm(distill=True)),
+                 lora=lora)
     for name, tree in trees.items():
         with open(os.path.join(workdir, f"{name}.pkl"), "wb") as f:
             pickle.dump(jax.tree_util.tree_map(np.asarray, tree), f)
@@ -169,9 +174,11 @@ def run(tmp_path_factory, part: str, refs):
 
 
 def step_refs(trees, batches, pt: bool):
-    """JAX's finetune step (and with pt its PT step) from the trees."""
+    """JAX's finetune step, its LoRA stage (on the finetune batch) and with
+    pt its PT step, from the trees."""
     out = dict(ft=jax_steps(jconfig.tiny_test_vlm(distill=False), trees["ft"], batches["ft"],
-                            "finetune"))
+                            "finetune"),
+               lora=jax_steps(lora_config(jconfig), trees["lora"], batches["ft"], "lora"))
     if pt:
         out["pt"] = jax_steps(jconfig.tiny_test_vlm(distill=True), trees["pt"], batches["pt"],
                               "pretrain")

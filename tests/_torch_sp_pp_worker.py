@@ -29,14 +29,23 @@ computed to rank<r>.pt:
                    gradient at dp 2 x pp 2, with the point-to-point sends
                    each made;
   ft_* / pt_*      the finetune step at pp 2 x tp 2, at dp 2 x pp 2 with
-                   zero_params and at dp 2 x sp 2; the PT step at dp 2 x sp
-                   2 and at dp 2 x pp 2: 3 updates' metrics and the whole
-                   state after them; ft_dp2_pp2_zero's state saved, restored
-                   at dp 2 x pp 2 in the ranks;
-  trainer_*        `trainer.train` at dp 2 x sp 2 and dp 2 x pp 2, 2 steps
-                   and a checkpoint.
+                   zero_params, at dp 2 x sp 2 and at sp 2 x pp 2; the PT
+                   step at dp 2 x sp 2, dp 2 x pp 2 and sp 2 x pp 2: 3
+                   updates' metrics and the whole state after them;
+                   ft_dp2_pp2_zero's state saved, restored at dp 2 x pp 2 in
+                   the ranks;
+  *_o<O>s<N>       the same steps with the memory levers (offload_opt_state
+                   O, stream_grads N; LEVERS): the finetune step at dp 2 x
+                   sp 2 and dp 2 x pp 2 with each, at pp 2 x tp 2 and sp 2 x
+                   pp 2 with both, the PT step with both at dp 2 x pp 2 and
+                   sp 2 x pp 2; ft_dp2_pp2_o1s2's state saved;
+  lora_*           the LoRA stage at dp 2 x sp 2, dp 2 x pp 2, pp 2 x tp 2 and
+                   sp 2 x pp 2 (the finetune batch);
+  trainer_*        `trainer.train` at dp 2 x sp 2 and dp 2 x pp 2 (and the
+                   LoRA stage at dp 2 x pp 2), 2 steps and a checkpoint.
 """
 
+import dataclasses
 import os
 import pickle
 import sys
@@ -65,6 +74,9 @@ from visper_lm_tpu_torch.weights import decoder_from_jax_params, from_jax_params
 
 OPT = dict(learning_rate=3e-3, total_steps=30, warmup_ratio=0.1)
 STEPS = 3
+LORA = dict(r=4, alpha=8)
+# (offload_opt_state, stream_grads) of the memory levers' cases
+LEVERS = ((True, 0), (False, 2), (True, 2))
 # (dp, sp, nkv) of the Ulysses cases (nq 4), as tests/test_sequence_parallel.py
 ULYSSES = ((2, 2, 4), (1, 4, 4), (2, 2, 2))
 # (dp, sp, nq, nkv) of the ring cases: JAX's, with sp 4 standing in for its
@@ -74,6 +86,17 @@ RING = ((1, 4, 4, 4), (1, 4, 4, 2), (2, 2, 4, 1), (1, 4, 2, 1))
 # 4 stages standing in for its (2, 4, 8) and (1, 8, 8) (eight devices)
 PIPE = ((1, 4, 4), (2, 2, 2), (1, 4, 8))
 ATTN_T, ATTN_H = 32, 16
+
+
+def lever(offload: bool, stream: int) -> str:
+    """A lever case's suffix: o<offload>s<stream_grads>."""
+    return f"o{int(offload)}s{stream}"
+
+
+def lora_config(C):
+    """tiny_test_vlm(distill=False) with LoRA adapters (r 4) on every block
+    linear (C: the JAX or the port's config module)."""
+    return dataclasses.replace(C.tiny_test_vlm(distill=False), lora=C.LoraConfig(**LORA))
 
 
 def attn_inputs(seed, b, nq, nkv):
@@ -213,19 +236,34 @@ def step_case(cfg, tree, batch, stage, mesh, **kw):
     held = {int(n.split(".")[2]) for n, p in model.named_parameters()
             if n.startswith("decoder.blocks.") and p.untyped_storage().nbytes() > 0}
     return step, dict(metrics=metrics, p2p=sends, state=state if D.process_index() == 0 else None,
-                      keys=sorted(state), held_blocks=sorted(held), trainable=len(step.trainable))
+                      keys=sorted(state), held_blocks=sorted(held), trainable=len(step.trainable),
+                      segments=None if step.grad_stream is None else step.grad_stream.ranges,
+                      optimizer=type(step.optimizer).__name__)
 
 
-def trainer_case(cfg, tree, batch, workdir, name, **axes):
+def lever_cases(out, prefix, cfg, tree, batch, stage, mesh_kw, levers=LEVERS):
+    """`step_case` with each (offload_opt_state, stream_grads) of `levers`
+    on make_mesh(**mesh_kw), recorded as <prefix>_<lever>; the last step."""
+    step = None
+    for offload, stream in levers:
+        del step
+        step, out[f"{prefix}_{lever(offload, stream)}"] = step_case(
+            cfg, tree, batch, stage, make_mesh(**mesh_kw), offload_opt_state=offload,
+            stream_grads=stream)
+    return step
+
+
+def trainer_case(cfg, tree, batch, workdir, name, stage="finetune", **axes):
     """`trainer.train` on a mesh of `axes` (TrainerConfig's dp / tp / sp /
-    pp), 2 steps on the rank's rows of `batch`, a checkpoint at step 2:
-    the step and the last metrics (the coordinator writes the files)."""
+    pp), 2 steps of `stage` on the rank's rows of `batch`, a checkpoint at
+    step 2: the step and the last metrics (the coordinator writes the
+    files)."""
     mesh = make_mesh(**axes)
     model = from_jax_params(tree, cfg, device="cpu", tp=T.tensor_parallel(mesh),
                             pp=P.pipe_parallel(mesh, cfg.decoder.num_layers))
     br = _rows(mesh, batch["labels"].shape[0])
     local = {k: v[br] for k, v in batch.items()}
-    state = train(cfg, OptimizerConfig(**OPT, stage="finetune"),
+    state = train(cfg, OptimizerConfig(**OPT, stage=stage),
                   TrainerConfig(output_dir=os.path.join(workdir, name), device="cpu", max_steps=2,
                                 save_steps=2, **axes),
                   model, lambda epoch: iter([local, local]))
@@ -252,6 +290,9 @@ def sequence_part(out, load, workdir):
                                      make_mesh(dp=2, sp=2))
     out["trainer_dp2_sp2"] = trainer_case(cfg_ft, load("ft.pkl"), ft_batch, workdir,
                                           "trainer_dp2_sp2", dp=2, sp=2)
+    lever_cases(out, "ft_dp2_sp2", cfg_ft, load("ft.pkl"), ft_batch, "finetune", dict(dp=2, sp=2))
+    _, out["lora_dp2_sp2"] = step_case(lora_config(tconfig), load("lora.pkl"), ft_batch, "lora",
+                                       make_mesh(dp=2, sp=2))
 
 
 def pipeline_part(out, load, workdir):
@@ -339,6 +380,24 @@ def pipeline_part(out, load, workdir):
     _, out["pt_dp2_pp2"] = step_case(cfg_pt, pt_tree, pt_batch, "pretrain", make_mesh(dp=2, pp=2))
     out["trainer_dp2_pp2"] = trainer_case(cfg_ft, ft_tree, ft_batch, workdir, "trainer_dp2_pp2",
                                           dp=2, pp=2)
+
+    # -- the memory levers, LoRA and sp x pp ---------------------------------
+    both = LEVERS[-1:]
+    step = lever_cases(out, "ft_dp2_pp2", cfg_ft, ft_tree, ft_batch, "finetune", dict(dp=2, pp=2))
+    CheckpointManager(os.path.join(workdir, "ckpt_levers")).save(STEPS, step, cfg_ft)
+    del step
+    lever_cases(out, "ft_pp2_tp2", cfg_ft, ft_tree, ft_batch, "finetune", dict(tp=2, pp=2), both)
+    lever_cases(out, "pt_dp2_pp2", cfg_pt, pt_tree, pt_batch, "pretrain", dict(dp=2, pp=2), both)
+    cfg_lora, lora_tree = lora_config(tconfig), load("lora.pkl")
+    for name, axes in (("lora_dp2_pp2", dict(dp=2, pp=2)), ("lora_pp2_tp2", dict(tp=2, pp=2)),
+                       ("lora_sp2_pp2", dict(sp=2, pp=2))):
+        _, out[name] = step_case(cfg_lora, lora_tree, ft_batch, "lora", make_mesh(**axes))
+    out["trainer_lora_dp2_pp2"] = trainer_case(cfg_lora, lora_tree, ft_batch, workdir,
+                                               "trainer_lora_dp2_pp2", stage="lora", dp=2, pp=2)
+    for prefix, cfg, tree, batch, stage in (("ft_sp2_pp2", cfg_ft, ft_tree, ft_batch, "finetune"),
+                                            ("pt_sp2_pp2", cfg_pt, pt_tree, pt_batch, "pretrain")):
+        _, out[prefix] = step_case(cfg, tree, batch, stage, make_mesh(sp=2, pp=2))
+        lever_cases(out, prefix, cfg, tree, batch, stage, dict(sp=2, pp=2), both)
 
 
 if __name__ == "__main__":

@@ -38,7 +38,7 @@ from visper_lm_tpu_torch.data.collate import build_splice_plan
 from visper_lm_tpu_torch.models.vlm import encode_images, splice_embeddings
 from visper_lm_tpu_torch.weights import from_jax_params
 
-from test_data_pipeline import FakeTokenizer
+from test_torch_api import FakeTok
 
 torch.set_num_threads(2)
 
@@ -47,10 +47,6 @@ TINY_GRID = [[28, 56], [56, 28], [56, 56]]
 SIZES = [(900, 300), (300, 900), (1000, 500), (500, 1000), (900, 900), (400, 1200), (300, 1000),
          (640, 480), (1, 1), (17, 333), (1333, 751), (336, 336), (672, 671), (2000, 90)]
 MERGES = ["flat", "spatial", "spatial_unpad"]
-
-
-class FakeTok(FakeTokenizer):
-    eos_token_id = 2
 
 
 @pytest.mark.parametrize("merge", MERGES)

@@ -6,7 +6,9 @@ dtype), the opt state's host / device split equals JAX's
 `build_abstract_batch`. With --dp one rank's breakdown: each leaf that
 ZeRO's plan shards counts its bytes / dp (JAX's specs on JAX's shapes);
 with --tp the decoder's Megatron leaves count their bytes / tp; --topology
-(a TPU slice) raises a ValueError.
+(a TPU slice) raises a ValueError. `--no-pallas` builds `--run`'s step with
+the decoder's kernels off; `--unrolled-staging` is taken and ignored (JAX's
+command line).
 """
 
 import functools
@@ -156,3 +158,43 @@ def test_main_prints_the_breakdown_and_runs_a_step_on_the_cpu(capsys, tmp_path):
                         device="cpu")
     assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
     assert out["update_ms"] is None and "peak_hbm_gib" not in out
+
+
+def test_no_pallas_and_unrolled_staging(capsys, monkeypatch):
+    """JAX's `--no-pallas` and `--unrolled-staging`: the parser takes both;
+    with --run --no-pallas the step is built with use_kernel=False (the
+    decoder's attention on the plain path, no B1-B3 launch), without it
+    with the default; --unrolled-staging changes nothing of the report."""
+    from visper_lm_tpu_torch.train import train_step as tts
+
+    args = taot.build_parser().parse_args(["--no-pallas", "--unrolled-staging"])
+    assert args.no_pallas and args.unrolled_staging
+    jargs = ["--model", "phi3", "--stage", "finetune"]
+    assert taot.main(jargs) == 0
+    plain = capsys.readouterr().out.strip().splitlines()[-1]
+    assert taot.main(jargs + ["--unrolled-staging"]) == 0
+    import json
+
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got == dict(json.loads(plain), breakdown_s=got["breakdown_s"])
+
+    seen, run_step = [], taot.run_step
+    monkeypatch.setattr(taot, "run_step", lambda cfg, **kw: seen.append(kw["use_kernel"]) or {})
+    for flags in ([], ["--no-pallas"]):
+        assert taot.main(jargs + ["--run"] + flags) == 0
+    assert seen == [None, False]
+
+    made = []
+    make_loss_fn = tts.make_loss_fn
+
+    def recording(*a, **kw):
+        made.append(kw.get("use_kernel"))
+        return make_loss_fn(*a, **kw)
+
+    monkeypatch.setattr(tts, "make_loss_fn", recording)
+    out = run_step(tconfig.tiny_test_vlm(distill=False), stage="finetune", batch_size=2,
+                        seq_len=48, with_teachers=False, offload_opt_state=False, stream_grads=0,
+                        master_weights=False, mu_dtype="float32", remat_policy=None,
+                        learning_rate=1e-3, blockwise_staging=True, block_bytes=256 << 20,
+                        scan_chunks=False, device="cpu", use_kernel=False)
+    assert made == [False] and all(np.isfinite(out["losses"]))

@@ -1,8 +1,9 @@
 """The user API (visper_lm_tpu_torch/api.py) vs the JAX package's on the CPU.
 
 tiny_test_vlm(distill=True) with JAX's init_vlm weights carried over (f32),
-the fake tokenizers of tests/test_api.py, images from seeded uint8 arrays
-(PIL images of the same arrays on the JAX side). Prompts and configs must be
+the fake tokenizers of tests/test_api.py (`FakeTok`'s ids fixed, not hashed:
+ROADMAP C29), images from seeded uint8 arrays (PIL images of the same arrays
+on the JAX side). Prompts and configs must be
 equal; greedy answers of chat(), serve() and ChatSession identical (the fake
 tokenizers decode ids to their numbers, so equal strings are equal tokens);
 from_hf_checkpoint on a directory the JAX package wrote gives JAX's
@@ -11,6 +12,7 @@ decoder, as tests/test_torch_generate.py holds prefill logits).
 """
 
 import dataclasses
+import zlib
 
 import numpy as np
 import pytest
@@ -31,14 +33,34 @@ from visper_lm_tpu_torch import config as tconfig
 from visper_lm_tpu_torch.serve import generate as tgen
 from visper_lm_tpu_torch.weights import from_jax_params
 
-from test_api import RoundTripTok
 from test_data_pipeline import FakeTokenizer
 
 torch.set_num_threads(2)
 
 
 class FakeTok(FakeTokenizer):
+    """tests/test_data_pipeline.py's whitespace tokenizer with ids that do
+    not follow Python's hash seed (ROADMAP C29): the template's special
+    tokens and the newline fixed ids, any other word 100 + crc32 % 400."""
+
     eos_token_id = 2
+    _FIXED = FakeTokenizer._SPECIALS + ("\n",)
+
+    def _id(self, w: str) -> int:
+        return 3 + self._FIXED.index(w) if w in self._FIXED else 100 + zlib.crc32(w.encode()) % 400
+
+    def __call__(self, text):
+        ids = [self.bos_token_id] + [self._id(w) for w in self._words(text)]
+        return type("Encoding", (), {"input_ids": ids})()
+
+
+class RoundTripTok(FakeTok):
+    """tests/test_api.py's round-trip-stable tokenizer (a numeric word is its
+    own id, so a decoded answer re-encodes to its ids) on `FakeTok`'s fixed
+    ids (C29: the hashed '<|end|>' could land on a generated id)."""
+
+    def _id(self, w: str) -> int:
+        return int(w) if w.isdigit() else super()._id(w)
 
 
 def _images(shapes, seed=0):

@@ -26,10 +26,22 @@ multi-rank case while JAX computes its references here:
      around the plain loop), against JAX's single-device step: metrics of 3
      updates (rtol 1e-5), the whole state after them (atol 2e-5 / rtol 1e-4);
   7. a checkpoint saved at dp 2 x pp 2 is one device's files: restored at
-     dp 2 x pp 2 in the ranks and at pp 1 here, bit-true.
+     dp 2 x pp 2 in the ranks and at pp 1 here, bit-true;
+  8. the memory levers under pp (offload_opt_state, stream_grads): the
+     finetune step at dp 2 x pp 2 with (on, 0), (off, 2), (on, 2), at pp 2
+     x tp 2 and sp 2 x pp 2 with both, the PT step with both at dp 2 x pp 2
+     and sp 2 x pp 2 (a tap and a stage bound end segments), each stage
+     streaming its own segments, against JAX's single-device step as in 6;
+     the offloaded state saved at dp 2 x pp 2 restores at pp 1 bit-true;
+     the finetune and PT steps at sp 2 x pp 2 without the levers;
+  9. the LoRA stage at dp 2 x pp 2, pp 2 x tp 2 and sp 2 x pp 2 (the
+     factors through the pipeline, their gradients summed over the stages) and
+     `trainer.train` of it at dp 2 x pp 2, against JAX's single-device
+     LoRA step.
 """
 
 import os
+import re
 import sys
 
 import numpy as np
@@ -43,6 +55,8 @@ from visper_lm_tpu import config as jconfig
 from visper_lm_tpu.models.decoder import decoder_forward
 
 from visper_lm_tpu_torch import config as tconfig
+from visper_lm_tpu_torch.models.decoder import stage_chunk_ranges, stream_chunk_ranges
+from visper_lm_tpu_torch.models.vlm import tap_layer_union
 from visper_lm_tpu_torch.parallel import pipeline as P
 from visper_lm_tpu_torch.train import optimizer as topt
 from visper_lm_tpu_torch.train import train_step as tts
@@ -51,7 +65,7 @@ from visper_lm_tpu_torch.weights import from_jax_params
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import _torch_sp_pp_common as C  # noqa: E402
-from _torch_sp_pp_worker import OPT, PIPE, STEPS, toy, toy_block  # noqa: E402
+from _torch_sp_pp_worker import OPT, PIPE, STEPS, lora_config, toy, toy_block  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -303,3 +317,117 @@ def test_trainer_at_dp2_pp2_logs_once_and_ranks_agree(runs):
         assert r["step"] == 2 and r["metrics"] == recs[0]["metrics"]
     for row, m in zip(rows, want):
         np.testing.assert_allclose(row["loss"], m["loss"], rtol=1e-6)
+
+
+# -- the memory levers, LoRA and sp x pp ---------------------------------------
+
+FT_LEVERS = ["ft_dp2_pp2_o1s0", "ft_dp2_pp2_o0s2", "ft_dp2_pp2_o1s2", "ft_pp2_tp2_o1s2",
+             "ft_sp2_pp2", "ft_sp2_pp2_o1s2"]
+
+
+def _stage_segments(cfg, stream, stage):
+    """The segments a stage of two streams: stream_chunk_ranges cut at the
+    stage bounds (ROADMAP C31)."""
+    pipe = P.PipeParallel(None, stage, 2, cfg.decoder.num_layers)
+    return stage_chunk_ranges(stream_chunk_ranges(cfg.decoder.num_layers, stream,
+                                                  tap_layer_union(cfg)), pipe)
+
+
+def _check_step(runs, name, cfg, ref):
+    """A step case's ranks against JAX's single-device step: the metrics of
+    3 updates on every rank, the whole state after them; with streaming,
+    each stage's own segments."""
+    recs = [r[name] for r in runs["ranks"]]
+    for r in recs:
+        C.check_metrics(r["metrics"], ref["metrics"])
+        assert r["metrics"] == recs[0]["metrics"]
+        stage = 0 if r["held_blocks"] == [0, 1] else 1
+        assert r["held_blocks"] == [[0, 1], [2, 3]][stage]
+        levers = re.search(r"_o(\d)s(\d)$", name)
+        offload, stream = (0, 0) if levers is None else map(int, levers.groups())
+        assert r["segments"] == (_stage_segments(cfg, stream, stage) if stream else None)
+        assert r["optimizer"] == ("OffloadedAdamW" if offload else "AdamW")
+    assert recs[0]["metrics"][2]["loss"] != recs[0]["metrics"][1]["loss"]
+    return recs, C.check_params(recs[0]["state"], ref["params"])
+
+
+@pytest.mark.parametrize("name", FT_LEVERS)
+def test_finetune_step_with_the_levers_under_pp_matches_jax(runs, name):
+    """offload_opt_state and stream_grads under pp (and at sp 2 x pp 2, with
+    and without them): each stage streams the segments of its own blocks,
+    once the last microbatch's backward has passed them (a segment that
+    left after the first would carry a quarter of its gradient), summed
+    over the seq group under sp; the offloaded update takes the stages'
+    norm. JAX's single-device finetune step."""
+    cfg = tconfig.tiny_test_vlm(distill=False)
+    recs, n = _check_step(runs, name, cfg, runs["ref"]["ft"])
+    assert n > recs[0]["trainable"]
+    if "sp2" in name or "tp2" in name:
+        # dp 1: the pipeline's activations go forward, their gradients back
+        assert all(all(x > 0 for x in r["p2p"]) for r in recs)
+
+
+@pytest.mark.parametrize("name", ["pt_dp2_pp2_o1s2", "pt_sp2_pp2", "pt_sp2_pp2_o1s2"])
+def test_pt_step_with_the_levers_under_pp_matches_jax(runs, name):
+    """The PT step taps the decoder (the plain loop, the foreign blocks
+    gathered): with both levers a tap boundary and a stage bound both end
+    segments ((0, 2) on stage 0; (2, 3), (3, 4) on stage 1); at sp 2 x pp 2
+    the heads read the taps gathered over the seq group. JAX's
+    single-device PT step."""
+    cfg = tconfig.tiny_test_vlm(distill=True)
+    recs, n = _check_step(runs, name, cfg, runs["ref"]["pt"])
+    assert n == recs[0]["trainable"]
+    if name.endswith("o1s2"):
+        assert sorted(r["segments"] for r in recs)[-1] == ((2, 3), (3, 4))
+    assert all(r["p2p"] == [0] * STEPS for r in recs)
+
+
+def test_offloaded_state_at_dp2_pp2_restores_at_pp1(runs):
+    """The offloaded optimizer's checkpoint at dp 2 x pp 2 (both levers) is
+    one device's files: an offloaded step at pp 1 restores it bit-true."""
+    mgr = CheckpointManager(str(runs["workdir"] / "ckpt_levers"))
+    assert mgr.steps() == [STEPS]
+    import pickle
+
+    with open(runs["workdir"] / "ft.pkl", "rb") as f:
+        tree = pickle.load(f)
+    cfg = tconfig.tiny_test_vlm(distill=False)
+    step = tts.make_train_step(cfg, topt.OptimizerConfig(**OPT, stage="finetune"),
+                               from_jax_params(tree, cfg, device="cpu"), offload_opt_state=True)
+    mgr.restore(step)
+    assert step.step == STEPS
+    saved = runs["ranks"][0]["ft_dp2_pp2_o1s2"]["state"]
+    got = step.state_tensors()
+    assert sorted(got) == sorted(saved) and any(k.startswith("opt/mu/") for k in saved)
+    for k, v in saved.items():
+        assert torch.equal(got[k].detach(), v), k
+
+
+@pytest.mark.parametrize("name", ["lora_dp2_pp2", "lora_pp2_tp2", "lora_sp2_pp2"])
+def test_lora_stage_under_pp_matches_jax(runs, name):
+    """The LoRA side path through the pipeline: the stacked factors enter
+    every stage whole, each stage's microbatches give its layers' rows
+    their gradient, and the stages' shares are summed, so every rank holds
+    the whole factors' gradient and update: JAX's single-device LoRA step
+    (a B that is not zero, so A's gradient is live from the first step)."""
+    recs = [r[name] for r in runs["ranks"]]
+    ref = runs["ref"]["lora"]
+    for r in recs:
+        C.check_metrics(r["metrics"], ref["metrics"])
+        assert r["metrics"] == recs[0]["metrics"]
+        assert all(x > 0 for x in r["p2p"])
+    assert recs[0]["metrics"][2]["loss"] != recs[0]["metrics"][1]["loss"]
+    state = recs[0]["state"]
+    assert C.check_params(state, ref["params"]) == recs[0]["trainable"]
+    targets = lora_config(tconfig).lora.targets
+    assert sum(k.startswith("params/lora.") for k in state) == 2 * len(targets)
+
+
+def test_trainer_lora_at_dp2_pp2_matches_the_step(runs):
+    """`trainer.train` of the LoRA stage at dp 2 x pp 2: 2 steps, the
+    step's own metrics (lora_dp2_pp2's first two updates) on every rank."""
+    recs = [r["trainer_lora_dp2_pp2"] for r in runs["ranks"]]
+    want = runs["ranks"][0]["lora_dp2_pp2"]["metrics"][1]
+    for r in recs:
+        assert r["step"] == 2 and r["metrics"] == recs[0]["metrics"]
+        np.testing.assert_allclose(r["metrics"]["loss"], want["loss"], rtol=1e-6)

@@ -24,7 +24,11 @@ their rows to files, and the tests put the rows together:
   6. the finetune and PT steps at dp 2 x sp 2 against JAX's single-device
      step: the metrics of 3 updates (rtol 1e-5) and the trainables after
      them (atol 2e-5 / rtol 1e-4); in PT the heads read the taps gathered
-     over the group.
+     over the group;
+  7. the finetune step at dp 2 x sp 2 with the memory levers
+     (offload_opt_state, stream_grads) at (on, 0), (off, 2) and (on, 2),
+     and the LoRA stage at dp 2 x sp 2, against JAX's single-device steps
+     as in 6.
 
 JAX's file is marked slow (it compiles shard_maps on 8 virtual devices);
 this one spawns four torch ranks of tiny shapes.
@@ -54,7 +58,7 @@ from visper_lm_tpu_torch.parallel.mesh import make_mesh
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import _torch_sp_pp_common as C  # noqa: E402
-from _torch_sp_pp_worker import RING, ULYSSES, attn_inputs  # noqa: E402
+from _torch_sp_pp_worker import LEVERS, RING, ULYSSES, attn_inputs, lever  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -224,6 +228,39 @@ def test_finetune_step_at_dp2_sp2_matches_jax(runs):
         assert r["metrics"] == recs[0]["metrics"]
     assert recs[0]["metrics"][2]["loss"] != recs[0]["metrics"][1]["loss"]
     assert C.check_params(recs[0]["state"], ref["params"]) == recs[0]["trainable"] > 0
+
+
+@pytest.mark.parametrize("name", [f"ft_dp2_sp2_{lever(*c)}" for c in LEVERS])
+def test_finetune_step_with_the_levers_at_dp2_sp2_matches_jax(runs, name):
+    """offload_opt_state and stream_grads under sp: a streamed segment is
+    summed over the seq group before the data group's reduce-scatter (one
+    rank's rows would be half the gradient), the offloaded update's norm
+    takes the seq-summed gradients. JAX's single-device finetune step."""
+    recs = _case(runs, name)
+    ref = runs["ref"]["ft"]
+    stream = int(name[-1])
+    for r in recs:
+        C.check_metrics(r["metrics"], ref["metrics"])
+        assert r["metrics"] == recs[0]["metrics"]
+        assert r["segments"] == (((0, 2), (2, 4)) if stream else None)
+        assert r["optimizer"] == ("OffloadedAdamW" if "_o1" in name else "AdamW")
+    assert recs[0]["metrics"][2]["loss"] != recs[0]["metrics"][1]["loss"]
+    assert C.check_params(recs[0]["state"], ref["params"]) == recs[0]["trainable"] > 0
+
+
+def test_lora_stage_at_dp2_sp2_matches_jax(runs):
+    """The LoRA stage under sp: each rank's rows take the side path, the
+    factors' gradients are summed over the seq group. JAX's single-device
+    LoRA step."""
+    recs = _case(runs, "lora_dp2_sp2")
+    ref = runs["ref"]["lora"]
+    for r in recs:
+        C.check_metrics(r["metrics"], ref["metrics"])
+        assert r["metrics"] == recs[0]["metrics"]
+    assert recs[0]["metrics"][2]["loss"] != recs[0]["metrics"][1]["loss"]
+    state = recs[0]["state"]
+    assert C.check_params(state, ref["params"]) == recs[0]["trainable"]
+    assert any(k.startswith("params/lora.") for k in state)
 
 
 def test_pt_step_at_dp2_sp2_matches_jax(runs):

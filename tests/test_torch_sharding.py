@@ -470,3 +470,80 @@ def test_plan_offload_layout_matches_jax_on_dp_tp_specs(dp, tp):
     got = tsu.plan_offload_layout(shapes, specs=named_specs, axis_sizes={"data": dp, "model": tp})
     assert got == want
     assert any(v is None for v in got.values()) and any(v is not None for v in got.values())
+
+
+# (dp, sp, pp, tp): meshes with a 'seq' or a 'pipe' axis (8 CPU devices at most)
+SP_PP_MESHES = [(2, 2, 1, 1), (2, 1, 2, 1), (1, 2, 2, 1), (1, 1, 2, 2), (2, 2, 1, 2), (1, 2, 2, 2)]
+
+
+def _rank_zero_plan(named, dp, tp, sp=1, pp=1):
+    """A ZeroPlan of data rank 0 (stage 0, seq rank 0) on Llama-3-8B's IFT
+    trainables (tp-local under tp), with the mesh's groups as sizes only."""
+    from visper_lm_tpu_torch.parallel.pipeline import PipeParallel
+    from visper_lm_tpu_torch.parallel.sequence import SequenceParallel
+
+    mask = topt.trainable_mask(named.items(), "finetune")
+    moments, _, _, _ = tshd.plan_zero(named, mask, dp, model_size=tp)
+    layers = tconfig.llama3_clip_vlm(distill=False).decoder.num_layers
+    return tshd.ZeroPlan(
+        None, 0, dp, moments, {}, tp=T.TensorParallel(None, 0, tp) if tp > 1 else None,
+        seq=SequenceParallel(None, 0, sp) if sp > 1 else None,
+        pipe=PipeParallel(None, 0, pp, layers) if pp > 1 else None)
+
+
+@pytest.mark.parametrize("dp, sp, pp, tp", SP_PP_MESHES)
+def test_offload_plan_matches_jax_on_seq_and_pipe_meshes(dp, sp, pp, tp):
+    """ROADMAP C32. JAX `plan_offload_layout` on make_mesh(dp, tp, sp=, pp=)
+    of Llama-3-8B's IFT moments (the moments' specs of JAX's plan): no spec
+    names 'seq' or 'pipe' (JAX's parameter rules split nothing over them),
+    so `_covers_mesh` keeps every leaf on the card. The port's
+    `offload_shapes` of a rank's ZeroPlan (under pp the rank's stage's
+    blocks) gives `plan_offload_layout` the same: every tensor the rank
+    holds on the card. Without its seq and pipe axes the same plan would
+    offload, as JAX's does on the mesh without them (the check can fail)."""
+    from jax.sharding import NamedSharding
+
+    from visper_lm_tpu.train import staged_update as jsu
+    from visper_lm_tpu_torch.parallel.pipeline import PipeParallel
+    from visper_lm_tpu_torch.train import staged_update as tsu
+
+    if tp > 1:
+        named, params = _tp_model("llama3", tp)
+    else:
+        params = jax.eval_shape(lambda: jvlm.init_vlm(jax.random.PRNGKey(0),
+                                                      jconfig.llama3_clip_vlm(distill=False)))
+        with torch.device("meta"):
+            named = dict(VLM(tconfig.llama3_clip_vlm(distill=False)).named_parameters())
+    _, specs = _jax_plan(params, "finetune", dp, zero_params=False, zero_frozen=False,
+                         min_size=2 ** 16)
+    flat = dict(_flat(params))
+
+    def jax_plan(**axes):
+        n = dp * tp * axes.get("sp", 1) * axes.get("pp", 1)
+        mesh = jmesh.make_mesh(dp=dp, tp=tp, devices=jax.devices()[:n], **axes)
+        jshape, jns = {}, {}
+        for path, spec in specs.items():
+            for kind, dtype in (("mu", np.float32), ("nu", jnp.bfloat16)):
+                jshape[f"{kind}/{path}"] = jax.ShapeDtypeStruct(flat[path].shape, dtype)
+                jns[f"{kind}/{path}"] = NamedSharding(mesh, P(*spec))
+        out_s, out_n = jsu.plan_offload_layout(jshape, jns, mesh)
+        return {k: isinstance(out_s[k], jsu.ChunkedHostArray)
+                or getattr(out_n[k], "memory_kind", None) == "pinned_host" for k in jshape}
+
+    def port_plan(zero):
+        pipe = zero.pipe or PipeParallel(None, 0, 1, 32)
+        held = {n: p for n, p in named.items() if n in zero.moments
+                and not (n.startswith("decoder.blocks.") and not pipe.owns(int(n.split(".")[2])))}
+        shapes, pspecs, sizes = tsu.offload_shapes(held, torch.float32, False, zero)
+        return tsu.plan_offload_layout(shapes, specs=pspecs, axis_sizes=sizes)
+
+    want = jax_plan(sp=sp, pp=pp)
+    got = port_plan(_rank_zero_plan(named, dp, tp, sp, pp))
+    assert {int(k.split(".")[2]) for k in got if ".blocks." in k} == set(range(32 // pp))
+    for key, placement in got.items():
+        kind, n = key.split("/", 1)
+        assert (placement is not None) == want[f"{kind}/{topt.jax_path(n)}"], key
+    assert not any(want.values()) and all(v is None for v in got.values())
+    # the control: the mesh without its seq and pipe axes offloads, in both
+    assert any(jax_plan().values())
+    assert any(v is not None for v in port_plan(_rank_zero_plan(named, dp, tp)).values())

@@ -146,8 +146,12 @@ def test_streamed_offloaded_step_matches_jax_stream_grads(jax_run):
         assert torch.equal(a, b), n
 
 
-def test_stream_grads_rules():
-    """JAX make_train_step's asserts, in check_step_options."""
+def test_stream_grads_rules(monkeypatch):
+    """JAX make_train_step's asserts, in check_step_options; and the one
+    place the levers still raise beside them: under expert parallelism
+    (ROADMAP C25: the offloaded update plans no 'expert' axis). Under
+    sequence and pipeline parallelism they run
+    (tests/test_torch_sequence_parallel.py, tests/test_torch_pipeline_parallel.py)."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     with pytest.raises(ValueError, match="single-microbatch"):
         tts.check_step_options(cpu, stream_grads=2, accum_steps=2)
@@ -162,6 +166,22 @@ def test_stream_grads_rules():
     # tests/test_torch_tensor_parallel.py run them): no option names them
     assert set(inspect.signature(tts.check_step_options).parameters) == {
         "device", "accum_steps", "offload_opt_state", "blockwise_staging", "stream_grads"}
+    import dataclasses
+
+    from visper_lm_tpu_torch.models.vlm import init_vlm
+    from visper_lm_tpu_torch.parallel import distributed as tdist
+    from visper_lm_tpu_torch.parallel.mesh import make_mesh as tmake_mesh
+
+    cfg = tconfig.tiny_test_vlm(distill=False)
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, moe_experts=4))
+    # a rank of an expert group of two, the raise before any collective
+    monkeypatch.setattr(tdist, "is_initialized", lambda: True)
+    for levers in (dict(offload_opt_state=True), dict(stream_grads=2)):
+        model = init_vlm(cfg, device="cpu", seed=0)
+        model.decoder.ep = tdist.AxisGroup(None, 0, 2)
+        with pytest.raises(ValueError, match="C25"):
+            tts.make_train_step(cfg, topt.OptimizerConfig(**OPT), model,
+                                mesh=tmake_mesh(dp=1, ep=2, world=2), **levers)
 
 
 def test_donate_params_false_raises(jax_run):

@@ -72,7 +72,12 @@ its stage's blocks. A call JAX pipelines (no taps, no cache, an int
 q_offset, B and L dividing by the stages: `_maybe_pipelined_stack`) runs
 `pipeline_scan` over microbatches (JAX's `n_micro` rule), each block
 rematerialised as the plain loop's is; any other call runs the plain loop,
-each foreign block gathered from its owner around its use.
+each foreign block gathered from its owner around its use. The LoRA
+factors stay whole on every stage: the pipeline hands them to its stages
+(`pipeline_scan(shared=)`), each stage's microbatches give the rows of its
+own layers their gradient, and the stages' shares are summed over the pipe
+group, so every stage ends with the whole gradient, as the plain loop
+gives it (every stage runs every block there).
 """
 
 from __future__ import annotations
@@ -649,11 +654,11 @@ class Decoder(nn.Module):
         autograd records, keeping what `remat_policy` names (`REMAT_POLICIES`).
         lora: {target: (A (L, din, r), B scaled (L, r, dout))}, the side path
         of every targeted linear (models/lora.py `lora_side_factors`; whole
-        under tp: `lora_side`). moe_data (a parallel/distributed.AxisGroup over the data
-        axis, or None): the group a MoE block's routing spans, so that
-        capacity, priority and the aux are the global batch's (the train
-        step's loss under data parallelism); None routes over this call's
-        tokens.
+        under tp, `lora_side`, and under pp). moe_data (a
+        parallel/distributed.AxisGroup over the data axis, or None): the
+        group a MoE block's routing spans, so that capacity, priority and
+        the aux are the global batch's (the train step's loss under data
+        parallelism); None routes over this call's tokens.
 
         q_offset is the chunk's first slot: a Python int, a 0-d tensor (one
         position for the whole batch) or a (B,) tensor (a position per
@@ -685,10 +690,6 @@ class Decoder(nn.Module):
         if seq is not None and cache is not None:
             raise ValueError("a cache under sequence parallelism: serving runs whole sequences "
                              "on each rank, not the rank's rows")
-        if lora is not None and pipe is not None:
-            from visper_lm_tpu_torch.parallel.pipeline import LATER as PIPE_LATER
-
-            raise NotImplementedError(f"the LoRA side path under pipeline parallelism {PIPE_LATER}")
         if positions is None:
             rows = (torch.arange(t, device=inputs_embeds.device) if seq is None
                     else seq.positions(t, inputs_embeds.device))
@@ -698,14 +699,18 @@ class Decoder(nn.Module):
             cos, sin = cos[None], sin[None]
         zero3 = self.zero3
 
-        def run(i: int, h: torch.Tensor, kv_lengths, kv_starts, cos, sin, cache_kv=None):
+        def run(i: int, h: torch.Tensor, kv_lengths, kv_starts, cos, sin, cache_kv=None,
+                factors=lora):
             """Block i, its parameters whole around it: ZeRO-3's gathered
             first, then (a plain loop under a pipeline) a foreign block's
-            from its owner; the backward gathers them in the same order."""
+            from its owner; the backward gathers them in the same order.
+            factors: the LoRA factors stacked over the layers (layer i's
+            taken)."""
             block = self.blocks[i]
             kw = dict(kv_lengths=kv_lengths, kv_starts=kv_starts, q_offset=q_offset,
                       cache_kv=cache_kv, use_kernel=use_kernel, quant_saves=quant_saves,
-                      lora=None if lora is None else {n: (a[i], b[i]) for n, (a, b) in lora.items()},
+                      lora=None if factors is None else {n: (a[i], b[i])
+                                                         for n, (a, b) in factors.items()},
                       seq=seq, moe_data=moe_data)
             gathers = [g for g in (zero3, None if pipelined else pipe) if g is not None]
             for g in gathers:
@@ -733,14 +738,25 @@ class Decoder(nn.Module):
         if pipelined:
             from visper_lm_tpu_torch.parallel.pipeline import n_micro_for, pipeline_scan
 
+            # the LoRA factors enter the schedule whole: each stage's
+            # microbatches reach them as leaves of their own graphs, and the
+            # stages' gradients (rows of their own layers) are summed
+            shared = {} if lora is None else {
+                f"{n}.{k}": t for n, ab in lora.items() for k, t in zip("ab", ab)}
+
             def pipe_block(i, hh, a):
-                return run(i, hh, a["kv_lengths"], a["kv_starts"], a["cos"], a["sin"])
+                factors = None if lora is None else {n: (a[f"{n}.a"], a[f"{n}.b"]) for n in lora}
+                return run(i, hh, a["kv_lengths"], a["kv_starts"], a["cos"], a["sin"],
+                           factors=factors)
 
             params = [p for i in pipe.layers for p in self.blocks[i].parameters()
                       if p.requires_grad]
+            m = n_micro_for(b, pipe.size)
+            if stream is not None and stream.armed:
+                stream.expect(m)
             h = pipeline_scan(pipe_block, list(range(cfg.num_layers)), h,
                               dict(cos=cos, sin=sin, kv_lengths=kv_lengths, kv_starts=kv_starts),
-                              group=pipe.group, n_micro=n_micro_for(b, pipe.size), params=params)
+                              group=pipe.group, n_micro=m, params=params, shared=shared)
         else:
             for i in range(cfg.num_layers):
                 h = run(i, h, kv_lengths, kv_starts, cos, sin,
@@ -777,6 +793,18 @@ def stream_chunk_ranges(
     ends = {(i + 1) * num_layers // n_chunks for i in range(n_chunks)} | {l + 1 for l in tap_layers}
     ends = sorted(e for e in ends if 0 < e <= num_layers)
     return tuple(zip([0] + ends[:-1], ends))
+
+
+def stage_chunk_ranges(ranges: Sequence[Tuple[int, int]], pipe) -> Tuple[Tuple[int, int], ...]:
+    """The segments of `ranges` that pipeline stage `pipe` streams: each
+    cut at the stages' bounds, those inside the stage's layers kept, so no
+    segment spans two stages (ROADMAP C31; JAX runs the streamed layout
+    unpipelined). Without a pipeline, `ranges` as they are."""
+    if pipe is None:
+        return tuple(ranges)
+    ends = sorted({e for _, e in ranges} | set(pipe.bounds[1:]))
+    lo, hi = pipe.layers.start, pipe.layers.stop
+    return tuple((s, e) for s, e in zip([0] + ends[:-1], ends) if lo <= s and e <= hi)
 
 
 def chunk_blocks_at(blocks: Mapping[str, Any], ranges: Sequence[Tuple[int, int]]) -> Tuple[Any, ...]:
@@ -866,18 +894,29 @@ class GradStream:
     same backward), and only that slice leaves for the host; a leaf split
     over the data or the model axis reports its slice's f32 sum of squares
     (the optimizer adds the slices' over the ranks). JAX keeps GSPMD's
-    partitioning on the host transfer."""
+    partitioning on the host transfer. Under sequence parallelism (the
+    plan's `seq`) the seq group's sum comes first, as `AdamW.reduce_grads`
+    takes it for the gradients it reduces.
+
+    Under pipeline parallelism (`Decoder.pipe`) the ranges are the stage's
+    (`stage_chunk_ranges`) and cover its blocks only. A pipelined forward
+    runs each block once per microbatch, and each microbatch's backward
+    accumulates into `.grad`: the decoder tells the stream how many
+    (`expect`), and a segment leaves once the last microbatch's backward
+    has passed it."""
 
     def __init__(self, model: nn.Module, ranges: Sequence[Tuple[int, int]], device: torch.device,
                  zero=None):
         from visper_lm_tpu_torch.device import HostPool
 
         decoder = model.decoder
-        cfg = decoder.cfg
-        covered = sum(e - s for s, e in ranges)
-        if covered != cfg.num_layers or any(b != a for (_, a), (b, _) in zip(ranges, ranges[1:])):
-            raise ValueError(f"stream ranges {tuple(ranges)} cover {covered} layers, "
-                             f"decoder has {cfg.num_layers}")
+        pipe = decoder.pipe
+        layers = range(decoder.cfg.num_layers) if pipe is None else pipe.layers
+        if (not ranges or ranges[0][0] != layers.start or ranges[-1][1] != layers.stop
+                or any(b != a for (_, a), (b, _) in zip(ranges, ranges[1:]))):
+            raise ValueError(f"stream ranges {tuple(ranges)} do not cover the layers "
+                             f"[{layers.start}, {layers.stop}) of the decoder"
+                             + ("" if pipe is None else f"'s pipeline stage {pipe.rank}"))
         self.decoder, self.ranges, self.device = decoder, tuple(ranges), torch.device(device)
         self.zero = zero
         self.segments: List[List[Tuple[str, nn.Parameter]]] = []
@@ -911,11 +950,13 @@ class GradStream:
         return 0 if self.pool is None else self.pool.nbytes
 
     def check_forward(self, tap_layers: Sequence[int], cache) -> None:
-        """JAX's asserts on the streamed layout: training only, every tap a segment end."""
+        """JAX's asserts on the streamed layout: training only, every tap (of
+        the stream's layers) a segment end."""
         if cache is not None or self.decoder.cfg.moe_experts:
             raise ValueError("blocks_chunks is a training-only layout (no cache/MoE)")
         ends = {e - 1 for _, e in self.ranges}
-        missing = [l for l in sorted(set(tap_layers)) if l not in ends]
+        lo, hi = self.ranges[0][0], self.ranges[-1][1]
+        missing = [l for l in sorted(set(tap_layers)) if lo <= l < hi and l not in ends]
         if missing:
             raise ValueError(
                 f"tap layers {missing} do not land on chunk boundaries — build the layout "
@@ -923,12 +964,18 @@ class GradStream:
 
     def arm(self) -> None:
         """Start a streamed forward and backward."""
-        self._pending = [len(seg) for seg in self.segments]
+        self.expect(1)
         self._shipped = [False] * len(self.segments)
         self._last = None
         self.grads: Dict[str, torch.Tensor] = {}
         self.sumsq: Dict[str, torch.Tensor] = {}
         self.armed = True
+
+    def expect(self, uses: int) -> None:
+        """The armed forward runs each block `uses` times (a pipeline's
+        microbatches): a segment leaves after its parameters' last
+        accumulation."""
+        self._pending = [len(seg) * uses for seg in self.segments]
 
     def _ready(self, p: torch.Tensor) -> None:
         if not self.armed:
@@ -947,6 +994,9 @@ class GradStream:
             from visper_lm_tpu_torch.parallel.sharding import scatter_grad
 
             z = self.zero
+            if z.seq is not None:
+                # each seq rank's gradient is its rows' share
+                grads = [(n, all_reduce(g.contiguous(), z.seq.group)) for n, g in grads]
             grads = [(n, scatter_grad(z.moments[n], g.contiguous(), z.group, z.rank))
                      for n, g in grads]
         for n, g in grads:

@@ -7,8 +7,8 @@ operators, which GSPMD writes for JAX), sequence parallelism
 (`pipeline.py`: GPipe).
 
 Data parallelism and ZeRO-1/2/3 (ROADMAP A10a), tensor parallelism with
-serving and LoRA on it (A10b), sequence and pipeline parallelism (A10c) and
-expert parallelism (A10d) are ported; the memory levers and LoRA under
-sequence or pipeline parallelism raise, naming the ROADMAP item that brings
-them (A10c-2).
+serving and LoRA on it (A10b), sequence and pipeline parallelism with the
+memory levers and LoRA on them (A10c) and expert parallelism (A10d) are
+ported; a MoE decoder under sequence or pipeline parallelism, and the
+memory levers under expert parallelism, raise naming ROADMAP C25.
 """

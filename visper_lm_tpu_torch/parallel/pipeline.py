@@ -30,6 +30,10 @@ their order to autograd could). The loss's gradient is taken from ONE
 copy (the last stage's), and stage 0's input gradient goes to every stage,
 so the parameters before the pipeline get the same gradient on every pipe
 rank: what one process computes, never the sum over the pipe ranks.
+Tensors every stage reads whole (`shared`: the LoRA factors, stacked over
+the layers) enter each microbatch's graph as leaves of its own; after the
+schedule each stage's gradient of them (the rows of its own layers) is
+summed over the pipe group.
 
 A decoder call JAX would not pipeline (taps, a cache, B % S, a tensor
 q_offset, L % S) runs the plain loop over every block, each foreign block
@@ -49,9 +53,6 @@ import torch.nn as nn
 from visper_lm_tpu_torch.parallel import distributed
 from visper_lm_tpu_torch.parallel.mesh import Mesh
 from visper_lm_tpu_torch.parallel.sharding import _FreeAfterBackward, _GatherBeforeBackward
-
-# what a raise under pipeline or sequence parallelism names
-LATER = "is ROADMAP queue A, item A10c-2"
 
 
 class PipeParallel:
@@ -179,8 +180,6 @@ def shard_pipeline(model: nn.Module, pipe: Optional[PipeParallel]) -> nn.Module:
     decoder = _decoder_of(model)
     if decoder.pipe is not None:
         raise ValueError("shard_pipeline: the model is already cut for a pipeline")
-    if getattr(model, "lora", None) is not None:
-        raise NotImplementedError(f"the LoRA side path under pipeline parallelism {LATER}")
     if len(decoder.blocks) != pipe.num_layers:
         raise ValueError(f"shard_pipeline: {len(decoder.blocks)} blocks, the pipeline cuts "
                          f"{pipe.num_layers}")
@@ -261,17 +260,23 @@ def _split(args: Mapping[str, Any], batch: int, m: int, i: int) -> Dict[str, Any
 
 class _Pipeline(torch.autograd.Function):
     """The GPipe schedule (see the module docstring). Inputs: h (the whole
-    batch, the same on every stage), the schedule's state, and the stage's
-    parameters that train (so that the result needs a gradient when they
-    do; their gradients reach `.grad` from the inner backward)."""
+    batch, the same on every stage), the schedule's state, the shared
+    tensors (whole on every stage; each microbatch's graph reads them as
+    leaves of its own, and their gradient is the stages' shares summed over
+    the pipe group), and the stage's parameters that train (so that the
+    result needs a gradient when they do; their gradients reach `.grad`
+    from the inner backward)."""
 
     @staticmethod
-    def forward(ctx, h, state, *params):
-        fn, blocks, args, group, m = state
+    def forward(ctx, h, state, *tensors):
+        fn, blocks, args, group, m, names = state
+        shared = dict(zip(names, tensors))
         s, n = distributed.group_rank(group), distributed.group_size(group)
         b = h.shape[0]
         size = b // m
         build = any(ctx.needs_input_grad)
+        leaves = {k: t.detach().requires_grad_(build and t.requires_grad)
+                  for k, t in shared.items()}
         graphs, outs = [], []
         for i in range(m):
             if s == 0:
@@ -279,7 +284,7 @@ class _Pipeline(torch.autograd.Function):
             else:
                 x = distributed.recv((size,) + tuple(h.shape[1:]), h.dtype, h.device, s - 1, group)
             x = x.detach().requires_grad_(build)
-            a = _split(args, b, m, i)
+            a = dict(_split(args, b, m, i), **leaves)
             with torch.enable_grad() if build else contextlib.nullcontext():
                 y = x
                 for blk in blocks:
@@ -292,7 +297,8 @@ class _Pipeline(torch.autograd.Function):
                 graphs.append((x, y))
         out = torch.cat(outs) if s == n - 1 else torch.empty_like(h)
         distributed.broadcast(out, n - 1, group)
-        ctx.graphs, ctx.group, ctx.m, ctx.n_params = graphs, group, m, len(params)
+        ctx.graphs, ctx.group, ctx.m = graphs, group, m
+        ctx.leaves, ctx.n_params = list(leaves.values()), len(tensors) - len(leaves)
         return out
 
     @staticmethod
@@ -315,7 +321,12 @@ class _Pipeline(torch.autograd.Function):
         ctx.graphs = []
         dh = torch.cat(parts) if s == 0 else torch.empty_like(g)
         distributed.broadcast(dh, 0, group)
-        return (dh, None) + (None,) * ctx.n_params
+        # a shared tensor's gradient: each stage's share (zeros where its
+        # microbatches never read it) summed over the stages
+        shared = [None if not x.requires_grad else distributed.all_reduce(
+            x.grad if x.grad is not None else torch.zeros_like(x), group) for x in ctx.leaves]
+        ctx.leaves = []
+        return (dh, None) + tuple(shared) + (None,) * ctx.n_params
 
 
 def pipeline_scan(
@@ -327,18 +338,24 @@ def pipeline_scan(
     group,
     n_micro: Optional[int] = None,
     params: Sequence[torch.Tensor] = (),
+    shared: Optional[Mapping[str, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Apply the L blocks to h through the group's S stages (JAX
     `pipeline_scan`): stage s runs blocks [s L/S, (s+1) L/S), one at a time,
     block_fn(block, h_micro, args_micro) -> h_micro on one microbatch; the
     `micro_args` leaves whose leading dim is B are cut into microbatches
     alongside h, the others passed whole, and they take no gradient.
+    `shared` ({name: tensor}, the same on every stage) joins the args whole
+    and takes a gradient: the stages' shares summed over the group (the
+    LoRA factors, stacked over the layers: each stage's rows).
     `params`: the stage's parameters that train (their gradients land in
     `.grad`). Returns the last stage's result (B, ...) on every stage. A
     group of one stage runs the plain loop."""
     micro_args = dict(micro_args or {})
+    shared = dict(shared or {})
     n = distributed.group_size(group) if distributed.is_initialized() else 1
     if n == 1:
+        micro_args.update(shared)
         for blk in blocks:
             h = block_fn(blk, h, micro_args)
         return h
@@ -350,4 +367,5 @@ def pipeline_scan(
         raise ValueError(f"batch ({b}) % n_micro ({m}) != 0")
     s, per = distributed.group_rank(group), len(blocks) // n
     mine = list(blocks[s * per:(s + 1) * per])
-    return _Pipeline.apply(h, (block_fn, mine, micro_args, group, m), *params)
+    return _Pipeline.apply(h, (block_fn, mine, micro_args, group, m, list(shared)),
+                           *shared.values(), *params)

@@ -38,7 +38,10 @@ divided by N: the moments always (ZeRO-1/2), the trainables unless
 tp-local tensors) until the step's reduce. `--run` measures one process
 (dp 1, tp 1). `--topology` names a TPU slice (JAX compiles for it without
 the chips); it has no counterpart on GPUs and raises a ValueError: the
-device count is `--dp` x `--tp`.
+device count is `--dp` x `--tp`. `--no-pallas` builds `--run`'s step with
+the decoder's attention on the plain path (JAX lowers with its kernels
+off; the teachers are built as JAX's are, unchanged by the flag);
+`--unrolled-staging` is taken and does nothing, as in JAX.
 """
 
 from __future__ import annotations
@@ -186,8 +189,10 @@ def full_length_batch(cfg, batch_size: int, seq_len: int, *, with_teachers: bool
 def run_step(cfg, *, stage: str, batch_size: int, seq_len: int, with_teachers: bool,
              offload_opt_state: bool, stream_grads: int, master_weights: bool, mu_dtype: str,
              remat_policy: Optional[str], learning_rate: float, blockwise_staging: bool,
-             block_bytes: int, scan_chunks: bool, device: str = "cuda") -> Dict[str, Any]:
-    """One warm-up and one measured step on `device` (module docstring)."""
+             block_bytes: int, scan_chunks: bool, device: str = "cuda",
+             use_kernel: Optional[bool] = None) -> Dict[str, Any]:
+    """One warm-up and one measured step on `device` (module docstring);
+    use_kernel=False: the decoder's attention on the plain path."""
     from visper_lm_tpu_torch.models.vlm import init_vlm
     from visper_lm_tpu_torch.train.optimizer import OptimizerConfig
     from visper_lm_tpu_torch.train.train_step import make_train_step
@@ -210,7 +215,8 @@ def run_step(cfg, *, stage: str, batch_size: int, seq_len: int, with_teachers: b
     step = make_train_step(cfg, opt_cfg, model, teacher_fn=teacher_fn, teacher_params=teachers,
                            remat_policy=remat_policy, offload_opt_state=offload_opt_state,
                            blockwise_staging=blockwise_staging, block_bytes=block_bytes,
-                           scan_chunks=scan_chunks, stream_grads=stream_grads)
+                           scan_chunks=scan_chunks, stream_grads=stream_grads,
+                           use_kernel=use_kernel)
     opt = step.optimizer
     state_device = sum(_nbytes(t) for t in opt.state_tensors().values() if t.device == dev)
     # the allocator's own count of what the set-up left on the card
@@ -267,9 +273,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--offload-opt", action="store_true")
     p.add_argument("--whole-tree-staging", action="store_true")
     p.add_argument("--block-bytes", type=int, default=256 << 20)
+    p.add_argument("--unrolled-staging", action="store_true",
+                   help="taken and ignored: the blockwise update has one layout (JAX keeps "
+                        "the flag for command-line compatibility)")
     p.add_argument("--scan-staging", action="store_true")
     p.add_argument("--stream-grads", type=int, default=0)
     p.add_argument("--mu-dtype", default=None)
+    p.add_argument("--no-pallas", action="store_true",
+                   help="--run's step with the decoder's attention on the plain path "
+                        "(use_kernel=False), JAX's use_pallas=False")
     p.add_argument("--shard-teachers", action="store_true",
                    help="the teachers' large leaves over the tp ranks")
     p.add_argument("--zero-frozen", action="store_true",
@@ -329,6 +341,7 @@ def main(argv=None) -> int:
             learning_rate=args.lr or (1e-3 if args.stage == "pretrain" else 2e-5),
             blockwise_staging=not args.whole_tree_staging, block_bytes=args.block_bytes,
             scan_chunks=args.scan_staging, device=args.device,
+            use_kernel=False if args.no_pallas else None,
         ))
     line = json.dumps(report)
     print(line)

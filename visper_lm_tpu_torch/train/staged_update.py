@@ -38,7 +38,11 @@ offloaded only where its spec splits it over every axis larger than 1
 (`covers_mesh`), and cut into row blocks only where no axis splits its dim
 0 (`axis0_unsharded`), so the blocks are rows of each rank's slice; the
 gradients are summed over the ranks before the norm pass, and the updated
-slices are gathered into the parameters after the loop.
+slices are gathered into the parameters after the loop. Under sequence or
+pipeline parallelism no spec covers the 'seq' or 'pipe' axis, so every
+tensor stays on the card (JAX's plan, ROADMAP C32); the update, the seq sum
+and the stages' global norm are `AdamW`'s (`foreign`: the blocks other
+stages hold).
 
 On the CPU the "host" tensors are ordinary CPU tensors and every copy is the
 identity, as JAX's host put is a no-op off the TPU: the blocks are updated
@@ -127,7 +131,11 @@ def offload_shapes(params: Mapping[str, torch.Tensor], mu_dtype: torch.dtype, ma
     """What `plan_offload_layout` plans an optimizer's state on: ({state
     key: (whole shape, dtype)}, {state key: spec}, the mesh's axis sizes)
     of the moments (and masters) of `params` (tp-local tensors under a zero
-    plan with tensor parallelism)."""
+    plan with tensor parallelism). The axis sizes are the mesh's 'data',
+    'model', 'seq' and 'pipe': no spec names 'seq' or 'pipe' (JAX's
+    parameter rules split no parameter over them), so on a mesh where either
+    is wider than 1 every state tensor stays on the card, as JAX's
+    `_covers_mesh` plans it (ROADMAP C32)."""
     shapes, specs = {}, {}
     for n, p in params.items():
         pl = None if zero is None else zero.moments[n]
@@ -137,8 +145,13 @@ def offload_shapes(params: Mapping[str, torch.Tensor], mu_dtype: torch.dtype, ma
             shapes[f"{kind}/{n}"] = (whole, dtype)
             specs[f"{kind}/{n}"] = () if pl is None else pl.spec(len(whole))
     axis_sizes = {} if zero is None else {
-        "data": zero.size, "model": 1 if zero.tp is None else zero.tp.size}
+        "data": zero.size, "model": _size(zero.tp), "seq": _size(zero.seq),
+        "pipe": _size(zero.pipe)}
     return shapes, specs, axis_sizes
+
+
+def _size(group) -> int:
+    return 1 if group is None else group.size
 
 
 def _blocks(placement: Placement) -> Iterator[Tuple[Optional[int], Optional[int]]]:
@@ -176,10 +189,11 @@ class OffloadedAdamW(AdamW):
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], cfg: OptimizerConfig, *,
                  block_bytes: int = 256 << 20, min_bytes: int = 1 << 20, scan_chunks: bool = False,
-                 blockwise: bool = True, zero=None, sharded=None):
+                 blockwise: bool = True, zero=None, sharded=None,
+                 foreign: Optional[Dict[str, torch.Tensor]] = None):
         self.block_bytes, self.min_bytes = block_bytes, min_bytes
         self.scan_chunks, self.blockwise = scan_chunks, blockwise
-        super().__init__(named_params, cfg, zero=zero, sharded=sharded)
+        super().__init__(named_params, cfg, zero=zero, sharded=sharded, foreign=foreign)
 
     def init_state(self) -> None:
         """JAX `init_opt_state_offloaded`: host zeros in one pool, the

@@ -19,6 +19,12 @@ card block by block (train/staged_update.py; `blockwise_staging=False`
 plans every tensor as one block, JAX's whole-tree staging layout); `stream_grads=N` cuts the decoder blocks into N
 segments (unioned with the tap boundaries) whose weight gradients leave
 for the host as each segment's backward ends (models/decoder.GradStream).
+Both run under sequence and pipeline parallelism too: no parameter spec
+covers 'seq' or 'pipe', so JAX's plan keeps every state tensor on the card
+there (ROADMAP C32); a streamed segment is summed over the seq group before
+the data group's reduce, and each pipeline stage streams the segments of
+its own blocks (`stage_chunk_ranges`, ROADMAP C31), each after the last
+microbatch's backward.
 
 Data parallelism (`mesh`, in a process group: parallel/distributed.py)
 runs the same step on each rank's shard of the global batch. JAX writes the
@@ -84,12 +90,11 @@ import torch
 import torch.nn as nn
 
 from visper_lm_tpu_torch.config import VLMConfig
-from visper_lm_tpu_torch.models.decoder import GradStream, stream_chunk_ranges
+from visper_lm_tpu_torch.models.decoder import GradStream, stage_chunk_ranges, stream_chunk_ranges
 from visper_lm_tpu_torch.models.vlm import VLM, predict_task_embeddings, tap_layer_union, vlm_forward
 from visper_lm_tpu_torch.parallel import distributed
 from visper_lm_tpu_torch.parallel.distributed import AxisGroup, all_reduce_scalars
 from visper_lm_tpu_torch.parallel.mesh import Mesh
-from visper_lm_tpu_torch.parallel.pipeline import LATER as PIPE_LATER
 from visper_lm_tpu_torch.parallel.pipeline import foreign_names
 from visper_lm_tpu_torch.parallel.sequence import gather_rows, sequence_parallel
 from visper_lm_tpu_torch.parallel.sharding import (
@@ -409,6 +414,7 @@ def make_train_step(
     donate_params: bool = True,
     mesh: Optional[Mesh] = None,
     zero_min_size: int = 2 ** 16,
+    use_kernel: Optional[bool] = None,
 ) -> TrainStep:
     """The single-device step: `step(batch) -> metrics`. The model's
     trainable parameters (by the stage's policy) are updated in place (JAX's
@@ -419,8 +425,9 @@ def make_train_step(
     with a leading micro-batch axis. offload_opt_state: `OffloadedAdamW`
     (blockwise_staging, block_bytes, scan_chunks: its layout);
     stream_grads=N: a `GradStream` over `stream_chunk_ranges(layers, N,
-    taps)`. mesh (in a process group, `init_distributed`): data
-    parallelism over its data axis with ZeRO-1/2 moments, and with
+    taps)` (under a pipeline the stage's share of them). mesh (in a
+    process group, `init_distributed`): data parallelism over its data
+    axis with ZeRO-1/2 moments, and with
     zero_params / zero_frozen ZeRO-3 (leaves of at least zero_min_size
     elements); a 'model' axis wider than 1 needs the model in that rank's
     tensor-parallel form (`init_vlm(..., tp=)`), and shard_teachers then
@@ -428,7 +435,8 @@ def make_train_step(
     sequence-parallel group (`Decoder.seq`); a 'pipe' axis needs the model
     cut for the rank's stage (`init_vlm(..., pp=)`); an 'expert' axis a
     MoE model built for the rank's experts (`init_vlm(..., ep=)`).
-    `check_step_options` holds the rules."""
+    use_kernel (JAX's use_pallas): False runs the decoder's attention on
+    the plain path. `check_step_options` holds the rules."""
     if not donate_params:
         raise ValueError("make_train_step updates the parameters in place: "
                          "donate_params=False has no counterpart in the port")
@@ -467,10 +475,6 @@ def make_train_step(
             raise ValueError("offload_opt_state / stream_grads under expert parallelism: ROADMAP "
                              "C25 (the offloaded update plans no 'expert' axis)")
         seq = sequence_parallel(mesh)
-        if (seq is not None or pipe is not None) and (offload_opt_state or stream_grads):
-            raise NotImplementedError(
-                f"offload_opt_state / stream_grads under sequence or pipeline parallelism "
-                f"{PIPE_LATER}")
         model.decoder.seq = seq
         group, rank, size = distributed.data_group(mesh)
         named = dict(model.named_parameters())
@@ -499,23 +503,25 @@ def make_train_step(
         def teacher_fn(teachers, batch):
             with teacher_sharded.whole():
                 return inner(teachers, batch)
+    params = dict(model.named_parameters())
+    foreign_trained = {n: params[n] for n in foreign if mask[n]}
     if offload_opt_state:
         optimizer: AdamW = OffloadedAdamW(trainable.items(), opt_cfg, block_bytes=block_bytes,
                                           scan_chunks=scan_chunks, blockwise=blockwise_staging,
-                                          zero=zero, sharded=sharded)
+                                          zero=zero, sharded=sharded, foreign=foreign_trained)
     else:
-        params = dict(model.named_parameters())
         optimizer = AdamW(trainable.items(), opt_cfg, zero=zero, sharded=sharded,
-                          foreign={n: params[n] for n in foreign if mask[n]})
+                          foreign=foreign_trained)
     if model.decoder.grad_stream is not None:
         model.decoder.grad_stream.close()
     stream = None
     if stream_grads:
         ranges = stream_chunk_ranges(cfg.decoder.num_layers, stream_grads, tap_layer_union(cfg))
-        stream = GradStream(model, ranges, device, zero=zero)
+        stream = GradStream(model, stage_chunk_ranges(ranges, pipe), device, zero=zero)
     return TrainStep(
         model, teacher_params, trainable, optimizer,
-        make_loss_fn(cfg, teacher_fn=teacher_fn, remat=remat, remat_policy=remat_policy, dp=zero),
+        make_loss_fn(cfg, teacher_fn=teacher_fn, remat=remat, remat_policy=remat_policy,
+                     use_kernel=use_kernel, dp=zero),
         accum_steps=accum_steps, grad_stream=stream, zero=zero, sharded=sharded,
         teacher_sharded=teacher_sharded,
     )
