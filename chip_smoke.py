@@ -386,7 +386,10 @@ Phases, each of which raises (exit code != 0) when it fails:
      batches (B4 x T1024, save_gate): losses, reduced step-1 gradients and
      moves held to the one-process LoRA step and an f32 run by phase 16's
      bounds, the replicated factors bit-equal on both ranks, B1 4 / B2 2 /
-     B3 2 a step, peak GiB a rank. Any rank that fails or does not finish
+     B3 2 a step, peak GiB a rank. (c)'s ranks start once (a) and (d)-(f)
+     are timed (a file from (a)-(b)'s rank 0) and share the card with (b),
+     (g) and the parent's checks, so (b)'s and (g)'s step times include
+     (c)'s load. Any rank that fails or does not finish
      within 420 s fails the phase.
  18. sequence and pipeline parallelism (`--phase18-rank`, `--phase18c-rank`:
      gloo ranks sharing the card; every record with the card's name and
@@ -421,10 +424,24 @@ Phases, each of which raises (exit code != 0) when it fails:
      reference step (the levers: the same ranks' plain step, and whether
      the losses, trainables and moments are bit-equal to it is printed;
      LoRA: the one-process LoRA step), with (b)'s / (c)'s launches a rank
-     and step, peak GiB and pinned bytes a rank. (c)'s ranks start once
-     (a)'s attention timings are taken and share the card with (b)'s, so
-     (b)'s and (c)'s step times include each other's load. Any rank that
-     fails or does not finish within 420 s fails the phase.
+     and step, peak GiB and pinned bytes a rank. The MoE decoder in the
+     same spawns: (b) its finetune step at Phi3-mini widths with phase 19's
+     MoE (4 experts, top-2, cf 1.25), SP_MOE_LAYERS = 2 layers, B2 x T8192,
+     sp 2 (each rank's rows routed over the seq group: capacity, priority
+     and aux of the global batch), and (c) the same at MOE_EP_LAYERS = 4
+     layers, B4 x T1024, pp 2 x tp 2 (JAX's plain loop: no point-to-point
+     send, each foreign block gathered before its forward and its backward,
+     4 a rank and step), each held to a one-process step and an f32 run by
+     phase 16's bounds (c's references are phase 19 (c)'s, made here once),
+     B1 4 / B2 2 / B3 2 ((b)) and 8 / 4 / 4 ((c): every rank runs every
+     layer; it starts once (b)'s ranks have ended: four MoE stages do not
+     fit the card beside them) a rank and step, the first forward's routes agreeing with the
+     one-process run's on >= 0.99 of the (token, k) routes a layer and the
+     step-1 dropped share within 1e-3 (both printed, with whether they are
+     equal). (c)'s ranks start once (a)'s attention timings are taken and
+     share the card with (b)'s, so (b)'s and (c)'s step times include each
+     other's load. Any rank that fails or does not finish within 420 s
+     fails the phase.
  19. the MoE decoder and expert parallelism (every record with the card's
      name and power limit): the model is Phi3-mini-4k + CLIP-L with JAX's
      dry-run MoE (4 experts, top-2, capacity factor 1.25, aux weight 0.01:
@@ -450,10 +467,15 @@ Phases, each of which raises (exit code != 0) when it fails:
      fail. (c) `--phase19-rank`: the finetune step at Phi3-mini widths cut to
      4 layers, B4 x T1024, ep 2 on two gloo ranks sharing the card (two
      experts a rank; they start and build their models while the f32 run,
-     whose times are not read, holds the card, and step once it is over),
+     whose times are not read, holds the card where phase 18 did not make
+     it, and step once it is over),
      held to the one-process step and an f32 run by phase 16's bounds (phase 18's `held_to_refs`), half the banks' bytes a rank,
      the routers and replicated parameters bit-equal across the ranks, B1
-     8 / B2 4 / B3 4 a rank and step.
+     8 / B2 4 / B3 4 a rank and step; then in the same ranks the step with
+     offload_opt_state: JAX's plan puts every bank's mu and nu (the rank's
+     two experts of them, 24 tensors) on the host and keeps the dense
+     moments on the card, B1-B3 as the plain step, the losses, trainables
+     and moments bit-equal to the plain ep 2 step's, pinned GiB a rank.
 Phase 3 also holds B1-B3 at phase 12's recipe PT shape (Llama-3-8B, B4 x
 T1024, GQA 32/8 H128, causal) against their plain versions, beside SDPA's
 forward and backward and the bound, as at the training shape.
@@ -471,6 +493,7 @@ visper_lm_tpu_torch/_build/.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import ctypes
 import gc
@@ -559,6 +582,7 @@ TP_SPEC_TOKENS, TP_BEAMS = 8, 2   # (f) new tokens at batch 1; beams
 SP_T, SP_LAYERS = 8192, 2      # (a)-(b): Llama-3-8B at B1 x T8192, sp 2; (b) cut in depth (time)
 SP_STEPS = 2                   # (b)-(c): updates (the first has lr 0), then the loss after them
 PP_LAYERS, PP_BATCH, PP_SEQ = 4, 4, 1024   # (c): Phi3-mini cut in depth, pp 2 x tp 2
+SP_MOE_LAYERS, SP_MOE_BATCH = 2, 2   # (b): the MoE finetune step at Phi3-mini widths, B2 x SP_T
 SP_PP_LEVERS = dict(offload_opt_state=True, stream_grads=2)   # (b)-(c) again with the levers
 # phase 19: the MoE decoder (JAX's dry-run MoE on the bench model) and expert parallelism
 MOE_EXPERTS, MOE_TOP_K = 4, 2
@@ -3611,17 +3635,19 @@ def dp_counters():
 
 def dp_steps(step, batches, reset, read) -> dict:
     """One update on each batch: each step's loss, ms (host clock to a
-    synchronise) and B1-B4 launches."""
-    losses, ms, launches = [], [], []
+    synchronise), B1-B4 launches and (a MoE decoder) dropped share."""
+    losses, ms, launches, dropped = [], [], [], []
     for batch in batches:
         reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        losses.append(step(batch)["loss"])
+        metrics = step(batch)
+        losses.append(metrics["loss"])
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         launches.append(read())
-    return dict(losses=losses, step_ms=ms, launches=launches)
+        dropped.append(metrics.get("moe_dropped_frac"))
+    return dict(losses=losses, step_ms=ms, launches=launches, dropped=dropped)
 
 
 @torch.no_grad()
@@ -4411,6 +4437,11 @@ def tp_rank(argv) -> int:
                           seconds=time.perf_counter() - t0)
     del model
     release_cuda()
+    if rank == 0:
+        # (a) and (d)-(f)'s timings are taken: (c)'s spawn may share the card
+        # with (b) and (g) from here
+        (root / "serving_done.tmp").write_text("")
+        (root / "serving_done.tmp").rename(root / "serving_done")
 
     # (b) config #1's PT step, the whole global batch on each rank
     cfg = dp_config(distill=True)
@@ -4541,11 +4572,12 @@ def tp_recipe_rank(argv) -> int:
 
 
 def free_port() -> int:
-    import socket
+    """A coordinator's port below the ephemeral range, which the gloo ranks
+    of a spawn already running cannot take from under the next one's
+    (`distributed.free_port`)."""
+    from visper_lm_tpu_torch.parallel.distributed import free_port as below_ephemeral
 
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        return sock.getsockname()[1]
+    return below_ephemeral()
 
 
 def held_port(root: Path) -> str:
@@ -4813,10 +4845,20 @@ def tp_phase(smi: str, ref: dict) -> dict:
         e_bf16 = float((logits_1 - logits_f).abs().max())
         tol = 2 * e_bf16
         lora_ref = lora_references(reset, read)
+        # (c)'s records and the native library, before any rank runs
+        root_c = held[1]["root"]
+        data = recipe_dataset(root_c)
+        (root_c / "data.json").write_text(json.dumps(data))
+        native.load()                       # built once here, not by four ranks at once
         ref_s = time.perf_counter() - t0
 
-        # (a) and (b): two ranks, dp 1 x tp 2
+        # (a) and (b): two ranks, dp 1 x tp 2; (c)'s four ranks share the
+        # card with (b), (g) and these checks once (a) and (d)-(f) are timed
         t0 = time.perf_counter()
+        release_ranks(held[0])
+        wait_for_file(held[0]["root"] / "serving_done", held[0])
+        release_ranks(held[1])
+        t_c = time.perf_counter()
         ranks = wait_ranks(held[0], "phase 17 (a)-(b)")
         ranks_s = time.perf_counter() - t0
         check(all(r["backend"] == "gloo" for r in ranks), "phase 17: the ranks did not run gloo")
@@ -4908,14 +4950,9 @@ def tp_phase(smi: str, ref: dict) -> dict:
         out["g"] = tp_lora_checks(smi, [r["g"] for r in ranks], lora_ref)
 
         # (c): the pretrain_full recipe at Llama-3-8B widths on four ranks
-        t0 = time.perf_counter()
         shutil.rmtree(root / "ab", ignore_errors=True)
-        root_c = held[1]["root"]
-        data = recipe_dataset(root_c)
-        (root_c / "data.json").write_text(json.dumps(data))
-        native.load()                       # built once here, not by four ranks at once
         ranks_c = wait_ranks(held[1], "phase 17 (c)")
-        c_s = time.perf_counter() - t0
+        c_s = time.perf_counter() - t_c
         with torch.device("meta"):
             whole = sum(p.numel() * p.element_size() for p in Decoder(dataclasses.replace(
                 LLAMA3_8B, num_layers=TP_RECIPE_LAYERS), dtype=torch.bfloat16).parameters())
@@ -5076,8 +5113,30 @@ def f32_steps(cfg, batches, stage: str, chunked: bool) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def first_routes(layers: int, into: list):
+    """`ops.moe.route` keeping, on the host, the expert ids (N, k) of its
+    first `layers` calls: a MoE decoder's first forward, layer by layer."""
+    import visper_lm_tpu_torch.ops.moe as moe_ops
+
+    routed = moe_ops.route
+
+    def recording(probs, k):
+        vals, idx = routed(probs, k)
+        if len(into) < layers:
+            into.append(idx.cpu())
+        return vals, idx
+
+    moe_ops.route = recording
+    try:
+        yield into
+    finally:
+        moe_ops.route = routed
+
+
 def one_process_steps(cfg, batches, stage: str, reset, read) -> dict:
-    """The one-process bf16 step (save_gate) on the batches, as phase 16's."""
+    """The one-process bf16 step (save_gate) on the batches, as phase 16's;
+    a MoE decoder's first forward's routes kept (`first_routes`)."""
     from visper_lm_tpu_torch.models.vlm import init_vlm
     from visper_lm_tpu_torch.train.train_step import make_train_step
 
@@ -5086,7 +5145,10 @@ def one_process_steps(cfg, batches, stage: str, reset, read) -> dict:
     step = make_train_step(cfg, dp_opt_cfg(stage), model, remat_policy="save_gate")
     s_0 = {n: dp_sample(p) for n, p in step.trainable.items()}
     kept = dp_grads(step)
-    rec = dp_steps(step, batches, reset, read)
+    routes = []
+    with first_routes(cfg.decoder.num_layers if cfg.decoder.moe_experts else 0, routes):
+        rec = dp_steps(step, batches, reset, read)
+    rec["routes"] = routes
     rec.update(peak_gib=torch.cuda.max_memory_allocated() / 2**30, s_0=s_0,
                g_1={n: s for n, (_, s) in kept.items()},
                s_1={n: dp_sample(p) for n, p in step.trainable.items()},
@@ -5096,13 +5158,35 @@ def one_process_steps(cfg, batches, stage: str, reset, read) -> dict:
     return rec
 
 
+def whole_sample(model, n: str, t: torch.Tensor) -> torch.Tensor:
+    """`dp_sample` of trainable n's whole value from this rank's `t`
+    (collective). A MoE bank under expert parallelism is sampled where the
+    rank's experts hold the whole tensor's sample positions, and only the
+    pieces are gathered over the expert group (not the bank: gloo stages
+    every byte through host memory); anything else via `whole_param`."""
+    from visper_lm_tpu_torch.parallel import distributed as D
+    from visper_lm_tpu_torch.parallel.tensor import whole_param
+
+    ep = model.decoder.ep
+    if ep is None or ".moe_" not in n or not n.endswith(".kernel"):
+        return dp_sample(whole_param(model, n, t))
+    flat = t.detach().reshape(-1)
+    total = flat.numel() * ep.size
+    stride = max(1, total // DP_SAMPLE)
+    start = ep.rank * flat.numel()
+    piece = flat[-(-start // stride) * stride - start::stride].float()
+    cap = flat.numel() // stride + 1
+    padded = torch.zeros(cap + 1, device=flat.device)
+    padded[0], padded[1:1 + piece.numel()] = piece.numel(), piece
+    parts = D.all_gather(padded, 0, ep.group).reshape(ep.size, cap + 1).cpu()
+    return torch.cat([p[1:1 + int(p[0])] for p in parts])[:DP_SAMPLE]
+
+
 def whole_grads(step) -> dict:
     """Arm `step` to keep, from its next update, a sample of each of the
     rank's trainables' gradients as the optimizer's reduce leaves them,
     gathered whole over the model group (collective: the tp ranks of a
     stage hold the same names): {name: sample}."""
-    from visper_lm_tpu_torch.parallel.tensor import whole_param
-
     opt, kept = step.optimizer, {}
 
     def reduce_grads(names, grads, reduced=()):
@@ -5110,7 +5194,7 @@ def whole_grads(step) -> dict:
         opt.reduce_grads(names, grads, reduced)
         for n in names:
             g = grads[n].to(opt.params[n].device)        # a streamed one is on the host
-            kept[n] = dp_sample(whole_param(step.model, n, g))
+            kept[n] = whole_sample(step.model, n, g)
 
     opt.reduce_grads = reduce_grads
     return kept
@@ -5118,9 +5202,26 @@ def whole_grads(step) -> dict:
 
 def whole_samples(step) -> dict:
     """A sample of each of the rank's trainables, whole over the model group."""
-    from visper_lm_tpu_torch.parallel.tensor import whole_param
+    return {n: whole_sample(step.model, n, p) for n, p in step.trainable.items()}
 
-    return {n: dp_sample(whole_param(step.model, n, p.detach())) for n, p in step.trainable.items()}
+
+# foreign blocks gathered from their owners so far (a pipeline's plain
+# loop; counted where a phase 18 (c) rank patches `PipeParallel.gather`)
+FOREIGN_GATHERS = [0]
+
+
+def count_foreign_gathers() -> None:
+    """Count each foreign block's gather from its owner in FOREIGN_GATHERS."""
+    from visper_lm_tpu_torch.parallel.pipeline import PipeParallel
+
+    gather = PipeParallel.gather
+
+    def counted(self, layer):
+        if layer not in self.gathered and not self.owns(layer):
+            FOREIGN_GATHERS[0] += 1
+        return gather(self, layer)
+
+    PipeParallel.gather = counted
 
 
 def sp_pp_rank_steps(cfg, mesh, dev, tp=None, pp=None, ep=None, shape=None,
@@ -5129,11 +5230,13 @@ def sp_pp_rank_steps(cfg, mesh, dev, tp=None, pp=None, ep=None, shape=None,
     """Phase 18 (b) / (c) (and 19 (c)) on one rank: SP_STEPS updates of
     `stage` on the rank's share of batches of `shape` (B, T), its gradients,
     trainables (and moments) sampled whole, the loss on the last batch after
-    the updates, point-to-point sends a step, the pinned bytes; ep: a MoE
-    model's expert group; ready: called once the model and step are built,
-    before any step runs (returns when the card is the ranks' alone);
-    step_kw: make_train_step's levers; moments: also sample the moments
-    after the updates."""
+    the updates, point-to-point sends and foreign blocks gathered a step,
+    the pinned bytes and the state tensors on the host; ep: a MoE model's
+    expert group (a MoE model's first forward's routes of the rank's rows
+    kept, `first_routes`); ready: called once the model and step are
+    built, before any step runs (returns when the card is the ranks'
+    alone); step_kw: make_train_step's levers; moments: also sample the
+    moments after the updates."""
     from visper_lm_tpu_torch.models.vlm import init_vlm
     from visper_lm_tpu_torch.parallel import distributed as D
     from visper_lm_tpu_torch.train.train_step import make_train_step
@@ -5150,28 +5253,31 @@ def sp_pp_rank_steps(cfg, mesh, dev, tp=None, pp=None, ep=None, shape=None,
     step = make_train_step(cfg, dp_opt_cfg(stage), model, remat_policy="save_gate", mesh=mesh,
                            **(step_kw or {}))
     opt, stream = step.optimizer, step.grad_stream
+    host_keys = sorted(k for k, v in getattr(opt, "plan", {}).items() if v is not None)
     rec = dict(init_s=time.perf_counter() - t0, s_0=whole_samples(step),
                decoder_gib=held_bytes(model.decoder.parameters()) / 2**30,
                bank_bytes=bank_bytes(model),
                pinned_bytes=getattr(opt, "host_bytes", 0) + (stream.host_bytes if stream else 0),
-               on_host=sum(v is not None for v in getattr(opt, "plan", {}).values()),
+               on_host=len(host_keys), host_keys=host_keys,
+               state_tensors=len(getattr(opt, "plan", {})),
                segments=None if stream is None else stream.ranges)
     if ready is not None:
         rec["waited_s"] = ready()
     kept = whole_grads(step)
-    runs, p2p = [], []
+    runs, p2p, gathers, routes = [], [], [], []
     for batch in local:
-        before = D.p2p_sends
-        runs.append(dp_steps(step, [batch], reset, read))
+        before, gathered = D.p2p_sends, FOREIGN_GATHERS[0]
+        with first_routes(cfg.decoder.num_layers if cfg.decoder.moe_experts else 0, routes):
+            runs.append(dp_steps(step, [batch], reset, read))
         p2p.append(D.p2p_sends - before)
-    rec.update({k: [r[k][0] for r in runs] for k in ("losses", "step_ms", "launches")})
-    rec.update(p2p=p2p, g_1=kept, s_1=whole_samples(step),
+        gathers.append(FOREIGN_GATHERS[0] - gathered)
+    rec.update({k: [r[k][0] for r in runs] for k in ("losses", "step_ms", "launches", "dropped")})
+    rec.update(p2p=p2p, gathers=gathers, routes=routes, g_1=kept, s_1=whole_samples(step),
                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     if moments:
-        from visper_lm_tpu_torch.parallel.tensor import whole_param
-
-        rec["m_1"] = {f"{k}/{n}": dp_sample(whole_param(step.model, n, t.to(dev)))
-                      for k, state in (("mu", opt.mu), ("nu", opt.nu)) for n, t in state.items()}
+        # the rank's own slices: the moments are compared rank by rank
+        rec["m_1"] = {f"{k}/{n}": dp_sample(t) for k, state in (("mu", opt.mu), ("nu", opt.nu))
+                      for n, t in state.items()}
     with torch.no_grad():
         total, _ = step.loss_fn(step.model, step.to_device(local[-1]), None)
         shares = D.all_reduce_scalars([total.detach()], step.zero.group)
@@ -5187,7 +5293,9 @@ def sp_rank(argv) -> int:
     """One of phase 18 (a)-(b)'s two ranks (`chip_smoke.py --phase18-rank R
     PORT DIR`, dp 1 x sp 2 sharing the card over gloo): (a) Ulysses and the
     ring on the rank's rows of DIR/attn.pt, forward and backward; (b) the
-    finetune step at Llama-3-8B widths, B1 x T8192. Writes DIR/rank<R>.pt."""
+    finetune step at Llama-3-8B widths, B1 x T8192, with and without the
+    levers, and the MoE decoder's at Phi3-mini widths, B2 x T8192. Writes
+    DIR/rank<R>.pt."""
     from visper_lm_tpu_torch.parallel import distributed as D
     from visper_lm_tpu_torch.parallel.sequence import (
         ring_attention,
@@ -5231,6 +5339,9 @@ def sp_rank(argv) -> int:
     out["b"] = sp_pp_rank_steps(sp_config(), mesh, dev, moments=True)
     out["b_levers"] = sp_pp_rank_steps(sp_config(), mesh, dev, step_kw=SP_PP_LEVERS,
                                        moments=True)
+    # the MoE decoder at sp 2: each rank routes its rows over the seq group
+    out["b_moe"] = sp_pp_rank_steps(moe_config(False, SP_MOE_LAYERS), mesh, dev,
+                                    shape=(SP_MOE_BATCH, SP_T))
     out["seconds"] = time.perf_counter() - t_start
     torch.save(out, root / f"rank{rank}.pt")
     D.barrier()
@@ -5241,7 +5352,9 @@ def sp_rank(argv) -> int:
 def pp_rank(argv) -> int:
     """One of phase 18 (c)'s four ranks (`chip_smoke.py --phase18c-rank R
     PORT DIR`, pp 2 x tp 2 sharing the card over gloo): the finetune step at
-    Phi3-mini widths, PP_LAYERS layers, B4 x T1024. Writes DIR/rank<R>.pt."""
+    Phi3-mini widths, PP_LAYERS layers, B4 x T1024, with and without the
+    levers, the LoRA stage, and the MoE decoder's step (the plain loop).
+    Writes DIR/rank<R>.pt."""
     from visper_lm_tpu_torch.parallel import distributed as D
     from visper_lm_tpu_torch.parallel.pipeline import pipe_parallel
     from visper_lm_tpu_torch.parallel.tensor import tensor_parallel
@@ -5261,6 +5374,17 @@ def pp_rank(argv) -> int:
     out["c_levers"] = sp_pp_rank_steps(pp_config(), mesh, dev, tp=tp, pp=pp,
                                        step_kw=SP_PP_LEVERS, moments=True)
     out["c_lora"] = sp_pp_rank_steps(pp_lora_config(), mesh, dev, tp=tp, pp=pp, stage="lora")
+    # the MoE decoder at pp 2 x tp 2: JAX's plain loop, no schedule. Four
+    # ranks of it do not fit the card beside (b)'s two (not even with (b)'s
+    # MoE run at T4096): it starts once they have ended (DIR/moe_go from
+    # the parent)
+    deadline = time.perf_counter() + HOLD_TIMEOUT
+    while not (root / "moe_go").exists():
+        check(time.perf_counter() < deadline, f"no moe_go within {HOLD_TIMEOUT} s")
+        time.sleep(0.05)
+    count_foreign_gathers()
+    out["c_moe"] = sp_pp_rank_steps(moe_config(False, MOE_EP_LAYERS), mesh, dev, tp=tp, pp=pp,
+                                    shape=(TRAIN_BATCH, TRAIN_SEQ))
     out["seconds"] = time.perf_counter() - t_start
     torch.save(out, root / f"rank{rank}.pt")
     D.barrier()
@@ -5378,6 +5502,63 @@ def lever_checks(name: str, recs: list, plain: list, f32: dict, want: dict, smi:
     return rec
 
 
+# the MoE finetune step's references at Phi3-mini widths, MOE_EP_LAYERS
+# layers, B TRAIN_BATCH x TRAIN_SEQ: phase 18 (c) makes them, phase 19 (c)
+# holds its ranks to the same (the same config, batches and seed)
+MOE_FT_REFS: dict = {}
+
+
+def moe_finetune_refs(reset, read, part: str = "both") -> dict:
+    """MOE_FT_REFS, made where missing: `part` "one" (the one-process bf16
+    step), "f32" (the f32 run) or "both"; returns it."""
+    cfg = moe_config(distill=False, layers=MOE_EP_LAYERS)
+    batches = sp_pp_batches(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    if part in ("one", "both") and "one" not in MOE_FT_REFS:
+        MOE_FT_REFS["one"] = one_process_steps(cfg, batches, "finetune", reset, read)
+    if part in ("f32", "both") and "f32" not in MOE_FT_REFS:
+        MOE_FT_REFS["f32"] = f32_steps(cfg, batches, "finetune", chunked=False)
+    return MOE_FT_REFS
+
+
+def moe_route_checks(name: str, recs: list, one: dict, seq_split: bool, smi: str) -> dict:
+    """The ranks' first forward's routes (each layer's (token, k) expert ids:
+    of the rank's rows put together along T when `seq_split`, else each
+    rank's whole batch) and the step-1 dropped share (the global batch's,
+    the same on every rank) against the one-process run's: the share of
+    routes equal, at least 0.99 a layer (bf16 products over T/sp rows may
+    round a near tie the other way), the dropped share within 1e-3;
+    whether both are equal is printed."""
+    layers = len(one["routes"])
+    check(layers > 0 and all(len(rr["routes"]) == layers for rr in recs),
+          f"phase 18 {name}: routes of {[len(rr['routes']) for rr in recs]} layers, one process "
+          f"{layers}")
+    agree = []
+    for lay in range(layers):
+        ref = one["routes"][lay]
+        if seq_split:
+            b, k = SP_MOE_BATCH, ref.shape[1]
+            sets = [torch.cat([rr["routes"][lay].reshape(b, -1, k) for rr in recs], 1)
+                    .reshape(ref.shape)]
+        else:
+            sets = [rr["routes"][lay] for rr in recs]
+        agree.append(min(float((got == ref).float().mean()) for got in sets))
+    dropped = [rr["dropped"][0] for rr in recs]
+    check(all(d == dropped[0] for d in dropped), f"phase 18 {name}: the ranks' dropped shares "
+          f"{dropped} differ")
+    d_one = one["dropped"][0]
+    check(min(agree) >= 0.99, f"phase 18 {name}: routes agree with one process's {agree} by layer")
+    check(abs(dropped[0] - d_one) <= 1e-3 and dropped[0] > 0,
+          f"phase 18 {name}: dropped share {dropped[0]} (one process {d_one})")
+    rec = dict(route_agreement=agree, routes_equal=min(agree) == 1.0, dropped_frac=dropped[0],
+               dropped_frac_one_process=d_one, dropped_equal=dropped[0] == d_one,
+               routes_per_layer=int(one["routes"][0].numel()))
+    print(f"phase 18 {name}: routes of the first forward agree with one process's "
+          f"{', '.join(f'{a:.6f}' for a in agree)} by layer ({rec['routes_per_layer']} a layer; "
+          f"equal {rec['routes_equal']}); dropped share {dropped[0]:.6f} (one process "
+          f"{d_one:.6f}; equal {rec['dropped_equal']}) [{smi}]")
+    return rec
+
+
 def sp_pp_phase(smi: str) -> dict:
     """Phase 18: sequence and pipeline parallelism on the card (see the
     module docstring). Returns the record printed as `sp_pp_path`."""
@@ -5433,6 +5614,10 @@ def sp_pp_phase(smi: str) -> dict:
         batches_b = sp_pp_batches(cfg_b, 1, SP_T)
         one_b = one_process_steps(cfg_b, batches_b, "finetune", reset, read)
         f32_b = f32_steps(cfg_b, batches_b, "finetune", chunked=True)
+        cfg_m = moe_config(False, SP_MOE_LAYERS)
+        batches_m = sp_pp_batches(cfg_m, SP_MOE_BATCH, SP_T)
+        one_m = one_process_steps(cfg_m, batches_m, "finetune", reset, read)
+        f32_m = f32_steps(cfg_m, batches_m, "finetune", chunked=True)
         refs_b_s = time.perf_counter() - t0
 
         # (c)'s references (the finetune and the LoRA stage)
@@ -5444,6 +5629,7 @@ def sp_pp_phase(smi: str) -> dict:
         cfg_l = pp_lora_config()
         one_l = one_process_steps(cfg_l, batches_c, "lora", reset, read)
         f32_l = f32_steps(cfg_l, batches_c, "lora", chunked=False)
+        moe_refs = moe_finetune_refs(reset, read)
         refs_c_s = time.perf_counter() - t0
 
         # (a) and (b): two ranks, dp 1 x sp 2; (c)'s four ranks at pp 2 x tp
@@ -5454,6 +5640,7 @@ def sp_pp_phase(smi: str) -> dict:
         release_ranks(held[1])
         t_c = time.perf_counter()
         ranks = wait_ranks(held[0], "phase 18 (a)-(b)")
+        (held[1]["root"] / "moe_go").touch()          # (b)'s ranks have ended: (c)'s MoE step
         ranks_ab_s = time.perf_counter() - t0
         check(all(r["backend"] == "gloo" for r in ranks), "phase 18: the ranks did not run gloo")
         a = {}
@@ -5498,6 +5685,14 @@ def sp_pp_phase(smi: str) -> dict:
         out["b"] = held_to_refs("(b) sp 2", [r["b"] for r in ranks], one_b, f32_b, smi)
         out["b_levers"] = lever_checks("(b) sp 2", [r["b_levers"] for r in ranks],
                                        [r["b"] for r in ranks], f32_b, want_b, smi)
+        # (b) the MoE decoder at sp 2: routes over the seq group, held as (b)
+        want_m = dp_expected(SP_MOE_LAYERS, 0, 0)
+        for rr in [r["b_moe"] for r in ranks] + [one_m]:
+            check(all(c == want_m for c in rr["launches"]),
+                  f"phase 18 (b) MoE: launches {rr['launches']}, expected {want_m}")
+        recs_m = [r["b_moe"] for r in ranks]
+        out["b_moe"] = held_to_refs("(b) MoE sp 2", recs_m, one_m, f32_m, smi)
+        out["b_moe"].update(moe_route_checks("(b) MoE sp 2", recs_m, one_m, True, smi))
 
         # (c): four ranks at pp 2 x tp 2
         ranks_c = wait_ranks(held[1], "phase 18 (c)")
@@ -5526,6 +5721,25 @@ def sp_pp_phase(smi: str) -> dict:
                                        [r["c"] for r in ranks_c], f32_c, want_c, smi)
         out["c_lora"] = held_to_refs("(c) LoRA r 64 at pp 2 x tp 2",
                                      [r["c_lora"] for r in ranks_c], one_l, f32_l, smi)
+        # (c) the MoE decoder at pp 2 x tp 2: JAX's plain loop (no schedule,
+        # no send), each foreign block gathered before its forward and its backward
+        want_cm = dp_expected(MOE_EP_LAYERS, 0, 0)
+        foreign = MOE_EP_LAYERS // 2
+        recs_cm = [r["c_moe"] for r in ranks_c]
+        for r, rr in enumerate(recs_cm + [moe_refs["one"]]):
+            check(all(c == want_cm for c in rr["launches"]),
+                  f"phase 18 (c) MoE {r}: launches {rr['launches']}, expected {want_cm}")
+        for r, rr in enumerate(recs_cm):
+            check(rr["p2p"] == [0] * SP_STEPS and rr["gathers"] == [2 * foreign] * SP_STEPS,
+                  f"phase 18 (c) MoE rank {r}: sends {rr['p2p']}, foreign gathers "
+                  f"{rr['gathers']} a step (expected 0 and {2 * foreign}: the plain loop)")
+        out["c_moe"] = held_to_refs("(c) MoE pp 2 x tp 2", recs_cm, moe_refs["one"],
+                                    moe_refs["f32"], smi)
+        out["c_moe"].update(moe_route_checks("(c) MoE pp 2 x tp 2", recs_cm, moe_refs["one"],
+                                             False, smi),
+                            sends=recs_cm[0]["p2p"], foreign_gathers=recs_cm[0]["gathers"])
+        print(f"phase 18 (c) MoE pp 2 x tp 2: the plain loop, sends a step {recs_cm[0]['p2p']}, "
+              f"foreign blocks gathered a step {recs_cm[0]['gathers']} [{smi}]")
         out["seconds_by_part"] = dict(refs_a=refs_a_s, refs_b=refs_b_s, ranks_a_b=ranks_ab_s,
                                       refs_c=refs_c_s, ranks_c=ranks_c_s,
                                       rank_start=[r["start_s"] for r in ranks + ranks_c])
@@ -5877,9 +6091,10 @@ def ep_rank(argv) -> int:
     """One of phase 19 (c)'s two ranks (`chip_smoke.py --phase19-rank R PORT
     DIR`, dp 1 x ep 2 sharing the card over gloo): the finetune step of the
     MoE decoder at Phi3-mini widths, MOE_EP_LAYERS layers, the rank's two
-    experts. The rank builds its model while the parent's f32 run holds the
-    card, and steps only once DIR/go exists (the f32 run is over), so its
-    step times are its own. Writes DIR/rank<R>.pt."""
+    experts, then the same with offload_opt_state. The rank builds its model
+    while the parent may still hold the card (an f32 run not made in phase
+    18), and steps only once DIR/go exists, so its step times are its own.
+    Writes DIR/rank<R>.pt."""
     from visper_lm_tpu_torch.ops.moe import expert_parallel
     from visper_lm_tpu_torch.parallel import distributed as D
 
@@ -5901,9 +6116,13 @@ def ep_rank(argv) -> int:
         D.barrier()
         return time.perf_counter() - t0
 
-    out["c"] = sp_pp_rank_steps(moe_config(distill=False, layers=MOE_EP_LAYERS), mesh,
-                                torch.device("cuda", 0), ep=ep, shape=(TRAIN_BATCH, TRAIN_SEQ),
-                                ready=ready)
+    cfg = moe_config(distill=False, layers=MOE_EP_LAYERS)
+    dev = torch.device("cuda", 0)
+    out["c"] = sp_pp_rank_steps(cfg, mesh, dev, ep=ep, shape=(TRAIN_BATCH, TRAIN_SEQ),
+                                ready=ready, moments=True)
+    # the same with the moments offloaded where JAX's plan says (the banks')
+    out["c_offload"] = sp_pp_rank_steps(cfg, mesh, dev, ep=ep, shape=(TRAIN_BATCH, TRAIN_SEQ),
+                                        step_kw=dict(offload_opt_state=True), moments=True)
     out["seconds"] = time.perf_counter() - t_start
     torch.save(out, root / f"rank{rank}.pt")
     D.barrier()
@@ -5918,16 +6137,16 @@ def moe_ep(smi: str, reset, read, held: dict) -> dict:
     root = held["root"]
     try:
         cfg = moe_config(distill=False, layers=MOE_EP_LAYERS)
-        batches = sp_pp_batches(cfg, TRAIN_BATCH, TRAIN_SEQ)
-        one = one_process_steps(cfg, batches, "finetune", reset, read)
+        one = moe_finetune_refs(reset, read, "one")["one"]
         whole_banks = MOE_EP_LAYERS * 3 * MOE_EXPERTS * cfg.decoder.hidden_size * \
             cfg.decoder.mlp_dim * 2
         # the ranks start, import and build their models while the f32 run
-        # (whose times are not read) holds the card; they step only after it
-        # (DIR/go), so their step times are taken with the card theirs alone
+        # (whose times are not read; phase 18 made it in a whole run) holds
+        # the card; they step only after it (DIR/go), so their step times
+        # are taken with the card theirs alone
         t0 = time.perf_counter()
         release_ranks(held)
-        f32 = f32_steps(cfg, batches, "finetune", chunked=False)
+        f32 = moe_finetune_refs(reset, read, "f32")["f32"]
         release_cuda()
         (root / "go").touch()
         ranks = wait_ranks(held, "phase 19 (c)")
@@ -5952,8 +6171,53 @@ def moe_ep(smi: str, reset, read, held: dict) -> dict:
         print(f"phase 19 (c) ep 2: banks {ranks[0]['c']['bank_bytes'] / 2**30:.3f} GiB a rank of "
               f"{whole_banks / 2**30:.3f}; routers and replicated parameters bit-equal across the "
               f"ranks [{smi}]")
+        rec["offload"] = ep_offload_checks([r["c_offload"] for r in ranks],
+                                           [r["c"] for r in ranks], want, smi)
     finally:
         release_cuda()
+    return rec
+
+
+def ep_offload_checks(recs: list, plain: list, want: dict, smi: str) -> dict:
+    """Phase 19 (c) with offload_opt_state at ep 2: JAX's plan (`_covers_mesh`
+    on the one axis wider than 1, 'expert') puts every bank's mu and nu (the
+    rank's E/ep experts of them) on the host and keeps each dense moment on
+    the card; B1-B3 `want` a step; the losses, the trainables and the
+    moments bit-equal to the plain ep 2 step's, rank by rank; the pinned
+    bytes a rank those of its banks' moments."""
+    banks = sorted(f"{k}/decoder.blocks.{i}.{n}.kernel" for k in ("mu", "nu")
+                   for i in range(MOE_EP_LAYERS) for n in ("moe_down", "moe_gate", "moe_up"))
+    for r, (rr, pr) in enumerate(zip(recs, plain)):
+        check(all(c == want for c in rr["launches"]),
+              f"phase 19 (c) offloaded rank {r}: launches {rr['launches']}, expected {want}")
+        check(rr["host_keys"] == banks and rr["state_tensors"] > len(banks),
+              f"phase 19 (c) offloaded rank {r}: on the host {rr['host_keys']} of "
+              f"{rr['state_tensors']} state tensors; expected the banks' moments {banks}")
+        held = rr["bank_bytes"] * (4 + 2) // 2      # mu f32 and nu bf16 of the rank's banks
+        check(rr["pinned_bytes"] >= held, f"phase 19 (c) offloaded rank {r}: "
+              f"{rr['pinned_bytes']} bytes pinned for {held} of the banks' moments")
+    same = dict(
+        losses=all(rr["losses"] == pr["losses"] and rr["loss_after"] == pr["loss_after"]
+                   for rr, pr in zip(recs, plain)),
+        trainables=all(torch.equal(rr["s_1"][n], pr["s_1"][n])
+                       for rr, pr in zip(recs, plain) for n in pr["s_1"]),
+        moments=all(torch.equal(rr["m_1"][k], pr["m_1"][k])
+                    for rr, pr in zip(recs, plain) for k in pr["m_1"]))
+    check(all(same.values()), f"phase 19 (c) offloaded: not bit-equal to the plain ep 2 step "
+          f"{same}")
+    rec = dict(bit_equal_to_plain=same, on_host=len(banks),
+               on_card=[rr["state_tensors"] - rr["on_host"] for rr in recs],
+               launches_per_step=recs[0]["launches"][-1],
+               pinned_gib=[rr["pinned_bytes"] / 2**30 for rr in recs],
+               step_ms=[rr["step_ms"] for rr in recs], peak_gib=[rr["peak_gib"] for rr in recs])
+    for r, rr in enumerate(recs):
+        print(f"phase 19 (c) ep 2 with offload_opt_state rank {r}: {rr['on_host']} state tensors "
+              f"on the host (the banks' mu and nu), {rec['on_card'][r]} on the card, pinned "
+              f"{rec['pinned_gib'][r]:.3f} GiB, peak {rr['peak_gib']:.2f} GiB (plain "
+              f"{plain[r]['peak_gib']:.2f}), step ms {', '.join(f'{x:.1f}' for x in rr['step_ms'])} "
+              f"(plain {', '.join(f'{x:.1f}' for x in plain[r]['step_ms'])}) [{smi}]")
+    print(f"phase 19 (c) ep 2 with offload_opt_state: bit-equal to the plain step "
+          f"{json.dumps(same)}")
     return rec
 
 
@@ -6054,21 +6318,22 @@ def main() -> int:
     for lib, log in logs.items():
         for entry, res in _build.kernel_resources(log).items():
             print(f"ptxas[{lib}] {entry}: {json.dumps(res)}")
-    if sys.argv[1:2] == ["--phase19"]:
-        # phase 19 on its own, after the build (a measurement run)
-        t0 = time.perf_counter()
-        moe = moe_phase(smi)
-        moe["seconds"] = time.perf_counter() - t0
-        print(f"moe phase {moe['seconds']:.1f} s [{smi}]")
-        print("moe_path " + json.dumps(moe))
-        return 0
-    if sys.argv[1:2] == ["--phase18"]:
-        # phase 18 on its own, after the build (a measurement run)
-        t0 = time.perf_counter()
-        sp_pp = sp_pp_phase(smi)
-        sp_pp["seconds"] = time.perf_counter() - t0
-        print(f"sp_pp phase {sp_pp['seconds']:.1f} s [{smi}]")
-        print("sp_pp_path " + json.dumps(sp_pp))
+    if sys.argv[1:] and set(sys.argv[1:]) <= {"--phase18", "--phase19"}:
+        # phase 18 and / or 19 on their own, after the build (a measurement
+        # run; with both, phase 19 takes phase 18's MoE references as in the
+        # whole run)
+        if "--phase18" in sys.argv[1:]:
+            t0 = time.perf_counter()
+            sp_pp = sp_pp_phase(smi)
+            sp_pp["seconds"] = time.perf_counter() - t0
+            print(f"sp_pp phase {sp_pp['seconds']:.1f} s [{smi}]")
+            print("sp_pp_path " + json.dumps(sp_pp))
+        if "--phase19" in sys.argv[1:]:
+            t0 = time.perf_counter()
+            moe = moe_phase(smi)
+            moe["seconds"] = time.perf_counter() - t0
+            print(f"moe phase {moe['seconds']:.1f} s [{smi}]")
+            print("moe_path " + json.dumps(moe))
         return 0
     if sys.argv[1:2] in (["--phase16"], ["--phase17"]):
         # phase 16 (with --phase17 phase 17 after it) on its own, after the
@@ -6600,7 +6865,8 @@ def main() -> int:
         levers too, and the LoRA step at (c)."""
         step = {f"{k}_step_a_rank": sp_pp[run]["ranks"][0]["launches_per_step"][kname]
                 for k, run in (("sp", "b"), ("pp", "c"), ("sp_levers", "b_levers"),
-                               ("pp_levers", "c_levers"), ("pp_lora", "c_lora"))}
+                               ("pp_levers", "c_levers"), ("pp_lora", "c_lora"),
+                               ("sp_moe", "b_moe"), ("pp_moe", "c_moe"))}
         return dict(attention_a_rank=sp_pp["a"]["ulysses"]["launches"][kname], **step)
 
     def phase19(kname):
@@ -6608,7 +6874,8 @@ def main() -> int:
         the MoE decoder (b) and a rank's finetune step at ep 2 (c)."""
         return dict(prefill=moe["a"]["b1_launches_prefill"] if kname == "flash_fwd" else 0,
                     pt_step=moe["b"]["launches_per_step"][kname],
-                    ep_step_a_rank=moe["c"]["ranks"][0]["launches_per_step"][kname])
+                    ep_step_a_rank=moe["c"]["ranks"][0]["launches_per_step"][kname],
+                    ep_offload_step_a_rank=moe["c"]["offload"]["launches_per_step"][kname])
 
     main_launches = trainer["trainer"]["launches"]   # trainer.train, the main path
     kernels = [

@@ -23,7 +23,10 @@ what it computed to rank<r>.pt:
             steps, greedy generation and a decoder forward on the data
             rank's own prompts (`after_step`), against one process's whole
             model with the gathered weights;
-  ep_tp     the same at ep 2 x tp 2 (dp 1), without `after_step`.
+  ep_tp     the same at ep 2 x tp 2 (dp 1), without `after_step`;
+  ep_dp_offload  ep_dp with offload_opt_state (`OffloadedAdamW`, no floor
+            on a tensor's bytes): which state tensors its plan puts on the
+            host, the same records.
 """
 
 import os
@@ -43,6 +46,7 @@ from visper_lm_tpu_torch.ops import moe as tmoe  # noqa: E402
 from visper_lm_tpu_torch.parallel import distributed as D  # noqa: E402
 from visper_lm_tpu_torch.parallel.tensor import tensor_parallel  # noqa: E402
 from visper_lm_tpu_torch.train import train_step as tts  # noqa: E402
+from visper_lm_tpu_torch.train.staged_update import OffloadedAdamW  # noqa: E402
 from visper_lm_tpu_torch.train.optimizer import OptimizerConfig  # noqa: E402
 from visper_lm_tpu_torch.weights import from_jax_params  # noqa: E402
 
@@ -90,15 +94,23 @@ def layer(workdir: str, dp: int, ep: int, tp: int, k: int, cf: float) -> dict:
                 aux={n: float(v) for n, v in aux.items()}, grads=grads)
 
 
-def finetune(workdir: str, dp: int, ep: int, tp: int) -> dict:
-    """The finetune step of the MoE VLM at (dp, ep, tp) from JAX's weights."""
+def finetune(workdir: str, dp: int, ep: int, tp: int, offload: bool = False) -> dict:
+    """The finetune step of the MoE VLM at (dp, ep, tp) from JAX's weights;
+    offload: with offload_opt_state (`OffloadedAdamW` planned with no
+    floor on a tensor's bytes, so that the tiny banks' moments can qualify)."""
     mesh = D.make_global_mesh(dp=dp, ep=ep, tp=tp)
     group, tpg = tmoe.expert_parallel(mesh), tensor_parallel(mesh)
     cfg = moe_configs()
     with open(os.path.join(workdir, "params.pkl"), "rb") as f:
         tree = pickle.load(f)
     model = from_jax_params(tree, cfg, device="cpu", tp=tpg, ep=group)
-    step = tts.make_train_step(cfg, OptimizerConfig(**OPT), model, mesh=mesh)
+    step = tts.make_train_step(cfg, OptimizerConfig(**OPT), model, mesh=mesh,
+                               offload_opt_state=offload)
+    on_host = None
+    if offload:
+        step.optimizer = OffloadedAdamW(step.trainable.items(), OptimizerConfig(**OPT),
+                                        min_bytes=0, zero=step.zero, sharded=step.sharded)
+        on_host = sorted(k for k, v in step.optimizer.plan.items() if v is not None)
     batch = dict(np.load(os.path.join(workdir, "batch.npz")))
     index, count = D.data_shard(mesh)
     rows = slice(index * 4 // count, (index + 1) * 4 // count)
@@ -116,7 +128,8 @@ def finetune(workdir: str, dp: int, ep: int, tp: int) -> dict:
         bank_experts=int(blk.moe_gate.kernel.shape[0]), first=blk.moe_gate.first,
         banks_sharded=sorted(n for n, pl in step.zero.moments.items()
                              if pl.sharded and ".moe_" in n),
-        after=after_step(model, cfg, tree, state, index) if dp > 1 else None)
+        on_host=on_host, optimizer=type(step.optimizer).__name__,
+        after=after_step(model, cfg, tree, state, index) if dp > 1 and not offload else None)
 
 
 def after_step(model, cfg, tree, state, index: int) -> dict:
@@ -161,6 +174,7 @@ def main(workdir: str) -> None:
     out = {"layer": {name: layer(workdir, *case) for name, *case in LAYER_CASES}}
     out["ep_dp"] = finetune(workdir, 2, 2, 1)
     out["ep_tp"] = finetune(workdir, 1, 2, 2)
+    out["ep_dp_offload"] = finetune(workdir, 2, 2, 1, offload=True)
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
     D.barrier()
     D.shutdown()

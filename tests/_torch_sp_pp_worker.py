@@ -42,7 +42,22 @@ computed to rank<r>.pt:
   lora_*           the LoRA stage at dp 2 x sp 2, dp 2 x pp 2, pp 2 x tp 2 and
                    sp 2 x pp 2 (the finetune batch);
   trainer_*        `trainer.train` at dp 2 x sp 2 and dp 2 x pp 2 (and the
-                   LoRA stage at dp 2 x pp 2), 2 steps and a checkpoint.
+                   LoRA stage at dp 2 x pp 2), 2 steps and a checkpoint;
+  moe_layer_*      `moe_mlp` on the rank's rows of moe_layer.npz at dp 2 x
+                   sp 2 and sp 2 x ep 2 over the routing group (capacity
+                   binding): the rank's output rows, the aux, and the
+                   gradients of the input, the router and the rank's banks
+                   (the parameters' summed over the group, as the optimizer
+                   sums them);
+  moe_ft_* /       the finetune and PT steps of the MoE VLM (moe_ft.pkl /
+  moe_pt_*         moe_pt.pkl: MOE, aux weight 1.0) at dp 2 x sp 2 and sp 2 x
+                   ep 2 (part "sp"), dp 2 x pp 2 and pp 2 x ep 2 (part "pp":
+                   the plain loop, foreign blocks gathered, no send): as the
+                   steps above, and the finetune step's step-1 gradients of
+                   the MoE parameters, summed over the data and seq groups;
+  moe_init         `init_vlm` of the MoE VLM at dp 2 x pp 2 and pp 2 x ep 2:
+                   the rank's parameters against the one-device model's from
+                   the same seed (a foreign block's banks drawn and dropped).
 """
 
 import dataclasses
@@ -60,6 +75,7 @@ import torch  # noqa: E402
 torch.set_num_threads(1)
 
 from visper_lm_tpu_torch import config as tconfig  # noqa: E402
+from visper_lm_tpu_torch.ops import moe as moe_ops  # noqa: E402
 from visper_lm_tpu_torch.ops.attention import multi_head_attention  # noqa: E402
 from visper_lm_tpu_torch.parallel import distributed as D  # noqa: E402
 from visper_lm_tpu_torch.parallel import pipeline as P  # noqa: E402
@@ -70,6 +86,7 @@ from visper_lm_tpu_torch.train import train_step as tts  # noqa: E402
 from visper_lm_tpu_torch.train.checkpoint import CheckpointManager  # noqa: E402
 from visper_lm_tpu_torch.train.optimizer import OptimizerConfig  # noqa: E402
 from visper_lm_tpu_torch.train.trainer import TrainerConfig, train  # noqa: E402
+from visper_lm_tpu_torch.models.vlm import init_vlm  # noqa: E402
 from visper_lm_tpu_torch.weights import decoder_from_jax_params, from_jax_params  # noqa: E402
 
 OPT = dict(learning_rate=3e-3, total_steps=30, warmup_ratio=0.1)
@@ -86,6 +103,21 @@ RING = ((1, 4, 4, 4), (1, 4, 4, 2), (2, 2, 4, 1), (1, 4, 2, 1))
 # 4 stages standing in for its (2, 4, 8) and (1, 8, 8) (eight devices)
 PIPE = ((1, 4, 4), (2, 2, 2), (1, 4, 8))
 ATTN_T, ATTN_H = 32, 16
+# the MoE cases' decoder: JAX's dry-run MoE (E 4, top-2) at a capacity factor
+# that drops routes, and an aux weight of 1.0: the aux counted once a seq or
+# pipe rank would move the router's gradient beyond the bounds
+MOE = dict(moe_experts=4, moe_top_k=2, moe_capacity_factor=1.0, moe_aux_weight=1.0)
+# the MoE layer's calls: (name, dp, sp, ep); its global input (4, 16, 32),
+# 4 experts of 64, top-2 at capacity factor 0.75 (16 of 128 routes a
+# seq-sliced row, 24 slots an expert: the capacity binds)
+MOE_LAYERS = (("dp2_sp2", 2, 2, 1), ("sp2_ep2", 1, 2, 2))
+MOE_LAYER_CF = 0.75
+
+
+def moe_config(C, distill: bool):
+    """tiny_test_vlm with MOE (C: the JAX or the port's config module)."""
+    cfg = C.tiny_test_vlm(distill=distill)
+    return dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, **MOE))
 
 
 def lever(offload: bool, stream: int) -> str:
@@ -157,6 +189,92 @@ def _counted_all_to_all(*a, **k):
 D.all_to_all = _counted_all_to_all
 
 
+_gathers = [0]
+_gather = P.PipeParallel.gather
+
+
+def _counted_gather(self, layer):
+    """A foreign block's gather from its owner (the plain loop's), counted."""
+    if layer not in self.gathered and not self.owns(layer):
+        _gathers[0] += 1
+    return _gather(self, layer)
+
+
+P.PipeParallel.gather = _counted_gather
+
+
+def moe_layer_case(workdir, dp, sp, ep):
+    """`moe_mlp` on this rank's rows of moe_layer.npz at (dp, sp, ep), over
+    the routing group: its rows, output, aux and gradients of the rank's
+    share of the global loss sum(out r) + 1.0 lb + 1e-3 z."""
+    mesh = make_mesh(dp=dp, sp=sp, ep=ep)
+    group, experts = D.routing_group(mesh), moe_ops.expert_parallel(mesh)
+    seq = S.sequence_parallel(mesh)
+    inp = np.load(os.path.join(workdir, "moe_layer.npz"))
+    br, tr = _rows(mesh, inp["x"].shape[0]), seq.rows(inp["x"].shape[1])
+    e_local = inp["gate"].shape[0] // ep
+    first = 0 if experts is None else experts.rank * e_local
+    params = {n: torch.tensor(inp[n] if n == "router" else inp[n][first:first + e_local])
+              .requires_grad_(True) for n in ("router", "gate", "up", "down")}
+    x = torch.tensor(inp["x"][br, tr]).requires_grad_(True)
+    out, aux = moe_ops.moe_mlp(params, x, top_k=2, capacity_factor=MOE_LAYER_CF, ep=experts,
+                               data=group)
+    loss = (out * torch.tensor(inp["r"][br, tr])).sum()
+    (loss + (1.0 * aux["lb_loss"] + 1e-3 * aux["z_loss"]) / group.size).backward()
+    grads = {n: D.all_reduce(p.grad.contiguous(), group.group) for n, p in params.items()}
+    return dict(rows=(br.start, br.stop, tr.start, tr.stop), first=first, out=out.detach(),
+                dx=x.grad, aux={n: float(v) for n, v in aux.items()}, grads=grads,
+                group=(group.size, group.inner))
+
+
+def moe_grads(step, local) -> dict:
+    """The step's gradients of the rank's MoE parameters on `local` (no
+    update), summed over the data and seq groups as the optimizer sums
+    them: {name: gradient}."""
+    _, grads = step.loss_and_grads(local)
+    out = {}
+    for n, g in grads.items():
+        if ".moe_" in n:
+            g = D.all_reduce(g.contiguous(), step.zero.group)
+            if step.zero.seq is not None:
+                g = D.all_reduce(g, step.zero.seq.group)
+            out[n] = g
+    return out
+
+
+def moe_init_case(**axes) -> dict:
+    """`init_vlm` of the MoE VLM (seed 0) on make_mesh(**axes): whether
+    every parameter the rank holds (its stage's blocks, its experts of each
+    bank) equals the one-device model's from the same seed, and how many."""
+    cfg = moe_config(tconfig, False)
+    mesh = make_mesh(**axes)
+    experts = moe_ops.expert_parallel(mesh)
+    model = init_vlm(cfg, device="cpu", seed=0, pp=P.pipe_parallel(mesh, cfg.decoder.num_layers),
+                     ep=experts)
+    whole = dict(init_vlm(cfg, device="cpu", seed=0).named_parameters())
+    held = [(n, p) for n, p in model.named_parameters() if p.untyped_storage().nbytes() > 0]
+    equal = True
+    for n, p in held:
+        want = whole[n]
+        if experts is not None and ".kernel" in n and ".moe_" in n:
+            local = p.shape[0]
+            want = want[experts.rank * local:(experts.rank + 1) * local]
+        equal &= torch.equal(p, want)
+    return dict(equal=equal, held=len(held),
+                banks=sorted(n for n, _ in held if n.endswith(".moe_gate.kernel")))
+
+
+def moe_cases(out, load, workdir, axes):
+    """The MoE VLM's finetune and PT steps on make_mesh(**axes) of each of
+    `axes`, as moe_ft_<name> / moe_pt_<name>."""
+    batches = {n: dict(np.load(os.path.join(workdir, f"{n}.npz"))) for n in ("ft", "pt")}
+    for name, kw in axes:
+        for kind, stage in (("ft", "finetune"), ("pt", "pretrain")):
+            _, out[f"moe_{kind}_{name}"] = step_case(
+                moe_config(tconfig, kind == "pt"), load(f"moe_{kind}.pkl"), batches[kind], stage,
+                make_mesh(**kw), grads=kind == "ft")
+
+
 def pipe_case(dp, pp, m, seed=0, dtype=np.float32, grads=False):
     mesh = make_mesh(dp=dp, pp=pp)
     group, stage, _ = D.pipe_group(mesh)
@@ -218,24 +336,32 @@ def main(workdir: str, part: str) -> None:
     D.shutdown()
 
 
-def step_case(cfg, tree, batch, stage, mesh, **kw):
+def step_case(cfg, tree, batch, stage, mesh, grads=False, **kw):
     """STEPS updates of the step on `mesh` from the JAX tree, on the rank's
-    rows of `batch`: (the step, its record)."""
+    rows of `batch`: (the step, its record); with grads, a MoE model's
+    step-1 gradients first (`moe_grads`)."""
     tp = T.tensor_parallel(mesh)
     pipe = P.pipe_parallel(mesh, cfg.decoder.num_layers)
-    model = from_jax_params(tree, cfg, device="cpu", tp=tp, pp=pipe)
+    model = from_jax_params(tree, cfg, device="cpu", tp=tp, pp=pipe,
+                            ep=moe_ops.expert_parallel(mesh))
     step = tts.make_train_step(cfg, OptimizerConfig(**OPT, stage=stage), model, mesh=mesh, **kw)
     br = _rows(mesh, batch["labels"].shape[0])
     local = D.shard_batch_multihost({k: v[br] for k, v in batch.items()}, mesh)
-    sends, metrics = [], []
+    step_1 = moe_grads(step, local) if grads else None
+    sends, gathers, metrics = [], [], []
     for _ in range(STEPS):
-        before = D.p2p_sends
+        before, gathered = D.p2p_sends, _gathers[0]
         metrics.append(step(local))
         sends.append(D.p2p_sends - before)
+        gathers.append(_gathers[0] - gathered)
     state = {k: v.detach().clone() for k, v in step.state_tensors().items()}
     held = {int(n.split(".")[2]) for n, p in model.named_parameters()
             if n.startswith("decoder.blocks.") and p.untyped_storage().nbytes() > 0}
-    return step, dict(metrics=metrics, p2p=sends, state=state if D.process_index() == 0 else None,
+    ep = model.decoder.ep
+    return step, dict(metrics=metrics, p2p=sends, gathers=gathers, grads=step_1,
+                      expert_first=0 if ep is None else ep.rank * (cfg.decoder.moe_experts // ep.size),
+                      foreign=[] if pipe is None else pipe.foreign,
+                      state=state if D.process_index() == 0 else None,
                       keys=sorted(state), held_blocks=sorted(held), trainable=len(step.trainable),
                       segments=None if step.grad_stream is None else step.grad_stream.ranges,
                       optimizer=type(step.optimizer).__name__)
@@ -293,6 +419,8 @@ def sequence_part(out, load, workdir):
     lever_cases(out, "ft_dp2_sp2", cfg_ft, load("ft.pkl"), ft_batch, "finetune", dict(dp=2, sp=2))
     _, out["lora_dp2_sp2"] = step_case(lora_config(tconfig), load("lora.pkl"), ft_batch, "lora",
                                        make_mesh(dp=2, sp=2))
+    out["moe_layer"] = {name: moe_layer_case(workdir, *c) for name, *c in MOE_LAYERS}
+    moe_cases(out, load, workdir, (("dp2_sp2", dict(dp=2, sp=2)), ("sp2_ep2", dict(sp=2, ep=2))))
 
 
 def pipeline_part(out, load, workdir):
@@ -398,6 +526,9 @@ def pipeline_part(out, load, workdir):
                                             ("pt_sp2_pp2", cfg_pt, pt_tree, pt_batch, "pretrain")):
         _, out[prefix] = step_case(cfg, tree, batch, stage, make_mesh(sp=2, pp=2))
         lever_cases(out, prefix, cfg, tree, batch, stage, dict(sp=2, pp=2), both)
+    out["moe_init"] = {name: moe_init_case(**kw) for name, kw in (
+        ("dp2_pp2", dict(dp=2, pp=2)), ("pp2_ep2", dict(pp=2, ep=2)))}
+    moe_cases(out, load, workdir, (("dp2_pp2", dict(dp=2, pp=2)), ("pp2_ep2", dict(pp=2, ep=2))))
 
 
 if __name__ == "__main__":

@@ -27,7 +27,12 @@ write what they computed to files, and the tests below compare, in f32:
   4. after the dp 2 x ep 2 steps, greedy generation and a decoder forward
      on each data rank's own prompts: the rank's tokens, prefill logits
      and aux equal one process's whole model with the gathered weights
-     (the step's routing over the data group ends with the step).
+     (the step's routing over the data group ends with the step);
+  5. the dp 2 x ep 2 step with offload_opt_state: JAX's plan (`_covers_mesh`
+     on 'data' and 'expert') puts each bank's moments, the rank's E/ep
+     experts of them, on the host and keeps the dense ones on the card; the
+     metrics, the trainables and the moments after 3 updates are the plain
+     step's bit for bit (the global norm over every rank's slices).
 
 Tolerances of the layer: outputs, aux and gradients rtol 2e-5 / atol 2e-6
 (gradients atol 1e-5 x the largest |grad|).
@@ -35,8 +40,6 @@ Tolerances of the layer: outputs, aux and gradients rtol 2e-5 / atol 2e-6
 
 import os
 import pickle
-import socket
-import subprocess
 import sys
 
 import numpy as np
@@ -55,6 +58,7 @@ from visper_lm_tpu.train import train_step as jts
 from visper_lm_tpu_torch.utils.param import jax_flat_arrays
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import _torch_spawn as S  # noqa: E402
 from _torch_ep_worker import LAYER_CASES, OPT, STEPS  # noqa: E402
 from test_torch_moe import _vlm_batch, moe_vlm_configs  # noqa: E402
 
@@ -65,37 +69,14 @@ WORLD = 4
 SPAWN_TIMEOUT = 420
 
 
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("localhost", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def _spawn(workdir):
-    port = _free_port()
-    env = {k: v for k, v in os.environ.items() if not k.startswith("VISPER_")}
-    env.update(VISPER_COORDINATOR=f"localhost:{port}", VISPER_NUM_PROCESSES=str(WORLD),
-               PYTHONHASHSEED="0", OMP_NUM_THREADS="1")
-    worker = os.path.join(REPO, "tests", "_torch_ep_worker.py")
-    return [subprocess.Popen([sys.executable, worker, str(workdir)], cwd=REPO,
-                             env=dict(env, VISPER_PROCESS_ID=str(r)),
-                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for r in range(WORLD)]
+    return S.spawn("_torch_ep_worker.py", [workdir], WORLD, workdir, PYTHONHASHSEED="0")
 
 
-def _wait(procs):
+def _wait(procs, workdir):
     """Every rank's exit code 0 within SPAWN_TIMEOUT; a hang or a failure
-    fails the test (and kills the ranks)."""
-    try:
-        outs = [p.communicate(timeout=SPAWN_TIMEOUT) for p in procs]
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-        pytest.fail(f"a rank did not finish within {SPAWN_TIMEOUT} s")
-    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{err[-4000:]}"
+    fails the test (and kills the ranks: tests/_torch_spawn.py)."""
+    S.wait(procs, workdir, SPAWN_TIMEOUT)
 
 
 def _flat(tree):
@@ -150,7 +131,7 @@ def runs(tmp_path_factory):
                     metrics.append({k: float(v) for k, v in m.items()})
             ref[name] = dict(params=_flat(state.params), metrics=metrics)
     finally:
-        _wait(procs)
+        _wait(procs, workdir)
     ranks = [torch.load(workdir / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
     return dict(ranks=ranks, layer=layer, step1=step1, ref=ref)
 
@@ -256,3 +237,18 @@ def test_moe_generation_after_a_dp_step_routes_over_its_own_tokens(runs):
     # routed over the data group would read the mean of both ranks' aux
     assert afters[0]["whole"]["aux"]["z_loss"] != afters[2]["whole"]["aux"]["z_loss"]
     assert afters[0]["ranks"]["tokens"] == afters[1]["ranks"]["tokens"]
+
+
+def test_moe_offloaded_step_at_ep2_plans_the_banks_and_equals_the_plain_step(runs):
+    layers = moe_vlm_configs()[1].decoder.num_layers
+    for r, rank in enumerate(runs["ranks"]):
+        got, plain = rank["ep_dp_offload"], rank["ep_dp"]
+        assert got["optimizer"] == "OffloadedAdamW" and plain["optimizer"] == "AdamW"
+        banks = sorted(f"{k}/decoder.blocks.{i}.{n}.kernel" for k in ("mu", "nu")
+                       for i in range(layers) for n in ("moe_down", "moe_gate", "moe_up"))
+        assert got["on_host"] == banks, (r, got["on_host"])
+        assert got["step1"] == plain["step1"] and got["metrics"] == plain["metrics"], r
+        assert sorted(got["state"]) == sorted(plain["state"])
+        for k, v in plain["state"].items():
+            assert torch.equal(got["state"][k], v), (r, k)
+        assert any(k.startswith("opt/mu/") and ".moe_gate." in k for k in got["state"])

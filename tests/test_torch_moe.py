@@ -11,7 +11,8 @@ Also: ties go to the lowest expert index as `jax.lax.top_k` breaks them;
 the quantized trees (int8 attention projections bit-equal to JAX's, the
 banks and the router untouched); the f32 router in a bf16 model; a MoE VLM
 through JAX's `make_train_step` (loss, MoE metrics and the update); and the
-limits (C25: sequence and pipeline parallelism, the streamed layout).
+limits (sequence parallelism without the routing group, the streamed
+layout) beside the plain loop a pipeline runs.
 """
 
 import dataclasses
@@ -311,18 +312,56 @@ def test_moe_banks_stay_dense_under_serving_quantization():
         assert torch.isfinite(q4(_t(x), use_kernel=False)["logits"]).all()
 
 
+class _Stage:
+    """A pipeline stage of two whose foreign blocks are already whole: it
+    counts the plain loop's gathers around each block and has no
+    collective."""
+
+    size, rank, group = 2, 0, None
+
+    def __init__(self):
+        self.entered = []
+
+    def enter(self, i, h):
+        self.entered.append(i)
+        return h
+
+    def leave(self, i, h):
+        return h
+
+
 def test_moe_limits_raise():
-    """Under sequence or pipeline parallelism a rank holds a slice of the
-    rows or a stage: MoE raises naming C25; the streamed layout raises as
-    JAX asserts; a whole model builds, its router f32 in bf16."""
+    """What a MoE decoder still refuses, and why: under sequence parallelism
+    a forward without the data x seq routing group (a rank's rows alone
+    would give the slice's capacity); the streamed layout (JAX's assert).
+    Under a pipeline it runs JAX's plain loop, never the schedule: every
+    block gathered around its use, the output the one-process output. A
+    whole model builds, its router f32 in bf16."""
+    from visper_lm_tpu_torch.parallel.distributed import AxisGroup
+    from visper_lm_tpu_torch.parallel.sequence import SequenceParallel
+
     _, cfg_t = _cfgs()
     dec = tdec.Decoder(cfg_t, device="cpu", dtype=torch.float32)
-    x = torch.zeros(1, 4, cfg_t.hidden_size)
-    for attr in ("seq", "pipe"):
-        setattr(dec, attr, object())
-        with pytest.raises(ValueError, match="C25"):
-            dec(x, use_kernel=False)
-        setattr(dec, attr, None)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in dec.parameters():
+            p.normal_(0.0, 0.05, generator=gen)
+    x = torch.randn(2, 4, cfg_t.hidden_size, generator=gen)
+    dec.seq = SequenceParallel(None, 0, 2)
+    for group in (None, AxisGroup(None, 0, 2)):           # no group; the data group alone
+        with pytest.raises(ValueError, match="routes over the data x seq group"):
+            dec(x, use_kernel=False, moe_data=group)
+    dec.seq = None
+    with torch.no_grad():
+        want = dec(x, use_kernel=False)
+        dec.pipe = _Stage()
+        got = dec(x, use_kernel=False)
+    assert dec.pipe.entered == list(range(cfg_t.num_layers))
+    assert torch.isfinite(want["logits"]).all()
+    assert torch.equal(got["logits"], want["logits"])
+    for k in tdec.MOE_AUX_KEYS:
+        assert torch.equal(got["moe_aux"][k], want["moe_aux"][k]), k
+    dec.pipe = None
     vcfg = tconfig.tiny_test_vlm()
     vcfg = dataclasses.replace(vcfg, decoder=dataclasses.replace(vcfg.decoder, moe_experts=4,
                                                                  dtype="bfloat16"))

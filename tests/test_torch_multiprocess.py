@@ -40,8 +40,6 @@ two torch ranks of a tiny model (a few seconds each).
 
 import json
 import os
-import socket
-import subprocess
 import sys
 
 import numpy as np
@@ -66,6 +64,9 @@ from visper_lm_tpu_torch.train import optimizer as topt
 from visper_lm_tpu_torch.train import train_step as tts
 from visper_lm_tpu_torch.train.checkpoint import CheckpointManager
 from visper_lm_tpu_torch.weights import from_jax_params
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import _torch_spawn as S  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -108,37 +109,15 @@ def _dataset(root):
         json.dump(records, f)
 
 
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("localhost", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def _spawn(workdir, world=2):
-    port = _free_port()
-    env = {k: v for k, v in os.environ.items() if not k.startswith("VISPER_")}
-    env.update(VISPER_COORDINATOR=f"localhost:{port}", VISPER_NUM_PROCESSES=str(world),
-               PYTHONHASHSEED="0", OMP_NUM_THREADS="2")
-    worker = os.path.join(REPO, "tests", "_torch_dp_worker.py")
-    return [subprocess.Popen([sys.executable, worker, str(workdir)], cwd=REPO,
-                             env=dict(env, VISPER_PROCESS_ID=str(r)),
-                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for r in range(world)]
+    return S.spawn("_torch_dp_worker.py", [workdir], world, workdir, PYTHONHASHSEED="0",
+                   OMP_NUM_THREADS="2")
 
 
-def _wait(procs):
+def _wait(procs, workdir):
     """Every rank's exit code 0 within SPAWN_TIMEOUT; a hang or a failure
-    fails the test (and kills the ranks)."""
-    try:
-        outs = [p.communicate(timeout=SPAWN_TIMEOUT) for p in procs]
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-        pytest.fail(f"a rank did not finish within {SPAWN_TIMEOUT} s")
-    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{err[-4000:]}"
+    fails the test (and kills the ranks: tests/_torch_spawn.py)."""
+    S.wait(procs, workdir, SPAWN_TIMEOUT)
 
 
 def _flat(tree):
@@ -183,7 +162,7 @@ def runs(tmp_path_factory):
                 state, m = step_j(state, dbatch)
                 metrics.append({k: float(v) for k, v in m.items()})
         ref[name] = dict(params=_flat(state.params), metrics=metrics)
-    _wait(procs)
+    _wait(procs, workdir)
     ranks = [torch.load(workdir / f"rank{r}.pt", weights_only=False) for r in range(2)]
     return dict(ranks=ranks, workdir=workdir, batch=batch, cfg_t=cfg_t, host=host,
                 loss_j=float(loss_j), met_j={k: float(v) for k, v in met_j.items()},

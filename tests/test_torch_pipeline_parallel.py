@@ -37,7 +37,12 @@ multi-rank case while JAX computes its references here:
   9. the LoRA stage at dp 2 x pp 2, pp 2 x tp 2 and sp 2 x pp 2 (the
      factors through the pipeline, their gradients summed over the stages) and
      `trainer.train` of it at dp 2 x pp 2, against JAX's single-device
-     LoRA step.
+     LoRA step;
+ 10. the MoE VLM's finetune and PT steps (aux weight 1.0, routes dropped)
+     at dp 2 x pp 2 and pp 2 x ep 2: JAX's plain loop (no send; each
+     foreign block gathered before its forward and before its backward),
+     against JAX's one-device steps as the sp file holds them; `init_vlm`
+     of it at each stage holds the one-device model's numbers.
 """
 
 import os
@@ -105,6 +110,7 @@ def _refs(trees, batches):
 
     out["dec_pp_remat"] = np.asarray(jax.jit(jax.grad(loss))(e4))
     out.update(C.step_refs(trees, batches, pt=True))
+    out["moe"] = C.moe_step_refs(trees, batches)
     return out
 
 
@@ -431,3 +437,30 @@ def test_trainer_lora_at_dp2_pp2_matches_the_step(runs):
     for r in recs:
         assert r["step"] == 2 and r["metrics"] == recs[0]["metrics"]
         np.testing.assert_allclose(r["metrics"]["loss"], want["loss"], rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["moe_ft_dp2_pp2", "moe_pt_dp2_pp2", "moe_ft_pp2_ep2",
+                                  "moe_pt_pp2_ep2"])
+def test_moe_steps_under_pp_take_the_plain_loop_and_match_jax(runs, name):
+    """A MoE stack is not pipelined (JAX's `_maybe_pipelined_stack`): no
+    point-to-point send, each foreign block gathered twice a step (forward
+    and backward), every pipe rank computing the whole loss with the aux
+    once; JAX's one-device steps' metrics, state and step-1 gradients."""
+    kind = name.split("_")[1]
+    recs = [r[name] for r in runs["ranks"]]
+    for r, rec in enumerate(recs):
+        assert rec["p2p"] == [0] * STEPS, (r, rec["p2p"])
+        assert len(rec["foreign"]) == 2 and rec["gathers"] == [2 * 2] * STEPS, (r, rec["gathers"])
+    C.check_moe_step(recs, runs["ref"]["moe"][kind], kind)
+
+
+@pytest.mark.parametrize("name", ["dp2_pp2", "pp2_ep2"])
+def test_moe_init_under_pp_holds_the_one_device_numbers(runs, name):
+    """`init_vlm(..., pp=)` of a MoE VLM: every parameter a stage holds is
+    the one-device model's from the same seed, the second stage's banks
+    included (the first stage's banks, foreign there, drawn and dropped)."""
+    recs = [r["moe_init"][name] for r in runs["ranks"]]
+    for r, rec in enumerate(recs):
+        assert rec["equal"] and rec["held"] > 0, (r, rec)
+    stages = sorted({tuple(rec["banks"]) for rec in recs})
+    assert len(stages) == 2 and all(len(b) == 2 for b in stages), stages

@@ -28,7 +28,19 @@ their rows to files, and the tests put the rows together:
   7. the finetune step at dp 2 x sp 2 with the memory levers
      (offload_opt_state, stream_grads) at (on, 0), (off, 2) and (on, 2),
      and the LoRA stage at dp 2 x sp 2, against JAX's single-device steps
-     as in 6.
+     as in 6;
+  8. the MoE layer at dp 2 x sp 2 and sp 2 x ep 2 over the data x seq
+     routing group, capacity binding: the ranks' output rows, the aux
+     (dropped share exactly) and the gradients against JAX's one-device
+     call on the global input (2e-5); the controls: a priority taken rank
+     by rank (JAX's call on the tokens in rank-major order) gives other
+     outputs, and the router's gradient with the aux counted twice misses
+     the bound;
+  9. the MoE VLM's finetune and PT steps (aux weight 1.0, routes dropped)
+     at dp 2 x sp 2 and sp 2 x ep 2 against JAX's one-device steps: metrics
+     of 3 updates (rtol 1e-5), the state after them (atol 1e-4 / rtol
+     1e-4), the finetune step's step-1 gradients of the router and the
+     banks (the router's beyond the bound of the aux counted twice).
 
 JAX's file is marked slow (it compiles shard_maps on 8 virtual devices);
 this one spawns four torch ranks of tiny shapes.
@@ -58,7 +70,7 @@ from visper_lm_tpu_torch.parallel.mesh import make_mesh
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import _torch_sp_pp_common as C  # noqa: E402
-from _torch_sp_pp_worker import LEVERS, RING, ULYSSES, attn_inputs, lever  # noqa: E402
+from _torch_sp_pp_worker import LEVERS, MOE_LAYERS, RING, ULYSSES, attn_inputs, lever  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -87,6 +99,9 @@ def _refs(trees, batches):
     out["dec_sp4"] = np.asarray(fwd(trees["dec"], jnp.asarray(e)))
     out["dec_dp2_sp2"] = np.asarray(fwd(trees["dec"], jnp.asarray(e22)))
     out.update(C.step_refs(trees, batches, pt=True))
+    inp = C.moe_layer_inputs()
+    out["moe_layer"] = {name: C.moe_layer_refs(inp, dp, sp) for name, dp, sp, _ in MOE_LAYERS}
+    out["moe"] = C.moe_step_refs(trees, batches)
     return out
 
 
@@ -323,3 +338,54 @@ def test_trainer_at_dp2_sp2_logs_once_and_ranks_agree(runs):
         assert r["step"] == 2 and r["metrics"] == recs[0]["metrics"]
     for row, m in zip(rows, want):
         np.testing.assert_allclose(row["loss"], m["loss"], rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", [c[0] for c in MOE_LAYERS])
+def test_moe_layer_under_sp_routes_over_the_global_batch(runs, name):
+    """Each rank's rows of the output and the aux equal JAX's one-device
+    call: capacity from the global N, priority in JAX's token-major order
+    across the seq ranks' slices of every row. The capacity binds, and a
+    priority taken rank by rank would give other outputs (the control)."""
+    ref = runs["ref"]["moe_layer"][name]
+    recs = [r["moe_layer"][name] for r in runs["ranks"]]
+    got = _assemble(recs, "out", ref["out"].shape)
+    np.testing.assert_allclose(got, ref["out"], rtol=2e-5, atol=2e-6)
+    for r, rec in enumerate(recs):
+        assert rec["aux"]["dropped_frac"] == ref["aux"]["dropped_frac"], r
+        for k in ("lb_loss", "z_loss"):
+            np.testing.assert_allclose(rec["aux"][k], ref["aux"][k], rtol=2e-5, atol=2e-6,
+                                       err_msg=f"rank {r} {k}")
+        assert rec["group"] == (4 if name == "dp2_sp2" else 2, 2)
+    assert ref["aux"]["dropped_frac"] > 0.05
+    assert np.abs(ref["rank_major_out"] - ref["out"]).max() > 1e-2
+
+
+@pytest.mark.parametrize("name", [c[0] for c in MOE_LAYERS])
+def test_moe_layer_under_sp_gradients_are_the_one_device_gradients(runs, name):
+    """The router's gradient summed over the routing group is JAX's on every
+    rank (the aux entering each rank's loss as 1/(dp sp) of it), each rank's
+    bank slices the one-device gradient's, dx the rank's rows of JAX's; the
+    router's gradient with the aux counted twice is not within the bound."""
+    ref = runs["ref"]["moe_layer"][name]
+    recs = [r["moe_layer"][name] for r in runs["ranks"]]
+    for r, rec in enumerate(recs):
+        first, n = rec["first"], rec["grads"]["gate"].shape[0]
+        C.grad_close(rec["grads"]["router"].numpy(), ref["grads"]["router"], msg=f"rank {r}")
+        for bank in ("gate", "up", "down"):
+            C.grad_close(rec["grads"][bank].numpy(), ref["grads"][bank][first:first + n],
+                         msg=f"rank {r} {bank}")
+    C.grad_close(_assemble(recs, "dx", ref["dx"].shape), ref["dx"], msg="dx")
+    twice = ref["router_aux_twice"]
+    assert not np.allclose(recs[0]["grads"]["router"].numpy(), twice, rtol=2e-5,
+                           atol=1e-5 * float(np.abs(twice).max()))
+    if name == "sp2_ep2":
+        assert [rec["first"] for rec in recs] == [0, 0, 2, 2]
+
+
+@pytest.mark.parametrize("name", ["moe_ft_dp2_sp2", "moe_pt_dp2_sp2", "moe_ft_sp2_ep2",
+                                  "moe_pt_sp2_ep2"])
+def test_moe_steps_under_sp_match_jax(runs, name):
+    """The MoE VLM's finetune and PT steps under sp (each rank's decoder
+    routing over the data x seq group) against JAX's one-device steps."""
+    kind = name.split("_")[1]
+    C.check_moe_step(_case(runs, name), runs["ref"]["moe"][kind], kind)

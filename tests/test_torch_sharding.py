@@ -547,3 +547,71 @@ def test_offload_plan_matches_jax_on_seq_and_pipe_meshes(dp, sp, pp, tp):
     # the control: the mesh without its seq and pipe axes offloads, in both
     assert any(jax_plan().values())
     assert any(v is not None for v in port_plan(_rank_zero_plan(named, dp, tp)).values())
+
+
+# (dp, ep): meshes with an 'expert' axis (8 CPU devices at most)
+EP_MESHES = [(1, 2), (2, 2), (1, 4), (4, 2)]
+
+
+def _moe_phi3(mod):
+    """Phi3-mini + CLIP-L with JAX's dry-run MoE (E 4, top-2) (mod: the JAX
+    or the port's config module)."""
+    import dataclasses
+
+    cfg = mod.phi3_clip_vlm(distill=False)
+    return dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, moe_experts=4,
+                                                                moe_top_k=2))
+
+
+@pytest.mark.parametrize("dp, ep", EP_MESHES)
+def test_offload_plan_matches_jax_on_expert_meshes(dp, ep):
+    """JAX `plan_offload_layout` on make_mesh(dp, ep=) of a MoE Phi3-mini's
+    IFT moments (the moments' specs of JAX's plan): only a bank's spec
+    names 'expert', so `_covers_mesh` offloads a bank's moments where their
+    spec also names every other axis wider than 1, and keeps every dense
+    moment on the card. The port's `offload_shapes` of a rank's ZeroPlan
+    (its E/ep experts of each bank) gives `plan_offload_layout` the same,
+    leaf for leaf. The control: without its 'expert' axis the port's plan
+    differs (it would offload the dense moments too)."""
+    from jax.sharding import NamedSharding
+
+    from visper_lm_tpu.train import staged_update as jsu
+    from visper_lm_tpu_torch.train import staged_update as tsu
+
+    params = jax.eval_shape(lambda: jvlm.init_vlm(jax.random.PRNGKey(0), _moe_phi3(jconfig)))
+    group = tdist.AxisGroup(None, 0, ep)
+    with torch.device("meta"):
+        named = dict(VLM(_moe_phi3(tconfig), ep=group).named_parameters())
+    _, specs = _jax_plan(params, "finetune", dp, zero_params=False, zero_frozen=False,
+                         min_size=2 ** 16)
+    flat = dict(_flat(params))
+    mesh = jmesh.make_mesh(dp=dp, ep=ep, devices=jax.devices()[:dp * ep])
+    jshape, jns = {}, {}
+    for path, spec in specs.items():
+        for kind, dtype in (("mu", np.float32), ("nu", jnp.bfloat16)):
+            jshape[f"{kind}/{path}"] = jax.ShapeDtypeStruct(flat[path].shape, dtype)
+            jns[f"{kind}/{path}"] = NamedSharding(mesh, P(*spec))
+    out_s, out_n = jsu.plan_offload_layout(jshape, jns, mesh)
+    want = {k: isinstance(out_s[k], jsu.ChunkedHostArray)
+            or getattr(out_n[k], "memory_kind", None) == "pinned_host" for k in jshape}
+
+    mask = topt.trainable_mask(named.items(), "finetune")
+    moments, _, _, _ = tshd.plan_zero(named, mask, dp, expert_size=ep)
+    zero = tshd.ZeroPlan(None, 0, dp, moments, {}, ep=group)
+    shapes, pspecs, sizes = tsu.offload_shapes({n: named[n] for n in moments}, torch.float32,
+                                               False, zero)
+    got = tsu.plan_offload_layout(shapes, specs=pspecs, axis_sizes=sizes)
+    assert sizes["expert"] == ep
+    for key, placement in got.items():
+        kind, n = key.split("/", 1)
+        assert (placement is not None) == want[f"{kind}/{topt.jax_path(n)}"], key
+        if placement is not None:
+            assert ".moe_" in n and placement == (), key     # a rank's slice, one block
+    offloaded = {k.split("/", 1)[1] for k, v in got.items() if v is not None}
+    banks = {n for n in moments if ".moe_gate." in n or ".moe_up." in n or ".moe_down." in n}
+    assert offloaded == banks
+    # the control: the same plan without the 'expert' axis
+    del sizes["expert"]
+    blind = tsu.plan_offload_layout(shapes, specs=pspecs, axis_sizes=sizes)
+    assert {k for k, v in blind.items() if v is not None} != {k for k, v in got.items()
+                                                              if v is not None}

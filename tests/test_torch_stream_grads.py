@@ -147,11 +147,13 @@ def test_streamed_offloaded_step_matches_jax_stream_grads(jax_run):
 
 
 def test_stream_grads_rules(monkeypatch):
-    """JAX make_train_step's asserts, in check_step_options; and the one
-    place the levers still raise beside them: under expert parallelism
-    (ROADMAP C25: the offloaded update plans no 'expert' axis). Under
-    sequence and pipeline parallelism they run
-    (tests/test_torch_sequence_parallel.py, tests/test_torch_pipeline_parallel.py)."""
+    """JAX make_train_step's asserts, in check_step_options; and JAX's
+    streamed-layout assert: gradient streaming takes no MoE decoder, with or
+    without expert parallelism (its message, raised before any collective).
+    Under sequence and pipeline parallelism the levers run
+    (tests/test_torch_sequence_parallel.py, tests/test_torch_pipeline_parallel.py),
+    and offload_opt_state under expert parallelism too
+    (tests/test_torch_expert_parallel.py)."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     with pytest.raises(ValueError, match="single-microbatch"):
         tts.check_step_options(cpu, stream_grads=2, accum_steps=2)
@@ -174,14 +176,18 @@ def test_stream_grads_rules(monkeypatch):
 
     cfg = tconfig.tiny_test_vlm(distill=False)
     cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, moe_experts=4))
-    # a rank of an expert group of two, the raise before any collective
-    monkeypatch.setattr(tdist, "is_initialized", lambda: True)
-    for levers in (dict(offload_opt_state=True), dict(stream_grads=2)):
+    # one process, and a rank of an expert group of two: the raise comes
+    # before any collective
+    for ep in (False, True):
         model = init_vlm(cfg, device="cpu", seed=0)
-        model.decoder.ep = tdist.AxisGroup(None, 0, 2)
-        with pytest.raises(ValueError, match="C25"):
-            tts.make_train_step(cfg, topt.OptimizerConfig(**OPT), model,
-                                mesh=tmake_mesh(dp=1, ep=2, world=2), **levers)
+        mesh = None
+        if ep:
+            monkeypatch.setattr(tdist, "is_initialized", lambda: True)
+            model.decoder.ep = tdist.AxisGroup(None, 0, 2)
+            mesh = tmake_mesh(dp=1, ep=2, world=2)
+        with pytest.raises(ValueError, match=r"training-only layout \(no cache/MoE\)"):
+            tts.make_train_step(cfg, topt.OptimizerConfig(**OPT), model, mesh=mesh,
+                                offload_opt_state=True, stream_grads=2)
 
 
 def test_donate_params_false_raises(jax_run):

@@ -52,8 +52,6 @@ programs in each process, these spawn four torch ranks of a tiny model.
 import json
 import os
 import pickle
-import socket
-import subprocess
 import sys
 
 import numpy as np
@@ -85,6 +83,7 @@ from visper_lm_tpu_torch.utils.param import split_layer
 from visper_lm_tpu_torch.weights import from_jax_params
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import _torch_spawn as S  # noqa: E402
 from _torch_tp_worker import OPT, STEPS, TEACHERS  # noqa: E402
 
 torch.set_num_threads(2)
@@ -142,37 +141,14 @@ def _dataset(root):
         json.dump(records, f)
 
 
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("localhost", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def _spawn(workdir):
-    port = _free_port()
-    env = {k: v for k, v in os.environ.items() if not k.startswith("VISPER_")}
-    env.update(VISPER_COORDINATOR=f"localhost:{port}", VISPER_NUM_PROCESSES=str(WORLD),
-               PYTHONHASHSEED="0", OMP_NUM_THREADS="1")
-    worker = os.path.join(REPO, "tests", "_torch_tp_worker.py")
-    return [subprocess.Popen([sys.executable, worker, str(workdir)], cwd=REPO,
-                             env=dict(env, VISPER_PROCESS_ID=str(r)),
-                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for r in range(WORLD)]
+    return S.spawn("_torch_tp_worker.py", [workdir], WORLD, workdir, PYTHONHASHSEED="0")
 
 
-def _wait(procs):
+def _wait(procs, workdir):
     """Every rank's exit code 0 within SPAWN_TIMEOUT; a hang or a failure
-    fails the test (and kills the ranks)."""
-    try:
-        outs = [p.communicate(timeout=SPAWN_TIMEOUT) for p in procs]
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-        pytest.fail(f"a rank did not finish within {SPAWN_TIMEOUT} s")
-    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{err[-4000:]}"
+    fails the test (and kills the ranks: tests/_torch_spawn.py)."""
+    S.wait(procs, workdir, SPAWN_TIMEOUT)
 
 
 def _flat(tree):
@@ -243,7 +219,7 @@ def runs(tmp_path_factory):
                 state, m = step_j(state, dbatch)
                 metrics.append({k: float(v) for k, v in m.items()})
         ref[stage] = dict(params=_flat(state.params), metrics=metrics)
-    _wait(procs)
+    _wait(procs, workdir)
     ranks = [torch.load(workdir / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
     return dict(ranks=ranks, workdir=workdir, cfg_t=cfg_t, host=host, gen_ref=gen_ref,
                 gen_int8=gen_int8,

@@ -36,7 +36,6 @@ import dataclasses
 import json
 import math
 import os
-import socket
 import subprocess
 import sys
 import tempfile
@@ -155,12 +154,6 @@ def run_rank(rank: int, port: int, device: str) -> List[dict]:
     return out
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def dryrun_multichip(device: str = "cuda", timeout: float = 600.0) -> List[dict]:
     """Start the WORLD ranks of this module on gloo, computing on `device`
     ("cuda" or "cpu"), wait for all of them within `timeout` seconds
@@ -174,7 +167,9 @@ def dryrun_multichip(device: str = "cuda", timeout: float = 600.0) -> List[dict]
         if not torch.cuda.is_available():
             raise RuntimeError("the dry run asks for CUDA and no card is present (device='cpu' "
                                "runs it on the CPU)")
-    port = _free_port()
+    from visper_lm_tpu_torch.parallel.distributed import free_port
+
+    port = free_port()
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {k: v for k, v in os.environ.items() if not k.startswith("VISPER_")}
     env.update(OMP_NUM_THREADS="1", PYTHONHASHSEED="0",

@@ -15,17 +15,21 @@ banks `moe_gate` / `moe_up` / `moe_down` in JAX's (E, din, dout) layout, a
 rank's E/ep of them under expert parallelism, `Decoder.ep`). Each MoE block
 also returns its aux losses, and the decoder returns their mean over the
 layers as `moe_aux` (JAX's, which the train loss adds); the cache path
-returns them too (JAX drops them there). With `moe_data` (the data group,
-which the train step's loss and the Generator pass under data parallelism)
-capacity, priority and the aux are the global batch's; every other call
-routes over its own tokens. A remat policy saves nothing inside the MoE
-block (JAX names no site there). Under sequence or pipeline
-parallelism a rank holds a slice of the rows or a stage, so capacity would
-be the slice's: MoE raises there (ROADMAP C25), as it does on the streamed
-layout (JAX's assert). Under tensor parallelism the banks are replicated
-over the group and each rank runs the whole MoE MLP on the full hidden
-state after the row-parallel all-reduce (JAX's rules put no 'model' dim on
-them).
+returns them too (JAX drops them there). With `moe_data` (the routing
+group, `distributed.routing_group`: the data x seq ranks, which the train
+step's loss passes under data or sequence parallelism, and the data group
+the Generator passes) capacity, priority and the aux are the global
+batch's; every other call routes over its own tokens. Under sequence
+parallelism a rank holds T/sp rows, so a MoE forward there needs the
+routing group over its seq axis (else it raises), as JAX's layer sees the
+global arrays. Under pipeline parallelism a MoE stack is not pipelined
+(JAX's `_maybe_pipelined_stack` takes no MoE): it runs the plain loop, each
+foreign block gathered from its owner (under ep the owner's E/ep slice of
+the banks, the rank's own experts). A remat policy saves nothing inside the
+MoE block (JAX names no site there); the streamed layout raises (JAX's
+assert). Under tensor parallelism the banks are replicated over the group
+and each rank runs the whole MoE MLP on the full hidden state after the
+row-parallel all-reduce (JAX's rules put no 'model' dim on them).
 
 LoRA (`Decoder.forward(lora=...)`, JAX `_lora_linear`): the factors of each
 targeted linear, (A, B scaled) stacked over the layers (models/lora.py),
@@ -458,8 +462,8 @@ class DecoderBlock(nn.Module):
         quant_saves: gate and up pass through `quant_saved` /
         `dequant_saved` (the save_mlp_q8 policy); lora: this layer's
         {target: (A (din, r), B scaled (r, dout))}; seq: the decoder's
-        sequence-parallel group (h is the rank's rows); moe_data: the data
-        group a MoE block's routing spans (ops/moe.py).
+        sequence-parallel group (h is the rank's rows); moe_data: the
+        routing group a MoE block's routing spans (ops/moe.py).
 
         A MoE block returns (h, its aux losses (3,) f32 in `MOE_AUX_KEYS`
         order), a dense block h."""
@@ -655,10 +659,11 @@ class Decoder(nn.Module):
         lora: {target: (A (L, din, r), B scaled (L, r, dout))}, the side path
         of every targeted linear (models/lora.py `lora_side_factors`; whole
         under tp, `lora_side`, and under pp). moe_data (a
-        parallel/distributed.AxisGroup over the data axis, or None): the
-        group a MoE block's routing spans, so that capacity, priority and
-        the aux are the global batch's (the train step's loss under data
-        parallelism); None routes over this call's tokens.
+        parallel/distributed.AxisGroup over the data x seq ranks,
+        `routing_group`, or None): the group a MoE block's routing spans,
+        so that capacity, priority and the aux are the global batch's (the
+        train step's loss under data or sequence parallelism); None routes
+        over this call's tokens (under sp a MoE decoder raises without it).
 
         q_offset is the chunk's first slot: a Python int, a 0-d tensor (one
         position for the whole batch) or a (B,) tensor (a position per
@@ -683,10 +688,10 @@ class Decoder(nn.Module):
                 raise ValueError("layer taps are a training/prefill feature (no cache)")
         seq, pipe = self.seq, self.pipe
         moe = cfg.moe_experts > 0
-        if moe and (seq is not None or pipe is not None):
-            raise ValueError("a MoE decoder under sequence or pipeline parallelism: ROADMAP C25 (a "
-                             "rank holds a slice of the rows or a pipeline stage, so the MoE "
-                             "layer's capacity and priority would not be the global batch's)")
+        if moe and seq is not None and (moe_data is None or moe_data.inner != seq.size):
+            raise ValueError("a MoE decoder under sequence parallelism routes over the data x seq "
+                             "group: pass moe_data=distributed.routing_group(mesh) (a rank's rows "
+                             "alone would give the slice's capacity and priority)")
         if seq is not None and cache is not None:
             raise ValueError("a cache under sequence parallelism: serving runs whole sequences "
                              "on each rank, not the rank's rows")
@@ -731,9 +736,9 @@ class Decoder(nn.Module):
         taps = {}
         aux_sum: List[torch.Tensor] = []
         b = inputs_embeds.shape[0]
-        # JAX `_maybe_pipelined_stack`'s predicate
+        # JAX `_maybe_pipelined_stack`'s predicate (a MoE stack takes the plain loop)
         pipelined = (pipe is not None and pipe.size > 1 and not tap_layers and cache is None
-                     and cfg.num_layers % pipe.size == 0 and b % pipe.size == 0
+                     and not moe and cfg.num_layers % pipe.size == 0 and b % pipe.size == 0
                      and isinstance(q_offset, int))
         if pipelined:
             from visper_lm_tpu_torch.parallel.pipeline import n_micro_for, pipeline_scan

@@ -37,15 +37,22 @@ fed to the experts and the gates pass `copy_to_group` (identity forward,
 gradient all-reduced), so the router's and the input's gradients are the
 one-process ones on every rank: not partial, not counted ep times.
 
-Global-batch semantics under data parallelism (`data`, an `AxisGroup` over
-the data axis). JAX computes capacity, priority and the aux losses over
-the global batch; a port rank holds its shard. So capacity comes from
-the global N (the local N times the data size), each rank's slots are
-offset by the per-expert route counts of the data ranks before it (an
-all-gather of E integers), and f_e, p_e, the z-loss and the kept count
-are averaged over the group (p_e and the z-loss through an autograd
-all-reduce). The aux values are the global batch's, the same on every
-data rank.
+Global-batch semantics under data and sequence parallelism (`data`, the
+routing group: an `AxisGroup` over the data x seq ranks,
+`distributed.routing_group`, data-major, `data.inner` the seq size).
+JAX computes capacity, priority and the aux losses over the global batch;
+a port rank holds its data shard's rows, and under sp only its T/sp rows
+of each (parallel/sequence.py), so JAX's token-major order (b, t)
+interleaves the seq ranks' slices inside every row. Capacity comes from
+the global N (the local N times the group's size). The slot of a route to
+expert e at the rank's token (b, t) is its running count among the rank's
+routes of row b, plus the routes to e of every data rank before this one
+(all their rows), of every seq rank of this data rank in rows b' < b, and
+of the seq ranks before this one in row b: one all-gather of the (B, E)
+route counts a row of every rank of the group (dp alone is the case sp =
+1). f_e, p_e, the z-loss and the kept count are averaged over the group
+(p_e and the z-loss through an autograd all-reduce). The aux values are
+the global batch's, the same on every rank of the group.
 """
 
 from __future__ import annotations
@@ -92,14 +99,19 @@ class ExpertBank(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """U(-din^-0.5, din^-0.5), as JAX `init_moe_mlp`, drawn for all E
-        experts (so a rank's slice holds the one-device model's numbers)."""
+        experts (so a rank's slice holds the one-device model's numbers). A
+        bank with no storage (a block another pipeline stage owns) is drawn
+        all the same and dropped, so the banks after it get the whole
+        model's numbers."""
         e, din, dout = self.num_experts, self.kernel.shape[1], self.kernel.shape[2]
-        if self.parts == 1:
+        held = self.kernel.untyped_storage().nbytes() > 0
+        if self.parts == 1 and held:
             self.kernel.uniform_(-din ** -0.5, din ** -0.5, generator=generator)
             return
         whole = torch.empty((e, din, dout), dtype=self.kernel.dtype, device=self.kernel.device)
         whole.uniform_(-din ** -0.5, din ** -0.5, generator=generator)
-        self.kernel.copy_(whole[self.first:self.first + self.kernel.shape[0]])
+        if held:
+            self.kernel.copy_(whole[self.first:self.first + self.kernel.shape[0]])
 
 
 class Router(nn.Linear):
@@ -180,6 +192,26 @@ def capacity_of(n: int, k: int, e: int, capacity_factor: float) -> int:
     return max(1, int(math.ceil(n * k / e * capacity_factor)))
 
 
+def route_offsets(rows: torch.Tensor, data: AxisGroup) -> torch.Tensor:
+    """(B, E): for each of this rank's rows b and expert e, the routes to e
+    that the global token-major order puts before the rank's first token of
+    row b, less the rank's own routes in rows before b (its running count
+    already holds those). rows: this rank's route counts (B, E) a row.
+    Collective over the routing group `data` (data-major, `data.inner` seq
+    ranks a data rank): those of the data ranks before this one (every row),
+    of this data rank's seq ranks in rows before b, and of its seq ranks
+    before this one in row b."""
+    b, e = rows.shape
+    sp = data.inner
+    counts = distributed.all_gather(rows[None].contiguous(), 0, data.group)
+    counts = counts.reshape(data.size // sp, sp, b, e)
+    d, s = divmod(data.rank, sp)
+    mine = counts[d]                                                  # (sp, B, E)
+    per_row = mine.sum(0)
+    return (counts[:d].sum((0, 1, 2))[None] + per_row.cumsum(0) - per_row
+            + mine[:s].sum(0) - (rows.cumsum(0) - rows))
+
+
 def moe_mlp(
     params: Mapping[str, torch.Tensor],
     x: torch.Tensor,                     # (B, T, D)
@@ -193,8 +225,10 @@ def moe_mlp(
     dropped_frac} f32 0-d). params: "router" (D, E) f32 and the rank's
     expert banks "gate" / "up" (E / ep, D, F) and "down" (E / ep, F, D).
     ep: the expert group (its rank runs experts [rank E/ep, ...)); data:
-    the data group whose ranks hold the other shards of the batch (capacity,
-    priority and aux over the global batch). Collective under either."""
+    the routing group whose ranks hold the other rows of the global batch
+    (`distributed.routing_group`: the data shards, and under sp each row's
+    other slices; capacity, priority and aux over the global batch).
+    Collective under either."""
     b, t, d = x.shape
     router = params["router"]
     e = router.shape[-1]
@@ -207,24 +241,24 @@ def moe_mlp(
     if e_local * (1 if ep is None else ep.size) != e:
         raise ValueError(f"moe_mlp: {e_local} experts a rank x ep "
                          f"{1 if ep is None else ep.size} != the router's {e}")
-    dp = 1 if data is None else data.size
+    ranks = 1 if data is None else data.size
 
     logits = xf.float() @ router.float()                              # (N, E) f32
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = route(probs, k)
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp(min=1e-9)
-    capacity = capacity_of(n * dp, k, e, capacity_factor)
+    capacity = capacity_of(n * ranks, k, e, capacity_factor)
 
     # slot of each (token, k) route in its expert's buffer: the running count
-    # over the flattened (N K) priority order (earlier tokens win), after the
-    # routes of the data ranks before this one
+    # over the flattened (N K) priority order (earlier tokens win); its
+    # global position adds the routes the group's other ranks put before it
     flat = gate_idx.reshape(-1)                                       # (N K,)
     onehot = F.one_hot(flat, e)                                       # (N K, E) int64
     slot = (onehot.cumsum(0) - onehot).gather(1, flat[:, None])[:, 0]
     pos = slot
-    if dp > 1:
-        counts = distributed.all_gather(onehot.sum(0)[None].contiguous(), 0, data.group)
-        pos = slot + counts[:data.rank].sum(0)[flat]
+    if ranks > 1:
+        row = torch.arange(n * k, device=x.device) // (t * k)
+        pos = slot + route_offsets(onehot.reshape(b, t * k, e).sum(1), data)[row, flat]
     keep = pos < capacity                                             # (N K,)
 
     # dispatch by index: each kept route of this rank's experts writes its
@@ -257,11 +291,11 @@ def moe_mlp(
     p_e = probs.mean(0)
     z = torch.logsumexp(logits, dim=-1).square().mean()
     kept = keep.float().sum()
-    if dp > 1:
+    if ranks > 1:
         both = torch.cat([p_e, z[None], f_e, kept[None]])
         both = distributed.all_reduce_autograd(both, data.group)
-        p_e, z, f_e = both[:e] / dp, both[e] / dp, both[e + 1:2 * e + 1] / dp
+        p_e, z, f_e = both[:e] / ranks, both[e] / ranks, both[e + 1:2 * e + 1] / ranks
         kept = both[-1]
     aux = {"lb_loss": e * (f_e * p_e).sum(), "z_loss": z,
-           "dropped_frac": 1.0 - kept / (n * dp * k)}
+           "dropped_frac": 1.0 - kept / (n * ranks * k)}
     return out.reshape(b, t, d).to(x.dtype), aux

@@ -8,7 +8,7 @@ operators, which GSPMD writes for JAX), sequence parallelism
 
 Data parallelism and ZeRO-1/2/3 (ROADMAP A10a), tensor parallelism with
 serving and LoRA on it (A10b), sequence and pipeline parallelism with the
-memory levers and LoRA on them (A10c) and expert parallelism (A10d) are
-ported; a MoE decoder under sequence or pipeline parallelism, and the
-memory levers under expert parallelism, raise naming ROADMAP C25.
+memory levers and LoRA on them (A10c) and expert parallelism with the MoE
+decoder under every axis and the offloaded moments (A10d) are ported; a
+MoE layer routes over the data x seq group (`distributed.routing_group`).
 """

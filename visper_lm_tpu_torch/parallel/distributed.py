@@ -19,9 +19,10 @@ step's collectives itself; they are all here:
   * the process groups of the mesh's axes: `data_group` (the ranks that
     differ only in their data coordinate), `model_group` (only in their
     model coordinate: a tensor-parallel group), `seq_group` (a
-    sequence-parallel group), `pipe_group` (a pipeline's stages) and
+    sequence-parallel group), `pipe_group` (a pipeline's stages),
     `expert_group` (the ranks that hold the same tokens and split the
-    experts), made once per set of ranks;
+    experts) and `routing_group` (the data x seq ranks: one global batch's
+    rows, which a MoE layer routes over), made once per set of ranks;
   * the collectives the step needs: `all_reduce` (a sum or a max), `reduce_scatter` and
     `all_gather` along a dim, `all_gather_autograd` (gradients flow back,
     summed over the ranks), `all_reduce_autograd` (every rank's loss reads
@@ -76,12 +77,15 @@ class AxisGroup:
     process group (None: every process), the rank's index in it and its
     size. `AxisGroup(*model_group(mesh))` is a tensor-parallel group
     (parallel/tensor.TensorParallel), `AxisGroup(*expert_group(mesh))` an
-    expert-parallel one, `AxisGroup(*data_group(mesh))` the data group a
-    MoE layer routes over (ops/moe.py)."""
+    expert-parallel one, `routing_group(mesh)` the data x seq group a MoE
+    layer routes over (ops/moe.py). A group over two axes counts its ranks
+    outer-major: `inner` is the inner axis's size (the seq axis's in the
+    routing group; 1 for a group of one axis)."""
 
     group: Any
     rank: int
     size: int
+    inner: int = 1
 
 
 def init_distributed(
@@ -138,6 +142,36 @@ def init_distributed(
         torch.cuda.set_device(local)
     dist.init_process_group(backend, init_method=f"tcp://{address}", world_size=world, rank=rank)
     _state.update(initialized=True, local_index=local)
+
+
+def free_port(host: str = "localhost") -> int:
+    """A free port for a coordinator (rank 0's store, `init_distributed`'s
+    address), below the kernel's ephemeral range (`ip_local_port_range`,
+    32768-60999 by default). A port of that range can be handed to any
+    `bind(port 0)` of another process (gloo's pair listeners, a client's
+    socket) between this check and the store's own bind; a port below it
+    is taken only by another explicit choice. A random one of those free
+    now; bind(0) where the range leaves no room below it."""
+    import random
+    import socket
+
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    pick = random.SystemRandom()
+    for _ in range(64 if low > 2048 else 0):
+        port = pick.randrange(max(1024, low // 2), low)
+        with socket.socket() as s:
+            try:
+                s.bind((host, port))
+            except OSError:
+                continue
+        return port
+    with socket.socket() as s:
+        s.bind((host, 0))
+        return s.getsockname()[1]
 
 
 def is_initialized() -> bool:
@@ -236,6 +270,18 @@ def expert_group(mesh: Mesh):
     coordinates, which read the same rows (the process alone without the
     axis)."""
     return _axis_group(mesh, mesh.expert_group_ranks)
+
+
+def routing_group(mesh: Mesh) -> Optional[AxisGroup]:
+    """The group whose ranks hold the rows of one global batch between them:
+    the data x seq ranks of this process's pipe, expert and model
+    coordinates, data-major (`inner`: the seq size), as an `AxisGroup`; the
+    group a MoE layer routes over (capacity, priority and aux of the global
+    batch, ops/moe.py). None when both axes are 1 wide. Collective: every
+    process makes every group."""
+    if mesh.data_size * mesh.seq_size == 1:
+        return None
+    return AxisGroup(*_axis_group(mesh, mesh.routing_group_ranks), inner=mesh.seq_size)
 
 
 def data_shard(mesh: Optional[Mesh] = None) -> Tuple[int, int]:

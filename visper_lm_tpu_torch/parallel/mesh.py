@@ -103,6 +103,15 @@ class Mesh:
         (its expert-parallel group: the same tokens, each its experts)."""
         return self.axis_group_ranks(rank, EXPERT_AXIS)
 
+    def routing_group_ranks(self, rank: int) -> Tuple[int, ...]:
+        """The ranks that share `rank`'s coordinates but for the data and
+        seq axes (the rows of one global batch, which a MoE layer routes
+        over together), data-major: group rank d·sp + s holds data shard d,
+        seq rows s."""
+        c = self.coords(rank)
+        index = tuple(slice(None) if a in (DATA_AXIS, SEQ_AXIS) else c[a] for a in self.axis_names)
+        return tuple(int(r) for r in self.ranks[index].reshape(-1))
+
 
 def make_mesh(
     dp: Optional[int] = None,

@@ -42,7 +42,10 @@ slices are gathered into the parameters after the loop. Under sequence or
 pipeline parallelism no spec covers the 'seq' or 'pipe' axis, so every
 tensor stays on the card (JAX's plan, ROADMAP C32); the update, the seq sum
 and the stages' global norm are `AdamW`'s (`foreign`: the blocks other
-stages hold).
+stages hold). Under expert parallelism a bank's spec names 'expert' on its
+experts' dim, so a rank offloads its E/ep slice of a bank's moments whole
+(one block: dim 0 is split) where the spec covers the mesh; the norm adds
+the banks' shares over the expert group, as `AdamW`'s does.
 
 On the CPU the "host" tensors are ordinary CPU tensors and every copy is the
 identity, as JAX's host put is a no-op off the TPU: the blocks are updated
@@ -131,11 +134,14 @@ def offload_shapes(params: Mapping[str, torch.Tensor], mu_dtype: torch.dtype, ma
     """What `plan_offload_layout` plans an optimizer's state on: ({state
     key: (whole shape, dtype)}, {state key: spec}, the mesh's axis sizes)
     of the moments (and masters) of `params` (tp-local tensors under a zero
-    plan with tensor parallelism). The axis sizes are the mesh's 'data',
-    'model', 'seq' and 'pipe': no spec names 'seq' or 'pipe' (JAX's
-    parameter rules split no parameter over them), so on a mesh where either
-    is wider than 1 every state tensor stays on the card, as JAX's
-    `_covers_mesh` plans it (ROADMAP C32)."""
+    plan with tensor parallelism, a MoE bank the rank's experts under expert
+    parallelism). The axis sizes are the mesh's 'data', 'model', 'seq',
+    'pipe' and 'expert': no spec names 'seq' or 'pipe' (JAX's parameter
+    rules split no parameter over them), so on a mesh where either is wider
+    than 1 every state tensor stays on the card, as JAX's `_covers_mesh`
+    plans it (ROADMAP C32); only a bank's spec names 'expert', so where that
+    axis is wider than 1 only the banks' moments can go to the host (those
+    whose spec also names every other axis wider than 1)."""
     shapes, specs = {}, {}
     for n, p in params.items():
         pl = None if zero is None else zero.moments[n]
@@ -146,7 +152,7 @@ def offload_shapes(params: Mapping[str, torch.Tensor], mu_dtype: torch.dtype, ma
             specs[f"{kind}/{n}"] = () if pl is None else pl.spec(len(whole))
     axis_sizes = {} if zero is None else {
         "data": zero.size, "model": _size(zero.tp), "seq": _size(zero.seq),
-        "pipe": _size(zero.pipe)}
+        "pipe": _size(zero.pipe), "expert": _size(zero.ep)}
     return shapes, specs, axis_sizes
 
 

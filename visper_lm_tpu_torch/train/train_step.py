@@ -19,7 +19,8 @@ card block by block (train/staged_update.py; `blockwise_staging=False`
 plans every tensor as one block, JAX's whole-tree staging layout); `stream_grads=N` cuts the decoder blocks into N
 segments (unioned with the tap boundaries) whose weight gradients leave
 for the host as each segment's backward ends (models/decoder.GradStream).
-Both run under sequence and pipeline parallelism too: no parameter spec
+Both run under sequence and pipeline parallelism too (the offload under
+expert parallelism too): no parameter spec
 covers 'seq' or 'pipe', so JAX's plan keeps every state tensor on the card
 there (ROADMAP C32); a streamed segment is summed over the seq group before
 the data group's reduce, and each pipeline stage streams the segments of
@@ -71,14 +72,22 @@ checkpoint gathers the stages: the files are one device's.
 A MoE decoder (cfg.decoder.moe_experts > 0) adds JAX's auxiliaries to the
 loss, moe_aux_weight x the load-balance loss + 1e-3 x the z-loss (per-layer
 means), and reports them as `moe_lb_loss`, `moe_z_loss` and
-`moe_dropped_frac`. Under data parallelism the loss has the decoder route
-over the global batch (`moe_data`, the data group, ops/moe.py), in the
-step's forward and backward only: the aux values are the global batch's
-on every rank, and each rank's loss and metrics take 1/dp
-of them. Expert parallelism (a mesh with an 'expert' axis; the model built
-for the rank's experts: `init_vlm(..., ep=)`): ZeRO runs over the data
-group of the ranks that hold the same experts, and a bank's share of the
-norm is added over the expert group (`ZeroPlan.ep`).
+`moe_dropped_frac`. Under data or sequence parallelism the loss has the
+decoder route over the global batch (`moe_data`, the data x seq routing
+group, `distributed.routing_group`; ops/moe.py), in the step's forward and
+backward only: the aux values are the global batch's on every rank, and
+each rank's loss and metrics take 1/(dp sp) of them, so the router's
+gradient, summed over the data and seq groups, counts the aux once. Under
+pipeline parallelism a MoE decoder runs the plain loop (JAX pipelines no
+MoE stack): every pipe rank computes the whole loss, aux included, and the
+stages sum nothing. Expert parallelism (a mesh with an 'expert' axis; the
+model built for the rank's experts: `init_vlm(..., ep=)`): ZeRO runs over
+the data group of the ranks that hold the same experts, a bank's share of
+the norm is added over the expert group (`ZeroPlan.ep`), and
+`offload_opt_state` plans the 'expert' axis as JAX's `_covers_mesh` does:
+on a mesh whose only axis wider than 1 is 'expert', the banks' moments go
+to the host and the dense ones stay on the card. `stream_grads` takes no
+MoE decoder (JAX's streamed layout asserts against it).
 """
 
 from __future__ import annotations
@@ -127,15 +136,17 @@ def make_loss_fn(
     remat_policy: Optional[str] = None,
     use_kernel: Optional[bool] = None,
     dp=None,
+    moe_group: Optional[AxisGroup] = None,
 ):
     """loss_fn(model, batch, teachers=None) -> (total, metrics), batch tensors
     on the model's device. use_kernel=False forces plain attention in the
     decoder and in the teachers' window attention. dp (data parallelism: the
     step's ZeRO plan): the batch is this rank's shard, and the loss is its
-    share of the global batch's loss; a MoE decoder routes over the global
-    batch (the data group passed as `moe_data`)."""
-    moe_data = (AxisGroup(dp.group, dp.rank, dp.size)
-                if cfg.decoder.moe_experts and dp is not None and dp.size > 1 else None)
+    share of the global batch's loss. moe_group (`distributed.routing_group`:
+    the data x seq ranks, None for one): a MoE decoder routes over the
+    global batch (passed as `moe_data`), whose aux each rank of the group
+    takes its share of."""
+    moe_data = moe_group if cfg.decoder.moe_experts else None
 
     def loss_fn(model: VLM, batch: Dict[str, torch.Tensor], teachers=None):
         b, t = batch["labels"].shape
@@ -162,9 +173,11 @@ def make_loss_fn(
         moe_aux = out.get("moe_aux")
         if moe_aux is not None:
             # JAX's Switch auxiliaries: 0.01 (moe_aux_weight) x balance + 1e-3
-            # x z; the global batch's values, of which each data rank takes
-            # its share
-            share = 1 if dp is None else dp.size
+            # x z; the global batch's values, of which each rank of the
+            # routing group takes its share (the router's gradient is summed
+            # over the data and seq groups; the pipe ranks each compute the
+            # whole loss and sum nothing)
+            share = 1 if moe_data is None else moe_data.size
             total = total + (cfg.decoder.moe_aux_weight * moe_aux["lb_loss"]
                              + 1e-3 * moe_aux["z_loss"]) / share
             for k in ("lb_loss", "z_loss", "dropped_frac"):
@@ -443,6 +456,9 @@ def make_train_step(
     device = next(model.parameters()).device
     check_step_options(device, accum_steps=accum_steps, offload_opt_state=offload_opt_state,
                        blockwise_staging=blockwise_staging, stream_grads=stream_grads)
+    if stream_grads and cfg.decoder.moe_experts:
+        raise ValueError("blocks_chunks is a training-only layout (no cache/MoE): stream_grads "
+                         "takes no MoE decoder (JAX asserts it on the streamed layout)")
     mask = trainable_mask(model.named_parameters(), opt_cfg.stage)
     # the blocks another pipeline stage owns: planned, never held or trained here
     foreign = set(foreign_names(model))
@@ -453,7 +469,7 @@ def make_train_step(
         teacher_params.requires_grad_(False)
     if model.decoder.zero3 is not None:
         raise ValueError("make_train_step: the model's parameters are already ZeRO-3 sharded")
-    zero = sharded = teacher_sharded = None
+    zero = sharded = teacher_sharded = routing = None
     tp, pipe, ep = model.decoder.tp, model.decoder.pipe, model.decoder.ep
     if mesh is not None:
         if not distributed.is_initialized():
@@ -471,10 +487,8 @@ def make_train_step(
             raise ValueError(
                 f"make_train_step: the mesh's expert axis is {mesh.expert_size} wide, the model "
                 f"is built for ep {1 if ep is None else ep.size} (init_vlm(..., ep=))")
-        if ep is not None and (offload_opt_state or stream_grads):
-            raise ValueError("offload_opt_state / stream_grads under expert parallelism: ROADMAP "
-                             "C25 (the offloaded update plans no 'expert' axis)")
         seq = sequence_parallel(mesh)
+        routing = distributed.routing_group(mesh) if cfg.decoder.moe_experts else None
         model.decoder.seq = seq
         group, rank, size = distributed.data_group(mesh)
         named = dict(model.named_parameters())
@@ -521,7 +535,7 @@ def make_train_step(
     return TrainStep(
         model, teacher_params, trainable, optimizer,
         make_loss_fn(cfg, teacher_fn=teacher_fn, remat=remat, remat_policy=remat_policy,
-                     use_kernel=use_kernel, dp=zero),
+                     use_kernel=use_kernel, dp=zero, moe_group=routing),
         accum_steps=accum_steps, grad_stream=stream, zero=zero, sharded=sharded,
         teacher_sharded=teacher_sharded,
     )

@@ -261,8 +261,7 @@ def init_weights_(module: nn.Module, generator: torch.Generator,
         if isinstance(m, Router):
             draw(m.weight, lambda t, shape: t.normal_(0.0, 0.02, generator=generator))
         elif isinstance(m, ExpertBank):
-            if held(m.kernel):
-                m.reset_parameters(generator)
+            m.reset_parameters(generator)
         elif isinstance(m, nn.Linear):
             draw(m.weight, lambda t, shape: t.uniform_(-shape[1] ** -0.5, shape[1] ** -0.5,
                                                        generator=generator))
