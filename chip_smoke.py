@@ -59,8 +59,12 @@ Phases, each of which raises (exit code != 0) when it fails:
      0.05 x max|logits| (bf16 through 32 layers). The decode chunk keeps its
      step and slot on the device: the same prefill and cache decoded with a
      Python-int q_offset must give the same tokens and cache, bit for bit
-     (the same arithmetic), and generate() the same tokens;
-  5. serving profile: device time by kernel for one prefill and one decode chunk;
+     (the same arithmetic), and generate() the same tokens. Timed as
+     tools/bench_decode.py (`measure`) times it: the prefill alone, the
+     decode chunks alone after a warm chunk, then generate end to end (the
+     same timing in phases 6, 10, 11 and 19);
+  5. serving profile: device time by kernel for one prefill and one decode chunk
+     (of PROFILE_CHUNK = 4 tokens, as phase 6's, for the profiler's host time);
   6. quantized serving on the same model and batch: AWQ activation RMS over
      the batch's spliced embeddings (`decoder_act_rms`), then int8 KV +
      calibrated w4a16 weights through `Generator.generate`: 8 x 16 tokens, B5
@@ -73,8 +77,10 @@ Phases, each of which raises (exit code != 0) when it fails:
      with B5's share of the device time;
   7. training path: config #1's PT distillation step (the same VLM plus the
      frozen DINOv2-L, CLIP-H and Swin-L teachers computing their targets in
-     the step, bf16, B4 x T1024) through `make_train_step`: one warm-up step,
-     then 3 timed steps. Each step must launch B1, B2 and B3 once per decoder
+     the step, bf16, B4 x T1024; tools/bench.py's batch, `bench_batch`, which
+     phases 8, 11, 16 and 19 also take) through `make_train_step`, timed by
+     tools/bench.py's `time_steps`: one warm-up step, then 3 steps between
+     two synchronizes. Each step must launch B1, B2 and B3 once per decoder
      layer (32 each) and B4 once per Swin block and teacher micro-batch (48);
      the loss must be finite and change from step 2 on (update 1 has lr 0); a
      frozen decoder weight must not change; at B1 the step's loss and
@@ -103,6 +109,15 @@ Phases, each of which raises (exit code != 0) when it fails:
      full f32 logits'. Two updates
      at B1 with f32 master weights: every trainable equals its master
      rounded to its dtype;
+ 8b. the measurement tools on what phases 7-8 hold (`tools_phase`):
+     tools/bench_teacher_pattern.py on phase 7's bf16 teachers at 336 / 224 /
+     768 px (8 images, one timed pass): every teacher's per-image rows within
+     ROW_BOUND (relative Frobenius 2e-2) of its batched rows, B4 once a
+     Swin-L block a call (432); serve/speculative._bench at its full-width
+     decoders (target 32 x 3072, draft 4 x 1024, seeded) with
+     TOOLS_SPEC_ITERS = 5 iterations: finite positive timings and
+     break-even; tools/bench_input_pipeline.py on TOOLS_PIPELINE_IMAGES = 32
+     PNGs (its default 192): a positive rate and a finite paced step;
   9. engine path: the continuous-batching `Engine` at bench_engine.py's
      defaults (8 slots, max_len 1536, decode quantum 8, admission groups of
      8 with a deferral of 4, prompt bucket 128; int8 KV + w8a16; phase 4's
@@ -110,8 +125,9 @@ Phases, each of which raises (exit code != 0) when it fails:
      ENGINE_LAYERS = 2 of 32 blocks to keep the script inside its time
      limit: the per-layer counts
      below are of those) serves bench_engine.py's 32
-     requests (13 system ids, one image, 16-63 text tokens, 8-127 new tokens
-     from np.random.default_rng(0)) after a warm-up, twice, in turns with
+     requests (tools/bench_engine.py `request_mix`: 13 system ids, one image,
+     16-63 text tokens, 8-127 new tokens from np.random.default_rng(0);
+     phase 17 (e) takes its first 8) after a warm-up, twice, in turns with
      the batch loop (bench_engine.py measurement 2: a Generator per batch of
      8, each batch decoding to its longest request): engine, loop, loop,
      engine. Each engine run: every request gets exactly its max_new_tokens
@@ -531,6 +547,11 @@ ENGINE = dict(num_slots=8, max_len=1536, decode_quantum=8, admit_group=8, admit_
 ENGINE_REQUESTS = 32
 ENGINE_LAYERS = 2              # phase 9 runs phase 4's model cut in depth (time)
 ENGINE_CHUNK = 256             # the chunked-prefill check's prefill_chunk
+PROFILE_CHUNK = 4              # phases 5-6: tokens in a profiled decode chunk (time)
+# phase 8b: the measurement tools
+TOOLS_TEACHER_BATCH = 8        # bench_teacher_pattern's default batch (one timed pass)
+TOOLS_SPEC_ITERS = 5           # speculative._bench's iterations (its default 20)
+TOOLS_PIPELINE_IMAGES = 32     # bench_input_pipeline's --n (its default 192)
 # phase 10: Llama-3-8B + CLIP-L through the user API
 LLAMA3_KEYS = ("shape", "kernel", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
@@ -576,7 +597,7 @@ TP_GEN_LAYERS = 8              # (a) Phi3-mini cut in depth (time)
 TP_RECIPE_LAYERS, TP_RECIPE_STEPS = 2, 2   # (c) Llama-3-8B cut in depth, steps
 TP_TIMEOUT = 420               # s for each spawn's whole run, from its release
 HOLD_TIMEOUT = 900             # s a held rank waits for its release
-TP_ENGINE_REQUESTS = 8         # (e) engine_workload's first requests
+TP_ENGINE_REQUESTS = 8         # (e) the first requests of bench_engine's request_mix
 TP_SPEC_TOKENS, TP_BEAMS = 8, 2   # (f) new tokens at batch 1; beams
 # phase 18: sequence and pipeline parallelism
 SP_T, SP_LAYERS = 8192, 2      # (a)-(b): Llama-3-8B at B1 x T8192, sp 2; (b) cut in depth (time)
@@ -1123,57 +1144,6 @@ def decode_case(name, b, nq, nkv, h, s, quant, starts, lens, gen, da, quantize_h
     return rec
 
 
-def timed_generate(generator, batch, gen_cfg, batch_size: int = BATCH,
-                   new_tokens: int = NEW_TOKENS):
-    """Prefill and generate timed warm (host clock around work that ends in a
-    synchronise), as phase 4 does."""
-    t0 = time.perf_counter()
-    generator.prefill(batch)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    generator.generate(batch)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
-    steps = -(-new_tokens // gen_cfg.decode_chunk) * gen_cfg.decode_chunk
-    return dict(
-        prefill_ms=prefill_s * 1e3, decode_ms_per_token=(gen_s - prefill_s) / steps * 1e3,
-        generate_s=gen_s, tokens_per_s=batch_size * new_tokens / gen_s, decode_steps=steps,
-    )
-
-
-def train_batch(cfg, batch_size: int, seq_len: int, seed: int = 0):
-    """bench.py's PT batch (`build_batch` + `add_teacher_inputs`), in numpy
-    from the same seeds (seed 0; another seed gives another batch of the
-    same kind): right-padded splice plans, images, per-task masks, and the
-    three teachers' pixel tensors."""
-    from visper_lm_tpu_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
-    from visper_lm_tpu_torch.data.collate import build_splice_plan, collate_plans
-
-    rng = np.random.default_rng(seed)
-    vocab, ns = cfg.decoder.vocab_size, cfg.num_sys_tokens
-    plans = []
-    for _ in range(batch_size):
-        text_len = int(rng.integers(24, 48))
-        ids = (list(rng.integers(3, vocab - 10, size=ns)) + [IMAGE_TOKEN_INDEX]
-               + list(rng.integers(3, vocab - 10, size=text_len)))
-        labels = [IGNORE_INDEX] * (ns + 1) + ids[ns + 1:]
-        plans.append(build_splice_plan(
-            ids, labels, seq_len, num_image_tokens=cfg.num_image_tokens,
-            num_task_tokens=cfg.distill.num_task_tokens,
-            num_tasks=len(cfg.distill.task_order()),
-        ))
-    side = cfg.convnext.image_size if cfg.use_convnext_tower else cfg.vision.image_size
-    img = rng.normal(size=(batch_size, side, side, 3))
-    batch = collate_plans(plans, images=img.astype(np.float32))
-    for tcfg in cfg.distill.tasks:
-        batch[f"{tcfg.task}_mask"] = np.ones((batch_size,), np.float32)
-    rng = np.random.default_rng(seed + 1)
-    for key, size in (("depth_images", 336), ("gen_images", 224), ("seg_images", 768)):
-        batch[key] = rng.normal(size=(batch_size, size, size, 3)).astype(np.float32)
-    return batch
-
-
 def profile_window(name: str, fn, top: int = 10, match=()) -> dict:
     """Device time of one call of fn by kernel (torch.profiler), and the
     device's idle share of the same call's wall time timed without the
@@ -1216,6 +1186,17 @@ def profile_window(name: str, fn, top: int = 10, match=()) -> dict:
     return out
 
 
+def short_chunk(generator, tokens: int = PROFILE_CHUNK):
+    """A view of `generator` whose decode chunk is `tokens` long, for a
+    profile: the profiler's host cost grows with the launches it records
+    (15.9 / 22.1 s for phases 5-6's 16-token chunks on a slow host)."""
+    import dataclasses
+
+    view = copy.copy(generator)
+    view.gen_cfg = dataclasses.replace(generator.gen_cfg, decode_chunk=tokens)
+    return view
+
+
 def loss_and_grads(loss_fn, model, batch, teachers, params):
     """One forward and backward without an update: (loss, grads of params)."""
     total, _ = loss_fn(model, batch, teachers)
@@ -1250,6 +1231,7 @@ def trainer_phase(cfg, model, teachers, tbatch, reset_counts, counts):
 
     from visper_lm_tpu_torch.models.decoder import REMAT_POLICIES
     from visper_lm_tpu_torch.models.teachers import make_teacher_fn
+    from visper_lm_tpu_torch.tools.bench import bench_batch
     from visper_lm_tpu_torch.train.optimizer import OptimizerConfig
     from visper_lm_tpu_torch.train import train_step as train_step_mod
     from visper_lm_tpu_torch.train.train_step import make_loss_fn, make_train_step, uses_chunked_ce
@@ -1341,7 +1323,7 @@ def trainer_phase(cfg, model, teachers, tbatch, reset_counts, counts):
     def data_iter(epoch, skip_batches=0):
         requested.append((epoch, skip_batches))
         for i in range(skip_batches, TRAINER_STEPS * TRAINER_ACCUM):
-            yield train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=100 + 2 * i)
+            yield bench_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, True, seed=100 + 2 * i)
 
     def records(run):
         with open(root / run / "metrics.jsonl") as f:
@@ -1413,7 +1395,8 @@ def trainer_phase(cfg, model, teachers, tbatch, reset_counts, counts):
     print("trainer " + json.dumps(out["trainer"]))
 
     # the chunked cross-entropy: one step at B8 x T1024
-    b8 = {k: torch.as_tensor(v).cuda() for k, v in train_batch(cfg, 8, TRAIN_SEQ, seed=50).items()}
+    b8 = {k: torch.as_tensor(v).cuda()
+          for k, v in bench_batch(cfg, 8, TRAIN_SEQ, True, seed=50).items()}
     check(uses_chunked_ce(cfg, 8, TRAIN_SEQ), "B8 x T1024 does not take the chunked cross-entropy")
     step = make_train_step(cfg, opt_cfg, model, teacher_fn=tfn, teacher_params=teachers,
                            remat_policy="save_gate")
@@ -1472,30 +1455,40 @@ def trainer_phase(cfg, model, teachers, tbatch, reset_counts, counts):
     return out
 
 
-def engine_workload(cfg, n: int, max_len: int):
-    """bench_engine.py's mixed workload (`reqs_spec`), from
-    np.random.default_rng(0) in its order: per request 13 system ids, one
-    image and 16-63 text tokens, and 8-127 new tokens."""
-    from visper_lm_tpu_torch.constants import IMAGE_TOKEN_INDEX
-    from visper_lm_tpu_torch.data.collate import build_splice_plan
+def tools_phase(teachers, wa, smi: str) -> dict:
+    """Phase 8b: `tools/bench_teacher_pattern` on phase 7's teachers (bf16:
+    the per-image rows within ROW_BOUND of the batched rows, Swin-L's B4
+    once a block a call), `serve/speculative._bench` at its full-width
+    decoders with TOOLS_SPEC_ITERS iterations, `tools/bench_input_pipeline`
+    on TOOLS_PIPELINE_IMAGES images. Returns their records."""
+    from visper_lm_tpu_torch.serve import speculative
+    from visper_lm_tpu_torch.tools import bench_input_pipeline
+    from visper_lm_tpu_torch.tools import bench_teacher_pattern as pattern
 
-    rng = np.random.default_rng(0)
-    vocab = cfg.decoder.vocab_size
-
-    def make_plan(prompt_tokens):
-        return build_splice_plan(
-            list(rng.integers(3, vocab - 10, size=cfg.num_sys_tokens)) + [IMAGE_TOKEN_INDEX]
-            + list(rng.integers(3, vocab - 10, size=prompt_tokens)),
-            None, max_len, num_image_tokens=cfg.num_image_tokens,
-            num_task_tokens=cfg.distill.num_task_tokens,
-            num_tasks=len(cfg.distill.task_order()),
-        )
-
-    size = cfg.vision.image_size
-    return [(make_plan(int(rng.integers(16, 64))),
-             rng.normal(size=(1, size, size, 3)).astype(np.float32),
-             int(rng.integers(8, 128)))
-            for _ in range(n)]
+    out = {}
+    images = pattern.noise_images(TOOLS_TEACHER_BATCH)
+    wa.launches = 0
+    rec = pattern.measure(teachers, images, (336, 224, 768), iters=1)
+    # a warm-up and one timed pass of each pattern: a launch a Swin-L block a call
+    want = 2 * sum(teachers["swin"].cfg.depths) * (len(images) + 1)
+    check(wa.launches == want, f"teacher pattern: B4 launched {wa.launches} times, expected {want}")
+    bound = pattern.ROW_BOUND[torch.bfloat16]
+    check(rec["max_rel_diff"] <= bound, f"teacher pattern: per-image rows differ from the batched "
+          f"rows by {rec['max_rel_diff']:.4g} > {bound}")
+    out["teacher_pattern"] = dict(rec, b4_launches=wa.launches, row_bound=bound)
+    print("teacher_pattern " + json.dumps(out["teacher_pattern"]) + f" [{smi}]")
+    release_cuda()
+    spec = speculative._bench(["--iters", str(TOOLS_SPEC_ITERS)])
+    check(all(math.isfinite(spec[k]) and spec[k] > 0 for k in
+              ("draft_step_ms", "verify_chunk_ms", "target_step_ms"))
+          and 0 <= spec["value"] < math.inf, f"speculative _bench: {spec}")
+    out["speculative"] = spec
+    release_cuda()
+    pipe = bench_input_pipeline.main(["--n", str(TOOLS_PIPELINE_IMAGES)])
+    check(pipe["value"] > 0 and math.isfinite(pipe["paced_achieved_ms"]),
+          f"input pipeline: {pipe}")
+    out["input_pipeline"] = pipe
+    return out
 
 
 def logits_close(name, got, ref):
@@ -1557,10 +1550,11 @@ def engine_phase(cfg, model, act_rms, fa, qm) -> dict:
     from visper_lm_tpu_torch.serve.engine import Engine, EngineConfig, Request
     from visper_lm_tpu_torch.serve.generate import GenerationConfig, Generator, left_pad_plans
     from visper_lm_tpu_torch.serve.speculative import SpeculativeDecoder
+    from visper_lm_tpu_torch.tools.bench_engine import request_mix
 
     d = cfg.decoder
     ecfg = EngineConfig(**ENGINE, kv_quant=True, weight_quant=True)
-    work = engine_workload(cfg, ENGINE_REQUESTS, ecfg.max_len)
+    work = request_mix(cfg, np.random.default_rng(0), ENGINE_REQUESTS, ecfg.max_len)
     per_forward = 7 * d.num_layers + 1
     out = {}
 
@@ -1862,6 +1856,7 @@ def api_phase(fa, qm, da, param, gen):
     from visper_lm_tpu_torch.models.vlm import init_vlm
     from visper_lm_tpu_torch.serve.engine import EngineConfig
     from visper_lm_tpu_torch.serve.generate import GenerationConfig
+    from visper_lm_tpu_torch.tools.bench_decode import measure as decode_measure
 
     def release():
         gc.collect()
@@ -1951,7 +1946,7 @@ def api_phase(fa, qm, da, param, gen):
         if mode == "bf16_default":
             check(not generator.gen_cfg.kv_quant and answers == answers_by_mode["bf16"],
                   "chat with the default quantization is not the bf16 chat")
-        timing = timed_generate(generator, batch, generator.gen_cfg)
+        timing = decode_measure(generator, batch, generator.gen_cfg.max_new_tokens, warm=False)
         logits_k = generator.prefill(batch)[0]
         logits_p = generator.prefill(batch, use_kernel=False)[0]
         close = logits_close(f"llama3 chat {mode} first-token logits kernels vs plain",
@@ -2158,6 +2153,8 @@ def vision_phase(api_state, fa, qm, wa, gen, smi: str) -> dict:
     from visper_lm_tpu_torch.models.teachers import init_teachers, make_teacher_fn
     from visper_lm_tpu_torch.models.vit import clip_tower_features_s2
     from visper_lm_tpu_torch.models.vlm import init_vlm
+    from visper_lm_tpu_torch.tools.bench import bench_batch
+    from visper_lm_tpu_torch.tools.bench_decode import measure as decode_measure
     from visper_lm_tpu_torch.train.optimizer import OptimizerConfig
     from visper_lm_tpu_torch.train.train_step import make_train_step
     from visper_lm_tpu_torch.utils.diagnostics import convnext_flops
@@ -2191,7 +2188,7 @@ def vision_phase(api_state, fa, qm, wa, gen, smi: str) -> dict:
         check(not generator.gen_cfg.kv_quant and not generator.gen_cfg.weight_quant,
               f"{name}: the default chat is not bf16")
         batch = vm.chat_batch(qs, ims)
-        timing = timed_generate(generator, batch, generator.gen_cfg, batch_size=len(qs))
+        timing = decode_measure(generator, batch, generator.gen_cfg.max_new_tokens, warm=False)
         logits_k = generator.prefill(batch)[0]
         logits_p = generator.prefill(batch, use_kernel=False)[0]
         close = logits_close(f"{name} first-token logits kernels vs plain", logits_k, logits_p)
@@ -2309,7 +2306,7 @@ def vision_phase(api_state, fa, qm, wa, gen, smi: str) -> dict:
                                                    stage="pretrain"),
                            pt, teacher_fn=make_teacher_fn(pt_cfg), teacher_params=teachers,
                            remat_policy="save_gate")
-    tbatch = train_batch(pt_cfg, TRAIN_BATCH, TRAIN_SEQ)
+    tbatch = bench_batch(pt_cfg, TRAIN_BATCH, TRAIN_SEQ, True)
     check(tbatch["images"].shape[1:] == (768, 768, 3), f"PT images {tbatch['images'].shape}")
     tower = dict(pt.vision_tower.named_parameters())
     check(not any(n.startswith("vision_tower.") for n in step.trainable)
@@ -3667,10 +3664,11 @@ def dp_expected(layers: int, n_swin: int, batch: int) -> dict:
 def dp_batches(cfg, pt: bool) -> list:
     """DP_STEPS global batches of B TRAIN_BATCH x T TRAIN_SEQ, one a step
     (seeds 0, 1, ...): config #1's PT batches, or full-length IFT rows."""
+    from visper_lm_tpu_torch.tools.bench import bench_batch
     from visper_lm_tpu_torch.train import aot
 
     if pt:
-        return [train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=s) for s in range(DP_STEPS)]
+        return [bench_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, True, seed=s) for s in range(DP_STEPS)]
     return [aot.full_length_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, with_teachers=False, seed=s)
             for s in range(DP_STEPS)]
 
@@ -4248,6 +4246,7 @@ def serving_checks(model, cfg, batch, dev, reset, read, margins: bool = False) -
     from visper_lm_tpu_torch.serve.engine import Engine, EngineConfig, Request
     from visper_lm_tpu_torch.serve.generate import GenerationConfig, Generator
     from visper_lm_tpu_torch.serve.speculative import PromptLookupDecoder, SpeculativeDecoder
+    from visper_lm_tpu_torch.tools.bench_engine import request_mix
 
     out = {}
     # (d): calibrated on the batch through this model's decoder, then int4
@@ -4290,7 +4289,7 @@ def serving_checks(model, cfg, batch, dev, reset, read, margins: bool = False) -
     release_cuda()
 
     # (e): the Engine, int8 KV + w8a16
-    work = engine_workload(cfg, TP_ENGINE_REQUESTS, ENGINE["max_len"])
+    work = request_mix(cfg, np.random.default_rng(0), TP_ENGINE_REQUESTS, ENGINE["max_len"])
     eng = Engine(model, cfg, EngineConfig(**ENGINE, kv_quant=True, weight_quant=True), device=dev)
     reset()
     torch.cuda.synchronize()
@@ -5818,6 +5817,7 @@ def moe_serving(smi: str, qm) -> tuple:
     from visper_lm_tpu_torch.models.vlm import init_vlm
     from visper_lm_tpu_torch.ops import flash_attention as fa
     from visper_lm_tpu_torch.serve.generate import GenerationConfig, Generator
+    from visper_lm_tpu_torch.tools.bench_decode import measure as decode_measure
 
     cfg = moe_config(distill=True)
     d = cfg.decoder
@@ -5846,7 +5846,7 @@ def moe_serving(smi: str, qm) -> tuple:
           f"phase 19 (a): tokens {[len(o) for o in outputs]}")
     check(len(drops["prefill"]) == 1 and len(drops["decode"]) >= MOE_NEW_TOKENS - 1,
           f"phase 19 (a): {len(drops['prefill'])} prefills, {len(drops['decode'])} decode steps")
-    timing = timed_generate(generator, batch, gen_cfg, new_tokens=MOE_NEW_TOKENS)
+    timing = decode_measure(generator, batch, MOE_NEW_TOKENS, warm=False)
     peak = torch.cuda.max_memory_allocated() / 2**30
     logits_bf16 = generator.prefill(batch)[0].float()
     check(bool(torch.isfinite(logits_bf16).all()), "phase 19 (a): prefill logits not finite")
@@ -5964,8 +5964,8 @@ def moe_serving(smi: str, qm) -> tuple:
     print(f"phase 19 (a) MoE Generator (Phi3-mini widths, {d.num_layers} layers, E "
           f"{d.moe_experts} top-{d.moe_top_k}, cf {d.moe_capacity_factor}, bf16; {n_dec / 1e9:.3f} "
           f"B decoder parameters, {w_bytes / 1e9:.2f} GB = {w_bytes / 2**30:.2f} GiB): B{BATCH} x "
-          f"{PROMPT_LEN} prefill {timing['prefill_ms']:.1f} ms, decode "
-          f"{timing['decode_ms_per_token']:.2f} ms/token ({MOE_NEW_TOKENS} tokens), peak "
+          f"{PROMPT_LEN} prefill {timing['prefill_s'] * 1e3:.1f} ms, decode "
+          f"{timing['decode_step_ms']:.2f} ms/token ({MOE_NEW_TOKENS} tokens), peak "
           f"{peak:.2f} GiB, B1 {launches} a prefill; dropped share prefill "
           f"{rec['dropped_frac_prefill']:.4f}, decode mean {rec['dropped_frac_decode_mean']:.4f} "
           f"max {rec['dropped_frac_decode_max']:.4f} (N 8: capacity 5) [{smi}]")
@@ -5981,11 +5981,12 @@ def moe_pt_hold(teachers, tfn, reset, read) -> dict:
     weights on DP_STEPS batches: phase 16's tolerances of a bf16 run from
     f32, and its two checks that the bounds can fail."""
     from visper_lm_tpu_torch.models.vlm import init_vlm
+    from visper_lm_tpu_torch.tools.bench import bench_batch
     from visper_lm_tpu_torch.train.optimizer import AdamW
     from visper_lm_tpu_torch.train.train_step import make_loss_fn, make_train_step
 
     cfg = moe_config(distill=True, layers=MOE_PT_LAYERS)
-    batches = [train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=s) for s in range(DP_STEPS)]
+    batches = [bench_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, True, seed=s) for s in range(DP_STEPS)]
     model = init_vlm(cfg, device="cuda", seed=19)
     step = make_train_step(cfg, dp_opt_cfg("pretrain"), model, teacher_fn=tfn,
                            teacher_params=teachers, remat_policy="save_gate")
@@ -6043,6 +6044,7 @@ def moe_training(smi: str, model, reset, read) -> dict:
     in the step, save_gate) with the MoE decoder at full depth, then the
     hold at MOE_PT_LAYERS layers."""
     from visper_lm_tpu_torch.models.teachers import init_teachers, make_teacher_fn
+    from visper_lm_tpu_torch.tools.bench import bench_batch
     from visper_lm_tpu_torch.train.train_step import make_train_step
 
     cfg = moe_config(distill=True)
@@ -6052,7 +6054,7 @@ def moe_training(smi: str, model, reset, read) -> dict:
     n_swin = sum(teachers["swin"].cfg.depths)
     step = make_train_step(cfg, dp_opt_cfg("pretrain"), model, teacher_fn=tfn,
                            teacher_params=teachers, remat_policy="save_gate")
-    tbatch = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    tbatch = bench_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, True)
     first = step(tbatch)                                 # update 1: lr 0
     torch.cuda.reset_peak_memory_stats()
     want = dp_expected(d.num_layers, n_swin, TRAIN_BATCH)
@@ -6295,6 +6297,8 @@ def main() -> int:
     from visper_lm_tpu_torch.ops import window_attention as wa
     from visper_lm_tpu_torch.serve.calibrate import decoder_act_rms
     from visper_lm_tpu_torch.serve.generate import GenerationConfig, Generator
+    from visper_lm_tpu_torch.tools.bench import bench_batch, time_steps
+    from visper_lm_tpu_torch.tools.bench_decode import measure as decode_measure
     from visper_lm_tpu_torch.utils import param
     from visper_lm_tpu_torch.train.optimizer import OptimizerConfig
     from visper_lm_tpu_torch.train.train_step import make_loss_fn, make_train_step
@@ -6405,7 +6409,7 @@ def main() -> int:
     kernel_case("gqa", 2, 1024, 32, 8, 128, torch.bfloat16, True, [0, 100], [1024, 1024], gen, fa)
     kernel_case("noncausal_kvlen", 2, 512, 16, 16, 64, torch.bfloat16, False, [0, 0], [512, 300], gen, fa)
     kernel_case("f32", 2, 256, 8, 8, 96, torch.float32, True, [0, 50], [256, 256], gen, fa)
-    tbatch = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    tbatch = bench_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, True)
     train_lens = tbatch["seq_lengths"].tolist()
     print(f"training batch seq_lengths {train_lens}")
     train_fwd_rec = kernel_case(
@@ -6536,7 +6540,7 @@ def main() -> int:
           f"the int-offset decode's, bit for bit")
     del logits_s, cache_s, cache_i
 
-    timing = dict(timed_generate(generator, batch, gen_cfg), peak_gib=peak / 2**30)
+    timing = dict(decode_measure(generator, batch, NEW_TOKENS, warm=False), peak_gib=peak / 2**30)
     print("main_path " + json.dumps(timing))
 
     progress("phase 5")
@@ -6545,7 +6549,7 @@ def main() -> int:
     token = logits.argmax(-1)
     offs = torch.as_tensor(batch["pad_offsets"], device="cuda").long()
     profile_window("prefill", lambda: generator.prefill(batch))
-    profile_window("decode_chunk", lambda: generator._decode_chunk(
+    profile_window("decode_chunk", lambda: short_chunk(generator)._decode_chunk(
         cache, token, 0, offs, torch.Generator(device="cuda")))
 
     progress("phase 6")
@@ -6613,15 +6617,16 @@ def main() -> int:
                   f"{agree_bf16}/{BATCH} (printed only: int4 is a quality trade-off)")
             prof = dict(
                 prefill=profile_window("int4_prefill", lambda: q_gen.prefill(batch), match=("w4_",)),
-                decode_chunk=profile_window("int4_decode_chunk", lambda: q_gen._decode_chunk(
-                    cache_q, logits_q.argmax(-1), 0, offs, torch.Generator(device="cuda")),
-                    match=("w4_",)))
+                decode_chunk=profile_window("int4_decode_chunk", lambda: short_chunk(
+                    q_gen)._decode_chunk(cache_q, logits_q.argmax(-1), 0, offs,
+                                         torch.Generator(device="cuda")), match=("w4_",)))
             print("int4_profile " + json.dumps(prof))
             del logits_q, logits_p, cache_q
         print(f"{qname}: {BATCH}x{NEW_TOKENS} tokens, first run {first_s:.3f} s, "
               f"{q_launches} w4 launches, peak {q_peak / 2**30:.2f} GiB")
         print(f"{qname} sample tokens {q_out[0][:8]} ... {q_out[-1][:8]}")
-        quant_timing[qname] = dict(timed_generate(q_gen, batch, q_cfg), peak_gib=q_peak / 2**30)
+        quant_timing[qname] = dict(decode_measure(q_gen, batch, NEW_TOKENS, warm=False),
+                                   peak_gib=q_peak / 2**30)
         print(f"quant_path_{qname} " + json.dumps(quant_timing[qname]))
         del q_gen
         gc.collect()
@@ -6656,34 +6661,32 @@ def main() -> int:
         return dict(flash_fwd=fa.launches, flash_bwd_dq=fa.dq_launches,
                     flash_bwd_dkv=fa.dkv_launches, window_attn=wa.launches)
 
-    t0 = time.perf_counter()
-    metrics = step(tbatch)                      # warm-up: update 1, lr 0
-    print(f"train step 1 (warm-up) {(time.perf_counter() - t0) * 1e3:.1f} ms "
-          + json.dumps(metrics))
-    losses = [metrics["loss"]]
-    torch.cuda.reset_peak_memory_stats()
+    # tools/bench.py's timing: a warm-up step (update 1, lr 0), then
+    # TRAIN_STEPS steps between two synchronizes; each step's launches and
+    # loss read after it (host reads only)
+    losses = []
     train_launches = {k: 0 for k in expected}
-    step_ms = []
-    for i in range(TRAIN_STEPS):
+
+    def each(i, metrics):
+        if i == 0:
+            print("train step 1 (warm-up) " + json.dumps(metrics))
+            torch.cuda.reset_peak_memory_stats()
+        else:
+            c = counts()
+            check(c == expected, f"train step {i + 1}: launches {c}, expected {expected}")
+            for kname in c:
+                train_launches[kname] += c[kname]
+            print(f"train step {i + 1}: launches {c} " + json.dumps(metrics))
         reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        metrics = step(tbatch)                  # ends in a host read of the metrics
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        c = counts()
-        check(c == expected, f"train step {i + 2}: launches {c}, expected {expected}")
-        for kname in c:
-            train_launches[kname] += c[kname]
         losses.append(metrics["loss"])
-        print(f"train step {i + 2}: {step_ms[-1]:.1f} ms, launches {c} " + json.dumps(metrics))
+
+    dt, _ = time_steps(step, step.to_device(tbatch), TRAIN_STEPS, torch.device("cuda"), each=each)
     peak = torch.cuda.max_memory_allocated()
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(all(losses[i + 1] != losses[i] for i in range(1, len(losses) - 1)),
           f"loss did not change from step 2 on: {losses}")
     check(torch.equal(frozen, frozen_before), "a frozen decoder weight changed")
-    mean_ms = sum(step_ms) / len(step_ms)
-    train = dict(step_ms=step_ms, mean_step_ms=mean_ms,
-                 examples_per_s=TRAIN_BATCH / (mean_ms / 1e3), peak_gib=peak / 2**30,
+    train = dict(mean_step_ms=dt * 1e3, examples_per_s=TRAIN_BATCH / dt, peak_gib=peak / 2**30,
                  losses=losses, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
     print("train_path " + json.dumps(train))
 
@@ -6723,6 +6726,15 @@ def main() -> int:
     trainer = trainer_phase(cfg, model, teachers, tbatch, reset_counts, counts)
     print(f"trainer phase {time.perf_counter() - t0:.1f} s")
     print("trainer_path " + json.dumps(trainer))
+
+    progress("phase 8b")
+    # 8b. the measurement tools on what phases 7-8 hold: the teacher pattern
+    # on their teachers, speculative._bench, the input pipeline
+    t0 = time.perf_counter()
+    tools = tools_phase(teachers, wa, smi)
+    tools["seconds"] = time.perf_counter() - t0
+    print(f"tools phase {tools['seconds']:.1f} s [{smi}]")
+    print("tools_path " + json.dumps(tools))
 
     progress("phase 9")
     # 9. the continuous-batching engine at bench_engine.py's defaults, the
@@ -6952,6 +6964,7 @@ def main() -> int:
                    win_rec, main_launches["window_attn"]),
              launches_phase7=train_launches["window_attn"], shape=win_rec["shape"], kernel=win_rec["kernel"], timing=win_rec["timing"],
              launches_recipe_pt=recipe["pt"]["launches"]["window_attn"],
+             launches_teacher_pattern=tools["teacher_pattern"]["b4_launches"],
              launches_phase13=viz["seg"]["b4_launches"],
              launches_phase16_rank_per_step=dp_rank_launches["window_attn"],
              launches_phase17=dict(pt_step_a_rank=tp_rank_launches["window_attn"],

@@ -237,6 +237,10 @@ EVAL_MODULES = tuple(f"eval/{name}.py" for name in (
     "__init__", "caption_metrics", "cmmmu", "cvbench", "fid", "grounding_tasks", "harness",
     "inception", "lmms_adapter", "lmms_tasks", "mmmu", "mmstar", "olympiad", "pan_to_sem",
     "probe", "validate"))
+# the measurement entry points: a twin of each root bench*.py script
+TOOLS_MODULES = tuple(f"tools/{name}.py" for name in (
+    "__init__", "bench", "bench_decode", "bench_engine", "bench_input_pipeline",
+    "bench_teacher_pattern"))
 
 
 def _module_level_imports(path):
@@ -266,7 +270,7 @@ def test_no_module_level_import_of_jax_pil_safetensors_or_transformers():
     import inside functions)."""
     paths = _port_paths()
     assert len(paths) > 68
-    for rel in VIZ_MODULES + EVAL_MODULES + PARALLEL_MODULES:
+    for rel in VIZ_MODULES + EVAL_MODULES + PARALLEL_MODULES + TOOLS_MODULES:
         assert os.path.join(REPO, "visper_lm_tpu_torch", rel) in paths, rel
     for path in paths:
         bad = [n for n in _module_level_imports(path) if n in BANNED]
@@ -283,7 +287,8 @@ def _port_paths():
 def test_no_import_of_jax_anywhere():
     """No import of JAX or the JAX package at any depth (inside functions
     too) in the port and chip_smoke.py; the eval and parallel packages have a
-    twin of every module of visper_lm_tpu/eval and visper_lm_tpu/parallel."""
+    twin of every module of visper_lm_tpu/eval and visper_lm_tpu/parallel, and
+    tools/ one of every root bench*.py script (walked here too)."""
     import ast
 
     paths = _port_paths()
@@ -304,5 +309,5 @@ def test_no_import_of_jax_anywhere():
     jax_parallel = {f for f in os.listdir(os.path.join(REPO, "visper_lm_tpu", "parallel"))
                     if f.endswith(".py")}
     assert jax_parallel <= {os.path.basename(m) for m in PARALLEL_MODULES}
-    for rel in PARALLEL_MODULES:
+    for rel in PARALLEL_MODULES + TOOLS_MODULES:
         assert os.path.join(REPO, "visper_lm_tpu_torch", rel) in paths, rel

@@ -783,6 +783,22 @@ class Decoder(nn.Module):
         return out
 
 
+def init_decoder(cfg: DecoderConfig, *, device=None, seed: int = 0) -> Decoder:
+    """JAX `init_decoder`: a bare decoder (what beam search and speculative
+    decoding take) with seeded random weights made on `device` (CUDA when
+    None) by a torch.Generator, in the config's dtype: the JAX
+    distributions, not its numbers."""
+    from visper_lm_tpu_torch.device import resolve_device
+    from visper_lm_tpu_torch.utils.param import init_weights_, torch_dtype
+
+    device = resolve_device(device)
+    with torch.device("meta"):
+        decoder = Decoder(cfg, dtype=torch_dtype(cfg.dtype))
+    decoder = decoder.to_empty(device=device)
+    init_weights_(decoder, torch.Generator(device=device).manual_seed(seed))
+    return decoder.eval()
+
+
 # ---------------------------------------------------------------------------
 # Gradient streaming (JAX's blocks_chunks layout and host_grad_segment)
 # ---------------------------------------------------------------------------

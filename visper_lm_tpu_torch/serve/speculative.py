@@ -36,6 +36,7 @@ be tensor parallel or whole on every rank.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -375,3 +376,101 @@ def greedy_reference_ids(
         out.append(int(torch.argmax(_chunk_forward(decoder, [out[-1]], cache, p)[-1])))
         p += 1
     return out
+
+
+def _timed(fn, n: int) -> float:
+    """Mean host seconds of n calls of fn (each ends in a host read)."""
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return (time.perf_counter() - t0) / n
+
+
+def _bench(args=None) -> dict:
+    """Time the speculative building blocks on the device and print the
+    break-even acceptance rate as one JSON line (JAX `_bench`; run as
+    `python -m visper_lm_tpu_torch.serve.speculative`).
+
+    Effective tokens/s = (alpha*k + 1) / T_iter with
+    T_iter = (k+1)*T_draft + T_verify(k+1); plain decode = 1 / T_target.
+    Speculation wins when alpha > (T_iter/T_target - 1) / k. No trained draft
+    is needed to measure the mechanics: alpha moves quality, not cost. The
+    decoders (target 32 x 3072, draft 4 x 1024 by default) are seeded random
+    ones (`init_decoder`, seeds 0 and 1); each timed call ends in a host read
+    of its greedy tokens. The record also names the device (`"device"`)."""
+    import argparse
+    import json
+
+    from visper_lm_tpu_torch.config import DecoderConfig
+    from visper_lm_tpu_torch.device import resolve_device
+    from visper_lm_tpu_torch.models.decoder import init_decoder
+    from visper_lm_tpu_torch.tools import device_name
+
+    p = argparse.ArgumentParser(prog="python -m visper_lm_tpu_torch.serve.speculative")
+    p.add_argument("--target-layers", type=int, default=32)
+    p.add_argument("--hidden", type=int, default=3072)
+    p.add_argument("--draft-layers", type=int, default=4)
+    p.add_argument("--draft-hidden", type=int, default=1024)
+    p.add_argument("--k", type=int, default=4)
+    p.add_argument("--prompt", type=int, default=768)
+    p.add_argument("--iters", type=int, default=20)
+    p.add_argument("--smoke", action="store_true", help="tiny decoders (2 x 128, 1 x 64)")
+    p.add_argument("--device", default="cuda", help="where the decoders run")
+    a = p.parse_args(args)
+    if a.smoke:
+        a.target_layers, a.hidden = 2, 128
+        a.draft_layers, a.draft_hidden = 1, 64
+        a.prompt, a.iters = 32, 3
+    device = resolve_device(a.device)
+
+    def mk(layers, hidden):
+        return DecoderConfig(
+            vocab_size=32064, hidden_size=hidden, num_layers=layers,
+            num_heads=hidden // 96 if hidden % 96 == 0 else 8,
+            num_kv_heads=4 if hidden >= 512 else 2,
+            head_dim=96 if hidden % 96 == 0 else hidden // 8,
+            mlp_dim=int(hidden * 8 / 3) // 128 * 128 or hidden * 2,
+            max_seq_len=4096,
+        )
+
+    tc, dcfg = mk(a.target_layers, a.hidden), mk(a.draft_layers, a.draft_hidden)
+    target = init_decoder(tc, device=device, seed=0)
+    draft = init_decoder(dcfg, device=device, seed=1)
+    spec = SpeculativeDecoder(target, draft, k=a.k, max_len=a.prompt + 256 + a.k)
+    prompt = list(np.random.default_rng(0).integers(3, 30000, size=a.prompt))
+    spec.generate(prompt, max_new_tokens=a.k + 2)          # warm every path
+
+    pos = a.prompt + 8
+    d_cache = spec._init_cache(draft)
+    t_cache = spec._init_cache(target)
+    _chunk_forward(draft, [1], d_cache, pos)
+    _chunk_forward(target, [1], t_cache, pos)
+
+    def greedy(decoder, tokens, cache):
+        return torch.argmax(_chunk_forward(decoder, tokens, cache, pos), dim=-1).cpu()
+
+    t_draft = _timed(lambda: greedy(draft, [1], d_cache), a.iters)
+    t_verify = _timed(lambda: greedy(target, [1] * (a.k + 1), t_cache), a.iters)
+    t_target = _timed(lambda: greedy(target, [1], t_cache), a.iters)
+    t_iter = (a.k + 1) * t_draft + t_verify
+    breakeven = max(0.0, (t_iter / t_target - 1.0) / a.k)
+    record = {
+        "metric": "speculative_breakeven_acceptance",
+        "value": round(breakeven, 4),
+        "unit": "accept_rate",
+        "k": a.k,
+        "draft_step_ms": round(t_draft * 1e3, 3),
+        "verify_chunk_ms": round(t_verify * 1e3, 3),
+        "target_step_ms": round(t_target * 1e3, 3),
+        "tokens_per_sec_at_alpha": {
+            str(al): round((al * a.k + 1) / t_iter, 1) for al in (0.5, 0.7, 0.9)
+        },
+        "plain_tokens_per_sec": round(1 / t_target, 1),
+        "device": device_name(device),
+    }
+    print(json.dumps(record), flush=True)
+    return record
+
+
+if __name__ == "__main__":
+    _bench()
