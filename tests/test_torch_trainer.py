@@ -13,6 +13,8 @@ contents are bit-equal; the FLOP counts rtol 1e-12.
 import json
 import os
 import signal
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -205,6 +207,53 @@ def test_checkpoint_restore_gives_the_same_next_step(host_params, tmp_path):
         tckpt.CheckpointManager(str(tmp_path / "empty")).restore(fresh)
 
 
+def test_checkpoint_save_holds_every_rank_when_one_looks_late(tmp_path, monkeypatch):
+    """Two ranks (threads, a barrier each) save the same step twice, as the
+    trainer's periodic and final saves do; the second rank reaches each point
+    after the coordinator has renamed the step into place. Both pass every
+    barrier of both saves: no rank skips one the other waits at."""
+    bar = threading.Barrier(2, timeout=20)
+    final = tmp_path / "ckpt" / "2"
+    counts = {"A": 0, "B": 0}
+
+    def barrier():
+        me = threading.current_thread().name
+        bar.wait()
+        counts[me] += 1
+        if me == "B" and counts[me] % 2:
+            # the late rank: on past the first barrier only once the step is on disk
+            deadline = time.monotonic() + 10
+            while not final.exists() and time.monotonic() < deadline:
+                time.sleep(0.01)
+
+    monkeypatch.setattr(tckpt.distributed, "barrier", barrier)
+    monkeypatch.setattr(tckpt.distributed, "is_coordinator",
+                        lambda: threading.current_thread().name == "A")
+
+    class State:
+        def state_tensors(self):
+            return {"params/w": torch.ones(2)}
+
+    mgr = tckpt.CheckpointManager(str(tmp_path / "ckpt"))
+    errors = []
+
+    def rank():
+        try:
+            mgr.save(2, State())
+            mgr.save(2, State())
+        except threading.BrokenBarrierError as e:
+            errors.append(e)
+            bar.abort()
+
+    threads = [threading.Thread(target=rank, name=n) for n in ("A", "B")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads) and not errors
+    assert counts == {"A": 3, "B": 3} and mgr.steps() == [2]
+
+
 @pytest.mark.parametrize("takes_skip", [True, False])
 def test_resume_consumes_the_exact_data_order(host_params, tmp_path, takes_skip):
     """A run interrupted at step 3 and resumed to 6 trains on exactly the
@@ -363,7 +412,7 @@ def test_decoder_params_are_the_decoders_matmul_weights():
     assert tdiag.decoder_params(cfg) == n
 
 
-def test_finite_check_step_timer_and_trace(tmp_path):
+def test_finite_check_step_timer_and_trace():
     named = {"mm_projector.layers.0.weight": torch.tensor([[1.0, -3.0]]),
              "mm_projector.layers.0.bias": torch.tensor([2.0]),
              "heads.gen.0.proj_out.weight": torch.tensor([[float("nan"), 1.0]])}
@@ -372,14 +421,17 @@ def test_finite_check_step_timer_and_trace(tmp_path):
     ref = jdiag.finite_check({"mm_projector": {"layers": [{"kernel": jnp.asarray([[1.0], [-3.0]]),
                                                            "bias": jnp.asarray([2.0])}]}})
     assert ref == {"mm_projector/layers": out["mm_projector/layers"]}
-    timer = tdiag.StepTimer(warmup=1, flops_per_step=1e12)
-    for _ in range(3):
-        timer.step()
-    summary = timer.summary(batch_size=4, seq_len=8)
-    assert summary["examples_per_sec"] == pytest.approx(4 * summary["steps_per_sec"])
-    with tdiag.trace(str(tmp_path / "trace")):
-        torch.ones(4).sum()
-    assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
+    # a span in a CPU trace only while spans are on (tests/test_torch_spans.py)
+    for on in (False, True):
+        tdiag.enable(on)
+        try:
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+                with tdiag.span("engine.admit", requests=2):
+                    torch.ones(4).sum()
+        finally:
+            tdiag.enable(False)
+        names = [e.name() for e in prof.profiler.kineto_results.events()]
+        assert ("engine.admit[requests=2]" in names) == on
     x = torch.tensor([0.0], requires_grad=True)
     with pytest.raises(RuntimeError, match="nan"), tdiag.nan_guard():
         (torch.sqrt(x) * 0.0).sum().backward()

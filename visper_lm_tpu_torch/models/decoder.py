@@ -109,6 +109,7 @@ from visper_lm_tpu_torch.parallel.tensor import (
     split_kind,
     vocab_embed,
 )
+from visper_lm_tpu_torch.utils.diagnostics import span
 from visper_lm_tpu_torch.utils.param import (
     QuantLinear,
     RMSNorm,
@@ -433,7 +434,13 @@ class DecoderBlock(nn.Module):
         # set by parallel/tensor.shard_model: the block's tensor-parallel group
         self.tp = None
 
-    def forward(
+    def forward(self, *args, **kwargs):
+        """`_forward` inside the `decoder.block` span (a remat's recompute
+        calls it again, and records again)."""
+        with span("decoder.block"):
+            return self._forward(*args, **kwargs)
+
+    def _forward(
         self,
         h: torch.Tensor,                     # (B, T, D)
         cos: torch.Tensor,

@@ -27,6 +27,7 @@ from visper_lm_tpu_torch.models.teachers import dpt as dpt_lib
 from visper_lm_tpu_torch.models.teachers import swin as swin_lib
 from visper_lm_tpu_torch.models.teachers import unclip as unclip_lib
 from visper_lm_tpu_torch.models.vit import init_tower_
+from visper_lm_tpu_torch.utils.diagnostics import span
 
 IMAGE_KEYS = {"depth": "depth_images", "gen": "gen_images", "seg": "seg_images"}
 
@@ -104,13 +105,17 @@ def make_teacher_fn(
     def compute(teachers: nn.ModuleDict, imgs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         targets: Dict[str, torch.Tensor] = {}
         if "depth_images" in imgs:
-            targets["depth"] = dinov2_lib.dav2_depth_target(teachers["dinov2"], imgs["depth_images"])
+            with span("teacher.dinov2"):
+                targets["depth"] = dinov2_lib.dav2_depth_target(teachers["dinov2"],
+                                                                imgs["depth_images"])
         if "gen_images" in imgs:
-            targets["gen"] = unclip_lib.gen_target(teachers["clip_h"], imgs["gen_images"])
+            with span("teacher.clip_h"):
+                targets["gen"] = unclip_lib.gen_target(teachers["clip_h"], imgs["gen_images"])
         if "seg_images" in imgs:
-            targets["seg"] = swin_lib.seg_target(
-                teachers["swin"], imgs["seg_images"], use_kernel=use_kernel
-            )
+            with span("teacher.swin"):
+                targets["seg"] = swin_lib.seg_target(
+                    teachers["swin"], imgs["seg_images"], use_kernel=use_kernel
+                )
         return targets
 
     @torch.no_grad()

@@ -44,6 +44,7 @@ from visper_lm_tpu_torch.parallel.pipeline import (
 )
 from visper_lm_tpu_torch.parallel.sequence import local_rows
 from visper_lm_tpu_torch.parallel.tensor import model_placements, shard_model
+from visper_lm_tpu_torch.utils.diagnostics import span
 from visper_lm_tpu_torch.utils.param import init_weights_, torch_dtype
 
 
@@ -181,9 +182,10 @@ def build_task_token_table(model: VLM) -> Optional[torch.Tensor]:
 
 def tower_features(model: VLM, images: torch.Tensor) -> torch.Tensor:
     """The configured tower's features (B, N, tower_hidden) of (B, H, W, 3) images."""
-    if model.cfg.use_convnext_tower:
-        return convnext_tower_features(model.vision_tower, images)
-    return clip_tower_features(model.vision_tower, images)
+    with span("vlm.tower", images=images.shape[0]):
+        if model.cfg.use_convnext_tower:
+            return convnext_tower_features(model.vision_tower, images)
+        return clip_tower_features(model.vision_tower, images)
 
 
 def encode_images(model: VLM, images: torch.Tensor) -> torch.Tensor:

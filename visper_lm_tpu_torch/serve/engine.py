@@ -67,6 +67,7 @@ from visper_lm_tpu_torch.serve.generate import (
     right_pad_plans,
 )
 from visper_lm_tpu_torch.serve.speculative import ngram_propose
+from visper_lm_tpu_torch.utils.diagnostics import span
 
 Cache = Union[KVCache, QuantKVCache]
 
@@ -242,9 +243,12 @@ class Engine:
         return t
 
     def _to_host(self, x: torch.Tensor) -> np.ndarray:
-        """The engine's one kind of host sync: a device value read back."""
+        """The engine's one kind of host sync: a device value read back (the
+        `engine.sync` span holds the read alone, not the conversion)."""
         self.stats["host_syncs"] += 1
-        return x.cpu().numpy()
+        with span("engine.sync"):
+            x = x.cpu()
+        return x.numpy()
 
     def _new_cache(self, batch: int, length: int) -> Cache:
         """int8 with scales (kv_quant), else bf16 whatever the model's dtype,
@@ -389,16 +393,17 @@ class Engine:
         position. Returns ((n, B) tokens, last tokens, lengths); slots at
         capacity stop advancing (their writes are dropped anyway)."""
         out = []
-        for _ in range(n):
-            emb = self.decoder.embed(tokens[:, None])
-            o = self.decoder(
-                emb, positions=(lengths - self.kv_starts)[:, None], kv_lengths=lengths + 1,
-                kv_starts=self.kv_starts, cache=self.cache, q_offset=lengths,
-            )
-            tokens = _sample_tokens(o["logits"][:, 0], self._gen_cfg, self._generator)
-            lengths = (lengths + 1).clamp(max=self.ecfg.max_len)
-            out.append(tokens)
-        return torch.stack(out), tokens, lengths
+        with span("engine.decode", n=n, slots=tokens.shape[0]):
+            for _ in range(n):
+                emb = self.decoder.embed(tokens[:, None])
+                o = self.decoder(
+                    emb, positions=(lengths - self.kv_starts)[:, None], kv_lengths=lengths + 1,
+                    kv_starts=self.kv_starts, cache=self.cache, q_offset=lengths,
+                )
+                tokens = _sample_tokens(o["logits"][:, 0], self._gen_cfg, self._generator)
+                lengths = (lengths + 1).clamp(max=self.ecfg.max_len)
+                out.append(tokens)
+            return torch.stack(out), tokens, lengths
 
     @torch.no_grad()
     def _verify(self, chunk: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -676,15 +681,19 @@ class Engine:
         """Move queued requests into free slots. With chunked prefill, at most
         ONE prefill unit (a chunk advance or a slot fill) runs per call, so
         occupied slots keep decoding between pieces; otherwise compatible
-        requests admit in groups (one batched prefill each)."""
+        requests admit in groups (one batched prefill each). The
+        `engine.admit` span holds the prefill work and carries the number of
+        requests it admitted."""
         if self._chunk:
             for slot in range(self.ecfg.num_slots):
                 if self.slot_req[slot] is None and self.queue:
                     req = self.queue[0]
                     if self._needs_chunk(req):
-                        self._advance_chunk(req)
+                        with span("engine.admit", requests=0):
+                            self._advance_chunk(req)
                         return  # the request stays queued; decode interleaves
-                    self._fill_slot(slot, self.queue.popleft())
+                    with span("engine.admit", requests=1):
+                        self._fill_slot(slot, self.queue.popleft())
                     return  # one prefill unit per step
             return
         free = [s for s in range(self.ecfg.num_slots) if self.slot_req[s] is None]
@@ -703,25 +712,34 @@ class Engine:
                 self._admit_deferred += 1
                 return
         self._admit_deferred = 0
-        while free and self.queue:
-            head = self.queue[0]
-            limit = min(len(free), max(self.ecfg.admit_group, 1))
-            n = 1
-            while (n < limit and n < len(self.queue)
-                   and self._group_compatible(head, self.queue[n])):
-                n += 1
-            while n & (n - 1):      # round down to a power of two
-                n &= n - 1
-            if n == 1:
-                self._fill_slot(free.pop(0), self.queue.popleft())
-            else:
-                reqs = [self.queue.popleft() for _ in range(n)]
-                self._fill_slots([free.pop(0) for _ in range(n)], reqs)
+        if not (free and self.queue):
+            return
+        # every pass of the loop takes as many requests as slots
+        with span("engine.admit", requests=min(len(free), len(self.queue))):
+            while free and self.queue:
+                head = self.queue[0]
+                limit = min(len(free), max(self.ecfg.admit_group, 1))
+                n = 1
+                while (n < limit and n < len(self.queue)
+                       and self._group_compatible(head, self.queue[n])):
+                    n += 1
+                while n & (n - 1):      # round down to a power of two
+                    n &= n - 1
+                if n == 1:
+                    self._fill_slot(free.pop(0), self.queue.popleft())
+                else:
+                    reqs = [self.queue.popleft() for _ in range(n)]
+                    self._fill_slots([free.pop(0) for _ in range(n)], reqs)
 
     def step(self) -> None:
         """Admit queued requests into free slots, then decode one QUANTUM of
         tokens per slot (or verify a speculative chunk per slot when spec_k
-        is on): one host sync per quantum, not per token."""
+        is on): one host sync per quantum, not per token. All of it in the
+        `engine.step` span."""
+        with span("engine.step"):
+            self._step()
+
+    def _step(self) -> None:
         self._admit()
         if not any(r is not None for r in self.slot_req):
             return

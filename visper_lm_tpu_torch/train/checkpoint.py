@@ -59,8 +59,13 @@ class CheckpointManager:
         the data-stream cursor, so that resume can fast-forward the stream
         to the first batch the run has not trained on."""
         final = self._path(step)
+        # every rank decides before the barrier, where none can see this save's
+        # rename yet (a rank that looked after it would skip the last barrier
+        # and hang the others there); a save of the same step that finished
+        # earlier every rank sees, since its last barrier followed the rename
+        saved = os.path.exists(final)
         distributed.barrier()           # every rank sees the coordinator's last save
-        if os.path.exists(final):
+        if saved:
             return
         tensors = {k: v.detach().cpu() for k, v in state.state_tensors().items()}
         if distributed.is_coordinator():

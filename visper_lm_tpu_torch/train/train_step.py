@@ -116,6 +116,7 @@ from visper_lm_tpu_torch.parallel.sharding import (
 from visper_lm_tpu_torch.parallel.tensor import local_param, whole_param
 from visper_lm_tpu_torch.train.losses import distill_losses, ntp_loss, ntp_loss_chunked, valid_count
 from visper_lm_tpu_torch.train.optimizer import AdamW, OptimizerConfig, trainable_mask
+from visper_lm_tpu_torch.utils.diagnostics import span
 from visper_lm_tpu_torch.utils.param import split_layer
 from visper_lm_tpu_torch.train.staged_update import OffloadedAdamW
 
@@ -183,25 +184,28 @@ def make_loss_fn(
             for k in ("lb_loss", "z_loss", "dropped_frac"):
                 metrics[f"moe_{k}"] = moe_aux[k] / share
         if cfg.distill is not None and out["taps"]:
-            # under sp the heads read every row: the taps gathered over the group
-            taps = tuple(gather_rows(tap, seq) for tap in out["taps"])
-            preds = predict_task_embeddings(model, cfg, taps, out["tap_layers"])
             targets = {
                 tc.task: batch[f"{tc.task}_target"]
                 for tc in cfg.distill.tasks if f"{tc.task}_target" in batch
             }
             if teacher_fn is not None:
-                # frozen teachers inside the step, no gradient
+                # frozen teachers inside the step, no gradient (before the
+                # heads' span: the teachers have spans of their own)
                 targets.update({k: v.detach() for k, v in teacher_fn(teachers, batch).items()})
-            ones = torch.ones((b,), dtype=torch.float32, device=batch["labels"].device)
-            task_masks = {tc.task: batch.get(f"{tc.task}_mask", ones) for tc in cfg.distill.tasks}
-            dloss, dmetrics = distill_losses(
-                cfg, preds, targets, task_masks, dict(model.logit_scales.items()), dp,
-            )
-            if seq is not None:
-                # every seq rank computes the heads' loss whole: each takes its share
-                dloss = dloss / seq.size
-                dmetrics = {k: v / seq.size for k, v in dmetrics.items()}
+            # under sp the heads read every row: the taps gathered over the group
+            taps = tuple(gather_rows(tap, seq) for tap in out["taps"])
+            with span("heads"):
+                preds = predict_task_embeddings(model, cfg, taps, out["tap_layers"])
+                ones = torch.ones((b,), dtype=torch.float32, device=batch["labels"].device)
+                task_masks = {tc.task: batch.get(f"{tc.task}_mask", ones)
+                              for tc in cfg.distill.tasks}
+                dloss, dmetrics = distill_losses(
+                    cfg, preds, targets, task_masks, dict(model.logit_scales.items()), dp,
+                )
+                if seq is not None:
+                    # every seq rank computes the heads' loss whole: each takes its share
+                    dloss = dloss / seq.size
+                    dmetrics = {k: v / seq.size for k, v in dmetrics.items()}
             total = total + dloss
             metrics.update(dmetrics)
         metrics["loss"] = total

@@ -74,6 +74,7 @@ from visper_lm_tpu_torch.parallel.mesh import make_mesh
 from visper_lm_tpu_torch.train.checkpoint import CheckpointManager
 from visper_lm_tpu_torch.train.optimizer import OptimizerConfig
 from visper_lm_tpu_torch.train.train_step import TrainStep, make_train_step
+from visper_lm_tpu_torch.utils.diagnostics import span
 
 
 @dataclasses.dataclass
@@ -184,7 +185,8 @@ class _Prefetcher:
     def __iter__(self):
         try:
             while True:
-                item = self.queue.get()
+                with span("train.data_wait"):
+                    item = self.queue.get()
                 if item is self._done:
                     if self._error is not None:
                         raise self._error

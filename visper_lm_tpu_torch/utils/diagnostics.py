@@ -1,11 +1,9 @@
-"""Timing, profiling, FLOP counts and numerical-safety checks (counterpart of
+"""Program spans, FLOP counts and numerical-safety checks (counterpart of
 visper_lm_tpu/utils/diagnostics.py).
 
-  * StepTimer: steady-state wall time per step, examples/s, tokens/s and
-    achieved FLOP/s against an analytic count (the caller synchronises the
-    device before each `step()`);
-  * trace(): a torch.profiler trace of the enclosed work, written to log_dir
-    as a Chrome trace;
+  * span(name, **args): a named region of the program in a torch.profiler
+    trace, on the trace's clock beside the device operations it launched;
+    off (the default) it is one shared no-op, switched by enable();
   * train_step_flops / vision_flops / convnext_flops / teacher_flops: the
     JAX package's analytic counts (matmul terms); decoder_params: the decoder
     parameters train_step_flops charges 6 FLOPs per token;
@@ -14,14 +12,28 @@ visper_lm_tpu/utils/diagnostics.py).
   * nan_guard(): autograd anomaly detection (a NaN made in a backward op
     raises there).
 
+The spans (where, and per what):
+
+  train.data_wait                  trainer._Prefetcher: the loop waiting
+                                   for its next device batch
+  teacher.dinov2 / .clip_h / .swin make_teacher_fn: each teacher on one
+                                   chunk of the micro-batch
+  heads                            train_step's loss: the task heads and
+                                   the distillation losses (the teachers
+                                   outside it)
+  vlm.tower                        vlm.tower_features, [images=B]
+  decoder.block                    DecoderBlock.forward (a remat's
+                                   recompute too)
+  engine.step                      Engine.step, around:
+    engine.admit                   its admissions, [requests=N]
+    engine.decode                  its decode quantum, [n=Q,slots=S]
+    engine.sync                    the host's read of a device value
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
-import time
-from typing import Dict, Iterator, Mapping, Optional, Tuple
+from typing import Dict, Iterator, Mapping, Tuple
 
 import torch
 
@@ -30,52 +42,26 @@ from visper_lm_tpu_torch.utils.param import (
 )
 
 
-class StepTimer:
-    """Track steady-state step timing; call .step() after each synced step."""
-
-    def __init__(self, warmup: int = 2, flops_per_step: Optional[float] = None):
-        self.warmup = warmup
-        self.flops_per_step = flops_per_step
-        self.count = 0
-        self._t0: Optional[float] = None
-
-    def step(self) -> None:
-        self.count += 1
-        if self.count == self.warmup:
-            self._t0 = time.perf_counter()
-
-    @property
-    def measured_steps(self) -> int:
-        return max(self.count - self.warmup, 0)
-
-    def summary(self, batch_size: int, seq_len: int) -> Dict[str, float]:
-        if self._t0 is None or self.measured_steps == 0:
-            return {}
-        dt = (time.perf_counter() - self._t0) / self.measured_steps
-        out = {
-            "step_time_s": dt,
-            "steps_per_sec": 1.0 / dt,
-            "examples_per_sec": batch_size / dt,
-            "tokens_per_sec": batch_size * seq_len / dt,
-        }
-        if self.flops_per_step:
-            out["tflops_per_sec"] = self.flops_per_step / dt / 1e12
-        return out
+_ON = False
+_OFF = contextlib.nullcontext()
 
 
-@contextlib.contextmanager
-def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
-    """Profile the enclosed work (CPU, and CUDA when present) and write a
-    Chrome trace to log_dir/trace.json."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+def enable(flag: bool) -> None:
+    """Switch every span on or off (off at import)."""
+    global _ON
+    _ON = bool(flag)
+
+
+def span(name: str, **args):
+    """A context manager for the named region. Off, the one shared no-op.
+    On, a `torch.profiler.record_function` whose name carries the args
+    (`engine.admit[requests=2]`): the profiler keeps a record_function's own
+    args string nowhere a trace reader sees."""
+    if not _ON:
+        return _OFF
+    if args:
+        name = f"{name}[{','.join(f'{k}={v}' for k, v in args.items())}]"
+    return torch.profiler.record_function(name)
 
 
 def train_step_flops(cfg, batch_size: int, seq_len: int) -> float:
